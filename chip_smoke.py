@@ -11,16 +11,21 @@ port, never the JAX package, through six phases, each printing one JSON line:
 3. parity: every kernel against its plain PyTorch version at Mistral-7B
    shapes, with its time, the plain version's time, a library call's time
    where one PyTorch call computes the same function, and its bound (the
-   larger of bytes over 3.35 TB/s and operations over the peak rate);
+   larger of bytes over 3.35 TB/s and operations over the peak rate); the
+   whole-step megakernel at full width and 32 layers in three cases, and
+   the cost of one of its grid barriers;
 4. main path: ``Engine.generate`` at full Mistral-7B width (32 layers,
    random i8 weights from a seed, bf16 cache): a 512-token prompt and 64
-   greedy tokens, every kernel's launch counter read around the call;
+   greedy tokens, every kernel's launch counter set to 0 just before and
+   read just after, once on the default decode path (the megakernel) and
+   once with ``fused_step=False`` (the per-layer kernels), each with a
+   profile of its decode steps;
 5. wrap: the same widths at 2 layers and a 256-slot window, 600 decode
-   steps through three ring wraps, once with the kernels and once with
-   their plain versions on the card: teacher-forced logits of random
-   weights within 1e-2 of max |logits|, and identical free-running greedy
-   tokens of a model whose next token attention decides (see
-   ``phase_wrap``);
+   steps through three ring wraps, the kernels against their plain
+   versions on the card, on both decode paths (the megakernel with the i8
+   head): teacher-forced logits of random weights within 1e-2 of max
+   |logits|, and identical free-running greedy tokens of a model whose
+   next token attention decides (see ``phase_wrap``);
 6. the kernels' summary line, then the result line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
@@ -85,7 +90,8 @@ class Cases:
         self.rows: list[dict] = []
 
     def add(self, kernel: str, case: str, got, want, row: int, tol: float, kernel_fn, plain_fn,
-            library_fn, nbytes: float, flops: float, peak: float) -> dict:
+            library_fn, nbytes: float, flops: float, peak: float, extra=None,
+            extra_ok: bool = True) -> dict:
         import torch
 
         got = got.float().reshape(-1, row)
@@ -96,7 +102,7 @@ class Cases:
         ref_rows = want.abs().amax(dim=1)
         rel = float((err_rows / ref_rows.clamp_min(1e-30)).max())
         err = float(err_rows.max())
-        ok = err == 0.0 if tol == 0.0 else rel <= tol
+        ok = (err == 0.0 if tol == 0.0 else rel <= tol) and extra_ok
         b_ms, b_by = bound(nbytes, flops, peak)
         library_ms, library_error = None, None
         if library_fn is not None:
@@ -113,10 +119,12 @@ class Cases:
         }
         if library_error is not None:
             rec["library_error"] = library_error
+        rec.update(extra or {})
         emit(rec)
         self.rows.append(rec)
         if not ok:
-            raise AssertionError(f"{kernel} {case}: row error {rel} (abs {err}) > tol {tol}")
+            raise AssertionError(f"{kernel} {case}: row error {rel} (abs {err}) > tol {tol}, "
+                                 f"or a further check failed: {extra}")
         return rec
 
 
@@ -293,17 +301,191 @@ def phase_parity(params, cfg, cases: Cases) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_main(params, cfg) -> dict:
+# megakernel parity (phase 3), each output row against its own max |plain|.
+# Kernel and plain version sum the same exact products in another order, so
+# an f32 ulp of difference can flip the bf16 rounding of one activation
+# (2^-8 of it) before a matmul. One flipped normed activation moves the
+# next x by far more than f32 rounding, and 32 layers carry such flips on,
+# so the plain version is just as far from itself when only the order of
+# its sums changes. Each case measures that floor: the plain version on the
+# model with its residual dimension permuted (on the H100, 1.0-1.5e-2 of
+# max |x| at 32 layers, the kernel 1.2-1.8e-2). x, the logits and each
+# cache row (hd values) within FUSED_TOL of their max; x also within
+# FUSED_FLOOR_RATIO times its floor (or 1e-3); 95 % of the cache values
+# within one bf16 ulp; the token equal wherever the plain top-2 margin is
+# above twice FUSED_TOL of max |logits|, and always the argmax of the
+# kernel's logits.
+FUSED_TOL = 5e-2
+FUSED_FLOOR_RATIO = 4.0
+FUSED_ULP_SHARE = 0.95
+
+
+def _row_rel(got, want, row: int) -> float:
+    got, want = got.float().reshape(-1, row), want.float().reshape(-1, row)
+    err = (got - want).abs().amax(dim=1)
+    return float((err / want.abs().amax(dim=1).clamp_min(1e-30)).max())
+
+
+def _ulp_share(got, want) -> float:
+    """Share of the values of a bf16 tensor within one bf16 ulp of want."""
+    import torch
+
+    g, w = got.float(), want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(2.0 ** -126))) - 7)
+    return float(((g - w).abs() <= ulp).float().mean())
+
+
+def _model_dim_permuted(p, perm):
+    """The same model with its residual dimension permuted by ``perm``: each
+    matmul over the model dimension, and each rms, sums its terms in another
+    order; x comes out permuted. (embed, norms, wqkv, w13 and the head by
+    column; wo and w2 by output row.)"""
+    from xalm_tpu_torch.models.params import QWeight
+
+    def cols(w):
+        return QWeight(w.values[..., perm].contiguous(), w.scale)
+
+    def rows(w):
+        return QWeight(w.values[:, perm].contiguous(), w.scale[:, perm].contiguous())
+
+    lp = p.layers
+    layers = dataclasses.replace(lp, attn_norm=lp.attn_norm[:, perm], mlp_norm=lp.mlp_norm[:, perm],
+                                 wqkv=cols(lp.wqkv), w13=cols(lp.w13), wo=rows(lp.wo), w2=rows(lp.w2))
+    return dataclasses.replace(p, embed=cols(p.embed), layers=layers, out_norm=p.out_norm[perm],
+                               wcls=cols(p.wcls))
+
+
+def phase_fused_parity(params, cfg, cases: Cases) -> dict:
+    """The megakernel against its plain version at full width and 32 layers
+    (bf16 cache, random planes), three cases: (a) B=1 at kv_len 520 with the
+    embed fold; (b) B=1 at a wrapped position (sink rotation) with the embed
+    and i8-head folds; (c) B=4 with one row at the kv_pos == S sentinel.
+    Then the cost of one grid barrier on the kernel's grid."""
+    import torch
+
+    from xalm_tpu_torch.models.llama import rope_constants, rope_tables
+    from xalm_tpu_torch.models.params import recode_wcls_i8
+    from xalm_tpu_torch.ops import build
+    from xalm_tpu_torch.ops import fused_decode as fd
+    from xalm_tpu_torch.runtime.cache import KVCache, ring_indices
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 5)
+    L, S, N = cfg.n_layers, cfg.max_seq_len, cfg.dim
+    kh, hd = cfg.n_kv_heads, cfg.head_dim
+    freqs, c1, s1 = rope_constants(cfg, dev)
+    freqs_h = rope_constants(cfg, torch.device("cpu"))[0]
+    head_params = recode_wcls_i8(params)
+    lp = params.layers
+    w_elems = sum(w.values.numel() for w in (lp.wqkv, lp.wo, lp.w13, lp.w2))
+    w_bytes = w_elems + 4 * sum(w.scale.numel() for w in (lp.wqkv, lp.wo, lp.w13, lp.w2)) + 8 * L * N
+
+    for case, pos_list, embed, head, sentinel in (
+            ("B=1 kv_len=520, embed fold", [519], True, False, None),
+            ("B=1 wrapped (sink rotation), embed + i8-head folds", [S + 700], True, True, None),
+            ("B=4, row 2 at the kv_pos == S sentinel", [519, 1200, 300, S + 5], False, False, 2)):
+        b = len(pos_list)
+        p = head_params if head else params
+        pos = torch.tensor(pos_list, dtype=torch.int32)
+        _, kv_pos, kv_len = ring_indices(pos, S)
+        rot = (pos >= S).to(torch.int32)
+        if sentinel is not None:
+            kv_pos[sentinel], rot[sentinel] = S, 0
+        shape = KVCache.plane_shape(cfg, b)
+        ck = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        cv = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        tok = torch.randint(3, cfg.vocab_size, (b,), generator=gen, device=dev).cpu()
+        kw = dict(wcls=p.wcls, out_norm=p.out_norm) if head else {}
+        if embed:
+            kw.update(embed=p.embed, token=tok, pos=pos, freqs=freqs)
+            x0 = ce = se = None
+        else:
+            x0 = p.embed.values[tok.to(dev)].float()
+            ce, se = (z[:, 0, 0] for z in rope_tables(pos[:, None], freqs_h))
+
+        def args(k, v, x0=x0, ce=ce, se=se, p=p, kv_pos=kv_pos, kv_len=kv_len, rot=rot):
+            return (p, cfg, x0, k, v, kv_pos, kv_len, rot, ce, se, c1, s1)
+
+        k1, v1, k2, v2 = ck.clone(), cv.clone(), ck.clone(), cv.clone()
+        got = fd.fused_decode_step(*args(k1, v1), **kw)
+        want = fd.fused_decode_step_plain(*args(k2, v2), **kw)
+        # the floor: the plain version against itself on the permuted model
+        perm = torch.randperm(N, generator=gen, device=dev)
+        q = _model_dim_permuted(p, perm)
+        q_kw = dict(kw, **(dict(wcls=q.wcls, out_norm=q.out_norm) if head else {}),
+                    **(dict(embed=q.embed) if embed else {}))
+        k3, v3 = ck.clone(), cv.clone()
+        floor = list(fd.fused_decode_step_plain(
+            q, cfg, None if x0 is None else x0[:, perm], *args(k3, v3)[3:], **q_kw))
+        floor[0] = floor[0][:, torch.argsort(perm)]
+        del q, q_kw
+        torch.cuda.synchronize()
+        x_rel, x_floor = _row_rel(got[0], want[0], N), _row_rel(floor[0], want[0], N)
+        extra = {"batch": b, "positions": pos_list, "kv_len": kv_len.tolist(),
+                 "x_floor_row_rel": x_floor,
+                 "cache_k_row_rel": _row_rel(k1, k2, hd), "cache_v_row_rel": _row_rel(v1, v2, hd),
+                 "cache_k_floor_row_rel": _row_rel(k3, k2, hd),
+                 "cache_v_floor_row_rel": _row_rel(v3, v2, hd),
+                 "cache_ulp_share": min(_ulp_share(k1, k2), _ulp_share(v1, v2))}
+        if sentinel is not None:  # the dropped row: every attended slot as it was
+            extra["sentinel_row_unchanged"] = bool(
+                torch.equal(k1[:, sentinel, :, :S], ck[:, sentinel, :, :S])
+                and torch.equal(v1[:, sentinel, :, :S], cv[:, sentinel, :, :S]))
+        ok = (x_rel <= max(FUSED_FLOOR_RATIO * x_floor, 1e-3)  # 1e-3: a floor of no flip at all
+              and extra["cache_k_row_rel"] <= FUSED_TOL and extra["cache_v_row_rel"] <= FUSED_TOL
+              and extra["cache_ulp_share"] >= FUSED_ULP_SHARE and extra.get("sentinel_row_unchanged", True))
+        nbytes = w_bytes + b * N * (2 if embed else 4) + b * N * 4
+        nbytes += 2 * L * kh * hd * 2 * (int(kv_len.sum()) + b)  # cache rows read, rows written
+        nbytes += 2 * 2 * L * kh * 2 * hd * 2 * int(rot.sum())  # sinks read and written
+        flops = 2.0 * b * w_elems + 4.0 * L * cfg.n_heads * hd * int(kv_len.sum())
+        if head:
+            v_ = p.wcls.values.shape[0]
+            nbytes += v_ * N + v_ * 4 + N * 4 + b * v_ * 4 + b * 4
+            flops += 2.0 * b * v_ * N
+            extra["logits_row_rel"] = _row_rel(got[1], want[1], v_)
+            extra["logits_floor_row_rel"] = _row_rel(floor[1], want[1], v_)
+            top2 = want[1].topk(2, dim=-1).values
+            clear = (top2[:, 0] - top2[:, 1]) > 2 * FUSED_TOL * want[1].abs().amax(dim=-1)
+            extra["token_equal"] = bool(torch.equal(got[2][clear], want[2][clear]))
+            extra["token_is_argmax"] = bool(torch.equal(got[2], got[1].argmax(dim=-1).to(torch.int32)))
+            ok = ok and extra["logits_row_rel"] <= FUSED_TOL and extra["token_equal"] \
+                and extra["token_is_argmax"]
+        cases.add("fused_decode", case, got[0], want[0], N, FUSED_TOL,
+                  lambda a=args(ck, cv), kw=kw: fd.fused_decode_step(*a, **kw),
+                  lambda a=args(ck, cv), kw=kw: fd.fused_decode_step_plain(*a, **kw),
+                  None, nbytes, flops, PEAK_BF16, extra=extra, extra_ok=ok)
+        del ck, cv, k1, v1, k2, v2, k3, v3, got, want, floor
+        torch.cuda.empty_cache()
+
+    lib = build.load_library("fused_decode")
+    bar = torch.zeros((256,), dtype=torch.uint8, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    iters = 4000
+    build.check(lib.xq_grid_barrier_bench(bar.data_ptr(), 10, stream), "grid barrier")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    build.check(lib.xq_grid_barrier_bench(bar.data_ptr(), iters, stream), "grid barrier")
+    end.record()
+    end.synchronize()
+    row = {"phase": "megakernel", "grid_blocks": lib.xq_fused_decode_grid(),
+           "sms": torch.cuda.get_device_properties(dev).multi_processor_count,
+           "barrier_us": start.elapsed_time(end) / iters * 1e3,
+           "barriers_per_step": 1 + 7 * L, "barriers_per_step_head_fold": 2 + 7 * L}
+    emit(row)
+    return row
+
+
+def _main_run(eng, cfg, prompt, label: str) -> dict:
+    """One main-path run: warm up, then ``Engine.generate`` of a 512-token
+    prompt and 64 greedy tokens with every launch counter set to 0 just
+    before and read just after; the launches of one 512-token prefill chunk
+    and of one decode step; the profile of the decode steps."""
     import numpy as np
     import torch
 
     from xalm_tpu_torch.ops import build
-    from xalm_tpu_torch.runtime.engine import Engine
 
-    eng = Engine(cfg, params, kv_dtype=torch.bfloat16)  # the kernel path
-    if eng.decode_path(1) != "perlayer":
-        raise AssertionError(f"decode path {eng.decode_path(1)!r}, expected 'perlayer'")
-    prompt = np.random.default_rng(SEED).integers(3, cfg.vocab_size, size=512).tolist()
     eng.generate(prompt[:32], 2, stop_on_eos=False)  # warm-up (allocator, first launches)
     torch.cuda.synchronize()
 
@@ -311,11 +493,8 @@ def phase_main(params, cfg) -> dict:
     out, stats = eng.generate(prompt, 64, stop_on_eos=False)
     torch.cuda.synchronize()
     launches = dict(build.LAUNCHES)
-    missing = [k for k, n in launches.items() if n == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: {missing}")
     if len(out) != 64:
-        raise AssertionError(f"generated {len(out)} tokens, expected 64")
+        raise AssertionError(f"{label}: generated {len(out)} tokens, expected 64")
 
     # launches per 512-token prefill chunk and per decode token
     build.reset_launches()
@@ -328,12 +507,14 @@ def phase_main(params, cfg) -> dict:
     torch.cuda.synchronize()
     for lg in (logits, logits2):
         if lg.shape != (1, cfg.vocab_size) or not torch.isfinite(lg).all():
-            raise AssertionError("main path logits are not finite (1, vocab)")
+            raise AssertionError(f"{label}: main path logits are not finite (1, vocab)")
+    prof = phase_profile(eng, prompt, out[-1], label)
     weights_gb = eng.active_bytes(len(prompt)) / 1e9
     row = {
-        "phase": "main_path", "layers": cfg.n_layers, "dim": cfg.dim, "hidden": cfg.hidden_dim,
-        "vocab": cfg.vocab_size, "window": cfg.max_seq_len, "prompt_tokens": len(prompt),
-        "generated_tokens": stats.generated_tokens, "decode_path": eng.decode_path(1),
+        "phase": "main_path", "run": label, "layers": cfg.n_layers, "dim": cfg.dim,
+        "hidden": cfg.hidden_dim, "vocab": cfg.vocab_size, "window": cfg.max_seq_len,
+        "prompt_tokens": len(prompt), "generated_tokens": stats.generated_tokens,
+        "decode_path": eng.decode_path(1),
         "prefill_s": stats.prefill_s, "prefill_tok_s": len(prompt) / stats.prefill_s,
         "decode_s": stats.decode_s, "decode_tok_s": stats.tok_per_s,
         "decode_ms_per_token": stats.decode_s / stats.generated_tokens * 1e3,
@@ -343,12 +524,43 @@ def phase_main(params, cfg) -> dict:
         "bound_ms_per_token": weights_gb * 1e9 / HBM_BYTES_PER_S * 1e3,
         "launches": launches, "launches_per_512_chunk": per_chunk,
         "launches_per_decode_token": per_token,
+        "decode_device_busy_ms_per_token": prof["decode"]["device_busy_ms"] / prof["decode"]["steps"],
+        "decode_device_idle_share": prof["decode"]["device_idle_share"],
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "tokens_head": out[:8],
     }
     emit(row)
-    phase_profile(eng, prompt, out[-1])
     return row
+
+
+def phase_main(params, cfg) -> dict:
+    """The main path twice: the default decode path (the megakernel: one
+    fused_decode launch per decode token) and ``fused_step=False`` (the
+    per-layer kernels). Every kernel of the port must launch in one of the
+    two runs. Returns the launches of both runs, summed."""
+    import numpy as np
+    import torch
+
+    from xalm_tpu_torch.ops import build
+    from xalm_tpu_torch.runtime.engine import Engine
+
+    prompt = np.random.default_rng(SEED).integers(3, cfg.vocab_size, size=512).tolist()
+    mk = Engine(cfg, params, kv_dtype=torch.bfloat16)  # the defaults: kernels, megakernel decode
+    if mk.decode_path(1) != "megakernel":
+        raise AssertionError(f"decode path {mk.decode_path(1)!r}, expected 'megakernel'")
+    row_mk = _main_run(mk, cfg, prompt, "megakernel")
+    if row_mk["launches"]["fused_decode"] != 63 or row_mk["launches_per_decode_token"]["fused_decode"] != 1:
+        raise AssertionError(f"megakernel run: {row_mk['launches']}, "
+                             f"per token {row_mk['launches_per_decode_token']}: expected 63 and 1")
+    pl = Engine(cfg, params, kv_dtype=torch.bfloat16, fused_step=False)
+    if pl.decode_path(1) != "perlayer":
+        raise AssertionError(f"decode path {pl.decode_path(1)!r}, expected 'perlayer'")
+    row_pl = _main_run(pl, cfg, prompt, "perlayer")
+    launches = {k: row_mk["launches"][k] + row_pl["launches"][k] for k in build.LAUNCHES}
+    missing = [k for k, n in launches.items() if n == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the main path: {missing}")
+    return {"launches": launches}
 
 
 # kernel-name fragments of the port's CUDA kernels, by wrapper
@@ -357,6 +569,7 @@ _PROFILE_GROUPS = {
     "kv_update": ("kv_update_kernel",),
     "flash_decode": ("flash_decode_split_kernel", "flash_decode_combine_kernel"),
     "flash_prefill": ("flash_prefill_kernel",),
+    "fused_decode": ("fused_decode_kernel",),
 }
 
 
@@ -379,7 +592,7 @@ def _device_times(prof) -> tuple[dict, list]:
     return out, sorted(top, key=lambda r: -r[1])[:10]
 
 
-def phase_profile(eng, prompt, token) -> dict:
+def phase_profile(eng, prompt, token, label: str) -> dict:
     """torch.profiler over one 512-token prefill and 8 decode steps: device
     time by kernel, wall time, and the device's idle share."""
     import numpy as np
@@ -405,7 +618,7 @@ def phase_profile(eng, prompt, token) -> dict:
             "device_busy_ms": busy,
             "device_idle_share": (1.0 - busy / wall_ms) if busy > 0 else "not measured",
         }
-    emit({"phase": "profile", **rows})
+    emit({"phase": "profile", "run": label, **rows})
     return rows
 
 
@@ -523,10 +736,13 @@ def copy_params(cfg, seed: int):
     return params, perm_inv.tolist()
 
 
-def phase_wrap(cfg) -> dict:
+def phase_wrap(cfg) -> list[dict]:
     """The kernels against their plain versions through three ring wraps,
     at the main path's widths with 2 layers and a 256-slot window (a
-    200-token prompt, 600 decode steps):
+    200-token prompt, 600 decode steps), on each decode path: the
+    per-layer kernels (``fused_step=False`` on both engines) and the
+    megakernel with the i8 head (``wcls_i8=True`` on both: the plain engine
+    runs the megakernel's plain version):
 
     (a) random weights, teacher-forced: the logits of every step within
         WRAP_TOL of that step's max |logits|;
@@ -534,7 +750,7 @@ def phase_wrap(cfg) -> dict:
         run's and the plain run's 601 tokens are identical, and both equal
         the recurrence token[i + 1] = perm_inv[token[i - 1]], which holds
         only if each step's attention finds the previous token's row in
-        the ring."""
+        the ring. Its head rows are +-1, so the i8 recode is exact."""
     import numpy as np
     import torch
 
@@ -544,43 +760,48 @@ def phase_wrap(cfg) -> dict:
     cfg2 = dataclasses.replace(cfg, n_layers=2, max_seq_len=256)
     steps = 600
     prompt = np.random.default_rng(SEED + 1).integers(3, cfg.vocab_size, size=200).tolist()
+    rows = []
+    for path, kw in (("perlayer", dict(fused_step=False)), ("megakernel", dict(wcls_i8=True))):
+        def engines(params, kw=kw):
+            return (Engine(cfg2, params, kv_dtype=torch.bfloat16, matmul_impl="kernel", **kw),
+                    Engine(cfg2, params, kv_dtype=torch.bfloat16, matmul_impl="plain", **kw))
 
-    def engines(params):
-        return (Engine(cfg2, params, kv_dtype=torch.bfloat16, matmul_impl="kernel"),
-                Engine(cfg2, params, kv_dtype=torch.bfloat16, matmul_impl="plain"))
+        params = synthetic_params(cfg2, device=DEVICE, seed=SEED + 1)
+        ek, ep = engines(params)
+        if ek.decode_path(1) != path:
+            raise AssertionError(f"wrap phase: decode path {ek.decode_path(1)!r}, expected {path!r}")
+        forced = _teacher_forced(ek, ep, prompt, steps)
+        del params, ek, ep
 
-    params = synthetic_params(cfg2, device=DEVICE, seed=SEED + 1)
-    forced = _teacher_forced(*engines(params), prompt, steps)
-    del params
-
-    params, perm_inv = copy_params(cfg2, SEED + 2)
-    expected = list(prompt)
-    for _ in range(steps + 1):
-        expected.append(perm_inv[expected[-2]])
-    expected = expected[len(prompt):]
-    ek, ep = engines(params)
-    got_k, _ = ek.generate(prompt, steps + 1, stop_on_eos=False)
-    got_p, _ = ep.generate(prompt, steps + 1, stop_on_eos=False)
-    final_pos = len(prompt) + steps
-    copy = {"steps": steps, "final_pos": final_pos,
-            "kernel_equal_recurrence": sum(a == b for a, b in zip(got_k, expected)),
-            "plain_equal_recurrence": sum(a == b for a, b in zip(got_p, expected)),
-            "kernel_equal_plain": sum(a == b for a, b in zip(got_k, got_p)),
-            "distinct_tokens": len(set(got_k)), "tokens_head": got_k[:8]}
-    row = {"phase": "wrap", "layers": 2, "window": 256, "prompt_tokens": len(prompt),
-           "ring_wraps": _ring_wraps(final_pos, 256), "tol_rel": WRAP_TOL,
-           "random_teacher_forced": forced, "copy_free_running": copy,
-           "tokens_identical": got_k == got_p == expected}
-    emit(row)
-    if row["ring_wraps"] < 3:
-        raise AssertionError(f"wrap phase: {row['ring_wraps']} ring wraps, expected 3")
-    if forced["max_rel_logit_err"] > WRAP_TOL:
-        raise AssertionError(f"wrap phase (teacher-forced): {forced}")
-    if not row["tokens_identical"]:
-        raise AssertionError(f"wrap phase (copy model): greedy tokens differ: {copy}")
-    del params, ek, ep
-    torch.cuda.empty_cache()
-    return row
+        params, perm_inv = copy_params(cfg2, SEED + 2)
+        expected = list(prompt)
+        for _ in range(steps + 1):
+            expected.append(perm_inv[expected[-2]])
+        expected = expected[len(prompt):]
+        ek, ep = engines(params)
+        got_k, _ = ek.generate(prompt, steps + 1, stop_on_eos=False)
+        got_p, _ = ep.generate(prompt, steps + 1, stop_on_eos=False)
+        final_pos = len(prompt) + steps
+        copy = {"steps": steps, "final_pos": final_pos,
+                "kernel_equal_recurrence": sum(a == b for a, b in zip(got_k, expected)),
+                "plain_equal_recurrence": sum(a == b for a, b in zip(got_p, expected)),
+                "kernel_equal_plain": sum(a == b for a, b in zip(got_k, got_p)),
+                "distinct_tokens": len(set(got_k)), "tokens_head": got_k[:8]}
+        row = {"phase": "wrap", "decode_path": path, "layers": 2, "window": 256,
+               "prompt_tokens": len(prompt), "ring_wraps": _ring_wraps(final_pos, 256),
+               "tol_rel": WRAP_TOL, "random_teacher_forced": forced, "copy_free_running": copy,
+               "tokens_identical": got_k == got_p == expected}
+        emit(row)
+        if row["ring_wraps"] < 3:
+            raise AssertionError(f"wrap phase: {row['ring_wraps']} ring wraps, expected 3")
+        if forced["max_rel_logit_err"] > WRAP_TOL:
+            raise AssertionError(f"wrap phase ({path}, teacher-forced): {forced}")
+        if not row["tokens_identical"]:
+            raise AssertionError(f"wrap phase ({path}, copy model): greedy tokens differ: {copy}")
+        rows.append(row)
+        del params, ek, ep
+        torch.cuda.empty_cache()
+    return rows
 
 
 SUMMARY = {
@@ -593,6 +814,8 @@ SUMMARY = {
                      "xalm_tpu/ops/pallas_attention.py:273", "B=1 kv_len=777"),
     "flash_prefill": ("cuda", "xalm_tpu_torch/csrc/attention.cu",
                       "xalm_tpu/ops/pallas_attention.py:555", "T=512 pos=0"),
+    "fused_decode": ("cuda", "xalm_tpu_torch/csrc/fused_decode.cu",
+                     "xalm_tpu/ops/fused_decode.py:106", "B=1 kv_len=520, embed fold"),
 }
 
 
@@ -629,6 +852,7 @@ def main() -> int:
     cases = Cases()
     with torch.inference_mode():
         phase_parity(params, cfg, cases)
+        phase_fused_parity(params, cfg, cases)
     main_row = phase_main(params, cfg)
     del params
     torch.cuda.empty_cache()

@@ -16,7 +16,13 @@ flip moved a row by 4e-4 of its max at N=1024); kv_update bit-equal (each produc
 the plain version's separate f32 operations); flash_prefill 2^-8 (the
 plain version copies the kernel's 64-key tiling, so p is rounded to bf16
 at the same running max, but a score that moves by an f32 ulp can flip one
-bf16 rounding of p, by 2^-8 of a p that may dominate its row).
+bf16 rounding of p, by 2^-8 of a p that may dominate its row). The
+megakernel (fused_decode) against its plain version through ring wraps:
+each step's x and logits within 2e-2 of the step's max, each cache row
+within 2e-2 of its max and 95 % of the cache values within one bf16 ulp
+(an f32 ulp of difference can flip the bf16 rounding of an activation
+before a matmul, and the flip stays in the cache: the reasons of
+tests/test_torch_fused.py).
 """
 
 import dataclasses
@@ -137,19 +143,159 @@ def test_attention_kernels_match_plain(dev):
 
 
 def test_engine_kernels_match_plain_through_wraps(dev):
+    """Both decode paths against the plain engine through three wraps: the
+    per-layer kernels give the same greedy tokens; the megakernel (its
+    bf16 roundings flip where the per-layer path's do not) is held
+    teacher-forced, each step's logits within 2e-2 of their max."""
     from xalm_tpu_torch.runtime.engine import Engine
     from xalm_tpu_torch.utils.synthetic import synthetic_params
 
     cfg = dataclasses.replace(MISTRAL_7B, dim=512, hidden_dim=1024, n_layers=2,
                               vocab_size=512, max_seq_len=64)
     params = synthetic_params(cfg, device=dev, seed=3)
+    total = dict.fromkeys(build.LAUNCHES, 0)
+    prompt = list(range(3, 40))
+    ek = Engine(cfg, params, kv_dtype=torch.bfloat16, matmul_impl="kernel", fused_step=False)
+    ep = Engine(cfg, params, kv_dtype=torch.bfloat16, matmul_impl="plain", fused_step=False)
+    build.reset_launches()
+    got, _ = ek.generate(prompt, 3 * 64, stop_on_eos=False)
+    total = {k: total[k] + n for k, n in build.LAUNCHES.items()}
+    want, _ = ep.generate(prompt, 3 * 64, stop_on_eos=False)
+    assert got == want
+
     ek = Engine(cfg, params, kv_dtype=torch.bfloat16, matmul_impl="kernel")
     ep = Engine(cfg, params, kv_dtype=torch.bfloat16, matmul_impl="plain")
+    assert ek.decode_path(1) == "megakernel"
     build.reset_launches()
-    got, _ = ek.generate(list(range(3, 40)), 3 * 64, stop_on_eos=False)
-    assert all(n > 0 for n in build.LAUNCHES.values()), build.LAUNCHES
-    want, _ = ep.generate(list(range(3, 40)), 3 * 64, stop_on_eos=False)
-    assert got == want
+    lk, ck, pos = ek.prefill(prompt, ek.new_cache(1))
+    lp, cp, _ = ep.prefill(prompt, ep.new_cache(1))
+    for _ in range(3 * 64):
+        tok = np.array([int(lk.argmax())])
+        lk, ck = ek.decode(tok, np.array([pos], np.int32), ck)
+        lp, cp = ep.decode(tok, np.array([pos], np.int32), cp)
+        assert float((lk - lp).abs().max()) <= 2e-2 * float(lp.abs().max()), pos
+        pos += 1
+    assert build.LAUNCHES["fused_decode"] == 3 * 64
+    total = {k: total[k] + n for k, n in build.LAUNCHES.items()}
+    assert all(n > 0 for n in total.values()), total
+
+
+FUSED_CFG = dict(dim=256, hidden_dim=512, n_layers=2, n_heads=4, n_kv_heads=2, vocab_size=320,
+                 max_seq_len=48)
+
+
+def _ulp_share(got, want) -> float:
+    g, w = got.float(), want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(2.0 ** -126))) - 7)
+    return float(((g - w).abs() <= ulp).float().mean())
+
+
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("folds", [False, True])
+def test_fused_decode_matches_plain_through_wraps(dev, b, folds):
+    """The megakernel against its plain version, each with its own bf16
+    caches, from position 0 through three wraps of a 48-slot window; rows
+    start at different positions and, at B = 3, row 1 sits at the kv_pos ==
+    S sentinel. ``folds``: the embed fold and the i8-head fold."""
+    from xalm_tpu_torch.models.llama import rope_constants, rope_tables
+    from xalm_tpu_torch.models.params import recode_wcls_i8
+    from xalm_tpu_torch.ops import fused_decode as fd
+    from xalm_tpu_torch.runtime.cache import KVCache, ring_indices
+    from xalm_tpu_torch.utils.synthetic import synthetic_params
+
+    cfg = dataclasses.replace(MISTRAL_7B, **FUSED_CFG)
+    params = synthetic_params(cfg, device=dev, seed=b)
+    if folds:
+        params = recode_wcls_i8(params)
+    s = cfg.max_seq_len
+    freqs, c1, s1 = rope_constants(cfg, dev)
+    shape = KVCache.plane_shape(cfg, b)
+    ck, cv = torch.zeros(shape, dtype=torch.bfloat16, device=dev), torch.zeros(
+        shape, dtype=torch.bfloat16, device=dev)
+    pk, pv = ck.clone(), cv.clone()
+    rng = np.random.default_rng(b)
+    start = np.array([0, 7, 20][:b])
+    build.reset_launches()
+    steps = s + 2 * (s - 2) + 4
+    for st in range(steps):
+        pos = torch.from_numpy((start + st).astype(np.int32))
+        _, kv_pos, kv_len = ring_indices(pos, s)
+        rot = (pos >= s).to(torch.int32)
+        if b == 3:
+            kv_pos[1], rot[1] = s, 0
+        tok = torch.from_numpy(rng.integers(3, cfg.vocab_size, size=b))
+        kw = {}
+        if folds:
+            kw = dict(wcls=params.wcls, out_norm=params.out_norm, embed=params.embed, token=tok,
+                      pos=pos, freqs=freqs)
+            x0 = ce = se = None
+        else:
+            x0 = params.embed.values[tok.to(dev)].float()
+            ce, se = (z[:, 0, 0] for z in rope_tables(pos[:, None], freqs.cpu()))
+        got = fd.fused_decode_step(params, cfg, x0, ck, cv, kv_pos, kv_len, rot, ce, se, c1, s1,
+                                   **kw)
+        want = fd.fused_decode_step_plain(params, cfg, x0, pk, pv, kv_pos, kv_len, rot, ce, se,
+                                          c1, s1, **kw)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got[0]).all()
+        assert _row_rel(got[0], want[0], cfg.dim) <= 2e-2, st
+        if folds:
+            assert _row_rel(got[1], want[1], cfg.vocab_size) <= 2e-2, st
+            assert torch.equal(got[2], got[1].argmax(dim=-1).to(torch.int32))
+            top2 = want[1].topk(2, dim=-1).values
+            clear = (top2[:, 0] - top2[:, 1]) > 4e-2 * want[1].abs().amax(dim=-1)
+            assert torch.equal(got[2][clear], want[2][clear]), st
+    assert build.LAUNCHES["fused_decode"] == steps
+    for got_c, want_c in ((ck, pk), (cv, pv)):
+        assert _row_rel(got_c, want_c, cfg.head_dim) <= 2e-2
+        assert _ulp_share(got_c, want_c) >= 0.95
+
+
+def test_fused_decode_refuses_what_it_does_not_take(dev):
+    from types import SimpleNamespace
+
+    from xalm_tpu_torch.models.llama import rope_constants
+    from xalm_tpu_torch.ops import fused_decode as fd
+    from xalm_tpu_torch.utils.synthetic import synthetic_params
+
+    cfg = dataclasses.replace(MISTRAL_7B, **FUSED_CFG)
+    params = synthetic_params(cfg, device=dev, seed=0)
+    _, c1, s1 = rope_constants(cfg, dev)
+
+    def call(b=1, dtype=torch.bfloat16, p=params, **kw):
+        shape = (cfg.n_layers, b, cfg.n_kv_heads, 64, cfg.head_dim)
+        z = torch.zeros(shape, dtype=dtype, device=dev)
+        i = torch.zeros((b,), dtype=torch.int32)
+        trig = torch.ones((b, cfg.head_dim), device=dev), torch.zeros((b, cfg.head_dim), device=dev)
+        return fd.fused_decode_step(p, cfg, torch.zeros((b, cfg.dim), device=dev), z, z.clone(),
+                                    i, i + 1, i, *trig, c1, s1, **kw)
+
+    call()  # the shapes the refusals below change
+    with pytest.raises(ValueError, match="int8 KV"):
+        z = torch.zeros((cfg.n_layers, 1, cfg.n_kv_heads, 64), device=dev)
+        call(dtype=torch.int8, k_scale=z, v_scale=z)
+    with pytest.raises(ValueError, match="batch"):
+        call(b=9)
+    with pytest.raises(ValueError, match="bf16"):
+        call(dtype=torch.float32)
+    lp = params.layers
+    q4 = SimpleNamespace(values=lp.w2.values, scale=lp.w2.scale, q4group=128)
+    with pytest.raises(ValueError, match="q4"):
+        call(p=dataclasses.replace(params, layers=dataclasses.replace(lp, w2=q4)))
+
+
+def test_engine_on_the_card_takes_the_megakernel(dev):
+    from xalm_tpu_torch.runtime.engine import Engine
+    from xalm_tpu_torch.utils.synthetic import synthetic_params
+
+    cfg = dataclasses.replace(MISTRAL_7B, **FUSED_CFG)
+    eng = Engine(cfg, synthetic_params(cfg, device=dev, seed=1), kv_dtype=torch.bfloat16)
+    assert eng.decode_path(1) == "megakernel" and eng.decode_path(9) == "perlayer"
+    build.reset_launches()
+    out, _ = eng.generate([3, 4, 5, 6], 20, stop_on_eos=False)
+    assert len(out) == 20
+    assert build.LAUNCHES["fused_decode"] == 19
+    assert build.LAUNCHES["kv_update"] == build.LAUNCHES["flash_decode"] == 0
 
 
 @pytest.mark.parametrize("kv_dtype", [torch.float16, torch.float32])
@@ -187,7 +333,8 @@ def test_harness_on_the_card(dev, tmp_path, capsys):
     build.reset_launches()
     assert harness.main([path, "-d", "cuda", "-i", "hello world", "-n", "80"]) == 0
     out = capsys.readouterr().out
-    assert "decode path: perlayer" in out and "80 tokens" in out
-    assert all(n > 0 for n in build.LAUNCHES.values()), build.LAUNCHES
+    assert "decode path: megakernel" in out and "80 tokens" in out
+    assert all(build.LAUNCHES[k] > 0 for k in ("qmatmul", "flash_prefill", "fused_decode")), \
+        build.LAUNCHES
     assert harness.main([path, "-d", "cuda", "-m", "perplexity", "-i", "hello world " * 30]) == 0
     assert "perplexity:" in capsys.readouterr().out

@@ -41,8 +41,8 @@ def engines(tiny_i8):
         kv_dtype=jnp.float32, compute_dtype=jnp.float32, progress=False,
     )
     port = Engine.from_xalm(
-        tiny_i8, context=WINDOW, matmul_impl="kernel", kv_dtype=torch.float32,
-        compute_dtype=torch.float32, device="cpu",
+        tiny_i8, context=WINDOW, matmul_impl="kernel", fused_step=False,
+        kv_dtype=torch.float32, compute_dtype=torch.float32, device="cpu",
     )
     return ref, port
 
@@ -165,16 +165,16 @@ def test_port_harness_on_port_container(tmp_path, capsys):
     path = write_port_container(str(tmp_path / "port.xalm"))
     assert port_harness.main([path, "-d", "cpu", "-t", "bf16", "-i", "hello", "-n", "60"]) == 0
     out = capsys.readouterr().out
-    assert "decode path: perlayer" in out and "60 tokens" in out
+    assert "decode path: megakernel" in out and "60 tokens" in out
 
 
 @pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16, torch.float16])
 def test_kernel_impl_routes_every_step_through_the_kernel_wrappers(monkeypatch, kv_dtype):
     """With matmul_impl="kernel" every prefill chunk goes through the
     flash-prefill wrapper, whatever its length (here a 199-row chunk at a
-    200-slot window), and every decode step through kv_update and
-    flash-decode, for any cache dtype; the dense attention runs for "xla"
-    only."""
+    200-slot window), and, on the per-layer path (fused_step=False), every
+    decode step through kv_update and flash-decode, for any cache dtype;
+    the dense attention runs for "xla" only."""
     import dataclasses
 
     from xalm_tpu_torch.models import llama
@@ -201,7 +201,7 @@ def test_kernel_impl_routes_every_step_through_the_kernel_wrappers(monkeypatch, 
         raise AssertionError("the kernel path ran the dense attention")
 
     monkeypatch.setattr(llama, "attention", dense)
-    port = Engine(cfg, params, kv_dtype=kv_dtype, matmul_impl="kernel")
+    port = Engine(cfg, params, kv_dtype=kv_dtype, matmul_impl="kernel", fused_step=False)
     logits, cache, pos = port.prefill(prompt, port.new_cache(1))
     assert pos == 199 and calls == {"flash_prefill": 2, "kv_update": 0, "flash_decode": 0}
     assert torch.isfinite(logits).all()

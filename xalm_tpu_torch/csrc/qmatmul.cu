@@ -15,10 +15,11 @@
 // What bounds it on the H100:
 // - Decode (M <= 8): bytes. Each weight byte is used M times, far below the
 //   ~295 operations per byte where the tensor cores would become the limit,
-//   so the time is the weight stream over 3.35 TB/s. Design: one warp per
-//   output row pair, 16-byte weight loads (16 int8 or 8 bf16 per lane per
-//   step) with both rows' loads in flight, x normalised once per block into
-//   shared memory as bf16, warp-shuffle reductions, scale in the epilogue.
+//   so the time is the weight stream over 3.35 TB/s. Design (gemv.cuh,
+//   shared with the megakernel): one warp per output row pair, 16-byte
+//   weight loads (16 int8 or 8 bf16 per lane per step) with both rows'
+//   loads in flight, x normalised once per block into shared memory as
+//   bf16, warp-shuffle reductions, scale in the epilogue.
 // - Prefill (M up to 512): operations at M >= ~300, bytes below. Design: a
 //   first pass writes bf16(rmsnorm?(x)) once (one block per row); then a
 //   64x64-output-tile GEMM on bf16 WMMA (mma.sync) tensor-core fragments,
@@ -27,7 +28,7 @@
 
 #include <mma.h>
 
-#include "common.cuh"
+#include "gemv.cuh"
 
 using namespace nvcuda;
 
@@ -35,7 +36,7 @@ namespace {
 
 constexpr int GV_THREADS = 256;
 constexpr int GV_WARPS = GV_THREADS / 32;
-constexpr int GV_RPW = 2;  // output rows per warp
+constexpr int GV_RPW = 2;  // output rows per warp (xq_gemv2's pair)
 constexpr int GV_MAX_M = 8;
 constexpr int GV_MAX_SMEM = 160 * 1024;  // the bf16 copy of x held in shared memory
 
@@ -60,19 +61,6 @@ __device__ float block_rms(const float* __restrict__ xm, int n, float eps, float
 }
 
 template <typename WT>
-__device__ __forceinline__ void unpack16(const int4& raw, float* out) {
-  if constexpr (sizeof(WT) == 1) {
-    const int8_t* p = reinterpret_cast<const int8_t*>(&raw);
-#pragma unroll
-    for (int e = 0; e < 16; ++e) out[e] = (float)p[e];
-  } else {
-    const __nv_bfloat16* p = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) out[e] = __bfloat162float(p[e]);
-  }
-}
-
-template <typename WT>
 __global__ void __launch_bounds__(GV_THREADS) gemv_kernel(
     const float* __restrict__ x, const float* __restrict__ norm_w, float eps,
     const WT* __restrict__ w, const float* __restrict__ scale, float qscale,
@@ -94,41 +82,14 @@ __global__ void __launch_bounds__(GV_THREADS) gemv_kernel(
   }
   __syncthreads();
 
-  constexpr int EPL = 16 / sizeof(WT);  // weights per 16-byte load
   const int row0 = (blockIdx.x * GV_WARPS + warp) * GV_RPW;
   float acc[GV_RPW][GV_MAX_M];
 #pragma unroll
   for (int r = 0; r < GV_RPW; ++r)
 #pragma unroll
     for (int m = 0; m < GV_MAX_M; ++m) acc[r][m] = 0.f;
-
-  for (int n0 = lane * EPL; n0 < N; n0 += 32 * EPL) {
-    float wf[GV_RPW][EPL];
-#pragma unroll
-    for (int r = 0; r < GV_RPW; ++r) {
-      const int d = row0 + r;
-      int4 raw = make_int4(0, 0, 0, 0);
-      if (d < D) raw = __ldg(reinterpret_cast<const int4*>(w + (size_t)d * N + n0));
-      unpack16<WT>(raw, wf[r]);
-    }
-#pragma unroll
-    for (int m = 0; m < GV_MAX_M; ++m) {
-      if (m >= M) break;
-      float xf[EPL];
-      const int4* xp = reinterpret_cast<const int4*>(xs + (size_t)m * N + n0);
-#pragma unroll
-      for (int c = 0; c < EPL / 8; ++c) {
-        const int4 raw = xp[c];
-        const __nv_bfloat16* p = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) xf[c * 8 + e] = __bfloat162float(p[e]);
-      }
-#pragma unroll
-      for (int r = 0; r < GV_RPW; ++r)
-#pragma unroll
-        for (int e = 0; e < EPL; ++e) acc[r][m] += xf[e] * wf[r][e];
-    }
-  }
+  xq_gemv2<WT, GV_MAX_M>(xs, N, row0 < D ? w + (size_t)row0 * N : nullptr,
+                         row0 + 1 < D ? w + (size_t)(row0 + 1) * N : nullptr, 0, N, M, lane, acc);
 
 #pragma unroll
   for (int r = 0; r < GV_RPW; ++r) {

@@ -11,10 +11,15 @@
       -t <dtype>      kv cache dtype: auto (bf16 on cuda, f16 on cpu) | f16 | bf16 | f32
       --compute <d>   matmul compute dtype of the plain paths: auto | f32 | bf16
       --matmul <i>    auto (= kernel) | kernel | plain | xla
+      --wcls-i8       re-code a float head to i8 per row at load; the decode
+                      megakernel then runs the head in the same launch
 
-The JAX harness's passkey mode and its --wcls-i8, --q4, --temperature,
---spec, --draft, --session, --tp/--dp/--pp flags belong to later slices:
-they are accepted and refused with a message.
+Decode goes through the whole-step megakernel where it takes the model (i8
+body, bf16 cache on the card, B <= 8) and through the per-layer kernels
+otherwise; the stats print which ("decode path: ..."). The JAX harness's
+passkey mode and its --q4, --temperature, --spec, --draft, --session,
+--tp/--dp/--pp flags belong to later slices: they are accepted and refused
+with a message.
 """
 
 from __future__ import annotations
@@ -43,8 +48,9 @@ def _build_parser() -> argparse.ArgumentParser:
                    help="matmul compute dtype of the plain paths")
     p.add_argument("--matmul", default="auto", choices=["auto", "kernel", "plain", "xla"],
                    help="per-layer implementation (auto = kernel)")
+    p.add_argument("--wcls-i8", action="store_true",
+                   help="re-code a float head to i8 per row (the megakernel then runs it)")
     # JAX-harness flags of later slices: refused unless left at their defaults
-    p.add_argument("--wcls-i8", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--q4", type=int, default=0, help=argparse.SUPPRESS)
     p.add_argument("--temperature", type=float, default=0.0, help=argparse.SUPPRESS)
     p.add_argument("--spec", type=int, default=0, help=argparse.SUPPRESS)
@@ -59,7 +65,6 @@ def _refuse_later(args) -> None:
     later = {
         "passkey mode": args.mode == "passkey",
         "-t i8": args.kv_dtype == "i8",
-        "--wcls-i8": args.wcls_i8,
         "--q4": args.q4,
         "--temperature": args.temperature > 0,
         "--spec/--draft": args.spec or args.draft,
@@ -97,6 +102,7 @@ def _load_engine(args):
         kv_dtype=dt[args.kv_dtype],
         compute_dtype=dt[args.compute],
         matmul_impl=args.matmul,
+        wcls_i8=args.wcls_i8,
         device=args.device,
     )
     cfg = eng.cfg

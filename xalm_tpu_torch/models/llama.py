@@ -26,14 +26,23 @@ engine feeds one token at a time (T = 1).
 - ``"xla"``: the JAX package's reference path (plain matmul in
   ``compute_dtype``, scatter writes, dense masked attention).
 
-Unlike the JAX function the cache is updated in place; layers run as a
-Python loop. MoE, q4, a8, int8 KV, tp/pp, speculative verify and the family
-extras (bias, qk-norm, post-norms, softcaps, gelu, embed scale) are later
-slices and raise NotImplementedError.
+A t = 1 step over B <= 8 rows with an i8 body and a float cache runs the
+whole-step megakernel (ops/fused_decode.py) instead, as the JAX forward does
+(``fused_step``: "auto" takes it wherever it is supported, False never):
+``impl="kernel"`` launches it, ``impl="plain"`` runs its plain version. It
+gathers the embed row itself at B = 1 with a bf16 table, and runs the head
+too when the head is i8 (``Engine(wcls_i8=True)``); otherwise the head
+stays on kernel 1.
+
+Unlike the JAX function the cache is updated in place; the per-layer path
+runs its layers as a Python loop. MoE, q4, a8, int8 KV, tp/pp, speculative
+verify and the family extras (bias, qk-norm, post-norms, softcaps, gelu,
+embed scale) are later slices and raise NotImplementedError.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Literal
 
@@ -52,6 +61,7 @@ from xalm_tpu_torch.models.params import (
     split_w13_rows,
 )
 from xalm_tpu_torch.ops import attention as attn_ops
+from xalm_tpu_torch.ops import fused_decode as fd
 from xalm_tpu_torch.ops import qmatmul as qmm
 from xalm_tpu_torch.ops.linear import qmatmul as plain_linear
 from xalm_tpu_torch.runtime.cache import KVCache, ring_indices
@@ -70,6 +80,17 @@ def rope_freqs(cfg: ModelConfig) -> np.ndarray:
     return np.where(
         j < cfg.rotary_dim, cfg.rope_theta ** (-(j / max(cfg.rotary_dim, 1))), 0.0
     ).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def rope_constants(cfg: ModelConfig, device: torch.device):
+    """(freqs (hd/2,), cexp1 (hd,), sexp1 (hd,)) f32 on ``device``: the
+    rope frequencies and the +1-position sink rotation tables, built once
+    per (config, device) and kept there."""
+    freqs = rope_freqs(cfg)
+    c1, s1 = attn_ops.rope_cos_sin_plus1(freqs)
+    with torch.inference_mode(False):  # plain tensors, usable in and out of inference mode
+        return tuple(torch.from_numpy(a).to(device) for a in (freqs, c1, s1))
 
 
 def rope_tables(positions: torch.Tensor, freqs: torch.Tensor):
@@ -179,34 +200,24 @@ def forward(
     logits_mode: LogitsMode = "last",
     compute_dtype=torch.float32,
     impl: str = "kernel",
+    fused_step: bool | str = "auto",
 ):
     """One step over a (B, T) token block. Returns (logits, cache) with the
     cache updated in place. logits: (B, vocab) for "last", (B, T, vocab)
-    for "all", None for "none", the greedy token ids (B,) for "token"."""
+    for "all", None for "none", the greedy token ids (B,) for "token".
+    tokens, pos and valid may lie on the host; they move to the weights'
+    device where a path needs them there."""
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}; one of {IMPLS}")
     _check_dense(cfg)
-    dev = tokens.device
+    dev = params.embed.values.device
     b, t = tokens.shape
     s = cfg.max_seq_len
     g = cfg.n_heads // cfg.n_kv_heads
     hd = cfg.head_dim
-    freqs_np = rope_freqs(cfg)
-    freqs = torch.from_numpy(freqs_np).to(dev)
-    pos = pos.to(device=dev, dtype=torch.int32)
-
-    positions = pos[:, None] + torch.arange(t, dtype=torch.int32, device=dev)[None, :]
-    _, kv_pos, kv_len = ring_indices(positions, s)
-    if valid is not None:
-        kv_pos = torch.where(valid, kv_pos, s)  # sentinel: dropped write
-
-    x = embed_lookup(params.embed, tokens)  # (B, T, dim) f32
-    lp = params.layers
+    freqs, cexp1, sexp1 = rope_constants(cfg, dev)
     per_layer = impl != "xla"
     mm_fn = qmm.qmatmul if impl == "kernel" else qmm.qmatmul_plain
-    kv_update = attn_ops.kv_update if impl == "kernel" else attn_ops.kv_update_plain
-    flash_decode = attn_ops.flash_decode if impl == "kernel" else attn_ops.flash_decode_plain
-    flash_prefill = attn_ops.flash_prefill if impl == "kernel" else attn_ops.flash_prefill_plain
 
     def mm(xx: torch.Tensor, qw: QWeight, layer: int | None = None, norm_sw=None):
         """Stacked-weight matmul, routed as the JAX package's pallas path:
@@ -242,17 +253,47 @@ def forward(
             qw = QWeight(qw.values[layer], None if qw.scale is None else qw.scale[layer])
         return plain_linear(xm, qw, compute_dtype=compute_dtype).reshape(*lead, -1)
 
+    def head(x: torch.Tensor):
+        if logits_mode == "none":
+            return None
+        if logits_mode in ("last", "token"):
+            x = x[:, -1:]
+        logits = mm(rmsnorm(x, params.out_norm, cfg.norm_eps), params.wcls)
+        if logits_mode in ("last", "token"):
+            logits = logits[:, 0]
+        if logits_mode == "token":
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        return logits
+
+    if fused_step == "auto":
+        fused_step = True  # the megakernel wherever it is supported
+    if fused_step and t == 1 and per_layer and fd.fused_step_supported(cfg, params, cache.k, b, t):
+        return _megakernel_step(params, cfg, tokens, pos, cache, valid, logits_mode, impl, head)
+
+    tokens = tokens.to(dev)
+    pos_h = pos.to("cpu", torch.int32)
+    pos = pos.to(device=dev, dtype=torch.int32)
+    if valid is not None:
+        valid = valid.to(dev)
+    positions = pos[:, None] + torch.arange(t, dtype=torch.int32, device=dev)[None, :]
+    _, kv_pos, kv_len = ring_indices(positions, s)
+    if valid is not None:
+        kv_pos = torch.where(valid, kv_pos, s)  # sentinel: dropped write
+
+    x = embed_lookup(params.embed, tokens)  # (B, T, dim) f32
+    lp = params.layers
+    kv_update = attn_ops.kv_update if impl == "kernel" else attn_ops.kv_update_plain
+    flash_decode = attn_ops.flash_decode if impl == "kernel" else attn_ops.flash_decode_plain
+    flash_prefill = attn_ops.flash_prefill if impl == "kernel" else attn_ops.flash_prefill_plain
+
     clip = cfg.qkv_clip if math.isfinite(cfg.qkv_clip) else None
     ck, cv = cache.k, cache.v
     if t > 1:
-        starts = [min(p, s - t) for p in pos.tolist()]
+        starts = [min(p, s - t) for p in pos_h.tolist()]
     else:
         active = positions[:, 0] >= s
         if valid is not None:
             active = active & valid[:, 0]
-        cexp_np, sexp_np = attn_ops.rope_cos_sin_plus1(freqs_np)
-        cexp = torch.from_numpy(cexp_np).to(dev)
-        sexp = torch.from_numpy(sexp_np).to(dev)
         rot_flag = active.to(torch.int32)
         kv_pos0 = kv_pos[:, 0].contiguous()
         kv_len0 = kv_len[:, 0].contiguous()
@@ -270,7 +311,7 @@ def forward(
         if per_layer and t == 1:
             # decode: in-place ring write + sink rotation, then flash-decode
             kv_update(ck, cv, layer, k[:, 0].contiguous(), v[:, 0].contiguous(),
-                      kv_pos0, rot_flag, cexp, sexp)
+                      kv_pos0, rot_flag, cexp1, sexp1)
             attn_out = flash_decode(q[:, 0].contiguous(), ck, cv, layer, kv_len0)[:, None]
         elif per_layer:
             # chunked prefill: contiguous in-place writes + causal flash
@@ -289,14 +330,42 @@ def forward(
                                   ffn_chunk(cfg.hidden_dim))
         x = x + mm(F.silu(gate) * up, lp.w2, layer)
 
-    if logits_mode == "none":
-        return None, cache
-    if logits_mode in ("last", "token"):
-        x = x[:, -1:]
-    xn = rmsnorm(x, params.out_norm, cfg.norm_eps)
-    logits = mm(xn, params.wcls)
-    if logits_mode in ("last", "token"):
-        logits = logits[:, 0]
-    if logits_mode == "token":
-        return torch.argmax(logits, dim=-1).to(torch.int32), cache
-    return logits, cache
+    return head(x), cache
+
+
+def _megakernel_step(params, cfg, tokens, pos, cache, valid, logits_mode, impl, head):
+    """A t = 1 step through the whole-step megakernel (the JAX forward's
+    fused_decode_step branch). The step's inputs (kv_pos, kv_len, rotate,
+    token, pos) are computed on the host and reach the card as one small
+    tensor; no per-layer host work is left."""
+    step = fd.fused_decode_step if impl == "kernel" else fd.fused_decode_step_plain
+    dev = params.embed.values.device
+    b, s = tokens.shape[0], cfg.max_seq_len
+    freqs, cexp1, sexp1 = rope_constants(cfg, dev)
+    pos_h = pos.to("cpu", torch.int32).reshape(b)
+    _, kv_pos, kv_len = ring_indices(pos_h, s)
+    active = pos_h >= s
+    if valid is not None:
+        valid_h = valid[:, 0].to("cpu")
+        kv_pos = torch.where(valid_h, kv_pos, s).to(torch.int32)  # sentinel: dropped write
+        active = active & valid_h  # inactive rows do not rotate their sinks
+    rotate_flag = active.to(torch.int32)
+    if b == 1 and fd.embed_fold_supported(cfg, params):
+        # the kernel gathers the embed row and computes the rope trig itself
+        x0 = cexp_p = sexp_p = None
+        fold_e = dict(embed=params.embed, token=tokens[:, 0], pos=pos_h, freqs=freqs)
+    else:
+        x0 = embed_lookup(params.embed, tokens[:, 0].to(dev))
+        cexp_p, sexp_p = (z[:, 0, 0] for z in rope_tables(
+            pos_h[:, None], rope_constants(cfg, torch.device("cpu"))[0]))
+        fold_e = {}
+    args = (params, cfg, x0, cache.k, cache.v, kv_pos, kv_len, rotate_flag, cexp_p, sexp_p,
+            cexp1, sexp1)
+    if logits_mode != "none" and fd.wcls_fold_supported(cfg, params):
+        # final norm + i8 head + greedy argmax in the same launch
+        _, logits, token, _, _ = step(*args, wcls=params.wcls, out_norm=params.out_norm, **fold_e)
+        if logits_mode == "token":
+            return token, cache
+        return (logits if logits_mode == "last" else logits[:, None]), cache
+    x, _, _ = step(*args, **fold_e)
+    return head(x[:, None]), cache

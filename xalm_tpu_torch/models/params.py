@@ -12,7 +12,8 @@ as the JAX package, so every intermediate can be compared with it:
 Quantization rides the dtype plus an optional per-output-row f32 ``scale``:
 float weights dequantize by a cast, int8 with ``scale`` is `i8`
 (y = (x @ W^T) * scale), int8 without it is `q8` (fixed scale 1/100).
-Packed q4, fp8, MoE and family extras are later slices.
+``recode_wcls_i8`` re-codes a float head to i8 per row. Packed q4, fp8, MoE
+and family extras are later slices.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ __all__ = [
     "ModelParams",
     "load_params",
     "from_jax_params",
+    "recode_wcls_i8",
     "Q8_FIXED_SCALE",
     "ffn_chunk",
     "fuse_qkv",
@@ -297,3 +299,21 @@ def from_jax_params(tree, device="cpu") -> ModelParams:
         out_norm=_from_np(tree.out_norm, device),
         wcls=embed if tree.wcls is tree.embed else qw(tree.wcls),
     )
+
+
+def recode_wcls_i8(params: ModelParams) -> ModelParams:
+    """Re-code a float (bf16/f16/f32) classifier head to i8 with per-row
+    absmax/127 scales (rounded half to even, clipped to +-127), bit-equal to
+    the JAX package's ``recode_wcls_i8``, whose compiled form multiplies by
+    the f32 reciprocal of 127: half the bytes of a 16-bit head, and the
+    megakernel can stream it. A head that is already i8 is left alone; a
+    tied head is untied (the embed lookup keeps the float table)."""
+    w = params.wcls
+    if w.values.dtype == torch.int8:
+        return params
+    f = w.values.to(torch.float32)
+    amax = f.abs().amax(dim=-1)
+    inv127 = torch.tensor(1.0 / 127.0, dtype=torch.float32, device=amax.device)
+    scale = torch.where(amax > 0, amax * inv127, torch.ones_like(amax))
+    q = torch.clamp(torch.round(f / scale[..., None]), -127, 127).to(torch.int8)
+    return dataclasses.replace(params, wcls=QWeight(q, scale))

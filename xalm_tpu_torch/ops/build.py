@@ -44,6 +44,7 @@ NVCC_FLAGS = [
 KERNELS = {
     "qmatmul": ("qmatmul",),
     "attention": ("kv_update", "flash_decode", "flash_prefill"),
+    "fused_decode": ("fused_decode",),
 }
 LAUNCHES: dict[str, int] = {k: 0 for ks in KERNELS.values() for k in ks}
 
@@ -149,5 +150,15 @@ SIGNATURES = {
         "xq_flash_decode": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
         # q, ck, cv, pos, out, B, T, H, KH, S, hd, sm_scale, stream
         "xq_flash_prefill": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]),
+    },
+    "fused_decode": {
+        # B, N, KH, G, S, H -> bytes of the megakernel's workspace
+        "xq_fused_decode_workspace": (_L, [_I, _I, _I, _I, _I, _I]),
+        # blocks in the cooperative grid on the current device (0: none fit)
+        "xq_fused_decode_grid": (_I, []),
+        # pointer array, int array (see csrc/fused_decode.cu), eps, clip, sm_scale, stream
+        "xq_fused_decode": (_I, [_P, _P, _F, _F, _F, _P]),
+        # workspace, iterations, stream: grid barriers alone
+        "xq_grid_barrier_bench": (_I, [_P, _I, _P]),
     },
 }

@@ -7,8 +7,10 @@ the engine switches to T = 1 stepping once pos reaches the window. Prompt
 chunks are padded to ``_CHUNK_BUCKETS`` with a ``valid`` mask, as in the
 JAX engine, so both run the same shapes.
 
-Decode is one forward call per token (the JAX engine's ``segment=1``);
-stochastic sampling, sessions and speculation are later slices.
+Decode is one forward call per token (the JAX engine's ``segment=1``); a
+decode step runs the whole-step megakernel where ``fused_step`` allows and
+its gate passes (``decode_path``), else the per-layer kernels. Stochastic
+sampling, sessions and speculation are later slices.
 """
 
 from __future__ import annotations
@@ -24,7 +26,8 @@ import torch
 from xalm_tpu_torch.io import XalmFile
 from xalm_tpu_torch.models.config import ModelConfig
 from xalm_tpu_torch.models.llama import IMPLS, forward
-from xalm_tpu_torch.models.params import ModelParams, load_params
+from xalm_tpu_torch.models.params import ModelParams, load_params, recode_wcls_i8
+from xalm_tpu_torch.ops.fused_decode import fused_step_supported
 from xalm_tpu_torch.runtime.cache import KVCache
 from xalm_tpu_torch.sampler import sample_argmax, token_logprobs
 from xalm_tpu_torch.tokenizer import Tokenizer
@@ -68,7 +71,11 @@ class Engine:
         kv_dtype="auto",
         compute_dtype="auto",
         matmul_impl: str = "auto",
+        fused_step: bool | str = "auto",
+        wcls_i8: bool = False,
     ):
+        if wcls_i8:  # the i8 head: half the head's bytes, and the megakernel runs it
+            params = recode_wcls_i8(params)
         self.cfg = cfg
         self.params = params
         self.tokenizer = tokenizer
@@ -81,6 +88,7 @@ class Engine:
             (torch.bfloat16 if on_card else torch.float32) if compute_dtype == "auto" else compute_dtype
         )
         self.matmul_impl = "kernel" if matmul_impl == "auto" else matmul_impl
+        self.fused_step = fused_step
         if self.matmul_impl not in IMPLS:
             raise ValueError(f"matmul_impl {matmul_impl!r}: one of auto, {', '.join(IMPLS)}")
         if on_card and self.matmul_impl == "kernel" and self.kv_dtype != torch.bfloat16:
@@ -100,6 +108,8 @@ class Engine:
         kv_dtype="auto",
         compute_dtype="auto",
         matmul_impl: str = "auto",
+        fused_step: bool | str = "auto",
+        wcls_i8: bool = False,
         device="cuda",
     ) -> "Engine":
         with XalmFile(path) as xf:
@@ -109,6 +119,7 @@ class Engine:
         return cls(
             cfg, params, tokenizer,
             kv_dtype=kv_dtype, compute_dtype=compute_dtype, matmul_impl=matmul_impl,
+            fused_step=fused_step, wcls_i8=wcls_i8,
         )
 
     # ----------------------------------------------------------------- steps
@@ -117,26 +128,31 @@ class Engine:
         return KVCache.init(self.cfg, batch, self.kv_dtype, self.device)
 
     def decode_path(self, batch: int = 1) -> str:
-        """Which implementation a (batch, T=1) decode step runs: 'perlayer'
-        (the per-layer CUDA kernels; their plain versions on the CPU),
-        'plain' or 'xla'. The whole-step megakernel is a later slice."""
-        return "perlayer" if self.matmul_impl == "kernel" else self.matmul_impl
-
-    def _tensor(self, a, dtype) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(a), dtype=dtype).to(self.device)
+        """Which implementation a (batch, T=1) decode step runs, from the
+        forward's own gates: 'megakernel' (the whole-step kernel), 'perlayer'
+        (the per-layer kernels; on the CPU both run their plain versions), or
+        the impl name for 'plain' and 'xla'."""
+        if self.matmul_impl != "kernel":
+            return self.matmul_impl
+        shape = KVCache.plane_shape(self.cfg, batch)
+        cache_k = torch.empty(shape, dtype=self.kv_dtype, device="meta")
+        if self.fused_step and fused_step_supported(self.cfg, self.params, cache_k, batch, 1):
+            return "megakernel"
+        return "perlayer"
 
     def step(self, tokens, pos, cache: KVCache, valid=None, logits_mode="last"):
         """Forward on a (B, T) block at positions pos (B,). Returns
-        (logits, cache); the cache is updated in place."""
-        tokens = self._tensor(tokens, torch.int64)
-        pos = self._tensor(pos, torch.int32)
+        (logits, cache); the cache is updated in place. The inputs stay on
+        the host: the forward moves what a path needs to the card."""
+        tokens = torch.as_tensor(np.asarray(tokens), dtype=torch.int64)
+        pos = torch.as_tensor(np.asarray(pos), dtype=torch.int32)
         if valid is not None:
-            valid = self._tensor(valid, torch.bool)
+            valid = torch.as_tensor(np.asarray(valid), dtype=torch.bool)
         with torch.inference_mode():
             return forward(
                 self.params, self.cfg, tokens, pos, cache, valid,
                 logits_mode=logits_mode, compute_dtype=self.compute_dtype,
-                impl=self.matmul_impl,
+                impl=self.matmul_impl, fused_step=self.fused_step,
             )
 
     def decode(self, tokens, pos, cache: KVCache):
