@@ -11,21 +11,23 @@ port, never the JAX package, through six phases, each printing one JSON line:
 3. parity: every kernel against its plain PyTorch version at Mistral-7B
    shapes, with its time, the plain version's time, a library call's time
    where one PyTorch call computes the same function, and its bound (the
-   larger of bytes over 3.35 TB/s and operations over the peak rate); the
-   whole-step megakernel at full width and 32 layers in three cases, and
-   the cost of one of its grid barriers;
+   larger of bytes over 3.35 TB/s and operations over the peak rate): the
+   bf16-cache kernels, the int8-cache kernels (``phase_parity_int8``), the
+   whole-step megakernel at full width and 32 layers in three bf16-cache
+   and four int8-cache cases, and the cost of one of its grid barriers;
 4. main path: ``Engine.generate`` at full Mistral-7B width (32 layers,
-   random i8 weights from a seed, bf16 cache): a 512-token prompt and 64
-   greedy tokens, every kernel's launch counter set to 0 just before and
-   read just after, once on the default decode path (the megakernel) and
-   once with ``fused_step=False`` (the per-layer kernels), each with a
-   profile of its decode steps;
+   random i8 weights from a seed): a 512-token prompt and 64 greedy tokens,
+   every kernel's launch counter set to 0 just before and read just after,
+   with a bf16 and with an int8 cache, each on the default decode path (the
+   megakernel) and with ``fused_step=False`` (the per-layer kernels), each
+   run with a profile of its decode steps;
 5. wrap: the same widths at 2 layers and a 256-slot window, 600 decode
    steps through three ring wraps, the kernels against their plain
    versions on the card, on both decode paths (the megakernel with the i8
-   head): teacher-forced logits of random weights within 1e-2 of max
-   |logits|, and identical free-running greedy tokens of a model whose
-   next token attention decides (see ``phase_wrap``);
+   head), with a bf16 and with an int8 cache: teacher-forced logits of
+   random weights within 1e-2 of max |logits|, and identical free-running
+   greedy tokens of a model whose next token attention decides (see
+   ``phase_wrap``);
 6. the kernels' summary line, then the result line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
@@ -299,6 +301,81 @@ def phase_parity(params, cfg, cases: Cases) -> None:
                   4.0 * visible * h * hd, PEAK_BF16)
     del ck, cv
     torch.cuda.empty_cache()
+    phase_parity_int8(cfg, cases, gen, cexp, sexp)
+
+
+# why no library call stands beside the int8-cache kernels
+NO_LIBRARY_INT8 = "no one PyTorch call attends over (or writes) int8 codes with per-row scales"
+
+
+def phase_parity_int8(cfg, cases: Cases, gen, cexp, sexp) -> None:
+    """Kernels 5-7 on random int8 planes (codes in [-127, 127], scales in
+    [0, 0.02)) at the main path's shape.
+
+    kv_update_q: codes and scales bit-equal to the plain version (absmax is
+    order-free; scale and codes by IEEE division, rounded half to even on
+    both sides), in three cases: a mid-ring insert, a wrapped insert with
+    sink rotation, B = 3 with a row at the kv_pos == S sentinel.
+
+    flash_decode_q: 1e-3 of each output row's max. The plain version copies
+    the kernel's 128-row chunks, so p * v_scale is rounded to bf16 at the
+    same chunk max; the scores are f32 sums of exact products in another
+    order, and a score that moves by an f32 ulp can flip one bf16 rounding
+    of p * v_scale, by 2^-8 of a term that holds a few hundredths of its
+    row's softmax weight at most with these inputs: under 1e-3."""
+    import torch
+
+    from xalm_tpu_torch.ops import attention as A
+
+    dev = torch.device(DEVICE)
+    L, kh, hd, h, S = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim, cfg.n_heads, cfg.max_seq_len
+    i32 = lambda *v: torch.tensor(v, dtype=torch.int32, device=dev)  # noqa: E731
+
+    def planes(b):
+        shape = (L, b, kh, S, hd)
+        codes = [torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+                 for _ in range(2)]
+        scales = [torch.rand(shape[:-1], generator=gen, device=dev) * 0.02 for _ in range(2)]
+        return codes + scales
+
+    for case, kv_pos, rot in (("mid-ring insert", (519,), (0,)),
+                              ("wrapped insert + sink rotation", (1000,), (1,)),
+                              ("B=3, row 1 at the kv_pos == S sentinel, row 2 rotating",
+                               (300, S, 2000), (0, 0, 1))):
+        b = len(kv_pos)
+        full = planes(b)
+        kn = torch.randn((b, kh, hd), generator=gen, device=dev)
+        vn = torch.randn((b, kh, hd), generator=gen, device=dev)
+        args = (kn, vn, i32(*kv_pos), i32(*rot), cexp, sexp)
+        one = [t[5 % L][None] for t in full]
+        p1, p2 = [t.clone() for t in one], [t.clone() for t in one]
+        A.kv_update_q(*p1, 0, *args)
+        A.kv_update_q_plain(*p2, 0, *args)
+        got = torch.cat([t.float().flatten() for t in p1])
+        want = torch.cat([t.float().flatten() for t in p2])
+        layers = itertools.cycle(range(L))
+        written = sum(kp < S for kp in kv_pos)
+        nbytes = 2 * b * kh * hd * 4 + written * 2 * kh * (hd + 4) + 2 * sum(rot) * kh * 2 * (hd + 4)
+        cases.add("kv_update_q", case, got, want, hd, 0.0,
+                  lambda: A.kv_update_q(*full, next(layers), *args),
+                  lambda: A.kv_update_q_plain(*full, next(layers), *args),
+                  None, nbytes, 0.0, PEAK_F32, extra={"library_note": NO_LIBRARY_INT8})
+        del full, one, p1, p2
+
+    full = planes(1)
+    for kvl in (1, 520, 777, S):
+        q = torch.randn((1, h, hd), generator=gen, device=dev)
+        kv_len = i32(kvl)
+        got = A.flash_decode_q(q, *full, 7 % L, kv_len)
+        want = A.flash_decode_q_plain(q, *full, 7 % L, kv_len)
+        layers = itertools.cycle(range(L))
+        cases.add("flash_decode_q", f"B=1 kv_len={kvl}", got, want, hd, 1e-3,
+                  lambda: A.flash_decode_q(q, *full, next(layers), kv_len),
+                  lambda: A.flash_decode_q_plain(q, *full, next(layers), kv_len),
+                  None, 2 * kvl * kh * (hd + 4) + 2 * h * hd * 4, 4.0 * h * kvl * hd, PEAK_F32,
+                  extra={"library_note": NO_LIBRARY_INT8})
+    del full
+    torch.cuda.empty_cache()
 
 
 # megakernel parity (phase 3), each output row against its own max |plain|.
@@ -355,12 +432,27 @@ def _model_dim_permuted(p, perm):
                                wcls=cols(p.wcls))
 
 
+def _code_share(got, want) -> float:
+    """Share of the codes of an int8 plane within one count of want."""
+    return float(((got.int() - want.int()).abs() <= 1).float().mean())
+
+
+def _dequant(codes, scales):
+    return codes.float() * scales[..., None]
+
+
 def phase_fused_parity(params, cfg, cases: Cases) -> dict:
     """The megakernel against its plain version at full width and 32 layers
-    (bf16 cache, random planes), three cases: (a) B=1 at kv_len 520 with the
+    (random planes). bf16 cache, three cases: (a) B=1 at kv_len 520 with the
     embed fold; (b) B=1 at a wrapped position (sink rotation) with the embed
     and i8-head folds; (c) B=4 with one row at the kv_pos == S sentinel.
-    Then the cost of one grid barrier on the kernel's grid."""
+    int8 cache (codes and scales as in phase_parity_int8), four cases: B=1
+    at kv_len 520 (embed fold) and 4000 (embed and i8-head folds); B=4 at
+    kv_len 520 with a sentinel row; B=4 at kv_len 520, 4000, a wrapped row
+    (sink rotation) and a sentinel row. The int8 cases hold the dequantised
+    cache rows to FUSED_TOL and FUSED_ULP_SHARE of the codes to one count
+    (the limits of the bf16 rows and values). Then the cost of one grid
+    barrier on the kernel's grid."""
     import torch
 
     from xalm_tpu_torch.models.llama import rope_constants, rope_tables
@@ -381,10 +473,17 @@ def phase_fused_parity(params, cfg, cases: Cases) -> dict:
     w_elems = sum(w.values.numel() for w in (lp.wqkv, lp.wo, lp.w13, lp.w2))
     w_bytes = w_elems + 4 * sum(w.scale.numel() for w in (lp.wqkv, lp.wo, lp.w13, lp.w2)) + 8 * L * N
 
-    for case, pos_list, embed, head, sentinel in (
-            ("B=1 kv_len=520, embed fold", [519], True, False, None),
-            ("B=1 wrapped (sink rotation), embed + i8-head folds", [S + 700], True, True, None),
-            ("B=4, row 2 at the kv_pos == S sentinel", [519, 1200, 300, S + 5], False, False, 2)):
+    for quant, case, pos_list, embed, head, sentinel in (
+            (False, "B=1 kv_len=520, embed fold", [519], True, False, None),
+            (False, "B=1 wrapped (sink rotation), embed + i8-head folds", [S + 700], True, True,
+             None),
+            (False, "B=4, row 2 at the kv_pos == S sentinel", [519, 1200, 300, S + 5], False,
+             False, 2),
+            (True, "int8 KV, B=1 kv_len=520, embed fold", [519], True, False, None),
+            (True, "int8 KV, B=1 kv_len=4000, embed + i8-head folds", [3999], True, True, None),
+            (True, "int8 KV, B=4 kv_len=520, row 3 at the sentinel", [519] * 4, False, False, 3),
+            (True, "int8 KV, B=4 kv_len 520/4000/wrapped, row 3 at the sentinel",
+             [519, 3999, S + 700, 300], False, False, 3)):
         b = len(pos_list)
         p = head_params if head else params
         pos = torch.tensor(pos_list, dtype=torch.int32)
@@ -393,8 +492,14 @@ def phase_fused_parity(params, cfg, cases: Cases) -> dict:
         if sentinel is not None:
             kv_pos[sentinel], rot[sentinel] = S, 0
         shape = KVCache.plane_shape(cfg, b)
-        ck = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
-        cv = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        if quant:
+            ck, cv = (torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+                      for _ in range(2))
+            ks, vs = (torch.rand(shape[:-1], generator=gen, device=dev) * 0.02 for _ in range(2))
+        else:
+            ck = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+            cv = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+            ks = vs = None
         tok = torch.randint(3, cfg.vocab_size, (b,), generator=gen, device=dev).cpu()
         kw = dict(wcls=p.wcls, out_norm=p.out_norm) if head else {}
         if embed:
@@ -407,37 +512,63 @@ def phase_fused_parity(params, cfg, cases: Cases) -> dict:
         def args(k, v, x0=x0, ce=ce, se=se, p=p, kv_pos=kv_pos, kv_len=kv_len, rot=rot):
             return (p, cfg, x0, k, v, kv_pos, kv_len, rot, ce, se, c1, s1)
 
+        def scales(kw, ks=ks, vs=vs):
+            """kw with fresh copies of the scale planes (int8 cache)"""
+            return dict(kw, k_scale=ks.clone(), v_scale=vs.clone()) if quant else kw
+
         k1, v1, k2, v2 = ck.clone(), cv.clone(), ck.clone(), cv.clone()
-        got = fd.fused_decode_step(*args(k1, v1), **kw)
-        want = fd.fused_decode_step_plain(*args(k2, v2), **kw)
+        kw1, kw2 = scales(kw), scales(kw)
+        got = fd.fused_decode_step(*args(k1, v1), **kw1)
+        want = fd.fused_decode_step_plain(*args(k2, v2), **kw2)
         # the floor: the plain version against itself on the permuted model
         perm = torch.randperm(N, generator=gen, device=dev)
         q = _model_dim_permuted(p, perm)
         q_kw = dict(kw, **(dict(wcls=q.wcls, out_norm=q.out_norm) if head else {}),
                     **(dict(embed=q.embed) if embed else {}))
         k3, v3 = ck.clone(), cv.clone()
+        kw3 = scales(q_kw)
         floor = list(fd.fused_decode_step_plain(
-            q, cfg, None if x0 is None else x0[:, perm], *args(k3, v3)[3:], **q_kw))
+            q, cfg, None if x0 is None else x0[:, perm], *args(k3, v3)[3:], **kw3))
         floor[0] = floor[0][:, torch.argsort(perm)]
         del q, q_kw
         torch.cuda.synchronize()
         x_rel, x_floor = _row_rel(got[0], want[0], N), _row_rel(floor[0], want[0], N)
         extra = {"batch": b, "positions": pos_list, "kv_len": kv_len.tolist(),
-                 "x_floor_row_rel": x_floor,
-                 "cache_k_row_rel": _row_rel(k1, k2, hd), "cache_v_row_rel": _row_rel(v1, v2, hd),
-                 "cache_k_floor_row_rel": _row_rel(k3, k2, hd),
-                 "cache_v_floor_row_rel": _row_rel(v3, v2, hd),
-                 "cache_ulp_share": min(_ulp_share(k1, k2), _ulp_share(v1, v2))}
+                 "x_floor_row_rel": x_floor}
+        if quant:  # the dequantised rows, and the codes within one count
+            rows = {n: _dequant(c, sc) for n, c, sc in (
+                ("k1", k1, kw1["k_scale"]), ("v1", v1, kw1["v_scale"]),
+                ("k2", k2, kw2["k_scale"]), ("v2", v2, kw2["v_scale"]),
+                ("k3", k3, kw3["k_scale"]), ("v3", v3, kw3["v_scale"]))}
+            extra.update({
+                "cache_k_row_rel": _row_rel(rows["k1"], rows["k2"], hd),
+                "cache_v_row_rel": _row_rel(rows["v1"], rows["v2"], hd),
+                "cache_k_floor_row_rel": _row_rel(rows["k3"], rows["k2"], hd),
+                "cache_v_floor_row_rel": _row_rel(rows["v3"], rows["v2"], hd),
+                "cache_ulp_share": min(_code_share(k1, k2), _code_share(v1, v2)),
+                "code_equal_share": min(float((k1 == k2).float().mean()),
+                                        float((v1 == v2).float().mean())),
+                "code_floor_share": min(_code_share(k3, k2), _code_share(v3, v2))})
+            del rows
+        else:
+            extra.update({
+                "cache_k_row_rel": _row_rel(k1, k2, hd), "cache_v_row_rel": _row_rel(v1, v2, hd),
+                "cache_k_floor_row_rel": _row_rel(k3, k2, hd),
+                "cache_v_floor_row_rel": _row_rel(v3, v2, hd),
+                "cache_ulp_share": min(_ulp_share(k1, k2), _ulp_share(v1, v2))})
         if sentinel is not None:  # the dropped row: every attended slot as it was
             extra["sentinel_row_unchanged"] = bool(
                 torch.equal(k1[:, sentinel, :, :S], ck[:, sentinel, :, :S])
-                and torch.equal(v1[:, sentinel, :, :S], cv[:, sentinel, :, :S]))
+                and torch.equal(v1[:, sentinel, :, :S], cv[:, sentinel, :, :S])
+                and (not quant or torch.equal(kw1["k_scale"][:, sentinel, :, :S],
+                                              ks[:, sentinel, :, :S])))
         ok = (x_rel <= max(FUSED_FLOOR_RATIO * x_floor, 1e-3)  # 1e-3: a floor of no flip at all
               and extra["cache_k_row_rel"] <= FUSED_TOL and extra["cache_v_row_rel"] <= FUSED_TOL
               and extra["cache_ulp_share"] >= FUSED_ULP_SHARE and extra.get("sentinel_row_unchanged", True))
+        row_bytes = hd + 4 if quant else 2 * hd  # int8 codes + scale, or bf16
         nbytes = w_bytes + b * N * (2 if embed else 4) + b * N * 4
-        nbytes += 2 * L * kh * hd * 2 * (int(kv_len.sum()) + b)  # cache rows read, rows written
-        nbytes += 2 * 2 * L * kh * 2 * hd * 2 * int(rot.sum())  # sinks read and written
+        nbytes += 2 * L * kh * row_bytes * (int(kv_len.sum()) + b)  # cache rows read, rows written
+        nbytes += 2 * L * kh * 2 * row_bytes * int(rot.sum())  # K sinks read and written
         flops = 2.0 * b * w_elems + 4.0 * L * cfg.n_heads * hd * int(kv_len.sum())
         if head:
             v_ = p.wcls.values.shape[0]
@@ -452,10 +583,10 @@ def phase_fused_parity(params, cfg, cases: Cases) -> dict:
             ok = ok and extra["logits_row_rel"] <= FUSED_TOL and extra["token_equal"] \
                 and extra["token_is_argmax"]
         cases.add("fused_decode", case, got[0], want[0], N, FUSED_TOL,
-                  lambda a=args(ck, cv), kw=kw: fd.fused_decode_step(*a, **kw),
-                  lambda a=args(ck, cv), kw=kw: fd.fused_decode_step_plain(*a, **kw),
+                  lambda a=args(ck, cv), kw=scales(kw): fd.fused_decode_step(*a, **kw),
+                  lambda a=args(ck, cv), kw=scales(kw): fd.fused_decode_step_plain(*a, **kw),
                   None, nbytes, flops, PEAK_BF16, extra=extra, extra_ok=ok)
-        del ck, cv, k1, v1, k2, v2, k3, v3, got, want, floor
+        del ck, cv, ks, vs, k1, v1, k2, v2, k3, v3, kw1, kw2, kw3, got, want, floor
         torch.cuda.empty_cache()
 
     lib = build.load_library("fused_decode")
@@ -513,6 +644,7 @@ def _main_run(eng, cfg, prompt, label: str) -> dict:
     row = {
         "phase": "main_path", "run": label, "layers": cfg.n_layers, "dim": cfg.dim,
         "hidden": cfg.hidden_dim, "vocab": cfg.vocab_size, "window": cfg.max_seq_len,
+        "kv_dtype": str(eng.kv_dtype).split(".")[-1], "cache_bytes": cache.nbytes(),
         "prompt_tokens": len(prompt), "generated_tokens": stats.generated_tokens,
         "decode_path": eng.decode_path(1),
         "prefill_s": stats.prefill_s, "prefill_tok_s": len(prompt) / stats.prefill_s,
@@ -534,10 +666,13 @@ def _main_run(eng, cfg, prompt, label: str) -> dict:
 
 
 def phase_main(params, cfg) -> dict:
-    """The main path twice: the default decode path (the megakernel: one
-    fused_decode launch per decode token) and ``fused_step=False`` (the
-    per-layer kernels). Every kernel of the port must launch in one of the
-    two runs. Returns the launches of both runs, summed."""
+    """The main path four times: with a bf16 cache and with an int8 cache
+    (``kv_dtype=torch.int8``, per-row scales), each on the default decode
+    path (the megakernel: one fused_decode launch per decode token) and with
+    ``fused_step=False`` (the per-layer kernels: per token 129 qmatmul
+    launches, and per layer kv_update and flash_decode, or kv_update_q and
+    flash_decode_q). Every kernel of the port must launch in one of the
+    runs. Returns the launches of the runs, summed."""
     import numpy as np
     import torch
 
@@ -545,47 +680,69 @@ def phase_main(params, cfg) -> dict:
     from xalm_tpu_torch.runtime.engine import Engine
 
     prompt = np.random.default_rng(SEED).integers(3, cfg.vocab_size, size=512).tolist()
-    mk = Engine(cfg, params, kv_dtype=torch.bfloat16)  # the defaults: kernels, megakernel decode
-    if mk.decode_path(1) != "megakernel":
-        raise AssertionError(f"decode path {mk.decode_path(1)!r}, expected 'megakernel'")
-    row_mk = _main_run(mk, cfg, prompt, "megakernel")
-    if row_mk["launches"]["fused_decode"] != 63 or row_mk["launches_per_decode_token"]["fused_decode"] != 1:
-        raise AssertionError(f"megakernel run: {row_mk['launches']}, "
-                             f"per token {row_mk['launches_per_decode_token']}: expected 63 and 1")
-    pl = Engine(cfg, params, kv_dtype=torch.bfloat16, fused_step=False)
-    if pl.decode_path(1) != "perlayer":
-        raise AssertionError(f"decode path {pl.decode_path(1)!r}, expected 'perlayer'")
-    row_pl = _main_run(pl, cfg, prompt, "perlayer")
-    launches = {k: row_mk["launches"][k] + row_pl["launches"][k] for k in build.LAUNCHES}
+    L = cfg.n_layers
+    launches = dict.fromkeys(build.LAUNCHES, 0)
+    for kv, tag in ((torch.bfloat16, ""), (torch.int8, "int8 ")):
+        per_layer = ("kv_update_q", "flash_decode_q") if kv == torch.int8 else (
+            "kv_update", "flash_decode")
+        for path, kw, want in (
+                ("megakernel", {}, {"fused_decode": 1}),
+                ("perlayer", dict(fused_step=False), {"qmatmul": 4 * L + 1, per_layer[0]: L,
+                                                      per_layer[1]: L, "fused_decode": 0})):
+            eng = Engine(cfg, params, kv_dtype=kv, **kw)  # kernels; megakernel decode by default
+            if eng.decode_path(1) != path:
+                raise AssertionError(f"decode path {eng.decode_path(1)!r}, expected {path!r}")
+            row = _main_run(eng, cfg, prompt, tag + path)
+            per_token = row["launches_per_decode_token"]
+            if any(per_token[k] != n for k, n in want.items()) or (
+                    path == "megakernel" and row["launches"]["fused_decode"] != 63):
+                raise AssertionError(f"{tag}{path} run: {row['launches']}, per token {per_token}: "
+                                     f"expected per token {want}")
+            launches = {k: launches[k] + row["launches"][k] for k in launches}
+            del eng
+            torch.cuda.empty_cache()
     missing = [k for k, n in launches.items() if n == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
     return {"launches": launches}
 
 
-# kernel-name fragments of the port's CUDA kernels, by wrapper
+# kernel-name fragments of the port's CUDA kernels, by wrapper (the chunk
+# combine kernel, shared by both flash-decodes, goes to the one the run uses)
 _PROFILE_GROUPS = {
     "qmatmul": ("gemv_kernel", "gemm_kernel", "prep_x_kernel"),
     "kv_update": ("kv_update_kernel",),
     "flash_decode": ("flash_decode_split_kernel", "flash_decode_combine_kernel"),
     "flash_prefill": ("flash_prefill_kernel",),
     "fused_decode": ("fused_decode_kernel",),
+    "kv_update_q": ("kv_update_q_kernel",),
+    "flash_decode_q": ("flash_decode_q_split_kernel",),
 }
 
 
-def _device_times(prof) -> tuple[dict, list]:
+def _device_times(prof, int8: bool) -> tuple[dict, list]:
     """Device time (ms) by kernel group, and the ten largest device entries
-    as (name, ms, count), from a torch.profiler run."""
-    out = {k: 0.0 for k in _PROFILE_GROUPS}
+    as (name, ms, count), from a torch.profiler run. Only the kernels' own
+    entries count: a PyTorch operator's entry carries the device time of the
+    kernels it launched, which those kernels' entries carry too."""
+    from torch.autograd import DeviceType
+
+    groups = dict(_PROFILE_GROUPS)
+    if int8:
+        groups["flash_decode"] = ("flash_decode_split_kernel",)
+        groups["flash_decode_q"] += ("flash_decode_combine_kernel",)
+    out = {k: 0.0 for k in groups}
     out["other"] = 0.0
     top = []
     for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
         us = getattr(evt, "self_device_time_total", None)
         if us is None:
             us = getattr(evt, "self_cuda_time_total", 0.0)
         if not us:
             continue
-        group = next((g for g, frags in _PROFILE_GROUPS.items()
+        group = next((g for g, frags in groups.items()
                       if any(f in evt.key for f in frags)), "other")
         out[group] += us / 1e3
         top.append((evt.key[:80], us / 1e3, evt.count))
@@ -611,7 +768,7 @@ def phase_profile(eng, prompt, token, label: str) -> dict:
                 _, cache = eng.decode(np.array([token]), np.array([pos + i], np.int32), cache)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        dev, top = _device_times(prof)
+        dev, top = _device_times(prof, eng.kv_dtype == torch.int8)
         busy = sum(dev.values())
         rows[name] = {
             "steps": max(steps, 1), "wall_ms": wall_ms, "device_ms": dev, "top": top,
@@ -739,10 +896,10 @@ def copy_params(cfg, seed: int):
 def phase_wrap(cfg) -> list[dict]:
     """The kernels against their plain versions through three ring wraps,
     at the main path's widths with 2 layers and a 256-slot window (a
-    200-token prompt, 600 decode steps), on each decode path: the
-    per-layer kernels (``fused_step=False`` on both engines) and the
-    megakernel with the i8 head (``wcls_i8=True`` on both: the plain engine
-    runs the megakernel's plain version):
+    200-token prompt, 600 decode steps), with a bf16 and with an int8 cache,
+    on each decode path: the per-layer kernels (``fused_step=False`` on both
+    engines) and the megakernel with the i8 head (``wcls_i8=True`` on both:
+    the plain engine runs the megakernel's plain version):
 
     (a) random weights, teacher-forced: the logits of every step within
         WRAP_TOL of that step's max |logits|;
@@ -750,7 +907,9 @@ def phase_wrap(cfg) -> list[dict]:
         run's and the plain run's 601 tokens are identical, and both equal
         the recurrence token[i + 1] = perm_inv[token[i - 1]], which holds
         only if each step's attention finds the previous token's row in
-        the ring. Its head rows are +-1, so the i8 recode is exact."""
+        the ring. Its head rows are +-1, so the i8 recode is exact; with an
+        int8 cache its V rows (+-1) quantise exactly and its K rows to 1/254
+        of their max, which moves a 200-nat score peak by about a nat."""
     import numpy as np
     import torch
 
@@ -761,10 +920,11 @@ def phase_wrap(cfg) -> list[dict]:
     steps = 600
     prompt = np.random.default_rng(SEED + 1).integers(3, cfg.vocab_size, size=200).tolist()
     rows = []
-    for path, kw in (("perlayer", dict(fused_step=False)), ("megakernel", dict(wcls_i8=True))):
-        def engines(params, kw=kw):
-            return (Engine(cfg2, params, kv_dtype=torch.bfloat16, matmul_impl="kernel", **kw),
-                    Engine(cfg2, params, kv_dtype=torch.bfloat16, matmul_impl="plain", **kw))
+    paths = (("perlayer", dict(fused_step=False)), ("megakernel", dict(wcls_i8=True)))
+    for kv, (path, kw) in itertools.product((torch.bfloat16, torch.int8), paths):
+        def engines(params, kw=kw, kv=kv):
+            return (Engine(cfg2, params, kv_dtype=kv, matmul_impl="kernel", **kw),
+                    Engine(cfg2, params, kv_dtype=kv, matmul_impl="plain", **kw))
 
         params = synthetic_params(cfg2, device=DEVICE, seed=SEED + 1)
         ek, ep = engines(params)
@@ -787,7 +947,8 @@ def phase_wrap(cfg) -> list[dict]:
                 "plain_equal_recurrence": sum(a == b for a, b in zip(got_p, expected)),
                 "kernel_equal_plain": sum(a == b for a, b in zip(got_k, got_p)),
                 "distinct_tokens": len(set(got_k)), "tokens_head": got_k[:8]}
-        row = {"phase": "wrap", "decode_path": path, "layers": 2, "window": 256,
+        row = {"phase": "wrap", "decode_path": path, "kv_dtype": str(kv).split(".")[-1],
+               "layers": 2, "window": 256,
                "prompt_tokens": len(prompt), "ring_wraps": _ring_wraps(final_pos, 256),
                "tol_rel": WRAP_TOL, "random_teacher_forced": forced, "copy_free_running": copy,
                "tokens_identical": got_k == got_p == expected}
@@ -795,9 +956,10 @@ def phase_wrap(cfg) -> list[dict]:
         if row["ring_wraps"] < 3:
             raise AssertionError(f"wrap phase: {row['ring_wraps']} ring wraps, expected 3")
         if forced["max_rel_logit_err"] > WRAP_TOL:
-            raise AssertionError(f"wrap phase ({path}, teacher-forced): {forced}")
+            raise AssertionError(f"wrap phase ({path}, {kv}, teacher-forced): {forced}")
         if not row["tokens_identical"]:
-            raise AssertionError(f"wrap phase ({path}, copy model): greedy tokens differ: {copy}")
+            raise AssertionError(f"wrap phase ({path}, {kv}, copy model): greedy tokens differ: "
+                                 f"{copy}")
         rows.append(row)
         del params, ek, ep
         torch.cuda.empty_cache()
@@ -816,7 +978,17 @@ SUMMARY = {
                       "xalm_tpu/ops/pallas_attention.py:555", "T=512 pos=0"),
     "fused_decode": ("cuda", "xalm_tpu_torch/csrc/fused_decode.cu",
                      "xalm_tpu/ops/fused_decode.py:106", "B=1 kv_len=520, embed fold"),
+    # one launch does the insert (_insert_q_kernel) and the sink rotation
+    # (_sink_q_kernel, pallas_attention.py:141)
+    "kv_update_q": ("cuda", "xalm_tpu_torch/csrc/attention.cu",
+                    "xalm_tpu/ops/pallas_attention.py:104", "wrapped insert + sink rotation"),
+    "flash_decode_q": ("cuda", "xalm_tpu_torch/csrc/attention.cu",
+                       "xalm_tpu/ops/pallas_attention.py:205", "B=1 kv_len=777"),
 }
+# further rows of the kernels line: another TPU kernel a launch replaces,
+# and the megakernel's int8-KV branch (the fused_decode launches count both)
+ALSO_REPLACES = {"kv_update_q": "xalm_tpu/ops/pallas_attention.py:141"}
+INT8_CASE = {"fused_decode": "int8 KV, B=1 kv_len=520, embed fold"}
 
 
 def main() -> int:
@@ -863,13 +1035,20 @@ def main() -> int:
     for kname, (route, src, replaces, rep) in SUMMARY.items():
         rows = [r for r in cases.rows if r["kernel"] == kname]
         r = next(r for r in rows if r["case"] == rep)
-        kernels.append({
+        entry = {
             "name": kname, "route": route, "source": src, "replaces": replaces,
             "launches": main_row["launches"][kname],
             "max_abs_err": max(x["max_abs_err"] for x in rows),
             "ms": r["kernel_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"], "case": rep,
-        })
+        }
+        if kname in ALSO_REPLACES:
+            entry["also_replaces"] = ALSO_REPLACES[kname]
+        if kname in INT8_CASE:
+            q = next(x for x in rows if x["case"] == INT8_CASE[kname])
+            entry["int8_kv"] = {"case": q["case"], "ms": q["kernel_ms"], "plain_ms": q["plain_ms"],
+                                "bound_ms": q["bound_ms"], "bound_by": q["bound_by"]}
+        kernels.append(entry)
     emit({"kernels": kernels})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -23,6 +23,15 @@ within 2e-2 of its max and 95 % of the cache values within one bf16 ulp
 (an f32 ulp of difference can flip the bf16 rounding of an activation
 before a matmul, and the flip stays in the cache: the reasons of
 tests/test_torch_fused.py).
+
+The int8 cache: kv_update_q bit-equal to its plain version (absmax is
+order-free, and the scale and codes are computed by IEEE division and
+rounded half to even on both sides); flash_decode_q within 1e-3 of each
+row's max (the plain version copies the kernel's 128-row chunks, so p *
+v_scale is rounded to bf16 at the same chunk max, but a score that moves by
+an f32 ulp can flip one such rounding, by 2^-8 of a term that holds a few
+hundredths of its row's weight at most here); the megakernel's int8 branch
+within 2e-2 as above, and 95 % of the codes within one count.
 """
 
 import dataclasses
@@ -142,6 +151,77 @@ def test_attention_kernels_match_plain(dev):
         assert _row_rel(got, A.flash_prefill_plain(qp, k1, v1, 0, i32(0, 100)), hd) <= 2.0 ** -8
 
 
+def _int8_planes(dev, g, l, b, kh, s, hd):
+    ck = torch.randint(-127, 128, (l, b, kh, s, hd), dtype=torch.int8, device=dev, generator=g)
+    cv = torch.randint(-127, 128, (l, b, kh, s, hd), dtype=torch.int8, device=dev, generator=g)
+    ks = torch.rand((l, b, kh, s), device=dev, generator=g) * 0.02
+    vs = torch.rand((l, b, kh, s), device=dev, generator=g) * 0.02
+    return ck, cv, ks, vs
+
+
+def test_int8_attention_kernels_match_plain(dev):
+    g = torch.Generator(device=dev).manual_seed(1)
+    l, b, kh, s, hd, h = 2, 3, 4, 544, 128, 16
+    planes = _int8_planes(dev, g, l, b, kh, s, hd)
+    freqs = (1e4 ** (-np.arange(0, hd, 2) / hd)).astype(np.float32)
+    c, sn = (torch.from_numpy(a).to(dev) for a in A.rope_cos_sin_plus1(freqs))
+    i32 = lambda *v: torch.tensor(v, dtype=torch.int32, device=dev)  # noqa: E731
+    kn = torch.randn((b, kh, hd), device=dev, generator=g)
+    vn = torch.randn((b, kh, hd), device=dev, generator=g)
+    kn[2, 1] = 0.0  # an all-zero row: scale 1, codes 0
+    # a mid-ring insert, a wrapped insert with sink rotation, the sentinel
+    for kv_pos, rot in (((300, 77, s), (0, 1, 0)), ((5, s + 3, 40), (1, 0, 1))):
+        p1 = [t.clone() for t in planes]
+        p2 = [t.clone() for t in planes]
+        args = (kn, vn, i32(*kv_pos), i32(*rot), c, sn)
+        A.kv_update_q(*p1, 1, *args)
+        A.kv_update_q_plain(*p2, 1, *args)
+        assert all(torch.equal(x, y) for x, y in zip(p1, p2)), kv_pos
+    assert build.LAUNCHES["kv_update_q"] >= 2
+    q = torch.randn((b, h, hd), device=dev, generator=g)
+    for kvl in ((0, 5, 1), (129, 544, 520), (1, 300, 128)):
+        got = A.flash_decode_q(q, *p1, 1, i32(*kvl))
+        want = A.flash_decode_q_plain(q, *p1, 1, i32(*kvl))
+        assert torch.isfinite(got).all()
+        assert _row_rel(got, want, hd) < 1e-3, kvl
+        if kvl[0] == 0:
+            assert not got[0].any()
+    with pytest.raises(ValueError, match="scale"):
+        A.flash_decode_q(q, *p1[:2], p1[2][0], p1[3], 1, i32(1, 1, 1))
+
+
+def test_engine_int8_kernels_match_plain_through_wraps(dev):
+    """The int8 cache on both decode paths, kernels against plain versions,
+    teacher-forced through three wraps of a 64-slot window: each step's
+    logits within 2e-2 of their max; every decode step launches the
+    megakernel, or kv_update_q and flash_decode_q once per layer."""
+    from xalm_tpu_torch.runtime.engine import Engine
+    from xalm_tpu_torch.utils.synthetic import synthetic_params
+
+    cfg = dataclasses.replace(MISTRAL_7B, dim=512, hidden_dim=1024, n_layers=2,
+                              vocab_size=512, max_seq_len=64)
+    params = synthetic_params(cfg, device=dev, seed=4)
+    prompt = list(range(3, 40))
+    for kw, path in ((dict(fused_step=False), "perlayer"), ({}, "megakernel")):
+        ek = Engine(cfg, params, kv_dtype=torch.int8, matmul_impl="kernel", **kw)
+        ep = Engine(cfg, params, kv_dtype=torch.int8, matmul_impl="plain", **kw)
+        assert ek.decode_path(1) == path
+        lk, ck, pos = ek.prefill(prompt, ek.new_cache(1))
+        lp, cp, _ = ep.prefill(prompt, ep.new_cache(1))
+        build.reset_launches()
+        for _ in range(3 * 64):
+            tok = np.array([int(lk.argmax())])
+            lk, ck = ek.decode(tok, np.array([pos], np.int32), ck)
+            lp, cp = ep.decode(tok, np.array([pos], np.int32), cp)
+            assert float((lk - lp).abs().max()) <= 2e-2 * float(lp.abs().max()), (path, pos)
+            pos += 1
+        if path == "megakernel":
+            assert build.LAUNCHES["fused_decode"] == 3 * 64
+        else:
+            assert build.LAUNCHES["kv_update_q"] == build.LAUNCHES["flash_decode_q"] == 3 * 64 * 2
+        assert build.LAUNCHES["kv_update"] == build.LAUNCHES["flash_decode"] == 0
+
+
 def test_engine_kernels_match_plain_through_wraps(dev):
     """Both decode paths against the plain engine through three wraps: the
     per-layer kernels give the same greedy tokens; the megakernel (its
@@ -177,7 +257,8 @@ def test_engine_kernels_match_plain_through_wraps(dev):
         pos += 1
     assert build.LAUNCHES["fused_decode"] == 3 * 64
     total = {k: total[k] + n for k, n in build.LAUNCHES.items()}
-    assert all(n > 0 for n in total.values()), total
+    bf16_kernels = ("qmatmul", "kv_update", "flash_decode", "flash_prefill", "fused_decode")
+    assert all(total[k] > 0 for k in bf16_kernels), total
 
 
 FUSED_CFG = dict(dim=256, hidden_dim=512, n_layers=2, n_heads=4, n_kv_heads=2, vocab_size=320,
@@ -188,6 +269,70 @@ def _ulp_share(got, want) -> float:
     g, w = got.float(), want.float()
     ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(2.0 ** -126))) - 7)
     return float(((g - w).abs() <= ulp).float().mean())
+
+
+def _code_share(got, want) -> float:
+    return float(((got.int() - want.int()).abs() <= 1).float().mean())
+
+
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("folds", [False, True])
+def test_fused_decode_int8_matches_plain_through_wraps(dev, b, folds):
+    """The megakernel's int8-KV branch against its plain version, as below:
+    zeroed int8 planes, from position 0 through three wraps of a 48-slot
+    window, row 1 at the sentinel when B = 3."""
+    from xalm_tpu_torch.models.llama import rope_constants, rope_tables
+    from xalm_tpu_torch.models.params import recode_wcls_i8
+    from xalm_tpu_torch.ops import fused_decode as fd
+    from xalm_tpu_torch.runtime.cache import KVCache, ring_indices
+    from xalm_tpu_torch.utils.synthetic import synthetic_params
+
+    cfg = dataclasses.replace(MISTRAL_7B, **FUSED_CFG)
+    params = synthetic_params(cfg, device=dev, seed=10 + b)
+    if folds:
+        params = recode_wcls_i8(params)
+    s = cfg.max_seq_len
+    freqs, c1, s1 = rope_constants(cfg, dev)
+    kern = KVCache.init(cfg, b, torch.int8, dev)
+    plain = KVCache.init(cfg, b, torch.int8, dev)
+    rng = np.random.default_rng(b)
+    start = np.array([0, 7, 20][:b])
+    build.reset_launches()
+    steps = s + 2 * (s - 2) + 4
+    for st in range(steps):
+        pos = torch.from_numpy((start + st).astype(np.int32))
+        _, kv_pos, kv_len = ring_indices(pos, s)
+        rot = (pos >= s).to(torch.int32)
+        if b == 3:
+            kv_pos[1], rot[1] = s, 0
+        tok = torch.from_numpy(rng.integers(3, cfg.vocab_size, size=b))
+        kw = {}
+        if folds:
+            kw = dict(wcls=params.wcls, out_norm=params.out_norm)
+            if b == 1:
+                kw.update(embed=params.embed, token=tok, pos=pos, freqs=freqs)
+        x0 = ce = se = None
+        if "embed" not in kw:
+            x0 = params.embed.values[tok.to(dev)].float()
+            ce, se = (z[:, 0, 0] for z in rope_tables(pos[:, None], freqs.cpu()))
+        got = fd.fused_decode_step(params, cfg, x0, kern.k, kern.v, kv_pos, kv_len, rot, ce, se,
+                                   c1, s1, k_scale=kern.k_scale, v_scale=kern.v_scale, **kw)
+        want = fd.fused_decode_step_plain(params, cfg, x0, plain.k, plain.v, kv_pos, kv_len, rot,
+                                          ce, se, c1, s1, k_scale=plain.k_scale,
+                                          v_scale=plain.v_scale, **kw)
+        torch.cuda.synchronize()
+        assert len(got) == len(want) == (7 if folds else 5)
+        assert _row_rel(got[0], want[0], cfg.dim) <= 2e-2, st
+        if folds:
+            assert _row_rel(got[1], want[1], cfg.vocab_size) <= 2e-2, st
+            assert torch.equal(got[2], got[1].argmax(dim=-1).to(torch.int32))
+    assert build.LAUNCHES["fused_decode"] == steps
+    for c, sc, pc, psc in ((kern.k, kern.k_scale, plain.k, plain.k_scale),
+                           (kern.v, kern.v_scale, plain.v, plain.v_scale)):
+        live = slice(0, s)
+        deq, pdeq = (x[:, :, :, live].float() * y[..., live, None] for x, y in ((c, sc), (pc, psc)))
+        assert _row_rel(deq, pdeq, cfg.head_dim) <= 2e-2
+        assert _code_share(c, pc) >= 0.95
 
 
 @pytest.mark.parametrize("b", [1, 3])
@@ -272,8 +417,7 @@ def test_fused_decode_refuses_what_it_does_not_take(dev):
 
     call()  # the shapes the refusals below change
     with pytest.raises(ValueError, match="int8 KV"):
-        z = torch.zeros((cfg.n_layers, 1, cfg.n_kv_heads, 64), device=dev)
-        call(dtype=torch.int8, k_scale=z, v_scale=z)
+        call(dtype=torch.int8)  # an int8 cache without its scale planes
     with pytest.raises(ValueError, match="batch"):
         call(b=9)
     with pytest.raises(ValueError, match="bf16"):
@@ -338,3 +482,11 @@ def test_harness_on_the_card(dev, tmp_path, capsys):
         build.LAUNCHES
     assert harness.main([path, "-d", "cuda", "-m", "perplexity", "-i", "hello world " * 30]) == 0
     assert "perplexity:" in capsys.readouterr().out
+    build.reset_launches()
+    assert harness.main([path, "-d", "cuda", "-t", "i8", "-i", "hello world", "-n", "80"]) == 0
+    out = capsys.readouterr().out
+    assert "decode path: megakernel" in out and "80 tokens" in out
+    assert build.LAUNCHES["fused_decode"] == 79 and build.LAUNCHES["flash_prefill"] == 0
+    assert harness.main([path, "-d", "cuda", "-t", "i8", "-m", "passkey", "-n", "20",
+                         "--seed", "1"]) in (0, 1)
+    assert "retrieval:" in capsys.readouterr().out

@@ -126,9 +126,50 @@ def test_harness_perplexity_and_refusals(tiny_i8, capsys):
     assert port_harness.main([tiny_i8, "-d", "cpu", "-m", "perplexity",
                               "-i", "the quick brown fox is here"]) == 0
     assert "perplexity:" in capsys.readouterr().out
-    for extra in (["--spec", "4"], ["-t", "i8"], ["--temperature", "0.7"], ["-m", "passkey"]):
+    for extra in (["--spec", "4"], ["--temperature", "0.7"], ["--q4", "128"], ["--tp", "2"]):
         with pytest.raises(SystemExit):
             port_harness.main([tiny_i8, "-d", "cpu", "-i", "x"] + extra)
+
+
+def _lines(out: str, keys: tuple[str, ...]) -> list[str]:
+    return [ln for ln in out.splitlines() if ln.strip().startswith(keys)]
+
+
+def test_harness_i8_cache_completion_identical_to_jax(tiny_i8, capsys):
+    """-t i8 (int8 codes with per-row scales) on the reference path of both
+    harnesses: the same text through two ring wraps of the window."""
+    args = [tiny_i8, "-m", "c", "-i", "hello world the quick", "-n", "40", "-T", str(WINDOW),
+            "-t", "i8", "--matmul", "xla"]
+    assert jax_harness.main(args) == 0
+    want = capsys.readouterr().out
+    assert port_harness.main(args + ["-d", "cpu", "--compute", "f32"]) == 0
+    got = capsys.readouterr().out
+    assert "decode path: xla" in got
+    assert _generated_text(got) == _generated_text(want)
+    assert _lines(got, ("active bytes",)) == _lines(want, ("active bytes",))
+    assert port_harness.main([tiny_i8, "-d", "cpu", "-t", "i8", "-i", "hello", "-n", "20"]) == 0
+    assert "decode path: megakernel" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("kv", ["f32", "i8"])
+def test_harness_passkey_identical_to_jax(tiny_i8, capsys, kv):
+    """-m passkey with -l and --seed: the same prompt, passkey, position,
+    answer and verdict as the JAX harness, the ring wrapping many times
+    (a 30-line prompt through a 64-slot window)."""
+    args = [tiny_i8, "-m", "passkey", "-n", "30", "-T", "64", "--seed", "5", "-t", kv,
+            "--matmul", "xla"]
+    for extra in ([], ["-l", "3"]):
+        rc_want = jax_harness.main(args + extra)
+        want = capsys.readouterr().out
+        rc_got = port_harness.main(args + extra + ["-d", "cpu", "--compute", "f32"])
+        got = capsys.readouterr().out
+        keys = ("prompt:", "passkey:", "passkey position:", "context window:", "model answer:",
+                "retrieval:")
+        assert rc_got == rc_want
+        assert [ln.split("(")[0] for ln in _lines(got, keys)] == \
+            [ln.split("(")[0] for ln in _lines(want, keys)]
+        assert len(_lines(got, keys)) == 6 and int(_lines(got, ("prompt:",))[0].split()[1]) > 64
+    assert "passkey position: 3/30" in got
 
 
 def test_port_written_bf16_head_container_matches_jax(tmp_path):

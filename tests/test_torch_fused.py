@@ -291,7 +291,10 @@ def test_gates_refuse_what_the_kernel_does_not_take(jax_base):
     assert not fd.fused_step_supported(cfg, params, ck, 1, 2)  # a prefill chunk
     assert not fd.fused_step_supported(cfg, params, ck, 9, 1)
     assert not fd.fused_step_supported(cfg, params, ck.to(torch.float16), 1, 1)
-    assert not fd.fused_step_supported(cfg, params, ck.to(torch.int8), 1, 1, k_scale=ck)
+    ks = ck[..., 0]
+    assert fd.fused_step_supported(cfg, params, ck.to(torch.int8), 1, 1, k_scale=ks)
+    assert not fd.fused_step_supported(cfg, params, ck.to(torch.int8), 1, 1)  # no scales
+    assert not fd.fused_step_supported(cfg, params, ck, 1, 1, k_scale=ks)  # scales, a float cache
     assert not fd.fused_step_supported(cfg, params, ck, 1, 1, a8=True)
     q8 = dataclasses.replace(params.layers, wo=QWeight(params.layers.wo.values, None))
     assert not fd.fused_step_supported(cfg, dataclasses.replace(params, layers=q8), ck, 1, 1)
@@ -303,13 +306,20 @@ def test_gates_refuse_what_the_kernel_does_not_take(jax_base):
                              *[torch.zeros(9, dtype=torch.int32)] * 3,
                              torch.ones((9, cfg.head_dim)), torch.zeros((9, cfg.head_dim)),
                              torch.ones(cfg.head_dim), torch.zeros(cfg.head_dim))
+    z = torch.zeros((cfg.n_layers, 1, cfg.n_kv_heads, 32, cfg.head_dim))
+
+    def step(ck, **kw):
+        return fd.fused_decode_step(params, cfg, torch.zeros((1, cfg.dim)), ck, ck.clone(),
+                                    *[torch.zeros(1, dtype=torch.int32)] * 3,
+                                    torch.ones((1, cfg.head_dim)), torch.zeros((1, cfg.head_dim)),
+                                    torch.ones(cfg.head_dim), torch.zeros(cfg.head_dim), **kw)
+
+    with pytest.raises(ValueError, match="belong to an int8 KV cache"):
+        step(z, k_scale=z[..., 0], v_scale=z[..., 0].clone())
     with pytest.raises(ValueError, match="int8 KV"):
-        z = torch.zeros((cfg.n_layers, 1, cfg.n_kv_heads, 32, cfg.head_dim))
-        fd.fused_decode_step(params, cfg, torch.zeros((1, cfg.dim)), z, z.clone(),
-                             *[torch.zeros(1, dtype=torch.int32)] * 3,
-                             torch.ones((1, cfg.head_dim)), torch.zeros((1, cfg.head_dim)),
-                             torch.ones(cfg.head_dim), torch.zeros(cfg.head_dim),
-                             k_scale=z[..., 0], v_scale=z[..., 0])
+        step(z.to(torch.int8))  # an int8 cache without its scales
+    with pytest.raises(ValueError, match="W8A8"):
+        step(z, a8=True)
 
 
 def test_recode_wcls_i8_is_bit_equal_to_jax(jax_base):

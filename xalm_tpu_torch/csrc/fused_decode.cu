@@ -1,10 +1,12 @@
 // Whole-step decode megakernel for Hopper (sm_90a).
 //
 // Replaces xalm_tpu/ops/fused_decode.py::_kernel (through fused_decode_step)
-// for an i8 body with per-row f32 scales, a bf16 StreamingLLM cache, 1 <= B
-// <= 8 rows at t = 1, head_dim 128, and its two folds: the embed fold (the
-// bf16 embed row gathered and the rope trig computed in the kernel) and the
-// i8-head fold (final norm, i8 classifier, first-occurrence argmax).
+// for an i8 body with per-row f32 scales, a StreamingLLM cache of bf16 or of
+// int8 codes with per-row f32 scale planes (the TPU kernel's `quant`
+// branch), 1 <= B <= 8 rows at t = 1, head_dim 128, and its two folds: the
+// embed fold (the bf16 embed row gathered and the rope trig computed in the
+// kernel) and the i8-head fold (final norm, i8 classifier, first-occurrence
+// argmax). The two cache kinds are two instantiations of one kernel.
 //
 // One cooperative, persistent launch per decode step. The grid is exactly
 // the blocks that can be co-resident (occupancy API x SM count), so every
@@ -16,9 +18,17 @@
 //      rows rounded to bf16 and inserted at kv_pos (dropped at the kv_pos
 //      == S sentinel), and for rows with `rotate` the KV_SINKS sink keys
 //      rotated by one position (each product and the sum rounded as the
-//      plain version's separate f32 operations, then rounded to bf16);
+//      plain version's separate f32 operations, then rounded to bf16).
+//      int8 cache: q stays unscaled; the K and V rows are quantised (absmax
+//      by warp shuffles and a named barrier over the item's 128 threads,
+//      since the two items of a block may run different numbers of
+//      iterations) and their codes and scales written; the sinks are
+//      dequantised with their scales, rotated and requantised;
 //   3. split flash-decode over (row, kv head, 128-key chunk): f32 scores
-//      over the cache rows, chunk max and exp-sum, un-normalised P.V;
+//      over the cache rows, chunk max and exp-sum, un-normalised P.V.
+//      int8 cache: the row scales factor out of both dots, as in
+//      csrc/attention.cu's xq_flash_decode_q (bf16 q times the codes, times
+//      k_scale / sqrt(hd); bf16(p * v_scale) times the V codes);
 //   4. combine the chunks' (max, sum, acc) partials -> attn (B, QD) f32;
 //   5. bf16(attn) times wo, plus the residual;
 //   6. rmsnorm(x) * mlp_norm times w13, SiLU(gate) * up on each chunk pair
@@ -47,17 +57,20 @@
 // weights, norms, scales and step inputs, which nothing writes.
 //
 // What bounds it on the H100: the weight bytes. The 7B layer stack is 6.98
-// GB of int8 (2.08 ms at 3.35 TB/s), the i8 head 0.13 GB more; the cache
-// rows are 33 MB at kv_len 520. Compute is B FMAs per weight byte on the
+// GB of int8 (2.08 ms at 3.35 TB/s), the i8 head 0.13 GB more; the K and V
+// cache rows at kv_len 520 are 68 MB in bf16 (2 x 32 layers x 520 rows x
+// 1024 values x 2 B), 34 MB of int8 codes plus 1 MB of scales in the int8
+// cache. Compute is B FMAs per weight byte on the
 // CUDA cores. Each grid barrier costs one atomic per block and a spin on
 // one word (measured by xq_grid_barrier_bench, PERF.md); a step has 1 + 7L
 // of them (+1 with the head fold): 225 at 32 layers. No wgmma, TMA or
 // cross-barrier weight prefetch yet: the weight stream stops at every
 // barrier and restarts cold.
 //
-// Limits (cudaErrorInvalidValue): head_dim != 128, a non-bf16 cache, B
-// outside 1..8, a GQA group outside 1..8, widths that are not multiples of
-// 16, or a device where not one block can be resident.
+// Limits (cudaErrorInvalidValue): head_dim != 128, a cache neither bf16 nor
+// int8 with scale planes, B outside 1..8, a GQA group outside 1..8, widths
+// that are not multiples of 16, or a device where not one block can be
+// resident.
 
 #include <math.h>
 
@@ -98,8 +111,10 @@ struct MkArgs {
   const float* out_norm;  // (N) (head fold)
   const int8_t* wcls;     // (V, N)
   const float* swcls;     // (V)
-  __nv_bfloat16* ck;  // (L, B, KH, S, hd), updated in place
-  __nv_bfloat16* cv;
+  void* ck;  // (L, B, KH, S, hd) bf16 or int8, updated in place
+  void* cv;
+  float* ks;  // (L, B, KH, S) row scales of an int8 cache, updated in place
+  float* vs;
   float* xout;    // (B, N)
   float* logits;  // (B, V) (head fold)
   int* token;     // (B) (head fold)
@@ -262,9 +277,27 @@ __device__ void gemv_phase(const int8_t* __restrict__ w, int D, int K, int c13, 
 
 __device__ __forceinline__ float clip_to(float v, float c) { return fminf(fmaxf(v, -c), c); }
 
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// max of |v| over the 128 threads of one half of the block (a phase-2
+// item), the same value in each: warp shuffles, then named barrier 1 + half
+// (barrier 0 is __syncthreads), so the other half need not take part
+__device__ float half_absmax(float v, float* red4, int half) {
+  const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3;
+  const float m = xq_warp_max(fabsf(v));
+  asm volatile("bar.sync %0, 128;" ::"r"(half + 1) : "memory");  // red4 is free
+  if (lane == 0) red4[w] = m;
+  asm volatile("bar.sync %0, 128;" ::"r"(half + 1) : "memory");
+  return fmaxf(fmaxf(red4[0], red4[1]), fmaxf(red4[2], red4[3]));
+}
+
+template <bool QUANT>
 __global__ void __launch_bounds__(MK_THREADS, 2) fused_decode_kernel(const MkArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float red[MK_WARPS];
+  __shared__ float hred[2][4];
   __shared__ float rinv[MK_MAX_B];
   __shared__ float best_v[MK_WARPS][MK_MAX_B];
   __shared__ int best_i[MK_WARPS][MK_MAX_B];
@@ -315,8 +348,13 @@ __global__ void __launch_bounds__(MK_THREADS, 2) fused_decode_kernel(const MkArg
     };
   };
 
+  __nv_bfloat16* const ckf = static_cast<__nv_bfloat16*>(a.ck);
+  __nv_bfloat16* const cvf = static_cast<__nv_bfloat16*>(a.cv);
+  signed char* const ckq = static_cast<signed char*>(a.ck);
+  signed char* const cvq = static_cast<signed char*>(a.cv);
+
   for (int l = 0; l < a.L; ++l) {
-    const size_t lc = (size_t)l * B * KH * S * MK_HD;  // this layer's cache plane
+    const size_t lsc = (size_t)l * B * KH * S;  // this layer's scale plane (x hd: its cache plane)
     // ---- phase 1: rmsnorm + wqkv
     rows_rms(x, B, N, a.eps, rinv, red);
     {
@@ -346,22 +384,60 @@ __global__ void __launch_bounds__(MK_THREADS, 2) fused_decode_kernel(const MkArg
         const float p = clip_to(__ldcg(v + (i ^ 1)), a.clip);
         return u * c + ((i & 1) ? p : -p) * s;
       };
-      for (int g = 0; g < G; ++g)
-        __stcg(qr + ((size_t)b * HQ + j * G + g) * MK_HD + i, rope(y + g * MK_HD) * a.sm_scale);
+      for (int g = 0; g < G; ++g) {
+        const float qv = rope(y + g * MK_HD);
+        __stcg(qr + ((size_t)b * HQ + j * G + g) * MK_HD + i, QUANT ? qv : qv * a.sm_scale);
+      }
       const float kr = rope(y + G * MK_HD);
       const float vr = clip_to(__ldcg(y + (G + 1) * MK_HD + i), a.clip);
-      const size_t stripe = lc + ((size_t)b * KH + j) * S * MK_HD;
+      const size_t srow = lsc + ((size_t)b * KH + j) * S;  // scale index of the stripe's row 0
+      const size_t stripe = srow * MK_HD;
       const int kvp = __ldg(kv_pos + b);
+      if constexpr (QUANT) {
+        const int half = tid >> 7;
+        const float ksc = xq_row_scale(half_absmax(kr, hred[half], half));
+        const float vsc = xq_row_scale(half_absmax(vr, hred[half], half));
+        if (kvp >= 0 && kvp < S) {
+          ckq[stripe + (size_t)kvp * MK_HD + i] = xq_code(kr, ksc);
+          cvq[stripe + (size_t)kvp * MK_HD + i] = xq_code(vr, vsc);
+          if (i == 0) {
+            __stcg(a.ks + srow + kvp, ksc);
+            __stcg(a.vs + srow + kvp, vsc);
+          }
+        }
+        if (__ldg(rotate + b) != 0) {  // uniform over the item
+          // dequantise the sinks (every read before the first barrier of
+          // the reduces below, every write after it), rotate, requantise
+          float v[KV_SINKS], sw[KV_SINKS];
+#pragma unroll
+          for (int r = 0; r < KV_SINKS; ++r) {
+            const float sc = __ldcg(a.ks + srow + r);
+            const signed char* row = ckq + stripe + (size_t)r * MK_HD;
+            v[r] = __fmul_rn((float)__ldcg(row + i), sc);
+            const float p = __fmul_rn((float)__ldcg(row + (i ^ 1)), sc);
+            sw[r] = (i & 1) ? p : -p;
+          }
+          const float c1 = __ldg(a.c1 + i), s1 = __ldg(a.s1 + i);
+#pragma unroll
+          for (int r = 0; r < KV_SINKS; ++r) {
+            const float rot = __fadd_rn(__fmul_rn(v[r], c1), __fmul_rn(sw[r], s1));
+            const float sc = xq_row_scale(half_absmax(rot, hred[half], half));
+            ckq[stripe + (size_t)r * MK_HD + i] = xq_code(rot, sc);
+            if (i == 0) __stcg(a.ks + srow + r, sc);
+          }
+        }
+        continue;
+      }
       if (kvp >= 0 && kvp < S) {
-        a.ck[stripe + (size_t)kvp * MK_HD + i] = __float2bfloat16_rn(kr);
-        a.cv[stripe + (size_t)kvp * MK_HD + i] = __float2bfloat16_rn(vr);
+        ckf[stripe + (size_t)kvp * MK_HD + i] = __float2bfloat16_rn(kr);
+        cvf[stripe + (size_t)kvp * MK_HD + i] = __float2bfloat16_rn(vr);
       }
       if (__ldg(rotate + b) != 0) {  // uniform over the item's four warps
         float v[KV_SINKS], sw[KV_SINKS];
 #pragma unroll
         for (int r = 0; r < KV_SINKS; ++r) {
           const unsigned short* row =
-              reinterpret_cast<const unsigned short*>(a.ck + stripe + (size_t)r * MK_HD);
+              reinterpret_cast<const unsigned short*>(ckf + stripe + (size_t)r * MK_HD);
           v[r] = __bfloat162float(__ushort_as_bfloat16(__ldcg(row + i)));
           const float p = __bfloat162float(__ushort_as_bfloat16(__ldcg(row + (i ^ 1))));
           sw[r] = (i & 1) ? p : -p;
@@ -370,7 +446,7 @@ __global__ void __launch_bounds__(MK_THREADS, 2) fused_decode_kernel(const MkArg
         const float c1 = __ldg(a.c1 + i), s1 = __ldg(a.s1 + i);
 #pragma unroll
         for (int r = 0; r < KV_SINKS; ++r)
-          a.ck[stripe + (size_t)r * MK_HD + i] =
+          ckf[stripe + (size_t)r * MK_HD + i] =
               __float2bfloat16_rn(__fadd_rn(__fmul_rn(v[r], c1), __fmul_rn(sw[r], s1)));
       }
     }
@@ -387,20 +463,42 @@ __global__ void __launch_bounds__(MK_THREADS, 2) fused_decode_kernel(const MkArg
         const int r0 = ch * MK_CHUNK;
         const int n = min(MK_CHUNK, __ldg(kv_len + b) - r0);
         if (n <= 0) continue;  // uniform over the block
-        const size_t stripe = lc + ((size_t)b * KH + j) * S * MK_HD;
+        const size_t srow = lsc + ((size_t)b * KH + j) * S + r0;  // scale index of the chunk's row 0
+        const size_t stripe = (lsc + ((size_t)b * KH + j) * S) * MK_HD;
         __syncthreads();  // the previous item's scratch is consumed
-        for (int e = tid; e < G * MK_HD; e += MK_THREADS)
-          qs[e] = __ldcg(qr + ((size_t)b * HQ + j * G) * MK_HD + e);
+        for (int e = tid; e < G * MK_HD; e += MK_THREADS) {
+          const float qv = __ldcg(qr + ((size_t)b * HQ + j * G) * MK_HD + e);
+          qs[e] = QUANT ? bf16_round(qv) : qv;
+        }
         __syncthreads();
-        // scores: two threads per key row, 64 dims each, f32 dots
+        // scores: two threads per key row, 64 dims each, f32 dots (int8:
+        // exact bf16 x code products, then times k_scale / sqrt(hd))
         {
           const int row = tid >> 1, half = tid & 1;
           float s[MK_MAX_G];
 #pragma unroll
           for (int g = 0; g < MK_MAX_G; ++g) s[g] = 0.f;
-          if (row < n) {
+          if (QUANT && row < n) {
             const int4* kr =
-                reinterpret_cast<const int4*>(a.ck + stripe + (size_t)(r0 + row) * MK_HD + half * 64);
+                reinterpret_cast<const int4*>(ckq + stripe + (size_t)(r0 + row) * MK_HD + half * 64);
+#pragma unroll
+            for (int cc = 0; cc < 4; ++cc) {
+              const int4 raw = __ldcg(kr + cc);
+              const signed char* kp = reinterpret_cast<const signed char*>(&raw);
+              float kf[16];
+#pragma unroll
+              for (int e = 0; e < 16; ++e) kf[e] = (float)kp[e];
+#pragma unroll
+              for (int g = 0; g < MK_MAX_G; ++g) {
+                if (g >= G) break;
+                const float* qg = qs + g * MK_HD + half * 64 + cc * 16;
+#pragma unroll
+                for (int e = 0; e < 16; ++e) s[g] += qg[e] * kf[e];
+              }
+            }
+          } else if (row < n) {
+            const int4* kr =
+                reinterpret_cast<const int4*>(ckf + stripe + (size_t)(r0 + row) * MK_HD + half * 64);
 #pragma unroll
             for (int cc = 0; cc < 8; ++cc) {
               const int4 raw = __ldcg(kr + cc);
@@ -417,15 +515,17 @@ __global__ void __launch_bounds__(MK_THREADS, 2) fused_decode_kernel(const MkArg
               }
             }
           }
+          const float f = QUANT && row < n ? __fmul_rn(__ldcg(a.ks + srow + row), a.sm_scale) : 1.f;
 #pragma unroll
           for (int g = 0; g < MK_MAX_G; ++g) {
             if (g >= G) break;
             s[g] += __shfl_xor_sync(0xffffffffu, s[g], 1);
-            if (row < n && half == 0) sc[g * MK_CHUNK + row] = s[g];
+            if (row < n && half == 0) sc[g * MK_CHUNK + row] = QUANT ? s[g] * f : s[g];
           }
         }
         __syncthreads();
-        // chunk max and exp-sum per query head, one warp each
+        // chunk max and exp-sum per query head, one warp each (int8: keep
+        // bf16(p * v_scale) for P.V; the sum is of p)
         for (int g = warp; g < G; g += MK_WARPS) {
           float mx = -INFINITY;
           for (int r = lane; r < n; r += 32) mx = fmaxf(mx, sc[g * MK_CHUNK + r]);
@@ -433,7 +533,7 @@ __global__ void __launch_bounds__(MK_THREADS, 2) fused_decode_kernel(const MkArg
           float sum = 0.f;
           for (int r = lane; r < n; r += 32) {
             const float p = expf(sc[g * MK_CHUNK + r] - mx);
-            sc[g * MK_CHUNK + r] = p;
+            sc[g * MK_CHUNK + r] = QUANT ? bf16_round(__fmul_rn(p, __ldcg(a.vs + srow + r))) : p;
             sum += p;
           }
           sum = xq_warp_sum(sum);
@@ -451,12 +551,20 @@ __global__ void __launch_bounds__(MK_THREADS, 2) fused_decode_kernel(const MkArg
 #pragma unroll
             for (int e = 0; e < 4; ++e) acc[g][e] = 0.f;
           for (int r = warp; r < n; r += MK_WARPS) {
-            const uint2 raw = __ldcg(
-                reinterpret_cast<const uint2*>(a.cv + stripe + (size_t)(r0 + r) * MK_HD + lane * 4));
-            const __nv_bfloat16* vp = reinterpret_cast<const __nv_bfloat16*>(&raw);
             float vf[4];
+            if constexpr (QUANT) {
+              const int raw = __ldcg(
+                  reinterpret_cast<const int*>(cvq + stripe + (size_t)(r0 + r) * MK_HD + lane * 4));
+              const signed char* vp = reinterpret_cast<const signed char*>(&raw);
 #pragma unroll
-            for (int e = 0; e < 4; ++e) vf[e] = __bfloat162float(vp[e]);
+              for (int e = 0; e < 4; ++e) vf[e] = (float)vp[e];
+            } else {
+              const uint2 raw = __ldcg(
+                  reinterpret_cast<const uint2*>(cvf + stripe + (size_t)(r0 + r) * MK_HD + lane * 4));
+              const __nv_bfloat16* vp = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) vf[e] = __bfloat162float(vp[e]);
+            }
 #pragma unroll
             for (int g = 0; g < MK_MAX_G; ++g) {
               if (g >= G) break;
@@ -626,35 +734,33 @@ struct Occupancy {
   int blocks_per_sm = -1, sms = 0;
 };
 
-template <typename K>
-cudaError_t occupancy(K kernel, Occupancy* occ) {
+// the cooperative grid of fused_decode_kernel<QUANT> on the current device:
+// the co-resident blocks, found once per device and cache kind
+template <bool QUANT>
+cudaError_t grid_of(int* grid) {
   int dev;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   static Occupancy cache[64];
   if (dev < 0 || dev >= 64) return cudaErrorInvalidValue;
-  if (cache[dev].blocks_per_sm < 0) {
+  Occupancy& occ = cache[dev];
+  if (occ.blocks_per_sm < 0) {
     int coop = 0;
     e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
     if (e != cudaSuccess) return e;
-    e = cudaDeviceGetAttribute(&cache[dev].sms, cudaDevAttrMultiProcessorCount, dev);
+    e = cudaDeviceGetAttribute(&occ.sms, cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return e;
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MK_SMEM);
+    e = cudaFuncSetAttribute(fused_decode_kernel<QUANT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             MK_SMEM);
     if (e != cudaSuccess) return e;
     int n = 0;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, MK_THREADS, MK_SMEM);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fused_decode_kernel<QUANT>, MK_THREADS,
+                                                      MK_SMEM);
     if (e != cudaSuccess) return e;
-    cache[dev].blocks_per_sm = coop ? n : 0;
+    occ.blocks_per_sm = coop ? n : 0;
   }
-  *occ = cache[dev];
-  return cudaSuccess;
-}
-
-cudaError_t grid_of(Occupancy* occ, int* grid) {
-  cudaError_t e = occupancy(fused_decode_kernel, occ);
-  if (e != cudaSuccess) return e;
-  if (occ->blocks_per_sm < 1) return cudaErrorInvalidValue;  // no co-resident grid
-  *grid = occ->blocks_per_sm * occ->sms;
+  if (occ.blocks_per_sm < 1) return cudaErrorInvalidValue;  // no co-resident grid
+  *grid = occ.blocks_per_sm * occ.sms;
   if (*grid > MK_MAX_GRID) *grid = MK_MAX_GRID;
   return cudaSuccess;
 }
@@ -667,17 +773,18 @@ XQ_EXPORT long long xq_fused_decode_workspace(int B, int N, int KH, int G, int S
   return (long long)ws_layout(B, N, KH, G, S, H).total;
 }
 
-// blocks in the cooperative grid on the current device (<= 0: none fit)
+// blocks in the cooperative grid of the bf16-cache kernel on the current
+// device (<= 0: none fit)
 XQ_EXPORT int xq_fused_decode_grid() {
-  Occupancy occ;
   int grid = 0;
-  return grid_of(&occ, &grid) == cudaSuccess ? grid : 0;
+  return grid_of<false>(&grid) == cudaSuccess ? grid : 0;
 }
 
 // ptr: meta, x0, cexp_p, sexp_p, c1, s1, freqs, embed, attn_norm, mlp_norm,
 //      wqkv, sqkv, wo, so, w13, s13, w2, s2, out_norm, wcls, swcls, ck, cv,
-//      xout, logits, token, work (null where a fold is off)
-// dim: L, B, N, KH, G, hd, H, S, V, c13, cache_is_bf16
+//      xout, logits, token, work, k_scale, v_scale (null where a fold is
+//      off; the scale planes with an int8 cache only)
+// dim: L, B, N, KH, G, hd, H, S, V, c13, cache kind (1 bf16, 2 int8)
 XQ_EXPORT int xq_fused_decode(void* const* ptr, const int* dim, float eps, float clip,
                               float sm_scale, void* stream) {
   MkArgs a;
@@ -702,12 +809,14 @@ XQ_EXPORT int xq_fused_decode(void* const* ptr, const int* dim, float eps, float
   a.out_norm = (const float*)ptr[18];
   a.wcls = (const int8_t*)ptr[19];
   a.swcls = (const float*)ptr[20];
-  a.ck = (__nv_bfloat16*)ptr[21];
-  a.cv = (__nv_bfloat16*)ptr[22];
+  a.ck = ptr[21];
+  a.cv = ptr[22];
   a.xout = (float*)ptr[23];
   a.logits = (float*)ptr[24];
   a.token = (int*)ptr[25];
   a.work = (unsigned char*)ptr[26];
+  a.ks = (float*)ptr[27];
+  a.vs = (float*)ptr[28];
   a.L = dim[0];
   a.B = dim[1];
   a.N = dim[2];
@@ -718,25 +827,27 @@ XQ_EXPORT int xq_fused_decode(void* const* ptr, const int* dim, float eps, float
   a.S = dim[7];
   a.V = dim[8];
   a.c13 = dim[9];
-  const int cache_is_bf16 = dim[10];
+  const int cache_kind = dim[10];
+  const bool quant = cache_kind == 2;
   a.eps = eps;
   a.clip = clip;
   a.sm_scale = sm_scale;
   const bool embed_fold = a.embed != nullptr, head_fold = a.wcls != nullptr;
-  const bool ok = hd == MK_HD && cache_is_bf16 == 1 && a.L >= 1 && a.B >= 1 && a.B <= MK_MAX_B &&
+  const bool ok = hd == MK_HD && (cache_kind == 1 || (quant && a.ks && a.vs)) && a.L >= 1 && a.B >= 1 && a.B <= MK_MAX_B &&
                   a.KH >= 1 && a.G >= 1 && a.G <= MK_MAX_G && a.N >= 16 && a.N % 16 == 0 &&
                   a.H >= 16 && a.H % 16 == 0 && a.c13 >= 1 && a.H % a.c13 == 0 && a.S >= 1 &&
                   (embed_fold ? a.freqs != nullptr : (a.x0 && a.cexp_p && a.sexp_p)) &&
                   (!head_fold || (a.V >= 1 && a.out_norm && a.swcls && a.logits && a.token)) &&
                   a.work != nullptr;
   if (!ok) return (int)cudaErrorInvalidValue;
-  Occupancy occ;
   int grid = 0;
-  cudaError_t e = grid_of(&occ, &grid);
+  cudaError_t e = quant ? grid_of<true>(&grid) : grid_of<false>(&grid);
   if (e != cudaSuccess) return (int)e;
   void* args[] = {&a};
-  e = cudaLaunchCooperativeKernel((const void*)fused_decode_kernel, dim3(grid), dim3(MK_THREADS),
-                                  args, MK_SMEM, static_cast<cudaStream_t>(stream));
+  const void* kernel = quant ? (const void*)fused_decode_kernel<true>
+                             : (const void*)fused_decode_kernel<false>;
+  e = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(MK_THREADS), args, MK_SMEM,
+                                  static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) {
     cudaGetLastError();  // clear it: the caller raises
     return (int)e;
@@ -747,9 +858,8 @@ XQ_EXPORT int xq_fused_decode(void* const* ptr, const int* dim, float eps, float
 // `iters` grid barriers alone, on the megakernel's grid: the cost of one
 // barrier is the event time over iters (chip_smoke.py)
 XQ_EXPORT int xq_grid_barrier_bench(void* work, int iters, void* stream) {
-  Occupancy occ;
   int grid = 0;
-  cudaError_t e = grid_of(&occ, &grid);
+  cudaError_t e = grid_of<false>(&grid);
   if (e != cudaSuccess) return (int)e;
   e = cudaFuncSetAttribute(grid_barrier_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MK_SMEM);
   if (e != cudaSuccess) return (int)e;

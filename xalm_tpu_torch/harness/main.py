@@ -1,30 +1,34 @@
-"""CLI harness: completion | perplexity (counterpart of
+"""CLI harness: completion | perplexity | passkey (counterpart of
 ``xalm_tpu/harness/main.py``, same flags and output format).
 
     python -m xalm_tpu_torch.harness.main <checkpoint.xalm> [options]
       -d [cuda,cpu]   device (default cuda)
-      -m [completion,c,perplexity]   mode (default completion)
+      -m [completion,c,perplexity,passkey]   mode (default completion)
       -T <int>        sliding window context length (0 - max)
       -i <string>     input prompt
       -f <filepath>   input file with prompt
-      -n <int>        completion steps (default 256, 0 = max_seq_len)
+      -n <int>        completion: steps (default 256, 0 = max_seq_len);
+                      passkey: junk lines (default 250)
+      -l <int>        passkey position (-1 - random)
+      --seed <int>    seed of the passkey and its position
       -t <dtype>      kv cache dtype: auto (bf16 on cuda, f16 on cpu) | f16 | bf16 | f32
+                      | i8 (int8 codes with per-row f32 scales)
       --compute <d>   matmul compute dtype of the plain paths: auto | f32 | bf16
       --matmul <i>    auto (= kernel) | kernel | plain | xla
       --wcls-i8       re-code a float head to i8 per row at load; the decode
                       megakernel then runs the head in the same launch
 
 Decode goes through the whole-step megakernel where it takes the model (i8
-body, bf16 cache on the card, B <= 8) and through the per-layer kernels
-otherwise; the stats print which ("decode path: ..."). The JAX harness's
-passkey mode and its --q4, --temperature, --spec, --draft, --session,
---tp/--dp/--pp flags belong to later slices: they are accepted and refused
-with a message.
+body, a bf16 or int8 cache on the card, B <= 8) and through the per-layer
+kernels otherwise; the stats print which ("decode path: ..."). The JAX
+harness's --q4, --temperature, --spec, --draft, --session, --tp/--dp/--pp
+flags belong to later slices: they are accepted and refused with a message.
 """
 
 from __future__ import annotations
 
 import argparse
+import random
 import sys
 import time
 
@@ -41,9 +45,14 @@ def _build_parser() -> argparse.ArgumentParser:
     p.add_argument("-i", dest="prompt", default=None, help="input prompt")
     p.add_argument("-f", dest="prompt_file", default=None, help="input file with prompt")
     p.add_argument("-n", dest="num", type=int, default=None,
-                   help="completion: steps (default 256; 0 = max_seq_len)")
+                   help="completion: steps (default 256; 0 = max_seq_len); passkey: junk lines "
+                        "(default 250)")
+    p.add_argument("-l", dest="passkey_pos", type=int, default=-1,
+                   help="passkey position (-1 - random)")
+    p.add_argument("--seed", type=int, default=None, help="seed for passkey randomness")
     p.add_argument("-t", dest="kv_dtype", default="auto", choices=["auto", "f16", "bf16", "f32", "i8"],
-                   help="kv cache dtype (auto: bf16 on cuda, f16 on cpu)")
+                   help="kv cache dtype (auto: bf16 on cuda, f16 on cpu; i8 = int8 with per-row "
+                        "scales)")
     p.add_argument("--compute", default="auto", choices=["auto", "f32", "bf16"],
                    help="matmul compute dtype of the plain paths")
     p.add_argument("--matmul", default="auto", choices=["auto", "kernel", "plain", "xla"],
@@ -63,8 +72,6 @@ def _build_parser() -> argparse.ArgumentParser:
 
 def _refuse_later(args) -> None:
     later = {
-        "passkey mode": args.mode == "passkey",
-        "-t i8": args.kv_dtype == "i8",
         "--q4": args.q4,
         "--temperature": args.temperature > 0,
         "--spec/--draft": args.spec or args.draft,
@@ -94,7 +101,8 @@ def _load_engine(args):
 
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("error: -d cuda but no CUDA device is visible (use -d cpu)")
-    dt = {"f16": torch.float16, "bf16": torch.bfloat16, "f32": torch.float32, "auto": "auto"}
+    dt = {"f16": torch.float16, "bf16": torch.bfloat16, "f32": torch.float32, "i8": torch.int8,
+          "auto": "auto"}
     print(f"loading model {args.checkpoint}")
     eng = Engine.from_xalm(
         args.checkpoint,
@@ -168,12 +176,64 @@ def run_perplexity(args) -> int:
     return 0
 
 
+PASSKEY_PREFIX = (
+    "There is an important info hidden inside a lot of irrelevant text. "
+    "Find it and memorize them. I will quiz you about the important information there."
+)
+PASSKEY_SUFFIX = " What is the pass key? The pass key is"
+PASSKEY_JUNK = (
+    " The grass is green. The sky is blue. The sun is yellow. "
+    "Here we go. There and back again."
+)
+
+
+def build_passkey_prompt(n_junk: int, pos: int, passkey: int) -> str:
+    """The synthetic long-context retrieval prompt of the JAX harness: the
+    passkey line before junk line ``pos`` of ``n_junk``."""
+    parts = [PASSKEY_PREFIX]
+    for i in range(n_junk):
+        if i == pos:
+            parts.append(f" The pass key is {passkey}. Remember it. {passkey} is the pass key.")
+        parts.append(PASSKEY_JUNK)
+    parts.append(PASSKEY_SUFFIX)
+    return "".join(parts)
+
+
+def run_passkey(args) -> int:
+    """Long-context retrieval while the sliding-window KV ring wraps: the
+    passkey and its position drawn from Python's ``random`` (``--seed``),
+    up to 16 greedy tokens; exit 0 when the answer holds the passkey."""
+    eng = _load_engine(args)
+    tok = eng.tokenizer
+    if args.seed is not None:
+        random.seed(args.seed)
+    n_junk = 250 if args.num is None else args.num
+    passkey = random.randint(1, 50000)
+    pos = args.passkey_pos if args.passkey_pos != -1 else random.randrange(n_junk)
+    ids = tok.encode(build_passkey_prompt(n_junk, pos, passkey))
+    print(
+        f"Passkey test:\n  prompt: {len(ids)} tokens\n  passkey: {passkey}\n"
+        f"  passkey position: {pos}/{n_junk}\n  context window: {eng.cfg.max_seq_len}"
+    )
+    t0 = time.perf_counter()
+    out, stats = eng.generate(ids, 16)
+    dt = time.perf_counter() - t0
+    text = tok.decode(out)
+    print(f"  model answer: {text.strip()!r}")
+    ok = str(passkey) in text
+    print(f"  retrieval: {'OK' if ok else 'FAILED'}  ({dt:.1f}s total, "
+          f"hydrate {stats.prefill_s:.1f}s, {stats.tok_per_s:.3g} tok/s decode)\n"
+          f"  decode path: {eng.decode_path(1)}")
+    return 0 if ok else 1
+
+
 def main(argv: list[str] | None = None) -> int:
     args = _build_parser().parse_args(argv)
     _refuse_later(args)
     mode = {"c": "completion"}.get(args.mode, args.mode)
+    run = {"completion": run_completion, "perplexity": run_perplexity, "passkey": run_passkey}
     try:
-        return run_completion(args) if mode == "completion" else run_perplexity(args)
+        return run[mode](args)
     except (FileNotFoundError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 1

@@ -26,8 +26,17 @@ engine feeds one token at a time (T = 1).
 - ``"xla"``: the JAX package's reference path (plain matmul in
   ``compute_dtype``, scatter writes, dense masked attention).
 
-A t = 1 step over B <= 8 rows with an i8 body and a float cache runs the
-whole-step megakernel (ops/fused_decode.py) instead, as the JAX forward does
+An int8 KV cache (``cache.quantized``: int8 codes and per-row f32 scale
+planes) is routed as the JAX forward routes it: a per-layer t = 1 step
+through ``kv_update_q`` and ``flash_decode_q`` (kernels 5-7); a t > 1 chunk,
+and every step of ``"xla"``, quantises and scatters its rows, rotates the
+sinks at t = 1, dequantises the layer and runs the dense attention (the
+reference computes that attention outside any Pallas kernel; the matmuls
+still go through kernel 1).
+
+A t = 1 step over B <= 8 rows with an i8 body and a float or int8 cache
+runs the whole-step megakernel (ops/fused_decode.py) instead, as the JAX
+forward does
 (``fused_step``: "auto" takes it wherever it is supported, False never):
 ``impl="kernel"`` launches it, ``impl="plain"`` runs its plain version. It
 gathers the embed row itself at B = 1 with a bf16 table, and runs the head
@@ -35,7 +44,7 @@ too when the head is i8 (``Engine(wcls_i8=True)``); otherwise the head
 stays on kernel 1.
 
 Unlike the JAX function the cache is updated in place; the per-layer path
-runs its layers as a Python loop. MoE, q4, a8, int8 KV, tp/pp, speculative
+runs its layers as a Python loop. MoE, q4, a8, tp/pp, speculative
 verify and the family extras (bias, qk-norm, post-norms, softcaps, gelu,
 embed scale) are later slices and raise NotImplementedError.
 """
@@ -154,14 +163,15 @@ def attention(q, k, v, kv_len, compute_dtype=torch.float32) -> torch.Tensor:
 
 
 def _write_rows(cache: torch.Tensor, layer: int, kv_pos: torch.Tensor, rows: torch.Tensor) -> None:
-    """Scatter (B, T, KH, hd) rows into cache[layer] at kv_pos (B, T); rows
-    at kv_pos >= S_phys are dropped. In place."""
-    b, t, kh, hd = rows.shape
+    """Scatter (B, T, KH, hd) rows into the (L, B, KH, S, hd) cache, or
+    (B, T, KH) row scales into an (L, B, KH, S) scale plane, at layer and
+    kv_pos (B, T); rows at kv_pos >= S_phys are dropped. In place."""
+    b, t = rows.shape[:2]
     s = cache.shape[3]
     cl = cache[layer]
     bi = torch.arange(b, device=rows.device)[:, None].expand(b, t)
     idx = torch.clamp(kv_pos.long(), max=s - 1)
-    keep = (kv_pos < s)[..., None, None]
+    keep = (kv_pos < s).reshape(b, t, *[1] * (rows.dim() - 2))
     cl[bi, :, idx] = torch.where(keep, rows.to(cache.dtype), cl[bi, :, idx])
 
 
@@ -179,14 +189,24 @@ def _write_chunk(cache, layer: int, starts: list[int], rows, valid) -> None:
         cache[layer, bi, :, start : start + t] = new
 
 
-def _rotate_sinks(cache_k, layer: int, active: torch.Tensor, freqs) -> None:
-    """Rotate the pinned sink keys by +1 position for wrapped rows (T = 1)."""
+def _rotate_sinks(cache_k, layer: int, active: torch.Tensor, freqs, k_scale=None) -> None:
+    """Rotate the pinned sink keys by +1 position for wrapped rows (T = 1).
+    An int8 cache dequantises the sinks with their scales, rotates them and
+    requantises them with fresh scales. In place."""
     sinks = cache_k[layer, :, :, :KV_SINKS]  # (B, KH, KV_SINKS, hd)
+    vals = sinks.to(torch.float32)
+    if k_scale is not None:
+        vals = vals * k_scale[layer, :, :, :KV_SINKS, None]
     ones = torch.ones((sinks.shape[0], KV_SINKS), dtype=torch.int32, device=sinks.device)
-    rotated = apply_rope(sinks.to(torch.float32).transpose(1, 2), ones, freqs).transpose(1, 2)
-    cache_k[layer, :, :, :KV_SINKS] = torch.where(
-        active[:, None, None, None], rotated.to(cache_k.dtype), sinks
-    )
+    rotated = apply_rope(vals.transpose(1, 2), ones, freqs).transpose(1, 2)
+    live = active[:, None, None, None]
+    if k_scale is not None:
+        codes, scale = attn_ops.quant_rows(rotated)
+        cache_k[layer, :, :, :KV_SINKS] = torch.where(live, codes, sinks)
+        k_scale[layer, :, :, :KV_SINKS] = torch.where(live[..., 0], scale,
+                                                      k_scale[layer, :, :, :KV_SINKS])
+        return
+    cache_k[layer, :, :, :KV_SINKS] = torch.where(live, rotated.to(cache_k.dtype), sinks)
 
 
 def forward(
@@ -267,7 +287,8 @@ def forward(
 
     if fused_step == "auto":
         fused_step = True  # the megakernel wherever it is supported
-    if fused_step and t == 1 and per_layer and fd.fused_step_supported(cfg, params, cache.k, b, t):
+    if fused_step and t == 1 and per_layer and fd.fused_step_supported(
+            cfg, params, cache.k, b, t, k_scale=cache.k_scale):
         return _megakernel_step(params, cfg, tokens, pos, cache, valid, logits_mode, impl, head)
 
     tokens = tokens.to(dev)
@@ -285,9 +306,12 @@ def forward(
     kv_update = attn_ops.kv_update if impl == "kernel" else attn_ops.kv_update_plain
     flash_decode = attn_ops.flash_decode if impl == "kernel" else attn_ops.flash_decode_plain
     flash_prefill = attn_ops.flash_prefill if impl == "kernel" else attn_ops.flash_prefill_plain
+    kv_update_q = attn_ops.kv_update_q if impl == "kernel" else attn_ops.kv_update_q_plain
+    flash_decode_q = attn_ops.flash_decode_q if impl == "kernel" else attn_ops.flash_decode_q_plain
 
     clip = cfg.qkv_clip if math.isfinite(cfg.qkv_clip) else None
-    ck, cv = cache.k, cache.v
+    ck, cv, ks, vs = cache.k, cache.v, cache.k_scale, cache.v_scale
+    quant = cache.quantized
     if t > 1:
         starts = [min(p, s - t) for p in pos_h.tolist()]
     else:
@@ -308,11 +332,31 @@ def forward(
         k = rotate(k.reshape(b, t, -1, hd), *rope)
         v = v.reshape(b, t, -1, hd)
 
-        if per_layer and t == 1:
+        if per_layer and t == 1 and quant:
+            # int8 decode: quantised ring write + sink re-rotation, then
+            # flash-decode over the codes
+            kv_update_q(ck, cv, ks, vs, layer, k[:, 0].contiguous(), v[:, 0].contiguous(),
+                        kv_pos0, rot_flag, cexp1, sexp1)
+            attn_out = flash_decode_q(q[:, 0].contiguous(), ck, cv, ks, vs, layer, kv_len0)[:, None]
+        elif per_layer and t == 1:
             # decode: in-place ring write + sink rotation, then flash-decode
             kv_update(ck, cv, layer, k[:, 0].contiguous(), v[:, 0].contiguous(),
                       kv_pos0, rot_flag, cexp1, sexp1)
             attn_out = flash_decode(q[:, 0].contiguous(), ck, cv, layer, kv_len0)[:, None]
+        elif quant:
+            # int8 prefill chunk, and "xla": quantised scatter writes, the
+            # sinks re-rotated at t = 1, the dequantised layer into the
+            # dense attention (the reference's own routing, llama.py:784-808)
+            for c, sc, rows in ((ck, ks, k), (cv, vs, v)):
+                codes, scale = attn_ops.quant_rows(rows)
+                _write_rows(c, layer, kv_pos, codes)
+                _write_rows(sc, layer, kv_pos, scale)
+            if t == 1:
+                _rotate_sinks(ck, layer, active, freqs, ks)
+            kl = ck[layer].to(torch.float32) * ks[layer][..., None]
+            vl = cv[layer].to(torch.float32) * vs[layer][..., None]
+            attn_out = attention(q, kl, vl, kv_len, compute_dtype)
+            del kl, vl
         elif per_layer:
             # chunked prefill: contiguous in-place writes + causal flash
             _write_chunk(ck, layer, starts, k, valid)
@@ -361,11 +405,13 @@ def _megakernel_step(params, cfg, tokens, pos, cache, valid, logits_mode, impl, 
         fold_e = {}
     args = (params, cfg, x0, cache.k, cache.v, kv_pos, kv_len, rotate_flag, cexp_p, sexp_p,
             cexp1, sexp1)
+    if cache.quantized:
+        fold_e.update(k_scale=cache.k_scale, v_scale=cache.v_scale)
     if logits_mode != "none" and fd.wcls_fold_supported(cfg, params):
         # final norm + i8 head + greedy argmax in the same launch
-        _, logits, token, _, _ = step(*args, wcls=params.wcls, out_norm=params.out_norm, **fold_e)
+        _, logits, token = step(*args, wcls=params.wcls, out_norm=params.out_norm, **fold_e)[:3]
         if logits_mode == "token":
             return token, cache
         return (logits if logits_mode == "last" else logits[:, None]), cache
-    x, _, _ = step(*args, **fold_e)
+    x = step(*args, **fold_e)[0]
     return head(x[:, None]), cache

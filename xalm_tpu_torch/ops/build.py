@@ -43,7 +43,7 @@ NVCC_FLAGS = [
 # source file -> kernel wrappers it backs
 KERNELS = {
     "qmatmul": ("qmatmul",),
-    "attention": ("kv_update", "flash_decode", "flash_prefill"),
+    "attention": ("kv_update", "flash_decode", "flash_prefill", "kv_update_q", "flash_decode_q"),
     "fused_decode": ("fused_decode",),
 }
 LAUNCHES: dict[str, int] = {k: 0 for ks in KERNELS.values() for k in ks}
@@ -150,6 +150,10 @@ SIGNATURES = {
         "xq_flash_decode": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
         # q, ck, cv, pos, out, B, T, H, KH, S, hd, sm_scale, stream
         "xq_flash_prefill": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]),
+        # ck, cv, ks, vs, knew, vnew, kv_pos, rotate, cexp, sexp, B, KH, S, hd, stream
+        "xq_kv_update_q": (_I, [_P] * 10 + [_I, _I, _I, _I, _P]),
+        # q, ck, cv, ks, vs, kv_len, work, out, B, H, KH, S, hd, sm_scale, stream
+        "xq_flash_decode_q": (_I, [_P] * 8 + [_I, _I, _I, _I, _I, _F, _P]),
     },
     "fused_decode": {
         # B, N, KH, G, S, H -> bytes of the megakernel's workspace

@@ -1,4 +1,4 @@
-"""Kernel 5: the whole-step decode megakernel (replaces
+"""Kernel 9: the whole-step decode megakernel (replaces
 ``xalm_tpu/ops/fused_decode.py::_kernel`` through ``fused_decode_step``; CUDA
 source ``csrc/fused_decode.cu``, whose note says what bounds it on the H100
 and how its design answers that).
@@ -13,12 +13,16 @@ residual adds. Optional folds, as in the JAX function:
 - head: the final norm, the i8 classifier ``wcls`` and a first-occurrence
   greedy argmax (returns ``(x, logits, token, ck, cv)``).
 
-This slice takes the i8 body with per-row scales and a float cache; the
-int8-KV branch (``k_scale``), W8A8 (``a8``) and packed-q4 bodies and the
-family folds belong to later slices and are refused. ``fused_decode_step``
-launches the kernel for CUDA caches (bf16 only) and raises on anything it
-does not take; for CPU caches it runs ``fused_decode_step_plain``, the same
-function in plain PyTorch. Both update the caches in place and return them.
+It takes the i8 body with per-row scales and a float cache, or an int8
+cache with its per-row f32 scale planes (``k_scale``/``v_scale``, the
+JAX kernel's ``quant`` branch: the K and V rows quantised on insert, the
+sinks dequantised, rotated and requantised, the scales factored out of the
+attention dots). W8A8 (``a8``) and packed-q4 bodies and the family folds
+belong to later slices and are refused. ``fused_decode_step`` launches the
+kernel for CUDA caches (bf16, or int8 with scales) and raises on anything
+it does not take; for CPU caches it runs ``fused_decode_step_plain``, the
+same function in plain PyTorch. Both update the caches (and scale planes)
+in place and return them.
 """
 
 from __future__ import annotations
@@ -56,11 +60,15 @@ def _is_i8_rows(qw) -> bool:
 def fused_step_supported(cfg, params, cache_k, batch: int, t: int, k_scale=None,
                          a8: bool = False) -> bool:
     """Does a (batch, t) step take the megakernel path? t = 1, 1 <= batch
-    <= MAX_B, a dense i8 body with per-row scales, a bf16 or f32 cache. The
-    int8 KV cache (``k_scale``), W8A8 and packed q4 are later slices."""
-    if t != 1 or not 1 <= batch <= MAX_B or k_scale is not None or a8:
+    <= MAX_B, a dense i8 body with per-row scales, and a bf16 or f32 cache,
+    or an int8 cache with its scale planes (``k_scale``). W8A8 and packed
+    q4 are later slices."""
+    if t != 1 or not 1 <= batch <= MAX_B or a8:
         return False
-    if cache_k.dtype not in (torch.bfloat16, torch.float32):
+    if k_scale is not None:
+        if cache_k.dtype != torch.int8:
+            return False
+    elif cache_k.dtype not in (torch.bfloat16, torch.float32):
         return False
     lp = params.layers
     if getattr(lp, "w13", None) is None:  # MoE FFN
@@ -88,8 +96,7 @@ def _need(cond: bool, msg: str) -> None:
 
 
 def _check(params, cfg, x0, cache_k, cache_v, wcls, out_norm, embed, token, pos, freqs,
-           k_scale, a8) -> None:
-    _need(k_scale is None, "the int8 KV cache is a later slice")
+           k_scale, v_scale, a8) -> None:
     _need(not a8, "W8A8 decode is a later slice")
     lp = params.layers
     for name in ("wqkv", "wo", "w13", "w2"):
@@ -97,8 +104,15 @@ def _check(params, cfg, x0, cache_k, cache_v, wcls, out_norm, embed, token, pos,
         _need(_is_i8_rows(qw) and not getattr(qw, "q4group", 0),
               f"{name} must be int8 with per-row scales (no q4)")
     _need(cache_k.shape == cache_v.shape and cache_k.dim() == 5, "caches (L, B, KH, S, hd)")
-    _need(cache_k.dtype == cache_v.dtype and cache_k.dtype in (torch.bfloat16, torch.float32),
-          f"cache dtype {cache_k.dtype} (a bf16 or f32 cache)")
+    if k_scale is not None or v_scale is not None:
+        _need(cache_k.dtype == cache_v.dtype == torch.int8,
+              f"scale planes with a {cache_k.dtype} cache (they belong to an int8 KV cache)")
+        for t in (k_scale, v_scale):
+            _need(t is not None and t.dtype == torch.float32 and t.shape == cache_k.shape[:-1],
+                  "an int8 KV cache needs (L, B, KH, S) f32 k_scale and v_scale")
+    else:
+        _need(cache_k.dtype == cache_v.dtype and cache_k.dtype in (torch.bfloat16, torch.float32),
+              f"cache dtype {cache_k.dtype} (a bf16 or f32 cache, or int8 KV with its scales)")
     b = cache_k.shape[1]
     _need(1 <= b <= MAX_B, f"batch {b} (1..{MAX_B})")
     if wcls is not None:
@@ -118,15 +132,18 @@ def fused_decode_step_plain(params, cfg, x0, cache_k, cache_v, kv_pos, kv_len, r
                             token=None, pos=None, freqs=None, k_scale=None, v_scale=None,
                             a8: bool = False):
     """Plain version, built from the port's plain pieces with the kernel's
-    float-path numerics: rmsnorm outputs, attn and act are cast to bf16
-    before their i8 matmuls (exact products, f32 sums, scale after); q is
+    numerics: rmsnorm outputs, attn and act are cast to bf16 before their
+    i8 matmuls (exact products, f32 sums, scale after). A float cache: q is
     f32 and pre-scaled by 1/sqrt(hd) (inside ``flash_decode_plain``); the K
     and V rows are rounded to the cache type; scores and p are f32 over the
     f32-converted cache rows; the sink rows are rotated from the cache-typed
-    window and rounded; the argmax takes the first maximum. In place on the
-    caches; returns (x, ck, cv) or (x, logits, token (B,) int32, ck, cv)."""
+    window and rounded. An int8 cache (``k_scale``/``v_scale``): the rows
+    go through ``kv_update_q_plain`` and the attention through
+    ``flash_decode_q_plain``. The argmax takes the first maximum. In place
+    on the caches; returns (x, ck, cv) or (x, logits, token (B,) int32, ck,
+    cv), with (..., ks, vs) after them for an int8 cache."""
     _check(params, cfg, x0, cache_k, cache_v, wcls, out_norm, embed, token, pos, freqs,
-           k_scale, a8)
+           k_scale, v_scale, a8)
     dev = cache_k.device
     lp = params.layers
     L, b, kh, _, hd = cache_k.shape
@@ -159,19 +176,26 @@ def fused_decode_step_plain(params, cfg, x0, cache_k, cache_v, kv_pos, kv_len, r
             q, k, v = (torch.clamp(z, -clip, clip) for z in (q, k, v))
         q = rope(q.reshape(b, kh * g, hd))
         k = rope(k.reshape(b, kh, hd))
-        attn_ops.kv_update_plain(cache_k, cache_v, layer, k, v.reshape(b, kh, hd), kv_pos,
-                                 rotate, c1, s1)
-        attn = attn_ops.flash_decode_plain(q, cache_k, cache_v, layer, kv_len)
+        if k_scale is not None:
+            attn_ops.kv_update_q_plain(cache_k, cache_v, k_scale, v_scale, layer, k,
+                                       v.reshape(b, kh, hd), kv_pos, rotate, c1, s1)
+            attn = attn_ops.flash_decode_q_plain(q, cache_k, cache_v, k_scale, v_scale, layer,
+                                                 kv_len)
+        else:
+            attn_ops.kv_update_plain(cache_k, cache_v, layer, k, v.reshape(b, kh, hd), kv_pos,
+                                     rotate, c1, s1)
+            attn = attn_ops.flash_decode_plain(q, cache_k, cache_v, layer, kv_len)
         x = x + qmatmul_plain(attn, lp.wo.values, layer, scale=lp.wo.scale)
         gate, up = split_w13_rows(
             qmatmul_plain(x, lp.w13.values, layer, norm_w=lp.mlp_norm, norm_eps=eps,
                           scale=lp.w13.scale), c13)
         x = x + qmatmul_plain(F.silu(gate) * up, lp.w2.values, layer, scale=lp.w2.scale)
+    caches = (cache_k, cache_v) + ((k_scale, v_scale) if k_scale is not None else ())
     if wcls is None:
-        return x, cache_k, cache_v
+        return (x, *caches)
     logits = qmatmul_plain(x, wcls.values[None], 0, norm_w=out_norm.reshape(1, -1),
                            norm_eps=eps, scale=wcls.scale[None])
-    return x, logits, torch.argmax(logits, dim=-1).to(torch.int32), cache_k, cache_v
+    return (x, logits, torch.argmax(logits, dim=-1).to(torch.int32), *caches)
 
 
 def _workspace(lib, device, b, cfg, s) -> torch.Tensor:
@@ -197,7 +221,9 @@ def fused_decode_step(params, cfg, x0, cache_k, cache_v, kv_pos, kv_len, rotate,
     """One decode step of the whole layer stack. Arguments and returns are
     those of the JAX ``fused_decode_step``, except ``token``, which comes
     back (B,) int32. x0 (B, N) f32; caches (L, B, KH, S, hd), updated in
-    place; kv_pos/kv_len/rotate (B,) int (kv_pos == S drops the write);
+    place, and for an int8 cache its (L, B, KH, S) f32 scale planes
+    ``k_scale``/``v_scale``, updated in place and returned after the caches;
+    kv_pos/kv_len/rotate (B,) int (kv_pos == S drops the write);
     cexp_p/sexp_p (B, hd); cexp1/sexp1 (hd,) or (1, hd). The small step
     inputs may lie on the CPU: they reach the card as one int32 tensor."""
     if not cache_k.is_cuda:
@@ -206,13 +232,16 @@ def fused_decode_step(params, cfg, x0, cache_k, cache_v, kv_pos, kv_len, rotate,
             sexp1, wcls=wcls, out_norm=out_norm, embed=embed, token=token, pos=pos, freqs=freqs,
             k_scale=k_scale, v_scale=v_scale, a8=a8)
     _check(params, cfg, x0, cache_k, cache_v, wcls, out_norm, embed, token, pos, freqs,
-           k_scale, a8)
+           k_scale, v_scale, a8)
     dev = cache_k.device
     lp = params.layers
     L, b, kh, s, hd = cache_k.shape
-    _need(cache_k.dtype == torch.bfloat16, f"cache dtype {cache_k.dtype} (the kernel takes bf16)")
-    _need(cache_k.is_contiguous() and cache_v.is_contiguous() and cache_v.device == dev,
-          "caches must be contiguous on one card")
+    quant = k_scale is not None
+    _need(cache_k.dtype in (torch.bfloat16, torch.int8),
+          f"cache dtype {cache_k.dtype} (the kernel takes bf16, or int8 with scales)")
+    planes = (cache_k, cache_v) + ((k_scale, v_scale) if quant else ())
+    _need(all(t.is_contiguous() and t.device == dev for t in planes),
+          "caches and scale planes must be contiguous on one card")
     tensors = [lp.attn_norm, lp.mlp_norm]
     for qw in (lp.wqkv, lp.wo, lp.w13, lp.w2):
         tensors += [qw.values, qw.scale]
@@ -262,10 +291,10 @@ def fused_decode_step(params, cfg, x0, cache_k, cache_v, kv_pos, kv_len, rotate,
         lp.w2.values.data_ptr(), lp.w2.scale.data_ptr(),
         ptr(out_norm) if v else None, ptr(wcls.values) if v else None,
         ptr(wcls.scale) if v else None, cache_k.data_ptr(), cache_v.data_ptr(),
-        xout.data_ptr(), ptr(logits), ptr(tok), work.data_ptr(),
+        xout.data_ptr(), ptr(logits), ptr(tok), work.data_ptr(), ptr(k_scale), ptr(v_scale),
     ]
     dims = [L, b, cfg.dim, kh, cfg.n_heads // kh, hd, cfg.hidden_dim, s, v,
-            ffn_chunk(cfg.hidden_dim), int(cache_k.dtype == torch.bfloat16)]
+            ffn_chunk(cfg.hidden_dim), 2 if quant else 1]  # the cache kind: 1 bf16, 2 int8
     clip = float(cfg.qkv_clip) if math.isfinite(cfg.qkv_clip) else math.inf
     err = lib.xq_fused_decode(
         ctypes.cast((ctypes.c_void_p * len(ptrs))(*ptrs), ctypes.c_void_p),
@@ -275,6 +304,7 @@ def fused_decode_step(params, cfg, x0, cache_k, cache_v, kv_pos, kv_len, rotate,
     )
     build.check(err, "fused_decode_step")
     build.LAUNCHES["fused_decode"] += 1
+    caches = (cache_k, cache_v) + ((k_scale, v_scale) if quant else ())
     if v:
-        return xout, logits, tok, cache_k, cache_v
-    return xout, cache_k, cache_v
+        return (xout, logits, tok, *caches)
+    return (xout, *caches)

@@ -8,8 +8,11 @@
   max_seq_len)`` slots.
 
 Layout (L, B, KH, S_phys, hd), head-major: each kv head's history is one
-contiguous (S_phys, hd) stripe. Unlike the JAX cache, which is immutable
-and donated, the port updates these tensors in place.
+contiguous (S_phys, hd) stripe. An int8 cache stores each row as int8 codes
+plus a per-row f32 scale (absmax/127, the `i8` weight scheme: row = codes *
+scale) in (L, B, KH, S_phys) planes; the planes start at 0, so an unwritten
+row dequantises to 0. Unlike the JAX cache, which is immutable and donated,
+the port updates these tensors in place.
 """
 
 from __future__ import annotations
@@ -36,10 +39,12 @@ def ring_indices(pos: torch.Tensor, max_seq_len: int):
 
 @dataclasses.dataclass
 class KVCache:
-    """Float KV cache (f16/bf16/f32); int8 KV is a later slice."""
+    """Float KV cache (f16/bf16/f32) or int8 codes with per-row scales."""
 
     k: torch.Tensor  # (L, B, n_kv_heads, S_phys, head_dim)
     v: torch.Tensor
+    k_scale: torch.Tensor | None = None  # (L, B, n_kv_heads, S_phys) f32, int8 caches only
+    v_scale: torch.Tensor | None = None
 
     @staticmethod
     def plane_shape(cfg: ModelConfig, batch: int) -> tuple[int, ...]:
@@ -51,17 +56,22 @@ class KVCache:
 
     @classmethod
     def init(cls, cfg: ModelConfig, batch: int, dtype=torch.float16, device="cpu") -> "KVCache":
-        if dtype == torch.int8:
-            raise NotImplementedError("int8 KV cache: later slice")
         shape = cls.plane_shape(cfg, batch)
-        return cls(
-            k=torch.zeros(shape, dtype=dtype, device=device),
-            v=torch.zeros(shape, dtype=dtype, device=device),
-        )
+        zeros = lambda sh, dt: torch.zeros(sh, dtype=dt, device=device)  # noqa: E731
+        if dtype == torch.int8:
+            return cls(k=zeros(shape, dtype), v=zeros(shape, dtype),
+                       k_scale=zeros(shape[:-1], torch.float32),
+                       v_scale=zeros(shape[:-1], torch.float32))
+        return cls(k=zeros(shape, dtype), v=zeros(shape, dtype))
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
 
     @property
     def batch(self) -> int:
         return self.k.shape[1]
 
     def nbytes(self) -> int:
-        return 2 * self.k.nelement() * self.k.element_size()
+        planes = (self.k, self.v) + ((self.k_scale, self.v_scale) if self.quantized else ())
+        return sum(t.nelement() * t.element_size() for t in planes)

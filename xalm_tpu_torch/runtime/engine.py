@@ -91,10 +91,11 @@ class Engine:
         self.fused_step = fused_step
         if self.matmul_impl not in IMPLS:
             raise ValueError(f"matmul_impl {matmul_impl!r}: one of auto, {', '.join(IMPLS)}")
-        if on_card and self.matmul_impl == "kernel" and self.kv_dtype != torch.bfloat16:
+        if on_card and self.matmul_impl == "kernel" and self.kv_dtype not in (torch.bfloat16,
+                                                                              torch.int8):
             raise ValueError(
                 f"kv dtype {self.kv_dtype}: the attention kernels on the card take a bf16 cache "
-                "(use bf16, or matmul_impl 'plain' or 'xla')"
+                "or an int8 one (use bf16 or int8, or matmul_impl 'plain' or 'xla')"
             )
 
     # ------------------------------------------------------------------ load
@@ -136,7 +137,9 @@ class Engine:
             return self.matmul_impl
         shape = KVCache.plane_shape(self.cfg, batch)
         cache_k = torch.empty(shape, dtype=self.kv_dtype, device="meta")
-        if self.fused_step and fused_step_supported(self.cfg, self.params, cache_k, batch, 1):
+        k_scale = torch.empty(shape[:-1], device="meta") if self.kv_dtype == torch.int8 else None
+        if self.fused_step and fused_step_supported(self.cfg, self.params, cache_k, batch, 1,
+                                                    k_scale=k_scale):
             return "megakernel"
         return "perlayer"
 
@@ -290,10 +293,14 @@ class Engine:
 
     def active_bytes(self, pos: int) -> int:
         """Bytes touched per decoded token at position pos: all live weight
-        bytes + the cache rows up to kv_len + the new rows written."""
+        bytes + the cache rows up to kv_len + the new rows written, and for
+        an int8 cache the f32 row scales read and written beside them."""
         cfg = self.cfg
         kv_len = min(pos + 1, cfg.max_seq_len)
         kv_elt = torch.empty((), dtype=self.kv_dtype).element_size()
         kv_read = 2 * cfg.n_layers * kv_len * cfg.kv_dim * kv_elt
         kv_write = 2 * cfg.n_layers * cfg.kv_dim * kv_elt
-        return self._per_token_weight_bytes + kv_read + kv_write
+        total = self._per_token_weight_bytes + kv_read + kv_write
+        if self.kv_dtype == torch.int8:
+            total += 2 * cfg.n_layers * cfg.n_kv_heads * (kv_len + 1) * 4
+        return total
