@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``xalm_tpu_torch/csrc/`` and drives the
-port, never the JAX package, through six phases, each printing one JSON line:
+port, never the JAX package, through these phases, each printing JSON lines,
+first on Mistral-7B and then (phases 3-5 again) on Mixtral-8x7B:
 
 1. device: ``nvidia-smi`` name and power limit, ``torch.cuda.get_device_name``;
 2. build: one ``nvcc`` per source, all at once, and the build time;
@@ -28,7 +29,16 @@ port, never the JAX package, through six phases, each printing one JSON line:
    random weights within 1e-2 of max |logits|, and identical free-running
    greedy tokens of a model whose next token attention decides (see
    ``phase_wrap``);
-6. the kernels' summary line, then the result line
+6. Mixtral-8x7B (``MIXTRAL_8X7B``, 8 experts, 2 active, random i8 weights
+   at 32 layers, 47 GB): phase 3 for ``qmatmul_multi`` (the gathered top-k
+   expert matmul) against its plain version on the flat 256-expert stacks,
+   an index past 2^31 bytes included (``phase_parity_multi``); phase 4 on
+   the decode path MoE takes, the per-layer kernels with the gathered
+   experts (``phase_main_moe``); phase 5 at 2 layers with a bf16 and an
+   int8 cache, the routing teacher-forced like the tokens and every flip
+   recorded (``phase_wrap_moe``), and the router's gain measured on the
+   plain version alone (``phase_router_witness``);
+7. the kernels' summary line, then the result line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Any failed phase raises and the script exits non-zero without the result
@@ -415,19 +425,23 @@ def _ulp_share(got, want) -> float:
 def _model_dim_permuted(p, perm):
     """The same model with its residual dimension permuted by ``perm``: each
     matmul over the model dimension, and each rms, sums its terms in another
-    order; x comes out permuted. (embed, norms, wqkv, w13 and the head by
-    column; wo and w2 by output row.)"""
+    order; x comes out permuted. (embed, norms, wqkv, w13, the router, the
+    experts' w13 and the head by column; wo, w2 and the experts' w2 by output
+    row.)"""
     from xalm_tpu_torch.models.params import QWeight
 
     def cols(w):
-        return QWeight(w.values[..., perm].contiguous(), w.scale)
+        return None if w is None else QWeight(w.values[..., perm].contiguous(), w.scale)
 
     def rows(w):
-        return QWeight(w.values[:, perm].contiguous(), w.scale[:, perm].contiguous())
+        return None if w is None else QWeight(w.values[..., perm, :].contiguous(),
+                                              w.scale[..., perm].contiguous())
 
     lp = p.layers
-    layers = dataclasses.replace(lp, attn_norm=lp.attn_norm[:, perm], mlp_norm=lp.mlp_norm[:, perm],
-                                 wqkv=cols(lp.wqkv), w13=cols(lp.w13), wo=rows(lp.wo), w2=rows(lp.w2))
+    layers = dataclasses.replace(
+        lp, attn_norm=lp.attn_norm[:, perm], mlp_norm=lp.mlp_norm[:, perm], wqkv=cols(lp.wqkv),
+        w13=cols(lp.w13), wo=rows(lp.wo), w2=rows(lp.w2), w13e=cols(lp.w13e), w2e=rows(lp.w2e),
+        wgate=None if lp.wgate is None else lp.wgate[..., perm].contiguous())
     return dataclasses.replace(p, embed=cols(p.embed), layers=layers, out_norm=p.out_norm[perm],
                                wcls=cols(p.wcls))
 
@@ -671,8 +685,7 @@ def phase_main(params, cfg) -> dict:
     path (the megakernel: one fused_decode launch per decode token) and with
     ``fused_step=False`` (the per-layer kernels: per token 129 qmatmul
     launches, and per layer kv_update and flash_decode, or kv_update_q and
-    flash_decode_q). Every kernel of the port must launch in one of the
-    runs. Returns the launches of the runs, summed."""
+    flash_decode_q). Returns the launches of the runs, summed."""
     import numpy as np
     import torch
 
@@ -701,9 +714,6 @@ def phase_main(params, cfg) -> dict:
             launches = {k: launches[k] + row["launches"][k] for k in launches}
             del eng
             torch.cuda.empty_cache()
-    missing = [k for k, n in launches.items() if n == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: {missing}")
     return {"launches": launches}
 
 
@@ -711,6 +721,7 @@ def phase_main(params, cfg) -> dict:
 # combine kernel, shared by both flash-decodes, goes to the one the run uses)
 _PROFILE_GROUPS = {
     "qmatmul": ("gemv_kernel", "gemm_kernel", "prep_x_kernel"),
+    "qmatmul_multi": ("qmatmul_multi_kernel",),
     "kv_update": ("kv_update_kernel",),
     "flash_decode": ("flash_decode_split_kernel", "flash_decode_combine_kernel"),
     "flash_prefill": ("flash_prefill_kernel",),
@@ -812,6 +823,24 @@ def _ring_wraps(final_pos: int, window: int) -> int:
     from xalm_tpu_torch.models.config import KV_SINKS
 
     return 0 if final_pos <= window else 1 + (final_pos - window - 1) // (window - KV_SINKS)
+
+
+def _copy_free_running(ek, ep, prompt, steps: int, perm_inv) -> dict:
+    """Free-running greedy tokens of the copy model (``copy_params``) on the
+    kernel engine ``ek`` and the plain engine ``ep``, against the recurrence
+    token[i + 1] = perm_inv[token[i - 1]]."""
+    expected = list(prompt)
+    for _ in range(steps + 1):
+        expected.append(perm_inv[expected[-2]])
+    expected = expected[len(prompt):]
+    got_k, _ = ek.generate(prompt, steps + 1, stop_on_eos=False)
+    got_p, _ = ep.generate(prompt, steps + 1, stop_on_eos=False)
+    return {"steps": steps, "final_pos": len(prompt) + steps,
+            "kernel_equal_recurrence": sum(a == b for a, b in zip(got_k, expected)),
+            "plain_equal_recurrence": sum(a == b for a, b in zip(got_p, expected)),
+            "kernel_equal_plain": sum(a == b for a, b in zip(got_k, got_p)),
+            "distinct_tokens": len(set(got_k)), "tokens_head": got_k[:8],
+            "identical": got_k == got_p == expected}
 
 
 def copy_params(cfg, seed: int):
@@ -934,24 +963,12 @@ def phase_wrap(cfg) -> list[dict]:
         del params, ek, ep
 
         params, perm_inv = copy_params(cfg2, SEED + 2)
-        expected = list(prompt)
-        for _ in range(steps + 1):
-            expected.append(perm_inv[expected[-2]])
-        expected = expected[len(prompt):]
-        ek, ep = engines(params)
-        got_k, _ = ek.generate(prompt, steps + 1, stop_on_eos=False)
-        got_p, _ = ep.generate(prompt, steps + 1, stop_on_eos=False)
-        final_pos = len(prompt) + steps
-        copy = {"steps": steps, "final_pos": final_pos,
-                "kernel_equal_recurrence": sum(a == b for a, b in zip(got_k, expected)),
-                "plain_equal_recurrence": sum(a == b for a, b in zip(got_p, expected)),
-                "kernel_equal_plain": sum(a == b for a, b in zip(got_k, got_p)),
-                "distinct_tokens": len(set(got_k)), "tokens_head": got_k[:8]}
+        copy = _copy_free_running(*engines(params), prompt, steps, perm_inv)
         row = {"phase": "wrap", "decode_path": path, "kv_dtype": str(kv).split(".")[-1],
                "layers": 2, "window": 256,
-               "prompt_tokens": len(prompt), "ring_wraps": _ring_wraps(final_pos, 256),
+               "prompt_tokens": len(prompt), "ring_wraps": _ring_wraps(copy["final_pos"], 256),
                "tol_rel": WRAP_TOL, "random_teacher_forced": forced, "copy_free_running": copy,
-               "tokens_identical": got_k == got_p == expected}
+               "tokens_identical": copy["identical"]}
         emit(row)
         if row["ring_wraps"] < 3:
             raise AssertionError(f"wrap phase: {row['ring_wraps']} ring wraps, expected 3")
@@ -961,7 +978,387 @@ def phase_wrap(cfg) -> list[dict]:
             raise AssertionError(f"wrap phase ({path}, {kv}, copy model): greedy tokens differ: "
                                  f"{copy}")
         rows.append(row)
+        del params
+        torch.cuda.empty_cache()
+    return rows
+
+
+# why no library call stands beside qmatmul_multi
+NO_LIBRARY_MULTI = ("no one PyTorch call gathers experts by an index on the device and "
+                    "applies their row scales")
+MULTI_W13_CASE = "w13 i8 + row scale, shared x, m=1, k=2"
+MULTI_W2_CASE = "w2 i8 + row scale, per-expert x, m=1, k=2"
+
+
+def phase_parity_multi(params, cfg, cases: Cases) -> None:
+    """qmatmul_multi against its plain version (phase 3) at Mixtral-8x7B
+    shapes, on the drawn 32-layer expert stacks viewed flat as the forward
+    views them: w13 (256, 28672, 4096) and w2 (256, 4096, 14336) int8 with
+    row scales. Each output row within 1e-4 of its max |plain|: both sides
+    sum the same exact f32 products of bf16 x and int8 or bf16 weights in
+    another order. Cases: w13 with x shared by the k = 2 experts, w2 with a
+    row group per expert, an index of 255 (its weights 29.9 GB into the w13
+    stack, 15.0 GB into w2), m = 4 with shared x, and q8 (no scale) and bf16
+    expert weights at a small depth. The timed launches cycle over the 32
+    layers' experts, so each streams its weights cold."""
+    import torch
+
+    from xalm_tpu_torch.ops.qmatmul import qmatmul_multi, qmatmul_multi_plain
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 7)
+    lp = params.layers
+    L, E, d, h = cfg.n_layers, cfg.n_experts, cfg.dim, cfg.hidden_dim
+    w13v, w13s = lp.w13e.values.reshape(L * E, 2 * h, d), lp.w13e.scale.reshape(L * E, 2 * h)
+    w2v, w2s = lp.w2e.values.reshape(L * E, d, h), lp.w2e.scale.reshape(L * E, d)
+    i32 = lambda *v: torch.tensor(v, dtype=torch.int32, device=dev)  # noqa: E731
+    per_layer = [i32(layer * E + 3, layer * E + 6) for layer in range(L)]
+
+    def case(name, x, values, scale, idx_sets, shared):
+        idxs = idx_sets[0]
+        got = qmatmul_multi(x, values, scale, idxs, shared_x=shared)
+        want = qmatmul_multi_plain(x, values, scale, idxs, shared_x=shared)
+        k = idxs.numel()
+        m = x.shape[0] // (1 if shared else k)
+        dd, n = values.shape[1:]
+        nbytes = k * dd * n * values.element_size() + (k * dd * 4 if scale is not None else 0)
+        nbytes += x.numel() * 4 + k * m * dd * 4
+        it = itertools.cycle(idx_sets)
+        cases.add("qmatmul_multi", name, got, want, dd, 1e-4,
+                  lambda: qmatmul_multi(x, values, scale, next(it), shared_x=shared),
+                  lambda: qmatmul_multi_plain(x, values, scale, next(it), shared_x=shared),
+                  None, nbytes, 2.0 * k * m * n * dd, PEAK_BF16,
+                  extra={"library_note": NO_LIBRARY_MULTI, "idxs": idxs.tolist(), "m": m,
+                         "weight_offset_bytes": int(idxs.max()) * dd * n * values.element_size()})
+
+    x1 = torch.randn((1, d), generator=gen, device=dev)
+    x2 = torch.randn((2, h), generator=gen, device=dev)
+    case(MULTI_W13_CASE, x1, w13v, w13s, per_layer, True)
+    case(MULTI_W2_CASE, x2, w2v, w2s, per_layer, False)
+    case("w13 i8, idxs [255, 3]: weights past 2^31 bytes", x1, w13v, w13s, [i32(255, 3)], True)
+    case("w2 i8, idxs [255, 128]: weights past 2^31 bytes", x2, w2v, w2s, [i32(255, 128)], False)
+    case("w13 i8 + row scale, shared x, m=4, k=2",
+         torch.randn((4, d), generator=gen, device=dev), w13v, w13s, per_layer, True)
+    small = [i32(15, 2), i32(9, 12)]
+    case("w13 q8 (no scale), 16 experts, m=1, k=2", x1, w13v[:16], None, small, True)
+    wb = torch.randn((4, 2 * h, d), generator=gen, device=dev).mul_(0.02).to(torch.bfloat16)
+    case("w13 bf16, 4 experts, m=1, k=2", x1, wb, None, [i32(3, 1), i32(0, 2)], True)
+    del wb
+    torch.cuda.empty_cache()
+
+
+def phase_main_moe(params, cfg) -> dict:
+    """The Mixtral main path: ``Engine.generate`` of a 512-token prompt and
+    64 greedy tokens with a bf16 cache, on the default decode path, which
+    for MoE is the per-layer kernels (the megakernel refuses MoE): per
+    decode token 65 qmatmul launches (wqkv and wo per layer, the head), 64
+    qmatmul_multi (the chosen experts' w13 and w2 per layer), and kv_update
+    and flash_decode per layer. Prefill chunks run the dense-masked experts
+    (plain f32 products, as the reference's XLA einsums) and kernel 1 for
+    wqkv and wo. Returns the run's launches."""
+    import numpy as np
+    import torch
+
+    from xalm_tpu_torch.runtime.engine import Engine
+
+    prompt = np.random.default_rng(SEED).integers(3, cfg.vocab_size, size=512).tolist()
+    L = cfg.n_layers
+    eng = Engine(cfg, params, kv_dtype=torch.bfloat16)
+    if eng.decode_path(1) != "perlayer":
+        raise AssertionError(f"Mixtral decode path {eng.decode_path(1)!r}, expected 'perlayer'")
+    row = _main_run(eng, cfg, prompt, "mixtral bf16 perlayer")
+    want = {"qmatmul": 2 * L + 1, "qmatmul_multi": 2 * L, "kv_update": L, "flash_decode": L,
+            "fused_decode": 0, "kv_update_q": 0, "flash_decode_q": 0, "flash_prefill": 0}
+    per_token = row["launches_per_decode_token"]
+    if any(per_token[k] != n for k, n in want.items()) or (
+            row["launches"]["qmatmul_multi"] != 63 * 2 * L):
+        raise AssertionError(f"Mixtral run: {row['launches']}, per token {per_token}: "
+                             f"expected per token {want}")
+    del eng
+    torch.cuda.empty_cache()
+    return {"launches": row["launches"]}
+
+
+# A routing flip: the kernel run and the plain run choose different experts
+# for a token at a layer. bf16-level differences in x can swap two experts
+# whose router log-probabilities are nearly tied; one swap moves that
+# token's FFN output far more than WRAP_TOL, and every later token through
+# the K/V rows it writes. So the MoE wrap phase teacher-forces the routing
+# as it teacher-forces the tokens: where the plain run's chosen set differs
+# from the kernel run's, the plain run takes the kernel run's experts (each
+# with the plain run's own renormalised probability), and such a flip fails
+# the phase unless the plain run's gap between its k-th and (k+1)-th
+# log-probabilities is under ROUTE_MARGIN (nats; the recorded largest change
+# of that gap between the runs shows how far below it they stay). Nothing is
+# then left out: the logits of every step, the prefill's included, are held
+# to WRAP_TOL, and every cache row but the sinks', after every step, to
+# CACHE_TOL of its max |plain| (dequantised for an int8 cache; one int8
+# count is 1/127). The sink rows are reported beside them, not held: the
+# reference re-rotates them in place by one position per wrapped step and
+# rounds them to the cache type each time, so two runs whose sinks differ
+# by a rounding walk apart by a fresh rounding per step (0.32 of a row's
+# max after 600 steps on the H100, while the logits stayed within 8e-3);
+# the logits, which attend over them every step, hold them.
+ROUTE_MARGIN = 0.05
+CACHE_TOL = 2e-2
+# The wrap phase's router is drawn at HF Mixtral's initializer range (std
+# 0.02: router logits of std 1.3 at dim 4096), not at synthetic_params'
+# 0.3 (logits of std 19), whose gain carries the runs' bf16-level
+# differences into the experts' mix weights: phase_router_witness measures
+# that on the plain version alone.
+WRAP_ROUTER_STD = 0.02
+SYNTHETIC_ROUTER_STD = 0.3  # synthetic_params' router
+WITNESS_STEPS = 200
+
+
+def _cache_row_err(got, want):
+    """(sink rows, other rows): max over the rows of a cache (a layer's KV
+    head at a slot) of |got - want| over max |want|, on the device; an int8
+    cache dequantised."""
+    import torch
+
+    from xalm_tpu_torch.models.config import KV_SINKS
+
+    worst = torch.zeros((2,), device=want.k.device)
+    for name in ("k", "v"):
+        g, w = getattr(got, name).float(), getattr(want, name).float()
+        if want.quantized:
+            g = g * getattr(got, name + "_scale")[..., None]
+            w = w * getattr(want, name + "_scale")[..., None]
+        err = (g - w).abs().amax(dim=-1) / w.abs().amax(dim=-1).clamp_min(1e-30)  # (L, B, KH, S)
+        worst = torch.maximum(worst, torch.stack([err[..., :KV_SINKS].max(),
+                                                  err[..., KV_SINKS:].max()]))
+    return worst
+
+
+def _teacher_forced_moe(ek, ep, prompt, steps: int) -> dict:
+    """``_teacher_forced`` for MoE engines, with the routing teacher-forced
+    too (see ROUTE_MARGIN) through ``llama.moe_route``: ``ek`` leads, and
+    its chosen experts and router log-probabilities are recorded layer by
+    layer; ``ep`` follows and takes ``ek``'s experts wherever its own set
+    differs. Returns the logit errors of the prefill and of every step, the
+    largest cache-row error after any step, and the flips, each as (step,
+    layer, token, the plain run's gap), step -1 being the prefill."""
+    import numpy as np
+    import torch
+
+    from xalm_tpu_torch.models import llama
+
+    route = llama.moe_route
+    lead, recs, follow = [], [], [False]
+
+    def routed(xn, wgate, kk):
+        topv, topi = route(xn, wgate, kk)
+        rlog = torch.einsum("btd,ed->bte", xn, wgate.to(torch.float32))
+        logp = torch.log_softmax(rlog, dim=-1)
+        if not follow[0]:
+            lead.append((topi, logp))
+            return topv, topi
+        ti, logp_lead = lead[len(recs)]
+        differ = (ti.sort(dim=-1).values != topi.sort(dim=-1).values).any(dim=-1)  # (B, T)
+        order = logp.argsort(dim=-1, descending=True)[..., kk - 1:kk + 1]
+        g, g_lead = logp.gather(-1, order), logp_lead.gather(-1, order)
+        gap = g[..., 0] - g[..., 1]
+        recs.append((differ[0], gap[0], (g_lead[..., 0] - g_lead[..., 1] - gap).abs().max()))
+        forced = torch.softmax(rlog, dim=-1).gather(-1, ti)
+        forced = forced / torch.sum(forced, dim=-1, keepdim=True)
+        pick = differ[..., None]
+        return torch.where(pick, forced, topv), torch.where(pick, ti, topi)
+
+    def both(fk, fp):
+        lead.clear()
+        recs.clear()
+        follow[0] = False
+        rk = fk()
+        follow[0] = True
+        rp = fp()
+        if len(recs) != len(lead):
+            raise AssertionError(f"MoE wrap: {len(lead)} router calls led, {len(recs)} followed")
+        # (layers, T) flip masks and plain gaps, the largest gap change
+        return rk, rp, (torch.stack([r[0] for r in recs]), torch.stack([r[1] for r in recs]),
+                        torch.stack([r[2] for r in recs]).max())
+
+    llama.moe_route = routed
+    errs, flipped_errs, flips = [], [], []
+    flipped_steps, min_gap, max_dgap, cache_err = 0, math.inf, 0.0, None
+    try:
+        (lk, ck, pos), (lp, cp, _), rec = both(lambda: ek.prefill(prompt, ek.new_cache(1)),
+                                               lambda: ep.prefill(prompt, ep.new_cache(1)))
+        for step in range(-1, steps):  # -1: the prefill
+            if step >= 0:
+                tk = int(lk.argmax())
+                (lk, ck), (lp, cp), rec = both(
+                    lambda: ek.decode(np.array([tk]), np.array([pos], np.int32), ck),
+                    lambda: ep.decode(np.array([tk]), np.array([pos], np.int32), cp))
+                pos += 1
+            differ, gaps, dgap = rec
+            err = float((lk - lp).abs().max()) / float(lp.abs().max())
+            if step < 0:
+                prefill_err = err
+                flipped_prefill = int(differ.any(dim=0).sum())
+            row = _cache_row_err(ck, cp)
+            cache_err = row if cache_err is None else torch.maximum(cache_err, row)
+            min_gap = min(min_gap, float(gaps.min()))
+            max_dgap = max(max_dgap, float(dgap))
+            hits = torch.nonzero(differ).tolist()
+            (flipped_errs if hits else errs).append(err)
+            flipped_steps += bool(hits) and step >= 0
+            flips += [(step, layer, tok, float(gaps[layer, tok])) for layer, tok in hits]
+    finally:
+        llama.moe_route = route
+    return {"steps": steps, "final_pos": pos, "prefill_rel_logit_err": prefill_err,
+            "max_rel_logit_err": max(errs + flipped_errs),
+            "max_rel_logit_err_unflipped": max(errs, default=None),
+            "max_rel_logit_err_flipped": max(flipped_errs, default=None),
+            "max_rel_cache_row_err": float(cache_err[1]),
+            "max_rel_sink_row_err": float(cache_err[0]),
+            "routing_decisions": (len(prompt) + steps) * ek.cfg.n_layers,
+            "flips": len(flips), "flipped_prefill_tokens": flipped_prefill,
+            "flipped_steps": int(flipped_steps), "flips_head": flips[:12],
+            "flips_beyond_margin": [f for f in flips if f[3] > ROUTE_MARGIN],
+            "min_plain_gap": min_gap, "max_gap_change": max_dgap, "route_margin": ROUTE_MARGIN}
+
+
+def moe_copy_params(cfg, seed: int):
+    """``copy_params`` with Mixtral's FFN: a random router and random i8
+    experts whose row scales (1e-3/127) keep the FFN's output near 1e-4, so
+    attention still decides the next token by about 80 logits whichever
+    experts a step picks."""
+    import torch
+
+    from xalm_tpu_torch.models.params import QWeight
+
+    params, perm_inv = copy_params(cfg, seed)
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 1)
+    L, E, d, h = cfg.n_layers, cfg.n_experts, cfg.dim, cfg.hidden_dim
+
+    def experts(rows, cols):
+        q = torch.randint(-128, 128, (L, E, rows, cols), dtype=torch.int8, device=dev, generator=gen)
+        return QWeight(q, torch.full((L, E, rows), 1e-3 / 127, device=dev))
+
+    layers = dataclasses.replace(
+        params.layers, w13=None, w2=None,
+        wgate=torch.randn((L, E, d), generator=gen, device=dev).mul_(0.3),
+        w13e=experts(2 * h, d), w2e=experts(d, h))
+    return dataclasses.replace(params, layers=layers), perm_inv
+
+
+def _moe_wrap_setup(cfg):
+    """Phase 5's 2-layer, 256-slot Mixtral configuration and 200-token prompt."""
+    import numpy as np
+
+    cfg2 = dataclasses.replace(cfg, n_layers=2, max_seq_len=256)
+    return cfg2, np.random.default_rng(SEED + 3).integers(3, cfg.vocab_size, size=200).tolist()
+
+
+def phase_wrap_moe(cfg) -> list[dict]:
+    """Phase 5 for Mixtral: full width, 2 layers, a 256-slot window, a
+    200-token prompt and 600 decode steps through three ring wraps, the
+    per-layer kernels (the path MoE decode takes) against the plain
+    versions (``matmul_impl="plain"``: ``qmatmul_multi_plain`` for the
+    gathered experts), with a bf16 and with an int8 cache: (a) random
+    weights (the router at WRAP_ROUTER_STD), tokens and routing
+    teacher-forced (``_teacher_forced_moe``);
+    (b) the copy model with MoE (``moe_copy_params``), free-running greedy:
+    identical tokens on both paths, equal to the copy recurrence."""
+    import torch
+
+    from xalm_tpu_torch.ops import build
+    from xalm_tpu_torch.runtime.engine import Engine
+    from xalm_tpu_torch.utils.synthetic import synthetic_params
+
+    cfg2, prompt = _moe_wrap_setup(cfg)
+    steps = 600
+    rows = []
+
+    def engines(params, kv):
+        return (Engine(cfg2, params, kv_dtype=kv, matmul_impl="kernel"),
+                Engine(cfg2, params, kv_dtype=kv, matmul_impl="plain"))
+
+    for kv in (torch.bfloat16, torch.int8):
+        params = synthetic_params(cfg2, device=DEVICE, seed=SEED + 3)
+        params.layers.wgate.mul_(WRAP_ROUTER_STD / SYNTHETIC_ROUTER_STD)
+        ek, ep = engines(params, kv)
+        if ek.decode_path(1) != "perlayer":
+            raise AssertionError(f"MoE wrap phase: decode path {ek.decode_path(1)!r}")
+        build.reset_launches()
+        forced = _teacher_forced_moe(ek, ep, prompt, steps)
+        forced["qmatmul_multi_launches"] = build.LAUNCHES["qmatmul_multi"]
         del params, ek, ep
+
+        params, perm_inv = moe_copy_params(cfg2, SEED + 4)
+        copy = _copy_free_running(*engines(params, kv), prompt, steps, perm_inv)
+        row = {"phase": "wrap_moe", "model": "Mixtral-8x7B", "decode_path": "perlayer",
+               "kv_dtype": str(kv).split(".")[-1], "layers": 2, "window": 256,
+               "router_std": WRAP_ROUTER_STD, "prompt_tokens": len(prompt),
+               "ring_wraps": _ring_wraps(copy["final_pos"], 256), "tol_rel": WRAP_TOL,
+               "cache_tol_rel": CACHE_TOL, "random_teacher_forced": forced,
+               "copy_free_running": copy, "tokens_identical": copy["identical"]}
+        emit(row)
+        if row["ring_wraps"] < 3:
+            raise AssertionError(f"MoE wrap phase: {row['ring_wraps']} ring wraps, expected 3")
+        if (forced["flips_beyond_margin"] or forced["max_rel_logit_err"] > WRAP_TOL
+                or forced["max_rel_cache_row_err"] > CACHE_TOL):
+            raise AssertionError(f"MoE wrap phase ({kv}, teacher-forced): {forced}")
+        if forced["qmatmul_multi_launches"] != steps * 2 * 2:
+            raise AssertionError(f"MoE wrap phase: {forced['qmatmul_multi_launches']} qmatmul_multi "
+                                 f"launches, expected {steps * 4}")
+        if not row["tokens_identical"]:
+            raise AssertionError(f"MoE wrap phase ({kv}, copy model): greedy tokens differ: {copy}")
+        rows.append(row)
+        del params
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_router_witness(cfg) -> list[dict]:
+    """Why phase 5 draws the router at WRAP_ROUTER_STD. At synthetic_params'
+    router std and at WRAP_ROUTER_STD, phase 5's model (bf16 cache) for
+    WITNESS_STEPS teacher-forced steps, tokens and routing
+    (``_teacher_forced_moe``): (a) the kernels against the plain versions;
+    (b) the floor: the plain version against itself on the model with its
+    residual dimension permuted (``_model_dim_permuted``: only the order of
+    its sums changes). If the router's gain, not the kernels, sets (a), (b)
+    reads the same. Holds (a)'s logit error to FUSED_FLOOR_RATIO times (b)'s
+    (or 1e-3) at each std."""
+    import torch
+
+    from xalm_tpu_torch.runtime.engine import Engine
+    from xalm_tpu_torch.utils.synthetic import synthetic_params
+
+    cfg2, prompt = _moe_wrap_setup(cfg)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 5)
+    perm = torch.randperm(cfg.dim, generator=gen, device=DEVICE)
+    keys = ("max_rel_logit_err", "prefill_rel_logit_err", "max_rel_cache_row_err",
+            "max_rel_sink_row_err", "flips",
+            "flipped_steps", "flipped_prefill_tokens", "min_plain_gap", "max_gap_change")
+    rows = []
+    for std in (SYNTHETIC_ROUTER_STD, WRAP_ROUTER_STD):
+        params = synthetic_params(cfg2, device=DEVICE, seed=SEED + 3)
+        params.layers.wgate.mul_(std / SYNTHETIC_ROUTER_STD)
+        plain = Engine(cfg2, params, kv_dtype=torch.bfloat16, matmul_impl="plain")
+        kern = _teacher_forced_moe(Engine(cfg2, params, kv_dtype=torch.bfloat16,
+                                          matmul_impl="kernel"), plain, prompt, WITNESS_STEPS)
+        permuted = Engine(cfg2, _model_dim_permuted(params, perm), kv_dtype=torch.bfloat16,
+                          matmul_impl="plain")
+        floor = _teacher_forced_moe(permuted, plain, prompt, WITNESS_STEPS)
+        row = {"phase": "router_witness", "model": "Mixtral-8x7B", "router_std": std,
+               "layers": 2, "steps": WITNESS_STEPS, "kv_dtype": "bfloat16",
+               "kernel_vs_plain": {k: kern[k] for k in keys},
+               "plain_permuted_vs_plain": {k: floor[k] for k in keys},
+               "floor_ratio": FUSED_FLOOR_RATIO}
+        emit(row)
+        limit = max(FUSED_FLOOR_RATIO * floor["max_rel_logit_err"], 1e-3)
+        if kern["max_rel_logit_err"] > limit:
+            raise AssertionError(f"router witness (std {std}): kernels {kern['max_rel_logit_err']} "
+                                 f"> {FUSED_FLOOR_RATIO} x the plain floor "
+                                 f"{floor['max_rel_logit_err']}")
+        rows.append(row)
+        del params, plain, permuted
         torch.cuda.empty_cache()
     return rows
 
@@ -984,11 +1381,15 @@ SUMMARY = {
                     "xalm_tpu/ops/pallas_attention.py:104", "wrapped insert + sink rotation"),
     "flash_decode_q": ("cuda", "xalm_tpu_torch/csrc/attention.cu",
                        "xalm_tpu/ops/pallas_attention.py:205", "B=1 kv_len=777"),
+    "qmatmul_multi": ("cuda", "xalm_tpu_torch/csrc/qmatmul.cu",
+                      "xalm_tpu/ops/pallas_matmul.py:323", MULTI_W13_CASE),
 }
 # further rows of the kernels line: another TPU kernel a launch replaces,
 # and the megakernel's int8-KV branch (the fused_decode launches count both)
 ALSO_REPLACES = {"kv_update_q": "xalm_tpu/ops/pallas_attention.py:141"}
 INT8_CASE = {"fused_decode": "int8 KV, B=1 kv_len=520, embed fold"}
+# a further case of the kernels line: the down projection of the experts
+ALSO_CASE = {"qmatmul_multi": MULTI_W2_CASE}
 
 
 def main() -> int:
@@ -1009,7 +1410,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from xalm_tpu_torch.models.config import MISTRAL_7B
+    from xalm_tpu_torch.models.config import MISTRAL_7B, MIXTRAL_8X7B
     from xalm_tpu_torch.utils.synthetic import synthetic_params
 
     t_start = time.perf_counter()
@@ -1031,19 +1432,43 @@ def main() -> int:
     with torch.inference_mode():
         phase_wrap(cfg)
 
+    cfg = MIXTRAL_8X7B
+    t0 = time.perf_counter()
+    params = synthetic_params(cfg, device=DEVICE, seed=SEED)
+    torch.cuda.synchronize()
+    emit({"phase": "weights", "model": "Mixtral-8x7B", "seconds": time.perf_counter() - t0,
+          "gb": params.nbytes() / 1e9})
+    with torch.inference_mode():
+        phase_parity_multi(params, cfg, cases)
+    moe_row = phase_main_moe(params, cfg)
+    del params
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        phase_wrap_moe(cfg)
+        phase_router_witness(cfg)
+    launches = {k: main_row["launches"][k] + moe_row["launches"][k] for k in main_row["launches"]}
+    missing = [k for k, n in launches.items() if n == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the main paths: {missing}")
+
     kernels = []
     for kname, (route, src, replaces, rep) in SUMMARY.items():
         rows = [r for r in cases.rows if r["kernel"] == kname]
         r = next(r for r in rows if r["case"] == rep)
         entry = {
             "name": kname, "route": route, "source": src, "replaces": replaces,
-            "launches": main_row["launches"][kname],
+            "launches": launches[kname],
             "max_abs_err": max(x["max_abs_err"] for x in rows),
             "ms": r["kernel_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"], "case": rep,
         }
         if kname in ALSO_REPLACES:
             entry["also_replaces"] = ALSO_REPLACES[kname]
+        if kname in ALSO_CASE:
+            q = next(x for x in rows if x["case"] == ALSO_CASE[kname])
+            entry["also_case"] = {"case": q["case"], "ms": q["kernel_ms"], "plain_ms": q["plain_ms"],
+                                  "bound_ms": q["bound_ms"], "bound_by": q["bound_by"],
+                                  "library_ms": q["library_ms"]}
         if kname in INT8_CASE:
             q = next(x for x in rows if x["case"] == INT8_CASE[kname])
             entry["int8_kv"] = {"case": q["case"], "ms": q["kernel_ms"], "plain_ms": q["plain_ms"],

@@ -9,7 +9,7 @@ does not need to have.)
 
 Tolerances are those of ``chip_smoke.py``, each against the max |ref| of
 its own output row (a matmul output row, a query head's output):
-qmatmul 1e-4 and flash_decode 1e-5 (the same exact f32 products summed in
+qmatmul and qmatmul_multi 1e-4 and flash_decode 1e-5 (the same exact f32 products summed in
 another order); qmatmul with the norm prologue 1e-3 (the rms summed in
 another order can flip the bf16 rounding of a normed activation; one such
 flip moved a row by 4e-4 of its max at N=1024); kv_update bit-equal (each product and the sum rounded as
@@ -44,7 +44,12 @@ from xalm_tpu_torch.io import write_xalm
 from xalm_tpu_torch.models.config import MISTRAL_7B
 from xalm_tpu_torch.ops import attention as A
 from xalm_tpu_torch.ops import build
-from xalm_tpu_torch.ops.qmatmul import qmatmul, qmatmul_plain
+from xalm_tpu_torch.ops.qmatmul import (
+    qmatmul,
+    qmatmul_multi,
+    qmatmul_multi_plain,
+    qmatmul_plain,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -259,6 +264,133 @@ def test_engine_kernels_match_plain_through_wraps(dev):
     total = {k: total[k] + n for k, n in build.LAUNCHES.items()}
     bf16_kernels = ("qmatmul", "kv_update", "flash_decode", "flash_prefill", "fused_decode")
     assert all(total[k] > 0 for k in bf16_kernels), total
+
+
+def _expert_stack(dev, g, wdt, le, d, n):
+    if wdt == "bf16":
+        return torch.randn((le, d, n), device=dev, generator=g).to(torch.bfloat16), None
+    w = torch.randint(-128, 128, (le, d, n), dtype=torch.int8, device=dev, generator=g)
+    return w, (torch.rand((le, d), device=dev, generator=g) * 0.01 if wdt == "i8" else None)
+
+
+@pytest.mark.parametrize("wdt", ["i8", "q8", "bf16"])
+@pytest.mark.parametrize("m,shared,n", [(1, True, 1040), (1, False, 1040), (4, True, 1040),
+                                        (3, False, 1040), (20, True, 1040), (8, False, 14336)])
+def test_qmatmul_multi_matches_plain(dev, wdt, m, shared, n):
+    """The gathered expert matmul against its plain version, 1e-4 of each
+    output row's max: N = 1040 ends mid lane stride, m = 20 takes three row
+    groups, N = 14336 at m = 8 five column chunks of x."""
+    g = torch.Generator(device=dev).manual_seed(m + n)
+    le, d = 12, 1000 if n < 4096 else 136
+    w, scale = _expert_stack(dev, g, wdt, le, d, n)
+    idxs = torch.tensor([11, 2, 7], dtype=torch.int32, device=dev)
+    x = torch.randn((m if shared else 3 * m, n), device=dev, generator=g)
+    build.reset_launches()
+    got = qmatmul_multi(x, w, scale, idxs, shared_x=shared)
+    assert build.LAUNCHES["qmatmul_multi"] == 1
+    want = qmatmul_multi_plain(x, w, scale, idxs, shared_x=shared)
+    assert got.shape == want.shape == (3 * m, d)
+    assert torch.isfinite(got).all()
+    assert _row_rel(got, want, d) < 1e-4
+
+
+def test_qmatmul_multi_64bit_offsets(dev):
+    """An expert index whose weights start at 2^31 bytes into the stack, and
+    an index outside the stack (NaN rows, never a stray read)."""
+    le, d, n = 9, 1024, 262144  # 256 MiB per expert, 2.25 GiB in all
+    if torch.cuda.mem_get_info(dev)[0] < 6 * 2**30:
+        pytest.skip("needs 6 GiB of free device memory")
+    g = torch.Generator(device=dev).manual_seed(9)
+    w, scale = _expert_stack(dev, g, "i8", le, d, n)
+    x = torch.randn((1, n), device=dev, generator=g)
+    idxs = torch.tensor([8, 0], dtype=torch.int32, device=dev)
+    got = qmatmul_multi(x, w, scale, idxs)
+    assert _row_rel(got, qmatmul_multi_plain(x, w, scale, idxs), d) < 1e-4
+    bad = qmatmul_multi(x, w, scale, torch.tensor([le, 1], dtype=torch.int32, device=dev))
+    one = torch.tensor([1], dtype=torch.int32, device=dev)
+    assert torch.isnan(bad[0]).all()
+    assert _row_rel(bad[1:], qmatmul_multi_plain(x, w, scale, one), d) < 1e-4
+
+
+def test_qmatmul_multi_refuses_what_it_does_not_take(dev):
+    w = torch.zeros((4, 64, 128), dtype=torch.float32, device=dev)
+    x = torch.zeros((1, 128), device=dev)
+    idxs = torch.tensor([0, 1], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):  # f32 weights: the plain version's only
+        qmatmul_multi(x, w, None, idxs)
+    w8 = w.to(torch.int8)
+    for bad in (idxs.long(), idxs.cpu()):
+        with pytest.raises(ValueError):
+            qmatmul_multi(x, w8, None, bad)
+    with pytest.raises(ValueError):  # N % 16 != 0: refused in the CUDA source
+        qmatmul_multi(torch.zeros((1, 120), device=dev), torch.zeros((4, 64, 120), dtype=torch.int8,
+                                                                      device=dev), None, idxs)
+
+
+def _small_mixtral(dev, seed):
+    from xalm_tpu_torch.models.config import MIXTRAL_8X7B
+    from xalm_tpu_torch.utils.synthetic import synthetic_params
+
+    cfg = dataclasses.replace(MIXTRAL_8X7B, dim=512, hidden_dim=1024, n_layers=2,
+                              vocab_size=512, max_seq_len=64)
+    return cfg, synthetic_params(cfg, device=dev, seed=seed)
+
+
+def test_engine_moe_f32_experts_refused_on_the_kernel_path(dev):
+    """f32 experts on the card: a kernel-path decode step gathers them and
+    qmatmul_multi refuses them (no quiet turn to the plain version); the
+    plain path runs them through the dense-masked experts."""
+    from xalm_tpu_torch.models.llama import gathered_ok
+    from xalm_tpu_torch.models.params import QWeight
+    from xalm_tpu_torch.runtime.engine import Engine
+
+    cfg, params = _small_mixtral(dev, 6)
+    lw = params.layers
+
+    def f32(qw):
+        return QWeight(qw.values.float() * qw.scale[..., None], None)
+
+    params = dataclasses.replace(params, layers=dataclasses.replace(lw, w13e=f32(lw.w13e),
+                                                                     w2e=f32(lw.w2e)))
+    assert gathered_ok(params.layers.w13e, "kernel") and not gathered_ok(params.layers.w13e, "plain")
+    prompt = list(range(3, 12))
+    tok = np.array([5])
+    ek = Engine(cfg, params, matmul_impl="kernel")
+    _, ck, pos = ek.prefill(prompt, ek.new_cache(1))  # a prefill chunk: dense-masked experts
+    with pytest.raises(ValueError, match="weight dtype"):
+        ek.decode(tok, np.array([pos], np.int32), ck)
+    ep = Engine(cfg, params, matmul_impl="plain")
+    _, cp, pos = ep.prefill(prompt, ep.new_cache(1))
+    build.reset_launches()
+    lg, _ = ep.decode(tok, np.array([pos], np.int32), cp)
+    assert torch.isfinite(lg).all() and build.LAUNCHES["qmatmul_multi"] == 0
+
+
+def test_engine_moe_kernels_match_plain_through_wraps(dev):
+    """A small Mixtral (8 experts, 2 active) on the per-layer path, kernels
+    against plain versions, teacher-forced through three wraps of a 64-slot
+    window with a bf16 and an int8 cache: each step's logits within 2e-2 of
+    their max, one qmatmul_multi launch per matmul (2 per layer and token)."""
+    from xalm_tpu_torch.runtime.engine import Engine
+
+    cfg, params = _small_mixtral(dev, 5)
+    prompt = list(range(3, 40))
+    for kv in (torch.bfloat16, torch.int8):
+        ek = Engine(cfg, params, kv_dtype=kv, matmul_impl="kernel")
+        ep = Engine(cfg, params, kv_dtype=kv, matmul_impl="plain")
+        assert ek.decode_path(1) == "perlayer"
+        lk, ck, pos = ek.prefill(prompt, ek.new_cache(1))
+        lp, cp, _ = ep.prefill(prompt, ep.new_cache(1))
+        build.reset_launches()
+        for _ in range(3 * 64):
+            tok = np.array([int(lk.argmax())])
+            lk, ck = ek.decode(tok, np.array([pos], np.int32), ck)
+            lp, cp = ep.decode(tok, np.array([pos], np.int32), cp)
+            assert float((lk - lp).abs().max()) <= 2e-2 * float(lp.abs().max()), (kv, pos)
+            pos += 1
+        assert build.LAUNCHES["qmatmul_multi"] == 3 * 64 * 2 * 2
+        assert build.LAUNCHES["qmatmul"] == 3 * 64 * (2 * 2 + 1)
+        assert build.LAUNCHES["fused_decode"] == 0
 
 
 FUSED_CFG = dict(dim=256, hidden_dim=512, n_layers=2, n_heads=4, n_kv_heads=2, vocab_size=320,

@@ -25,7 +25,26 @@
 //   64x64-output-tile GEMM on bf16 WMMA (mma.sync) tensor-core fragments,
 //   int8 weight tiles widened to bf16 in shared memory. Simple and right
 //   first: no TMA, no wgmma, no multi-stage pipeline yet.
+//
+// xq_qmatmul_multi replaces the same TPU kernel through
+// pallas_qmatmul_stacked_multi (the gathered top-k expert matmul of
+// Mixtral's decode step):
+//
+//     y[e*m + r, d] = epi_idx[d] * sum_n bf16(x_e[r, n]) * W[idx][d, n],
+//     idx = idxs[e]
+//
+// over the k experts of the (L*E, D, N) flattened expert stack, with x
+// shared by the experts (gate/up) or one m-row group per expert (down).
+// It is the same weight stream as the GEMV route, k experts' worth: bytes
+// bound. Design: a (row tile, expert) grid; each block reads its expert's
+// index from device memory (the TPU kernel's scalar prefetch), so the
+// router's choice never reaches the host and one launch covers all k
+// experts; weight offsets are 64-bit (the flat stack passes 2^31 bytes);
+// x is staged into shared memory as bf16 in column chunks (14336-wide down
+// rows and up to 8 rows at a time); the warp core (gemv.cuh's) and the
+// scale epilogue (gemv_store) are the GEMV route's.
 
+#include <math.h>
 #include <mma.h>
 
 #include "gemv.cuh"
@@ -60,6 +79,28 @@ __device__ float block_rms(const float* __restrict__ xm, int n, float eps, float
   return 1.0f / sqrtf(t / (float)n + eps);
 }
 
+// The GEMV epilogue of one warp: y[m * D + d] = epi[d] * (its lanes' sum of
+// acc[r][m]) for its rows d = row0 + r < D and the first M activation rows;
+// epi is the row scale, the q8 fixed scale, or 1.
+__device__ __forceinline__ void gemv_store(float (&acc)[GV_RPW][GV_MAX_M], int row0, int M, int D,
+                                           int lane, const float* __restrict__ scale, float qscale,
+                                           float* __restrict__ y) {
+#pragma unroll
+  for (int r = 0; r < GV_RPW; ++r) {
+    const int d = row0 + r;
+#pragma unroll
+    for (int m = 0; m < GV_MAX_M; ++m) {
+      if (m >= M) break;
+      float s = xq_warp_sum(acc[r][m]);
+      if (lane == 0 && d < D) {
+        if (scale != nullptr) s *= scale[d];
+        else if (qscale != 0.f) s *= qscale;
+        y[(size_t)m * D + d] = s;
+      }
+    }
+  }
+}
+
 template <typename WT>
 __global__ void __launch_bounds__(GV_THREADS) gemv_kernel(
     const float* __restrict__ x, const float* __restrict__ norm_w, float eps,
@@ -83,28 +124,10 @@ __global__ void __launch_bounds__(GV_THREADS) gemv_kernel(
   __syncthreads();
 
   const int row0 = (blockIdx.x * GV_WARPS + warp) * GV_RPW;
-  float acc[GV_RPW][GV_MAX_M];
-#pragma unroll
-  for (int r = 0; r < GV_RPW; ++r)
-#pragma unroll
-    for (int m = 0; m < GV_MAX_M; ++m) acc[r][m] = 0.f;
+  float acc[GV_RPW][GV_MAX_M] = {};
   xq_gemv2<WT, GV_MAX_M>(xs, N, row0 < D ? w + (size_t)row0 * N : nullptr,
                          row0 + 1 < D ? w + (size_t)(row0 + 1) * N : nullptr, 0, N, M, lane, acc);
-
-#pragma unroll
-  for (int r = 0; r < GV_RPW; ++r) {
-    const int d = row0 + r;
-#pragma unroll
-    for (int m = 0; m < GV_MAX_M; ++m) {
-      if (m >= M) break;
-      float s = xq_warp_sum(acc[r][m]);
-      if (lane == 0 && d < D) {
-        if (scale != nullptr) s *= scale[d];
-        else if (qscale != 0.f) s *= qscale;
-        y[(size_t)m * D + d] = s;
-      }
-    }
-  }
+  gemv_store(acc, row0, M, D, lane, scale, qscale, y);
 }
 
 // bf16(rmsnorm?(x)) for the tiled path: one block per row
@@ -230,7 +253,86 @@ int launch_gemm(const float* x, const float* nw, float eps, const WT* w, const f
   return (int)cudaGetLastError();
 }
 
+constexpr int MX_SMEM = 48 * 1024;  // bf16 x chunk of the multi kernel: (<= 8 rows, nc)
+constexpr int MX_MAX_M = 256;       // m < 256 and k * m <= 512, as the TPU wrapper asserts
+constexpr int MX_MAX_KM = 512;
+
+template <typename WT>
+__global__ void __launch_bounds__(GV_THREADS) qmatmul_multi_kernel(
+    const float* __restrict__ x, const WT* __restrict__ w, const float* __restrict__ scale,
+    float qscale, const int* __restrict__ idxs, float* __restrict__ y, int m, int shared_x,
+    int N, int D, int LE, int nc) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);  // (<= GV_MAX_M, nc)
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int e = blockIdx.y;
+  const int idx = idxs[e];
+  const int row0 = (blockIdx.x * GV_WARPS + warp) * GV_RPW;
+  const float* xe = x + (shared_x ? (size_t)0 : (size_t)e * m * N);
+  float* ye = y + (size_t)e * m * D;
+  if (idx < 0 || idx >= LE) {  // an index outside the stack: NaN rows, never a stray read
+    for (int i = tid; i < m * GV_WARPS * GV_RPW; i += GV_THREADS) {
+      const int d = blockIdx.x * GV_WARPS * GV_RPW + i % (GV_WARPS * GV_RPW);
+      if (d < D) ye[(size_t)(i / (GV_WARPS * GV_RPW)) * D + d] = NAN;
+    }
+    return;
+  }
+  const WT* we = w + (size_t)idx * D * N;
+  const float* se = scale != nullptr ? scale + (size_t)idx * D : nullptr;
+  const WT* w0 = row0 < D ? we + (size_t)row0 * N : nullptr;
+  const WT* w1 = row0 + 1 < D ? we + (size_t)(row0 + 1) * N : nullptr;
+
+  for (int m0 = 0; m0 < m; m0 += GV_MAX_M) {
+    const int mb = min(GV_MAX_M, m - m0);
+    float acc[GV_RPW][GV_MAX_M] = {};
+    for (int c0 = 0; c0 < N; c0 += nc) {
+      const int cw = min(nc, N - c0);
+      __syncthreads();  // every warp is done with the previous chunk
+      for (int i = tid; i < mb * cw; i += GV_THREADS) {
+        const int r = i / cw, c = i - r * cw;
+        xs[(size_t)r * nc + c] = __float2bfloat16_rn(xe[(size_t)(m0 + r) * N + c0 + c]);
+      }
+      __syncthreads();
+      xq_gemv2<WT, GV_MAX_M>(xs, nc, w0, w1, c0, c0 + cw, mb, lane, acc);
+    }
+    gemv_store(acc, row0, mb, D, lane, se, qscale, ye + (size_t)m0 * D);
+  }
+}
+
+template <typename WT>
+int launch_multi(const float* x, const WT* w, const float* scale, float qscale, const int* idxs,
+                 float* y, int k, int m, int shared_x, int N, int D, int LE, cudaStream_t s) {
+  if (k < 1 || m < 1 || m >= MX_MAX_M || k * m > MX_MAX_KM || N < 16 || N % 16 != 0 || D < 1 ||
+      LE < 1)
+    return (int)cudaErrorInvalidValue;
+  const int mb = m < GV_MAX_M ? m : GV_MAX_M;
+  const int chunk = MX_SMEM / (mb * 2) / 512 * 512;  // a multiple of 512: whole lane strides
+  const int nc = N < chunk ? N : chunk;
+  const int smem = mb * nc * (int)sizeof(__nv_bfloat16);
+  const int rows_per_block = GV_WARPS * GV_RPW;
+  dim3 grid((D + rows_per_block - 1) / rows_per_block, k);
+  qmatmul_multi_kernel<WT><<<grid, GV_THREADS, smem, s>>>(x, w, scale, qscale, idxs, y, m,
+                                                          shared_x, N, D, LE, nc);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+// The gathered top-k expert matmul: x (m or k*m, N) f32, w the (LE, D, N)
+// int8 or bf16 expert stack, scale its (LE, D) row scales or null, idxs
+// (k,) int32 on the device, y (k*m, D) f32. One launch.
+XQ_EXPORT int xq_qmatmul_multi(const void* x, const void* w, int w_is_bf16, const void* scale,
+                               float qscale, const void* idxs, void* y, int k, int m,
+                               int shared_x, int N, int D, int LE, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  const float* xf = (const float*)x;
+  const float* sc = (const float*)scale;
+  const int* ix = (const int*)idxs;
+  float* yf = (float*)y;
+  if (w_is_bf16)
+    return launch_multi(xf, (const __nv_bfloat16*)w, sc, qscale, ix, yf, k, m, shared_x, N, D, LE, s);
+  return launch_multi(xf, (const int8_t*)w, sc, qscale, ix, yf, k, m, shared_x, N, D, LE, s);
+}
 
 // bf16 elements of the scratch the tiled route needs for bf16(rmsnorm?(x));
 // 0 where the GEMV route runs (M <= GV_MAX_M and x fits in shared memory)

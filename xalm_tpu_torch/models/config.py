@@ -1,14 +1,14 @@
 """Normalized model hyperparameters (counterpart of
 ``xalm_tpu/models/config.py``): the same fields, defaults and the
 max_seq_len clamp to 4096 with a ``context`` override, plus the
-``MISTRAL_7B`` geometry of ``xalm_tpu/utils/synthetic.py``."""
+``MISTRAL_7B`` and ``MIXTRAL_8X7B`` geometries of the chip smoke."""
 
 from __future__ import annotations
 
 import dataclasses
 import math
 
-__all__ = ["ModelConfig", "KV_SINKS", "MISTRAL_7B"]
+__all__ = ["ModelConfig", "KV_SINKS", "MISTRAL_7B", "MIXTRAL_8X7B"]
 
 # StreamingLLM attention-sink count
 KV_SINKS = 2
@@ -127,3 +127,7 @@ MISTRAL_7B = ModelConfig(
     act="silu",
     tie_word_embeddings=False,
 )
+
+# Mixtral-8x7B-v0.1 geometry (HF config: 8 local experts, 2 per token),
+# window clamped to 4096
+MIXTRAL_8X7B = dataclasses.replace(MISTRAL_7B, n_experts=8, n_experts_active=2)

@@ -1,4 +1,4 @@
-"""Dense Llama/Mistral forward pass (counterpart of
+"""Llama/Mistral/Mixtral forward pass (counterpart of
 ``xalm_tpu/models/llama.py::forward`` and its helpers).
 
 Behavioural contract, as in the JAX package:
@@ -10,6 +10,11 @@ Behavioural contract, as in the JAX package:
   ``kv_len`` slots, re-rotates the pinned sink keys by +1 position per
   wrapped decode step.
 - GLU FFN: w2(silu(w1 x) * w3 x) through the fused, chunk-interleaved w13.
+- Sparse-MoE FFN (Mixtral, ``moe_ffn``): f32 router softmax, top-k of the
+  probabilities, renormalised. A t = 1 step at B = 1 on the per-layer
+  paths runs the gathered decode, which streams only the k chosen experts
+  (``qmatmul_multi``, the indices never leave the device); every other
+  step (prefill chunks, B > 1, ``"xla"``) runs the dense-masked experts.
 
 Chunk contract: calls with T > 1 must not wrap the ring; once wrapped the
 engine feeds one token at a time (T = 1).
@@ -44,7 +49,7 @@ too when the head is i8 (``Engine(wcls_i8=True)``); otherwise the head
 stays on kernel 1.
 
 Unlike the JAX function the cache is updated in place; the per-layer path
-runs its layers as a Python loop. MoE, q4, a8, tp/pp, speculative
+runs its layers as a Python loop. q4, a8, tp/pp, speculative
 verify and the family extras (bias, qk-norm, post-norms, softcaps, gelu,
 embed scale) are later slices and raise NotImplementedError.
 """
@@ -75,7 +80,10 @@ from xalm_tpu_torch.ops import qmatmul as qmm
 from xalm_tpu_torch.ops.linear import qmatmul as plain_linear
 from xalm_tpu_torch.runtime.cache import KVCache, ring_indices
 
-__all__ = ["forward", "rope_freqs", "apply_rope", "rmsnorm", "embed_lookup", "attention"]
+__all__ = [
+    "forward", "rope_freqs", "apply_rope", "rmsnorm", "embed_lookup", "attention", "moe_route",
+    "moe_ffn",
+]
 
 LogitsMode = Literal["none", "last", "all", "token"]
 IMPLS = ("kernel", "plain", "xla")
@@ -160,6 +168,67 @@ def attention(q, k, v, kv_len, compute_dtype=torch.float32) -> torch.Tensor:
         v.to(compute_dtype).to(torch.float32),
     )
     return out.reshape(b, t, hq * hd)
+
+
+def moe_route(xn: torch.Tensor, wgate: torch.Tensor, k: int):
+    """Router of one layer: xn (B, T, dim) normed, wgate (E, dim) f32 ->
+    (topv (B, T, k) renormalised, topi (B, T, k)), both sorted by descending
+    probability. The logits are an f32 product (TF32 stays off on the card:
+    a TF32 router would pick other experts)."""
+    probs = torch.softmax(torch.einsum("btd,ed->bte", xn, wgate.to(torch.float32)), dim=-1)
+    topv, topi = torch.topk(probs, k, dim=-1)
+    return topv / torch.sum(topv, dim=-1, keepdim=True), topi
+
+
+def gathered_ok(qw: QWeight, impl: str) -> bool:
+    """Does a B = 1 decode step on the per-layer paths gather its experts?
+    ``forward``'s ``mm`` rule: the kernel's dtypes (int8, bf16); f32 on the
+    CPU, as the JAX gate (the wrapper runs its plain version there); and
+    every dtype on the card's kernel path, where ``qmatmul_multi`` refuses
+    what its kernel does not take."""
+    dt = qw.values.dtype
+    return impl != "xla" and (
+        qmm.supported_weight_dtype(dt) or (dt == torch.float32 and not qw.values.is_cuda)
+        or (impl == "kernel" and qw.values.is_cuda))
+
+
+def moe_ffn(x: torch.Tensor, lp, layer: int, cfg: ModelConfig, impl: str,
+            compute_dtype) -> torch.Tensor:
+    """Mixtral's sparse-MoE FFN of one layer (``xalm_tpu/models/llama.py``
+    ``:818-931``): x (B, T, dim) f32 -> the FFN's output (B, T, dim) f32."""
+    b, t, _ = x.shape
+    xn = rmsnorm(x, lp.mlp_norm[layer], cfg.norm_eps)
+    topv, topi = moe_route(xn, lp.wgate[layer], cfg.n_experts_active)
+    chunk = ffn_chunk(cfg.hidden_dim)
+    if t == 1 and b == 1 and gathered_ok(lp.w13e, impl):
+        # gathered decode: the (L, E, ...) stacks viewed flat (L*E, ...),
+        # the k experts at layer*E + expert, one launch per matmul
+        multi = qmm.qmatmul_multi if impl == "kernel" else qmm.qmatmul_multi_plain
+        idxs = (layer * cfg.n_experts + topi[0, 0]).to(torch.int32)
+
+        def flat(qw: QWeight):
+            v = qw.values.reshape(-1, *qw.values.shape[2:])
+            return v, None if qw.scale is None else qw.scale.reshape(-1, qw.scale.shape[-1])
+
+        gate, up = split_w13_rows(multi(xn.reshape(1, -1), *flat(lp.w13e), idxs), chunk)
+        dn_e = multi((F.silu(gate) * up).contiguous(), *flat(lp.w2e), idxs, shared_x=False)
+        return torch.sum(topv[0, 0, :, None] * dn_e, dim=0).reshape(1, 1, -1)
+    # dense-masked: every expert, weighted by its renormalised probability
+    # (0 for the unchosen); inputs rounded to compute_dtype, f32 products
+    # and sums (the reference's preferred_element_type=f32), one expert's
+    # f32 weight copy at a time
+    def expert(qw: QWeight, e: int) -> QWeight:
+        return QWeight(qw.values[layer, e], None if qw.scale is None else qw.scale[layer, e])
+
+    wts = torch.zeros((b, t, cfg.n_experts), dtype=torch.float32, device=x.device)
+    wts.scatter_(-1, topi, topv)
+    down = torch.zeros_like(x)
+    for e in range(cfg.n_experts):
+        a13 = plain_linear(xn, expert(lp.w13e, e), compute_dtype=compute_dtype)
+        gate, up = split_w13_rows(a13, chunk)
+        dn = plain_linear(F.silu(gate) * up, expert(lp.w2e, e), compute_dtype=compute_dtype)
+        down = down + dn * wts[..., e:e + 1]
+    return down
 
 
 def _write_rows(cache: torch.Tensor, layer: int, kv_pos: torch.Tensor, rows: torch.Tensor) -> None:
@@ -370,9 +439,12 @@ def forward(
             attn_out = attention(q, ck[layer], cv[layer], kv_len, compute_dtype)
         x = x + mm(attn_out, lp.wo, layer)
 
-        gate, up = split_w13_rows(mm(x, lp.w13, layer, norm_sw=lp.mlp_norm),
-                                  ffn_chunk(cfg.hidden_dim))
-        x = x + mm(F.silu(gate) * up, lp.w2, layer)
+        if lp.w13e is not None:
+            x = x + moe_ffn(x, lp, layer, cfg, impl, compute_dtype)
+        else:
+            gate, up = split_w13_rows(mm(x, lp.w13, layer, norm_sw=lp.mlp_norm),
+                                      ffn_chunk(cfg.hidden_dim))
+            x = x + mm(F.silu(gate) * up, lp.w2, layer)
 
     return head(x), cache
 

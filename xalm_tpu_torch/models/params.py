@@ -8,12 +8,15 @@ as the JAX package, so every intermediate can be compared with it:
   [q rows of group j | k row-block j | v row-block j].
 - ``w13`` (L, 2*hidden, dim): gate/up interleaved in ``ffn_chunk``-row
   chunks [gate_c0 | up_c0 | gate_c1 | ...].
+- MoE (Mixtral): ``w13``/``w2`` are None; ``wgate`` (L, E, dim) f32 is the
+  router, ``w13e`` (L, E, 2*hidden, dim) each expert's fused gate/up in the
+  ``w13`` layout, ``w2e`` (L, E, dim, hidden) each expert's down.
 
 Quantization rides the dtype plus an optional per-output-row f32 ``scale``:
 float weights dequantize by a cast, int8 with ``scale`` is `i8`
 (y = (x @ W^T) * scale), int8 without it is `q8` (fixed scale 1/100).
-``recode_wcls_i8`` re-codes a float head to i8 per row. Packed q4, fp8, MoE
-and family extras are later slices.
+``recode_wcls_i8`` re-codes a float head to i8 per row. Packed q4, fp8 and
+the family extras are later slices.
 """
 
 from __future__ import annotations
@@ -75,14 +78,19 @@ class QWeight:
 
 @dataclasses.dataclass
 class LayerParams:
-    """Per-layer weights of the dense Llama/Mistral block, stacked (L, ...)."""
+    """Per-layer weights of the Llama/Mistral/Mixtral block, stacked (L, ...)."""
 
     attn_norm: torch.Tensor  # (L, dim) f32
     wqkv: QWeight  # (L, kh*(g+2)*hd, dim)
     wo: QWeight  # (L, dim, q_dim)
     mlp_norm: torch.Tensor  # (L, dim) f32
-    w13: QWeight  # (L, 2*hidden, dim)
-    w2: QWeight  # (L, dim, hidden)
+    # dense GLU FFN (None for MoE: w13e/w2e carry the experts)
+    w13: QWeight | None = None  # (L, 2*hidden, dim)
+    w2: QWeight | None = None  # (L, dim, hidden)
+    # Mixtral sparse-MoE FFN (None for dense models)
+    wgate: torch.Tensor | None = None  # (L, E, dim) f32 router
+    w13e: QWeight | None = None  # (L, E, 2*hidden, dim), scale (L, E, 2*hidden)
+    w2e: QWeight | None = None  # (L, E, dim, hidden), scale (L, E, dim)
 
 
 @dataclasses.dataclass
@@ -94,11 +102,13 @@ class ModelParams:
 
     def nbytes(self) -> int:
         lp = self.layers
-        n = sum(w.nbytes() for w in (self.embed, lp.wqkv, lp.wo, lp.w13, lp.w2))
+        mats = (self.embed, lp.wqkv, lp.wo, lp.w13, lp.w2, lp.w13e, lp.w2e)
+        n = sum(w.nbytes() for w in mats if w is not None)
         if self.wcls is not self.embed:
             n += self.wcls.nbytes()
-        for t in (lp.attn_norm, lp.mlp_norm, self.out_norm):
-            n += t.nelement() * 4
+        for t in (lp.attn_norm, lp.mlp_norm, self.out_norm, lp.wgate):
+            if t is not None:
+                n += t.nelement() * 4
         return n
 
 
@@ -155,7 +165,6 @@ def _torch(arr: np.ndarray, torch_dtype: torch.dtype, device) -> torch.Tensor:
 
 def _check_dense(cfg: ModelConfig, xf=None) -> None:
     extras = {
-        "MoE": cfg.n_experts,
         "post_norms": cfg.post_norms,
         "qk_norm": cfg.qk_norm,
         "embed_scale": cfg.embed_scale != 1.0,
@@ -169,7 +178,7 @@ def _check_dense(cfg: ModelConfig, xf=None) -> None:
 
 
 def load_params(xf, cfg: ModelConfig, device="cpu") -> ModelParams:
-    """Load and stack all weights of a dense Llama/Mistral container
+    """Load and stack all weights of a Llama/Mistral/Mixtral container
     (f32/f16/bf16/q8/i8) from an open XalmFile onto ``device``. f16 stays
     f16 (the JAX loader keeps it off-TPU too)."""
     _check_dense(cfg, xf)
@@ -207,7 +216,8 @@ def load_params(xf, cfg: ModelConfig, device="cpu") -> ModelParams:
             None if scale is None else _torch(scale, torch.float32, device),
         )
 
-    def fused(parts, fuse, *fargs) -> QWeight:
+    def fuse_host(parts, fuse, *fargs):
+        """(values, scale, dtype) stacks -> the fused host (values, scale, dtype)."""
         has_scale = parts[0][1] is not None
         if any((p[1] is not None) != has_scale for p in parts) or any(
             p[2] != parts[0][2] for p in parts
@@ -215,7 +225,10 @@ def load_params(xf, cfg: ModelConfig, device="cpu") -> ModelParams:
             raise ValueError("FATAL: mixed quantization across fused weights")
         vals = fuse(*[p[0] for p in parts], *fargs)
         scale = fuse(*[p[1] for p in parts], *fargs) if has_scale else None
-        return qw(vals, scale, parts[0][2])
+        return vals, scale, parts[0][2]
+
+    def fused(parts, fuse, *fargs) -> QWeight:
+        return qw(*fuse_host(parts, fuse, *fargs))
 
     def stack_norm(name_fmt: str) -> torch.Tensor:
         vals, _, _ = stack_host(name_fmt, (cfg.dim,))
@@ -228,7 +241,43 @@ def load_params(xf, cfg: ModelConfig, device="cpu") -> ModelParams:
             scale = xf.load(xdt.scale_name(name))
         return qw(xf.load(name), scale, t.dtype.torch_dtype)
 
+    def router() -> torch.Tensor:
+        """(L, E, dim) f32; expert selection cannot ride an int8 code."""
+        vals, _, tdt = stack_host("l.{}.moe.gate.weight", (cfg.n_experts, d))
+        if tdt == torch.int8:
+            raise ValueError("FATAL: MoE router weights must not be int8-quantized")
+        return _torch(np.asarray(vals, np.float32), torch.float32, device)
+
+    def experts(host_stack) -> QWeight:
+        """(L, E, ...) stacks of the (values, scale, dtype) that
+        ``host_stack(e)`` gives for each expert, filled one expert at a time
+        on ``device``: the host holds one expert's (L, ...) stack at once."""
+        vals = scale = None
+        for e in range(cfg.n_experts):
+            v, sc, tdt = host_stack(e)
+            if e and ((sc is None) != (scale is None) or tdt != vals.dtype):
+                raise ValueError(f"FATAL: mixed quantization across MoE experts (expert {e})")
+            v = _torch(v, tdt, "cpu")
+            if e == 0:
+                vals = torch.empty((v.shape[0], cfg.n_experts, *v.shape[1:]), dtype=v.dtype,
+                                   device=device)
+                if sc is not None:
+                    scale = torch.empty((sc.shape[0], cfg.n_experts, *sc.shape[1:]),
+                                        dtype=torch.float32, device=device)
+            vals[:, e] = v
+            if sc is not None:
+                scale[:, e] = _torch(sc, torch.float32, "cpu")
+        return QWeight(vals, scale)
+
+    def gate_up(e):
+        return fuse_host([stack_host(f"l.{{}}.moe.{e}.gate.weight", (h, d)),
+                          stack_host(f"l.{{}}.moe.{e}.up.weight", (h, d))], fuse_w13, ffn_chunk(h))
+
+    def down(e):
+        return stack_host(f"l.{{}}.moe.{e}.down.weight", (d, h))
+
     d, q, kv, h = cfg.dim, cfg.q_dim, cfg.kv_dim, cfg.hidden_dim
+    moe = cfg.n_experts > 0
     layers = LayerParams(
         attn_norm=stack_norm("l.{}.attn.norm.weight"),
         wqkv=fused(
@@ -242,7 +291,7 @@ def load_params(xf, cfg: ModelConfig, device="cpu") -> ModelParams:
         ),
         wo=qw(*stack_host("l.{}.attn.down.weight", (d, q))),
         mlp_norm=stack_norm("l.{}.mlp.norm.weight"),
-        w13=fused(
+        w13=None if moe else fused(
             [
                 stack_host("l.{}.mlp.gate.weight", (h, d)),
                 stack_host("l.{}.mlp.up.weight", (h, d)),
@@ -250,7 +299,10 @@ def load_params(xf, cfg: ModelConfig, device="cpu") -> ModelParams:
             fuse_w13,
             ffn_chunk(h),
         ),
-        w2=qw(*stack_host("l.{}.mlp.down.weight", (d, h))),
+        w2=None if moe else qw(*stack_host("l.{}.mlp.down.weight", (d, h))),
+        wgate=router() if moe else None,
+        w13e=experts(gate_up) if moe else None,
+        w2e=experts(down) if moe else None,
     )
     embed = single("embed.weight", (cfg.vocab_size, d))
     onv = xf.load("output.norm.weight")
@@ -272,12 +324,13 @@ def from_jax_params(tree, device="cpu") -> ModelParams:
     ``ModelParams`` whose leaves the caller turned into numpy arrays. The
     layouts are the same, so every tensor is a bit-exact copy."""
     lp = tree.layers
-    for name in ("bqkv", "wgate", "w13e", "w2e", "post_attn_norm", "post_mlp_norm",
-                 "q_norm", "k_norm"):
+    for name in ("bqkv", "post_attn_norm", "post_mlp_norm", "q_norm", "k_norm"):
         if getattr(lp, name, None) is not None:
             raise NotImplementedError(f"{name}: later slice")
 
-    def qw(w) -> QWeight:
+    def qw(w) -> QWeight | None:
+        if w is None:
+            return None
         if getattr(w, "q4group", 0):
             raise NotImplementedError("packed q4 weights: later slice")
         return QWeight(
@@ -295,6 +348,9 @@ def from_jax_params(tree, device="cpu") -> ModelParams:
             mlp_norm=_from_np(lp.mlp_norm, device),
             w13=qw(lp.w13),
             w2=qw(lp.w2),
+            wgate=None if lp.wgate is None else _from_np(lp.wgate, device),
+            w13e=qw(lp.w13e),
+            w2e=qw(lp.w2e),
         ),
         out_norm=_from_np(tree.out_norm, device),
         wcls=embed if tree.wcls is tree.embed else qw(tree.wcls),

@@ -42,7 +42,7 @@ NVCC_FLAGS = [
 ]
 # source file -> kernel wrappers it backs
 KERNELS = {
-    "qmatmul": ("qmatmul",),
+    "qmatmul": ("qmatmul", "qmatmul_multi"),
     "attention": ("kv_update", "flash_decode", "flash_prefill", "kv_update_q", "flash_decode_q"),
     "fused_decode": ("fused_decode",),
 }
@@ -140,6 +140,8 @@ SIGNATURES = {
         "xq_qmatmul_scratch": (_L, [_I, _I]),
         # x, norm_w, eps, w, w_is_bf16, scale, qscale, y, xb, M, N, D, stream
         "xq_qmatmul": (_I, [_P, _P, _F, _P, _I, _P, _F, _P, _P, _I, _I, _I, _P]),
+        # x, w, w_is_bf16, scale, qscale, idxs, y, k, m, shared_x, N, D, LE, stream
+        "xq_qmatmul_multi": (_I, [_P, _P, _I, _P, _F, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     },
     "attention": {
         # ck, cv, knew, vnew, kv_pos, rotate, cexp, sexp, B, KH, S, hd, stream

@@ -9,17 +9,30 @@ H100 the decode shapes (M <= 8) are bound by the weight bytes and run as a
 GEMV; larger M runs a tiled tensor-core GEMM (see the source's note). The
 a8, packed-q4 and fp8 variants of the TPU kernel are later slices.
 
-``qmatmul`` launches the kernel for CUDA tensors and runs ``qmatmul_plain``
-(the same function in plain PyTorch) for CPU tensors.
+Row 8 of the TPU kernels, the same kernel through
+``pallas_qmatmul_stacked_multi``, is ``qmatmul_multi``: the gathered top-k
+expert matmul of Mixtral's decode step, over the (L*E, D, N) flattened
+expert stack at the k indices ``layer*E + expert`` that lie on the device.
+
+``qmatmul`` and ``qmatmul_multi`` launch their kernels for CUDA tensors and
+run ``qmatmul_plain`` / ``qmatmul_multi_plain`` (the same functions in
+plain PyTorch) for CPU tensors.
 """
 
 from __future__ import annotations
 
 import torch
 
+from xalm_tpu_torch.models.params import Q8_FIXED_SCALE
 from xalm_tpu_torch.ops import build
 
-__all__ = ["qmatmul", "qmatmul_plain", "supported_weight_dtype"]
+__all__ = [
+    "qmatmul",
+    "qmatmul_multi",
+    "qmatmul_multi_plain",
+    "qmatmul_plain",
+    "supported_weight_dtype",
+]
 
 
 def supported_weight_dtype(dtype: torch.dtype) -> bool:
@@ -105,4 +118,81 @@ def qmatmul(
                          torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "qmatmul")
     build.LAUNCHES["qmatmul"] += 1
+    return y
+
+
+def _multi_rows(x: torch.Tensor, k: int, shared_x: bool) -> int:
+    """m, the activation rows per expert; the TPU wrapper's limits."""
+    m = x.shape[0] // (1 if shared_x else k)
+    _need(m >= 1 and m * (1 if shared_x else k) == x.shape[0],
+          f"x {tuple(x.shape)} is not {'m' if shared_x else 'k*m'} rows for k={k}")
+    _need(m < 256 and k * m <= 512, f"m={m}, k={k}: decode shapes only (m < 256, k*m <= 512)")
+    return m
+
+
+def qmatmul_multi_plain(
+    x: torch.Tensor,
+    values: torch.Tensor,
+    scale: torch.Tensor | None,
+    idxs: torch.Tensor,
+    *,
+    shared_x: bool = True,
+) -> torch.Tensor:
+    """Plain version: x (m, N) shared by the k experts, or (k*m, N) with one
+    m-row group per expert; values (LE, D, N); idxs (k,) -> (k*m, D) f32.
+    x is cast to bf16 for int8/bf16 weights (f32 weights keep f32, as on the
+    TPU); the products are exact in f32 and summed in f32; then the row scale
+    of each expert, or the q8 1/100 for int8 without one."""
+    k = idxs.shape[0]
+    m = _multi_rows(x, k, shared_x)
+    n = x.shape[1]
+    idx = idxs.to(torch.long)
+    w = values[idx]  # (k, D, N): a gather on the device, the indices stay there
+    xe = x.to(torch.float32).reshape(-1, m, n).expand(k, m, n)
+    if values.dtype != torch.float32:
+        xe = xe.to(torch.bfloat16)
+        w = w.to(torch.bfloat16)
+    y = torch.matmul(xe.to(torch.float32), w.to(torch.float32).transpose(1, 2))  # (k, m, D)
+    if scale is not None:
+        y = y * scale[idx][:, None, :]
+    elif values.dtype == torch.int8:
+        y = y * Q8_FIXED_SCALE
+    return y.reshape(k * m, -1)
+
+
+def qmatmul_multi(
+    x: torch.Tensor,
+    values: torch.Tensor,
+    scale: torch.Tensor | None,
+    idxs: torch.Tensor,
+    *,
+    shared_x: bool = True,
+) -> torch.Tensor:
+    """y[e*m + r] = [scale[idx_e] *] values[idx_e] @ bf16(x_e[r]) for the k
+    experts idx_e = idxs[e], in one launch; see ``qmatmul_multi_plain``."""
+    if not x.is_cuda:
+        return qmatmul_multi_plain(x, values, scale, idxs, shared_x=shared_x)
+    le, d, n = values.shape
+    _need(supported_weight_dtype(values.dtype), f"weight dtype {values.dtype} (int8/bf16 only)")
+    _need(x.dtype == torch.float32 and x.is_contiguous() and x.dim() == 2,
+          "x must be contiguous 2-D f32")
+    _need(values.is_cuda and values.is_contiguous(), "weights must be contiguous on the card")
+    _need(x.shape[1] == n, f"x {tuple(x.shape)} vs weights {tuple(values.shape)}")
+    _need(idxs.dtype == torch.int32 and idxs.is_cuda and idxs.dim() == 1 and idxs.is_contiguous(),
+          "idxs must be a contiguous (k,) int32 tensor on the card")
+    k = idxs.shape[0]
+    m = _multi_rows(x, k, shared_x)
+    if scale is not None:
+        _need(values.dtype == torch.int8, "a row scale needs int8 weights")
+        _need(scale.dtype == torch.float32 and scale.shape == (le, d) and scale.is_contiguous()
+              and scale.is_cuda, "scale must be contiguous (LE, D) f32")
+    qs = Q8_FIXED_SCALE if (scale is None and values.dtype == torch.int8) else 0.0
+    lib = build.load_library("qmatmul")
+    y = torch.empty((k * m, d), dtype=torch.float32, device=x.device)
+    err = lib.xq_qmatmul_multi(x.data_ptr(), values.data_ptr(), int(values.dtype == torch.bfloat16),
+                               None if scale is None else scale.data_ptr(), qs, idxs.data_ptr(),
+                               y.data_ptr(), k, m, int(shared_x), n, d, le,
+                               torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, "qmatmul_multi")
+    build.LAUNCHES["qmatmul_multi"] += 1
     return y

@@ -9,7 +9,8 @@ JAX engine, so both run the same shapes.
 
 Decode is one forward call per token (the JAX engine's ``segment=1``); a
 decode step runs the whole-step megakernel where ``fused_step`` allows and
-its gate passes (``decode_path``), else the per-layer kernels. Stochastic
+its gate passes (``decode_path``), else the per-layer kernels (always for
+MoE, whose B = 1 steps gather the chosen experts). Stochastic
 sampling, sessions and speculation are later slices.
 """
 
@@ -25,7 +26,7 @@ import torch
 
 from xalm_tpu_torch.io import XalmFile
 from xalm_tpu_torch.models.config import ModelConfig
-from xalm_tpu_torch.models.llama import IMPLS, forward
+from xalm_tpu_torch.models.llama import IMPLS, forward, gathered_ok
 from xalm_tpu_torch.models.params import ModelParams, load_params, recode_wcls_i8
 from xalm_tpu_torch.ops.fused_decode import fused_step_supported
 from xalm_tpu_torch.runtime.cache import KVCache
@@ -283,9 +284,17 @@ class Engine:
 
     @functools.cached_property
     def _per_token_weight_bytes(self) -> int:
+        """Weight bytes a decode step reads. MoE: the k/E share of the expert
+        stacks where B = 1 decode gathers the chosen experts (the per-layer
+        paths, a dtype the gather takes), all E otherwise, and the router."""
         cfg, p = self.cfg, self.params
         lw = p.layers
-        total = sum(w.nbytes() for w in (lw.wqkv, lw.wo, lw.w13, lw.w2))
+        total = sum(w.nbytes() for w in (lw.wqkv, lw.wo, lw.w13, lw.w2) if w is not None)
+        if lw.w13e is not None:
+            experts = lw.w13e.nbytes() + lw.w2e.nbytes()
+            if gathered_ok(lw.w13e, self.matmul_impl):
+                experts = experts * cfg.n_experts_active // max(cfg.n_experts, 1)
+            total += experts + 4 * lw.wgate.nelement()
         total += 4 * (lw.attn_norm.nelement() + lw.mlp_norm.nelement() + p.out_norm.nelement())
         total += p.embed.nbytes() // cfg.vocab_size  # one embedding row read
         total += p.wcls.nbytes()

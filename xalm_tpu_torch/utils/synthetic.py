@@ -2,11 +2,14 @@
 ``xalm_tpu/utils/synthetic.py``).
 
 Decode time does not depend on the weight values, so benchmarks and the
-chip smoke run random weights at Mistral-7B shapes. Everything is drawn
-directly on ``device`` from a seeded ``torch.Generator``, in the fused
-layouts at the fused shapes (random weights need no interleave pass):
-int8 bodies with per-row ``scale_mag/127`` scales, bf16 embed and head,
-f32 unit norms.
+chip smoke run random weights at Mistral-7B and Mixtral-8x7B shapes.
+Everything is drawn directly on ``device`` from a seeded
+``torch.Generator``, in the fused layouts at the fused shapes (random
+weights need no interleave pass): int8 bodies with per-row
+``scale_mag/127`` scales, bf16 embed and head, f32 unit norms; for MoE a
+``randn * 0.3`` f32 router and int8 expert stacks. int8 codes are drawn
+straight into an int8 tensor (Mixtral's (L, E, 2h, d) stack is 30.1 GB; a
+wider transient would not fit beside it).
 """
 
 from __future__ import annotations
@@ -29,9 +32,8 @@ def _qweight(gen, shape, dtype, device, scale_mag=0.02) -> QWeight:
 
 
 def synthetic_params(cfg: ModelConfig, device="cuda", seed: int = 42) -> ModelParams:
-    """Random dense ModelParams at cfg's shapes on ``device``."""
-    if cfg.n_experts:
-        raise NotImplementedError("MoE: later slice")
+    """Random ModelParams at cfg's shapes on ``device`` (dense, or MoE when
+    ``cfg.n_experts``)."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     L, d, h, q, kv, v = (
@@ -43,9 +45,15 @@ def synthetic_params(cfg: ModelConfig, device="cuda", seed: int = 42) -> ModelPa
         wqkv=_qweight(gen, (L, q + 2 * kv, d), torch.int8, device),
         wo=_qweight(gen, (L, d, q), torch.int8, device),
         mlp_norm=ones(L, d),
-        w13=_qweight(gen, (L, 2 * h, d), torch.int8, device),
-        w2=_qweight(gen, (L, d, h), torch.int8, device),
     )
+    if cfg.n_experts:
+        e = cfg.n_experts
+        layers.wgate = torch.randn((L, e, d), generator=gen, device=device).mul_(0.3)
+        layers.w13e = _qweight(gen, (L, e, 2 * h, d), torch.int8, device)
+        layers.w2e = _qweight(gen, (L, e, d, h), torch.int8, device)
+    else:
+        layers.w13 = _qweight(gen, (L, 2 * h, d), torch.int8, device)
+        layers.w2 = _qweight(gen, (L, d, h), torch.int8, device)
     embed = _qweight(gen, (v, d), torch.bfloat16, device, scale_mag=0.05)
     wcls = embed if cfg.tie_word_embeddings else _qweight(gen, (v, d), torch.bfloat16, device, 0.05)
     return ModelParams(embed=embed, layers=layers, out_norm=ones(d), wcls=wcls)
