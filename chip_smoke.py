@@ -16,19 +16,32 @@ first on Mistral-7B and then (phases 3-5 again) on Mixtral-8x7B:
    bf16-cache kernels, the int8-cache kernels (``phase_parity_int8``), the
    whole-step megakernel at full width and 32 layers in three bf16-cache
    and four int8-cache cases, and the cost of one of its grid barriers;
+   then the int8-activation branches on the body recoded to packed q4 on
+   the card (group 512): the q4 GEMV (wqkv, wo, w13, w2 at M = 1 and 4,
+   groups 512 and 128) and the W8A8 GEMM (w13 and w2 at M = 512 and 256,
+   i8 and q8), both bit-equal, and the megakernel's a8 and q4 bodies (B = 1
+   and 4, bf16 and int8 caches, the i8 head under a8) at 32 layers and
+   layer by layer, where most rows must agree to f32 rounding and the a8
+   body's control, the bf16 body, must fail that rule;
 4. main path: ``Engine.generate`` at full Mistral-7B width (32 layers,
    random i8 weights from a seed): a 512-token prompt and 64 greedy tokens,
    every kernel's launch counter set to 0 just before and read just after,
    with a bf16 and with an int8 cache, each on the default decode path (the
    megakernel) and with ``fused_step=False`` (the per-layer kernels), each
-   run with a profile of its decode steps;
+   run with a profile of its decode steps; then three more runs, bf16
+   cache: the q4 body on the megakernel and with ``fused_step=False`` (the
+   q4 GEMV), and the i8 body with ``a8_decode`` and ``a8_prefill`` (the
+   W8A8 GEMM on the prompt chunk, the megakernel's a8 body);
 5. wrap: the same widths at 2 layers and a 256-slot window, 600 decode
    steps through three ring wraps, the kernels against their plain
    versions on the card, on both decode paths (the megakernel with the i8
    head), with a bf16 and with an int8 cache: teacher-forced logits of
    random weights within 1e-2 of max |logits|, and identical free-running
    greedy tokens of a model whose next token attention decides (see
-   ``phase_wrap``);
+   ``phase_wrap``); the q4 body and the a8 runs (``a8_prefill`` and
+   ``a8_decode``) on both decode paths with a bf16 cache, each step held
+   to what the int8 activations change in it, and a control without them
+   that must fail that rule;
 6. Mixtral-8x7B (``MIXTRAL_8X7B``, 8 experts, 2 active, random i8 weights
    at 32 layers, 47 GB): phase 3 for ``qmatmul_multi`` (the gathered top-k
    expert matmul) against its plain version on the flat 256-expert stacks,
@@ -61,6 +74,7 @@ import time
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_BF16 = 989e12  # dense tensor-core FLOP/s
 PEAK_F32 = 67e12  # f32 outside the tensor cores
+PEAK_S8 = 1979e12  # dense tensor-core int8 OP/s
 SEED = 1234
 DEVICE = "cuda"  # where the phases run; main() goes on only when CUDA is there
 
@@ -314,6 +328,81 @@ def phase_parity(params, cfg, cases: Cases) -> None:
     phase_parity_int8(cfg, cases, gen, cexp, sexp)
 
 
+# why no library call stands beside the q4 GEMV
+NO_LIBRARY_Q4 = ("no one PyTorch call multiplies int8 activation codes by packed signed 4-bit "
+                 "weights with per-group scales (torch._weight_int4pack_mm takes bf16 "
+                 "activations, unsigned codes with zero points and its own tile layout)")
+
+
+def phase_parity_quant(params, q4p, cfg, cases: Cases) -> None:
+    """Kernel 1's int8-activation branches against their plain versions at
+    Mistral-7B shapes, bit-equal (tolerance 0): both sides quantise x by IEEE
+    division and round half to even, every dot is an exact integer (int32 in
+    the kernels, f64 in the plain versions), and the f32 scale products and
+    group sums are rounded one by one in the same order.
+
+    q4 GEMV: wqkv, wo, w13, w2 at M = 1 and 4, group 512 (the q4 body
+    ``q4p``) and 128 (each weight recoded on its own). W8A8 GEMM: w13 and w2
+    at M = 512 and 256, i8 and q8 (the same codes without the row scale, at
+    1/100), beside ``torch._int_mm`` and the two scale multiplies (the
+    library's time; it is not used by the port). Layers cycle so every
+    launch streams its weights cold."""
+    import torch
+
+    from xalm_tpu_torch.models.params import Q8_FIXED_SCALE, recode_qweight_q4
+    from xalm_tpu_torch.ops.attention import quant_rows
+    from xalm_tpu_torch.ops.qmatmul import qmatmul, qmatmul_plain
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 7)
+    randn = lambda *s: torch.randn(s, generator=gen, device=dev, dtype=torch.float32)  # noqa: E731
+    for group in (512, 128):
+        for name in ("wqkv", "wo", "w13", "w2"):
+            qw = getattr(q4p.layers, name)
+            if qw.q4group != group:
+                qw = recode_qweight_q4(getattr(params.layers, name), group)
+            d, nb = qw.values.shape[-2:]
+            n, ng = 2 * nb, qw.scale.shape[-1]
+            kw = dict(scale=qw.scale, q4_group=group)
+            for m in (1, 4):
+                x = randn(m, n) * 3
+                got = qmatmul(x, qw.values, 3 % cfg.n_layers, **kw)
+                want = qmatmul_plain(x, qw.values, 3 % cfg.n_layers, **kw)
+                layers = itertools.cycle(range(cfg.n_layers))
+                cases.add("qmatmul_q4", f"M={m} {name} q4 g{group}", got, want, d, 0.0,
+                          lambda: qmatmul(x, qw.values, next(layers), **kw),
+                          lambda: qmatmul_plain(x, qw.values, next(layers), **kw),
+                          None, d * nb + 4 * d * ng + 4 * m * (n + d), 2.0 * m * n * d, PEAK_S8,
+                          extra={"library_null": NO_LIBRARY_Q4})
+            del qw
+            torch.cuda.empty_cache()
+    for name in ("w13", "w2"):
+        qw = getattr(params.layers, name)
+        d, n = qw.values.shape[-2:]
+        for kind in ("i8", "q8"):
+            kw = dict(scale=qw.scale) if kind == "i8" else dict(q8_scale=Q8_FIXED_SCALE)
+            for m in (512, 256):
+                x = randn(m, n)
+                got = qmatmul(x, qw.values, 5 % cfg.n_layers, a8=True, **kw)
+                want = qmatmul_plain(x, qw.values, 5 % cfg.n_layers, a8=True, **kw)
+                xq, sx = quant_rows(x)
+                layers = itertools.cycle(range(cfg.n_layers))
+                lib_layers = itertools.cycle(range(cfg.n_layers))
+
+                def lib(kind=kind, xq=xq, sx=sx):
+                    i = next(lib_layers)
+                    y = torch._int_mm(xq, qw.values[i].t()).float()
+                    y = y * qw.scale[i] if kind == "i8" else y * Q8_FIXED_SCALE
+                    return y * sx[:, None]
+                cases.add("qmatmul_a8", f"M={m} {name} {kind}", got, want, d, 0.0,
+                          lambda: qmatmul(x, qw.values, next(layers), a8=True, **kw),
+                          lambda: qmatmul_plain(x, qw.values, next(layers), a8=True, **kw),
+                          lib, d * n + 4 * m * (n + d) + (4 * d if kind == "i8" else 0),
+                          2.0 * m * n * d, PEAK_S8)
+        del qw
+
+
 # why no library call stands beside the int8-cache kernels
 NO_LIBRARY_INT8 = "no one PyTorch call attends over (or writes) int8 codes with per-row scales"
 
@@ -407,10 +496,15 @@ FUSED_FLOOR_RATIO = 4.0
 FUSED_ULP_SHARE = 0.95
 
 
-def _row_rel(got, want, row: int) -> float:
+def _rows_rel(got, want, row: int) -> list[float]:
+    """Each row's max |got - want| over its max |want|."""
     got, want = got.float().reshape(-1, row), want.float().reshape(-1, row)
     err = (got - want).abs().amax(dim=1)
-    return float((err / want.abs().amax(dim=1).clamp_min(1e-30)).max())
+    return (err / want.abs().amax(dim=1).clamp_min(1e-30)).tolist()
+
+
+def _row_rel(got, want, row: int) -> float:
+    return max(_rows_rel(got, want, row))
 
 
 def _ulp_share(got, want) -> float:
@@ -446,6 +540,26 @@ def _model_dim_permuted(p, perm):
                                wcls=cols(p.wcls))
 
 
+def _layer_window(p, first: int, n: int):
+    """The model cut to its layers [first, first + n) (views of the stacked
+    weights)."""
+    from xalm_tpu_torch.models.params import QWeight
+
+    lp, sl = p.layers, slice(first, first + n)
+    cut = lambda w: QWeight(w.values[sl], w.scale[sl], w.q4group)  # noqa: E731
+    layers = dataclasses.replace(lp, attn_norm=lp.attn_norm[sl], mlp_norm=lp.mlp_norm[sl],
+                                 wqkv=cut(lp.wqkv), wo=cut(lp.wo), w13=cut(lp.w13), w2=cut(lp.w2))
+    return dataclasses.replace(p, layers=layers)
+
+
+# The int8-activation bodies layer by layer (see phase_fused_parity): a row
+# (of x, or of the logits) is exact when it is within EXACT_TOL of its max,
+# f32 rounding with every activation code as the plain version's. At least
+# EXACT_SHARE of a body's rows must be exact, and every row within FUSED_TOL.
+EXACT_TOL = 1e-5
+EXACT_SHARE = 0.75
+
+
 def _code_share(got, want) -> float:
     """Share of the codes of an int8 plane within one count of want."""
     return float(((got.int() - want.int()).abs() <= 1).float().mean())
@@ -455,7 +569,45 @@ def _dequant(codes, scales):
     return codes.float() * scales[..., None]
 
 
-def phase_fused_parity(params, cfg, cases: Cases) -> dict:
+def _exact_share(rels) -> float:
+    return sum(r <= EXACT_TOL for r in rels) / len(rels)
+
+
+def _layer_rule(body: str, layer_rows: dict) -> dict:
+    """The layer-by-layer rule of an int8-activation body over the rows of
+    all its cases (see phase_fused_parity), and the control's."""
+    def rule(rels):
+        return {"rows": len(rels), "exact_share": _exact_share(rels), "max_row_rel": max(rels),
+                "ok": _exact_share(rels) >= EXACT_SHARE and max(rels) <= FUSED_TOL}
+
+    row = {"phase": "megakernel_layers", "body": body, "exact_tol": EXACT_TOL,
+           "min_exact_share": EXACT_SHARE, "tol_row_rel": FUSED_TOL, **rule(layer_rows["kernel"])}
+    if layer_rows["control"]:
+        row["control"] = {"what": "the kernel's bf16-activation body against the a8 plain version",
+                          **rule(layer_rows["control"])}
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"megakernel {body} body, layer by layer: {row}")
+    if row.get("control", {}).get("ok"):
+        raise AssertionError(f"megakernel {body} body: the layer rule passes the control too: {row}")
+    return row
+
+
+def quant_body_cases(S: int) -> tuple:
+    """The a8 and q4 bodies' cases at window S: B = 1 and 4, bf16 and int8
+    caches, the i8 head: (int8 cache, case, positions, embed fold, head fold,
+    sentinel row)."""
+    return (
+        (False, "B=1 kv_len=520, embed fold", [519], True, False, None),
+        (False, "B=1 wrapped (sink rotation), embed + i8-head folds", [S + 700], True, True, None),
+        (False, "B=4, row 2 at the kv_pos == S sentinel", [519, 1200, 300, S + 5], False, False, 2),
+        (True, "int8 KV, B=1 kv_len=520, embed fold", [519], True, False, None),
+        (True, "int8 KV, B=4 kv_len 520/4000/wrapped, row 3 at the sentinel",
+         [519, 3999, S + 700, 300], False, False, 3),
+    )
+
+
+def phase_fused_parity(params, cfg, cases: Cases, body: str = "") -> dict | None:
     """The megakernel against its plain version at full width and 32 layers
     (random planes). bf16 cache, three cases: (a) B=1 at kv_len 520 with the
     embed fold; (b) B=1 at a wrapped position (sink rotation) with the embed
@@ -466,7 +618,33 @@ def phase_fused_parity(params, cfg, cases: Cases) -> dict:
     (sink rotation) and a sentinel row. The int8 cases hold the dequantised
     cache rows to FUSED_TOL and FUSED_ULP_SHARE of the codes to one count
     (the limits of the bf16 rows and values). Then the cost of one grid
-    barrier on the kernel's grid."""
+    barrier on the kernel's grid.
+
+    ``body`` "a8" or "q4" (``params`` then an i8 or a q4 body): the a8 or q4
+    body in the five ``quant_body_cases``, the i8 head under a8 too. Both
+    sides quantise the same f32 rows and every dot is an exact integer, so
+    until an activation lands one int8 code apart they agree to f32
+    rounding; then the random layers carry the difference on and grow it
+    (on an H100 at full width, B = 1 and 4: one code apart moves its row by
+    4e-3 to 1e-2, and at 32 layers the rows are 2e-2 to 0.18 apart). A
+    permuted model keeps the integer dots as they were (and a q4 model
+    cannot be permuted freely: two codes share a byte), so the 32-layer
+    floor here is the plain version against itself with its input rows
+    moved by 1e-6 of themselves, and x, the cache rows and the logits are
+    held to FUSED_FLOOR_RATIO times it (the cache rows and logits at least
+    to FUSED_TOL): that says no more than that the 32-layer output is the
+    plain version's up to the model's own sensitivity. The tight check is
+    layer by layer: each case runs again on each of the L layers alone and
+    on the first two together (the kernel's layer stride), same inputs,
+    and of all the rows of x (and of the logits) that a body's cases give
+    there at least EXACT_SHARE must be within EXACT_TOL of their max, every
+    one within FUSED_TOL. A body that quantised other rows than the
+    reference's in any phase (the bf16 copy, say) would land codes apart
+    in nearly every row. The a8 body's control shows the rule tells them
+    apart: the kernel's bf16-activation body (``a8=False``) on the same
+    windows, against the a8 plain version, must fail it. (q4 has no
+    bf16-activation body in either package; it quantises through the same
+    code as a8.)"""
     import torch
 
     from xalm_tpu_torch.models.llama import rope_constants, rope_tables
@@ -486,8 +664,13 @@ def phase_fused_parity(params, cfg, cases: Cases) -> dict:
     lp = params.layers
     w_elems = sum(w.values.numel() for w in (lp.wqkv, lp.wo, lp.w13, lp.w2))
     w_bytes = w_elems + 4 * sum(w.scale.numel() for w in (lp.wqkv, lp.wo, lp.w13, lp.w2)) + 8 * L * N
+    if body == "q4":
+        w_elems *= 2  # two codes a byte: the multiply-adds
+    kernel = "fused_decode" + (f"_{body}" if body else "")
+    body_kw = dict(a8=True) if body else {}
+    layer_rows = {"kernel": [], "control": []}  # the layer-by-layer rows of every case
 
-    for quant, case, pos_list, embed, head, sentinel in (
+    for quant, case, pos_list, embed, head, sentinel in quant_body_cases(S) if body else (
             (False, "B=1 kv_len=520, embed fold", [519], True, False, None),
             (False, "B=1 wrapped (sink rotation), embed + i8-head folds", [S + 700], True, True,
              None),
@@ -516,6 +699,7 @@ def phase_fused_parity(params, cfg, cases: Cases) -> dict:
             ks = vs = None
         tok = torch.randint(3, cfg.vocab_size, (b,), generator=gen, device=dev).cpu()
         kw = dict(wcls=p.wcls, out_norm=p.out_norm) if head else {}
+        kw.update(body_kw)
         if embed:
             kw.update(embed=p.embed, token=tok, pos=pos, freqs=freqs)
             x0 = ce = se = None
@@ -534,50 +718,95 @@ def phase_fused_parity(params, cfg, cases: Cases) -> dict:
         kw1, kw2 = scales(kw), scales(kw)
         got = fd.fused_decode_step(*args(k1, v1), **kw1)
         want = fd.fused_decode_step_plain(*args(k2, v2), **kw2)
-        # the floor: the plain version against itself on the permuted model
-        perm = torch.randperm(N, generator=gen, device=dev)
-        q = _model_dim_permuted(p, perm)
-        q_kw = dict(kw, **(dict(wcls=q.wcls, out_norm=q.out_norm) if head else {}),
-                    **(dict(embed=q.embed) if embed else {}))
-        k3, v3 = ck.clone(), cv.clone()
-        kw3 = scales(q_kw)
-        floor = list(fd.fused_decode_step_plain(
-            q, cfg, None if x0 is None else x0[:, perm], *args(k3, v3)[3:], **kw3))
-        floor[0] = floor[0][:, torch.argsort(perm)]
-        del q, q_kw
+        k3 = v3 = kw3 = floor = None
+        if not body:
+            # the floor: the plain version against itself on the permuted model
+            perm = torch.randperm(N, generator=gen, device=dev)
+            q = _model_dim_permuted(p, perm)
+            q_kw = dict(kw, **(dict(wcls=q.wcls, out_norm=q.out_norm) if head else {}),
+                        **(dict(embed=q.embed) if embed else {}))
+            k3, v3 = ck.clone(), cv.clone()
+            kw3 = scales(q_kw)
+            floor = list(fd.fused_decode_step_plain(
+                q, cfg, None if x0 is None else x0[:, perm], *args(k3, v3)[3:], **kw3))
+            floor[0] = floor[0][:, torch.argsort(perm)]
+            del q, q_kw
+        else:
+            # the floor of a quantised body: the plain version against itself
+            # with its input rows moved by 1e-6 of themselves
+            xin = x0 if x0 is not None else p.embed.values[tok.to(dev)].float()
+            ce_f, se_f = (ce, se) if x0 is not None else (
+                z[:, 0, 0].to(dev) for z in rope_tables(pos[:, None], freqs_h))
+            xin = xin * (1 + 1e-6 * torch.randn(xin.shape, generator=gen, device=dev))
+            k3, v3 = ck.clone(), cv.clone()
+            kw3 = scales({k: v for k, v in kw.items() if k not in ("embed", "token", "pos", "freqs")})
+            floor = list(fd.fused_decode_step_plain(p, cfg, xin, k3, v3, kv_pos, kv_len, rot, ce_f,
+                                                    se_f, c1, s1, **kw3))
         torch.cuda.synchronize()
-        x_rel, x_floor = _row_rel(got[0], want[0], N), _row_rel(floor[0], want[0], N)
+        x_rel = _row_rel(got[0], want[0], N)
+        x_floor = _row_rel(floor[0], want[0], N)
         extra = {"batch": b, "positions": pos_list, "kv_len": kv_len.tolist(),
                  "x_floor_row_rel": x_floor}
         if quant:  # the dequantised rows, and the codes within one count
             rows = {n: _dequant(c, sc) for n, c, sc in (
                 ("k1", k1, kw1["k_scale"]), ("v1", v1, kw1["v_scale"]),
-                ("k2", k2, kw2["k_scale"]), ("v2", v2, kw2["v_scale"]),
-                ("k3", k3, kw3["k_scale"]), ("v3", v3, kw3["v_scale"]))}
+                ("k2", k2, kw2["k_scale"]), ("v2", v2, kw2["v_scale"]))}
             extra.update({
                 "cache_k_row_rel": _row_rel(rows["k1"], rows["k2"], hd),
                 "cache_v_row_rel": _row_rel(rows["v1"], rows["v2"], hd),
-                "cache_k_floor_row_rel": _row_rel(rows["k3"], rows["k2"], hd),
-                "cache_v_floor_row_rel": _row_rel(rows["v3"], rows["v2"], hd),
                 "cache_ulp_share": min(_code_share(k1, k2), _code_share(v1, v2)),
                 "code_equal_share": min(float((k1 == k2).float().mean()),
-                                        float((v1 == v2).float().mean())),
-                "code_floor_share": min(_code_share(k3, k2), _code_share(v3, v2))})
-            del rows
+                                        float((v1 == v2).float().mean()))})
+            k3d, v3d = _dequant(k3, kw3["k_scale"]), _dequant(v3, kw3["v_scale"])
+            extra.update({"cache_k_floor_row_rel": _row_rel(k3d, rows["k2"], hd),
+                          "cache_v_floor_row_rel": _row_rel(v3d, rows["v2"], hd),
+                          "code_floor_share": min(_code_share(k3, k2), _code_share(v3, v2))})
+            del rows, k3d, v3d
         else:
             extra.update({
                 "cache_k_row_rel": _row_rel(k1, k2, hd), "cache_v_row_rel": _row_rel(v1, v2, hd),
+                "cache_ulp_share": min(_ulp_share(k1, k2), _ulp_share(v1, v2)),
                 "cache_k_floor_row_rel": _row_rel(k3, k2, hd),
-                "cache_v_floor_row_rel": _row_rel(v3, v2, hd),
-                "cache_ulp_share": min(_ulp_share(k1, k2), _ulp_share(v1, v2))})
+                "cache_v_floor_row_rel": _row_rel(v3, v2, hd)})
+        if body:  # layer by layer: the kernel, its plain version, the control
+            wins = [(first, 1) for first in range(L)] + [(0, 2)]
+            runs = [("kernel", fd.fused_decode_step, kw), ("plain", fd.fused_decode_step_plain, kw)]
+            if body == "a8":
+                runs.append(("control", fd.fused_decode_step, dict(kw, a8=False)))
+            case_rows = {"kernel": [], "control": []}
+            for first, n in wins:
+                pw, cfgw, sl = _layer_window(p, first, n), dataclasses.replace(cfg, n_layers=n), \
+                    slice(first, first + n)
+                out = {}
+                for name, fn, kwr in runs:
+                    if quant:
+                        kwr = dict(kwr, k_scale=ks[sl].clone(), v_scale=vs[sl].clone())
+                    out[name] = fn(pw, cfgw, x0, ck[sl].clone(), cv[sl].clone(), kv_pos, kv_len,
+                                   rot, ce, se, c1, s1, **kwr)
+                for name in case_rows:
+                    if name in out:
+                        case_rows[name] += _rows_rel(out[name][0], out["plain"][0], N)
+                        if head:
+                            case_rows[name] += _rows_rel(out[name][1], out["plain"][1],
+                                                         p.wcls.values.shape[0])
+                del pw, out
+            for name, r in case_rows.items():
+                layer_rows[name] += r
+            extra["layers_rows"] = len(case_rows["kernel"])
+            extra["layers_exact_share"] = _exact_share(case_rows["kernel"])
+            extra["layers_max_row_rel"] = max(case_rows["kernel"])
         if sentinel is not None:  # the dropped row: every attended slot as it was
             extra["sentinel_row_unchanged"] = bool(
                 torch.equal(k1[:, sentinel, :, :S], ck[:, sentinel, :, :S])
                 and torch.equal(v1[:, sentinel, :, :S], cv[:, sentinel, :, :S])
                 and (not quant or torch.equal(kw1["k_scale"][:, sentinel, :, :S],
                                               ks[:, sentinel, :, :S])))
+        # a quantised body's cache rows and logits: their own floors too
+        lim = lambda floor_rel: max(FUSED_TOL, FUSED_FLOOR_RATIO * floor_rel) if body \
+            else FUSED_TOL  # noqa: E731
         ok = (x_rel <= max(FUSED_FLOOR_RATIO * x_floor, 1e-3)  # 1e-3: a floor of no flip at all
-              and extra["cache_k_row_rel"] <= FUSED_TOL and extra["cache_v_row_rel"] <= FUSED_TOL
+              and extra["cache_k_row_rel"] <= lim(extra["cache_k_floor_row_rel"])
+              and extra["cache_v_row_rel"] <= lim(extra["cache_v_floor_row_rel"])
               and extra["cache_ulp_share"] >= FUSED_ULP_SHARE and extra.get("sentinel_row_unchanged", True))
         row_bytes = hd + 4 if quant else 2 * hd  # int8 codes + scale, or bf16
         nbytes = w_bytes + b * N * (2 if embed else 4) + b * N * 4
@@ -594,14 +823,18 @@ def phase_fused_parity(params, cfg, cases: Cases) -> dict:
             clear = (top2[:, 0] - top2[:, 1]) > 2 * FUSED_TOL * want[1].abs().amax(dim=-1)
             extra["token_equal"] = bool(torch.equal(got[2][clear], want[2][clear]))
             extra["token_is_argmax"] = bool(torch.equal(got[2], got[1].argmax(dim=-1).to(torch.int32)))
-            ok = ok and extra["logits_row_rel"] <= FUSED_TOL and extra["token_equal"] \
-                and extra["token_is_argmax"]
-        cases.add("fused_decode", case, got[0], want[0], N, FUSED_TOL,
+            ok = ok and extra["logits_row_rel"] <= lim(extra["logits_floor_row_rel"]) \
+                and extra["token_equal"] and extra["token_is_argmax"]
+        cases.add(kernel, (f"{body} " if body else "") + case, got[0], want[0], N,
+                  max(FUSED_FLOOR_RATIO * x_floor, 1e-3) if body else FUSED_TOL,
                   lambda a=args(ck, cv), kw=scales(kw): fd.fused_decode_step(*a, **kw),
                   lambda a=args(ck, cv), kw=scales(kw): fd.fused_decode_step_plain(*a, **kw),
                   None, nbytes, flops, PEAK_BF16, extra=extra, extra_ok=ok)
         del ck, cv, ks, vs, k1, v1, k2, v2, k3, v3, kw1, kw2, kw3, got, want, floor
         torch.cuda.empty_cache()
+    if body:
+        _layer_rule(body, layer_rows)
+        return None
 
     lib = build.load_library("fused_decode")
     bar = torch.zeros((256,), dtype=torch.uint8, device=dev)
@@ -717,10 +950,58 @@ def phase_main(params, cfg) -> dict:
     return {"launches": launches}
 
 
+def phase_main_quant(params, q4p, cfg) -> dict:
+    """The main path three more times, bf16 cache: the q4 body (group 512,
+    recoded on the card from the i8 body, ``a8_decode``) on the megakernel
+    (one fused_decode_q4 launch per decode token) and with
+    ``fused_step=False`` (per token 4L qmatmul_q4 launches, the bf16 head on
+    qmatmul, and the per-layer attention); the i8 body with ``a8_decode``
+    and ``a8_prefill`` (one fused_decode_a8 launch per decode token, and 4L
+    qmatmul_a8 launches per 512-token prefill chunk). A q4 prefill chunk of
+    512 rows dequantizes each layer and runs one product, as the reference
+    does. Returns the launches of the runs, summed."""
+    import numpy as np
+    import torch
+
+    from xalm_tpu_torch.ops import build
+    from xalm_tpu_torch.runtime.engine import Engine
+
+    prompt = np.random.default_rng(SEED).integers(3, cfg.vocab_size, size=512).tolist()
+    L = cfg.n_layers
+    launches = dict.fromkeys(build.LAUNCHES, 0)
+    for label, p, kw, path, per_token, per_chunk, counter in (
+            ("q4 megakernel", q4p, dict(a8_decode=True), "megakernel",
+             {"fused_decode_q4": 1, "qmatmul": 1, "fused_decode": 0}, {}, ("fused_decode_q4", 63)),
+            ("q4 perlayer", q4p, dict(a8_decode=True, fused_step=False), "perlayer",
+             {"qmatmul_q4": 4 * L, "qmatmul": 1, "kv_update": L, "flash_decode": L,
+              "fused_decode_q4": 0}, {}, ("qmatmul_q4", 63 * 4 * L)),
+            ("a8 megakernel", params, dict(a8_decode=True, a8_prefill=True), "megakernel",
+             {"fused_decode_a8": 1, "qmatmul": 1, "fused_decode": 0}, {"qmatmul_a8": 4 * L},
+             ("fused_decode_a8", 63))):
+        eng = Engine(cfg, p, kv_dtype=torch.bfloat16, **kw)
+        if eng.decode_path(1) != path:
+            raise AssertionError(f"{label}: decode path {eng.decode_path(1)!r}, expected {path!r}")
+        row = _main_run(eng, cfg, prompt, label)
+        got_t, got_c = row["launches_per_decode_token"], row["launches_per_512_chunk"]
+        if (any(got_t[k] != n for k, n in per_token.items())
+                or any(got_c[k] != n for k, n in per_chunk.items())
+                or row["launches"][counter[0]] != counter[1]):
+            raise AssertionError(f"{label} run: {row['launches']}, per token {got_t}, per chunk "
+                                 f"{got_c}: expected per token {per_token}, per chunk {per_chunk}, "
+                                 f"{counter}")
+        launches = {k: launches[k] + row["launches"][k] for k in launches}
+        del eng
+        torch.cuda.empty_cache()
+    return {"launches": launches}
+
+
 # kernel-name fragments of the port's CUDA kernels, by wrapper (the chunk
 # combine kernel, shared by both flash-decodes, goes to the one the run uses)
 _PROFILE_GROUPS = {
     "qmatmul": ("gemv_kernel", "gemm_kernel", "prep_x_kernel"),
+    "qmatmul_q4": ("gemv_q4_kernel",),
+    "qmatmul_a8": ("gemm_a8_kernel",),
+    "quant_x": ("quant_x_kernel",),  # x's codes for qmatmul_q4 and qmatmul_a8
     "qmatmul_multi": ("qmatmul_multi_kernel",),
     "kv_update": ("kv_update_kernel",),
     "flash_decode": ("flash_decode_split_kernel", "flash_decode_combine_kernel"),
@@ -793,28 +1074,106 @@ def phase_profile(eng, prompt, token, label: str) -> dict:
 WRAP_TOL = 1e-2  # teacher-forced |logits kernel - plain| / max |logits plain|
 
 
-def _teacher_forced(ek, ep, prompt, steps: int) -> dict:
+# the int8-activation bodies' step rules (see phase_wrap), over a run's
+# decode steps that the int8 activations change (by more than EXACT_TOL):
+# from the plain run's cache, at least QUANT_STEP_SHARE within their own
+# quant effect and NEAR_STEP_SHARE within a quarter of it (or EXACT_TOL);
+# on the kernel's own cache, OWN_STEP_SHARE within their own quant effect,
+# and every cache row but the sinks' within OWN_CACHE_TOL of its max
+QUANT_STEP_SHARE = 0.98
+NEAR_STEP_SHARE = 0.5
+OWN_STEP_SHARE = 0.75
+OWN_CACHE_TOL = 0.1
+
+
+def _step_rule(counts: dict, n: int, resync: bool) -> bool:
+    if resync:
+        return (counts["steps_within_quant"] >= QUANT_STEP_SHARE * n
+                and counts["steps_near"] >= NEAR_STEP_SHARE * n)
+    return counts["steps_within_quant"] >= OWN_STEP_SHARE * n
+
+
+def _teacher_forced(ek, ep, prompt, steps: int, ep0=None, ec=None, resync: bool = False) -> dict:
     """Prefill, then ``steps`` decode steps of the kernel engine ``ek`` and
     the plain engine ``ep``, both fed the kernel engine's greedy token:
     the largest logit difference of any step over that step's max
     |logits|, and the steps whose argmax differs (reported; they are
     bounded by the logit limit, which allows a flip only where the top-2
-    margin is under twice the limit)."""
+    margin is under twice the limit).
+
+    ``ep0`` and ``ec`` (the int8-activation bodies, see ``phase_wrap``):
+    the plain engine of the same weights without int8 activations, and the
+    control, the kernel engine without them. Each of their steps starts
+    from ``ep``'s cache, and so does each of ``ek``'s with ``resync``
+    (else ``ek`` keeps its own, and its cache rows are compared with
+    ``ep``'s after every step). Each step's logit difference of ``ep0``
+    from ``ep`` (what the int8 activations change in that step, its quant
+    effect) is recorded beside the kernel's and the control's. Over the
+    decode steps with a quant effect above EXACT_TOL (``quant_steps``), for
+    each of the two: the steps within their quant effect or EXACT_TOL
+    (``steps_within_quant``), within a quarter of it or EXACT_TOL
+    (``steps_near``), within EXACT_TOL, and whether that passes
+    ``_step_rule``; the largest difference of the other decode steps
+    (``max_rel_logit_err_unquantised``) and of the prefill."""
     import numpy as np
+    import torch
+
+    def rel(a, ref):
+        return float((a - ref).abs().max()) / float(ref.abs().max())
 
     lk, ck, pos = ek.prefill(prompt, ek.new_cache(1))
     lp, cp, _ = ep.prefill(prompt, ep.new_cache(1))
-    worst, flips = 0.0, 0
+    quant = ep0 is not None
+    if quant:
+        l0, c0, _ = ep0.prefill(prompt, ep0.new_cache(1))
+        lc, cc, _ = ec.prefill(prompt, ec.new_cache(1))
+    worst, flips, over = 0.0, 0, 0
+    errs, errs0, errsc = [], [], []
+    cache_worst = torch.zeros((2,), device=cp.k.device)
     for i in range(steps + 1):
-        worst = max(worst, float((lk - lp).abs().max()) / float(lp.abs().max()))
+        errs.append(rel(lk, lp))
+        worst = max(worst, errs[-1])
+        over += errs[-1] > WRAP_TOL
+        if quant:
+            errs0.append(rel(l0, lp))
+            errsc.append(rel(lc, lp))
         tk = int(lk.argmax())
         flips += tk != int(lp.argmax())
         if i == steps:
             break
-        lk, ck = ek.decode(np.array([tk]), np.array([pos], np.int32), ck)
-        lp, cp = ep.decode(np.array([tk]), np.array([pos], np.int32), cp)
+        step = (np.array([tk]), np.array([pos], np.int32))
+        if quant:
+            for name in ("k", "v", "k_scale", "v_scale"):
+                for c in (ck, c0, cc) if resync else (c0, cc):
+                    if getattr(c, name) is not None:
+                        getattr(c, name).copy_(getattr(cp, name))
+            l0, c0 = ep0.decode(*step, c0)
+            lc, cc = ec.decode(*step, cc)
+        lk, ck = ek.decode(*step, ck)
+        lp, cp = ep.decode(*step, cp)
+        if quant and not resync:
+            cache_worst = torch.maximum(cache_worst, _cache_row_err(ck, cp))
         pos += 1
-    return {"steps": steps, "final_pos": pos, "max_rel_logit_err": worst, "argmax_flips": flips}
+    out = {"steps": steps, "final_pos": pos, "max_rel_logit_err": worst, "argmax_flips": flips,
+           "steps_over_tol": over}
+    if quant:
+        qs = [i for i in range(1, steps + 1) if errs0[i] > EXACT_TOL]
+
+        def within(es):
+            c = {"steps_within_quant": sum(es[i] <= max(EXACT_TOL, errs0[i]) for i in qs),
+                 "steps_near": sum(es[i] <= max(EXACT_TOL, errs0[i] / 4) for i in qs),
+                 "steps_exact": sum(es[i] <= EXACT_TOL for i in qs)}
+            return dict(c, step_rule_ok=bool(qs) and _step_rule(c, len(qs), resync))
+
+        out.update(resync=resync, quant_steps=len(qs), max_rel_logit_quant_effect=max(errs0),
+                   prefill_rel_logit_err=errs[0], prefill_quant_effect=errs0[0],
+                   max_rel_logit_err_unquantised=max(
+                       [errs[i] for i in range(1, steps + 1) if errs0[i] <= EXACT_TOL], default=0.0),
+                   **within(errs), control={"max_rel_logit_err": max(errsc), **within(errsc)})
+        if not resync:
+            out["max_rel_cache_row_err"], out["max_rel_sink_row_err"] = (
+                float(cache_worst[1]), float(cache_worst[0]))
+    return out
 
 
 def _ring_wraps(final_pos: int, window: int) -> int:
@@ -922,6 +1281,17 @@ def copy_params(cfg, seed: int):
     return params, perm_inv.tolist()
 
 
+# phase_wrap's runs: (body, cache, engine options, each kernel step from the
+# plain run's cache): the i8 body on both caches; the q4 body (group 512)
+# and the i8 body with int8 activations (a8_prefill: the 200-token prompt
+# is one 256-row W8A8 chunk) on the bf16 cache, the latter also on the
+# kernel's own cache
+WRAP_BODIES = [("i8", "bfloat16", {}, False), ("i8", "int8", {}, False),
+               ("q4", "bfloat16", dict(a8_decode=True), True),
+               ("a8", "bfloat16", dict(a8_decode=True, a8_prefill=True), True),
+               ("a8", "bfloat16", dict(a8_decode=True, a8_prefill=True), False)]
+
+
 def phase_wrap(cfg) -> list[dict]:
     """The kernels against their plain versions through three ring wraps,
     at the main path's widths with 2 layers and a 256-slot window (a
@@ -938,10 +1308,43 @@ def phase_wrap(cfg) -> list[dict]:
         only if each step's attention finds the previous token's row in
         the ring. Its head rows are +-1, so the i8 recode is exact; with an
         int8 cache its V rows (+-1) quantise exactly and its K rows to 1/254
-        of their max, which moves a 200-nat score peak by about a nat."""
+        of their max, which moves a 200-nat score peak by about a nat.
+
+    The q4 body and the a8 runs quantise every phase's input rows to int8
+    codes. An activation one code apart moves its row by up to 1/127 of the
+    row's max, and the kernels and plain versions sum attention and the rms
+    in other orders, so now and then a code lands one count apart and a
+    step's logits move past WRAP_TOL (on an H100, q4 per-layer path: 4.3e-2
+    of max |logits| at worst, 39 of 601 steps past WRAP_TOL even with every
+    kernel step started from the plain run's cache). Their (a) runs beside
+    the kernel engine the plain engine of the same weights without int8
+    activations and the control, the kernel engine without them (for q4,
+    which has no such kernel, the dequantised route), both from the plain
+    run's cache at every step (``_teacher_forced``). A step's quant effect
+    is how far the int8 activations move that step's plain logits; the
+    decode steps where it is above EXACT_TOL are the run's quant steps (none
+    on the a8 per-layer path: the reference quantises i8 decode rows only
+    in the megakernel, so there only the prompt chunk takes the W8A8 GEMM).
+    The step rule (``_step_rule``) over the quant steps, with every kernel
+    step from the plain run's cache: QUANT_STEP_SHARE of them within their
+    own quant effect and NEAR_STEP_SHARE within a quarter of it (a code or
+    two apart move a step far less than all of them rounded); on the
+    kernel's own cache (the a8 runs again, as the i8 runs are held),
+    OWN_STEP_SHARE within their own quant effect, and every cache row but
+    the sinks' within OWN_CACHE_TOL of its max after every step. From the
+    plain run's cache the control, which sits at the quant effect itself,
+    must fail the rule, or the run cannot tell the bodies apart. On its
+    own cache the kernel's steps move by about the quant effect too (rows
+    written with a code apart stay in the ring; on an H100 none of the 601
+    steps within a quarter of it), so that run holds the kernel's ring
+    inserts, and the codes are held from the plain run's cache. Every step
+    within WRAP_TOL or the run's largest quant effect, and the other
+    decode steps within WRAP_TOL. (b) runs each side on its own cache, as for the i8 body.
+    """
     import numpy as np
     import torch
 
+    from xalm_tpu_torch.models.params import recode_params_q4
     from xalm_tpu_torch.runtime.engine import Engine
     from xalm_tpu_torch.utils.synthetic import synthetic_params
 
@@ -950,21 +1353,31 @@ def phase_wrap(cfg) -> list[dict]:
     prompt = np.random.default_rng(SEED + 1).integers(3, cfg.vocab_size, size=200).tolist()
     rows = []
     paths = (("perlayer", dict(fused_step=False)), ("megakernel", dict(wcls_i8=True)))
-    for kv, (path, kw) in itertools.product((torch.bfloat16, torch.int8), paths):
-        def engines(params, kw=kw, kv=kv):
+    for (body, kv_name, bkw, resync), (path, kw) in itertools.product(WRAP_BODIES, paths):
+        kv = getattr(torch, kv_name)
+
+        def engines(params, kw=dict(kw, **bkw), kv=kv):
             return (Engine(cfg2, params, kv_dtype=kv, matmul_impl="kernel", **kw),
                     Engine(cfg2, params, kv_dtype=kv, matmul_impl="plain", **kw))
 
-        params = synthetic_params(cfg2, device=DEVICE, seed=SEED + 1)
+        q4 = 512 if body == "q4" else 0
+        params = synthetic_params(cfg2, device=DEVICE, seed=SEED + 1, q4_group=q4)
         ek, ep = engines(params)
         if ek.decode_path(1) != path:
             raise AssertionError(f"wrap phase: decode path {ek.decode_path(1)!r}, expected {path!r}")
-        forced = _teacher_forced(ek, ep, prompt, steps)
-        del params, ek, ep
+        ep0 = ec = None
+        if body != "i8":  # the same weights without int8 activations: plain, and the control
+            ep0 = Engine(cfg2, params, kv_dtype=kv, matmul_impl="plain", **kw)
+            ec = Engine(cfg2, params, kv_dtype=kv, matmul_impl="kernel", **kw)
+        forced = _teacher_forced(ek, ep, prompt, steps, ep0, ec, resync)
+        del params, ek, ep, ep0, ec
 
         params, perm_inv = copy_params(cfg2, SEED + 2)
+        if q4:  # one nonzero per row: its group's absmax, code 7
+            params = recode_params_q4(params, q4)
         copy = _copy_free_running(*engines(params), prompt, steps, perm_inv)
-        row = {"phase": "wrap", "decode_path": path, "kv_dtype": str(kv).split(".")[-1],
+        row = {"phase": "wrap", "body": body, "decode_path": path,
+               "kv_dtype": str(kv).split(".")[-1],
                "layers": 2, "window": 256,
                "prompt_tokens": len(prompt), "ring_wraps": _ring_wraps(copy["final_pos"], 256),
                "tol_rel": WRAP_TOL, "random_teacher_forced": forced, "copy_free_running": copy,
@@ -972,10 +1385,21 @@ def phase_wrap(cfg) -> list[dict]:
         emit(row)
         if row["ring_wraps"] < 3:
             raise AssertionError(f"wrap phase: {row['ring_wraps']} ring wraps, expected 3")
-        if forced["max_rel_logit_err"] > WRAP_TOL:
-            raise AssertionError(f"wrap phase ({path}, {kv}, teacher-forced): {forced}")
+        if body == "i8":
+            forced_ok = forced["max_rel_logit_err"] <= WRAP_TOL
+        else:
+            forced_ok = (forced["max_rel_logit_err"] <= max(WRAP_TOL,
+                                                            forced["max_rel_logit_quant_effect"])
+                         and forced["max_rel_logit_err_unquantised"] <= WRAP_TOL
+                         and forced.get("max_rel_cache_row_err", 0.0) <= OWN_CACHE_TOL
+                         and (forced["step_rule_ok"] or not forced["quant_steps"]))
+            if forced["resync"] and forced["control"]["step_rule_ok"]:
+                raise AssertionError(f"wrap phase ({body}, {path}): the step rule passes the "
+                                     f"control too: {forced}")
+        if not forced_ok:
+            raise AssertionError(f"wrap phase ({body}, {path}, {kv}, teacher-forced): {forced}")
         if not row["tokens_identical"]:
-            raise AssertionError(f"wrap phase ({path}, {kv}, copy model): greedy tokens differ: "
+            raise AssertionError(f"wrap phase ({body}, {path}, {kv}, copy model): greedy tokens differ: "
                                  f"{copy}")
         rows.append(row)
         del params
@@ -1383,6 +1807,16 @@ SUMMARY = {
                        "xalm_tpu/ops/pallas_attention.py:205", "B=1 kv_len=777"),
     "qmatmul_multi": ("cuda", "xalm_tpu_torch/csrc/qmatmul.cu",
                       "xalm_tpu/ops/pallas_matmul.py:323", MULTI_W13_CASE),
+    # the same TPU kernel's packed-q4 and W8A8 branches
+    "qmatmul_q4": ("cuda", "xalm_tpu_torch/csrc/qmatmul.cu", "xalm_tpu/ops/pallas_matmul.py:116",
+                   "M=1 w13 q4 g512"),
+    "qmatmul_a8": ("cuda", "xalm_tpu_torch/csrc/qmatmul.cu", "xalm_tpu/ops/pallas_matmul.py:161",
+                   "M=512 w13 i8"),
+    # the megakernel's a8 body (_a8dot) and q4 body (_q4dot)
+    "fused_decode_a8": ("cuda", "xalm_tpu_torch/csrc/fused_decode.cu",
+                        "xalm_tpu/ops/fused_decode.py:377", "a8 B=1 kv_len=520, embed fold"),
+    "fused_decode_q4": ("cuda", "xalm_tpu_torch/csrc/fused_decode.cu",
+                        "xalm_tpu/ops/fused_decode.py:391", "q4 B=1 kv_len=520, embed fold"),
 }
 # further rows of the kernels line: another TPU kernel a launch replaces,
 # and the megakernel's int8-KV branch (the fused_decode launches count both)
@@ -1411,6 +1845,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from xalm_tpu_torch.models.config import MISTRAL_7B, MIXTRAL_8X7B
+    from xalm_tpu_torch.models.params import recode_params_q4
     from xalm_tpu_torch.utils.synthetic import synthetic_params
 
     t_start = time.perf_counter()
@@ -1423,11 +1858,22 @@ def main() -> int:
     emit({"phase": "weights", "seconds": time.perf_counter() - t0,
           "gb": params.nbytes() / 1e9})
     cases = Cases()
+    t0 = time.perf_counter()
+    q4p = recode_params_q4(params, 512)  # the q4 body, packed on the card
+    torch.cuda.synchronize()
+    emit({"phase": "weights", "model": "Mistral-7B q4 g512", "recode_seconds":
+          time.perf_counter() - t0, "gb": q4p.nbytes() / 1e9})
     with torch.inference_mode():
         phase_parity(params, cfg, cases)
         phase_fused_parity(params, cfg, cases)
+        phase_parity_quant(params, q4p, cfg, cases)
+        phase_fused_parity(params, cfg, cases, "a8")
+        phase_fused_parity(q4p, cfg, cases, "q4")
     main_row = phase_main(params, cfg)
-    del params
+    quant_row = phase_main_quant(params, q4p, cfg)
+    main_row["launches"] = {k: main_row["launches"][k] + quant_row["launches"][k]
+                            for k in main_row["launches"]}
+    del params, q4p
     torch.cuda.empty_cache()
     with torch.inference_mode():
         phase_wrap(cfg)
@@ -1464,6 +1910,8 @@ def main() -> int:
         }
         if kname in ALSO_REPLACES:
             entry["also_replaces"] = ALSO_REPLACES[kname]
+        if r["library_ms"] is None and "library_null" in r:
+            entry["library_null"] = r["library_null"]
         if kname in ALSO_CASE:
             q = next(x for x in rows if x["case"] == ALSO_CASE[kname])
             entry["also_case"] = {"case": q["case"], "ms": q["kernel_ms"], "plain_ms": q["plain_ms"],

@@ -32,6 +32,16 @@ v_scale is rounded to bf16 at the same chunk max, but a score that moves by
 an f32 ulp can flip one such rounding, by 2^-8 of a term that holds a few
 hundredths of its row's weight at most here); the megakernel's int8 branch
 within 2e-2 as above, and 95 % of the codes within one count.
+
+The int8-activation branches: qmatmul's q4 GEMV and W8A8 GEMM bit-equal to
+their plain versions (both quantise x by IEEE division and round half to
+even, every dot is an exact integer, and the f32 scale products and group
+sums are rounded one by one in the same order). The megakernel's a8 and q4
+bodies, each step started from the plain version's caches (a free run
+drifts: an ulp in an attn row can move its int8 code by one count, 1/127 of
+the row's max), within 5e-2 of each step's max and within 1e-5 on 90 % of
+the steps (the rms and attention sums run in another order, so a rare
+code lands one count apart).
 """
 
 import dataclasses
@@ -50,6 +60,8 @@ from xalm_tpu_torch.ops.qmatmul import (
     qmatmul_multi_plain,
     qmatmul_plain,
 )
+
+import tests.torch_threads  # noqa: F401  (one intra-op thread per process)
 
 pytestmark = pytest.mark.cuda
 
@@ -622,3 +634,145 @@ def test_harness_on_the_card(dev, tmp_path, capsys):
     assert harness.main([path, "-d", "cuda", "-t", "i8", "-m", "passkey", "-n", "20",
                          "--seed", "1"]) in (0, 1)
     assert "retrieval:" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("group", [128, 256])
+@pytest.mark.parametrize("m", [1, 3, 8, 13, 100])
+def test_qmatmul_q4_bit_equal_to_plain(dev, group, m):
+    from xalm_tpu_torch.models.params import QWeight, recode_qweight_q4
+
+    g = torch.Generator(device=dev).manual_seed(m + group)
+    l, d, n = 3, 1000, 1536
+    w = torch.randint(-128, 128, (l, d, n), dtype=torch.int8, device=dev, generator=g)
+    qw = recode_qweight_q4(QWeight(w, torch.rand((l, d), device=dev, generator=g) * 0.01), group)
+    x = torch.randn((m, n), device=dev, generator=g) * 3
+    build.reset_launches()
+    got = qmatmul(x, qw.values, 2, scale=qw.scale, q4_group=group)
+    assert build.LAUNCHES["qmatmul_q4"] == 1
+    assert torch.equal(got, qmatmul_plain(x, qw.values, 2, scale=qw.scale, q4_group=group))
+
+
+@pytest.mark.parametrize("kind", ["i8", "q8"])
+@pytest.mark.parametrize("m", [1, 100, 256, 512])
+def test_qmatmul_a8_bit_equal_to_plain(dev, kind, m):
+    g = torch.Generator(device=dev).manual_seed(m)
+    l, d, n = 2, 1000, 1536
+    w = torch.randint(-128, 128, (l, d, n), dtype=torch.int8, device=dev, generator=g)
+    kw = dict(scale=torch.rand((l, d), device=dev, generator=g) * 0.01) if kind == "i8" else \
+        dict(q8_scale=0.01)
+    x = torch.randn((m, n), device=dev, generator=g)
+    build.reset_launches()
+    got = qmatmul(x, w, 1, a8=True, **kw)
+    assert build.LAUNCHES["qmatmul_a8"] == 1
+    assert torch.equal(got, qmatmul_plain(x, w, 1, a8=True, **kw))
+
+
+def test_qmatmul_quantised_branches_refuse_what_they_do_not_take(dev):
+    from xalm_tpu_torch.models.params import QWeight, recode_qweight_q4
+
+    w = torch.zeros((1, 64, 512), dtype=torch.int8, device=dev)
+    qw = recode_qweight_q4(QWeight(w, torch.ones((1, 64), device=dev)), 128)
+    with pytest.raises(ValueError, match="decode shapes"):
+        qmatmul(torch.ones((256, 512), device=dev), qw.values, 0, scale=qw.scale, q4_group=128)
+    with pytest.raises(ValueError, match="group scales"):
+        qmatmul(torch.ones((1, 512), device=dev), qw.values, 0, scale=None, q4_group=128)
+    with pytest.raises(ValueError):  # N not a multiple of the W8A8 tile depth
+        qmatmul(torch.ones((4, 80), device=dev), torch.zeros((1, 8, 80), dtype=torch.int8,
+                                                             device=dev), 0, a8=True)
+
+
+@pytest.mark.parametrize("cache", ["bf16", "int8"])
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("body", ["a8", "q4"])
+def test_fused_decode_a8_q4_match_plain(dev, body, b, cache):
+    """The megakernel's a8 and q4 bodies (q4 at group 128) against the plain
+    version through a ring wrap, B = 1 with the embed and i8-head folds, B = 3
+    with row 1 at the sentinel; each step from the plain version's caches."""
+    from xalm_tpu_torch.models.llama import rope_constants, rope_tables
+    from xalm_tpu_torch.models.params import recode_wcls_i8
+    from xalm_tpu_torch.ops import fused_decode as fd
+    from xalm_tpu_torch.runtime.cache import KVCache, ring_indices
+    from xalm_tpu_torch.utils.synthetic import synthetic_params
+
+    from xalm_tpu_torch.models.params import recode_params_q4
+
+    cfg = dataclasses.replace(MISTRAL_7B, **FUSED_CFG)
+    params = synthetic_params(cfg, device=dev, seed=20 + b)
+    g = torch.Generator(device=dev).manual_seed(b)
+    for qw in (params.layers.wqkv, params.layers.wo, params.layers.w13, params.layers.w2):
+        qw.scale.mul_(0.5 + torch.rand(qw.scale.shape, generator=g, device=dev))  # rows apart
+    if body == "q4":
+        params = recode_params_q4(params, 128)
+    folds = b == 1
+    if folds:
+        params = recode_wcls_i8(params)
+    s = cfg.max_seq_len
+    freqs, c1, s1 = rope_constants(cfg, dev)
+    dt = torch.int8 if cache == "int8" else torch.bfloat16
+    kern, plain = KVCache.init(cfg, b, dt, dev), KVCache.init(cfg, b, dt, dev)
+    planes = ("k", "v", "k_scale", "v_scale") if cache == "int8" else ("k", "v")
+    rng = np.random.default_rng(b)
+    start = np.array([0, 7, 20][:b])
+    build.reset_launches()
+    steps = s + 6
+    rels = []
+    for st in range(steps):
+        for name in planes:
+            getattr(kern, name).copy_(getattr(plain, name))
+        pos = torch.from_numpy((start + st).astype(np.int32))
+        _, kv_pos, kv_len = ring_indices(pos, s)
+        rot = (pos >= s).to(torch.int32)
+        if b == 3:
+            kv_pos[1], rot[1] = s, 0
+        tok = torch.from_numpy(rng.integers(3, cfg.vocab_size, size=b))
+        kw = dict(a8=True)
+        x0 = ce = se = None
+        if folds:
+            kw.update(wcls=params.wcls, out_norm=params.out_norm, embed=params.embed, token=tok,
+                      pos=pos, freqs=freqs)
+        else:
+            x0 = params.embed.values[tok.to(dev)].float()
+            ce, se = (z[:, 0, 0] for z in rope_tables(pos[:, None], freqs.cpu()))
+        qkw = dict(k_scale=kern.k_scale, v_scale=kern.v_scale) if cache == "int8" else {}
+        pkw = dict(k_scale=plain.k_scale, v_scale=plain.v_scale) if cache == "int8" else {}
+        got = fd.fused_decode_step(params, cfg, x0, kern.k, kern.v, kv_pos, kv_len, rot, ce, se,
+                                   c1, s1, **qkw, **kw)
+        want = fd.fused_decode_step_plain(params, cfg, x0, plain.k, plain.v, kv_pos, kv_len, rot,
+                                          ce, se, c1, s1, **pkw, **kw)
+        torch.cuda.synchronize()
+        outs = [(got[0], want[0], cfg.dim)] + ([(got[1], want[1], cfg.vocab_size)] if folds else [])
+        for gv, wv, row in outs:
+            assert torch.isfinite(gv).all()
+            rels.append(_row_rel(gv, wv, row))
+            assert rels[-1] <= 5e-2, (st, rels[-1])
+        if folds:
+            assert torch.equal(got[2], got[1].argmax(dim=-1).to(torch.int32))
+    assert build.LAUNCHES[f"fused_decode_{body}"] == steps and build.LAUNCHES["fused_decode"] == 0
+    assert np.mean(np.asarray(rels) <= 1e-5) >= 0.9, sorted(rels)[-5:]
+
+
+def test_engine_q4_and_a8_on_the_card(dev, tmp_path):
+    """``from_xalm(q4_group=128)`` on the card: the megakernel's q4 body,
+    with ``fused_step=False`` the q4 GEMV; i8 with ``a8_prefill`` and
+    ``a8_decode``: the W8A8 GEMM on a 256-row chunk and the megakernel's a8
+    body; greedy tokens of each equal to its plain-version engine's on the
+    first steps (their logits are held in chip_smoke.py)."""
+    from xalm_tpu_torch.runtime.engine import Engine
+
+    path = write_port_container(str(tmp_path / "port.xalm"))
+    prompt = list(range(3, 203))  # one 256-row chunk in a 512-slot window
+    runs = [("megakernel", dict(q4_group=128), "fused_decode_q4"),
+            ("perlayer", dict(q4_group=128, fused_step=False), "qmatmul_q4"),
+            ("megakernel", dict(a8_prefill=True, a8_decode=True), "fused_decode_a8")]
+    for path_name, kw, counter in runs:
+        kw["context"] = 512
+        eng = Engine.from_xalm(path, **kw)
+        assert eng.decode_path(1) == path_name
+        build.reset_launches()
+        out, _ = eng.generate(prompt, 8, stop_on_eos=False)
+        assert build.LAUNCHES[counter] > 0, (kw, build.LAUNCHES)
+        if kw.get("a8_prefill"):
+            assert build.LAUNCHES["qmatmul_a8"] == 4 * eng.cfg.n_layers
+        ref = Engine.from_xalm(path, matmul_impl="plain", **kw)
+        want, _ = ref.generate(prompt, 8, stop_on_eos=False)
+        assert out[:3] == want[:3]

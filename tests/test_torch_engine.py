@@ -22,6 +22,8 @@ from xalm_tpu.runtime.engine import Engine as JaxEngine
 from xalm_tpu_torch.harness import main as port_harness
 from xalm_tpu_torch.runtime.engine import Engine
 
+import tests.torch_threads  # noqa: F401  (one intra-op thread per process)
+
 WINDOW = 16
 TOL = dict(rtol=2e-3, atol=2e-3)
 
@@ -126,7 +128,7 @@ def test_harness_perplexity_and_refusals(tiny_i8, capsys):
     assert port_harness.main([tiny_i8, "-d", "cpu", "-m", "perplexity",
                               "-i", "the quick brown fox is here"]) == 0
     assert "perplexity:" in capsys.readouterr().out
-    for extra in (["--spec", "4"], ["--temperature", "0.7"], ["--q4", "128"], ["--tp", "2"]):
+    for extra in (["--spec", "4"], ["--temperature", "0.7"], ["--tp", "2"]):
         with pytest.raises(SystemExit):
             port_harness.main([tiny_i8, "-d", "cpu", "-i", "x"] + extra)
 

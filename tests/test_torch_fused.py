@@ -54,6 +54,8 @@ from xalm_tpu_torch.ops import attention as A
 from xalm_tpu_torch.ops import fused_decode as fd
 from xalm_tpu_torch.runtime.engine import Engine
 
+import tests.torch_threads  # noqa: F401  (one intra-op thread per process)
+
 WINDOW = 16
 STEPS = WINDOW + 2 * (WINDOW - KV_SINKS) + 4  # from pos 0 past three ring wraps
 TOL = 2e-2  # of each step's max |ref| (x, logits) or each cache row's max |ref|
@@ -295,7 +297,7 @@ def test_gates_refuse_what_the_kernel_does_not_take(jax_base):
     assert fd.fused_step_supported(cfg, params, ck.to(torch.int8), 1, 1, k_scale=ks)
     assert not fd.fused_step_supported(cfg, params, ck.to(torch.int8), 1, 1)  # no scales
     assert not fd.fused_step_supported(cfg, params, ck, 1, 1, k_scale=ks)  # scales, a float cache
-    assert not fd.fused_step_supported(cfg, params, ck, 1, 1, a8=True)
+    assert fd.fused_step_supported(cfg, params, ck, 1, 1, a8=True)  # the a8 body
     q8 = dataclasses.replace(params.layers, wo=QWeight(params.layers.wo.values, None))
     assert not fd.fused_step_supported(cfg, dataclasses.replace(params, layers=q8), ck, 1, 1)
     assert not fd.embed_fold_supported(cfg, params)  # an i8 table
@@ -308,8 +310,8 @@ def test_gates_refuse_what_the_kernel_does_not_take(jax_base):
                              torch.ones(cfg.head_dim), torch.zeros(cfg.head_dim))
     z = torch.zeros((cfg.n_layers, 1, cfg.n_kv_heads, 32, cfg.head_dim))
 
-    def step(ck, **kw):
-        return fd.fused_decode_step(params, cfg, torch.zeros((1, cfg.dim)), ck, ck.clone(),
+    def step(ck, p=params, **kw):
+        return fd.fused_decode_step(p, cfg, torch.zeros((1, cfg.dim)), ck, ck.clone(),
                                     *[torch.zeros(1, dtype=torch.int32)] * 3,
                                     torch.ones((1, cfg.head_dim)), torch.zeros((1, cfg.head_dim)),
                                     torch.ones(cfg.head_dim), torch.zeros(cfg.head_dim), **kw)
@@ -318,8 +320,11 @@ def test_gates_refuse_what_the_kernel_does_not_take(jax_base):
         step(z, k_scale=z[..., 0], v_scale=z[..., 0].clone())
     with pytest.raises(ValueError, match="int8 KV"):
         step(z.to(torch.int8))  # an int8 cache without its scales
-    with pytest.raises(ValueError, match="W8A8"):
-        step(z, a8=True)
+    lp = params.layers
+    q4 = dataclasses.replace(lp, wo=QWeight(lp.wo.values[..., ::2].contiguous(),
+                                            lp.wo.scale[..., None], lp.wo.values.shape[-1]))
+    with pytest.raises(ValueError, match="one group size"):
+        step(z, p=dataclasses.replace(params, layers=q4), a8=True)  # q4 wo beside int8 rows
 
 
 def test_recode_wcls_i8_is_bit_equal_to_jax(jax_base):

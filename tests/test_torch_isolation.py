@@ -9,6 +9,9 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch
+
+import tests.torch_threads  # noqa: F401  (one intra-op thread per process)
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "xalm_tpu_torch"

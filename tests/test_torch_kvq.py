@@ -62,6 +62,8 @@ from xalm_tpu_torch.ops import fused_decode as fd
 from xalm_tpu_torch.runtime.cache import KVCache
 from xalm_tpu_torch.runtime.engine import Engine
 
+import tests.torch_threads  # noqa: F401  (one intra-op thread per process)
+
 WINDOW = 16
 S_PHYS = 32  # the window padded to 32 rows
 STEPS = WINDOW + 2 * (WINDOW - KV_SINKS) + 4  # from pos 0 past three ring wraps
@@ -343,10 +345,10 @@ def test_decode_path_and_gates_for_int8(tiny_i8):
     assert Engine.from_xalm(tiny_i8, fused_step=False, **kw).decode_path(1) == "perlayer"
     eng = Engine.from_xalm(tiny_i8, **kw)
     cfg, params = eng.cfg, eng.params
-    cache = KVCache.init(cfg, 1, torch.int8)
+    cache = KVCache.init(cfg, 1, torch.int8, "cpu")
     assert fd.fused_step_supported(cfg, params, cache.k, 1, 1, k_scale=cache.k_scale)
     assert not fd.fused_step_supported(cfg, params, cache.k, 1, 1)  # int8 without scales
     assert not fd.fused_step_supported(cfg, params, cache.k.to(torch.bfloat16), 1, 1,
                                        k_scale=cache.k_scale)  # scales with a float cache
-    assert not fd.fused_step_supported(cfg, params, cache.k, 1, 1, k_scale=cache.k_scale,
-                                       a8=True)
+    assert fd.fused_step_supported(cfg, params, cache.k, 1, 1, k_scale=cache.k_scale,
+                                   a8=True)  # the a8 body over an int8 cache

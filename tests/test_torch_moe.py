@@ -54,6 +54,8 @@ from xalm_tpu_torch.models.params import from_jax_params, load_params
 from xalm_tpu_torch.ops import qmatmul as qmm
 from xalm_tpu_torch.runtime.engine import Engine
 
+import tests.torch_threads  # noqa: F401  (one intra-op thread per process)
+
 TYPES = ["f32", "f16", "i8", "q8"]
 F32_TOL = dict(rtol=1e-4, atol=1e-4)
 I8_TOL = dict(rtol=2e-3, atol=2e-3)

@@ -34,6 +34,8 @@ from xalm_tpu.runtime.cache import ring_indices as jax_ring_indices
 from xalm_tpu_torch.ops import attention as ops_attn
 from xalm_tpu_torch.ops.qmatmul import qmatmul
 
+import tests.torch_threads  # noqa: F401  (one intra-op thread per process)
+
 L, D, N = 2, 96, 128
 
 

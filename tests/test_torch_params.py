@@ -27,6 +27,8 @@ from xalm_tpu_torch.models.params import (
 )
 from xalm_tpu_torch.tokenizer import Tokenizer
 
+import tests.torch_threads  # noqa: F401  (one intra-op thread per process)
+
 TYPES = ["f32", "f16", "i8", "q8"]
 
 
@@ -153,11 +155,14 @@ def test_write_xalm_read_by_jax(tmp_path):
 
 
 def test_fp8_and_q4_are_later_slices():
-    for name in ("f8_e4m3", "f8_e5m2", "q4"):
+    for name in ("f8_e4m3", "f8_e5m2"):
         with pytest.raises(NotImplementedError):
             tdt.parse(name)
-    with pytest.raises(ValueError):
-        tdt.parse("nope")
+    # "q4" is no container type: a q4 container stores its packed tensors as
+    # q8-typed int8 with a .scale4 partner (tests/test_torch_q4.py loads one)
+    for name in ("nope", "q4"):
+        with pytest.raises(ValueError):
+            tdt.parse(name)
 
 
 def test_tokenizer_matches_jax(containers):
@@ -172,3 +177,19 @@ def test_tokenizer_matches_jax(containers):
         ids = tok.encode(t)
         assert ids == ref.encode(t), t
         assert tok.decode(ids) == ref.decode(ids)
+
+
+def test_entry_points_default_to_the_card():
+    """The port's entry points put weights, caches and runs on the card
+    unless the caller asks for the CPU (``load_params`` and ``KVCache.init``
+    defaulted to the CPU before)."""
+    import inspect
+
+    from xalm_tpu_torch.harness import main as harness
+    from xalm_tpu_torch.runtime.cache import KVCache
+    from xalm_tpu_torch.runtime.engine import Engine
+    from xalm_tpu_torch.utils.synthetic import synthetic_params
+
+    for fn in (load_params, KVCache.init, Engine.from_xalm, synthetic_params):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    assert harness._build_parser().parse_args(["m.xalm"]).device == "cuda"

@@ -8,6 +8,17 @@
 // kernel) and the i8-head fold (final norm, i8 classifier, first-occurrence
 // argmax). The two cache kinds are two instantiations of one kernel.
 //
+// Its weight phases come in three bodies, one instantiation each (times the
+// two cache kinds): the i8 body times bf16 activations; the a8 body (the TPU
+// kernel's _a8dot) and the q4 body (its _q4dot), which quantise each phase's
+// f32 input row (the normed x, attn, act; the normed x of the i8 head) to
+// int8 codes with its absmax / 127 -- every block takes the amax of the rows
+// it stages itself, so no grid barrier is added -- and run __dp4a s8 x s8
+// dots: a8 over int8 rows, f32(sum) * row scale * x's scale; q4 over packed
+// rows (K/2 bytes) with (D, K/group) group scales, each group's exact int32
+// dot scaled in f32 and summed in the reference's group order, then times
+// x's scale (gemv.cuh). The i8 head runs the a8 body under a8 and q4.
+//
 // One cooperative, persistent launch per decode step. The grid is exactly
 // the blocks that can be co-resident (occupancy API x SM count), so every
 // block can wait at a grid barrier for all the others; the L layers loop
@@ -57,7 +68,8 @@
 // weights, norms, scales and step inputs, which nothing writes.
 //
 // What bounds it on the H100: the weight bytes. The 7B layer stack is 6.98
-// GB of int8 (2.08 ms at 3.35 TB/s), the i8 head 0.13 GB more; the K and V
+// GB of int8 (2.08 ms at 3.35 TB/s), 3.49 GB packed in q4 plus 54.5 MB of
+// group-512 scales (1.06 ms), the i8 head 0.13 GB more; the K and V
 // cache rows at kv_len 520 are 68 MB in bf16 (2 x 32 layers x 520 rows x
 // 1024 values x 2 B), 34 MB of int8 codes plus 1 MB of scales in the int8
 // cache. Compute is B FMAs per weight byte on the
@@ -69,8 +81,11 @@
 //
 // Limits (cudaErrorInvalidValue): head_dim != 128, a cache neither bf16 nor
 // int8 with scale planes, B outside 1..8, a GQA group outside 1..8, widths
-// that are not multiples of 16, or a device where not one block can be
-// resident.
+// that are not multiples of 16, a q4 group that is not a multiple of 128
+// dividing every half contraction width, or whose high-group terms and one
+// group of codes per row exceed the block's 64 KB of shared memory (at 7B
+// widths every group from 128 up fits at B = 8), or a device where not one
+// block can be resident.
 
 #include <math.h>
 
@@ -100,8 +115,8 @@ struct MkArgs {
   const __nv_bfloat16* embed;  // (Ve, N) (embed fold)
   const float* attn_norm;  // (L, N)
   const float* mlp_norm;
-  const int8_t* wqkv;  // (L, DQ, N)
-  const float* sqkv;   // (L, DQ)
+  const int8_t* wqkv;  // (L, DQ, N), q4: (L, DQ, N/2) packed
+  const float* sqkv;   // (L, DQ), q4: (L, DQ, N/group)
   const int8_t* wo;    // (L, N, QD)
   const float* so;
   const int8_t* w13;   // (L, 2H, N), chunk-interleaved
@@ -120,6 +135,7 @@ struct MkArgs {
   int* token;     // (B) (head fold)
   unsigned char* work;
   int L, B, N, KH, G, H, S, V, c13;
+  int group;  // q4 body: codes per group scale (the weights are packed rows)
   float eps, clip, sm_scale;
 };
 
@@ -207,71 +223,219 @@ __device__ __forceinline__ void pair_rows(int p, int c13, int& r0, int& r1) {
   }
 }
 
-// One GEMV phase over the D rows of w (D, K) int8: the block stages
-// bf16(src(b, n)) for its B rows into shared memory, each warp dots its row
-// pairs, and lane 0 calls epi(p, r0, r1, b, s0, s1) with the two rows' f32
-// sums (s1 is meaningless when r1 >= D). src returns 4 columns at n.
-template <typename Src, typename Epi>
-__device__ void gemv_phase(const int8_t* __restrict__ w, int D, int K, int c13, int B,
-                           __nv_bfloat16* xs, Src src, Epi epi) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int npairs = c13 > 0 ? D / 2 : (D + 1) / 2;
-  int kc = MK_XS / B / 512 * 512;  // staged columns per row (a multiple of 32 lanes x 16)
-  kc = K < kc ? K : kc;
-  auto stage = [&](int c0, int c1) {
-    __syncthreads();  // the previous chunk's readers are done
-    const int len4 = (c1 - c0) >> 2;
-    for (int i = threadIdx.x; i < B * len4; i += MK_THREADS) {
-      const int b = i / len4, n = c0 + (i - b * len4) * 4;
-      const float4 v = src(b, n);
-      const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-      const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-      uint2 packed;
-      packed.x = *reinterpret_cast<const unsigned int*>(&lo);
-      packed.y = *reinterpret_cast<const unsigned int*>(&hi);
-      *reinterpret_cast<uint2*>(xs + (size_t)b * kc + (n - c0)) = packed;
-    }
-    __syncthreads();
-  };
-  auto finish = [&](int p, int r0, int r1, float (&acc)[2][MK_MAX_B]) {
-#pragma unroll
-    for (int b = 0; b < MK_MAX_B; ++b) {
-      if (b >= B) break;
-      const float s0 = xq_warp_sum(acc[0][b]);
-      const float s1 = xq_warp_sum(acc[1][b]);
-      if (lane == 0) epi(p, r0, r1, b, s0, s1);
-    }
-  };
-  auto row_ptr = [&](int r) -> const int8_t* { return r < D ? w + (size_t)r * K : nullptr; };
+// The weight-phase bodies: int8 weights times bf16 activations (the TPU
+// kernel's default), int8 weights times int8 activation codes (a8, its
+// _a8dot), packed-q4 weights times int8 codes (q4, its _q4dot).
+enum Body { BODY_BF16 = 0, BODY_A8 = 1, BODY_Q4 = 2 };
 
-  if (kc == K) {  // the whole contraction fits: stage once, warps stride over the pairs
+// bytes of a q4 phase's high-group terms: per warp, 2 rows x MK_MAX_B x npg
+__host__ __device__ inline int q4_hterm_bytes(int K, int group) {
+  return MK_WARPS * 2 * MK_MAX_B * (K / 2 / group) * (int)sizeof(float);
+}
+
+// One GEMV phase over the D rows of w and their scales sc: int8 rows of K
+// with (D) row scales, or for BODY_Q4 packed rows of K/2 bytes with (D,
+// K/group) group scales. The block stages its B activation rows src(b, n)
+// (src returns 4 columns at n) into shared memory: as bf16, or for a8/q4
+// as int8 codes of the f32 rows, quantised with each row's absmax, which
+// the block takes itself (every block stages the whole row, so no grid
+// barrier is needed). Each warp dots its row pairs, and lane 0 calls
+// epi(p, r0, r1, b, v0, v1) with the two rows' finished values (v1 is
+// meaningless when r1 >= D): bf16: sum * scale; a8: f32(sum) * scale *
+// x's scale; q4: (group sums in order) * x's scale, each product and sum
+// rounded on its own.
+template <typename T>
+struct PairAcc {
+  T v[2][MK_MAX_B];
+};
+
+// A phase's walk over its D rows in pairs: when the K columns fit in one
+// chunk the block stages them once and its warps stride over the pairs;
+// otherwise the block walks groups of MK_WARPS pairs and re-stages each
+// chunk of columns for them. stage(c0, c1) stages columns [c0, c1) (every
+// thread calls it), run(acc, r0, r1, c0, c1) adds them into the pair's
+// accumulators, finish(p, r0, r1, acc) hands the pair's rows on.
+template <typename T, typename Stage, typename Run, typename Finish>
+__device__ void walk_pairs(int D, int K, int chunk, int c13, Stage stage, Run run, Finish finish) {
+  const int warp = threadIdx.x >> 5;
+  const int npairs = c13 > 0 ? D / 2 : (D + 1) / 2;
+  if (chunk >= K) {
     stage(0, K);
     for (int p = blockIdx.x * MK_WARPS + warp; p < npairs; p += gridDim.x * MK_WARPS) {
       int r0, r1;
       pair_rows(p, c13, r0, r1);
-      float acc[2][MK_MAX_B];
-#pragma unroll
-      for (int b = 0; b < MK_MAX_B; ++b) acc[0][b] = acc[1][b] = 0.f;
-      xq_gemv2<int8_t, MK_MAX_B>(xs, kc, row_ptr(r0), row_ptr(r1), 0, K, B, lane, acc);
+      PairAcc<T> acc = {};
+      run(acc, r0, r1, 0, K);
       finish(p, r0, r1, acc);
     }
     return;
   }
-  // column chunks: the block walks groups of MK_WARPS pairs, re-staging each chunk
   const int ngroups = (npairs + MK_WARPS - 1) / MK_WARPS;
   for (int g = blockIdx.x; g < ngroups; g += gridDim.x) {
     const int p = g * MK_WARPS + warp;
     int r0 = D, r1 = D;
     if (p < npairs) pair_rows(p, c13, r0, r1);
-    float acc[2][MK_MAX_B];
-#pragma unroll
-    for (int b = 0; b < MK_MAX_B; ++b) acc[0][b] = acc[1][b] = 0.f;
-    for (int c0 = 0; c0 < K; c0 += kc) {
-      const int c1 = c0 + kc < K ? c0 + kc : K;
+    PairAcc<T> acc = {};
+    for (int c0 = 0; c0 < K; c0 += chunk) {
+      const int c1 = c0 + chunk < K ? c0 + chunk : K;
       stage(c0, c1);
-      if (p < npairs) xq_gemv2<int8_t, MK_MAX_B>(xs, kc, row_ptr(r0), row_ptr(r1), c0, c1, B, lane, acc);
+      if (p < npairs) run(acc, r0, r1, c0, c1);
     }
     if (p < npairs) finish(p, r0, r1, acc);
+  }
+}
+
+// One GEMV phase over the D rows of w and their scales sc: int8 rows of K
+// with (D) row scales, or for BODY_Q4 packed rows of K/2 bytes with (D,
+// K/group) group scales. The block stages its B activation rows src(b, n)
+// (src returns 4 columns at n) into shared memory: as bf16, or for a8/q4
+// as int8 codes of the f32 rows, quantised with each row's absmax, which
+// the block takes itself (every block stages the whole row, so no grid
+// barrier is needed). Each warp dots its row pairs, and lane 0 calls
+// epi(p, r0, r1, b, v0, v1) with the two rows' finished values (v1 is
+// meaningless when r1 >= D): bf16: sum * scale; a8: f32(sum) * scale *
+// x's scale; q4: (group sums in order) * x's scale, each product and sum
+// rounded on its own.
+template <int MODE, typename Src, typename Epi>
+__device__ void gemv_phase(const int8_t* __restrict__ w, const float* __restrict__ sc, int D,
+                           int K, int c13, int B, int group, unsigned char* smem, float* red,
+                           float* sxs, Src src, Epi epi) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int kb = MODE == BODY_Q4 ? K / 2 : K;  // bytes of a weight row
+  const int ng = MODE == BODY_Q4 ? K / group : 1;  // scales of a weight row
+  const int npg = MODE == BODY_Q4 ? K / 2 / group : 0;
+  auto row_ptr = [&](int r) -> const int8_t* { return r < D ? w + (size_t)r * kb : nullptr; };
+  auto sc_ptr = [&](int r) -> const float* { return r < D ? sc + (size_t)r * ng : nullptr; };
+
+  if constexpr (MODE != BODY_BF16) {
+    // x's row scales: absmax / 127 of each f32 row (1 for an all-zero row)
+    for (int b = 0; b < B; ++b) {
+      float m = 0.f;
+      for (int i = tid; i < K / 4; i += MK_THREADS) {
+        const float4 v = src(b, 4 * i);
+        m = fmaxf(fmaxf(m, fmaxf(fabsf(v.x), fabsf(v.y))), fmaxf(fabsf(v.z), fabsf(v.w)));
+      }
+      m = xq_warp_max(m);
+      if (lane == 0) red[warp] = m;
+      __syncthreads();
+      if (tid == 0) {
+        float t = 0.f;
+        for (int i = 0; i < MK_WARPS; ++i) t = fmaxf(t, red[i]);
+        sxs[b] = xq_row_scale(t);
+      }
+      __syncthreads();
+    }
+  }
+  // stage B rows of columns [c0, c1) of src, 4 at a time, as put(b, o, v)
+  // at offset o into the chunk
+  auto stage_rows = [&](int c0, int c1, auto put) {
+    __syncthreads();  // the previous chunk's readers are done
+    const int len4 = (c1 - c0) >> 2;
+    for (int i = tid; i < B * len4; i += MK_THREADS) {
+      const int b = i / len4, o = (i - b * len4) * 4;
+      put(b, o, src(b, c0 + o));
+    }
+  };
+  auto codes = [&](int b, float4 v) {
+    const float s = sxs[b];
+    return make_char4(xq_code(v.x, s), xq_code(v.y, s), xq_code(v.z, s), xq_code(v.w, s));
+  };
+
+  if constexpr (MODE == BODY_BF16) {
+    __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);
+    const int kc = MK_XS / B / 512 * 512;  // staged columns per row (32 lanes x 16 a step)
+    const int ldx = K < kc ? K : kc;
+    walk_pairs<float>(
+        D, K, kc, c13,
+        [&](int c0, int c1) {
+          stage_rows(c0, c1, [&](int b, int o, float4 v) {
+            const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+            const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+            uint2 packed;
+            packed.x = *reinterpret_cast<const unsigned int*>(&lo);
+            packed.y = *reinterpret_cast<const unsigned int*>(&hi);
+            *reinterpret_cast<uint2*>(xs + (size_t)b * ldx + o) = packed;
+          });
+          __syncthreads();
+        },
+        [&](PairAcc<float>& acc, int r0, int r1, int c0, int c1) {
+          xq_gemv2<int8_t, MK_MAX_B>(xs, ldx, row_ptr(r0), row_ptr(r1), c0, c1, B, lane, acc.v);
+        },
+        [&](int p, int r0, int r1, PairAcc<float>& acc) {
+#pragma unroll
+          for (int b = 0; b < MK_MAX_B; ++b) {
+            if (b >= B) break;
+            const float s0 = xq_warp_sum(acc.v[0][b]);
+            const float s1 = xq_warp_sum(acc.v[1][b]);
+            if (lane == 0)
+              epi(p, r0, r1, b, __fmul_rn(s0, __ldg(sc + r0)),
+                  r1 < D ? __fmul_rn(s1, __ldg(sc + r1)) : 0.f);
+          }
+        });
+  } else if constexpr (MODE == BODY_A8) {
+    int8_t* xs = reinterpret_cast<int8_t*>(smem);
+    const int kc = MK_SMEM / B / 512 * 512;  // staged codes per row (32 lanes x 16 a step)
+    const int ldx = K < kc ? K : kc;
+    walk_pairs<int>(
+        D, K, kc, c13,
+        [&](int c0, int c1) {
+          stage_rows(c0, c1, [&](int b, int o, float4 v) {
+            *reinterpret_cast<char4*>(xs + (size_t)b * ldx + o) = codes(b, v);
+          });
+          __syncthreads();
+        },
+        [&](PairAcc<int>& acc, int r0, int r1, int c0, int c1) {
+          xq_gemv2_s8<MK_MAX_B>(xs, ldx, row_ptr(r0), row_ptr(r1), c0, c1, B, lane, acc.v);
+        },
+        [&](int p, int r0, int r1, PairAcc<int>& acc) {
+#pragma unroll
+          for (int b = 0; b < MK_MAX_B; ++b) {
+            if (b >= B) break;
+            const int s0 = __reduce_add_sync(0xffffffffu, acc.v[0][b]);
+            const int s1 = __reduce_add_sync(0xffffffffu, acc.v[1][b]);
+            if (lane == 0) {
+              const float v0 = __fmul_rn(__fmul_rn((float)s0, __ldg(sc + r0)), sxs[b]);
+              const float v1 = r1 < D ? __fmul_rn(__fmul_rn((float)s1, __ldg(sc + r1)), sxs[b]) : 0.f;
+              epi(p, r0, r1, b, v0, v1);
+            }
+          }
+        });
+  } else {
+    // q4: the high groups' terms first in shared memory, then the codes of
+    // x's columns [p0, p1) and [K/2 + p0, K/2 + p1) for each row; a chunk
+    // of packed bytes is whole groups
+    float* hterm = reinterpret_cast<float*>(smem) + warp * 2 * MK_MAX_B * npg;
+    int8_t* xs = reinterpret_cast<int8_t*>(smem + q4_hterm_bytes(K, group));
+    const int kh = K / 2;
+    const int pc = (MK_SMEM - q4_hterm_bytes(K, group)) / (2 * B) / group * group;
+    const int ldx = 2 * (kh < pc ? kh : pc);  // a row's low and high codes
+    walk_pairs<float>(
+        D, kh, pc, c13,
+        [&](int p0, int p1) {
+          for (int half = 0; half < 2; ++half)
+            stage_rows(half * kh + p0, half * kh + p1, [&](int b, int o, float4 v) {
+              *reinterpret_cast<char4*>(xs + (size_t)b * ldx + half * (ldx / 2) + o) = codes(b, v);
+            });
+          __syncthreads();
+        },
+        [&](PairAcc<float>& acc, int r0, int r1, int p0, int p1) {
+          xq_gemv2_q4<MK_MAX_B>(xs, xs + ldx / 2, ldx, row_ptr(r0), row_ptr(r1), sc_ptr(r0),
+                                sc_ptr(r1), p0, p1, group, npg, B, lane, acc.v, hterm);
+        },
+        [&](int p, int r0, int r1, PairAcc<float>& acc) {
+          __syncwarp();  // lane 0 wrote the terms; it alone reads them
+          if (lane == 0) {
+#pragma unroll
+            for (int b = 0; b < MK_MAX_B; ++b) {
+              if (b >= B) break;
+              const float v0 = __fmul_rn(xq_q4_finish<MK_MAX_B>(acc.v[0][b], hterm, 0, b, npg), sxs[b]);
+              const float v1 =
+                  r1 < D ? __fmul_rn(xq_q4_finish<MK_MAX_B>(acc.v[1][b], hterm, 1, b, npg), sxs[b]) : 0.f;
+              epi(p, r0, r1, b, v0, v1);
+            }
+          }
+          __syncwarp();
+        });
   }
 }
 
@@ -293,20 +457,24 @@ __device__ float half_absmax(float v, float* red4, int half) {
   return fmaxf(fmaxf(red4[0], red4[1]), fmaxf(red4[2], red4[3]));
 }
 
-template <bool QUANT>
+template <bool QUANT, int BODY>
 __global__ void __launch_bounds__(MK_THREADS, 2) fused_decode_kernel(const MkArgs a) {
+  constexpr int HEAD = BODY == BODY_BF16 ? BODY_BF16 : BODY_A8;  // the i8 head's body
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float red[MK_WARPS];
+  __shared__ float sxs[MK_MAX_B];  // x's row scales of the current a8/q4 phase
   __shared__ float hred[2][4];
   __shared__ float rinv[MK_MAX_B];
   __shared__ float best_v[MK_WARPS][MK_MAX_B];
   __shared__ int best_i[MK_WARPS][MK_MAX_B];
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);
-
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int B = a.B, N = a.N, KH = a.KH, G = a.G, H = a.H, S = a.S;
   const int HQ = KH * G, QD = HQ * MK_HD, DQ = KH * (G + 2) * MK_HD, H2 = 2 * H;
   const int NS = (S + MK_CHUNK - 1) / MK_CHUNK;
+  const int gq = a.group;  // q4 group (0: int8 rows)
+  // bytes of a weight row and scales of a row, by contraction width K
+  auto rowb = [&](int K) { return (size_t)(BODY == BODY_Q4 ? K / 2 : K); };
+  auto rows = [&](int K) { return (size_t)(BODY == BODY_Q4 ? K / gq : 1); };
   const WsLayout ws = ws_layout(B, N, KH, G, S, H);
   unsigned int* bar = reinterpret_cast<unsigned int*>(a.work);
   float* x = reinterpret_cast<float*>(a.work + ws.x);
@@ -357,14 +525,12 @@ __global__ void __launch_bounds__(MK_THREADS, 2) fused_decode_kernel(const MkArg
     const size_t lsc = (size_t)l * B * KH * S;  // this layer's scale plane (x hd: its cache plane)
     // ---- phase 1: rmsnorm + wqkv
     rows_rms(x, B, N, a.eps, rinv, red);
-    {
-      const float* sc = a.sqkv + (size_t)l * DQ;
-      gemv_phase(a.wqkv + (size_t)l * DQ * N, DQ, N, 0, B, xs, normed(a.attn_norm + (size_t)l * N),
-                 [&](int, int r0, int r1, int b, float s0, float s1) {
-                   __stcg(qkv + (size_t)b * DQ + r0, s0 * __ldg(sc + r0));
-                   if (r1 < DQ) __stcg(qkv + (size_t)b * DQ + r1, s1 * __ldg(sc + r1));
-                 });
-    }
+    gemv_phase<BODY>(a.wqkv + l * DQ * rowb(N), a.sqkv + l * DQ * rows(N), DQ, N, 0, B, gq, smem,
+                     red, sxs, normed(a.attn_norm + (size_t)l * N),
+                     [&](int, int r0, int r1, int b, float v0, float v1) {
+                       __stcg(qkv + (size_t)b * DQ + r0, v0);
+                       if (r1 < DQ) __stcg(qkv + (size_t)b * DQ + r1, v1);
+                     });
     grid_sync(bar);
 
     // ---- phase 2: rope, clip, ring insert, sink rotation; two (row, kv head) items per block
@@ -615,45 +781,38 @@ __global__ void __launch_bounds__(MK_THREADS, 2) fused_decode_kernel(const MkArg
     grid_sync(bar);
 
     // ---- phase 5: wo + residual
-    {
-      const float* sc = a.so + (size_t)l * N;
-      gemv_phase(a.wo + (size_t)l * N * QD, N, QD, 0, B, xs, plain(attn, QD),
-                 [&](int, int r0, int r1, int b, float s0, float s1) {
-                   float* xr = x + (size_t)b * N;
-                   __stcg(xr + r0, __ldcg(xr + r0) + s0 * __ldg(sc + r0));
-                   if (r1 < N) __stcg(xr + r1, __ldcg(xr + r1) + s1 * __ldg(sc + r1));
-                 });
-    }
+    gemv_phase<BODY>(a.wo + l * N * rowb(QD), a.so + l * N * rows(QD), N, QD, 0, B, gq, smem, red,
+                     sxs, plain(attn, QD), [&](int, int r0, int r1, int b, float v0, float v1) {
+                       float* xr = x + (size_t)b * N;
+                       __stcg(xr + r0, __ldcg(xr + r0) + v0);
+                       if (r1 < N) __stcg(xr + r1, __ldcg(xr + r1) + v1);
+                     });
     grid_sync(bar);
 
     // ---- phase 6: rmsnorm + w13, SiLU(gate) * up
     rows_rms(x, B, N, a.eps, rinv, red);
-    {
-      const float* sc = a.s13 + (size_t)l * H2;
-      gemv_phase(a.w13 + (size_t)l * H2 * N, H2, N, a.c13, B, xs, normed(a.mlp_norm + (size_t)l * N),
-                 [&](int p, int r0, int r1, int b, float s0, float s1) {
-                   const float gt = s0 * __ldg(sc + r0), up = s1 * __ldg(sc + r1);
-                   __stcg(act + (size_t)b * H + p, gt / (1.0f + expf(-gt)) * up);
-                 });
-    }
+    gemv_phase<BODY>(a.w13 + l * H2 * rowb(N), a.s13 + l * H2 * rows(N), H2, N, a.c13, B, gq, smem,
+                     red, sxs, normed(a.mlp_norm + (size_t)l * N),
+                     [&](int p, int, int, int b, float gt, float up) {
+                       __stcg(act + (size_t)b * H + p, gt / (1.0f + expf(-gt)) * up);
+                     });
     grid_sync(bar);
 
     // ---- phase 7: w2 + residual (and the output rows after the last layer)
     {
-      const float* sc = a.s2 + (size_t)l * N;
       float* xo = l == a.L - 1 ? a.xout : nullptr;
-      gemv_phase(a.w2 + (size_t)l * N * H, N, H, 0, B, xs, plain(act, H),
-                 [&](int, int r0, int r1, int b, float s0, float s1) {
-                   float* xr = x + (size_t)b * N;
-                   const float v0 = __ldcg(xr + r0) + s0 * __ldg(sc + r0);
-                   __stcg(xr + r0, v0);
-                   if (xo != nullptr) xo[(size_t)b * N + r0] = v0;
-                   if (r1 < N) {
-                     const float v1 = __ldcg(xr + r1) + s1 * __ldg(sc + r1);
-                     __stcg(xr + r1, v1);
-                     if (xo != nullptr) xo[(size_t)b * N + r1] = v1;
-                   }
-                 });
+      gemv_phase<BODY>(a.w2 + l * N * rowb(H), a.s2 + l * N * rows(H), N, H, 0, B, gq, smem, red,
+                       sxs, plain(act, H), [&](int, int r0, int r1, int b, float v0, float v1) {
+                         float* xr = x + (size_t)b * N;
+                         const float x0 = __ldcg(xr + r0) + v0;
+                         __stcg(xr + r0, x0);
+                         if (xo != nullptr) xo[(size_t)b * N + r0] = x0;
+                         if (r1 < N) {
+                           const float x1 = __ldcg(xr + r1) + v1;
+                           __stcg(xr + r1, x1);
+                           if (xo != nullptr) xo[(size_t)b * N + r1] = x1;
+                         }
+                       });
     }
     grid_sync(bar);
   }
@@ -669,16 +828,14 @@ __global__ void __launch_bounds__(MK_THREADS, 2) fused_decode_kernel(const MkArg
     bi[b] = 0x7fffffff;
   }
   rows_rms(x, B, N, a.eps, rinv, red);
-  gemv_phase(a.wcls, a.V, N, 0, B, xs, normed(a.out_norm),
-             [&](int, int r0, int r1, int b, float s0, float s1) {
-               const float v0 = s0 * __ldg(a.swcls + r0);
+  gemv_phase<HEAD>(a.wcls, a.swcls, a.V, N, 0, B, 0, smem, red, sxs, normed(a.out_norm),
+             [&](int, int r0, int r1, int b, float v0, float v1) {
                a.logits[(size_t)b * a.V + r0] = v0;
                if (v0 > bv[b] || (v0 == bv[b] && r0 < bi[b])) {
                  bv[b] = v0;
                  bi[b] = r0;
                }
                if (r1 < a.V) {
-                 const float v1 = s1 * __ldg(a.swcls + r1);
                  a.logits[(size_t)b * a.V + r1] = v1;
                  if (v1 > bv[b] || (v1 == bv[b] && r1 < bi[b])) {
                    bv[b] = v1;
@@ -734,9 +891,9 @@ struct Occupancy {
   int blocks_per_sm = -1, sms = 0;
 };
 
-// the cooperative grid of fused_decode_kernel<QUANT> on the current device:
-// the co-resident blocks, found once per device and cache kind
-template <bool QUANT>
+// the cooperative grid of fused_decode_kernel<QUANT, BODY> on the current
+// device: the co-resident blocks, found once per device, cache kind and body
+template <bool QUANT, int BODY>
 cudaError_t grid_of(int* grid) {
   int dev;
   cudaError_t e = cudaGetDevice(&dev);
@@ -750,11 +907,11 @@ cudaError_t grid_of(int* grid) {
     if (e != cudaSuccess) return e;
     e = cudaDeviceGetAttribute(&occ.sms, cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return e;
-    e = cudaFuncSetAttribute(fused_decode_kernel<QUANT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    e = cudaFuncSetAttribute(fused_decode_kernel<QUANT, BODY>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              MK_SMEM);
     if (e != cudaSuccess) return e;
     int n = 0;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fused_decode_kernel<QUANT>, MK_THREADS,
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fused_decode_kernel<QUANT, BODY>, MK_THREADS,
                                                       MK_SMEM);
     if (e != cudaSuccess) return e;
     occ.blocks_per_sm = coop ? n : 0;
@@ -777,14 +934,15 @@ XQ_EXPORT long long xq_fused_decode_workspace(int B, int N, int KH, int G, int S
 // device (<= 0: none fit)
 XQ_EXPORT int xq_fused_decode_grid() {
   int grid = 0;
-  return grid_of<false>(&grid) == cudaSuccess ? grid : 0;
+  return grid_of<false, BODY_BF16>(&grid) == cudaSuccess ? grid : 0;
 }
 
 // ptr: meta, x0, cexp_p, sexp_p, c1, s1, freqs, embed, attn_norm, mlp_norm,
 //      wqkv, sqkv, wo, so, w13, s13, w2, s2, out_norm, wcls, swcls, ck, cv,
 //      xout, logits, token, work, k_scale, v_scale (null where a fold is
 //      off; the scale planes with an int8 cache only)
-// dim: L, B, N, KH, G, hd, H, S, V, c13, cache kind (1 bf16, 2 int8)
+// dim: L, B, N, KH, G, hd, H, S, V, c13, cache kind (1 bf16, 2 int8),
+//      body (0 bf16 activations, 1 a8, 2 q4), q4 group (0 unless q4)
 XQ_EXPORT int xq_fused_decode(void* const* ptr, const int* dim, float eps, float clip,
                               float sm_scale, void* stream) {
   MkArgs a;
@@ -829,6 +987,8 @@ XQ_EXPORT int xq_fused_decode(void* const* ptr, const int* dim, float eps, float
   a.c13 = dim[9];
   const int cache_kind = dim[10];
   const bool quant = cache_kind == 2;
+  const int body = dim[11];
+  a.group = dim[12];
   a.eps = eps;
   a.clip = clip;
   a.sm_scale = sm_scale;
@@ -838,14 +998,38 @@ XQ_EXPORT int xq_fused_decode(void* const* ptr, const int* dim, float eps, float
                   a.H >= 16 && a.H % 16 == 0 && a.c13 >= 1 && a.H % a.c13 == 0 && a.S >= 1 &&
                   (embed_fold ? a.freqs != nullptr : (a.x0 && a.cexp_p && a.sexp_p)) &&
                   (!head_fold || (a.V >= 1 && a.out_norm && a.swcls && a.logits && a.token)) &&
-                  a.work != nullptr;
+                  a.work != nullptr && body >= BODY_BF16 && body <= BODY_Q4;
   if (!ok) return (int)cudaErrorInvalidValue;
+  if (body == BODY_Q4) {
+    // packed rows of every contraction width, and each phase's high-group
+    // terms plus one group of codes per row in the block's shared memory
+    const int g = a.group, QD = a.KH * a.G * MK_HD;
+    if (g < 128 || g % 128 != 0) return (int)cudaErrorInvalidValue;
+    const int widths[3] = {a.N, QD, a.H};
+    for (int K : widths)
+      if (K % (2 * g) != 0 || q4_hterm_bytes(K, g) + 2 * a.B * g > MK_SMEM)
+        return (int)cudaErrorInvalidValue;
+  } else if (a.group != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
   int grid = 0;
-  cudaError_t e = quant ? grid_of<true>(&grid) : grid_of<false>(&grid);
+  cudaError_t e;
+  const void* kernel;
+#define XQ_BODY(Q, BD)                                  \
+  e = grid_of<Q, BD>(&grid);                            \
+  kernel = (const void*)fused_decode_kernel<Q, BD>;
+  if (quant) {
+    if (body == BODY_Q4) { XQ_BODY(true, BODY_Q4) }
+    else if (body == BODY_A8) { XQ_BODY(true, BODY_A8) }
+    else { XQ_BODY(true, BODY_BF16) }
+  } else {
+    if (body == BODY_Q4) { XQ_BODY(false, BODY_Q4) }
+    else if (body == BODY_A8) { XQ_BODY(false, BODY_A8) }
+    else { XQ_BODY(false, BODY_BF16) }
+  }
+#undef XQ_BODY
   if (e != cudaSuccess) return (int)e;
   void* args[] = {&a};
-  const void* kernel = quant ? (const void*)fused_decode_kernel<true>
-                             : (const void*)fused_decode_kernel<false>;
   e = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(MK_THREADS), args, MK_SMEM,
                                   static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) {
@@ -859,7 +1043,7 @@ XQ_EXPORT int xq_fused_decode(void* const* ptr, const int* dim, float eps, float
 // barrier is the event time over iters (chip_smoke.py)
 XQ_EXPORT int xq_grid_barrier_bench(void* work, int iters, void* stream) {
   int grid = 0;
-  cudaError_t e = grid_of<false>(&grid);
+  cudaError_t e = grid_of<false, BODY_BF16>(&grid);
   if (e != cudaSuccess) return (int)e;
   e = cudaFuncSetAttribute(grid_barrier_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MK_SMEM);
   if (e != cudaSuccess) return (int)e;

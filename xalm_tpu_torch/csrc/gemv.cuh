@@ -1,11 +1,22 @@
-// Warp GEMV core shared by csrc/qmatmul.cu (the M <= 8 route) and
+// Warp GEMV cores shared by csrc/qmatmul.cu (the M <= 8 routes) and
 // csrc/fused_decode.cu (every weight phase of the megakernel).
 //
-// One warp owns two output rows. Each lane streams 16 bytes of each row
-// per step (16 int8 or 8 bf16 weights), both rows' loads in flight, and
-// multiplies them by the bf16 activations the block staged in shared
-// memory; products of bf16 values and int8/bf16 weights are exact in f32
-// and summed in f32. The caller reduces the lanes and applies the scale.
+// One warp owns two output rows. In xq_gemv2 each lane streams 16 bytes of
+// each row per step (16 int8 or 8 bf16 weights), both rows' loads in
+// flight, and multiplies them by the bf16 activations the block staged in
+// shared memory; products of bf16 values and int8/bf16 weights are exact in
+// f32 and summed in f32. The caller reduces the lanes and applies the scale.
+//
+// The int8-activation cores (the TPU kernel's a8 and q4 branches) take the
+// activations as int8 codes (quantised per row by the caller) and multiply
+// with __dp4a, s8 x s8 -> s32, so every sum is an exact integer:
+// - xq_gemv2_s8: int8 weight rows, one int32 sum per (row, activation row)
+//   over the whole contraction (at most K * 127^2 = 2.3e8 < 2^31 at
+//   K = 14336);
+// - xq_gemv2_q4: packed-q4 rows (two signed nibbles per byte, split-half
+//   k-order), one exact int32 dot per group of codes, turned to f32 and
+//   multiplied by that (row, group)'s scale once the group is complete, and
+//   summed in f32 in the reference's group order.
 #pragma once
 
 #include "common.cuh"
@@ -60,4 +71,117 @@ __device__ __forceinline__ void xq_gemv2(const __nv_bfloat16* xs, int ldx, const
         for (int e = 0; e < EPL; ++e) acc[r][m] += xf[e] * wf[r][e];
     }
   }
+}
+
+// acc[r][m] += sum over n in [n_begin, n_end) of xs[m * ldx + n - n_begin] * w_r[n],
+// int8 codes times int8 weights, exact in int32 (per lane; the caller adds
+// the lanes). Lane l starts at n_begin + 16 l and strides 512; n_begin and
+// n_end - n_begin are multiples of 16, and so is ldx.
+template <int MAXM>
+__device__ __forceinline__ void xq_gemv2_s8(const int8_t* xs, int ldx, const int8_t* w0,
+                                            const int8_t* w1, int n_begin, int n_end, int M,
+                                            int lane, int (&acc)[2][MAXM]) {
+  const int8_t* rows[2] = {w0, w1};
+  for (int n0 = n_begin + lane * 16; n0 < n_end; n0 += 512) {
+    int4 wr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      wr[r] = make_int4(0, 0, 0, 0);
+      if (rows[r] != nullptr) wr[r] = __ldg(reinterpret_cast<const int4*>(rows[r] + n0));
+    }
+#pragma unroll
+    for (int m = 0; m < MAXM; ++m) {
+      if (m >= M) break;
+      const int4 xv = *reinterpret_cast<const int4*>(xs + (size_t)m * ldx + (n0 - n_begin));
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        int a = __dp4a(wr[r].x, xv.x, acc[r][m]);
+        a = __dp4a(wr[r].y, xv.y, a);
+        a = __dp4a(wr[r].z, xv.z, a);
+        acc[r][m] = __dp4a(wr[r].w, xv.w, a);
+      }
+    }
+  }
+}
+
+// Packed-q4 rows w_r (K/2 bytes each; the low nibble of byte j is code
+// k = j, the high nibble code k = j + K/2) with group scales s_r (K/g
+// floats: npg = K/2g groups for each half), against int8 codes: xlo holds
+// x's columns [p0, p1) and xhi its columns [K/2 + p0, K/2 + p1), row m at
+// m * ldx; p0 and p1 are multiples of the group g (a multiple of 128).
+// For each group q in [p0/g, p1/g), all 32 lanes take g/128 words of the
+// group's g bytes (word c * 32 + lane, so each load is one 128-byte line
+// per warp; up to four words of both rows in flight), __dp4a each word's
+// nibbles (masked into the high half of each byte, so the dot is 16x the
+// codes' dot, exact) against the codes, and add the lanes
+// (__reduce_add_sync). Then, in every lane,
+//     acc[r][m] += f32(dot of low group q) * s_r[q]
+// and lane 0 keeps the high group's term f32(dot) * s_r[npg + q] in
+// hterm[(r * MAXM + m) * npg + q]: the reference adds the high groups after
+// all the low ones, so the caller adds hterm[0..npg) to acc in that order
+// once the row is complete. Every multiply and add rounds on its own (no
+// FMA contraction), as the plain version's separate f32 operations.
+template <int MAXM>
+__device__ __forceinline__ void xq_gemv2_q4(const int8_t* xlo, const int8_t* xhi, int ldx,
+                                            const int8_t* w0, const int8_t* w1,
+                                            const float* s0, const float* s1, int p0, int p1,
+                                            int group, int npg, int M, int lane,
+                                            float (&acc)[2][MAXM], float* hterm) {
+  const int8_t* rows[2] = {w0, w1};
+  const float* sc[2] = {s0, s1};
+  const int words = group >> 7;  // 4-byte words of a group per lane
+  for (int q = p0 / group; q < p1 / group; ++q) {
+    int il[2][MAXM], ih[2][MAXM];
+#pragma unroll
+    for (int m = 0; m < MAXM; ++m) il[0][m] = il[1][m] = ih[0][m] = ih[1][m] = 0;
+    for (int c0 = 0; c0 < words; c0 += 4) {  // up to 4 words of both rows in flight
+      unsigned int wv[4][2];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          wv[j][r] = c0 + j < words && rows[r] != nullptr
+                         ? (unsigned int)__ldg(reinterpret_cast<const int*>(
+                               rows[r] + q * group + ((c0 + j) * 32 + lane) * 4))
+                         : 0u;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (c0 + j >= words) break;
+        const int off = q * group + ((c0 + j) * 32 + lane) * 4;  // byte of the packed row
+        const int lo16[2] = {(int)((wv[j][0] << 4) & 0xF0F0F0F0u), (int)((wv[j][1] << 4) & 0xF0F0F0F0u)};
+        const int hi16[2] = {(int)(wv[j][0] & 0xF0F0F0F0u), (int)(wv[j][1] & 0xF0F0F0F0u)};
+#pragma unroll
+        for (int m = 0; m < MAXM; ++m) {
+          if (m >= M) break;
+          const int xl = *reinterpret_cast<const int*>(xlo + (size_t)m * ldx + (off - p0));
+          const int xh = *reinterpret_cast<const int*>(xhi + (size_t)m * ldx + (off - p0));
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            il[r][m] = __dp4a(lo16[r], xl, il[r][m]);
+            ih[r][m] = __dp4a(hi16[r], xh, ih[r][m]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < MAXM; ++m) {
+      if (m >= M) break;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int lo = __reduce_add_sync(0xffffffffu, il[r][m]) >> 4;
+        const int hi = __reduce_add_sync(0xffffffffu, ih[r][m]) >> 4;
+        if (rows[r] == nullptr) continue;  // uniform over the warp
+        acc[r][m] = __fadd_rn(acc[r][m], __fmul_rn((float)lo, __ldg(sc[r] + q)));
+        if (lane == 0) hterm[(r * MAXM + m) * npg + q] = __fmul_rn((float)hi, __ldg(sc[r] + npg + q));
+      }
+    }
+  }
+}
+
+// The q4 row's f32 sum once every group is in: the low groups' acc, then
+// the high groups' terms in order (lane 0, after xq_gemv2_q4 and __syncwarp)
+template <int MAXM>
+__device__ __forceinline__ float xq_q4_finish(float acc, const float* hterm, int r, int m, int npg) {
+  for (int q = 0; q < npg; ++q) acc = __fadd_rn(acc, hterm[(r * MAXM + m) * npg + q]);
+  return acc;
 }

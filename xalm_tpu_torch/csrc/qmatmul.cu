@@ -43,6 +43,30 @@
 // x is staged into shared memory as bf16 in column chunks (14336-wide down
 // rows and up to 8 rows at a time); the warp core (gemv.cuh's) and the
 // scale epilogue (gemv_store) are the GEMV route's.
+//
+// The same TPU kernel's two int8-activation branches (pallas_matmul.py
+// :116-147 packed q4, :161-167 W8A8) quantise x per row first:
+// quant_x_kernel, one block per row, writes int8 codes (round half to even
+// of x / (absmax / 127), both IEEE divisions, clipped to +-127) and the row
+// scale into scratch the wrapper allocates; the output is multiplied by
+// that scale last, as the reference does after its kernel.
+//
+// xq_qmatmul_q4 (M < 256, launched in blocks of up to 8 rows): the packed
+// q4 GEMV. Bound by bytes: the packed row is half the i8 row's bytes, plus
+// 4 bytes of scale per group. Design: gemv.cuh's xq_gemv2_q4 over the
+// codes staged in shared memory, one warp per output row pair; each group
+// of codes is an exact int32 __dp4a dot (512 x 8 x 127 at group 512 is far
+// below 2^31), scaled in f32 once complete and summed in group order, so
+// the result is bit-equal to the plain version.
+//
+// xq_qmatmul_a8 (W8A8, the 512-row prefill chunks): bound by operations at
+// M = 512 (1979 dense s8 TOP/s). Design: a 64x64-output-tile GEMM on s8
+// WMMA fragments (16x16x16, int32 accumulators: K * 127^2 = 2.3e8 < 2^31
+// at K = 14336, exact), tiles staged in shared memory as 16-column slices
+// so each fragment starts 32-byte aligned; the epilogue turns the sum to
+// f32, multiplies by the weight's row scale (or the q8 1/100) and then by
+// x's row scale, each rounded on its own: bit-equal to the plain version.
+// Simple first, like the bf16 GEMM: no TMA, no wgmma, no pipelining.
 
 #include <math.h>
 #include <mma.h>
@@ -316,7 +340,175 @@ int launch_multi(const float* x, const WT* w, const float* scale, float qscale, 
   return (int)cudaGetLastError();
 }
 
+// x's rows to int8 codes and f32 row scales, one block per row
+__global__ void __launch_bounds__(256) quant_x_kernel(const float* __restrict__ x,
+                                                      int8_t* __restrict__ xq,
+                                                      float* __restrict__ sx, int N) {
+  __shared__ float red[8];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const float* xm = x + (size_t)blockIdx.x * N;
+  float a = 0.f;
+  for (int i = tid; i < N; i += 256) a = fmaxf(a, fabsf(xm[i]));
+  a = xq_warp_max(a);
+  if (lane == 0) red[warp] = a;
+  __syncthreads();
+  float amax = 0.f;
+  for (int w = 0; w < 8; ++w) amax = fmaxf(amax, red[w]);
+  const float s = xq_row_scale(amax);
+  for (int i = tid; i < N; i += 256) xq[(size_t)blockIdx.x * N + i] = xq_code(xm[i], s);
+  if (tid == 0) sx[blockIdx.x] = s;
+}
+
+constexpr int Q4_MAX_M = GV_MAX_M;
+
+size_t q4_smem(int M, int N, int group) {
+  const int npg = N / 2 / group;
+  return (size_t)M * N + (size_t)GV_WARPS * 2 * Q4_MAX_M * npg * sizeof(float);
+}
+
+__global__ void __launch_bounds__(GV_THREADS) gemv_q4_kernel(
+    const int8_t* __restrict__ xq, const float* __restrict__ sx, const int8_t* __restrict__ w,
+    const float* __restrict__ scale, float* __restrict__ y, int M, int N, int D, int group) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int8_t* xs = reinterpret_cast<int8_t*>(smem);  // (M, N) codes
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int kh = N / 2, npg = kh / group, ng = N / group;
+  float* hterm = reinterpret_cast<float*>(smem + (size_t)M * N) + warp * 2 * Q4_MAX_M * npg;
+  for (int i = tid; i < M * N / 16; i += GV_THREADS)
+    reinterpret_cast<int4*>(xs)[i] = reinterpret_cast<const int4*>(xq)[i];
+  __syncthreads();
+
+  const int row0 = (blockIdx.x * GV_WARPS + warp) * GV_RPW;
+  float acc[GV_RPW][Q4_MAX_M] = {};
+  const bool in0 = row0 < D, in1 = row0 + 1 < D;
+  xq_gemv2_q4<Q4_MAX_M>(xs, xs + kh, N, in0 ? w + (size_t)row0 * kh : nullptr,
+                        in1 ? w + (size_t)(row0 + 1) * kh : nullptr,
+                        in0 ? scale + (size_t)row0 * ng : nullptr,
+                        in1 ? scale + (size_t)(row0 + 1) * ng : nullptr, 0, kh, group, npg, M,
+                        lane, acc, hterm);
+  __syncwarp();
+  if (lane != 0) return;
+#pragma unroll
+  for (int r = 0; r < GV_RPW; ++r) {
+    const int d = row0 + r;
+    if (d >= D) break;
+    for (int m = 0; m < M; ++m)
+      y[(size_t)m * D + d] = __fmul_rn(xq_q4_finish<Q4_MAX_M>(acc[r][m], hterm, r, m, npg), sx[m]);
+  }
+}
+
+constexpr int AM = 64, AN = 64, AK = 64;  // W8A8 tile: x rows, output columns, depth
+constexpr int AKS = AK / 16;               // 16-column slices of a tile
+constexpr int LDC8 = AN + 4;
+
+__global__ void __launch_bounds__(128) gemm_a8_kernel(
+    const int8_t* __restrict__ xq, const float* __restrict__ sx, const int8_t* __restrict__ w,
+    const float* __restrict__ scale, float qscale, float* __restrict__ y, int M, int N, int D) {
+  __shared__ __align__(128) signed char As[AKS][AM][16];  // slice, x row, 16 codes
+  __shared__ __align__(128) signed char Bs[AKS][AN][16];  // slice, weight row, 16 codes
+  __shared__ __align__(128) int Cs[AM * LDC8];
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int wm = warp >> 1, wn = warp & 1;  // 2x2 warps, 32x32 outputs each
+  const int m0 = blockIdx.y * AM, d0 = blockIdx.x * AN;
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0);
+
+  for (int k0 = 0; k0 < N; k0 += AK) {
+    for (int c = tid; c < AM * AKS; c += 128) {  // 64 rows x 4 slices of 16 bytes, each side
+      const int row = c / AKS, ks = c % AKS;
+      int4 v = make_int4(0, 0, 0, 0);
+      if (m0 + row < M) v = *reinterpret_cast<const int4*>(xq + (size_t)(m0 + row) * N + k0 + ks * 16);
+      *reinterpret_cast<int4*>(&As[ks][row][0]) = v;
+      int4 u = make_int4(0, 0, 0, 0);
+      if (d0 + row < D) u = __ldg(reinterpret_cast<const int4*>(w + (size_t)(d0 + row) * N + k0 + ks * 16));
+      *reinterpret_cast<int4*>(&Bs[ks][row][0]) = u;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int ks = 0; ks < AKS; ++ks) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major> a[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::col_major> b[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) wmma::load_matrix_sync(a[i], &As[ks][wm * 32 + i * 16][0], 16);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) wmma::load_matrix_sync(b[j], &Bs[ks][wn * 32 + j * 16][0], 16);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * LDC8 + wn * 32 + j * 16, acc[i][j], LDC8,
+                              wmma::mem_row_major);
+  __syncthreads();
+  for (int idx = tid; idx < AM * AN; idx += 128) {
+    const int r = idx / AN, c = idx % AN;
+    const int m = m0 + r, d = d0 + c;
+    if (m < M && d < D) {
+      float v = (float)Cs[r * LDC8 + c];
+      if (scale != nullptr) v = __fmul_rn(v, scale[d]);
+      else if (qscale != 0.f) v = __fmul_rn(v, qscale);
+      y[(size_t)m * D + d] = __fmul_rn(v, sx[m]);
+    }
+  }
+}
+
 }  // namespace
+
+// Packed-q4 matmul: x (M, N) f32 with M < 256, w one layer's (D, N/2)
+// packed rows, scale its (D, N/group) f32 group scales, xq (M, N) int8 and
+// sx (M) f32 scratch for x's codes and row scales, y (M, D) f32.
+XQ_EXPORT int xq_qmatmul_q4(const void* x, const void* w, const void* scale, void* xq, void* sx,
+                            void* y, int M, int N, int D, int group, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  if (M < 1 || M >= 256 || D < 1 || group < 128 || group % 128 != 0 || N % (2 * group) != 0 ||
+      q4_smem(GV_MAX_M, N, group) > 200 * 1024)
+    return (int)cudaErrorInvalidValue;
+  auto* codes = (int8_t*)xq;
+  auto* rs = (float*)sx;
+  quant_x_kernel<<<M, 256, 0, s>>>((const float*)x, codes, rs, N);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  e = xq_allow_smem(gemv_q4_kernel, (int)q4_smem(GV_MAX_M, N, group));
+  if (e != cudaSuccess) return (int)e;
+  const int rows_per_block = GV_WARPS * GV_RPW;
+  for (int m0 = 0; m0 < M; m0 += GV_MAX_M) {
+    const int mb = M - m0 < GV_MAX_M ? M - m0 : GV_MAX_M;
+    gemv_q4_kernel<<<(D + rows_per_block - 1) / rows_per_block, GV_THREADS, q4_smem(mb, N, group), s>>>(
+        codes + (size_t)m0 * N, rs + m0, (const int8_t*)w, (const float*)scale,
+        (float*)y + (size_t)m0 * D, mb, N, D, group);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  return (int)cudaSuccess;
+}
+
+// W8A8 matmul: x (M, N) f32, w one layer's (D, N) int8 rows, scale its (D)
+// f32 row scales or null (then qscale, or 1 where qscale is 0), xq/sx
+// scratch as above, y (M, D) f32.
+XQ_EXPORT int xq_qmatmul_a8(const void* x, const void* w, const void* scale, float qscale,
+                            void* xq, void* sx, void* y, int M, int N, int D, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  if (M < 1 || D < 1 || N < AK || N % AK != 0) return (int)cudaErrorInvalidValue;
+  auto* codes = (int8_t*)xq;
+  auto* rs = (float*)sx;
+  quant_x_kernel<<<M, 256, 0, s>>>((const float*)x, codes, rs, N);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((D + AN - 1) / AN, (M + AM - 1) / AM);
+  gemm_a8_kernel<<<grid, 128, 0, s>>>(codes, rs, (const int8_t*)w, (const float*)scale, qscale,
+                                      (float*)y, M, N, D);
+  return (int)cudaGetLastError();
+}
 
 // The gathered top-k expert matmul: x (m or k*m, N) f32, w the (LE, D, N)
 // int8 or bf16 expert stack, scale its (LE, D) row scales or null, idxs

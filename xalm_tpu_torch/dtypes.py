@@ -70,7 +70,7 @@ REGISTRY: dict[str, XDType] = {
 
 def parse(name: str) -> XDType:
     """Look up a container type string."""
-    if name in _LATER or name == "q4":
+    if name in _LATER:
         raise NotImplementedError(f"xalm dtype {name!r}: later slice")
     try:
         return REGISTRY[name]

@@ -17,11 +17,15 @@
       --matmul <i>    auto (= kernel) | kernel | plain | xla
       --wcls-i8       re-code a float head to i8 per row at load; the decode
                       megakernel then runs the head in the same launch
+      --q4 GROUP      pack the body weights to 4-bit at load, GROUP weights per
+                      scale (a multiple of 128 dividing every half contraction
+                      width, e.g. 128 or 512); decode then takes int8
+                      activations (the megakernel's q4 body, or the q4 GEMV)
 
 Decode goes through the whole-step megakernel where it takes the model (i8
-body, a bf16 or int8 cache on the card, B <= 8) and through the per-layer
-kernels otherwise; the stats print which ("decode path: ..."). The JAX
-harness's --q4, --temperature, --spec, --draft, --session, --tp/--dp/--pp
+or q4 body, a bf16 or int8 cache on the card, B <= 8) and through the
+per-layer kernels otherwise; the stats print which ("decode path: ..."). The
+JAX harness's --temperature, --spec, --draft, --session, --tp/--dp/--pp
 flags belong to later slices: they are accepted and refused with a message.
 """
 
@@ -59,8 +63,10 @@ def _build_parser() -> argparse.ArgumentParser:
                    help="per-layer implementation (auto = kernel)")
     p.add_argument("--wcls-i8", action="store_true",
                    help="re-code a float head to i8 per row (the megakernel then runs it)")
+    p.add_argument("--q4", type=int, default=0, metavar="GROUP",
+                   help="pack the body weights to 4-bit at load with GROUP weights per scale "
+                        "(a multiple of 128, e.g. 128); implies int8 activations in decode")
     # JAX-harness flags of later slices: refused unless left at their defaults
-    p.add_argument("--q4", type=int, default=0, help=argparse.SUPPRESS)
     p.add_argument("--temperature", type=float, default=0.0, help=argparse.SUPPRESS)
     p.add_argument("--spec", type=int, default=0, help=argparse.SUPPRESS)
     p.add_argument("--draft", default=None, help=argparse.SUPPRESS)
@@ -72,7 +78,6 @@ def _build_parser() -> argparse.ArgumentParser:
 
 def _refuse_later(args) -> None:
     later = {
-        "--q4": args.q4,
         "--temperature": args.temperature > 0,
         "--spec/--draft": args.spec or args.draft,
         "--session": args.session,
@@ -111,6 +116,7 @@ def _load_engine(args):
         compute_dtype=dt[args.compute],
         matmul_impl=args.matmul,
         wcls_i8=args.wcls_i8,
+        q4_group=args.q4,
         device=args.device,
     )
     cfg = eng.cfg

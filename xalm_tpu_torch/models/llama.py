@@ -48,10 +48,20 @@ gathers the embed row itself at B = 1 with a bf16 table, and runs the head
 too when the head is i8 (``Engine(wcls_i8=True)``); otherwise the head
 stays on kernel 1.
 
+Packed q4 and int8 activations route as the JAX ``mm`` does
+(``xalm_tpu/models/llama.py:570-669``): a q4 weight below 256 rows takes
+kernel 1's q4 branch when the call's opt-in is on (``a8_decode`` for t = 1
+rows, ``a8_prefill`` for t > 1 chunks); every other q4 call dequantizes
+the layer and runs one plain product (the reference computes that outside
+any Pallas kernel); int8 weights at 256 rows and more take the W8A8
+branch under ``a8_prefill``; the megakernel runs its a8 body under
+``a8_decode`` (and its q4 body for a q4 model, which needs it).
+
 Unlike the JAX function the cache is updated in place; the per-layer path
-runs its layers as a Python loop. q4, a8, tp/pp, speculative
-verify and the family extras (bias, qk-norm, post-norms, softcaps, gelu,
-embed scale) are later slices and raise NotImplementedError.
+runs its layers as a Python loop. Packed-q4 experts (Mixtral q4), tp/pp,
+speculative verify and the family extras (bias, qk-norm, post-norms,
+softcaps, gelu, embed scale) are later slices and raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -197,6 +207,10 @@ def moe_ffn(x: torch.Tensor, lp, layer: int, cfg: ModelConfig, impl: str,
     """Mixtral's sparse-MoE FFN of one layer (``xalm_tpu/models/llama.py``
     ``:818-931``): x (B, T, dim) f32 -> the FFN's output (B, T, dim) f32."""
     b, t, _ = x.shape
+    if lp.w13e.q4group or lp.w2e.q4group:
+        raise NotImplementedError(
+            "packed-q4 experts (Mixtral q4): the next slice of the port (the gathered "
+            "q4 expert matmul)")
     xn = rmsnorm(x, lp.mlp_norm[layer], cfg.norm_eps)
     topv, topi = moe_route(xn, lp.wgate[layer], cfg.n_experts_active)
     chunk = ffn_chunk(cfg.hidden_dim)
@@ -290,12 +304,15 @@ def forward(
     compute_dtype=torch.float32,
     impl: str = "kernel",
     fused_step: bool | str = "auto",
+    a8_prefill: bool = False,
+    a8_decode: bool = False,
 ):
     """One step over a (B, T) token block. Returns (logits, cache) with the
     cache updated in place. logits: (B, vocab) for "last", (B, T, vocab)
     for "all", None for "none", the greedy token ids (B,) for "token".
     tokens, pos and valid may lie on the host; they move to the weights'
-    device where a path needs them there."""
+    device where a path needs them there. ``a8_prefill``/``a8_decode``
+    opt t > 1 chunks / t = 1 steps into the int8-activation routes."""
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}; one of {IMPLS}")
     _check_dense(cfg)
@@ -311,13 +328,34 @@ def forward(
     def mm(xx: torch.Tensor, qw: QWeight, layer: int | None = None, norm_sw=None):
         """Stacked-weight matmul, routed as the JAX package's pallas path:
         int8/bf16 weights go through kernel 1 (norm prologue and scale
-        epilogue fused below 256 rows), other dtypes through ops.linear
-        except on the card's kernel path, where the kernel refuses them."""
+        epilogue fused below 256 rows; W8A8 at 256 rows and more under
+        ``a8_prefill``), q4 through kernel 1's q4 branch below 256 rows under
+        the call's a8 opt-in and the dequantized layer otherwise, other
+        dtypes through ops.linear except on the card's kernel path, where
+        the kernel refuses them."""
         lead = xx.shape[:-1]
         xm = xx.reshape(-1, xx.shape[-1])
         m = xm.shape[0]
-        kernel_route = qmm.supported_weight_dtype(qw.values.dtype) or (
-            impl == "kernel" and xm.is_cuda)
+        decode_rows = xx.dim() != 3 or xx.shape[1] == 1
+        if (per_layer and qw.q4group and layer is not None and m < 256
+                and (a8_decode if decode_rows else a8_prefill)):
+            if norm_sw is not None:
+                xm = rmsnorm(xm, norm_sw[layer], cfg.norm_eps)
+            y = mm_fn(xm.contiguous(), qw.values, layer, scale=qw.scale, q4_group=qw.q4group)
+            return y.reshape(*lead, -1)
+        if qw.q4group:
+            kernel_route = False  # dequantize the layer (the reference's XLA product)
+        else:
+            kernel_route = qmm.supported_weight_dtype(qw.values.dtype) or (
+                impl == "kernel" and xm.is_cuda)
+        if per_layer and kernel_route and layer is not None and m >= 256 and a8_prefill \
+                and qw.values.dtype == torch.int8:
+            # W8A8 prefill: int8 x per row times the int8 weights
+            if norm_sw is not None:
+                xm = rmsnorm(xm, norm_sw[layer], cfg.norm_eps)
+            y = mm_fn(xm.contiguous(), qw.values, layer, scale=qw.scale,
+                      q8_scale=Q8_FIXED_SCALE if qw.scale is None else None, a8=True)
+            return y.reshape(*lead, -1)
         if per_layer and kernel_route:
             if layer is None:  # the head: an unstacked (D, N) weight
                 values, lyr = qw.values[None], 0
@@ -339,7 +377,8 @@ def forward(
         if norm_sw is not None:
             xm = rmsnorm(xm, norm_sw[layer], cfg.norm_eps)
         if layer is not None:
-            qw = QWeight(qw.values[layer], None if qw.scale is None else qw.scale[layer])
+            qw = QWeight(qw.values[layer], None if qw.scale is None else qw.scale[layer],
+                         qw.q4group)
         return plain_linear(xm, qw, compute_dtype=compute_dtype).reshape(*lead, -1)
 
     def head(x: torch.Tensor):
@@ -357,8 +396,9 @@ def forward(
     if fused_step == "auto":
         fused_step = True  # the megakernel wherever it is supported
     if fused_step and t == 1 and per_layer and fd.fused_step_supported(
-            cfg, params, cache.k, b, t, k_scale=cache.k_scale):
-        return _megakernel_step(params, cfg, tokens, pos, cache, valid, logits_mode, impl, head)
+            cfg, params, cache.k, b, t, k_scale=cache.k_scale, a8=a8_decode):
+        return _megakernel_step(params, cfg, tokens, pos, cache, valid, logits_mode, impl, head,
+                                a8_decode)
 
     tokens = tokens.to(dev)
     pos_h = pos.to("cpu", torch.int32)
@@ -449,7 +489,7 @@ def forward(
     return head(x), cache
 
 
-def _megakernel_step(params, cfg, tokens, pos, cache, valid, logits_mode, impl, head):
+def _megakernel_step(params, cfg, tokens, pos, cache, valid, logits_mode, impl, head, a8):
     """A t = 1 step through the whole-step megakernel (the JAX forward's
     fused_decode_step branch). The step's inputs (kv_pos, kv_len, rotate,
     token, pos) are computed on the host and reach the card as one small
@@ -479,6 +519,8 @@ def _megakernel_step(params, cfg, tokens, pos, cache, valid, logits_mode, impl, 
             cexp1, sexp1)
     if cache.quantized:
         fold_e.update(k_scale=cache.k_scale, v_scale=cache.v_scale)
+    if a8:
+        fold_e["a8"] = True
     if logits_mode != "none" and fd.wcls_fold_supported(cfg, params):
         # final norm + i8 head + greedy argmax in the same launch
         _, logits, token = step(*args, wcls=params.wcls, out_norm=params.out_norm, **fold_e)[:3]

@@ -15,7 +15,14 @@ as the JAX package, so every intermediate can be compared with it:
 Quantization rides the dtype plus an optional per-output-row f32 ``scale``:
 float weights dequantize by a cast, int8 with ``scale`` is `i8`
 (y = (x @ W^T) * scale), int8 without it is `q8` (fixed scale 1/100).
-``recode_wcls_i8`` re-codes a float head to i8 per row. Packed q4, fp8 and
+``recode_wcls_i8`` re-codes a float head to i8 per row.
+
+Packed q4 (``QWeight.q4group`` = g > 0): int8 values of shape (..., D, K/2)
+hold two signed 4-bit codes per byte in split-half k-order (the low nibble
+of byte j is code k = j, the high nibble code k = j + K/2), and ``scale`` is
+(..., D, K/g) f32, one symmetric absmax/7 scale per (row, group of g codes).
+A ``--type q4`` container stores them as a packed tensor with a ``.scale4``
+partner; ``recode_params_q4`` packs an i8/q8/float body at load. fp8 and
 the family extras are later slices.
 """
 
@@ -36,6 +43,9 @@ __all__ = [
     "load_params",
     "from_jax_params",
     "recode_wcls_i8",
+    "recode_qweight_q4",
+    "recode_params_q4",
+    "unpack_q4",
     "Q8_FIXED_SCALE",
     "ffn_chunk",
     "fuse_qkv",
@@ -60,14 +70,32 @@ def ffn_chunk(hidden_dim: int) -> int:
 @dataclasses.dataclass
 class QWeight:
     """A weight matrix of logical shape (..., D, N); ``scale`` is a per-row
-    f32 tensor of shape (..., D) for `i8`, else None."""
+    f32 tensor of shape (..., D) for `i8`, else None. ``q4group`` = g > 0
+    marks packed 4-bit values (..., D, N/2) with (..., D, N/g) f32 scales
+    (see the module docstring)."""
 
     values: torch.Tensor
     scale: torch.Tensor | None = None
+    q4group: int = 0
 
     @property
     def shape(self):
         return self.values.shape
+
+    def dequant(self, dtype) -> torch.Tensor:
+        """The dequantized matrix in ``dtype`` (``astype_dequant`` of the JAX
+        package): q4 codes and group scales are cast to ``dtype`` and
+        multiplied there; i8/q8 values times their row scale or 1/100."""
+        if self.q4group:
+            codes = unpack_q4(self.values)
+            c = codes.reshape(*codes.shape[:-1], -1, self.q4group).to(dtype)
+            return (c * self.scale[..., None].to(dtype)).reshape(codes.shape)
+        v = self.values.to(dtype)
+        if self.values.dtype == torch.int8:
+            if self.scale is not None:
+                return v * self.scale[..., None].to(dtype)
+            return v * torch.tensor(Q8_FIXED_SCALE, dtype=dtype, device=v.device)
+        return v
 
     def nbytes(self) -> int:
         n = self.values.nelement() * self.values.element_size()
@@ -177,19 +205,21 @@ def _check_dense(cfg: ModelConfig, xf=None) -> None:
             raise NotImplementedError(f"{name}: later slice")
 
 
-def load_params(xf, cfg: ModelConfig, device="cpu") -> ModelParams:
+def load_params(xf, cfg: ModelConfig, device="cuda") -> ModelParams:
     """Load and stack all weights of a Llama/Mistral/Mixtral container
-    (f32/f16/bf16/q8/i8) from an open XalmFile onto ``device``. f16 stays
-    f16 (the JAX loader keeps it off-TPU too)."""
+    (f32/f16/bf16/q8/i8, packed q4) from an open XalmFile onto ``device``
+    (the card unless the caller asks for the CPU). f16 stays f16 (the JAX
+    loader keeps it off-TPU too)."""
     _check_dense(cfg, xf)
 
     def info(name: str, expect_shape):
         t = xf.tensors.get(name)
         if t is None:
             raise ValueError(f"FATAL: missing tensor {name}")
-        if name + ".scale4" in xf:
-            raise NotImplementedError(f"{name}: packed q4 containers are a later slice")
-        if tuple(t.shape) != tuple(expect_shape):
+        # a q4 tensor holds K/2 packed bytes per row beside its .scale4 partner
+        packed = tuple(expect_shape[:-1]) + (expect_shape[-1] // 2,)
+        if tuple(t.shape) != tuple(expect_shape) and not (
+                name + ".scale4" in xf and tuple(t.shape) == packed):
             raise ValueError(
                 f"FATAL: tensor {name} has unexpected shape {t.shape}, expected {expect_shape}"
             )
@@ -203,6 +233,12 @@ def load_params(xf, cfg: ModelConfig, device="cpu") -> ModelParams:
             raise ValueError(f"FATAL: mixed dtypes across {name_fmt}")
         vals = np.stack([xf.load(n) for n in names])
         scale = None
+        if names[0] + ".scale4" in xf:
+            # q4: (D, K/g) group-scale planes, fused and stacked like the values
+            if any(n + ".scale4" not in xf for n in names):
+                raise ValueError(f"FATAL: mixed q4 and unpacked tensors across {name_fmt}")
+            scale = np.stack([xf.load(n + ".scale4") for n in names])
+            return vals, scale, torch.int8
         if dt.name == "i8":
             snames = [xdt.scale_name(n) for n in names]
             if any(s not in xf for s in snames):
@@ -211,9 +247,13 @@ def load_params(xf, cfg: ModelConfig, device="cpu") -> ModelParams:
         return vals, scale, dt.torch_dtype
 
     def qw(vals, scale, tdt) -> QWeight:
+        # q4: the scale has one column per group, the values K/2 bytes a row
+        q4group = 2 * vals.shape[-1] // scale.shape[-1] if (
+            scale is not None and scale.ndim == vals.ndim) else 0
         return QWeight(
             _torch(vals, tdt, device),
             None if scale is None else _torch(scale, torch.float32, device),
+            q4group,
         )
 
     def fuse_host(parts, fuse, *fargs):
@@ -331,11 +371,10 @@ def from_jax_params(tree, device="cpu") -> ModelParams:
     def qw(w) -> QWeight | None:
         if w is None:
             return None
-        if getattr(w, "q4group", 0):
-            raise NotImplementedError("packed q4 weights: later slice")
         return QWeight(
             _from_np(w.values, device),
             None if w.scale is None else _from_np(w.scale, device),
+            getattr(w, "q4group", 0),
         )
 
     embed = qw(tree.embed)
@@ -373,3 +412,81 @@ def recode_wcls_i8(params: ModelParams) -> ModelParams:
     scale = torch.where(amax > 0, amax * inv127, torch.ones_like(amax))
     q = torch.clamp(torch.round(f / scale[..., None]), -127, 127).to(torch.int8)
     return dataclasses.replace(params, wcls=QWeight(q, scale))
+
+
+# ------------------------------------------------------------------ packed q4
+
+
+def unpack_q4(packed: torch.Tensor) -> torch.Tensor:
+    """Packed (..., K/2) int8 -> (..., K) int8 codes in [-8, 7]: the low
+    nibbles (codes 0..K/2-1), sign-extended, then the high nibbles (an
+    arithmetic shift)."""
+    w = packed.to(torch.int32)
+    lo = ((w & 0xF) ^ 8) - 8
+    return torch.cat([lo, w >> 4], dim=-1).to(torch.int8)
+
+
+def _pack_q4_codes(q: torch.Tensor) -> torch.Tensor:
+    """int codes in [-8, 7] of shape (..., K) -> packed (..., K/2) int8."""
+    k = q.shape[-1]
+    lo, hi = q[..., : k // 2].to(torch.int32), q[..., k // 2 :].to(torch.int32)
+    u = ((hi & 0xF) << 4) | (lo & 0xF)  # 0..255
+    return torch.where(u > 127, u - 256, u).to(torch.int8)
+
+
+def _q4_slab(f: torch.Tensor, group: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """f32 (..., D, K) -> (packed (..., D, K/2) int8, scale (..., D, K/g)):
+    per (row, group) scale absmax/7 (1 for an all-zero group), codes
+    round(v / scale) half to even, clipped to [-8, 7]. The JAX recode runs
+    compiled, where XLA turns the division by 7 into a multiply by the f32
+    reciprocal of 7; the scale here is that product, so both give the same
+    bits. The codes divide by the scale (IEEE division, a tensor divisor)."""
+    *lead, d, k = f.shape
+    fg = f.reshape(*lead, d, k // group, group)
+    amax = fg.abs().amax(dim=-1)
+    inv7 = torch.tensor(1.0 / 7.0, dtype=torch.float32, device=f.device)
+    sc = torch.where(amax > 0, amax * inv7, torch.ones_like(amax))
+    q = torch.clamp(torch.round(fg / sc[..., None]), -8, 7)
+    return _pack_q4_codes(q.reshape(f.shape)), sc
+
+
+def recode_qweight_q4(qw: QWeight, group: int) -> QWeight:
+    """Re-code one i8/q8/float QWeight to packed 4-bit with per-(row, group)
+    scales, bit-equal to the JAX package's ``recode_qweight_q4``. The f32
+    temporary is one layer (stacked (L, D, K)) or one expert (stacked
+    (L, E, D, K)) at a time, as in the reference; the new tensors are made
+    on the weight's device."""
+    if qw.q4group:
+        return qw
+    k = qw.values.shape[-1]
+    if k % (2 * group) or group % 128:
+        raise ValueError(f"q4 group {group} must be a 128-multiple dividing K/2={k // 2}")
+    v, s = qw.values, qw.scale
+    lead = v.shape[:-2]
+    flat_v = v.reshape(-1, *v.shape[-2:])
+    flat_s = None if s is None else s.reshape(-1, s.shape[-1])
+    packed = torch.empty((*flat_v.shape[:-1], k // 2), dtype=torch.int8, device=v.device)
+    scale = torch.empty((*flat_v.shape[:-1], k // group), dtype=torch.float32, device=v.device)
+    for i in range(flat_v.shape[0]):
+        f = flat_v[i].to(torch.float32)
+        if flat_s is not None:
+            f = f * flat_s[i][:, None]
+        elif v.dtype == torch.int8:
+            f = f * Q8_FIXED_SCALE
+        packed[i], scale[i] = _q4_slab(f, group)
+        del f
+    return QWeight(packed.reshape(*lead, *packed.shape[-2:]),
+                   scale.reshape(*lead, *scale.shape[-2:]), group)
+
+
+def recode_params_q4(params: ModelParams, group: int = 512) -> ModelParams:
+    """Re-code the four body weights (wqkv/wo/w13/w2, or for MoE wqkv/wo and
+    the expert stacks) to packed 4-bit; embed, head, norms and the router
+    stay as they are (``recode_params_q4`` of the JAX package). Each weight
+    is replaced as soon as it is recoded, so its source can be freed."""
+    lp = params.layers
+    names = ("wqkv", "wo", "w13e", "w2e") if lp.w13 is None else ("wqkv", "wo", "w13", "w2")
+    layers = dataclasses.replace(lp)
+    for name in names:
+        setattr(layers, name, recode_qweight_q4(getattr(layers, name), group))
+    return dataclasses.replace(params, layers=layers)

@@ -42,9 +42,9 @@ NVCC_FLAGS = [
 ]
 # source file -> kernel wrappers it backs
 KERNELS = {
-    "qmatmul": ("qmatmul", "qmatmul_multi"),
+    "qmatmul": ("qmatmul", "qmatmul_multi", "qmatmul_q4", "qmatmul_a8"),
     "attention": ("kv_update", "flash_decode", "flash_prefill", "kv_update_q", "flash_decode_q"),
-    "fused_decode": ("fused_decode",),
+    "fused_decode": ("fused_decode", "fused_decode_a8", "fused_decode_q4"),
 }
 LAUNCHES: dict[str, int] = {k: 0 for ks in KERNELS.values() for k in ks}
 
@@ -142,6 +142,10 @@ SIGNATURES = {
         "xq_qmatmul": (_I, [_P, _P, _F, _P, _I, _P, _F, _P, _P, _I, _I, _I, _P]),
         # x, w, w_is_bf16, scale, qscale, idxs, y, k, m, shared_x, N, D, LE, stream
         "xq_qmatmul_multi": (_I, [_P, _P, _I, _P, _F, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+        # x, w (packed), scale (D, N/group), xq, sx, y, M, N, D, group, stream
+        "xq_qmatmul_q4": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+        # x, w, scale, qscale, xq, sx, y, M, N, D, stream
+        "xq_qmatmul_a8": (_I, [_P, _P, _P, _F, _P, _P, _P, _I, _I, _I, _P]),
     },
     "attention": {
         # ck, cv, knew, vnew, kv_pos, rotate, cexp, sexp, B, KH, S, hd, stream

@@ -17,8 +17,20 @@ It takes the i8 body with per-row scales and a float cache, or an int8
 cache with its per-row f32 scale planes (``k_scale``/``v_scale``, the
 JAX kernel's ``quant`` branch: the K and V rows quantised on insert, the
 sinks dequantised, rotated and requantised, the scales factored out of the
-attention dots). W8A8 (``a8``) and packed-q4 bodies and the family folds
-belong to later slices and are refused. ``fused_decode_step`` launches the
+attention dots). Its weight phases run one of three bodies:
+
+- the i8 body with bf16 activations (the default);
+- ``a8=True`` (W8A8 decode, the JAX kernel's ``_a8dot``): each phase's f32
+  input row (the normed x, attn, act, and the normed x of an i8 head) is
+  quantised per row to int8 codes (``quant_rows``), the dots are s8 x s8,
+  then times the row scale and x's scale;
+- a packed-q4 body (``q4group`` on the four weights, which implies ``a8``;
+  the JAX kernel's ``_q4dot``): the same codes against the packed rows, one
+  exact dot per group times its (row, group) scale, summed in group order,
+  times x's scale. The group scales stay in the container's (L, D, K/g)
+  layout.
+
+The family folds belong to later slices. ``fused_decode_step`` launches the
 kernel for CUDA caches (bf16, or int8 with scales) and raises on anything
 it does not take; for CPU caches it runs ``fused_decode_step_plain``, the
 same function in plain PyTorch. Both update the caches (and scale planes)
@@ -33,7 +45,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from xalm_tpu_torch.models.params import ffn_chunk, split_qkv_rows, split_w13_rows
+from xalm_tpu_torch.models.params import QWeight, ffn_chunk, split_qkv_rows, split_w13_rows
 from xalm_tpu_torch.ops import attention as attn_ops
 from xalm_tpu_torch.ops import build
 from xalm_tpu_torch.ops.qmatmul import qmatmul_plain
@@ -57,13 +69,23 @@ def _is_i8_rows(qw) -> bool:
     return qw.values.dtype == torch.int8 and qw.scale is not None
 
 
+def _q4_body(lp) -> int:
+    """The body's q4 group, 0 for an int8 body; -1 where the four weights
+    do not share one."""
+    groups = {qw.q4group for qw in (lp.wqkv, lp.wo, lp.w13, lp.w2)}
+    return groups.pop() if len(groups) == 1 else -1
+
+
 def fused_step_supported(cfg, params, cache_k, batch: int, t: int, k_scale=None,
                          a8: bool = False) -> bool:
     """Does a (batch, t) step take the megakernel path? t = 1, 1 <= batch
-    <= MAX_B, a dense i8 body with per-row scales, and a bf16 or f32 cache,
-    or an int8 cache with its scale planes (``k_scale``). W8A8 and packed
-    q4 are later slices."""
-    if t != 1 or not 1 <= batch <= MAX_B or a8:
+    <= MAX_B, a dense int8 body with per-row scales (or packed q4 with group
+    scales), and a bf16 or f32 cache, or an int8 cache with its scale planes
+    (``k_scale``). A q4 body needs ``a8``, one group size on all four
+    weights and a group that is a multiple of 128: the JAX gate's rules. Its
+    48 MB scale budget is a rule of the TPU's VMEM and is not carried over;
+    the kernel's own limits are in csrc/ (the wrapper raises past them)."""
+    if t != 1 or not 1 <= batch <= MAX_B:
         return False
     if k_scale is not None:
         if cache_k.dtype != torch.int8:
@@ -73,8 +95,10 @@ def fused_step_supported(cfg, params, cache_k, batch: int, t: int, k_scale=None,
     lp = params.layers
     if getattr(lp, "w13", None) is None:  # MoE FFN
         return False
-    return all(_is_i8_rows(qw) and not getattr(qw, "q4group", 0)
-               for qw in (lp.wqkv, lp.wo, lp.w13, lp.w2))
+    if not all(_is_i8_rows(qw) for qw in (lp.wqkv, lp.wo, lp.w13, lp.w2)):
+        return False
+    q4 = _q4_body(lp)
+    return q4 == 0 or (q4 > 0 and a8 and q4 % 128 == 0)
 
 
 def embed_fold_supported(cfg, params) -> bool:
@@ -97,12 +121,13 @@ def _need(cond: bool, msg: str) -> None:
 
 def _check(params, cfg, x0, cache_k, cache_v, wcls, out_norm, embed, token, pos, freqs,
            k_scale, v_scale, a8) -> None:
-    _need(not a8, "W8A8 decode is a later slice")
     lp = params.layers
     for name in ("wqkv", "wo", "w13", "w2"):
-        qw = getattr(lp, name)
-        _need(_is_i8_rows(qw) and not getattr(qw, "q4group", 0),
-              f"{name} must be int8 with per-row scales (no q4)")
+        _need(_is_i8_rows(getattr(lp, name)),
+              f"{name} must be int8 with per-row (or q4 group) scales")
+    q4 = _q4_body(lp)
+    _need(q4 >= 0, "a q4 body needs one group size on wqkv, wo, w13 and w2")
+    _need(not q4 or a8, "the q4 body needs int8 activations (a8)")
     _need(cache_k.shape == cache_v.shape and cache_k.dim() == 5, "caches (L, B, KH, S, hd)")
     if k_scale is not None or v_scale is not None:
         _need(cache_k.dtype == cache_v.dtype == torch.int8,
@@ -133,7 +158,9 @@ def fused_decode_step_plain(params, cfg, x0, cache_k, cache_v, kv_pos, kv_len, r
                             a8: bool = False):
     """Plain version, built from the port's plain pieces with the kernel's
     numerics: rmsnorm outputs, attn and act are cast to bf16 before their
-    i8 matmuls (exact products, f32 sums, scale after). A float cache: q is
+    i8 matmuls (exact products, f32 sums, scale after); with ``a8`` or a
+    q4 body they are quantised per row instead, through ``qmatmul_plain``'s
+    a8 and q4 branches (the i8 head too). A float cache: q is
     f32 and pre-scaled by 1/sqrt(hd) (inside ``flash_decode_plain``); the K
     and V rows are rounded to the cache type; scores and p are f32 over the
     f32-converted cache rows; the sink rows are rotated from the cache-typed
@@ -168,9 +195,20 @@ def fused_decode_step_plain(params, cfg, x0, cache_k, cache_v, kv_pos, kv_len, r
     def rope(v):  # (B, heads, hd): v*cexp + swap(v)*sexp
         return attn_ops._rope_lane(v, cexp[:, None], sexp[:, None])
 
+    def mm(xin, qw, layer, norm_w=None):
+        """One weight phase: bf16 activations, or under a8 / q4 the f32 row
+        (normed first) quantised per row."""
+        if not (a8 or qw.q4group):
+            return qmatmul_plain(xin, qw.values, layer, norm_w=norm_w,
+                                 norm_eps=eps if norm_w is not None else None, scale=qw.scale)
+        if norm_w is not None:
+            ms = torch.mean(xin * xin, dim=-1, keepdim=True)
+            xin = xin * torch.rsqrt(ms + eps) * norm_w[layer]
+        return qmatmul_plain(xin, qw.values, layer, scale=qw.scale, q4_group=qw.q4group,
+                             a8=not qw.q4group)
+
     for layer in range(L):
-        qkv = qmatmul_plain(x, lp.wqkv.values, layer, norm_w=lp.attn_norm, norm_eps=eps,
-                            scale=lp.wqkv.scale)
+        qkv = mm(x, lp.wqkv, layer, lp.attn_norm)
         q, k, v = split_qkv_rows(qkv, kh, g, hd)
         if clip is not None:
             q, k, v = (torch.clamp(z, -clip, clip) for z in (q, k, v))
@@ -185,16 +223,13 @@ def fused_decode_step_plain(params, cfg, x0, cache_k, cache_v, kv_pos, kv_len, r
             attn_ops.kv_update_plain(cache_k, cache_v, layer, k, v.reshape(b, kh, hd), kv_pos,
                                      rotate, c1, s1)
             attn = attn_ops.flash_decode_plain(q, cache_k, cache_v, layer, kv_len)
-        x = x + qmatmul_plain(attn, lp.wo.values, layer, scale=lp.wo.scale)
-        gate, up = split_w13_rows(
-            qmatmul_plain(x, lp.w13.values, layer, norm_w=lp.mlp_norm, norm_eps=eps,
-                          scale=lp.w13.scale), c13)
-        x = x + qmatmul_plain(F.silu(gate) * up, lp.w2.values, layer, scale=lp.w2.scale)
+        x = x + mm(attn, lp.wo, layer)
+        gate, up = split_w13_rows(mm(x, lp.w13, layer, lp.mlp_norm), c13)
+        x = x + mm(F.silu(gate) * up, lp.w2, layer)
     caches = (cache_k, cache_v) + ((k_scale, v_scale) if k_scale is not None else ())
     if wcls is None:
         return (x, *caches)
-    logits = qmatmul_plain(x, wcls.values[None], 0, norm_w=out_norm.reshape(1, -1),
-                           norm_eps=eps, scale=wcls.scale[None])
+    logits = mm(x, QWeight(wcls.values[None], wcls.scale[None]), 0, out_norm.reshape(1, -1))
     return (x, logits, torch.argmax(logits, dim=-1).to(torch.int32), *caches)
 
 
@@ -293,8 +328,11 @@ def fused_decode_step(params, cfg, x0, cache_k, cache_v, kv_pos, kv_len, rotate,
         ptr(wcls.scale) if v else None, cache_k.data_ptr(), cache_v.data_ptr(),
         xout.data_ptr(), ptr(logits), ptr(tok), work.data_ptr(), ptr(k_scale), ptr(v_scale),
     ]
+    q4 = lp.wqkv.q4group
+    body = 2 if q4 else 1 if a8 else 0  # bf16 activations, a8, q4
     dims = [L, b, cfg.dim, kh, cfg.n_heads // kh, hd, cfg.hidden_dim, s, v,
-            ffn_chunk(cfg.hidden_dim), 2 if quant else 1]  # the cache kind: 1 bf16, 2 int8
+            ffn_chunk(cfg.hidden_dim), 2 if quant else 1,  # the cache kind: 1 bf16, 2 int8
+            body, q4]
     clip = float(cfg.qkv_clip) if math.isfinite(cfg.qkv_clip) else math.inf
     err = lib.xq_fused_decode(
         ctypes.cast((ctypes.c_void_p * len(ptrs))(*ptrs), ctypes.c_void_p),
@@ -303,7 +341,7 @@ def fused_decode_step(params, cfg, x0, cache_k, cache_v, kv_pos, kv_len, rotate,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(err, "fused_decode_step")
-    build.LAUNCHES["fused_decode"] += 1
+    build.LAUNCHES[("fused_decode", "fused_decode_a8", "fused_decode_q4")[body]] += 1
     caches = (cache_k, cache_v) + ((k_scale, v_scale) if quant else ())
     if v:
         return (xout, logits, tok, *caches)

@@ -6,8 +6,20 @@ and ``pallas_qmatmul``; CUDA source ``csrc/qmatmul.cu``).
 
 with W int8 (`i8` per-row scale epilogue, or `q8` x 1/100) or bf16. On the
 H100 the decode shapes (M <= 8) are bound by the weight bytes and run as a
-GEMV; larger M runs a tiled tensor-core GEMM (see the source's note). The
-a8, packed-q4 and fp8 variants of the TPU kernel are later slices.
+GEMV; larger M runs a tiled tensor-core GEMM (see the source's note).
+
+Two more branches of the same TPU kernel quantise x to int8 per row
+(absmax/127, round half to even, clip; ``quant_rows``) and multiply the
+output by x's row scale last:
+
+- ``a8=True`` (W8A8, the prefill branch under ``a8_prefill``): int8 x times
+  int8 W, exact int32 sums, then the weight's row scale or the q8 1/100,
+  then x's scale (``xq_qmatmul_a8``, an s8 tensor-core GEMM);
+- ``q4_group=g`` (packed q4, m < 256): per group of g codes an exact int32
+  dot, times that (row, group)'s f32 scale, summed in f32 in group order,
+  then x's scale (``xq_qmatmul_q4``, a GEMV over the packed rows).
+
+The fp8 and f32 variants of the TPU kernel are later slices.
 
 Row 8 of the TPU kernels, the same kernel through
 ``pallas_qmatmul_stacked_multi``, is ``qmatmul_multi``: the gathered top-k
@@ -23,8 +35,9 @@ from __future__ import annotations
 
 import torch
 
-from xalm_tpu_torch.models.params import Q8_FIXED_SCALE
+from xalm_tpu_torch.models.params import Q8_FIXED_SCALE, unpack_q4
 from xalm_tpu_torch.ops import build
+from xalm_tpu_torch.ops.attention import quant_rows
 
 __all__ = [
     "qmatmul",
@@ -40,6 +53,46 @@ def supported_weight_dtype(dtype: torch.dtype) -> bool:
     return dtype in (torch.int8, torch.bfloat16)
 
 
+def _check_quant_x(values, norm_w, q4_group: int, a8: bool, m: int) -> None:
+    """The TPU wrapper's rules for the branches that quantise x (``:216-222``)."""
+    _need(values.dtype == torch.int8 and norm_w is None,
+          "a8 and q4 need int8 weights and no norm prologue")
+    if q4_group:
+        _need(not a8, "q4 and a8 are separate branches")
+        _need(m < 256, f"q4 takes decode shapes only (m={m} < 256)")
+
+
+def _a8_plain(x, values, layer, scale, q8_scale) -> torch.Tensor:
+    """W8A8: s8 x s8 products summed exactly (in f64, where every partial of
+    a row is an integer below 2^31), then as the kernel's int32 sum to f32,
+    times the row scale or the q8 scale, times x's row scale."""
+    xq, sx = quant_rows(x)
+    y = torch.matmul(xq.to(torch.float64), values[layer].to(torch.float64).T).to(torch.float32)
+    if scale is not None:
+        y = y * scale[layer]
+    elif q8_scale is not None:
+        y = y * q8_scale
+    return y * sx[:, None]
+
+
+def _q4_plain(x, values, layer, scale, group: int) -> torch.Tensor:
+    """Packed q4: one exact integer dot per group of ``group`` codes (f64
+    again), each to f32 times its (row, group) scale, summed in f32 in
+    group order (the low nibbles' groups, then the high ones'), then times
+    x's row scale."""
+    xq, sx = quant_rows(x)
+    m, n = xq.shape
+    codes = unpack_q4(values[layer])  # (D, N)
+    ng = n // group
+    dots = torch.einsum("mgk,dgk->gmd", xq.reshape(m, ng, group).to(torch.float64),
+                        codes.reshape(-1, ng, group).to(torch.float64)).to(torch.float32)
+    s = scale[layer]  # (D, ng)
+    acc = dots[0] * s[:, 0]
+    for g in range(1, ng):
+        acc = acc + dots[g] * s[:, g]
+    return acc * sx[:, None]
+
+
 def qmatmul_plain(
     x: torch.Tensor,
     values: torch.Tensor,
@@ -49,11 +102,20 @@ def qmatmul_plain(
     norm_eps: float | None = None,
     scale: torch.Tensor | None = None,
     q8_scale: float | None = None,
+    q4_group: int = 0,
+    a8: bool = False,
 ) -> torch.Tensor:
-    """Plain version: x (M, N) f32, values (L, D, N) -> (M, D) f32. x is cast
-    to bf16 after the optional norm (f32 weights keep f32, as on the TPU);
-    the products are exact in f32 and summed in f32."""
+    """Plain version: x (M, N) f32, values (L, D, N) (q4: (L, D, N/2) with
+    (L, D, N/g) group scales) -> (M, D) f32. x is cast to bf16 after the
+    optional norm (f32 weights keep f32, as on the TPU); the products are
+    exact in f32 and summed in f32. ``a8`` and ``q4_group`` quantise x per
+    row instead (see the module docstring)."""
     x = x.to(torch.float32)
+    if a8 or q4_group:
+        _check_quant_x(values, norm_w, q4_group, a8, x.shape[0])
+        if q4_group:
+            return _q4_plain(x, values, layer, scale, q4_group)
+        return _a8_plain(x, values, layer, scale, q8_scale)
     if norm_w is not None:
         ms = torch.mean(x * x, dim=-1, keepdim=True)
         x = x * torch.rsqrt(ms + norm_eps) * norm_w[layer].to(torch.float32)
@@ -83,12 +145,18 @@ def qmatmul(
     norm_eps: float | None = None,
     scale: torch.Tensor | None = None,
     q8_scale: float | None = None,
+    q4_group: int = 0,
+    a8: bool = False,
 ) -> torch.Tensor:
-    """y[M, D] = [scale *] values[layer] @ bf16(rmsnorm?(x))^T, fused."""
+    """y[M, D] = [scale *] values[layer] @ bf16(rmsnorm?(x))^T, fused; with
+    ``a8`` or ``q4_group`` the int8-activation branches (module docstring)."""
     if not x.is_cuda:
         return qmatmul_plain(
-            x, values, layer, norm_w=norm_w, norm_eps=norm_eps, scale=scale, q8_scale=q8_scale
+            x, values, layer, norm_w=norm_w, norm_eps=norm_eps, scale=scale, q8_scale=q8_scale,
+            q4_group=q4_group, a8=a8,
         )
+    if a8 or q4_group:
+        return _qmatmul_quant_x(x, values, layer, scale, q8_scale, q4_group, a8, norm_w)
     m, n = x.shape
     l, d, n2 = values.shape
     _need(supported_weight_dtype(values.dtype), f"weight dtype {values.dtype} (int8/bf16 only)")
@@ -118,6 +186,47 @@ def qmatmul(
                          torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "qmatmul")
     build.LAUNCHES["qmatmul"] += 1
+    return y
+
+
+def _qmatmul_quant_x(x, values, layer, scale, q8_scale, q4_group, a8, norm_w) -> torch.Tensor:
+    """The a8 and q4 launches: the kernel quantises x per row into ``xq``
+    and ``sx`` (scratch the wrapper allocates), then runs the GEMM or GEMV."""
+    m, n = x.shape
+    l, d, nw = values.shape
+    _check_quant_x(values, norm_w, q4_group, a8, m)
+    _need(x.dtype == torch.float32 and x.is_contiguous(), "x must be contiguous f32")
+    _need(values.is_cuda and values.is_contiguous(), "weights must be contiguous on the card")
+    _need(0 <= layer < l, f"layer {layer} out of range")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    lib = build.load_library("qmatmul")
+    y = torch.empty((m, d), dtype=torch.float32, device=x.device)
+    xq = torch.empty((m, n), dtype=torch.int8, device=x.device)
+    sx = torch.empty((m,), dtype=torch.float32, device=x.device)
+    w_ptr = values.data_ptr() + layer * d * nw
+    if q4_group:
+        ng = n // q4_group
+        _need(n == 2 * nw and ng * q4_group == n,
+              f"x {tuple(x.shape)} vs packed weights {tuple(values.shape)}, group {q4_group}")
+        _need(scale is not None and scale.dtype == torch.float32 and scale.shape == (l, d, ng)
+              and scale.is_contiguous() and scale.is_cuda,
+              "q4 needs contiguous (L, D, N/group) f32 group scales")
+        err = lib.xq_qmatmul_q4(x.data_ptr(), w_ptr, scale.data_ptr() + layer * d * ng * 4,
+                                xq.data_ptr(), sx.data_ptr(), y.data_ptr(), m, n, d, q4_group,
+                                stream)
+        build.check(err, "qmatmul q4")
+        build.LAUNCHES["qmatmul_q4"] += 1
+        return y
+    _need(n == nw, f"x {tuple(x.shape)} vs weights {tuple(values.shape)}")
+    if scale is not None:
+        _need(scale.dtype == torch.float32 and scale.shape == (l, d) and scale.is_contiguous()
+              and scale.is_cuda, "scale must be contiguous (L, D) f32")
+    qs = float(q8_scale) if (scale is None and q8_scale is not None) else 0.0
+    err = lib.xq_qmatmul_a8(x.data_ptr(), w_ptr, None if scale is None else
+                            scale.data_ptr() + layer * d * 4, qs, xq.data_ptr(), sx.data_ptr(),
+                            y.data_ptr(), m, n, d, stream)
+    build.check(err, "qmatmul a8")
+    build.LAUNCHES["qmatmul_a8"] += 1
     return y
 
 

@@ -55,7 +55,7 @@ class KVCache:
         return (cfg.n_layers, batch, cfg.n_kv_heads, s_pad, cfg.head_dim)
 
     @classmethod
-    def init(cls, cfg: ModelConfig, batch: int, dtype=torch.float16, device="cpu") -> "KVCache":
+    def init(cls, cfg: ModelConfig, batch: int, dtype=torch.float16, device="cuda") -> "KVCache":
         shape = cls.plane_shape(cfg, batch)
         zeros = lambda sh, dt: torch.zeros(sh, dtype=dt, device=device)  # noqa: E731
         if dtype == torch.int8:

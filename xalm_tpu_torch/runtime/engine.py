@@ -10,7 +10,10 @@ JAX engine, so both run the same shapes.
 Decode is one forward call per token (the JAX engine's ``segment=1``); a
 decode step runs the whole-step megakernel where ``fused_step`` allows and
 its gate passes (``decode_path``), else the per-layer kernels (always for
-MoE, whose B = 1 steps gather the chosen experts). Stochastic
+MoE, whose B = 1 steps gather the chosen experts). ``a8_decode`` runs the
+megakernel's int8-activation body (and the q4 GEMV per layer),
+``a8_prefill`` the W8A8 GEMM on prefill chunks; ``from_xalm(q4_group=g)``
+packs the body to q4 at load and implies ``a8_decode``. Stochastic
 sampling, sessions and speculation are later slices.
 """
 
@@ -27,7 +30,12 @@ import torch
 from xalm_tpu_torch.io import XalmFile
 from xalm_tpu_torch.models.config import ModelConfig
 from xalm_tpu_torch.models.llama import IMPLS, forward, gathered_ok
-from xalm_tpu_torch.models.params import ModelParams, load_params, recode_wcls_i8
+from xalm_tpu_torch.models.params import (
+    ModelParams,
+    load_params,
+    recode_params_q4,
+    recode_wcls_i8,
+)
 from xalm_tpu_torch.ops.fused_decode import fused_step_supported
 from xalm_tpu_torch.runtime.cache import KVCache
 from xalm_tpu_torch.sampler import sample_argmax, token_logprobs
@@ -72,6 +80,8 @@ class Engine:
         kv_dtype="auto",
         compute_dtype="auto",
         matmul_impl: str = "auto",
+        a8_prefill: bool = False,
+        a8_decode: bool = False,
         fused_step: bool | str = "auto",
         wcls_i8: bool = False,
     ):
@@ -89,6 +99,8 @@ class Engine:
             (torch.bfloat16 if on_card else torch.float32) if compute_dtype == "auto" else compute_dtype
         )
         self.matmul_impl = "kernel" if matmul_impl == "auto" else matmul_impl
+        self.a8_prefill = a8_prefill
+        self.a8_decode = a8_decode
         self.fused_step = fused_step
         if self.matmul_impl not in IMPLS:
             raise ValueError(f"matmul_impl {matmul_impl!r}: one of auto, {', '.join(IMPLS)}")
@@ -110,18 +122,28 @@ class Engine:
         kv_dtype="auto",
         compute_dtype="auto",
         matmul_impl: str = "auto",
+        a8_prefill: bool = False,
+        a8_decode: bool = False,
+        q4_group: int = 0,
         fused_step: bool | str = "auto",
         wcls_i8: bool = False,
         device="cuda",
     ) -> "Engine":
+        """Load a container. ``q4_group`` > 0 re-codes the four body weights
+        to packed q4 on ``device`` once loaded (one layer's f32 temporary
+        at a time) and implies ``a8_decode``: the q4 dots take int8
+        activations."""
         with XalmFile(path) as xf:
             cfg = ModelConfig.from_metadata(xf.config, context)
             params = load_params(xf, cfg, device=device)
             tokenizer = Tokenizer.from_xalm(xf) if "tokenizer.tokens" in xf else None
+        if q4_group:
+            params = recode_params_q4(params, group=q4_group)
+            a8_decode = True
         return cls(
             cfg, params, tokenizer,
             kv_dtype=kv_dtype, compute_dtype=compute_dtype, matmul_impl=matmul_impl,
-            fused_step=fused_step, wcls_i8=wcls_i8,
+            a8_prefill=a8_prefill, a8_decode=a8_decode, fused_step=fused_step, wcls_i8=wcls_i8,
         )
 
     # ----------------------------------------------------------------- steps
@@ -132,16 +154,19 @@ class Engine:
     def decode_path(self, batch: int = 1) -> str:
         """Which implementation a (batch, T=1) decode step runs, from the
         forward's own gates: 'megakernel' (the whole-step kernel), 'perlayer'
-        (the per-layer kernels; on the CPU both run their plain versions), or
-        the impl name for 'plain' and 'xla'."""
+        (the per-layer kernels; on the CPU both run their plain versions),
+        'xla' for a q4 body that dequantizes (no ``a8_decode``, or batch >=
+        256), or the impl name for 'plain' and 'xla'."""
         if self.matmul_impl != "kernel":
             return self.matmul_impl
         shape = KVCache.plane_shape(self.cfg, batch)
         cache_k = torch.empty(shape, dtype=self.kv_dtype, device="meta")
         k_scale = torch.empty(shape[:-1], device="meta") if self.kv_dtype == torch.int8 else None
         if self.fused_step and fused_step_supported(self.cfg, self.params, cache_k, batch, 1,
-                                                    k_scale=k_scale):
+                                                    k_scale=k_scale, a8=self.a8_decode):
             return "megakernel"
+        if self.params.layers.wqkv.q4group and (batch >= 256 or not self.a8_decode):
+            return "xla"
         return "perlayer"
 
     def step(self, tokens, pos, cache: KVCache, valid=None, logits_mode="last"):
@@ -157,6 +182,7 @@ class Engine:
                 self.params, self.cfg, tokens, pos, cache, valid,
                 logits_mode=logits_mode, compute_dtype=self.compute_dtype,
                 impl=self.matmul_impl, fused_step=self.fused_step,
+                a8_prefill=self.a8_prefill, a8_decode=self.a8_decode,
             )
 
     def decode(self, tokens, pos, cache: KVCache):
@@ -284,15 +310,19 @@ class Engine:
 
     @functools.cached_property
     def _per_token_weight_bytes(self) -> int:
-        """Weight bytes a decode step reads. MoE: the k/E share of the expert
-        stacks where B = 1 decode gathers the chosen experts (the per-layer
-        paths, a dtype the gather takes), all E otherwise, and the router."""
+        """Weight bytes a decode step reads: q4 weights count their packed
+        bytes and group scales. MoE: the k/E share of the expert stacks where
+        B = 1 decode gathers the chosen experts (the per-layer paths, a dtype
+        the gather takes; q4 experts under ``a8_decode``, the JAX rule), all
+        E otherwise, and the router."""
         cfg, p = self.cfg, self.params
         lw = p.layers
         total = sum(w.nbytes() for w in (lw.wqkv, lw.wo, lw.w13, lw.w2) if w is not None)
         if lw.w13e is not None:
             experts = lw.w13e.nbytes() + lw.w2e.nbytes()
-            if gathered_ok(lw.w13e, self.matmul_impl):
+            gathered = (self.a8_decode and self.matmul_impl != "xla") if lw.w13e.q4group else \
+                gathered_ok(lw.w13e, self.matmul_impl)
+            if gathered:
                 experts = experts * cfg.n_experts_active // max(cfg.n_experts, 1)
             total += experts + 4 * lw.wgate.nelement()
         total += 4 * (lw.attn_norm.nelement() + lw.mlp_norm.nelement() + p.out_norm.nelement())

@@ -9,7 +9,9 @@ weights need no interleave pass): int8 bodies with per-row
 ``scale_mag/127`` scales, bf16 embed and head, f32 unit norms; for MoE a
 ``randn * 0.3`` f32 router and int8 expert stacks. int8 codes are drawn
 straight into an int8 tensor (Mixtral's (L, E, 2h, d) stack is 30.1 GB; a
-wider transient would not fit beside it).
+wider transient would not fit beside it). ``q4_group`` > 0 then packs the
+body to q4 on ``device`` with ``recode_params_q4`` (one layer's f32
+temporary at a time), as ``Engine.from_xalm(q4_group=)`` does at load.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from xalm_tpu_torch.models.config import ModelConfig
-from xalm_tpu_torch.models.params import LayerParams, ModelParams, QWeight
+from xalm_tpu_torch.models.params import LayerParams, ModelParams, QWeight, recode_params_q4
 
 __all__ = ["synthetic_params"]
 
@@ -31,9 +33,10 @@ def _qweight(gen, shape, dtype, device, scale_mag=0.02) -> QWeight:
     return QWeight(w.mul_(scale_mag), None)
 
 
-def synthetic_params(cfg: ModelConfig, device="cuda", seed: int = 42) -> ModelParams:
+def synthetic_params(cfg: ModelConfig, device="cuda", seed: int = 42,
+                     q4_group: int = 0) -> ModelParams:
     """Random ModelParams at cfg's shapes on ``device`` (dense, or MoE when
-    ``cfg.n_experts``)."""
+    ``cfg.n_experts``); the body packed to q4 when ``q4_group`` > 0."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     L, d, h, q, kv, v = (
@@ -56,4 +59,5 @@ def synthetic_params(cfg: ModelConfig, device="cuda", seed: int = 42) -> ModelPa
         layers.w2 = _qweight(gen, (L, d, h), torch.int8, device)
     embed = _qweight(gen, (v, d), torch.bfloat16, device, scale_mag=0.05)
     wcls = embed if cfg.tie_word_embeddings else _qweight(gen, (v, d), torch.bfloat16, device, 0.05)
-    return ModelParams(embed=embed, layers=layers, out_norm=ones(d), wcls=wcls)
+    params = ModelParams(embed=embed, layers=layers, out_norm=ones(d), wcls=wcls)
+    return recode_params_q4(params, q4_group) if q4_group else params
