@@ -276,6 +276,28 @@ def phase_parity(params, cfg, cases: Cases) -> None:
                   lambda: A.kv_update_plain(ck, cv, next(layers), *args),
                   None, nbytes, 0.0, PEAK_F32)
 
+    attention_cases(cfg, cases, gen, ck, cv)
+    del ck, cv
+    torch.cuda.empty_cache()
+    phase_parity_int8(cfg, cases, gen, cexp, sexp)
+
+
+def attention_cases(cfg, cases: Cases, gen, ck, cv, tag: str = "") -> None:
+    """Kernels 3 and 4 (``flash_decode``, ``flash_prefill``; with ``tag``
+    their records are named ``flash_decode<tag>``, ``flash_prefill<tag>``)
+    against their plain versions on the bf16 planes ``ck``/``cv`` at cfg's
+    shapes, beside SDPA with ``enable_gqa`` (its bf16 q): flash_decode at
+    kv_len 0, 1, 777 and the window, flash_prefill of a 512-row chunk at
+    positions 0 and 1024. Layers cycle so every launch streams cold."""
+    import torch
+    import torch.nn.functional as F
+
+    from xalm_tpu_torch.ops import attention as A
+
+    dev = torch.device(DEVICE)
+    L, kh, hd, h = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim, cfg.n_heads
+    randn = lambda *s: torch.randn(s, generator=gen, device=dev, dtype=torch.float32)  # noqa: E731
+    i32 = lambda *v: torch.tensor(v, dtype=torch.int32, device=dev)  # noqa: E731
     for kvl in (0, 1, 777, cfg.max_seq_len):
         q = randn(1, h, hd)
         kv_len = i32(kvl)
@@ -292,7 +314,7 @@ def phase_parity(params, cfg, cases: Cases) -> None:
                 return F.scaled_dot_product_attention(
                     qb, ck[7 % L, :, :, :kvl], cv[7 % L, :, :, :kvl], enable_gqa=True)
         # f32 dots and softmax on both sides, in a different order
-        cases.add("flash_decode", f"B=1 kv_len={kvl}", got, want, hd, 1e-5,
+        cases.add("flash_decode" + tag, f"B=1 kv_len={kvl}", got, want, hd, 1e-5,
                   lambda: A.flash_decode(q, ck, cv, next(layers), kv_len),
                   lambda: A.flash_decode_plain(q, ck, cv, next(layers), kv_len),
                   lib, 2 * kvl * kh * hd * 2 + 2 * h * hd * 4, 4.0 * h * kvl * hd, PEAK_F32)
@@ -318,14 +340,11 @@ def phase_parity(params, cfg, cases: Cases) -> None:
         # exact bf16 products differ in order; a score that moves by an f32
         # ulp can flip one bf16 rounding of p, by 2^-8 of a p that may
         # dominate its row: 2^-8 of the row's max
-        cases.add("flash_prefill", f"T={t} pos={p0}", got, want, hd, 2.0 ** -8,
+        cases.add("flash_prefill" + tag, f"T={t} pos={p0}", got, want, hd, 2.0 ** -8,
                   lambda: A.flash_prefill(q, ck, cv, next(layers), pos),
                   lambda: A.flash_prefill_plain(q, ck, cv, next(layers), pos),
                   lib, 2 * kend * kh * hd * 2 + 2 * t * h * hd * 4,
                   4.0 * visible * h * hd, PEAK_BF16)
-    del ck, cv
-    torch.cuda.empty_cache()
-    phase_parity_int8(cfg, cases, gen, cexp, sexp)
 
 
 # why no library call stands beside the q4 GEMV
@@ -461,14 +480,26 @@ def phase_parity_int8(cfg, cases: Cases, gen, cexp, sexp) -> None:
                   None, nbytes, 0.0, PEAK_F32, extra={"library_note": NO_LIBRARY_INT8})
         del full, one, p1, p2
 
-    full = planes(1)
+    decode_q_cases(cfg, cases, planes(1), gen)
+
+
+def decode_q_cases(cfg, cases: Cases, full, gen, tag: str = "") -> None:
+    """Kernel 7 (``flash_decode_q``, named ``flash_decode_q<tag>``) against
+    its plain version on the int8 planes ``full`` (codes and scales) at
+    kv_len 1, 520, 777 and the window, to 1e-3 (see phase_parity_int8)."""
+    import torch
+
+    from xalm_tpu_torch.ops import attention as A
+
+    dev = torch.device(DEVICE)
+    L, kh, hd, h, S = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim, cfg.n_heads, cfg.max_seq_len
     for kvl in (1, 520, 777, S):
         q = torch.randn((1, h, hd), generator=gen, device=dev)
-        kv_len = i32(kvl)
+        kv_len = torch.tensor([kvl], dtype=torch.int32, device=dev)
         got = A.flash_decode_q(q, *full, 7 % L, kv_len)
         want = A.flash_decode_q_plain(q, *full, 7 % L, kv_len)
         layers = itertools.cycle(range(L))
-        cases.add("flash_decode_q", f"B=1 kv_len={kvl}", got, want, hd, 1e-3,
+        cases.add("flash_decode_q" + tag, f"B=1 kv_len={kvl}", got, want, hd, 1e-3,
                   lambda: A.flash_decode_q(q, *full, next(layers), kv_len),
                   lambda: A.flash_decode_q_plain(q, *full, next(layers), kv_len),
                   None, 2 * kvl * kh * (hd + 4) + 2 * h * hd * 4, 4.0 * h * kvl * hd, PEAK_F32,
@@ -547,8 +578,10 @@ def _layer_window(p, first: int, n: int):
 
     lp, sl = p.layers, slice(first, first + n)
     cut = lambda w: QWeight(w.values[sl], w.scale[sl], w.q4group)  # noqa: E731
+    opt = lambda t: None if t is None else t[sl]  # noqa: E731
     layers = dataclasses.replace(lp, attn_norm=lp.attn_norm[sl], mlp_norm=lp.mlp_norm[sl],
-                                 wqkv=cut(lp.wqkv), wo=cut(lp.wo), w13=cut(lp.w13), w2=cut(lp.w2))
+                                 wqkv=cut(lp.wqkv), wo=cut(lp.wo), w13=cut(lp.w13), w2=cut(lp.w2),
+                                 bqkv=opt(lp.bqkv), q_norm=opt(lp.q_norm), k_norm=opt(lp.k_norm))
     return dataclasses.replace(p, layers=layers)
 
 
@@ -573,14 +606,14 @@ def _exact_share(rels) -> float:
     return sum(r <= EXACT_TOL for r in rels) / len(rels)
 
 
-def _layer_rule(body: str, layer_rows: dict) -> dict:
+def _layer_rule(body: str, layer_rows: dict, kernel: str) -> dict:
     """The layer-by-layer rule of an int8-activation body over the rows of
     all its cases (see phase_fused_parity), and the control's."""
     def rule(rels):
         return {"rows": len(rels), "exact_share": _exact_share(rels), "max_row_rel": max(rels),
                 "ok": _exact_share(rels) >= EXACT_SHARE and max(rels) <= FUSED_TOL}
 
-    row = {"phase": "megakernel_layers", "body": body, "exact_tol": EXACT_TOL,
+    row = {"phase": "megakernel_layers", "kernel": kernel, "body": body, "exact_tol": EXACT_TOL,
            "min_exact_share": EXACT_SHARE, "tol_row_rel": FUSED_TOL, **rule(layer_rows["kernel"])}
     if layer_rows["control"]:
         row["control"] = {"what": "the kernel's bf16-activation body against the a8 plain version",
@@ -607,7 +640,21 @@ def quant_body_cases(S: int) -> tuple:
     )
 
 
-def phase_fused_parity(params, cfg, cases: Cases, body: str = "") -> dict | None:
+# the bf16 body's cases of phase_fused_parity: (int8 cache, case, positions,
+# embed fold, head fold, sentinel row)
+BF16_BODY_CASES = (
+    (False, "B=1 kv_len=520, embed fold", [519], True, False, None),
+    (False, "B=1 wrapped (sink rotation), embed + i8-head folds", [4096 + 700], True, True, None),
+    (False, "B=4, row 2 at the kv_pos == S sentinel", [519, 1200, 300, 4096 + 5], False, False, 2),
+    (True, "int8 KV, B=1 kv_len=520, embed fold", [519], True, False, None),
+    (True, "int8 KV, B=1 kv_len=4000, embed + i8-head folds", [3999], True, True, None),
+    (True, "int8 KV, B=4 kv_len=520, row 3 at the sentinel", [519] * 4, False, False, 3),
+    (True, "int8 KV, B=4 kv_len 520/4000/wrapped, row 3 at the sentinel",
+     [519, 3999, 4096 + 700, 300], False, False, 3))
+
+
+def phase_fused_parity(params, cfg, cases: Cases, body: str = "", kernel: str = "",
+                       only: tuple = ()) -> dict | None:
     """The megakernel against its plain version at full width and 32 layers
     (random planes). bf16 cache, three cases: (a) B=1 at kv_len 520 with the
     embed fold; (b) B=1 at a wrapped position (sink rotation) with the embed
@@ -644,7 +691,13 @@ def phase_fused_parity(params, cfg, cases: Cases, body: str = "") -> dict | None
     apart: the kernel's bf16-activation body (``a8=False``) on the same
     windows, against the a8 plain version, must fail it. (q4 has no
     bf16-activation body in either package; it quantises through the same
-    code as a8.)"""
+    code as a8.)
+
+    ``kernel`` names the records (the family folds: ``fused_decode_bias``,
+    ``fused_decode_qk_norm``, whose cases then carry the body in their
+    name), ``only`` keeps the cases of those indices; the grid barrier is
+    timed with the bf16 body's default run alone. The positions are those
+    of a 4096-slot window (every configuration's)."""
     import torch
 
     from xalm_tpu_torch.models.llama import rope_constants, rope_tables
@@ -664,23 +717,19 @@ def phase_fused_parity(params, cfg, cases: Cases, body: str = "") -> dict | None
     lp = params.layers
     w_elems = sum(w.values.numel() for w in (lp.wqkv, lp.wo, lp.w13, lp.w2))
     w_bytes = w_elems + 4 * sum(w.scale.numel() for w in (lp.wqkv, lp.wo, lp.w13, lp.w2)) + 8 * L * N
+    w_bytes += 4 * sum(t.numel() for t in (lp.bqkv, lp.q_norm, lp.k_norm) if t is not None)
     if body == "q4":
         w_elems *= 2  # two codes a byte: the multiply-adds
-    kernel = "fused_decode" + (f"_{body}" if body else "")
+    barrier = not (body or kernel or only)
+    kernel = kernel or "fused_decode" + (f"_{body}" if body else "")
     body_kw = dict(a8=True) if body else {}
     layer_rows = {"kernel": [], "control": []}  # the layer-by-layer rows of every case
+    if S != 4096:
+        raise AssertionError(f"phase_fused_parity: the cases are set for a 4096-slot window, not {S}")
+    all_cases = quant_body_cases(S) if body else BF16_BODY_CASES
 
-    for quant, case, pos_list, embed, head, sentinel in quant_body_cases(S) if body else (
-            (False, "B=1 kv_len=520, embed fold", [519], True, False, None),
-            (False, "B=1 wrapped (sink rotation), embed + i8-head folds", [S + 700], True, True,
-             None),
-            (False, "B=4, row 2 at the kv_pos == S sentinel", [519, 1200, 300, S + 5], False,
-             False, 2),
-            (True, "int8 KV, B=1 kv_len=520, embed fold", [519], True, False, None),
-            (True, "int8 KV, B=1 kv_len=4000, embed + i8-head folds", [3999], True, True, None),
-            (True, "int8 KV, B=4 kv_len=520, row 3 at the sentinel", [519] * 4, False, False, 3),
-            (True, "int8 KV, B=4 kv_len 520/4000/wrapped, row 3 at the sentinel",
-             [519, 3999, S + 700, 300], False, False, 3)):
+    for quant, case, pos_list, embed, head, sentinel in (
+            [all_cases[i] for i in only] if only else all_cases):
         b = len(pos_list)
         p = head_params if head else params
         pos = torch.tensor(pos_list, dtype=torch.int32)
@@ -833,7 +882,8 @@ def phase_fused_parity(params, cfg, cases: Cases, body: str = "") -> dict | None
         del ck, cv, ks, vs, k1, v1, k2, v2, k3, v3, kw1, kw2, kw3, got, want, floor
         torch.cuda.empty_cache()
     if body:
-        _layer_rule(body, layer_rows)
+        _layer_rule(body, layer_rows, kernel)
+    if not barrier:
         return None
 
     lib = build.load_library("fused_decode")
@@ -903,7 +953,9 @@ def _main_run(eng, cfg, prompt, label: str) -> dict:
         "bound_ms_per_token": weights_gb * 1e9 / HBM_BYTES_PER_S * 1e3,
         "launches": launches, "launches_per_512_chunk": per_chunk,
         "launches_per_decode_token": per_token,
-        "decode_device_busy_ms_per_token": prof["decode"]["device_busy_ms"] / prof["decode"]["steps"],
+        "decode_device_busy_ms_per_token": (
+            prof["decode"]["device_busy_ms"] / prof["decode"]["steps"]
+            if isinstance(prof["decode"]["device_busy_ms"], float) else "not measured"),
         "decode_device_idle_share": prof["decode"]["device_idle_share"],
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "tokens_head": out[:8],
@@ -1012,11 +1064,33 @@ _PROFILE_GROUPS = {
 }
 
 
-def _device_times(prof, int8: bool) -> tuple[dict, list]:
-    """Device time (ms) by kernel group, and the ten largest device entries
-    as (name, ms, count), from a torch.profiler run. Only the kernels' own
-    entries count: a PyTorch operator's entry carries the device time of the
-    kernels it launched, which those kernels' entries carry too."""
+# kernel-name fragments that a profile window must hold once for each launch
+# of these wrappers (build.LAUNCHES): the witnesses that it kept every kernel
+# record. A profile session can lose the first kernel records it sees (on
+# the H100 the first megakernel record of back-to-back sessions, 3 or 4 of
+# 8 late in a long run of this script); a session that first runs
+# PROFILE_PRIMES tiny spin kernels (left out of every sum) and idles
+# PROFILE_PAD_S kept all of them. A window that still falls short runs again.
+_WITNESSES = {
+    "fused_decode_kernel": ("fused_decode", "fused_decode_a8", "fused_decode_q4"),
+    "flash_decode_split_kernel": ("flash_decode",),
+    "flash_decode_q_split_kernel": ("flash_decode_q",),
+    "flash_prefill_kernel": ("flash_prefill",),
+    "kv_update_kernel": ("kv_update",),
+    "kv_update_q_kernel": ("kv_update_q",),
+    "qmatmul_multi_kernel": ("qmatmul_multi",),
+}
+PROFILE_ATTEMPTS = 3
+PROFILE_PAD_S = 0.05
+PROFILE_PRIMES = 32
+
+
+def _device_times(prof, int8: bool) -> tuple[dict, list, dict]:
+    """Device time (ms) by kernel group, the ten largest device entries as
+    (name, ms, count), and the record count of each witness fragment, from a
+    torch.profiler run. Only the kernels' own entries count: a PyTorch
+    operator's entry carries the device time of the kernels it launched,
+    which those kernels' entries carry too."""
     from torch.autograd import DeviceType
 
     groups = dict(_PROFILE_GROUPS)
@@ -1026,9 +1100,15 @@ def _device_times(prof, int8: bool) -> tuple[dict, list]:
     out = {k: 0.0 for k in groups}
     out["other"] = 0.0
     top = []
+    records = dict.fromkeys(_WITNESSES, 0)
     for evt in prof.key_averages():
         if evt.device_type != DeviceType.CUDA:
             continue
+        if "spin_kernel" in evt.key:  # the session's priming kernels
+            continue
+        for frag in records:
+            if frag in evt.key:
+                records[frag] += evt.count
         us = getattr(evt, "self_device_time_total", None)
         if us is None:
             us = getattr(evt, "self_cuda_time_total", 0.0)
@@ -1038,34 +1118,54 @@ def _device_times(prof, int8: bool) -> tuple[dict, list]:
                       if any(f in evt.key for f in frags)), "other")
         out[group] += us / 1e3
         top.append((evt.key[:80], us / 1e3, evt.count))
-    return out, sorted(top, key=lambda r: -r[1])[:10]
+    return out, sorted(top, key=lambda r: -r[1])[:10], records
 
 
 def phase_profile(eng, prompt, token, label: str) -> dict:
     """torch.profiler over one 512-token prefill and 8 decode steps: device
-    time by kernel, wall time, and the device's idle share."""
+    time by kernel, wall time, and the device's idle share. Each session is
+    primed first (see ``_WITNESSES``); a window whose witness records fall
+    short of the launches the counters saw in it is run again, up to
+    PROFILE_ATTEMPTS times; if none is complete, its busy time and idle
+    share are "not measured"."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from xalm_tpu_torch.ops import build
+
     rows = {}
-    cache = eng.new_cache(1)
+    pos = 0
     for name, steps in (("prefill_512", 0), ("decode", 8)):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
+        for attempt in range(1, PROFILE_ATTEMPTS + 1):
             if steps == 0:
-                _, cache, pos = eng.prefill(prompt, cache)
-            for i in range(steps):
-                _, cache = eng.decode(np.array([token]), np.array([pos + i], np.int32), cache)
+                cache = eng.new_cache(1)
             torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        dev, top = _device_times(prof, eng.kv_dtype == torch.int8)
+            build.reset_launches()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(PROFILE_PRIMES):
+                    torch.cuda._sleep(100)
+                torch.cuda.synchronize()
+                time.sleep(PROFILE_PAD_S)
+                t0 = time.perf_counter()
+                if steps == 0:
+                    _, cache, pos = eng.prefill(prompt, cache)
+                for i in range(steps):
+                    _, cache = eng.decode(np.array([token]), np.array([pos + i], np.int32), cache)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            pos += steps
+            dev, top, records = _device_times(prof, eng.kv_dtype == torch.int8)
+            launched = {f: sum(build.LAUNCHES[w] for w in ws) for f, ws in _WITNESSES.items()}
+            if records == launched:
+                break
         busy = sum(dev.values())
+        measured = records == launched and busy > 0
         rows[name] = {
             "steps": max(steps, 1), "wall_ms": wall_ms, "device_ms": dev, "top": top,
-            "device_busy_ms": busy,
-            "device_idle_share": (1.0 - busy / wall_ms) if busy > 0 else "not measured",
+            "attempts": attempt, "records_complete": records == launched,
+            "device_busy_ms": busy if measured else "not measured",
+            "device_idle_share": (1.0 - busy / wall_ms) if measured else "not measured",
         }
     emit({"phase": "profile", "run": label, **rows})
     return rows
@@ -1202,7 +1302,7 @@ def _copy_free_running(ek, ep, prompt, steps: int, perm_inv) -> dict:
             "identical": got_k == got_p == expected}
 
 
-def copy_params(cfg, seed: int):
+def copy_params(cfg, seed: int, qkv_bias: bool = False):
     """Weights of a model whose greedy output is decided by attention: the
     token after position i is ``perm_inv[token at i - 1]``, read through
     the cache. Returns (params, perm_inv).
@@ -1217,7 +1317,14 @@ def copy_params(cfg, seed: int):
     256-slot window (at least 0.26 of the peak lower for offsets up to
     260). v is code_t, wo writes it to the third hd lanes, and the head's
     row t holds code_perm[t] there, so the logit of t is code_perm[t] .
-    code_prev: 128 for the right token, about 50 at most for the others."""
+    code_prev: 128 for the right token, about 50 at most for the others.
+
+    The family folds keep that recurrence. ``qkv_bias``: a bias on the q
+    lanes past the six pairs (k is 0 there, so no score moves) and a small
+    one on v (std 0.05: it adds the same row to every attention output,
+    about 0.6 to a logit, against a margin of about 78). ``cfg.qk_norm``:
+    the q and k norm weights are the rms of the constant q and k rows, so
+    the norms hand the rows back as they were."""
     import numpy as np
     import torch
 
@@ -1257,6 +1364,11 @@ def copy_params(cfg, seed: int):
     wqkv[g * hd + lanes, hd + lanes] = torch.from_numpy(c / xc)  # k of kv head 0
     wqkv[(g + 1) * hd + lanes, lanes] = 1.0 / xc  # v of kv head 0: code_t
     wo[2 * hd + lanes, lanes] = 1.0
+    bias = torch.zeros((wqkv.shape[0],), dtype=torch.float64)
+    if qkv_bias:
+        bg = torch.Generator().manual_seed(seed)
+        bias[12:hd] = 0.5 * torch.randn(hd - 12, generator=bg, dtype=torch.float64)
+        bias[(g + 1) * hd:(g + 2) * hd] = 0.05 * torch.randn(hd, generator=bg, dtype=torch.float64)
 
     def i8(layer0: torch.Tensor) -> QWeight:
         """Stack (L, D, N) with layer0 first and zero layers after; one
@@ -1276,6 +1388,14 @@ def copy_params(cfg, seed: int):
     ones = lambda *shape: torch.ones(shape, dtype=torch.float32, device=dev)  # noqa: E731
     layers = LayerParams(attn_norm=ones(L, d), wqkv=i8(wqkv), wo=i8(wo), mlp_norm=ones(L, d),
                          w13=zeros(2 * cfg.hidden_dim, d), w2=zeros(d, cfg.hidden_dim))
+    if qkv_bias:
+        layers.bqkv = torch.zeros((L, bias.numel()), dtype=torch.float32, device=dev)
+        layers.bqkv[0] = bias.to(torch.float32)
+    if cfg.qk_norm:  # the rms of the rows the norms see: q (with its bias) and k
+        qrow = torch.from_numpy(q0) + bias[:hd]
+        rms = lambda r: math.sqrt(float((r * r).mean()) + cfg.norm_eps)  # noqa: E731
+        layers.q_norm = ones(L, hd) * rms(qrow)
+        layers.k_norm = ones(L, hd) * rms(torch.from_numpy(c))
     params = ModelParams(embed=QWeight(embed, None), layers=layers, out_norm=ones(d),
                          wcls=QWeight(wcls, None))
     return params, perm_inv.tolist()
@@ -1292,7 +1412,7 @@ WRAP_BODIES = [("i8", "bfloat16", {}, False), ("i8", "int8", {}, False),
                ("a8", "bfloat16", dict(a8_decode=True, a8_prefill=True), False)]
 
 
-def phase_wrap(cfg) -> list[dict]:
+def phase_wrap(cfg, bodies=WRAP_BODIES, qkv_bias: bool = False, model: str = "") -> list[dict]:
     """The kernels against their plain versions through three ring wraps,
     at the main path's widths with 2 layers and a 256-slot window (a
     200-token prompt, 600 decode steps), with a bf16 and with an int8 cache,
@@ -1340,6 +1460,10 @@ def phase_wrap(cfg) -> list[dict]:
     inserts, and the codes are held from the plain run's cache. Every step
     within WRAP_TOL or the run's largest quant effect, and the other
     decode steps within WRAP_TOL. (b) runs each side on its own cache, as for the i8 body.
+
+    ``bodies`` picks the runs of WRAP_BODIES; ``qkv_bias`` (and
+    ``cfg.qk_norm``) put the family folds in both models (``copy_params``
+    keeps its recurrence with them); ``model`` names the rows.
     """
     import numpy as np
     import torch
@@ -1353,7 +1477,7 @@ def phase_wrap(cfg) -> list[dict]:
     prompt = np.random.default_rng(SEED + 1).integers(3, cfg.vocab_size, size=200).tolist()
     rows = []
     paths = (("perlayer", dict(fused_step=False)), ("megakernel", dict(wcls_i8=True)))
-    for (body, kv_name, bkw, resync), (path, kw) in itertools.product(WRAP_BODIES, paths):
+    for (body, kv_name, bkw, resync), (path, kw) in itertools.product(bodies, paths):
         kv = getattr(torch, kv_name)
 
         def engines(params, kw=dict(kw, **bkw), kv=kv):
@@ -1361,7 +1485,7 @@ def phase_wrap(cfg) -> list[dict]:
                     Engine(cfg2, params, kv_dtype=kv, matmul_impl="plain", **kw))
 
         q4 = 512 if body == "q4" else 0
-        params = synthetic_params(cfg2, device=DEVICE, seed=SEED + 1, q4_group=q4)
+        params = synthetic_params(cfg2, device=DEVICE, seed=SEED + 1, q4_group=q4, qkv_bias=qkv_bias)
         ek, ep = engines(params)
         if ek.decode_path(1) != path:
             raise AssertionError(f"wrap phase: decode path {ek.decode_path(1)!r}, expected {path!r}")
@@ -1372,11 +1496,11 @@ def phase_wrap(cfg) -> list[dict]:
         forced = _teacher_forced(ek, ep, prompt, steps, ep0, ec, resync)
         del params, ek, ep, ep0, ec
 
-        params, perm_inv = copy_params(cfg2, SEED + 2)
+        params, perm_inv = copy_params(cfg2, SEED + 2, qkv_bias)
         if q4:  # one nonzero per row: its group's absmax, code 7
             params = recode_params_q4(params, q4)
         copy = _copy_free_running(*engines(params), prompt, steps, perm_inv)
-        row = {"phase": "wrap", "body": body, "decode_path": path,
+        row = {"phase": "wrap", "model": model or "Mistral-7B", "body": body, "decode_path": path,
                "kv_dtype": str(kv).split(".")[-1],
                "layers": 2, "window": 256,
                "prompt_tokens": len(prompt), "ring_wraps": _ring_wraps(copy["final_pos"], 256),
@@ -1787,6 +1911,144 @@ def phase_router_witness(cfg) -> list[dict]:
     return rows
 
 
+# ---------------------------------------------------------------- families
+# Llama-3.1-8B, Qwen2.5-7B and Qwen3-8B (models/config.py), random i8 weights
+# at full width and depth: (name, config name, Qwen2 qkv bias, q4 group of
+# the q4 megakernel case (0: none), phase-4 runs). Qwen2.5's q4 case takes
+# group 128: its dim 3584 and hidden 18944 hold no whole 1024-code pair of
+# 512-groups per row half.
+FAMILIES = (
+    ("Qwen2.5-7B", "QWEN2_5_7B", True, 128, ("megakernel", "perlayer", "int8 perlayer")),
+    ("Qwen3-8B", "QWEN3_8B", False, 512, ("megakernel", "perlayer")),
+    ("Llama-3.1-8B", "LLAMA3_1_8B", False, 0, ("megakernel",)),
+)
+# phase_fused_parity's cases of the int8-activation bodies with a fold: a8
+# B=1 wrapped with the embed and i8-head folds, q4 int8 KV at B=4
+FOLD_A8_CASE, FOLD_Q4_CASE = 1, 4
+# the G = 7 rows of the kernels line: the launches of the wrapper in the
+# Qwen2.5-7B runs of phase 4
+GROUP_KERNELS = {"flash_decode_g7": "flash_decode", "flash_prefill_g7": "flash_prefill",
+                 "flash_decode_q_g7": "flash_decode_q"}
+
+
+def phase_parity_group(cfg, cases: Cases) -> None:
+    """Kernels 3, 4 and 7 at GQA group 7 (Qwen2.5-7B: 28 heads, 4 KV heads)
+    against their plain versions on random planes at its shapes, the cases
+    and tolerances of phase 3 (``attention_cases``, ``decode_q_cases``),
+    recorded as ``flash_decode_g7``, ``flash_prefill_g7`` and
+    ``flash_decode_q_g7``."""
+    import torch
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 13)
+    shape = (cfg.n_layers, 1, cfg.n_kv_heads, cfg.max_seq_len, cfg.head_dim)
+    ck, cv = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
+    attention_cases(cfg, cases, gen, ck, cv, "_g7")
+    del ck, cv
+    planes = [torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+              for _ in range(2)]
+    planes += [torch.rand(shape[:-1], generator=gen, device=dev) * 0.02 for _ in range(2)]
+    decode_q_cases(cfg, cases, planes, gen, "_g7")
+
+
+def phase_main_family(params, cfg, name: str, runs, bias: bool) -> dict:
+    """The main path of one family model (``_main_run``: a 512-token prompt
+    and 64 greedy tokens): on the megakernel (per decode token one
+    fused_decode launch, which counts under the model's fold too, and the
+    bf16 head on qmatmul) and per layer (4L + 1 qmatmul, and per layer
+    kv_update and flash_decode, or with an int8 cache kv_update_q and
+    flash_decode_q; a bf16-cache prefill chunk runs flash_prefill per
+    layer). Returns the runs' launches, summed."""
+    import numpy as np
+    import torch
+
+    from xalm_tpu_torch.ops import build
+    from xalm_tpu_torch.runtime.engine import Engine
+
+    prompt = np.random.default_rng(SEED).integers(3, cfg.vocab_size, size=512).tolist()
+    L = cfg.n_layers
+    fold = {"fused_decode_bias": int(bias), "fused_decode_qk_norm": int(cfg.qk_norm)}
+    launches = dict.fromkeys(build.LAUNCHES, 0)
+    for run in runs:
+        path = run.split()[-1]
+        kv = torch.int8 if run.startswith("int8") else torch.bfloat16
+        per_layer = ("kv_update_q", "flash_decode_q") if kv == torch.int8 else (
+            "kv_update", "flash_decode")
+        if path == "megakernel":
+            kw, want = {}, {"fused_decode": 1, "qmatmul": 1, **fold}
+        else:
+            kw = dict(fused_step=False)
+            want = {"qmatmul": 4 * L + 1, per_layer[0]: L, per_layer[1]: L, "fused_decode": 0,
+                    "fused_decode_bias": 0, "fused_decode_qk_norm": 0}
+        eng = Engine(cfg, params, kv_dtype=kv, **kw)
+        if eng.decode_path(1) != path:
+            raise AssertionError(f"{name} {run}: decode path {eng.decode_path(1)!r}")
+        row = _main_run(eng, cfg, prompt, f"{name} {run}")
+        per_token, per_chunk = row["launches_per_decode_token"], row["launches_per_512_chunk"]
+        chunk_ok = per_chunk["flash_prefill"] == (L if kv == torch.bfloat16 else 0)
+        if any(per_token[k] != n for k, n in want.items()) or not chunk_ok:
+            raise AssertionError(f"{name} {run}: {row['launches']}, per token {per_token}, per "
+                                 f"chunk {per_chunk}: expected per token {want}")
+        launches = {k: launches[k] + row["launches"][k] for k in launches}
+        del eng
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_families(cases: Cases) -> dict:
+    """Phases 3-5 for Qwen2.5-7B, Qwen3-8B and Llama-3.1-8B, one model on
+    the card at a time. Phase 3: the megakernel with the model's fold
+    (Qwen2.5 the qkv bias at GQA group 7, Qwen3 the q/k norms) in the seven
+    cases of the bf16 body (bf16 and int8 caches, B = 1 and 4, the embed and
+    i8-head folds) at full depth, each beside its own floor, and one a8 and
+    one q4 case held layer by layer (``phase_fused_parity``); kernels 3, 4
+    and 7 at group 7 (``phase_parity_group``). Phase 4: the runs of
+    ``FAMILIES`` (``phase_main_family``). Phase 5: the i8 body with a bf16
+    cache on both decode paths with the fold in both models
+    (``phase_wrap``). Llama-3.1's rope scaling changes no kernel, only the
+    frequencies they are given: its main path checks it end to end.
+    Returns the launches of the phase-4 runs, the G = 7 rows included."""
+    import torch
+
+    from xalm_tpu_torch.models import config as configs
+    from xalm_tpu_torch.models.params import recode_params_q4
+    from xalm_tpu_torch.utils.synthetic import synthetic_params
+
+    launches = {}
+    for name, cfg_name, bias, q4_group, runs in FAMILIES:
+        cfg = getattr(configs, cfg_name)
+        t0 = time.perf_counter()
+        params = synthetic_params(cfg, device=DEVICE, seed=SEED, qkv_bias=bias)
+        torch.cuda.synchronize()
+        emit({"phase": "weights", "model": name, "seconds": time.perf_counter() - t0,
+              "gb": params.nbytes() / 1e9})
+        fold = "bias" if bias else "qk_norm" if cfg.qk_norm else ""
+        with torch.inference_mode():
+            if fold:
+                kernel = f"fused_decode_{fold}"
+                phase_fused_parity(params, cfg, cases, kernel=kernel)
+                phase_fused_parity(params, cfg, cases, "a8", kernel=kernel, only=(FOLD_A8_CASE,))
+                q4p = recode_params_q4(params, q4_group)
+                phase_fused_parity(q4p, cfg, cases, "q4", kernel=kernel, only=(FOLD_Q4_CASE,))
+                del q4p
+                torch.cuda.empty_cache()
+            if cfg.group_size == 7:
+                phase_parity_group(cfg, cases)
+        run = phase_main_family(params, cfg, name, runs, bias)
+        for k, n in run.items():
+            launches[k] = launches.get(k, 0) + n
+        if cfg.group_size == 7:
+            for k, wrapper in GROUP_KERNELS.items():
+                launches[k] = launches.get(k, 0) + run[wrapper]
+        del params
+        torch.cuda.empty_cache()
+        if fold:
+            with torch.inference_mode():
+                phase_wrap(cfg, bodies=WRAP_BODIES[:1], qkv_bias=bias, model=name)
+    return launches
+
+
 SUMMARY = {
     # kernel: (route, source, replaces, representative parity case)
     "qmatmul": ("cuda", "xalm_tpu_torch/csrc/qmatmul.cu", "xalm_tpu/ops/pallas_matmul.py:98",
@@ -1817,11 +2079,25 @@ SUMMARY = {
                         "xalm_tpu/ops/fused_decode.py:377", "a8 B=1 kv_len=520, embed fold"),
     "fused_decode_q4": ("cuda", "xalm_tpu_torch/csrc/fused_decode.cu",
                         "xalm_tpu/ops/fused_decode.py:391", "q4 B=1 kv_len=520, embed fold"),
+    # the megakernel's family folds: the Qwen2 qkv bias (Qwen2.5-7B widths)
+    # and the Qwen3 q/k norms (Qwen3-8B widths)
+    "fused_decode_bias": ("cuda", "xalm_tpu_torch/csrc/fused_decode.cu",
+                          "xalm_tpu/ops/fused_decode.py:497", "B=1 kv_len=520, embed fold"),
+    "fused_decode_qk_norm": ("cuda", "xalm_tpu_torch/csrc/fused_decode.cu",
+                             "xalm_tpu/ops/fused_decode.py:518", "B=1 kv_len=520, embed fold"),
+    # kernels 3, 4 and 7 at GQA group 7 (Qwen2.5-7B shapes)
+    "flash_decode_g7": ("cuda", "xalm_tpu_torch/csrc/attention.cu",
+                        "xalm_tpu/ops/pallas_attention.py:273", "B=1 kv_len=777"),
+    "flash_prefill_g7": ("cuda", "xalm_tpu_torch/csrc/attention.cu",
+                         "xalm_tpu/ops/pallas_attention.py:555", "T=512 pos=0"),
+    "flash_decode_q_g7": ("cuda", "xalm_tpu_torch/csrc/attention.cu",
+                          "xalm_tpu/ops/pallas_attention.py:205", "B=1 kv_len=777"),
 }
 # further rows of the kernels line: another TPU kernel a launch replaces,
 # and the megakernel's int8-KV branch (the fused_decode launches count both)
 ALSO_REPLACES = {"kv_update_q": "xalm_tpu/ops/pallas_attention.py:141"}
-INT8_CASE = {"fused_decode": "int8 KV, B=1 kv_len=520, embed fold"}
+INT8_CASE = dict.fromkeys(("fused_decode", "fused_decode_bias", "fused_decode_qk_norm"),
+                          "int8 KV, B=1 kv_len=520, embed fold")
 # a further case of the kernels line: the down projection of the experts
 ALSO_CASE = {"qmatmul_multi": MULTI_W2_CASE}
 
@@ -1892,7 +2168,10 @@ def main() -> int:
     with torch.inference_mode():
         phase_wrap_moe(cfg)
         phase_router_witness(cfg)
-    launches = {k: main_row["launches"][k] + moe_row["launches"][k] for k in main_row["launches"]}
+    fam_launches = phase_families(cases)
+    launches = {k: main_row["launches"][k] + moe_row["launches"][k] + fam_launches[k]
+                for k in main_row["launches"]}
+    launches.update({k: fam_launches[k] for k in GROUP_KERNELS})
     missing = [k for k, n in launches.items() if n == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main paths: {missing}")

@@ -61,7 +61,11 @@ from xalm_tpu_torch.ops.qmatmul import (
     qmatmul_plain,
 )
 
-import tests.torch_threads  # noqa: F401  (one intra-op thread per process)
+# one intra-op thread per process, as tests/torch_threads.py sets it for the
+# other port tests; set here directly, since the GPU machine runs this file
+# alone (--noconftest), where another installed ``tests`` package can shadow
+# this directory
+torch.set_num_threads(1)
 
 pytestmark = pytest.mark.cuda
 
@@ -776,3 +780,181 @@ def test_engine_q4_and_a8_on_the_card(dev, tmp_path):
         ref = Engine.from_xalm(path, matmul_impl="plain", **kw)
         want, _ = ref.generate(prompt, 8, stop_on_eos=False)
         assert out[:3] == want[:3]
+
+
+# ---------------------------------------------------------------- families, any GQA group
+
+
+@pytest.mark.parametrize("g", [3, 5, 6, 7])
+def test_attention_kernels_at_group_match_plain(dev, g):
+    """Kernels 2-4 (bf16 cache) and 5-7 (int8 cache) at a GQA group that is
+    not a power of two (Qwen2.5-7B has 7, Qwen2.5-14B 5): the flash-prefill
+    tile holds 64 / g whole positions; the tolerances of the tests above."""
+    gen = torch.Generator(device=dev).manual_seed(g)
+    l, b, kh, s, hd = 2, 2, 2, 544, 128
+    h = kh * g
+    ck = torch.randn((l, b, kh, s, hd), device=dev, generator=gen).to(torch.bfloat16)
+    cv = torch.randn((l, b, kh, s, hd), device=dev, generator=gen).to(torch.bfloat16)
+    freqs = (1e4 ** (-np.arange(0, hd, 2) / hd)).astype(np.float32)
+    c, sn = (torch.from_numpy(a).to(dev) for a in A.rope_cos_sin_plus1(freqs))
+    i32 = lambda *v: torch.tensor(v, dtype=torch.int32, device=dev)  # noqa: E731
+    kn = torch.randn((b, kh, hd), device=dev, generator=gen)
+    vn = torch.randn((b, kh, hd), device=dev, generator=gen)
+    k1, v1, k2, v2 = ck.clone(), cv.clone(), ck.clone(), cv.clone()
+    A.kv_update(k1, v1, 1, kn, vn, i32(300, s), i32(1, 0), c, sn)
+    A.kv_update_plain(k2, v2, 1, kn, vn, i32(300, s), i32(1, 0), c, sn)
+    assert torch.equal(k1, k2) and torch.equal(v1, v2)
+    q = torch.randn((b, h, hd), device=dev, generator=gen)
+    build.reset_launches()
+    for kvl in ((0, 5), (129, 544), (1, 300)):
+        got = A.flash_decode(q, k1, v1, 1, i32(*kvl))
+        assert torch.isfinite(got).all()
+        assert _row_rel(got, A.flash_decode_plain(q, k1, v1, 1, i32(*kvl)), hd) < 1e-5, kvl
+    for t, pos in ((64, (0, 100)), (40, (3, 0)), (512, (0, 0))):  # 40: a partial last tile
+        qp = torch.randn((b, t, h, hd), device=dev, generator=gen)
+        got = A.flash_prefill(qp, k1, v1, 0, i32(*pos))
+        want = A.flash_prefill_plain(qp, k1, v1, 0, i32(*pos))
+        assert torch.isfinite(got).all() and _row_rel(got, want, hd) <= 2.0 ** -8, (t, pos)
+    planes = _int8_planes(dev, gen, l, b, kh, s, hd)
+    p1, p2 = [t.clone() for t in planes], [t.clone() for t in planes]
+    A.kv_update_q(*p1, 1, kn, vn, i32(77, s + 3), i32(0, 1), c, sn)
+    A.kv_update_q_plain(*p2, 1, kn, vn, i32(77, s + 3), i32(0, 1), c, sn)
+    assert all(torch.equal(x, y) for x, y in zip(p1, p2))
+    for kvl in ((0, 5), (129, 544), (520, 300)):
+        got = A.flash_decode_q(q, *p1, 1, i32(*kvl))
+        assert _row_rel(got, A.flash_decode_q_plain(q, *p1, 1, i32(*kvl)), hd) < 1e-3, kvl
+    assert build.LAUNCHES["flash_decode"] == 3 and build.LAUNCHES["flash_prefill"] == 3
+    assert build.LAUNCHES["flash_decode_q"] == 3
+
+
+FOLD_CASES = [("bias", "bf16", "bf16", 1), ("bias", "bf16", "int8", 3), ("qk_norm", "bf16", "bf16", 3),
+              ("qk_norm", "bf16", "int8", 1), ("bias", "a8", "bf16", 1), ("qk_norm", "a8", "int8", 3),
+              ("bias", "q4", "int8", 1), ("qk_norm", "q4", "bf16", 3)]
+
+
+@pytest.mark.parametrize("fold,body,cache,b", FOLD_CASES)
+def test_fused_decode_family_folds_match_plain(dev, fold, body, cache, b):
+    """The megakernel with the Qwen2 qkv bias or the Qwen3 q/k norms at GQA
+    group 7 (14 heads, 2 KV heads), each body and cache, against its plain
+    version through a ring wrap of a 48-slot window, each step from the
+    plain version's caches; B = 1 with the embed and i8-head folds, B = 3
+    with row 1 at the sentinel. Every step within 2e-2 of its max (the bf16
+    body's bar above) and, for a8 and q4, 90 % of them within 1e-5 (the
+    bar of test_fused_decode_a8_q4_match_plain)."""
+    from xalm_tpu_torch.models.llama import rope_constants, rope_tables
+    from xalm_tpu_torch.models.params import recode_params_q4, recode_wcls_i8
+    from xalm_tpu_torch.ops import fused_decode as fd
+    from xalm_tpu_torch.runtime.cache import KVCache, ring_indices
+    from xalm_tpu_torch.utils.synthetic import synthetic_params
+
+    cfg = dataclasses.replace(MISTRAL_7B, **dict(FUSED_CFG, n_heads=14, n_kv_heads=2),
+                              qk_norm=fold == "qk_norm", norm_eps=1e-6)
+    params = synthetic_params(cfg, device=dev, seed=30 + b, qkv_bias=fold == "bias")
+    assert (params.layers.bqkv is not None) == (fold == "bias")
+    if body == "q4":
+        params = recode_params_q4(params, 128)
+    folds = b == 1
+    if folds:
+        params = recode_wcls_i8(params)
+    s = cfg.max_seq_len
+    freqs, c1, s1 = rope_constants(cfg, dev)
+    dt = torch.int8 if cache == "int8" else torch.bfloat16
+    kern, plain = KVCache.init(cfg, b, dt, dev), KVCache.init(cfg, b, dt, dev)
+    planes = ("k", "v", "k_scale", "v_scale") if cache == "int8" else ("k", "v")
+    rng = np.random.default_rng(b)
+    start = np.array([0, 7, 20][:b])
+    build.reset_launches()
+    steps = s + 6
+    rels = []
+    for st in range(steps):
+        for name in planes:
+            getattr(kern, name).copy_(getattr(plain, name))
+        pos = torch.from_numpy((start + st).astype(np.int32))
+        _, kv_pos, kv_len = ring_indices(pos, s)
+        rot = (pos >= s).to(torch.int32)
+        if b == 3:
+            kv_pos[1], rot[1] = s, 0
+        tok = torch.from_numpy(rng.integers(3, cfg.vocab_size, size=b))
+        kw = dict(a8=body != "bf16")
+        x0 = ce = se = None
+        if folds:
+            kw.update(wcls=params.wcls, out_norm=params.out_norm, embed=params.embed, token=tok,
+                      pos=pos, freqs=freqs)
+        else:
+            x0 = params.embed.values[tok.to(dev)].float()
+            ce, se = (z[:, 0, 0] for z in rope_tables(pos[:, None], freqs.cpu()))
+        qkw = dict(k_scale=kern.k_scale, v_scale=kern.v_scale) if cache == "int8" else {}
+        pkw = dict(k_scale=plain.k_scale, v_scale=plain.v_scale) if cache == "int8" else {}
+        got = fd.fused_decode_step(params, cfg, x0, kern.k, kern.v, kv_pos, kv_len, rot, ce, se,
+                                   c1, s1, **qkw, **kw)
+        want = fd.fused_decode_step_plain(params, cfg, x0, plain.k, plain.v, kv_pos, kv_len, rot,
+                                          ce, se, c1, s1, **pkw, **kw)
+        torch.cuda.synchronize()
+        outs = [(got[0], want[0], cfg.dim)] + ([(got[1], want[1], cfg.vocab_size)] if folds else [])
+        for gv, wv, row in outs:
+            assert torch.isfinite(gv).all()
+            rels.append(_row_rel(gv, wv, row))
+            assert rels[-1] <= 2e-2, (st, rels[-1])
+        if folds:
+            assert torch.equal(got[2], got[1].argmax(dim=-1).to(torch.int32))
+    counter = {"bf16": "fused_decode", "a8": "fused_decode_a8", "q4": "fused_decode_q4"}[body]
+    other = "fused_decode_qk_norm" if fold == "bias" else "fused_decode_bias"
+    assert build.LAUNCHES[counter] == steps and build.LAUNCHES[f"fused_decode_{fold}"] == steps
+    assert build.LAUNCHES[other] == 0
+    if body != "bf16":
+        assert np.mean(np.asarray(rels) <= 1e-5) >= 0.9, sorted(rels)[-5:]
+
+
+def test_fused_decode_folds_move_the_output(dev):
+    """The folds are applied in the kernel: dropping the bias (or the q/k
+    norms) from the weights moves the kernel's x far past the 2e-2 bar."""
+    from xalm_tpu_torch.models.llama import rope_constants
+    from xalm_tpu_torch.ops import fused_decode as fd
+    from xalm_tpu_torch.runtime.cache import KVCache
+    from xalm_tpu_torch.utils.synthetic import synthetic_params
+
+    cfg = dataclasses.replace(MISTRAL_7B, **dict(FUSED_CFG, n_heads=14, n_kv_heads=2),
+                              qk_norm=True)
+    params = synthetic_params(cfg, device=dev, seed=5, qkv_bias=True)
+    _, c1, s1 = rope_constants(cfg, dev)
+    i32 = lambda *v: torch.tensor(v, dtype=torch.int32)  # noqa: E731
+    x0 = params.embed.values[torch.tensor([7], device=dev)].float()
+    trig = torch.ones((1, 128)), torch.zeros((1, 128))
+    outs = {}
+    for name, drop in (("both", {}), ("no bias", dict(bqkv=None)),
+                       ("no qk", dict(q_norm=None, k_norm=None))):
+        p = dataclasses.replace(params, layers=dataclasses.replace(params.layers, **drop))
+        cache = KVCache.init(cfg, 1, torch.bfloat16, dev)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        cache.k.normal_(generator=gen)
+        cache.v.normal_(generator=gen)
+        outs[name] = fd.fused_decode_step(p, cfg, x0, cache.k, cache.v, i32(20), i32(21), i32(0),
+                                          *trig, c1, s1)[0]
+    for name in ("no bias", "no qk"):
+        assert _row_rel(outs[name], outs["both"], cfg.dim) > 0.1, name
+
+
+def test_engine_families_on_the_card(dev):
+    """Qwen-shaped (GQA group 7) engines on the card, the bias and the q/k
+    norms on: the megakernel and the per-layer kernels (flash-prefill at
+    group 7, flash-decode and its int8 form) give the greedy tokens of the
+    plain-version engine on the first steps, and each path's kernels ran."""
+    from xalm_tpu_torch.runtime.engine import Engine
+    from xalm_tpu_torch.utils.synthetic import synthetic_params
+
+    cfg = dataclasses.replace(MISTRAL_7B, **dict(FUSED_CFG, n_heads=14, n_kv_heads=2,
+                                                 max_seq_len=256), qk_norm=True)
+    params = synthetic_params(cfg, device=dev, seed=9, qkv_bias=True)
+    prompt = list(range(3, 203))
+    for kw, want_launch in ((dict(), "fused_decode_bias"),
+                            (dict(fused_step=False), "flash_decode"),
+                            (dict(fused_step=False, kv_dtype=torch.int8), "flash_decode_q")):
+        eng = Engine(cfg, params, **kw)
+        build.reset_launches()
+        out, _ = eng.generate(prompt, 8, stop_on_eos=False)
+        assert build.LAUNCHES[want_launch] > 0, (kw, build.LAUNCHES)
+        if "kv_dtype" not in kw:
+            assert build.LAUNCHES["flash_prefill"] == cfg.n_layers
+        want, _ = Engine(cfg, params, matmul_impl="plain", **kw).generate(prompt, 8,
+                                                                          stop_on_eos=False)
+        assert out[:3] == want[:3], kw

@@ -58,6 +58,8 @@ def _leaves(p):
     """(name, values) pairs of a port or JAX ModelParams (same field names)."""
     lp = p.layers
     out = [("attn_norm", lp.attn_norm), ("mlp_norm", lp.mlp_norm), ("out_norm", p.out_norm)]
+    # the family planes (Qwen2 bias, Qwen3 q/k norms): None for this Mistral model
+    out += [(n, getattr(lp, n)) for n in ("bqkv", "q_norm", "k_norm")]
     for name, w in [("embed", p.embed), ("wqkv", lp.wqkv), ("wo", lp.wo),
                     ("w13", lp.w13), ("w2", lp.w2), ("wcls", p.wcls)]:
         out.append((name, w.values))

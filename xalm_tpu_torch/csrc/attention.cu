@@ -26,8 +26,10 @@
 //    the un-normalised P.V, each warp over a quarter of the rows (coalesced
 //    8-byte loads, several rows in flight), summed across the warps.
 //    A second small kernel combines the chunks' (max, sum, acc) partials.
-//    Chunks past kv_len exit at once; kv_len == 0 gives 0, not NaN. Bound:
-//    bytes (the cache rows up to kv_len, read once).
+//    Chunks past kv_len exit at once; kv_len == 0 gives 0, not NaN. The
+//    GQA group G = H / KH is a template parameter, instantiated for each G
+//    in 1..8 (Qwen2.5-7B has G = 7, Qwen2.5-14B G = 5). Bound: bytes (the
+//    cache rows up to kv_len, read once).
 //
 // 3. xq_kv_update_q replaces _insert_q_kernel and _sink_q_kernel in one
 //    launch, over an int8 cache with per-row f32 scale planes (L, B, KH, S).
@@ -48,11 +50,12 @@
 //    p, and bf16(p * v_scale) kept for phase 3, which sums it times the V
 //    codes (4 codes per lane, a warp per row). The combine kernel of 2 is
 //    shared. Bound: bytes (the code rows and their scales up to kv_len, half
-//    the bytes of the bf16 cache).
+//    the bytes of the bf16 cache). G in 1..8, as in 2.
 //
 // 5. xq_flash_prefill replaces _prefill_kernel. One block per (batch, kv
-//    head, q tile of 64 rows = tq positions x G heads); four warps own 16
-//    rows each. Loops over 64-key tiles up to the tile's causal limit
+//    head, q tile of tq = 64 / G whole positions x G heads: 64 rows, or
+//    for a group that does not divide 64 (G = 3, 5, 6, 7) the first tq * G
+//    of them, the rest zero and unwritten); four warps own 16 rows each. Loops over 64-key tiles up to the tile's causal limit
 //    (later tiles are skipped), S = Q.K^T on bf16 WMMA fragments with f32
 //    accumulation, the online softmax in f32 (each row's state in a lane
 //    pair), p cast to bf16 before P.V on WMMA, the output accumulator in
@@ -61,6 +64,8 @@
 
 #include <math.h>
 #include <mma.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -104,6 +109,22 @@ __global__ void kv_update_kernel(__nv_bfloat16* __restrict__ ck, __nv_bfloat16* 
 constexpr int FD_HD = 128;
 constexpr int FD_THREADS = 128;
 constexpr int FD_CHUNK = 128;  // key rows per block: one per thread in phase 1
+constexpr int FD_MAX_G = 8;    // GQA groups 1..8, one instantiation each
+
+// launch(std::integral_constant<int, G>{}) for the GQA group g, so that G is
+// a compile-time constant inside the kernel it launches, then
+// cudaGetLastError(); a g outside 1..FD_MAX_G launches nothing and gives
+// cudaErrorInvalidValue
+template <int G = 1, typename Launch>
+cudaError_t for_group(int g, Launch launch) {
+  if constexpr (G > FD_MAX_G) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (g != G) return for_group<G + 1>(g, launch);
+    launch(std::integral_constant<int, G>{});
+    return cudaGetLastError();
+  }
+}
 
 template <int G>
 __global__ void __launch_bounds__(FD_THREADS) flash_decode_split_kernel(
@@ -226,16 +247,6 @@ __global__ void __launch_bounds__(FD_THREADS) flash_decode_split_kernel(
       pl[pi] = lrow[gi];
     }
   }
-}
-
-template <int G>
-cudaError_t launch_flash_decode_split(dim3 grid, cudaStream_t s, const float* q,
-                                      const __nv_bfloat16* ck, const __nv_bfloat16* cv,
-                                      const int* kv_len, float* pm, float* pl, float* pacc,
-                                      int KH, int S, float sm_scale) {
-  flash_decode_split_kernel<G><<<grid, FD_THREADS, 0, s>>>(q, ck, cv, kv_len, pm, pl, pacc, KH,
-                                                          S, sm_scale);
-  return cudaGetLastError();
 }
 
 __global__ void __launch_bounds__(FD_HD) flash_decode_combine_kernel(
@@ -441,17 +452,6 @@ __global__ void __launch_bounds__(FD_THREADS) flash_decode_q_split_kernel(
   }
 }
 
-template <int G>
-cudaError_t launch_flash_decode_q_split(dim3 grid, cudaStream_t s, const float* q,
-                                        const signed char* ck, const signed char* cv,
-                                        const float* ks, const float* vs, const int* kv_len,
-                                        float* pm, float* pl, float* pacc, int KH, int S,
-                                        float sm_scale) {
-  flash_decode_q_split_kernel<G><<<grid, FD_THREADS, 0, s>>>(q, ck, cv, ks, vs, kv_len, pm, pl,
-                                                            pacc, KH, S, sm_scale);
-  return cudaGetLastError();
-}
-
 constexpr int PF_HD = 128;
 constexpr int PF_ROWS = 64;  // query rows per block (tq positions x G heads)
 constexpr int PF_KT = 64;    // keys per tile
@@ -473,17 +473,18 @@ __global__ void __launch_bounds__(128) flash_prefill_kernel(
   float* Os = reinterpret_cast<float*>(Ps + 4 * 16 * LDP);  // scores alias its front
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int b = blockIdx.x / KH, h = blockIdx.x % KH;
-  const int g = H / KH, tq = PF_ROWS / g;
+  const int g = H / KH, tq = PF_ROWS / g;  // rows tq * g .. PF_ROWS - 1 stay empty
   const int q0 = blockIdx.y * tq;
   const int pb = pos[b];
   const size_t stripe = ((size_t)b * KH + h) * S * PF_HD;
 
   // Q tile: row R = t_local * G + gi, cast to bf16; rows past T (a last,
-  // partial tile) are zero and never written out
+  // partial tile) and the rows past tq * g (a group that does not divide
+  // PF_ROWS) are zero and never written out
   for (int c = tid; c < PF_ROWS * (PF_HD / 4); c += 128) {
     const int R = c / (PF_HD / 4), col = (c % (PF_HD / 4)) * 4;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (q0 + R / g < T)
+    if (R < tq * g && q0 + R / g < T)
       v = *reinterpret_cast<const float4*>(
           q + (((size_t)b * T + q0 + R / g) * H + (size_t)h * g + R % g) * PF_HD + col);
     __nv_bfloat16* d = Qs + R * LDQ + col;
@@ -587,7 +588,7 @@ __global__ void __launch_bounds__(128) flash_prefill_kernel(
     __syncwarp();  // the next tile's scores overwrite Ow
   }
 
-  if (q0 + R / g >= T) return;
+  if (R >= tq * g || q0 + R / g >= T) return;
   const float ldiv = l_run > 0.f ? l_run : 1.f;
   float* dst = out + (((size_t)b * T + q0 + R / g) * H + (size_t)h * g + R % g) * PF_HD + half * 64;
 #pragma unroll
@@ -630,14 +631,10 @@ XQ_EXPORT int xq_flash_decode(const void* q, const void* ck, const void* cv, con
   const auto* k = (const __nv_bfloat16*)ck;
   const auto* v = (const __nv_bfloat16*)cv;
   const int* kl = (const int*)kv_len;
-  cudaError_t e;
-  switch (H / KH) {  // the GQA group size, a compile-time constant inside
-    case 1: e = launch_flash_decode_split<1>(grid, s, qf, k, v, kl, pm, pl, pacc, KH, S, sm_scale); break;
-    case 2: e = launch_flash_decode_split<2>(grid, s, qf, k, v, kl, pm, pl, pacc, KH, S, sm_scale); break;
-    case 4: e = launch_flash_decode_split<4>(grid, s, qf, k, v, kl, pm, pl, pacc, KH, S, sm_scale); break;
-    case 8: e = launch_flash_decode_split<8>(grid, s, qf, k, v, kl, pm, pl, pacc, KH, S, sm_scale); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const cudaError_t e = for_group(H / KH, [&](auto g) {
+    flash_decode_split_kernel<decltype(g)::value><<<grid, FD_THREADS, 0, s>>>(
+        qf, k, v, kl, pm, pl, pacc, KH, S, sm_scale);
+  });
   if (e != cudaSuccess) return (int)e;
   flash_decode_combine_kernel<<<B * H, FD_HD, 0, s>>>(pm, pl, pacc, (float*)out, NS);
   return (int)cudaGetLastError();
@@ -646,8 +643,7 @@ XQ_EXPORT int xq_flash_decode(const void* q, const void* ck, const void* cv, con
 XQ_EXPORT int xq_flash_prefill(const void* q, const void* ck, const void* cv, const void* pos,
                                void* out, int B, int T, int H, int KH, int S, int hd,
                                float sm_scale, void* stream) {
-  if (hd != PF_HD || KH < 1 || H % KH != 0 || PF_ROWS % (H / KH) != 0)
-    return (int)cudaErrorInvalidValue;
+  if (hd != PF_HD || KH < 1 || H % KH != 0 || H / KH > FD_MAX_G) return (int)cudaErrorInvalidValue;
   cudaError_t e = xq_allow_smem(flash_prefill_kernel, PF_SMEM);
   if (e != cudaSuccess) return (int)e;
   const int tq = PF_ROWS / (H / KH);
@@ -687,14 +683,10 @@ XQ_EXPORT int xq_flash_decode_q(const void* q, const void* ck, const void* cv, c
   const auto* kss = (const float*)ks;
   const auto* vss = (const float*)vs;
   const int* kl = (const int*)kv_len;
-  cudaError_t e;
-  switch (H / KH) {  // the GQA group size, a compile-time constant inside
-    case 1: e = launch_flash_decode_q_split<1>(grid, s, qf, k, v, kss, vss, kl, pm, pl, pacc, KH, S, sm_scale); break;
-    case 2: e = launch_flash_decode_q_split<2>(grid, s, qf, k, v, kss, vss, kl, pm, pl, pacc, KH, S, sm_scale); break;
-    case 4: e = launch_flash_decode_q_split<4>(grid, s, qf, k, v, kss, vss, kl, pm, pl, pacc, KH, S, sm_scale); break;
-    case 8: e = launch_flash_decode_q_split<8>(grid, s, qf, k, v, kss, vss, kl, pm, pl, pacc, KH, S, sm_scale); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const cudaError_t e = for_group(H / KH, [&](auto g) {
+    flash_decode_q_split_kernel<decltype(g)::value><<<grid, FD_THREADS, 0, s>>>(
+        qf, k, v, kss, vss, kl, pm, pl, pacc, KH, S, sm_scale);
+  });
   if (e != cudaSuccess) return (int)e;
   flash_decode_combine_kernel<<<B * H, FD_HD, 0, s>>>(pm, pl, pacc, (float*)out, NS);
   return (int)cudaGetLastError();

@@ -6,7 +6,12 @@
 // branch), 1 <= B <= 8 rows at t = 1, head_dim 128, and its two folds: the
 // embed fold (the bf16 embed row gathered and the rope trig computed in the
 // kernel) and the i8-head fold (final norm, i8 classifier, first-occurrence
-// argmax). The two cache kinds are two instantiations of one kernel.
+// argmax). The two cache kinds are two instantiations of one kernel. Two
+// family folds are run-time options of every instantiation (null pointers
+// when off): the Qwen2 qkv bias (the TPU kernel's has_bias, added to each
+// qkv row in phase 1's epilogue, after the scale) and the Qwen3 per-head
+// q/k RMS norms (its has_qk: phase 2 norms each query head and the K head
+// over their 128 lanes after the clip, before rope; V is not normed).
 //
 // Its weight phases come in three bodies, one instantiation each (times the
 // two cache kinds): the i8 body times bf16 activations; the a8 body (the TPU
@@ -24,8 +29,11 @@
 // block can wait at a grid barrier for all the others; the L layers loop
 // inside the kernel and barriers separate the phases. Per layer:
 //
-//   1. rmsnorm(x) * attn_norm, cast to bf16, times wqkv -> qkv (GEMV);
-//   2. per (row, kv head): clip, rope (q pre-scaled by 1/sqrt(hd)), the K/V
+//   1. rmsnorm(x) * attn_norm, cast to bf16, times wqkv -> qkv (GEMV),
+//      plus the qkv bias;
+//   2. per (row, kv head): clip, the q/k norms (each head's sum of squares
+//      by warp shuffles and a named barrier over the item's 128 threads),
+//      rope (q pre-scaled by 1/sqrt(hd)), the K/V
 //      rows rounded to bf16 and inserted at kv_pos (dropped at the kv_pos
 //      == S sentinel), and for rows with `rotate` the KV_SINKS sink keys
 //      rotated by one position (each product and the sum rounded as the
@@ -130,6 +138,9 @@ struct MkArgs {
   void* cv;
   float* ks;  // (L, B, KH, S) row scales of an int8 cache, updated in place
   float* vs;
+  const float* bqkv;    // (L, DQ) Qwen2 qkv bias in wqkv's row order, or null
+  const float* q_norm;  // (L, hd) Qwen3 per-head q RMS-norm weights, or null (with k_norm)
+  const float* k_norm;
   float* xout;    // (B, N)
   float* logits;  // (B, V) (head fold)
   int* token;     // (B) (head fold)
@@ -445,16 +456,23 @@ __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// max of |v| over the 128 threads of one half of the block (a phase-2
-// item), the same value in each: warp shuffles, then named barrier 1 + half
-// (barrier 0 is __syncthreads), so the other half need not take part
-__device__ float half_absmax(float v, float* red4, int half) {
+// the max (MAX) or the sum of v over the 128 threads of one half of the
+// block (a phase-2 item), the same value in each: warp shuffles, then named
+// barrier 1 + half (barrier 0 is __syncthreads), so the other half need not
+// take part
+template <bool MAX>
+__device__ float half_reduce(float v, float* red4, int half) {
   const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3;
-  const float m = xq_warp_max(fabsf(v));
+  const float m = MAX ? xq_warp_max(v) : xq_warp_sum(v);
   asm volatile("bar.sync %0, 128;" ::"r"(half + 1) : "memory");  // red4 is free
   if (lane == 0) red4[w] = m;
   asm volatile("bar.sync %0, 128;" ::"r"(half + 1) : "memory");
-  return fmaxf(fmaxf(red4[0], red4[1]), fmaxf(red4[2], red4[3]));
+  return MAX ? fmaxf(fmaxf(red4[0], red4[1]), fmaxf(red4[2], red4[3]))
+             : (red4[0] + red4[1]) + (red4[2] + red4[3]);
+}
+
+__device__ float half_absmax(float v, float* red4, int half) {
+  return half_reduce<true>(fabsf(v), red4, half);
 }
 
 template <bool QUANT, int BODY>
@@ -523,19 +541,26 @@ __global__ void __launch_bounds__(MK_THREADS, 2) fused_decode_kernel(const MkArg
 
   for (int l = 0; l < a.L; ++l) {
     const size_t lsc = (size_t)l * B * KH * S;  // this layer's scale plane (x hd: its cache plane)
-    // ---- phase 1: rmsnorm + wqkv
+    // ---- phase 1: rmsnorm + wqkv (+ the qkv bias)
     rows_rms(x, B, N, a.eps, rinv, red);
+    const float* bias = a.bqkv != nullptr ? a.bqkv + (size_t)l * DQ : nullptr;
+    auto put_qkv = [&](int b, int r, float v) {
+      __stcg(qkv + (size_t)b * DQ + r, bias != nullptr ? __fadd_rn(v, __ldg(bias + r)) : v);
+    };
     gemv_phase<BODY>(a.wqkv + l * DQ * rowb(N), a.sqkv + l * DQ * rows(N), DQ, N, 0, B, gq, smem,
                      red, sxs, normed(a.attn_norm + (size_t)l * N),
                      [&](int, int r0, int r1, int b, float v0, float v1) {
-                       __stcg(qkv + (size_t)b * DQ + r0, v0);
-                       if (r1 < DQ) __stcg(qkv + (size_t)b * DQ + r1, v1);
+                       put_qkv(b, r0, v0);
+                       if (r1 < DQ) put_qkv(b, r1, v1);
                      });
     grid_sync(bar);
 
-    // ---- phase 2: rope, clip, ring insert, sink rotation; two (row, kv head) items per block
+    // ---- phase 2: clip, q/k norm, rope, ring insert, sink rotation; two
+    // (row, kv head) items per block
+    const float* qn = a.q_norm != nullptr ? a.q_norm + (size_t)l * MK_HD : nullptr;
+    const float* kn = a.k_norm != nullptr ? a.k_norm + (size_t)l * MK_HD : nullptr;
     for (int it = blockIdx.x * 2 + (tid >> 7); it < B * KH; it += gridDim.x * 2) {
-      const int b = it / KH, j = it - b * KH, i = tid & (MK_HD - 1);
+      const int b = it / KH, j = it - b * KH, i = tid & (MK_HD - 1), half = tid >> 7;
       float c, s;
       if (a.freqs != nullptr) {
         const float ang = (float)__ldg(pos + b) * __ldg(a.freqs + (i >> 1));
@@ -545,22 +570,28 @@ __global__ void __launch_bounds__(MK_THREADS, 2) fused_decode_kernel(const MkArg
         s = __ldg(a.sexp_p + b * MK_HD + i);
       }
       const float* y = qkv + (size_t)b * DQ + (size_t)j * (G + 2) * MK_HD;
-      auto rope = [&](const float* v) {
-        const float u = clip_to(__ldcg(v + i), a.clip);
-        const float p = clip_to(__ldcg(v + (i ^ 1)), a.clip);
+      // lane i of a head: clipped, RMS-normed over the head's 128 lanes
+      // with the weights w (Qwen3; none when w is null), then rotated with
+      // its pair partner, the neighbouring lane of the same warp
+      auto rope = [&](const float* v, const float* w) {
+        float u = clip_to(__ldcg(v + i), a.clip);
+        if (w != nullptr) {
+          const float ms = half_reduce<false>(u * u, hred[half], half) / (float)MK_HD;
+          u = u * (1.0f / sqrtf(ms + a.eps)) * __ldg(w + i);
+        }
+        const float p = __shfl_xor_sync(0xffffffffu, u, 1);
         return u * c + ((i & 1) ? p : -p) * s;
       };
       for (int g = 0; g < G; ++g) {
-        const float qv = rope(y + g * MK_HD);
+        const float qv = rope(y + g * MK_HD, qn);
         __stcg(qr + ((size_t)b * HQ + j * G + g) * MK_HD + i, QUANT ? qv : qv * a.sm_scale);
       }
-      const float kr = rope(y + G * MK_HD);
+      const float kr = rope(y + G * MK_HD, kn);
       const float vr = clip_to(__ldcg(y + (G + 1) * MK_HD + i), a.clip);
       const size_t srow = lsc + ((size_t)b * KH + j) * S;  // scale index of the stripe's row 0
       const size_t stripe = srow * MK_HD;
       const int kvp = __ldg(kv_pos + b);
       if constexpr (QUANT) {
-        const int half = tid >> 7;
         const float ksc = xq_row_scale(half_absmax(kr, hred[half], half));
         const float vsc = xq_row_scale(half_absmax(vr, hred[half], half));
         if (kvp >= 0 && kvp < S) {
@@ -939,8 +970,8 @@ XQ_EXPORT int xq_fused_decode_grid() {
 
 // ptr: meta, x0, cexp_p, sexp_p, c1, s1, freqs, embed, attn_norm, mlp_norm,
 //      wqkv, sqkv, wo, so, w13, s13, w2, s2, out_norm, wcls, swcls, ck, cv,
-//      xout, logits, token, work, k_scale, v_scale (null where a fold is
-//      off; the scale planes with an int8 cache only)
+//      xout, logits, token, work, k_scale, v_scale, bqkv, q_norm, k_norm
+//      (null where a fold is off; the scale planes with an int8 cache only)
 // dim: L, B, N, KH, G, hd, H, S, V, c13, cache kind (1 bf16, 2 int8),
 //      body (0 bf16 activations, 1 a8, 2 q4), q4 group (0 unless q4)
 XQ_EXPORT int xq_fused_decode(void* const* ptr, const int* dim, float eps, float clip,
@@ -975,6 +1006,9 @@ XQ_EXPORT int xq_fused_decode(void* const* ptr, const int* dim, float eps, float
   a.work = (unsigned char*)ptr[26];
   a.ks = (float*)ptr[27];
   a.vs = (float*)ptr[28];
+  a.bqkv = (const float*)ptr[29];
+  a.q_norm = (const float*)ptr[30];
+  a.k_norm = (const float*)ptr[31];
   a.L = dim[0];
   a.B = dim[1];
   a.N = dim[2];
@@ -998,7 +1032,8 @@ XQ_EXPORT int xq_fused_decode(void* const* ptr, const int* dim, float eps, float
                   a.H >= 16 && a.H % 16 == 0 && a.c13 >= 1 && a.H % a.c13 == 0 && a.S >= 1 &&
                   (embed_fold ? a.freqs != nullptr : (a.x0 && a.cexp_p && a.sexp_p)) &&
                   (!head_fold || (a.V >= 1 && a.out_norm && a.swcls && a.logits && a.token)) &&
-                  a.work != nullptr && body >= BODY_BF16 && body <= BODY_Q4;
+                  a.work != nullptr && body >= BODY_BF16 && body <= BODY_Q4 &&
+                  (a.q_norm == nullptr) == (a.k_norm == nullptr);
   if (!ok) return (int)cudaErrorInvalidValue;
   if (body == BODY_Q4) {
     // packed rows of every contraction width, and each phase's high-group

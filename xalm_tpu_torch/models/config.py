@@ -1,14 +1,19 @@
 """Normalized model hyperparameters (counterpart of
 ``xalm_tpu/models/config.py``): the same fields, defaults and the
-max_seq_len clamp to 4096 with a ``context`` override, plus the
-``MISTRAL_7B`` and ``MIXTRAL_8X7B`` geometries of the chip smoke."""
+max_seq_len clamp to 4096 with a ``context`` override, plus the geometries
+of the chip smoke: ``MISTRAL_7B``, ``MIXTRAL_8X7B``, ``QWEN2_5_7B``,
+``QWEN3_8B`` and ``LLAMA3_1_8B``, each from its Hugging Face
+``config.json`` with the window clamped to 4096."""
 
 from __future__ import annotations
 
 import dataclasses
 import math
 
-__all__ = ["ModelConfig", "KV_SINKS", "MISTRAL_7B", "MIXTRAL_8X7B"]
+__all__ = [
+    "ModelConfig", "KV_SINKS", "MISTRAL_7B", "MIXTRAL_8X7B", "QWEN2_5_7B", "QWEN3_8B",
+    "LLAMA3_1_8B",
+]
 
 # StreamingLLM attention-sink count
 KV_SINKS = 2
@@ -131,3 +136,62 @@ MISTRAL_7B = ModelConfig(
 # Mixtral-8x7B-v0.1 geometry (HF config: 8 local experts, 2 per token),
 # window clamped to 4096
 MIXTRAL_8X7B = dataclasses.replace(MISTRAL_7B, n_experts=8, n_experts_active=2)
+
+# Qwen2.5-7B-Instruct (Qwen/Qwen2.5-7B-Instruct config.json): q/k/v
+# projection bias (the container's l.{i}.attn.{q,k,v}.bias), GQA group 7
+QWEN2_5_7B = ModelConfig(
+    dim=3584,
+    hidden_dim=18944,
+    head_dim=128,
+    n_layers=28,
+    n_heads=28,
+    n_kv_heads=4,
+    vocab_size=152064,
+    max_seq_len=4096,
+    rope_theta=1e6,
+    rotary_dim=128,
+    norm_eps=1e-6,
+    act="silu",
+    tie_word_embeddings=False,
+)
+
+# Qwen3-8B (Qwen/Qwen3-8B config.json): per-head q/k RMS norms before rope
+QWEN3_8B = ModelConfig(
+    dim=4096,
+    hidden_dim=12288,
+    head_dim=128,
+    n_layers=36,
+    n_heads=32,
+    n_kv_heads=8,
+    vocab_size=151936,
+    max_seq_len=4096,
+    rope_theta=1e6,
+    rotary_dim=128,
+    norm_eps=1e-6,
+    act="silu",
+    tie_word_embeddings=False,
+    qk_norm=True,
+)
+
+# Llama-3.1-8B-Instruct (meta-llama/Llama-3.1-8B-Instruct config.json):
+# rope_scaling "llama3", factor 8, low 1, high 4, original context 8192
+LLAMA3_1_8B = ModelConfig(
+    dim=4096,
+    hidden_dim=14336,
+    head_dim=128,
+    n_layers=32,
+    n_heads=32,
+    n_kv_heads=8,
+    vocab_size=128256,
+    max_seq_len=4096,
+    rope_theta=5e5,
+    rotary_dim=128,
+    norm_eps=1e-5,
+    act="silu",
+    tie_word_embeddings=False,
+    rope_scaling="llama3",
+    rope_factor=8.0,
+    rope_low_freq_factor=1.0,
+    rope_high_freq_factor=4.0,
+    rope_original_max_pos=8192,
+)

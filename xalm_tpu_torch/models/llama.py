@@ -58,10 +58,13 @@ branch under ``a8_prefill``; the megakernel runs its a8 body under
 ``a8_decode`` (and its q4 body for a q4 model, which needs it).
 
 Unlike the JAX function the cache is updated in place; the per-layer path
-runs its layers as a Python loop. Packed-q4 experts (Mixtral q4), tp/pp,
-speculative verify and the family extras (bias, qk-norm, post-norms,
-softcaps, gelu, embed scale) are later slices and raise
-NotImplementedError.
+runs its layers as a Python loop. Of the family extras it runs the Qwen2
+qkv bias (added after the qkv matmul, outside the kernels, on every path),
+the Qwen3 per-head q/k RMS norms (after the clip, before rope) and the
+linear and llama3 rope scaling (``rope_freqs``); the megakernel folds the
+bias and the q/k norms in. Packed-q4 experts (Mixtral q4), tp/pp,
+speculative verify and the other family extras (post-norms, softcaps,
+gelu, embed scale) are later slices and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -100,13 +103,32 @@ IMPLS = ("kernel", "plain", "xla")
 
 
 def rope_freqs(cfg: ModelConfig) -> np.ndarray:
-    """Per-pair angular frequency; pairs with j >= rotary_dim get 0."""
-    if cfg.rope_scaling != "none":
-        raise NotImplementedError("rope scaling: later slice")
+    """Per-pair angular frequency; pairs with j >= rotary_dim get 0.
+    ``cfg.rope_scaling``: "linear" divides every frequency by
+    ``rope_factor``; "llama3" (HF ``_compute_llama3_parameters``) keeps the
+    high-frequency pairs, divides the low-frequency ones by the factor and
+    interpolates the band between the ``high/low_freq_factor`` wavelength
+    cutoffs. numpy in the JAX package's operation order, so the two agree
+    bit for bit."""
     j = np.arange(0, cfg.head_dim, 2, dtype=np.float32)
-    return np.where(
+    freqs = np.where(
         j < cfg.rotary_dim, cfg.rope_theta ** (-(j / max(cfg.rotary_dim, 1))), 0.0
     ).astype(np.float32)
+    if cfg.rope_scaling == "linear":
+        freqs = freqs / np.float32(cfg.rope_factor)
+    elif cfg.rope_scaling == "llama3":
+        orig = np.float32(cfg.rope_original_max_pos)
+        factor = np.float32(cfg.rope_factor)
+        with np.errstate(divide="ignore"):
+            wavelen = np.where(freqs > 0, 2.0 * np.pi / freqs, np.inf)
+        low_wl = orig / np.float32(cfg.rope_low_freq_factor)
+        high_wl = orig / np.float32(cfg.rope_high_freq_factor)
+        smooth = (orig / wavelen - cfg.rope_low_freq_factor) / max(
+            cfg.rope_high_freq_factor - cfg.rope_low_freq_factor, 1e-9)
+        interp = (1.0 - smooth) * freqs / factor + smooth * freqs
+        freqs = np.where(
+            wavelen > low_wl, freqs / factor, np.where(wavelen < high_wl, freqs, interp))
+    return freqs.astype(np.float32)
 
 
 @functools.lru_cache(maxsize=None)
@@ -434,12 +456,17 @@ def forward(
     rope = rope_tables(positions, freqs)  # shared by every layer
     for layer in range(cfg.n_layers):
         qkv = mm(x, lp.wqkv, layer, norm_sw=lp.attn_norm)
+        if lp.bqkv is not None:  # Qwen2 qkv bias, in wqkv's fused row order
+            qkv = qkv + lp.bqkv[layer]
         q, k, v = split_qkv_rows(qkv, -1, g, hd)
         if clip is not None:
             q, k, v = (torch.clamp(z, -clip, clip) for z in (q, k, v))
-        q = rotate(q.reshape(b, t, -1, hd), *rope)
-        k = rotate(k.reshape(b, t, -1, hd), *rope)
-        v = v.reshape(b, t, -1, hd)
+        q, k, v = (z.reshape(b, t, -1, hd) for z in (q, k, v))
+        if lp.q_norm is not None:  # Qwen3 per-head q/k RMS norms, before rope
+            q = rmsnorm(q, lp.q_norm[layer], cfg.norm_eps)
+            k = rmsnorm(k, lp.k_norm[layer], cfg.norm_eps)
+        q = rotate(q, *rope)
+        k = rotate(k, *rope)
 
         if per_layer and t == 1 and quant:
             # int8 decode: quantised ring write + sink re-rotation, then

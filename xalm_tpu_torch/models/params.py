@@ -22,8 +22,12 @@ hold two signed 4-bit codes per byte in split-half k-order (the low nibble
 of byte j is code k = j, the high nibble code k = j + K/2), and ``scale`` is
 (..., D, K/g) f32, one symmetric absmax/7 scale per (row, group of g codes).
 A ``--type q4`` container stores them as a packed tensor with a ``.scale4``
-partner; ``recode_params_q4`` packs an i8/q8/float body at load. fp8 and
-the family extras are later slices.
+partner; ``recode_params_q4`` packs an i8/q8/float body at load.
+
+Family extras: Qwen2's q/k/v projection bias is ``bqkv`` (L, DQ) f32, fused
+in ``wqkv``'s row order; Qwen3's per-head q/k RMS norm weights are
+``q_norm``/``k_norm`` (L, head_dim) f32. fp8 and the other extras
+(post-norms, softcaps, gelu, embed scale) are later slices.
 """
 
 from __future__ import annotations
@@ -119,6 +123,10 @@ class LayerParams:
     wgate: torch.Tensor | None = None  # (L, E, dim) f32 router
     w13e: QWeight | None = None  # (L, E, 2*hidden, dim), scale (L, E, 2*hidden)
     w2e: QWeight | None = None  # (L, E, dim, hidden), scale (L, E, dim)
+    # family extras (None where the model has none)
+    bqkv: torch.Tensor | None = None  # (L, kh*(g+2)*hd) f32 Qwen2 qkv bias, wqkv's row order
+    q_norm: torch.Tensor | None = None  # (L, head_dim) f32 Qwen3 per-head q RMS norm
+    k_norm: torch.Tensor | None = None  # (L, head_dim) f32 Qwen3 per-head k RMS norm
 
 
 @dataclasses.dataclass
@@ -134,7 +142,8 @@ class ModelParams:
         n = sum(w.nbytes() for w in mats if w is not None)
         if self.wcls is not self.embed:
             n += self.wcls.nbytes()
-        for t in (lp.attn_norm, lp.mlp_norm, self.out_norm, lp.wgate):
+        for t in (lp.attn_norm, lp.mlp_norm, self.out_norm, lp.wgate, lp.bqkv, lp.q_norm,
+                  lp.k_norm):
             if t is not None:
                 n += t.nelement() * 4
         return n
@@ -191,14 +200,21 @@ def _torch(arr: np.ndarray, torch_dtype: torch.dtype, device) -> torch.Tensor:
     return t.to(device)
 
 
-def _check_dense(cfg: ModelConfig, xf=None) -> None:
+def _host_f32(arr: np.ndarray, tdt: torch.dtype) -> np.ndarray:
+    """Stored float values (bf16 as its raw 16 bits) -> f32."""
+    if tdt == torch.bfloat16:
+        return (np.asarray(arr).astype(np.uint32) << 16).view(np.float32)
+    return np.asarray(arr, np.float32)
+
+
+def _check_dense(cfg: ModelConfig) -> None:
+    """Refuse the family extras of later slices (the Qwen2 bias, the Qwen3
+    q/k norms and rope scaling are taken)."""
     extras = {
         "post_norms": cfg.post_norms,
-        "qk_norm": cfg.qk_norm,
         "embed_scale": cfg.embed_scale != 1.0,
         "softcaps": cfg.attn_softcap or cfg.logit_softcap,
         "gelu": cfg.act != "silu",
-        "qkv bias": xf is not None and "l.0.attn.q.bias" in xf,
     }
     for name, present in extras.items():
         if present:
@@ -210,7 +226,7 @@ def load_params(xf, cfg: ModelConfig, device="cuda") -> ModelParams:
     (f32/f16/bf16/q8/i8, packed q4) from an open XalmFile onto ``device``
     (the card unless the caller asks for the CPU). f16 stays f16 (the JAX
     loader keeps it off-TPU too)."""
-    _check_dense(cfg, xf)
+    _check_dense(cfg)
 
     def info(name: str, expect_shape):
         t = xf.tensors.get(name)
@@ -270,9 +286,18 @@ def load_params(xf, cfg: ModelConfig, device="cuda") -> ModelParams:
     def fused(parts, fuse, *fargs) -> QWeight:
         return qw(*fuse_host(parts, fuse, *fargs))
 
-    def stack_norm(name_fmt: str) -> torch.Tensor:
-        vals, _, _ = stack_host(name_fmt, (cfg.dim,))
-        return _torch(np.asarray(vals, np.float32), torch.float32, device)
+    def stack_norm(name_fmt: str, n: int) -> torch.Tensor:
+        """(L, n) f32 of a float (f32, f16 or bf16) vector per layer."""
+        vals, _, tdt = stack_host(name_fmt, (n,))
+        return _torch(_host_f32(vals, tdt), torch.float32, device)
+
+    def bias() -> torch.Tensor:
+        """(L, DQ) f32 q/k/v bias, fused in wqkv's row order (JAX
+        ``load_params`` takes the stored values alone, as here)."""
+        parts = [stack_host(f"l.{{}}.attn.{w}.bias", (n,))
+                 for w, n in (("q", q), ("k", kv), ("v", kv))]
+        return _torch(fuse_qkv(*(_host_f32(v, tdt) for v, _, tdt in parts), cfg.n_kv_heads),
+                      torch.float32, device)
 
     def single(name: str, shape) -> QWeight:
         t = info(name, shape)
@@ -286,7 +311,7 @@ def load_params(xf, cfg: ModelConfig, device="cuda") -> ModelParams:
         vals, _, tdt = stack_host("l.{}.moe.gate.weight", (cfg.n_experts, d))
         if tdt == torch.int8:
             raise ValueError("FATAL: MoE router weights must not be int8-quantized")
-        return _torch(np.asarray(vals, np.float32), torch.float32, device)
+        return _torch(_host_f32(vals, tdt), torch.float32, device)
 
     def experts(host_stack) -> QWeight:
         """(L, E, ...) stacks of the (values, scale, dtype) that
@@ -319,7 +344,7 @@ def load_params(xf, cfg: ModelConfig, device="cuda") -> ModelParams:
     d, q, kv, h = cfg.dim, cfg.q_dim, cfg.kv_dim, cfg.hidden_dim
     moe = cfg.n_experts > 0
     layers = LayerParams(
-        attn_norm=stack_norm("l.{}.attn.norm.weight"),
+        attn_norm=stack_norm("l.{}.attn.norm.weight", d),
         wqkv=fused(
             [
                 stack_host("l.{}.attn.q.weight", (q, d)),
@@ -330,7 +355,7 @@ def load_params(xf, cfg: ModelConfig, device="cuda") -> ModelParams:
             cfg.n_kv_heads,
         ),
         wo=qw(*stack_host("l.{}.attn.down.weight", (d, q))),
-        mlp_norm=stack_norm("l.{}.mlp.norm.weight"),
+        mlp_norm=stack_norm("l.{}.mlp.norm.weight", d),
         w13=None if moe else fused(
             [
                 stack_host("l.{}.mlp.gate.weight", (h, d)),
@@ -343,10 +368,14 @@ def load_params(xf, cfg: ModelConfig, device="cuda") -> ModelParams:
         wgate=router() if moe else None,
         w13e=experts(gate_up) if moe else None,
         w2e=experts(down) if moe else None,
+        bqkv=bias() if "l.0.attn.q.bias" in xf else None,
+        q_norm=stack_norm("l.{}.attn.qnorm.weight", cfg.head_dim) if cfg.qk_norm else None,
+        k_norm=stack_norm("l.{}.attn.knorm.weight", cfg.head_dim) if cfg.qk_norm else None,
     )
     embed = single("embed.weight", (cfg.vocab_size, d))
-    onv = xf.load("output.norm.weight")
-    out_norm = _torch(np.asarray(onv, np.float32), torch.float32, device)
+    out_norm = _torch(_host_f32(xf.load("output.norm.weight"),
+                                info("output.norm.weight", (d,)).dtype.torch_dtype),
+                      torch.float32, device)
     wcls = embed if cfg.tie_word_embeddings else single("output.weight", (cfg.vocab_size, d))
     return ModelParams(embed=embed, layers=layers, out_norm=out_norm, wcls=wcls)
 
@@ -364,9 +393,10 @@ def from_jax_params(tree, device="cpu") -> ModelParams:
     ``ModelParams`` whose leaves the caller turned into numpy arrays. The
     layouts are the same, so every tensor is a bit-exact copy."""
     lp = tree.layers
-    for name in ("bqkv", "post_attn_norm", "post_mlp_norm", "q_norm", "k_norm"):
+    for name in ("post_attn_norm", "post_mlp_norm"):
         if getattr(lp, name, None) is not None:
             raise NotImplementedError(f"{name}: later slice")
+    opt = lambda a: None if a is None else _from_np(a, device)  # noqa: E731
 
     def qw(w) -> QWeight | None:
         if w is None:
@@ -387,9 +417,12 @@ def from_jax_params(tree, device="cpu") -> ModelParams:
             mlp_norm=_from_np(lp.mlp_norm, device),
             w13=qw(lp.w13),
             w2=qw(lp.w2),
-            wgate=None if lp.wgate is None else _from_np(lp.wgate, device),
+            wgate=opt(lp.wgate),
             w13e=qw(lp.w13e),
             w2e=qw(lp.w2e),
+            bqkv=opt(lp.bqkv),
+            q_norm=opt(lp.q_norm),
+            k_norm=opt(lp.k_norm),
         ),
         out_norm=_from_np(tree.out_norm, device),
         wcls=embed if tree.wcls is tree.embed else qw(tree.wcls),

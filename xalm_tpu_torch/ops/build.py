@@ -18,7 +18,10 @@ live in the CUDA source alone. Size queries (``*_scratch``,
 ``*_workspace``) return element counts.
 
 ``LAUNCHES`` counts kernel launches per wrapper: each wrapper adds one where
-it launches its kernel on the card, and nowhere else.
+it launches its kernel on the card, and nowhere else. A megakernel launch
+counts under its body (``fused_decode``, ``_a8``, ``_q4``) and, when a
+family fold is on, under that fold too (``fused_decode_bias``,
+``fused_decode_qk_norm``).
 """
 
 from __future__ import annotations
@@ -44,7 +47,8 @@ NVCC_FLAGS = [
 KERNELS = {
     "qmatmul": ("qmatmul", "qmatmul_multi", "qmatmul_q4", "qmatmul_a8"),
     "attention": ("kv_update", "flash_decode", "flash_prefill", "kv_update_q", "flash_decode_q"),
-    "fused_decode": ("fused_decode", "fused_decode_a8", "fused_decode_q4"),
+    "fused_decode": ("fused_decode", "fused_decode_a8", "fused_decode_q4", "fused_decode_bias",
+                     "fused_decode_qk_norm"),
 }
 LAUNCHES: dict[str, int] = {k: 0 for ks in KERNELS.values() for k in ks}
 

@@ -30,7 +30,13 @@ attention dots). Its weight phases run one of three bodies:
   times x's scale. The group scales stay in the container's (L, D, K/g)
   layout.
 
-The family folds belong to later slices. ``fused_decode_step`` launches the
+Two family folds ride along, read from ``params.layers`` as the JAX kernel
+reads them: Qwen2's qkv bias (``bqkv``, added to each qkv row after its
+scale, before the clip) and Qwen3's per-head q/k RMS norms (``q_norm``/
+``k_norm``, over the 128 lanes of each query head and of the K head, after
+the clip and before rope, with ``cfg.norm_eps``; V is not normed). The
+other family folds (softcaps, gelu, post-norms, embed scale) belong to a
+later slice; the port refuses those models at load. ``fused_decode_step`` launches the
 kernel for CUDA caches (bf16, or int8 with scales) and raises on anything
 it does not take; for CPU caches it runs ``fused_decode_step_plain``, the
 same function in plain PyTorch. Both update the caches (and scale planes)
@@ -80,8 +86,9 @@ def fused_step_supported(cfg, params, cache_k, batch: int, t: int, k_scale=None,
                          a8: bool = False) -> bool:
     """Does a (batch, t) step take the megakernel path? t = 1, 1 <= batch
     <= MAX_B, a dense int8 body with per-row scales (or packed q4 with group
-    scales), and a bf16 or f32 cache, or an int8 cache with its scale planes
-    (``k_scale``). A q4 body needs ``a8``, one group size on all four
+    scales; the Qwen2 bias and the Qwen3 q/k norms fold in), and a bf16 or
+    f32 cache, or an int8 cache with its scale planes (``k_scale``). A q4
+    body needs ``a8``, one group size on all four
     weights and a group that is a multiple of 128: the JAX gate's rules. Its
     48 MB scale budget is a rule of the TPU's VMEM and is not carried over;
     the kernel's own limits are in csrc/ (the wrapper raises past them)."""
@@ -128,6 +135,12 @@ def _check(params, cfg, x0, cache_k, cache_v, wcls, out_norm, embed, token, pos,
     q4 = _q4_body(lp)
     _need(q4 >= 0, "a q4 body needs one group size on wqkv, wo, w13 and w2")
     _need(not q4 or a8, "the q4 body needs int8 activations (a8)")
+    L, dq = lp.wqkv.values.shape[:2]
+    _need(lp.bqkv is None or tuple(lp.bqkv.shape) == (L, dq), f"bqkv must be (L, {dq})")
+    _need((lp.q_norm is None) == (lp.k_norm is None), "q_norm and k_norm come together")
+    for t in (lp.q_norm, lp.k_norm):
+        _need(t is None or tuple(t.shape) == (L, cfg.head_dim),
+              f"q_norm and k_norm must be (L, {cfg.head_dim})")
     _need(cache_k.shape == cache_v.shape and cache_k.dim() == 5, "caches (L, B, KH, S, hd)")
     if k_scale is not None or v_scale is not None:
         _need(cache_k.dtype == cache_v.dtype == torch.int8,
@@ -158,7 +171,8 @@ def fused_decode_step_plain(params, cfg, x0, cache_k, cache_v, kv_pos, kv_len, r
                             a8: bool = False):
     """Plain version, built from the port's plain pieces with the kernel's
     numerics: rmsnorm outputs, attn and act are cast to bf16 before their
-    i8 matmuls (exact products, f32 sums, scale after); with ``a8`` or a
+    i8 matmuls (exact products, f32 sums, scale after); the qkv bias after
+    the scale, the q/k norms in f32 after the clip; with ``a8`` or a
     q4 body they are quantised per row instead, through ``qmatmul_plain``'s
     a8 and q4 branches (the i8 head too). A float cache: q is
     f32 and pre-scaled by 1/sqrt(hd) (inside ``flash_decode_plain``); the K
@@ -207,13 +221,20 @@ def fused_decode_step_plain(params, cfg, x0, cache_k, cache_v, kv_pos, kv_len, r
         return qmatmul_plain(xin, qw.values, layer, scale=qw.scale, q4_group=qw.q4group,
                              a8=not qw.q4group)
 
+    def hnorm(v, w):  # the per-head RMS norm (Qwen3), over each head's hd lanes
+        return v * torch.rsqrt(torch.mean(v * v, dim=-1, keepdim=True) + eps) * w
+
     for layer in range(L):
         qkv = mm(x, lp.wqkv, layer, lp.attn_norm)
+        if lp.bqkv is not None:
+            qkv = qkv + lp.bqkv[layer]
         q, k, v = split_qkv_rows(qkv, kh, g, hd)
         if clip is not None:
             q, k, v = (torch.clamp(z, -clip, clip) for z in (q, k, v))
-        q = rope(q.reshape(b, kh * g, hd))
-        k = rope(k.reshape(b, kh, hd))
+        q, k = q.reshape(b, kh * g, hd), k.reshape(b, kh, hd)
+        if lp.q_norm is not None:
+            q, k = hnorm(q, lp.q_norm[layer]), hnorm(k, lp.k_norm[layer])
+        q, k = rope(q), rope(k)
         if k_scale is not None:
             attn_ops.kv_update_q_plain(cache_k, cache_v, k_scale, v_scale, layer, k,
                                        v.reshape(b, kh, hd), kv_pos, rotate, c1, s1)
@@ -277,7 +298,8 @@ def fused_decode_step(params, cfg, x0, cache_k, cache_v, kv_pos, kv_len, rotate,
     planes = (cache_k, cache_v) + ((k_scale, v_scale) if quant else ())
     _need(all(t.is_contiguous() and t.device == dev for t in planes),
           "caches and scale planes must be contiguous on one card")
-    tensors = [lp.attn_norm, lp.mlp_norm]
+    folds = (lp.bqkv, lp.q_norm, lp.k_norm)  # the family folds, None where off
+    tensors = [lp.attn_norm, lp.mlp_norm] + [t for t in folds if t is not None]
     for qw in (lp.wqkv, lp.wo, lp.w13, lp.w2):
         tensors += [qw.values, qw.scale]
     if wcls is not None:
@@ -287,8 +309,9 @@ def fused_decode_step(params, cfg, x0, cache_k, cache_v, kv_pos, kv_len, rotate,
     for t in tensors:
         _need(t.device == dev and t.is_contiguous(), "weights must be contiguous on the card")
     for t in (lp.attn_norm, lp.mlp_norm, lp.wqkv.scale, lp.wo.scale, lp.w13.scale,
-              lp.w2.scale) + ((wcls.scale, out_norm) if wcls is not None else ()):
-        _need(t.dtype == torch.float32, "norms and scales must be f32")
+              lp.w2.scale) + ((wcls.scale, out_norm) if wcls is not None else ()) + tuple(
+                  t for t in folds if t is not None):
+        _need(t.dtype == torch.float32, "norms, scales and the qkv bias must be f32")
 
     def ints(t):
         return torch.as_tensor(t).to(dtype=torch.int32, device="cpu").reshape(-1)
@@ -327,6 +350,7 @@ def fused_decode_step(params, cfg, x0, cache_k, cache_v, kv_pos, kv_len, rotate,
         ptr(out_norm) if v else None, ptr(wcls.values) if v else None,
         ptr(wcls.scale) if v else None, cache_k.data_ptr(), cache_v.data_ptr(),
         xout.data_ptr(), ptr(logits), ptr(tok), work.data_ptr(), ptr(k_scale), ptr(v_scale),
+        *(ptr(t) for t in folds),
     ]
     q4 = lp.wqkv.q4group
     body = 2 if q4 else 1 if a8 else 0  # bf16 activations, a8, q4
@@ -342,6 +366,10 @@ def fused_decode_step(params, cfg, x0, cache_k, cache_v, kv_pos, kv_len, rotate,
     )
     build.check(err, "fused_decode_step")
     build.LAUNCHES[("fused_decode", "fused_decode_a8", "fused_decode_q4")[body]] += 1
+    if lp.bqkv is not None:
+        build.LAUNCHES["fused_decode_bias"] += 1
+    if lp.q_norm is not None:
+        build.LAUNCHES["fused_decode_qk_norm"] += 1
     caches = (cache_k, cache_v) + ((k_scale, v_scale) if quant else ())
     if v:
         return (xout, logits, tok, *caches)

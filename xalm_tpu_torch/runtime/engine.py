@@ -311,7 +311,8 @@ class Engine:
     @functools.cached_property
     def _per_token_weight_bytes(self) -> int:
         """Weight bytes a decode step reads: q4 weights count their packed
-        bytes and group scales. MoE: the k/E share of the expert stacks where
+        bytes and group scales; the norms and the family planes (qkv bias,
+        q/k norms) their f32 bytes. MoE: the k/E share of the expert stacks where
         B = 1 decode gathers the chosen experts (the per-layer paths, a dtype
         the gather takes; q4 experts under ``a8_decode``, the JAX rule), all
         E otherwise, and the router."""
@@ -326,6 +327,7 @@ class Engine:
                 experts = experts * cfg.n_experts_active // max(cfg.n_experts, 1)
             total += experts + 4 * lw.wgate.nelement()
         total += 4 * (lw.attn_norm.nelement() + lw.mlp_norm.nelement() + p.out_norm.nelement())
+        total += 4 * sum(t.nelement() for t in (lw.bqkv, lw.q_norm, lw.k_norm) if t is not None)
         total += p.embed.nbytes() // cfg.vocab_size  # one embedding row read
         total += p.wcls.nbytes()
         return int(total)

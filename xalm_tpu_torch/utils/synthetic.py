@@ -2,7 +2,7 @@
 ``xalm_tpu/utils/synthetic.py``).
 
 Decode time does not depend on the weight values, so benchmarks and the
-chip smoke run random weights at Mistral-7B and Mixtral-8x7B shapes.
+chip smoke run random weights at the shapes of its configurations.
 Everything is drawn directly on ``device`` from a seeded
 ``torch.Generator``, in the fused layouts at the fused shapes (random
 weights need no interleave pass): int8 bodies with per-row
@@ -12,9 +12,17 @@ straight into an int8 tensor (Mixtral's (L, E, 2h, d) stack is 30.1 GB; a
 wider transient would not fit beside it). ``q4_group`` > 0 then packs the
 body to q4 on ``device`` with ``recode_params_q4`` (one layer's f32
 temporary at a time), as ``Engine.from_xalm(q4_group=)`` does at load.
+
+Family extras, drawn so that they move the logits visibly: ``qkv_bias``
+(Qwen2) draws a (L, DQ) f32 bias at the scale of the qkv outputs (a normed
+x of unit rms times a row of codes uniform in [-128, 128) at 0.02/127 each
+gives a std of about 0.02 * sqrt(dim / 3)); ``cfg.qk_norm`` (Qwen3) draws
+(L, head_dim) q/k norm weights uniform in [0.5, 1.5).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -34,9 +42,10 @@ def _qweight(gen, shape, dtype, device, scale_mag=0.02) -> QWeight:
 
 
 def synthetic_params(cfg: ModelConfig, device="cuda", seed: int = 42,
-                     q4_group: int = 0) -> ModelParams:
+                     q4_group: int = 0, qkv_bias: bool = False) -> ModelParams:
     """Random ModelParams at cfg's shapes on ``device`` (dense, or MoE when
-    ``cfg.n_experts``); the body packed to q4 when ``q4_group`` > 0."""
+    ``cfg.n_experts``); the body packed to q4 when ``q4_group`` > 0; a
+    Qwen2 qkv bias with ``qkv_bias``, Qwen3 q/k norms with ``cfg.qk_norm``."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     L, d, h, q, kv, v = (
@@ -57,6 +66,13 @@ def synthetic_params(cfg: ModelConfig, device="cuda", seed: int = 42,
     else:
         layers.w13 = _qweight(gen, (L, 2 * h, d), torch.int8, device)
         layers.w2 = _qweight(gen, (L, d, h), torch.int8, device)
+    if qkv_bias:
+        layers.bqkv = torch.randn((L, q + 2 * kv), generator=gen, device=device).mul_(
+            0.02 * math.sqrt(d / 3))
+    if cfg.qk_norm:
+        layers.q_norm, layers.k_norm = (
+            torch.rand((L, cfg.head_dim), generator=gen, device=device).add_(0.5)
+            for _ in range(2))
     embed = _qweight(gen, (v, d), torch.bfloat16, device, scale_mag=0.05)
     wcls = embed if cfg.tie_word_embeddings else _qweight(gen, (v, d), torch.bfloat16, device, 0.05)
     params = ModelParams(embed=embed, layers=layers, out_norm=ones(d), wcls=wcls)
