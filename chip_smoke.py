@@ -2,10 +2,12 @@
 """Chip smoke of the PyTorch/CUDA port (``xalm_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --megakernel-ms [--root DIR] [--models NAME ...]
 
 Builds the port's CUDA kernels from ``xalm_tpu_torch/csrc/`` and drives the
 port, never the JAX package, through these phases, each printing JSON lines,
-first on Mistral-7B and then (phases 3-5 again) on Mixtral-8x7B:
+first on Mistral-7B and then (phases 3-5 again) on Mixtral-8x7B and the
+family models:
 
 1. device: ``nvidia-smi`` name and power limit, ``torch.cuda.get_device_name``;
 2. build: one ``nvcc`` per source, all at once, and the build time;
@@ -51,8 +53,28 @@ first on Mistral-7B and then (phases 3-5 again) on Mixtral-8x7B:
    int8 cache, the routing teacher-forced like the tokens and every flip
    recorded (``phase_wrap_moe``), and the router's gain measured on the
    plain version alone (``phase_router_witness``);
-7. the kernels' summary line, then the result line
+7. the families (``phase_families``), one model at a time, random i8
+   weights at full width and depth: Qwen2.5-7B (qkv bias, GQA group 7),
+   Qwen3-8B (q/k norms), Llama-3.1-8B (llama3 rope), Gemma-2-9B (post-norms,
+   attention and logit softcaps, gelu, embed scale, head_dim 256, 42
+   layers), Gemma-7B (gelu and embed scale, head_dim 256, q_dim != dim) and
+   Phi-3-mini-4k (head_dim 96, per layer): phase 3 for the megakernel's
+   fold of each and for the attention kernels at group 7 and head_dim 256
+   and 96, phase 4 on the decode paths each model takes, phase 5 at 2
+   layers with the fold in both models;
+8. the kernels' summary line, then the result line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
+
+With ``--megakernel-ms`` it runs none of these phases: it times the
+megakernel alone, in phase 3's first case (B = 1, kv_len 520, the embed
+fold, a bf16 cache), on each model preset named (default Mistral-7B and
+Qwen3-8B) and each weight body (``megakernel_ms``), and prints the card's
+name and power limit, the build's ptxas report and one JSON line of times.
+``--root`` takes the port from another checkout (what it calls has been
+there since the megakernel landed), so that two commits compare in one
+call on one card: unpack the other with ``git archive`` into a directory
+that ``.gitignore`` lists and run the two in turns (other, this, this,
+other).
 
 Any failed phase raises and the script exits non-zero without the result
 line. There is no CPU fallback: without a CUDA device it exits 2 at once.
@@ -79,7 +101,13 @@ SEED = 1234
 DEVICE = "cuda"  # where the phases run; main() goes on only when CUDA is there
 
 
+T0 = time.perf_counter()  # the script's start: every phase record carries its time since
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase record carries the seconds since the start."""
+    if "phase" in obj:
+        obj = dict(obj, t=round(time.perf_counter() - T0, 1))
     print(json.dumps(obj), flush=True)
 
 
@@ -189,7 +217,6 @@ def phase_parity(params, cfg, cases: Cases) -> None:
     import torch
     import torch.nn.functional as F
 
-    from xalm_tpu_torch.ops import attention as A
     from xalm_tpu_torch.ops.qmatmul import qmatmul, qmatmul_plain
 
     dev = torch.device(DEVICE)
@@ -250,17 +277,40 @@ def phase_parity(params, cfg, cases: Cases) -> None:
     shape = (L, 1, cfg.n_kv_heads, cfg.max_seq_len, cfg.head_dim)
     ck = randn(*shape).to(torch.bfloat16)
     cv = randn(*shape).to(torch.bfloat16)
-    kh, hd, h = cfg.n_kv_heads, cfg.head_dim, cfg.n_heads
+    cexp, sexp = _sink_trig(cfg)
+    update_cases(cfg, cases, gen, ck, cv, cexp, sexp)
+    attention_cases(cfg, cases, gen, ck, cv)
+    del ck, cv
+    torch.cuda.empty_cache()
+    phase_parity_int8(cfg, cases, gen, cexp, sexp)
+
+
+def _sink_trig(cfg):
+    """(cexp, sexp) of cfg's +1-position sink rotation, on the card."""
+    import torch
+
     from xalm_tpu_torch.models.llama import rope_freqs
+    from xalm_tpu_torch.ops import attention as A
 
-    cexp_np, sexp_np = A.rope_cos_sin_plus1(rope_freqs(cfg))
-    cexp = torch.from_numpy(cexp_np).to(dev)
-    sexp = torch.from_numpy(sexp_np).to(dev)
+    return tuple(torch.from_numpy(a).to(DEVICE) for a in A.rope_cos_sin_plus1(rope_freqs(cfg)))
+
+
+def update_cases(cfg, cases: Cases, gen, ck, cv, cexp, sexp, tag: str = "") -> None:
+    """Kernel 2 (``kv_update``, named ``kv_update<tag>``) against its plain
+    version on the bf16 planes ``ck``/``cv`` at cfg's shapes, bit-equal (the
+    kernel rounds each product and the sum as the plain version's separate
+    f32 operations do): an insert at a wrapped row with the sink rotation,
+    and the sentinel row without it."""
+    import torch
+
+    from xalm_tpu_torch.ops import attention as A
+
+    dev = torch.device(DEVICE)
+    L, kh, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
     i32 = lambda *v: torch.tensor(v, dtype=torch.int32, device=dev)  # noqa: E731
-
     for case, kvp, rot in (("insert at a wrapped row + sink rotation", 1000, 1),
                            ("sentinel row (dropped) without rotation", cfg.max_seq_len, 0)):
-        kn, vn = randn(1, kh, hd), randn(1, kh, hd)
+        kn, vn = (torch.randn((1, kh, hd), generator=gen, device=dev) for _ in range(2))
         k1, v1, k2, v2 = ck[5 % L].clone(), cv[5 % L].clone(), ck[5 % L].clone(), cv[5 % L].clone()
         args = (kn, vn, i32(kvp), i32(rot), cexp, sexp)
         A.kv_update(k1[None], v1[None], 0, *args)
@@ -269,17 +319,10 @@ def phase_parity(params, cfg, cases: Cases) -> None:
         want = torch.cat([k2.flatten(), v2.flatten()])
         layers = itertools.cycle(range(L))
         nbytes = 2 * kh * hd * 4 + 2 * kh * hd * 2 + (2 * 2 * kh * 2 * hd * rot)
-        # bit-equal: the kernel rounds each product and the sum as the
-        # plain version's separate f32 operations do
-        cases.add("kv_update", case, got, want, hd, 0.0,
+        cases.add("kv_update" + tag, case, got, want, hd, 0.0,
                   lambda: A.kv_update(ck, cv, next(layers), *args),
                   lambda: A.kv_update_plain(ck, cv, next(layers), *args),
                   None, nbytes, 0.0, PEAK_F32)
-
-    attention_cases(cfg, cases, gen, ck, cv)
-    del ck, cv
-    torch.cuda.empty_cache()
-    phase_parity_int8(cfg, cases, gen, cexp, sexp)
 
 
 def attention_cases(cfg, cases: Cases, gen, ck, cv, tag: str = "") -> None:
@@ -426,9 +469,10 @@ def phase_parity_quant(params, q4p, cfg, cases: Cases) -> None:
 NO_LIBRARY_INT8 = "no one PyTorch call attends over (or writes) int8 codes with per-row scales"
 
 
-def phase_parity_int8(cfg, cases: Cases, gen, cexp, sexp) -> None:
+def phase_parity_int8(cfg, cases: Cases, gen, cexp, sexp, tag: str = "") -> None:
     """Kernels 5-7 on random int8 planes (codes in [-127, 127], scales in
-    [0, 0.02)) at the main path's shape.
+    [0, 0.02)) at the main path's shape (with ``tag``, the records are
+    named ``kv_update_q<tag>`` and ``flash_decode_q<tag>``).
 
     kv_update_q: codes and scales bit-equal to the plain version (absmax is
     order-free; scale and codes by IEEE division, rounded half to even on
@@ -469,18 +513,22 @@ def phase_parity_int8(cfg, cases: Cases, gen, cexp, sexp) -> None:
         p1, p2 = [t.clone() for t in one], [t.clone() for t in one]
         A.kv_update_q(*p1, 0, *args)
         A.kv_update_q_plain(*p2, 0, *args)
-        got = torch.cat([t.float().flatten() for t in p1])
-        want = torch.cat([t.float().flatten() for t in p2])
+        # the code rows by head_dim, the scale planes held bit-equal beside them
+        got = torch.cat([t.float().flatten() for t in p1[:2]])
+        want = torch.cat([t.float().flatten() for t in p2[:2]])
+        scales_equal = all(torch.equal(x, y) for x, y in zip(p1[2:], p2[2:]))
         layers = itertools.cycle(range(L))
         written = sum(kp < S for kp in kv_pos)
         nbytes = 2 * b * kh * hd * 4 + written * 2 * kh * (hd + 4) + 2 * sum(rot) * kh * 2 * (hd + 4)
-        cases.add("kv_update_q", case, got, want, hd, 0.0,
+        cases.add("kv_update_q" + tag, case, got, want, hd, 0.0,
                   lambda: A.kv_update_q(*full, next(layers), *args),
                   lambda: A.kv_update_q_plain(*full, next(layers), *args),
-                  None, nbytes, 0.0, PEAK_F32, extra={"library_note": NO_LIBRARY_INT8})
+                  None, nbytes, 0.0, PEAK_F32,
+                  extra={"library_note": NO_LIBRARY_INT8, "scales_equal": scales_equal},
+                  extra_ok=scales_equal)
         del full, one, p1, p2
 
-    decode_q_cases(cfg, cases, planes(1), gen)
+    decode_q_cases(cfg, cases, planes(1), gen, tag)
 
 
 def decode_q_cases(cfg, cases: Cases, full, gen, tag: str = "") -> None:
@@ -550,9 +598,9 @@ def _ulp_share(got, want) -> float:
 def _model_dim_permuted(p, perm):
     """The same model with its residual dimension permuted by ``perm``: each
     matmul over the model dimension, and each rms, sums its terms in another
-    order; x comes out permuted. (embed, norms, wqkv, w13, the router, the
-    experts' w13 and the head by column; wo, w2 and the experts' w2 by output
-    row.)"""
+    order; x comes out permuted. (embed, norms and post-norms, wqkv, w13, the
+    router, the experts' w13 and the head by column; wo, w2 and the experts'
+    w2 by output row.)"""
     from xalm_tpu_torch.models.params import QWeight
 
     def cols(w):
@@ -563,10 +611,12 @@ def _model_dim_permuted(p, perm):
                                               w.scale[..., perm].contiguous())
 
     lp = p.layers
+    dims = lambda t: None if t is None else t[:, perm].contiguous()  # noqa: E731
     layers = dataclasses.replace(
         lp, attn_norm=lp.attn_norm[:, perm], mlp_norm=lp.mlp_norm[:, perm], wqkv=cols(lp.wqkv),
         w13=cols(lp.w13), wo=rows(lp.wo), w2=rows(lp.w2), w13e=cols(lp.w13e), w2e=rows(lp.w2e),
-        wgate=None if lp.wgate is None else lp.wgate[..., perm].contiguous())
+        wgate=None if lp.wgate is None else lp.wgate[..., perm].contiguous(),
+        post_attn_norm=dims(lp.post_attn_norm), post_mlp_norm=dims(lp.post_mlp_norm))
     return dataclasses.replace(p, embed=cols(p.embed), layers=layers, out_norm=p.out_norm[perm],
                                wcls=cols(p.wcls))
 
@@ -581,7 +631,9 @@ def _layer_window(p, first: int, n: int):
     opt = lambda t: None if t is None else t[sl]  # noqa: E731
     layers = dataclasses.replace(lp, attn_norm=lp.attn_norm[sl], mlp_norm=lp.mlp_norm[sl],
                                  wqkv=cut(lp.wqkv), wo=cut(lp.wo), w13=cut(lp.w13), w2=cut(lp.w2),
-                                 bqkv=opt(lp.bqkv), q_norm=opt(lp.q_norm), k_norm=opt(lp.k_norm))
+                                 bqkv=opt(lp.bqkv), q_norm=opt(lp.q_norm), k_norm=opt(lp.k_norm),
+                                 post_attn_norm=opt(lp.post_attn_norm),
+                                 post_mlp_norm=opt(lp.post_mlp_norm))
     return dataclasses.replace(p, layers=layers)
 
 
@@ -694,8 +746,9 @@ def phase_fused_parity(params, cfg, cases: Cases, body: str = "", kernel: str = 
     code as a8.)
 
     ``kernel`` names the records (the family folds: ``fused_decode_bias``,
-    ``fused_decode_qk_norm``, whose cases then carry the body in their
-    name), ``only`` keeps the cases of those indices; the grid barrier is
+    ``fused_decode_qk_norm``, ``fused_decode_gemma``, ``fused_decode_gemma2``,
+    whose cases then carry the body in their name), ``only`` keeps the cases
+    of those indices; the grid barrier is
     timed with the bf16 body's default run alone. The positions are those
     of a 4096-slot window (every configuration's)."""
     import torch
@@ -717,7 +770,8 @@ def phase_fused_parity(params, cfg, cases: Cases, body: str = "", kernel: str = 
     lp = params.layers
     w_elems = sum(w.values.numel() for w in (lp.wqkv, lp.wo, lp.w13, lp.w2))
     w_bytes = w_elems + 4 * sum(w.scale.numel() for w in (lp.wqkv, lp.wo, lp.w13, lp.w2)) + 8 * L * N
-    w_bytes += 4 * sum(t.numel() for t in (lp.bqkv, lp.q_norm, lp.k_norm) if t is not None)
+    w_bytes += 4 * sum(t.numel() for t in (lp.bqkv, lp.q_norm, lp.k_norm, lp.post_attn_norm,
+                                           lp.post_mlp_norm) if t is not None)
     if body == "q4":
         w_elems *= 2  # two codes a byte: the multiply-adds
     barrier = not (body or kernel or only)
@@ -753,7 +807,7 @@ def phase_fused_parity(params, cfg, cases: Cases, body: str = "", kernel: str = 
             kw.update(embed=p.embed, token=tok, pos=pos, freqs=freqs)
             x0 = ce = se = None
         else:
-            x0 = p.embed.values[tok.to(dev)].float()
+            x0 = p.embed.values[tok.to(dev)].float() * cfg.embed_scale  # the forward's x0
             ce, se = (z[:, 0, 0] for z in rope_tables(pos[:, None], freqs_h))
 
         def args(k, v, x0=x0, ce=ce, se=se, p=p, kv_pos=kv_pos, kv_len=kv_len, rot=rot):
@@ -783,7 +837,7 @@ def phase_fused_parity(params, cfg, cases: Cases, body: str = "", kernel: str = 
         else:
             # the floor of a quantised body: the plain version against itself
             # with its input rows moved by 1e-6 of themselves
-            xin = x0 if x0 is not None else p.embed.values[tok.to(dev)].float()
+            xin = x0 if x0 is not None else p.embed.values[tok.to(dev)].float() * cfg.embed_scale
             ce_f, se_f = (ce, se) if x0 is not None else (
                 z[:, 0, 0].to(dev) for z in rope_tables(pos[:, None], freqs_h))
             xin = xin * (1 + 1e-6 * torch.randn(xin.shape, generator=gen, device=dev))
@@ -1324,7 +1378,19 @@ def copy_params(cfg, seed: int, qkv_bias: bool = False):
     one on v (std 0.05: it adds the same row to every attention output,
     about 0.6 to a logit, against a margin of about 78). ``cfg.qk_norm``:
     the q and k norm weights are the rms of the constant q and k rows, so
-    the norms hand the rows back as they were."""
+    the norms hand the rows back as they were. ``cfg.embed_scale``: the
+    embed rows are stored divided by it, so the scaled rows are the ones
+    above (to bf16 rounding). Gelu: the FFN weights are zero, and gelu(0) =
+    0. ``cfg.post_norms``: the post-attention norm weights are the rms of
+    the one head's wo output (hd lanes of +-1 among dim), so the norm hands
+    it back, and the FFN's output stays 0. The softcaps: the attention cap
+    must leave the 200-nat peak standing, which a cap of 400 does (185
+    against at most 142 for any other key), and no cap that bites on random
+    weights does (at cap 50 the peak and the next key are 0.6 nats apart);
+    the logit cap is monotone, but one that saturates in f32 ties the top
+    logits: at Gemma-2's widths the right token's logit is about 550 and
+    the next at most about 170, which a cap of 100 takes to 99.997 and 94.
+    ``phase_wrap`` runs the copy model with those caps."""
     import numpy as np
     import torch
 
@@ -1341,10 +1407,11 @@ def copy_params(cfg, seed: int, qkv_bias: bool = False):
     perm_inv = torch.empty_like(perm)
     perm_inv[perm] = torch.arange(vocab, device=dev)
 
-    embed = torch.zeros((vocab, d), dtype=torch.bfloat16, device=dev)
+    embed = torch.zeros((vocab, d), dtype=torch.float32, device=dev)
     embed[:, :hd] = code
     embed[:, hd:2 * hd] = 1.0
-    wcls = torch.zeros_like(embed)
+    embed = (embed / cfg.embed_scale).to(torch.bfloat16)
+    wcls = torch.zeros((vocab, d), dtype=torch.bfloat16, device=dev)
     wcls[:, 2 * hd:3 * hd] = code[perm]
 
     xc = 1.0 / math.sqrt(2 * hd / d + cfg.norm_eps)  # the normed constant lanes
@@ -1396,6 +1463,9 @@ def copy_params(cfg, seed: int, qkv_bias: bool = False):
         rms = lambda r: math.sqrt(float((r * r).mean()) + cfg.norm_eps)  # noqa: E731
         layers.q_norm = ones(L, hd) * rms(qrow)
         layers.k_norm = ones(L, hd) * rms(torch.from_numpy(c))
+    if cfg.post_norms:  # the rms of the wo output: hd lanes of +-1 among d
+        layers.post_attn_norm = ones(L, d) * math.sqrt(hd / d + cfg.norm_eps)
+        layers.post_mlp_norm = ones(L, d)
     params = ModelParams(embed=QWeight(embed, None), layers=layers, out_norm=ones(d),
                          wcls=QWeight(wcls, None))
     return params, perm_inv.tolist()
@@ -1410,6 +1480,10 @@ WRAP_BODIES = [("i8", "bfloat16", {}, False), ("i8", "int8", {}, False),
                ("q4", "bfloat16", dict(a8_decode=True), True),
                ("a8", "bfloat16", dict(a8_decode=True, a8_prefill=True), True),
                ("a8", "bfloat16", dict(a8_decode=True, a8_prefill=True), False)]
+
+
+# the copy model's softcaps where the model has them (see copy_params)
+COPY_ATTN_SOFTCAP, COPY_LOGIT_SOFTCAP = 400.0, 100.0
 
 
 def phase_wrap(cfg, bodies=WRAP_BODIES, qkv_bias: bool = False, model: str = "") -> list[dict]:
@@ -1462,8 +1536,11 @@ def phase_wrap(cfg, bodies=WRAP_BODIES, qkv_bias: bool = False, model: str = "")
     decode steps within WRAP_TOL. (b) runs each side on its own cache, as for the i8 body.
 
     ``bodies`` picks the runs of WRAP_BODIES; ``qkv_bias`` (and
-    ``cfg.qk_norm``) put the family folds in both models (``copy_params``
-    keeps its recurrence with them); ``model`` names the rows.
+    ``cfg.qk_norm``, gelu, the embed scale, post-norms and softcaps of
+    ``cfg``) put the family folds in both models (``copy_params`` keeps its
+    recurrence with them, the softcaps at COPY_ATTN_SOFTCAP and
+    COPY_LOGIT_SOFTCAP);
+    ``model`` names the rows.
     """
     import numpy as np
     import torch
@@ -1473,6 +1550,9 @@ def phase_wrap(cfg, bodies=WRAP_BODIES, qkv_bias: bool = False, model: str = "")
     from xalm_tpu_torch.utils.synthetic import synthetic_params
 
     cfg2 = dataclasses.replace(cfg, n_layers=2, max_seq_len=256)
+    cfg_copy = dataclasses.replace(
+        cfg2, attn_softcap=COPY_ATTN_SOFTCAP if cfg.attn_softcap else 0.0,
+        logit_softcap=COPY_LOGIT_SOFTCAP if cfg.logit_softcap else 0.0)
     steps = 600
     prompt = np.random.default_rng(SEED + 1).integers(3, cfg.vocab_size, size=200).tolist()
     rows = []
@@ -1480,9 +1560,9 @@ def phase_wrap(cfg, bodies=WRAP_BODIES, qkv_bias: bool = False, model: str = "")
     for (body, kv_name, bkw, resync), (path, kw) in itertools.product(bodies, paths):
         kv = getattr(torch, kv_name)
 
-        def engines(params, kw=dict(kw, **bkw), kv=kv):
-            return (Engine(cfg2, params, kv_dtype=kv, matmul_impl="kernel", **kw),
-                    Engine(cfg2, params, kv_dtype=kv, matmul_impl="plain", **kw))
+        def engines(params, c=cfg2, kw=dict(kw, **bkw), kv=kv):
+            return (Engine(c, params, kv_dtype=kv, matmul_impl="kernel", **kw),
+                    Engine(c, params, kv_dtype=kv, matmul_impl="plain", **kw))
 
         q4 = 512 if body == "q4" else 0
         params = synthetic_params(cfg2, device=DEVICE, seed=SEED + 1, q4_group=q4, qkv_bias=qkv_bias)
@@ -1496,16 +1576,18 @@ def phase_wrap(cfg, bodies=WRAP_BODIES, qkv_bias: bool = False, model: str = "")
         forced = _teacher_forced(ek, ep, prompt, steps, ep0, ec, resync)
         del params, ek, ep, ep0, ec
 
-        params, perm_inv = copy_params(cfg2, SEED + 2, qkv_bias)
+        params, perm_inv = copy_params(cfg_copy, SEED + 2, qkv_bias)
         if q4:  # one nonzero per row: its group's absmax, code 7
             params = recode_params_q4(params, q4)
-        copy = _copy_free_running(*engines(params), prompt, steps, perm_inv)
+        copy = _copy_free_running(*engines(params, cfg_copy), prompt, steps, perm_inv)
         row = {"phase": "wrap", "model": model or "Mistral-7B", "body": body, "decode_path": path,
                "kv_dtype": str(kv).split(".")[-1],
                "layers": 2, "window": 256,
                "prompt_tokens": len(prompt), "ring_wraps": _ring_wraps(copy["final_pos"], 256),
                "tol_rel": WRAP_TOL, "random_teacher_forced": forced, "copy_free_running": copy,
-               "tokens_identical": copy["identical"]}
+               "tokens_identical": copy["identical"],
+               "softcaps": {"random": [cfg2.attn_softcap, cfg2.logit_softcap],
+                            "copy": [cfg_copy.attn_softcap, cfg_copy.logit_softcap]}}
         emit(row)
         if row["ring_wraps"] < 3:
             raise AssertionError(f"wrap phase: {row['ring_wraps']} ring wraps, expected 3")
@@ -1912,31 +1994,70 @@ def phase_router_witness(cfg) -> list[dict]:
 
 
 # ---------------------------------------------------------------- families
-# Llama-3.1-8B, Qwen2.5-7B and Qwen3-8B (models/config.py), random i8 weights
-# at full width and depth: (name, config name, Qwen2 qkv bias, q4 group of
-# the q4 megakernel case (0: none), phase-4 runs). Qwen2.5's q4 case takes
-# group 128: its dim 3584 and hidden 18944 hold no whole 1024-code pair of
-# 512-groups per row half.
+# Llama-3.1-8B, Qwen2.5-7B, Qwen3-8B, Gemma-2-9B, Gemma-7B and Phi-3-mini
+# (models/config.py), random i8 weights at full width and depth, the
+# softcaps at ``biting_softcaps``' values (a published cap hardly moves
+# random scores and logits): (name, config name, Qwen2 qkv bias, q4 group
+# of the q4 megakernel case (0: none), phase-4 runs). Qwen2.5's and
+# Gemma-2's q4 cases take group 128: their dim 3584 holds no whole 1024-code
+# pair of 512-groups per row half.
 FAMILIES = (
     ("Qwen2.5-7B", "QWEN2_5_7B", True, 128, ("megakernel", "perlayer", "int8 perlayer")),
     ("Qwen3-8B", "QWEN3_8B", False, 512, ("megakernel", "perlayer")),
     ("Llama-3.1-8B", "LLAMA3_1_8B", False, 0, ("megakernel",)),
+    ("Gemma-2-9B", "GEMMA2_9B", False, 128, ("megakernel", "perlayer")),
+    ("Gemma-7B", "GEMMA_7B", False, 0, ("megakernel", "perlayer", "int8 perlayer")),
+    ("Phi-3-mini-4k", "PHI3_MINI_4K", False, 0, ("perlayer", "int8 perlayer")),
 )
 # phase_fused_parity's cases of the int8-activation bodies with a fold: a8
 # B=1 wrapped with the embed and i8-head folds, q4 int8 KV at B=4
 FOLD_A8_CASE, FOLD_Q4_CASE = 1, 4
-# the G = 7 rows of the kernels line: the launches of the wrapper in the
-# Qwen2.5-7B runs of phase 4
-GROUP_KERNELS = {"flash_decode_g7": "flash_decode", "flash_prefill_g7": "flash_prefill",
-                 "flash_decode_q_g7": "flash_decode_q"}
+# Gemma-7B's megakernel cases (gelu and the embed scale): B=1 with the embed
+# fold, bf16 and int8 caches
+GEMMA_CASES = (0, 3)
+# the rows of the kernels line at another (GQA group, head_dim): tag (see
+# _shape_tag) -> (the model whose phase-4 runs count their launches and
+# whose shapes phase_parity_shape measures, the wrappers its main path
+# launches). Gemma-2-9B's attention softcap keeps kernels 3, 4 and 7 off its
+# main path: they are checked at its shapes but have no row.
+ATTENTION_KERNELS = ("kv_update", "flash_decode", "flash_prefill", "kv_update_q", "flash_decode_q")
+SHAPE_ROWS = {"_g7": ("Qwen2.5-7B", ("flash_decode", "flash_prefill", "flash_decode_q")),
+              "_hd256g2": ("Gemma-2-9B", ("kv_update",)),
+              "_hd256": ("Gemma-7B", ATTENTION_KERNELS),
+              "_hd96": ("Phi-3-mini-4k", ATTENTION_KERNELS)}
 
 
-def phase_parity_group(cfg, cases: Cases) -> None:
-    """Kernels 3, 4 and 7 at GQA group 7 (Qwen2.5-7B: 28 heads, 4 KV heads)
+def _shape_tag(cfg) -> str:
+    """The suffix of a family model's attention rows: "" at Mistral's
+    head_dim 128 and a group the phase-3 rows cover, "_g<G>" at another
+    group, "_hd<hd>" at another head_dim with group 1 and "_hd<hd>g<G>"
+    with another group: each a template instantiation of its own."""
+    g, hd = cfg.group_size, cfg.head_dim
+    if hd == 128:
+        return "_g7" if g == 7 else ""
+    return f"_hd{hd}" + (f"g{g}" if g != 1 else "")
+
+
+def _fold(cfg, bias: bool) -> str:
+    """The megakernel fold a family model exercises ("" for none)."""
+    if bias:
+        return "bias"
+    if cfg.qk_norm:
+        return "qk_norm"
+    if cfg.post_norms:
+        return "gemma2"
+    return "gemma" if cfg.act == "gelu" else ""
+
+
+def phase_parity_shape(cfg, cases: Cases, tag: str) -> None:
+    """The attention kernels at a GQA group or head_dim of a family model
     against their plain versions on random planes at its shapes, the cases
     and tolerances of phase 3 (``attention_cases``, ``decode_q_cases``),
-    recorded as ``flash_decode_g7``, ``flash_prefill_g7`` and
-    ``flash_decode_q_g7``."""
+    recorded as ``<kernel><tag>`` (``_shape_tag``): kernels 3, 4 and 7 at
+    group 7 (Qwen2.5-7B, tag ``_g7``), and kernels 2-7 at head_dim 256 with
+    group 2 (Gemma-2-9B, ``_hd256g2``) and group 1 (Gemma-7B, ``_hd256``)
+    and at 96 (Phi-3-mini, ``_hd96``): the ring inserts (``update_cases``,
+    ``phase_parity_int8``) too."""
     import torch
 
     dev = torch.device(DEVICE)
@@ -1944,12 +2065,20 @@ def phase_parity_group(cfg, cases: Cases) -> None:
     gen.manual_seed(SEED + 13)
     shape = (cfg.n_layers, 1, cfg.n_kv_heads, cfg.max_seq_len, cfg.head_dim)
     ck, cv = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
-    attention_cases(cfg, cases, gen, ck, cv, "_g7")
+    inserts = tag.startswith("_hd")
+    cexp, sexp = _sink_trig(cfg)
+    if inserts:
+        update_cases(cfg, cases, gen, ck, cv, cexp, sexp, tag)
+    attention_cases(cfg, cases, gen, ck, cv, tag)
     del ck, cv
+    torch.cuda.empty_cache()
+    if inserts:
+        phase_parity_int8(cfg, cases, gen, cexp, sexp, tag)
+        return
     planes = [torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
               for _ in range(2)]
     planes += [torch.rand(shape[:-1], generator=gen, device=dev) * 0.02 for _ in range(2)]
-    decode_q_cases(cfg, cases, planes, gen, "_g7")
+    decode_q_cases(cfg, cases, planes, gen, tag)
 
 
 def phase_main_family(params, cfg, name: str, runs, bias: bool) -> dict:
@@ -1959,16 +2088,24 @@ def phase_main_family(params, cfg, name: str, runs, bias: bool) -> dict:
     bf16 head on qmatmul) and per layer (4L + 1 qmatmul, and per layer
     kv_update and flash_decode, or with an int8 cache kv_update_q and
     flash_decode_q; a bf16-cache prefill chunk runs flash_prefill per
-    layer). Returns the runs' launches, summed."""
+    layer). With Gemma-2's attention softcap the per-layer attention and the
+    prefill chunk take the dense attention (no flash_decode, flash_decode_q
+    or flash_prefill launch), after the ring inserts. A head_dim the
+    megakernel does not take (Phi-3's 96) decodes per layer on the default
+    engine. Returns the runs' launches, summed."""
     import numpy as np
     import torch
 
     from xalm_tpu_torch.ops import build
+    from xalm_tpu_torch.ops import fused_decode as fd
     from xalm_tpu_torch.runtime.engine import Engine
 
     prompt = np.random.default_rng(SEED).integers(3, cfg.vocab_size, size=512).tolist()
     L = cfg.n_layers
-    fold = {"fused_decode_bias": int(bias), "fused_decode_qk_norm": int(cfg.qk_norm)}
+    fold = _fold(cfg, bias)
+    folds = {f"fused_decode_{f}": int(f == fold or (f == "gemma" and fold == "gemma2"))
+             for f in ("bias", "qk_norm", "gemma", "gemma2")}
+    cap = bool(cfg.attn_softcap)
     launches = dict.fromkeys(build.LAUNCHES, 0)
     for run in runs:
         path = run.split()[-1]
@@ -1976,17 +2113,18 @@ def phase_main_family(params, cfg, name: str, runs, bias: bool) -> dict:
         per_layer = ("kv_update_q", "flash_decode_q") if kv == torch.int8 else (
             "kv_update", "flash_decode")
         if path == "megakernel":
-            kw, want = {}, {"fused_decode": 1, "qmatmul": 1, **fold}
+            kw, want = {}, {"fused_decode": 1, "qmatmul": 1, **folds}
         else:
-            kw = dict(fused_step=False)
-            want = {"qmatmul": 4 * L + 1, per_layer[0]: L, per_layer[1]: L, "fused_decode": 0,
-                    "fused_decode_bias": 0, "fused_decode_qk_norm": 0}
+            # the default engine where the gate sends the model per layer
+            kw = {} if cfg.head_dim not in fd.HEAD_DIMS else dict(fused_step=False)
+            want = {"qmatmul": 4 * L + 1, per_layer[0]: L, per_layer[1]: 0 if cap else L,
+                    "fused_decode": 0, **dict.fromkeys(folds, 0)}
         eng = Engine(cfg, params, kv_dtype=kv, **kw)
         if eng.decode_path(1) != path:
             raise AssertionError(f"{name} {run}: decode path {eng.decode_path(1)!r}")
         row = _main_run(eng, cfg, prompt, f"{name} {run}")
         per_token, per_chunk = row["launches_per_decode_token"], row["launches_per_512_chunk"]
-        chunk_ok = per_chunk["flash_prefill"] == (L if kv == torch.bfloat16 else 0)
+        chunk_ok = per_chunk["flash_prefill"] == (L if kv == torch.bfloat16 and not cap else 0)
         if any(per_token[k] != n for k, n in want.items()) or not chunk_ok:
             raise AssertionError(f"{name} {run}: {row['launches']}, per token {per_token}, per "
                                  f"chunk {per_chunk}: expected per token {want}")
@@ -1997,53 +2135,55 @@ def phase_main_family(params, cfg, name: str, runs, bias: bool) -> dict:
 
 
 def phase_families(cases: Cases) -> dict:
-    """Phases 3-5 for Qwen2.5-7B, Qwen3-8B and Llama-3.1-8B, one model on
-    the card at a time. Phase 3: the megakernel with the model's fold
-    (Qwen2.5 the qkv bias at GQA group 7, Qwen3 the q/k norms) in the seven
-    cases of the bf16 body (bf16 and int8 caches, B = 1 and 4, the embed and
-    i8-head folds) at full depth, each beside its own floor, and one a8 and
-    one q4 case held layer by layer (``phase_fused_parity``); kernels 3, 4
-    and 7 at group 7 (``phase_parity_group``). Phase 4: the runs of
-    ``FAMILIES`` (``phase_main_family``). Phase 5: the i8 body with a bf16
-    cache on both decode paths with the fold in both models
+    """Phases 3-5 for the models of FAMILIES, one model on the card at a
+    time. Phase 3: the megakernel with the model's fold (Qwen2.5 the qkv
+    bias at GQA group 7, Qwen3 the q/k norms, Gemma-2 its post-norms and
+    both softcaps with Gemma's gelu and embed scale at head_dim 256) in the
+    seven cases of the bf16 body (bf16 and int8 caches, B = 1 and 4, the
+    embed and i8-head folds) at full depth, each beside its own floor, and
+    one a8 and one q4 case held layer by layer (``phase_fused_parity``);
+    Gemma-7B (gelu and the embed scale, group 1, q_dim 4096 != dim 3072) in
+    two cases; the attention kernels at each model's (group, head_dim)
+    that Mistral's rows do not cover (``phase_parity_shape``). Phase 4: the runs of FAMILIES
+    (``phase_main_family``). Phase 5: the i8 body with a bf16 cache on both
+    decode paths with the fold in both models, Qwen2.5, Qwen3 and Gemma-2
     (``phase_wrap``). Llama-3.1's rope scaling changes no kernel, only the
     frequencies they are given: its main path checks it end to end.
-    Returns the launches of the phase-4 runs, the G = 7 rows included."""
+    Returns the launches of the phase-4 runs, by model."""
     import torch
 
     from xalm_tpu_torch.models import config as configs
     from xalm_tpu_torch.models.params import recode_params_q4
-    from xalm_tpu_torch.utils.synthetic import synthetic_params
+    from xalm_tpu_torch.utils.synthetic import biting_softcaps, synthetic_params
 
     launches = {}
     for name, cfg_name, bias, q4_group, runs in FAMILIES:
-        cfg = getattr(configs, cfg_name)
+        cfg = biting_softcaps(getattr(configs, cfg_name))
         t0 = time.perf_counter()
         params = synthetic_params(cfg, device=DEVICE, seed=SEED, qkv_bias=bias)
         torch.cuda.synchronize()
         emit({"phase": "weights", "model": name, "seconds": time.perf_counter() - t0,
-              "gb": params.nbytes() / 1e9})
-        fold = "bias" if bias else "qk_norm" if cfg.qk_norm else ""
+              "gb": params.nbytes() / 1e9,
+              "softcaps": [cfg.attn_softcap, cfg.logit_softcap]})
+        fold = _fold(cfg, bias)
+        tag = _shape_tag(cfg)
         with torch.inference_mode():
             if fold:
                 kernel = f"fused_decode_{fold}"
-                phase_fused_parity(params, cfg, cases, kernel=kernel)
+                phase_fused_parity(params, cfg, cases, kernel=kernel,
+                                   only=GEMMA_CASES if fold == "gemma" else ())
+            if q4_group:
                 phase_fused_parity(params, cfg, cases, "a8", kernel=kernel, only=(FOLD_A8_CASE,))
                 q4p = recode_params_q4(params, q4_group)
                 phase_fused_parity(q4p, cfg, cases, "q4", kernel=kernel, only=(FOLD_Q4_CASE,))
                 del q4p
                 torch.cuda.empty_cache()
-            if cfg.group_size == 7:
-                phase_parity_group(cfg, cases)
-        run = phase_main_family(params, cfg, name, runs, bias)
-        for k, n in run.items():
-            launches[k] = launches.get(k, 0) + n
-        if cfg.group_size == 7:
-            for k, wrapper in GROUP_KERNELS.items():
-                launches[k] = launches.get(k, 0) + run[wrapper]
+            if tag:
+                phase_parity_shape(cfg, cases, tag)
+        launches[name] = phase_main_family(params, cfg, name, runs, bias)
         del params
         torch.cuda.empty_cache()
-        if fold:
+        if fold in ("bias", "qk_norm", "gemma2"):
             with torch.inference_mode():
                 phase_wrap(cfg, bodies=WRAP_BODIES[:1], qkv_bias=bias, model=name)
     return launches
@@ -2092,17 +2232,126 @@ SUMMARY = {
                          "xalm_tpu/ops/pallas_attention.py:555", "T=512 pos=0"),
     "flash_decode_q_g7": ("cuda", "xalm_tpu_torch/csrc/attention.cu",
                           "xalm_tpu/ops/pallas_attention.py:205", "B=1 kv_len=777"),
+    # the megakernel's Gemma folds: gelu and the embed scale (Gemma-7B
+    # widths), and with them Gemma-2's post-norms and softcaps (Gemma-2-9B)
+    "fused_decode_gemma": ("cuda", "xalm_tpu_torch/csrc/fused_decode.cu",
+                           "xalm_tpu/ops/fused_decode.py:943", "B=1 kv_len=520, embed fold"),
+    "fused_decode_gemma2": ("cuda", "xalm_tpu_torch/csrc/fused_decode.cu",
+                            "xalm_tpu/ops/fused_decode.py:789", "B=1 kv_len=520, embed fold"),
 }
+# kernels 2-7 at head_dim 256 (Gemma-7B shapes, group 1) and 96 (Phi-3-mini),
+# and the ring insert at Gemma-2-9B's (group 2; its only attention kernel)
+SUMMARY.update({k + tag: SUMMARY[k] for tag in ("_hd256", "_hd96") for k in ATTENTION_KERNELS})
+SUMMARY["kv_update_hd256g2"] = SUMMARY["kv_update"]
 # further rows of the kernels line: another TPU kernel a launch replaces,
 # and the megakernel's int8-KV branch (the fused_decode launches count both)
 ALSO_REPLACES = {"kv_update_q": "xalm_tpu/ops/pallas_attention.py:141"}
-INT8_CASE = dict.fromkeys(("fused_decode", "fused_decode_bias", "fused_decode_qk_norm"),
+INT8_CASE = dict.fromkeys(("fused_decode", "fused_decode_bias", "fused_decode_qk_norm",
+                           "fused_decode_gemma", "fused_decode_gemma2"),
                           "int8 KV, B=1 kv_len=520, embed fold")
 # a further case of the kernels line: the down projection of the experts
 ALSO_CASE = {"qmatmul_multi": MULTI_W2_CASE}
 
 
-def main() -> int:
+def kernel_device_ms(fn, frag: str, iters: int = 20) -> float | str:
+    """The device time of one launch of the kernels whose name holds
+    ``frag``, over ``iters`` calls of fn under torch.profiler (the session
+    primed as in ``phase_profile``); "not measured" unless the profile holds
+    a record of every launch."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_PRIMES):
+            torch.cuda._sleep(100)
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us, n = 0.0, 0
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA and frag in evt.key:
+            us += getattr(evt, "self_device_time_total", None) or getattr(
+                evt, "self_cuda_time_total", 0.0)
+            n += evt.count
+    return us / 1e3 / n if n == iters and us > 0 else "not measured"
+
+
+def megakernel_ms(models, reps: int = 3) -> None:
+    """The megakernel alone in phase 3's first case, for each model preset
+    named and each weight body (the i8 body, a8 on it, and q4 at group 512,
+    or 128 where 512 does not divide the widths): ``reps`` runs of
+    ``time_ms`` (CUDA events around the wrapper's calls: host gaps
+    included), one of ``kernel_device_ms`` (the kernel's own device time)
+    and the wrapper's host time a call behind a spin kernel. Random i8
+    weights from the seed, a bf16 cache of unit normals (the
+    ``--megakernel-ms`` mode)."""
+    import torch
+
+    from xalm_tpu_torch.models import config as configs
+    from xalm_tpu_torch.models.llama import rope_constants
+    from xalm_tpu_torch.models.params import recode_params_q4
+    from xalm_tpu_torch.ops import fused_decode as fd
+    from xalm_tpu_torch.runtime.cache import KVCache, ring_indices
+    from xalm_tpu_torch.utils.synthetic import synthetic_params
+
+    dev = torch.device(DEVICE)
+    out = {}
+    for name in models:
+        cfg = getattr(configs, name, None)
+        if cfg is None:  # a preset of a later slice than the checkout timed
+            out[name] = "not in this checkout"
+            continue
+        params = synthetic_params(cfg, device=dev, seed=SEED)
+        widths = (cfg.dim, cfg.hidden_dim, cfg.n_heads * cfg.head_dim)
+        group = 512 if all(k % 1024 == 0 for k in widths) else 128
+        freqs, c1, s1 = rope_constants(cfg, dev)
+        pos = torch.tensor([519], dtype=torch.int32)
+        _, kv_pos, kv_len = ring_indices(pos, cfg.max_seq_len)
+        rot = torch.zeros(1, dtype=torch.int32)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+        ck, cv = (torch.randn(KVCache.plane_shape(cfg, 1), generator=gen, device=dev)
+                  .to(torch.bfloat16) for _ in range(2))
+        fold = dict(embed=params.embed, token=torch.tensor([7]), pos=pos, freqs=freqs)
+        out[name] = {}
+        for body in ("i8", "a8", f"q4 g{group}"):
+            p = recode_params_q4(params, group) if body.startswith("q4") else params
+
+            def step(p=p, a8=body != "i8"):
+                fd.fused_decode_step(p, cfg, None, ck, cv, kv_pos, kv_len, rot, None, None, c1,
+                                     s1, a8=a8, **fold)
+
+            with torch.inference_mode():
+                row = {"events_ms": [time_ms(step) for _ in range(reps)],
+                       "device_ms": kernel_device_ms(step, "fused_decode_kernel")}
+                # the wrapper's host time a call, the card kept busy ahead of it
+                torch.cuda._sleep(int(2e8))
+                t0 = time.perf_counter()
+                for _ in range(20):
+                    step()
+                row["host_ms"] = (time.perf_counter() - t0) / 20 * 1e3
+                torch.cuda.synchronize()
+            out[name][body] = row
+            del p, step
+        del params, ck, cv
+        torch.cuda.empty_cache()
+    emit({"phase": "megakernel_ms", "root": os.path.dirname(os.path.abspath(fd.__file__)),
+          "case": "B=1 kv_len=520, embed fold", "ms": out})
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Chip smoke of the PyTorch/CUDA port.")
+    ap.add_argument("--megakernel-ms", action="store_true",
+                    help="only time the megakernel (see the module's note)")
+    ap.add_argument("--root", help="with --megakernel-ms: the checkout whose port is timed")
+    ap.add_argument("--models", nargs="+", default=["MISTRAL_7B", "QWEN3_8B"],
+                    help="with --megakernel-ms: model presets")
+    args = ap.parse_args(argv)
     try:
         import torch
     except ImportError:
@@ -2111,7 +2360,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("error: no CUDA device (this smoke runs on the GPU only)", file=sys.stderr)
         return 2
-    root = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.abspath(args.root or os.path.dirname(os.path.abspath(__file__)))
     if not os.path.isdir(os.path.join(root, "xalm_tpu_torch")):
         print("error: run from a checkout of the repository (xalm_tpu_torch/ missing)",
               file=sys.stderr)
@@ -2119,12 +2368,16 @@ def main() -> int:
     sys.path.insert(0, root)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.megakernel_ms:
+        phase_device()
+        phase_build()
+        megakernel_ms(args.models)
+        return 0
 
     from xalm_tpu_torch.models.config import MISTRAL_7B, MIXTRAL_8X7B
     from xalm_tpu_torch.models.params import recode_params_q4
     from xalm_tpu_torch.utils.synthetic import synthetic_params
 
-    t_start = time.perf_counter()
     name = phase_device()
     phase_build()
     cfg = MISTRAL_7B
@@ -2169,9 +2422,11 @@ def main() -> int:
         phase_wrap_moe(cfg)
         phase_router_witness(cfg)
     fam_launches = phase_families(cases)
-    launches = {k: main_row["launches"][k] + moe_row["launches"][k] + fam_launches[k]
-                for k in main_row["launches"]}
-    launches.update({k: fam_launches[k] for k in GROUP_KERNELS})
+    launches = {k: main_row["launches"][k] + moe_row["launches"][k]
+                + sum(run[k] for run in fam_launches.values()) for k in main_row["launches"]}
+    for tag, (model, wrappers) in SHAPE_ROWS.items():
+        for w in wrappers:
+            launches[w + tag] = fam_launches[model][w]
     missing = [k for k, n in launches.items() if n == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main paths: {missing}")
@@ -2202,7 +2457,7 @@ def main() -> int:
                                 "bound_ms": q["bound_ms"], "bound_by": q["bound_by"]}
         kernels.append(entry)
     emit({"kernels": kernels})
-    emit({"phase": "done", "seconds": time.perf_counter() - t_start})
+    emit({"phase": "done", "seconds": time.perf_counter() - T0})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card
-(moderate shapes, head_dim 128). Every test here needs an NVIDIA GPU and
+(moderate shapes, head_dim 128; 96 and 256 in the tests of the last
+section). Every test here needs an NVIDIA GPU and
 nvcc and skips without them; run them on the GPU machine with
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -124,6 +125,24 @@ def _row_rel(got, want, row: int) -> float:
     got, want = got.float().reshape(-1, row), want.float().reshape(-1, row)
     err = (got - want).abs().amax(dim=1)
     return float((err / want.abs().amax(dim=1).clamp_min(1e-30)).max())
+
+
+@pytest.mark.parametrize("n", [24576, 81920])
+def test_qmatmul_gemv_at_wide_contractions(dev, n):
+    """The M = 1 GEMV with the contraction width of Gemma-7B's w2 (24576:
+    the bf16 copy of x is exactly 48 KB of dynamic shared memory, which with
+    the kernel's static bytes needs the opt-in; it was refused before) and
+    the widest the GEMV takes (160 KB), with and without the norm prologue,
+    at the tolerances of the test below."""
+    gen = torch.Generator(device=dev).manual_seed(n)
+    x = torch.randn((1, n), device=dev, generator=gen)
+    w = torch.randint(-128, 128, (2, 64, n), dtype=torch.int8, device=dev, generator=gen)
+    scale = torch.rand((2, 64), device=dev, generator=gen) * 1e-3
+    norm_w = torch.rand((2, n), device=dev, generator=gen) + 0.5
+    for kw, tol in ((dict(scale=scale), 1e-4),
+                    (dict(scale=scale, norm_w=norm_w, norm_eps=1e-6), 1e-3)):
+        got = qmatmul(x, w, 1, **kw)
+        assert _row_rel(got, qmatmul_plain(x, w, 1, **kw), 64) <= tol
 
 
 @pytest.mark.parametrize("m", [1, 3, 8, 16, 100])
@@ -785,13 +804,23 @@ def test_engine_q4_and_a8_on_the_card(dev, tmp_path):
 # ---------------------------------------------------------------- families, any GQA group
 
 
-@pytest.mark.parametrize("g", [3, 5, 6, 7])
-def test_attention_kernels_at_group_match_plain(dev, g):
+# (GQA group, head_dim): the groups that are not a power of two at 128, and
+# head_dim 96 (Phi-3) and 256 (Gemma, Gemma-2), up to G = 8 at 256, which
+# fills the flash-decodes' static shared memory
+ATTENTION_SHAPES = [(3, 128), (5, 128), (6, 128), (7, 128), (1, 96), (3, 96), (1, 256), (2, 256),
+                    (8, 256)]
+
+
+@pytest.mark.parametrize("g,hd", ATTENTION_SHAPES,
+                         ids=[str(g) if hd == 128 else f"hd{hd}-g{g}" for g, hd in ATTENTION_SHAPES])
+def test_attention_kernels_at_group_match_plain(dev, g, hd):
     """Kernels 2-4 (bf16 cache) and 5-7 (int8 cache) at a GQA group that is
-    not a power of two (Qwen2.5-7B has 7, Qwen2.5-14B 5): the flash-prefill
-    tile holds 64 / g whole positions; the tolerances of the tests above."""
-    gen = torch.Generator(device=dev).manual_seed(g)
-    l, b, kh, s, hd = 2, 2, 2, 544, 128
+    not a power of two (Qwen2.5-7B has 7, Qwen2.5-14B 5; the flash-prefill
+    tile holds 64 / g whole positions) and at head_dim 96 and 256; the
+    tolerances of the tests above: the ring inserts bit-equal, flash_decode
+    1e-5, flash_prefill 2^-8, flash_decode_q 1e-3 of each row's max."""
+    gen = torch.Generator(device=dev).manual_seed(g if hd == 128 else hd + g)
+    l, b, kh, s = 2, 2, 2, 544
     h = kh * g
     ck = torch.randn((l, b, kh, s, hd), device=dev, generator=gen).to(torch.bfloat16)
     cv = torch.randn((l, b, kh, s, hd), device=dev, generator=gen).to(torch.bfloat16)
@@ -801,14 +830,14 @@ def test_attention_kernels_at_group_match_plain(dev, g):
     kn = torch.randn((b, kh, hd), device=dev, generator=gen)
     vn = torch.randn((b, kh, hd), device=dev, generator=gen)
     k1, v1, k2, v2 = ck.clone(), cv.clone(), ck.clone(), cv.clone()
+    build.reset_launches()
     A.kv_update(k1, v1, 1, kn, vn, i32(300, s), i32(1, 0), c, sn)
     A.kv_update_plain(k2, v2, 1, kn, vn, i32(300, s), i32(1, 0), c, sn)
     assert torch.equal(k1, k2) and torch.equal(v1, v2)
     q = torch.randn((b, h, hd), device=dev, generator=gen)
-    build.reset_launches()
     for kvl in ((0, 5), (129, 544), (1, 300)):
         got = A.flash_decode(q, k1, v1, 1, i32(*kvl))
-        assert torch.isfinite(got).all()
+        assert got.shape == (b, h * hd) and torch.isfinite(got).all()
         assert _row_rel(got, A.flash_decode_plain(q, k1, v1, 1, i32(*kvl)), hd) < 1e-5, kvl
     for t, pos in ((64, (0, 100)), (40, (3, 0)), (512, (0, 0))):  # 40: a partial last tile
         qp = torch.randn((b, t, h, hd), device=dev, generator=gen)
@@ -823,6 +852,7 @@ def test_attention_kernels_at_group_match_plain(dev, g):
     for kvl in ((0, 5), (129, 544), (520, 300)):
         got = A.flash_decode_q(q, *p1, 1, i32(*kvl))
         assert _row_rel(got, A.flash_decode_q_plain(q, *p1, 1, i32(*kvl)), hd) < 1e-3, kvl
+    assert build.LAUNCHES["kv_update"] == build.LAUNCHES["kv_update_q"] == 1
     assert build.LAUNCHES["flash_decode"] == 3 and build.LAUNCHES["flash_prefill"] == 3
     assert build.LAUNCHES["flash_decode_q"] == 3
 
@@ -955,6 +985,241 @@ def test_engine_families_on_the_card(dev):
         assert build.LAUNCHES[want_launch] > 0, (kw, build.LAUNCHES)
         if "kv_dtype" not in kw:
             assert build.LAUNCHES["flash_prefill"] == cfg.n_layers
+        want, _ = Engine(cfg, params, matmul_impl="plain", **kw).generate(prompt, 8,
+                                                                          stop_on_eos=False)
+        assert out[:3] == want[:3], kw
+
+
+# ---------------------------------------------------------------- Gemma, Gemma-2, Phi-3
+
+
+def test_attention_kernels_refuse_other_head_dims(dev):
+    """A head_dim the attention kernels are not built for raises on the card."""
+    for hd in (64, 160):
+        ck = torch.zeros((1, 1, 1, 64, hd), dtype=torch.bfloat16, device=dev)
+        q = torch.zeros((1, 1, hd), device=dev)
+        with pytest.raises(ValueError, match="flash_decode"):
+            A.flash_decode(q, ck, ck.clone(), 0, torch.ones(1, dtype=torch.int32, device=dev))
+        with pytest.raises(ValueError, match="flash_prefill"):
+            A.flash_prefill(q[:, None], ck, ck.clone(), 0,
+                            torch.zeros(1, dtype=torch.int32, device=dev))
+
+
+# Gemma-2-shaped (post-norms and both caps, q_dim 1024 != dim 256, GQA group
+# 2) and Gemma-shaped (gelu and the embed scale, q_dim 512 != dim 384, group
+# 1) models at head_dim 256, each with softcaps that bite on its weights; and
+# Gemma-2 at head_dim 128 (as Gemma-2-27B), where the kernel has an
+# instantiation without the Gemma folds' code beside the one with it
+GEMMA_CFGS = {
+    "gemma2": dict(dim=256, hidden_dim=512, n_layers=2, n_heads=4, n_kv_heads=2, head_dim=256,
+                   rotary_dim=256, vocab_size=320, max_seq_len=48, act="gelu",
+                   embed_scale=16.0, attn_softcap=50.0, logit_softcap=30.0, post_norms=True,
+                   norm_eps=1e-6, tie_word_embeddings=True),
+    "gemma2_hd128": dict(dim=256, hidden_dim=512, n_layers=2, n_heads=4, n_kv_heads=2,
+                         head_dim=128, rotary_dim=128, vocab_size=320, max_seq_len=48,
+                         act="gelu", embed_scale=16.0, attn_softcap=50.0, logit_softcap=30.0,
+                         post_norms=True, norm_eps=1e-6, tie_word_embeddings=True),
+    "gemma": dict(dim=384, hidden_dim=512, n_layers=2, n_heads=2, n_kv_heads=2, head_dim=256,
+                  rotary_dim=256, vocab_size=320, max_seq_len=48, act="gelu",
+                  embed_scale=384.0 ** 0.5, norm_eps=1e-6, tie_word_embeddings=True),
+}
+
+
+def _gemma_cfg(fam: str):
+    from xalm_tpu_torch.utils.synthetic import biting_softcaps
+
+    return biting_softcaps(dataclasses.replace(MISTRAL_7B, **GEMMA_CFGS[fam]))
+
+
+GEMMA_FOLD_CASES = [("gemma2", "bf16", "bf16", 1), ("gemma2", "bf16", "int8", 3),
+                    ("gemma2", "a8", "bf16", 3), ("gemma2", "q4", "int8", 1),
+                    ("gemma", "bf16", "bf16", 3), ("gemma", "bf16", "int8", 1),
+                    ("gemma", "a8", "int8", 1), ("gemma2_hd128", "bf16", "bf16", 1),
+                    ("gemma2_hd128", "bf16", "int8", 3), ("gemma2_hd128", "q4", "bf16", 1)]
+
+
+@pytest.mark.parametrize("fam,body,cache,b", GEMMA_FOLD_CASES)
+def test_fused_decode_gemma_folds_match_plain(dev, fam, body, cache, b):
+    """The megakernel at head_dim 256 (and 128) with Gemma-2's post-norms and
+    softcaps or Gemma's gelu and embed scale, each body and cache, against its plain
+    version through a ring wrap of a 48-slot window, each step from the
+    plain version's caches (B = 1 with the embed and i8-head folds, B = 3
+    with row 1 at the sentinel), with the bars of
+    test_fused_decode_family_folds_match_plain."""
+    from xalm_tpu_torch.models.llama import rope_constants, rope_tables
+    from xalm_tpu_torch.models.params import recode_params_q4, recode_wcls_i8
+    from xalm_tpu_torch.ops import fused_decode as fd
+    from xalm_tpu_torch.runtime.cache import KVCache, ring_indices
+    from xalm_tpu_torch.utils.synthetic import synthetic_params
+
+    cfg = _gemma_cfg(fam)
+    params = synthetic_params(cfg, device=dev, seed=40 + b)
+    assert (params.layers.post_attn_norm is not None) == fam.startswith("gemma2")
+    if body == "q4":
+        params = recode_params_q4(params, 128)
+    folds = b == 1
+    if folds:
+        params = recode_wcls_i8(params)
+    s = cfg.max_seq_len
+    freqs, c1, s1 = rope_constants(cfg, dev)
+    dt = torch.int8 if cache == "int8" else torch.bfloat16
+    kern, plain = KVCache.init(cfg, b, dt, dev), KVCache.init(cfg, b, dt, dev)
+    planes = ("k", "v", "k_scale", "v_scale") if cache == "int8" else ("k", "v")
+    rng = np.random.default_rng(b)
+    start = np.array([0, 7, 20][:b])
+    build.reset_launches()
+    steps = s + 6
+    rels = []
+    for st in range(steps):
+        for name in planes:
+            getattr(kern, name).copy_(getattr(plain, name))
+        pos = torch.from_numpy((start + st).astype(np.int32))
+        _, kv_pos, kv_len = ring_indices(pos, s)
+        rot = (pos >= s).to(torch.int32)
+        if b == 3:
+            kv_pos[1], rot[1] = s, 0
+        tok = torch.from_numpy(rng.integers(3, cfg.vocab_size, size=b))
+        kw = dict(a8=body != "bf16")
+        x0 = ce = se = None
+        if folds:
+            kw.update(wcls=params.wcls, out_norm=params.out_norm, embed=params.embed, token=tok,
+                      pos=pos, freqs=freqs)
+        else:
+            x0 = params.embed.values[tok.to(dev)].float() * cfg.embed_scale
+            ce, se = (z[:, 0, 0] for z in rope_tables(pos[:, None], freqs.cpu()))
+        qkw = dict(k_scale=kern.k_scale, v_scale=kern.v_scale) if cache == "int8" else {}
+        pkw = dict(k_scale=plain.k_scale, v_scale=plain.v_scale) if cache == "int8" else {}
+        got = fd.fused_decode_step(params, cfg, x0, kern.k, kern.v, kv_pos, kv_len, rot, ce, se,
+                                   c1, s1, **qkw, **kw)
+        want = fd.fused_decode_step_plain(params, cfg, x0, plain.k, plain.v, kv_pos, kv_len, rot,
+                                          ce, se, c1, s1, **pkw, **kw)
+        torch.cuda.synchronize()
+        outs = [(got[0], want[0], cfg.dim)] + ([(got[1], want[1], cfg.vocab_size)] if folds else [])
+        for gv, wv, row in outs:
+            assert torch.isfinite(gv).all()
+            rels.append(_row_rel(gv, wv, row))
+            assert rels[-1] <= 2e-2, (st, rels[-1])
+        if folds:
+            assert torch.equal(got[2], got[1].argmax(dim=-1).to(torch.int32))
+            if cfg.logit_softcap:
+                assert float(got[1].abs().max()) <= cfg.logit_softcap
+    counter = {"bf16": "fused_decode", "a8": "fused_decode_a8", "q4": "fused_decode_q4"}[body]
+    assert build.LAUNCHES[counter] == build.LAUNCHES["fused_decode_gemma"] == steps
+    assert build.LAUNCHES["fused_decode_gemma2"] == (steps if fam.startswith("gemma2") else 0)
+    if body != "bf16":
+        assert np.mean(np.asarray(rels) <= 1e-5) >= 0.9, sorted(rels)[-5:]
+
+
+@pytest.mark.parametrize("fam", ["gemma2", "gemma2_hd128"])
+def test_fused_decode_gemma_folds_move_the_output(dev, fam):
+    """Each of the five folds is applied in the kernel, at head_dim 256 and
+    128 (where one fold alone takes the kernel with the Gemma folds' code):
+    dropping the post-norms, either softcap, gelu (for SiLU) or the embed
+    scale moves the kernel's x (the logit cap: its logits) far past the 2e-2
+    bar."""
+    from xalm_tpu_torch.models.llama import rope_constants
+    from xalm_tpu_torch.models.params import recode_wcls_i8
+    from xalm_tpu_torch.ops import fused_decode as fd
+    from xalm_tpu_torch.runtime.cache import KVCache
+    from xalm_tpu_torch.utils.synthetic import synthetic_params
+
+    cfg = _gemma_cfg(fam)
+    params = recode_wcls_i8(synthetic_params(cfg, device=dev, seed=6))
+    # louder q and gate rows (std 0.9 and 0.75 rather than 0.19): scores of
+    # std 0.9 against the cache's unit normals, so that capped and uncapped
+    # attention differ, and gates where gelu and SiLU differ (at small gates
+    # both are near g / 2 + c g^2, and the post-norm takes out the scale);
+    # and an FFN output ten times the others, so that its activation shows
+    params.layers.wqkv.scale.mul_(5.0)
+    params.layers.w13.scale.mul_(4.0)
+    params.layers.post_mlp_norm.mul_(10.0)
+    freqs, c1, s1 = rope_constants(cfg, dev)
+    i32 = lambda *v: torch.tensor(v, dtype=torch.int32)  # noqa: E731
+    outs = {}
+    no_pn = dataclasses.replace(params, layers=dataclasses.replace(
+        params.layers, post_attn_norm=None, post_mlp_norm=None))
+    for name, c, p in (("all", cfg, params), ("no post-norms", cfg, no_pn),
+                       ("no attn cap", dataclasses.replace(cfg, attn_softcap=0.0), params),
+                       ("no logit cap", dataclasses.replace(cfg, logit_softcap=0.0), params),
+                       ("silu", dataclasses.replace(cfg, act="silu"), params),
+                       ("no embed scale", dataclasses.replace(cfg, embed_scale=1.0), params)):
+        cache = KVCache.init(c, 1, torch.bfloat16, dev)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        cache.k.normal_(generator=gen)
+        cache.v.normal_(generator=gen)
+        outs[name] = fd.fused_decode_step(
+            p, c, None, cache.k, cache.v, i32(20), i32(21), i32(0), None, None, c1, s1,
+            wcls=p.wcls, out_norm=p.out_norm, embed=p.embed, token=i32(7), pos=i32(20),
+            freqs=freqs)
+    for name in ("no post-norms", "no attn cap", "silu", "no embed scale"):
+        assert _row_rel(outs[name][0], outs["all"][0], cfg.dim) > 0.1, name
+    assert torch.equal(outs["no logit cap"][0], outs["all"][0])
+    assert _row_rel(outs["no logit cap"][1], outs["all"][1], cfg.vocab_size) > 0.1
+
+
+def test_phi3_head_dim_decodes_per_layer_on_the_card(dev):
+    """head_dim 96 (Phi-3): the megakernel's gate refuses it on the card and
+    the engine decodes per layer through kernels 2-4 at hd 96, with the
+    greedy tokens of the plain-version engine; the megakernel wrapper itself
+    raises on it. (Before, the gate let it through and the wrapper raised
+    at the first decode step.)"""
+    from xalm_tpu_torch.models.llama import rope_constants
+    from xalm_tpu_torch.ops import fused_decode as fd
+    from xalm_tpu_torch.runtime.engine import Engine
+    from xalm_tpu_torch.utils.synthetic import synthetic_params
+
+    cfg = dataclasses.replace(MISTRAL_7B, dim=384, hidden_dim=512, n_layers=2, n_heads=4,
+                              n_kv_heads=4, head_dim=96, rotary_dim=96, vocab_size=320,
+                              max_seq_len=256)
+    params = synthetic_params(cfg, device=dev, seed=12)
+    eng = Engine(cfg, params)
+    assert eng.decode_path(1) == "perlayer"
+    assert not fd.fused_step_supported(cfg, params, eng.new_cache(1).k, 1, 1)
+    prompt = list(range(3, 203))
+    build.reset_launches()
+    out, _ = eng.generate(prompt, 8, stop_on_eos=False)
+    assert build.LAUNCHES["fused_decode"] == 0
+    assert build.LAUNCHES["flash_prefill"] == cfg.n_layers
+    assert build.LAUNCHES["kv_update"] == build.LAUNCHES["flash_decode"] == 7 * cfg.n_layers
+    want, _ = Engine(cfg, params, matmul_impl="plain").generate(prompt, 8, stop_on_eos=False)
+    assert out[:3] == want[:3]
+    cache = eng.new_cache(1)
+    _, c1, s1 = rope_constants(cfg, dev)
+    i = torch.zeros((1,), dtype=torch.int32)
+    with pytest.raises(ValueError, match="head_dim 96"):
+        fd.fused_decode_step(params, cfg, torch.zeros((1, cfg.dim), device=dev), cache.k, cache.v,
+                             i, i + 1, i, torch.ones((1, 96)), torch.zeros((1, 96)), c1, s1)
+
+
+@pytest.mark.parametrize("fam", ["gemma2", "gemma"])
+def test_engine_gemma_families_on_the_card(dev, fam):
+    """Gemma-2 and Gemma-shaped engines on the card: the megakernel with the
+    folds, and per layer (Gemma-2: the ring inserts by kernel 2 or 5, the
+    capped attention dense, never flash-decode or flash-prefill; Gemma: the
+    kernels at hd 256) give the greedy tokens of the plain-version engine
+    on the first steps."""
+    from xalm_tpu_torch.runtime.engine import Engine
+    from xalm_tpu_torch.utils.synthetic import synthetic_params
+
+    cfg = dataclasses.replace(_gemma_cfg(fam), max_seq_len=256)
+    params = synthetic_params(cfg, device=dev, seed=14)
+    prompt = list(range(3, 203))
+    cap = fam == "gemma2"
+    for kw in (dict(), dict(fused_step=False), dict(fused_step=False, kv_dtype=torch.int8)):
+        eng = Engine(cfg, params, **kw)
+        build.reset_launches()
+        out, _ = eng.generate(prompt, 8, stop_on_eos=False)
+        if not kw:
+            assert build.LAUNCHES["fused_decode_gemma"] == 7
+            assert build.LAUNCHES["fused_decode_gemma2"] == (7 if cap else 0)
+        else:
+            quant = "kv_dtype" in kw
+            upd, dec = ("kv_update_q", "flash_decode_q") if quant else ("kv_update", "flash_decode")
+            assert build.LAUNCHES[upd] == 7 * cfg.n_layers, (kw, build.LAUNCHES)
+            assert build.LAUNCHES[dec] == (0 if cap else 7 * cfg.n_layers), (kw, build.LAUNCHES)
+            assert build.LAUNCHES["fused_decode"] == 0
+        if "kv_dtype" not in kw:
+            assert build.LAUNCHES["flash_prefill"] == (0 if cap else cfg.n_layers)
         want, _ = Engine(cfg, params, matmul_impl="plain", **kw).generate(prompt, 8,
                                                                           stop_on_eos=False)
         assert out[:3] == want[:3], kw

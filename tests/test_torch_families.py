@@ -1,8 +1,9 @@
 """Llama-3.x, Qwen2.5 and Qwen3 in the port: rope scaling, the Qwen2 qkv
 bias and the Qwen3 per-head q/k RMS norms, on the per-layer path and as
 folds of the whole-step megakernel, and the attention kernels' plain
-versions at every GQA group up to 8, each against the JAX package (its
-Pallas kernels in interpret mode) or HF, on tiny containers made by
+versions at every GQA group up to 8 and at head_dim 96 and 256, each
+against the JAX package (its Pallas kernels in interpret mode) or HF, on
+tiny containers made by
 ``tests/make_tiny_model.py`` with the override dicts of
 ``tests/test_qwen2.py``, ``test_qwen3.py`` and ``test_rope_scaling.py``,
 converted by the JAX converter, plus one tiny Qwen2 geometry with GQA group
@@ -64,9 +65,12 @@ from xalm_tpu_torch.harness import main as port_harness
 from xalm_tpu_torch.io import XalmFile
 from xalm_tpu_torch.models import llama
 from xalm_tpu_torch.models.config import (
+    GEMMA2_9B,
+    GEMMA_7B,
     KV_SINKS,
     LLAMA3_1_8B,
     MISTRAL_7B,
+    PHI3_MINI_4K,
     QWEN2_5_7B,
     QWEN3_8B,
     ModelConfig,
@@ -189,8 +193,9 @@ def test_rope_freqs_bit_equal_to_jax(case):
 
 
 def test_presets_are_the_published_geometries():
-    """The three presets against their HF config.json values, and the JAX
-    package's config takes each of them."""
+    """The presets against their HF config.json values, and the JAX
+    package's config takes each of them (``tests/test_torch_gemma.py`` runs
+    the Gemma and Phi-3 ones through the JAX converter too)."""
     q2, q3, l3 = QWEN2_5_7B, QWEN3_8B, LLAMA3_1_8B
     assert (q2.dim, q2.hidden_dim, q2.n_layers, q2.n_heads, q2.n_kv_heads, q2.vocab_size) == (
         3584, 18944, 28, 28, 4, 152064)
@@ -205,6 +210,24 @@ def test_presets_are_the_published_geometries():
     for cfg in (q2, q3, l3):
         assert cfg.head_dim == 128 and cfg.max_seq_len == 4096 and cfg.act == "silu"
         assert not cfg.tie_word_embeddings
+        _jax_cfg(cfg)
+    g2, g7, p3 = GEMMA2_9B, GEMMA_7B, PHI3_MINI_4K
+    assert (g2.dim, g2.hidden_dim, g2.n_layers, g2.n_heads, g2.n_kv_heads, g2.head_dim,
+            g2.vocab_size) == (3584, 14336, 42, 16, 8, 256, 256000)
+    assert (g7.dim, g7.hidden_dim, g7.n_layers, g7.n_heads, g7.n_kv_heads, g7.head_dim,
+            g7.vocab_size) == (3072, 24576, 28, 16, 16, 256, 256000)
+    assert (p3.dim, p3.hidden_dim, p3.n_layers, p3.n_heads, p3.n_kv_heads, p3.head_dim,
+            p3.vocab_size) == (3072, 8192, 32, 32, 32, 96, 32064)
+    assert (g2.attn_softcap, g2.logit_softcap, g2.post_norms) == (50.0, 30.0, True)
+    assert g2.q_dim == 4096 != g2.dim and g7.q_dim == 4096 != g7.dim and g7.group_size == 1
+    for cfg, dim in ((g2, 3584), (g7, 3072)):
+        assert cfg.act == "gelu" and cfg.tie_word_embeddings and cfg.embed_scale == dim ** 0.5
+        assert (cfg.rope_theta, cfg.norm_eps) == (1e4, 1e-6)
+    assert not (g7.post_norms or g7.attn_softcap or g7.logit_softcap)
+    assert p3.act == "silu" and not p3.tie_word_embeddings and p3.embed_scale == 1.0
+    assert (p3.rope_theta, p3.norm_eps) == (1e4, 1e-5)
+    for cfg in (g2, g7, p3):
+        assert cfg.max_seq_len == 4096 and cfg.rotary_dim == cfg.head_dim
         _jax_cfg(cfg)
 
 
@@ -363,37 +386,6 @@ def test_harness_completion_and_perplexity_match_jax(models, capsys):
     assert abs(ppl[0] - ppl[1]) <= 1e-3 * ppl[1], ppl
     assert port_harness.main([path, "-d", "cpu", "-t", "bf16", "-i", "hello", "-n", "8"]) == 0
     assert "decode path: megakernel" in capsys.readouterr().out
-
-
-@pytest.mark.parametrize("extra", ["gelu", "post_norms", "attn_softcap", "logit_softcap",
-                                   "embed_scale"])
-def test_later_families_still_refused(extra):
-    """Gemma's gelu and embed scale, Gemma-2's post-norms and softcaps: a
-    later slice; the forward (and so every entry point) refuses them."""
-    change = {"gelu": dict(act="gelu"), "post_norms": dict(post_norms=True),
-              "attn_softcap": dict(attn_softcap=50.0), "logit_softcap": dict(logit_softcap=30.0),
-              "embed_scale": dict(embed_scale=8.0)}[extra]
-    cfg = dataclasses.replace(MISTRAL_7B, dim=64, hidden_dim=128, n_layers=1, n_heads=4,
-                              n_kv_heads=2, head_dim=16, rotary_dim=16, vocab_size=64,
-                              max_seq_len=32)
-    params = synthetic_params(cfg, device="cpu")
-    bad = dataclasses.replace(cfg, **change)
-    eng = Engine(bad, params, kv_dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        eng.prefill([3, 4, 5], eng.new_cache(1))
-
-
-@pytest.mark.parametrize("overrides", ["gemma", "gemma2"])
-def test_later_family_containers_refused_at_load(tmp_path, overrides):
-    from tests.test_gemma import GEMMA_OVERRIDES
-    from tests.test_gemma2 import GEMMA2_OVERRIDES
-
-    hf = make_tiny_model(str(tmp_path / "hf"), config_overrides={
-        "gemma": GEMMA_OVERRIDES, "gemma2": GEMMA2_OVERRIDES}[overrides])
-    out = str(tmp_path / "m.xalm")
-    assert cvt.main(["--input", hf, "--output", out, "--type", "i8"]) == 0
-    with pytest.raises(NotImplementedError, match="later slice"):
-        Engine.from_xalm(out, device="cpu")
 
 
 # ------------------------------------------------------------------ the megakernel's folds
@@ -581,18 +573,25 @@ def _dequant(planes):
                  for c, sc in ((planes[0], planes[2]), (planes[1], planes[3])))
 
 
-@pytest.mark.parametrize("g", [3, 5, 6, 7])
-def test_attention_plain_versions_match_jax_at_group(g):
+# (GQA group, head_dim): the groups that are not a power of two, and head_dim
+# 96 (Phi-3, group 1) and 256 (Gemma-2, group 2)
+ATTENTION_SHAPES = [(3, 16), (5, 16), (6, 16), (7, 16), (1, 96), (2, 256)]
+
+
+@pytest.mark.parametrize("g,hd", ATTENTION_SHAPES,
+                         ids=[str(g) if hd == 16 else f"hd{hd}-g{g}" for g, hd in ATTENTION_SHAPES])
+def test_attention_plain_versions_match_jax_at_group(g, hd):
     """``flash_decode_plain`` (after ``kv_update_plain``), ``flash_prefill_plain``
     and ``flash_decode_q_plain`` (after ``kv_update_q_plain``) at GQA group
-    g against ``fused_decode_attention``, ``fused_prefill_attention`` and
-    ``fused_decode_attention_q`` in interpret mode: decode from random
-    planes (f32 and bf16, and int8 codes with scales) over 2.5 ring wraps of
-    a 16-slot window at B = 2 (row 1 wrapped from the start), prefill of a
-    32-row chunk at pos 0 and 24 over a 64-row cache."""
-    kh, hd, L, B = 2, 16, 2, 2
+    g and head_dim hd against ``fused_decode_attention``,
+    ``fused_prefill_attention`` and ``fused_decode_attention_q`` in
+    interpret mode: decode from random planes (f32 and bf16, and int8 codes
+    with scales) over 2.5 ring wraps of a 16-slot window at B = 2 (row 1
+    wrapped from the start), prefill of a 32-row chunk at pos 0 and 24 over
+    a 64-row cache."""
+    kh, L, B = 2, 2, 2
     h = kh * g
-    rng = np.random.default_rng(g)
+    rng = np.random.default_rng(g if hd == 16 else hd)
     freqs = (1e4 ** (-np.arange(0, hd, 2) / hd)).astype(np.float32)
     c1, s1 = jax_cos_sin_plus1(freqs)
     tc1, ts1 = (torch.from_numpy(np.asarray(a, np.float32).reshape(hd)) for a in (c1, s1))

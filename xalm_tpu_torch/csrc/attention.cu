@@ -27,13 +27,17 @@
 //    8-byte loads, several rows in flight), summed across the warps.
 //    A second small kernel combines the chunks' (max, sum, acc) partials.
 //    Chunks past kv_len exit at once; kv_len == 0 gives 0, not NaN. The
-//    GQA group G = H / KH is a template parameter, instantiated for each G
-//    in 1..8 (Qwen2.5-7B has G = 7, Qwen2.5-14B G = 5). Bound: bytes (the
-//    cache rows up to kv_len, read once).
+//    GQA group G = H / KH and the head dim HD are template parameters,
+//    instantiated for each G in 1..8 (Qwen2.5-7B has G = 7, Qwen2.5-14B
+//    G = 5) and HD in {96, 128, 256} (Phi-3; Llama, Mistral and Qwen; Gemma
+//    and Gemma-2), dispatched at run time. In phase 3 a lane holds 4 of a
+//    V row's dims (HD 96: lanes 24..31 idle) or 8 (HD 256). Bound: bytes
+//    (the cache rows up to kv_len, read once).
 //
 // 3. xq_kv_update_q replaces _insert_q_kernel and _sink_q_kernel in one
 //    launch, over an int8 cache with per-row f32 scale planes (L, B, KH, S).
-//    Grid (B, KH), one thread per head dim (128). Quantises the new K and V
+//    Grid (B, KH), one thread per head dim (96, 128 or 256: any multiple of
+//    32 up to 1024). Quantises the new K and V
 //    rows (absmax by warp shuffles and a 4-warp shared-memory reduce; the
 //    scale and codes by IEEE division, common.cuh) and writes codes and
 //    scales at kv_pos (dropped at kv_pos >= S); then, for wrapped rows,
@@ -50,7 +54,8 @@
 //    p, and bf16(p * v_scale) kept for phase 3, which sums it times the V
 //    codes (4 codes per lane, a warp per row). The combine kernel of 2 is
 //    shared. Bound: bytes (the code rows and their scales up to kv_len, half
-//    the bytes of the bf16 cache). G in 1..8, as in 2.
+//    the bytes of the bf16 cache). G in 1..8 and HD in {96, 128, 256}, as in
+//    2 (a lane holds 4 V codes, or 8 at HD 256).
 //
 // 5. xq_flash_prefill replaces _prefill_kernel. One block per (batch, kv
 //    head, q tile of tq = 64 / G whole positions x G heads: 64 rows, or
@@ -59,8 +64,11 @@
 //    (later tiles are skipped), S = Q.K^T on bf16 WMMA fragments with f32
 //    accumulation, the online softmax in f32 (each row's state in a lane
 //    pair), p cast to bf16 before P.V on WMMA, the output accumulator in
-//    registers. Bound: operations at T = 512 (tensor cores), bytes at small
-//    T. Simple first: no TMA / wgmma / pipelining yet.
+//    registers (HD / 2 floats a lane: 128 of them at HD 256). HD in {96,
+//    128, 256} is a template parameter; the Q/K/V tiles and the staging take
+//    95 KB of dynamic shared memory at HD 128, 177 KB at HD 256 (one block
+//    an SM). Bound: operations at T = 512 (tensor cores), bytes at small T.
+//    Simple first: no TMA / wgmma / pipelining yet.
 
 #include <math.h>
 #include <mma.h>
@@ -106,7 +114,6 @@ __global__ void kv_update_kernel(__nv_bfloat16* __restrict__ ck, __nv_bfloat16* 
         __float2bfloat16_rn(__fadd_rn(__fmul_rn(v[r], c), __fmul_rn(sw[r], s)));
 }
 
-constexpr int FD_HD = 128;
 constexpr int FD_THREADS = 128;
 constexpr int FD_CHUNK = 128;  // key rows per block: one per thread in phase 1
 constexpr int FD_MAX_G = 8;    // GQA groups 1..8, one instantiation each
@@ -126,15 +133,64 @@ cudaError_t for_group(int g, Launch launch) {
   }
 }
 
-template <int G>
+// launch(std::integral_constant<int, HD>{}) for the head dims the attention
+// kernels are built for (Phi-3's 96; 128; Gemma's 256), returning what it
+// returns; any other hd gives cudaErrorInvalidValue
+template <typename Launch>
+cudaError_t for_head_dim(int hd, Launch launch) {
+  switch (hd) {
+    case 96: return launch(std::integral_constant<int, 96>{});
+    case 128: return launch(std::integral_constant<int, 128>{});
+    case 256: return launch(std::integral_constant<int, 256>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// phase 3 of the flash-decodes: a lane holds VPL consecutive dims of a V
+// row, the first HD / VPL lanes of each warp (HD 96: 24 lanes of 4)
+template <int HD>
+__host__ __device__ constexpr int fd_vpl() { return HD == 256 ? 8 : 4; }
+
+template <int VPL>
+__device__ __forceinline__ void load_bf16(const __nv_bfloat16* p, float* out) {
+  if constexpr (VPL == 8) {
+    const int4 raw = *reinterpret_cast<const int4*>(p);
+    const __nv_bfloat16* v = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) out[e] = __bfloat162float(v[e]);
+  } else {
+    const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    const __nv_bfloat16* v = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) out[e] = __bfloat162float(v[e]);
+  }
+}
+
+template <int VPL>
+__device__ __forceinline__ void load_s8(const signed char* p, float* out) {
+  if constexpr (VPL == 8) {
+    const int2 raw = __ldg(reinterpret_cast<const int2*>(p));
+    const signed char* v = reinterpret_cast<const signed char*>(&raw);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) out[e] = (float)v[e];
+  } else {
+    const int raw = __ldg(reinterpret_cast<const int*>(p));
+    const signed char* v = reinterpret_cast<const signed char*>(&raw);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) out[e] = (float)v[e];
+  }
+}
+
+template <int G, int HD>
 __global__ void __launch_bounds__(FD_THREADS) flash_decode_split_kernel(
     const float* __restrict__ q, const __nv_bfloat16* __restrict__ ck,
     const __nv_bfloat16* __restrict__ cv, const int* __restrict__ kv_len,
     float* __restrict__ pm, float* __restrict__ pl, float* __restrict__ pacc,
     int KH, int S, float sm_scale) {
-  __shared__ __align__(16) float qs[G][FD_HD];
+  constexpr int VPL = fd_vpl<HD>(), NL = HD / VPL;
+  __shared__ __align__(16) float qs[G][HD];
   __shared__ float sc[G][FD_CHUNK];
-  __shared__ float red[FD_THREADS / 32][G][FD_HD];
+  __shared__ float red[FD_THREADS / 32][G][HD];
   __shared__ float mrow[G], lrow[G];
   const int H = KH * G;
   const int b = blockIdx.x / KH, h = blockIdx.x % KH;
@@ -148,7 +204,7 @@ __global__ void __launch_bounds__(FD_THREADS) flash_decode_split_kernel(
 #pragma unroll
     for (int gi = 0; gi < G; ++gi) {
       const size_t pi = part0 + (size_t)gi * NS;
-      pacc[pi * FD_HD + tid] = 0.f;
+      for (int d = tid; d < HD; d += FD_THREADS) pacc[pi * HD + d] = 0.f;
       if (tid == 0) {
         pm[pi] = -INFINITY;
         pl[pi] = 0.f;
@@ -156,20 +212,20 @@ __global__ void __launch_bounds__(FD_THREADS) flash_decode_split_kernel(
     }
     return;
   }
-  const size_t stripe = ((size_t)b * KH + h) * S * FD_HD;
-  for (int i = tid; i < G * FD_HD; i += FD_THREADS)
-    qs[i / FD_HD][i % FD_HD] = q[((size_t)b * H + (size_t)h * G) * FD_HD + i] * sm_scale;
+  const size_t stripe = ((size_t)b * KH + h) * S * HD;
+  for (int i = tid; i < G * HD; i += FD_THREADS)
+    qs[i / HD][i % HD] = q[((size_t)b * H + (size_t)h * G) * HD + i] * sm_scale;
   __syncthreads();
 
   // phase 1: thread r scores key row r for the G heads; f32 dots, 16-byte
   // loads, q broadcast from shared memory
   if (tid < n) {
-    const int4* krow = reinterpret_cast<const int4*>(ck + stripe + (size_t)(r0 + tid) * FD_HD);
+    const int4* krow = reinterpret_cast<const int4*>(ck + stripe + (size_t)(r0 + tid) * HD);
     float s[G];
 #pragma unroll
     for (int gi = 0; gi < G; ++gi) s[gi] = 0.f;
 #pragma unroll
-    for (int c = 0; c < FD_HD / 8; ++c) {  // all 16 loads of the row in flight
+    for (int c = 0; c < HD / 8; ++c) {  // every load of the row in flight
       const int4 raw = __ldg(krow + c);
       const __nv_bfloat16* kp = reinterpret_cast<const __nv_bfloat16*>(&raw);
       float kf[8];
@@ -208,40 +264,40 @@ __global__ void __launch_bounds__(FD_THREADS) flash_decode_split_kernel(
   __syncthreads();
 
   // phase 3: un-normalised P.V; warp w takes rows w, w+4, ... with the
-  // lane's 4 dims (8-byte loads, unrolled so several rows are in flight),
-  // then the four warps' partial sums add up through shared memory
-  float acc[G][4];
+  // lane's VPL dims (unrolled so several rows are in flight), then the four
+  // warps' partial sums add up through shared memory
+  float acc[G][VPL];
 #pragma unroll
   for (int gi = 0; gi < G; ++gi)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[gi][e] = 0.f;
+    for (int e = 0; e < VPL; ++e) acc[gi][e] = 0.f;
+  if (lane < NL) {
 #pragma unroll 8
-  for (int r = warp; r < n; r += FD_THREADS / 32) {
-    const uint2 raw =
-        *reinterpret_cast<const uint2*>(cv + stripe + (size_t)(r0 + r) * FD_HD + lane * 4);
-    const __nv_bfloat16* vp = reinterpret_cast<const __nv_bfloat16*>(&raw);
-    float vf[4];
+    for (int r = warp; r < n; r += FD_THREADS / 32) {
+      float vf[VPL];
+      load_bf16<VPL>(cv + stripe + (size_t)(r0 + r) * HD + lane * VPL, vf);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) vf[e] = __bfloat162float(vp[e]);
+      for (int gi = 0; gi < G; ++gi) {
+        const float p = sc[gi][r];
 #pragma unroll
-    for (int gi = 0; gi < G; ++gi) {
-      const float p = sc[gi][r];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[gi][e] += p * vf[e];
+        for (int e = 0; e < VPL; ++e) acc[gi][e] += p * vf[e];
+      }
     }
+#pragma unroll
+    for (int gi = 0; gi < G; ++gi)
+#pragma unroll
+      for (int e = 0; e < VPL; ++e) red[warp][gi][lane * VPL + e] = acc[gi][e];
   }
-#pragma unroll
-  for (int gi = 0; gi < G; ++gi)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) red[warp][gi][lane * 4 + e] = acc[gi][e];
   __syncthreads();
 #pragma unroll
   for (int gi = 0; gi < G; ++gi) {
-    float a = 0.f;
-#pragma unroll
-    for (int w = 0; w < FD_THREADS / 32; ++w) a += red[w][gi][tid];
     const size_t pi = part0 + (size_t)gi * NS;
-    pacc[pi * FD_HD + tid] = a;
+    for (int d = tid; d < HD; d += FD_THREADS) {
+      float a = 0.f;
+#pragma unroll
+      for (int w = 0; w < FD_THREADS / 32; ++w) a += red[w][gi][d];
+      pacc[pi * HD + d] = a;
+    }
     if (tid == 0) {
       pm[pi] = mrow[gi];
       pl[pi] = lrow[gi];
@@ -249,11 +305,12 @@ __global__ void __launch_bounds__(FD_THREADS) flash_decode_split_kernel(
   }
 }
 
-__global__ void __launch_bounds__(FD_HD) flash_decode_combine_kernel(
+// one block of hd threads per (batch, head): the chunks' partials combined
+__global__ void __launch_bounds__(1024) flash_decode_combine_kernel(
     const float* __restrict__ pm, const float* __restrict__ pl, const float* __restrict__ pacc,
     float* __restrict__ out, int NS) {
   const size_t bh = blockIdx.x;
-  const int t = threadIdx.x;
+  const int t = threadIdx.x, hd = blockDim.x;
   float mx = -INFINITY;
   for (int s = 0; s < NS; ++s) mx = fmaxf(mx, pm[bh * NS + s]);
   float l = 0.f, a = 0.f;
@@ -263,10 +320,10 @@ __global__ void __launch_bounds__(FD_HD) flash_decode_combine_kernel(
       if (m == -INFINITY) continue;
       const float w = expf(m - mx);
       l += w * pl[bh * NS + s];
-      a += w * pacc[(bh * NS + s) * FD_HD + t];
+      a += w * pacc[(bh * NS + s) * hd + t];
     }
   }
-  out[bh * FD_HD + t] = l > 0.f ? a / l : 0.f;  // kv_len == 0 -> 0
+  out[bh * hd + t] = l > 0.f ? a / l : 0.f;  // kv_len == 0 -> 0
 }
 
 // max of |v| over the block (blockDim.x a multiple of 32, <= 1024), the
@@ -326,15 +383,16 @@ __global__ void kv_update_q_kernel(signed char* __restrict__ ck, signed char* __
   }
 }
 
-template <int G>
+template <int G, int HD>
 __global__ void __launch_bounds__(FD_THREADS) flash_decode_q_split_kernel(
     const float* __restrict__ q, const signed char* __restrict__ ck,
     const signed char* __restrict__ cv, const float* __restrict__ ks,
     const float* __restrict__ vs, const int* __restrict__ kv_len, float* __restrict__ pm,
     float* __restrict__ pl, float* __restrict__ pacc, int KH, int S, float sm_scale) {
-  __shared__ __align__(16) float qs[G][FD_HD];
+  constexpr int VPL = fd_vpl<HD>(), NL = HD / VPL;
+  __shared__ __align__(16) float qs[G][HD];
   __shared__ float sc[G][FD_CHUNK];
-  __shared__ float red[FD_THREADS / 32][G][FD_HD];
+  __shared__ float red[FD_THREADS / 32][G][HD];
   __shared__ float mrow[G], lrow[G];
   const int H = KH * G;
   const int b = blockIdx.x / KH, h = blockIdx.x % KH;
@@ -348,7 +406,7 @@ __global__ void __launch_bounds__(FD_THREADS) flash_decode_q_split_kernel(
 #pragma unroll
     for (int gi = 0; gi < G; ++gi) {
       const size_t pi = part0 + (size_t)gi * NS;
-      pacc[pi * FD_HD + tid] = 0.f;
+      for (int d = tid; d < HD; d += FD_THREADS) pacc[pi * HD + d] = 0.f;
       if (tid == 0) {
         pm[pi] = -INFINITY;
         pl[pi] = 0.f;
@@ -357,21 +415,21 @@ __global__ void __launch_bounds__(FD_THREADS) flash_decode_q_split_kernel(
     return;
   }
   const size_t srow = ((size_t)b * KH + h) * S + r0;  // scale index of the chunk's row 0
-  const size_t stripe = srow * FD_HD;
-  for (int i = tid; i < G * FD_HD; i += FD_THREADS)
-    qs[i / FD_HD][i % FD_HD] =
-        __bfloat162float(__float2bfloat16_rn(q[((size_t)b * H + (size_t)h * G) * FD_HD + i]));
+  const size_t stripe = srow * HD;
+  for (int i = tid; i < G * HD; i += FD_THREADS)
+    qs[i / HD][i % HD] =
+        __bfloat162float(__float2bfloat16_rn(q[((size_t)b * H + (size_t)h * G) * HD + i]));
   __syncthreads();
 
   // phase 1: thread r scores key row r for the G heads: bf16 q times the
   // codes (exact products, f32 sums), then times k_scale / sqrt(hd)
   if (tid < n) {
-    const int4* krow = reinterpret_cast<const int4*>(ck + stripe + (size_t)tid * FD_HD);
+    const int4* krow = reinterpret_cast<const int4*>(ck + stripe + (size_t)tid * HD);
     float s[G];
 #pragma unroll
     for (int gi = 0; gi < G; ++gi) s[gi] = 0.f;
 #pragma unroll
-    for (int c = 0; c < FD_HD / 16; ++c) {  // all 8 loads of the row in flight
+    for (int c = 0; c < HD / 16; ++c) {  // every load of the row in flight
       const int4 raw = __ldg(krow + c);
       const signed char* kp = reinterpret_cast<const signed char*>(&raw);
       float kf[16];
@@ -413,38 +471,39 @@ __global__ void __launch_bounds__(FD_THREADS) flash_decode_q_split_kernel(
   __syncthreads();
 
   // phase 3: un-normalised P.V over the codes; warp w takes rows w, w+4,
-  // ... with the lane's 4 codes (one 4-byte load)
-  float acc[G][4];
+  // ... with the lane's VPL codes (one 4- or 8-byte load)
+  float acc[G][VPL];
 #pragma unroll
   for (int gi = 0; gi < G; ++gi)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[gi][e] = 0.f;
+    for (int e = 0; e < VPL; ++e) acc[gi][e] = 0.f;
+  if (lane < NL) {
 #pragma unroll 8
-  for (int r = warp; r < n; r += FD_THREADS / 32) {
-    const int raw = __ldg(reinterpret_cast<const int*>(cv + stripe + (size_t)r * FD_HD + lane * 4));
-    const signed char* vp = reinterpret_cast<const signed char*>(&raw);
-    float vf[4];
+    for (int r = warp; r < n; r += FD_THREADS / 32) {
+      float vf[VPL];
+      load_s8<VPL>(cv + stripe + (size_t)r * HD + lane * VPL, vf);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) vf[e] = (float)vp[e];
+      for (int gi = 0; gi < G; ++gi) {
+        const float p = sc[gi][r];
 #pragma unroll
-    for (int gi = 0; gi < G; ++gi) {
-      const float p = sc[gi][r];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[gi][e] += p * vf[e];
+        for (int e = 0; e < VPL; ++e) acc[gi][e] += p * vf[e];
+      }
     }
+#pragma unroll
+    for (int gi = 0; gi < G; ++gi)
+#pragma unroll
+      for (int e = 0; e < VPL; ++e) red[warp][gi][lane * VPL + e] = acc[gi][e];
   }
-#pragma unroll
-  for (int gi = 0; gi < G; ++gi)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) red[warp][gi][lane * 4 + e] = acc[gi][e];
   __syncthreads();
 #pragma unroll
   for (int gi = 0; gi < G; ++gi) {
-    float a = 0.f;
-#pragma unroll
-    for (int w = 0; w < FD_THREADS / 32; ++w) a += red[w][gi][tid];
     const size_t pi = part0 + (size_t)gi * NS;
-    pacc[pi * FD_HD + tid] = a;
+    for (int d = tid; d < HD; d += FD_THREADS) {
+      float a = 0.f;
+#pragma unroll
+      for (int w = 0; w < FD_THREADS / 32; ++w) a += red[w][gi][d];
+      pacc[pi * HD + d] = a;
+    }
     if (tid == 0) {
       pm[pi] = mrow[gi];
       pl[pi] = lrow[gi];
@@ -452,19 +511,27 @@ __global__ void __launch_bounds__(FD_THREADS) flash_decode_q_split_kernel(
   }
 }
 
-constexpr int PF_HD = 128;
 constexpr int PF_ROWS = 64;  // query rows per block (tq positions x G heads)
 constexpr int PF_KT = 64;    // keys per tile
-constexpr int LDQ = PF_HD + 8;  // bf16 row stride of the Q/K/V tiles
 constexpr int LDP = PF_KT + 8;  // bf16 row stride of P
 constexpr int LDS = PF_KT + 4;  // f32 row stride of the staged scores
-constexpr int LDO = PF_HD + 4;  // f32 row stride of the staged P.V
-constexpr int PF_SMEM = 3 * PF_ROWS * LDQ * 2 + 4 * 16 * LDP * 2 + 4 * 16 * LDO * 4;
+// bf16 row stride of the Q/K/V tiles, f32 row stride of the staged P.V,
+// and the dynamic shared memory of a block, at head dim HD
+template <int HD>
+__host__ __device__ constexpr int pf_ldq() { return HD + 8; }
+template <int HD>
+__host__ __device__ constexpr int pf_ldo() { return HD + 4; }
+template <int HD>
+__host__ __device__ constexpr int pf_smem() {
+  return 3 * PF_ROWS * pf_ldq<HD>() * 2 + 4 * 16 * LDP * 2 + 4 * 16 * pf_ldo<HD>() * 4;
+}
 
+template <int HD>
 __global__ void __launch_bounds__(128) flash_prefill_kernel(
     const float* __restrict__ q, const __nv_bfloat16* __restrict__ ck,
     const __nv_bfloat16* __restrict__ cv, const int* __restrict__ pos, float* __restrict__ out,
     int T, int H, int KH, int S, float sm_scale) {
+  constexpr int PF_HD = HD, LDQ = pf_ldq<HD>(), LDO = pf_ldo<HD>(), HALF = HD / 2;
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* Ks = Qs + PF_ROWS * LDQ;
@@ -499,9 +566,9 @@ __global__ void __launch_bounds__(128) flash_prefill_kernel(
   const int R = warp * 16 + r;
   const int qpos = pb + q0 + R / g;  // sees keys <= qpos
   float m_run = -INFINITY, l_run = 0.f;
-  float o[64];
+  float o[HALF];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) o[i] = 0.f;
+  for (int i = 0; i < HALF; ++i) o[i] = 0.f;
   __nv_bfloat16* Pw = Ps + warp * 16 * LDP;
   float* Ow = Os + warp * 16 * LDO;
   const int kend = pb + min(q0 + tq, T);  // keys >= kend are invisible to the tile
@@ -563,10 +630,10 @@ __global__ void __launch_bounds__(128) flash_prefill_kernel(
     l_run = l_run * alpha + psum;
     m_run = m_new;
 #pragma unroll
-    for (int i = 0; i < 64; ++i) o[i] *= alpha;
+    for (int i = 0; i < HALF; ++i) o[i] *= alpha;
     __syncwarp();
 
-    // P.V (16 x 128) on bf16 fragments, staged, then added to the registers
+    // P.V (16 x HD) on bf16 fragments, staged, then added to the registers
 #pragma unroll
     for (int n = 0; n < PF_HD / 16; ++n) {
       wmma::fragment<wmma::accumulator, 16, 16, 16, float> pacc;
@@ -582,17 +649,17 @@ __global__ void __launch_bounds__(128) flash_prefill_kernel(
       wmma::store_matrix_sync(Ow + n * 16, pacc, LDO, wmma::mem_row_major);
     }
     __syncwarp();
-    const float* orow = Ow + r * LDO + half * 64;
+    const float* orow = Ow + r * LDO + half * HALF;
 #pragma unroll
-    for (int i = 0; i < 64; ++i) o[i] += orow[i];
+    for (int i = 0; i < HALF; ++i) o[i] += orow[i];
     __syncwarp();  // the next tile's scores overwrite Ow
   }
 
   if (R >= tq * g || q0 + R / g >= T) return;
   const float ldiv = l_run > 0.f ? l_run : 1.f;
-  float* dst = out + (((size_t)b * T + q0 + R / g) * H + (size_t)h * g + R % g) * PF_HD + half * 64;
+  float* dst = out + (((size_t)b * T + q0 + R / g) * H + (size_t)h * g + R % g) * PF_HD + half * HALF;
 #pragma unroll
-  for (int i = 0; i < 64; i += 4)
+  for (int i = 0; i < HALF; i += 4)
     *reinterpret_cast<float4*>(dst + i) =
         make_float4(o[i] / ldiv, o[i + 1] / ldiv, o[i + 2] / ldiv, o[i + 3] / ldiv);
 }
@@ -610,16 +677,16 @@ XQ_EXPORT int xq_kv_update(void* ck, void* cv, const void* knew, const void* vne
 }
 
 // f32 elements of the flash-decode workspace: per (batch, head, chunk) the
-// partial max, the partial sum and the FD_HD-wide partial accumulator
-XQ_EXPORT long long xq_flash_decode_workspace(int B, int H, int S) {
+// partial max, the partial sum and the hd-wide partial accumulator
+XQ_EXPORT long long xq_flash_decode_workspace(int B, int H, int S, int hd) {
   const long long ns = (S + FD_CHUNK - 1) / FD_CHUNK;
-  return (long long)B * H * ns * (FD_HD + 2);
+  return (long long)B * H * ns * (hd + 2);
 }
 
 XQ_EXPORT int xq_flash_decode(const void* q, const void* ck, const void* cv, const void* kv_len,
                               void* work, void* out, int B, int H, int KH, int S, int hd,
                               float sm_scale, void* stream) {
-  if (hd != FD_HD || KH < 1 || H % KH != 0) return (int)cudaErrorInvalidValue;
+  if (KH < 1 || H % KH != 0) return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   const int NS = (S + FD_CHUNK - 1) / FD_CHUNK;
   const size_t parts = (size_t)B * H * NS;
@@ -631,26 +698,32 @@ XQ_EXPORT int xq_flash_decode(const void* q, const void* ck, const void* cv, con
   const auto* k = (const __nv_bfloat16*)ck;
   const auto* v = (const __nv_bfloat16*)cv;
   const int* kl = (const int*)kv_len;
-  const cudaError_t e = for_group(H / KH, [&](auto g) {
-    flash_decode_split_kernel<decltype(g)::value><<<grid, FD_THREADS, 0, s>>>(
-        qf, k, v, kl, pm, pl, pacc, KH, S, sm_scale);
+  const cudaError_t e = for_head_dim(hd, [&](auto d) {
+    return for_group(H / KH, [&](auto g) {
+      flash_decode_split_kernel<decltype(g)::value, decltype(d)::value><<<grid, FD_THREADS, 0, s>>>(
+          qf, k, v, kl, pm, pl, pacc, KH, S, sm_scale);
+    });
   });
   if (e != cudaSuccess) return (int)e;
-  flash_decode_combine_kernel<<<B * H, FD_HD, 0, s>>>(pm, pl, pacc, (float*)out, NS);
+  flash_decode_combine_kernel<<<B * H, hd, 0, s>>>(pm, pl, pacc, (float*)out, NS);
   return (int)cudaGetLastError();
 }
 
 XQ_EXPORT int xq_flash_prefill(const void* q, const void* ck, const void* cv, const void* pos,
                                void* out, int B, int T, int H, int KH, int S, int hd,
                                float sm_scale, void* stream) {
-  if (hd != PF_HD || KH < 1 || H % KH != 0 || H / KH > FD_MAX_G) return (int)cudaErrorInvalidValue;
-  cudaError_t e = xq_allow_smem(flash_prefill_kernel, PF_SMEM);
-  if (e != cudaSuccess) return (int)e;
+  if (KH < 1 || H % KH != 0 || H / KH > FD_MAX_G) return (int)cudaErrorInvalidValue;
   const int tq = PF_ROWS / (H / KH);
-  flash_prefill_kernel<<<dim3(B * KH, (T + tq - 1) / tq), 128, PF_SMEM, static_cast<cudaStream_t>(stream)>>>(
-      (const float*)q, (const __nv_bfloat16*)ck, (const __nv_bfloat16*)cv, (const int*)pos,
-      (float*)out, T, H, KH, S, sm_scale);
-  return (int)cudaGetLastError();
+  return (int)for_head_dim(hd, [&](auto d) {
+    constexpr int HD = decltype(d)::value;
+    cudaError_t e = xq_allow_smem(flash_prefill_kernel<HD>, pf_smem<HD>());
+    if (e != cudaSuccess) return e;
+    flash_prefill_kernel<HD><<<dim3(B * KH, (T + tq - 1) / tq), 128, pf_smem<HD>(),
+                               static_cast<cudaStream_t>(stream)>>>(
+        (const float*)q, (const __nv_bfloat16*)ck, (const __nv_bfloat16*)cv, (const int*)pos,
+        (float*)out, T, H, KH, S, sm_scale);
+    return cudaGetLastError();
+  });
 }
 
 XQ_EXPORT int xq_kv_update_q(void* ck, void* cv, void* ks, void* vs, const void* knew,
@@ -669,7 +742,7 @@ XQ_EXPORT int xq_kv_update_q(void* ck, void* cv, void* ks, void* vs, const void*
 XQ_EXPORT int xq_flash_decode_q(const void* q, const void* ck, const void* cv, const void* ks,
                                 const void* vs, const void* kv_len, void* work, void* out, int B,
                                 int H, int KH, int S, int hd, float sm_scale, void* stream) {
-  if (hd != FD_HD || KH < 1 || H % KH != 0) return (int)cudaErrorInvalidValue;
+  if (KH < 1 || H % KH != 0) return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   const int NS = (S + FD_CHUNK - 1) / FD_CHUNK;
   const size_t parts = (size_t)B * H * NS;
@@ -683,11 +756,13 @@ XQ_EXPORT int xq_flash_decode_q(const void* q, const void* ck, const void* cv, c
   const auto* kss = (const float*)ks;
   const auto* vss = (const float*)vs;
   const int* kl = (const int*)kv_len;
-  const cudaError_t e = for_group(H / KH, [&](auto g) {
-    flash_decode_q_split_kernel<decltype(g)::value><<<grid, FD_THREADS, 0, s>>>(
-        qf, k, v, kss, vss, kl, pm, pl, pacc, KH, S, sm_scale);
+  const cudaError_t e = for_head_dim(hd, [&](auto d) {
+    return for_group(H / KH, [&](auto g) {
+      flash_decode_q_split_kernel<decltype(g)::value, decltype(d)::value>
+          <<<grid, FD_THREADS, 0, s>>>(qf, k, v, kss, vss, kl, pm, pl, pacc, KH, S, sm_scale);
+    });
   });
   if (e != cudaSuccess) return (int)e;
-  flash_decode_combine_kernel<<<B * H, FD_HD, 0, s>>>(pm, pl, pacc, (float*)out, NS);
+  flash_decode_combine_kernel<<<B * H, hd, 0, s>>>(pm, pl, pacc, (float*)out, NS);
   return (int)cudaGetLastError();
 }

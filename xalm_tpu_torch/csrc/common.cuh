@@ -19,10 +19,13 @@ __device__ __forceinline__ float xq_warp_max(float v) {
   return v;
 }
 
-// Dynamic shared memory above 48 KB needs an opt-in per kernel.
+// Shared memory above 48 KB a block needs an opt-in per kernel, and the
+// 48 KB count the kernel's static shared memory too: a kernel with a few
+// static bytes and exactly 48 KB of dynamic memory does not launch without
+// it. Opting in from 32 KB leaves room for any static part up to 16 KB.
 template <typename K>
 static cudaError_t xq_allow_smem(K kernel, int bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
+  if (bytes <= 32 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 

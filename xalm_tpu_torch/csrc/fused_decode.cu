@@ -3,18 +3,40 @@
 // Replaces xalm_tpu/ops/fused_decode.py::_kernel (through fused_decode_step)
 // for an i8 body with per-row f32 scales, a StreamingLLM cache of bf16 or of
 // int8 codes with per-row f32 scale planes (the TPU kernel's `quant`
-// branch), 1 <= B <= 8 rows at t = 1, head_dim 128, and its two folds: the
-// embed fold (the bf16 embed row gathered and the rope trig computed in the
-// kernel) and the i8-head fold (final norm, i8 classifier, first-occurrence
-// argmax). The two cache kinds are two instantiations of one kernel. Two
-// family folds are run-time options of every instantiation (null pointers
-// when off): the Qwen2 qkv bias (the TPU kernel's has_bias, added to each
-// qkv row in phase 1's epilogue, after the scale) and the Qwen3 per-head
-// q/k RMS norms (its has_qk: phase 2 norms each query head and the K head
-// over their 128 lanes after the clip, before rope; V is not normed).
+// branch), 1 <= B <= 8 rows at t = 1, head_dim 128 or 256 (a template
+// parameter, dispatched at launch), and its two folds: the embed fold (the bf16 embed row gathered,
+// times the embed scale, and the rope trig computed in the kernel) and the
+// i8-head fold (final norm, i8 classifier, first-occurrence argmax). The two
+// cache kinds and the two head dims are instantiations of one kernel, and
+// at head_dim 128 so is the choice of the Gemma folds' code (FAM): with it
+// compiled in, the kernel ran 4-5 % slower on models that use none of them
+// (PERF.md). The family folds are run-time options (null pointers or zeros
+// when off) of every instantiation that has their code: the Qwen folds of
+// all, the Gemma folds of FAM's:
+//   - the Qwen2 qkv bias (the TPU kernel's has_bias, added to each qkv row in
+//     phase 1's epilogue, after the scale);
+//   - the Qwen3 per-head q/k RMS norms (its has_qk: phase 2 norms each query
+//     head and the K head over their hd lanes after the clip, before rope;
+//     V is not normed);
+//   - Gemma's embed scale (its ES: the gathered embed row times it) and
+//     tanh-approximate gelu in place of SiLU (its act == "gelu");
+//   - Gemma-2's attention softcap (its asc: each score s, after the
+//     1/sqrt(hd) scale, becomes tanh(s / asc) * asc in phase 3), logit
+//     softcap (its lsc: each logit of the head fold, before the argmax) and
+//     post-norms (its has_pn: the wo and w2 outputs RMS-normed with
+//     post_attn_norm / post_mlp_norm before their residual adds). A post-norm
+//     needs the whole output row, which is spread over the blocks, so phase
+//     5 (and 7) writes the projection p to the workspace instead of adding
+//     it. The next phase, which starts after a barrier anyway, takes p's
+//     rms in every block and reads x + p * rsqrt(mean(p^2) + eps) * w in
+//     place of x for its own rms and staging, and the phase after it, which
+//     does not read x, stores that sum into x (a grid-stride slice per
+//     block). The last layer's sum goes to xout (and into the head fold)
+//     the same way. No barrier is added: 1 + 7L a step, as without them.
 //
 // Its weight phases come in three bodies, one instantiation each (times the
-// two cache kinds): the i8 body times bf16 activations; the a8 body (the TPU
+// two cache kinds and three (head_dim, FAM) pairs, (128, no), (128, yes) and
+// (256, yes): eighteen): the i8 body times bf16 activations; the a8 body (the TPU
 // kernel's _a8dot) and the q4 body (its _q4dot), which quantise each phase's
 // f32 input row (the normed x, attn, act; the normed x of the i8 head) to
 // int8 codes with its absmax / 127 -- every block takes the amax of the rows
@@ -32,27 +54,31 @@
 //   1. rmsnorm(x) * attn_norm, cast to bf16, times wqkv -> qkv (GEMV),
 //      plus the qkv bias;
 //   2. per (row, kv head): clip, the q/k norms (each head's sum of squares
-//      by warp shuffles and a named barrier over the item's 128 threads),
+//      by warp shuffles and a named barrier over the item's hd threads: two
+//      items a block at hd 128, one at hd 256),
 //      rope (q pre-scaled by 1/sqrt(hd)), the K/V
 //      rows rounded to bf16 and inserted at kv_pos (dropped at the kv_pos
 //      == S sentinel), and for rows with `rotate` the KV_SINKS sink keys
 //      rotated by one position (each product and the sum rounded as the
 //      plain version's separate f32 operations, then rounded to bf16).
 //      int8 cache: q stays unscaled; the K and V rows are quantised (absmax
-//      by warp shuffles and a named barrier over the item's 128 threads,
+//      by warp shuffles and a named barrier over the item's hd threads,
 //      since the two items of a block may run different numbers of
 //      iterations) and their codes and scales written; the sinks are
 //      dequantised with their scales, rotated and requantised;
 //   3. split flash-decode over (row, kv head, 128-key chunk): f32 scores
-//      over the cache rows, chunk max and exp-sum, un-normalised P.V.
+//      over the cache rows (two threads a row, hd / 2 dims each; the
+//      softcap), chunk max and exp-sum, un-normalised P.V over 128-dim
+//      slices of the rows (two at hd 256).
 //      int8 cache: the row scales factor out of both dots, as in
 //      csrc/attention.cu's xq_flash_decode_q (bf16 q times the codes, times
 //      k_scale / sqrt(hd); bf16(p * v_scale) times the V codes);
 //   4. combine the chunks' (max, sum, acc) partials -> attn (B, QD) f32;
-//   5. bf16(attn) times wo, plus the residual;
-//   6. rmsnorm(x) * mlp_norm times w13, SiLU(gate) * up on each chunk pair
-//      (a warp owns a gate row and the up row c13 rows after it) -> act;
-//   7. bf16(act) times w2, plus the residual.
+//   5. bf16(attn) times wo, plus the residual (post-norms: into p);
+//   6. rmsnorm(x) * mlp_norm times w13, SiLU(gate) * up (or gelu) on each
+//      chunk pair (a warp owns a gate row and the up row c13 rows after
+//      it) -> act;
+//   7. bf16(act) times w2, plus the residual (post-norms: into p).
 //
 // With the head fold, one more phase runs the final norm and the i8 head
 // GEMV, writes the logits and each block's argmax partial, and after one
@@ -67,7 +93,8 @@
 //
 // Memory discipline: the workspace (allocated once by the wrapper) holds the
 // barrier word, the x residual (B, N) f32, qkv, the rotated q, the
-// attention partials, attn, act and the argmax partials; the kernel
+// attention partials, attn, act, the two post-norm projections and the
+// argmax partials; the kernel
 // allocates nothing. Anything another block wrote in this launch (x, qkv,
 // q, partials, attn, act, and the cache rows and sinks just written) is
 // read with __ldcg, past the SM's L1, which is not coherent across SMs:
@@ -80,14 +107,17 @@
 // group-512 scales (1.06 ms), the i8 head 0.13 GB more; the K and V
 // cache rows at kv_len 520 are 68 MB in bf16 (2 x 32 layers x 520 rows x
 // 1024 values x 2 B), 34 MB of int8 codes plus 1 MB of scales in the int8
-// cache. Compute is B FMAs per weight byte on the
-// CUDA cores. Each grid barrier costs one atomic per block and a spin on
+// cache; Gemma-2-9B's 42 layers are 8.33 GB (2.49 ms), its i8 head 0.92 GB.
+// Compute is B FMAs per weight byte on the CUDA cores (the folds add a
+// tanh per score, per logit and per gate, and two row norms per layer: no
+// weight bytes). Each grid barrier costs one atomic per block and a spin on
 // one word (measured by xq_grid_barrier_bench, PERF.md); a step has 1 + 7L
 // of them (+1 with the head fold): 225 at 32 layers. No wgmma, TMA or
 // cross-barrier weight prefetch yet: the weight stream stops at every
 // barrier and restarts cold.
 //
-// Limits (cudaErrorInvalidValue): head_dim != 128, a cache neither bf16 nor
+// Limits (cudaErrorInvalidValue): head_dim other than 128 and 256 (Phi-3's
+// 96 decodes on the per-layer kernels), a cache neither bf16 nor
 // int8 with scale planes, B outside 1..8, a GQA group outside 1..8, widths
 // that are not multiples of 16, a q4 group that is not a multiple of 128
 // dividing every half contraction width, or whose high-group terms and one
@@ -105,7 +135,8 @@ constexpr int MK_THREADS = 256;
 constexpr int MK_WARPS = MK_THREADS / 32;
 constexpr int MK_MAX_B = 8;
 constexpr int MK_MAX_G = 8;
-constexpr int MK_HD = 128;
+constexpr int MK_MAX_HD = 256;
+constexpr int MK_SLICE = 128;                 // dims of a P.V slice in phase 3
 constexpr int MK_CHUNK = 128;                 // key rows per flash-decode work item
 constexpr int MK_SMEM = 64 * 1024;            // the GEMV's bf16 activations, or attention scratch
 constexpr int MK_XS = MK_SMEM / 2;            // bf16 elements of staged activations
@@ -141,18 +172,24 @@ struct MkArgs {
   const float* bqkv;    // (L, DQ) Qwen2 qkv bias in wqkv's row order, or null
   const float* q_norm;  // (L, hd) Qwen3 per-head q RMS-norm weights, or null (with k_norm)
   const float* k_norm;
+  const float* post_attn_norm;  // (L, N) Gemma-2 post-norms, or null (with post_mlp_norm)
+  const float* post_mlp_norm;
   float* xout;    // (B, N)
   float* logits;  // (B, V) (head fold)
   int* token;     // (B) (head fold)
   unsigned char* work;
-  int L, B, N, KH, G, H, S, V, c13;
+  int L, B, N, KH, G, H, S, V, c13;  // head_dim is the kernel's HD
   int group;  // q4 body: codes per group scale (the weights are packed rows)
+  int gelu;   // 1: tanh-approximate gelu(gate) * up (Gemma), 0: SiLU
   float eps, clip, sm_scale;
+  float embed_scale;    // the embed fold's row times this (Gemma: sqrt(dim))
+  float attn_softcap;   // 0: none
+  float logit_softcap;  // 0: none
 };
 
 // byte offsets of the workspace regions, the same on the host and the card
 struct WsLayout {
-  size_t x, qkv, q, pm, pl, pacc, attn, act, amv, ami, total;
+  size_t x, qkv, q, pm, pl, pacc, attn, act, pa, pd, amv, ami, total;
 };
 
 __host__ __device__ inline size_t ws_take(size_t& off, size_t bytes) {
@@ -161,19 +198,21 @@ __host__ __device__ inline size_t ws_take(size_t& off, size_t bytes) {
   return at;
 }
 
-__host__ __device__ inline WsLayout ws_layout(int B, int N, int KH, int G, int S, int H) {
-  const size_t HQ = (size_t)KH * G, DQ = (size_t)KH * (G + 2) * MK_HD;
+__host__ __device__ inline WsLayout ws_layout(int B, int N, int KH, int G, int S, int H, int hd) {
+  const size_t HQ = (size_t)KH * G, DQ = (size_t)KH * (G + 2) * hd;
   const size_t NS = (S + MK_CHUNK - 1) / MK_CHUNK;
   WsLayout o;
   size_t off = 256;  // the barrier word
   o.x = ws_take(off, (size_t)B * N * 4);
   o.qkv = ws_take(off, (size_t)B * DQ * 4);
-  o.q = ws_take(off, (size_t)B * HQ * MK_HD * 4);
+  o.q = ws_take(off, (size_t)B * HQ * hd * 4);
   o.pm = ws_take(off, (size_t)B * HQ * NS * 4);
   o.pl = ws_take(off, (size_t)B * HQ * NS * 4);
-  o.pacc = ws_take(off, (size_t)B * HQ * NS * MK_HD * 4);
-  o.attn = ws_take(off, (size_t)B * HQ * MK_HD * 4);
+  o.pacc = ws_take(off, (size_t)B * HQ * NS * hd * 4);
+  o.attn = ws_take(off, (size_t)B * HQ * hd * 4);
   o.act = ws_take(off, (size_t)B * H * 4);
+  o.pa = ws_take(off, (size_t)B * N * 4);  // post-norms: the wo projection
+  o.pd = ws_take(off, (size_t)B * N * 4);  // post-norms: the w2 projection
   o.amv = ws_take(off, (size_t)MK_MAX_GRID * MK_MAX_B * 4);
   o.ami = ws_take(off, (size_t)MK_MAX_GRID * MK_MAX_B * 4);
   o.total = off;
@@ -199,14 +238,15 @@ __device__ __forceinline__ void grid_sync(unsigned int* bar) {
   __syncthreads();
 }
 
-// 1/sqrt(mean(x_b^2) + eps) of each of the B rows of x, into rinv[b]
-__device__ void rows_rms(const float* x, int B, int N, float eps, float* rinv, float* red) {
+// 1/sqrt(mean(x_b^2) + eps) of each of the B rows of x, into rinv[b]; src(b,
+// n) returns the row's 4 values at n
+template <typename Src>
+__device__ void rows_rms(Src src, int B, int N, float eps, float* rinv, float* red) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   for (int b = 0; b < B; ++b) {
-    const float4* xr = reinterpret_cast<const float4*>(x + (size_t)b * N);
     float ss = 0.f;
     for (int i = tid; i < N / 4; i += MK_THREADS) {
-      const float4 v = __ldcg(xr + i);
+      const float4 v = src(b, 4 * i);
       ss += v.x * v.x + v.y * v.y + v.z * v.z + v.w * v.w;
     }
     ss = xq_warp_sum(ss);
@@ -456,44 +496,100 @@ __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// the max (MAX) or the sum of v over the 128 threads of one half of the
-// block (a phase-2 item), the same value in each: warp shuffles, then named
-// barrier 1 + half (barrier 0 is __syncthreads), so the other half need not
-// take part
-template <bool MAX>
-__device__ float half_reduce(float v, float* red4, int half) {
-  const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3;
+// the max (MAX) or the sum of v over the HD threads of one phase-2 item
+// (half the block at hd 128, all of it at 256), the same value in each: warp
+// shuffles, then named barrier 1 + item (barrier 0 is __syncthreads), so
+// the block's other item need not take part; red holds HD / 32 floats
+template <bool MAX, int HD>
+__device__ float item_reduce(float v, float* red, int item) {
+  constexpr int NW = HD / 32;
+  const int lane = threadIdx.x & 31, w = (threadIdx.x & (HD - 1)) >> 5;
   const float m = MAX ? xq_warp_max(v) : xq_warp_sum(v);
-  asm volatile("bar.sync %0, 128;" ::"r"(half + 1) : "memory");  // red4 is free
-  if (lane == 0) red4[w] = m;
-  asm volatile("bar.sync %0, 128;" ::"r"(half + 1) : "memory");
-  return MAX ? fmaxf(fmaxf(red4[0], red4[1]), fmaxf(red4[2], red4[3]))
-             : (red4[0] + red4[1]) + (red4[2] + red4[3]);
+  asm volatile("bar.sync %0, %1;" ::"r"(item + 1), "n"(HD) : "memory");  // red is free
+  if (lane == 0) red[w] = m;
+  asm volatile("bar.sync %0, %1;" ::"r"(item + 1), "n"(HD) : "memory");
+  float t = red[0];
+#pragma unroll
+  for (int k = 1; k < NW; ++k) t = MAX ? fmaxf(t, red[k]) : t + red[k];
+  return t;
 }
 
-__device__ float half_absmax(float v, float* red4, int half) {
-  return half_reduce<true>(fabsf(v), red4, half);
+template <int HD>
+__device__ float item_absmax(float v, float* red, int item) {
+  return item_reduce<true, HD>(fabsf(v), red, item);
 }
 
-template <bool QUANT, int BODY>
+// x + p * r * w, each product and the sum rounded on its own, so that the
+// phase that reads it and the phase that stores it agree bit for bit
+__device__ __forceinline__ float post_add(float x, float p, float r, float w) {
+  return __fadd_rn(x, __fmul_rn(__fmul_rn(p, r), w));
+}
+
+// the tanh softcap c * tanh(v / c) (c == 0: none)
+__device__ __forceinline__ float softcap(float v, float c) {
+  return c != 0.f ? tanhf(v * (1.0f / c)) * c : v;
+}
+
+// tanh-approximate gelu: 0.5 g (1 + tanh(sqrt(2 / pi) (g + 0.044715 g^3)))
+__device__ __forceinline__ float gelu_tanh(float g) {
+  const float k = 0.7978845608028654f;  // sqrt(2 / pi)
+  return 0.5f * g * (1.0f + tanhf(k * (g + 0.044715f * g * g * g)));
+}
+
+// the dots of one key row's half (HH dims, at half * HH) with the G query
+// heads of qs (G, 2 * HH): f32 sums of bf16 values, or of int8 codes times
+// bf16 q, every load of the half row in flight
+template <bool QUANT, int HH>
+__device__ __forceinline__ void score_row(const void* krow, const float* qs, int half, int G,
+                                          float (&s)[MK_MAX_G]) {
+  constexpr int PER = QUANT ? 16 : 8;  // values a 16-byte load holds
+  const int4* kr = reinterpret_cast<const int4*>(krow) + half * (HH / PER);
+#pragma unroll
+  for (int cc = 0; cc < HH / PER; ++cc) {
+    const int4 raw = __ldcg(kr + cc);
+    float kf[PER];
+    if constexpr (QUANT) {
+      const signed char* kp = reinterpret_cast<const signed char*>(&raw);
+#pragma unroll
+      for (int e = 0; e < PER; ++e) kf[e] = (float)kp[e];
+    } else {
+      const __nv_bfloat16* kp = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+      for (int e = 0; e < PER; ++e) kf[e] = __bfloat162float(kp[e]);
+    }
+#pragma unroll
+    for (int g = 0; g < MK_MAX_G; ++g) {
+      if (g >= G) break;
+      const float* qg = qs + g * 2 * HH + half * HH + cc * PER;
+#pragma unroll
+      for (int e = 0; e < PER; ++e) s[g] += qg[e] * kf[e];
+    }
+  }
+}
+
+template <bool QUANT, int BODY, int HD, bool FAM>
 __global__ void __launch_bounds__(MK_THREADS, 2) fused_decode_kernel(const MkArgs a) {
   constexpr int HEAD = BODY == BODY_BF16 ? BODY_BF16 : BODY_A8;  // the i8 head's body
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float red[MK_WARPS];
   __shared__ float sxs[MK_MAX_B];  // x's row scales of the current a8/q4 phase
-  __shared__ float hred[2][4];
+  constexpr int hd = HD;
+  constexpr int ipb = MK_THREADS / HD;  // phase-2 and phase-4 items a block: 2 at hd 128, 1 at 256
+  __shared__ float hred[ipb][HD / 32];
   __shared__ float rinv[MK_MAX_B];
+  __shared__ float prinv[MK_MAX_B];  // 1/rms of the post-norm projection rows
   __shared__ float best_v[MK_WARPS][MK_MAX_B];
   __shared__ int best_i[MK_WARPS][MK_MAX_B];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int B = a.B, N = a.N, KH = a.KH, G = a.G, H = a.H, S = a.S;
-  const int HQ = KH * G, QD = HQ * MK_HD, DQ = KH * (G + 2) * MK_HD, H2 = 2 * H;
+  const int HQ = KH * G, QD = HQ * hd, DQ = KH * (G + 2) * hd, H2 = 2 * H;
   const int NS = (S + MK_CHUNK - 1) / MK_CHUNK;
   const int gq = a.group;  // q4 group (0: int8 rows)
+  const bool pn = FAM && a.post_attn_norm != nullptr;
   // bytes of a weight row and scales of a row, by contraction width K
   auto rowb = [&](int K) { return (size_t)(BODY == BODY_Q4 ? K / 2 : K); };
   auto rows = [&](int K) { return (size_t)(BODY == BODY_Q4 ? K / gq : 1); };
-  const WsLayout ws = ws_layout(B, N, KH, G, S, H);
+  const WsLayout ws = ws_layout(B, N, KH, G, S, H, hd);
   unsigned int* bar = reinterpret_cast<unsigned int*>(a.work);
   float* x = reinterpret_cast<float*>(a.work + ws.x);
   float* qkv = reinterpret_cast<float*>(a.work + ws.qkv);
@@ -503,6 +599,8 @@ __global__ void __launch_bounds__(MK_THREADS, 2) fused_decode_kernel(const MkArg
   float* pacc = reinterpret_cast<float*>(a.work + ws.pacc);
   float* attn = reinterpret_cast<float*>(a.work + ws.attn);
   float* act = reinterpret_cast<float*>(a.work + ws.act);
+  float* pa = reinterpret_cast<float*>(a.work + ws.pa);
+  float* pd = reinterpret_cast<float*>(a.work + ws.pd);
   float* amv = reinterpret_cast<float*>(a.work + ws.amv);
   int* ami = reinterpret_cast<int*>(a.work + ws.ami);
   const int* kv_pos = a.meta;
@@ -511,27 +609,54 @@ __global__ void __launch_bounds__(MK_THREADS, 2) fused_decode_kernel(const MkArg
   const int* token = a.meta + 3 * B;
   const int* pos = a.meta + 4 * B;
 
-  // ---- phase 0: the residual x from x0 or the embed rows
+  // ---- phase 0: the residual x from x0 or the embed rows (times the embed scale)
   for (int i = blockIdx.x * MK_THREADS + tid; i < B * N; i += gridDim.x * MK_THREADS) {
     const int b = i / N, n = i - b * N;
-    __stcg(x + i, a.embed != nullptr ? __bfloat162float(a.embed[(size_t)__ldg(token + b) * N + n])
-                                     : __ldg(a.x0 + i));
+    __stcg(x + i, a.embed != nullptr
+                      ? __bfloat162float(a.embed[(size_t)__ldg(token + b) * N + n]) *
+                            (FAM ? a.embed_scale : 1.f)
+                      : __ldg(a.x0 + i));
   }
   grid_sync(bar);
 
-  const float* rv = rinv;  // captured as a pointer: the values are per phase
-  auto normed = [&](const float* nw) {
+  const float* rv = rinv;  // captured as pointers: the values are per phase
+  const float* prv = prinv;
+  auto plain = [](const float* src, int ld) {
+    return [=](int b, int n) {
+      return __ldcg(reinterpret_cast<const float4*>(src + (size_t)b * ld + n));
+    };
+  };
+  // x with a pending projection pp added, normed (w: its norm weights,
+  // prinv its rows' 1/rms), or x itself (w null)
+  auto resid = [=](const float* pp, const float* w) {
     return [=](int b, int n) {
       const float4 v = __ldcg(reinterpret_cast<const float4*>(x + (size_t)b * N + n));
+      if (!FAM || w == nullptr) return v;
+      const float4 p = __ldcg(reinterpret_cast<const float4*>(pp + (size_t)b * N + n));
+      const float4 g = __ldg(reinterpret_cast<const float4*>(w + n));
+      const float r = prv[b];
+      return make_float4(post_add(v.x, p.x, r, g.x), post_add(v.y, p.y, r, g.y),
+                         post_add(v.z, p.z, r, g.z), post_add(v.w, p.w, r, g.w));
+    };
+  };
+  // the normed row rinv * src * nw (src as for rows_rms)
+  auto normed = [=](auto src, const float* nw) {
+    return [=](int b, int n) {
+      const float4 v = src(b, n);
       const float4 g = __ldg(reinterpret_cast<const float4*>(nw + n));
       const float r = rv[b];
       return make_float4(v.x * r * g.x, v.y * r * g.y, v.z * r * g.z, v.w * r * g.w);
     };
   };
-  auto plain = [](const float* src, int ld) {
-    return [=](int b, int n) {
-      return __ldcg(reinterpret_cast<const float4*>(src + (size_t)b * ld + n));
-    };
+  // post-norms: the 1/rms of the rows of a pending projection pp into prinv
+  auto pending_rms = [&](const float* pp) { rows_rms(plain(pp, N), B, N, a.eps, prinv, red); };
+  // post-norms: store x + the pending projection pp normed with w, a
+  // grid-stride slice per block (to out: x itself, or xout)
+  auto settle = [&](const float* pp, const float* w, float* out) {
+    for (int i = blockIdx.x * MK_THREADS + tid; i < B * N; i += gridDim.x * MK_THREADS) {
+      const int b = i / N, n = i - b * N;
+      __stcg(out + i, post_add(__ldcg(x + i), __ldcg(pp + i), prinv[b], __ldg(w + n)));
+    }
   };
 
   __nv_bfloat16* const ckf = static_cast<__nv_bfloat16*>(a.ck);
@@ -541,62 +666,68 @@ __global__ void __launch_bounds__(MK_THREADS, 2) fused_decode_kernel(const MkArg
 
   for (int l = 0; l < a.L; ++l) {
     const size_t lsc = (size_t)l * B * KH * S;  // this layer's scale plane (x hd: its cache plane)
+    // the previous layer's post-ffn projection, still pending in pd
+    const float* pmn = pn && l > 0 ? a.post_mlp_norm + (size_t)(l - 1) * N : nullptr;
     // ---- phase 1: rmsnorm + wqkv (+ the qkv bias)
-    rows_rms(x, B, N, a.eps, rinv, red);
+    if (pmn != nullptr) pending_rms(pd);
+    rows_rms(resid(pd, pmn), B, N, a.eps, rinv, red);
     const float* bias = a.bqkv != nullptr ? a.bqkv + (size_t)l * DQ : nullptr;
     auto put_qkv = [&](int b, int r, float v) {
       __stcg(qkv + (size_t)b * DQ + r, bias != nullptr ? __fadd_rn(v, __ldg(bias + r)) : v);
     };
     gemv_phase<BODY>(a.wqkv + l * DQ * rowb(N), a.sqkv + l * DQ * rows(N), DQ, N, 0, B, gq, smem,
-                     red, sxs, normed(a.attn_norm + (size_t)l * N),
+                     red, sxs, normed(resid(pd, pmn), a.attn_norm + (size_t)l * N),
                      [&](int, int r0, int r1, int b, float v0, float v1) {
                        put_qkv(b, r0, v0);
                        if (r1 < DQ) put_qkv(b, r1, v1);
                      });
     grid_sync(bar);
 
-    // ---- phase 2: clip, q/k norm, rope, ring insert, sink rotation; two
-    // (row, kv head) items per block
-    const float* qn = a.q_norm != nullptr ? a.q_norm + (size_t)l * MK_HD : nullptr;
-    const float* kn = a.k_norm != nullptr ? a.k_norm + (size_t)l * MK_HD : nullptr;
-    for (int it = blockIdx.x * 2 + (tid >> 7); it < B * KH; it += gridDim.x * 2) {
-      const int b = it / KH, j = it - b * KH, i = tid & (MK_HD - 1), half = tid >> 7;
+    // ---- phase 2: clip, q/k norm, rope, ring insert, sink rotation; one
+    // (row, kv head) item per hd threads. Post-norms: x takes the pending
+    // projection (nothing reads x in this phase)
+    if (pmn != nullptr) settle(pd, pmn, x);
+    const float* qn = a.q_norm != nullptr ? a.q_norm + (size_t)l * hd : nullptr;
+    const float* kn = a.k_norm != nullptr ? a.k_norm + (size_t)l * hd : nullptr;
+    for (int it = blockIdx.x * ipb + tid / hd; it < B * KH; it += gridDim.x * ipb) {
+      const int b = it / KH, j = it - b * KH, i = tid & (hd - 1), item = tid / hd;
+      float* hr = hred[item];
       float c, s;
       if (a.freqs != nullptr) {
         const float ang = (float)__ldg(pos + b) * __ldg(a.freqs + (i >> 1));
         sincosf(ang, &s, &c);
       } else {
-        c = __ldg(a.cexp_p + b * MK_HD + i);
-        s = __ldg(a.sexp_p + b * MK_HD + i);
+        c = __ldg(a.cexp_p + b * hd + i);
+        s = __ldg(a.sexp_p + b * hd + i);
       }
-      const float* y = qkv + (size_t)b * DQ + (size_t)j * (G + 2) * MK_HD;
-      // lane i of a head: clipped, RMS-normed over the head's 128 lanes
-      // with the weights w (Qwen3; none when w is null), then rotated with
-      // its pair partner, the neighbouring lane of the same warp
+      const float* y = qkv + (size_t)b * DQ + (size_t)j * (G + 2) * hd;
+      // lane i of a head: clipped, RMS-normed over the head's hd lanes with
+      // the weights w (Qwen3; none when w is null), then rotated with its
+      // pair partner, the neighbouring lane of the same warp
       auto rope = [&](const float* v, const float* w) {
         float u = clip_to(__ldcg(v + i), a.clip);
         if (w != nullptr) {
-          const float ms = half_reduce<false>(u * u, hred[half], half) / (float)MK_HD;
+          const float ms = item_reduce<false, HD>(u * u, hr, item) / (float)hd;
           u = u * (1.0f / sqrtf(ms + a.eps)) * __ldg(w + i);
         }
         const float p = __shfl_xor_sync(0xffffffffu, u, 1);
         return u * c + ((i & 1) ? p : -p) * s;
       };
       for (int g = 0; g < G; ++g) {
-        const float qv = rope(y + g * MK_HD, qn);
-        __stcg(qr + ((size_t)b * HQ + j * G + g) * MK_HD + i, QUANT ? qv : qv * a.sm_scale);
+        const float qv = rope(y + g * hd, qn);
+        __stcg(qr + ((size_t)b * HQ + j * G + g) * hd + i, QUANT ? qv : qv * a.sm_scale);
       }
-      const float kr = rope(y + G * MK_HD, kn);
-      const float vr = clip_to(__ldcg(y + (G + 1) * MK_HD + i), a.clip);
+      const float kr = rope(y + G * hd, kn);
+      const float vr = clip_to(__ldcg(y + (G + 1) * hd + i), a.clip);
       const size_t srow = lsc + ((size_t)b * KH + j) * S;  // scale index of the stripe's row 0
-      const size_t stripe = srow * MK_HD;
+      const size_t stripe = srow * hd;
       const int kvp = __ldg(kv_pos + b);
       if constexpr (QUANT) {
-        const float ksc = xq_row_scale(half_absmax(kr, hred[half], half));
-        const float vsc = xq_row_scale(half_absmax(vr, hred[half], half));
+        const float ksc = xq_row_scale(item_absmax<HD>(kr, hr, item));
+        const float vsc = xq_row_scale(item_absmax<HD>(vr, hr, item));
         if (kvp >= 0 && kvp < S) {
-          ckq[stripe + (size_t)kvp * MK_HD + i] = xq_code(kr, ksc);
-          cvq[stripe + (size_t)kvp * MK_HD + i] = xq_code(vr, vsc);
+          ckq[stripe + (size_t)kvp * hd + i] = xq_code(kr, ksc);
+          cvq[stripe + (size_t)kvp * hd + i] = xq_code(vr, vsc);
           if (i == 0) {
             __stcg(a.ks + srow + kvp, ksc);
             __stcg(a.vs + srow + kvp, vsc);
@@ -609,7 +740,7 @@ __global__ void __launch_bounds__(MK_THREADS, 2) fused_decode_kernel(const MkArg
 #pragma unroll
           for (int r = 0; r < KV_SINKS; ++r) {
             const float sc = __ldcg(a.ks + srow + r);
-            const signed char* row = ckq + stripe + (size_t)r * MK_HD;
+            const signed char* row = ckq + stripe + (size_t)r * hd;
             v[r] = __fmul_rn((float)__ldcg(row + i), sc);
             const float p = __fmul_rn((float)__ldcg(row + (i ^ 1)), sc);
             sw[r] = (i & 1) ? p : -p;
@@ -618,23 +749,23 @@ __global__ void __launch_bounds__(MK_THREADS, 2) fused_decode_kernel(const MkArg
 #pragma unroll
           for (int r = 0; r < KV_SINKS; ++r) {
             const float rot = __fadd_rn(__fmul_rn(v[r], c1), __fmul_rn(sw[r], s1));
-            const float sc = xq_row_scale(half_absmax(rot, hred[half], half));
-            ckq[stripe + (size_t)r * MK_HD + i] = xq_code(rot, sc);
+            const float sc = xq_row_scale(item_absmax<HD>(rot, hr, item));
+            ckq[stripe + (size_t)r * hd + i] = xq_code(rot, sc);
             if (i == 0) __stcg(a.ks + srow + r, sc);
           }
         }
         continue;
       }
       if (kvp >= 0 && kvp < S) {
-        ckf[stripe + (size_t)kvp * MK_HD + i] = __float2bfloat16_rn(kr);
-        cvf[stripe + (size_t)kvp * MK_HD + i] = __float2bfloat16_rn(vr);
+        ckf[stripe + (size_t)kvp * hd + i] = __float2bfloat16_rn(kr);
+        cvf[stripe + (size_t)kvp * hd + i] = __float2bfloat16_rn(vr);
       }
-      if (__ldg(rotate + b) != 0) {  // uniform over the item's four warps
+      if (__ldg(rotate + b) != 0) {  // uniform over the item's warps
         float v[KV_SINKS], sw[KV_SINKS];
 #pragma unroll
         for (int r = 0; r < KV_SINKS; ++r) {
           const unsigned short* row =
-              reinterpret_cast<const unsigned short*>(ckf + stripe + (size_t)r * MK_HD);
+              reinterpret_cast<const unsigned short*>(ckf + stripe + (size_t)r * hd);
           v[r] = __bfloat162float(__ushort_as_bfloat16(__ldcg(row + i)));
           const float p = __bfloat162float(__ushort_as_bfloat16(__ldcg(row + (i ^ 1))));
           sw[r] = (i & 1) ? p : -p;
@@ -643,7 +774,7 @@ __global__ void __launch_bounds__(MK_THREADS, 2) fused_decode_kernel(const MkArg
         const float c1 = __ldg(a.c1 + i), s1 = __ldg(a.s1 + i);
 #pragma unroll
         for (int r = 0; r < KV_SINKS; ++r)
-          ckf[stripe + (size_t)r * MK_HD + i] =
+          ckf[stripe + (size_t)r * hd + i] =
               __float2bfloat16_rn(__fadd_rn(__fmul_rn(v[r], c1), __fmul_rn(sw[r], s1)));
       }
     }
@@ -651,73 +782,44 @@ __global__ void __launch_bounds__(MK_THREADS, 2) fused_decode_kernel(const MkArg
 
     // ---- phase 3: split flash-decode, one (row, kv head, chunk) item per block
     {
-      float* qs = reinterpret_cast<float*>(smem);  // (G, hd)
-      float* sc = qs + MK_MAX_G * MK_HD;            // (G, chunk) scores, then p
-      float* accs = sc + MK_MAX_G * MK_CHUNK;       // (warps, G, hd) partial P.V
-      float* ml = accs + MK_WARPS * MK_MAX_G * MK_HD;  // (G) max, (G) sum
+      float* qs = reinterpret_cast<float*>(smem);   // (G, hd)
+      float* sc = qs + MK_MAX_G * MK_MAX_HD;         // (G, chunk) scores, then p
+      float* accs = sc + MK_MAX_G * MK_CHUNK;        // (warps, G, MK_SLICE) partial P.V
+      float* ml = accs + MK_WARPS * MK_MAX_G * MK_SLICE;  // (G) max, (G) sum
       for (int it = blockIdx.x; it < B * KH * NS; it += gridDim.x) {
         const int b = it / (KH * NS), j = (it / NS) % KH, ch = it % NS;
         const int r0 = ch * MK_CHUNK;
         const int n = min(MK_CHUNK, __ldg(kv_len + b) - r0);
         if (n <= 0) continue;  // uniform over the block
         const size_t srow = lsc + ((size_t)b * KH + j) * S + r0;  // scale index of the chunk's row 0
-        const size_t stripe = (lsc + ((size_t)b * KH + j) * S) * MK_HD;
+        const size_t stripe = (lsc + ((size_t)b * KH + j) * S) * hd;
         __syncthreads();  // the previous item's scratch is consumed
-        for (int e = tid; e < G * MK_HD; e += MK_THREADS) {
-          const float qv = __ldcg(qr + ((size_t)b * HQ + j * G) * MK_HD + e);
+        for (int e = tid; e < G * hd; e += MK_THREADS) {
+          const float qv = __ldcg(qr + ((size_t)b * HQ + j * G) * hd + e);
           qs[e] = QUANT ? bf16_round(qv) : qv;
         }
         __syncthreads();
-        // scores: two threads per key row, 64 dims each, f32 dots (int8:
-        // exact bf16 x code products, then times k_scale / sqrt(hd))
+        // scores: two threads per key row, hd / 2 dims each, f32 dots (int8:
+        // exact bf16 x code products, then times k_scale / sqrt(hd)), then
+        // the softcap
         {
           const int row = tid >> 1, half = tid & 1;
           float s[MK_MAX_G];
 #pragma unroll
           for (int g = 0; g < MK_MAX_G; ++g) s[g] = 0.f;
-          if (QUANT && row < n) {
-            const int4* kr =
-                reinterpret_cast<const int4*>(ckq + stripe + (size_t)(r0 + row) * MK_HD + half * 64);
-#pragma unroll
-            for (int cc = 0; cc < 4; ++cc) {
-              const int4 raw = __ldcg(kr + cc);
-              const signed char* kp = reinterpret_cast<const signed char*>(&raw);
-              float kf[16];
-#pragma unroll
-              for (int e = 0; e < 16; ++e) kf[e] = (float)kp[e];
-#pragma unroll
-              for (int g = 0; g < MK_MAX_G; ++g) {
-                if (g >= G) break;
-                const float* qg = qs + g * MK_HD + half * 64 + cc * 16;
-#pragma unroll
-                for (int e = 0; e < 16; ++e) s[g] += qg[e] * kf[e];
-              }
-            }
-          } else if (row < n) {
-            const int4* kr =
-                reinterpret_cast<const int4*>(ckf + stripe + (size_t)(r0 + row) * MK_HD + half * 64);
-#pragma unroll
-            for (int cc = 0; cc < 8; ++cc) {
-              const int4 raw = __ldcg(kr + cc);
-              const __nv_bfloat16* kp = reinterpret_cast<const __nv_bfloat16*>(&raw);
-              float kf[8];
-#pragma unroll
-              for (int e = 0; e < 8; ++e) kf[e] = __bfloat162float(kp[e]);
-#pragma unroll
-              for (int g = 0; g < MK_MAX_G; ++g) {
-                if (g >= G) break;
-                const float* qg = qs + g * MK_HD + half * 64 + cc * 8;
-#pragma unroll
-                for (int e = 0; e < 8; ++e) s[g] += qg[e] * kf[e];
-              }
-            }
+          if (row < n) {
+            const size_t at = stripe + (size_t)(r0 + row) * hd;
+            const void* krow = QUANT ? (const void*)(ckq + at) : (const void*)(ckf + at);
+            score_row<QUANT, HD / 2>(krow, qs, half, G, s);
           }
           const float f = QUANT && row < n ? __fmul_rn(__ldcg(a.ks + srow + row), a.sm_scale) : 1.f;
 #pragma unroll
           for (int g = 0; g < MK_MAX_G; ++g) {
             if (g >= G) break;
             s[g] += __shfl_xor_sync(0xffffffffu, s[g], 1);
-            if (row < n && half == 0) sc[g * MK_CHUNK + row] = QUANT ? s[g] * f : s[g];
+            if (row < n && half == 0)
+              sc[g * MK_CHUNK + row] = FAM ? softcap(QUANT ? s[g] * f : s[g], a.attn_softcap)
+                                           : QUANT ? s[g] * f : s[g];
           }
         }
         __syncthreads();
@@ -739,9 +841,11 @@ __global__ void __launch_bounds__(MK_THREADS, 2) fused_decode_kernel(const MkArg
             ml[MK_MAX_G + g] = sum;
           }
         }
-        __syncthreads();
-        // un-normalised P.V: warp w takes rows w, w + 8, ..., a lane 4 dims
-        {
+        // un-normalised P.V over 128-dim slices of the rows: warp w takes
+        // rows w, w + 8, ..., a lane 4 dims of the slice
+#pragma unroll
+        for (int d0 = 0; d0 < HD; d0 += MK_SLICE) {
+          __syncthreads();  // p is in place; the previous slice's partials are consumed
           float acc[MK_MAX_G][4];
 #pragma unroll
           for (int g = 0; g < MK_MAX_G; ++g)
@@ -749,15 +853,14 @@ __global__ void __launch_bounds__(MK_THREADS, 2) fused_decode_kernel(const MkArg
             for (int e = 0; e < 4; ++e) acc[g][e] = 0.f;
           for (int r = warp; r < n; r += MK_WARPS) {
             float vf[4];
+            const size_t at = stripe + (size_t)(r0 + r) * hd + d0 + lane * 4;
             if constexpr (QUANT) {
-              const int raw = __ldcg(
-                  reinterpret_cast<const int*>(cvq + stripe + (size_t)(r0 + r) * MK_HD + lane * 4));
+              const int raw = __ldcg(reinterpret_cast<const int*>(cvq + at));
               const signed char* vp = reinterpret_cast<const signed char*>(&raw);
 #pragma unroll
               for (int e = 0; e < 4; ++e) vf[e] = (float)vp[e];
             } else {
-              const uint2 raw = __ldcg(
-                  reinterpret_cast<const uint2*>(cvf + stripe + (size_t)(r0 + r) * MK_HD + lane * 4));
+              const uint2 raw = __ldcg(reinterpret_cast<const uint2*>(cvf + at));
               const __nv_bfloat16* vp = reinterpret_cast<const __nv_bfloat16*>(&raw);
 #pragma unroll
               for (int e = 0; e < 4; ++e) vf[e] = __bfloat162float(vp[e]);
@@ -774,28 +877,29 @@ __global__ void __launch_bounds__(MK_THREADS, 2) fused_decode_kernel(const MkArg
           for (int g = 0; g < MK_MAX_G; ++g) {
             if (g >= G) break;
 #pragma unroll
-            for (int e = 0; e < 4; ++e) accs[(warp * MK_MAX_G + g) * MK_HD + lane * 4 + e] = acc[g][e];
+            for (int e = 0; e < 4; ++e)
+              accs[(warp * MK_MAX_G + g) * MK_SLICE + lane * 4 + e] = acc[g][e];
           }
-        }
-        __syncthreads();
-        for (int e = tid; e < G * MK_HD; e += MK_THREADS) {
-          const int g = e / MK_HD, d = e - g * MK_HD;
-          float t = 0.f;
-          for (int w = 0; w < MK_WARPS; ++w) t += accs[(w * MK_MAX_G + g) * MK_HD + d];
-          const size_t part = ((size_t)b * HQ + j * G + g) * NS + ch;
-          __stcg(pacc + part * MK_HD + d, t);
-          if (d == 0) {
-            __stcg(pm + part, ml[g]);
-            __stcg(pl + part, ml[MK_MAX_G + g]);
+          __syncthreads();
+          for (int e = tid; e < G * MK_SLICE; e += MK_THREADS) {
+            const int g = e / MK_SLICE, d = e - g * MK_SLICE;
+            float t = 0.f;
+            for (int w = 0; w < MK_WARPS; ++w) t += accs[(w * MK_MAX_G + g) * MK_SLICE + d];
+            const size_t part = ((size_t)b * HQ + j * G + g) * NS + ch;
+            __stcg(pacc + part * hd + d0 + d, t);
+            if (d0 == 0 && d == 0) {
+              __stcg(pm + part, ml[g]);
+              __stcg(pl + part, ml[MK_MAX_G + g]);
+            }
           }
         }
       }
     }
     grid_sync(bar);
 
-    // ---- phase 4: combine the chunk partials, two (row, head) items per block
-    for (int it = blockIdx.x * 2 + (tid >> 7); it < B * HQ; it += gridDim.x * 2) {
-      const int b = it / HQ, d = tid & (MK_HD - 1);
+    // ---- phase 4: combine the chunk partials, one (row, head) item per hd threads
+    for (int it = blockIdx.x * ipb + tid / hd; it < B * HQ; it += gridDim.x * ipb) {
+      const int b = it / HQ, d = tid & (hd - 1);
       const int kvl = __ldg(kv_len + b);
       const int nsb = kvl <= 0 ? 0 : min(NS, (kvl + MK_CHUNK - 1) / MK_CHUNK);
       const size_t p0 = (size_t)it * NS;  // it == b * HQ + head
@@ -805,41 +909,48 @@ __global__ void __launch_bounds__(MK_THREADS, 2) fused_decode_kernel(const MkArg
       for (int s = 0; s < nsb; ++s) {
         const float w = expf(__ldcg(pm + p0 + s) - mx);
         l += w * __ldcg(pl + p0 + s);
-        acc += w * __ldcg(pacc + (p0 + s) * MK_HD + d);
+        acc += w * __ldcg(pacc + (p0 + s) * hd + d);
       }
-      __stcg(attn + (size_t)it * MK_HD + d, l > 0.f ? acc / l : 0.f);
+      __stcg(attn + (size_t)it * hd + d, l > 0.f ? acc / l : 0.f);
     }
     grid_sync(bar);
 
-    // ---- phase 5: wo + residual
+    // ---- phase 5: wo + residual (post-norms: the projection into pa)
     gemv_phase<BODY>(a.wo + l * N * rowb(QD), a.so + l * N * rows(QD), N, QD, 0, B, gq, smem, red,
                      sxs, plain(attn, QD), [&](int, int r0, int r1, int b, float v0, float v1) {
-                       float* xr = x + (size_t)b * N;
-                       __stcg(xr + r0, __ldcg(xr + r0) + v0);
-                       if (r1 < N) __stcg(xr + r1, __ldcg(xr + r1) + v1);
+                       float* xr = (pn ? pa : x) + (size_t)b * N;
+                       __stcg(xr + r0, pn ? v0 : __ldcg(xr + r0) + v0);
+                       if (r1 < N) __stcg(xr + r1, pn ? v1 : __ldcg(xr + r1) + v1);
                      });
     grid_sync(bar);
 
-    // ---- phase 6: rmsnorm + w13, SiLU(gate) * up
-    rows_rms(x, B, N, a.eps, rinv, red);
+    // ---- phase 6: rmsnorm + w13, SiLU(gate) * up (or gelu); post-norms:
+    // over x plus the normed attention projection
+    const float* pan = pn ? a.post_attn_norm + (size_t)l * N : nullptr;
+    if (pan != nullptr) pending_rms(pa);
+    rows_rms(resid(pa, pan), B, N, a.eps, rinv, red);
     gemv_phase<BODY>(a.w13 + l * H2 * rowb(N), a.s13 + l * H2 * rows(N), H2, N, a.c13, B, gq, smem,
-                     red, sxs, normed(a.mlp_norm + (size_t)l * N),
+                     red, sxs, normed(resid(pa, pan), a.mlp_norm + (size_t)l * N),
                      [&](int p, int, int, int b, float gt, float up) {
-                       __stcg(act + (size_t)b * H + p, gt / (1.0f + expf(-gt)) * up);
+                       __stcg(act + (size_t)b * H + p,
+                              (FAM && a.gelu ? gelu_tanh(gt) : gt / (1.0f + expf(-gt))) * up);
                      });
     grid_sync(bar);
 
-    // ---- phase 7: w2 + residual (and the output rows after the last layer)
+    // ---- phase 7: w2 + residual (and the output rows after the last
+    // layer); post-norms: x takes the pending attention projection first
+    // (nothing reads x in this phase), the w2 output goes to pd
+    if (pan != nullptr) settle(pa, pan, x);
     {
-      float* xo = l == a.L - 1 ? a.xout : nullptr;
+      float* xo = l == a.L - 1 && !pn ? a.xout : nullptr;
       gemv_phase<BODY>(a.w2 + l * N * rowb(H), a.s2 + l * N * rows(H), N, H, 0, B, gq, smem, red,
                        sxs, plain(act, H), [&](int, int r0, int r1, int b, float v0, float v1) {
-                         float* xr = x + (size_t)b * N;
-                         const float x0 = __ldcg(xr + r0) + v0;
+                         float* xr = (pn ? pd : x) + (size_t)b * N;
+                         const float x0 = pn ? v0 : __ldcg(xr + r0) + v0;
                          __stcg(xr + r0, x0);
                          if (xo != nullptr) xo[(size_t)b * N + r0] = x0;
                          if (r1 < N) {
-                           const float x1 = __ldcg(xr + r1) + v1;
+                           const float x1 = pn ? v1 : __ldcg(xr + r1) + v1;
                            __stcg(xr + r1, x1);
                            if (xo != nullptr) xo[(size_t)b * N + r1] = x1;
                          }
@@ -848,9 +959,16 @@ __global__ void __launch_bounds__(MK_THREADS, 2) fused_decode_kernel(const MkArg
     grid_sync(bar);
   }
 
+  // post-norms: the last layer's ffn projection is still pending in pd
+  const float* plast = pn ? a.post_mlp_norm + (size_t)(a.L - 1) * N : nullptr;
+  if (plast != nullptr) {
+    pending_rms(pd);
+    settle(pd, plast, a.xout);
+  }
   if (a.wcls == nullptr) return;
 
-  // ---- head fold: final norm, i8 head, logits and a first-occurrence argmax
+  // ---- head fold: final norm, i8 head, logits (softcapped) and a
+  // first-occurrence argmax
   float bv[MK_MAX_B];
   int bi[MK_MAX_B];
 #pragma unroll
@@ -858,22 +976,25 @@ __global__ void __launch_bounds__(MK_THREADS, 2) fused_decode_kernel(const MkArg
     bv[b] = -INFINITY;
     bi[b] = 0x7fffffff;
   }
-  rows_rms(x, B, N, a.eps, rinv, red);
-  gemv_phase<HEAD>(a.wcls, a.swcls, a.V, N, 0, B, 0, smem, red, sxs, normed(a.out_norm),
-             [&](int, int r0, int r1, int b, float v0, float v1) {
-               a.logits[(size_t)b * a.V + r0] = v0;
-               if (v0 > bv[b] || (v0 == bv[b] && r0 < bi[b])) {
-                 bv[b] = v0;
-                 bi[b] = r0;
-               }
-               if (r1 < a.V) {
-                 a.logits[(size_t)b * a.V + r1] = v1;
-                 if (v1 > bv[b] || (v1 == bv[b] && r1 < bi[b])) {
-                   bv[b] = v1;
-                   bi[b] = r1;
-                 }
-               }
-             });
+  rows_rms(resid(pd, plast), B, N, a.eps, rinv, red);
+  gemv_phase<HEAD>(a.wcls, a.swcls, a.V, N, 0, B, 0, smem, red, sxs,
+                   normed(resid(pd, plast), a.out_norm),
+                   [&](int, int r0, int r1, int b, float v0, float v1) {
+                     if (FAM) v0 = softcap(v0, a.logit_softcap);
+                     a.logits[(size_t)b * a.V + r0] = v0;
+                     if (v0 > bv[b] || (v0 == bv[b] && r0 < bi[b])) {
+                       bv[b] = v0;
+                       bi[b] = r0;
+                     }
+                     if (r1 < a.V) {
+                       if (FAM) v1 = softcap(v1, a.logit_softcap);
+                       a.logits[(size_t)b * a.V + r1] = v1;
+                       if (v1 > bv[b] || (v1 == bv[b] && r1 < bi[b])) {
+                         bv[b] = v1;
+                         bi[b] = r1;
+                       }
+                     }
+                   });
   if (lane == 0) {
 #pragma unroll
     for (int b = 0; b < MK_MAX_B; ++b) {
@@ -922,9 +1043,10 @@ struct Occupancy {
   int blocks_per_sm = -1, sms = 0;
 };
 
-// the cooperative grid of fused_decode_kernel<QUANT, BODY> on the current
-// device: the co-resident blocks, found once per device, cache kind and body
-template <bool QUANT, int BODY>
+// the cooperative grid of fused_decode_kernel<QUANT, BODY, HD, FAM> on the
+// current device: the co-resident blocks, found once per device and
+// instantiation
+template <bool QUANT, int BODY, int HD, bool FAM>
 cudaError_t grid_of(int* grid) {
   int dev;
   cudaError_t e = cudaGetDevice(&dev);
@@ -938,11 +1060,11 @@ cudaError_t grid_of(int* grid) {
     if (e != cudaSuccess) return e;
     e = cudaDeviceGetAttribute(&occ.sms, cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return e;
-    e = cudaFuncSetAttribute(fused_decode_kernel<QUANT, BODY>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    e = cudaFuncSetAttribute(fused_decode_kernel<QUANT, BODY, HD, FAM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              MK_SMEM);
     if (e != cudaSuccess) return e;
     int n = 0;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fused_decode_kernel<QUANT, BODY>, MK_THREADS,
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fused_decode_kernel<QUANT, BODY, HD, FAM>, MK_THREADS,
                                                       MK_SMEM);
     if (e != cudaSuccess) return e;
     occ.blocks_per_sm = coop ? n : 0;
@@ -957,25 +1079,29 @@ cudaError_t grid_of(int* grid) {
 
 // bytes of the workspace: the barrier word (zeroed once by the caller and
 // left balanced by every complete launch) and the cross-phase buffers
-XQ_EXPORT long long xq_fused_decode_workspace(int B, int N, int KH, int G, int S, int H) {
-  return (long long)ws_layout(B, N, KH, G, S, H).total;
+XQ_EXPORT long long xq_fused_decode_workspace(int B, int N, int KH, int G, int S, int H, int hd) {
+  return (long long)ws_layout(B, N, KH, G, S, H, hd).total;
 }
 
 // blocks in the cooperative grid of the bf16-cache kernel on the current
 // device (<= 0: none fit)
 XQ_EXPORT int xq_fused_decode_grid() {
   int grid = 0;
-  return grid_of<false, BODY_BF16>(&grid) == cudaSuccess ? grid : 0;
+  return grid_of<false, BODY_BF16, 128, false>(&grid) == cudaSuccess ? grid : 0;
 }
 
 // ptr: meta, x0, cexp_p, sexp_p, c1, s1, freqs, embed, attn_norm, mlp_norm,
 //      wqkv, sqkv, wo, so, w13, s13, w2, s2, out_norm, wcls, swcls, ck, cv,
-//      xout, logits, token, work, k_scale, v_scale, bqkv, q_norm, k_norm
-//      (null where a fold is off; the scale planes with an int8 cache only)
+//      xout, logits, token, work, k_scale, v_scale, bqkv, q_norm, k_norm,
+//      post_attn_norm, post_mlp_norm (null where a fold is off; the scale
+//      planes with an int8 cache only)
 // dim: L, B, N, KH, G, hd, H, S, V, c13, cache kind (1 bf16, 2 int8),
-//      body (0 bf16 activations, 1 a8, 2 q4), q4 group (0 unless q4)
+//      body (0 bf16 activations, 1 a8, 2 q4), q4 group (0 unless q4),
+//      act (0 SiLU, 1 tanh-approximate gelu)
+// embed_scale multiplies the embed fold's rows; the softcaps are 0 when off
 XQ_EXPORT int xq_fused_decode(void* const* ptr, const int* dim, float eps, float clip,
-                              float sm_scale, void* stream) {
+                              float sm_scale, float embed_scale, float attn_softcap,
+                              float logit_softcap, void* stream) {
   MkArgs a;
   a.meta = (const int*)ptr[0];
   a.x0 = (const float*)ptr[1];
@@ -1009,6 +1135,8 @@ XQ_EXPORT int xq_fused_decode(void* const* ptr, const int* dim, float eps, float
   a.bqkv = (const float*)ptr[29];
   a.q_norm = (const float*)ptr[30];
   a.k_norm = (const float*)ptr[31];
+  a.post_attn_norm = (const float*)ptr[32];
+  a.post_mlp_norm = (const float*)ptr[33];
   a.L = dim[0];
   a.B = dim[1];
   a.N = dim[2];
@@ -1023,22 +1151,29 @@ XQ_EXPORT int xq_fused_decode(void* const* ptr, const int* dim, float eps, float
   const bool quant = cache_kind == 2;
   const int body = dim[11];
   a.group = dim[12];
+  a.gelu = dim[13];
   a.eps = eps;
   a.clip = clip;
   a.sm_scale = sm_scale;
+  a.embed_scale = embed_scale;
+  a.attn_softcap = attn_softcap;
+  a.logit_softcap = logit_softcap;
   const bool embed_fold = a.embed != nullptr, head_fold = a.wcls != nullptr;
-  const bool ok = hd == MK_HD && (cache_kind == 1 || (quant && a.ks && a.vs)) && a.L >= 1 && a.B >= 1 && a.B <= MK_MAX_B &&
+  const bool ok = (hd == 128 || hd == 256) && (cache_kind == 1 || (quant && a.ks && a.vs)) &&
+                  a.L >= 1 && a.B >= 1 && a.B <= MK_MAX_B &&
                   a.KH >= 1 && a.G >= 1 && a.G <= MK_MAX_G && a.N >= 16 && a.N % 16 == 0 &&
                   a.H >= 16 && a.H % 16 == 0 && a.c13 >= 1 && a.H % a.c13 == 0 && a.S >= 1 &&
                   (embed_fold ? a.freqs != nullptr : (a.x0 && a.cexp_p && a.sexp_p)) &&
                   (!head_fold || (a.V >= 1 && a.out_norm && a.swcls && a.logits && a.token)) &&
                   a.work != nullptr && body >= BODY_BF16 && body <= BODY_Q4 &&
-                  (a.q_norm == nullptr) == (a.k_norm == nullptr);
+                  (a.q_norm == nullptr) == (a.k_norm == nullptr) &&
+                  (a.post_attn_norm == nullptr) == (a.post_mlp_norm == nullptr) &&
+                  (a.gelu == 0 || a.gelu == 1) && attn_softcap >= 0.f && logit_softcap >= 0.f;
   if (!ok) return (int)cudaErrorInvalidValue;
   if (body == BODY_Q4) {
     // packed rows of every contraction width, and each phase's high-group
     // terms plus one group of codes per row in the block's shared memory
-    const int g = a.group, QD = a.KH * a.G * MK_HD;
+    const int g = a.group, QD = a.KH * a.G * hd;
     if (g < 128 || g % 128 != 0) return (int)cudaErrorInvalidValue;
     const int widths[3] = {a.N, QD, a.H};
     for (int K : widths)
@@ -1050,18 +1185,27 @@ XQ_EXPORT int xq_fused_decode(void* const* ptr, const int* dim, float eps, float
   int grid = 0;
   cudaError_t e;
   const void* kernel;
-#define XQ_BODY(Q, BD)                                  \
-  e = grid_of<Q, BD>(&grid);                            \
-  kernel = (const void*)fused_decode_kernel<Q, BD>;
+  // the Gemma folds' instantiation: at hd 256 always (only Gemma models
+  // have it), at hd 128 when one of them is on
+  const bool fam = hd == 256 || a.gelu || embed_scale != 1.f || attn_softcap != 0.f ||
+                   logit_softcap != 0.f || a.post_attn_norm != nullptr;
+#define XQ_BODY(Q, BD, HD, F)                           \
+  e = grid_of<Q, BD, HD, F>(&grid);                     \
+  kernel = (const void*)fused_decode_kernel<Q, BD, HD, F>;
+#define XQ_HD(Q, BD)                                    \
+  if (hd == 256) { XQ_BODY(Q, BD, 256, true) }          \
+  else if (fam) { XQ_BODY(Q, BD, 128, true) }           \
+  else { XQ_BODY(Q, BD, 128, false) }
   if (quant) {
-    if (body == BODY_Q4) { XQ_BODY(true, BODY_Q4) }
-    else if (body == BODY_A8) { XQ_BODY(true, BODY_A8) }
-    else { XQ_BODY(true, BODY_BF16) }
+    if (body == BODY_Q4) { XQ_HD(true, BODY_Q4) }
+    else if (body == BODY_A8) { XQ_HD(true, BODY_A8) }
+    else { XQ_HD(true, BODY_BF16) }
   } else {
-    if (body == BODY_Q4) { XQ_BODY(false, BODY_Q4) }
-    else if (body == BODY_A8) { XQ_BODY(false, BODY_A8) }
-    else { XQ_BODY(false, BODY_BF16) }
+    if (body == BODY_Q4) { XQ_HD(false, BODY_Q4) }
+    else if (body == BODY_A8) { XQ_HD(false, BODY_A8) }
+    else { XQ_HD(false, BODY_BF16) }
   }
+#undef XQ_HD
 #undef XQ_BODY
   if (e != cudaSuccess) return (int)e;
   void* args[] = {&a};
@@ -1078,7 +1222,7 @@ XQ_EXPORT int xq_fused_decode(void* const* ptr, const int* dim, float eps, float
 // barrier is the event time over iters (chip_smoke.py)
 XQ_EXPORT int xq_grid_barrier_bench(void* work, int iters, void* stream) {
   int grid = 0;
-  cudaError_t e = grid_of<false, BODY_BF16>(&grid);
+  cudaError_t e = grid_of<false, BODY_BF16, 128, false>(&grid);
   if (e != cudaSuccess) return (int)e;
   e = cudaFuncSetAttribute(grid_barrier_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MK_SMEM);
   if (e != cudaSuccess) return (int)e;

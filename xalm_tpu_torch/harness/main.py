@@ -22,9 +22,12 @@
                       width, e.g. 128 or 512); decode then takes int8
                       activations (the megakernel's q4 body, or the q4 GEMV)
 
-Decode goes through the whole-step megakernel where it takes the model (i8
-or q4 body, a bf16 or int8 cache on the card, B <= 8) and through the
-per-layer kernels otherwise; the stats print which ("decode path: ..."). The
+Every family the JAX converter writes loads (Llama/Mistral, Mixtral, Qwen2
+and Qwen3, Gemma, Gemma-2, Phi-3). Decode goes through the whole-step
+megakernel where it takes the model (i8 or q4 body, a bf16 or int8 cache on
+the card, B <= 8, head_dim 128 or 256 on the card) and through the
+per-layer kernels otherwise (Phi-3's head_dim 96, MoE); the stats print
+which ("decode path: ..."). The
 JAX harness's --temperature, --spec, --draft, --session, --tp/--dp/--pp
 flags belong to later slices: they are accepted and refused with a message.
 """

@@ -2,8 +2,10 @@
 ``xalm_tpu/models/config.py``): the same fields, defaults and the
 max_seq_len clamp to 4096 with a ``context`` override, plus the geometries
 of the chip smoke: ``MISTRAL_7B``, ``MIXTRAL_8X7B``, ``QWEN2_5_7B``,
-``QWEN3_8B`` and ``LLAMA3_1_8B``, each from its Hugging Face
-``config.json`` with the window clamped to 4096."""
+``QWEN3_8B``, ``LLAMA3_1_8B``, ``GEMMA2_9B``, ``GEMMA_7B`` and
+``PHI3_MINI_4K``, each from its Hugging Face ``config.json`` with the
+window clamped to 4096, and the family fields as the JAX converter writes
+them (``xalm_tpu/convert/convert.py``)."""
 
 from __future__ import annotations
 
@@ -12,7 +14,7 @@ import math
 
 __all__ = [
     "ModelConfig", "KV_SINKS", "MISTRAL_7B", "MIXTRAL_8X7B", "QWEN2_5_7B", "QWEN3_8B",
-    "LLAMA3_1_8B",
+    "LLAMA3_1_8B", "GEMMA2_9B", "GEMMA_7B", "PHI3_MINI_4K",
 ]
 
 # StreamingLLM attention-sink count
@@ -194,4 +196,70 @@ LLAMA3_1_8B = ModelConfig(
     rope_low_freq_factor=1.0,
     rope_high_freq_factor=4.0,
     rope_original_max_pos=8192,
+)
+
+# Gemma-2-9B (google/gemma-2-9b-it config.json): head_dim 256, gelu (tanh),
+# the sqrt(hidden_size) embed scale, attention and final-logit softcaps 50
+# and 30, post-attention and post-feedforward norms, tied embeddings. The
+# converter stores max_seq_len as min(max_position_embeddings 8192,
+# sliding_window 4096), where the alternating local/global attention is one
+# behaviour, and folds query_pre_attn_scalar 256 (== head_dim) into wq.
+GEMMA2_9B = ModelConfig(
+    dim=3584,
+    hidden_dim=14336,
+    head_dim=256,
+    n_layers=42,
+    n_heads=16,
+    n_kv_heads=8,
+    vocab_size=256000,
+    max_seq_len=4096,
+    rope_theta=1e4,
+    rotary_dim=256,
+    norm_eps=1e-6,
+    act="gelu",
+    tie_word_embeddings=True,
+    embed_scale=3584.0 ** 0.5,
+    attn_softcap=50.0,
+    logit_softcap=30.0,
+    post_norms=True,
+)
+
+# Gemma-7B (google/gemma-7b config.json): head_dim 256 with q_dim 4096 !=
+# dim 3072, GQA group 1, gelu (tanh), the sqrt(hidden_size) embed scale,
+# tied embeddings; the window clamped to 4096 (of 8192)
+GEMMA_7B = ModelConfig(
+    dim=3072,
+    hidden_dim=24576,
+    head_dim=256,
+    n_layers=28,
+    n_heads=16,
+    n_kv_heads=16,
+    vocab_size=256000,
+    max_seq_len=4096,
+    rope_theta=1e4,
+    rotary_dim=256,
+    norm_eps=1e-6,
+    act="gelu",
+    tie_word_embeddings=True,
+    embed_scale=3072.0 ** 0.5,
+)
+
+# Phi-3-mini-4k-instruct (microsoft/Phi-3-mini-4k-instruct config.json):
+# head_dim 96, GQA group 1, vocab 32064, untied head. Its sliding_window of
+# 2047 is not modelled: the port follows the JAX package, which attends
+# over the whole 4096-slot window.
+PHI3_MINI_4K = ModelConfig(
+    dim=3072,
+    hidden_dim=8192,
+    head_dim=96,
+    n_layers=32,
+    n_heads=32,
+    n_kv_heads=32,
+    vocab_size=32064,
+    max_seq_len=4096,
+    rope_theta=1e4,
+    rotary_dim=96,
+    norm_eps=1e-5,
+    act="silu",
+    tie_word_embeddings=False,
 )

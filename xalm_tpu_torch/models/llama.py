@@ -9,7 +9,8 @@ Behavioural contract, as in the JAX package:
 - StreamingLLM sink + ring cache: writes at ``kv_pos``, attends over
   ``kv_len`` slots, re-rotates the pinned sink keys by +1 position per
   wrapped decode step.
-- GLU FFN: w2(silu(w1 x) * w3 x) through the fused, chunk-interleaved w13.
+- GLU FFN: w2(act(w1 x) * w3 x) through the fused, chunk-interleaved w13,
+  act SiLU, or the tanh-approximate gelu (``cfg.act == "gelu"``, Gemma).
 - Sparse-MoE FFN (Mixtral, ``moe_ffn``): f32 router softmax, top-k of the
   probabilities, renormalised. A t = 1 step at B = 1 on the per-layer
   paths runs the gathered decode, which streams only the k chosen experts
@@ -58,13 +59,26 @@ branch under ``a8_prefill``; the megakernel runs its a8 body under
 ``a8_decode`` (and its q4 body for a q4 model, which needs it).
 
 Unlike the JAX function the cache is updated in place; the per-layer path
-runs its layers as a Python loop. Of the family extras it runs the Qwen2
-qkv bias (added after the qkv matmul, outside the kernels, on every path),
-the Qwen3 per-head q/k RMS norms (after the clip, before rope) and the
-linear and llama3 rope scaling (``rope_freqs``); the megakernel folds the
-bias and the q/k norms in. Packed-q4 experts (Mixtral q4), tp/pp,
-speculative verify and the other family extras (post-norms, softcaps,
-gelu, embed scale) are later slices and raise NotImplementedError.
+runs its layers as a Python loop. The family extras, on every path (the
+megakernel folds each of them in):
+
+- the Qwen2 qkv bias (added after the qkv matmul, outside the kernels) and
+  the Qwen3 per-head q/k RMS norms (after the clip, before rope);
+- linear and llama3 rope scaling (``rope_freqs``);
+- Gemma's embed scale (x times ``cfg.embed_scale`` after the lookup) and
+  gelu;
+- Gemma-2's post-norms (the wo and w2 outputs RMS-normed before each
+  residual add), its logit softcap (tanh(l / c) * c wherever logits leave
+  the model) and its attention softcap. No kernel of the per-layer path
+  applies the attention cap (nor did the TPU kernels), so with the cap set
+  every step and chunk runs the dense attention over the layer, after the
+  ring insert (kernel 2, or 5 and 6, at t = 1; the chunk write at t > 1).
+  The JAX forward gates its fused decode attention on the cap the same
+  way, but sends bf16-cache prefill chunks to its cap-free fused prefill;
+  the port follows HF and the JAX dense path there (ROADMAP section 3).
+
+Packed-q4 experts (Mixtral q4), tp/pp and speculative verify are later
+slices and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -75,19 +89,18 @@ from typing import Literal
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from xalm_tpu_torch.models.config import KV_SINKS, ModelConfig
 from xalm_tpu_torch.models.params import (
     ModelParams,
     Q8_FIXED_SCALE,
     QWeight,
-    _check_dense,
     ffn_chunk,
     split_qkv_rows,
     split_w13_rows,
 )
 from xalm_tpu_torch.ops import attention as attn_ops
+from xalm_tpu_torch.ops.attention import act_fn, softcap
 from xalm_tpu_torch.ops import fused_decode as fd
 from xalm_tpu_torch.ops import qmatmul as qmm
 from xalm_tpu_torch.ops.linear import qmatmul as plain_linear
@@ -95,7 +108,7 @@ from xalm_tpu_torch.runtime.cache import KVCache, ring_indices
 
 __all__ = [
     "forward", "rope_freqs", "apply_rope", "rmsnorm", "embed_lookup", "attention", "moe_route",
-    "moe_ffn",
+    "moe_ffn", "act_fn",
 ]
 
 LogitsMode = Literal["none", "last", "all", "token"]
@@ -179,9 +192,10 @@ def embed_lookup(embed: QWeight, tokens: torch.Tensor) -> torch.Tensor:
     return rows
 
 
-def attention(q, k, v, kv_len, compute_dtype=torch.float32) -> torch.Tensor:
+def attention(q, k, v, kv_len, compute_dtype=torch.float32, attn_softcap: float = 0.0):
     """Dense masked GQA attention (the reference path). q (B, T, H, hd) f32
-    rotated; k, v (B, KH, S, hd); kv_len (B, T). Returns (B, T, H*hd)."""
+    rotated; k, v (B, KH, S, hd); kv_len (B, T); the scores capped by
+    ``attn_softcap`` before the mask (0: none). Returns (B, T, H*hd)."""
     b, t, hq, hd = q.shape
     kh, s = k.shape[1], k.shape[2]
     g = hq // kh
@@ -191,6 +205,7 @@ def attention(q, k, v, kv_len, compute_dtype=torch.float32) -> torch.Tensor:
         qg.to(compute_dtype).to(torch.float32),
         k.to(compute_dtype).to(torch.float32),
     )
+    scores = softcap(scores, attn_softcap)
     mask = torch.arange(s, device=q.device)[None, None, None, None, :] < kv_len[:, None, None, :, None]
     scores = torch.where(mask, scores, -math.inf)
     att = torch.softmax(scores, dim=-1)
@@ -247,7 +262,7 @@ def moe_ffn(x: torch.Tensor, lp, layer: int, cfg: ModelConfig, impl: str,
             return v, None if qw.scale is None else qw.scale.reshape(-1, qw.scale.shape[-1])
 
         gate, up = split_w13_rows(multi(xn.reshape(1, -1), *flat(lp.w13e), idxs), chunk)
-        dn_e = multi((F.silu(gate) * up).contiguous(), *flat(lp.w2e), idxs, shared_x=False)
+        dn_e = multi((act_fn(cfg.act, gate) * up).contiguous(), *flat(lp.w2e), idxs, shared_x=False)
         return torch.sum(topv[0, 0, :, None] * dn_e, dim=0).reshape(1, 1, -1)
     # dense-masked: every expert, weighted by its renormalised probability
     # (0 for the unchosen); inputs rounded to compute_dtype, f32 products
@@ -262,7 +277,7 @@ def moe_ffn(x: torch.Tensor, lp, layer: int, cfg: ModelConfig, impl: str,
     for e in range(cfg.n_experts):
         a13 = plain_linear(xn, expert(lp.w13e, e), compute_dtype=compute_dtype)
         gate, up = split_w13_rows(a13, chunk)
-        dn = plain_linear(F.silu(gate) * up, expert(lp.w2e, e), compute_dtype=compute_dtype)
+        dn = plain_linear(act_fn(cfg.act, gate) * up, expert(lp.w2e, e), compute_dtype=compute_dtype)
         down = down + dn * wts[..., e:e + 1]
     return down
 
@@ -337,7 +352,6 @@ def forward(
     opt t > 1 chunks / t = 1 steps into the int8-activation routes."""
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}; one of {IMPLS}")
-    _check_dense(cfg)
     dev = params.embed.values.device
     b, t = tokens.shape
     s = cfg.max_seq_len
@@ -408,7 +422,8 @@ def forward(
             return None
         if logits_mode in ("last", "token"):
             x = x[:, -1:]
-        logits = mm(rmsnorm(x, params.out_norm, cfg.norm_eps), params.wcls)
+        logits = softcap(mm(rmsnorm(x, params.out_norm, cfg.norm_eps), params.wcls),
+                         cfg.logit_softcap)
         if logits_mode in ("last", "token"):
             logits = logits[:, 0]
         if logits_mode == "token":
@@ -433,6 +448,8 @@ def forward(
         kv_pos = torch.where(valid, kv_pos, s)  # sentinel: dropped write
 
     x = embed_lookup(params.embed, tokens)  # (B, T, dim) f32
+    if cfg.embed_scale != 1.0:  # Gemma's residual normalizer, sqrt(dim)
+        x = x * cfg.embed_scale
     lp = params.layers
     kv_update = attn_ops.kv_update if impl == "kernel" else attn_ops.kv_update_plain
     flash_decode = attn_ops.flash_decode if impl == "kernel" else attn_ops.flash_decode_plain
@@ -441,8 +458,19 @@ def forward(
     flash_decode_q = attn_ops.flash_decode_q if impl == "kernel" else attn_ops.flash_decode_q_plain
 
     clip = cfg.qkv_clip if math.isfinite(cfg.qkv_clip) else None
+    cap = cfg.attn_softcap  # set: the dense attention, never a cap-free kernel
     ck, cv, ks, vs = cache.k, cache.v, cache.k_scale, cache.v_scale
     quant = cache.quantized
+
+    def dense(layer: int):
+        """The dense attention over the layer's cache rows (an int8 cache
+        dequantised), the cap applied."""
+        kl, vl = ck[layer], cv[layer]
+        if quant:
+            kl = kl.to(torch.float32) * ks[layer][..., None]
+            vl = vl.to(torch.float32) * vs[layer][..., None]
+        return attention(q, kl, vl, kv_len, compute_dtype, cap)
+
     if t > 1:
         starts = [min(p, s - t) for p in pos_h.tolist()]
     else:
@@ -473,12 +501,14 @@ def forward(
             # flash-decode over the codes
             kv_update_q(ck, cv, ks, vs, layer, k[:, 0].contiguous(), v[:, 0].contiguous(),
                         kv_pos0, rot_flag, cexp1, sexp1)
-            attn_out = flash_decode_q(q[:, 0].contiguous(), ck, cv, ks, vs, layer, kv_len0)[:, None]
+            attn_out = dense(layer) if cap else flash_decode_q(
+                q[:, 0].contiguous(), ck, cv, ks, vs, layer, kv_len0)[:, None]
         elif per_layer and t == 1:
             # decode: in-place ring write + sink rotation, then flash-decode
             kv_update(ck, cv, layer, k[:, 0].contiguous(), v[:, 0].contiguous(),
                       kv_pos0, rot_flag, cexp1, sexp1)
-            attn_out = flash_decode(q[:, 0].contiguous(), ck, cv, layer, kv_len0)[:, None]
+            attn_out = dense(layer) if cap else flash_decode(
+                q[:, 0].contiguous(), ck, cv, layer, kv_len0)[:, None]
         elif quant:
             # int8 prefill chunk, and "xla": quantised scatter writes, the
             # sinks re-rotated at t = 1, the dequantised layer into the
@@ -489,29 +519,32 @@ def forward(
                 _write_rows(sc, layer, kv_pos, scale)
             if t == 1:
                 _rotate_sinks(ck, layer, active, freqs, ks)
-            kl = ck[layer].to(torch.float32) * ks[layer][..., None]
-            vl = cv[layer].to(torch.float32) * vs[layer][..., None]
-            attn_out = attention(q, kl, vl, kv_len, compute_dtype)
-            del kl, vl
+            attn_out = dense(layer)
         elif per_layer:
             # chunked prefill: contiguous in-place writes + causal flash
             _write_chunk(ck, layer, starts, k, valid)
             _write_chunk(cv, layer, starts, v, valid)
-            attn_out = flash_prefill(q.contiguous(), ck, cv, layer, pos)
+            attn_out = dense(layer) if cap else flash_prefill(q.contiguous(), ck, cv, layer, pos)
         else:  # "xla": scatter writes + dense masked attention
             _write_rows(ck, layer, kv_pos, k)
             _write_rows(cv, layer, kv_pos, v)
             if t == 1:
                 _rotate_sinks(ck, layer, active, freqs)
-            attn_out = attention(q, ck[layer], cv[layer], kv_len, compute_dtype)
-        x = x + mm(attn_out, lp.wo, layer)
+            attn_out = dense(layer)
+        proj = mm(attn_out, lp.wo, layer)
+        if lp.post_attn_norm is not None:  # Gemma-2 post-attention norm
+            proj = rmsnorm(proj, lp.post_attn_norm[layer], cfg.norm_eps)
+        x = x + proj
 
         if lp.w13e is not None:
-            x = x + moe_ffn(x, lp, layer, cfg, impl, compute_dtype)
+            down = moe_ffn(x, lp, layer, cfg, impl, compute_dtype)
         else:
             gate, up = split_w13_rows(mm(x, lp.w13, layer, norm_sw=lp.mlp_norm),
                                       ffn_chunk(cfg.hidden_dim))
-            x = x + mm(F.silu(gate) * up, lp.w2, layer)
+            down = mm(act_fn(cfg.act, gate) * up, lp.w2, layer)
+        if lp.post_mlp_norm is not None:  # Gemma-2 post-feedforward norm
+            down = rmsnorm(down, lp.post_mlp_norm[layer], cfg.norm_eps)
+        x = x + down
 
     return head(x), cache
 
@@ -538,7 +571,7 @@ def _megakernel_step(params, cfg, tokens, pos, cache, valid, logits_mode, impl, 
         x0 = cexp_p = sexp_p = None
         fold_e = dict(embed=params.embed, token=tokens[:, 0], pos=pos_h, freqs=freqs)
     else:
-        x0 = embed_lookup(params.embed, tokens[:, 0].to(dev))
+        x0 = embed_lookup(params.embed, tokens[:, 0].to(dev)) * cfg.embed_scale
         cexp_p, sexp_p = (z[:, 0, 0] for z in rope_tables(
             pos_h[:, None], rope_constants(cfg, torch.device("cpu"))[0]))
         fold_e = {}

@@ -26,8 +26,12 @@ partner; ``recode_params_q4`` packs an i8/q8/float body at load.
 
 Family extras: Qwen2's q/k/v projection bias is ``bqkv`` (L, DQ) f32, fused
 in ``wqkv``'s row order; Qwen3's per-head q/k RMS norm weights are
-``q_norm``/``k_norm`` (L, head_dim) f32. fp8 and the other extras
-(post-norms, softcaps, gelu, embed scale) are later slices.
+``q_norm``/``k_norm`` (L, head_dim) f32; Gemma-2's post-attention and
+post-feedforward norm weights are ``post_attn_norm``/``post_mlp_norm`` (L,
+dim) f32 (the converter files them as ``l.{i}.attn.postnorm.weight`` and
+``l.{i}.mlp.postnorm.weight``, the (1 + w) offset folded in). Gemma's gelu
+and embed scale and Gemma-2's softcaps are config fields
+(``models/config.py``). fp8 is a later slice.
 """
 
 from __future__ import annotations
@@ -127,6 +131,8 @@ class LayerParams:
     bqkv: torch.Tensor | None = None  # (L, kh*(g+2)*hd) f32 Qwen2 qkv bias, wqkv's row order
     q_norm: torch.Tensor | None = None  # (L, head_dim) f32 Qwen3 per-head q RMS norm
     k_norm: torch.Tensor | None = None  # (L, head_dim) f32 Qwen3 per-head k RMS norm
+    post_attn_norm: torch.Tensor | None = None  # (L, dim) f32 Gemma-2 post-attention norm
+    post_mlp_norm: torch.Tensor | None = None  # (L, dim) f32 Gemma-2 post-feedforward norm
 
 
 @dataclasses.dataclass
@@ -143,7 +149,7 @@ class ModelParams:
         if self.wcls is not self.embed:
             n += self.wcls.nbytes()
         for t in (lp.attn_norm, lp.mlp_norm, self.out_norm, lp.wgate, lp.bqkv, lp.q_norm,
-                  lp.k_norm):
+                  lp.k_norm, lp.post_attn_norm, lp.post_mlp_norm):
             if t is not None:
                 n += t.nelement() * 4
         return n
@@ -207,26 +213,12 @@ def _host_f32(arr: np.ndarray, tdt: torch.dtype) -> np.ndarray:
     return np.asarray(arr, np.float32)
 
 
-def _check_dense(cfg: ModelConfig) -> None:
-    """Refuse the family extras of later slices (the Qwen2 bias, the Qwen3
-    q/k norms and rope scaling are taken)."""
-    extras = {
-        "post_norms": cfg.post_norms,
-        "embed_scale": cfg.embed_scale != 1.0,
-        "softcaps": cfg.attn_softcap or cfg.logit_softcap,
-        "gelu": cfg.act != "silu",
-    }
-    for name, present in extras.items():
-        if present:
-            raise NotImplementedError(f"{name}: later slice")
-
-
 def load_params(xf, cfg: ModelConfig, device="cuda") -> ModelParams:
-    """Load and stack all weights of a Llama/Mistral/Mixtral container
-    (f32/f16/bf16/q8/i8, packed q4) from an open XalmFile onto ``device``
+    """Load and stack all weights of a container of any family the JAX
+    package reads (Llama/Mistral/Mixtral, Qwen2/3, Gemma, Gemma-2, Phi-3;
+    f32/f16/bf16/q8/i8, packed q4) from an open XalmFile onto ``device``
     (the card unless the caller asks for the CPU). f16 stays f16 (the JAX
     loader keeps it off-TPU too)."""
-    _check_dense(cfg)
 
     def info(name: str, expect_shape):
         t = xf.tensors.get(name)
@@ -371,6 +363,8 @@ def load_params(xf, cfg: ModelConfig, device="cuda") -> ModelParams:
         bqkv=bias() if "l.0.attn.q.bias" in xf else None,
         q_norm=stack_norm("l.{}.attn.qnorm.weight", cfg.head_dim) if cfg.qk_norm else None,
         k_norm=stack_norm("l.{}.attn.knorm.weight", cfg.head_dim) if cfg.qk_norm else None,
+        post_attn_norm=stack_norm("l.{}.attn.postnorm.weight", d) if cfg.post_norms else None,
+        post_mlp_norm=stack_norm("l.{}.mlp.postnorm.weight", d) if cfg.post_norms else None,
     )
     embed = single("embed.weight", (cfg.vocab_size, d))
     out_norm = _torch(_host_f32(xf.load("output.norm.weight"),
@@ -393,9 +387,6 @@ def from_jax_params(tree, device="cpu") -> ModelParams:
     ``ModelParams`` whose leaves the caller turned into numpy arrays. The
     layouts are the same, so every tensor is a bit-exact copy."""
     lp = tree.layers
-    for name in ("post_attn_norm", "post_mlp_norm"):
-        if getattr(lp, name, None) is not None:
-            raise NotImplementedError(f"{name}: later slice")
     opt = lambda a: None if a is None else _from_np(a, device)  # noqa: E731
 
     def qw(w) -> QWeight | None:
@@ -423,6 +414,8 @@ def from_jax_params(tree, device="cpu") -> ModelParams:
             bqkv=opt(lp.bqkv),
             q_norm=opt(lp.q_norm),
             k_norm=opt(lp.k_norm),
+            post_attn_norm=opt(lp.post_attn_norm),
+            post_mlp_norm=opt(lp.post_mlp_norm),
         ),
         out_norm=_from_np(tree.out_norm, device),
         wcls=embed if tree.wcls is tree.embed else qw(tree.wcls),

@@ -12,9 +12,18 @@ its design answers that):
 
 Each wrapper launches its kernel for CUDA tensors and runs its ``*_plain``
 version, the same function in plain PyTorch, for CPU tensors. Their shape
-limits (head_dim 128, the GQA groups) live in the CUDA source, which
-refuses other shapes. The cache (L, B, KH, S_phys, hd) and the scale planes
-(L, B, KH, S_phys) are updated in place.
+limits live in the CUDA source, which refuses other shapes: flash-decode,
+its int8 form and flash-prefill take head_dim 96, 128 and 256 (Phi-3;
+Llama, Mistral and Qwen; Gemma and Gemma-2) and GQA groups 1..8, the ring
+updates any head_dim up to 1024 (a multiple of 32 for the int8 one). The
+cache (L, B, KH, S_phys, hd) and the scale planes (L, B, KH, S_phys) are
+updated in place.
+
+None of the kernels applies Gemma-2's attention softcap (nor do the TPU
+kernels): the forward sends capped attention to its dense path.
+``flash_decode_plain`` and ``flash_decode_q_plain`` take ``attn_softcap``
+for the plain version of the megakernel, which folds the cap in
+(``softcap`` is the cap itself).
 """
 
 from __future__ import annotations
@@ -41,6 +50,8 @@ __all__ = [
     "kv_update_q_plain",
     "flash_decode_q",
     "flash_decode_q_plain",
+    "softcap",
+    "act_fn",
 ]
 
 # keys per tile of the plain prefill's online softmax: the kernel's PF_KT,
@@ -150,9 +161,9 @@ def kv_update(cache_k, cache_v, layer: int, k_new, v_new, kv_pos, rotate, cexp, 
 # ------------------------------------------------------------------ kernel 3
 
 
-def _workspace(lib, device, b: int, h: int, s: int) -> torch.Tensor:
+def _workspace(lib, device, b: int, h: int, s: int, hd: int) -> torch.Tensor:
     """The flash-decode chunk partials (both cache types), one per size."""
-    n_work = lib.xq_flash_decode_workspace(b, h, s)
+    n_work = lib.xq_flash_decode_workspace(b, h, s, hd)
     work = _WORKSPACE.get((device, n_work))
     if work is None:
         work = _WORKSPACE[(device, n_work)] = torch.empty((n_work,), dtype=torch.float32,
@@ -160,15 +171,29 @@ def _workspace(lib, device, b: int, h: int, s: int) -> torch.Tensor:
     return work
 
 
-def flash_decode_plain(q, cache_k, cache_v, layer, kv_len) -> torch.Tensor:
+def softcap(v: torch.Tensor, cap: float) -> torch.Tensor:
+    """Gemma-2's softcap, tanh(v / cap) * cap (cap 0: v as it is), in the
+    kernels' form: v times the f32 reciprocal of cap (the JAX forward's
+    dense path divides, one f32 rounding from it)."""
+    return torch.tanh(v * (1.0 / cap)) * cap if cap else v
+
+
+def act_fn(act: str, gate: torch.Tensor) -> torch.Tensor:
+    """The GLU's activation ``ModelConfig.act``: SiLU, or gelu's tanh
+    approximation (Gemma), as the megakernel's FFN epilogue computes it."""
+    return F.gelu(gate, approximate="tanh") if act == "gelu" else F.silu(gate)
+
+
+def flash_decode_plain(q, cache_k, cache_v, layer, kv_len, attn_softcap: float = 0.0):
     """GQA attention of q (B, H, hd) over the first kv_len slots of the
-    layer's cache, f32 dots; kv_len == 0 rows give 0. -> (B, H*hd) f32."""
+    layer's cache, f32 dots, the scores capped by ``attn_softcap`` (0: none);
+    kv_len == 0 rows give 0. -> (B, H*hd) f32."""
     kl = cache_k[layer].to(torch.float32)  # (B, KH, S, hd)
     vl = cache_v[layer].to(torch.float32)
     b, kh, s, hd = kl.shape
     h = q.shape[1]
     qg = q.to(torch.float32).reshape(b, kh, h // kh, hd) * (1.0 / math.sqrt(hd))
-    scores = torch.matmul(qg, kl.transpose(-1, -2))  # (B, KH, G, S)
+    scores = softcap(torch.matmul(qg, kl.transpose(-1, -2)), attn_softcap)  # (B, KH, G, S)
     live = torch.arange(s, device=q.device)[None, :] < kv_len[:, None]  # (B, S)
     live = live[:, None, None, :]
     scores = torch.where(live, scores, -math.inf)
@@ -192,7 +217,7 @@ def flash_decode(q, cache_k, cache_v, layer: int, kv_len) -> torch.Tensor:
           "q must be contiguous (B, H, hd) f32")
     _vec_i32(what, kv_len, b, q.device)
     lib = build.load_library("attention")
-    work = _workspace(lib, q.device, b, h, s)
+    work = _workspace(lib, q.device, b, h, s, hd)
     out = torch.empty((b, h * hd), dtype=torch.float32, device=q.device)
     err = lib.xq_flash_decode(
         q.data_ptr(), _layer_ptr(cache_k, layer), _layer_ptr(cache_v, layer), kv_len.data_ptr(),
@@ -338,10 +363,12 @@ def kv_update_q(cache_k, cache_v, k_scale, v_scale, layer: int, k_new, v_new, kv
     build.LAUNCHES["kv_update_q"] += 1
 
 
-def flash_decode_q_plain(q, cache_k, cache_v, k_scale, v_scale, layer, kv_len) -> torch.Tensor:
+def flash_decode_q_plain(q, cache_k, cache_v, k_scale, v_scale, layer, kv_len,
+                         attn_softcap: float = 0.0) -> torch.Tensor:
     """GQA attention of q (B, H, hd) over the first kv_len int8 rows of the
     layer, with the row scales factored out of both dots: scores =
-    (bf16(q) . codes_k) * (k_scale * 1/sqrt(hd)); per 128-row chunk, as the
+    (bf16(q) . codes_k) * (k_scale * 1/sqrt(hd)), capped by ``attn_softcap``
+    (0: none); per 128-row chunk, as the
     kernel splits the rows, p = exp(scores - chunk max), l = sum p, acc =
     bf16(p * v_scale) . codes_v; the chunks combine as flash partials.
     kv_len == 0 rows give 0. -> (B, H*hd) f32."""
@@ -353,7 +380,7 @@ def flash_decode_q_plain(q, cache_k, cache_v, k_scale, v_scale, layer, kv_len) -
     g = h // kh
     qg = q.to(torch.bfloat16).to(f32).reshape(b, kh, g, hd)
     kscale = k_scale[layer] * (1.0 / math.sqrt(hd))  # (B, KH, S)
-    scores = torch.matmul(qg, kl.transpose(-1, -2)) * kscale[:, :, None]  # (B, KH, G, S)
+    scores = softcap(torch.matmul(qg, kl.transpose(-1, -2)) * kscale[:, :, None], attn_softcap)
     live = (torch.arange(s, device=q.device)[None, :] < kv_len[:, None])[:, None, None]
     n = -(-s // _DECODE_KEYS)
     pad = n * _DECODE_KEYS - s
@@ -392,7 +419,7 @@ def flash_decode_q(q, cache_k, cache_v, k_scale, v_scale, layer: int, kv_len) ->
           "q must be contiguous (B, H, hd) f32")
     _vec_i32(what, kv_len, b, q.device)
     lib = build.load_library("attention")
-    work = _workspace(lib, q.device, b, h, s)
+    work = _workspace(lib, q.device, b, h, s, hd)
     out = torch.empty((b, h * hd), dtype=torch.float32, device=q.device)
     err = lib.xq_flash_decode_q(
         q.data_ptr(), _layer_ptr(cache_k, layer), _layer_ptr(cache_v, layer),

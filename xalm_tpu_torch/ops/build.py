@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` compiles on its own with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas -v -o build/xalm_tpu_torch/<name>-<hash>.so
+         -Xcompiler -fPIC -Xptxas -v -lineinfo --split-compile=0
+         -o build/xalm_tpu_torch/<name>-<hash>.so
 
 into ``build/xalm_tpu_torch/`` beside the package's checkout; the file name
 carries a hash of the sources and flags, so an edited kernel rebuilds and
@@ -21,7 +22,8 @@ live in the CUDA source alone. Size queries (``*_scratch``,
 it launches its kernel on the card, and nowhere else. A megakernel launch
 counts under its body (``fused_decode``, ``_a8``, ``_q4``) and, when a
 family fold is on, under that fold too (``fused_decode_bias``,
-``fused_decode_qk_norm``).
+``fused_decode_qk_norm``; ``fused_decode_gemma`` for gelu and the embed
+scale, ``fused_decode_gemma2`` for the softcaps and post-norms).
 """
 
 from __future__ import annotations
@@ -39,16 +41,19 @@ __all__ = ["KERNELS", "LAUNCHES", "build_all", "load_library", "reset_launches",
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "xalm_tpu_torch"
+# --split-compile=0 runs the optimizer's passes on every core: it halves the
+# megakernel's build (140 to 70 s on the H100 machine's 8 cores, three
+# sources at once)
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
-    "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo", "--split-compile=0",
 ]
 # source file -> kernel wrappers it backs
 KERNELS = {
     "qmatmul": ("qmatmul", "qmatmul_multi", "qmatmul_q4", "qmatmul_a8"),
     "attention": ("kv_update", "flash_decode", "flash_prefill", "kv_update_q", "flash_decode_q"),
     "fused_decode": ("fused_decode", "fused_decode_a8", "fused_decode_q4", "fused_decode_bias",
-                     "fused_decode_qk_norm"),
+                     "fused_decode_qk_norm", "fused_decode_gemma", "fused_decode_gemma2"),
 }
 LAUNCHES: dict[str, int] = {k: 0 for ks in KERNELS.values() for k in ks}
 
@@ -154,8 +159,8 @@ SIGNATURES = {
     "attention": {
         # ck, cv, knew, vnew, kv_pos, rotate, cexp, sexp, B, KH, S, hd, stream
         "xq_kv_update": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
-        # B, H, S -> f32 elements of the flash-decode workspace
-        "xq_flash_decode_workspace": (_L, [_I, _I, _I]),
+        # B, H, S, hd -> f32 elements of the flash-decode workspace
+        "xq_flash_decode_workspace": (_L, [_I, _I, _I, _I]),
         # q, ck, cv, kv_len, work, out, B, H, KH, S, hd, sm_scale, stream
         "xq_flash_decode": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
         # q, ck, cv, pos, out, B, T, H, KH, S, hd, sm_scale, stream
@@ -166,12 +171,13 @@ SIGNATURES = {
         "xq_flash_decode_q": (_I, [_P] * 8 + [_I, _I, _I, _I, _I, _F, _P]),
     },
     "fused_decode": {
-        # B, N, KH, G, S, H -> bytes of the megakernel's workspace
-        "xq_fused_decode_workspace": (_L, [_I, _I, _I, _I, _I, _I]),
+        # B, N, KH, G, S, H, hd -> bytes of the megakernel's workspace
+        "xq_fused_decode_workspace": (_L, [_I] * 7),
         # blocks in the cooperative grid on the current device (0: none fit)
         "xq_fused_decode_grid": (_I, []),
-        # pointer array, int array (see csrc/fused_decode.cu), eps, clip, sm_scale, stream
-        "xq_fused_decode": (_I, [_P, _P, _F, _F, _F, _P]),
+        # pointer array, int array (see csrc/fused_decode.cu), eps, clip, sm_scale,
+        # embed_scale, attn_softcap, logit_softcap, stream
+        "xq_fused_decode": (_I, [_P, _P] + [_F] * 6 + [_P]),
         # workspace, iterations, stream: grid barriers alone
         "xq_grid_barrier_bench": (_I, [_P, _I, _P]),
     },

@@ -30,17 +30,32 @@ attention dots). Its weight phases run one of three bodies:
   times x's scale. The group scales stay in the container's (L, D, K/g)
   layout.
 
-Two family folds ride along, read from ``params.layers`` as the JAX kernel
-reads them: Qwen2's qkv bias (``bqkv``, added to each qkv row after its
-scale, before the clip) and Qwen3's per-head q/k RMS norms (``q_norm``/
-``k_norm``, over the 128 lanes of each query head and of the K head, after
-the clip and before rope, with ``cfg.norm_eps``; V is not normed). The
-other family folds (softcaps, gelu, post-norms, embed scale) belong to a
-later slice; the port refuses those models at load. ``fused_decode_step`` launches the
-kernel for CUDA caches (bf16, or int8 with scales) and raises on anything
-it does not take; for CPU caches it runs ``fused_decode_step_plain``, the
-same function in plain PyTorch. Both update the caches (and scale planes)
-in place and return them.
+The family folds ride along, read from ``params.layers`` and ``cfg`` as
+the JAX kernel reads them:
+
+- Qwen2's qkv bias (``bqkv``, added to each qkv row after its scale, before
+  the clip);
+- Qwen3's per-head q/k RMS norms (``q_norm``/``k_norm``, over the hd lanes
+  of each query head and of the K head, after the clip and before rope,
+  with ``cfg.norm_eps``; V is not normed);
+- Gemma's embed scale (``cfg.embed_scale``: the embed fold's rows times it;
+  an ``x0`` comes scaled already) and gelu (``cfg.act == "gelu"``: the
+  tanh approximation in place of SiLU);
+- Gemma-2's attention softcap (``cfg.attn_softcap``: each score after the
+  1/sqrt(hd) scale becomes tanh(s / c) * c), logit softcap
+  (``cfg.logit_softcap``: each logit of the head fold, before the argmax)
+  and post-norms (``post_attn_norm``/``post_mlp_norm``: the wo and w2
+  outputs RMS-normed before their residual adds).
+
+The kernel takes head_dim 128 and 256; ``fused_step_supported`` sends
+other head dims (Phi-3's 96) on the card to the per-layer kernels, as the
+JAX gate refuses ``head_dim % 128`` on the TPU. Unlike the JAX kernel, which
+asserts q_dim == dim with post-norms (every published Gemma-2 has q_dim !=
+dim), the kernel takes any q_dim. ``fused_decode_step`` launches the kernel
+for CUDA caches (bf16, or int8 with scales) and raises on anything it does
+not take; for CPU caches it runs ``fused_decode_step_plain``, the same
+function in plain PyTorch (any even head_dim). Both update the caches (and
+scale planes) in place and return them.
 """
 
 from __future__ import annotations
@@ -49,7 +64,6 @@ import ctypes
 import math
 
 import torch
-import torch.nn.functional as F
 
 from xalm_tpu_torch.models.params import QWeight, ffn_chunk, split_qkv_rows, split_w13_rows
 from xalm_tpu_torch.ops import attention as attn_ops
@@ -59,6 +73,7 @@ from xalm_tpu_torch.ops.qmatmul import qmatmul_plain
 __all__ = [
     "MAX_B",
     "fused_step_supported",
+    "head_dim_supported",
     "embed_fold_supported",
     "wcls_fold_supported",
     "fused_decode_step",
@@ -66,6 +81,7 @@ __all__ = [
 ]
 
 MAX_B = 8  # rows per step: the kernel keeps B accumulators per weight row pair
+HEAD_DIMS = (128, 256)  # the head dims the kernel takes
 # workspaces by (device, bytes), reused call after call on the one stream
 # the port launches on; zeroed once (the grid barrier's word starts at 0)
 _WORKSPACE: dict[tuple, torch.Tensor] = {}
@@ -82,16 +98,24 @@ def _q4_body(lp) -> int:
     return groups.pop() if len(groups) == 1 else -1
 
 
+def head_dim_supported(head_dim: int, on_card: bool) -> bool:
+    """On the card the kernel's head dims (128, 256); on the CPU, where the
+    plain version runs, any even head_dim (the JAX gate likewise refuses
+    ``head_dim % 128`` only on the TPU)."""
+    return head_dim in HEAD_DIMS if on_card else head_dim % 2 == 0
+
+
 def fused_step_supported(cfg, params, cache_k, batch: int, t: int, k_scale=None,
                          a8: bool = False) -> bool:
     """Does a (batch, t) step take the megakernel path? t = 1, 1 <= batch
     <= MAX_B, a dense int8 body with per-row scales (or packed q4 with group
-    scales; the Qwen2 bias and the Qwen3 q/k norms fold in), and a bf16 or
-    f32 cache, or an int8 cache with its scale planes (``k_scale``). A q4
-    body needs ``a8``, one group size on all four
-    weights and a group that is a multiple of 128: the JAX gate's rules. Its
-    48 MB scale budget is a rule of the TPU's VMEM and is not carried over;
-    the kernel's own limits are in csrc/ (the wrapper raises past them)."""
+    scales; every family fold folds in), a head_dim the kernel takes where
+    the weights lie (``head_dim_supported``), and a bf16 or f32 cache, or an
+    int8 cache with its scale planes (``k_scale``). A q4 body needs ``a8``,
+    one group size on all four weights and a group that is a multiple of
+    128: the JAX gate's rules. Its 48 MB scale budget is a rule of the TPU's
+    VMEM and is not carried over; the kernel's own limits are in csrc/ (the
+    wrapper raises past them)."""
     if t != 1 or not 1 <= batch <= MAX_B:
         return False
     if k_scale is not None:
@@ -103,6 +127,8 @@ def fused_step_supported(cfg, params, cache_k, batch: int, t: int, k_scale=None,
     if getattr(lp, "w13", None) is None:  # MoE FFN
         return False
     if not all(_is_i8_rows(qw) for qw in (lp.wqkv, lp.wo, lp.w13, lp.w2)):
+        return False
+    if not head_dim_supported(cfg.head_dim, lp.wqkv.values.is_cuda):
         return False
     q4 = _q4_body(lp)
     return q4 == 0 or (q4 > 0 and a8 and q4 % 128 == 0)
@@ -141,6 +167,11 @@ def _check(params, cfg, x0, cache_k, cache_v, wcls, out_norm, embed, token, pos,
     for t in (lp.q_norm, lp.k_norm):
         _need(t is None or tuple(t.shape) == (L, cfg.head_dim),
               f"q_norm and k_norm must be (L, {cfg.head_dim})")
+    _need((lp.post_attn_norm is None) == (lp.post_mlp_norm is None),
+          "post_attn_norm and post_mlp_norm come together")
+    for t in (lp.post_attn_norm, lp.post_mlp_norm):
+        _need(t is None or tuple(t.shape) == (L, cfg.dim),
+              f"post_attn_norm and post_mlp_norm must be (L, {cfg.dim})")
     _need(cache_k.shape == cache_v.shape and cache_k.dim() == 5, "caches (L, B, KH, S, hd)")
     if k_scale is not None or v_scale is not None:
         _need(cache_k.dtype == cache_v.dtype == torch.int8,
@@ -174,7 +205,10 @@ def fused_decode_step_plain(params, cfg, x0, cache_k, cache_v, kv_pos, kv_len, r
     i8 matmuls (exact products, f32 sums, scale after); the qkv bias after
     the scale, the q/k norms in f32 after the clip; with ``a8`` or a
     q4 body they are quantised per row instead, through ``qmatmul_plain``'s
-    a8 and q4 branches (the i8 head too). A float cache: q is
+    a8 and q4 branches (the i8 head too). The embed fold's rows times
+    ``cfg.embed_scale``; gelu(tanh) or SiLU; the attention softcap on the
+    scaled scores, the post-norms on the f32 wo and w2 outputs, the logit
+    softcap on the f32 logits before the argmax. A float cache: q is
     f32 and pre-scaled by 1/sqrt(hd) (inside ``flash_decode_plain``); the K
     and V rows are rounded to the cache type; scores and p are f32 over the
     f32-converted cache rows; the sink rows are rotated from the cache-typed
@@ -193,7 +227,7 @@ def fused_decode_step_plain(params, cfg, x0, cache_k, cache_v, kv_pos, kv_len, r
     i32 = lambda t: torch.as_tensor(t).to(device=dev, dtype=torch.int32).reshape(b)  # noqa: E731
     kv_pos, kv_len, rotate = i32(kv_pos), i32(kv_len), i32(rotate)
     if embed is not None:
-        x = embed.values[i32(token).long()].to(f32)
+        x = embed.values[i32(token).long()].to(f32) * cfg.embed_scale
         fr = torch.as_tensor(freqs).to(device=dev, dtype=f32).reshape(1, -1)
         ang = i32(pos).to(f32)[:, None] * fr
         cexp = torch.repeat_interleave(torch.cos(ang), 2, dim=-1)
@@ -221,8 +255,13 @@ def fused_decode_step_plain(params, cfg, x0, cache_k, cache_v, kv_pos, kv_len, r
         return qmatmul_plain(xin, qw.values, layer, scale=qw.scale, q4_group=qw.q4group,
                              a8=not qw.q4group)
 
-    def hnorm(v, w):  # the per-head RMS norm (Qwen3), over each head's hd lanes
+    def hnorm(v, w):  # the RMS norm over the last axis: Qwen3's per head, Gemma-2's post-norms
         return v * torch.rsqrt(torch.mean(v * v, dim=-1, keepdim=True) + eps) * w
+
+    def post(proj, norms, layer):  # Gemma-2's post-norm of a projection (none: as it is)
+        return proj if norms is None else hnorm(proj, norms[layer])
+
+    cap = float(cfg.attn_softcap)
 
     for layer in range(L):
         qkv = mm(x, lp.wqkv, layer, lp.attn_norm)
@@ -239,24 +278,27 @@ def fused_decode_step_plain(params, cfg, x0, cache_k, cache_v, kv_pos, kv_len, r
             attn_ops.kv_update_q_plain(cache_k, cache_v, k_scale, v_scale, layer, k,
                                        v.reshape(b, kh, hd), kv_pos, rotate, c1, s1)
             attn = attn_ops.flash_decode_q_plain(q, cache_k, cache_v, k_scale, v_scale, layer,
-                                                 kv_len)
+                                                 kv_len, attn_softcap=cap)
         else:
             attn_ops.kv_update_plain(cache_k, cache_v, layer, k, v.reshape(b, kh, hd), kv_pos,
                                      rotate, c1, s1)
-            attn = attn_ops.flash_decode_plain(q, cache_k, cache_v, layer, kv_len)
-        x = x + mm(attn, lp.wo, layer)
+            attn = attn_ops.flash_decode_plain(q, cache_k, cache_v, layer, kv_len,
+                                               attn_softcap=cap)
+        x = x + post(mm(attn, lp.wo, layer), lp.post_attn_norm, layer)
         gate, up = split_w13_rows(mm(x, lp.w13, layer, lp.mlp_norm), c13)
-        x = x + mm(F.silu(gate) * up, lp.w2, layer)
+        x = x + post(mm(attn_ops.act_fn(cfg.act, gate) * up, lp.w2, layer), lp.post_mlp_norm, layer)
     caches = (cache_k, cache_v) + ((k_scale, v_scale) if k_scale is not None else ())
     if wcls is None:
         return (x, *caches)
     logits = mm(x, QWeight(wcls.values[None], wcls.scale[None]), 0, out_norm.reshape(1, -1))
+    logits = attn_ops.softcap(logits, float(cfg.logit_softcap))
     return (x, logits, torch.argmax(logits, dim=-1).to(torch.int32), *caches)
 
 
 def _workspace(lib, device, b, cfg, s) -> torch.Tensor:
     nbytes = lib.xq_fused_decode_workspace(b, cfg.dim, cfg.n_kv_heads,
-                                           cfg.n_heads // cfg.n_kv_heads, s, cfg.hidden_dim)
+                                           cfg.n_heads // cfg.n_kv_heads, s, cfg.hidden_dim,
+                                           cfg.head_dim)
     work = _WORKSPACE.get((device, nbytes))
     if work is None:
         work = _WORKSPACE[(device, nbytes)] = torch.zeros((nbytes,), dtype=torch.uint8,
@@ -293,12 +335,13 @@ def fused_decode_step(params, cfg, x0, cache_k, cache_v, kv_pos, kv_len, rotate,
     lp = params.layers
     L, b, kh, s, hd = cache_k.shape
     quant = k_scale is not None
+    _need(hd in HEAD_DIMS, f"head_dim {hd} (the kernel takes {HEAD_DIMS})")
     _need(cache_k.dtype in (torch.bfloat16, torch.int8),
           f"cache dtype {cache_k.dtype} (the kernel takes bf16, or int8 with scales)")
     planes = (cache_k, cache_v) + ((k_scale, v_scale) if quant else ())
     _need(all(t.is_contiguous() and t.device == dev for t in planes),
           "caches and scale planes must be contiguous on one card")
-    folds = (lp.bqkv, lp.q_norm, lp.k_norm)  # the family folds, None where off
+    folds = (lp.bqkv, lp.q_norm, lp.k_norm, lp.post_attn_norm, lp.post_mlp_norm)  # None where off
     tensors = [lp.attn_norm, lp.mlp_norm] + [t for t in folds if t is not None]
     for qw in (lp.wqkv, lp.wo, lp.w13, lp.w2):
         tensors += [qw.values, qw.scale]
@@ -311,7 +354,7 @@ def fused_decode_step(params, cfg, x0, cache_k, cache_v, kv_pos, kv_len, rotate,
     for t in (lp.attn_norm, lp.mlp_norm, lp.wqkv.scale, lp.wo.scale, lp.w13.scale,
               lp.w2.scale) + ((wcls.scale, out_norm) if wcls is not None else ()) + tuple(
                   t for t in folds if t is not None):
-        _need(t.dtype == torch.float32, "norms, scales and the qkv bias must be f32")
+        _need(t.dtype == torch.float32, "norms, scales, the qkv bias and post-norms must be f32")
 
     def ints(t):
         return torch.as_tensor(t).to(dtype=torch.int32, device="cpu").reshape(-1)
@@ -356,12 +399,13 @@ def fused_decode_step(params, cfg, x0, cache_k, cache_v, kv_pos, kv_len, rotate,
     body = 2 if q4 else 1 if a8 else 0  # bf16 activations, a8, q4
     dims = [L, b, cfg.dim, kh, cfg.n_heads // kh, hd, cfg.hidden_dim, s, v,
             ffn_chunk(cfg.hidden_dim), 2 if quant else 1,  # the cache kind: 1 bf16, 2 int8
-            body, q4]
+            body, q4, int(cfg.act == "gelu")]
     clip = float(cfg.qkv_clip) if math.isfinite(cfg.qkv_clip) else math.inf
     err = lib.xq_fused_decode(
         ctypes.cast((ctypes.c_void_p * len(ptrs))(*ptrs), ctypes.c_void_p),
         ctypes.cast((ctypes.c_int * len(dims))(*dims), ctypes.c_void_p),
-        float(cfg.norm_eps), clip, 1.0 / math.sqrt(hd),
+        float(cfg.norm_eps), clip, 1.0 / math.sqrt(hd), float(cfg.embed_scale),
+        float(cfg.attn_softcap), float(cfg.logit_softcap),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(err, "fused_decode_step")
@@ -370,6 +414,10 @@ def fused_decode_step(params, cfg, x0, cache_k, cache_v, kv_pos, kv_len, rotate,
         build.LAUNCHES["fused_decode_bias"] += 1
     if lp.q_norm is not None:
         build.LAUNCHES["fused_decode_qk_norm"] += 1
+    if cfg.act == "gelu" or cfg.embed_scale != 1.0:  # Gemma's folds
+        build.LAUNCHES["fused_decode_gemma"] += 1
+    if lp.post_attn_norm is not None or cfg.attn_softcap or cfg.logit_softcap:  # Gemma-2's
+        build.LAUNCHES["fused_decode_gemma2"] += 1
     caches = (cache_k, cache_v) + ((k_scale, v_scale) if quant else ())
     if v:
         return (xout, logits, tok, *caches)

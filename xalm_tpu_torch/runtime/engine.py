@@ -154,7 +154,9 @@ class Engine:
     def decode_path(self, batch: int = 1) -> str:
         """Which implementation a (batch, T=1) decode step runs, from the
         forward's own gates: 'megakernel' (the whole-step kernel), 'perlayer'
-        (the per-layer kernels; on the CPU both run their plain versions),
+        (the per-layer kernels, and on the card for a head_dim the
+        megakernel does not take, Phi-3's 96; on the CPU both run their
+        plain versions),
         'xla' for a q4 body that dequantizes (no ``a8_decode``, or batch >=
         256), or the impl name for 'plain' and 'xla'."""
         if self.matmul_impl != "kernel":
@@ -312,7 +314,7 @@ class Engine:
     def _per_token_weight_bytes(self) -> int:
         """Weight bytes a decode step reads: q4 weights count their packed
         bytes and group scales; the norms and the family planes (qkv bias,
-        q/k norms) their f32 bytes. MoE: the k/E share of the expert stacks where
+        q/k norms, post-norms) their f32 bytes. MoE: the k/E share of the expert stacks where
         B = 1 decode gathers the chosen experts (the per-layer paths, a dtype
         the gather takes; q4 experts under ``a8_decode``, the JAX rule), all
         E otherwise, and the router."""
@@ -327,7 +329,8 @@ class Engine:
                 experts = experts * cfg.n_experts_active // max(cfg.n_experts, 1)
             total += experts + 4 * lw.wgate.nelement()
         total += 4 * (lw.attn_norm.nelement() + lw.mlp_norm.nelement() + p.out_norm.nelement())
-        total += 4 * sum(t.nelement() for t in (lw.bqkv, lw.q_norm, lw.k_norm) if t is not None)
+        total += 4 * sum(t.nelement() for t in (lw.bqkv, lw.q_norm, lw.k_norm, lw.post_attn_norm,
+                                                lw.post_mlp_norm) if t is not None)
         total += p.embed.nbytes() // cfg.vocab_size  # one embedding row read
         total += p.wcls.nbytes()
         return int(total)

@@ -17,11 +17,19 @@ Family extras, drawn so that they move the logits visibly: ``qkv_bias``
 (Qwen2) draws a (L, DQ) f32 bias at the scale of the qkv outputs (a normed
 x of unit rms times a row of codes uniform in [-128, 128) at 0.02/127 each
 gives a std of about 0.02 * sqrt(dim / 3)); ``cfg.qk_norm`` (Qwen3) draws
-(L, head_dim) q/k norm weights uniform in [0.5, 1.5).
+(L, head_dim) q/k norm weights uniform in [0.5, 1.5); ``cfg.post_norms``
+(Gemma-2) draws (L, dim) post-attention and post-feedforward norm weights
+uniform in [0.5, 1.5). Gelu and the embed scale (Gemma) need no weights.
+
+A published softcap hardly bites on random weights: Gemma-2's 50 on
+scores of std 0.5-0.7, its 30 on logits of max 14. ``biting_softcaps``
+gives a config whose caps move the scores and logits of these weights by
+far more than rounding (see its docstring).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -29,7 +37,23 @@ import torch
 from xalm_tpu_torch.models.config import ModelConfig
 from xalm_tpu_torch.models.params import LayerParams, ModelParams, QWeight, recode_params_q4
 
-__all__ = ["synthetic_params"]
+__all__ = ["synthetic_params", "biting_softcaps", "score_std", "logit_std"]
+
+
+def score_std(dim: int) -> float:
+    """The std of the attention scores of these weights, by construction:
+    codes uniform in [-128, 128) have a std of 73.9, so a weight of scale
+    0.02/127 one of 0.0116, and q and k of a unit-rms x one of 0.0116
+    sqrt(dim) each (0.7 at dim 3584); their dot over head_dim lanes, scaled
+    by 1/sqrt(head_dim), the square of that (0.49; against a cache of unit
+    normals 0.7)."""
+    return (0.02 / 127 * 73.9) ** 2 * dim
+
+
+def logit_std(dim: int) -> float:
+    """The std of the logits: bf16 head rows of std 0.05 against a unit-rms
+    x, 0.05 sqrt(dim) (3.0 at dim 3584; the max over 256000 rows about 14)."""
+    return 0.05 * math.sqrt(dim)
 
 
 def _qweight(gen, shape, dtype, device, scale_mag=0.02) -> QWeight:
@@ -73,7 +97,23 @@ def synthetic_params(cfg: ModelConfig, device="cuda", seed: int = 42,
         layers.q_norm, layers.k_norm = (
             torch.rand((L, cfg.head_dim), generator=gen, device=device).add_(0.5)
             for _ in range(2))
+    if cfg.post_norms:
+        layers.post_attn_norm, layers.post_mlp_norm = (
+            torch.rand((L, d), generator=gen, device=device).add_(0.5) for _ in range(2))
     embed = _qweight(gen, (v, d), torch.bfloat16, device, scale_mag=0.05)
     wcls = embed if cfg.tie_word_embeddings else _qweight(gen, (v, d), torch.bfloat16, device, 0.05)
     params = ModelParams(embed=embed, layers=layers, out_norm=ones(d), wcls=wcls)
     return recode_params_q4(params, q4_group) if q4_group else params
+
+
+def biting_softcaps(cfg: ModelConfig) -> ModelConfig:
+    """cfg with softcaps that bite on ``synthetic_params``'s weights, where
+    it has them: the attention cap at 2 x the scores' std (``score_std``;
+    against a cache of unit normals about 1.4 x), so that the largest scores
+    of a 4096-slot window (3-4 std) lose 20-60 % of their value, and the
+    logit cap at 2 x the logits' std (``logit_std``), so that the top logits
+    (4-5 std over a large vocabulary) lose over half of theirs. Both keep
+    scores and logits apart: tanh is strictly monotone."""
+    return dataclasses.replace(
+        cfg, attn_softcap=2.0 * score_std(cfg.dim) if cfg.attn_softcap else 0.0,
+        logit_softcap=2.0 * logit_std(cfg.dim) if cfg.logit_softcap else 0.0)
