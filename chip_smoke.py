@@ -60,9 +60,24 @@ family models:
    layers), Gemma-7B (gelu and embed scale, head_dim 256, q_dim != dim) and
    Phi-3-mini-4k (head_dim 96, per layer): phase 3 for the megakernel's
    fold of each and for the attention kernels at group 7 and head_dim 256
-   and 96, phase 4 on the decode paths each model takes, phase 5 at 2
-   layers with the fold in both models;
-8. the kernels' summary line, then the result line
+   and 96, phase 4 on the decode paths each model takes (on its first
+   FAMILY_MAIN_LAYERS layers), phase 5 at 2 layers with the fold in both
+   models;
+8. the weight formats (``phase_formats``): Mixtral-8x7B with packed-q4
+   experts at group 128 (drawn packed, 24.6 GB, 32 layers): phase 3 for
+   ``qmatmul_multi_q4`` bit-equal (w13 and w2, groups 128 and 512, an index
+   past 2^31 bytes), phase 4 with ``a8_decode`` (per decode token 64
+   qmatmul_multi_q4, 64 qmatmul_q4, 1 qmatmul; the active bytes held to the
+   shapes'), phase 5 at 2 layers and a 128-slot window with tokens and
+   routing teacher-forced under the q4 body's int8-activation rule; Mistral-7B with an f32 body
+   and head (28.5 GB, 32 layers): phase 3 for kernel 1's f32 branch
+   (``qmatmul_f32``, within 1e-5 of each row's max) and phase 4 per layer;
+   a 2-layer f32 Mixtral: phase 3 for kernel 8's f32 branch and a phase-4
+   run; phase 5 for the f32 body; and f16 and f8_e4m3 containers at Mistral
+   width (2 layers, written by the port's writer into build/) loaded by
+   ``Engine.from_xalm`` on the card: bf16 per layer and the i8 megakernel,
+   held against the plain path;
+9. the kernels' summary line, then the result line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 With ``--megakernel-ms`` it runs none of these phases: it times the
@@ -1109,6 +1124,7 @@ _PROFILE_GROUPS = {
     "qmatmul_a8": ("gemm_a8_kernel",),
     "quant_x": ("quant_x_kernel",),  # x's codes for qmatmul_q4 and qmatmul_a8
     "qmatmul_multi": ("qmatmul_multi_kernel",),
+    "qmatmul_multi_q4": ("qmatmul_multi_q4_kernel",),
     "kv_update": ("kv_update_kernel",),
     "flash_decode": ("flash_decode_split_kernel", "flash_decode_combine_kernel"),
     "flash_prefill": ("flash_prefill_kernel",),
@@ -1132,7 +1148,8 @@ _WITNESSES = {
     "flash_prefill_kernel": ("flash_prefill",),
     "kv_update_kernel": ("kv_update",),
     "kv_update_q_kernel": ("kv_update_q",),
-    "qmatmul_multi_kernel": ("qmatmul_multi",),
+    "qmatmul_multi_kernel": ("qmatmul_multi", "qmatmul_multi_f32"),
+    "qmatmul_multi_q4_kernel": ("qmatmul_multi_q4",),
 }
 PROFILE_ATTEMPTS = 3
 PROFILE_PAD_S = 0.05
@@ -1247,6 +1264,25 @@ def _step_rule(counts: dict, n: int, resync: bool) -> bool:
     return counts["steps_within_quant"] >= OWN_STEP_SHARE * n
 
 
+def _quant_stats(errs, errs0, errsc, steps: int, resync: bool) -> dict:
+    """The step rule's counts of a run with int8 activations (see
+    ``_teacher_forced``): errs, errs0 and errsc are the kernel's, the quant
+    effect's and the control's logit errors of the prefill and each step."""
+    qs = [i for i in range(1, steps + 1) if errs0[i] > EXACT_TOL]
+
+    def within(es):
+        c = {"steps_within_quant": sum(es[i] <= max(EXACT_TOL, errs0[i]) for i in qs),
+             "steps_near": sum(es[i] <= max(EXACT_TOL, errs0[i] / 4) for i in qs),
+             "steps_exact": sum(es[i] <= EXACT_TOL for i in qs)}
+        return dict(c, step_rule_ok=bool(qs) and _step_rule(c, len(qs), resync))
+
+    return dict(resync=resync, quant_steps=len(qs), max_rel_logit_quant_effect=max(errs0),
+                prefill_rel_logit_err=errs[0], prefill_quant_effect=errs0[0],
+                max_rel_logit_err_unquantised=max(
+                    [errs[i] for i in range(1, steps + 1) if errs0[i] <= EXACT_TOL], default=0.0),
+                **within(errs), control={"max_rel_logit_err": max(errsc), **within(errsc)})
+
+
 def _teacher_forced(ek, ep, prompt, steps: int, ep0=None, ec=None, resync: bool = False) -> dict:
     """Prefill, then ``steps`` decode steps of the kernel engine ``ek`` and
     the plain engine ``ep``, both fed the kernel engine's greedy token:
@@ -1311,19 +1347,7 @@ def _teacher_forced(ek, ep, prompt, steps: int, ep0=None, ec=None, resync: bool 
     out = {"steps": steps, "final_pos": pos, "max_rel_logit_err": worst, "argmax_flips": flips,
            "steps_over_tol": over}
     if quant:
-        qs = [i for i in range(1, steps + 1) if errs0[i] > EXACT_TOL]
-
-        def within(es):
-            c = {"steps_within_quant": sum(es[i] <= max(EXACT_TOL, errs0[i]) for i in qs),
-                 "steps_near": sum(es[i] <= max(EXACT_TOL, errs0[i] / 4) for i in qs),
-                 "steps_exact": sum(es[i] <= EXACT_TOL for i in qs)}
-            return dict(c, step_rule_ok=bool(qs) and _step_rule(c, len(qs), resync))
-
-        out.update(resync=resync, quant_steps=len(qs), max_rel_logit_quant_effect=max(errs0),
-                   prefill_rel_logit_err=errs[0], prefill_quant_effect=errs0[0],
-                   max_rel_logit_err_unquantised=max(
-                       [errs[i] for i in range(1, steps + 1) if errs0[i] <= EXACT_TOL], default=0.0),
-                   **within(errs), control={"max_rel_logit_err": max(errsc), **within(errsc)})
+        out.update(_quant_stats(errs, errs0, errsc, steps, resync))
         if not resync:
             out["max_rel_cache_row_err"], out["max_rel_sink_row_err"] = (
                 float(cache_worst[1]), float(cache_worst[0]))
@@ -1535,6 +1559,11 @@ def phase_wrap(cfg, bodies=WRAP_BODIES, qkv_bias: bool = False, model: str = "")
     within WRAP_TOL or the run's largest quant effect, and the other
     decode steps within WRAP_TOL. (b) runs each side on its own cache, as for the i8 body.
 
+    The f32 body (``F32_WRAP_BODY``: f32 weights, embed and head, kernel 1's
+    f32 branch) runs the per-layer path alone (the megakernel needs an i8
+    body) and is held as the i8 body is; its copy model is ``copy_params``'
+    dequantised to f32.
+
     ``bodies`` picks the runs of WRAP_BODIES; ``qkv_bias`` (and
     ``cfg.qk_norm``, gelu, the embed scale, post-norms and softcaps of
     ``cfg``) put the family folds in both models (``copy_params`` keeps its
@@ -1558,6 +1587,8 @@ def phase_wrap(cfg, bodies=WRAP_BODIES, qkv_bias: bool = False, model: str = "")
     rows = []
     paths = (("perlayer", dict(fused_step=False)), ("megakernel", dict(wcls_i8=True)))
     for (body, kv_name, bkw, resync), (path, kw) in itertools.product(bodies, paths):
+        if body == "f32" and path == "megakernel":
+            continue
         kv = getattr(torch, kv_name)
 
         def engines(params, c=cfg2, kw=dict(kw, **bkw), kv=kv):
@@ -1565,12 +1596,14 @@ def phase_wrap(cfg, bodies=WRAP_BODIES, qkv_bias: bool = False, model: str = "")
                     Engine(c, params, kv_dtype=kv, matmul_impl="plain", **kw))
 
         q4 = 512 if body == "q4" else 0
-        params = synthetic_params(cfg2, device=DEVICE, seed=SEED + 1, q4_group=q4, qkv_bias=qkv_bias)
+        f32 = dict(weight_dtype=torch.float32, embed_dtype=torch.float32) if body == "f32" else {}
+        params = synthetic_params(cfg2, device=DEVICE, seed=SEED + 1, q4_group=q4,
+                                  qkv_bias=qkv_bias, **f32)
         ek, ep = engines(params)
         if ek.decode_path(1) != path:
             raise AssertionError(f"wrap phase: decode path {ek.decode_path(1)!r}, expected {path!r}")
         ep0 = ec = None
-        if body != "i8":  # the same weights without int8 activations: plain, and the control
+        if body not in ("i8", "f32"):  # the same weights without int8 activations, the control
             ep0 = Engine(cfg2, params, kv_dtype=kv, matmul_impl="plain", **kw)
             ec = Engine(cfg2, params, kv_dtype=kv, matmul_impl="kernel", **kw)
         forced = _teacher_forced(ek, ep, prompt, steps, ep0, ec, resync)
@@ -1579,6 +1612,8 @@ def phase_wrap(cfg, bodies=WRAP_BODIES, qkv_bias: bool = False, model: str = "")
         params, perm_inv = copy_params(cfg_copy, SEED + 2, qkv_bias)
         if q4:  # one nonzero per row: its group's absmax, code 7
             params = recode_params_q4(params, q4)
+        if f32:
+            params = _dequant_params(params, torch.float32)
         copy = _copy_free_running(*engines(params, cfg_copy), prompt, steps, perm_inv)
         row = {"phase": "wrap", "model": model or "Mistral-7B", "body": body, "decode_path": path,
                "kv_dtype": str(kv).split(".")[-1],
@@ -1591,7 +1626,7 @@ def phase_wrap(cfg, bodies=WRAP_BODIES, qkv_bias: bool = False, model: str = "")
         emit(row)
         if row["ring_wraps"] < 3:
             raise AssertionError(f"wrap phase: {row['ring_wraps']} ring wraps, expected 3")
-        if body == "i8":
+        if body in ("i8", "f32"):
             forced_ok = forced["max_rel_logit_err"] <= WRAP_TOL
         else:
             forced_ok = (forced["max_rel_logit_err"] <= max(WRAP_TOL,
@@ -1762,73 +1797,107 @@ def _cache_row_err(got, want):
     return worst
 
 
-def _teacher_forced_moe(ek, ep, prompt, steps: int) -> dict:
+def _teacher_forced_moe(ek, ep, prompt, steps: int, ep0=None, ec=None) -> dict:
     """``_teacher_forced`` for MoE engines, with the routing teacher-forced
     too (see ROUTE_MARGIN) through ``llama.moe_route``: ``ek`` leads, and
     its chosen experts and router log-probabilities are recorded layer by
     layer; ``ep`` follows and takes ``ek``'s experts wherever its own set
     differs. Returns the logit errors of the prefill and of every step, the
     largest cache-row error after any step, and the flips, each as (step,
-    layer, token, the plain run's gap), step -1 being the prefill."""
+    layer, token, the plain run's gap), step -1 being the prefill.
+
+    ``ep0`` and ``ec`` (int8 activations, the q4 experts): the plain engine
+    without them and the control, as in ``_teacher_forced`` with
+    ``resync``: they follow ``ek``'s routing too, and each step of ``ek``,
+    ``ep0`` and ``ec`` starts from ``ep``'s cache; the quant effect and the
+    step rule come out as there (``_quant_stats``), and no cache row is
+    compared (every kernel step starts from the plain run's rows)."""
     import numpy as np
     import torch
 
     from xalm_tpu_torch.models import llama
 
     route = llama.moe_route
-    lead, recs, follow = [], [], [False]
+    lead, recs, state = [], [], {"mode": "lead", "at": 0}
 
     def routed(xn, wgate, kk):
         topv, topi = route(xn, wgate, kk)
         rlog = torch.einsum("btd,ed->bte", xn, wgate.to(torch.float32))
         logp = torch.log_softmax(rlog, dim=-1)
-        if not follow[0]:
+        if state["mode"] == "lead":
             lead.append((topi, logp))
             return topv, topi
-        ti, logp_lead = lead[len(recs)]
+        ti, logp_lead = lead[state["at"]]
+        state["at"] += 1
         differ = (ti.sort(dim=-1).values != topi.sort(dim=-1).values).any(dim=-1)  # (B, T)
-        order = logp.argsort(dim=-1, descending=True)[..., kk - 1:kk + 1]
-        g, g_lead = logp.gather(-1, order), logp_lead.gather(-1, order)
-        gap = g[..., 0] - g[..., 1]
-        recs.append((differ[0], gap[0], (g_lead[..., 0] - g_lead[..., 1] - gap).abs().max()))
+        if state["mode"] == "record":
+            order = logp.argsort(dim=-1, descending=True)[..., kk - 1:kk + 1]
+            g, g_lead = logp.gather(-1, order), logp_lead.gather(-1, order)
+            gap = g[..., 0] - g[..., 1]
+            recs.append((differ[0], gap[0], (g_lead[..., 0] - g_lead[..., 1] - gap).abs().max()))
         forced = torch.softmax(rlog, dim=-1).gather(-1, ti)
         forced = forced / torch.sum(forced, dim=-1, keepdim=True)
         pick = differ[..., None]
         return torch.where(pick, forced, topv), torch.where(pick, ti, topi)
 
-    def both(fk, fp):
+    def both(fk, fp, *more):
+        """Run the lead, then ``fp`` recording, then ``more`` forced alone."""
         lead.clear()
         recs.clear()
-        follow[0] = False
+        state["mode"] = "lead"
         rk = fk()
-        follow[0] = True
-        rp = fp()
-        if len(recs) != len(lead):
-            raise AssertionError(f"MoE wrap: {len(lead)} router calls led, {len(recs)} followed")
+        outs = []
+        for mode, f in [("record", fp)] + [("force", f) for f in more]:
+            state.update(mode=mode, at=0)
+            outs.append(f())
+            if state["at"] != len(lead):
+                raise AssertionError(f"MoE wrap: {len(lead)} router calls led, {state['at']} "
+                                     "followed")
         # (layers, T) flip masks and plain gaps, the largest gap change
-        return rk, rp, (torch.stack([r[0] for r in recs]), torch.stack([r[1] for r in recs]),
-                        torch.stack([r[2] for r in recs]).max())
+        return (rk, outs[0], (torch.stack([r[0] for r in recs]), torch.stack([r[1] for r in recs]),
+                              torch.stack([r[2] for r in recs]).max()), outs[1:])
 
+    def rel(a, ref):
+        return float((a - ref).abs().max()) / float(ref.abs().max())
+
+    quant = ep0 is not None
     llama.moe_route = routed
-    errs, flipped_errs, flips = [], [], []
+    errs, flipped_errs, flips, all_errs, errs0, errsc = [], [], [], [], [], []
     flipped_steps, min_gap, max_dgap, cache_err = 0, math.inf, 0.0, None
     try:
-        (lk, ck, pos), (lp, cp, _), rec = both(lambda: ek.prefill(prompt, ek.new_cache(1)),
-                                               lambda: ep.prefill(prompt, ep.new_cache(1)))
+        extra = [lambda e=e: e.prefill(prompt, e.new_cache(1)) for e in (ep0, ec) if quant]
+        (lk, ck, pos), (lp, cp, _), rec, more = both(
+            lambda: ek.prefill(prompt, ek.new_cache(1)),
+            lambda: ep.prefill(prompt, ep.new_cache(1)), *extra)
+        if quant:
+            (l0, c0, _), (lc, cc, _) = more
         for step in range(-1, steps):  # -1: the prefill
             if step >= 0:
                 tk = int(lk.argmax())
-                (lk, ck), (lp, cp), rec = both(
-                    lambda: ek.decode(np.array([tk]), np.array([pos], np.int32), ck),
-                    lambda: ep.decode(np.array([tk]), np.array([pos], np.int32), cp))
+                args = (np.array([tk]), np.array([pos], np.int32))
+                if quant:  # every step but the plain run's from the plain run's cache
+                    for c in (ck, c0, cc):
+                        for name in ("k", "v", "k_scale", "v_scale"):
+                            if getattr(c, name) is not None:
+                                getattr(c, name).copy_(getattr(cp, name))
+                extra = [lambda: ep0.decode(*args, c0), lambda: ec.decode(*args, cc)][:2 * quant]
+                (lk, ck), (lp, cp), rec, more = both(
+                    lambda: ek.decode(*args, ck), lambda: ep.decode(*args, cp), *extra)
+                if quant:
+                    (l0, c0), (lc, cc) = more
                 pos += 1
             differ, gaps, dgap = rec
-            err = float((lk - lp).abs().max()) / float(lp.abs().max())
+            err = rel(lk, lp)
+            all_errs.append(err)
+            if quant:
+                errs0.append(rel(l0, lp))
+                errsc.append(rel(lc, lp))
             if step < 0:
                 prefill_err = err
                 flipped_prefill = int(differ.any(dim=0).sum())
-            row = _cache_row_err(ck, cp)
-            cache_err = row if cache_err is None else torch.maximum(cache_err, row)
+            if not quant:
+                row = _cache_row_err(ck, cp)
+                cache_err = row if cache_err is None else torch.maximum(cache_err, row)
             min_gap = min(min_gap, float(gaps.min()))
             max_dgap = max(max_dgap, float(dgap))
             hits = torch.nonzero(differ).tolist()
@@ -1837,17 +1906,21 @@ def _teacher_forced_moe(ek, ep, prompt, steps: int) -> dict:
             flips += [(step, layer, tok, float(gaps[layer, tok])) for layer, tok in hits]
     finally:
         llama.moe_route = route
-    return {"steps": steps, "final_pos": pos, "prefill_rel_logit_err": prefill_err,
-            "max_rel_logit_err": max(errs + flipped_errs),
-            "max_rel_logit_err_unflipped": max(errs, default=None),
-            "max_rel_logit_err_flipped": max(flipped_errs, default=None),
-            "max_rel_cache_row_err": float(cache_err[1]),
-            "max_rel_sink_row_err": float(cache_err[0]),
-            "routing_decisions": (len(prompt) + steps) * ek.cfg.n_layers,
-            "flips": len(flips), "flipped_prefill_tokens": flipped_prefill,
-            "flipped_steps": int(flipped_steps), "flips_head": flips[:12],
-            "flips_beyond_margin": [f for f in flips if f[3] > ROUTE_MARGIN],
-            "min_plain_gap": min_gap, "max_gap_change": max_dgap, "route_margin": ROUTE_MARGIN}
+    out = {"steps": steps, "final_pos": pos, "prefill_rel_logit_err": prefill_err,
+           "max_rel_logit_err": max(errs + flipped_errs),
+           "max_rel_logit_err_unflipped": max(errs, default=None),
+           "max_rel_logit_err_flipped": max(flipped_errs, default=None),
+           "routing_decisions": (len(prompt) + steps) * ek.cfg.n_layers,
+           "flips": len(flips), "flipped_prefill_tokens": flipped_prefill,
+           "flipped_steps": int(flipped_steps), "flips_head": flips[:12],
+           "flips_beyond_margin": [f for f in flips if f[3] > ROUTE_MARGIN],
+           "min_plain_gap": min_gap, "max_gap_change": max_dgap, "route_margin": ROUTE_MARGIN}
+    if quant:
+        out.update(_quant_stats(all_errs, errs0, errsc, steps, resync=True))
+    else:
+        out.update(max_rel_cache_row_err=float(cache_err[1]),
+                   max_rel_sink_row_err=float(cache_err[0]))
+    return out
 
 
 def moe_copy_params(cfg, seed: int):
@@ -1994,6 +2067,11 @@ def phase_router_witness(cfg) -> list[dict]:
 
 
 # ---------------------------------------------------------------- families
+# Phase 4 of the family models runs their first FAMILY_MAIN_LAYERS layers at
+# full width (their phase 3 runs at full depth): cut from full depth when the
+# weight formats' phases were added, to keep the script well inside its time
+# limit (their per-layer runs are host-bound, so their time goes with depth)
+FAMILY_MAIN_LAYERS = 8
 # Llama-3.1-8B, Qwen2.5-7B, Qwen3-8B, Gemma-2-9B, Gemma-7B and Phi-3-mini
 # (models/config.py), random i8 weights at full width and depth, the
 # softcaps at ``biting_softcaps``' values (a published cap hardly moves
@@ -2144,8 +2222,9 @@ def phase_families(cases: Cases) -> dict:
     one a8 and one q4 case held layer by layer (``phase_fused_parity``);
     Gemma-7B (gelu and the embed scale, group 1, q_dim 4096 != dim 3072) in
     two cases; the attention kernels at each model's (group, head_dim)
-    that Mistral's rows do not cover (``phase_parity_shape``). Phase 4: the runs of FAMILIES
-    (``phase_main_family``). Phase 5: the i8 body with a bf16 cache on both
+    that Mistral's rows do not cover (``phase_parity_shape``). Phase 4: the
+    runs of FAMILIES (``phase_main_family``) on the model's first
+    FAMILY_MAIN_LAYERS layers (full width). Phase 5: the i8 body with a bf16 cache on both
     decode paths with the fold in both models, Qwen2.5, Qwen3 and Gemma-2
     (``phase_wrap``). Llama-3.1's rope scaling changes no kernel, only the
     frequencies they are given: its main path checks it end to end.
@@ -2180,13 +2259,510 @@ def phase_families(cases: Cases) -> dict:
                 torch.cuda.empty_cache()
             if tag:
                 phase_parity_shape(cfg, cases, tag)
-        launches[name] = phase_main_family(params, cfg, name, runs, bias)
+        cfg4 = dataclasses.replace(cfg, n_layers=min(cfg.n_layers, FAMILY_MAIN_LAYERS))
+        launches[name] = phase_main_family(_layer_window(params, 0, cfg4.n_layers), cfg4, name,
+                                           runs, bias)
         del params
         torch.cuda.empty_cache()
         if fold in ("bias", "qk_norm", "gemma2"):
             with torch.inference_mode():
                 phase_wrap(cfg, bodies=WRAP_BODIES[:1], qkv_bias=bias, model=name)
     return launches
+
+
+# ---------------------------------------------------------- weight formats
+# Every weight format of the JAX package on the card: Mixtral-8x7B with
+# packed-q4 experts (kernel 8's q4 branch), Mistral-7B with f32 weights and
+# a 2-layer f32 Mixtral (the f32 branches of kernels 1 and 8), and f16 and
+# fp8 containers through the load modes (f16 -> bf16, fp8 -> i8 rows).
+
+NO_LIBRARY_MULTI_Q4 = ("no one PyTorch call gathers experts by an index on the device, nor "
+                       "multiplies int8 activation codes by packed 4-bit weights with per-group "
+                       "scales (see qmatmul_q4's note)")
+NO_LIBRARY_MULTI_F32 = "no one PyTorch call gathers experts by an index on the device"
+NO_LIBRARY_NORM = "no one PyTorch call applies the rmsnorm prologue and the product"
+MULTI_Q4_W13_CASE = "w13 q4 g128, shared x, m=1, k=2"
+MULTI_Q4_W2_CASE = "w2 q4 g128, per-expert x, m=1, k=2"
+F32_W13_CASE = "M=1 w13 f32, norm prologue"
+F32_M512_CASE = "M=512 w13 f32"
+MULTI_F32_W13_CASE = "w13 f32, shared x, m=1, k=2 (2-layer stack)"
+MULTI_F32_W2_CASE = "w2 f32, per-expert x, m=1, k=2 (2-layer stack)"
+# f32 kernels against their plain versions: each output row within F32_TOL
+# of its max |plain| (the same f32 products, no bf16 rounding, summed in
+# another order; with the norm prologue the rms too); TF32 is off for the
+# plain versions and the library calls (F.linear), as main() sets it
+F32_TOL = 1e-5
+F32_WRAP_BODY = ("f32", "bfloat16", {}, False)
+Q4_EXPERT_GROUP = 128  # Mixtral's q4 group: the JAX converter's default (--q4-group)
+Q4_WRAP_WINDOW, Q4_WRAP_PROMPT, Q4_WRAP_STEPS = 128, 100, 300  # three wraps, as 256/200/600
+
+
+def _dequant_params(params, dtype):
+    """The same model with every weight dequantised to ``dtype`` (no scales):
+    the copy models of the f32 wrap phase."""
+    from xalm_tpu_torch.models.params import QWeight
+
+    def dq(w):
+        return None if w is None else QWeight(w.dequant(dtype).contiguous(), None)
+
+    lp = params.layers
+    layers = dataclasses.replace(lp, wqkv=dq(lp.wqkv), wo=dq(lp.wo), w13=dq(lp.w13), w2=dq(lp.w2),
+                                 w13e=dq(lp.w13e), w2e=dq(lp.w2e))
+    embed = dq(params.embed)
+    wcls = embed if params.wcls is params.embed else dq(params.wcls)
+    return dataclasses.replace(params, embed=embed, layers=layers, wcls=wcls)
+
+
+def phase_parity_multi_q4(params, cfg, cases: Cases) -> None:
+    """qmatmul_multi_q4 against its plain version at Mixtral-8x7B widths,
+    bit-equal (tolerance 0: x's codes by IEEE division and round half to
+    even, exact group dots, the f32 scale products and group sums rounded
+    one by one in the same order), on the drawn packed 32-layer stacks
+    viewed flat: w13 (256, 28672, 2048) and w2 (256, 4096, 7168) at group
+    128, x shared by the k = 2 experts (w13) or a row per expert (w2), an
+    index of 255 (its codes 15.0 GB into w13, 7.5 GB into w2), m = 4; and
+    16 experts drawn at group 512 at both widths. The timed launches cycle
+    over the 32 layers' experts, so each streams its weights cold."""
+    import torch
+
+    from xalm_tpu_torch.ops.qmatmul import qmatmul_multi, qmatmul_multi_plain
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 8)
+    lp = params.layers
+    L, E, d, h, g = cfg.n_layers, cfg.n_experts, cfg.dim, cfg.hidden_dim, lp.w13e.q4group
+    flat = lambda qw: (qw.values.reshape(L * E, *qw.values.shape[2:]),  # noqa: E731
+                       qw.scale.reshape(L * E, *qw.scale.shape[2:]))
+    (w13v, w13s), (w2v, w2s) = flat(lp.w13e), flat(lp.w2e)
+    i32 = lambda *v: torch.tensor(v, dtype=torch.int32, device=dev)  # noqa: E731
+    per_layer = [i32(layer * E + 3, layer * E + 6) for layer in range(L)]
+
+    def case(name, x, values, scale, group, idx_sets, shared):
+        idxs = idx_sets[0]
+        kw = dict(shared_x=shared, q4_group=group)
+        got = qmatmul_multi(x, values, scale, idxs, **kw)
+        want = qmatmul_multi_plain(x, values, scale, idxs, **kw)
+        k = idxs.numel()
+        m = x.shape[0] // (1 if shared else k)
+        dd, nb = values.shape[1:]
+        n = 2 * nb
+        nbytes = k * (dd * nb + dd * (n // group) * 4) + x.numel() * 4 + k * m * dd * 4
+        it = itertools.cycle(idx_sets)
+        cases.add("qmatmul_multi_q4", name, got, want, dd, 0.0,
+                  lambda: qmatmul_multi(x, values, scale, next(it), **kw),
+                  lambda: qmatmul_multi_plain(x, values, scale, next(it), **kw),
+                  None, nbytes, 2.0 * k * m * n * dd, PEAK_S8,
+                  extra={"library_null": NO_LIBRARY_MULTI_Q4, "idxs": idxs.tolist(), "m": m,
+                         "group": group, "weight_offset_bytes": int(idxs.max()) * dd * nb})
+
+    x1 = torch.randn((1, d), generator=gen, device=dev) * 3
+    x2 = torch.randn((2, h), generator=gen, device=dev) * 3
+    case(MULTI_Q4_W13_CASE, x1, w13v, w13s, g, per_layer, True)
+    case(MULTI_Q4_W2_CASE, x2, w2v, w2s, g, per_layer, False)
+    case("w13 q4 g128, idxs [255, 3]: codes past 2^31 bytes", x1, w13v, w13s, g, [i32(255, 3)],
+         True)
+    case("w2 q4 g128, idxs [255, 128]: codes past 2^31 bytes", x2, w2v, w2s, g, [i32(255, 128)],
+         False)
+    case("w13 q4 g128, shared x, m=4, k=2", torch.randn((4, d), generator=gen, device=dev) * 3,
+         w13v, w13s, g, per_layer, True)
+    small = [i32(15, 2), i32(9, 12)]
+    for name, rows, cols, x, shared in (("w13", 2 * h, d, x1, True), ("w2", d, h, x2, False)):
+        v = torch.randint(-128, 128, (16, rows, cols // 2), dtype=torch.int8, device=dev,
+                          generator=gen)
+        sc = (torch.rand((16, rows, cols // 512), generator=gen, device=dev) * 0.5 + 0.75) * 3e-3
+        case(f"{name} q4 g512, 16 experts, {'shared' if shared else 'per-expert'} x, m=1, k=2",
+             x, v, sc, 512, small, shared)
+        del v, sc
+    torch.cuda.empty_cache()
+
+
+def q4_moe_active_bytes(cfg, group: int, pos: int) -> int:
+    """Bytes a B = 1 decode token at ``pos`` of a q4 Mixtral (q4 attention
+    and experts, bf16 embed row and head, bf16 cache) reads and writes, from
+    the shapes alone: the gathered k of E experts' packed rows and group
+    scales, wqkv and wo, the router and norms in f32, the embed row, the
+    head, and the cache rows read (kv_len = pos + 1 within the window) and
+    written."""
+    def q4(rows, cols):
+        return rows * cols // 2 + rows * (cols // group) * 4
+
+    L, d, h, v = cfg.n_layers, cfg.dim, cfg.hidden_dim, cfg.vocab_size
+    k, e = cfg.n_experts_active, cfg.n_experts
+    per_layer = (q4(cfg.q_dim + 2 * cfg.kv_dim, d) + q4(d, cfg.q_dim)
+                 + k * (q4(2 * h, d) + q4(d, h)) + 4 * (e * d + 2 * d))
+    cache = 2 * L * cfg.kv_dim * 2 * (min(pos + 1, cfg.max_seq_len) + 1)
+    return L * per_layer + 2 * d + 4 * d + 2 * v * d + cache
+
+
+def phase_main_moe_q4(params, cfg) -> dict:
+    """The Mixtral q4 main path: ``Engine.generate`` of a 512-token prompt
+    and 64 greedy tokens, bf16 cache, ``a8_decode`` (as
+    ``from_xalm(q4_group=)`` implies): per decode token 64 qmatmul_multi_q4
+    launches (the chosen experts' w13 and w2 per layer), 64 qmatmul_q4 (wqkv
+    and wo), 1 qmatmul (the bf16 head), and kv_update and flash_decode per
+    layer. A 512-row prefill chunk dequantises wqkv and wo (q4 at 256 rows
+    and more) and runs the dense-masked experts, each dequantised in bf16
+    one at a time, as the reference's ``_expert_mat``. The active bytes of
+    a token are held equal to ``q4_moe_active_bytes``."""
+    import numpy as np
+    import torch
+
+    from xalm_tpu_torch.runtime.engine import Engine
+
+    prompt = np.random.default_rng(SEED).integers(3, cfg.vocab_size, size=512).tolist()
+    L = cfg.n_layers
+    eng = Engine(cfg, params, kv_dtype=torch.bfloat16, a8_decode=True)
+    if eng.decode_path(1) != "perlayer":
+        raise AssertionError(f"Mixtral q4 decode path {eng.decode_path(1)!r}, expected 'perlayer'")
+    want_bytes = q4_moe_active_bytes(cfg, params.layers.w13e.q4group, len(prompt))
+    if eng.active_bytes(len(prompt)) != want_bytes:
+        raise AssertionError(f"Mixtral q4 active bytes {eng.active_bytes(len(prompt))}, from the "
+                             f"shapes {want_bytes}")
+    row = _main_run(eng, cfg, prompt, "mixtral q4 g128 perlayer")
+    want = {"qmatmul_multi_q4": 2 * L, "qmatmul_q4": 2 * L, "qmatmul": 1, "kv_update": L,
+            "flash_decode": L, "qmatmul_multi": 0, "fused_decode": 0, "fused_decode_q4": 0}
+    per_token, per_chunk = row["launches_per_decode_token"], row["launches_per_512_chunk"]
+    if (any(per_token[k] != n for k, n in want.items())
+            or per_chunk["qmatmul_q4"] or per_chunk["qmatmul_multi_q4"]
+            or row["launches"]["qmatmul_multi_q4"] != 63 * 2 * L):
+        raise AssertionError(f"Mixtral q4 run: {row['launches']}, per token {per_token}, per "
+                             f"chunk {per_chunk}: expected per token {want}")
+    del eng
+    torch.cuda.empty_cache()
+    return {"launches": row["launches"], "active_gb": want_bytes / 1e9}
+
+
+def phase_wrap_moe_q4(cfg) -> dict:
+    """Phase 5 for the q4 Mixtral: full width, 2 layers, a Q4_WRAP_WINDOW-slot
+    window, a Q4_WRAP_PROMPT-token prompt and Q4_WRAP_STEPS decode steps
+    through three ring wraps (half the i8 Mixtral's: four engines step here,
+    and the plain q4 experts unpack whole experts each step), bf16
+    cache, ``a8_decode``, the per-layer kernels against the plain versions
+    with tokens and routing teacher-forced (``_teacher_forced_moe``), every
+    kernel step from the plain run's cache, held by the int8-activation
+    rule of the q4 body in ``phase_wrap``: beside them the plain engine
+    without int8 activations (its dense-masked experts and dequantised
+    attention, the quant effect) and the control (the kernel engine without
+    them), both following the lead's routing; then the copy model with q4
+    experts (``moe_copy_params`` recoded at group 128), free-running."""
+    import torch
+
+    from xalm_tpu_torch.models.params import recode_params_q4
+    from xalm_tpu_torch.ops import build
+    from xalm_tpu_torch.runtime.engine import Engine
+    from xalm_tpu_torch.utils.synthetic import synthetic_params
+
+    cfg2 = dataclasses.replace(cfg, n_layers=2, max_seq_len=Q4_WRAP_WINDOW)
+    prompt = _moe_wrap_setup(cfg)[1][:Q4_WRAP_PROMPT]
+    steps = Q4_WRAP_STEPS
+
+    def engines(params, c=cfg2):
+        return (Engine(c, params, kv_dtype=torch.bfloat16, matmul_impl="kernel", a8_decode=True),
+                Engine(c, params, kv_dtype=torch.bfloat16, matmul_impl="plain", a8_decode=True))
+
+    params = synthetic_params(cfg2, device=DEVICE, seed=SEED + 3, q4_group=Q4_EXPERT_GROUP)
+    params.layers.wgate.mul_(WRAP_ROUTER_STD / SYNTHETIC_ROUTER_STD)
+    ek, ep = engines(params)
+    if ek.decode_path(1) != "perlayer":
+        raise AssertionError(f"MoE q4 wrap phase: decode path {ek.decode_path(1)!r}")
+    ep0 = Engine(cfg2, params, kv_dtype=torch.bfloat16, matmul_impl="plain")
+    ec = Engine(cfg2, params, kv_dtype=torch.bfloat16, matmul_impl="kernel")
+    build.reset_launches()
+    forced = _teacher_forced_moe(ek, ep, prompt, steps, ep0, ec)
+    forced["qmatmul_multi_q4_launches"] = build.LAUNCHES["qmatmul_multi_q4"]
+    del params, ek, ep, ep0, ec
+    torch.cuda.empty_cache()
+    params, perm_inv = moe_copy_params(cfg2, SEED + 4)
+    params = recode_params_q4(params, Q4_EXPERT_GROUP)
+    copy = _copy_free_running(*engines(params), prompt, steps, perm_inv)
+    row = {"phase": "wrap_moe", "model": "Mixtral-8x7B", "body": f"q4 g{Q4_EXPERT_GROUP}",
+           "decode_path": "perlayer", "kv_dtype": "bfloat16", "layers": 2,
+           "window": Q4_WRAP_WINDOW, "router_std": WRAP_ROUTER_STD, "prompt_tokens": len(prompt),
+           "ring_wraps": _ring_wraps(copy["final_pos"], Q4_WRAP_WINDOW), "tol_rel": WRAP_TOL,
+           "random_teacher_forced": forced, "copy_free_running": copy,
+           "tokens_identical": copy["identical"]}
+    emit(row)
+    if row["ring_wraps"] < 3:
+        raise AssertionError(f"MoE q4 wrap phase: {row['ring_wraps']} ring wraps, expected 3")
+    forced_ok = (not forced["flips_beyond_margin"]
+                 and forced["max_rel_logit_err"] <= max(WRAP_TOL,
+                                                        forced["max_rel_logit_quant_effect"])
+                 and forced["max_rel_logit_err_unquantised"] <= WRAP_TOL
+                 and (forced["step_rule_ok"] or not forced["quant_steps"]))
+    if forced["control"]["step_rule_ok"]:
+        raise AssertionError(f"MoE q4 wrap phase: the step rule passes the control too: {forced}")
+    if not forced_ok or forced["qmatmul_multi_q4_launches"] != steps * 2 * 2:
+        raise AssertionError(f"MoE q4 wrap phase (teacher-forced): {forced}")
+    if not row["tokens_identical"]:
+        raise AssertionError(f"MoE q4 wrap phase (copy model): greedy tokens differ: {copy}")
+    del params
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_parity_f32(params, cfg, cases: Cases) -> None:
+    """Kernel 1's f32 branch against its plain version at Mistral-7B
+    widths, on the drawn f32 body (within F32_TOL of each output row's
+    max): M = 1 wqkv and w13 with the norm prologue, wo, w2 and the f32 head
+    (the GEMV, x staged as f32: 57 KB at w2's 14336 columns), M = 512 w13
+    (the tiled f32 GEMM). Library: ``F.linear`` in f32, TF32 off. Layers
+    cycle so every launch streams its weights cold."""
+    import torch
+    import torch.nn.functional as F
+
+    from xalm_tpu_torch.ops.qmatmul import qmatmul, qmatmul_plain
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 9)
+    lp = params.layers
+    norm_w = torch.rand((cfg.n_layers, cfg.dim), generator=gen, device=dev) + 0.5
+
+    def case(name, m, qw, use_norm, head=False):
+        d, n = qw.values.shape[-2:]
+        values = qw.values[None] if head else qw.values
+        x = torch.randn((m, n), generator=gen, device=dev)
+        kw = dict(norm_w=norm_w, norm_eps=cfg.norm_eps) if use_norm else {}
+        got = qmatmul(x, values, 3 % values.shape[0], **kw)
+        want = qmatmul_plain(x, values, 3 % values.shape[0], **kw)
+        layers = itertools.cycle(range(values.shape[0]))
+        lib_layers = itertools.cycle(range(values.shape[0]))
+        lib = None if use_norm else (lambda: F.linear(x, values[next(lib_layers)]))
+        cases.add("qmatmul_f32", name, got, want, d, F32_TOL,
+                  lambda: qmatmul(x, values, next(layers), **kw),
+                  lambda: qmatmul_plain(x, values, next(layers), **kw),
+                  lib, d * n * 4 + m * n * 4 + m * d * 4 + (n * 4 if use_norm else 0),
+                  2.0 * m * n * d, PEAK_F32,
+                  extra={"library_null": NO_LIBRARY_NORM} if use_norm else None)
+
+    case("M=1 wqkv f32, norm prologue", 1, lp.wqkv, True)
+    case(F32_W13_CASE, 1, lp.w13, True)
+    case("M=1 wo f32", 1, lp.wo, False)
+    case("M=1 w2 f32", 1, lp.w2, False)
+    case("M=1 head f32", 1, params.wcls, False, head=True)
+    case(F32_M512_CASE, 512, lp.w13, False)
+    torch.cuda.empty_cache()
+
+
+def phase_parity_multi_f32(params, cfg, cases: Cases) -> None:
+    """Kernel 8's f32 branch against its plain version at Mixtral-8x7B
+    widths on a 2-layer f32 stack (an f32 Mixtral at 32 layers is 187 GB),
+    within F32_TOL of each output row's max: w13 with x shared, w2 with a
+    row per expert."""
+    import torch
+
+    from xalm_tpu_torch.ops.qmatmul import qmatmul_multi, qmatmul_multi_plain
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 10)
+    lp = params.layers
+    L, E, d, h = cfg.n_layers, cfg.n_experts, cfg.dim, cfg.hidden_dim
+    i32 = lambda *v: torch.tensor(v, dtype=torch.int32, device=dev)  # noqa: E731
+    per_layer = [i32(layer * E + 3, layer * E + 6) for layer in range(L)]
+    for name, qw, x, shared in ((MULTI_F32_W13_CASE, lp.w13e, torch.randn((1, d), generator=gen,
+                                                                          device=dev), True),
+                                (MULTI_F32_W2_CASE, lp.w2e, torch.randn((2, h), generator=gen,
+                                                                        device=dev), False)):
+        values = qw.values.reshape(L * E, *qw.values.shape[2:])
+        dd, n = values.shape[1:]
+        m = x.shape[0] // (1 if shared else 2)
+        got = qmatmul_multi(x, values, None, per_layer[0], shared_x=shared)
+        want = qmatmul_multi_plain(x, values, None, per_layer[0], shared_x=shared)
+        it = itertools.cycle(per_layer)
+        cases.add("qmatmul_multi_f32", name, got, want, dd, F32_TOL,
+                  lambda: qmatmul_multi(x, values, None, next(it), shared_x=shared),
+                  lambda: qmatmul_multi_plain(x, values, None, next(it), shared_x=shared),
+                  None, 2 * dd * n * 4 + x.numel() * 4 + 2 * m * dd * 4, 2.0 * 2 * m * n * dd,
+                  PEAK_F32, extra={"library_null": NO_LIBRARY_MULTI_F32})
+
+
+def phase_main_f32(params, cfg, label: str, want: dict) -> dict:
+    """A main-path run of an f32 model (bf16 cache, the per-layer path: the
+    megakernel needs an i8 body): ``want`` gives the launches per decode
+    token. Returns the run's launches."""
+    import numpy as np
+    import torch
+
+    from xalm_tpu_torch.runtime.engine import Engine
+
+    prompt = np.random.default_rng(SEED).integers(3, cfg.vocab_size, size=512).tolist()
+    eng = Engine(cfg, params, kv_dtype=torch.bfloat16)
+    if eng.decode_path(1) != "perlayer":
+        raise AssertionError(f"{label}: decode path {eng.decode_path(1)!r}, expected 'perlayer'")
+    row = _main_run(eng, cfg, prompt, label)
+    per_token = row["launches_per_decode_token"]
+    if any(per_token[k] != n for k, n in want.items()):
+        raise AssertionError(f"{label} run: {row['launches']}, per token {per_token}: expected "
+                             f"per token {want}")
+    del eng
+    torch.cuda.empty_cache()
+    return {"launches": row["launches"]}
+
+
+def write_format_container(path: str, cfg, kind: str, seed: int) -> None:
+    """A container of cfg's widths written by the port's writer: the body in
+    ``kind`` (f16, or f8_e4m3 given as torch fp8), embed and head in f16 (the
+    JAX converter's 16-bit boost of an fp8 body), f32 norms; random weights
+    of std 0.02 drawn on the card from ``seed``."""
+    import torch
+
+    from xalm_tpu_torch.io import write_xalm
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed)
+    d, h, q, kv = cfg.dim, cfg.hidden_dim, cfg.q_dim, cfg.kv_dim
+    tdt = torch.float16 if kind == "f16" else torch.float8_e4m3fn
+
+    def w(rows, cols, dt=tdt):
+        return (torch.randn((rows, cols), generator=gen, device=DEVICE) * 0.02).to(dt).cpu()
+
+    ones = torch.ones((d,), dtype=torch.float32)
+    tensors = {}
+    for i in range(cfg.n_layers):
+        tensors.update({f"l.{i}.attn.norm.weight": ones, f"l.{i}.attn.q.weight": w(q, d),
+                        f"l.{i}.attn.k.weight": w(kv, d), f"l.{i}.attn.v.weight": w(kv, d),
+                        f"l.{i}.attn.down.weight": w(d, q), f"l.{i}.mlp.norm.weight": ones,
+                        f"l.{i}.mlp.gate.weight": w(h, d), f"l.{i}.mlp.up.weight": w(h, d),
+                        f"l.{i}.mlp.down.weight": w(d, h)})
+    tensors.update({"embed.weight": w(cfg.vocab_size, d, torch.float16),
+                    "output.weight": w(cfg.vocab_size, d, torch.float16),
+                    "output.norm.weight": ones})
+    config = {k: str(getattr(cfg, k)) for k in ("dim", "hidden_dim", "head_dim", "n_layers",
+                                                "n_heads", "n_kv_heads", "vocab_size",
+                                                "max_seq_len", "rope_theta", "rotary_dim",
+                                                "norm_eps")}
+    config["act_type"] = cfg.act
+    write_xalm(path, "MistralForCausalLM", config, tensors)
+
+
+def phase_load_modes(cfg) -> dict:
+    """f16 and f8_e4m3 containers at Mistral-7B width, 2 layers (written by
+    ``write_format_container`` into build/), loaded with
+    ``Engine.from_xalm(device="cuda")`` and its "auto" modes: the f16 body
+    and f16 head load as bf16 and decode per layer on kernel 1's bf16
+    branch (4L + 1 qmatmul launches a token); the fp8 body loads as i8 rows
+    and decodes on the i8 megakernel (one fused_decode launch a token), its
+    f16 head as bf16 on kernel 1. Each: ``Engine.generate`` of a 512-token
+    prompt and 64 tokens (the launches counted), then prefill and 64
+    decode steps teacher-forced against ``matmul_impl="plain"`` on the same
+    loaded params, every step's logits within WRAP_TOL of their max.
+    Returns the launches of the generate runs, summed."""
+    import numpy as np
+    import torch
+
+    from xalm_tpu_torch.ops import build
+    from xalm_tpu_torch.runtime.engine import Engine
+
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    L = cfg2.n_layers
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "formats")
+    os.makedirs(out_dir, exist_ok=True)
+    prompt = np.random.default_rng(SEED + 6).integers(3, cfg.vocab_size, size=512).tolist()
+    launches = dict.fromkeys(build.LAUNCHES, 0)
+    for kind, body, path, want in (
+            ("f16", torch.bfloat16, "perlayer", {"qmatmul": 4 * L + 1, "fused_decode": 0}),
+            ("f8_e4m3", torch.int8, "megakernel", {"fused_decode": 1, "qmatmul": 1})):
+        file = os.path.join(out_dir, f"mistral_2l_{kind}.xalm")
+        t0 = time.perf_counter()
+        write_format_container(file, cfg2, kind, SEED + 11)
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ek = Engine.from_xalm(file, device=DEVICE)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        os.remove(file)
+        lw = ek.params.layers
+        name = lambda qw: str(qw.values.dtype).split(".")[-1]  # noqa: E731
+        loaded = {n: name(getattr(lw, n)) for n in ("wqkv", "wo", "w13", "w2")}
+        loaded.update(embed=name(ek.params.embed), head=name(ek.params.wcls))
+        if (any(getattr(lw, n).values.dtype != body for n in ("wqkv", "wo", "w13", "w2"))
+                or ek.params.wcls.values.dtype != torch.bfloat16 or ek.decode_path(1) != path):
+            raise AssertionError(f"{kind} container: loaded {loaded}, decode path "
+                                 f"{ek.decode_path(1)!r}; expected {body} body, bf16 head, {path}")
+        build.reset_launches()
+        out, _ = ek.generate(prompt, 64, stop_on_eos=False)
+        torch.cuda.synchronize()
+        run = dict(build.LAUNCHES)
+        build.reset_launches()
+        lk, ck, pos = ek.prefill(prompt, ek.new_cache(1))
+        build.reset_launches()
+        lk, ck = ek.decode(np.array([out[-1]]), np.array([pos], np.int32), ck)
+        per_token = dict(build.LAUNCHES)
+        if len(out) != 64 or any(per_token[k] != n for k, n in want.items()):
+            raise AssertionError(f"{kind} container run: {run}, per token {per_token}: expected "
+                                 f"per token {want}")
+        ep = Engine(ek.cfg, ek.params, matmul_impl="plain")
+        forced = _teacher_forced(ek, ep, prompt, 64)
+        row = {"phase": "load_mode", "model": "Mistral-7B", "layers": L, "container": kind,
+               "loaded": loaded, "decode_path": path, "write_s": t_write, "load_s": t_load,
+               "launches": run, "launches_per_decode_token": per_token, "tol_rel": WRAP_TOL,
+               "teacher_forced_vs_plain": forced}
+        emit(row)
+        if forced["max_rel_logit_err"] > WRAP_TOL:
+            raise AssertionError(f"{kind} container: kernel against plain {forced}")
+        launches = {k: launches[k] + run[k] for k in launches}
+        del ek, ep
+        torch.cuda.empty_cache()
+    return {"launches": launches}
+
+
+def phase_formats(cases: Cases) -> dict:
+    """The weight formats' phases 3-5, one model at a time: Mixtral-8x7B q4
+    (drawn packed at group 128, 24.6 GB), Mistral-7B f32 (28.5 GB), a
+    2-layer f32 Mixtral, the f32 wrap, and the load modes. Returns the
+    main-path launches of each run by name."""
+    import torch
+
+    from xalm_tpu_torch.models.config import MISTRAL_7B, MIXTRAL_8X7B
+    from xalm_tpu_torch.utils.synthetic import synthetic_params
+
+    runs = {}
+    cfg = MIXTRAL_8X7B
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = synthetic_params(cfg, device=DEVICE, seed=SEED, q4_group=Q4_EXPERT_GROUP)
+    torch.cuda.synchronize()
+    emit({"phase": "weights", "model": f"Mixtral-8x7B q4 g{Q4_EXPERT_GROUP}", "seconds":
+          time.perf_counter() - t0, "gb": params.nbytes() / 1e9,
+          "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+    with torch.inference_mode():
+        phase_parity_multi_q4(params, cfg, cases)
+    runs["mixtral_q4"] = phase_main_moe_q4(params, cfg)
+    del params
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        phase_wrap_moe_q4(cfg)
+
+    cfg = MISTRAL_7B
+    t0 = time.perf_counter()
+    params = synthetic_params(cfg, device=DEVICE, seed=SEED, weight_dtype=torch.float32,
+                              embed_dtype=torch.float32)
+    torch.cuda.synchronize()
+    emit({"phase": "weights", "model": "Mistral-7B f32", "seconds": time.perf_counter() - t0,
+          "gb": params.nbytes() / 1e9})
+    with torch.inference_mode():
+        phase_parity_f32(params, cfg, cases)
+    L = cfg.n_layers
+    runs["mistral_f32"] = phase_main_f32(params, cfg, "mistral f32 perlayer", {
+        "qmatmul_f32": 4 * L + 1, "qmatmul": 0, "kv_update": L, "flash_decode": L,
+        "fused_decode": 0})
+    del params
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(MIXTRAL_8X7B, n_layers=2)
+    params = synthetic_params(cfg, device=DEVICE, seed=SEED, weight_dtype=torch.float32)
+    with torch.inference_mode():
+        phase_parity_multi_f32(params, cfg, cases)
+    runs["mixtral_f32_2l"] = phase_main_f32(params, cfg, "mixtral f32 2 layers perlayer", {
+        "qmatmul_multi_f32": 4, "qmatmul_f32": 4, "qmatmul": 1, "qmatmul_multi": 0})
+    del params
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        phase_wrap(MISTRAL_7B, bodies=[F32_WRAP_BODY])
+    runs["load_modes"] = phase_load_modes(MISTRAL_7B)
+    return {name: r["launches"] for name, r in runs.items()}
 
 
 SUMMARY = {
@@ -2238,6 +2814,14 @@ SUMMARY = {
                            "xalm_tpu/ops/fused_decode.py:943", "B=1 kv_len=520, embed fold"),
     "fused_decode_gemma2": ("cuda", "xalm_tpu_torch/csrc/fused_decode.cu",
                             "xalm_tpu/ops/fused_decode.py:789", "B=1 kv_len=520, embed fold"),
+    # the weight formats: kernel 8's q4 branch (Mixtral-8x7B q4), the f32
+    # branches of kernels 1 (Mistral-7B f32) and 8 (a 2-layer f32 Mixtral)
+    "qmatmul_multi_q4": ("cuda", "xalm_tpu_torch/csrc/qmatmul.cu",
+                         "xalm_tpu/ops/pallas_matmul.py:350", MULTI_Q4_W13_CASE),
+    "qmatmul_f32": ("cuda", "xalm_tpu_torch/csrc/qmatmul.cu", "xalm_tpu/ops/pallas_matmul.py:151",
+                    F32_W13_CASE),
+    "qmatmul_multi_f32": ("cuda", "xalm_tpu_torch/csrc/qmatmul.cu",
+                          "xalm_tpu/ops/pallas_matmul.py:348", MULTI_F32_W13_CASE),
 }
 # kernels 2-7 at head_dim 256 (Gemma-7B shapes, group 1) and 96 (Phi-3-mini),
 # and the ring insert at Gemma-2-9B's (group 2; its only attention kernel)
@@ -2250,7 +2834,40 @@ INT8_CASE = dict.fromkeys(("fused_decode", "fused_decode_bias", "fused_decode_qk
                            "fused_decode_gemma", "fused_decode_gemma2"),
                           "int8 KV, B=1 kv_len=520, embed fold")
 # a further case of the kernels line: the down projection of the experts
-ALSO_CASE = {"qmatmul_multi": MULTI_W2_CASE}
+ALSO_CASE = {"qmatmul_multi": MULTI_W2_CASE, "qmatmul_multi_q4": MULTI_Q4_W2_CASE,
+             "qmatmul_f32": F32_M512_CASE, "qmatmul_multi_f32": MULTI_F32_W2_CASE}
+
+
+def kernels_line(cases: Cases, launches: dict) -> list[dict]:
+    """The kernels line: for each row of SUMMARY, its representative parity
+    case's times and bound, the largest error of all its cases, and its
+    launches on the main paths."""
+    kernels = []
+    for kname, (route, src, replaces, rep) in SUMMARY.items():
+        rows = [r for r in cases.rows if r["kernel"] == kname]
+        r = next(r for r in rows if r["case"] == rep)
+        entry = {
+            "name": kname, "route": route, "source": src, "replaces": replaces,
+            "launches": launches[kname],
+            "max_abs_err": max(x["max_abs_err"] for x in rows),
+            "ms": r["kernel_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"], "case": rep,
+        }
+        if kname in ALSO_REPLACES:
+            entry["also_replaces"] = ALSO_REPLACES[kname]
+        if r["library_ms"] is None and "library_null" in r:
+            entry["library_null"] = r["library_null"]
+        if kname in ALSO_CASE:
+            q = next(x for x in rows if x["case"] == ALSO_CASE[kname])
+            entry["also_case"] = {"case": q["case"], "ms": q["kernel_ms"], "plain_ms": q["plain_ms"],
+                                  "bound_ms": q["bound_ms"], "bound_by": q["bound_by"],
+                                  "library_ms": q["library_ms"]}
+        if kname in INT8_CASE:
+            q = next(x for x in rows if x["case"] == INT8_CASE[kname])
+            entry["int8_kv"] = {"case": q["case"], "ms": q["kernel_ms"], "plain_ms": q["plain_ms"],
+                                "bound_ms": q["bound_ms"], "bound_by": q["bound_by"]}
+        kernels.append(entry)
+    return kernels
 
 
 def kernel_device_ms(fn, frag: str, iters: int = 20) -> float | str:
@@ -2422,8 +3039,10 @@ def main(argv=None) -> int:
         phase_wrap_moe(cfg)
         phase_router_witness(cfg)
     fam_launches = phase_families(cases)
+    fmt_launches = phase_formats(cases)
     launches = {k: main_row["launches"][k] + moe_row["launches"][k]
-                + sum(run[k] for run in fam_launches.values()) for k in main_row["launches"]}
+                + sum(run[k] for run in fam_launches.values())
+                + sum(run[k] for run in fmt_launches.values()) for k in main_row["launches"]}
     for tag, (model, wrappers) in SHAPE_ROWS.items():
         for w in wrappers:
             launches[w + tag] = fam_launches[model][w]
@@ -2431,32 +3050,7 @@ def main(argv=None) -> int:
     if missing:
         raise AssertionError(f"kernels never launched on the main paths: {missing}")
 
-    kernels = []
-    for kname, (route, src, replaces, rep) in SUMMARY.items():
-        rows = [r for r in cases.rows if r["kernel"] == kname]
-        r = next(r for r in rows if r["case"] == rep)
-        entry = {
-            "name": kname, "route": route, "source": src, "replaces": replaces,
-            "launches": launches[kname],
-            "max_abs_err": max(x["max_abs_err"] for x in rows),
-            "ms": r["kernel_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"], "case": rep,
-        }
-        if kname in ALSO_REPLACES:
-            entry["also_replaces"] = ALSO_REPLACES[kname]
-        if r["library_ms"] is None and "library_null" in r:
-            entry["library_null"] = r["library_null"]
-        if kname in ALSO_CASE:
-            q = next(x for x in rows if x["case"] == ALSO_CASE[kname])
-            entry["also_case"] = {"case": q["case"], "ms": q["kernel_ms"], "plain_ms": q["plain_ms"],
-                                  "bound_ms": q["bound_ms"], "bound_by": q["bound_by"],
-                                  "library_ms": q["library_ms"]}
-        if kname in INT8_CASE:
-            q = next(x for x in rows if x["case"] == INT8_CASE[kname])
-            entry["int8_kv"] = {"case": q["case"], "ms": q["kernel_ms"], "plain_ms": q["plain_ms"],
-                                "bound_ms": q["bound_ms"], "bound_by": q["bound_by"]}
-        kernels.append(entry)
-    emit({"kernels": kernels})
+    emit({"kernels": kernels_line(cases, launches)})
     emit({"phase": "done", "seconds": time.perf_counter() - T0})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

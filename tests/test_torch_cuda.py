@@ -77,14 +77,22 @@ CONFIG = dict(dim=256, hidden_dim=512, head_dim=128, n_layers=2, n_heads=4, n_kv
               vocab_size=320, max_seq_len=48, rope_theta=1e4, rotary_dim=128)
 
 
-def _i8(rng, tensors, name, rows, cols):
+def _i8(rng, tensors, name, rows, cols, kind="i8"):
+    """A random weight in the container type ``kind``: i8 with per-row
+    scales, or f16 / f8_e4m3 (torch fp8: the writer stores its raw bytes)."""
     w = rng.normal(size=(rows, cols)).astype(np.float32) * 0.05
+    if kind == "f16":
+        tensors[name] = w.astype(np.float16)
+        return
+    if kind == "f8_e4m3":
+        tensors[name] = torch.from_numpy(w * 8).to(torch.float8_e4m3fn)
+        return
     scale = np.abs(w).max(axis=1) / 127.0
     tensors[name] = np.clip(np.round(w / scale[:, None]), -127, 127).astype(np.int8)
     tensors[name + ".scale"] = scale.astype(np.float32)
 
 
-def write_port_container(path: str, seed: int = 0) -> str:
+def write_port_container(path: str, seed: int = 0, kind: str = "i8") -> str:
     c = CONFIG
     rng = np.random.default_rng(seed)
     words = [b"<unk>", b"<s>", b"</s>"] + [b"<0x%02X>" % i for i in range(256)]
@@ -94,14 +102,14 @@ def write_port_container(path: str, seed: int = 0) -> str:
     d, h, hd = c["dim"], c["hidden_dim"], c["head_dim"]
     for i in range(c["n_layers"]):
         tensors[f"l.{i}.attn.norm.weight"] = (rng.random(d) + 0.5).astype(np.float32)
-        _i8(rng, tensors, f"l.{i}.attn.q.weight", c["n_heads"] * hd, d)
-        _i8(rng, tensors, f"l.{i}.attn.k.weight", c["n_kv_heads"] * hd, d)
-        _i8(rng, tensors, f"l.{i}.attn.v.weight", c["n_kv_heads"] * hd, d)
-        _i8(rng, tensors, f"l.{i}.attn.down.weight", d, c["n_heads"] * hd)
+        _i8(rng, tensors, f"l.{i}.attn.q.weight", c["n_heads"] * hd, d, kind)
+        _i8(rng, tensors, f"l.{i}.attn.k.weight", c["n_kv_heads"] * hd, d, kind)
+        _i8(rng, tensors, f"l.{i}.attn.v.weight", c["n_kv_heads"] * hd, d, kind)
+        _i8(rng, tensors, f"l.{i}.attn.down.weight", d, c["n_heads"] * hd, kind)
         tensors[f"l.{i}.mlp.norm.weight"] = (rng.random(d) + 0.5).astype(np.float32)
-        _i8(rng, tensors, f"l.{i}.mlp.gate.weight", h, d)
-        _i8(rng, tensors, f"l.{i}.mlp.up.weight", h, d)
-        _i8(rng, tensors, f"l.{i}.mlp.down.weight", d, h)
+        _i8(rng, tensors, f"l.{i}.mlp.gate.weight", h, d, kind)
+        _i8(rng, tensors, f"l.{i}.mlp.up.weight", h, d, kind)
+        _i8(rng, tensors, f"l.{i}.mlp.down.weight", d, h, kind)
     for name in ("embed.weight", "output.weight"):
         tensors[name] = torch.from_numpy(rng.normal(size=(c["vocab_size"], d)).astype(np.float32)
                                          * 0.1).to(torch.bfloat16)
@@ -351,8 +359,8 @@ def test_qmatmul_multi_refuses_what_it_does_not_take(dev):
     w = torch.zeros((4, 64, 128), dtype=torch.float32, device=dev)
     x = torch.zeros((1, 128), device=dev)
     idxs = torch.tensor([0, 1], dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError):  # f32 weights: the plain version's only
-        qmatmul_multi(x, w, None, idxs)
+    with pytest.raises(ValueError, match="weight dtype"):  # f16: no kernel dtype, as on the TPU
+        qmatmul_multi(x, w.half(), None, idxs)
     w8 = w.to(torch.int8)
     for bad in (idxs.long(), idxs.cpu()):
         with pytest.raises(ValueError):
@@ -371,34 +379,42 @@ def _small_mixtral(dev, seed):
     return cfg, synthetic_params(cfg, device=dev, seed=seed)
 
 
-def test_engine_moe_f32_experts_refused_on_the_kernel_path(dev):
-    """f32 experts on the card: a kernel-path decode step gathers them and
-    qmatmul_multi refuses them (no quiet turn to the plain version); the
-    plain path runs them through the dense-masked experts."""
+def test_engine_moe_float_experts_on_the_kernel_path(dev):
+    """f32 experts on the card: a kernel-path decode step gathers them
+    through qmatmul_multi's f32 branch (refused before); f16 experts run
+    dense-masked on both paths, as the JAX gate sends them (the kernel takes
+    no f16). Logits within 2e-2 of the plain path's max, the bar of
+    ``test_engine_moe_kernels_match_plain_through_wraps``: the experts agree
+    to f32 rounding, but the i8 attention rounds its inputs to bf16 and the
+    cache is bf16, so an f32 ulp upstream can flip a rounding (1.4e-3 on an
+    H100)."""
     from xalm_tpu_torch.models.llama import gathered_ok
     from xalm_tpu_torch.models.params import QWeight
     from xalm_tpu_torch.runtime.engine import Engine
 
     cfg, params = _small_mixtral(dev, 6)
     lw = params.layers
-
-    def f32(qw):
-        return QWeight(qw.values.float() * qw.scale[..., None], None)
-
-    params = dataclasses.replace(params, layers=dataclasses.replace(lw, w13e=f32(lw.w13e),
-                                                                     w2e=f32(lw.w2e)))
-    assert gathered_ok(params.layers.w13e, "kernel") and not gathered_ok(params.layers.w13e, "plain")
     prompt = list(range(3, 12))
     tok = np.array([5])
-    ek = Engine(cfg, params, matmul_impl="kernel")
-    _, ck, pos = ek.prefill(prompt, ek.new_cache(1))  # a prefill chunk: dense-masked experts
-    with pytest.raises(ValueError, match="weight dtype"):
-        ek.decode(tok, np.array([pos], np.int32), ck)
-    ep = Engine(cfg, params, matmul_impl="plain")
-    _, cp, pos = ep.prefill(prompt, ep.new_cache(1))
-    build.reset_launches()
-    lg, _ = ep.decode(tok, np.array([pos], np.int32), cp)
-    assert torch.isfinite(lg).all() and build.LAUNCHES["qmatmul_multi"] == 0
+    for dt, gathered in ((torch.float32, True), (torch.float16, False)):
+        def dequant(qw):
+            return QWeight((qw.values.float() * qw.scale[..., None]).to(dt), None)
+
+        p = dataclasses.replace(params, layers=dataclasses.replace(lw, w13e=dequant(lw.w13e),
+                                                                    w2e=dequant(lw.w2e)))
+        assert gathered_ok(p.layers.w13e, "kernel") == gathered
+        assert gathered_ok(p.layers.w13e, "plain") == gathered
+        logits = []
+        for impl in ("kernel", "plain"):
+            eng = Engine(cfg, p, matmul_impl=impl)
+            _, c, pos = eng.prefill(prompt, eng.new_cache(1))  # a prefill chunk: dense-masked
+            build.reset_launches()
+            lg, _ = eng.decode(tok, np.array([pos], np.int32), c)
+            assert torch.isfinite(lg).all()
+            launches = build.LAUNCHES["qmatmul_multi_f32"] + build.LAUNCHES["qmatmul_multi"]
+            assert launches == (2 * cfg.n_layers if impl == "kernel" and gathered else 0), impl
+            logits.append(lg)
+        assert float((logits[0] - logits[1]).abs().max()) <= 2e-2 * float(logits[1].abs().max())
 
 
 def test_engine_moe_kernels_match_plain_through_wraps(dev):
@@ -622,7 +638,12 @@ def test_kernel_engine_refuses_a_cache_the_kernels_do_not_take(dev, kv_dtype):
     assert Engine(cfg, params, kv_dtype=kv_dtype, matmul_impl="plain").decode_path(1) == "plain"
 
 
-def test_kernel_engine_refuses_weights_the_kernel_does_not_take(dev):
+def test_kernel_engine_takes_f32_and_f16_heads(dev):
+    """An f32 head runs kernel 1's f32 branch on the card (it was refused
+    before); an f16 head, no kernel dtype, the plain product (the JAX
+    ``_pallas_ok`` sends it to XLA). Prefill logits within 1e-3 of the plain
+    path's max |logits|: the body's i8 matmuls round their inputs to bf16 on
+    both paths, and a sum in another order can flip one such rounding."""
     from xalm_tpu_torch.models.params import QWeight
     from xalm_tpu_torch.runtime.engine import Engine
     from xalm_tpu_torch.utils.synthetic import synthetic_params
@@ -630,11 +651,15 @@ def test_kernel_engine_refuses_weights_the_kernel_does_not_take(dev):
     cfg = dataclasses.replace(MISTRAL_7B, dim=256, hidden_dim=512, n_layers=1,
                               vocab_size=64, max_seq_len=32)
     params = synthetic_params(cfg, device=dev, seed=0)
-    params.wcls = QWeight(params.wcls.values.float(), None)  # an f32 head
-    with pytest.raises(ValueError, match="weight dtype"):
-        Engine(cfg, params).generate([3, 4, 5], 2, stop_on_eos=False)
-    assert len(Engine(cfg, params, matmul_impl="plain").generate([3, 4, 5], 2,
-                                                                  stop_on_eos=False)[0]) == 2
+    for dt in (torch.float32, torch.float16):
+        p = dataclasses.replace(params, wcls=QWeight(params.wcls.values.to(dt), None))
+        ek, ep = Engine(cfg, p, fused_step=False), Engine(cfg, p, matmul_impl="plain")
+        build.reset_launches()
+        lk, _, _ = ek.prefill([3, 4, 5], ek.new_cache(1))
+        assert build.LAUNCHES["qmatmul"] == 4 * cfg.n_layers  # the i8 body
+        assert build.LAUNCHES["qmatmul_f32"] == (1 if dt == torch.float32 else 0), dt
+        lp, _, _ = ep.prefill([3, 4, 5], ep.new_cache(1))
+        assert float((lk - lp).abs().max()) <= 1e-3 * float(lp.abs().max()), dt
 
 
 def test_harness_on_the_card(dev, tmp_path, capsys):
@@ -1223,3 +1248,219 @@ def test_engine_gemma_families_on_the_card(dev, fam):
         want, _ = Engine(cfg, params, matmul_impl="plain", **kw).generate(prompt, 8,
                                                                           stop_on_eos=False)
         assert out[:3] == want[:3], kw
+
+
+# ---- every weight format: q4 experts, f32 weights, the f16 and fp8 load modes
+
+
+def _q4_stack(dev, g, le, d, n, group):
+    """Random packed-q4 experts (LE, D, N/2) with (LE, D, N/group) scales."""
+    w = torch.randint(-128, 128, (le, d, n // 2), dtype=torch.int8, device=dev, generator=g)
+    return w, (torch.rand((le, d, n // group), device=dev, generator=g) * 0.01 + 1e-3)
+
+
+@pytest.mark.parametrize("group", [128, 512])
+@pytest.mark.parametrize("m,shared,n", [(1, True, 4096), (1, False, 14336), (3, True, 2048),
+                                        (10, False, 2048), (20, True, 1024)])
+def test_qmatmul_multi_q4_bit_equal_to_plain(dev, group, m, shared, n):
+    """The gathered q4 expert matmul against its plain version, bit-equal:
+    Mixtral's w13 (x shared, 4096 wide) and w2 (one row per expert, 14336
+    wide) shapes, and m past 8 (row groups)."""
+    if n % (2 * group):
+        pytest.skip("the group does not divide N/2")
+    g = torch.Generator(device=dev).manual_seed(m + n + group)
+    le, d = 12, 1000
+    w, scale = _q4_stack(dev, g, le, d, n, group)
+    idxs = torch.tensor([11, 2, 7], dtype=torch.int32, device=dev)
+    x = torch.randn((m if shared else 3 * m, n), device=dev, generator=g) * 3
+    build.reset_launches()
+    got = qmatmul_multi(x, w, scale, idxs, shared_x=shared, q4_group=group)
+    assert build.LAUNCHES["qmatmul_multi_q4"] == 1 and build.LAUNCHES["qmatmul_multi"] == 0
+    want = qmatmul_multi_plain(x, w, scale, idxs, shared_x=shared, q4_group=group)
+    assert got.shape == want.shape == (3 * m, d)
+    assert torch.equal(got, want)
+
+
+def test_qmatmul_multi_q4_64bit_offsets(dev):
+    """An expert whose packed rows start past 2^31 bytes into the stack, and
+    an index outside the stack (NaN rows, never a stray read)."""
+    le, d, n, group = 18, 16384, 16384, 128  # 128 MiB of codes an expert, 2.25 GiB in all
+    if torch.cuda.mem_get_info(dev)[0] < 6 * 2**30:
+        pytest.skip("needs 6 GiB of free device memory")
+    g = torch.Generator(device=dev).manual_seed(10)
+    w, scale = _q4_stack(dev, g, le, d, n, group)
+    assert 17 * d * n // 2 >= 2**31
+    x = torch.randn((1, n), device=dev, generator=g)
+    idxs = torch.tensor([17, 0], dtype=torch.int32, device=dev)
+    got = qmatmul_multi(x, w, scale, idxs, q4_group=group)
+    assert torch.equal(got, qmatmul_multi_plain(x, w, scale, idxs, q4_group=group))
+    bad = qmatmul_multi(x, w, scale, torch.tensor([le, 1], dtype=torch.int32, device=dev),
+                        q4_group=group)
+    one = torch.tensor([1], dtype=torch.int32, device=dev)
+    assert torch.isnan(bad[0]).all()
+    assert torch.equal(bad[1:], qmatmul_multi_plain(x, w, scale, one, q4_group=group))
+
+
+@pytest.mark.parametrize("m,n", [(1, 1024), (4, 1024), (8, 4096), (1, 14336), (4, 14336),
+                                 (100, 1024), (512, 2048)])
+def test_qmatmul_f32_matches_plain(dev, m, n):
+    """Kernel 1's f32 branch against its plain version (f32 products, no
+    bf16 rounding), within 1e-5 of each output row's max: the same f32
+    products summed in another order. M = 1 at N = 14336 stages 57 KB of x
+    (past the 48 KB opt-in); M = 4 at 14336 and M >= 100 take the tiled f32
+    GEMM."""
+    g = torch.Generator(device=dev).manual_seed(m + n)
+    l, d = 2, 1000
+    w = torch.randn((l, d, n), device=dev, generator=g) * 0.02
+    x = torch.randn((m, n), device=dev, generator=g)
+    nw = torch.rand((l, n), device=dev, generator=g) + 0.5
+    for extra in ({}, dict(norm_w=nw, norm_eps=1e-5)):
+        build.reset_launches()
+        got = qmatmul(x, w, 1, **extra)
+        assert build.LAUNCHES["qmatmul_f32"] == 1 and build.LAUNCHES["qmatmul"] == 0
+        assert _row_rel(got, qmatmul_plain(x, w, 1, **extra), d) <= 1e-5, extra.keys()
+
+
+@pytest.mark.parametrize("m,shared,n", [(1, True, 4096), (1, False, 14336), (4, True, 1040)])
+def test_qmatmul_multi_f32_matches_plain(dev, m, shared, n):
+    """Kernel 8's f32 branch (x staged as f32) within 1e-5 of each output
+    row's max."""
+    g = torch.Generator(device=dev).manual_seed(m + n)
+    w = torch.randn((12, 500, n), device=dev, generator=g) * 0.02
+    idxs = torch.tensor([11, 2, 7], dtype=torch.int32, device=dev)
+    x = torch.randn((m if shared else 3 * m, n), device=dev, generator=g)
+    build.reset_launches()
+    got = qmatmul_multi(x, w, None, idxs, shared_x=shared)
+    assert build.LAUNCHES["qmatmul_multi_f32"] == 1 and build.LAUNCHES["qmatmul_multi"] == 0
+    assert _row_rel(got, qmatmul_multi_plain(x, w, None, idxs, shared_x=shared), 500) <= 1e-5
+
+
+def test_engine_moe_q4_on_the_card(dev):
+    """A small Mixtral with packed-q4 experts (drawn packed), kernels against
+    plain versions, each kernel step from the plain run's cache: under
+    ``a8_decode`` one qmatmul_multi_q4 launch per matmul (2 a layer and
+    token) and every step's logits within 5e-2 of their max (int8
+    activations: a code a count apart moves a step,
+    ``test_fused_decode_a8_q4_match_plain``'s bar); without it the
+    dense-masked experts and no gathered launch."""
+    from xalm_tpu_torch.models.config import MIXTRAL_8X7B
+    from xalm_tpu_torch.runtime.engine import Engine
+    from xalm_tpu_torch.utils.synthetic import synthetic_params
+
+    cfg = dataclasses.replace(MIXTRAL_8X7B, dim=512, hidden_dim=1024, n_layers=2,
+                              vocab_size=512, max_seq_len=64)
+    params = synthetic_params(cfg, device=dev, seed=7, q4_group=128)
+    prompt = list(range(3, 40))
+    ek = Engine(cfg, params, matmul_impl="kernel", a8_decode=True)
+    ep = Engine(cfg, params, matmul_impl="plain", a8_decode=True)
+    assert ek.decode_path(1) == "perlayer"
+    lp, cp, pos = ep.prefill(prompt, ep.new_cache(1))
+    ck = ek.new_cache(1)
+    build.reset_launches()
+    for _ in range(16):
+        tok = np.array([int(lp.argmax())])
+        ck.k.copy_(cp.k)
+        ck.v.copy_(cp.v)
+        lk, ck = ek.decode(tok, np.array([pos], np.int32), ck)
+        lp, cp = ep.decode(tok, np.array([pos], np.int32), cp)
+        assert torch.isfinite(lk).all()
+        assert float((lk - lp).abs().max()) <= 5e-2 * float(lp.abs().max()), pos
+        pos += 1
+    assert build.LAUNCHES["qmatmul_multi_q4"] == 16 * 2 * 2
+    assert build.LAUNCHES["qmatmul_q4"] == 16 * 2 * 2  # wqkv and wo
+    e0 = Engine(cfg, params, matmul_impl="kernel")
+    assert e0.decode_path(1) == "xla"
+    build.reset_launches()
+    lg, _ = e0.decode(np.array([5]), np.array([0], np.int32), e0.new_cache(1))
+    assert torch.isfinite(lg).all() and build.LAUNCHES["qmatmul_multi_q4"] == 0
+
+
+def test_engine_f32_body_on_the_card(dev):
+    """An f32 body and head (``synthetic_params(weight_dtype=, embed_dtype=)``)
+    on kernel 1's f32 branch, per layer (the megakernel needs an i8 body),
+    against the plain path through a ring wrap, teacher-forced: each step's
+    logits within 2e-2 of their max, the bar of
+    ``test_engine_kernels_match_plain_through_wraps`` (the matmuls agree to
+    f32 rounding, but the cache is bf16: a K or V value an f32 ulp apart can
+    round the other way and stays in the ring)."""
+    from xalm_tpu_torch.runtime.engine import Engine
+    from xalm_tpu_torch.utils.synthetic import synthetic_params
+
+    cfg = dataclasses.replace(MISTRAL_7B, **FUSED_CFG)
+    params = synthetic_params(cfg, device=dev, seed=8, weight_dtype=torch.float32,
+                              embed_dtype=torch.float32)
+    ek, ep = Engine(cfg, params), Engine(cfg, params, matmul_impl="plain")
+    assert ek.decode_path(1) == "perlayer"
+    prompt = list(range(3, 30))
+    build.reset_launches()
+    lk, ck, pos = ek.prefill(prompt, ek.new_cache(1))
+    assert build.LAUNCHES["qmatmul_f32"] == 4 * cfg.n_layers + 1
+    assert build.LAUNCHES["qmatmul"] == 0
+    lp, cp, _ = ep.prefill(prompt, ep.new_cache(1))
+    for _ in range(cfg.max_seq_len):
+        assert float((lk - lp).abs().max()) <= 2e-2 * float(lp.abs().max()), pos
+        tok = np.array([int(lp.argmax())])
+        lk, ck = ek.decode(tok, np.array([pos], np.int32), ck)
+        lp, cp = ep.decode(tok, np.array([pos], np.int32), cp)
+        pos += 1
+
+
+@pytest.mark.parametrize("kind", ["f16", "f8_e4m3"])
+def test_engine_f16_and_fp8_containers_on_the_card(dev, tmp_path, kind):
+    """Containers the port writes in f16 and f8_e4m3, loaded with
+    ``Engine.from_xalm`` on the card ("auto" modes): the f16 body loads as
+    bf16 and runs kernel 1's bf16 branch per layer, the fp8 body as i8 rows
+    and runs the i8 megakernel. Prefill logits against the plain path on the
+    same loaded params within 2e-2 of their max (the bar of
+    ``test_engine_kernels_match_plain_through_wraps``: an activation rounded
+    to bf16 the other way moves by 2^-8)."""
+    from xalm_tpu_torch.runtime.engine import Engine
+
+    path = write_port_container(str(tmp_path / f"{kind}.xalm"), seed=3, kind=kind)
+    ek = Engine.from_xalm(path, device="cuda")
+    body = ek.params.layers.w13
+    if kind == "f16":
+        assert body.values.dtype == torch.bfloat16 and body.scale is None
+        assert ek.params.wcls.values.dtype == torch.bfloat16
+        assert ek.decode_path(1) == "perlayer"
+    else:
+        assert body.values.dtype == torch.int8 and body.scale is not None
+        assert ek.decode_path(1) == "megakernel"
+    ep = Engine(ek.cfg, ek.params, ek.tokenizer, matmul_impl="plain")
+    build.reset_launches()
+    out, _ = ek.generate([3, 4, 5, 6], 12, stop_on_eos=False)
+    if kind == "f16":
+        assert build.LAUNCHES["qmatmul"] > 0 and build.LAUNCHES["fused_decode"] == 0
+    else:
+        assert build.LAUNCHES["fused_decode"] == 11
+    assert len(out) == 12
+    lk, _, _ = ek.prefill([3, 4, 5, 6, 7], ek.new_cache(1))
+    lp, _, _ = ep.prefill([3, 4, 5, 6, 7], ep.new_cache(1))
+    assert float((lk - lp).abs().max()) <= 2e-2 * float(lp.abs().max())
+
+
+def test_f32_cache_never_reaches_the_megakernel_on_the_card(dev):
+    """An f32 cache with an i8 body on the card: the megakernel's gate
+    refuses it (``csrc/fused_decode.cu`` takes bf16 or int8), so
+    ``forward(fused_step="auto")`` takes the per-layer path, whose attention
+    kernels refuse it in turn, with their own message, and the engine
+    refuses it up front. Before, the gate took it and the megakernel's
+    wrapper raised at the first decode step."""
+    from xalm_tpu_torch.models.llama import forward
+    from xalm_tpu_torch.ops import fused_decode as fd
+    from xalm_tpu_torch.runtime.cache import KVCache
+    from xalm_tpu_torch.runtime.engine import Engine
+    from xalm_tpu_torch.utils.synthetic import synthetic_params
+
+    cfg = dataclasses.replace(MISTRAL_7B, **FUSED_CFG)
+    params = synthetic_params(cfg, device=dev, seed=2)
+    cache = KVCache.init(cfg, 1, torch.float32, dev)
+    assert not fd.fused_step_supported(cfg, params, cache.k, 1, 1)
+    build.reset_launches()
+    with pytest.raises(ValueError) as err:
+        forward(params, cfg, torch.tensor([[5]]), torch.tensor([3], dtype=torch.int32), cache,
+                fused_step="auto")
+    assert "fused_decode_step" not in str(err.value) and "kv_update" in str(err.value)
+    assert build.LAUNCHES["fused_decode"] == 0
+    with pytest.raises(ValueError, match="bf16 cache"):
+        Engine(cfg, params, kv_dtype=torch.float32)

@@ -156,10 +156,7 @@ def test_write_xalm_read_by_jax(tmp_path):
         np.testing.assert_array_equal(xf.load("b.scale"), sc)
 
 
-def test_fp8_and_q4_are_later_slices():
-    for name in ("f8_e4m3", "f8_e5m2"):
-        with pytest.raises(NotImplementedError):
-            tdt.parse(name)
+def test_unknown_container_types_are_refused():
     # "q4" is no container type: a q4 container stores its packed tensors as
     # q8-typed int8 with a .scale4 partner (tests/test_torch_q4.py loads one)
     for name in ("nope", "q4"):

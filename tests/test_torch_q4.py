@@ -4,8 +4,8 @@ JAX package on the CPU: the q4 weight format (recode, unpack, dequant, the
 branches (their plain versions against ``pallas_qmatmul_stacked`` in
 interpret mode), the megakernel's a8 and q4 bodies (``fused_decode_step_plain``
 against the JAX ``fused_decode_step`` in interpret mode), the engines on
-both decode paths with ``a8_decode``/``a8_prefill``, the harness's ``--q4``,
-and the refusal of q4 experts.
+both decode paths with ``a8_decode``/``a8_prefill``, and the harness's
+``--q4`` (q4 experts: ``tests/test_torch_moe_q4.py``).
 
 q4 needs K/2 to be a multiple of the group, so the model is the 256-wide
 tiny Llama of ``tests/test_q4.py::test_q4_from_xalm_load_time_recode``, its
@@ -481,20 +481,3 @@ def test_harness_q4_identical_to_jax(wide_i8, capsys):
     got = capsys.readouterr().out
     ppl = lambda out: float(_lines(out, ("perplexity:",))[0].split()[1])  # noqa: E731
     assert abs(ppl(got) - ppl(want)) / ppl(want) < 1e-3
-
-
-def test_q4_experts_are_refused_on_both_paths():
-    from xalm_tpu_torch.models.config import MISTRAL_7B
-    from xalm_tpu_torch.utils.synthetic import synthetic_params
-
-    cfg = dataclasses.replace(MISTRAL_7B, dim=256, hidden_dim=512, n_layers=1, n_heads=4,
-                              n_kv_heads=2, head_dim=64, rotary_dim=64, vocab_size=64,
-                              max_seq_len=32, n_experts=4, n_experts_active=2)
-    params = synthetic_params(cfg, device="cpu", seed=0, q4_group=128)
-    assert params.layers.w13e.q4group == params.layers.w2e.q4group == 128
-    for fs in ("auto", False):
-        eng = Engine(cfg, params, kv_dtype=torch.float32, a8_decode=True, fused_step=fs)
-        with pytest.raises(NotImplementedError, match="next slice"):
-            eng.decode(np.array([1]), np.array([0]), eng.new_cache(1))
-        with pytest.raises(NotImplementedError, match="next slice"):
-            eng.prefill([1, 2, 3], eng.new_cache(1))

@@ -2,10 +2,11 @@
 // csrc/fused_decode.cu (every weight phase of the megakernel).
 //
 // One warp owns two output rows. In xq_gemv2 each lane streams 16 bytes of
-// each row per step (16 int8 or 8 bf16 weights), both rows' loads in
-// flight, and multiplies them by the bf16 activations the block staged in
-// shared memory; products of bf16 values and int8/bf16 weights are exact in
-// f32 and summed in f32. The caller reduces the lanes and applies the scale.
+// each row per step (16 int8, 8 bf16 or 4 f32 weights), both rows' loads in
+// flight, and multiplies them by the activations the block staged in shared
+// memory: bf16 for int8/bf16 weights (products exact in f32), f32 for f32
+// weights (the TPU kernel's f32 compute dtype), summed in f32. The caller
+// reduces the lanes and applies the scale.
 //
 // The int8-activation cores (the TPU kernel's a8 and q4 branches) take the
 // activations as int8 codes (quantised per row by the caller) and multiply
@@ -19,6 +20,8 @@
 //   summed in f32 in the reference's group order.
 #pragma once
 
+#include <type_traits>
+
 #include "common.cuh"
 
 template <typename WT>
@@ -27,23 +30,41 @@ __device__ __forceinline__ void xq_unpack16(const int4& raw, float* out) {
     const int8_t* p = reinterpret_cast<const int8_t*>(&raw);
 #pragma unroll
     for (int e = 0; e < 16; ++e) out[e] = (float)p[e];
-  } else {
+  } else if constexpr (sizeof(WT) == 2) {
     const __nv_bfloat16* p = reinterpret_cast<const __nv_bfloat16*>(&raw);
 #pragma unroll
     for (int e = 0; e < 8; ++e) out[e] = __bfloat162float(p[e]);
+  } else {
+    const float* p = reinterpret_cast<const float*>(&raw);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) out[e] = p[e];
   }
+}
+
+// The activations' type in shared memory for weights of type WT: bf16, or
+// f32 for f32 weights
+template <typename WT>
+using xq_act_t = typename std::conditional<sizeof(WT) == 4, float, __nv_bfloat16>::type;
+
+template <typename XT>
+__device__ __forceinline__ XT xq_from_float(float v) {
+  if constexpr (sizeof(XT) == 4) return v;
+  else return __float2bfloat16_rn(v);
 }
 
 // acc[r][m] += sum over n in [n_begin, n_end) of xs[m * ldx + n - n_begin] * w_r[n]
 // for the weight rows w_0 and w_1 (nullptr: a row past the end, adding 0)
 // and the first M <= MAXM activation rows. Lane l starts at n_begin + l * EPL
 // and strides 32 * EPL; n_begin and n_end - n_begin are multiples of EPL
-// (16 bytes of weights), and ldx of 8 (16 bytes of bf16).
-template <typename WT, int MAXM>
-__device__ __forceinline__ void xq_gemv2(const __nv_bfloat16* xs, int ldx, const WT* w0,
+// (16 bytes of weights), and ldx a multiple of 16 bytes of activations
+// (EPL activations of type XT are 4 to 32 bytes: read as 16-byte words).
+template <typename WT, int MAXM, typename XT = __nv_bfloat16>
+__device__ __forceinline__ void xq_gemv2(const XT* xs, int ldx, const WT* w0,
                                          const WT* w1, int n_begin, int n_end, int M, int lane,
                                          float (&acc)[2][MAXM]) {
   constexpr int EPL = 16 / sizeof(WT);  // weights per 16-byte load
+  constexpr int XPW = 16 / sizeof(XT);  // activations per 16-byte word
+  static_assert(EPL % XPW == 0, "a lane's activations are whole 16-byte words");
   const WT* rows[2] = {w0, w1};
   for (int n0 = n_begin + lane * EPL; n0 < n_end; n0 += 32 * EPL) {
     float wf[2][EPL];
@@ -59,11 +80,17 @@ __device__ __forceinline__ void xq_gemv2(const __nv_bfloat16* xs, int ldx, const
       float xf[EPL];
       const int4* xp = reinterpret_cast<const int4*>(xs + (size_t)m * ldx + (n0 - n_begin));
 #pragma unroll
-      for (int c = 0; c < EPL / 8; ++c) {
+      for (int c = 0; c < EPL / XPW; ++c) {
         const int4 raw = xp[c];
-        const __nv_bfloat16* p = reinterpret_cast<const __nv_bfloat16*>(&raw);
+        if constexpr (sizeof(XT) == 4) {
+          const float* p = reinterpret_cast<const float*>(&raw);
 #pragma unroll
-        for (int e = 0; e < 8; ++e) xf[c * 8 + e] = __bfloat162float(p[e]);
+          for (int e = 0; e < XPW; ++e) xf[c * XPW + e] = p[e];
+        } else {
+          const __nv_bfloat16* p = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+          for (int e = 0; e < XPW; ++e) xf[c * XPW + e] = __bfloat162float(p[e]);
+        }
       }
 #pragma unroll
       for (int r = 0; r < 2; ++r)

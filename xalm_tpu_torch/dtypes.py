@@ -1,9 +1,9 @@
 """Container dtype registry (counterpart of ``xalm_tpu/dtypes.py``).
 
 The JAX package maps container type names to ``ml_dtypes`` numpy dtypes.
-This port does not use ``ml_dtypes``: 16-bit floats are read as raw
-``uint16``/``float16`` storage and reinterpreted as torch tensors with
-``.view(torch.bfloat16)``. Container types:
+This port does not use ``ml_dtypes``: bf16 and fp8 are read as raw
+``uint16``/``uint8`` storage and reinterpreted as torch tensors with
+``.view(torch.bfloat16)`` / ``.view(torch.float8_e4m3fn)``. Container types:
 
 ==========  ================  ===============  ================================
 name        numpy storage     torch dtype      notes
@@ -14,8 +14,8 @@ bf16        uint16 (raw)      bfloat16         raw bits, viewed as bf16
 q8          int8              int8             fixed scale 1/100
 u8          uint8             uint8            raw bytes (tokenizer.tokens)
 i8          int8              int8             per-row f32 ``<name>.scale``
-f8_e4m3     --                --               NotImplementedError (later slice)
-f8_e5m2     --                --               NotImplementedError (later slice)
+f8_e4m3     uint8 (raw)       float8_e4m3fn    raw bits, viewed as fp8
+f8_e5m2     uint8 (raw)       float8_e5m2      raw bits, viewed as fp8
 ==========  ================  ===============  ================================
 """
 
@@ -29,8 +29,6 @@ import torch
 __all__ = ["XDType", "parse", "REGISTRY", "SCALE_SUFFIX", "scale_name", "is_scale_name"]
 
 SCALE_SUFFIX = ".scale"
-
-_LATER = ("f8_e4m3", "f8_e5m2")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,14 +62,14 @@ REGISTRY: dict[str, XDType] = {
         XDType("q8", np.dtype(np.int8), torch.int8, fixed_scale=1.0 / 100.0),
         XDType("u8", np.dtype(np.uint8), torch.uint8),
         XDType("i8", np.dtype(np.int8), torch.int8, scaled=True),
+        XDType("f8_e4m3", np.dtype(np.uint8), torch.float8_e4m3fn),
+        XDType("f8_e5m2", np.dtype(np.uint8), torch.float8_e5m2),
     )
 }
 
 
 def parse(name: str) -> XDType:
     """Look up a container type string."""
-    if name in _LATER:
-        raise NotImplementedError(f"xalm dtype {name!r}: later slice")
     try:
         return REGISTRY[name]
     except KeyError:

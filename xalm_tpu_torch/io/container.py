@@ -8,8 +8,9 @@
   4096-aligned data start; tensor blobs are 32-byte aligned.
 
 The file is mmapped once and tensors come out as zero-copy numpy views of
-their raw storage (``uint16`` for bf16, see ``xalm_tpu_torch.dtypes``);
-``load_torch`` wraps a copy as a torch tensor of the logical dtype.
+their raw storage (``uint16`` for bf16, ``uint8`` for fp8, see
+``xalm_tpu_torch.dtypes``); ``load_torch`` wraps a copy as a torch tensor of
+the logical dtype.
 """
 
 from __future__ import annotations
@@ -94,7 +95,7 @@ class XalmFile:
                 size = int(meta["size"])
                 if offset < 0 or size < 0 or header_size + offset + size > file_size:
                     raise ValueError(f"{name}: offset/size out of range")
-                dtype = xdt.parse(meta["type"])  # fp8: NotImplementedError
+                dtype = xdt.parse(meta["type"])
                 if dtype.nbytes(shape) != size:
                     raise ValueError(
                         f"{name}: size {size} != dtype/shape implied {dtype.nbytes(shape)}"
@@ -137,10 +138,7 @@ class XalmFile:
     def load_torch(self, name: str) -> torch.Tensor:
         """A host torch tensor (a copy) of the tensor's logical dtype."""
         info = self.tensors[name]
-        arr = np.array(self.load(name))
-        if info.dtype.torch_dtype == torch.bfloat16:
-            return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
-        return torch.from_numpy(arr)
+        return torch.from_numpy(np.array(self.load(name))).view(info.dtype.torch_dtype)
 
     def verify(self, name: str) -> bool:
         """Check the stored xxh3_64 content hash (needs ``xxhash``)."""
@@ -153,11 +151,16 @@ class XalmFile:
         return xxhash.xxh3_64(raw.tobytes()).intdigest() == info.hash
 
 
+_RAW_TYPES = {torch.bfloat16: (torch.int16, "bf16"), torch.float8_e4m3fn: (torch.uint8, "f8_e4m3"),
+              torch.float8_e5m2: (torch.uint8, "f8_e5m2")}
+
+
 def _blob_and_type(name: str, arr, tensors: dict) -> tuple[bytes, str]:
     if isinstance(arr, torch.Tensor):
         t = arr.detach().cpu().contiguous()
-        if t.dtype == torch.bfloat16:
-            return t.view(torch.int16).numpy().tobytes(), "bf16"
+        if t.dtype in _RAW_TYPES:
+            raw, tname = _RAW_TYPES[t.dtype]
+            return t.view(raw).numpy().tobytes(), tname
         arr = t.numpy()
     dt = np.dtype(arr.dtype)
     names = {np.dtype(np.float32): "f32", np.dtype(np.float16): "f16",
@@ -179,7 +182,7 @@ def write_xalm(
     compute_hashes: bool = False,
 ) -> None:
     """Write a .xalm container. ``tensors`` maps names to numpy arrays or
-    torch tensors (bf16 only as torch); insertion order is the on-disk
+    torch tensors (bf16 and fp8 only as torch); insertion order is the on-disk
     order. int8 tensors are `i8` when a ``<name>.scale`` sibling exists,
     else `q8`. Hashes need ``xxhash`` and are off by default."""
     if arch not in SUPPORTED_ARCHS:

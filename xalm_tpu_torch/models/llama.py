@@ -14,8 +14,11 @@ Behavioural contract, as in the JAX package:
 - Sparse-MoE FFN (Mixtral, ``moe_ffn``): f32 router softmax, top-k of the
   probabilities, renormalised. A t = 1 step at B = 1 on the per-layer
   paths runs the gathered decode, which streams only the k chosen experts
-  (``qmatmul_multi``, the indices never leave the device); every other
-  step (prefill chunks, B > 1, ``"xla"``) runs the dense-masked experts.
+  (``qmatmul_multi``, the indices never leave the device): int8, bf16 and
+  f32 experts, and packed-q4 experts under ``a8_decode`` (their dots are
+  s8 x s8); every other step (prefill chunks, B > 1, ``"xla"``, q4 experts
+  without ``a8_decode``, f16 or fp8 experts) runs the dense-masked experts,
+  q4 ones dequantised in ``compute_dtype`` one expert at a time.
 
 Chunk contract: calls with T > 1 must not wrap the ring; once wrapped the
 engine feeds one token at a time (T = 1).
@@ -49,8 +52,10 @@ gathers the embed row itself at B = 1 with a bf16 table, and runs the head
 too when the head is i8 (``Engine(wcls_i8=True)``); otherwise the head
 stays on kernel 1.
 
-Packed q4 and int8 activations route as the JAX ``mm`` does
-(``xalm_tpu/models/llama.py:570-669``): a q4 weight below 256 rows takes
+Weights route as the JAX ``mm`` does (``xalm_tpu/models/llama.py:570-669``):
+int8, bf16 and f32 weights take kernel 1 on the per-layer paths, f16 and
+fp8 weights (kept so by ``load_params``) the plain product of ops.linear on
+every device, as the reference sends them to XLA. A q4 weight below 256 rows takes
 kernel 1's q4 branch when the call's opt-in is on (``a8_decode`` for t = 1
 rows, ``a8_prefill`` for t > 1 chunks); every other q4 call dequantizes
 the layer and runs one plain product (the reference computes that outside
@@ -77,8 +82,7 @@ megakernel folds each of them in):
   way, but sends bf16-cache prefill chunks to its cap-free fused prefill;
   the port follows HF and the JAX dense path there (ROADMAP section 3).
 
-Packed-q4 experts (Mixtral q4), tp/pp and speculative verify are later
-slices and raise NotImplementedError.
+tp/pp and speculative verify are later slices.
 """
 
 from __future__ import annotations
@@ -227,31 +231,27 @@ def moe_route(xn: torch.Tensor, wgate: torch.Tensor, k: int):
     return topv / torch.sum(topv, dim=-1, keepdim=True), topi
 
 
-def gathered_ok(qw: QWeight, impl: str) -> bool:
+def gathered_ok(qw: QWeight, impl: str, a8_decode: bool = False) -> bool:
     """Does a B = 1 decode step on the per-layer paths gather its experts?
-    ``forward``'s ``mm`` rule: the kernel's dtypes (int8, bf16); f32 on the
-    CPU, as the JAX gate (the wrapper runs its plain version there); and
-    every dtype on the card's kernel path, where ``qmatmul_multi`` refuses
-    what its kernel does not take."""
-    dt = qw.values.dtype
-    return impl != "xla" and (
-        qmm.supported_weight_dtype(dt) or (dt == torch.float32 and not qw.values.is_cuda)
-        or (impl == "kernel" and qw.values.is_cuda))
+    The JAX gate (``xalm_tpu/models/llama.py:846-854``): the kernel's dtypes
+    (int8, bf16, f32), or packed q4 under ``a8_decode`` (its dots are
+    s8 x s8); f16 and fp8 experts run dense-masked."""
+    if impl == "xla":
+        return False
+    if qw.q4group:
+        return a8_decode
+    return qmm.supported_weight_dtype(qw.values.dtype)
 
 
 def moe_ffn(x: torch.Tensor, lp, layer: int, cfg: ModelConfig, impl: str,
-            compute_dtype) -> torch.Tensor:
+            compute_dtype, a8_decode: bool = False) -> torch.Tensor:
     """Mixtral's sparse-MoE FFN of one layer (``xalm_tpu/models/llama.py``
     ``:818-931``): x (B, T, dim) f32 -> the FFN's output (B, T, dim) f32."""
     b, t, _ = x.shape
-    if lp.w13e.q4group or lp.w2e.q4group:
-        raise NotImplementedError(
-            "packed-q4 experts (Mixtral q4): the next slice of the port (the gathered "
-            "q4 expert matmul)")
     xn = rmsnorm(x, lp.mlp_norm[layer], cfg.norm_eps)
     topv, topi = moe_route(xn, lp.wgate[layer], cfg.n_experts_active)
     chunk = ffn_chunk(cfg.hidden_dim)
-    if t == 1 and b == 1 and gathered_ok(lp.w13e, impl):
+    if t == 1 and b == 1 and gathered_ok(lp.w13e, impl, a8_decode):
         # gathered decode: the (L, E, ...) stacks viewed flat (L*E, ...),
         # the k experts at layer*E + expert, one launch per matmul
         multi = qmm.qmatmul_multi if impl == "kernel" else qmm.qmatmul_multi_plain
@@ -259,17 +259,21 @@ def moe_ffn(x: torch.Tensor, lp, layer: int, cfg: ModelConfig, impl: str,
 
         def flat(qw: QWeight):
             v = qw.values.reshape(-1, *qw.values.shape[2:])
-            return v, None if qw.scale is None else qw.scale.reshape(-1, qw.scale.shape[-1])
+            s = None if qw.scale is None else qw.scale.reshape(-1, *qw.scale.shape[2:])
+            return dict(values=v, scale=s, q4_group=qw.q4group)
 
-        gate, up = split_w13_rows(multi(xn.reshape(1, -1), *flat(lp.w13e), idxs), chunk)
-        dn_e = multi((act_fn(cfg.act, gate) * up).contiguous(), *flat(lp.w2e), idxs, shared_x=False)
+        gate, up = split_w13_rows(multi(xn.reshape(1, -1), idxs=idxs, **flat(lp.w13e)), chunk)
+        dn_e = multi((act_fn(cfg.act, gate) * up).contiguous(), idxs=idxs, shared_x=False,
+                     **flat(lp.w2e))
         return torch.sum(topv[0, 0, :, None] * dn_e, dim=0).reshape(1, 1, -1)
     # dense-masked: every expert, weighted by its renormalised probability
     # (0 for the unchosen); inputs rounded to compute_dtype, f32 products
     # and sums (the reference's preferred_element_type=f32), one expert's
-    # f32 weight copy at a time
+    # f32 weight copy at a time (q4: dequantised in compute_dtype first,
+    # the reference's ``_expert_mat``)
     def expert(qw: QWeight, e: int) -> QWeight:
-        return QWeight(qw.values[layer, e], None if qw.scale is None else qw.scale[layer, e])
+        return QWeight(qw.values[layer, e], None if qw.scale is None else qw.scale[layer, e],
+                       qw.q4group)
 
     wts = torch.zeros((b, t, cfg.n_experts), dtype=torch.float32, device=x.device)
     wts.scatter_(-1, topi, topv)
@@ -363,12 +367,11 @@ def forward(
 
     def mm(xx: torch.Tensor, qw: QWeight, layer: int | None = None, norm_sw=None):
         """Stacked-weight matmul, routed as the JAX package's pallas path:
-        int8/bf16 weights go through kernel 1 (norm prologue and scale
+        int8/bf16/f32 weights go through kernel 1 (norm prologue and scale
         epilogue fused below 256 rows; W8A8 at 256 rows and more under
         ``a8_prefill``), q4 through kernel 1's q4 branch below 256 rows under
-        the call's a8 opt-in and the dequantized layer otherwise, other
-        dtypes through ops.linear except on the card's kernel path, where
-        the kernel refuses them."""
+        the call's a8 opt-in and the dequantized layer otherwise, f16 and
+        fp8 through ops.linear."""
         lead = xx.shape[:-1]
         xm = xx.reshape(-1, xx.shape[-1])
         m = xm.shape[0]
@@ -379,11 +382,8 @@ def forward(
                 xm = rmsnorm(xm, norm_sw[layer], cfg.norm_eps)
             y = mm_fn(xm.contiguous(), qw.values, layer, scale=qw.scale, q4_group=qw.q4group)
             return y.reshape(*lead, -1)
-        if qw.q4group:
-            kernel_route = False  # dequantize the layer (the reference's XLA product)
-        else:
-            kernel_route = qmm.supported_weight_dtype(qw.values.dtype) or (
-                impl == "kernel" and xm.is_cuda)
+        # q4 here dequantizes the layer (the reference's XLA product)
+        kernel_route = not qw.q4group and qmm.supported_weight_dtype(qw.values.dtype)
         if per_layer and kernel_route and layer is not None and m >= 256 and a8_prefill \
                 and qw.values.dtype == torch.int8:
             # W8A8 prefill: int8 x per row times the int8 weights
@@ -537,7 +537,7 @@ def forward(
         x = x + proj
 
         if lp.w13e is not None:
-            down = moe_ffn(x, lp, layer, cfg, impl, compute_dtype)
+            down = moe_ffn(x, lp, layer, cfg, impl, compute_dtype, a8_decode)
         else:
             gate, up = split_w13_rows(mm(x, lp.w13, layer, norm_sw=lp.mlp_norm),
                                       ffn_chunk(cfg.hidden_dim))

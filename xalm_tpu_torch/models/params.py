@@ -31,7 +31,13 @@ post-feedforward norm weights are ``post_attn_norm``/``post_mlp_norm`` (L,
 dim) f32 (the converter files them as ``l.{i}.attn.postnorm.weight`` and
 ``l.{i}.mlp.postnorm.weight``, the (1 + w) offset folded in). Gemma's gelu
 and embed scale and Gemma-2's softcaps are config fields
-(``models/config.py``). fp8 is a later slice.
+(``models/config.py``).
+
+Weight formats at load (``load_params``'s modes, the JAX loader's): f16
+weights become bf16 on the card (``f16_mode``; the kernels take no f16)
+and fp8 weights int8 with per-row scales (``fp8_mode``, ``recode_fp8_rows``:
+the `i8` scheme, bit-equal to the JAX recode); on the CPU both stay as
+stored by default, and every mode can be asked for on either device.
 """
 
 from __future__ import annotations
@@ -53,6 +59,7 @@ __all__ = [
     "recode_wcls_i8",
     "recode_qweight_q4",
     "recode_params_q4",
+    "recode_fp8_rows",
     "unpack_q4",
     "Q8_FIXED_SCALE",
     "ffn_chunk",
@@ -196,29 +203,98 @@ def split_w13_rows(y: torch.Tensor, chunk: int):
     return y4[..., 0, :].reshape(*lead, -1), y4[..., 1, :].reshape(*lead, -1)
 
 
-def _torch(arr: np.ndarray, torch_dtype: torch.dtype, device) -> torch.Tensor:
-    """numpy storage (raw uint16/int16 for bf16) -> torch tensor on device."""
+_RAW = {torch.bfloat16: np.int16, torch.float8_e4m3fn: np.uint8, torch.float8_e5m2: np.uint8}
+
+
+def _torch(arr: np.ndarray, torch_dtype: torch.dtype | None, device,
+           cast: torch.dtype | None = None) -> torch.Tensor:
+    """numpy storage (raw 16 bits for bf16, raw bytes for fp8) -> torch
+    tensor on device, cast on the host to ``cast`` first where given."""
     arr = np.require(arr, requirements=["C", "W"])  # copies read-only mmap views
-    if torch_dtype == torch.bfloat16:
-        t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    if torch_dtype in _RAW:
+        t = torch.from_numpy(arr.view(_RAW[torch_dtype])).view(torch_dtype)
     else:
         t = torch.from_numpy(arr)
+    if cast is not None:
+        t = t.to(cast)
     return t.to(device)
 
 
 def _host_f32(arr: np.ndarray, tdt: torch.dtype) -> np.ndarray:
-    """Stored float values (bf16 as its raw 16 bits) -> f32."""
-    if tdt == torch.bfloat16:
-        return (np.asarray(arr).astype(np.uint32) << 16).view(np.float32)
+    """Stored float values (bf16 and fp8 as their raw bits) -> f32."""
+    if tdt in _RAW:
+        return _torch(arr, tdt, "cpu", torch.float32).numpy()
     return np.asarray(arr, np.float32)
 
 
-def load_params(xf, cfg: ModelConfig, device="cuda") -> ModelParams:
+F16_MODES = ("auto", "keep", "bf16", "f32")
+FP8_MODES = ("auto", "keep", "recode")
+_FP8 = (torch.float8_e4m3fn, torch.float8_e5m2)
+
+
+def recode_fp8_rows(vals: np.ndarray, tdt: torch.dtype) -> tuple[np.ndarray, np.ndarray]:
+    """fp8 weights (raw bytes of ``tdt``, shape (..., N)) -> (int8 codes,
+    per-row f32 scale), the `i8` scheme of the JAX package's
+    ``recode_fp8_rows``, bit for bit: scale = amax / 127.0 (an f32 IEEE
+    division; 1 for an all-zero row), codes = round half to even of
+    f / scale, clipped to +-127. Blocked over rows, so the f32 temporary
+    stays at about 64 MB. Non-finite values (e5m2 encodes inf and NaN)
+    raise: a saturating converter writes none."""
+    rows = np.asarray(vals).reshape(-1, vals.shape[-1])
+    n = rows.shape[0]
+    q = np.empty(rows.shape, np.int8)
+    scale = np.empty((n,), np.float32)
+    slab = max(1, (64 << 20) // (rows.shape[-1] * 4))
+    for at in range(0, n, slab):
+        f = _host_f32(rows[at : at + slab], tdt)
+        if not np.isfinite(f).all():
+            raise ValueError(
+                "non-finite fp8 weight values: container is corrupt or was "
+                "not produced by a saturating converter (cannot recode to i8)"
+            )
+        amax = np.abs(f).max(axis=1)
+        sc = np.where(amax > 0, amax / np.float32(127.0), np.float32(1.0)).astype(np.float32)
+        scale[at : at + slab] = sc
+        np.clip(np.round(f / sc[:, None]), -127, 127, out=f)
+        q[at : at + slab] = f.astype(np.int8)
+    return q.reshape(vals.shape), scale.reshape(vals.shape[:-1])
+
+
+def load_params(xf, cfg: ModelConfig, device="cuda", f16_mode: str = "auto",
+                fp8_mode: str = "auto") -> ModelParams:
     """Load and stack all weights of a container of any family the JAX
     package reads (Llama/Mistral/Mixtral, Qwen2/3, Gemma, Gemma-2, Phi-3;
-    f32/f16/bf16/q8/i8, packed q4) from an open XalmFile onto ``device``
-    (the card unless the caller asks for the CPU). f16 stays f16 (the JAX
-    loader keeps it off-TPU too)."""
+    f32/f16/bf16/f8_e4m3/f8_e5m2/q8/i8, packed q4) from an open XalmFile
+    onto ``device`` (the card unless the caller asks for the CPU).
+
+    ``f16_mode`` (the JAX loader's): what f16 weights become. "auto" is bf16
+    on the card (its kernels take no f16; the same bytes, 3 fewer mantissa
+    bits) and "keep" elsewhere; "keep", "bf16" and "f32" force.
+    ``fp8_mode``: "auto" recodes fp8 weights to int8 with per-row scales on
+    the card (``recode_fp8_rows``: the kernels and the megakernel take i8)
+    and keeps fp8 elsewhere; "keep" and "recode" force. A weight kept f16 or
+    fp8 runs ops.linear's plain product. Norms, biases, the router and
+    scales are f32 whatever the modes."""
+    if f16_mode not in F16_MODES or fp8_mode not in FP8_MODES:
+        raise ValueError(f"f16_mode {f16_mode!r} (one of {F16_MODES}), fp8_mode {fp8_mode!r} "
+                         f"(one of {FP8_MODES})")
+    on_card = torch.device(device).type == "cuda"
+    if f16_mode == "auto":
+        f16_mode = "bf16" if on_card else "keep"
+    if fp8_mode == "auto":
+        fp8_mode = "recode" if on_card else "keep"
+    f16_to = {"keep": None, "bf16": torch.bfloat16, "f32": torch.float32}[f16_mode]
+
+    def recoded(vals, scale, tdt):
+        """(values, scale, dtype) of a weight as stored -> as loaded: fp8
+        recoded to i8 rows under "recode" (fp8 containers carry no scales)."""
+        if fp8_mode == "recode" and tdt in _FP8:
+            return (*recode_fp8_rows(vals, tdt), torch.int8)
+        return vals, scale, tdt
+
+    def cast(tdt):
+        """The dtype a weight of dtype ``tdt`` takes on ``device``."""
+        return (f16_to or tdt) if tdt == torch.float16 else tdt
 
     def info(name: str, expect_shape):
         t = xf.tensors.get(name)
@@ -233,7 +309,10 @@ def load_params(xf, cfg: ModelConfig, device="cuda") -> ModelParams:
             )
         return t
 
-    def stack_host(name_fmt: str, expect_shape):
+    def stack_host(name_fmt: str, expect_shape, recode: bool = True):
+        """(values, scale, dtype) of a weight kind stacked over the layers
+        on the host; fp8 recoded under "recode" (not for ``stack_norm``, as
+        in the JAX loader)."""
         names = [name_fmt.format(i) for i in range(cfg.n_layers)]
         infos = [info(n, expect_shape) for n in names]
         dt = infos[0].dtype
@@ -252,14 +331,16 @@ def load_params(xf, cfg: ModelConfig, device="cuda") -> ModelParams:
             if any(s not in xf for s in snames):
                 raise ValueError(f"FATAL: i8 tensors for {name_fmt} missing scales")
             scale = np.stack([xf.load(s) for s in snames])
-        return vals, scale, dt.torch_dtype
+        if not recode:
+            return vals, scale, dt.torch_dtype
+        return recoded(vals, scale, dt.torch_dtype)
 
     def qw(vals, scale, tdt) -> QWeight:
         # q4: the scale has one column per group, the values K/2 bytes a row
         q4group = 2 * vals.shape[-1] // scale.shape[-1] if (
             scale is not None and scale.ndim == vals.ndim) else 0
         return QWeight(
-            _torch(vals, tdt, device),
+            _torch(vals, tdt, device, cast(tdt)),
             None if scale is None else _torch(scale, torch.float32, device),
             q4group,
         )
@@ -279,8 +360,8 @@ def load_params(xf, cfg: ModelConfig, device="cuda") -> ModelParams:
         return qw(*fuse_host(parts, fuse, *fargs))
 
     def stack_norm(name_fmt: str, n: int) -> torch.Tensor:
-        """(L, n) f32 of a float (f32, f16 or bf16) vector per layer."""
-        vals, _, tdt = stack_host(name_fmt, (n,))
+        """(L, n) f32 of a float (f32, f16, bf16 or fp8) vector per layer."""
+        vals, _, tdt = stack_host(name_fmt, (n,), recode=False)
         return _torch(_host_f32(vals, tdt), torch.float32, device)
 
     def bias() -> torch.Tensor:
@@ -296,7 +377,7 @@ def load_params(xf, cfg: ModelConfig, device="cuda") -> ModelParams:
         scale = None
         if t.dtype.name == "i8":
             scale = xf.load(xdt.scale_name(name))
-        return qw(xf.load(name), scale, t.dtype.torch_dtype)
+        return qw(*recoded(xf.load(name), scale, t.dtype.torch_dtype))
 
     def router() -> torch.Tensor:
         """(L, E, dim) f32; expert selection cannot ride an int8 code."""
@@ -312,9 +393,9 @@ def load_params(xf, cfg: ModelConfig, device="cuda") -> ModelParams:
         vals = scale = None
         for e in range(cfg.n_experts):
             v, sc, tdt = host_stack(e)
-            if e and ((sc is None) != (scale is None) or tdt != vals.dtype):
+            if e and ((sc is None) != (scale is None) or cast(tdt) != vals.dtype):
                 raise ValueError(f"FATAL: mixed quantization across MoE experts (expert {e})")
-            v = _torch(v, tdt, "cpu")
+            v = _torch(v, tdt, "cpu", cast(tdt))
             if e == 0:
                 vals = torch.empty((v.shape[0], cfg.n_experts, *v.shape[1:]), dtype=v.dtype,
                                    device=device)
@@ -374,11 +455,16 @@ def load_params(xf, cfg: ModelConfig, device="cuda") -> ModelParams:
     return ModelParams(embed=embed, layers=layers, out_norm=out_norm, wcls=wcls)
 
 
+_ML_DTYPES = {"bfloat16": torch.bfloat16, "float8_e4m3fn": torch.float8_e4m3fn,
+              "float8_e5m2": torch.float8_e5m2}
+
+
 def _from_np(arr, device) -> torch.Tensor:
-    """A numpy leaf of the JAX tree (ml_dtypes bf16 included) -> torch."""
+    """A numpy leaf of the JAX tree (ml_dtypes bf16 and fp8 included) -> torch."""
     arr = np.asarray(arr)
-    if arr.dtype.name == "bfloat16":
-        return _torch(arr.view(np.int16), torch.bfloat16, device)
+    tdt = _ML_DTYPES.get(arr.dtype.name)
+    if tdt is not None:
+        return _torch(arr.view(_RAW[tdt]), tdt, device)
     return _torch(arr, None, device)
 
 

@@ -16,10 +16,12 @@ Every exported launch function takes its pointers and the CUDA stream as
 ``void*`` and returns ``cudaGetLastError()`` after its launches, or
 ``cudaErrorInvalidValue`` for a shape outside the kernel's limits, which
 live in the CUDA source alone. Size queries (``*_scratch``,
-``*_workspace``) return element counts.
+``*_workspace``) return element or byte counts, as their comments say.
 
 ``LAUNCHES`` counts kernel launches per wrapper: each wrapper adds one where
-it launches its kernel on the card, and nowhere else. A megakernel launch
+it launches its kernel on the card, and nowhere else. A launch of kernel 1
+or 8 counts under its branch: ``qmatmul`` and ``qmatmul_multi`` for int8
+and bf16 weights, ``_f32``, ``_q4`` and ``_a8`` for the others. A megakernel launch
 counts under its body (``fused_decode``, ``_a8``, ``_q4``) and, when a
 family fold is on, under that fold too (``fused_decode_bias``,
 ``fused_decode_qk_norm``; ``fused_decode_gemma`` for gelu and the embed
@@ -50,7 +52,8 @@ NVCC_FLAGS = [
 ]
 # source file -> kernel wrappers it backs
 KERNELS = {
-    "qmatmul": ("qmatmul", "qmatmul_multi", "qmatmul_q4", "qmatmul_a8"),
+    "qmatmul": ("qmatmul", "qmatmul_multi", "qmatmul_q4", "qmatmul_a8", "qmatmul_multi_q4",
+                "qmatmul_f32", "qmatmul_multi_f32"),
     "attention": ("kv_update", "flash_decode", "flash_prefill", "kv_update_q", "flash_decode_q"),
     "fused_decode": ("fused_decode", "fused_decode_a8", "fused_decode_q4", "fused_decode_bias",
                      "fused_decode_qk_norm", "fused_decode_gemma", "fused_decode_gemma2"),
@@ -145,12 +148,16 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlon
 # exported function -> (restype, argtypes); a c_int result is a cudaError_t
 SIGNATURES = {
     "qmatmul": {
-        # M, N -> bf16 elements of scratch (0: the GEMV route needs none)
-        "xq_qmatmul_scratch": (_L, [_I, _I]),
-        # x, norm_w, eps, w, w_is_bf16, scale, qscale, y, xb, M, N, D, stream
+        # M, N, w_kind -> bytes of scratch (0: the GEMV route needs none)
+        "xq_qmatmul_scratch": (_L, [_I, _I, _I]),
+        # x, norm_w, eps, w, w_kind (0 int8, 1 bf16, 2 f32), scale, qscale, y, xb, M, N, D,
+        # stream
         "xq_qmatmul": (_I, [_P, _P, _F, _P, _I, _P, _F, _P, _P, _I, _I, _I, _P]),
-        # x, w, w_is_bf16, scale, qscale, idxs, y, k, m, shared_x, N, D, LE, stream
+        # x, w, w_kind, scale, qscale, idxs, y, k, m, shared_x, N, D, LE, stream
         "xq_qmatmul_multi": (_I, [_P, _P, _I, _P, _F, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+        # x, w (packed), scale (LE, D, N/group), idxs, xq, sx, y, k, m, shared_x, N, D, LE,
+        # group, stream
+        "xq_qmatmul_multi_q4": (_I, [_P] * 7 + [_I] * 7 + [_P]),
         # x, w (packed), scale (D, N/group), xq, sx, y, M, N, D, group, stream
         "xq_qmatmul_q4": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
         # x, w, scale, qscale, xq, sx, y, M, N, D, stream

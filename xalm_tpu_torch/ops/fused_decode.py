@@ -13,11 +13,11 @@ residual adds. Optional folds, as in the JAX function:
 - head: the final norm, the i8 classifier ``wcls`` and a first-occurrence
   greedy argmax (returns ``(x, logits, token, ck, cv)``).
 
-It takes the i8 body with per-row scales and a float cache, or an int8
-cache with its per-row f32 scale planes (``k_scale``/``v_scale``, the
-JAX kernel's ``quant`` branch: the K and V rows quantised on insert, the
-sinks dequantised, rotated and requantised, the scales factored out of the
-attention dots). Its weight phases run one of three bodies:
+It takes the i8 body with per-row scales and a bf16 cache (the plain
+version f32 too), or an int8 cache with its per-row f32 scale planes
+(``k_scale``/``v_scale``, the JAX kernel's ``quant`` branch: the K and V
+rows quantised on insert, the sinks dequantised, rotated and requantised,
+the scales factored out of the attention dots). Its weight phases run one of three bodies:
 
 - the i8 body with bf16 activations (the default);
 - ``a8=True`` (W8A8 decode, the JAX kernel's ``_a8dot``): each phase's f32
@@ -73,6 +73,7 @@ from xalm_tpu_torch.ops.qmatmul import qmatmul_plain
 __all__ = [
     "MAX_B",
     "fused_step_supported",
+    "cache_supported",
     "head_dim_supported",
     "embed_fold_supported",
     "wcls_fold_supported",
@@ -105,30 +106,38 @@ def head_dim_supported(head_dim: int, on_card: bool) -> bool:
     return head_dim in HEAD_DIMS if on_card else head_dim % 2 == 0
 
 
+def cache_supported(dtype: torch.dtype, quantized: bool, on_card: bool) -> bool:
+    """The caches the megakernel takes: an int8 cache with its scale planes
+    (``quantized``), or a float one, bf16 on the card (``csrc/fused_decode.cu``
+    has no f32-cache instantiation) and bf16 or f32 on the CPU, where the
+    plain version runs."""
+    if quantized:
+        return dtype == torch.int8
+    return dtype == torch.bfloat16 or (dtype == torch.float32 and not on_card)
+
+
 def fused_step_supported(cfg, params, cache_k, batch: int, t: int, k_scale=None,
                          a8: bool = False) -> bool:
     """Does a (batch, t) step take the megakernel path? t = 1, 1 <= batch
     <= MAX_B, a dense int8 body with per-row scales (or packed q4 with group
     scales; every family fold folds in), a head_dim the kernel takes where
-    the weights lie (``head_dim_supported``), and a bf16 or f32 cache, or an
-    int8 cache with its scale planes (``k_scale``). A q4 body needs ``a8``,
-    one group size on all four weights and a group that is a multiple of
-    128: the JAX gate's rules. Its 48 MB scale budget is a rule of the TPU's
+    the weights lie (``head_dim_supported``), and a cache it takes there
+    (``cache_supported``; ``k_scale`` marks an int8 cache's scale planes).
+    A q4 body needs ``a8``, one group size on all four weights and a group
+    that is a multiple of 128: the JAX gate's rules. Its 48 MB scale budget is a rule of the TPU's
     VMEM and is not carried over; the kernel's own limits are in csrc/ (the
     wrapper raises past them)."""
     if t != 1 or not 1 <= batch <= MAX_B:
         return False
-    if k_scale is not None:
-        if cache_k.dtype != torch.int8:
-            return False
-    elif cache_k.dtype not in (torch.bfloat16, torch.float32):
-        return False
     lp = params.layers
+    on_card = lp.wqkv.values.is_cuda
+    if not cache_supported(cache_k.dtype, k_scale is not None, on_card):
+        return False
     if getattr(lp, "w13", None) is None:  # MoE FFN
         return False
     if not all(_is_i8_rows(qw) for qw in (lp.wqkv, lp.wo, lp.w13, lp.w2)):
         return False
-    if not head_dim_supported(cfg.head_dim, lp.wqkv.values.is_cuda):
+    if not head_dim_supported(cfg.head_dim, on_card):
         return False
     q4 = _q4_body(lp)
     return q4 == 0 or (q4 > 0 and a8 and q4 % 128 == 0)

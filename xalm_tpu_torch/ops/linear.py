@@ -4,8 +4,9 @@ path of ``xalm_tpu/ops/linear.py``).
 Because `i8`/`q8` scales are per output row, ``(x @ W^T) * scale`` is exact:
 the dot runs on the raw storage values cast to ``compute_dtype`` with f32
 accumulation, and no scaled weight copy exists. This is the path for
-weight dtypes the hand-written kernel does not take (f32, f16), for
-``matmul_impl="xla"``, and for packed q4 outside the kernel's shapes: q4
+weight dtypes the hand-written kernel does not take (f16, fp8: the
+reference sends them to XLA), for ``matmul_impl="xla"``, and for packed q4
+outside the kernel's shapes: q4
 dequantizes the layer in ``compute_dtype`` (codes times group scales, as
 the JAX package's ``astype_dequant``) and runs one product over it.
 """

@@ -2,11 +2,17 @@
 ``xalm_tpu/ops/pallas_matmul.py::_kernel`` through ``pallas_qmatmul_stacked``
 and ``pallas_qmatmul``; CUDA source ``csrc/qmatmul.cu``).
 
-    y[M, D] = epi * bf16(rmsnorm?(x)) @ W[layer]^T        (f32 accumulation)
+    y[M, D] = epi * cd(rmsnorm?(x)) @ W[layer]^T        (f32 accumulation)
 
-with W int8 (`i8` per-row scale epilogue, or `q8` x 1/100) or bf16. On the
-H100 the decode shapes (M <= 8) are bound by the weight bytes and run as a
-GEMV; larger M runs a tiled tensor-core GEMM (see the source's note).
+with W int8 (`i8` per-row scale epilogue, or `q8` x 1/100), bf16 or f32;
+cd, the compute dtype, is bf16, or f32 for f32 weights (no bf16 rounding,
+as the TPU kernel's ``compute_dtype``). On the H100 the decode shapes (M <=
+8) are bound by the weight bytes and run as a GEMV; larger M runs a tiled
+GEMM, on the tensor cores for int8/bf16 and in f32 FMA for f32 weights (see
+the source's note). f16 and fp8 weights are no kernel dtype, as on the TPU:
+the loader turns them into bf16 or i8 on the card (``load_params``'s
+``f16_mode``/``fp8_mode``), and a weight kept f16 or fp8 takes
+``ops.linear``'s plain product.
 
 Two more branches of the same TPU kernel quantise x to int8 per row
 (absmax/127, round half to even, clip; ``quant_rows``) and multiply the
@@ -19,12 +25,14 @@ output by x's row scale last:
   dot, times that (row, group)'s f32 scale, summed in f32 in group order,
   then x's scale (``xq_qmatmul_q4``, a GEMV over the packed rows).
 
-The fp8 and f32 variants of the TPU kernel are later slices.
-
 Row 8 of the TPU kernels, the same kernel through
 ``pallas_qmatmul_stacked_multi``, is ``qmatmul_multi``: the gathered top-k
 expert matmul of Mixtral's decode step, over the (L*E, D, N) flattened
-expert stack at the k indices ``layer*E + expert`` that lie on the device.
+expert stack at the k indices ``layer*E + expert`` that lie on the device;
+int8, bf16 and f32 experts, and with ``q4_group=g`` packed-q4 experts
+((L*E, D, N/2) values, (L*E, D, N/g) group scales; ``xq_qmatmul_multi_q4``):
+x quantised per row (the m shared rows once, their scales for every
+expert; else each of the k*m rows), then the q4 branch's group sums.
 
 ``qmatmul`` and ``qmatmul_multi`` launch their kernels for CUDA tensors and
 run ``qmatmul_plain`` / ``qmatmul_multi_plain`` (the same functions in
@@ -49,8 +57,12 @@ __all__ = [
 
 
 def supported_weight_dtype(dtype: torch.dtype) -> bool:
-    """Weight dtypes the kernel takes; f32/f16 weights use ops.linear."""
-    return dtype in (torch.int8, torch.bfloat16)
+    """Weight dtypes the kernel takes (the TPU kernel's: int8, bf16, f32);
+    f16 and fp8 weights use ops.linear."""
+    return dtype in _W_KIND
+
+
+_W_KIND = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}  # the CUDA side's w_kind
 
 
 def _check_quant_x(values, norm_w, q4_group: int, a8: bool, m: int) -> None:
@@ -75,22 +87,27 @@ def _a8_plain(x, values, layer, scale, q8_scale) -> torch.Tensor:
     return y * sx[:, None]
 
 
-def _q4_plain(x, values, layer, scale, group: int) -> torch.Tensor:
-    """Packed q4: one exact integer dot per group of ``group`` codes (f64
-    again), each to f32 times its (row, group) scale, summed in f32 in
-    group order (the low nibbles' groups, then the high ones'), then times
-    x's row scale."""
-    xq, sx = quant_rows(x)
+def _q4_rows(xq, sx, packed, scale, group: int) -> torch.Tensor:
+    """Packed q4 of one weight matrix: x's codes xq (m, N) with row scales
+    sx (m,), packed (D, N/2), scale (D, N/group). One exact integer dot per
+    group of ``group`` codes (f64 again), each to f32 times its (row, group)
+    scale, summed in f32 in group order (the low nibbles' groups, then the
+    high ones'), then times x's row scale."""
     m, n = xq.shape
-    codes = unpack_q4(values[layer])  # (D, N)
+    codes = unpack_q4(packed)  # (D, N)
     ng = n // group
     dots = torch.einsum("mgk,dgk->gmd", xq.reshape(m, ng, group).to(torch.float64),
                         codes.reshape(-1, ng, group).to(torch.float64)).to(torch.float32)
-    s = scale[layer]  # (D, ng)
-    acc = dots[0] * s[:, 0]
+    acc = dots[0] * scale[:, 0]
     for g in range(1, ng):
-        acc = acc + dots[g] * s[:, g]
+        acc = acc + dots[g] * scale[:, g]
     return acc * sx[:, None]
+
+
+def _q4_plain(x, values, layer, scale, group: int) -> torch.Tensor:
+    """Packed q4: x quantised per row, then ``_q4_rows`` on the layer."""
+    xq, sx = quant_rows(x)
+    return _q4_rows(xq, sx, values[layer], scale[layer], group)
 
 
 def qmatmul_plain(
@@ -107,9 +124,10 @@ def qmatmul_plain(
 ) -> torch.Tensor:
     """Plain version: x (M, N) f32, values (L, D, N) (q4: (L, D, N/2) with
     (L, D, N/g) group scales) -> (M, D) f32. x is cast to bf16 after the
-    optional norm (f32 weights keep f32, as on the TPU); the products are
-    exact in f32 and summed in f32. ``a8`` and ``q4_group`` quantise x per
-    row instead (see the module docstring)."""
+    optional norm, and the products are exact in f32 and summed in f32; f32
+    weights keep x in f32 (no bf16 rounding, as on the TPU) and multiply in
+    f32. ``a8`` and ``q4_group`` quantise x per row instead (see the module
+    docstring)."""
     x = x.to(torch.float32)
     if a8 or q4_group:
         _check_quant_x(values, norm_w, q4_group, a8, x.shape[0])
@@ -148,7 +166,7 @@ def qmatmul(
     q4_group: int = 0,
     a8: bool = False,
 ) -> torch.Tensor:
-    """y[M, D] = [scale *] values[layer] @ bf16(rmsnorm?(x))^T, fused; with
+    """y[M, D] = [scale *] values[layer] @ cd(rmsnorm?(x))^T, fused; with
     ``a8`` or ``q4_group`` the int8-activation branches (module docstring)."""
     if not x.is_cuda:
         return qmatmul_plain(
@@ -159,7 +177,8 @@ def qmatmul(
         return _qmatmul_quant_x(x, values, layer, scale, q8_scale, q4_group, a8, norm_w)
     m, n = x.shape
     l, d, n2 = values.shape
-    _need(supported_weight_dtype(values.dtype), f"weight dtype {values.dtype} (int8/bf16 only)")
+    _need(supported_weight_dtype(values.dtype),
+          f"weight dtype {values.dtype} (int8, bf16 or f32)")
     _need(x.dtype == torch.float32 and x.is_contiguous(), "x must be contiguous f32")
     _need(values.is_cuda and values.is_contiguous(), "weights must be contiguous on the card")
     _need(n == n2, f"x {tuple(x.shape)} vs weights {tuple(values.shape)}")
@@ -178,14 +197,14 @@ def qmatmul(
     nw_ptr = None if norm_w is None else norm_w.data_ptr() + layer * n * 4
     eps = float(norm_eps) if norm_w is not None else 0.0
     qs = float(q8_scale) if (scale is None and q8_scale is not None) else 0.0
-    is_bf16 = int(values.dtype == torch.bfloat16)
-    scratch = lib.xq_qmatmul_scratch(m, n)  # the tiled route's bf16(rmsnorm?(x))
-    xb = torch.empty((scratch,), dtype=torch.bfloat16, device=x.device) if scratch else None
-    err = lib.xq_qmatmul(x.data_ptr(), nw_ptr, eps, w_ptr, is_bf16, s_ptr, qs, y.data_ptr(),
+    kind = _W_KIND[values.dtype]
+    scratch = lib.xq_qmatmul_scratch(m, n, kind)  # bytes of the tiled route's cd(rmsnorm?(x))
+    xb = torch.empty((scratch,), dtype=torch.uint8, device=x.device) if scratch else None
+    err = lib.xq_qmatmul(x.data_ptr(), nw_ptr, eps, w_ptr, kind, s_ptr, qs, y.data_ptr(),
                          None if xb is None else xb.data_ptr(), m, n, d,
                          torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "qmatmul")
-    build.LAUNCHES["qmatmul"] += 1
+    build.LAUNCHES["qmatmul_f32" if values.dtype == torch.float32 else "qmatmul"] += 1
     return y
 
 
@@ -239,6 +258,17 @@ def _multi_rows(x: torch.Tensor, k: int, shared_x: bool) -> int:
     return m
 
 
+def _multi_q4_plain(x, values, scale, idx, m: int, group: int) -> torch.Tensor:
+    """The q4 experts: x's rows quantised as given (the m shared rows, or
+    the k*m), each expert's rows through ``_q4_rows`` -> (k, m, D)."""
+    xq, sx = quant_rows(x.to(torch.float32))
+    n = x.shape[1]
+    xq, sx = xq.reshape(-1, m, n), sx.reshape(-1, m)  # (1 or k, m, ...)
+    w, s = values[idx], scale[idx]  # (k, D, N/2), (k, D, N/g): gathers on the device
+    return torch.stack([_q4_rows(xq[e % xq.shape[0]], sx[e % sx.shape[0]], w[e], s[e], group)
+                        for e in range(idx.shape[0])])
+
+
 def qmatmul_multi_plain(
     x: torch.Tensor,
     values: torch.Tensor,
@@ -246,16 +276,22 @@ def qmatmul_multi_plain(
     idxs: torch.Tensor,
     *,
     shared_x: bool = True,
+    q4_group: int = 0,
 ) -> torch.Tensor:
     """Plain version: x (m, N) shared by the k experts, or (k*m, N) with one
     m-row group per expert; values (LE, D, N); idxs (k,) -> (k*m, D) f32.
     x is cast to bf16 for int8/bf16 weights (f32 weights keep f32, as on the
     TPU); the products are exact in f32 and summed in f32; then the row scale
-    of each expert, or the q8 1/100 for int8 without one."""
+    of each expert, or the q8 1/100 for int8 without one. ``q4_group`` takes
+    packed values (LE, D, N/2) and group scales (LE, D, N/g) (module
+    docstring)."""
     k = idxs.shape[0]
     m = _multi_rows(x, k, shared_x)
     n = x.shape[1]
     idx = idxs.to(torch.long)
+    if q4_group:
+        _check_multi_q4(values, scale, n, q4_group)
+        return _multi_q4_plain(x, values, scale, idx, m, q4_group).reshape(k * m, -1)
     w = values[idx]  # (k, D, N): a gather on the device, the indices stay there
     xe = x.to(torch.float32).reshape(-1, m, n).expand(k, m, n)
     if values.dtype != torch.float32:
@@ -269,6 +305,18 @@ def qmatmul_multi_plain(
     return y.reshape(k * m, -1)
 
 
+def _check_multi_q4(values, scale, n: int, group: int) -> None:
+    """The TPU wrapper's rules for q4 experts (``:344-347``) and the group's."""
+    le, d, nh = values.shape
+    _need(values.dtype == torch.int8 and 2 * nh == n,
+          f"q4 experts: int8 values (LE, D, N/2) for x of {n} columns, not {tuple(values.shape)}")
+    _need(group % 128 == 0 and n % (2 * group) == 0,
+          f"q4 group {group}: a multiple of 128 dividing N/2 = {n // 2}")
+    _need(scale is not None and scale.dtype == torch.float32
+          and tuple(scale.shape) == (le, d, n // group),
+          f"q4 experts need (LE, D, N/{group}) f32 group scales")
+
+
 def qmatmul_multi(
     x: torch.Tensor,
     values: torch.Tensor,
@@ -276,32 +324,49 @@ def qmatmul_multi(
     idxs: torch.Tensor,
     *,
     shared_x: bool = True,
+    q4_group: int = 0,
 ) -> torch.Tensor:
-    """y[e*m + r] = [scale[idx_e] *] values[idx_e] @ bf16(x_e[r]) for the k
-    experts idx_e = idxs[e], in one launch; see ``qmatmul_multi_plain``."""
+    """y[e*m + r] = [scale[idx_e] *] values[idx_e] @ cd(x_e[r]) for the k
+    experts idx_e = idxs[e], in one launch; with ``q4_group`` the packed-q4
+    experts. See ``qmatmul_multi_plain``."""
     if not x.is_cuda:
-        return qmatmul_multi_plain(x, values, scale, idxs, shared_x=shared_x)
-    le, d, n = values.shape
-    _need(supported_weight_dtype(values.dtype), f"weight dtype {values.dtype} (int8/bf16 only)")
+        return qmatmul_multi_plain(x, values, scale, idxs, shared_x=shared_x, q4_group=q4_group)
+    le, d, nw = values.shape
+    n = x.shape[1]
     _need(x.dtype == torch.float32 and x.is_contiguous() and x.dim() == 2,
           "x must be contiguous 2-D f32")
     _need(values.is_cuda and values.is_contiguous(), "weights must be contiguous on the card")
-    _need(x.shape[1] == n, f"x {tuple(x.shape)} vs weights {tuple(values.shape)}")
     _need(idxs.dtype == torch.int32 and idxs.is_cuda and idxs.dim() == 1 and idxs.is_contiguous(),
           "idxs must be a contiguous (k,) int32 tensor on the card")
     k = idxs.shape[0]
     m = _multi_rows(x, k, shared_x)
+    lib = build.load_library("qmatmul")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    y = torch.empty((k * m, d), dtype=torch.float32, device=x.device)
+    if q4_group:
+        _check_multi_q4(values, scale, n, q4_group)
+        _need(scale.is_cuda and scale.is_contiguous(),
+              "group scales must be contiguous on the card")
+        rows = m if shared_x else k * m
+        xq = torch.empty((rows, n), dtype=torch.int8, device=x.device)
+        sx = torch.empty((rows,), dtype=torch.float32, device=x.device)
+        err = lib.xq_qmatmul_multi_q4(x.data_ptr(), values.data_ptr(), scale.data_ptr(),
+                                      idxs.data_ptr(), xq.data_ptr(), sx.data_ptr(), y.data_ptr(),
+                                      k, m, int(shared_x), n, d, le, q4_group, stream)
+        build.check(err, "qmatmul_multi q4")
+        build.LAUNCHES["qmatmul_multi_q4"] += 1
+        return y
+    _need(supported_weight_dtype(values.dtype),
+          f"weight dtype {values.dtype} (int8, bf16 or f32)")
+    _need(n == nw, f"x {tuple(x.shape)} vs weights {tuple(values.shape)}")
     if scale is not None:
         _need(values.dtype == torch.int8, "a row scale needs int8 weights")
         _need(scale.dtype == torch.float32 and scale.shape == (le, d) and scale.is_contiguous()
               and scale.is_cuda, "scale must be contiguous (LE, D) f32")
     qs = Q8_FIXED_SCALE if (scale is None and values.dtype == torch.int8) else 0.0
-    lib = build.load_library("qmatmul")
-    y = torch.empty((k * m, d), dtype=torch.float32, device=x.device)
-    err = lib.xq_qmatmul_multi(x.data_ptr(), values.data_ptr(), int(values.dtype == torch.bfloat16),
+    err = lib.xq_qmatmul_multi(x.data_ptr(), values.data_ptr(), _W_KIND[values.dtype],
                                None if scale is None else scale.data_ptr(), qs, idxs.data_ptr(),
-                               y.data_ptr(), k, m, int(shared_x), n, d, le,
-                               torch.cuda.current_stream(x.device).cuda_stream)
+                               y.data_ptr(), k, m, int(shared_x), n, d, le, stream)
     build.check(err, "qmatmul_multi")
-    build.LAUNCHES["qmatmul_multi"] += 1
+    build.LAUNCHES["qmatmul_multi_f32" if values.dtype == torch.float32 else "qmatmul_multi"] += 1
     return y

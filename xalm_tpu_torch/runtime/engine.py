@@ -127,15 +127,19 @@ class Engine:
         q4_group: int = 0,
         fused_step: bool | str = "auto",
         wcls_i8: bool = False,
+        f16_mode: str = "auto",
+        fp8_mode: str = "auto",
         device="cuda",
     ) -> "Engine":
-        """Load a container. ``q4_group`` > 0 re-codes the four body weights
-        to packed q4 on ``device`` once loaded (one layer's f32 temporary
-        at a time) and implies ``a8_decode``: the q4 dots take int8
-        activations."""
+        """Load a container. ``f16_mode`` and ``fp8_mode`` are
+        ``load_params``'s (on the card f16 weights load as bf16 and fp8
+        weights as i8 rows by default). ``q4_group`` > 0 re-codes the four
+        body weights to packed q4 on ``device`` once loaded (one layer's f32
+        temporary at a time) and implies ``a8_decode``: the q4 dots take
+        int8 activations."""
         with XalmFile(path) as xf:
             cfg = ModelConfig.from_metadata(xf.config, context)
-            params = load_params(xf, cfg, device=device)
+            params = load_params(xf, cfg, device=device, f16_mode=f16_mode, fp8_mode=fp8_mode)
             tokenizer = Tokenizer.from_xalm(xf) if "tokenizer.tokens" in xf else None
         if q4_group:
             params = recode_params_q4(params, group=q4_group)
@@ -323,9 +327,7 @@ class Engine:
         total = sum(w.nbytes() for w in (lw.wqkv, lw.wo, lw.w13, lw.w2) if w is not None)
         if lw.w13e is not None:
             experts = lw.w13e.nbytes() + lw.w2e.nbytes()
-            gathered = (self.a8_decode and self.matmul_impl != "xla") if lw.w13e.q4group else \
-                gathered_ok(lw.w13e, self.matmul_impl)
-            if gathered:
+            if gathered_ok(lw.w13e, self.matmul_impl, self.a8_decode):
                 experts = experts * cfg.n_experts_active // max(cfg.n_experts, 1)
             total += experts + 4 * lw.wgate.nelement()
         total += 4 * (lw.attn_norm.nelement() + lw.mlp_norm.nelement() + p.out_norm.nelement())
