@@ -603,8 +603,9 @@ def test_fused_decode_refuses_what_it_does_not_take(dev):
         call(dtype=torch.int8)  # an int8 cache without its scale planes
     with pytest.raises(ValueError, match="batch"):
         call(b=9)
-    with pytest.raises(ValueError, match="bf16"):
-        call(dtype=torch.float32)
+    call(dtype=torch.float32)  # the f32 cache's instantiations
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        call(dtype=torch.float16)  # no megakernel takes f16, as in the JAX gate
     lp = params.layers
     q4 = SimpleNamespace(values=lp.w2.values, scale=lp.w2.scale, q4group=128)
     with pytest.raises(ValueError, match="q4"):
@@ -625,17 +626,54 @@ def test_engine_on_the_card_takes_the_megakernel(dev):
     assert build.LAUNCHES["kv_update"] == build.LAUNCHES["flash_decode"] == 0
 
 
+def _forced_close(ek, ep, prompt, steps: int, tol: float = 2e-2) -> None:
+    """Prefill, then ``steps`` decode steps of the kernel engine ``ek`` and
+    the plain engine ``ep``, both fed the plain engine's greedy token: each
+    step's logits within ``tol`` of the plain max |logits|. (Tokens of
+    random weights are no check: an activation rounded to bf16 the other
+    way can swap a close top-2.)"""
+    lk, ck, pos = ek.prefill(prompt, ek.new_cache(1))
+    lp, cp, _ = ep.prefill(prompt, ep.new_cache(1))
+    for _ in range(steps):
+        assert float((lk - lp).abs().max()) <= tol * float(lp.abs().max()), pos
+        tok = np.array([int(lp.argmax())])
+        lk, ck = ek.decode(tok, np.array([pos], np.int32), ck)
+        lp, cp = ep.decode(tok, np.array([pos], np.int32), cp)
+        pos += 1
+    assert float((lk - lp).abs().max()) <= tol * float(lp.abs().max()), pos
+
+
 @pytest.mark.parametrize("kv_dtype", [torch.float16, torch.float32])
-def test_kernel_engine_refuses_a_cache_the_kernels_do_not_take(dev, kv_dtype):
+def test_kernel_engine_takes_f32_and_f16_caches(dev, kv_dtype):
+    """Every cache of the JAX harness's -t runs on the card: f32 on the
+    megakernel's f32 instantiation
+    and kernels 2-4's, f16 per layer on kernel 1 and the dense attention,
+    no attention kernel launched. Teacher-forced through a ring wrap, each
+    step's logits within 2e-2 of the plain path's max (``_forced_close``)."""
     from xalm_tpu_torch.runtime.engine import Engine
     from xalm_tpu_torch.utils.synthetic import synthetic_params
 
     cfg = dataclasses.replace(MISTRAL_7B, dim=256, hidden_dim=512, n_layers=1,
                               vocab_size=64, max_seq_len=32)
     params = synthetic_params(cfg, device=dev, seed=0)
-    with pytest.raises(ValueError, match="bf16 cache"):
-        Engine(cfg, params, kv_dtype=kv_dtype)
-    assert Engine(cfg, params, kv_dtype=kv_dtype, matmul_impl="plain").decode_path(1) == "plain"
+    f32 = kv_dtype == torch.float32
+    for fs in ("auto", False):
+        eng = Engine(cfg, params, kv_dtype=kv_dtype, fused_step=fs)
+        assert eng.decode_path(1) == ("megakernel" if f32 and fs else "perlayer")
+        build.reset_launches()
+        _forced_close(eng, Engine(cfg, params, kv_dtype=kv_dtype, fused_step=fs,
+                                  matmul_impl="plain"), [3, 4, 5, 6], 39)  # through a wrap
+        attention = ("kv_update_f32", "flash_decode_f32", "flash_prefill_f32", "kv_update",
+                     "flash_decode", "flash_prefill")
+        if not f32:
+            assert all(build.LAUNCHES[k] == 0 for k in attention + ("fused_decode_f32",))
+        elif fs:
+            assert build.LAUNCHES["fused_decode_f32"] == build.LAUNCHES["fused_decode"] == 39
+            assert build.LAUNCHES["flash_prefill_f32"] == cfg.n_layers
+        else:
+            assert build.LAUNCHES["kv_update_f32"] == build.LAUNCHES["flash_decode_f32"] == 39
+            assert build.LAUNCHES["kv_update"] == build.LAUNCHES["flash_decode"] == 0
+        assert build.LAUNCHES["qmatmul"] > 0
 
 
 def test_kernel_engine_takes_f32_and_f16_heads(dev):
@@ -1439,13 +1477,12 @@ def test_engine_f16_and_fp8_containers_on_the_card(dev, tmp_path, kind):
     assert float((lk - lp).abs().max()) <= 2e-2 * float(lp.abs().max())
 
 
-def test_f32_cache_never_reaches_the_megakernel_on_the_card(dev):
-    """An f32 cache with an i8 body on the card: the megakernel's gate
-    refuses it (``csrc/fused_decode.cu`` takes bf16 or int8), so
-    ``forward(fused_step="auto")`` takes the per-layer path, whose attention
-    kernels refuse it in turn, with their own message, and the engine
-    refuses it up front. Before, the gate took it and the megakernel's
-    wrapper raised at the first decode step."""
+def test_f32_cache_decodes_on_the_megakernel(dev):
+    """An f32 cache with an i8 body on the card: the megakernel's gate takes
+    it (``csrc/fused_decode_f32.cu``), ``forward(fused_step="auto")`` launches
+    it, counted under ``fused_decode_f32`` beside the body's counter, and
+    the engine decodes on it through a ring wrap within 2e-2 of the plain
+    path's logits (``_forced_close``); the K and V rows land unrounded."""
     from xalm_tpu_torch.models.llama import forward
     from xalm_tpu_torch.ops import fused_decode as fd
     from xalm_tpu_torch.runtime.cache import KVCache
@@ -1455,12 +1492,190 @@ def test_f32_cache_never_reaches_the_megakernel_on_the_card(dev):
     cfg = dataclasses.replace(MISTRAL_7B, **FUSED_CFG)
     params = synthetic_params(cfg, device=dev, seed=2)
     cache = KVCache.init(cfg, 1, torch.float32, dev)
-    assert not fd.fused_step_supported(cfg, params, cache.k, 1, 1)
+    assert fd.fused_step_supported(cfg, params, cache.k, 1, 1)
     build.reset_launches()
-    with pytest.raises(ValueError) as err:
-        forward(params, cfg, torch.tensor([[5]]), torch.tensor([3], dtype=torch.int32), cache,
-                fused_step="auto")
-    assert "fused_decode_step" not in str(err.value) and "kv_update" in str(err.value)
-    assert build.LAUNCHES["fused_decode"] == 0
-    with pytest.raises(ValueError, match="bf16 cache"):
-        Engine(cfg, params, kv_dtype=torch.float32)
+    logits, _ = forward(params, cfg, torch.tensor([[5]]), torch.tensor([3], dtype=torch.int32),
+                        cache, fused_step="auto")
+    assert build.LAUNCHES["fused_decode"] == build.LAUNCHES["fused_decode_f32"] == 1
+    assert torch.isfinite(logits).all()
+    row = cache.k[:, 0, :, 3]
+    assert bool((row != 0).any()) and not torch.equal(row, row.to(torch.bfloat16).float())
+    ek = Engine(cfg, params, kv_dtype=torch.float32)
+    ep = Engine(cfg, params, kv_dtype=torch.float32, matmul_impl="plain")
+    assert ek.decode_path(1) == "megakernel"
+    build.reset_launches()
+    _forced_close(ek, ep, [3, 4, 5, 6], 2 * cfg.max_seq_len)
+    assert build.LAUNCHES["fused_decode_f32"] == 2 * cfg.max_seq_len
+
+
+# ---- the f32 and f16 caches; fp8 weights
+
+F32_ATTENTION_SHAPES = [(4, 128), (7, 128), (8, 128), (1, 256), (2, 256), (1, 96), (3, 96)]
+
+
+@pytest.mark.parametrize("g,hd", F32_ATTENTION_SHAPES,
+                         ids=[f"hd{hd}-g{g}" for g, hd in F32_ATTENTION_SHAPES])
+def test_attention_kernels_f32_match_plain(dev, g, hd):
+    """Kernels 2-4 over an f32 cache (their f32 instantiations) against the
+    plain versions: the ring insert and sink rotation bit-equal (each
+    product and the sum rounded as the plain version's f32 operations, the
+    rows stored unrounded); flash-decode and flash-prefill within 1e-5 of
+    each row's max (f32 values throughout, the sums in another order; the
+    prefill's dots in f32 FMA against the plain version's f32 matmul with
+    TF32 off, its key tiles 32 rows at hd 256 where the plain version's are
+    64). Counted under the ``_f32`` counters only."""
+    gen = torch.Generator(device=dev).manual_seed(hd + g)
+    l, b, kh, s = 2, 2, 2, 544
+    h = kh * g
+    ck = torch.randn((l, b, kh, s, hd), device=dev, generator=gen)
+    cv = torch.randn((l, b, kh, s, hd), device=dev, generator=gen)
+    freqs = (1e4 ** (-np.arange(0, hd, 2) / hd)).astype(np.float32)
+    c, sn = (torch.from_numpy(a).to(dev) for a in A.rope_cos_sin_plus1(freqs))
+    i32 = lambda *v: torch.tensor(v, dtype=torch.int32, device=dev)  # noqa: E731
+    kn = torch.randn((b, kh, hd), device=dev, generator=gen)
+    vn = torch.randn((b, kh, hd), device=dev, generator=gen)
+    k1, v1, k2, v2 = ck.clone(), cv.clone(), ck.clone(), cv.clone()
+    build.reset_launches()
+    A.kv_update(k1, v1, 1, kn, vn, i32(300, s), i32(1, 0), c, sn)
+    A.kv_update_plain(k2, v2, 1, kn, vn, i32(300, s), i32(1, 0), c, sn)
+    assert torch.equal(k1, k2) and torch.equal(v1, v2)
+    assert torch.equal(k1[1, 0, :, 300], kn[0])  # stored as it is
+    q = torch.randn((b, h, hd), device=dev, generator=gen)
+    for kvl in ((0, 5), (129, 544), (1, 300)):
+        got = A.flash_decode(q, k1, v1, 1, i32(*kvl))
+        assert got.shape == (b, h * hd) and torch.isfinite(got).all()
+        assert _row_rel(got, A.flash_decode_plain(q, k1, v1, 1, i32(*kvl)), hd) < 1e-5, kvl
+    for t, pos in ((64, (0, 100)), (40, (3, 0)), (512, (0, 0))):  # 40: a partial last tile
+        qp = torch.randn((b, t, h, hd), device=dev, generator=gen)
+        got = A.flash_prefill(qp, k1, v1, 0, i32(*pos))
+        want = A.flash_prefill_plain(qp, k1, v1, 0, i32(*pos))
+        assert torch.isfinite(got).all() and _row_rel(got, want, hd) <= 1e-5, (t, pos)
+    assert build.LAUNCHES["kv_update_f32"] == 1 and build.LAUNCHES["flash_decode_f32"] == 3
+    assert build.LAUNCHES["flash_prefill_f32"] == 3
+    assert build.LAUNCHES["kv_update"] == build.LAUNCHES["flash_decode"] == 0
+    assert build.LAUNCHES["flash_prefill"] == 0
+
+
+F32_MK_CASES = [("mistral", "bf16", 1), ("mistral", "bf16", 3), ("mistral", "a8", 1),
+                ("mistral", "q4", 3), ("gemma2", "bf16", 1), ("gemma2_hd128", "a8", 3),
+                ("gemma2", "q4", 1), ("gemma", "a8", 1)]
+
+
+@pytest.mark.parametrize("fam,body,b", F32_MK_CASES)
+def test_fused_decode_f32_cache_matches_plain(dev, fam, body, b):
+    """The megakernel's f32-cache instantiations (every body; head_dim 128
+    with and without the Gemma folds' code, 256 with it) against the plain
+    version through a ring wrap of a 48-slot window, each step from the
+    plain version's cache (B = 1 with the embed and i8-head folds, B = 3
+    with row 1 at the sentinel): each step's x and logits within 2e-2 of
+    their max (5e-2 for a8 and q4: an int8 code a count apart), and for a8
+    and q4 90 % of the steps within 1e-5, the bars of the bf16- and
+    int8-cache tests above; every cache row within 2e-2 of its max."""
+    from xalm_tpu_torch.models.llama import rope_constants, rope_tables
+    from xalm_tpu_torch.models.params import recode_params_q4, recode_wcls_i8
+    from xalm_tpu_torch.ops import fused_decode as fd
+    from xalm_tpu_torch.runtime.cache import KVCache, ring_indices
+    from xalm_tpu_torch.utils.synthetic import synthetic_params
+
+    cfg = (dataclasses.replace(MISTRAL_7B, **FUSED_CFG) if fam == "mistral"
+           else _gemma_cfg(fam))
+    params = synthetic_params(cfg, device=dev, seed=60 + b)
+    if body == "q4":
+        params = recode_params_q4(params, 128)
+    folds = b == 1
+    if folds:
+        params = recode_wcls_i8(params)
+    s = cfg.max_seq_len
+    freqs, c1, s1 = rope_constants(cfg, dev)
+    kern, plain = KVCache.init(cfg, b, torch.float32, dev), KVCache.init(cfg, b, torch.float32, dev)
+    rng = np.random.default_rng(b)
+    start = np.array([0, 7, 20][:b])
+    build.reset_launches()
+    steps = s + 6
+    rels = []
+    tol = 2e-2 if body == "bf16" else 5e-2
+    for st in range(steps):
+        kern.k.copy_(plain.k)
+        kern.v.copy_(plain.v)
+        pos = torch.from_numpy((start + st).astype(np.int32))
+        _, kv_pos, kv_len = ring_indices(pos, s)
+        rot = (pos >= s).to(torch.int32)
+        if b == 3:
+            kv_pos[1], rot[1] = s, 0
+        tok = torch.from_numpy(rng.integers(3, cfg.vocab_size, size=b))
+        kw = dict(a8=body != "bf16")
+        x0 = ce = se = None
+        if folds:
+            kw.update(wcls=params.wcls, out_norm=params.out_norm, embed=params.embed, token=tok,
+                      pos=pos, freqs=freqs)
+        else:
+            x0 = params.embed.values[tok.to(dev)].float() * cfg.embed_scale
+            ce, se = (z[:, 0, 0] for z in rope_tables(pos[:, None], freqs.cpu()))
+        got = fd.fused_decode_step(params, cfg, x0, kern.k, kern.v, kv_pos, kv_len, rot, ce, se,
+                                   c1, s1, **kw)
+        want = fd.fused_decode_step_plain(params, cfg, x0, plain.k, plain.v, kv_pos, kv_len, rot,
+                                          ce, se, c1, s1, **kw)
+        torch.cuda.synchronize()
+        outs = [(got[0], want[0], cfg.dim)] + ([(got[1], want[1], cfg.vocab_size)] if folds else [])
+        for gv, wv, row in outs:
+            assert torch.isfinite(gv).all()
+            rels.append(_row_rel(gv, wv, row))
+            assert rels[-1] <= tol, (st, rels[-1])
+        if folds:
+            assert torch.equal(got[2], got[1].argmax(dim=-1).to(torch.int32))
+        for gc, wc in ((kern.k, plain.k), (kern.v, plain.v)):
+            assert _row_rel(gc, wc, cfg.head_dim) <= 2e-2, st
+    counter = {"bf16": "fused_decode", "a8": "fused_decode_a8", "q4": "fused_decode_q4"}[body]
+    assert build.LAUNCHES[counter] == build.LAUNCHES["fused_decode_f32"] == steps
+    if body != "bf16":
+        assert np.mean(np.asarray(rels) <= 1e-5) >= 0.9, sorted(rels)[-5:]
+
+
+FP8 = {"e4m3": torch.float8_e4m3fn, "e5m2": torch.float8_e5m2}
+
+
+@pytest.mark.parametrize("m", [1, 4, 8, 100])
+@pytest.mark.parametrize("fmt", ["e4m3", "e5m2"])
+def test_qmatmul_fp8_matches_plain(dev, fmt, m):
+    """Kernel 1's fp8 branch (the GEMV at M <= 8, the tiled GEMM above) with
+    and without the norm prologue, at the tolerances of the bf16 weights:
+    every code widens exactly on both sides, so the exact products differ
+    only in the order of their f32 sums (1e-4 of each row's max; 1e-3 with
+    the prologue, whose rms order can flip an activation's bf16 rounding).
+    Every finite code of the format is in the weights."""
+    g = torch.Generator(device=dev).manual_seed(m)
+    l, d, n = 2, 1000, 1024
+    codes = torch.randint(0, 256, (l, d, n), dtype=torch.uint8, device=dev, generator=g)
+    codes[0, 0, :256] = torch.arange(256, dtype=torch.uint8, device=dev)
+    w = codes.view(FP8[fmt])
+    finite = torch.isfinite(w.float())
+    codes.masked_fill_(~finite, 0)  # no NaN or Inf code (weights are finite)
+    x = torch.randn((m, n), device=dev, generator=g)
+    nw = torch.rand((l, n), device=dev, generator=g) + 0.5
+    build.reset_launches()
+    for layer in range(l):
+        for extra, tol in (({}, 1e-4), (dict(norm_w=nw, norm_eps=1e-5), 1e-3)):
+            got = qmatmul(x, w, layer, **extra)
+            want = qmatmul_plain(x, w, layer, **extra)
+            assert torch.isfinite(got).all() and _row_rel(got, want, d) <= tol, (layer, extra)
+    assert build.LAUNCHES["qmatmul_fp8"] == 2 * l and build.LAUNCHES["qmatmul"] == 0
+
+
+@pytest.mark.parametrize("fmt", ["e4m3", "e5m2"])
+def test_qmatmul_multi_fp8_matches_plain(dev, fmt):
+    """Kernel 8 shares kernel 1's GEMV core, so it takes fp8 experts too
+    (no forward gathers them: the JAX gate sends fp8 experts dense): x
+    shared and per expert, 1e-4 of each row's max."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    le, d, n = 6, 520, 1040
+    codes = torch.randint(0, 256, (le, d, n), dtype=torch.uint8, device=dev, generator=g)
+    w = codes.view(FP8[fmt])
+    codes.masked_fill_(~torch.isfinite(w.float()), 0)
+    idxs = torch.tensor([4, 1], dtype=torch.int32, device=dev)
+    build.reset_launches()
+    for x, shared in ((torch.randn((1, n), device=dev, generator=g), True),
+                      (torch.randn((2, n), device=dev, generator=g), False)):
+        got = qmatmul_multi(x, w, None, idxs, shared_x=shared)
+        want = qmatmul_multi_plain(x, w, None, idxs, shared_x=shared)
+        assert _row_rel(got, want, d) <= 1e-4
+    assert build.LAUNCHES["qmatmul_multi_fp8"] == 2

@@ -213,11 +213,14 @@ def test_port_harness_on_port_container(tmp_path, capsys):
 
 @pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16, torch.float16])
 def test_kernel_impl_routes_every_step_through_the_kernel_wrappers(monkeypatch, kv_dtype):
-    """With matmul_impl="kernel" every prefill chunk goes through the
-    flash-prefill wrapper, whatever its length (here a 199-row chunk at a
-    200-slot window), and, on the per-layer path (fused_step=False), every
-    decode step through kv_update and flash-decode, for any cache dtype;
-    the dense attention runs for "xla" only."""
+    """With matmul_impl="kernel" and a bf16 or f32 cache every prefill
+    chunk goes through the flash-prefill wrapper, whatever its length (here
+    a 199-row chunk at a 200-slot window), and, on the per-layer path
+    (fused_step=False), every decode step through kv_update and
+    flash-decode; the dense attention runs for "xla" only. An f16 cache,
+    which no attention kernel takes (the JAX forward's
+    ``supported_cache_dtype``), takes the dense attention on every chunk and
+    step and never reaches the wrappers."""
     import dataclasses
 
     from xalm_tpu_torch.models import llama
@@ -230,8 +233,8 @@ def test_kernel_impl_routes_every_step_through_the_kernel_wrappers(monkeypatch, 
                               max_seq_len=200)
     params = synthetic_params(cfg, device="cpu", seed=0)
     prompt = np.random.default_rng(3).integers(3, 100, size=199).tolist()
-    calls = {"flash_prefill": 0, "kv_update": 0, "flash_decode": 0}
-    for name in calls:
+    calls = {"flash_prefill": 0, "kv_update": 0, "flash_decode": 0, "dense": 0}
+    for name in ("flash_prefill", "kv_update", "flash_decode"):
         plain = getattr(A, name + "_plain")
 
         def counted(*args, _name=name, _plain=plain):
@@ -239,16 +242,24 @@ def test_kernel_impl_routes_every_step_through_the_kernel_wrappers(monkeypatch, 
             return _plain(*args)
 
         monkeypatch.setattr(A, name + "_plain", counted)
+    f16 = kv_dtype == torch.float16
+    attention = llama.attention
 
     def dense(*args, **kw):
-        raise AssertionError("the kernel path ran the dense attention")
+        if not f16:
+            raise AssertionError("the kernel path ran the dense attention")
+        calls["dense"] += 1
+        return attention(*args, **kw)
 
     monkeypatch.setattr(llama, "attention", dense)
     port = Engine(cfg, params, kv_dtype=kv_dtype, matmul_impl="kernel", fused_step=False)
     logits, cache, pos = port.prefill(prompt, port.new_cache(1))
-    assert pos == 199 and calls == {"flash_prefill": 2, "kv_update": 0, "flash_decode": 0}
+    wrappers = lambda n: 0 if f16 else n  # noqa: E731
+    assert pos == 199 and calls == {"flash_prefill": wrappers(2), "kv_update": 0,
+                                    "flash_decode": 0, "dense": 2 - wrappers(2)}
     assert torch.isfinite(logits).all()
     for p in (199, 200, 201):  # the last two rotate the sinks of a wrapped ring
         logits, cache = port.decode(np.array([7]), np.array([p], np.int32), cache)
         assert torch.isfinite(logits).all()
-    assert calls == {"flash_prefill": 2, "kv_update": 6, "flash_decode": 6}
+    assert calls == {"flash_prefill": wrappers(2), "kv_update": wrappers(6),
+                     "flash_decode": wrappers(6), "dense": 8 - wrappers(8)}

@@ -429,7 +429,7 @@ def test_fused_decode_step_folds_match_jax(models, fam, cache, b):
     if folds:
         jparams = jax_recode_wcls_i8(dataclasses.replace(
             jparams, embed=JaxQWeight(jparams.embed.values.astype(jnp.bfloat16))))
-    params = from_jax_params(jax.tree.map(np.asarray, jparams))
+    params = from_jax_params(jax.tree.map(np.asarray, jparams), device="cpu")
     assert (params.layers.bqkv is not None) == fam.startswith("qwen2")
     assert (params.layers.q_norm is not None) == (fam == "qwen3")
     freqs = jax_rope_freqs(jcfg)

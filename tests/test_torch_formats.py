@@ -315,19 +315,17 @@ def test_harness_identical_to_jax(containers, capsys, tname):
 # ---- the megakernel's cache gate
 
 
-@pytest.mark.parametrize("on_card", [True, False])
-def test_megakernel_cache_gate(on_card):
-    """The caches the megakernel takes where the weights lie: on the card
-    bf16, or int8 with its scale planes (``csrc/fused_decode.cu`` has no f32
-    instantiation; before, the gate took an f32 cache there and the wrapper
-    raised at the first decode step), on the CPU f32 too, as the plain
-    version takes it."""
-    assert fd.cache_supported(torch.bfloat16, False, on_card)
-    assert fd.cache_supported(torch.int8, True, on_card)
-    assert fd.cache_supported(torch.float32, False, on_card) == (not on_card)
-    assert not fd.cache_supported(torch.float16, False, on_card)
-    assert not fd.cache_supported(torch.int8, False, on_card)
-    assert not fd.cache_supported(torch.bfloat16, True, on_card)
+@pytest.mark.parametrize("quantized", [False, True])
+def test_megakernel_cache_gate(quantized):
+    """The caches the megakernel takes, the same on the card and the CPU
+    (``csrc/fused_decode_f32.cu`` holds the f32 cache's instantiations):
+    bf16 or f32, or with scale planes (``quantized``) int8; never f16, as
+    the JAX gate."""
+    float_ok = {torch.bfloat16: True, torch.float32: True, torch.float16: False,
+                torch.int8: False}
+    for dtype, ok in float_ok.items():
+        want = dtype == torch.int8 if quantized else ok
+        assert fd.cache_supported(dtype, quantized) == want, dtype
 
 
 def test_fused_step_takes_an_f32_cache_on_the_cpu():

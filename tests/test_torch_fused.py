@@ -89,7 +89,7 @@ def _variant(jparams, embed: bool, head: bool):
             jparams, embed=JaxQWeight(jparams.embed.values.astype(jnp.bfloat16)))
     if head:
         jparams = jax_recode_wcls_i8(jparams)
-    return jparams, from_jax_params(jax.tree.map(np.asarray, jparams))
+    return jparams, from_jax_params(jax.tree.map(np.asarray, jparams), device="cpu")
 
 
 def _ring(pos: np.ndarray):
@@ -329,7 +329,7 @@ def test_gates_refuse_what_the_kernel_does_not_take(jax_base):
 
 def test_recode_wcls_i8_is_bit_equal_to_jax(jax_base):
     want = jax_recode_wcls_i8(jax_base.params)
-    params = from_jax_params(jax.tree.map(np.asarray, jax_base.params))
+    params = from_jax_params(jax.tree.map(np.asarray, jax_base.params), device="cpu")
     assert params.wcls.values.dtype != torch.int8
     got = recode_wcls_i8(params)
     assert got.wcls.values.dtype == torch.int8

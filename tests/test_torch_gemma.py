@@ -451,7 +451,7 @@ def test_fused_decode_step_folds_match_jax(models, fam, cache, b):
     if folds:
         jparams = jax_recode_wcls_i8(dataclasses.replace(
             jparams, embed=JaxQWeight(jparams.embed.values.astype(jnp.bfloat16))))
-    params = from_jax_params(jax.tree.map(np.asarray, jparams))
+    params = from_jax_params(jax.tree.map(np.asarray, jparams), device="cpu")
     assert (params.layers.post_attn_norm is not None) == (fam == "gemma2")
     freqs = llama.rope_freqs(cfg)
     c1, s1 = jax_cos_sin_plus1(freqs)

@@ -214,7 +214,7 @@ def test_fused_decode_step_q_matches_jax(jax_base, b, folds):
             jparams, embed=JaxQWeight(jparams.embed.values.astype(jnp.bfloat16)))
     if folds:
         jparams = jax_recode_wcls_i8(jparams)
-    params = from_jax_params(jax.tree.map(np.asarray, jparams))
+    params = from_jax_params(jax.tree.map(np.asarray, jparams), device="cpu")
     freqs = jax_rope_freqs(jcfg)
     c1, s1 = jax_cos_sin_plus1(freqs)
     shape = (cfg.n_layers, b, cfg.n_kv_heads, S_PHYS, cfg.head_dim)

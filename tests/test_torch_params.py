@@ -108,7 +108,7 @@ def test_bf16_weights_round_trip_through_jax_tree():
     cfg = JC(dim=32, hidden_dim=64, head_dim=8, n_layers=2, n_heads=4, n_kv_heads=2,
              vocab_size=40, max_seq_len=16, rope_theta=1e4, rotary_dim=8, act="silu")
     tree = jax.tree.map(np.asarray, synthetic_params(cfg, weight_dtype=jnp.int8))
-    port = from_jax_params(tree)
+    port = from_jax_params(tree, device="cpu")
     assert port.embed.values.dtype == torch.bfloat16
     np.testing.assert_array_equal(_np(port.embed.values), _jnp(tree.embed.values))
     np.testing.assert_array_equal(_np(port.layers.wqkv.values), _jnp(tree.layers.wqkv.values))
@@ -192,3 +192,21 @@ def test_entry_points_default_to_the_card():
     for fn in (load_params, KVCache.init, Engine.from_xalm, synthetic_params):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
     assert harness._build_parser().parse_args(["m.xalm"]).device == "cuda"
+
+
+def test_from_jax_params_defaults_to_the_card():
+    """``from_jax_params`` puts the carried weights on the card unless the
+    caller asks for the CPU, as ``load_params`` does; with ``device="cpu"``
+    every tensor lies there."""
+    import inspect
+
+    from xalm_tpu.utils.synthetic import synthetic_params
+    import jax.numpy as jnp
+    from xalm_tpu.models.config import ModelConfig as JC
+
+    assert inspect.signature(from_jax_params).parameters["device"].default == "cuda"
+    cfg = JC(dim=32, hidden_dim=64, head_dim=8, n_layers=1, n_heads=4, n_kv_heads=2,
+             vocab_size=40, max_seq_len=16, rope_theta=1e4, rotary_dim=8, act="silu")
+    tree = jax.tree.map(np.asarray, synthetic_params(cfg, weight_dtype=jnp.int8))
+    port = from_jax_params(tree, device="cpu")
+    assert port.embed.values.device.type == port.layers.wqkv.values.device.type == "cpu"

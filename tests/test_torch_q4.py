@@ -163,7 +163,7 @@ def test_recode_params_q4_matches_jax_and_validates_groups():
                                vocab_size=512, max_seq_len=64)
     jp = jax_synthetic_params(jcfg, weight_dtype=jnp.int8)
     want = jax_recode_params_q4(jp, group=128)
-    got = recode_params_q4(from_jax_params(jax.tree.map(np.asarray, jp)), group=128)
+    got = recode_params_q4(from_jax_params(jax.tree.map(np.asarray, jp), device="cpu"), group=128)
     for name in ("wqkv", "wo", "w13", "w2"):
         g, w = getattr(got.layers, name), getattr(want.layers, name)
         assert g.q4group == w.q4group == 128
@@ -296,7 +296,7 @@ def test_megakernel_bodies_match_jax(wide_jax, body, b, cache):
     head = b == 1
     if head:
         jparams = jax_recode_wcls_i8(jparams)
-    params = from_jax_params(jax.tree.map(np.asarray, jparams))
+    params = from_jax_params(jax.tree.map(np.asarray, jparams), device="cpu")
     assert fd.fused_step_supported(cfg, params, torch.empty((1, b, 1, 64, 64)), b, 1, a8=True)
     assert (body == "a8") == fd.fused_step_supported(cfg, params, torch.empty((1, b, 1, 64, 64)),
                                                      b, 1, a8=False)

@@ -1,6 +1,8 @@
 // Decode ring update, flash-decode and causal flash-prefill attention over
-// the stacked StreamingLLM cache, bf16 or int8 with per-row scales, for
-// Hopper (sm_90a).
+// the stacked StreamingLLM cache, bf16, f32 or int8 with per-row scales, for
+// Hopper (sm_90a). The float kernels (1, 2, 5) take a bf16 or an f32 cache
+// (the TPU kernels' supported_cache_dtype), the cache type a template
+// parameter of 1 and 2, and of 5 a kernel of its own (5b).
 //
 // The cache pointers given to every function are one layer of the
 // (L, B, KH, S, hd) planes (the caller offsets by the layer), S being the
@@ -8,11 +10,11 @@
 //
 // 1. xq_kv_update replaces xalm_tpu/ops/pallas_attention.py::_update_kernel.
 //    Grid (B, KH), one thread per head dim. Writes the new K/V row (f32 ->
-//    bf16) at kv_pos (dropped when kv_pos >= S: the sentinel), then, for
-//    wrapped rows, rotates the KV_SINKS sink keys by one position with the
-//    interleaved-pair rope: out = v*cexp + swap(v)*sexp, swap[2j] = -v[2j+1],
-//    swap[2j+1] = v[2j], each product and the sum rounded separately as in
-//    the plain version. Bound: bytes, and at a few KB per layer it is launch
+//    bf16, or as it is in an f32 cache) at kv_pos (dropped when kv_pos >= S:
+//    the sentinel), then, for wrapped rows, rotates the KV_SINKS sink keys
+//    by one position with the interleaved-pair rope: out = v*cexp +
+//    swap(v)*sexp, swap[2j] = -v[2j+1], swap[2j+1] = v[2j], each product
+//    and the sum rounded separately as in the plain version. Bound: bytes, and at a few KB per layer it is launch
 //    latency; it stays a separate launch before attention on the same stream
 //    because fusing it into attention would race on the row being written.
 //
@@ -20,11 +22,12 @@
 //    sequence in order carrying a running max and sum; blocks on the card
 //    run in no order, so the sequence is split into 128-row chunks, one
 //    block per (batch, kv head, chunk): phase 1 scores the chunk for the
-//    head's G query heads (f32 dots over the bf16 cache, one thread per key
-//    row, q broadcast from shared memory: no shuffle chains on the critical
-//    path), phase 2 takes each head's chunk max and exp-sums, phase 3 forms
-//    the un-normalised P.V, each warp over a quarter of the rows (coalesced
-//    8-byte loads, several rows in flight), summed across the warps.
+//    head's G query heads (f32 dots over the bf16 or f32 cache, one thread
+//    per key row, 16-byte loads, q broadcast from shared memory: no shuffle
+//    chains on the critical path), phase 2 takes each head's chunk max and
+//    exp-sums, phase 3 forms the un-normalised P.V, each warp over a quarter
+//    of the rows (coalesced loads of a lane's 4 or 8 values, several rows in
+//    flight), summed across the warps.
 //    A second small kernel combines the chunks' (max, sum, acc) partials.
 //    Chunks past kv_len exit at once; kv_len == 0 gives 0, not NaN. The
 //    GQA group G = H / KH and the head dim HD are template parameters,
@@ -69,6 +72,13 @@
 //    95 KB of dynamic shared memory at HD 128, 177 KB at HD 256 (one block
 //    an SM). Bound: operations at T = 512 (tensor cores), bytes at small T.
 //    Simple first: no TMA / wgmma / pipelining yet.
+//
+// 5b. xq_flash_prefill over an f32 cache replaces _prefill_kernel with its
+//    f32 compute_dtype: nothing is rounded to bf16, so the bf16 WMMA tiles
+//    cannot serve and TF32 would round; flash_prefill_f32_kernel runs both
+//    dots in f32 FMA on the CUDA cores (see its note), the same rows,
+//    causal limit and online softmax. Bound: f32 operations at T = 512
+//    (67 TFLOP/s).
 
 #include <math.h>
 #include <mma.h>
@@ -83,7 +93,8 @@ namespace {
 
 constexpr int KV_SINKS = 2;
 
-__global__ void kv_update_kernel(__nv_bfloat16* __restrict__ ck, __nv_bfloat16* __restrict__ cv,
+template <typename CT>
+__global__ void kv_update_kernel(CT* __restrict__ ck, CT* __restrict__ cv,
                                  const float* __restrict__ knew, const float* __restrict__ vnew,
                                  const int* __restrict__ kv_pos, const int* __restrict__ rotate,
                                  const float* __restrict__ cexp, const float* __restrict__ sexp,
@@ -93,17 +104,17 @@ __global__ void kv_update_kernel(__nv_bfloat16* __restrict__ ck, __nv_bfloat16* 
   const size_t src = ((size_t)b * KH + h) * hd + i;
   const int kvp = kv_pos[b];
   if (kvp >= 0 && kvp < S) {
-    ck[stripe + (size_t)kvp * hd + i] = __float2bfloat16_rn(knew[src]);
-    cv[stripe + (size_t)kvp * hd + i] = __float2bfloat16_rn(vnew[src]);
+    ck[stripe + (size_t)kvp * hd + i] = xq_to_cache<CT>(knew[src]);
+    cv[stripe + (size_t)kvp * hd + i] = xq_to_cache<CT>(vnew[src]);
   }
   if (rotate[b] == 0) return;  // uniform over the block
   __syncthreads();
   float v[KV_SINKS], sw[KV_SINKS];
 #pragma unroll
   for (int r = 0; r < KV_SINKS; ++r) {
-    const __nv_bfloat16* row = ck + stripe + (size_t)r * hd;
-    v[r] = __bfloat162float(row[i]);
-    const float p = __bfloat162float(row[i ^ 1]);
+    const CT* row = ck + stripe + (size_t)r * hd;
+    v[r] = xq_from_cache(row[i]);
+    const float p = xq_from_cache(row[i ^ 1]);
     sw[r] = (i & 1) ? p : -p;
   }
   __syncthreads();
@@ -111,7 +122,7 @@ __global__ void kv_update_kernel(__nv_bfloat16* __restrict__ ck, __nv_bfloat16* 
 #pragma unroll
   for (int r = 0; r < KV_SINKS; ++r)
     ck[stripe + (size_t)r * hd + i] =
-        __float2bfloat16_rn(__fadd_rn(__fmul_rn(v[r], c), __fmul_rn(sw[r], s)));
+        xq_to_cache<CT>(__fadd_rn(__fmul_rn(v[r], c), __fmul_rn(sw[r], s)));
 }
 
 constexpr int FD_THREADS = 128;
@@ -151,9 +162,20 @@ cudaError_t for_head_dim(int hd, Launch launch) {
 template <int HD>
 __host__ __device__ constexpr int fd_vpl() { return HD == 256 ? 8 : 4; }
 
-template <int VPL>
-__device__ __forceinline__ void load_bf16(const __nv_bfloat16* p, float* out) {
-  if constexpr (VPL == 8) {
+// VPL consecutive values of a float cache row as f32: 8 or 16 bytes of
+// bf16, 16 or 32 of f32
+template <typename CT, int VPL>
+__device__ __forceinline__ void load_cache(const CT* p, float* out) {
+  if constexpr (sizeof(CT) == 4) {
+#pragma unroll
+    for (int c = 0; c < VPL / 4; ++c) {
+      const float4 v = *reinterpret_cast<const float4*>(p + 4 * c);
+      out[4 * c] = v.x;
+      out[4 * c + 1] = v.y;
+      out[4 * c + 2] = v.z;
+      out[4 * c + 3] = v.w;
+    }
+  } else if constexpr (VPL == 8) {
     const int4 raw = *reinterpret_cast<const int4*>(p);
     const __nv_bfloat16* v = reinterpret_cast<const __nv_bfloat16*>(&raw);
 #pragma unroll
@@ -181,10 +203,10 @@ __device__ __forceinline__ void load_s8(const signed char* p, float* out) {
   }
 }
 
-template <int G, int HD>
+template <int G, int HD, typename CT>
 __global__ void __launch_bounds__(FD_THREADS) flash_decode_split_kernel(
-    const float* __restrict__ q, const __nv_bfloat16* __restrict__ ck,
-    const __nv_bfloat16* __restrict__ cv, const int* __restrict__ kv_len,
+    const float* __restrict__ q, const CT* __restrict__ ck,
+    const CT* __restrict__ cv, const int* __restrict__ kv_len,
     float* __restrict__ pm, float* __restrict__ pl, float* __restrict__ pacc,
     int KH, int S, float sm_scale) {
   constexpr int VPL = fd_vpl<HD>(), NL = HD / VPL;
@@ -218,25 +240,25 @@ __global__ void __launch_bounds__(FD_THREADS) flash_decode_split_kernel(
   __syncthreads();
 
   // phase 1: thread r scores key row r for the G heads; f32 dots, 16-byte
-  // loads, q broadcast from shared memory
+  // loads (8 bf16 or 4 f32 values), q broadcast from shared memory
   if (tid < n) {
+    constexpr int PER = 16 / sizeof(CT);
     const int4* krow = reinterpret_cast<const int4*>(ck + stripe + (size_t)(r0 + tid) * HD);
     float s[G];
 #pragma unroll
     for (int gi = 0; gi < G; ++gi) s[gi] = 0.f;
 #pragma unroll
-    for (int c = 0; c < HD / 8; ++c) {  // every load of the row in flight
+    for (int c = 0; c < HD / PER; ++c) {  // every load of the row in flight
       const int4 raw = __ldg(krow + c);
-      const __nv_bfloat16* kp = reinterpret_cast<const __nv_bfloat16*>(&raw);
-      float kf[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) kf[e] = __bfloat162float(kp[e]);
+      float kf[PER];
+      load_cache<CT, PER>(reinterpret_cast<const CT*>(&raw), kf);
 #pragma unroll
       for (int gi = 0; gi < G; ++gi) {
-        const float4 qa = *reinterpret_cast<const float4*>(&qs[gi][c * 8]);
-        const float4 qb = *reinterpret_cast<const float4*>(&qs[gi][c * 8 + 4]);
-        s[gi] += qa.x * kf[0] + qa.y * kf[1] + qa.z * kf[2] + qa.w * kf[3] +
-                 qb.x * kf[4] + qb.y * kf[5] + qb.z * kf[6] + qb.w * kf[7];
+#pragma unroll
+        for (int e = 0; e < PER; e += 4) {
+          const float4 qa = *reinterpret_cast<const float4*>(&qs[gi][c * PER + e]);
+          s[gi] += qa.x * kf[e] + qa.y * kf[e + 1] + qa.z * kf[e + 2] + qa.w * kf[e + 3];
+        }
       }
     }
 #pragma unroll
@@ -275,7 +297,7 @@ __global__ void __launch_bounds__(FD_THREADS) flash_decode_split_kernel(
 #pragma unroll 8
     for (int r = warp; r < n; r += FD_THREADS / 32) {
       float vf[VPL];
-      load_bf16<VPL>(cv + stripe + (size_t)(r0 + r) * HD + lane * VPL, vf);
+      load_cache<CT, VPL>(cv + stripe + (size_t)(r0 + r) * HD + lane * VPL, vf);
 #pragma unroll
       for (int gi = 0; gi < G; ++gi) {
         const float p = sc[gi][r];
@@ -664,16 +686,191 @@ __global__ void __launch_bounds__(128) flash_prefill_kernel(
         make_float4(o[i] / ldiv, o[i + 1] / ldiv, o[i + 2] / ldiv, o[i + 3] / ldiv);
 }
 
+// The f32-cache prefill: the row layout, causal limit and online softmax of
+// flash_prefill_kernel, with both dots in f32 FMA (no bf16 rounding of q,
+// k, v or p; no TF32). 256 threads as 16 x 16: thread (ty, tx) owns rows
+// 4 ty .. 4 ty + 3, the keys tx + 16 j of a tile and the float4 columns
+// tx + 16 j of the output. Q, K and V tiles are f32 in shared memory, so a
+// key tile is 32 rows at HD 256 (64 at 96 and 128): 139 KB there, 116 KB
+// at HD 128, 92 KB at 96.
+template <int HD>
+__host__ __device__ constexpr int pf32_kt() { return HD == 256 ? 32 : 64; }
+template <int HD>
+__host__ __device__ constexpr int pf32_smem() {
+  return ((PF_ROWS + 2 * pf32_kt<HD>()) * (HD + 4) + PF_ROWS * (pf32_kt<HD>() + 4)) * 4;
+}
+
+template <int HD>
+__global__ void __launch_bounds__(256) flash_prefill_f32_kernel(
+    const float* __restrict__ q, const float* __restrict__ ck, const float* __restrict__ cv,
+    const int* __restrict__ pos, float* __restrict__ out, int T, int H, int KH, int S,
+    float sm_scale) {
+  constexpr int KT = pf32_kt<HD>(), LD = HD + 4, LDP = KT + 4;
+  constexpr int KPT = KT / 16;          // keys of a tile per thread
+  constexpr int NC = HD / 4;            // float4 columns of a row
+  constexpr int CPT = (NC + 15) / 16;   // float4 output columns per thread (HD 96: 2 or 1)
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* Qs = reinterpret_cast<float*>(smem);  // (PF_ROWS, LD)
+  float* Ks = Qs + PF_ROWS * LD;                // (KT, LD)
+  float* Vs = Ks + KT * LD;                     // (KT, LD)
+  float* Ps = Vs + KT * LD;                     // (PF_ROWS, LDP)
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int b = blockIdx.x / KH, h = blockIdx.x % KH;
+  const int g = H / KH, tq = PF_ROWS / g;  // rows tq * g .. PF_ROWS - 1 stay empty
+  const int q0 = blockIdx.y * tq;
+  const int pb = pos[b];
+  const size_t stripe = ((size_t)b * KH + h) * S * HD;
+
+  for (int c = tid; c < PF_ROWS * NC; c += 256) {
+    const int R = c / NC, col = (c % NC) * 4;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (R < tq * g && q0 + R / g < T)
+      v = *reinterpret_cast<const float4*>(
+          q + (((size_t)b * T + q0 + R / g) * H + (size_t)h * g + R % g) * HD + col);
+    *reinterpret_cast<float4*>(Qs + R * LD + col) = v;
+  }
+
+  float m_run[4], l_run[4], o[4][CPT][4];
+  int qpos[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m_run[i] = -INFINITY;
+    l_run[i] = 0.f;
+    qpos[i] = pb + q0 + (ty * 4 + i) / g;  // sees keys <= qpos
+#pragma unroll
+    for (int j = 0; j < CPT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[i][j][e] = 0.f;
+  }
+  const int kend = pb + min(q0 + tq, T);  // keys >= kend are invisible to the tile
+
+  for (int k0 = 0; k0 < kend; k0 += KT) {
+    __syncthreads();  // the previous tile is consumed (and Q is in place)
+    for (int c = tid; c < KT * NC; c += 256) {
+      const int row = c / NC, col = (c % NC) * 4, key = k0 + row;
+      float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
+      if (key < S) {
+        kv = *reinterpret_cast<const float4*>(ck + stripe + (size_t)key * HD + col);
+        vv = *reinterpret_cast<const float4*>(cv + stripe + (size_t)key * HD + col);
+      }
+      *reinterpret_cast<float4*>(Ks + row * LD + col) = kv;
+      *reinterpret_cast<float4*>(Vs + row * LD + col) = vv;
+    }
+    __syncthreads();
+
+    // scores of rows 4 ty + i against keys k0 + tx + 16 j
+    float sc[4][KPT];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < KPT; ++j) sc[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < HD; d += 4) {
+      float4 qa[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qa[i] = *reinterpret_cast<const float4*>(Qs + (ty * 4 + i) * LD + d);
+#pragma unroll
+      for (int j = 0; j < KPT; ++j) {
+        const float4 kb = *reinterpret_cast<const float4*>(Ks + (tx + 16 * j) * LD + d);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          sc[i][j] = fmaf(qa[i].w, kb.w, fmaf(qa[i].z, kb.z, fmaf(qa[i].y, kb.y,
+                                                                  fmaf(qa[i].x, kb.x, sc[i][j]))));
+      }
+    }
+
+    // online softmax: a row's 16 threads are one half of a warp
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mt = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < KPT; ++j) {
+        sc[i][j] = k0 + tx + 16 * j <= qpos[i] ? sc[i][j] * sm_scale : -INFINITY;
+        mt = fmaxf(mt, sc[i][j]);
+      }
+#pragma unroll
+      for (int o2 = 8; o2 > 0; o2 >>= 1) mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, o2));
+      const float m_new = fmaxf(m_run[i], mt);
+      const float alpha = m_new == -INFINITY ? 1.f : expf(m_run[i] - m_new);
+      float psum = 0.f;
+#pragma unroll
+      for (int j = 0; j < KPT; ++j) {
+        const float p = sc[i][j] == -INFINITY ? 0.f : expf(sc[i][j] - m_new);
+        psum += p;
+        Ps[(ty * 4 + i) * LDP + tx + 16 * j] = p;
+      }
+#pragma unroll
+      for (int o2 = 8; o2 > 0; o2 >>= 1) psum += __shfl_xor_sync(0xffffffffu, psum, o2);
+      l_run[i] = l_run[i] * alpha + psum;
+      m_run[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < CPT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[i][j][e] *= alpha;
+    }
+    __syncwarp();  // a row's p comes from its own half-warp
+
+    // P.V: o[i][j] += sum over the tile's keys of p * V[key][(tx + 16 j) * 4 ..]
+#pragma unroll 4
+    for (int k = 0; k < KT; ++k) {
+      float p[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) p[i] = Ps[(ty * 4 + i) * LDP + k];
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) {
+        const int c = tx + 16 * j;
+        if (c >= NC) break;
+        const float4 v = *reinterpret_cast<const float4*>(Vs + k * LD + c * 4);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          o[i][j][0] = fmaf(p[i], v.x, o[i][j][0]);
+          o[i][j][1] = fmaf(p[i], v.y, o[i][j][1]);
+          o[i][j][2] = fmaf(p[i], v.z, o[i][j][2]);
+          o[i][j][3] = fmaf(p[i], v.w, o[i][j][3]);
+        }
+      }
+    }
+    __syncwarp();  // the next tile's p overwrites Ps
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int R = ty * 4 + i;
+    if (R >= tq * g || q0 + R / g >= T) continue;
+    const float ldiv = l_run[i] > 0.f ? l_run[i] : 1.f;
+    float* dst = out + (((size_t)b * T + q0 + R / g) * H + (size_t)h * g + R % g) * HD;
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) {
+      const int c = tx + 16 * j;
+      if (c >= NC) break;
+      *reinterpret_cast<float4*>(dst + c * 4) = make_float4(o[i][j][0] / ldiv, o[i][j][1] / ldiv,
+                                                            o[i][j][2] / ldiv, o[i][j][3] / ldiv);
+    }
+  }
+}
+
 }  // namespace
 
+// launch(CT{}) for a float cache of bf16 (f32 == 0) or f32 values,
+// returning what it returns
+template <typename Launch>
+cudaError_t for_cache(int f32, Launch launch) {
+  if (f32) return launch(float{});
+  return launch(__nv_bfloat16{});
+}
+
+// ck/cv: one layer of a bf16 (f32 == 0) or f32 cache
 XQ_EXPORT int xq_kv_update(void* ck, void* cv, const void* knew, const void* vnew,
                            const void* kv_pos, const void* rotate, const void* cexp,
-                           const void* sexp, int B, int KH, int S, int hd, void* stream) {
+                           const void* sexp, int B, int KH, int S, int hd, int f32, void* stream) {
   if (hd < 2 || hd > 1024 || hd % 2 != 0) return (int)cudaErrorInvalidValue;
-  kv_update_kernel<<<dim3(B, KH), hd, 0, static_cast<cudaStream_t>(stream)>>>(
-      (__nv_bfloat16*)ck, (__nv_bfloat16*)cv, (const float*)knew, (const float*)vnew,
-      (const int*)kv_pos, (const int*)rotate, (const float*)cexp, (const float*)sexp, KH, S, hd);
-  return (int)cudaGetLastError();
+  return (int)for_cache(f32, [&](auto t) {
+    using CT = decltype(t);
+    kv_update_kernel<CT><<<dim3(B, KH), hd, 0, static_cast<cudaStream_t>(stream)>>>(
+        (CT*)ck, (CT*)cv, (const float*)knew, (const float*)vnew, (const int*)kv_pos,
+        (const int*)rotate, (const float*)cexp, (const float*)sexp, KH, S, hd);
+    return cudaGetLastError();
+  });
 }
 
 // f32 elements of the flash-decode workspace: per (batch, head, chunk) the
@@ -685,7 +882,7 @@ XQ_EXPORT long long xq_flash_decode_workspace(int B, int H, int S, int hd) {
 
 XQ_EXPORT int xq_flash_decode(const void* q, const void* ck, const void* cv, const void* kv_len,
                               void* work, void* out, int B, int H, int KH, int S, int hd,
-                              float sm_scale, void* stream) {
+                              float sm_scale, int f32, void* stream) {
   if (KH < 1 || H % KH != 0) return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   const int NS = (S + FD_CHUNK - 1) / FD_CHUNK;
@@ -695,13 +892,15 @@ XQ_EXPORT int xq_flash_decode(const void* q, const void* ck, const void* cv, con
   float* pacc = pl + parts;
   const dim3 grid(B * KH, NS);
   const float* qf = (const float*)q;
-  const auto* k = (const __nv_bfloat16*)ck;
-  const auto* v = (const __nv_bfloat16*)cv;
   const int* kl = (const int*)kv_len;
-  const cudaError_t e = for_head_dim(hd, [&](auto d) {
-    return for_group(H / KH, [&](auto g) {
-      flash_decode_split_kernel<decltype(g)::value, decltype(d)::value><<<grid, FD_THREADS, 0, s>>>(
-          qf, k, v, kl, pm, pl, pacc, KH, S, sm_scale);
+  const cudaError_t e = for_cache(f32, [&](auto t) {
+    using CT = decltype(t);
+    return for_head_dim(hd, [&](auto d) {
+      return for_group(H / KH, [&](auto g) {
+        flash_decode_split_kernel<decltype(g)::value, decltype(d)::value, CT>
+            <<<grid, FD_THREADS, 0, s>>>(qf, (const CT*)ck, (const CT*)cv, kl, pm, pl, pacc, KH,
+                                         S, sm_scale);
+      });
     });
   });
   if (e != cudaSuccess) return (int)e;
@@ -711,15 +910,24 @@ XQ_EXPORT int xq_flash_decode(const void* q, const void* ck, const void* cv, con
 
 XQ_EXPORT int xq_flash_prefill(const void* q, const void* ck, const void* cv, const void* pos,
                                void* out, int B, int T, int H, int KH, int S, int hd,
-                               float sm_scale, void* stream) {
+                               float sm_scale, int f32, void* stream) {
   if (KH < 1 || H % KH != 0 || H / KH > FD_MAX_G) return (int)cudaErrorInvalidValue;
   const int tq = PF_ROWS / (H / KH);
+  const dim3 grid(B * KH, (T + tq - 1) / tq);
+  auto s = static_cast<cudaStream_t>(stream);
   return (int)for_head_dim(hd, [&](auto d) {
     constexpr int HD = decltype(d)::value;
+    if (f32) {
+      cudaError_t e = xq_allow_smem(flash_prefill_f32_kernel<HD>, pf32_smem<HD>());
+      if (e != cudaSuccess) return e;
+      flash_prefill_f32_kernel<HD><<<grid, 256, pf32_smem<HD>(), s>>>(
+          (const float*)q, (const float*)ck, (const float*)cv, (const int*)pos, (float*)out, T, H,
+          KH, S, sm_scale);
+      return cudaGetLastError();
+    }
     cudaError_t e = xq_allow_smem(flash_prefill_kernel<HD>, pf_smem<HD>());
     if (e != cudaSuccess) return e;
-    flash_prefill_kernel<HD><<<dim3(B * KH, (T + tq - 1) / tq), 128, pf_smem<HD>(),
-                               static_cast<cudaStream_t>(stream)>>>(
+    flash_prefill_kernel<HD><<<grid, 128, pf_smem<HD>(), s>>>(
         (const float*)q, (const __nv_bfloat16*)ck, (const __nv_bfloat16*)cv, (const int*)pos,
         (float*)out, T, H, KH, S, sm_scale);
     return cudaGetLastError();

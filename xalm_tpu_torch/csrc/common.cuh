@@ -19,6 +19,17 @@ __device__ __forceinline__ float xq_warp_max(float v) {
   return v;
 }
 
+// A float KV cache's element: bf16 (rounded to nearest even on store) or
+// f32 (stored as it is), and back to f32 on load
+template <typename CT>
+__device__ __forceinline__ CT xq_to_cache(float v) {
+  if constexpr (sizeof(CT) == 4) return v;
+  else return __float2bfloat16_rn(v);
+}
+
+__device__ __forceinline__ float xq_from_cache(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float xq_from_cache(float v) { return v; }
+
 // Shared memory above 48 KB a block needs an opt-in per kernel, and the
 // 48 KB count the kernel's static shared memory too: a kernel with a few
 // static bytes and exactly 48 KB of dynamic memory does not launch without

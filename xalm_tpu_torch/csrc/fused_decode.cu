@@ -1,12 +1,12 @@
 // Whole-step decode megakernel for Hopper (sm_90a).
 //
 // Replaces xalm_tpu/ops/fused_decode.py::_kernel (through fused_decode_step)
-// for an i8 body with per-row f32 scales, a StreamingLLM cache of bf16 or of
-// int8 codes with per-row f32 scale planes (the TPU kernel's `quant`
-// branch), 1 <= B <= 8 rows at t = 1, head_dim 128 or 256 (a template
+// for an i8 body with per-row f32 scales, a StreamingLLM cache of bf16, of
+// f32 or of int8 codes with per-row f32 scale planes (the TPU kernel's
+// `quant` branch), 1 <= B <= 8 rows at t = 1, head_dim 128 or 256 (a template
 // parameter, dispatched at launch), and its two folds: the embed fold (the bf16 embed row gathered,
 // times the embed scale, and the rope trig computed in the kernel) and the
-// i8-head fold (final norm, i8 classifier, first-occurrence argmax). The two
+// i8-head fold (final norm, i8 classifier, first-occurrence argmax). The three
 // cache kinds and the two head dims are instantiations of one kernel, and
 // at head_dim 128 so is the choice of the Gemma folds' code (FAM): with it
 // compiled in, the kernel ran 4-5 % slower on models that use none of them
@@ -35,8 +35,10 @@
 //     the same way. No barrier is added: 1 + 7L a step, as without them.
 //
 // Its weight phases come in three bodies, one instantiation each (times the
-// two cache kinds and three (head_dim, FAM) pairs, (128, no), (128, yes) and
-// (256, yes): eighteen): the i8 body times bf16 activations; the a8 body (the TPU
+// three cache kinds and three (head_dim, FAM) pairs, (128, no), (128, yes) and
+// (256, yes): twenty-seven; the nine of the f32 cache build as a library of
+// their own, fused_decode_f32.cu, beside the others): the i8 body times bf16
+// activations; the a8 body (the TPU
 // kernel's _a8dot) and the q4 body (its _q4dot), which quantise each phase's
 // f32 input row (the normed x, attn, act; the normed x of the i8 head) to
 // int8 codes with its absmax / 127 -- every block takes the amax of the rows
@@ -57,10 +59,11 @@
 //      by warp shuffles and a named barrier over the item's hd threads: two
 //      items a block at hd 128, one at hd 256),
 //      rope (q pre-scaled by 1/sqrt(hd)), the K/V
-//      rows rounded to bf16 and inserted at kv_pos (dropped at the kv_pos
-//      == S sentinel), and for rows with `rotate` the KV_SINKS sink keys
-//      rotated by one position (each product and the sum rounded as the
-//      plain version's separate f32 operations, then rounded to bf16).
+//      rows rounded to bf16 (an f32 cache: stored as they are) and inserted
+//      at kv_pos (dropped at the kv_pos == S sentinel), and for rows with
+//      `rotate` the KV_SINKS sink keys rotated by one position (each product
+//      and the sum rounded as the plain version's separate f32 operations,
+//      then rounded to bf16, or not in an f32 cache).
 //      int8 cache: q stays unscaled; the K and V rows are quantised (absmax
 //      by warp shuffles and a named barrier over the item's hd threads,
 //      since the two items of a block may run different numbers of
@@ -106,7 +109,8 @@
 // GB of int8 (2.08 ms at 3.35 TB/s), 3.49 GB packed in q4 plus 54.5 MB of
 // group-512 scales (1.06 ms), the i8 head 0.13 GB more; the K and V
 // cache rows at kv_len 520 are 68 MB in bf16 (2 x 32 layers x 520 rows x
-// 1024 values x 2 B), 34 MB of int8 codes plus 1 MB of scales in the int8
+// 1024 values x 2 B), 136 MB in f32 (four 16-byte loads a key row's half
+// where bf16 takes two), 34 MB of int8 codes plus 1 MB of scales in the int8
 // cache; Gemma-2-9B's 42 layers are 8.33 GB (2.49 ms), its i8 head 0.92 GB.
 // Compute is B FMAs per weight byte on the CUDA cores (the folds add a
 // tanh per score, per logit and per gate, and two row norms per layer: no
@@ -117,13 +121,13 @@
 // barrier and restarts cold.
 //
 // Limits (cudaErrorInvalidValue): head_dim other than 128 and 256 (Phi-3's
-// 96 decodes on the per-layer kernels), a cache neither bf16 nor
-// int8 with scale planes, B outside 1..8, a GQA group outside 1..8, widths
-// that are not multiples of 16, a q4 group that is not a multiple of 128
-// dividing every half contraction width, or whose high-group terms and one
-// group of codes per row exceed the block's 64 KB of shared memory (at 7B
-// widths every group from 128 up fits at B = 8), or a device where not one
-// block can be resident.
+// 96 decodes on the per-layer kernels), a cache kind this library was not
+// built for (or int8 without scale planes), B outside 1..8, a GQA group
+// outside 1..8, widths that are not multiples of 16, a q4 group that is not
+// a multiple of 128 dividing every half contraction width, or whose
+// high-group terms and one group of codes per row exceed the block's 64 KB
+// of shared memory (at 7B widths every group from 128 up fits at B = 8), or
+// a device where not one block can be resident.
 
 #include <math.h>
 
@@ -492,6 +496,13 @@ __device__ void gemv_phase(const int8_t* __restrict__ w, const float* __restrict
 
 __device__ __forceinline__ float clip_to(float v, float c) { return fminf(fmaxf(v, -c), c); }
 
+// one element of a float cache, read past L1 (another block may have
+// written it in this launch)
+__device__ __forceinline__ float cache_ldcg(const __nv_bfloat16* p) {
+  return __bfloat162float(__ushort_as_bfloat16(__ldcg(reinterpret_cast<const unsigned short*>(p))));
+}
+__device__ __forceinline__ float cache_ldcg(const float* p) { return __ldcg(p); }
+
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
@@ -536,26 +547,34 @@ __device__ __forceinline__ float gelu_tanh(float g) {
   return 0.5f * g * (1.0f + tanhf(k * (g + 0.044715f * g * g * g)));
 }
 
+// The cache kinds, as the wrapper passes them: bf16, int8 codes with row
+// scales, f32
+enum CacheKind { CK_BF16 = 1, CK_I8 = 2, CK_F32 = 3 };
+
+// a float cache's element type (the int8 kind's codes are signed char)
+template <int CK>
+using cache_t = typename std::conditional<CK == CK_F32, float, __nv_bfloat16>::type;
+
 // the dots of one key row's half (HH dims, at half * HH) with the G query
-// heads of qs (G, 2 * HH): f32 sums of bf16 values, or of int8 codes times
-// bf16 q, every load of the half row in flight
-template <bool QUANT, int HH>
+// heads of qs (G, 2 * HH): f32 sums of bf16 or f32 values, or of int8 codes
+// times bf16 q, every load of the half row in flight
+template <int CK, int HH>
 __device__ __forceinline__ void score_row(const void* krow, const float* qs, int half, int G,
                                           float (&s)[MK_MAX_G]) {
-  constexpr int PER = QUANT ? 16 : 8;  // values a 16-byte load holds
+  constexpr int PER = CK == CK_I8 ? 16 : CK == CK_F32 ? 4 : 8;  // values a 16-byte load holds
   const int4* kr = reinterpret_cast<const int4*>(krow) + half * (HH / PER);
 #pragma unroll
   for (int cc = 0; cc < HH / PER; ++cc) {
     const int4 raw = __ldcg(kr + cc);
     float kf[PER];
-    if constexpr (QUANT) {
+    if constexpr (CK == CK_I8) {
       const signed char* kp = reinterpret_cast<const signed char*>(&raw);
 #pragma unroll
       for (int e = 0; e < PER; ++e) kf[e] = (float)kp[e];
     } else {
-      const __nv_bfloat16* kp = reinterpret_cast<const __nv_bfloat16*>(&raw);
+      const cache_t<CK>* kp = reinterpret_cast<const cache_t<CK>*>(&raw);
 #pragma unroll
-      for (int e = 0; e < PER; ++e) kf[e] = __bfloat162float(kp[e]);
+      for (int e = 0; e < PER; ++e) kf[e] = xq_from_cache(kp[e]);
     }
 #pragma unroll
     for (int g = 0; g < MK_MAX_G; ++g) {
@@ -567,8 +586,10 @@ __device__ __forceinline__ void score_row(const void* krow, const float* qs, int
   }
 }
 
-template <bool QUANT, int BODY, int HD, bool FAM>
+template <int CK, int BODY, int HD, bool FAM>
 __global__ void __launch_bounds__(MK_THREADS, 2) fused_decode_kernel(const MkArgs a) {
+  constexpr bool QUANT = CK == CK_I8;
+  using CT = cache_t<CK>;  // a float cache's element
   constexpr int HEAD = BODY == BODY_BF16 ? BODY_BF16 : BODY_A8;  // the i8 head's body
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float red[MK_WARPS];
@@ -659,8 +680,8 @@ __global__ void __launch_bounds__(MK_THREADS, 2) fused_decode_kernel(const MkArg
     }
   };
 
-  __nv_bfloat16* const ckf = static_cast<__nv_bfloat16*>(a.ck);
-  __nv_bfloat16* const cvf = static_cast<__nv_bfloat16*>(a.cv);
+  CT* const ckf = static_cast<CT*>(a.ck);
+  CT* const cvf = static_cast<CT*>(a.cv);
   signed char* const ckq = static_cast<signed char*>(a.ck);
   signed char* const cvq = static_cast<signed char*>(a.cv);
 
@@ -756,18 +777,19 @@ __global__ void __launch_bounds__(MK_THREADS, 2) fused_decode_kernel(const MkArg
         }
         continue;
       }
+      // a float cache: the rows and the rotated sinks rounded to bf16, or
+      // stored as they are in an f32 cache
       if (kvp >= 0 && kvp < S) {
-        ckf[stripe + (size_t)kvp * hd + i] = __float2bfloat16_rn(kr);
-        cvf[stripe + (size_t)kvp * hd + i] = __float2bfloat16_rn(vr);
+        ckf[stripe + (size_t)kvp * hd + i] = xq_to_cache<CT>(kr);
+        cvf[stripe + (size_t)kvp * hd + i] = xq_to_cache<CT>(vr);
       }
       if (__ldg(rotate + b) != 0) {  // uniform over the item's warps
         float v[KV_SINKS], sw[KV_SINKS];
 #pragma unroll
         for (int r = 0; r < KV_SINKS; ++r) {
-          const unsigned short* row =
-              reinterpret_cast<const unsigned short*>(ckf + stripe + (size_t)r * hd);
-          v[r] = __bfloat162float(__ushort_as_bfloat16(__ldcg(row + i)));
-          const float p = __bfloat162float(__ushort_as_bfloat16(__ldcg(row + (i ^ 1))));
+          const CT* row = ckf + stripe + (size_t)r * hd;
+          v[r] = cache_ldcg(row + i);
+          const float p = cache_ldcg(row + (i ^ 1));
           sw[r] = (i & 1) ? p : -p;
         }
         __syncwarp();  // the lane pair (i, i ^ 1) shares a warp: reads before writes
@@ -775,7 +797,7 @@ __global__ void __launch_bounds__(MK_THREADS, 2) fused_decode_kernel(const MkArg
 #pragma unroll
         for (int r = 0; r < KV_SINKS; ++r)
           ckf[stripe + (size_t)r * hd + i] =
-              __float2bfloat16_rn(__fadd_rn(__fmul_rn(v[r], c1), __fmul_rn(sw[r], s1)));
+              xq_to_cache<CT>(__fadd_rn(__fmul_rn(v[r], c1), __fmul_rn(sw[r], s1)));
       }
     }
     grid_sync(bar);
@@ -810,7 +832,7 @@ __global__ void __launch_bounds__(MK_THREADS, 2) fused_decode_kernel(const MkArg
           if (row < n) {
             const size_t at = stripe + (size_t)(r0 + row) * hd;
             const void* krow = QUANT ? (const void*)(ckq + at) : (const void*)(ckf + at);
-            score_row<QUANT, HD / 2>(krow, qs, half, G, s);
+            score_row<CK, HD / 2>(krow, qs, half, G, s);
           }
           const float f = QUANT && row < n ? __fmul_rn(__ldcg(a.ks + srow + row), a.sm_scale) : 1.f;
 #pragma unroll
@@ -859,6 +881,12 @@ __global__ void __launch_bounds__(MK_THREADS, 2) fused_decode_kernel(const MkArg
               const signed char* vp = reinterpret_cast<const signed char*>(&raw);
 #pragma unroll
               for (int e = 0; e < 4; ++e) vf[e] = (float)vp[e];
+            } else if constexpr (CK == CK_F32) {
+              const float4 raw = __ldcg(reinterpret_cast<const float4*>(cvf + at));
+              vf[0] = raw.x;
+              vf[1] = raw.y;
+              vf[2] = raw.z;
+              vf[3] = raw.w;
             } else {
               const uint2 raw = __ldcg(reinterpret_cast<const uint2*>(cvf + at));
               const __nv_bfloat16* vp = reinterpret_cast<const __nv_bfloat16*>(&raw);
@@ -1033,9 +1061,11 @@ __global__ void __launch_bounds__(MK_THREADS, 2) fused_decode_kernel(const MkArg
   }
 }
 
+#ifndef XQ_MK_F32_CACHE
 __global__ void __launch_bounds__(MK_THREADS, 2) grid_barrier_kernel(unsigned int* bar, int iters) {
   for (int i = 0; i < iters; ++i) grid_sync(bar);
 }
+#endif
 
 // blocks of MK_THREADS threads with MK_SMEM bytes that fit on one SM, per
 // device (0: none), and the device's SM count
@@ -1043,10 +1073,10 @@ struct Occupancy {
   int blocks_per_sm = -1, sms = 0;
 };
 
-// the cooperative grid of fused_decode_kernel<QUANT, BODY, HD, FAM> on the
+// the cooperative grid of fused_decode_kernel<CK, BODY, HD, FAM> on the
 // current device: the co-resident blocks, found once per device and
 // instantiation
-template <bool QUANT, int BODY, int HD, bool FAM>
+template <int CK, int BODY, int HD, bool FAM>
 cudaError_t grid_of(int* grid) {
   int dev;
   cudaError_t e = cudaGetDevice(&dev);
@@ -1060,11 +1090,11 @@ cudaError_t grid_of(int* grid) {
     if (e != cudaSuccess) return e;
     e = cudaDeviceGetAttribute(&occ.sms, cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return e;
-    e = cudaFuncSetAttribute(fused_decode_kernel<QUANT, BODY, HD, FAM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    e = cudaFuncSetAttribute(fused_decode_kernel<CK, BODY, HD, FAM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              MK_SMEM);
     if (e != cudaSuccess) return e;
     int n = 0;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fused_decode_kernel<QUANT, BODY, HD, FAM>, MK_THREADS,
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fused_decode_kernel<CK, BODY, HD, FAM>, MK_THREADS,
                                                       MK_SMEM);
     if (e != cudaSuccess) return e;
     occ.blocks_per_sm = coop ? n : 0;
@@ -1075,6 +1105,17 @@ cudaError_t grid_of(int* grid) {
   return cudaSuccess;
 }
 
+// the cache kinds this library's instantiations take: fused_decode_f32.cu
+// builds this source again with XQ_MK_F32_CACHE for the f32 kind, so that
+// nvcc compiles those nine instantiations beside the other eighteen
+bool this_library_kind(int kind) {
+#ifdef XQ_MK_F32_CACHE
+  return kind == CK_F32;
+#else
+  return kind == CK_BF16 || kind == CK_I8;
+#endif
+}
+
 }  // namespace
 
 // bytes of the workspace: the barrier word (zeroed once by the caller and
@@ -1083,19 +1124,22 @@ XQ_EXPORT long long xq_fused_decode_workspace(int B, int N, int KH, int G, int S
   return (long long)ws_layout(B, N, KH, G, S, H, hd).total;
 }
 
+#ifndef XQ_MK_F32_CACHE
 // blocks in the cooperative grid of the bf16-cache kernel on the current
 // device (<= 0: none fit)
 XQ_EXPORT int xq_fused_decode_grid() {
   int grid = 0;
-  return grid_of<false, BODY_BF16, 128, false>(&grid) == cudaSuccess ? grid : 0;
+  return grid_of<CK_BF16, BODY_BF16, 128, false>(&grid) == cudaSuccess ? grid : 0;
 }
+#endif
 
 // ptr: meta, x0, cexp_p, sexp_p, c1, s1, freqs, embed, attn_norm, mlp_norm,
 //      wqkv, sqkv, wo, so, w13, s13, w2, s2, out_norm, wcls, swcls, ck, cv,
 //      xout, logits, token, work, k_scale, v_scale, bqkv, q_norm, k_norm,
 //      post_attn_norm, post_mlp_norm (null where a fold is off; the scale
 //      planes with an int8 cache only)
-// dim: L, B, N, KH, G, hd, H, S, V, c13, cache kind (1 bf16, 2 int8),
+// dim: L, B, N, KH, G, hd, H, S, V, c13, cache kind (1 bf16, 2 int8, 3 f32;
+//      each library takes its own, this_library_kind),
 //      body (0 bf16 activations, 1 a8, 2 q4), q4 group (0 unless q4),
 //      act (0 SiLU, 1 tanh-approximate gelu)
 // embed_scale multiplies the embed fold's rows; the softcaps are 0 when off
@@ -1148,7 +1192,7 @@ XQ_EXPORT int xq_fused_decode(void* const* ptr, const int* dim, float eps, float
   a.V = dim[8];
   a.c13 = dim[9];
   const int cache_kind = dim[10];
-  const bool quant = cache_kind == 2;
+  const bool quant = cache_kind == CK_I8;
   const int body = dim[11];
   a.group = dim[12];
   a.gelu = dim[13];
@@ -1159,7 +1203,8 @@ XQ_EXPORT int xq_fused_decode(void* const* ptr, const int* dim, float eps, float
   a.attn_softcap = attn_softcap;
   a.logit_softcap = logit_softcap;
   const bool embed_fold = a.embed != nullptr, head_fold = a.wcls != nullptr;
-  const bool ok = (hd == 128 || hd == 256) && (cache_kind == 1 || (quant && a.ks && a.vs)) &&
+  const bool ok = (hd == 128 || hd == 256) && this_library_kind(cache_kind) &&
+                  (!quant || (a.ks && a.vs)) &&
                   a.L >= 1 && a.B >= 1 && a.B <= MK_MAX_B &&
                   a.KH >= 1 && a.G >= 1 && a.G <= MK_MAX_G && a.N >= 16 && a.N % 16 == 0 &&
                   a.H >= 16 && a.H % 16 == 0 && a.c13 >= 1 && a.H % a.c13 == 0 && a.S >= 1 &&
@@ -1189,22 +1234,24 @@ XQ_EXPORT int xq_fused_decode(void* const* ptr, const int* dim, float eps, float
   // have it), at hd 128 when one of them is on
   const bool fam = hd == 256 || a.gelu || embed_scale != 1.f || attn_softcap != 0.f ||
                    logit_softcap != 0.f || a.post_attn_norm != nullptr;
-#define XQ_BODY(Q, BD, HD, F)                           \
-  e = grid_of<Q, BD, HD, F>(&grid);                     \
-  kernel = (const void*)fused_decode_kernel<Q, BD, HD, F>;
-#define XQ_HD(Q, BD)                                    \
-  if (hd == 256) { XQ_BODY(Q, BD, 256, true) }          \
-  else if (fam) { XQ_BODY(Q, BD, 128, true) }           \
-  else { XQ_BODY(Q, BD, 128, false) }
-  if (quant) {
-    if (body == BODY_Q4) { XQ_HD(true, BODY_Q4) }
-    else if (body == BODY_A8) { XQ_HD(true, BODY_A8) }
-    else { XQ_HD(true, BODY_BF16) }
-  } else {
-    if (body == BODY_Q4) { XQ_HD(false, BODY_Q4) }
-    else if (body == BODY_A8) { XQ_HD(false, BODY_A8) }
-    else { XQ_HD(false, BODY_BF16) }
-  }
+#define XQ_BODY(CK, BD, HD, F)                          \
+  e = grid_of<CK, BD, HD, F>(&grid);                    \
+  kernel = (const void*)fused_decode_kernel<CK, BD, HD, F>;
+#define XQ_HD(CK, BD)                                   \
+  if (hd == 256) { XQ_BODY(CK, BD, 256, true) }         \
+  else if (fam) { XQ_BODY(CK, BD, 128, true) }          \
+  else { XQ_BODY(CK, BD, 128, false) }
+#define XQ_CK(CK)                                       \
+  if (body == BODY_Q4) { XQ_HD(CK, BODY_Q4) }           \
+  else if (body == BODY_A8) { XQ_HD(CK, BODY_A8) }      \
+  else { XQ_HD(CK, BODY_BF16) }
+#ifdef XQ_MK_F32_CACHE
+  XQ_CK(CK_F32)
+#else
+  if (quant) { XQ_CK(CK_I8) }
+  else { XQ_CK(CK_BF16) }
+#endif
+#undef XQ_CK
 #undef XQ_HD
 #undef XQ_BODY
   if (e != cudaSuccess) return (int)e;
@@ -1218,11 +1265,12 @@ XQ_EXPORT int xq_fused_decode(void* const* ptr, const int* dim, float eps, float
   return (int)cudaGetLastError();
 }
 
+#ifndef XQ_MK_F32_CACHE
 // `iters` grid barriers alone, on the megakernel's grid: the cost of one
 // barrier is the event time over iters (chip_smoke.py)
 XQ_EXPORT int xq_grid_barrier_bench(void* work, int iters, void* stream) {
   int grid = 0;
-  cudaError_t e = grid_of<false, BODY_BF16, 128, false>(&grid);
+  cudaError_t e = grid_of<CK_BF16, BODY_BF16, 128, false>(&grid);
   if (e != cudaSuccess) return (int)e;
   e = cudaFuncSetAttribute(grid_barrier_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MK_SMEM);
   if (e != cudaSuccess) return (int)e;
@@ -1236,3 +1284,4 @@ XQ_EXPORT int xq_grid_barrier_bench(void* work, int iters, void* stream) {
   }
   return (int)cudaGetLastError();
 }
+#endif

@@ -2,11 +2,14 @@
 // csrc/fused_decode.cu (every weight phase of the megakernel).
 //
 // One warp owns two output rows. In xq_gemv2 each lane streams 16 bytes of
-// each row per step (16 int8, 8 bf16 or 4 f32 weights), both rows' loads in
-// flight, and multiplies them by the activations the block staged in shared
-// memory: bf16 for int8/bf16 weights (products exact in f32), f32 for f32
-// weights (the TPU kernel's f32 compute dtype), summed in f32. The caller
-// reduces the lanes and applies the scale.
+// each row per step (16 int8 or fp8, 8 bf16 or 4 f32 weights), both rows'
+// loads in flight, and multiplies them by the activations the block staged
+// in shared memory: bf16 for int8/fp8/bf16 weights (products exact in f32),
+// f32 for f32 weights (the TPU kernel's f32 compute dtype), summed in f32.
+// The caller reduces the lanes and applies the scale. fp8 weights (e4m3 or
+// e5m2) widen exactly: the card's cvt turns two codes into two f16 values,
+// which hold every finite code of both formats (the TPU kernel's
+// _f8_to_bf16 gets the same values by bit surgery), then to f32.
 //
 // The int8-activation cores (the TPU kernel's a8 and q4 branches) take the
 // activations as int8 codes (quantised per row by the caller) and multiply
@@ -20,13 +23,41 @@
 //   summed in f32 in the reference's group order.
 #pragma once
 
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
+
 #include <type_traits>
 
 #include "common.cuh"
 
+// fp8 weight types and the interpretation the conversion takes
+template <typename WT>
+struct xq_fp8 {
+  static constexpr bool value = false;
+};
+template <>
+struct xq_fp8<__nv_fp8_e4m3> {
+  static constexpr bool value = true;
+  static constexpr __nv_fp8_interpretation_t kind = __NV_E4M3;
+};
+template <>
+struct xq_fp8<__nv_fp8_e5m2> {
+  static constexpr bool value = true;
+  static constexpr __nv_fp8_interpretation_t kind = __NV_E5M2;
+};
+
 template <typename WT>
 __device__ __forceinline__ void xq_unpack16(const int4& raw, float* out) {
-  if constexpr (sizeof(WT) == 1) {
+  if constexpr (xq_fp8<WT>::value) {
+    const __nv_fp8x2_storage_t* p = reinterpret_cast<const __nv_fp8x2_storage_t*>(&raw);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {  // the low byte is the first code
+      const __half2 h(__nv_cvt_fp8x2_to_halfraw2(p[e], xq_fp8<WT>::kind));
+      const float2 f = __half22float2(h);
+      out[2 * e] = f.x;
+      out[2 * e + 1] = f.y;
+    }
+  } else if constexpr (sizeof(WT) == 1) {
     const int8_t* p = reinterpret_cast<const int8_t*>(&raw);
 #pragma unroll
     for (int e = 0; e < 16; ++e) out[e] = (float)p[e];
@@ -42,7 +73,7 @@ __device__ __forceinline__ void xq_unpack16(const int4& raw, float* out) {
 }
 
 // The activations' type in shared memory for weights of type WT: bf16, or
-// f32 for f32 weights
+// f32 for f32 weights (int8, fp8 and bf16 weights take bf16)
 template <typename WT>
 using xq_act_t = typename std::conditional<sizeof(WT) == 4, float, __nv_bfloat16>::type;
 

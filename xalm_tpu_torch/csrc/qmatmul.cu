@@ -1,15 +1,17 @@
 // Stacked dequant matmul for Hopper (sm_90a).
 //
 // Replaces the TPU kernel xalm_tpu/ops/pallas_matmul.py::_kernel (through
-// pallas_qmatmul_stacked / pallas_qmatmul), i8, bf16 and f32 weights:
+// pallas_qmatmul_stacked / pallas_qmatmul), i8, bf16, f32 and fp8 weights:
 //
 //     y[m, d] = epi[d] * sum_n cd(rmsnorm?(x)[m, n]) * W[d, n]
 //
 // x is f32 (M, N); W is one layer of the stacked (L, D, N) weights, int8,
-// bf16 or f32 (the caller offsets the pointer by the layer); epi is the i8
+// bf16, f32 or fp8 (e4m3, e5m2: the TPU kernel's _f8_to_bf16 branch; the
+// caller offsets the pointer by the layer); epi is the i8
 // per-row f32 scale, the q8 fixed 1/100, or 1. As in the TPU kernel, x is
 // cast to the compute dtype cd *after* the optional rmsnorm prologue: bf16
-// for int8 and bf16 weights (exact in bf16; products of two bf16 values are
+// for int8, fp8 and bf16 weights (each fp8 code widened exactly, gemv.cuh;
+// exact in bf16; products of two bf16 values are
 // exact in f32, summed in f32; the scale multiplies the f32 result), f32 for
 // f32 weights (f32 products and sums: FMA on the CUDA cores, never TF32,
 // which keeps about three digits).
@@ -21,7 +23,9 @@
 //   shared with the megakernel): one warp per output row pair, 16-byte
 //   weight loads (16 int8 or 8 bf16 per lane per step) with both rows'
 //   loads in flight, x normalised once per block into shared memory as
-//   bf16, warp-shuffle reductions, scale in the epilogue.
+//   bf16, warp-shuffle reductions, scale in the epilogue. fp8 rows are 16
+//   codes a 16-byte load, the int8 rows' stream; the widening (8 cvt
+//   instructions a load) stays under the byte rate.
 // - Prefill (M up to 512): operations at M >= ~300, bytes below. Design: a
 //   first pass writes bf16(rmsnorm?(x)) once (one block per row); then a
 //   64x64-output-tile GEMM on bf16 WMMA (mma.sync) tensor-core fragments,
@@ -224,15 +228,16 @@ __global__ void __launch_bounds__(128) gemm_kernel(
       if (m0 + row < M) v = *reinterpret_cast<const int4*>(xb + (size_t)(m0 + row) * N + k0 + col);
       *reinterpret_cast<int4*>(As + row * LDT + col) = v;
     }
-    // weights: widened to bf16 in shared memory
+    // weights: widened to bf16 in shared memory (int8 and fp8 exactly)
     if constexpr (sizeof(WT) == 1) {
       const int row = tid >> 1, col = (tid & 1) * 16;  // 64 rows x 2 x 16 bytes
       int4 raw = make_int4(0, 0, 0, 0);
       if (d0 + row < D) raw = __ldg(reinterpret_cast<const int4*>(w + (size_t)(d0 + row) * N + k0 + col));
-      const int8_t* p = reinterpret_cast<const int8_t*>(&raw);
+      float f[16];
+      xq_unpack16<WT>(raw, f);
       __align__(16) __nv_bfloat16 tmp[16];
 #pragma unroll
-      for (int e = 0; e < 16; ++e) tmp[e] = __float2bfloat16_rn((float)p[e]);
+      for (int e = 0; e < 16; ++e) tmp[e] = __float2bfloat16_rn(f[e]);
       *reinterpret_cast<int4*>(Bs + row * LDT + col) = *reinterpret_cast<const int4*>(tmp);
       *reinterpret_cast<int4*>(Bs + row * LDT + col + 8) = *reinterpret_cast<const int4*>(tmp + 8);
     } else {
@@ -651,7 +656,7 @@ XQ_EXPORT int xq_qmatmul_a8(const void* x, const void* w, const void* scale, flo
 }
 
 // The weight types of kernels 1 and 8, as the wrappers pass them
-enum WKind { W_I8 = 0, W_BF16 = 1, W_F32 = 2 };
+enum WKind { W_I8 = 0, W_BF16 = 1, W_F32 = 2, W_E4M3 = 3, W_E5M2 = 4 };
 
 // The gathered top-k expert matmul: x (m or k*m, N) f32, w the (LE, D, N)
 // int8, bf16 or f32 expert stack (w_kind), scale its (LE, D) row scales or
@@ -668,6 +673,10 @@ XQ_EXPORT int xq_qmatmul_multi(const void* x, const void* w, int w_kind, const v
     return launch_multi(xf, (const __nv_bfloat16*)w, sc, qscale, ix, yf, k, m, shared_x, N, D, LE, s);
   if (w_kind == W_F32)
     return launch_multi(xf, (const float*)w, sc, qscale, ix, yf, k, m, shared_x, N, D, LE, s);
+  if (w_kind == W_E4M3)
+    return launch_multi(xf, (const __nv_fp8_e4m3*)w, sc, qscale, ix, yf, k, m, shared_x, N, D, LE, s);
+  if (w_kind == W_E5M2)
+    return launch_multi(xf, (const __nv_fp8_e5m2*)w, sc, qscale, ix, yf, k, m, shared_x, N, D, LE, s);
   return launch_multi(xf, (const int8_t*)w, sc, qscale, ix, yf, k, m, shared_x, N, D, LE, s);
 }
 
@@ -718,10 +727,14 @@ XQ_EXPORT int xq_qmatmul(const void* x, const void* norm_w, float eps, const voi
   if (use_gemv(M, N, w_kind == W_F32 ? 4 : 2)) {
     if (w_kind == W_BF16) return launch_gemv(xf, nw, eps, (const __nv_bfloat16*)w, sc, qscale, yf, M, N, D, s);
     if (w_kind == W_F32) return launch_gemv(xf, nw, eps, (const float*)w, sc, qscale, yf, M, N, D, s);
+    if (w_kind == W_E4M3) return launch_gemv(xf, nw, eps, (const __nv_fp8_e4m3*)w, sc, qscale, yf, M, N, D, s);
+    if (w_kind == W_E5M2) return launch_gemv(xf, nw, eps, (const __nv_fp8_e5m2*)w, sc, qscale, yf, M, N, D, s);
     return launch_gemv(xf, nw, eps, (const int8_t*)w, sc, qscale, yf, M, N, D, s);
   }
   if (xb == nullptr) return (int)cudaErrorInvalidValue;
   if (w_kind == W_BF16) return launch_gemm(xf, nw, eps, (const __nv_bfloat16*)w, sc, qscale, yf, xb, M, N, D, s);
   if (w_kind == W_F32) return launch_gemm(xf, nw, eps, (const float*)w, sc, qscale, yf, xb, M, N, D, s);
+  if (w_kind == W_E4M3) return launch_gemm(xf, nw, eps, (const __nv_fp8_e4m3*)w, sc, qscale, yf, xb, M, N, D, s);
+  if (w_kind == W_E5M2) return launch_gemm(xf, nw, eps, (const __nv_fp8_e5m2*)w, sc, qscale, yf, xb, M, N, D, s);
   return launch_gemm(xf, nw, eps, (const int8_t*)w, sc, qscale, yf, xb, M, N, D, s);
 }

@@ -12,7 +12,9 @@
       -l <int>        passkey position (-1 - random)
       --seed <int>    seed of the passkey and its position
       -t <dtype>      kv cache dtype: auto (bf16 on cuda, f16 on cpu) | f16 | bf16 | f32
-                      | i8 (int8 codes with per-row f32 scales)
+                      | i8 (int8 codes with per-row f32 scales); on the card bf16 and
+                      f32 run the attention kernels (and the megakernel), i8 their
+                      int8 forms, f16 the dense attention (the reference's routing)
       --compute <d>   matmul compute dtype of the plain paths: auto | f32 | bf16
       --matmul <i>    auto (= kernel) | kernel | plain | xla
       --wcls-i8       re-code a float head to i8 per row at load; the decode
@@ -24,8 +26,8 @@
 
 Every family the JAX converter writes loads (Llama/Mistral, Mixtral, Qwen2
 and Qwen3, Gemma, Gemma-2, Phi-3). Decode goes through the whole-step
-megakernel where it takes the model (i8 or q4 body, a bf16 or int8 cache on
-the card, B <= 8, head_dim 128 or 256 on the card) and through the
+megakernel where it takes the model (i8 or q4 body, a bf16, f32 or int8
+cache, B <= 8, head_dim 128 or 256 on the card) and through the
 per-layer kernels otherwise (Phi-3's head_dim 96, MoE); the stats print
 which ("decode path: ..."). The
 JAX harness's --temperature, --spec, --draft, --session, --tp/--dp/--pp

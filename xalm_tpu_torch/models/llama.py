@@ -35,6 +35,15 @@ engine feeds one token at a time (T = 1).
 - ``"xla"``: the JAX package's reference path (plain matmul in
   ``compute_dtype``, scatter writes, dense masked attention).
 
+The cache's dtype fixes the attention's route before any launch, as the
+JAX forward's ``_fused_cache_ok`` gate does (``supported_cache_dtype``): a
+bf16 or f32 cache takes kernels 2-4 on the per-layer paths (an f32 cache
+their f32 instantiations); an f16 cache, which no attention kernel of
+either package takes, scatters its rows, rotates the sinks at t = 1 and
+runs the dense attention on every path (``xalm_tpu/models/llama.py``
+``:783-808``), its matmuls still on kernel 1. This is the reference's
+routing by dtype, not a fallback from a kernel that failed.
+
 An int8 KV cache (``cache.quantized``: int8 codes and per-row f32 scale
 planes) is routed as the JAX forward routes it: a per-layer t = 1 step
 through ``kv_update_q`` and ``flash_decode_q`` (kernels 5-7); a t > 1 chunk,
@@ -43,9 +52,9 @@ sinks at t = 1, dequantises the layer and runs the dense attention (the
 reference computes that attention outside any Pallas kernel; the matmuls
 still go through kernel 1).
 
-A t = 1 step over B <= 8 rows with an i8 body and a float or int8 cache
-runs the whole-step megakernel (ops/fused_decode.py) instead, as the JAX
-forward does
+A t = 1 step over B <= 8 rows with an i8 body and a bf16, f32 or int8
+cache runs the whole-step megakernel (ops/fused_decode.py) instead, as the
+JAX forward does
 (``fused_step``: "auto" takes it wherever it is supported, False never):
 ``impl="kernel"`` launches it, ``impl="plain"`` runs its plain version. It
 gathers the embed row itself at B = 1 with a bf16 table, and runs the head
@@ -461,6 +470,8 @@ def forward(
     cap = cfg.attn_softcap  # set: the dense attention, never a cap-free kernel
     ck, cv, ks, vs = cache.k, cache.v, cache.k_scale, cache.v_scale
     quant = cache.quantized
+    # kernels 2-4 take a bf16 or f32 cache; an f16 one goes the "xla" way
+    float_kernels = per_layer and ck.dtype in attn_ops.FLOAT_CACHES
 
     def dense(layer: int):
         """The dense attention over the layer's cache rows (an int8 cache
@@ -503,7 +514,7 @@ def forward(
                         kv_pos0, rot_flag, cexp1, sexp1)
             attn_out = dense(layer) if cap else flash_decode_q(
                 q[:, 0].contiguous(), ck, cv, ks, vs, layer, kv_len0)[:, None]
-        elif per_layer and t == 1:
+        elif float_kernels and t == 1:
             # decode: in-place ring write + sink rotation, then flash-decode
             kv_update(ck, cv, layer, k[:, 0].contiguous(), v[:, 0].contiguous(),
                       kv_pos0, rot_flag, cexp1, sexp1)
@@ -520,12 +531,12 @@ def forward(
             if t == 1:
                 _rotate_sinks(ck, layer, active, freqs, ks)
             attn_out = dense(layer)
-        elif per_layer:
+        elif float_kernels:
             # chunked prefill: contiguous in-place writes + causal flash
             _write_chunk(ck, layer, starts, k, valid)
             _write_chunk(cv, layer, starts, v, valid)
             attn_out = dense(layer) if cap else flash_prefill(q.contiguous(), ck, cv, layer, pos)
-        else:  # "xla": scatter writes + dense masked attention
+        else:  # "xla", and an f16 cache: scatter writes + dense masked attention
             _write_rows(ck, layer, kv_pos, k)
             _write_rows(cv, layer, kv_pos, v)
             if t == 1:

@@ -468,10 +468,11 @@ def _from_np(arr, device) -> torch.Tensor:
     return _torch(arr, None, device)
 
 
-def from_jax_params(tree, device="cpu") -> ModelParams:
+def from_jax_params(tree, device="cuda") -> ModelParams:
     """Carry weights across from the JAX package: ``tree`` is a JAX
     ``ModelParams`` whose leaves the caller turned into numpy arrays. The
-    layouts are the same, so every tensor is a bit-exact copy."""
+    layouts are the same, so every tensor is a bit-exact copy. On the card
+    unless the caller asks for the CPU, as ``load_params``."""
     lp = tree.layers
     opt = lambda a: None if a is None else _from_np(a, device)  # noqa: E731
 

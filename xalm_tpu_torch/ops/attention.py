@@ -2,9 +2,14 @@
 ``csrc/attention.cu``, whose note says what bounds each on the H100 and how
 its design answers that):
 
-- bf16 cache: ``kv_update`` (decode ring update), ``flash_decode`` and
-  ``flash_prefill`` (replace ``xalm_tpu/ops/pallas_attention.py``'s
-  ``_update_kernel``, ``_attn_kernel`` and ``_prefill_kernel``);
+- bf16 or f32 cache: ``kv_update`` (decode ring update), ``flash_decode``
+  and ``flash_prefill`` (replace ``xalm_tpu/ops/pallas_attention.py``'s
+  ``_update_kernel``, ``_attn_kernel`` and ``_prefill_kernel``, which take
+  both, ``supported_cache_dtype``); the cache type is a template parameter
+  of each, and an f32 cache's launches count under ``kv_update_f32``,
+  ``flash_decode_f32`` and ``flash_prefill_f32``. f32 keeps every value
+  unrounded: flash-prefill's dots run in f32 FMA (its own tiles, no TF32),
+  as the TPU kernel's ``compute_dtype`` is f32 for an f32 cache;
 - int8 cache with per-row f32 scales: ``kv_update_q`` (quantised ring
   insert and sink re-rotation, one launch for ``_insert_q_kernel`` and
   ``_sink_q_kernel``) and ``flash_decode_q`` (``_attn_q_kernel``).
@@ -87,14 +92,24 @@ def _need(cond: bool, what: str, msg: str) -> None:
         raise ValueError(f"{what}: {msg}")
 
 
+FLOAT_CACHES = (torch.bfloat16, torch.float32)  # the float caches kernels 2-4 take
+
+
 def _check_cache(what: str, cache_k: torch.Tensor, cache_v: torch.Tensor, layer: int,
-                 dtype=torch.bfloat16) -> None:
+                 dtypes=FLOAT_CACHES) -> int:
+    """Check the (L, B, KH, S, hd) cache planes; returns 1 for an f32
+    cache, 0 otherwise (the kernels' cache-type argument)."""
     _need(cache_k.is_cuda and cache_v.is_cuda, what, "caches must be on the card")
-    _need(cache_k.dtype == dtype and cache_v.dtype == dtype, what,
-          f"cache dtype {cache_k.dtype} (the kernel takes {dtype})")
+    _need(cache_k.dtype in dtypes and cache_v.dtype == cache_k.dtype, what,
+          f"cache dtype {cache_k.dtype} (the kernel takes {' or '.join(map(str, dtypes))})")
     _need(cache_k.shape == cache_v.shape and cache_k.dim() == 5, what, "caches (L, B, KH, S, hd)")
     _need(cache_k.is_contiguous() and cache_v.is_contiguous(), what, "caches must be contiguous")
     _need(0 <= layer < cache_k.shape[0], what, f"layer {layer} out of range")
+    return int(cache_k.dtype == torch.float32)
+
+
+def _count(name: str, f32: int) -> None:
+    build.LAUNCHES[name + ("_f32" if f32 else "")] += 1
 
 
 def _check_scales(what: str, cache_k: torch.Tensor, k_scale, v_scale) -> None:
@@ -138,7 +153,7 @@ def kv_update(cache_k, cache_v, layer: int, k_new, v_new, kv_pos, rotate, cexp, 
     if not cache_k.is_cuda:
         return kv_update_plain(cache_k, cache_v, layer, k_new, v_new, kv_pos, rotate, cexp, sexp)
     what = "kv_update"
-    _check_cache(what, cache_k, cache_v, layer)
+    f32 = _check_cache(what, cache_k, cache_v, layer)
     _, b, kh, s, hd = cache_k.shape
     for t in (k_new, v_new):
         _need(t.dtype == torch.float32 and t.shape == (b, kh, hd) and t.is_contiguous()
@@ -152,10 +167,10 @@ def kv_update(cache_k, cache_v, layer: int, k_new, v_new, kv_pos, rotate, cexp, 
     err = lib.xq_kv_update(
         _layer_ptr(cache_k, layer), _layer_ptr(cache_v, layer), k_new.data_ptr(),
         v_new.data_ptr(), kv_pos.data_ptr(), rotate.data_ptr(), cexp.data_ptr(),
-        sexp.data_ptr(), b, kh, s, hd, torch.cuda.current_stream(cache_k.device).cuda_stream,
+        sexp.data_ptr(), b, kh, s, hd, f32, torch.cuda.current_stream(cache_k.device).cuda_stream,
     )
     build.check(err, what)
-    build.LAUNCHES["kv_update"] += 1
+    _count("kv_update", f32)
 
 
 # ------------------------------------------------------------------ kernel 3
@@ -210,7 +225,7 @@ def flash_decode(q, cache_k, cache_v, layer: int, kv_len) -> torch.Tensor:
     if not q.is_cuda:
         return flash_decode_plain(q, cache_k, cache_v, layer, kv_len)
     what = "flash_decode"
-    _check_cache(what, cache_k, cache_v, layer)
+    f32 = _check_cache(what, cache_k, cache_v, layer)
     _, b, kh, s, hd = cache_k.shape
     h = q.shape[1]
     _need(q.dtype == torch.float32 and q.shape == (b, h, hd) and q.is_contiguous(), what,
@@ -221,11 +236,11 @@ def flash_decode(q, cache_k, cache_v, layer: int, kv_len) -> torch.Tensor:
     out = torch.empty((b, h * hd), dtype=torch.float32, device=q.device)
     err = lib.xq_flash_decode(
         q.data_ptr(), _layer_ptr(cache_k, layer), _layer_ptr(cache_v, layer), kv_len.data_ptr(),
-        work.data_ptr(), out.data_ptr(), b, h, kh, s, hd, 1.0 / math.sqrt(hd),
+        work.data_ptr(), out.data_ptr(), b, h, kh, s, hd, 1.0 / math.sqrt(hd), f32,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check(err, what)
-    build.LAUNCHES["flash_decode"] += 1
+    _count("flash_decode", f32)
     return out
 
 
@@ -236,8 +251,10 @@ def flash_prefill_plain(q, cache_k, cache_v, layer, pos) -> torch.Tensor:
     """Causal attention of a T-row chunk q (B, T, H, hd) (already written to
     the cache at [pos, pos+T)): query i sees slots < pos + i + 1. bf16 caches
     take bf16 dots with an f32 online softmax over 64-key tiles, as the
-    kernel runs it, p cast to bf16 at the running max before P.V; f32 and
-    f16 caches take f32 math. -> (B, T, H*hd) f32."""
+    kernel runs it, p cast to bf16 at the running max before P.V; f32 (and
+    f16) caches take f32 math throughout, nothing rounded (the f32 kernel
+    tiles 32 keys at head_dim 256: only the order of its sums differs).
+    -> (B, T, H*hd) f32."""
     kl, vl = cache_k[layer], cache_v[layer]  # (B, KH, S, hd)
     b, kh, s, hd = kl.shape
     _, t, h, _ = q.shape
@@ -274,7 +291,7 @@ def flash_prefill(q, cache_k, cache_v, layer: int, pos) -> torch.Tensor:
     if not q.is_cuda:
         return flash_prefill_plain(q, cache_k, cache_v, layer, pos)
     what = "flash_prefill"
-    _check_cache(what, cache_k, cache_v, layer)
+    f32 = _check_cache(what, cache_k, cache_v, layer)
     _, b, kh, s, hd = cache_k.shape
     _, t, h, _ = q.shape
     _need(q.dtype == torch.float32 and q.shape == (b, t, h, hd) and q.is_contiguous(), what,
@@ -284,11 +301,11 @@ def flash_prefill(q, cache_k, cache_v, layer: int, pos) -> torch.Tensor:
     lib = build.load_library("attention")
     err = lib.xq_flash_prefill(
         q.data_ptr(), _layer_ptr(cache_k, layer), _layer_ptr(cache_v, layer), pos.data_ptr(),
-        out.data_ptr(), b, t, h, kh, s, hd, 1.0 / math.sqrt(hd),
+        out.data_ptr(), b, t, h, kh, s, hd, 1.0 / math.sqrt(hd), f32,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check(err, what)
-    build.LAUNCHES["flash_prefill"] += 1
+    _count("flash_prefill", f32)
     return out
 
 
@@ -341,7 +358,7 @@ def kv_update_q(cache_k, cache_v, k_scale, v_scale, layer: int, k_new, v_new, kv
         return kv_update_q_plain(cache_k, cache_v, k_scale, v_scale, layer, k_new, v_new, kv_pos,
                                  rotate, cexp, sexp)
     what = "kv_update_q"
-    _check_cache(what, cache_k, cache_v, layer, torch.int8)
+    _check_cache(what, cache_k, cache_v, layer, (torch.int8,))
     _check_scales(what, cache_k, k_scale, v_scale)
     _, b, kh, s, hd = cache_k.shape
     for t in (k_new, v_new):
@@ -411,7 +428,7 @@ def flash_decode_q(q, cache_k, cache_v, k_scale, v_scale, layer: int, kv_len) ->
     if not q.is_cuda:
         return flash_decode_q_plain(q, cache_k, cache_v, k_scale, v_scale, layer, kv_len)
     what = "flash_decode_q"
-    _check_cache(what, cache_k, cache_v, layer, torch.int8)
+    _check_cache(what, cache_k, cache_v, layer, (torch.int8,))
     _check_scales(what, cache_k, k_scale, v_scale)
     _, b, kh, s, hd = cache_k.shape
     h = q.shape[1]

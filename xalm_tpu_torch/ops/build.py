@@ -7,10 +7,12 @@ Each ``csrc/<name>.cu`` compiles on its own with
          -o build/xalm_tpu_torch/<name>-<hash>.so
 
 into ``build/xalm_tpu_torch/`` beside the package's checkout; the file name
-carries a hash of the sources and flags, so an edited kernel rebuilds and
-an unchanged one loads the library already there. The sources have a
-plain C interface (no PyTorch headers), which keeps a build to seconds.
-``build_all`` starts one ``nvcc`` per source, all at once.
+carries a hash of the sources and flags (every file of ``csrc/``: a source
+may include another, as ``fused_decode_f32.cu`` builds ``fused_decode.cu``
+again for the f32 cache), so an edited kernel rebuilds and an unchanged one
+loads the library already there. The sources have a plain C interface (no
+PyTorch headers), which keeps a build to seconds. ``build_all`` starts one
+``nvcc`` per source, all at once.
 
 Every exported launch function takes its pointers and the CUDA stream as
 ``void*`` and returns ``cudaGetLastError()`` after its launches, or
@@ -21,11 +23,13 @@ live in the CUDA source alone. Size queries (``*_scratch``,
 ``LAUNCHES`` counts kernel launches per wrapper: each wrapper adds one where
 it launches its kernel on the card, and nowhere else. A launch of kernel 1
 or 8 counts under its branch: ``qmatmul`` and ``qmatmul_multi`` for int8
-and bf16 weights, ``_f32``, ``_q4`` and ``_a8`` for the others. A megakernel launch
-counts under its body (``fused_decode``, ``_a8``, ``_q4``) and, when a
-family fold is on, under that fold too (``fused_decode_bias``,
-``fused_decode_qk_norm``; ``fused_decode_gemma`` for gelu and the embed
-scale, ``fused_decode_gemma2`` for the softcaps and post-norms).
+and bf16 weights, ``_f32``, ``_fp8``, ``_q4`` and ``_a8`` for the others.
+Kernels 2-4 count an f32 cache's launches under ``_f32``. A megakernel
+launch counts under its body (``fused_decode``, ``_a8``, ``_q4``), under
+``fused_decode_f32`` too with an f32 cache, and, when a family fold is on,
+under that fold (``fused_decode_bias``, ``fused_decode_qk_norm``;
+``fused_decode_gemma`` for gelu and the embed scale, ``fused_decode_gemma2``
+for the softcaps and post-norms).
 """
 
 from __future__ import annotations
@@ -53,10 +57,12 @@ NVCC_FLAGS = [
 # source file -> kernel wrappers it backs
 KERNELS = {
     "qmatmul": ("qmatmul", "qmatmul_multi", "qmatmul_q4", "qmatmul_a8", "qmatmul_multi_q4",
-                "qmatmul_f32", "qmatmul_multi_f32"),
-    "attention": ("kv_update", "flash_decode", "flash_prefill", "kv_update_q", "flash_decode_q"),
+                "qmatmul_f32", "qmatmul_multi_f32", "qmatmul_fp8", "qmatmul_multi_fp8"),
+    "attention": ("kv_update", "flash_decode", "flash_prefill", "kv_update_q", "flash_decode_q",
+                  "kv_update_f32", "flash_decode_f32", "flash_prefill_f32"),
     "fused_decode": ("fused_decode", "fused_decode_a8", "fused_decode_q4", "fused_decode_bias",
                      "fused_decode_qk_norm", "fused_decode_gemma", "fused_decode_gemma2"),
+    "fused_decode_f32": ("fused_decode_f32",),
 }
 LAUNCHES: dict[str, int] = {k: 0 for ks in KERNELS.values() for k in ks}
 
@@ -76,9 +82,8 @@ def _nvcc() -> str:
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sorted(CSRC.glob("*.cu*")):
-        if src.suffix == ".cuh" or src.stem == name:
-            h.update(src.name.encode())
-            h.update(src.read_bytes())
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -150,8 +155,8 @@ SIGNATURES = {
     "qmatmul": {
         # M, N, w_kind -> bytes of scratch (0: the GEMV route needs none)
         "xq_qmatmul_scratch": (_L, [_I, _I, _I]),
-        # x, norm_w, eps, w, w_kind (0 int8, 1 bf16, 2 f32), scale, qscale, y, xb, M, N, D,
-        # stream
+        # x, norm_w, eps, w, w_kind (0 int8, 1 bf16, 2 f32, 3 e4m3, 4 e5m2), scale, qscale, y,
+        # xb, M, N, D, stream
         "xq_qmatmul": (_I, [_P, _P, _F, _P, _I, _P, _F, _P, _P, _I, _I, _I, _P]),
         # x, w, w_kind, scale, qscale, idxs, y, k, m, shared_x, N, D, LE, stream
         "xq_qmatmul_multi": (_I, [_P, _P, _I, _P, _F, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
@@ -164,14 +169,15 @@ SIGNATURES = {
         "xq_qmatmul_a8": (_I, [_P, _P, _P, _F, _P, _P, _P, _I, _I, _I, _P]),
     },
     "attention": {
-        # ck, cv, knew, vnew, kv_pos, rotate, cexp, sexp, B, KH, S, hd, stream
-        "xq_kv_update": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+        # ck, cv, knew, vnew, kv_pos, rotate, cexp, sexp, B, KH, S, hd, f32 (a float
+        # cache: 0 bf16, 1 f32; the flash kernels' too), stream
+        "xq_kv_update": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
         # B, H, S, hd -> f32 elements of the flash-decode workspace
         "xq_flash_decode_workspace": (_L, [_I, _I, _I, _I]),
-        # q, ck, cv, kv_len, work, out, B, H, KH, S, hd, sm_scale, stream
-        "xq_flash_decode": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
-        # q, ck, cv, pos, out, B, T, H, KH, S, hd, sm_scale, stream
-        "xq_flash_prefill": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]),
+        # q, ck, cv, kv_len, work, out, B, H, KH, S, hd, sm_scale, f32, stream
+        "xq_flash_decode": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P]),
+        # q, ck, cv, pos, out, B, T, H, KH, S, hd, sm_scale, f32, stream
+        "xq_flash_prefill": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P]),
         # ck, cv, ks, vs, knew, vnew, kv_pos, rotate, cexp, sexp, B, KH, S, hd, stream
         "xq_kv_update_q": (_I, [_P] * 10 + [_I, _I, _I, _I, _P]),
         # q, ck, cv, ks, vs, kv_len, work, out, B, H, KH, S, hd, sm_scale, stream
@@ -189,3 +195,6 @@ SIGNATURES = {
         "xq_grid_barrier_bench": (_I, [_P, _I, _P]),
     },
 }
+# the f32-cache instantiations: the same entry point and workspace
+SIGNATURES["fused_decode_f32"] = {k: SIGNATURES["fused_decode"][k]
+                                  for k in ("xq_fused_decode_workspace", "xq_fused_decode")}

@@ -13,11 +13,14 @@ residual adds. Optional folds, as in the JAX function:
 - head: the final norm, the i8 classifier ``wcls`` and a first-occurrence
   greedy argmax (returns ``(x, logits, token, ck, cv)``).
 
-It takes the i8 body with per-row scales and a bf16 cache (the plain
-version f32 too), or an int8 cache with its per-row f32 scale planes
+It takes the i8 body with per-row scales and a bf16 or f32 cache (the f32
+rows and rotated sinks stored unrounded; ``csrc/fused_decode_f32.cu``, a
+library of its own, launches counted under ``fused_decode_f32`` beside the
+body's), or an int8 cache with its per-row f32 scale planes
 (``k_scale``/``v_scale``, the JAX kernel's ``quant`` branch: the K and V
 rows quantised on insert, the sinks dequantised, rotated and requantised,
-the scales factored out of the attention dots). Its weight phases run one of three bodies:
+the scales factored out of the attention dots). An f16 cache is none of
+them, as in the JAX gate. Its weight phases run one of three bodies:
 
 - the i8 body with bf16 activations (the default);
 - ``a8=True`` (W8A8 decode, the JAX kernel's ``_a8dot``): each phase's f32
@@ -52,8 +55,8 @@ other head dims (Phi-3's 96) on the card to the per-layer kernels, as the
 JAX gate refuses ``head_dim % 128`` on the TPU. Unlike the JAX kernel, which
 asserts q_dim == dim with post-norms (every published Gemma-2 has q_dim !=
 dim), the kernel takes any q_dim. ``fused_decode_step`` launches the kernel
-for CUDA caches (bf16, or int8 with scales) and raises on anything it does
-not take; for CPU caches it runs ``fused_decode_step_plain``, the same
+for CUDA caches (bf16, f32, or int8 with scales) and raises on anything it
+does not take; for CPU caches it runs ``fused_decode_step_plain``, the same
 function in plain PyTorch (any even head_dim). Both update the caches (and
 scale planes) in place and return them.
 """
@@ -106,14 +109,13 @@ def head_dim_supported(head_dim: int, on_card: bool) -> bool:
     return head_dim in HEAD_DIMS if on_card else head_dim % 2 == 0
 
 
-def cache_supported(dtype: torch.dtype, quantized: bool, on_card: bool) -> bool:
-    """The caches the megakernel takes: an int8 cache with its scale planes
-    (``quantized``), or a float one, bf16 on the card (``csrc/fused_decode.cu``
-    has no f32-cache instantiation) and bf16 or f32 on the CPU, where the
-    plain version runs."""
+def cache_supported(dtype: torch.dtype, quantized: bool) -> bool:
+    """The caches the megakernel takes, on the card as on the CPU (where the
+    plain version runs): an int8 cache with its scale planes (``quantized``),
+    or a bf16 or f32 one, the JAX gate's three; never f16."""
     if quantized:
         return dtype == torch.int8
-    return dtype == torch.bfloat16 or (dtype == torch.float32 and not on_card)
+    return dtype in attn_ops.FLOAT_CACHES
 
 
 def fused_step_supported(cfg, params, cache_k, batch: int, t: int, k_scale=None,
@@ -131,7 +133,7 @@ def fused_step_supported(cfg, params, cache_k, batch: int, t: int, k_scale=None,
         return False
     lp = params.layers
     on_card = lp.wqkv.values.is_cuda
-    if not cache_supported(cache_k.dtype, k_scale is not None, on_card):
+    if not cache_supported(cache_k.dtype, k_scale is not None):
         return False
     if getattr(lp, "w13", None) is None:  # MoE FFN
         return False
@@ -189,7 +191,7 @@ def _check(params, cfg, x0, cache_k, cache_v, wcls, out_norm, embed, token, pos,
             _need(t is not None and t.dtype == torch.float32 and t.shape == cache_k.shape[:-1],
                   "an int8 KV cache needs (L, B, KH, S) f32 k_scale and v_scale")
     else:
-        _need(cache_k.dtype == cache_v.dtype and cache_k.dtype in (torch.bfloat16, torch.float32),
+        _need(cache_k.dtype == cache_v.dtype and cache_k.dtype in attn_ops.FLOAT_CACHES,
               f"cache dtype {cache_k.dtype} (a bf16 or f32 cache, or int8 KV with its scales)")
     b = cache_k.shape[1]
     _need(1 <= b <= MAX_B, f"batch {b} (1..{MAX_B})")
@@ -345,8 +347,7 @@ def fused_decode_step(params, cfg, x0, cache_k, cache_v, kv_pos, kv_len, rotate,
     L, b, kh, s, hd = cache_k.shape
     quant = k_scale is not None
     _need(hd in HEAD_DIMS, f"head_dim {hd} (the kernel takes {HEAD_DIMS})")
-    _need(cache_k.dtype in (torch.bfloat16, torch.int8),
-          f"cache dtype {cache_k.dtype} (the kernel takes bf16, or int8 with scales)")
+    f32 = cache_k.dtype == torch.float32
     planes = (cache_k, cache_v) + ((k_scale, v_scale) if quant else ())
     _need(all(t.is_contiguous() and t.device == dev for t in planes),
           "caches and scale planes must be contiguous on one card")
@@ -386,7 +387,7 @@ def fused_decode_step(params, cfg, x0, cache_k, cache_v, kv_pos, kv_len, rotate,
     c1 = _dev_f32(cexp1, dev, hd, "cexp1")
     s1 = _dev_f32(sexp1, dev, hd, "sexp1")
 
-    lib = build.load_library("fused_decode")
+    lib = build.load_library("fused_decode_f32" if f32 else "fused_decode")
     work = _workspace(lib, dev, b, cfg, s)
     xout = torch.empty((b, cfg.dim), dtype=torch.float32, device=dev)
     v = wcls.values.shape[0] if wcls is not None else 0
@@ -407,7 +408,7 @@ def fused_decode_step(params, cfg, x0, cache_k, cache_v, kv_pos, kv_len, rotate,
     q4 = lp.wqkv.q4group
     body = 2 if q4 else 1 if a8 else 0  # bf16 activations, a8, q4
     dims = [L, b, cfg.dim, kh, cfg.n_heads // kh, hd, cfg.hidden_dim, s, v,
-            ffn_chunk(cfg.hidden_dim), 2 if quant else 1,  # the cache kind: 1 bf16, 2 int8
+            ffn_chunk(cfg.hidden_dim), 2 if quant else 3 if f32 else 1,  # 1 bf16, 2 int8, 3 f32
             body, q4, int(cfg.act == "gelu")]
     clip = float(cfg.qkv_clip) if math.isfinite(cfg.qkv_clip) else math.inf
     err = lib.xq_fused_decode(
@@ -419,6 +420,8 @@ def fused_decode_step(params, cfg, x0, cache_k, cache_v, kv_pos, kv_len, rotate,
     )
     build.check(err, "fused_decode_step")
     build.LAUNCHES[("fused_decode", "fused_decode_a8", "fused_decode_q4")[body]] += 1
+    if f32:
+        build.LAUNCHES["fused_decode_f32"] += 1
     if lp.bqkv is not None:
         build.LAUNCHES["fused_decode_bias"] += 1
     if lp.q_norm is not None:

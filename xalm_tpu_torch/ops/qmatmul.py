@@ -4,15 +4,19 @@ and ``pallas_qmatmul``; CUDA source ``csrc/qmatmul.cu``).
 
     y[M, D] = epi * cd(rmsnorm?(x)) @ W[layer]^T        (f32 accumulation)
 
-with W int8 (`i8` per-row scale epilogue, or `q8` x 1/100), bf16 or f32;
-cd, the compute dtype, is bf16, or f32 for f32 weights (no bf16 rounding,
-as the TPU kernel's ``compute_dtype``). On the H100 the decode shapes (M <=
-8) are bound by the weight bytes and run as a GEMV; larger M runs a tiled
-GEMM, on the tensor cores for int8/bf16 and in f32 FMA for f32 weights (see
-the source's note). f16 and fp8 weights are no kernel dtype, as on the TPU:
-the loader turns them into bf16 or i8 on the card (``load_params``'s
-``f16_mode``/``fp8_mode``), and a weight kept f16 or fp8 takes
-``ops.linear``'s plain product.
+with W int8 (`i8` per-row scale epilogue, or `q8` x 1/100), bf16, f32 or
+fp8 (``float8_e4m3fn``/``float8_e5m2``, no scale: the TPU kernel's
+``_f8_to_bf16`` branch, each code widened to bf16 exactly); cd, the compute
+dtype, is bf16, or f32 for f32 weights (no bf16 rounding, as the TPU
+kernel's ``compute_dtype``). On the H100 the decode shapes (M <= 8) are
+bound by the weight bytes and run as a GEMV; larger M runs a tiled GEMM, on
+the tensor cores for int8/fp8/bf16 and in f32 FMA for f32 weights (see the
+source's note). f16 weights are no kernel dtype, as on the TPU, and fp8 is
+none of the forward's: the JAX forward's ``_pallas_ok`` routes neither to
+the kernel. The loader turns them into bf16 or i8 on the card
+(``load_params``' ``f16_mode``/``fp8_mode``), a weight kept f16 or fp8 takes
+``ops.linear``'s plain product, and the fp8 branch is reached through
+``qmatmul`` itself, as the JAX one is through ``pallas_qmatmul``.
 
 Two more branches of the same TPU kernel quantise x to int8 per row
 (absmax/127, round half to even, clip; ``quant_rows``) and multiply the
@@ -29,7 +33,8 @@ Row 8 of the TPU kernels, the same kernel through
 ``pallas_qmatmul_stacked_multi``, is ``qmatmul_multi``: the gathered top-k
 expert matmul of Mixtral's decode step, over the (L*E, D, N) flattened
 expert stack at the k indices ``layer*E + expert`` that lie on the device;
-int8, bf16 and f32 experts, and with ``q4_group=g`` packed-q4 experts
+int8, bf16, f32 and fp8 experts (the GEMV core is kernel 1's; the forward
+gathers no fp8 expert), and with ``q4_group=g`` packed-q4 experts
 ((L*E, D, N/2) values, (L*E, D, N/g) group scales; ``xq_qmatmul_multi_q4``):
 x quantised per row (the m shared rows once, their scales for every
 expert; else each of the k*m rows), then the q4 branch's group sums.
@@ -57,12 +62,26 @@ __all__ = [
 
 
 def supported_weight_dtype(dtype: torch.dtype) -> bool:
-    """Weight dtypes the kernel takes (the TPU kernel's: int8, bf16, f32);
-    f16 and fp8 weights use ops.linear."""
+    """Weight dtypes the forward routes to the kernel (the JAX package's
+    ``supported_weight_dtype``: int8, bf16, f32); f16 and fp8 weights use
+    ops.linear there, though ``qmatmul`` takes fp8 too."""
     return dtype in _W_KIND
 
 
 _W_KIND = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}  # the CUDA side's w_kind
+_FP8_KIND = {torch.float8_e4m3fn: 3, torch.float8_e5m2: 4}  # fp8 weights, no scale
+
+
+def _kernel_kind(dtype: torch.dtype, what: str) -> int:
+    """The CUDA side's w_kind of a weight dtype ``qmatmul``/``qmatmul_multi`` take."""
+    kind = _W_KIND.get(dtype, _FP8_KIND.get(dtype))
+    _need(kind is not None, f"{what}: weight dtype {dtype} (int8, bf16, f32 or fp8)")
+    return kind
+
+
+def _counter(name: str, dtype: torch.dtype) -> str:
+    """The launch counter of a kernel-1 or kernel-8 launch by weight dtype."""
+    return name + ("_f32" if dtype == torch.float32 else "_fp8" if dtype in _FP8_KIND else "")
 
 
 def _check_quant_x(values, norm_w, q4_group: int, a8: bool, m: int) -> None:
@@ -127,7 +146,7 @@ def qmatmul_plain(
     optional norm, and the products are exact in f32 and summed in f32; f32
     weights keep x in f32 (no bf16 rounding, as on the TPU) and multiply in
     f32. ``a8`` and ``q4_group`` quantise x per row instead (see the module
-    docstring)."""
+    docstring). fp8 weights widen to bf16 exactly, as in the kernel."""
     x = x.to(torch.float32)
     if a8 or q4_group:
         _check_quant_x(values, norm_w, q4_group, a8, x.shape[0])
@@ -177,8 +196,7 @@ def qmatmul(
         return _qmatmul_quant_x(x, values, layer, scale, q8_scale, q4_group, a8, norm_w)
     m, n = x.shape
     l, d, n2 = values.shape
-    _need(supported_weight_dtype(values.dtype),
-          f"weight dtype {values.dtype} (int8, bf16 or f32)")
+    kind = _kernel_kind(values.dtype, "qmatmul")
     _need(x.dtype == torch.float32 and x.is_contiguous(), "x must be contiguous f32")
     _need(values.is_cuda and values.is_contiguous(), "weights must be contiguous on the card")
     _need(n == n2, f"x {tuple(x.shape)} vs weights {tuple(values.shape)}")
@@ -197,14 +215,13 @@ def qmatmul(
     nw_ptr = None if norm_w is None else norm_w.data_ptr() + layer * n * 4
     eps = float(norm_eps) if norm_w is not None else 0.0
     qs = float(q8_scale) if (scale is None and q8_scale is not None) else 0.0
-    kind = _W_KIND[values.dtype]
     scratch = lib.xq_qmatmul_scratch(m, n, kind)  # bytes of the tiled route's cd(rmsnorm?(x))
     xb = torch.empty((scratch,), dtype=torch.uint8, device=x.device) if scratch else None
     err = lib.xq_qmatmul(x.data_ptr(), nw_ptr, eps, w_ptr, kind, s_ptr, qs, y.data_ptr(),
                          None if xb is None else xb.data_ptr(), m, n, d,
                          torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "qmatmul")
-    build.LAUNCHES["qmatmul_f32" if values.dtype == torch.float32 else "qmatmul"] += 1
+    build.LAUNCHES[_counter("qmatmul", values.dtype)] += 1
     return y
 
 
@@ -356,17 +373,16 @@ def qmatmul_multi(
         build.check(err, "qmatmul_multi q4")
         build.LAUNCHES["qmatmul_multi_q4"] += 1
         return y
-    _need(supported_weight_dtype(values.dtype),
-          f"weight dtype {values.dtype} (int8, bf16 or f32)")
+    kind = _kernel_kind(values.dtype, "qmatmul_multi")
     _need(n == nw, f"x {tuple(x.shape)} vs weights {tuple(values.shape)}")
     if scale is not None:
         _need(values.dtype == torch.int8, "a row scale needs int8 weights")
         _need(scale.dtype == torch.float32 and scale.shape == (le, d) and scale.is_contiguous()
               and scale.is_cuda, "scale must be contiguous (LE, D) f32")
     qs = Q8_FIXED_SCALE if (scale is None and values.dtype == torch.int8) else 0.0
-    err = lib.xq_qmatmul_multi(x.data_ptr(), values.data_ptr(), _W_KIND[values.dtype],
+    err = lib.xq_qmatmul_multi(x.data_ptr(), values.data_ptr(), kind,
                                None if scale is None else scale.data_ptr(), qs, idxs.data_ptr(),
                                y.data_ptr(), k, m, int(shared_x), n, d, le, stream)
     build.check(err, "qmatmul_multi")
-    build.LAUNCHES["qmatmul_multi_f32" if values.dtype == torch.float32 else "qmatmul_multi"] += 1
+    build.LAUNCHES[_counter("qmatmul_multi", values.dtype)] += 1
     return y

@@ -44,6 +44,10 @@ from xalm_tpu_torch.tokenizer import Tokenizer
 __all__ = ["Engine", "GenerationStats"]
 
 _CHUNK_BUCKETS = (16, 32, 64, 128, 256, 512)
+# the caches of the JAX harness's -t: bf16 and f32 on kernels 2-4 (and the
+# megakernel), int8 on kernels 5-7, f16 on the dense attention (the forward
+# routes each by its dtype, as the reference does)
+KV_DTYPES = (torch.float16, torch.bfloat16, torch.float32, torch.int8)
 
 
 def _bucket(n: int) -> int:
@@ -104,12 +108,8 @@ class Engine:
         self.fused_step = fused_step
         if self.matmul_impl not in IMPLS:
             raise ValueError(f"matmul_impl {matmul_impl!r}: one of auto, {', '.join(IMPLS)}")
-        if on_card and self.matmul_impl == "kernel" and self.kv_dtype not in (torch.bfloat16,
-                                                                              torch.int8):
-            raise ValueError(
-                f"kv dtype {self.kv_dtype}: the attention kernels on the card take a bf16 cache "
-                "or an int8 one (use bf16 or int8, or matmul_impl 'plain' or 'xla')"
-            )
+        if self.kv_dtype not in KV_DTYPES:
+            raise ValueError(f"kv dtype {self.kv_dtype}: one of {', '.join(map(str, KV_DTYPES))}")
 
     # ------------------------------------------------------------------ load
 
