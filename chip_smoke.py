@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --megakernel-ms [--root DIR] [--models NAME ...]
+    python3 chip_smoke.py --kernel-ms [--root DIR]
 
 Builds the port's CUDA kernels from ``xalm_tpu_torch/csrc/`` and drives the
 port, never the JAX package, through these phases, each printing JSON lines,
@@ -39,7 +40,9 @@ family models:
    three more runs, bf16 cache: the q4 body on the megakernel and with
    ``fused_step=False`` (the q4 GEMV), and the i8 body with ``a8_decode``
    and ``a8_prefill`` (the W8A8 GEMM on the prompt chunk, the megakernel's
-   a8 body);
+   a8 body); and a 2048-token prompt on the megakernel path, bf16 cache
+   (four chunks, the last three through kernel 4 past a prefix:
+   ``phase_long_prompt``, its prefill tok/s and flash_prefill device ms);
 5. wrap: the same widths at 2 layers and a 256-slot window, 600 decode
    steps through three ring wraps, the kernels against their plain
    versions on the card, on both decode paths (the megakernel with the i8
@@ -87,16 +90,26 @@ family models:
 9. the kernels' summary line, then the result line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
-With ``--megakernel-ms`` it runs none of these phases: it times the
-megakernel alone, in phase 3's first case (B = 1, kv_len 520, the embed
-fold, a bf16 cache), on each model preset named (default Mistral-7B and
-Qwen3-8B) and each weight body (``megakernel_ms``), and prints the card's
-name and power limit, the build's ptxas report and one JSON line of times.
-``--root`` takes the port from another checkout (what it calls has been
-there since the megakernel landed), so that two commits compare in one
-call on one card: unpack the other with ``git archive`` into a directory
-that ``.gitignore`` lists and run the two in turns (other, this, this,
-other).
+With ``--megakernel-ms`` it runs none of these phases: it builds only the
+megakernel's source and times the megakernel alone, in phase 3's first
+case (B = 1, kv_len 520, the embed fold, a bf16 cache), on each model
+preset named (default Mistral-7B and Qwen3-8B) and each weight body
+(``megakernel_ms``). With ``--kernel-ms`` it runs none of them either: it
+builds only kernel 1's and the attention kernels' sources and times the
+W8A8 GEMM (w13 and w2 of Mistral-7B at M = 512 and 256, i8) and the
+bf16-cache flash prefill (T = 512 at positions 0 and 1024, at the shapes
+of Mistral-7B, Qwen2.5-7B, Gemma-7B and Phi-3-mini) through their C entry
+points, beside one PyTorch call (timed in the same turns: its spread is
+printed) and the bound (``kernel_ms``), cycling enough layers that each
+sweep of a case's operands is twice the card's L2. In both modes
+``--root`` names another checkout whose libraries are built too (from its
+own sources into its own build directory) and timed in turns with this
+one's in the same process (other, this, this, other), through this
+checkout's wrappers and plain versions, so its C entry points must take
+the same arguments: unpack it with ``git archive`` into a directory that
+``.gitignore`` lists. Each mode prints the card's name and power limit,
+ptxas's registers, shared memory and spills of the timed kernels, and one
+JSON line of times.
 
 Any failed phase raises and the script exits non-zero without the result
 line. There is no CPU fallback: without a CUDA device it exits 2 at once.
@@ -106,6 +119,7 @@ matmul and cuDNN).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -357,7 +371,7 @@ def attention_cases(cfg, cases: Cases, gen, ck, cv, tag: str = "", label: str = 
     the bf16 or f32 planes ``ck``/``cv`` at cfg's shapes, beside SDPA with
     ``enable_gqa`` (q in the cache's type): flash_decode at kv_len 0, 1, 777
     and the window, flash_prefill of a 512-row chunk at positions 0 and
-    1024. Layers cycle so every launch streams cold. An f32 cache holds
+    1024. Layers cycle so every launch streams cold, SDPA's too. An f32 cache holds
     flash_prefill to 1e-5 (``F32_CACHE_TOL``) and bounds it by the f32 FMA
     peak: its dots run in f32, nothing rounded to bf16."""
     import torch
@@ -379,13 +393,15 @@ def attention_cases(cfg, cases: Cases, gen, ck, cv, tag: str = "", label: str = 
         if kvl == 0 and not bool((got == 0).all()):
             raise AssertionError("flash_decode: kv_len == 0 must give 0")
         layers = itertools.cycle(range(L))
+        lib_layers = itertools.cycle(range(L))
         lib = None
         if kvl > 0:
             qb = q.to(ck.dtype)[:, :, None]  # (B, H, 1, hd)
 
-            def lib(kvl=kvl, qb=qb):
+            def lib(kvl=kvl, qb=qb, lib_layers=lib_layers):
+                i = next(lib_layers)
                 return F.scaled_dot_product_attention(
-                    qb, ck[7 % L, :, :, :kvl], cv[7 % L, :, :, :kvl], enable_gqa=True)
+                    qb, ck[i, :, :, :kvl], cv[i, :, :, :kvl], enable_gqa=True)
         # f32 dots and softmax on both sides, in a different order
         cases.add("flash_decode" + tag, f"B=1 kv_len={kvl}{label}", got, want, hd, 1e-5,
                   lambda: A.flash_decode(q, ck, cv, next(layers), kv_len),
@@ -399,14 +415,16 @@ def attention_cases(cfg, cases: Cases, gen, ck, cv, tag: str = "", label: str = 
         got = A.flash_prefill(q, ck, cv, 9 % L, pos)
         want = A.flash_prefill_plain(q, ck, cv, 9 % L, pos)
         layers = itertools.cycle(range(L))
+        lib_layers = itertools.cycle(range(L))
         qb = q.to(ck.dtype).transpose(1, 2)  # (B, H, T, hd)
         kend = p0 + t
         mask = (torch.arange(kend, device=dev)[None, :]
                 <= (p0 + torch.arange(t, device=dev))[:, None])
 
-        def lib(kend=kend, qb=qb, mask=mask):
+        def lib(kend=kend, qb=qb, mask=mask, lib_layers=lib_layers):
+            i = next(lib_layers)
             return F.scaled_dot_product_attention(
-                qb, ck[9 % L, :, :, :kend], cv[9 % L, :, :, :kend], attn_mask=mask, enable_gqa=True)
+                qb, ck[i, :, :, :kend], cv[i, :, :, :kend], attn_mask=mask, enable_gqa=True)
         visible = sum(p0 + i + 1 for i in range(t))
         # bf16: the plain version copies the kernel's 64-key tiling, so p is
         # rounded to bf16 at the same running max. The f32 sums of the
@@ -1151,6 +1169,70 @@ def phase_main_quant(params, q4p, cfg) -> dict:
         launches = {k: launches[k] + row["launches"][k] for k in launches}
         del eng
         torch.cuda.empty_cache()
+    return {"launches": launches}
+
+
+LONG_PROMPT = 2048  # four 512-row chunks: three run kernel 4 past a prefix
+
+
+def phase_long_prompt(params, cfg) -> dict:
+    """The main path once more, bf16 cache, megakernel decode, with a
+    2048-token prompt: ``Engine.generate`` of it and 16 greedy tokens, the
+    launch counters set to 0 just before and read just after (per chunk a
+    flash_prefill launch a layer: 4L), the prefill's tok/s, and a profile of
+    one such prefill (device ms by kernel: flash_prefill's share grows with
+    the chunk's position). Returns the run's launches."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from xalm_tpu_torch.ops import build
+    from xalm_tpu_torch.runtime.engine import Engine
+
+    prompt = np.random.default_rng(SEED + 2).integers(3, cfg.vocab_size, size=LONG_PROMPT).tolist()
+    eng = Engine(cfg, params, kv_dtype=torch.bfloat16)
+    if eng.decode_path(1) != "megakernel":
+        raise AssertionError(f"long prompt: decode path {eng.decode_path(1)!r}")
+    eng.generate(prompt[:600], 2, stop_on_eos=False)  # warm-up: a chunk past a prefix too
+    torch.cuda.synchronize()
+    build.reset_launches()
+    out, stats = eng.generate(prompt, 16, stop_on_eos=False)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    chunks = LONG_PROMPT // 512
+    if len(out) != 16 or launches["flash_prefill"] != chunks * cfg.n_layers:
+        raise AssertionError(f"long prompt: {len(out)} tokens, launches {launches}")
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        cache = eng.new_cache(1)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_PRIMES):
+                torch.cuda._sleep(100)
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
+            t0 = time.perf_counter()
+            logits, cache, pos = eng.prefill(prompt, cache)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        dev, top, records = _device_times(prof, False)
+        if records["flash_prefill_kernel"] == chunks * cfg.n_layers:
+            break
+    if pos != LONG_PROMPT or not torch.isfinite(logits).all():
+        raise AssertionError(f"long prompt: prefill to {pos}, logits finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    complete = records["flash_prefill_kernel"] == chunks * cfg.n_layers
+    row = {"phase": "main_path", "run": f"long prompt {LONG_PROMPT}, bf16 cache, megakernel",
+           "prompt_tokens": LONG_PROMPT, "generated_tokens": stats.generated_tokens,
+           "prefill_s": stats.prefill_s, "prefill_tok_s": LONG_PROMPT / stats.prefill_s,
+           "decode_ms_per_token": stats.decode_s / stats.generated_tokens * 1e3,
+           "launches": launches, "profile_prefill_wall_ms": wall_ms,
+           "profile_attempts": attempt, "records_complete": complete,
+           "prefill_device_ms": dev if complete else "not measured",
+           "flash_prefill_device_ms": dev["flash_prefill"] if complete else "not measured",
+           "top": top, "tokens_head": out[:8]}
+    emit(row)
+    del eng
+    torch.cuda.empty_cache()
     return {"launches": launches}
 
 
@@ -3069,15 +3151,17 @@ def kernel_device_ms(fn, frag: str, iters: int = 20) -> float | str:
     return us / 1e3 / n if n == iters and us > 0 else "not measured"
 
 
-def megakernel_ms(models, reps: int = 3) -> None:
+def megakernel_ms(models, other_root: str | None) -> None:
     """The megakernel alone in phase 3's first case, for each model preset
     named and each weight body (the i8 body, a8 on it, and q4 at group 512,
-    or 128 where 512 does not divide the widths): ``reps`` runs of
-    ``time_ms`` (CUDA events around the wrapper's calls: host gaps
-    included), one of ``kernel_device_ms`` (the kernel's own device time)
-    and the wrapper's host time a call behind a spin kernel. Random i8
-    weights from the seed, a bf16 cache of unit normals (the
+    or 128 where 512 does not divide the widths), in turns with
+    ``other_root``'s library where given (``_in_turns``: CUDA events around
+    the wrapper's calls, host gaps included, and the kernel's own device
+    time), and the wrapper's host time a call behind a spin kernel. Random
+    i8 weights from the seed, a bf16 cache of unit normals (the
     ``--megakernel-ms`` mode)."""
+    import functools
+
     import torch
 
     from xalm_tpu_torch.models import config as configs
@@ -3087,13 +3171,11 @@ def megakernel_ms(models, reps: int = 3) -> None:
     from xalm_tpu_torch.runtime.cache import KVCache, ring_indices
     from xalm_tpu_torch.utils.synthetic import synthetic_params
 
+    trees, _ = _trees(other_root, ("fused_decode",), ("fused_decode_kernel",))
     dev = torch.device(DEVICE)
     out = {}
     for name in models:
-        cfg = getattr(configs, name, None)
-        if cfg is None:  # a preset of a later slice than the checkout timed
-            out[name] = "not in this checkout"
-            continue
+        cfg = getattr(configs, name)
         params = synthetic_params(cfg, device=dev, seed=SEED)
         widths = (cfg.dim, cfg.hidden_dim, cfg.n_heads * cfg.head_dim)
         group = 512 if all(k % 1024 == 0 for k in widths) else 128
@@ -3109,26 +3191,268 @@ def megakernel_ms(models, reps: int = 3) -> None:
         for body in ("i8", "a8", f"q4 g{group}"):
             p = recode_params_q4(params, group) if body.startswith("q4") else params
 
-            def step(p=p, a8=body != "i8"):
-                fd.fused_decode_step(p, cfg, None, ck, cv, kv_pos, kv_len, rot, None, None, c1,
-                                     s1, a8=a8, **fold)
+            def step(tag, p=p, a8=body != "i8"):
+                with _launching(trees[tag]):
+                    fd.fused_decode_step(p, cfg, None, ck, cv, kv_pos, kv_len, rot, None, None,
+                                         c1, s1, a8=a8, **fold)
 
+            calls = {tag: functools.partial(step, tag) for tag in trees}
             with torch.inference_mode():
-                row = {"events_ms": [time_ms(step) for _ in range(reps)],
-                       "device_ms": kernel_device_ms(step, "fused_decode_kernel")}
-                # the wrapper's host time a call, the card kept busy ahead of it
-                torch.cuda._sleep(int(2e8))
-                t0 = time.perf_counter()
-                for _ in range(20):
-                    step()
-                row["host_ms"] = (time.perf_counter() - t0) / 20 * 1e3
-                torch.cuda.synchronize()
+                row = _in_turns(calls, ("fused_decode_kernel",))
+                for tag, fn in calls.items():
+                    # the wrapper's host time a call, the card kept busy ahead of it
+                    torch.cuda._sleep(int(2e8))
+                    t0 = time.perf_counter()
+                    for _ in range(20):
+                        fn()
+                    row[f"{tag}_host_ms"] = (time.perf_counter() - t0) / 20 * 1e3
+                    torch.cuda.synchronize()
             out[name][body] = row
-            del p, step
+            del p, step, calls
         del params, ck, cv
         torch.cuda.empty_cache()
-    emit({"phase": "megakernel_ms", "root": os.path.dirname(os.path.abspath(fd.__file__)),
+    emit({"phase": "megakernel_ms", "roots": _roots(trees),
           "case": "B=1 kv_len=520, embed fold", "ms": out})
+
+
+# --kernel-ms: the two TMA + wgmma kernels at the main path's shapes.
+# W8A8: (name, K, D) of Mistral-7B's w13 and w2 at M = 512 and 256, i8
+KERNEL_MS_A8 = (("w13", 4096, 28672), ("w2", 14336, 4096))
+KERNEL_MS_A8_ROWS = (512, 256)
+# flash prefill: the model whose (group, head_dim) each case takes, T = 512
+KERNEL_MS_PREFILL = (("Mistral-7B", "MISTRAL_7B"), ("Qwen2.5-7B", "QWEN2_5_7B"),
+                     ("Gemma-7B", "GEMMA_7B"), ("Phi-3-mini", "PHI3_MINI_4K"))
+KERNEL_MS_POS = (0, 1024)
+KERNEL_MS_MIN_LAYERS = 4  # layers cycled per call at the least (see _cold_layers)
+KERNEL_MS_FRAGS = ("gemm_a8_kernel", "flash_prefill_kernel")
+
+
+def _build_module(root: str, tag: str):
+    """``xalm_tpu_torch/ops/build.py`` of the checkout at ``root`` as a
+    module of its own (its sources, its build directory)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"xq_build_{tag}", os.path.join(root, "xalm_tpu_torch", "ops", "build.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _ptxas_report(log_path, frags) -> dict:
+    """ptxas's lines (registers, shared memory, spills, warnings) for each
+    entry function of a build log whose name holds one of ``frags``."""
+    out, name = {}, None
+    if not os.path.exists(log_path):
+        return out
+    with open(log_path) as f:
+        for line in f:
+            if "Compiling entry function" in line:
+                name = line.split("'")[1]
+                name = name if any(k in name for k in frags) else None
+            elif name and ("Used" in line or "spill" in line or "warning" in line):
+                out.setdefault(name, []).append(line.strip())
+    return out
+
+
+def _trees(other_root: str | None, names, frags):
+    """This checkout's ``ops/build.py`` and, with ``other_root``, the other
+    checkout's (``_build_module``) as {"this": ..., "other": ...}; the
+    libraries ``names`` of both built in parallel and loaded, and the build
+    emitted with ptxas's report of the entry functions matching ``frags``.
+    Returns (trees, {tag: {name: library}})."""
+    from xalm_tpu_torch.ops import build
+
+    trees = {"this": build}
+    if other_root is not None:
+        trees["other"] = _build_module(other_root, "other")
+    t0 = time.perf_counter()
+    started = [(b, name, b._start(name)) for b in trees.values() for name in names]
+    for b, name, (out, pending) in started:
+        b._finish(name, out, pending)
+    libs = {tag: {name: b.load_library(name) for name in names} for tag, b in trees.items()}
+    ptxas = {tag: {name: _ptxas_report(b.BUILD_DIR / f"{name}.log", frags) for name in names}
+             for tag, b in trees.items()}
+    emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas,
+          "roots": _roots(trees)})
+    return trees, libs
+
+
+def _roots(trees) -> dict:
+    return {tag: str(b.CSRC.parent) for tag, b in trees.items()}
+
+
+@contextlib.contextmanager
+def _launching(tree):
+    """This checkout's wrappers launching ``tree``'s libraries
+    (``build.load_library`` swapped for the tree's own)."""
+    from xalm_tpu_torch.ops import build
+
+    saved, build.load_library = build.load_library, tree.load_library
+    try:
+        yield
+    finally:
+        build.load_library = saved
+
+
+def _in_turns(calls: dict, frags: tuple, library=None) -> dict:
+    """Each of ``calls`` ({"this": fn, "other": fn} or {"this": fn}) timed
+    by ``time_ms`` in turns (other, this, this, other; this, this alone),
+    ``library`` (one PyTorch call of the same function) before each turn,
+    and each call's device time of the kernels whose names hold ``frags``
+    (``kernel_device_ms``)."""
+    order = ("other", "this", "this", "other") if "other" in calls else ("this", "this")
+    runs = {tag: [] for tag in calls}
+    lib_runs = []
+    for tag in order:
+        if library is not None:
+            lib_runs.append(time_ms(library))
+        runs[tag].append(time_ms(calls[tag]))
+    row = {tag + "_ms": sum(r) / len(r) for tag, r in runs.items()}
+    row["runs_ms"] = runs
+    if library is not None:
+        row["library_ms"] = sum(lib_runs) / len(lib_runs)
+        row["library_runs_ms"] = lib_runs
+    for tag, fn in calls.items():
+        for frag in frags:
+            row[f"{tag}_device_ms_{frag}"] = kernel_device_ms(fn, frag)
+    return row
+
+
+def _cold_layers(bytes_per_call: int) -> int:
+    """Layers to cycle so that one sweep of a case's operands is twice the
+    card's L2: each call then reads its operands from device memory."""
+    import torch
+
+    l2 = getattr(torch.cuda.get_device_properties(DEVICE), "L2_cache_size", 50 << 20)
+    return max(KERNEL_MS_MIN_LAYERS, -(-2 * l2 // bytes_per_call))
+
+
+def kernel_ms(other_root: str | None) -> None:
+    """The W8A8 GEMM (``xq_qmatmul_a8``) and the bf16-cache flash prefill
+    (``xq_flash_prefill``) of this checkout and, with ``--root``, of the
+    other one, through their C entry points (their signatures are the same
+    in both), each case timed in turns with one PyTorch call of the same
+    function (``torch._int_mm`` and the two scale multiplies; SDPA) by
+    ``_in_turns``, over calls that cycle ``_cold_layers`` layers; the device
+    time of the kernel (and of quant_x for W8A8) from torch.profiler; both
+    outputs held to this checkout's plain version (bit-equal; 2^-8 of each
+    row's max); the bound. Random data from the seed."""
+    import ctypes
+
+    import torch
+    import torch.nn.functional as F
+
+    from xalm_tpu_torch.models import config as configs
+    from xalm_tpu_torch.ops import attention as A
+    from xalm_tpu_torch.ops import build
+    from xalm_tpu_torch.ops.attention import quant_rows
+    from xalm_tpu_torch.ops.qmatmul import qmatmul_plain
+
+    trees, libs = _trees(other_root, ("qmatmul", "attention"), KERNEL_MS_FRAGS)
+    dev = torch.device(DEVICE)
+    stream = lambda: torch.cuda.current_stream(dev).cuda_stream  # noqa: E731
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+
+    a8_rows = []
+    for name, k, d in KERNEL_MS_A8:
+        L = _cold_layers(d * k)
+        w = torch.randint(-127, 128, (L, d, k), generator=gen, device=dev, dtype=torch.int8)
+        scale = torch.rand((L, d), generator=gen, device=dev) * 1e-3
+        for m in KERNEL_MS_A8_ROWS:
+            x = torch.randn((m, k), generator=gen, device=dev)
+            xq = torch.empty((m, k), dtype=torch.int8, device=dev)
+            sx = torch.empty((m,), dtype=torch.float32, device=dev)
+            ys = {tag: torch.empty((m, d), device=dev) for tag in trees}
+            layer = {tag: itertools.cycle(range(L)) for tag in trees}
+
+            def call(tag, i=None):
+                i = next(layer[tag]) if i is None else i
+                err = libs[tag]["qmatmul"].xq_qmatmul_a8(
+                    x.data_ptr(), w.data_ptr() + i * d * k, scale.data_ptr() + i * d * 4,
+                    ctypes.c_float(0.0), xq.data_ptr(), sx.data_ptr(), ys[tag].data_ptr(), m, k, d,
+                    stream())
+                build.check(err, f"{tag} xq_qmatmul_a8")
+            want = qmatmul_plain(x, w, 1, scale=scale, a8=True)
+            exact = {}
+            for tag in trees:
+                call(tag, 1)
+                torch.cuda.synchronize()
+                exact[tag] = bool(torch.equal(ys[tag], want))
+            xl, sxl = quant_rows(x)
+            lib_layer = itertools.cycle(range(L))
+
+            def lib(xl=xl, sxl=sxl):
+                i = next(lib_layer)
+                return (torch._int_mm(xl, w[i].t()).float() * scale[i]) * sxl[:, None]
+            b_ms, b_by = bound(d * k + 4 * m * (k + d) + 4 * d, 2.0 * m * k * d, PEAK_S8)
+            row = {"case": f"M={m} {name} i8", "layers": L, "bit_equal": exact,
+                   "bound_ms": b_ms, "bound_by": b_by}
+            row.update(_in_turns({tag: (lambda tag=tag: call(tag)) for tag in trees},
+                                 ("gemm_a8_kernel", "quant_x_kernel"), lib))
+            a8_rows.append(row)
+            emit({"phase": "kernel_ms_case", "kernel": "qmatmul_a8", **row})
+            if not exact["this"]:
+                raise AssertionError(f"qmatmul_a8 {row['case']}: not bit-equal to its plain "
+                                     "version")
+        del w, scale
+        torch.cuda.empty_cache()
+
+    pf_rows = []
+    t = 512
+    for label, preset in KERNEL_MS_PREFILL:
+        cfg = getattr(configs, preset)
+        kh, h, hd, s = cfg.n_kv_heads, cfg.n_heads, cfg.head_dim, cfg.max_seq_len
+        L = _cold_layers(2 * t * kh * hd * 2)  # the K and V rows of the first case (pos 0)
+        ck, cv = (torch.empty((L, 1, kh, s, hd), dtype=torch.bfloat16, device=dev)
+                  for _ in range(2))
+        for plane in (ck, cv):
+            for i in range(L):
+                plane[i].normal_(generator=gen)
+        for p0 in KERNEL_MS_POS:
+            q = torch.randn((1, t, h, hd), generator=gen, device=dev)
+            pos = torch.tensor([p0], dtype=torch.int32, device=dev)
+            outs = {tag: torch.empty((1, t, h * hd), device=dev) for tag in trees}
+            layer = {tag: itertools.cycle(range(L)) for tag in trees}
+
+            def call(tag, i=None):
+                i = next(layer[tag]) if i is None else i
+                err = libs[tag]["attention"].xq_flash_prefill(
+                    q.data_ptr(), A._layer_ptr(ck, i), A._layer_ptr(cv, i), pos.data_ptr(),
+                    outs[tag].data_ptr(), 1, t, h, kh, s, hd, ctypes.c_float(1.0 / math.sqrt(hd)),
+                    0, stream())
+                build.check(err, f"{tag} xq_flash_prefill")
+            want = A.flash_prefill_plain(q, ck, cv, 1, pos)
+            rel = {}
+            for tag in trees:
+                call(tag, 1)
+                torch.cuda.synchronize()
+                rel[tag] = _row_rel(outs[tag], want, hd)
+            qb = q.to(torch.bfloat16).transpose(1, 2)
+            kend = p0 + t
+            mask = (torch.arange(kend, device=dev)[None, :]
+                    <= (p0 + torch.arange(t, device=dev))[:, None])
+            lib_layer = itertools.cycle(range(L))
+
+            def lib(kend=kend, qb=qb, mask=mask):
+                i = next(lib_layer)
+                return F.scaled_dot_product_attention(
+                    qb, ck[i, :, :, :kend], cv[i, :, :, :kend], attn_mask=mask, enable_gqa=True)
+            visible = sum(p0 + i + 1 for i in range(t))
+            b_ms, b_by = bound(2 * kend * kh * hd * 2 + 2 * t * h * hd * 4, 4.0 * visible * h * hd,
+                               PEAK_BF16)
+            row = {"case": f"{label} G={h // kh} hd={hd} T={t} pos={p0}", "layers": L,
+                   "max_row_rel_err": rel, "bound_ms": b_ms, "bound_by": b_by}
+            row.update(_in_turns({tag: (lambda tag=tag: call(tag)) for tag in trees},
+                                 ("flash_prefill_kernel",), lib))
+            pf_rows.append(row)
+            emit({"phase": "kernel_ms_case", "kernel": "flash_prefill", **row})
+            if not rel["this"] <= 2.0 ** -8:
+                raise AssertionError(f"flash_prefill {row['case']}: row error {rel['this']}")
+        del ck, cv
+        torch.cuda.empty_cache()
+    emit({"phase": "kernel_ms", "roots": _roots(trees), "qmatmul_a8": a8_rows,
+          "flash_prefill": pf_rows})
 
 
 def main(argv=None) -> int:
@@ -3137,7 +3461,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Chip smoke of the PyTorch/CUDA port.")
     ap.add_argument("--megakernel-ms", action="store_true",
                     help="only time the megakernel (see the module's note)")
-    ap.add_argument("--root", help="with --megakernel-ms: the checkout whose port is timed")
+    ap.add_argument("--kernel-ms", action="store_true",
+                    help="only time the W8A8 GEMM and the flash prefill (see the module's note)")
+    ap.add_argument("--root", help="with --megakernel-ms or --kernel-ms: another checkout "
+                                   "whose kernels are timed in turns with this one's")
     ap.add_argument("--models", nargs="+", default=["MISTRAL_7B", "QWEN3_8B"],
                     help="with --megakernel-ms: model presets")
     args = ap.parse_args(argv)
@@ -3149,18 +3476,23 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("error: no CUDA device (this smoke runs on the GPU only)", file=sys.stderr)
         return 2
-    root = os.path.abspath(args.root or os.path.dirname(os.path.abspath(__file__)))
-    if not os.path.isdir(os.path.join(root, "xalm_tpu_torch")):
-        print("error: run from a checkout of the repository (xalm_tpu_torch/ missing)",
-              file=sys.stderr)
-        return 2
-    sys.path.insert(0, root)
+    here = os.path.dirname(os.path.abspath(__file__))
+    other = os.path.abspath(args.root) if args.root else None
+    for r in filter(None, (here, other)):
+        if not os.path.isdir(os.path.join(r, "xalm_tpu_torch")):
+            print(f"error: {r} is not a checkout of the repository (xalm_tpu_torch/ missing)",
+                  file=sys.stderr)
+            return 2
+    sys.path.insert(0, here)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if args.megakernel_ms:
+    if args.megakernel_ms or args.kernel_ms:
         phase_device()
-        phase_build()
-        megakernel_ms(args.models)
+        with torch.inference_mode():
+            if args.megakernel_ms:
+                megakernel_ms(args.models, other)
+            else:
+                kernel_ms(other)
         return 0
 
     from xalm_tpu_torch.models.config import MISTRAL_7B, MIXTRAL_8X7B
@@ -3191,8 +3523,9 @@ def main(argv=None) -> int:
         phase_parity_fp8(cfg, cases)
     main_row = phase_main(params, cfg)
     quant_row = phase_main_quant(params, q4p, cfg)
+    long_row = phase_long_prompt(params, cfg)
     main_row["launches"] = {k: main_row["launches"][k] + quant_row["launches"][k]
-                            for k in main_row["launches"]}
+                            + long_row["launches"][k] for k in main_row["launches"]}
     del params, q4p
     torch.cuda.empty_cache()
     with torch.inference_mode():

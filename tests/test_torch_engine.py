@@ -20,7 +20,7 @@ from xalm_tpu.convert import convert as cvt
 from xalm_tpu.harness import main as jax_harness
 from xalm_tpu.runtime.engine import Engine as JaxEngine
 from xalm_tpu_torch.harness import main as port_harness
-from xalm_tpu_torch.runtime.engine import Engine
+from xalm_tpu_torch.runtime.engine import Engine, auto_kv_dtype
 
 import tests.torch_threads  # noqa: F401  (one intra-op thread per process)
 
@@ -131,6 +131,56 @@ def test_harness_perplexity_and_refusals(tiny_i8, capsys):
     for extra in (["--spec", "4"], ["--temperature", "0.7"], ["--tp", "2"]):
         with pytest.raises(SystemExit):
             port_harness.main([tiny_i8, "-d", "cpu", "-i", "x"] + extra)
+
+
+def test_harness_takes_top_k_and_top_p_greedily(tiny_i8, capsys):
+    """--top-k and --top-p filter sampling only: with the default
+    temperature 0 the run is greedy, the same text as without them (the JAX
+    harness's rule, engine.py's top_k acting only when temperature > 0)."""
+    args = [tiny_i8, "-d", "cpu", "-i", "hello world", "-n", "12", "-T", str(WINDOW)]
+    assert port_harness.main(args) == 0
+    want = _generated_text(capsys.readouterr().out)
+    assert port_harness.main(args + ["--top-k", "40", "--top-p", "0.9"]) == 0
+    assert _generated_text(capsys.readouterr().out) == want
+
+
+def test_harness_matmul_pallas_is_the_kernel_path(tiny_i8, capsys):
+    """--matmul pallas, the JAX harness's name for its kernel path, runs the
+    port's kernel path: the same text and decode path as --matmul kernel."""
+    args = [tiny_i8, "-d", "cpu", "-i", "the quick brown", "-n", "12", "-T", str(WINDOW)]
+    outs = []
+    for impl in ("pallas", "kernel"):
+        assert port_harness.main(args + ["--matmul", impl]) == 0
+        out = capsys.readouterr().out
+        assert "decode path: perlayer" in out
+        outs.append(_generated_text(out))
+    assert outs[0] == outs[1]
+
+
+REFUSED = {"profile": (["--profile"], "--profile"),
+           "coordinator": (["--coordinator", "localhost:1234"], "--coordinator"),
+           "num-processes": (["--num-processes", "2"], "--num-processes"),
+           "process-id": (["--process-id", "1"], "--process-id"),
+           "top-k-sampled": (["--top-k", "40", "--temperature", "0.7"], "--temperature")}
+
+
+@pytest.mark.parametrize("case", REFUSED)
+def test_harness_refuses_flags_that_change_the_output(tiny_i8, case):
+    """A JAX-harness flag of a later slice that would change the output is
+    refused by name before the model loads."""
+    extra, name = REFUSED[case]
+    with pytest.raises(SystemExit, match=name):
+        port_harness.main([tiny_i8, "-d", "cpu", "-i", "x"] + extra)
+
+
+@pytest.mark.parametrize("device,want", [("cuda", torch.bfloat16), ("cpu", torch.float16)])
+def test_harness_default_cache_dtype(device, want):
+    """-t defaults to auto, which the engine resolves to a bf16 cache on the
+    card (the kernels' type; the JAX harness's f16 would take the dense
+    attention there) and f16 on the CPU."""
+    args = port_harness._build_parser().parse_args(["m.xalm", "-d", device])
+    assert args.kv_dtype == "auto"
+    assert auto_kv_dtype(device) == want
 
 
 def _lines(out: str, keys: tuple[str, ...]) -> list[str]:

@@ -60,18 +60,35 @@
 //    the bytes of the bf16 cache). G in 1..8 and HD in {96, 128, 256}, as in
 //    2 (a lane holds 4 V codes, or 8 at HD 256).
 //
-// 5. xq_flash_prefill replaces _prefill_kernel. One block per (batch, kv
-//    head, q tile of tq = 64 / G whole positions x G heads: 64 rows, or
-//    for a group that does not divide 64 (G = 3, 5, 6, 7) the first tq * G
-//    of them, the rest zero and unwritten); four warps own 16 rows each. Loops over 64-key tiles up to the tile's causal limit
-//    (later tiles are skipped), S = Q.K^T on bf16 WMMA fragments with f32
-//    accumulation, the online softmax in f32 (each row's state in a lane
-//    pair), p cast to bf16 before P.V on WMMA, the output accumulator in
-//    registers (HD / 2 floats a lane: 128 of them at HD 256). HD in {96,
-//    128, 256} is a template parameter; the Q/K/V tiles and the staging take
-//    95 KB of dynamic shared memory at HD 128, 177 KB at HD 256 (one block
-//    an SM). Bound: operations at T = 512 (tensor cores), bytes at small T.
-//    Simple first: no TMA / wgmma / pipelining yet.
+// 5. xq_flash_prefill replaces _prefill_kernel (FlashAttention-3's shape,
+//    in its simple form; the Hopper pieces are hopper.cuh's). One block per
+//    (batch x kv head, 2 * 64 / G whole query positions): two warpgroups
+//    of 64 query rows each (row R = t_local * G + gi; for a group that does
+//    not divide 64, G = 3, 5, 6, 7, the last 64 mod G rows of each are
+//    padding, never written). A ring of 64-key K and V tiles, stages
+//    tiles ahead of the one being multiplied (the last warp done with a
+//    stage refills it, so no warp waits on another), is filled by TMA
+//    from the layer's (B * KH, S, hd) view (a 3-D tensor map: keys past S
+//    read as zeros, never the next stripe), in 64-column (128-byte
+//    swizzled) panels: hd 96 takes two, the second half zeros. Each
+//    warpgroup casts its Q rows to bf16 into the same swizzled layout, then
+//    per key tile up to the block's causal limit (later tiles are never
+//    loaded): S = Q . K^T by wgmma m64n64k16 from shared memory (both
+//    K-major: the cache rows are the B operand as they lie), the causal mask
+//    and the online softmax in f32 on the accumulator registers (a row's
+//    state in the 4 lanes that hold it), p cast to bf16 at the running max
+//    straight into the register A operand of the second wgmma, O += P . V
+//    (m64n{hd}k16, V MN-major through the transpose bit). The two
+//    warpgroups overlap each other (one's softmax, the other's products);
+//    within one the steps run in order: ptxas serialises the wgmmas
+//    (C7514) when the softmax reads S while P . V is in flight. O stays in
+//    registers (hd / 2 floats a thread: 128 at hd 256, with S and P more
+//    than the 168 a block with a producer warp allows: see PF_THREADS). No
+//    S, P or O passes through shared memory. Blocks start with the last
+//    (longest) query tiles so the causal tail does not idle SMs. Shared
+//    memory: Q and 3 stages, 128 KB at hd 96 and 128; Q and 2 stages, 193 KB
+//    at hd 256. Bound: operations at T = 512 (989 TFLOP/s bf16), bytes at
+//    small T.
 //
 // 5b. xq_flash_prefill over an f32 cache replaces _prefill_kernel with its
 //    f32 compute_dtype: nothing is rounded to bf16, so the bf16 WMMA tiles
@@ -81,13 +98,11 @@
 //    (67 TFLOP/s).
 
 #include <math.h>
-#include <mma.h>
 
 #include <type_traits>
 
 #include "common.cuh"
-
-using namespace nvcuda;
+#include "hopper.cuh"
 
 namespace {
 
@@ -533,157 +548,217 @@ __global__ void __launch_bounds__(FD_THREADS) flash_decode_q_split_kernel(
   }
 }
 
-constexpr int PF_ROWS = 64;  // query rows per block (tq positions x G heads)
+constexpr int PF_ROWS = 64;  // query rows of a warpgroup (of a block, f32 cache)
 constexpr int PF_KT = 64;    // keys per tile
-constexpr int LDP = PF_KT + 8;  // bf16 row stride of P
-constexpr int LDS = PF_KT + 4;  // f32 row stride of the staged scores
-// bf16 row stride of the Q/K/V tiles, f32 row stride of the staged P.V,
-// and the dynamic shared memory of a block, at head dim HD
+// two warpgroups a block and no producer warp: a ninth warp would put three
+// on one of the SM's four register files and cap every thread at 168
+// registers, short of hd 256's O tile (128 floats) with S and P beside it
+constexpr int PF_THREADS = 256;
+
+// 64-column (128-byte) panels of a row of hd bf16 values, ring stages, and
+// the dynamic shared memory of a block: Q (128 rows), the K and V tiles of
+// each stage, 2 barriers and a counter a stage, and the slack to align to 1024
 template <int HD>
-__host__ __device__ constexpr int pf_ldq() { return HD + 8; }
+__host__ __device__ constexpr int pf_panels() { return (HD + 63) / 64; }
 template <int HD>
-__host__ __device__ constexpr int pf_ldo() { return HD + 4; }
+__host__ __device__ constexpr int pf_stages() { return HD == 256 ? 2 : 3; }
 template <int HD>
 __host__ __device__ constexpr int pf_smem() {
-  return 3 * PF_ROWS * pf_ldq<HD>() * 2 + 4 * 16 * LDP * 2 + 4 * 16 * pf_ldo<HD>() * 4;
+  return pf_panels<HD>() * (2 * PF_ROWS * 128 + pf_stages<HD>() * 2 * PF_KT * 128) +
+         3 * pf_stages<HD>() * 8 + 1024;
+}
+
+// A block's query positions at GQA group g (two warpgroups of PF_ROWS / g
+// whole positions), a T-row chunk's blocks, and the first position of block
+// y: the longest tiles (the largest q0, the most visible keys) launch first,
+// so the causal tail does not leave SMs idle
+__host__ __device__ inline int pf_tq(int g) { return 2 * (PF_ROWS / g); }
+__host__ __device__ inline int pf_blocks(int T, int g) { return (T + pf_tq(g) - 1) / pf_tq(g); }
+__host__ __device__ inline int pf_q0(int T, int g, int y) {
+  return (pf_blocks(T, g) - 1 - y) * pf_tq(g);
 }
 
 template <int HD>
-__global__ void __launch_bounds__(128) flash_prefill_kernel(
-    const float* __restrict__ q, const __nv_bfloat16* __restrict__ ck,
-    const __nv_bfloat16* __restrict__ cv, const int* __restrict__ pos, float* __restrict__ out,
-    int T, int H, int KH, int S, float sm_scale) {
-  constexpr int PF_HD = HD, LDQ = pf_ldq<HD>(), LDO = pf_ldo<HD>(), HALF = HD / 2;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Ks = Qs + PF_ROWS * LDQ;
-  __nv_bfloat16* Vs = Ks + PF_KT * LDQ;
-  __nv_bfloat16* Ps = Vs + PF_KT * LDQ;
-  float* Os = reinterpret_cast<float*>(Ps + 4 * 16 * LDP);  // scores alias its front
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int b = blockIdx.x / KH, h = blockIdx.x % KH;
-  const int g = H / KH, tq = PF_ROWS / g;  // rows tq * g .. PF_ROWS - 1 stay empty
-  const int q0 = blockIdx.y * tq;
+__global__ void __launch_bounds__(PF_THREADS, 1) flash_prefill_kernel(
+    const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+    const float* __restrict__ q, const int* __restrict__ pos, float* __restrict__ out, int T,
+    int H, int KH, float sm_scale) {
+  constexpr int NP = pf_panels<HD>(), ST = pf_stages<HD>();
+  constexpr int QP = 2 * PF_ROWS * 128;  // bytes of a Q panel (the block's 128 rows)
+  constexpr int TP = PF_KT * 128;        // bytes of a K or V panel
+  constexpr int STAGE = 2 * NP * TP;     // K panels, then V panels
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* qs = xq_align1024(smem_raw);
+  unsigned char* kv = qs + NP * QP;
+  uint64_t* fullk = reinterpret_cast<uint64_t*>(kv + ST * STAGE);
+  uint64_t* fullv = fullk + ST;
+  int* released = reinterpret_cast<int*>(fullv + ST);  // warps done with each stage, ever
+  const int bh = blockIdx.x, b = bh / KH, h = bh % KH;
+  const int g = H / KH, tqw = PF_ROWS / g;  // whole positions of a warpgroup
+  const int q0 = pf_q0(T, g, blockIdx.y);
   const int pb = pos[b];
-  const size_t stripe = ((size_t)b * KH + h) * S * PF_HD;
-
-  // Q tile: row R = t_local * G + gi, cast to bf16; rows past T (a last,
-  // partial tile) and the rows past tq * g (a group that does not divide
-  // PF_ROWS) are zero and never written out
-  for (int c = tid; c < PF_ROWS * (PF_HD / 4); c += 128) {
-    const int R = c / (PF_HD / 4), col = (c % (PF_HD / 4)) * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (R < tq * g && q0 + R / g < T)
-      v = *reinterpret_cast<const float4*>(
-          q + (((size_t)b * T + q0 + R / g) * H + (size_t)h * g + R % g) * PF_HD + col);
-    __nv_bfloat16* d = Qs + R * LDQ + col;
-    d[0] = __float2bfloat16_rn(v.x);
-    d[1] = __float2bfloat16_rn(v.y);
-    d[2] = __float2bfloat16_rn(v.z);
-    d[3] = __float2bfloat16_rn(v.w);
+  const int kend = pb + min(q0 + 2 * tqw, T);  // keys >= kend are invisible to the block
+  const int ntiles = (kend + PF_KT - 1) / PF_KT;
+  // the copies of key tile j into stage j % ST (its previous tile released)
+  auto load = [&](int j) {
+    const int s = j % ST;
+    unsigned char* st = kv + s * STAGE;
+    xq_mbar_expect_tx(&fullk[s], NP * TP);
+    for (int p = 0; p < NP; ++p) xq_tma_3d(st + p * TP, &tk, 64 * p, j * PF_KT, bh, &fullk[s]);
+    xq_mbar_expect_tx(&fullv[s], NP * TP);
+    for (int p = 0; p < NP; ++p)
+      xq_tma_3d(st + (NP + p) * TP, &tv, 64 * p, j * PF_KT, bh, &fullv[s]);
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      xq_mbar_init(&fullk[s], 1);
+      xq_mbar_init(&fullv[s], 1);
+      released[s] = 0;
+    }
+    xq_mbar_fence_init();
+    for (int j = 0; j < ST && j < ntiles; ++j) load(j);
   }
+  __syncthreads();
 
-  // this lane's row of the warp's 16 and its half of the columns
-  const int r = lane >> 1, half = lane & 1;
-  const int R = warp * 16 + r;
-  const int qpos = pb + q0 + R / g;  // sees keys <= qpos
-  float m_run = -INFINITY, l_run = 0.f;
-  float o[HALF];
-#pragma unroll
-  for (int i = 0; i < HALF; ++i) o[i] = 0.f;
-  __nv_bfloat16* Pw = Ps + warp * 16 * LDP;
-  float* Ow = Os + warp * 16 * LDO;
-  const int kend = pb + min(q0 + tq, T);  // keys >= kend are invisible to the tile
-
-  for (int k0 = 0; k0 < kend; k0 += PF_KT) {
-    __syncthreads();  // the previous tile is consumed (and Q is in place)
-    for (int c = tid; c < PF_KT * (PF_HD / 8); c += 128) {
-      const int row = c / (PF_HD / 8), col = (c % (PF_HD / 8)) * 8;
-      const int key = k0 + row;
-      int4 kv = make_int4(0, 0, 0, 0), vv = make_int4(0, 0, 0, 0);
-      if (key < S) {
-        kv = *reinterpret_cast<const int4*>(ck + stripe + (size_t)key * PF_HD + col);
-        vv = *reinterpret_cast<const int4*>(cv + stripe + (size_t)key * PF_HD + col);
-      }
-      *reinterpret_cast<int4*>(Ks + row * LDQ + col) = kv;
-      *reinterpret_cast<int4*>(Vs + row * LDQ + col) = vv;
+  const int t = threadIdx.x % 128, c = threadIdx.x / 128, warp = t / 32, lane = t % 32;
+  // this warpgroup's 64 Q rows as bf16, 16-byte chunk ch of row r at chunk
+  // ch ^ (r % 8) of its panel row (the TMA's 128-byte swizzle)
+  unsigned char* qw = qs + c * PF_ROWS * 128;
+  constexpr int CH = HD / 8;
+  for (int i = t; i < PF_ROWS * CH; i += 128) {
+    const int r = i / CH, ch = i % CH, tl = r / g, tpos = q0 + c * tqw + tl;
+    float4 v0 = make_float4(0.f, 0.f, 0.f, 0.f), v1 = v0;
+    if (tl < tqw && tpos < T) {
+      const float* src = q + (((size_t)b * T + tpos) * H + (size_t)h * g + r % g) * HD + ch * 8;
+      v0 = *reinterpret_cast<const float4*>(src);
+      v1 = *reinterpret_cast<const float4*>(src + 4);
     }
-    __syncthreads();
+    *reinterpret_cast<uint4*>(qw + (ch / 8) * QP + r * 128 + (((ch % 8) ^ (r & 7)) * 16)) =
+        make_uint4(xq_bf16x2(v0.x, v0.y), xq_bf16x2(v0.z, v0.w), xq_bf16x2(v1.x, v1.y),
+                   xq_bf16x2(v1.z, v1.w));
+  }
+  xq_fence_proxy_async();  // the writes, before wgmma reads them
+  xq_bar_sync(1 + c, 128);
 
-    // S = Q_w . K^T (16 x 64), staged in the warp's O region
+  // this thread's rows 16 warp + lane / 4 + 8 hh of the warpgroup's 64
+  int qpos[2];
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
 #pragma unroll
-    for (int n = 0; n < PF_KT / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> sacc;
-      wmma::fill_fragment(sacc, 0.f);
+  for (int hh = 0; hh < 2; ++hh) qpos[hh] = pb + q0 + c * tqw + (16 * warp + lane / 4 + 8 * hh) / g;
+  float o[HD / 2];
 #pragma unroll
-      for (int kk = 0; kk < PF_HD; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> kb;
-        wmma::load_matrix_sync(a, Qs + warp * 16 * LDQ + kk, LDQ);
-        wmma::load_matrix_sync(kb, Ks + n * 16 * LDQ + kk, LDQ);
-        wmma::mma_sync(sacc, a, kb, sacc);
-      }
-      wmma::store_matrix_sync(Ow + n * 16, sacc, LDS, wmma::mem_row_major);
-    }
-    __syncwarp();
+  for (int j = 0; j < HD / 2; ++j) o[j] = 0.f;
+  const uint32_t qa = xq_smem(qw);
 
-    // online softmax in f32 for (row r, keys half*32 .. +32)
-    const float* srow = Ow + r * LDS + half * 32;
-    float sv[32];
-    float mt = -INFINITY;
+  for (int it = 0; it < ntiles; ++it) {
+    const int s = it % ST, ph = (it / ST) & 1, k0 = it * PF_KT;
+    const uint32_t ka = xq_smem(kv + s * STAGE), va = ka + NP * TP;
+    float sc[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) sc[j] = 0.f;
+    xq_mbar_wait(&fullk[s], ph);
+    xq_fence_regs(sc);
+    xq_wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < HD / 16; ++ks)  // 16 values (32 bytes) of depth a step
+      xq_wgmma_bf16_ss_n64(sc, xq_desc(qa + (ks / 4) * QP + (ks % 4) * 32, 16, 1024),
+                           xq_desc(ka + (ks / 4) * TP + (ks % 4) * 32, 16, 1024));
+    xq_wgmma_commit();
+    xq_wgmma_wait<0>();
+    xq_fence_regs(sc);
+
+    // online softmax: element j is row hh = (j / 2) % 2, key k0 + 8 (j / 4) + 2 (lane % 4) + j % 2
+    float mt[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int j = 0; j < 32; ++j) {
-      const int key = k0 + half * 32 + j;
-      sv[j] = key <= qpos ? srow[j] * sm_scale : -INFINITY;
-      mt = fmaxf(mt, sv[j]);
+      const int hh = (j >> 1) & 1, key = k0 + 8 * (j >> 2) + 2 * (lane & 3) + (j & 1);
+      sc[j] = key <= qpos[hh] ? sc[j] * sm_scale : -INFINITY;
+      mt[hh] = fmaxf(mt[hh], sc[j]);
     }
-    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
-    const float m_new = fmaxf(m_run, mt);
-    const float alpha = m_new == -INFINITY ? 1.f : expf(m_run - m_new);
-    float psum = 0.f;
-    __nv_bfloat16* prow = Pw + r * LDP + half * 32;
+    float alpha[2], m_new[2], psum[2] = {0.f, 0.f};
 #pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const float p = sv[j] == -INFINITY ? 0.f : expf(sv[j] - m_new);
-      psum += p;
-      prow[j] = __float2bfloat16_rn(p);
+    for (int hh = 0; hh < 2; ++hh) {
+      mt[hh] = fmaxf(mt[hh], __shfl_xor_sync(0xffffffffu, mt[hh], 1));
+      mt[hh] = fmaxf(mt[hh], __shfl_xor_sync(0xffffffffu, mt[hh], 2));
+      m_new[hh] = fmaxf(m_run[hh], mt[hh]);
+      alpha[hh] = m_new[hh] == -INFINITY ? 1.f : expf(m_run[hh] - m_new[hh]);
     }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    l_run = l_run * alpha + psum;
-    m_run = m_new;
+    uint32_t pa[4][4];  // the P . V k-steps' A operands: keys 16 kk .. 16 kk + 15
 #pragma unroll
-    for (int i = 0; i < HALF; ++i) o[i] *= alpha;
-    __syncwarp();
+    for (int j = 0; j < 32; j += 2) {
+      const int hh = (j >> 1) & 1;
+      const float p0 = sc[j] == -INFINITY ? 0.f : expf(sc[j] - m_new[hh]);
+      const float p1 = sc[j + 1] == -INFINITY ? 0.f : expf(sc[j + 1] - m_new[hh]);
+      psum[hh] += p0 + p1;
+      pa[j >> 3][(j >> 1) & 3] = xq_bf16x2(p0, p1);
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      psum[hh] += __shfl_xor_sync(0xffffffffu, psum[hh], 1);
+      psum[hh] += __shfl_xor_sync(0xffffffffu, psum[hh], 2);
+      l_run[hh] = l_run[hh] * alpha[hh] + psum[hh];
+      m_run[hh] = m_new[hh];
+    }
+#pragma unroll
+    for (int j = 0; j < HD / 2; ++j) o[j] *= alpha[(j >> 1) & 1];
 
-    // P.V (16 x HD) on bf16 fragments, staged, then added to the registers
+    xq_mbar_wait(&fullv[s], ph);
+    xq_fence_regs(o);
+    xq_wgmma_fence();
 #pragma unroll
-    for (int n = 0; n < PF_HD / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> pacc;
-      wmma::fill_fragment(pacc, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < PF_KT; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> vb;
-        wmma::load_matrix_sync(a, Pw + kk, LDP);
-        wmma::load_matrix_sync(vb, Vs + kk * LDQ + n * 16, LDQ);
-        wmma::mma_sync(pacc, a, vb, pacc);
-      }
-      wmma::store_matrix_sync(Ow + n * 16, pacc, LDO, wmma::mem_row_major);
+    for (int kk = 0; kk < PF_KT / 16; ++kk) {  // V rows 16 kk ..: 16 keys of 128 bytes
+      const uint64_t dv = xq_desc(va + kk * 16 * 128, TP, 1024);
+      if constexpr (HD == 96) xq_wgmma_bf16_rs_n96(o, pa[kk], dv);
+      else if constexpr (HD == 128) xq_wgmma_bf16_rs_n128(o, pa[kk], dv);
+      else xq_wgmma_bf16_rs_n256(o, pa[kk], dv);
+    }
+    xq_wgmma_commit();
+    xq_wgmma_wait<0>();
+    xq_fence_regs(o);
+    // the last of the 8 warps done with this stage refills it with tile
+    // it + ST: no warp waits for another to free a stage
+    __syncwarp();
+    if (lane == 0 && it + ST < ntiles) {
+      __threadfence_block();
+      if (atomicAdd(&released[s], 1) == 8 * (it / ST) + 7) load(it + ST);
     }
     __syncwarp();
-    const float* orow = Ow + r * LDO + half * HALF;
-#pragma unroll
-    for (int i = 0; i < HALF; ++i) o[i] += orow[i];
-    __syncwarp();  // the next tile's scores overwrite Ow
   }
 
-  if (R >= tq * g || q0 + R / g >= T) return;
-  const float ldiv = l_run > 0.f ? l_run : 1.f;
-  float* dst = out + (((size_t)b * T + q0 + R / g) * H + (size_t)h * g + R % g) * PF_HD + half * HALF;
+  // O / l: element j is row hh = (j / 2) % 2, column 8 (j / 4) + 2 (lane % 4) + j % 2
 #pragma unroll
-  for (int i = 0; i < HALF; i += 4)
-    *reinterpret_cast<float4*>(dst + i) =
-        make_float4(o[i] / ldiv, o[i + 1] / ldiv, o[i + 2] / ldiv, o[i + 3] / ldiv);
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = 16 * warp + lane / 4 + 8 * hh, tl = r / g, tpos = q0 + c * tqw + tl;
+    if (tl >= tqw || tpos >= T) continue;
+    const float ldiv = l_run[hh] > 0.f ? l_run[hh] : 1.f;
+    float* dst = out + (((size_t)b * T + tpos) * H + (size_t)h * g + r % g) * HD + 2 * (lane & 3);
+#pragma unroll
+    for (int qq = 0; qq < HD / 8; ++qq)
+      *reinterpret_cast<float2*>(dst + 8 * qq) =
+          make_float2(o[4 * qq + 2 * hh] / ldiv, o[4 * qq + 2 * hh + 1] / ldiv);
+  }
+}
+
+// Flash prefill over a bf16 cache: tensor maps of the layer's K and V as
+// (B * KH, S, hd) (64-column boxes of 64 keys), then one block per (batch x
+// kv head, 2 * 64 / G positions), the last query tiles first
+template <int HD>
+cudaError_t launch_flash_prefill(const float* q, const __nv_bfloat16* ck, const __nv_bfloat16* cv,
+                                 const int* pos, float* out, int B, int T, int H, int KH, int S,
+                                 float sm_scale, cudaStream_t s) {
+  CUtensorMap tk, tv;
+  const uint64_t dims[3] = {(uint64_t)HD, (uint64_t)S, (uint64_t)B * KH};
+  const uint64_t strides[2] = {(uint64_t)HD * 2, (uint64_t)S * HD * 2};
+  const uint32_t box[3] = {64, PF_KT, 1};
+  if (!xq_tensor_map(&tk, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, ck, dims, strides, box) ||
+      !xq_tensor_map(&tv, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, cv, dims, strides, box))
+    return cudaErrorInvalidConfiguration;
+  cudaError_t e = xq_allow_smem(flash_prefill_kernel<HD>, pf_smem<HD>());
+  if (e != cudaSuccess) return e;
+  const dim3 grid(B * KH, pf_blocks(T, H / KH));
+  flash_prefill_kernel<HD><<<grid, PF_THREADS, pf_smem<HD>(), s>>>(tk, tv, q, pos, out, T, H, KH,
+                                                            sm_scale);
+  return cudaGetLastError();
 }
 
 // The f32-cache prefill: the row layout, causal limit and online softmax of
@@ -911,13 +986,13 @@ XQ_EXPORT int xq_flash_decode(const void* q, const void* ck, const void* cv, con
 XQ_EXPORT int xq_flash_prefill(const void* q, const void* ck, const void* cv, const void* pos,
                                void* out, int B, int T, int H, int KH, int S, int hd,
                                float sm_scale, int f32, void* stream) {
-  if (KH < 1 || H % KH != 0 || H / KH > FD_MAX_G) return (int)cudaErrorInvalidValue;
-  const int tq = PF_ROWS / (H / KH);
-  const dim3 grid(B * KH, (T + tq - 1) / tq);
+  if (KH < 1 || H % KH != 0 || H / KH > FD_MAX_G || T < 1) return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   return (int)for_head_dim(hd, [&](auto d) {
     constexpr int HD = decltype(d)::value;
     if (f32) {
+      const int tq = PF_ROWS / (H / KH);
+      const dim3 grid(B * KH, (T + tq - 1) / tq);
       cudaError_t e = xq_allow_smem(flash_prefill_f32_kernel<HD>, pf32_smem<HD>());
       if (e != cudaSuccess) return e;
       flash_prefill_f32_kernel<HD><<<grid, 256, pf32_smem<HD>(), s>>>(
@@ -925,12 +1000,25 @@ XQ_EXPORT int xq_flash_prefill(const void* q, const void* ck, const void* cv, co
           KH, S, sm_scale);
       return cudaGetLastError();
     }
-    cudaError_t e = xq_allow_smem(flash_prefill_kernel<HD>, pf_smem<HD>());
-    if (e != cudaSuccess) return e;
-    flash_prefill_kernel<HD><<<grid, 128, pf_smem<HD>(), s>>>(
-        (const float*)q, (const __nv_bfloat16*)ck, (const __nv_bfloat16*)cv, (const int*)pos,
-        (float*)out, T, H, KH, S, sm_scale);
-    return cudaGetLastError();
+    return launch_flash_prefill<HD>((const float*)q, (const __nv_bfloat16*)ck,
+                                    (const __nv_bfloat16*)cv, (const int*)pos, (float*)out, B, T,
+                                    H, KH, S, sm_scale, s);
+  });
+}
+
+// xq_flash_prefill's blocks over a bf16 cache for a T-row chunk: *tq
+// query positions a block, q0s[y] the first position of block y for each
+// of the chunk's blocks (at most cap); cudaErrorInvalidValue for a shape it
+// refuses. ops/attention.py's prefill_plan is held to it on the card.
+XQ_EXPORT int xq_flash_prefill_plan(int T, int H, int KH, int hd, void* tq, void* q0s, int cap) {
+  if (KH < 1 || H % KH != 0 || H / KH < 1 || H / KH > FD_MAX_G || T < 1)
+    return (int)cudaErrorInvalidValue;
+  return (int)for_head_dim(hd, [&](auto) {
+    const int g = H / KH, n = pf_blocks(T, g);
+    if (n > cap) return cudaErrorInvalidValue;
+    *(int*)tq = pf_tq(g);
+    for (int y = 0; y < n; ++y) ((int*)q0s)[y] = pf_q0(T, g, y);
+    return cudaSuccess;
   });
 }
 

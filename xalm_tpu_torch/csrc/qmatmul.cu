@@ -85,19 +85,31 @@
 // below 2^31), scaled in f32 once complete and summed in group order, so
 // the result is bit-equal to the plain version.
 //
-// xq_qmatmul_a8 (W8A8, the 512-row prefill chunks): bound by operations at
-// M = 512 (1979 dense s8 TOP/s). Design: a 64x64-output-tile GEMM on s8
-// WMMA fragments (16x16x16, int32 accumulators: K * 127^2 = 2.3e8 < 2^31
-// at K = 14336, exact), tiles staged in shared memory as 16-column slices
-// so each fragment starts 32-byte aligned; the epilogue turns the sum to
-// f32, multiplies by the weight's row scale (or the q8 1/100) and then by
-// x's row scale, each rounded on its own: bit-equal to the plain version.
-// Simple first, like the bf16 GEMM: no TMA, no wgmma, no pipelining.
+// xq_qmatmul_a8 (W8A8, the 256- and 512-row prefill chunks): bound by
+// operations at M = 512 (1979 dense s8 TOP/s; w2: 0.030 ms, w13: 0.061).
+// quant_x_kernel writes x's codes, then gemm_a8_kernel, warp-specialised on
+// the Hopper machinery of hopper.cuh: a producer warp keeps a ring of
+// STAGES shared-memory stages full by TMA (a 128-row x-code box and a
+// BN-row weight box, 128 bytes of depth each, 128-byte swizzle, zeros past
+// M, D and K: the ragged edges need no branch in the main loop), and two
+// consumer warpgroups each multiply their 64 x rows by the BN weight rows
+// with wgmma m64n128k32 s8 x s8 -> s32 from shared memory (four k-steps a
+// stage; both operands K-major, as s8 wgmma requires), the int32 sums in
+// registers (exact: K * 127^2 = 2.3e8 < 2^31 at K = 14336). The epilogue
+// turns each sum to f32 and multiplies by the weight's row scale (or the q8
+// 1/100) and then by x's row scale, each product rounded on its own:
+// bit-equal to the plain version. Tiles: 128 x 128 outputs, or 128 x 256
+// where that still gives every SM of the card a block (w13, not w2 or wo:
+// D = 4096 at 128 x 256 would give M = 512 only 64 blocks on an H100's
+// 132); blocks walk the M tiles of one weight tile first, so each weight
+// tile streams from device memory once and is reused from L2 (a8_plan
+// below; xq_qmatmul_a8_plan reports it). K must be a multiple of 64.
 
 #include <math.h>
 #include <mma.h>
 
 #include "gemv.cuh"
+#include "hopper.cuh"
 
 using namespace nvcuda;
 
@@ -542,69 +554,149 @@ __global__ void __launch_bounds__(GV_THREADS) qmatmul_multi_q4_kernel(
   }
 }
 
-constexpr int AM = 64, AN = 64, AK = 64;  // W8A8 tile: x rows, output columns, depth
-constexpr int AKS = AK / 16;               // 16-column slices of a tile
-constexpr int LDC8 = AN + 4;
+// W8A8 tiles: x rows a block (two consumer warpgroups of 64), bytes of
+// depth a stage (one 128-byte swizzle row), the weight rows of a wgmma and
+// the K granule the wrappers require
+constexpr int A8_BM = 128, A8_BK = 128, A8_WN = 128, A8_KSTEP = 64;
+// the block: two consumer warpgroups (threads 0..255, warpgroup-aligned as
+// wgmma requires) and a producer warp (256..287). Nine warps put three on
+// one of the SM's four register files, which caps a thread at 168
+// registers (setmaxnreg does not lift ptxas's allocation): room for the
+// 128 x 256 tile's 128 accumulators a thread
+constexpr int A8_CONSUMERS = 256, A8_THREADS = A8_CONSUMERS + 32;
 
-__global__ void __launch_bounds__(128) gemm_a8_kernel(
-    const int8_t* __restrict__ xq, const float* __restrict__ sx, const int8_t* __restrict__ w,
-    const float* __restrict__ scale, float qscale, float* __restrict__ y, int M, int N, int D) {
-  __shared__ __align__(128) signed char As[AKS][AM][16];  // slice, x row, 16 codes
-  __shared__ __align__(128) signed char Bs[AKS][AN][16];  // slice, weight row, 16 codes
-  __shared__ __align__(128) int Cs[AM * LDC8];
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int wm = warp >> 1, wn = warp & 1;  // 2x2 warps, 32x32 outputs each
-  const int m0 = blockIdx.y * AM, d0 = blockIdx.x * AN;
+template <int BN>
+__host__ __device__ constexpr int a8_stages() { return BN == 256 ? 4 : 5; }
+template <int BN>
+__host__ __device__ constexpr int a8_smem() {
+  // the ring, its 2 * STAGES barriers, and the slack to align it to 1024
+  return a8_stages<BN>() * (A8_BM + BN) * A8_BK + 2 * a8_stages<BN>() * 8 + 1024;
+}
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0);
-
-  for (int k0 = 0; k0 < N; k0 += AK) {
-    for (int c = tid; c < AM * AKS; c += 128) {  // 64 rows x 4 slices of 16 bytes, each side
-      const int row = c / AKS, ks = c % AKS;
-      int4 v = make_int4(0, 0, 0, 0);
-      if (m0 + row < M) v = *reinterpret_cast<const int4*>(xq + (size_t)(m0 + row) * N + k0 + ks * 16);
-      *reinterpret_cast<int4*>(&As[ks][row][0]) = v;
-      int4 u = make_int4(0, 0, 0, 0);
-      if (d0 + row < D) u = __ldg(reinterpret_cast<const int4*>(w + (size_t)(d0 + row) * N + k0 + ks * 16));
-      *reinterpret_cast<int4*>(&Bs[ks][row][0]) = u;
+// Block (m tile, weight tile) of y = (xq . w^T) * epi * sx. Warpgroups 0
+// and 1 consume: warpgroup c multiplies x rows 64 c .. 64 c + 63 of the tile
+// by all BN weight rows, BN / 128 wgmma n128 products a k-step; warp 8
+// produces (one thread issues the copies).
+template <int BN>
+__global__ void __launch_bounds__(A8_THREADS, 1) gemm_a8_kernel(
+    const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
+    const float* __restrict__ sx, const float* __restrict__ scale, float qscale,
+    float* __restrict__ y, int M, int N, int D) {
+  constexpr int STAGES = a8_stages<BN>(), NB = BN / A8_WN;
+  constexpr int A_BYTES = A8_BM * A8_BK, STAGE = (A8_BM + BN) * A8_BK;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = xq_align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * STAGE);
+  uint64_t* empty = full + STAGES;
+  const int m0 = blockIdx.x * A8_BM, d0 = blockIdx.y * BN;
+  const int KT = (N + A8_BK - 1) / A8_BK;  // a last half stage reads zeros past K
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      xq_mbar_init(&full[s], 1);
+      xq_mbar_init(&empty[s], 8);  // each consumer warp releases a stage once
     }
-    __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < AKS; ++ks) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::col_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) wmma::load_matrix_sync(a[i], &As[ks][wm * 32 + i * 16][0], 16);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::load_matrix_sync(b[j], &Bs[ks][wn * 32 + j * 16][0], 16);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+    xq_mbar_fence_init();
   }
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * LDC8 + wn * 32 + j * 16, acc[i][j], LDC8,
-                              wmma::mem_row_major);
   __syncthreads();
-  for (int idx = tid; idx < AM * AN; idx += 128) {
-    const int r = idx / AN, c = idx % AN;
-    const int m = m0 + r, d = d0 + c;
-    if (m < M && d < D) {
-      float v = (float)Cs[r * LDC8 + c];
-      if (scale != nullptr) v = __fmul_rn(v, scale[d]);
-      else if (qscale != 0.f) v = __fmul_rn(v, qscale);
-      y[(size_t)m * D + d] = __fmul_rn(v, sx[m]);
+
+  if (threadIdx.x >= A8_CONSUMERS) {
+    if (threadIdx.x == A8_CONSUMERS) {
+      for (int kt = 0; kt < KT; ++kt) {
+        const int s = kt % STAGES;
+        if (kt >= STAGES) xq_mbar_wait(&empty[s], (kt / STAGES - 1) & 1);
+        unsigned char* st = ring + s * STAGE;
+        xq_mbar_expect_tx(&full[s], STAGE);
+        xq_tma_2d(st, &tx, kt * A8_BK, m0, &full[s]);
+        xq_tma_2d(st + A_BYTES, &tw, kt * A8_BK, d0, &full[s]);
+      }
+    }
+  } else {
+    const int c = threadIdx.x / 128, warp = threadIdx.x % 128 / 32, lane = threadIdx.x % 32;
+    int acc[NB][64];
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int j = 0; j < 64; ++j) acc[nb][j] = 0;
+    for (int kt = 0; kt < KT; ++kt) {
+      const int s = kt % STAGES;
+      xq_mbar_wait(&full[s], (kt / STAGES) & 1);
+      const uint32_t a = xq_smem(ring + s * STAGE + c * 64 * A8_BK);
+      const uint32_t b = xq_smem(ring + s * STAGE + A_BYTES);
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) xq_fence_regs(acc[nb]);
+      xq_wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < A8_BK / 32; ++k)
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb)
+          xq_wgmma_s8_ss_n128(acc[nb], xq_desc(a + 32 * k, 16, 1024),
+                              xq_desc(b + nb * A8_WN * A8_BK + 32 * k, 16, 1024));
+      xq_wgmma_commit();
+      xq_wgmma_wait<1>();  // the previous stage's products are done: release it
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) xq_fence_regs(acc[nb]);
+      if (kt > 0 && lane == 0) xq_mbar_arrive(&empty[(kt - 1) % STAGES]);
+    }
+    xq_wgmma_wait<0>();
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) xq_fence_regs(acc[nb]);
+
+    // epilogue: element j of acc[nb] is row 16 warp + lane / 4 + 8 ((j / 2) % 2),
+    // column 128 nb + 8 (j / 4) + 2 (lane % 4) + j % 2 of the warpgroup's tile
+    const int ra = m0 + c * 64 + warp * 16 + lane / 4;
+    const bool pairs = (D & 1) == 0;  // float2 stores: (m * D + d) stays even
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = ra + 8 * h;
+      if (m >= M) continue;
+      const float sm = sx[m];
+      float* yr = y + (size_t)m * D;
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+        for (int q = 0; q < 16; ++q) {
+          const int d = d0 + nb * A8_WN + 8 * q + 2 * (lane % 4);
+          if (d >= D) continue;
+          float v[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            v[e] = (float)acc[nb][4 * q + 2 * h + e];
+            const int de = d + e < D ? d + e : d;
+            if (scale != nullptr) v[e] = __fmul_rn(v[e], scale[de]);
+            else if (qscale != 0.f) v[e] = __fmul_rn(v[e], qscale);
+            v[e] = __fmul_rn(v[e], sm);
+          }
+          if (pairs) {
+            *reinterpret_cast<float2*>(yr + d) = make_float2(v[0], v[1]);
+          } else {
+            yr[d] = v[0];
+            if (d + 1 < D) yr[d + 1] = v[1];
+          }
+        }
     }
   }
+}
+
+// W8A8 launch: the tensor maps of x's codes (M, N) and the weights (D, N),
+// 128-byte boxes of 128 rows and of BN rows, then the grid of (m tiles,
+// weight tiles), the m tiles first
+template <int BN>
+cudaError_t launch_gemm_a8(const int8_t* xq, const float* sx, const int8_t* w,
+                           const float* scale, float qscale, float* y, int M, int N, int D,
+                           cudaStream_t s) {
+  CUtensorMap tx, tw;
+  const uint64_t xdims[2] = {(uint64_t)N, (uint64_t)M}, wdims[2] = {(uint64_t)N, (uint64_t)D};
+  const uint64_t stride[1] = {(uint64_t)N};
+  const uint32_t xbox[2] = {A8_BK, A8_BM}, wbox[2] = {A8_BK, BN};
+  if (!xq_tensor_map(&tx, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, xq, xdims, stride, xbox) ||
+      !xq_tensor_map(&tw, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, w, wdims, stride, wbox))
+    return cudaErrorInvalidConfiguration;
+  cudaError_t e = xq_allow_smem(gemm_a8_kernel<BN>, a8_smem<BN>());
+  if (e != cudaSuccess) return e;
+  const dim3 grid((M + A8_BM - 1) / A8_BM, (D + BN - 1) / BN);
+  gemm_a8_kernel<BN>
+      <<<grid, A8_THREADS, a8_smem<BN>(), s>>>(tx, tw, sx, scale, qscale, y, M, N, D);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -637,22 +729,57 @@ XQ_EXPORT int xq_qmatmul_q4(const void* x, const void* w, const void* scale, voi
   return (int)cudaSuccess;
 }
 
+namespace {
+
+// The W8A8 GEMM's blocks for x (M, N) by w (D, N) on a card of `sms` SMs:
+// plan = {weight rows a block, blocks along M, blocks along D}. 128 x 256
+// tiles where they still give every SM a block, else 128 x 128. False for
+// a shape the kernel does not take.
+bool a8_plan(int M, int N, int D, int sms, int* plan) {
+  if (M < 1 || D < 1 || N < A8_KSTEP || N % A8_KSTEP != 0) return false;
+  const int mt = (M + A8_BM - 1) / A8_BM;
+  plan[0] = mt * ((D + 255) / 256) >= sms ? 256 : 128;
+  plan[1] = mt;
+  plan[2] = (D + plan[0] - 1) / plan[0];
+  return true;
+}
+
+// the current device's SMs
+int device_sms() {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms;
+}
+
+}  // namespace
+
 // W8A8 matmul: x (M, N) f32, w one layer's (D, N) int8 rows, scale its (D)
 // f32 row scales or null (then qscale, or 1 where qscale is 0), xq/sx
-// scratch as above, y (M, D) f32.
+// scratch as above, y (M, D) f32. Blocks as xq_qmatmul_a8_plan gives them.
 XQ_EXPORT int xq_qmatmul_a8(const void* x, const void* w, const void* scale, float qscale,
                             void* xq, void* sx, void* y, int M, int N, int D, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  if (M < 1 || D < 1 || N < AK || N % AK != 0) return (int)cudaErrorInvalidValue;
+  int plan[3];
+  if (!a8_plan(M, N, D, device_sms(), plan)) return (int)cudaErrorInvalidValue;
   auto* codes = (int8_t*)xq;
   auto* rs = (float*)sx;
   quant_x_kernel<<<M, 256, 0, s>>>((const float*)x, codes, rs, N);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((D + AN - 1) / AN, (M + AM - 1) / AM);
-  gemm_a8_kernel<<<grid, 128, 0, s>>>(codes, rs, (const int8_t*)w, (const float*)scale, qscale,
-                                      (float*)y, M, N, D);
-  return (int)cudaGetLastError();
+  const auto* wq = (const int8_t*)w;
+  const auto* sc = (const float*)scale;
+  if (plan[0] == 256)
+    return (int)launch_gemm_a8<256>(codes, rs, wq, sc, qscale, (float*)y, M, N, D, s);
+  return (int)launch_gemm_a8<128>(codes, rs, wq, sc, qscale, (float*)y, M, N, D, s);
+}
+
+// xq_qmatmul_a8's blocks on the current device: plan (3 ints) = {weight
+// rows a block, blocks along M, blocks along D}; cudaErrorInvalidValue for
+// a shape it refuses. ops/qmatmul.py's a8_plan is held to it on the card.
+XQ_EXPORT int xq_qmatmul_a8_plan(int M, int N, int D, void* plan) {
+  return a8_plan(M, N, D, device_sms(), (int*)plan) ? (int)cudaSuccess
+                                                    : (int)cudaErrorInvalidValue;
 }
 
 // The weight types of kernels 1 and 8, as the wrappers pass them

@@ -16,7 +16,8 @@
                       f32 run the attention kernels (and the megakernel), i8 their
                       int8 forms, f16 the dense attention (the reference's routing)
       --compute <d>   matmul compute dtype of the plain paths: auto | f32 | bf16
-      --matmul <i>    auto (= kernel) | kernel | plain | xla
+      --matmul <i>    auto (= kernel) | kernel (= pallas, the JAX harness's name for
+                      its kernel path) | plain | xla
       --wcls-i8       re-code a float head to i8 per row at load; the decode
                       megakernel then runs the head in the same launch
       --q4 GROUP      pack the body weights to 4-bit at load, GROUP weights per
@@ -30,8 +31,18 @@ megakernel where it takes the model (i8 or q4 body, a bf16, f32 or int8
 cache, B <= 8, head_dim 128 or 256 on the card) and through the
 per-layer kernels otherwise (Phi-3's head_dim 96, MoE); the stats print
 which ("decode path: ..."). The
-JAX harness's --temperature, --spec, --draft, --session, --tp/--dp/--pp
-flags belong to later slices: they are accepted and refused with a message.
+parser takes every flag of the JAX harness. Those of later slices are
+refused with a message only where they would change the output:
+--temperature above 0 (sampling; --top-k and --top-p act only then, so
+without it they run greedily, as in the JAX harness), --spec/--draft,
+--session, --tp/--dp/--pp above 1, --profile, and the multi-host
+--coordinator, --num-processes and --process-id.
+
+``-t auto``, the default, is a bf16 cache on the card and f16 on the CPU
+(``runtime.engine.auto_kv_dtype``); the JAX harness defaults to f16
+everywhere, which on the card would take the dense attention on every
+chunk and step (no attention kernel or megakernel takes f16, in either
+package).
 """
 
 from __future__ import annotations
@@ -64,29 +75,44 @@ def _build_parser() -> argparse.ArgumentParser:
                         "scales)")
     p.add_argument("--compute", default="auto", choices=["auto", "f32", "bf16"],
                    help="matmul compute dtype of the plain paths")
-    p.add_argument("--matmul", default="auto", choices=["auto", "kernel", "plain", "xla"],
-                   help="per-layer implementation (auto = kernel)")
+    p.add_argument("--matmul", default="auto",
+                   choices=["auto", "kernel", "pallas", "plain", "xla"],
+                   help="per-layer implementation (auto = kernel; pallas, the JAX harness's "
+                        "kernel path, = kernel)")
     p.add_argument("--wcls-i8", action="store_true",
                    help="re-code a float head to i8 per row (the megakernel then runs it)")
     p.add_argument("--q4", type=int, default=0, metavar="GROUP",
                    help="pack the body weights to 4-bit at load with GROUP weights per scale "
                         "(a multiple of 128, e.g. 128); implies int8 activations in decode")
-    # JAX-harness flags of later slices: refused unless left at their defaults
+    # JAX-harness flags of later slices: refused where they would change the
+    # output (_refuse_later)
     p.add_argument("--temperature", type=float, default=0.0, help=argparse.SUPPRESS)
+    p.add_argument("--top-k", type=int, default=0, help=argparse.SUPPRESS)
+    p.add_argument("--top-p", type=float, default=1.0, help=argparse.SUPPRESS)
     p.add_argument("--spec", type=int, default=0, help=argparse.SUPPRESS)
     p.add_argument("--draft", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--profile", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--session", default=None, help=argparse.SUPPRESS)
     for flag in ("--tp", "--dp", "--pp"):
         p.add_argument(flag, type=int, default=1, help=argparse.SUPPRESS)
+    p.add_argument("--coordinator", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--num-processes", type=int, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--process-id", type=int, default=None, help=argparse.SUPPRESS)
     return p
 
 
 def _refuse_later(args) -> None:
+    """Exit on a flag of a later slice that would change the output; --top-k
+    and --top-p only filter sampling, so they pass with greedy decoding."""
     later = {
         "--temperature": args.temperature > 0,
         "--spec/--draft": args.spec or args.draft,
         "--session": args.session,
         "--tp/--dp/--pp": args.tp * args.dp * args.pp > 1,
+        "--profile": args.profile,
+        "--coordinator/--num-processes/--process-id": (
+            args.coordinator is not None or args.num_processes is not None
+            or args.process_id is not None),
     }
     for name, used in later.items():
         if used:
@@ -119,7 +145,7 @@ def _load_engine(args):
         context=args.context,
         kv_dtype=dt[args.kv_dtype],
         compute_dtype=dt[args.compute],
-        matmul_impl=args.matmul,
+        matmul_impl="kernel" if args.matmul == "pallas" else args.matmul,
         wcls_i8=args.wcls_i8,
         q4_group=args.q4,
         device=args.device,

@@ -59,8 +59,9 @@ __all__ = [
     "act_fn",
 ]
 
-# keys per tile of the plain prefill's online softmax: the kernel's PF_KT,
-# so that p is rounded to bf16 at the same running max on both sides
+# keys per tile of the plain prefill's online softmax: the bf16 kernel's
+# PF_KT at every head_dim, so that p is rounded to bf16 at the same running
+# max on both sides
 _PREFILL_KEYS = 64
 # key rows per chunk of the plain int8 flash-decode: the kernel's FD_CHUNK,
 # so that p * v_scale is rounded to bf16 at the same chunk max on both sides
@@ -285,6 +286,38 @@ def flash_prefill_plain(q, cache_k, cache_v, layer, pos) -> torch.Tensor:
     return out.reshape(b, kh, t, g, hd).permute(0, 2, 1, 3, 4).reshape(b, t, h * hd)
 
 
+# The bf16-cache flash prefill's blocks, as csrc/attention.cu launches them:
+# two consumer warpgroups of 64 query rows, each 64 // G whole positions;
+# the head dims it is built for, and the GQA groups
+PREFILL_WG_ROWS = 64
+HEAD_DIMS = (96, 128, 256)
+MAX_GROUP = 8
+
+
+def prefill_check(t: int, g: int, hd: int) -> None:
+    """Raises ValueError for a shape the bf16-cache flash prefill does not
+    take (hd outside 96, 128, 256; g outside 1..8; t < 1), before any
+    launch."""
+    _need(hd in HEAD_DIMS, "flash_prefill", f"head_dim {hd} (the kernel is built for "
+          f"{', '.join(map(str, HEAD_DIMS))})")
+    _need(1 <= g <= MAX_GROUP, "flash_prefill", f"GQA group {g} (1..{MAX_GROUP})")
+    _need(t >= 1, "flash_prefill", f"a chunk of {t} rows")
+
+
+def prefill_plan(t: int, g: int, hd: int) -> tuple[int, list[int]]:
+    """The flash prefill's blocks for a t-row chunk at GQA group g: (query
+    positions a block, the blocks' first positions in launch order). A block
+    holds 2 * (64 // g) whole positions (rows position * g + head; for a g
+    that does not divide 64 the last rows of each warpgroup stay empty), and
+    the blocks start last tile first, the tiles with the most visible keys
+    before the causal tail. The launcher's own plan is
+    ``xq_flash_prefill_plan``; the card's tests hold the two equal. Raises
+    as ``prefill_check``."""
+    prefill_check(t, g, hd)
+    tq = 2 * (PREFILL_WG_ROWS // g)
+    return tq, list(range(0, t, tq))[::-1]
+
+
 def flash_prefill(q, cache_k, cache_v, layer: int, pos) -> torch.Tensor:
     """Kernel 4 wrapper: q (B, T, H, hd) f32 rotated, pos (B,) int32 ->
     (B, T, H*hd) f32. The chunk must not wrap the ring."""
@@ -296,7 +329,9 @@ def flash_prefill(q, cache_k, cache_v, layer: int, pos) -> torch.Tensor:
     _, t, h, _ = q.shape
     _need(q.dtype == torch.float32 and q.shape == (b, t, h, hd) and q.is_contiguous(), what,
           "q must be contiguous (B, T, H, hd) f32")
+    _need(h % kh == 0, what, f"{h} query heads over {kh} kv heads")
     _vec_i32(what, pos, b, q.device)
+    prefill_check(t, h // kh, hd)
     out = torch.empty((b, t, h * hd), dtype=torch.float32, device=q.device)
     lib = build.load_library("attention")
     err = lib.xq_flash_prefill(

@@ -167,6 +167,8 @@ SIGNATURES = {
         "xq_qmatmul_q4": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
         # x, w, scale, qscale, xq, sx, y, M, N, D, stream
         "xq_qmatmul_a8": (_I, [_P, _P, _P, _F, _P, _P, _P, _I, _I, _I, _P]),
+        # M, N, D, plan (3 int32: weight rows a block, blocks along M, along D)
+        "xq_qmatmul_a8_plan": (_I, [_I, _I, _I, _P]),
     },
     "attention": {
         # ck, cv, knew, vnew, kv_pos, rotate, cexp, sexp, B, KH, S, hd, f32 (a float
@@ -178,6 +180,8 @@ SIGNATURES = {
         "xq_flash_decode": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P]),
         # q, ck, cv, pos, out, B, T, H, KH, S, hd, sm_scale, f32, stream
         "xq_flash_prefill": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P]),
+        # T, H, KH, hd, tq (1 int32), q0s (cap int32: block y's first position), cap
+        "xq_flash_prefill_plan": (_I, [_I, _I, _I, _I, _P, _P, _I]),
         # ck, cv, ks, vs, knew, vnew, kv_pos, rotate, cexp, sexp, B, KH, S, hd, stream
         "xq_kv_update_q": (_I, [_P] * 10 + [_I, _I, _I, _I, _P]),
         # q, ck, cv, ks, vs, kv_len, work, out, B, H, KH, S, hd, sm_scale, stream

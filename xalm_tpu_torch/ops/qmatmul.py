@@ -24,7 +24,8 @@ output by x's row scale last:
 
 - ``a8=True`` (W8A8, the prefill branch under ``a8_prefill``): int8 x times
   int8 W, exact int32 sums, then the weight's row scale or the q8 1/100,
-  then x's scale (``xq_qmatmul_a8``, an s8 tensor-core GEMM);
+  then x's scale (``xq_qmatmul_a8``: an s8 wgmma GEMM fed by a TMA ring,
+  tiled as ``a8_plan`` says; N a multiple of 64);
 - ``q4_group=g`` (packed q4, m < 256): per group of g codes an exact int32
   dot, times that (row, group)'s f32 scale, summed in f32 in group order,
   then x's scale (``xq_qmatmul_q4``, a GEMV over the packed rows).
@@ -82,6 +83,33 @@ def _kernel_kind(dtype: torch.dtype, what: str) -> int:
 def _counter(name: str, dtype: torch.dtype) -> str:
     """The launch counter of a kernel-1 or kernel-8 launch by weight dtype."""
     return name + ("_f32" if dtype == torch.float32 else "_fp8" if dtype in _FP8_KIND else "")
+
+
+# The W8A8 GEMM's tiling (csrc/qmatmul.cu's a8_plan): x rows a block and the
+# contraction granule it takes
+A8_TILE_M, A8_K_GRANULE = 128, 64
+
+
+def a8_check(m: int, k: int, d: int) -> None:
+    """Raises ValueError for a shape the W8A8 GEMM does not take (k not a
+    positive multiple of 64, m or d below 1), before any launch."""
+    _need(m >= 1 and d >= 1, f"W8A8 of {m} rows of x by {d} weight rows")
+    _need(k >= A8_K_GRANULE and k % A8_K_GRANULE == 0,
+          f"W8A8 takes a contraction width that is a multiple of {A8_K_GRANULE}, not {k}")
+
+
+def a8_plan(m: int, k: int, d: int, sms: int) -> tuple[int, int, int]:
+    """The W8A8 GEMM's blocks for x (m, k) times weights (d, k) on a card of
+    ``sms`` SMs: (weight rows a block, blocks along m, blocks along d).
+    128 x 256 output tiles where they still give every SM a block (w13's
+    28672 rows), else 128 x 128 (w2's and wo's 4096 would give 256 rows of
+    x only 32 blocks of 128 x 256). The launcher's own choice, which reads
+    the device's SM count, is ``xq_qmatmul_a8_plan``; the card's tests hold
+    the two equal. Raises as ``a8_check``."""
+    a8_check(m, k, d)
+    mt = -(-m // A8_TILE_M)
+    bn = 256 if mt * -(-d // 256) >= sms else 128
+    return bn, mt, -(-d // bn)
 
 
 def _check_quant_x(values, norm_w, q4_group: int, a8: bool, m: int) -> None:
@@ -254,6 +282,7 @@ def _qmatmul_quant_x(x, values, layer, scale, q8_scale, q4_group, a8, norm_w) ->
         build.LAUNCHES["qmatmul_q4"] += 1
         return y
     _need(n == nw, f"x {tuple(x.shape)} vs weights {tuple(values.shape)}")
+    a8_check(m, n, d)
     if scale is not None:
         _need(scale.dtype == torch.float32 and scale.shape == (l, d) and scale.is_contiguous()
               and scale.is_cuda, "scale must be contiguous (L, D) f32")

@@ -41,7 +41,7 @@ from xalm_tpu_torch.runtime.cache import KVCache
 from xalm_tpu_torch.sampler import sample_argmax, token_logprobs
 from xalm_tpu_torch.tokenizer import Tokenizer
 
-__all__ = ["Engine", "GenerationStats"]
+__all__ = ["Engine", "GenerationStats", "auto_kv_dtype"]
 
 _CHUNK_BUCKETS = (16, 32, 64, 128, 256, 512)
 # the caches of the JAX harness's -t: bf16 and f32 on kernels 2-4 (and the
@@ -74,6 +74,15 @@ class GenerationStats:
         return self.active_bytes / self.decode_s / 1e9 if self.decode_s > 0 else 0.0
 
 
+def auto_kv_dtype(device) -> torch.dtype:
+    """The cache dtype of ``kv_dtype="auto"`` (the harness's default ``-t``)
+    on ``device``: bf16 on the card, the attention kernels' and the
+    megakernel's type; f16 on the CPU, the JAX package's default (the JAX
+    harness's on every device: on the card f16 would take the dense
+    attention on every chunk and step)."""
+    return torch.bfloat16 if torch.device(device).type == "cuda" else torch.float16
+
+
 class Engine:
     def __init__(
         self,
@@ -98,7 +107,7 @@ class Engine:
         on_card = self.device.type == "cuda"
         # bf16 cache and matmul inputs on the card (the kernels' types);
         # the CPU keeps the JAX package's off-TPU defaults (f16 KV, f32)
-        self.kv_dtype = (torch.bfloat16 if on_card else torch.float16) if kv_dtype == "auto" else kv_dtype
+        self.kv_dtype = auto_kv_dtype(self.device) if kv_dtype == "auto" else kv_dtype
         self.compute_dtype = (
             (torch.bfloat16 if on_card else torch.float32) if compute_dtype == "auto" else compute_dtype
         )
