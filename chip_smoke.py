@@ -27,8 +27,9 @@ family models:
    layer by layer, where most rows must agree to f32 rounding and the a8
    body's control, the bf16 body, must fail that rule; then the f32
    cache's kernels (``phase_parity_f32_cache``: kernels 2-4 at Mistral's
-   shapes, at group 7 and at head_dim 256 and 96, the megakernel's i8, a8
-   and q4 bodies) and kernel 1's and 8's fp8 branch (``phase_parity_fp8``:
+   shapes, at group 7 and at head_dim 256 and 96, the prefill in split
+   TF32 on the tensor cores; the megakernel's i8, a8 and q4 bodies) and
+   kernel 1's and 8's fp8 branch (``phase_parity_fp8``:
    e4m3 and e5m2, w13 at M = 1 and 512);
 4. main path: ``Engine.generate`` at full Mistral-7B width (32 layers,
    random i8 weights from a seed): a 512-token prompt and 64 greedy tokens,
@@ -81,7 +82,8 @@ family models:
    shapes'), phase 5 at 2 layers and a 128-slot window with tokens and
    routing teacher-forced under the q4 body's int8-activation rule; Mistral-7B with an f32 body
    and head (28.5 GB, 32 layers): phase 3 for kernel 1's f32 branch
-   (``qmatmul_f32``, within 1e-5 of each row's max) and phase 4 per layer;
+   (``qmatmul_f32``: the f32 GEMV, and at M = 512 the split-TF32 GEMM;
+   within 1e-5 of each row's max) and phase 4 per layer;
    a 2-layer f32 Mixtral: phase 3 for kernel 8's f32 branch and a phase-4
    run; phase 5 for the f32 body; and f16 and f8_e4m3 containers at Mistral
    width (2 layers, written by the port's writer into build/) loaded by
@@ -96,12 +98,15 @@ case (B = 1, kv_len 520, the embed fold, a bf16 cache), on each model
 preset named (default Mistral-7B and Qwen3-8B) and each weight body
 (``megakernel_ms``). With ``--kernel-ms`` it runs none of them either: it
 builds only kernel 1's and the attention kernels' sources and times the
-W8A8 GEMM (w13 and w2 of Mistral-7B at M = 512 and 256, i8) and the
-bf16-cache flash prefill (T = 512 at positions 0 and 1024, at the shapes
-of Mistral-7B, Qwen2.5-7B, Gemma-7B and Phi-3-mini) through their C entry
-points, beside one PyTorch call (timed in the same turns: its spread is
-printed) and the bound (``kernel_ms``), cycling enough layers that each
-sweep of a case's operands is twice the card's L2. In both modes
+W8A8 GEMM and the split-TF32 f32 GEMM (w13 and w2 of Mistral-7B at M =
+512 and 256, i8 and f32 weights), the flash prefill over a bf16 and an
+f32 cache (T = 512 at positions 0 and 1024, at the shapes of Mistral-7B,
+Qwen2.5-7B, Gemma-7B and Phi-3-mini) and flash-decode (bf16 cache, kv_len
+777, the same shapes) through their C entry points, beside one PyTorch
+call (timed in the same turns: its spread is printed; its device time
+from torch.profiler beside) and the bound (``kernel_ms``), cycling enough
+layers that each sweep of a case's operands is twice the card's L2. In
+both modes
 ``--root`` names another checkout whose libraries are built too (from its
 own sources into its own build directory) and timed in turns with this
 one's in the same process (other, this, this, other), through this
@@ -132,6 +137,7 @@ import time
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_BF16 = 989e12  # dense tensor-core FLOP/s
 PEAK_F32 = 67e12  # f32 outside the tensor cores
+PEAK_TF32 = 494.7e12  # dense tensor-core TF32 FLOP/s: split TF32 takes three products a step
 PEAK_S8 = 1979e12  # dense tensor-core int8 OP/s
 SEED = 1234
 DEVICE = "cuda"  # where the phases run; main() goes on only when CUDA is there
@@ -372,8 +378,9 @@ def attention_cases(cfg, cases: Cases, gen, ck, cv, tag: str = "", label: str = 
     ``enable_gqa`` (q in the cache's type): flash_decode at kv_len 0, 1, 777
     and the window, flash_prefill of a 512-row chunk at positions 0 and
     1024. Layers cycle so every launch streams cold, SDPA's too. An f32 cache holds
-    flash_prefill to 1e-5 (``F32_CACHE_TOL``) and bounds it by the f32 FMA
-    peak: its dots run in f32, nothing rounded to bf16."""
+    flash_prefill to 1e-5 (``F32_CACHE_TOL``) and bounds it by its three TF32
+    products a step at PEAK_TF32 (split TF32: nothing rounded to bf16), the
+    f32 FMA bound beside."""
     import torch
     import torch.nn.functional as F
 
@@ -431,12 +438,13 @@ def attention_cases(cfg, cases: Cases, gen, ck, cv, tag: str = "", label: str = 
         # exact bf16 products differ in order; a score that moves by an f32
         # ulp can flip one bf16 rounding of p, by 2^-8 of a p that may
         # dominate its row: 2^-8 of the row's max
+        nbytes, flops = 2 * kend * kh * hd * elt + 2 * t * h * hd * 4, 4.0 * visible * h * hd
         cases.add("flash_prefill" + tag, f"T={t} pos={p0}{label}", got, want, hd,
                   F32_CACHE_TOL if f32 else 2.0 ** -8,
                   lambda: A.flash_prefill(q, ck, cv, next(layers), pos),
                   lambda: A.flash_prefill_plain(q, ck, cv, next(layers), pos),
-                  lib, 2 * kend * kh * hd * elt + 2 * t * h * hd * 4,
-                  4.0 * visible * h * hd, PEAK_F32 if f32 else PEAK_BF16)
+                  lib, nbytes, 3 * flops if f32 else flops, PEAK_TF32 if f32 else PEAK_BF16,
+                  extra={"bound_fma_ms": bound(nbytes, flops, PEAK_F32)[0]} if f32 else None)
 
 
 # why no library call stands beside the q4 GEMV
@@ -1239,7 +1247,8 @@ def phase_long_prompt(params, cfg) -> dict:
 # kernel-name fragments of the port's CUDA kernels, by wrapper (the chunk
 # combine kernel, shared by both flash-decodes, goes to the one the run uses)
 _PROFILE_GROUPS = {
-    "qmatmul": ("gemv_kernel", "gemm_kernel", "prep_x_kernel"),
+    "qmatmul": ("gemv_kernel", "gemm_kernel", "prep_x_kernel", "gemm_tf32x3_kernel",
+                "prep_x_tf32_kernel"),
     "qmatmul_q4": ("gemv_q4_kernel",),
     "qmatmul_a8": ("gemm_a8_kernel",),
     "quant_x": ("quant_x_kernel",),  # x's codes for qmatmul_q4 and qmatmul_a8
@@ -1247,7 +1256,7 @@ _PROFILE_GROUPS = {
     "qmatmul_multi_q4": ("qmatmul_multi_q4_kernel",),
     "kv_update": ("kv_update_kernel",),
     "flash_decode": ("flash_decode_split_kernel", "flash_decode_combine_kernel"),
-    "flash_prefill": ("flash_prefill_kernel", "flash_prefill_f32_kernel"),
+    "flash_prefill": ("flash_prefill_kernel", "flash_prefill_tf32x3_kernel"),
     "fused_decode": ("fused_decode_kernel",),
     "kv_update_q": ("kv_update_q_kernel",),
     "flash_decode_q": ("flash_decode_q_split_kernel",),
@@ -1266,7 +1275,7 @@ _WITNESSES = {
     "flash_decode_split_kernel": ("flash_decode", "flash_decode_f32"),
     "flash_decode_q_split_kernel": ("flash_decode_q",),
     "flash_prefill_kernel": ("flash_prefill",),
-    "flash_prefill_f32_kernel": ("flash_prefill_f32",),
+    "flash_prefill_tf32x3_kernel": ("flash_prefill_f32",),
     "kv_update_kernel": ("kv_update", "kv_update_f32"),
     "kv_update_q_kernel": ("kv_update_q",),
     "qmatmul_multi_kernel": ("qmatmul_multi", "qmatmul_multi_f32", "qmatmul_multi_fp8"),
@@ -2420,8 +2429,11 @@ F32_M512_CASE = "M=512 w13 f32"
 MULTI_F32_W13_CASE = "w13 f32, shared x, m=1, k=2 (2-layer stack)"
 MULTI_F32_W2_CASE = "w2 f32, per-expert x, m=1, k=2 (2-layer stack)"
 # f32 kernels against their plain versions: each output row within F32_TOL
-# of its max |plain| (the same f32 products, no bf16 rounding, summed in
-# another order; with the norm prologue the rms too); TF32 is off for the
+# of its max |plain|. The GEMV multiplies in f32 FMA; the tiled GEMM (M > 8
+# or x too wide for the GEMV) in split TF32 on the tensor cores, three TF32
+# products a step (each within about 2^-18 of the f32 product; against f64
+# as accurate as the f32 plain version: --kernel-ms), all summed in
+# another order, with the norm prologue the rms too. TF32 is off for the
 # plain versions and the library calls (F.linear), as main() sets it
 F32_TOL = 1e-5
 F32_WRAP_BODY = ("f32", "bfloat16", {}, False)
@@ -2638,8 +2650,9 @@ def phase_parity_f32(params, cfg, cases: Cases) -> None:
     widths, on the drawn f32 body (within F32_TOL of each output row's
     max): M = 1 wqkv and w13 with the norm prologue, wo, w2 and the f32 head
     (the GEMV, x staged as f32: 57 KB at w2's 14336 columns), M = 512 w13
-    (the tiled f32 GEMM). Library: ``F.linear`` in f32, TF32 off. Layers
-    cycle so every launch streams its weights cold."""
+    (the split-TF32 GEMM, bounded by its three TF32 products at PEAK_TF32,
+    the f32 FMA bound beside). Library: ``F.linear`` in f32, TF32 off.
+    Layers cycle so every launch streams its weights cold."""
     import torch
     import torch.nn.functional as F
 
@@ -2661,12 +2674,16 @@ def phase_parity_f32(params, cfg, cases: Cases) -> None:
         layers = itertools.cycle(range(values.shape[0]))
         lib_layers = itertools.cycle(range(values.shape[0]))
         lib = None if use_norm else (lambda: F.linear(x, values[next(lib_layers)]))
+        nbytes = d * n * 4 + m * n * 4 + m * d * 4 + (n * 4 if use_norm else 0)
+        flops, extra = 2.0 * m * n * d, {"library_null": NO_LIBRARY_NORM} if use_norm else {}
+        tiled = m > 8  # the split-TF32 GEMM: three TF32 products a step
+        if tiled:
+            extra["bound_fma_ms"] = bound(nbytes, flops, PEAK_F32)[0]
         cases.add("qmatmul_f32", name, got, want, d, F32_TOL,
                   lambda: qmatmul(x, values, next(layers), **kw),
                   lambda: qmatmul_plain(x, values, next(layers), **kw),
-                  lib, d * n * 4 + m * n * 4 + m * d * 4 + (n * 4 if use_norm else 0),
-                  2.0 * m * n * d, PEAK_F32,
-                  extra={"library_null": NO_LIBRARY_NORM} if use_norm else None)
+                  lib, nbytes, 3 * flops if tiled else flops, PEAK_TF32 if tiled else PEAK_F32,
+                  extra=extra or None)
 
     case("M=1 wqkv f32, norm prologue", 1, lp.wqkv, True)
     case(F32_W13_CASE, 1, lp.w13, True)
@@ -2901,7 +2918,9 @@ def phase_formats(cases: Cases) -> dict:
 # Kernels 2-4 and the megakernel over an f32 cache (their f32
 # instantiations), and kernel 1's and kernel 8's fp8 branch.
 
-F32_CACHE_TOL = 1e-5  # f32 flash-prefill: f32 values throughout, sums in another order
+# f32 flash-prefill: f32 values throughout, both products in split TF32
+# (each within about 2^-18 of the f32 product), sums in another order
+F32_CACHE_TOL = 1e-5
 # the shapes of kernels 2-4's f32 rows beside Mistral-7B's (config name,
 # case label); their planes hold the model's first 8 layers
 F32_CACHE_SHAPES = (("QWEN2_5_7B", " (Qwen2.5-7B shapes, G=7)"),
@@ -3124,13 +3143,10 @@ def kernels_line(cases: Cases, launches: dict) -> list[dict]:
     return kernels
 
 
-def kernel_device_ms(fn, frag: str, iters: int = 20) -> float | str:
-    """The device time of one launch of the kernels whose name holds
-    ``frag``, over ``iters`` calls of fn under torch.profiler (the session
-    primed as in ``phase_profile``); "not measured" unless the profile holds
-    a record of every launch."""
+def _device_profile(fn, iters: int):
+    """torch.profiler's record of ``iters`` calls of fn, the session primed
+    as in ``phase_profile`` (spin kernels, then a pause)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -3142,13 +3158,37 @@ def kernel_device_ms(fn, frag: str, iters: int = 20) -> float | str:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
+    return prof
+
+
+def _device_us(evt) -> float:
+    return getattr(evt, "self_device_time_total", None) or getattr(evt, "self_cuda_time_total", 0.0)
+
+
+def kernel_device_ms(fn, frag: str, iters: int = 20) -> float | str:
+    """The device time of one launch of the kernels whose name holds
+    ``frag``, over ``iters`` calls of fn under torch.profiler
+    (``_device_profile``); "not measured" unless the profile holds a record
+    of every launch."""
+    from torch.autograd import DeviceType
+
     us, n = 0.0, 0
-    for evt in prof.key_averages():
+    for evt in _device_profile(fn, iters).key_averages():
         if evt.device_type == DeviceType.CUDA and frag in evt.key:
-            us += getattr(evt, "self_device_time_total", None) or getattr(
-                evt, "self_cuda_time_total", 0.0)
+            us += _device_us(evt)
             n += evt.count
     return us / 1e3 / n if n == iters and us > 0 else "not measured"
+
+
+def call_device_ms(fn, iters: int = 20) -> float | str:
+    """The device time of one call of fn, every kernel (and copy or fill) it
+    launches, over ``iters`` calls under torch.profiler (the primes' spin
+    kernels left out); "not measured" unless the profile holds any."""
+    from torch.autograd import DeviceType
+
+    us = sum(_device_us(evt) for evt in _device_profile(fn, iters).key_averages()
+             if evt.device_type == DeviceType.CUDA and "spin_kernel" not in evt.key)
+    return us / 1e3 / iters if us > 0 else "not measured"
 
 
 def megakernel_ms(models, other_root: str | None) -> None:
@@ -3215,16 +3255,24 @@ def megakernel_ms(models, other_root: str | None) -> None:
           "case": "B=1 kv_len=520, embed fold", "ms": out})
 
 
-# --kernel-ms: the two TMA + wgmma kernels at the main path's shapes.
-# W8A8: (name, K, D) of Mistral-7B's w13 and w2 at M = 512 and 256, i8
+# --kernel-ms: the TMA-fed tensor-core kernels at the main path's shapes,
+# and flash-decode beside SDPA by device time.
+# W8A8 and the f32 GEMM: (name, K, D) of Mistral-7B's w13 and w2 at M = 512
+# and 256 (i8; f32 weights)
 KERNEL_MS_A8 = (("w13", 4096, 28672), ("w2", 14336, 4096))
 KERNEL_MS_A8_ROWS = (512, 256)
-# flash prefill: the model whose (group, head_dim) each case takes, T = 512
+# flash prefill (bf16 and f32 caches) and flash-decode (bf16 cache): the
+# model whose (group, head_dim) each case takes; the prefill T = 512
 KERNEL_MS_PREFILL = (("Mistral-7B", "MISTRAL_7B"), ("Qwen2.5-7B", "QWEN2_5_7B"),
                      ("Gemma-7B", "GEMMA_7B"), ("Phi-3-mini", "PHI3_MINI_4K"))
 KERNEL_MS_POS = (0, 1024)
+KERNEL_MS_DECODE_KV = 777  # phase 3's flash-decode case
 KERNEL_MS_MIN_LAYERS = 4  # layers cycled per call at the least (see _cold_layers)
-KERNEL_MS_FRAGS = ("gemm_a8_kernel", "flash_prefill_kernel")
+# the kernels' names, this tree's and (f32) the parent's: a fragment that
+# names the other tree's kernel reads "not measured"
+KERNEL_MS_FRAGS = ("gemm_a8_kernel", "flash_prefill_kernel", "gemm_tf32x3_kernel",
+                   "flash_prefill_tf32x3_kernel", "sgemm_kernel", "flash_prefill_f32_kernel",
+                   "flash_decode_split_kernel")
 
 
 def _build_module(root: str, tag: str):
@@ -3299,8 +3347,11 @@ def _in_turns(calls: dict, frags: tuple, library=None) -> dict:
     """Each of ``calls`` ({"this": fn, "other": fn} or {"this": fn}) timed
     by ``time_ms`` in turns (other, this, this, other; this, this alone),
     ``library`` (one PyTorch call of the same function) before each turn,
-    and each call's device time of the kernels whose names hold ``frags``
-    (``kernel_device_ms``)."""
+    each call's device time of the kernels whose names hold ``frags``
+    (``kernel_device_ms``; a fragment that names one tree's kernel reads
+    "not measured" in the other), and the device time of a whole call of
+    each and of the library (``call_device_ms``): event times include the
+    host's gaps between launches, device times do not."""
     order = ("other", "this", "this", "other") if "other" in calls else ("this", "this")
     runs = {tag: [] for tag in calls}
     lib_runs = []
@@ -3316,6 +3367,9 @@ def _in_turns(calls: dict, frags: tuple, library=None) -> dict:
     for tag, fn in calls.items():
         for frag in frags:
             row[f"{tag}_device_ms_{frag}"] = kernel_device_ms(fn, frag)
+        row[f"{tag}_device_ms"] = call_device_ms(fn)
+    if library is not None:
+        row["library_device_ms"] = call_device_ms(library)
     return row
 
 
@@ -3329,15 +3383,22 @@ def _cold_layers(bytes_per_call: int) -> int:
 
 
 def kernel_ms(other_root: str | None) -> None:
-    """The W8A8 GEMM (``xq_qmatmul_a8``) and the bf16-cache flash prefill
-    (``xq_flash_prefill``) of this checkout and, with ``--root``, of the
-    other one, through their C entry points (their signatures are the same
-    in both), each case timed in turns with one PyTorch call of the same
-    function (``torch._int_mm`` and the two scale multiplies; SDPA) by
-    ``_in_turns``, over calls that cycle ``_cold_layers`` layers; the device
-    time of the kernel (and of quant_x for W8A8) from torch.profiler; both
-    outputs held to this checkout's plain version (bit-equal; 2^-8 of each
-    row's max); the bound. Random data from the seed."""
+    """Kernel 1's W8A8 GEMM and f32 GEMM (``xq_qmatmul_a8``, ``xq_qmatmul``
+    with f32 weights), kernel 4 over a bf16 and an f32 cache
+    (``xq_flash_prefill``) and kernel 3 (``xq_flash_decode``, bf16 cache,
+    kv_len 777) of this checkout and, with ``--root``, of the other one,
+    through their C entry points (their signatures are the same in both),
+    each case timed in turns with one PyTorch call of the same function
+    (``torch._int_mm`` and the two scale multiplies; ``F.linear`` in f32,
+    TF32 off; SDPA) by ``_in_turns``, over calls that cycle
+    ``_cold_layers`` layers; the device times of the kernels, of a whole
+    call and of the library call from torch.profiler; each output held to
+    this checkout's plain version (W8A8 bit-equal; f32 GEMM, f32 prefill and
+    flash-decode 1e-5 of each row's max; bf16 prefill 2^-8), a miss raising,
+    and for the f32 kernels each tree's and the plain version's row error
+    against f64 (``f64_row_rel_err``); the bound (split TF32 at PEAK_TF32
+    for the f32 kernels, the f32 FMA bound beside). Random data from the
+    seed."""
     import ctypes
 
     import torch
@@ -3353,6 +3414,12 @@ def kernel_ms(other_root: str | None) -> None:
     dev = torch.device(DEVICE)
     stream = lambda: torch.cuda.current_stream(dev).cuda_stream  # noqa: E731
     gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+
+    def held(kernel, row, ok):
+        emit({"phase": "kernel_ms_case", "kernel": kernel, **row})
+        if not ok:
+            raise AssertionError(f"{kernel} {row['case']}: not within its tolerance of the plain "
+                                 f"version ({row.get('max_row_rel_err', row.get('bit_equal'))})")
 
     a8_rows = []
     for name, k, d in KERNEL_MS_A8:
@@ -3391,68 +3458,196 @@ def kernel_ms(other_root: str | None) -> None:
             row.update(_in_turns({tag: (lambda tag=tag: call(tag)) for tag in trees},
                                  ("gemm_a8_kernel", "quant_x_kernel"), lib))
             a8_rows.append(row)
-            emit({"phase": "kernel_ms_case", "kernel": "qmatmul_a8", **row})
-            if not exact["this"]:
-                raise AssertionError(f"qmatmul_a8 {row['case']}: not bit-equal to its plain "
-                                     "version")
+            held("qmatmul_a8", row, exact["this"])
         del w, scale
         torch.cuda.empty_cache()
 
-    pf_rows = []
-    t = 512
-    for label, preset in KERNEL_MS_PREFILL:
-        cfg = getattr(configs, preset)
-        kh, h, hd, s = cfg.n_kv_heads, cfg.n_heads, cfg.head_dim, cfg.max_seq_len
-        L = _cold_layers(2 * t * kh * hd * 2)  # the K and V rows of the first case (pos 0)
-        ck, cv = (torch.empty((L, 1, kh, s, hd), dtype=torch.bfloat16, device=dev)
-                  for _ in range(2))
-        for plane in (ck, cv):
-            for i in range(L):
-                plane[i].normal_(generator=gen)
-        for p0 in KERNEL_MS_POS:
-            q = torch.randn((1, t, h, hd), generator=gen, device=dev)
-            pos = torch.tensor([p0], dtype=torch.int32, device=dev)
-            outs = {tag: torch.empty((1, t, h * hd), device=dev) for tag in trees}
+    f32_rows = []
+    for name, k, d in KERNEL_MS_A8:
+        L = _cold_layers(d * k * 4)
+        w = torch.randn((L, d, k), generator=gen, device=dev) * 0.02
+        for m in KERNEL_MS_A8_ROWS:
+            x = torch.randn((m, k), generator=gen, device=dev)
+            xbs = {tag: torch.empty((libs[tag]["qmatmul"].xq_qmatmul_scratch(m, k, 2),),
+                                    dtype=torch.uint8, device=dev) for tag in trees}
+            ys = {tag: torch.empty((m, d), device=dev) for tag in trees}
             layer = {tag: itertools.cycle(range(L)) for tag in trees}
 
             def call(tag, i=None):
                 i = next(layer[tag]) if i is None else i
-                err = libs[tag]["attention"].xq_flash_prefill(
-                    q.data_ptr(), A._layer_ptr(ck, i), A._layer_ptr(cv, i), pos.data_ptr(),
-                    outs[tag].data_ptr(), 1, t, h, kh, s, hd, ctypes.c_float(1.0 / math.sqrt(hd)),
-                    0, stream())
-                build.check(err, f"{tag} xq_flash_prefill")
-            want = A.flash_prefill_plain(q, ck, cv, 1, pos)
-            rel = {}
+                err = libs[tag]["qmatmul"].xq_qmatmul(
+                    x.data_ptr(), None, ctypes.c_float(0.0), w.data_ptr() + i * d * k * 4, 2, None,
+                    ctypes.c_float(0.0), ys[tag].data_ptr(), xbs[tag].data_ptr(), m, k, d,
+                    stream())
+                build.check(err, f"{tag} xq_qmatmul f32")
+            want = qmatmul_plain(x, w, 1)
+            want64 = torch.matmul(x.double(), w[1].double().T)
+            rel, rel64 = {}, {"plain": _row_rel(want, want64, d)}
             for tag in trees:
                 call(tag, 1)
                 torch.cuda.synchronize()
-                rel[tag] = _row_rel(outs[tag], want, hd)
-            qb = q.to(torch.bfloat16).transpose(1, 2)
-            kend = p0 + t
-            mask = (torch.arange(kend, device=dev)[None, :]
-                    <= (p0 + torch.arange(t, device=dev))[:, None])
+                rel[tag] = _row_rel(ys[tag], want, d)
+                rel64[tag] = _row_rel(ys[tag], want64, d)
             lib_layer = itertools.cycle(range(L))
 
-            def lib(kend=kend, qb=qb, mask=mask):
-                i = next(lib_layer)
-                return F.scaled_dot_product_attention(
-                    qb, ck[i, :, :, :kend], cv[i, :, :, :kend], attn_mask=mask, enable_gqa=True)
-            visible = sum(p0 + i + 1 for i in range(t))
-            b_ms, b_by = bound(2 * kend * kh * hd * 2 + 2 * t * h * hd * 4, 4.0 * visible * h * hd,
-                               PEAK_BF16)
-            row = {"case": f"{label} G={h // kh} hd={hd} T={t} pos={p0}", "layers": L,
-                   "max_row_rel_err": rel, "bound_ms": b_ms, "bound_by": b_by}
+            def lib(x=x):
+                return F.linear(x, w[next(lib_layer)])
+            nbytes, flops = 4 * (d * k + m * k + m * d), 2.0 * m * k * d
+            b_ms, b_by = bound(nbytes, 3 * flops, PEAK_TF32)
+            row = {"case": f"M={m} {name} f32", "layers": L, "max_row_rel_err": rel,
+                   "f64_row_rel_err": rel64, "bound_ms": b_ms, "bound_by": b_by,
+                   "bound_fma_ms": bound(nbytes, flops, PEAK_F32)[0]}
             row.update(_in_turns({tag: (lambda tag=tag: call(tag)) for tag in trees},
-                                 ("flash_prefill_kernel",), lib))
-            pf_rows.append(row)
-            emit({"phase": "kernel_ms_case", "kernel": "flash_prefill", **row})
-            if not rel["this"] <= 2.0 ** -8:
-                raise AssertionError(f"flash_prefill {row['case']}: row error {rel['this']}")
-        del ck, cv
+                                 ("gemm_tf32x3_kernel", "sgemm_kernel", "prep_x"), lib))
+            f32_rows.append(row)
+            held("qmatmul_f32", row, rel["this"] <= F32_TOL)
+        del w
         torch.cuda.empty_cache()
+
+    pf_rows = {"bf16": [], "f32": []}
+    dec_rows = []
+    t = 512
+    for label, preset in KERNEL_MS_PREFILL:
+        cfg = getattr(configs, preset)
+        kh, h, hd, s = cfg.n_kv_heads, cfg.n_heads, cfg.head_dim, cfg.max_seq_len
+        for cache, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            elt = dt.itemsize
+            L = _cold_layers(2 * t * kh * hd * elt)  # the K and V rows of the first case (pos 0)
+            ck, cv = (torch.empty((L, 1, kh, s, hd), dtype=dt, device=dev) for _ in range(2))
+            for plane in (ck, cv):
+                for i in range(L):
+                    plane[i].normal_(generator=gen)
+            f32 = int(cache == "f32")
+            for p0 in KERNEL_MS_POS:
+                q = torch.randn((1, t, h, hd), generator=gen, device=dev)
+                pos = torch.tensor([p0], dtype=torch.int32, device=dev)
+                outs = {tag: torch.empty((1, t, h * hd), device=dev) for tag in trees}
+                layer = {tag: itertools.cycle(range(L)) for tag in trees}
+
+                def call(tag, i=None):
+                    i = next(layer[tag]) if i is None else i
+                    err = libs[tag]["attention"].xq_flash_prefill(
+                        q.data_ptr(), A._layer_ptr(ck, i), A._layer_ptr(cv, i), pos.data_ptr(),
+                        outs[tag].data_ptr(), 1, t, h, kh, s, hd,
+                        ctypes.c_float(1.0 / math.sqrt(hd)), f32, stream())
+                    build.check(err, f"{tag} xq_flash_prefill")
+                want = A.flash_prefill_plain(q, ck, cv, 1, pos)
+                want64 = _attention_f64(q, ck, cv, 1, pos) if f32 else None
+                rel, rel64 = {}, {"plain": _row_rel(want, want64, hd)} if f32 else {}
+                for tag in trees:
+                    call(tag, 1)
+                    torch.cuda.synchronize()
+                    rel[tag] = _row_rel(outs[tag], want, hd)
+                    if f32:
+                        rel64[tag] = _row_rel(outs[tag], want64, hd)
+                qb = q.to(dt).transpose(1, 2)
+                kend = p0 + t
+                mask = (torch.arange(kend, device=dev)[None, :]
+                        <= (p0 + torch.arange(t, device=dev))[:, None])
+                lib_layer = itertools.cycle(range(L))
+
+                def lib(kend=kend, qb=qb, mask=mask):
+                    i = next(lib_layer)
+                    return F.scaled_dot_product_attention(
+                        qb, ck[i, :, :, :kend], cv[i, :, :, :kend], attn_mask=mask,
+                        enable_gqa=True)
+                visible = sum(p0 + i + 1 for i in range(t))
+                nbytes, flops = 2 * kend * kh * hd * elt + 2 * t * h * hd * 4, 4.0 * visible * h * hd
+                b_ms, b_by = bound(nbytes, 3 * flops if f32 else flops,
+                                   PEAK_TF32 if f32 else PEAK_BF16)
+                row = {"case": f"{label} G={h // kh} hd={hd} T={t} pos={p0} {cache}", "layers": L,
+                       "max_row_rel_err": rel, "bound_ms": b_ms, "bound_by": b_by}
+                if f32:
+                    row["bound_fma_ms"] = bound(nbytes, flops, PEAK_F32)[0]
+                    row["f64_row_rel_err"] = rel64
+                frags = (("flash_prefill_tf32x3_kernel", "flash_prefill_f32_kernel") if f32
+                         else ("flash_prefill_kernel",))
+                row.update(_in_turns({tag: (lambda tag=tag: call(tag)) for tag in trees}, frags,
+                                     lib))
+                pf_rows[cache].append(row)
+                held("flash_prefill" + ("_f32" if f32 else ""), row,
+                     rel["this"] <= (F32_CACHE_TOL if f32 else 2.0 ** -8))
+            if cache == "bf16":  # kernel 3 over the same planes
+                dec_rows.append(_decode_turns(trees, libs, label, cfg, ck, cv, L, gen, held))
+            del ck, cv
+            torch.cuda.empty_cache()
     emit({"phase": "kernel_ms", "roots": _roots(trees), "qmatmul_a8": a8_rows,
-          "flash_prefill": pf_rows})
+          "qmatmul_f32": f32_rows, "flash_prefill": pf_rows["bf16"],
+          "flash_prefill_f32": pf_rows["f32"], "flash_decode": dec_rows})
+
+
+def _attention_f64(q, ck, cv, layer: int, pos):
+    """The causal attention of a chunk q (B, T, H, hd) over the cache's
+    layer, the chunk at [pos, pos + T), in f64 with a dense softmax: the
+    f32 kernels' and plain versions' yardstick of accuracy. -> (B, T, H *
+    hd) f64."""
+    import torch
+
+    kl, vl = ck[layer].double(), cv[layer].double()  # (B, KH, S, hd)
+    b, kh, _, hd = kl.shape
+    _, t, h, _ = q.shape
+    kend = int(pos.max()) + t
+    qg = q.double().reshape(b, t, kh, h // kh, hd).permute(0, 2, 3, 1, 4)  # (B, KH, G, T, hd)
+    sc = torch.matmul(qg, kl[:, :, None, :kend].transpose(-1, -2)) / math.sqrt(hd)
+    qpos = pos[:, None].long() + torch.arange(t, device=q.device)  # (B, T)
+    live = torch.arange(kend, device=q.device)[None, None, :] <= qpos[:, :, None]
+    p = torch.softmax(sc.masked_fill(~live[:, None, None], -math.inf), dim=-1)
+    o = torch.matmul(p, vl[:, :, None, :kend])  # (B, KH, G, T, hd)
+    return o.permute(0, 3, 1, 2, 4).reshape(b, t, h * hd)
+
+
+def _decode_turns(trees, libs, label, cfg, ck, cv, L, gen, held) -> dict:
+    """Kernel 3 (``xq_flash_decode``: the split kernel and the combine) at
+    kv_len KERNEL_MS_DECODE_KV, B = 1, over the bf16 planes of ``kernel_ms``
+    cycling their L layers, in turns with SDPA (``enable_gqa``, bf16 q) as
+    ``_in_turns`` times them, the device times beside the event times;
+    held to its plain version at 1e-5 of each row's max."""
+    import ctypes
+
+    import torch
+    import torch.nn.functional as F
+
+    from xalm_tpu_torch.ops import attention as A
+    from xalm_tpu_torch.ops import build
+
+    dev = torch.device(DEVICE)
+    kh, h, hd, s = cfg.n_kv_heads, cfg.n_heads, cfg.head_dim, cfg.max_seq_len
+    kvl = KERNEL_MS_DECODE_KV
+    q = torch.randn((1, h, hd), generator=gen, device=dev)
+    kv_len = torch.tensor([kvl], dtype=torch.int32, device=dev)
+    work = {tag: torch.empty((libs[tag]["attention"].xq_flash_decode_workspace(1, h, s, hd),),
+                             device=dev) for tag in trees}
+    outs = {tag: torch.empty((1, h * hd), device=dev) for tag in trees}
+    layer = {tag: itertools.cycle(range(L)) for tag in trees}
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def call(tag, i=None):
+        i = next(layer[tag]) if i is None else i
+        err = libs[tag]["attention"].xq_flash_decode(
+            q.data_ptr(), A._layer_ptr(ck, i), A._layer_ptr(cv, i), kv_len.data_ptr(),
+            work[tag].data_ptr(), outs[tag].data_ptr(), 1, h, kh, s, hd,
+            ctypes.c_float(1.0 / math.sqrt(hd)), 0, stream)
+        build.check(err, f"{tag} xq_flash_decode")
+    want = A.flash_decode_plain(q, ck, cv, 1, kv_len)
+    rel = {}
+    for tag in trees:
+        call(tag, 1)
+        torch.cuda.synchronize()
+        rel[tag] = _row_rel(outs[tag], want, hd)
+    qb = q.to(torch.bfloat16)[:, :, None]
+    lib_layer = itertools.cycle(range(L))
+
+    def lib():
+        i = next(lib_layer)
+        return F.scaled_dot_product_attention(qb, ck[i, :, :, :kvl], cv[i, :, :, :kvl],
+                                              enable_gqa=True)
+    b_ms, b_by = bound(2 * kvl * kh * hd * 2 + 2 * h * hd * 4, 4.0 * h * kvl * hd, PEAK_F32)
+    row = {"case": f"{label} G={h // kh} hd={hd} kv_len={kvl} bf16", "layers": L,
+           "max_row_rel_err": rel, "bound_ms": b_ms, "bound_by": b_by}
+    row.update(_in_turns({tag: (lambda tag=tag: call(tag)) for tag in trees},
+                         ("flash_decode_split_kernel", "flash_decode_combine_kernel"), lib))
+    held("flash_decode", row, rel["this"] <= 1e-5)
+    return row
 
 
 def main(argv=None) -> int:
@@ -3462,7 +3657,8 @@ def main(argv=None) -> int:
     ap.add_argument("--megakernel-ms", action="store_true",
                     help="only time the megakernel (see the module's note)")
     ap.add_argument("--kernel-ms", action="store_true",
-                    help="only time the W8A8 GEMM and the flash prefill (see the module's note)")
+                    help="only time the TMA-fed GEMMs, the flash prefill and flash-decode "
+                         "(see the module's note)")
     ap.add_argument("--root", help="with --megakernel-ms or --kernel-ms: another checkout "
                                    "whose kernels are timed in turns with this one's")
     ap.add_argument("--models", nargs="+", default=["MISTRAL_7B", "QWEN3_8B"],

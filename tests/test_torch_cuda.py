@@ -1371,16 +1371,28 @@ def test_qmatmul_multi_q4_64bit_offsets(dev):
     assert torch.equal(bad[1:], qmatmul_multi_plain(x, w, scale, one, q4_group=group))
 
 
-@pytest.mark.parametrize("m,n", [(1, 1024), (4, 1024), (8, 4096), (1, 14336), (4, 14336),
-                                 (100, 1024), (512, 2048)])
-def test_qmatmul_f32_matches_plain(dev, m, n):
+# (M, N, D): the GEMV (M <= 8 where x fits its shared memory) and the
+# tiled GEMM (M = 4 at N = 14336, where it does not; M from 9, the least the
+# forward sends it, to 512), D tails of the 128-row weight tile, N a
+# multiple of 4 but not of the 32-deep stage
+F32_MM_SHAPES = [(1, 1024, 1000), (4, 1024, 1000), (8, 4096, 1000), (1, 14336, 1000),
+                 (4, 14336, 1000), (100, 1024, 1000), (512, 2048, 1000), (9, 4096, 1000),
+                 (100, 1028, 1001), (512, 4096, 4096), (512, 2052, 130), (200, 14336, 257)]
+
+
+@pytest.mark.parametrize("m,n,d", F32_MM_SHAPES)
+def test_qmatmul_f32_matches_plain(dev, m, n, d):
     """Kernel 1's f32 branch against its plain version (f32 products, no
-    bf16 rounding), within 1e-5 of each output row's max: the same f32
-    products summed in another order. M = 1 at N = 14336 stages 57 KB of x
-    (past the 48 KB opt-in); M = 4 at 14336 and M >= 100 take the tiled f32
-    GEMM."""
-    g = torch.Generator(device=dev).manual_seed(m + n)
-    l, d = 2, 1000
+    bf16 rounding, TF32 off), within 1e-5 of each output row's max. M = 1 at
+    N = 14336 stages 57 KB of x (past the 48 KB opt-in) for the f32 GEMV;
+    M = 4 at 14336 and M >= 9 take the tiled GEMM, three TF32 products a
+    step on the tensor cores (split TF32: within about 2^-18 of each f32
+    product, against the 1e-5 of the row's max that f32 sums in another
+    order are held to), at ragged M (zero-filled rows past M), D that no
+    weight tile divides and N that ends in part of a stage (zeros past
+    N)."""
+    g = torch.Generator(device=dev).manual_seed(m + n + d)
+    l = 2
     w = torch.randn((l, d, n), device=dev, generator=g) * 0.02
     x = torch.randn((m, n), device=dev, generator=g)
     nw = torch.rand((l, n), device=dev, generator=g) + 0.5
@@ -1388,6 +1400,7 @@ def test_qmatmul_f32_matches_plain(dev, m, n):
         build.reset_launches()
         got = qmatmul(x, w, 1, **extra)
         assert build.LAUNCHES["qmatmul_f32"] == 1 and build.LAUNCHES["qmatmul"] == 0
+        assert torch.isfinite(got).all()
         assert _row_rel(got, qmatmul_plain(x, w, 1, **extra), d) <= 1e-5, extra.keys()
 
 
@@ -1553,9 +1566,12 @@ def test_attention_kernels_f32_match_plain(dev, g, hd):
     product and the sum rounded as the plain version's f32 operations, the
     rows stored unrounded); flash-decode and flash-prefill within 1e-5 of
     each row's max (f32 values throughout, the sums in another order; the
-    prefill's dots in f32 FMA against the plain version's f32 matmul with
-    TF32 off, its key tiles 32 rows at hd 256 where the plain version's are
-    64). Counted under the ``_f32`` counters only."""
+    prefill's two products in split TF32 on the tensor cores, three TF32
+    products a step, against the plain version's f32 matmul with TF32 off;
+    its key tiles 32 rows at hd 256 where the plain version's are 64): the
+    prefill at pos 0, at positions whose keys reach the end of the window
+    (the last key tile reads zeros past S) and at T that no block's rows
+    divide. Counted under the ``_f32`` counters only."""
     gen = torch.Generator(device=dev).manual_seed(hd + g)
     l, b, kh, s = 2, 2, 2, 544
     h = kh * g
@@ -1577,13 +1593,14 @@ def test_attention_kernels_f32_match_plain(dev, g, hd):
         got = A.flash_decode(q, k1, v1, 1, i32(*kvl))
         assert got.shape == (b, h * hd) and torch.isfinite(got).all()
         assert _row_rel(got, A.flash_decode_plain(q, k1, v1, 1, i32(*kvl)), hd) < 1e-5, kvl
-    for t, pos in ((64, (0, 100)), (40, (3, 0)), (512, (0, 0))):  # 40: a partial last tile
+    cases = ((64, (0, 100)), (40, (3, 0)), (512, (0, 0)), (333, (s - 333, 0)), (77, (5, s - 77)))
+    for t, pos in cases:  # 40, 333, 77: a partial last block of rows
         qp = torch.randn((b, t, h, hd), device=dev, generator=gen)
         got = A.flash_prefill(qp, k1, v1, 0, i32(*pos))
         want = A.flash_prefill_plain(qp, k1, v1, 0, i32(*pos))
         assert torch.isfinite(got).all() and _row_rel(got, want, hd) <= 1e-5, (t, pos)
     assert build.LAUNCHES["kv_update_f32"] == 1 and build.LAUNCHES["flash_decode_f32"] == 3
-    assert build.LAUNCHES["flash_prefill_f32"] == 3
+    assert build.LAUNCHES["flash_prefill_f32"] == len(cases)
     assert build.LAUNCHES["kv_update"] == build.LAUNCHES["flash_decode"] == 0
     assert build.LAUNCHES["flash_prefill"] == 0
 
@@ -1750,12 +1767,13 @@ PLAN_FAMILIES = ("MISTRAL_7B", "MIXTRAL_8X7B", "QWEN2_5_7B", "QWEN3_8B", "LLAMA3
 @pytest.mark.parametrize("family", PLAN_FAMILIES)
 def test_launch_plans_match_the_launchers(dev, family):
     """``ops.qmatmul.a8_plan`` (at the device's SM count) and
-    ``ops.attention.prefill_plan``, which tests/test_torch_plans.py checks
-    on the CPU at every family's shapes, equal to what the launchers of
-    ``xq_qmatmul_a8`` and ``xq_flash_prefill`` launch, as their query
-    entries report it: every forward (M, K, D) at M 1, 256, 300 and 512,
-    every prefill chunk bucket and a ragged one; both refuse K off the 64
-    granule and a GQA group above 8."""
+    ``ops.attention.prefill_plan`` (over a bf16 and an f32 cache), which
+    tests/test_torch_plans.py checks on the CPU at every family's shapes,
+    equal to what the launchers of ``xq_qmatmul_a8`` and
+    ``xq_flash_prefill`` launch, as their query entries report it: every
+    forward (M, K, D) at M 1, 256, 300 and 512, every prefill chunk bucket
+    and a ragged one; both refuse K off the 64 granule and a GQA group
+    above 8."""
     import ctypes
 
     from xalm_tpu_torch.models import config as C
@@ -1774,11 +1792,13 @@ def test_launch_plans_match_the_launchers(dev, family):
     assert qlib.xq_qmatmul_a8_plan(256, 4128, 4096, (ctypes.c_int * 3)()) != 0
     h, kh = cfg.n_heads, cfg.n_kv_heads
     for t in (1, 16, 32, 64, 128, 256, 333, 512):
-        tq, q0s = ctypes.c_int(), (ctypes.c_int * 512)()
-        assert alib.xq_flash_prefill_plan(t, h, kh, cfg.head_dim, ctypes.byref(tq), q0s, 512) == 0
-        want_tq, want_order = A.prefill_plan(t, h // kh, cfg.head_dim)
-        assert tq.value == want_tq and list(q0s[:len(want_order)]) == want_order, t
-    assert alib.xq_flash_prefill_plan(512, 9, 1, 128, ctypes.byref(tq), q0s, 512) != 0
+        for f32 in (0, 1):
+            tq, q0s = ctypes.c_int(), (ctypes.c_int * 512)()
+            assert alib.xq_flash_prefill_plan(t, h, kh, cfg.head_dim, f32, ctypes.byref(tq), q0s,
+                                              512) == 0
+            want_tq, want_order = A.prefill_plan(t, h // kh, cfg.head_dim, f32=bool(f32))
+            assert tq.value == want_tq and list(q0s[:len(want_order)]) == want_order, (t, f32)
+    assert alib.xq_flash_prefill_plan(512, 9, 1, 128, 0, ctypes.byref(tq), q0s, 512) != 0
 
 
 @pytest.mark.parametrize("hd", [96, 128, 256])
@@ -1803,3 +1823,68 @@ def test_flash_prefill_matches_plain_at_every_group(dev, g, hd):
         assert got.shape == (b, t, h * hd) and torch.isfinite(got).all()
         assert _row_rel(got, want, hd) <= 2.0 ** -8, (t, pos)
     assert build.LAUNCHES["flash_prefill"] == len(cases)
+
+
+# ------------------------------------------------ split TF32 (the f32 GEMM, the f32-cache prefill)
+
+
+def _tf32_read(x: np.ndarray, mode: str) -> np.ndarray:
+    """f32 values as a tensor core would read them as TF32: the low 13
+    mantissa bits dropped ("trunc") or rounded to nearest, ties away
+    ("rna")."""
+    u = x.astype(np.float32).view(np.uint32)
+    if mode == "rna":
+        u = u + np.uint32(0x1000)
+    return (u & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def test_tensor_cores_read_tf32_by_truncation(dev):
+    """One tf32 wgmma (both operands from shared memory, as the f32 GEMM
+    issues it) and one tf32 mma.sync (registers, as the f32-cache prefill
+    issues it) on chosen raw f32 bit patterns: each reads an operand's low
+    13 mantissa bits as zero (truncation toward zero), so a raw f32 value,
+    in registers or in a landed tile, is its own big part and only
+    ``x - trunc(x)`` is computed (``hopper.cuh``'s ``xq_tf32_split``). The
+    patterns tell truncation from rounding: the
+    expected values under the two readings differ, and the products and
+    sums are exact in f32 under either."""
+    j = np.arange(64)
+    a = np.zeros((64, 8), np.float32)
+    a[:, 0] = 1 + j * 2.0 ** -16  # low bits 0..63 x 2^-16: below TF32's 2^-10
+    a[:, 1] = 1
+    a[:, 2] = -(1 + (63 - j) * 2.0 ** -16)  # negative: toward zero, not down
+    a[:, 4] = 1 + (5 * j % 64) * 2.0 ** -16
+    n = np.arange(128)
+    b = np.zeros((128, 8), np.float32)
+    b[:, 0] = 1
+    b[:, 1] = 1 + (9 * n % 64) * 2.0 ** -16
+    b[:, 2] = 1
+    b[:, 4] = 1 + ((3 * n + 1) % 64) * 2.0 ** -16
+
+    def expect(mode):
+        return (_tf32_read(a, mode).astype(np.float64) @ _tf32_read(b, mode).astype(np.float64).T
+                ).astype(np.float32)
+
+    assert not np.array_equal(expect("trunc"), expect("rna"))
+    lib = build.load_library("qmatmul")
+    at, bt = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+    d = torch.empty((64, 128), device=dev)
+    dm = torch.empty((16, 8), device=dev)
+    build.check(lib.xq_tf32_probe(at.data_ptr(), bt.data_ptr(), d.data_ptr(), dm.data_ptr(),
+                                  torch.cuda.current_stream(dev).cuda_stream), "xq_tf32_probe")
+    torch.cuda.synchronize()
+    got, got_m = d.cpu().numpy(), dm.cpu().numpy()
+    readings = {mode: (np.array_equal(got, expect(mode)), np.array_equal(got_m, expect(mode)[:16, :8]))
+                for mode in ("trunc", "rna")}
+    assert readings["trunc"] == (True, True), readings
+
+
+def test_qmatmul_f32_refuses_unaligned_contraction(dev):
+    """N off the 4 granule (the GEMM's tensor maps, ``f32_gemm_check``) is
+    refused before any launch: ValueError, no count."""
+    w = torch.randn((1, 64, 1026), device=dev)
+    build.reset_launches()
+    for m in (1, 100):
+        with pytest.raises(ValueError):
+            qmatmul(torch.randn((m, 1026), device=dev), w, 0)
+    assert build.LAUNCHES["qmatmul_f32"] == 0

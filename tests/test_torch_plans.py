@@ -9,17 +9,20 @@ launchers' own, ``xq_qmatmul_a8_plan`` and ``xq_flash_prefill_plan``):
   the tiles cover the output, the 128 x 256 tile only where it still gives
   every SM a block (here an H100 SXM's 132); K off the 64 granule raises
   ValueError before any launch;
-- the flash prefill over a bf16 cache (``ops.attention.prefill_plan``):
-  at each family's GQA group and head_dim and every chunk bucket, the
-  blocks cover the chunk's positions once, hold whole positions in at most
-  128 rows, and launch the last (longest) query tiles first.
+- the flash prefill over a bf16 and an f32 cache
+  (``ops.attention.prefill_plan``): at each family's GQA group and
+  head_dim and every chunk bucket, the blocks cover the chunk's positions
+  once, hold whole positions in at most 128 rows (64 over an f32 cache at
+  head_dim 256), and launch the last (longest) query tiles first;
+- the split-TF32 f32 GEMM's gate (``ops.qmatmul.f32_gemm_check``): every
+  forward (K, D) is taken, K off the 4 granule raises.
 """
 
 import pytest
 
 from xalm_tpu_torch.models import config as C
 from xalm_tpu_torch.ops.attention import prefill_plan
-from xalm_tpu_torch.ops.qmatmul import a8_plan
+from xalm_tpu_torch.ops.qmatmul import a8_plan, f32_gemm_check
 
 import tests.torch_threads  # noqa: F401  (one intra-op thread per process)
 
@@ -65,16 +68,31 @@ def test_a8_plan_refuses_what_the_kernel_does_not_take(m, k, d):
         a8_plan(m, k, d, H100_SMS)
 
 
+@pytest.mark.parametrize("f32", [False, True], ids=["bf16", "f32"])
 @pytest.mark.parametrize("family", FAMILIES)
-def test_prefill_plan_at_every_family(family):
+def test_prefill_plan_at_every_family(family, f32):
     cfg = FAMILIES[family]
     g, hd = cfg.group_size, cfg.head_dim
+    rows = (64 if hd == 256 else 128) if f32 else 128  # a block's query rows
     for t in CHUNKS + (1, 333):
-        tq, order = prefill_plan(t, g, hd)
-        assert tq == 2 * (64 // g) and tq * g <= 128  # whole positions, two warpgroups' rows
+        tq, order = prefill_plan(t, g, hd, f32=f32)
+        assert tq == (rows // g if f32 else 2 * (64 // g)) and tq * g <= rows  # whole positions
         assert order == sorted(order, reverse=True)  # the longest tiles first
         covered = [p for q0 in order for p in range(q0, min(q0 + tq, t))]
         assert sorted(covered) == list(range(t))  # every position once
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_f32_gemm_takes_every_forward_shape(family):
+    for name, (k, d) in _forward_shapes(FAMILIES[family]).items():
+        for m in (9, 256, 512):
+            f32_gemm_check(m, k, d)
+
+
+@pytest.mark.parametrize("m,k,d", [(100, 1026, 64), (100, 2, 64), (0, 4096, 64), (9, 4096, 0)])
+def test_f32_gemm_refuses_what_the_kernel_does_not_take(m, k, d):
+    with pytest.raises(ValueError, match="f32 GEMM"):
+        f32_gemm_check(m, k, d)
 
 
 @pytest.mark.parametrize("t,g,hd", [(512, 4, 64), (512, 4, 160), (512, 9, 128), (512, 0, 128),

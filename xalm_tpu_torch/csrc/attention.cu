@@ -91,11 +91,15 @@
 //    small T.
 //
 // 5b. xq_flash_prefill over an f32 cache replaces _prefill_kernel with its
-//    f32 compute_dtype: nothing is rounded to bf16, so the bf16 WMMA tiles
-//    cannot serve and TF32 would round; flash_prefill_f32_kernel runs both
-//    dots in f32 FMA on the CUDA cores (see its note), the same rows,
-//    causal limit and online softmax. Bound: f32 operations at T = 512
-//    (67 TFLOP/s).
+//    f32 compute_dtype: nothing is rounded to bf16, so the bf16 tiles cannot
+//    serve, and one TF32 product (three digits) would miss the f32 plain
+//    version by 1e-4 of a row's max. flash_prefill_tf32x3_kernel runs both
+//    dots in split TF32 on the tensor cores (three TF32 products a step,
+//    mma.sync; see its note) on a TMA ring, the same rows, causal limit and
+//    online softmax: against f64 its rows land within 2.5-3.5e-6 of their
+//    max on an H100, the plain f32 version's within 1.7-3.4e-6 (hopper.cuh).
+//    Bound: operations at T = 512, three TF32 products at 494.7 TFLOP/s
+//    (hd 256, pos 1024: 0.065 ms; f32 FMA: 0.160).
 
 #include <math.h>
 
@@ -762,166 +766,285 @@ cudaError_t launch_flash_prefill(const float* q, const __nv_bfloat16* ck, const 
 }
 
 // The f32-cache prefill: the row layout, causal limit and online softmax of
-// flash_prefill_kernel, with both dots in f32 FMA (no bf16 rounding of q,
-// k, v or p; no TF32). 256 threads as 16 x 16: thread (ty, tx) owns rows
-// 4 ty .. 4 ty + 3, the keys tx + 16 j of a tile and the float4 columns
-// tx + 16 j of the output. Q, K and V tiles are f32 in shared memory, so a
-// key tile is 32 rows at HD 256 (64 at 96 and 128): 139 KB there, 116 KB
-// at HD 128, 92 KB at 96.
+// flash_prefill_kernel, both products in split TF32 on mma.sync m16n8k8
+// (xq_mma_tf32x3: three TF32 products a step, f32 sums in chains of at
+// most 24 steps, hopper.cuh). ROWS query rows a block, 16 a row group
+// (rows 16 r + l / 4 and + 8 of lane l); PAIR warps share a row group, each
+// taking HD / PAIR of Q's, K's and O's columns (at hd 256, where one warp's
+// O would hold 128 floats a thread and leave an SM 4 warps: the pair's
+// partial scores meet through shared memory, and both run the softmax on
+// the same sums). Q f32 in shared memory (rows of HD + 4 floats: the
+// fragment reads fall on 32 banks), split in registers per k-step; K and V
+// f32 tiles of KT keys on a TMA ring (32-f32 swizzled panels of the (hd, S,
+// B * KH) view, zeros past S), split in registers as each lane reads its
+// fragment. S = Q K^T leaves the scores in the accumulator layout; P . V
+// takes them as its A operand with the keys of each 8-key step permuted (A
+// column j holds key 2 j, column j + 4 key 2 j + 1: the two a lane already
+// holds), the V rows read in the same order. Neither P nor O passes
+// through shared memory.
+template <int HD>
+__host__ __device__ constexpr int pf32_rows() { return HD == 256 ? 64 : 128; }
 template <int HD>
 __host__ __device__ constexpr int pf32_kt() { return HD == 256 ? 32 : 64; }
 template <int HD>
+__host__ __device__ constexpr int pf32_stages() { return HD == 96 ? 3 : 2; }
+template <int HD>
+__host__ __device__ constexpr int pf32_pair() { return HD == 256 ? 2 : 1; }
+template <int HD>
+__host__ __device__ constexpr int pf32_threads() { return pf32_rows<HD>() * 2 * pf32_pair<HD>(); }
+template <int HD>
+__host__ __device__ constexpr int pf32_xch() {  // floats of the pairs' score exchange
+  return pf32_pair<HD>() > 1 ? pf32_threads<HD>() * pf32_kt<HD>() / 2 : 0;
+}
+template <int HD>
 __host__ __device__ constexpr int pf32_smem() {
-  return ((PF_ROWS + 2 * pf32_kt<HD>()) * (HD + 4) + PF_ROWS * (pf32_kt<HD>() + 4)) * 4;
+  // Q, the score exchange, the K and V tiles of each stage, 2 barriers and
+  // a counter a stage, and the slack to align the ring to 1024
+  return (pf32_rows<HD>() * (HD + 4) + pf32_xch<HD>()) * 4 +
+         pf32_stages<HD>() * 2 * pf32_kt<HD>() * HD * 4 + 3 * pf32_stages<HD>() * 8 + 1024;
+}
+
+// A block's query positions at GQA group g, a T-row chunk's blocks, and the
+// first position of block y, the longest tiles first
+template <int HD>
+__host__ __device__ inline int pf32_tq(int g) { return pf32_rows<HD>() / g; }
+template <int HD>
+__host__ __device__ inline int pf32_blocks(int T, int g) {
+  return (T + pf32_tq<HD>(g) - 1) / pf32_tq<HD>(g);
 }
 
 template <int HD>
-__global__ void __launch_bounds__(256) flash_prefill_f32_kernel(
-    const float* __restrict__ q, const float* __restrict__ ck, const float* __restrict__ cv,
-    const int* __restrict__ pos, float* __restrict__ out, int T, int H, int KH, int S,
-    float sm_scale) {
-  constexpr int KT = pf32_kt<HD>(), LD = HD + 4, LDP = KT + 4;
-  constexpr int KPT = KT / 16;          // keys of a tile per thread
-  constexpr int NC = HD / 4;            // float4 columns of a row
-  constexpr int CPT = (NC + 15) / 16;   // float4 output columns per thread (HD 96: 2 or 1)
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* Qs = reinterpret_cast<float*>(smem);  // (PF_ROWS, LD)
-  float* Ks = Qs + PF_ROWS * LD;                // (KT, LD)
-  float* Vs = Ks + KT * LD;                     // (KT, LD)
-  float* Ps = Vs + KT * LD;                     // (PF_ROWS, LDP)
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int b = blockIdx.x / KH, h = blockIdx.x % KH;
-  const int g = H / KH, tq = PF_ROWS / g;  // rows tq * g .. PF_ROWS - 1 stay empty
-  const int q0 = blockIdx.y * tq;
+__global__ void __launch_bounds__(pf32_threads<HD>(), 1) flash_prefill_tf32x3_kernel(
+    const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+    const float* __restrict__ q, const int* __restrict__ pos, float* __restrict__ out, int T,
+    int H, int KH, float sm_scale) {
+  constexpr int ROWS = pf32_rows<HD>(), KT = pf32_kt<HD>(), ST = pf32_stages<HD>();
+  constexpr int PAIR = pf32_pair<HD>(), NW = ROWS / 16 * PAIR, NP = HD / 32, LDQ = HD + 4;
+  constexpr int NPW = NP / PAIR, NTW = HD / 8 / PAIR;  // a warp's panels and O column blocks
+  constexpr int PANEL = KT * 128;     // bytes of a 32-column panel of a tile
+  constexpr int TILE = NP * PANEL;    // bytes of a K or V tile
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* kv = xq_align1024(smem_raw);  // ST stages of (K tile, V tile)
+  float* Qs = reinterpret_cast<float*>(kv + ST * 2 * TILE);
+  float* xch = Qs + ROWS * LDQ;  // (warp, score, lane)
+  uint64_t* fullk = reinterpret_cast<uint64_t*>(xch + pf32_xch<HD>());
+  uint64_t* fullv = fullk + ST;
+  int* released = reinterpret_cast<int*>(fullv + ST);  // warps done with each stage, ever
+  const int bh = blockIdx.x, b = bh / KH, h = bh % KH;
+  const int g = H / KH, tq = ROWS / g;  // rows tq * g .. ROWS - 1 stay empty
+  const int q0 = (pf32_blocks<HD>(T, g) - 1 - blockIdx.y) * tq;
   const int pb = pos[b];
-  const size_t stripe = ((size_t)b * KH + h) * S * HD;
-
-  for (int c = tid; c < PF_ROWS * NC; c += 256) {
-    const int R = c / NC, col = (c % NC) * 4;
+  const int kend = pb + min(q0 + tq, T);  // keys >= kend are invisible to the block
+  const int ntiles = (kend + KT - 1) / KT;
+  auto load = [&](int j) {  // key tile j into stage j % ST (its previous tile released)
+    const int s = j % ST;
+    unsigned char* st = kv + s * 2 * TILE;
+    xq_mbar_expect_tx(&fullk[s], TILE);
+    for (int p = 0; p < NP; ++p) xq_tma_3d(st + p * PANEL, &tk, 32 * p, j * KT, bh, &fullk[s]);
+    xq_mbar_expect_tx(&fullv[s], TILE);
+    for (int p = 0; p < NP; ++p)
+      xq_tma_3d(st + TILE + p * PANEL, &tv, 32 * p, j * KT, bh, &fullv[s]);
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      xq_mbar_init(&fullk[s], 1);
+      xq_mbar_init(&fullv[s], 1);
+      released[s] = 0;
+    }
+    xq_mbar_fence_init();
+    for (int j = 0; j < ST && j < ntiles; ++j) load(j);
+  }
+  for (int c = threadIdx.x; c < ROWS * (HD / 4); c += blockDim.x) {
+    const int R = c / (HD / 4), col = (c % (HD / 4)) * 4, tl = R / g;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (R < tq * g && q0 + R / g < T)
+    if (tl < tq && q0 + tl < T)
       v = *reinterpret_cast<const float4*>(
-          q + (((size_t)b * T + q0 + R / g) * H + (size_t)h * g + R % g) * HD + col);
-    *reinterpret_cast<float4*>(Qs + R * LD + col) = v;
+          q + (((size_t)b * T + q0 + tl) * H + (size_t)h * g + R % g) * HD + col);
+    *reinterpret_cast<float4*>(Qs + R * LDQ + col) = v;
   }
+  __syncthreads();
 
-  float m_run[4], l_run[4], o[4][CPT][4];
-  int qpos[4];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, lr = lane / 4, lc = lane % 4;
+  const int rg = warp / PAIR, half = warp % PAIR;  // row group; which columns of the pair
+  const float* qw = Qs + (16 * rg + lr) * LDQ + lc;  // this lane's A reads, row lr, column lc
+  int qpos[2];
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_run[i] = -INFINITY;
-    l_run[i] = 0.f;
-    qpos[i] = pb + q0 + (ty * 4 + i) / g;  // sees keys <= qpos
+  for (int hh = 0; hh < 2; ++hh) qpos[hh] = pb + q0 + (16 * rg + lr + 8 * hh) / g;
+  float o[NTW][4];  // O column blocks half * NTW ..
 #pragma unroll
-    for (int j = 0; j < CPT; ++j)
+  for (int n = 0; n < NTW; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) o[i][j][e] = 0.f;
-  }
-  const int kend = pb + min(q0 + tq, T);  // keys >= kend are invisible to the tile
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
 
-  for (int k0 = 0; k0 < kend; k0 += KT) {
-    __syncthreads();  // the previous tile is consumed (and Q is in place)
-    for (int c = tid; c < KT * NC; c += 256) {
-      const int row = c / NC, col = (c % NC) * 4, key = k0 + row;
-      float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
-      if (key < S) {
-        kv = *reinterpret_cast<const float4*>(ck + stripe + (size_t)key * HD + col);
-        vv = *reinterpret_cast<const float4*>(cv + stripe + (size_t)key * HD + col);
-      }
-      *reinterpret_cast<float4*>(Ks + row * LD + col) = kv;
-      *reinterpret_cast<float4*>(Vs + row * LD + col) = vv;
-    }
-    __syncthreads();
-
-    // scores of rows 4 ty + i against keys k0 + tx + 16 j
-    float sc[4][KPT];
+  for (int it = 0; it < ntiles; ++it) {
+    const int s = it % ST, ph = (it / ST) & 1, k0 = it * KT;
+    const unsigned char* kt = kv + s * 2 * TILE;
+    const unsigned char* vt = kt + TILE;
+    float sc[KT / 8][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int n = 0; n < KT / 8; ++n)
 #pragma unroll
-      for (int j = 0; j < KPT; ++j) sc[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HD; d += 4) {
-      float4 qa[4];
+      for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+    xq_mbar_wait(&fullk[s], ph);
+    // S = Q . K^T over this warp's panels, 32 columns of Q and K at a time
+    // (4 k-steps: 12 steps into a fresh chain, then IEEE adds); k-step ks
+    // takes columns 8 ks .. 8 ks + 7
+#pragma unroll 1
+    for (int p = half * NPW; p < (half + 1) * NPW; ++p) {
+      const unsigned char* kp = kt + p * PANEL;
+      float part[KT / 8][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qa[i] = *reinterpret_cast<const float4*>(Qs + (ty * 4 + i) * LD + d);
+      for (int n = 0; n < KT / 8; ++n)
 #pragma unroll
-      for (int j = 0; j < KPT; ++j) {
-        const float4 kb = *reinterpret_cast<const float4*>(Ks + (tx + 16 * j) * LD + d);
+        for (int e = 0; e < 4; ++e) part[n][e] = 0.f;
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          sc[i][j] = fmaf(qa[i].w, kb.w, fmaf(qa[i].z, kb.z, fmaf(qa[i].y, kb.y,
-                                                                  fmaf(qa[i].x, kb.x, sc[i][j]))));
-      }
-    }
-
-    // online softmax: a row's 16 threads are one half of a warp
+      for (int k4 = 0; k4 < 4; ++k4) {
+        const int ks = 4 * p + k4;
+        uint32_t ab[4], as[4];
+        xq_tf32_split(qw[8 * ks], ab[0], as[0]);
+        xq_tf32_split(qw[8 * ks + 8 * LDQ], ab[1], as[1]);
+        xq_tf32_split(qw[8 * ks + 4], ab[2], as[2]);
+        xq_tf32_split(qw[8 * ks + 8 * LDQ + 4], ab[3], as[3]);
+        const int c0 = 8 * k4 + lc;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mt = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < KPT; ++j) {
-        sc[i][j] = k0 + tx + 16 * j <= qpos[i] ? sc[i][j] * sm_scale : -INFINITY;
-        mt = fmaxf(mt, sc[i][j]);
-      }
-#pragma unroll
-      for (int o2 = 8; o2 > 0; o2 >>= 1) mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, o2));
-      const float m_new = fmaxf(m_run[i], mt);
-      const float alpha = m_new == -INFINITY ? 1.f : expf(m_run[i] - m_new);
-      float psum = 0.f;
-#pragma unroll
-      for (int j = 0; j < KPT; ++j) {
-        const float p = sc[i][j] == -INFINITY ? 0.f : expf(sc[i][j] - m_new);
-        psum += p;
-        Ps[(ty * 4 + i) * LDP + tx + 16 * j] = p;
-      }
-#pragma unroll
-      for (int o2 = 8; o2 > 0; o2 >>= 1) psum += __shfl_xor_sync(0xffffffffu, psum, o2);
-      l_run[i] = l_run[i] * alpha + psum;
-      m_run[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < CPT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) o[i][j][e] *= alpha;
-    }
-    __syncwarp();  // a row's p comes from its own half-warp
-
-    // P.V: o[i][j] += sum over the tile's keys of p * V[key][(tx + 16 j) * 4 ..]
-#pragma unroll 4
-    for (int k = 0; k < KT; ++k) {
-      float p[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = Ps[(ty * 4 + i) * LDP + k];
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const int c = tx + 16 * j;
-        if (c >= NC) break;
-        const float4 v = *reinterpret_cast<const float4*>(Vs + k * LD + c * 4);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          o[i][j][0] = fmaf(p[i], v.x, o[i][j][0]);
-          o[i][j][1] = fmaf(p[i], v.y, o[i][j][1]);
-          o[i][j][2] = fmaf(p[i], v.z, o[i][j][2]);
-          o[i][j][3] = fmaf(p[i], v.w, o[i][j][3]);
+        for (int n = 0; n < KT / 8; ++n) {  // keys 8 n + lr of the tile
+          const int r = 8 * n + lr;
+          uint32_t bb0, bs0, bb1, bs1;
+          xq_tf32_split(*reinterpret_cast<const float*>(kp + xq_sw128_f32(r, c0)), bb0, bs0);
+          xq_tf32_split(*reinterpret_cast<const float*>(kp + xq_sw128_f32(r, c0 + 4)), bb1, bs1);
+          xq_mma_tf32x3(part[n], ab, as, bb0, bb1, bs0, bs1);
         }
       }
+#pragma unroll
+      for (int n = 0; n < KT / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[n][e] += part[n][e];
     }
-    __syncwarp();  // the next tile's p overwrites Ps
+    if constexpr (PAIR > 1) {  // the pair's two partial sums, added in either order alike
+      float* mine = xch + warp * (KT / 2) * 32 + lane;
+      const float* theirs = xch + (warp ^ 1) * (KT / 2) * 32 + lane;
+#pragma unroll
+      for (int n = 0; n < KT / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mine[(4 * n + e) * 32] = sc[n][e];
+      xq_bar_sync(1 + rg, 64);
+#pragma unroll
+      for (int n = 0; n < KT / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[n][e] += theirs[(4 * n + e) * 32];
+      xq_bar_sync(1 + rg, 64);  // read before the next tile's writes
+    }
+
+    // online softmax: sc[n][e] is row hh = e / 2, key k0 + 8 n + 2 lc + e % 2
+    float mt[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < KT / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hh = e >> 1, key = k0 + 8 * n + 2 * lc + (e & 1);
+        sc[n][e] = key <= qpos[hh] ? sc[n][e] * sm_scale : -INFINITY;
+        mt[hh] = fmaxf(mt[hh], sc[n][e]);
+      }
+    float alpha[2], m_new[2], psum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      mt[hh] = fmaxf(mt[hh], __shfl_xor_sync(0xffffffffu, mt[hh], 1));
+      mt[hh] = fmaxf(mt[hh], __shfl_xor_sync(0xffffffffu, mt[hh], 2));
+      m_new[hh] = fmaxf(m_run[hh], mt[hh]);
+      alpha[hh] = m_new[hh] == -INFINITY ? 1.f : expf(m_run[hh] - m_new[hh]);
+    }
+#pragma unroll
+    for (int n = 0; n < KT / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hh = e >> 1;
+        sc[n][e] = sc[n][e] == -INFINITY ? 0.f : expf(sc[n][e] - m_new[hh]);
+        psum[hh] += sc[n][e];
+      }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      psum[hh] += __shfl_xor_sync(0xffffffffu, psum[hh], 1);
+      psum[hh] += __shfl_xor_sync(0xffffffffu, psum[hh], 2);
+      l_run[hh] = l_run[hh] * alpha[hh] + psum[hh];
+      m_run[hh] = m_new[hh];
+    }
+
+    // O = alpha O + P . V: 8-key step kk, A column lc holding key 8 kk + 2 lc
+    // and column lc + 4 key 8 kk + 2 lc + 1; B = V rows in that order. Each
+    // 8-column block of O takes the tile's steps in a fresh chain (at most
+    // 24), then one IEEE fma
+    uint32_t pb[KT / 8][4], ps[KT / 8][4];
+#pragma unroll
+    for (int kk = 0; kk < KT / 8; ++kk) {
+      xq_tf32_split(sc[kk][0], pb[kk][0], ps[kk][0]);
+      xq_tf32_split(sc[kk][2], pb[kk][1], ps[kk][1]);
+      xq_tf32_split(sc[kk][1], pb[kk][2], ps[kk][2]);
+      xq_tf32_split(sc[kk][3], pb[kk][3], ps[kk][3]);
+    }
+    xq_mbar_wait(&fullv[s], ph);
+#pragma unroll
+    for (int n = 0; n < NTW; ++n) {  // output columns 8 (half * NTW + n) + lr
+      const int nb = half * NTW + n;
+      const unsigned char* vp = vt + (nb / 4) * PANEL;
+      const int c = 8 * (nb % 4) + lr;
+      float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int kk = 0; kk < KT / 8; ++kk) {
+        const int r = 8 * kk + 2 * lc;
+        uint32_t bb0, bs0, bb1, bs1;
+        xq_tf32_split(*reinterpret_cast<const float*>(vp + xq_sw128_f32(r, c)), bb0, bs0);
+        xq_tf32_split(*reinterpret_cast<const float*>(vp + xq_sw128_f32(r + 1, c)), bb1, bs1);
+        xq_mma_tf32x3(part, pb[kk], ps[kk], bb0, bb1, bs0, bs1);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] = fmaf(o[n][e], alpha[e >> 1], part[e]);
+    }
+    // the last of the NW warps done with this stage refills it with tile
+    // it + ST: no warp waits for another to free a stage
+    __syncwarp();
+    if (lane == 0 && it + ST < ntiles) {
+      __threadfence_block();
+      if (atomicAdd(&released[s], 1) == NW * (it / ST) + NW - 1) load(it + ST);
+    }
+    __syncwarp();
   }
 
+  // O / l: o[n][e] is row hh = e / 2, column 8 (half * NTW + n) + 2 lc + e % 2
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int R = ty * 4 + i;
-    if (R >= tq * g || q0 + R / g >= T) continue;
-    const float ldiv = l_run[i] > 0.f ? l_run[i] : 1.f;
-    float* dst = out + (((size_t)b * T + q0 + R / g) * H + (size_t)h * g + R % g) * HD;
+  for (int hh = 0; hh < 2; ++hh) {
+    const int R = 16 * rg + lr + 8 * hh, tl = R / g;
+    if (tl >= tq || q0 + tl >= T) continue;
+    const float ldiv = l_run[hh] > 0.f ? l_run[hh] : 1.f;
+    float* dst = out + (((size_t)b * T + q0 + tl) * H + (size_t)h * g + R % g) * HD +
+                 8 * half * NTW + 2 * lc;
 #pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-      const int c = tx + 16 * j;
-      if (c >= NC) break;
-      *reinterpret_cast<float4*>(dst + c * 4) = make_float4(o[i][j][0] / ldiv, o[i][j][1] / ldiv,
-                                                            o[i][j][2] / ldiv, o[i][j][3] / ldiv);
-    }
+    for (int n = 0; n < NTW; ++n)
+      *reinterpret_cast<float2*>(dst + 8 * n) =
+          make_float2(o[n][2 * hh] / ldiv, o[n][2 * hh + 1] / ldiv);
   }
+}
+
+// Flash prefill over an f32 cache: tensor maps of the layer's K and V as
+// (B * KH, S, hd) (32-column f32 boxes of KT keys), then one block per
+// (batch x kv head, ROWS / G positions), the last query tiles first
+template <int HD>
+cudaError_t launch_flash_prefill_f32(const float* q, const float* ck, const float* cv,
+                                     const int* pos, float* out, int B, int T, int H, int KH,
+                                     int S, float sm_scale, cudaStream_t s) {
+  CUtensorMap tk, tv;
+  const uint64_t dims[3] = {(uint64_t)HD, (uint64_t)S, (uint64_t)B * KH};
+  const uint64_t strides[2] = {(uint64_t)HD * 4, (uint64_t)S * HD * 4};
+  const uint32_t box[3] = {32, pf32_kt<HD>(), 1};
+  if (!xq_tensor_map(&tk, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, ck, dims, strides, box) ||
+      !xq_tensor_map(&tv, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, cv, dims, strides, box))
+    return cudaErrorInvalidConfiguration;
+  cudaError_t e = xq_allow_smem(flash_prefill_tf32x3_kernel<HD>, pf32_smem<HD>());
+  if (e != cudaSuccess) return e;
+  const dim3 grid(B * KH, pf32_blocks<HD>(T, H / KH));
+  flash_prefill_tf32x3_kernel<HD><<<grid, pf32_threads<HD>(), pf32_smem<HD>(), s>>>(
+      tk, tv, q, pos, out, T, H, KH, sm_scale);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -990,34 +1113,32 @@ XQ_EXPORT int xq_flash_prefill(const void* q, const void* ck, const void* cv, co
   auto s = static_cast<cudaStream_t>(stream);
   return (int)for_head_dim(hd, [&](auto d) {
     constexpr int HD = decltype(d)::value;
-    if (f32) {
-      const int tq = PF_ROWS / (H / KH);
-      const dim3 grid(B * KH, (T + tq - 1) / tq);
-      cudaError_t e = xq_allow_smem(flash_prefill_f32_kernel<HD>, pf32_smem<HD>());
-      if (e != cudaSuccess) return e;
-      flash_prefill_f32_kernel<HD><<<grid, 256, pf32_smem<HD>(), s>>>(
-          (const float*)q, (const float*)ck, (const float*)cv, (const int*)pos, (float*)out, T, H,
-          KH, S, sm_scale);
-      return cudaGetLastError();
-    }
+    if (f32)
+      return launch_flash_prefill_f32<HD>((const float*)q, (const float*)ck, (const float*)cv,
+                                          (const int*)pos, (float*)out, B, T, H, KH, S, sm_scale,
+                                          s);
     return launch_flash_prefill<HD>((const float*)q, (const __nv_bfloat16*)ck,
                                     (const __nv_bfloat16*)cv, (const int*)pos, (float*)out, B, T,
                                     H, KH, S, sm_scale, s);
   });
 }
 
-// xq_flash_prefill's blocks over a bf16 cache for a T-row chunk: *tq
-// query positions a block, q0s[y] the first position of block y for each
-// of the chunk's blocks (at most cap); cudaErrorInvalidValue for a shape it
-// refuses. ops/attention.py's prefill_plan is held to it on the card.
-XQ_EXPORT int xq_flash_prefill_plan(int T, int H, int KH, int hd, void* tq, void* q0s, int cap) {
+// xq_flash_prefill's blocks over a bf16 (f32 == 0) or an f32 cache for a
+// T-row chunk: *tq query positions a block, q0s[y] the first position of
+// block y for each of the chunk's blocks (at most cap);
+// cudaErrorInvalidValue for a shape it refuses. ops/attention.py's
+// prefill_plan is held to it on the card.
+XQ_EXPORT int xq_flash_prefill_plan(int T, int H, int KH, int hd, int f32, void* tq, void* q0s,
+                                    int cap) {
   if (KH < 1 || H % KH != 0 || H / KH < 1 || H / KH > FD_MAX_G || T < 1)
     return (int)cudaErrorInvalidValue;
-  return (int)for_head_dim(hd, [&](auto) {
-    const int g = H / KH, n = pf_blocks(T, g);
+  return (int)for_head_dim(hd, [&](auto d) {
+    constexpr int HD = decltype(d)::value;
+    const int g = H / KH, n = f32 ? pf32_blocks<HD>(T, g) : pf_blocks(T, g);
+    const int step = f32 ? pf32_tq<HD>(g) : pf_tq(g);
     if (n > cap) return cudaErrorInvalidValue;
-    *(int*)tq = pf_tq(g);
-    for (int y = 0; y < n; ++y) ((int*)q0s)[y] = pf_q0(T, g, y);
+    *(int*)tq = step;
+    for (int y = 0; y < n; ++y) ((int*)q0s)[y] = (n - 1 - y) * step;
     return cudaSuccess;
   });
 }

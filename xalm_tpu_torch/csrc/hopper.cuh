@@ -1,6 +1,7 @@
-// Hopper (sm_90a) building blocks of the TMA + wgmma kernels: the W8A8 GEMM
-// (qmatmul.cu gemm_a8_kernel) and the causal flash prefill over a bf16
-// cache (attention.cu flash_prefill_kernel).
+// Hopper (sm_90a) building blocks of the TMA-fed tensor-core kernels: the
+// W8A8 GEMM and the split-TF32 f32 GEMM (qmatmul.cu gemm_a8_kernel,
+// gemm_tf32x3_kernel) and the causal flash prefill over a bf16 and an f32
+// cache (attention.cu flash_prefill_kernel, flash_prefill_tf32x3_kernel).
 //
 // - TMA: a tensor map (CUtensorMap, encoded on the host per call by
 //   cuTensorMapEncodeTiled, which xq_tensor_map obtains from the driver
@@ -8,7 +9,7 @@
 //   names a 2-D or 3-D global tensor and a box; one thread asks for a box
 //   to be copied into shared memory (cp.async.bulk.tensor), and the copy
 //   reports its bytes to an mbarrier. Every map here uses the 128-byte
-//   swizzle: a box row is 128 bytes (128 int8 or 64 bf16 values) and the
+//   swizzle: a box row is 128 bytes (128 int8, 64 bf16 or 32 f32) and the
 //   16-byte chunk c of row r lands at chunk c ^ (r % 8) within its
 //   1024-byte group of 8 rows. Elements outside the tensor read as zero.
 // - mbarrier ring: full[s] completes when stage s's bytes have landed (one
@@ -288,6 +289,97 @@ __device__ __forceinline__ void xq_wgmma_bf16_rs_n256(float (&d)[128], const uin
         "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]),
         "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// ------------------------------------------------------------ split TF32
+//
+// The tensor cores take f32 operands only as TF32: sign, exponent and the
+// top 10 of the 23 mantissa bits. The card reads a raw f32 operand by
+// dropping the low 13 bits (truncation toward zero, in wgmma and mma.sync
+// alike: test_tensor_cores_read_tf32_by_truncation of
+// tests/test_torch_cuda.py, through xq_tf32_probe), so a raw f32 value,
+// in registers or in a TMA-landed tile, is its own big part. Split TF32
+// (CUTLASS's 3xTF32) writes x = big + small and sums small_a big_b +
+// big_a small_b + big_a big_b on the tensor cores in f32, smallest first:
+// the dropped small_a small_b and the truncation of small cost at most
+// about 2^-18 of |a b| a product, where one TF32 product costs up to 2^-9.
+// Measured against f64 on an H100 (chip_smoke.py --kernel-ms, Mistral-7B
+// and Gemma-7B shapes): the f32 GEMM's rows within 1.1-1.7e-6 of their max
+// (cuBLAS f32: 2.0-4.2e-6), the f32-cache prefill's within 2.5-3.5e-6 (the
+// plain f32 version's: 1.7-3.4e-6).
+//
+// The tensor cores' f32 sums are not IEEE: each wgmma or mma.sync step
+// loses about half an ulp of its accumulator, always toward zero, so the
+// error of a long chain grows with its length, not its square root (the
+// first H100 runs of the f32 GEMM, one chain over K: 1.0e-5 of a row's
+// max at K = 1024, 4.5e-5 at 4096, 1.4e-4 at 14336). The kernels therefore
+// sum at most 24 steps a chain into a fresh accumulator and add chains
+// with IEEE adds.
+
+// x as the tensor core reads a raw f32 operand (the low 13 bits dropped)
+__device__ __forceinline__ float xq_tf32_trunc(float x) {
+  return __uint_as_float(__float_as_uint(x) & 0xffffe000u);
+}
+
+// x = big + small: big the raw bits (read as trunc(x)), small = x -
+// trunc(x), exact in f32 (its own low bits dropped in turn when read)
+__device__ __forceinline__ void xq_tf32_split(float x, uint32_t& big, uint32_t& small) {
+  big = __float_as_uint(x);
+  small = __float_as_uint(x - xq_tf32_trunc(x));
+}
+
+// D (64 x 128, f32) = A (64 x 8, tf32, K-major) * B (128 x 8, tf32, K-major) + D, or
+// without D where acc is 0; both in shared memory (descriptors). TF32
+// wgmma has no transpose: both operands K-major.
+__device__ __forceinline__ void xq_wgmma_tf32_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
+                                                      int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, "
+      "%33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, "
+      "%49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// D (16 x 8, f32) += A (16 x 8, tf32) * B (8 x 8, tf32), one warp, in registers:
+// lane l holds a = A(l/4, l%4), A(l/4 + 8, l%4), A(l/4, l%4 + 4), A(l/4 + 8, l%4 + 4);
+// b0 = B(l%4, l/4), b1 = B(l%4 + 4, l/4); d = D(l/4, 2 (l%4)), D(l/4, 2 (l%4) + 1),
+// D(l/4 + 8, 2 (l%4)), D(l/4 + 8, 2 (l%4) + 1)
+__device__ __forceinline__ void xq_mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                            uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The three split-TF32 products of one m16n8k8 step into d, smallest first
+__device__ __forceinline__ void xq_mma_tf32x3(float (&d)[4], const uint32_t (&ab)[4],
+                                              const uint32_t (&as)[4], uint32_t bb0, uint32_t bb1,
+                                              uint32_t bs0, uint32_t bs1) {
+  xq_mma_tf32(d, as, bb0, bb1);
+  xq_mma_tf32(d, ab, bs0, bs1);
+  xq_mma_tf32(d, ab, bb0, bb1);
+}
+
+// 16-byte chunk c of row r of a 128-byte-swizzled tile (a TMA box of 32 f32
+// a row) lies at chunk c ^ (r % 8): the byte offset of element (r, col),
+// col < 32
+__device__ __forceinline__ int xq_sw128_f32(int r, int col) {
+  return r * 128 + ((((col >> 2) ^ r) & 7) << 4) + (col & 3) * 4;
 }
 
 

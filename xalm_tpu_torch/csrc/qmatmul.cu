@@ -13,8 +13,12 @@
 // for int8, fp8 and bf16 weights (each fp8 code widened exactly, gemv.cuh;
 // exact in bf16; products of two bf16 values are
 // exact in f32, summed in f32; the scale multiplies the f32 result), f32 for
-// f32 weights (f32 products and sums: FMA on the CUDA cores, never TF32,
-// which keeps about three digits).
+// f32 weights (no bf16 rounding: the GEMV multiplies in f32 FMA on the CUDA
+// cores, the tiled GEMM in split TF32 on the tensor cores, three TF32
+// products a step, each within about 2^-18 of the f32 product where one
+// TF32 product, three digits, would be 2^-9 off; against f64 its rows land
+// within 1.1-1.7e-6 of their max on an H100, cuBLAS f32's within 2.0-4.2e-6:
+// hopper.cuh).
 //
 // What bounds it on the H100:
 // - Decode (M <= 8): bytes. Each weight byte is used M times, far below the
@@ -34,11 +38,20 @@
 // - f32 weights: the GEMV route stages x as f32 (4N bytes a row: 57 KB at
 //   N = 14336, past the 48 KB that needs the opt-in) and streams 4 weights
 //   per 16-byte load; at M = 1 it is bound by the 4-byte weights. Where x
-//   does not fit (or M > 8) a tiled f32 GEMM runs, bound by operations at
-//   M = 512 (67 TFLOP/s of f32 FMA): 128x128 outputs a block of 256
-//   threads, 8x8 a thread in registers, k-slices of 8 staged in shared
-//   memory (transposed, so each thread reads its 8 x and 8 w values as two
-//   16-byte words each). Simple first: no double buffering yet.
+//   does not fit (or M > 8) gemm_tf32x3_kernel runs, bound by operations at
+//   M = 512: three TF32 products a step at 494.7 TFLOP/s (w13: 0.730 ms;
+//   the f32 FMA peak, 67 TFLOP/s, would allow no less than 1.795).
+//   prep_x_tf32_kernel writes x's big and small parts once; then the W8A8
+//   GEMM's skeleton: a TMA ring of 3 stages of 32 f32 of depth (x's two
+//   parts, 128 rows each, and a 128-row weight tile, 128-byte swizzle,
+//   zeros past M, D and N), a splitter warpgroup that writes each landed
+//   weight tile's small part beside it (the landed tile is its big part),
+//   and two consumer warpgroups of 64 x rows, each k-step of 8 three wgmma
+//   m64n128k8 from shared memory (tf32 wgmma takes only K-major operands,
+//   which both are as they lie). A stage's 12 steps sum into a fresh
+//   accumulator, added to the block's sums with IEEE adds (hopper.cuh: the
+//   tensor cores' sums lose toward zero). N must be a multiple of 4 (the
+//   maps' rows).
 //
 // xq_qmatmul_multi replaces the same TPU kernel through
 // pallas_qmatmul_stacked_multi (the gathered top-k expert matmul of
@@ -295,54 +308,173 @@ __global__ void __launch_bounds__(128) gemm_kernel(
   }
 }
 
-constexpr int SBM = 128, SBN = 128, SBK = 8;  // f32 GEMM tile: x rows, outputs, depth
+// rmsnorm?(x) split for the f32 GEMM, one block per row: xb = big (the f32
+// value itself), xs = small (xq_tf32_split), each (M, N)
+__global__ void __launch_bounds__(256) prep_x_tf32_kernel(
+    const float* __restrict__ x, const float* __restrict__ norm_w, float eps,
+    float* __restrict__ xb, float* __restrict__ xs, int N) {
+  __shared__ float red[8];
+  const float* xm = x + (size_t)blockIdx.x * N;
+  const float r = norm_w != nullptr ? block_rms(xm, N, eps, red) : 1.f;
+  for (int i = threadIdx.x; i < N; i += blockDim.x) {
+    float v = xm[i];
+    if (norm_w != nullptr) v = v * r * norm_w[i];
+    uint32_t big, small;
+    xq_tf32_split(v, big, small);
+    xb[(size_t)blockIdx.x * N + i] = __uint_as_float(big);
+    xs[(size_t)blockIdx.x * N + i] = __uint_as_float(small);
+  }
+}
 
-// y[m, d] = sum_n x[m, n] * w[d, n] in f32 (no scale: f32 weights carry none)
-__global__ void __launch_bounds__(256) sgemm_kernel(const float* __restrict__ x,
-                                                    const float* __restrict__ w,
-                                                    float* __restrict__ y, int M, int N, int D) {
-  __shared__ __align__(16) float As[SBK][SBM];  // k-slice, x row
-  __shared__ __align__(16) float Bs[SBK][SBN];  // k-slice, weight row
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;  // 16 x 16 threads, 8 x 8 outputs each
-  const int m0 = blockIdx.y * SBM, d0 = blockIdx.x * SBN;
-  const int lr = tid >> 1, lk = (tid & 1) * 4;  // each thread loads 4 depths of one row a side
-  const float* xrow = m0 + lr < M ? x + (size_t)(m0 + lr) * N + lk : nullptr;
-  const float* wrow = d0 + lr < D ? w + (size_t)(d0 + lr) * N + lk : nullptr;
-  float acc[8][8] = {};
-  for (int k0 = 0; k0 < N; k0 += SBK) {
-    float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
-    if (xrow != nullptr) a = *reinterpret_cast<const float4*>(xrow + k0);
-    if (wrow != nullptr) b = __ldg(reinterpret_cast<const float4*>(wrow + k0));
-    As[lk + 0][lr] = a.x; As[lk + 1][lr] = a.y; As[lk + 2][lr] = a.z; As[lk + 3][lr] = a.w;
-    Bs[lk + 0][lr] = b.x; Bs[lk + 1][lr] = b.y; Bs[lk + 2][lr] = b.z; Bs[lk + 3][lr] = b.w;
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < SBK; ++kk) {
-      // rows ty*4.. and 64 + ty*4.., outputs tx*4.. and 64 + tx*4..
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[kk][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[kk][64 + tx * 4]);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+// f32 GEMM tiles: x rows a block (two consumer warpgroups of 64), weight
+// rows a block, f32 of depth a stage (one 128-byte swizzle row), stages
+constexpr int T3_BM = 128, T3_BN = 128, T3_BK = 32, T3_STAGES = 3;
+// threads: two consumer warpgroups (0..255), then a splitter warpgroup
+// (256..383) whose first thread also issues the copies
+constexpr int T3_CONSUMERS = 256, T3_THREADS = T3_CONSUMERS + 128;
+// a stage: x's big and small parts (128 rows each), the weight tile as it
+// landed (its big part as the tensor cores read it) and its small part
+constexpr int T3_TILE = T3_BM * T3_BK * 4;  // 16 KB; T3_BN == T3_BM
+constexpr int T3_STAGE = 4 * T3_TILE;
+constexpr int T3_SMEM = T3_STAGES * T3_STAGE + 3 * T3_STAGES * 8 + 1024;
+
+// Block (m tile, weight tile) of y = x . w^T in split TF32: per k-step of 8
+// the warpgroup's 64 x rows by the 128 weight rows three times, wgmma
+// m64n128k8 from shared memory (x_small w, x_big w_small, x_big w), a
+// stage's 12 products into a fresh accumulator, added to the block's sums
+// with IEEE adds (hopper.cuh: the tensor cores' sums lose toward zero).
+// full[s]: the stage's copies landed; ready[s]: the splitter warpgroup has
+// written w's small part (the tensor cores read the landed w as its big
+// part); empty[s]: the 8 consumer warps are done with it.
+__global__ void __launch_bounds__(T3_THREADS, 1) gemm_tf32x3_kernel(
+    const __grid_constant__ CUtensorMap txb, const __grid_constant__ CUtensorMap txs,
+    const __grid_constant__ CUtensorMap tw, float* __restrict__ y, int M, int N, int D) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = xq_align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + T3_STAGES * T3_STAGE);
+  uint64_t* ready = full + T3_STAGES;
+  uint64_t* empty = ready + T3_STAGES;
+  const int m0 = blockIdx.x * T3_BM, d0 = blockIdx.y * T3_BN;
+  const int KT = (N + T3_BK - 1) / T3_BK;  // a last part stage reads zeros past N
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < T3_STAGES; ++s) {
+      xq_mbar_init(&full[s], 1);
+      xq_mbar_init(&ready[s], 4);  // each splitter warp once
+      xq_mbar_init(&empty[s], 8);  // each consumer warp once
     }
-    __syncthreads();
+    xq_mbar_fence_init();
   }
+  __syncthreads();
+
+  if (threadIdx.x >= T3_CONSUMERS) {
+    const int t = threadIdx.x - T3_CONSUMERS;
+    auto issue = [&](int kt) {  // stage kt % STAGES's copies (its previous round released)
+      const int s = kt % T3_STAGES;
+      if (kt >= T3_STAGES) xq_mbar_wait(&empty[s], (kt / T3_STAGES - 1) & 1);
+      unsigned char* st = ring + s * T3_STAGE;
+      xq_mbar_expect_tx(&full[s], 3 * T3_TILE);
+      xq_tma_2d(st, &txb, kt * T3_BK, m0, &full[s]);
+      xq_tma_2d(st + T3_TILE, &txs, kt * T3_BK, m0, &full[s]);
+      xq_tma_2d(st + 2 * T3_TILE, &tw, kt * T3_BK, d0, &full[s]);
+    };
+    if (t == 0)
+      for (int kt = 0; kt < T3_STAGES - 1 && kt < KT; ++kt) issue(kt);
+    for (int kt = 0; kt < KT; ++kt) {
+      const int s = kt % T3_STAGES;
+      xq_mbar_wait(&full[s], (kt / T3_STAGES) & 1);
+      const float4* wb = reinterpret_cast<const float4*>(ring + s * T3_STAGE + 2 * T3_TILE);
+      float4* ws = reinterpret_cast<float4*>(ring + s * T3_STAGE + 3 * T3_TILE);
+      // the swizzle moves whole 16-byte chunks, so small lies where big does
+      for (int i = t; i < T3_TILE / 16; i += 128) {
+        const float4 v = wb[i];
+        ws[i] = make_float4(v.x - xq_tf32_trunc(v.x), v.y - xq_tf32_trunc(v.y),
+                            v.z - xq_tf32_trunc(v.z), v.w - xq_tf32_trunc(v.w));
+      }
+      xq_fence_proxy_async();  // the writes, before wgmma reads them
+      __syncwarp();
+      if (t % 32 == 0) xq_mbar_arrive(&ready[s]);
+      // the refill of stage kt - 1 waits for its consumers, who need
+      // nothing more from this warpgroup to finish it
+      if (t == 0 && kt + T3_STAGES - 1 < KT) issue(kt + T3_STAGES - 1);
+    }
+  } else {
+    const int c = threadIdx.x / 128, warp = threadIdx.x % 128 / 32, lane = threadIdx.x % 32;
+    float acc[64], part[64];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-    if (m >= M) continue;
+    for (int j = 0; j < 64; ++j) acc[j] = 0.f;
+    for (int kt = 0; kt < KT; ++kt) {
+      const int s = kt % T3_STAGES, ph = (kt / T3_STAGES) & 1;
+      xq_mbar_wait(&full[s], ph);
+      xq_mbar_wait(&ready[s], ph);
+      const uint32_t xb = xq_smem(ring + s * T3_STAGE + c * 64 * 128);
+      const uint32_t xs = xb + T3_TILE, wb = xq_smem(ring + s * T3_STAGE + 2 * T3_TILE);
+      const uint32_t ws = wb + T3_TILE;
+      xq_fence_regs(part);
+      xq_wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int d = d0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
-      if (d < D) y[(size_t)m * D + d] = acc[i][j];
+      for (int k = 0; k < T3_BK / 8; ++k) {  // 8 f32 (32 bytes) of depth a step
+        xq_wgmma_tf32_ss_n128(part, xq_desc(xs + 32 * k, 16, 1024), xq_desc(wb + 32 * k, 16, 1024),
+                              k > 0);  // the stage's first product starts the chain
+        xq_wgmma_tf32_ss_n128(part, xq_desc(xb + 32 * k, 16, 1024), xq_desc(ws + 32 * k, 16, 1024),
+                              1);
+        xq_wgmma_tf32_ss_n128(part, xq_desc(xb + 32 * k, 16, 1024), xq_desc(wb + 32 * k, 16, 1024),
+                              1);
+      }
+      xq_wgmma_commit();
+      xq_wgmma_wait<0>();
+      xq_fence_regs(part);
+      if (lane == 0) xq_mbar_arrive(&empty[s]);  // done with the stage
+#pragma unroll
+      for (int j = 0; j < 64; ++j) acc[j] += part[j];
+    }
+
+    // element j of acc is row 16 warp + lane / 4 + 8 ((j / 2) % 2), column
+    // 8 (j / 4) + 2 (lane % 4) + j % 2 of the warpgroup's tile
+    const int ra = m0 + c * 64 + warp * 16 + lane / 4;
+    const bool pairs = (D & 1) == 0;  // float2 stores: (m * D + d) stays even
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = ra + 8 * h;
+      if (m >= M) continue;
+      float* yr = y + (size_t)m * D;
+#pragma unroll
+      for (int q = 0; q < 16; ++q) {
+        const int d = d0 + 8 * q + 2 * (lane % 4);
+        if (d >= D) continue;
+        const float v0 = acc[4 * q + 2 * h], v1 = acc[4 * q + 2 * h + 1];
+        if (pairs) {
+          *reinterpret_cast<float2*>(yr + d) = make_float2(v0, v1);
+        } else {
+          yr[d] = v0;
+          if (d + 1 < D) yr[d + 1] = v1;
+        }
+      }
     }
   }
+}
+
+// The f32 GEMM: x split into its big and small parts (scratch xb: 2 M N
+// floats), then tensor maps of both parts and of the weights (32-f32
+// boxes of 128 rows) and the grid of (m tiles, weight tiles), m tiles first
+cudaError_t launch_gemm_tf32x3(const float* x, const float* nw, float eps, const float* w,
+                               float* y, float* xb, int M, int N, int D, cudaStream_t s) {
+  float* xs = xb + (size_t)M * N;
+  prep_x_tf32_kernel<<<M, 256, 0, s>>>(x, nw, eps, xb, xs, N);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  CUtensorMap txb, txs, tw;
+  const uint64_t xdims[2] = {(uint64_t)N, (uint64_t)M}, wdims[2] = {(uint64_t)N, (uint64_t)D};
+  const uint64_t stride[1] = {(uint64_t)N * 4};
+  const uint32_t box[2] = {T3_BK, T3_BM};
+  if (!xq_tensor_map(&txb, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, xb, xdims, stride, box) ||
+      !xq_tensor_map(&txs, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, xs, xdims, stride, box) ||
+      !xq_tensor_map(&tw, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, w, wdims, stride, box))
+    return cudaErrorInvalidConfiguration;
+  e = xq_allow_smem(gemm_tf32x3_kernel, T3_SMEM);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((M + T3_BM - 1) / T3_BM, (D + T3_BN - 1) / T3_BN);
+  gemm_tf32x3_kernel<<<grid, T3_THREADS, T3_SMEM, s>>>(txb, txs, tw, y, M, N, D);
+  return cudaGetLastError();
 }
 
 template <typename WT>
@@ -361,19 +493,20 @@ int launch_gemv(const float* x, const float* nw, float eps, const WT* w, const f
 template <typename WT>
 int launch_gemm(const float* x, const float* nw, float eps, const WT* w, const float* scale,
                 float qscale, float* y, void* xb, int M, int N, int D, cudaStream_t s) {
-  if (M < 1 || N % BK != 0) return (int)cudaErrorInvalidValue;
-  using XT = xq_act_t<WT>;
-  prep_x_kernel<XT><<<M, 256, 0, s>>>(x, nw, eps, (XT*)xb, N);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
   if constexpr (sizeof(WT) == 4) {
-    dim3 grid((D + SBN - 1) / SBN, (M + SBM - 1) / SBM);
-    sgemm_kernel<<<grid, 256, 0, s>>>((const float*)xb, w, y, M, N, D);
+    // the tensor maps' row stride: a multiple of 16 bytes
+    if (M < 1 || D < 1 || N < 4 || N % 4 != 0) return (int)cudaErrorInvalidValue;
+    return (int)launch_gemm_tf32x3(x, nw, eps, w, y, (float*)xb, M, N, D, s);
   } else {
+    if (M < 1 || N % BK != 0) return (int)cudaErrorInvalidValue;
+    using XT = xq_act_t<WT>;
+    prep_x_kernel<XT><<<M, 256, 0, s>>>(x, nw, eps, (XT*)xb, N);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
     dim3 grid((D + BN - 1) / BN, (M + BM - 1) / BM);
     gemm_kernel<WT><<<grid, 128, 0, s>>>((const __nv_bfloat16*)xb, w, scale, qscale, y, M, N, D);
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
 }
 
 constexpr int MX_SMEM = 48 * 1024;  // x chunk of the multi kernel: (<= 8 rows, nc), bf16 or f32
@@ -835,12 +968,74 @@ XQ_EXPORT int xq_qmatmul_multi_q4(const void* x, const void* w, const void* scal
   return (int)cudaGetLastError();
 }
 
-// Bytes of the scratch the tiled route needs for cd(rmsnorm?(x)) (bf16, or
-// f32 for f32 weights); 0 where the GEMV route runs (M <= GV_MAX_M and x
-// fits in shared memory)
+namespace {
+
+// One wgmma m64n128k8 (both operands in shared memory, 128-byte swizzle, as
+// gemm_tf32x3_kernel issues it) and one mma.sync m16n8k8 (registers, as
+// the f32-cache flash prefill issues it) on raw f32 bit patterns: d = a .
+// b^T (64 x 128 of a (64, 8) and b (128, 8)) and dm = the first 16 rows of
+// a times the first 8 rows of b (16 x 8). One warpgroup.
+__global__ void __launch_bounds__(128) tf32_probe_kernel(const float* __restrict__ a,
+                                                         const float* __restrict__ b,
+                                                         float* __restrict__ d,
+                                                         float* __restrict__ dm) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sa = xq_align1024(smem_raw);  // 64 rows of 128 bytes
+  unsigned char* sb = sa + 64 * 128;           // 128 rows of 128 bytes
+  const int t = threadIdx.x, warp = t / 32, lane = t % 32;
+  for (int i = t; i < (64 + 128) * 32; i += 128) {
+    const int r = i / 32, k = i % 32;
+    const bool in_a = r < 64;
+    const int rr = in_a ? r : r - 64;
+    const float v = k < 8 ? (in_a ? a[rr * 8 + k] : b[rr * 8 + k]) : 0.f;
+    *reinterpret_cast<float*>((in_a ? sa : sb) + xq_sw128_f32(rr, k)) = v;
+  }
+  xq_fence_proxy_async();
+  __syncthreads();
+  float acc[64];
+#pragma unroll
+  for (int j = 0; j < 64; ++j) acc[j] = 0.f;
+  xq_fence_regs(acc);
+  xq_wgmma_fence();
+  xq_wgmma_tf32_ss_n128(acc, xq_desc(xq_smem(sa), 16, 1024), xq_desc(xq_smem(sb), 16, 1024), 1);
+  xq_wgmma_commit();
+  xq_wgmma_wait<0>();
+  xq_fence_regs(acc);
+#pragma unroll
+  for (int j = 0; j < 64; ++j)
+    d[(16 * warp + lane / 4 + 8 * ((j / 2) % 2)) * 128 + 8 * (j / 4) + 2 * (lane % 4) + j % 2] =
+        acc[j];
+  if (warp == 0) {
+    const int g = lane / 4, q = lane % 4;
+    const uint32_t af[4] = {__float_as_uint(a[g * 8 + q]), __float_as_uint(a[(g + 8) * 8 + q]),
+                            __float_as_uint(a[g * 8 + q + 4]),
+                            __float_as_uint(a[(g + 8) * 8 + q + 4])};
+    float dd[4] = {0.f, 0.f, 0.f, 0.f};
+    xq_mma_tf32(dd, af, __float_as_uint(b[g * 8 + q]), __float_as_uint(b[g * 8 + q + 4]));
+    dm[g * 8 + 2 * q] = dd[0];
+    dm[g * 8 + 2 * q + 1] = dd[1];
+    dm[(g + 8) * 8 + 2 * q] = dd[2];
+    dm[(g + 8) * 8 + 2 * q + 1] = dd[3];
+  }
+}
+
+}  // namespace
+
+// How the tensor cores read raw f32 operands as TF32: a (64, 8), b (128, 8)
+// f32 -> d (64, 128) by tf32 wgmma, dm (16, 8) by tf32 mma.sync (see
+// tf32_probe_kernel). The kernels above rely on the answer (hopper.cuh).
+XQ_EXPORT int xq_tf32_probe(const void* a, const void* b, void* d, void* dm, void* stream) {
+  tf32_probe_kernel<<<1, 128, (64 + 128) * 128 + 1024, static_cast<cudaStream_t>(stream)>>>(
+      (const float*)a, (const float*)b, (float*)d, (float*)dm);
+  return (int)cudaGetLastError();
+}
+
+// Bytes of the scratch the tiled route needs for cd(rmsnorm?(x)): bf16, or
+// for f32 weights its big and small TF32 parts (f32 each); 0 where the GEMV
+// route runs (M <= GV_MAX_M and x fits in shared memory)
 XQ_EXPORT long long xq_qmatmul_scratch(int M, int N, int w_kind) {
   const int xbytes = w_kind == W_F32 ? 4 : 2;
-  return use_gemv(M, N, xbytes) ? 0 : (long long)M * N * xbytes;
+  return use_gemv(M, N, xbytes) ? 0 : (long long)M * N * (w_kind == W_F32 ? 8 : 2);
 }
 
 XQ_EXPORT int xq_qmatmul(const void* x, const void* norm_w, float eps, const void* w,

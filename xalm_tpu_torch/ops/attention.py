@@ -7,9 +7,12 @@ its design answers that):
   ``_update_kernel``, ``_attn_kernel`` and ``_prefill_kernel``, which take
   both, ``supported_cache_dtype``); the cache type is a template parameter
   of each, and an f32 cache's launches count under ``kv_update_f32``,
-  ``flash_decode_f32`` and ``flash_prefill_f32``. f32 keeps every value
-  unrounded: flash-prefill's dots run in f32 FMA (its own tiles, no TF32),
-  as the TPU kernel's ``compute_dtype`` is f32 for an f32 cache;
+  ``flash_decode_f32`` and ``flash_prefill_f32``. f32 rounds nothing to
+  bf16, as the TPU kernel's ``compute_dtype`` is f32 for an f32 cache:
+  flash-prefill's two products run on the tensor cores in split TF32
+  (three TF32 products a step, each within about 2^-18 of the f32
+  product; its own tiles; against f64 as accurate as the plain version,
+  which keeps f32 with TF32 off: ``csrc/hopper.cuh``);
 - int8 cache with per-row f32 scales: ``kv_update_q`` (quantised ring
   insert and sink re-rotation, one launch for ``_insert_q_kernel`` and
   ``_sink_q_kernel``) and ``flash_decode_q`` (``_attn_q_kernel``).
@@ -286,35 +289,38 @@ def flash_prefill_plain(q, cache_k, cache_v, layer, pos) -> torch.Tensor:
     return out.reshape(b, kh, t, g, hd).permute(0, 2, 1, 3, 4).reshape(b, t, h * hd)
 
 
-# The bf16-cache flash prefill's blocks, as csrc/attention.cu launches them:
-# two consumer warpgroups of 64 query rows, each 64 // G whole positions;
-# the head dims it is built for, and the GQA groups
+# The flash prefill's blocks, as csrc/attention.cu launches them: over a
+# bf16 cache two consumer warpgroups of 64 query rows, each 64 // G whole
+# positions; over an f32 cache one block of 128 query rows (64 at head_dim
+# 256, where f32 tiles fill shared memory), 16 a warp; the head dims it is
+# built for, and the GQA groups
 PREFILL_WG_ROWS = 64
+PREFILL_F32_ROWS = {96: 128, 128: 128, 256: 64}
 HEAD_DIMS = (96, 128, 256)
 MAX_GROUP = 8
 
 
 def prefill_check(t: int, g: int, hd: int) -> None:
-    """Raises ValueError for a shape the bf16-cache flash prefill does not
-    take (hd outside 96, 128, 256; g outside 1..8; t < 1), before any
-    launch."""
+    """Raises ValueError for a shape the flash prefill does not take (hd
+    outside 96, 128, 256; g outside 1..8; t < 1), before any launch."""
     _need(hd in HEAD_DIMS, "flash_prefill", f"head_dim {hd} (the kernel is built for "
           f"{', '.join(map(str, HEAD_DIMS))})")
     _need(1 <= g <= MAX_GROUP, "flash_prefill", f"GQA group {g} (1..{MAX_GROUP})")
     _need(t >= 1, "flash_prefill", f"a chunk of {t} rows")
 
 
-def prefill_plan(t: int, g: int, hd: int) -> tuple[int, list[int]]:
-    """The flash prefill's blocks for a t-row chunk at GQA group g: (query
-    positions a block, the blocks' first positions in launch order). A block
-    holds 2 * (64 // g) whole positions (rows position * g + head; for a g
-    that does not divide 64 the last rows of each warpgroup stay empty), and
-    the blocks start last tile first, the tiles with the most visible keys
-    before the causal tail. The launcher's own plan is
+def prefill_plan(t: int, g: int, hd: int, f32: bool = False) -> tuple[int, list[int]]:
+    """The flash prefill's blocks for a t-row chunk at GQA group g over a
+    bf16 cache (an f32 one with ``f32``): (query positions a block, the
+    blocks' first positions in launch order). A block holds 2 * (64 // g)
+    whole positions (f32: PREFILL_F32_ROWS[hd] // g; rows position * g +
+    head, and for a g that does not divide the rows the last ones stay
+    empty), and the blocks start last tile first, the tiles with the most
+    visible keys before the causal tail. The launcher's own plan is
     ``xq_flash_prefill_plan``; the card's tests hold the two equal. Raises
     as ``prefill_check``."""
     prefill_check(t, g, hd)
-    tq = 2 * (PREFILL_WG_ROWS // g)
+    tq = PREFILL_F32_ROWS[hd] // g if f32 else 2 * (PREFILL_WG_ROWS // g)
     return tq, list(range(0, t, tq))[::-1]
 
 

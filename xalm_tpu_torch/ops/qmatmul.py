@@ -9,11 +9,14 @@ fp8 (``float8_e4m3fn``/``float8_e5m2``, no scale: the TPU kernel's
 ``_f8_to_bf16`` branch, each code widened to bf16 exactly); cd, the compute
 dtype, is bf16, or f32 for f32 weights (no bf16 rounding, as the TPU
 kernel's ``compute_dtype``). On the H100 the decode shapes (M <= 8) are
-bound by the weight bytes and run as a GEMV; larger M runs a tiled GEMM, on
-the tensor cores for int8/fp8/bf16 and in f32 FMA for f32 weights (see the
-source's note). f16 weights are no kernel dtype, as on the TPU, and fp8 is
-none of the forward's: the JAX forward's ``_pallas_ok`` routes neither to
-the kernel. The loader turns them into bf16 or i8 on the card
+bound by the weight bytes and run as a GEMV (f32 FMA for f32 weights);
+larger M runs a tiled GEMM on the tensor cores: bf16 for int8/fp8/bf16, and
+for f32 weights split TF32, three TF32 products a step (each within about
+2^-18 of the f32 product; against f64 no less accurate than the plain
+version, which keeps f32 with TF32 off: ``csrc/hopper.cuh``;
+``f32_gemm_check`` gates its shapes). See the source's note. f16 weights
+are no kernel dtype, as on the TPU, and fp8 is none of the forward's: the
+JAX forward's ``_pallas_ok`` routes neither to the kernel. The loader turns them into bf16 or i8 on the card
 (``load_params``' ``f16_mode``/``fp8_mode``), a weight kept f16 or fp8 takes
 ``ops.linear``'s plain product, and the fp8 branch is reached through
 ``qmatmul`` itself, as the JAX one is through ``pallas_qmatmul``.
@@ -110,6 +113,21 @@ def a8_plan(m: int, k: int, d: int, sms: int) -> tuple[int, int, int]:
     mt = -(-m // A8_TILE_M)
     bn = 256 if mt * -(-d // 256) >= sms else 128
     return bn, mt, -(-d // bn)
+
+
+# The f32 GEMM's contraction granule: its tensor maps take rows of a
+# multiple of 16 bytes
+F32_K_GRANULE = 4
+
+
+def f32_gemm_check(m: int, k: int, d: int) -> None:
+    """Raises ValueError for a shape the split-TF32 f32 GEMM (kernel 1's
+    tiled route for f32 weights) does not take (k not a positive multiple
+    of 4, m or d below 1), before any launch."""
+    _need(m >= 1 and d >= 1, f"f32 GEMM of {m} rows of x by {d} weight rows")
+    _need(k >= F32_K_GRANULE and k % F32_K_GRANULE == 0,
+          f"the f32 GEMM takes a contraction width that is a multiple of {F32_K_GRANULE}, "
+          f"not {k}")
 
 
 def _check_quant_x(values, norm_w, q4_group: int, a8: bool, m: int) -> None:
@@ -244,6 +262,8 @@ def qmatmul(
     eps = float(norm_eps) if norm_w is not None else 0.0
     qs = float(q8_scale) if (scale is None and q8_scale is not None) else 0.0
     scratch = lib.xq_qmatmul_scratch(m, n, kind)  # bytes of the tiled route's cd(rmsnorm?(x))
+    if scratch and values.dtype == torch.float32:
+        f32_gemm_check(m, n, d)
     xb = torch.empty((scratch,), dtype=torch.uint8, device=x.device) if scratch else None
     err = lib.xq_qmatmul(x.data_ptr(), nw_ptr, eps, w_ptr, kind, s_ptr, qs, y.data_ptr(),
                          None if xb is None else xb.data_ptr(), m, n, d,
