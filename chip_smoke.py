@@ -101,12 +101,14 @@ builds only kernel 1's and the attention kernels' sources and times the
 W8A8 GEMM and the split-TF32 f32 GEMM (w13 and w2 of Mistral-7B at M =
 512 and 256, i8 and f32 weights), the flash prefill over a bf16 and an
 f32 cache (T = 512 at positions 0 and 1024, at the shapes of Mistral-7B,
-Qwen2.5-7B, Gemma-7B and Phi-3-mini) and flash-decode (bf16 cache, kv_len
-777, the same shapes) through their C entry points, beside one PyTorch
-call (timed in the same turns: its spread is printed; its device time
-from torch.profiler beside) and the bound (``kernel_ms``), cycling enough
-layers that each sweep of a case's operands is twice the card's L2. In
-both modes
+Qwen2.5-7B, Gemma-7B and Phi-3-mini), flash-decode (a bf16 and an f32
+cache, kv_len 777 and 4064, the same shapes) and the M = 1 GEMV (Mistral-7B's
+f32 matmuls and head, the bf16 head, i8 wqkv and w2) through their C entry
+points, beside one PyTorch call (timed in the same turns: its spread is
+printed; its device time from torch.profiler beside) and the bound
+(``kernel_ms``), cycling enough layers that each sweep of a case's operands
+is twice the card's L2, and the GEMV's bulk-copy ring alone by copy size
+(``_bulk_copy_rates``). In both modes
 ``--root`` names another checkout whose libraries are built too (from its
 own sources into its own build directory) and timed in turns with this
 one's in the same process (other, this, this, other), through this
@@ -1222,7 +1224,7 @@ def phase_long_prompt(params, cfg) -> dict:
             logits, cache, pos = eng.prefill(prompt, cache)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        dev, top, records = _device_times(prof, False)
+        dev, top, records = _device_times(prof)
         if records["flash_prefill_kernel"] == chunks * cfg.n_layers:
             break
     if pos != LONG_PROMPT or not torch.isfinite(logits).all():
@@ -1244,22 +1246,23 @@ def phase_long_prompt(params, cfg) -> dict:
     return {"launches": launches}
 
 
-# kernel-name fragments of the port's CUDA kernels, by wrapper (the chunk
-# combine kernel, shared by both flash-decodes, goes to the one the run uses)
+# kernel-name fragments of the port's CUDA kernels, by wrapper (no fragment
+# names a part of another kernel's name; the chunk combine kernel is the
+# int8 flash-decode's second launch)
 _PROFILE_GROUPS = {
-    "qmatmul": ("gemv_kernel", "gemm_kernel", "prep_x_kernel", "gemm_tf32x3_kernel",
-                "prep_x_tf32_kernel"),
+    "qmatmul": ("gemv_stream_kernel", "gemv_kernel", "gemm_kernel", "prep_x_kernel",
+                "gemm_tf32x3_kernel", "prep_x_tf32_kernel"),
     "qmatmul_q4": ("gemv_q4_kernel",),
     "qmatmul_a8": ("gemm_a8_kernel",),
     "quant_x": ("quant_x_kernel",),  # x's codes for qmatmul_q4 and qmatmul_a8
     "qmatmul_multi": ("qmatmul_multi_kernel",),
     "qmatmul_multi_q4": ("qmatmul_multi_q4_kernel",),
     "kv_update": ("kv_update_kernel",),
-    "flash_decode": ("flash_decode_split_kernel", "flash_decode_combine_kernel"),
+    "flash_decode": ("flash_decode_cluster_kernel",),
     "flash_prefill": ("flash_prefill_kernel", "flash_prefill_tf32x3_kernel"),
     "fused_decode": ("fused_decode_kernel",),
     "kv_update_q": ("kv_update_q_kernel",),
-    "flash_decode_q": ("flash_decode_q_split_kernel",),
+    "flash_decode_q": ("flash_decode_q_split_kernel", "flash_decode_combine_kernel"),
 }
 
 
@@ -1272,7 +1275,7 @@ _PROFILE_GROUPS = {
 # PROFILE_PAD_S kept all of them. A window that still falls short runs again.
 _WITNESSES = {
     "fused_decode_kernel": ("fused_decode", "fused_decode_a8", "fused_decode_q4"),
-    "flash_decode_split_kernel": ("flash_decode", "flash_decode_f32"),
+    "flash_decode_cluster_kernel": ("flash_decode", "flash_decode_f32"),
     "flash_decode_q_split_kernel": ("flash_decode_q",),
     "flash_prefill_kernel": ("flash_prefill",),
     "flash_prefill_tf32x3_kernel": ("flash_prefill_f32",),
@@ -1286,7 +1289,7 @@ PROFILE_PAD_S = 0.05
 PROFILE_PRIMES = 32
 
 
-def _device_times(prof, int8: bool) -> tuple[dict, list, dict]:
+def _device_times(prof) -> tuple[dict, list, dict]:
     """Device time (ms) by kernel group, the ten largest device entries as
     (name, ms, count), and the record count of each witness fragment, from a
     torch.profiler run. Only the kernels' own entries count: a PyTorch
@@ -1294,10 +1297,7 @@ def _device_times(prof, int8: bool) -> tuple[dict, list, dict]:
     which those kernels' entries carry too."""
     from torch.autograd import DeviceType
 
-    groups = dict(_PROFILE_GROUPS)
-    if int8:
-        groups["flash_decode"] = ("flash_decode_split_kernel",)
-        groups["flash_decode_q"] += ("flash_decode_combine_kernel",)
+    groups = _PROFILE_GROUPS
     out = {k: 0.0 for k in groups}
     out["other"] = 0.0
     top = []
@@ -1356,7 +1356,7 @@ def phase_profile(eng, prompt, token, label: str) -> dict:
                 torch.cuda.synchronize()
                 wall_ms = (time.perf_counter() - t0) * 1e3
             pos += steps
-            dev, top, records = _device_times(prof, eng.kv_dtype == torch.int8)
+            dev, top, records = _device_times(prof)
             launched = {f: sum(build.LAUNCHES[w] for w in ws) for f, ws in _WITNESSES.items()}
             if records == launched:
                 break
@@ -3255,8 +3255,8 @@ def megakernel_ms(models, other_root: str | None) -> None:
           "case": "B=1 kv_len=520, embed fold", "ms": out})
 
 
-# --kernel-ms: the TMA-fed tensor-core kernels at the main path's shapes,
-# and flash-decode beside SDPA by device time.
+# --kernel-ms: the TMA-fed kernels at the main path's shapes beside one
+# PyTorch call each, by event and device time.
 # W8A8 and the f32 GEMM: (name, K, D) of Mistral-7B's w13 and w2 at M = 512
 # and 256 (i8; f32 weights)
 KERNEL_MS_A8 = (("w13", 4096, 28672), ("w2", 14336, 4096))
@@ -3266,13 +3266,35 @@ KERNEL_MS_A8_ROWS = (512, 256)
 KERNEL_MS_PREFILL = (("Mistral-7B", "MISTRAL_7B"), ("Qwen2.5-7B", "QWEN2_5_7B"),
                      ("Gemma-7B", "GEMMA_7B"), ("Phi-3-mini", "PHI3_MINI_4K"))
 KERNEL_MS_POS = (0, 1024)
-KERNEL_MS_DECODE_KV = 777  # phase 3's flash-decode case
+# flash-decode (bf16 and f32 caches): phase 3's kv_len, and one near the
+# 4096-row window
+KERNEL_MS_DECODE_KV = (777, 4064)
 KERNEL_MS_MIN_LAYERS = 4  # layers cycled per call at the least (see _cold_layers)
-# the kernels' names, this tree's and (f32) the parent's: a fragment that
-# names the other tree's kernel reads "not measured"
+# the kernels' names, this tree's and earlier trees': a fragment that names
+# the other tree's kernel reads "not measured"
 KERNEL_MS_FRAGS = ("gemm_a8_kernel", "flash_prefill_kernel", "gemm_tf32x3_kernel",
                    "flash_prefill_tf32x3_kernel", "sgemm_kernel", "flash_prefill_f32_kernel",
-                   "flash_decode_split_kernel")
+                   "flash_decode_cluster_kernel", "flash_decode_split_kernel",
+                   "flash_decode_combine_kernel", "gemv_stream_kernel", "gemv_kernel")
+KERNEL_MS_DECODE_FRAGS = ("flash_decode_cluster_kernel", "flash_decode_split_kernel",
+                          "flash_decode_combine_kernel")
+KERNEL_MS_GEMV_FRAGS = ("gemv_stream_kernel", "gemv_kernel")
+
+
+def _gemv_cases(cfg) -> tuple:
+    """Kernel 1's M = 1 cases of --kernel-ms at cfg's widths: (name, N, D,
+    weights, norm prologue). f32 weights (the f32-weight model's matmuls and
+    head), the bf16 head, and i8 with row scales (wqkv with the prologue,
+    w2)."""
+    qkv = cfg.q_dim + 2 * cfg.kv_dim
+    return (("wqkv f32", cfg.dim, qkv, "f32", True),
+            ("w13 f32", cfg.dim, 2 * cfg.hidden_dim, "f32", True),
+            ("wo f32", cfg.q_dim, cfg.dim, "f32", False),
+            ("w2 f32", cfg.hidden_dim, cfg.dim, "f32", False),
+            ("head f32", cfg.dim, cfg.vocab_size, "f32", False),
+            ("head bf16", cfg.dim, cfg.vocab_size, "bf16", False),
+            ("wqkv i8", cfg.dim, qkv, "i8", True),
+            ("w2 i8", cfg.hidden_dim, cfg.dim, "i8", False))
 
 
 def _build_module(root: str, tag: str):
@@ -3385,12 +3407,13 @@ def _cold_layers(bytes_per_call: int) -> int:
 def kernel_ms(other_root: str | None) -> None:
     """Kernel 1's W8A8 GEMM and f32 GEMM (``xq_qmatmul_a8``, ``xq_qmatmul``
     with f32 weights), kernel 4 over a bf16 and an f32 cache
-    (``xq_flash_prefill``) and kernel 3 (``xq_flash_decode``, bf16 cache,
-    kv_len 777) of this checkout and, with ``--root``, of the other one,
-    through their C entry points (their signatures are the same in both),
-    each case timed in turns with one PyTorch call of the same function
-    (``torch._int_mm`` and the two scale multiplies; ``F.linear`` in f32,
-    TF32 off; SDPA) by ``_in_turns``, over calls that cycle
+    (``xq_flash_prefill``), kernel 3 over both caches (``xq_flash_decode``,
+    kv_len KERNEL_MS_DECODE_KV: ``_decode_turns``) and kernel 1's M = 1
+    GEMV (``_gemv_turns``) of this checkout and, with ``--root``, of the
+    other one, through their C entry points (their signatures are the same
+    in both), each case timed in turns with one PyTorch call of the same
+    function (``torch._int_mm`` and the two scale multiplies; ``F.linear``
+    in f32, TF32 off; SDPA) by ``_in_turns``, over calls that cycle
     ``_cold_layers`` layers; the device times of the kernels, of a whole
     call and of the library call from torch.profiler; each output held to
     this checkout's plain version (W8A8 bit-equal; f32 GEMM, f32 prefill and
@@ -3505,7 +3528,7 @@ def kernel_ms(other_root: str | None) -> None:
         torch.cuda.empty_cache()
 
     pf_rows = {"bf16": [], "f32": []}
-    dec_rows = []
+    dec_rows = {"bf16": [], "f32": []}
     t = 512
     for label, preset in KERNEL_MS_PREFILL:
         cfg = getattr(configs, preset)
@@ -3567,13 +3590,17 @@ def kernel_ms(other_root: str | None) -> None:
                 pf_rows[cache].append(row)
                 held("flash_prefill" + ("_f32" if f32 else ""), row,
                      rel["this"] <= (F32_CACHE_TOL if f32 else 2.0 ** -8))
-            if cache == "bf16":  # kernel 3 over the same planes
-                dec_rows.append(_decode_turns(trees, libs, label, cfg, ck, cv, L, gen, held))
+            for kvl in KERNEL_MS_DECODE_KV:  # kernel 3 over the same planes
+                dec_rows[cache].append(
+                    _decode_turns(trees, libs, label, cfg, ck, cv, L, gen, held, kvl))
             del ck, cv
             torch.cuda.empty_cache()
+    gemv_rows = _gemv_turns(trees, libs, gen, held)
+    _bulk_copy_rates(libs["this"]["qmatmul"])
     emit({"phase": "kernel_ms", "roots": _roots(trees), "qmatmul_a8": a8_rows,
           "qmatmul_f32": f32_rows, "flash_prefill": pf_rows["bf16"],
-          "flash_prefill_f32": pf_rows["f32"], "flash_decode": dec_rows})
+          "flash_prefill_f32": pf_rows["f32"], "flash_decode": dec_rows["bf16"],
+          "flash_decode_f32": dec_rows["f32"], "qmatmul_gemv": gemv_rows})
 
 
 def _attention_f64(q, ck, cv, layer: int, pos):
@@ -3596,12 +3623,14 @@ def _attention_f64(q, ck, cv, layer: int, pos):
     return o.permute(0, 3, 1, 2, 4).reshape(b, t, h * hd)
 
 
-def _decode_turns(trees, libs, label, cfg, ck, cv, L, gen, held) -> dict:
-    """Kernel 3 (``xq_flash_decode``: the split kernel and the combine) at
-    kv_len KERNEL_MS_DECODE_KV, B = 1, over the bf16 planes of ``kernel_ms``
-    cycling their L layers, in turns with SDPA (``enable_gqa``, bf16 q) as
-    ``_in_turns`` times them, the device times beside the event times;
-    held to its plain version at 1e-5 of each row's max."""
+def _decode_turns(trees, libs, label, cfg, ck, cv, L, gen, held, kvl: int) -> dict:
+    """Kernel 3 (``xq_flash_decode``: one launch in this tree, a split
+    kernel and a combine in trees before it) at kv_len ``kvl``, B = 1, over
+    the bf16 or f32 planes of ``kernel_ms`` cycling their L layers, in
+    turns with SDPA (``enable_gqa``, q in the cache's type) as
+    ``_in_turns`` times them, the device times beside the event times; held
+    to its plain version at 1e-5 of each row's max. Bound: the K and V rows
+    up to kv_len, q and the output, once each."""
     import ctypes
 
     import torch
@@ -3612,7 +3641,7 @@ def _decode_turns(trees, libs, label, cfg, ck, cv, L, gen, held) -> dict:
 
     dev = torch.device(DEVICE)
     kh, h, hd, s = cfg.n_kv_heads, cfg.n_heads, cfg.head_dim, cfg.max_seq_len
-    kvl = KERNEL_MS_DECODE_KV
+    f32 = int(ck.dtype == torch.float32)
     q = torch.randn((1, h, hd), generator=gen, device=dev)
     kv_len = torch.tensor([kvl], dtype=torch.int32, device=dev)
     work = {tag: torch.empty((libs[tag]["attention"].xq_flash_decode_workspace(1, h, s, hd),),
@@ -3626,7 +3655,7 @@ def _decode_turns(trees, libs, label, cfg, ck, cv, L, gen, held) -> dict:
         err = libs[tag]["attention"].xq_flash_decode(
             q.data_ptr(), A._layer_ptr(ck, i), A._layer_ptr(cv, i), kv_len.data_ptr(),
             work[tag].data_ptr(), outs[tag].data_ptr(), 1, h, kh, s, hd,
-            ctypes.c_float(1.0 / math.sqrt(hd)), 0, stream)
+            ctypes.c_float(1.0 / math.sqrt(hd)), f32, stream)
         build.check(err, f"{tag} xq_flash_decode")
     want = A.flash_decode_plain(q, ck, cv, 1, kv_len)
     rel = {}
@@ -3634,20 +3663,141 @@ def _decode_turns(trees, libs, label, cfg, ck, cv, L, gen, held) -> dict:
         call(tag, 1)
         torch.cuda.synchronize()
         rel[tag] = _row_rel(outs[tag], want, hd)
-    qb = q.to(torch.bfloat16)[:, :, None]
+    qb = q.to(ck.dtype)[:, :, None]
     lib_layer = itertools.cycle(range(L))
 
     def lib():
         i = next(lib_layer)
         return F.scaled_dot_product_attention(qb, ck[i, :, :, :kvl], cv[i, :, :, :kvl],
                                               enable_gqa=True)
-    b_ms, b_by = bound(2 * kvl * kh * hd * 2 + 2 * h * hd * 4, 4.0 * h * kvl * hd, PEAK_F32)
-    row = {"case": f"{label} G={h // kh} hd={hd} kv_len={kvl} bf16", "layers": L,
+    b_ms, b_by = bound(2 * kvl * kh * hd * ck.element_size() + 2 * h * hd * 4,
+                       4.0 * h * kvl * hd, PEAK_F32)
+    cache = "f32" if f32 else "bf16"
+    row = {"case": f"{label} G={h // kh} hd={hd} kv_len={kvl} {cache}", "layers": L,
            "max_row_rel_err": rel, "bound_ms": b_ms, "bound_by": b_by}
     row.update(_in_turns({tag: (lambda tag=tag: call(tag)) for tag in trees},
-                         ("flash_decode_split_kernel", "flash_decode_combine_kernel"), lib))
-    held("flash_decode", row, rel["this"] <= 1e-5)
+                         KERNEL_MS_DECODE_FRAGS, lib))
+    held("flash_decode_f32" if f32 else "flash_decode", row, rel["this"] <= 1e-5)
     return row
+
+
+def _gemv_turns(trees, libs, gen, held) -> list[dict]:
+    """Kernel 1's M = 1 GEMV through ``xq_qmatmul`` at Mistral-7B's widths
+    (``_gemv_cases``), layers cycled past twice the L2, in turns with the
+    other tree's and one PyTorch call (``F.linear`` in f32 with TF32 off,
+    or in bf16; ``torch._weight_int8pack_mm`` for i8 with row scales; none
+    with the norm prologue), device times beside the event times; each held
+    to this tree's plain version (f32 weights F32_TOL; bf16 and i8 1e-4,
+    1e-3 with the norm prologue). Bound: the weights, x, the output, the
+    row scales and the norm weights, once each."""
+    import ctypes
+
+    import torch
+    import torch.nn.functional as F
+
+    from xalm_tpu_torch.models.config import MISTRAL_7B
+    from xalm_tpu_torch.ops import build
+    from xalm_tpu_torch.ops.qmatmul import qmatmul_plain
+
+    dev = torch.device(DEVICE)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    kinds = {"i8": (0, torch.int8), "bf16": (1, torch.bfloat16), "f32": (2, torch.float32)}
+    eps = MISTRAL_7B.norm_eps
+    rows = []
+    for name, n, d, wt, use_norm in _gemv_cases(MISTRAL_7B):
+        kind, dt = kinds[wt]
+        elt = dt.itemsize
+        L = _cold_layers(d * n * elt)
+        if wt == "i8":
+            w = torch.randint(-127, 128, (L, d, n), generator=gen, device=dev, dtype=torch.int8)
+            scale = torch.rand((L, d), generator=gen, device=dev) * 1e-3
+        else:
+            w = (torch.randn((L, d, n), generator=gen, device=dev) * 0.02).to(dt)
+            scale = None
+        norm_w = torch.rand((L, n), generator=gen, device=dev) + 0.5 if use_norm else None
+        x = torch.randn((1, n), generator=gen, device=dev)
+        ys = {tag: torch.empty((1, d), device=dev) for tag in trees}
+        layer = {tag: itertools.cycle(range(L)) for tag in trees}
+
+        def call(tag, i=None, w=w, scale=scale, norm_w=norm_w, x=x, n=n, d=d):
+            i = next(layer[tag]) if i is None else i
+            err = libs[tag]["qmatmul"].xq_qmatmul(
+                x.data_ptr(), None if norm_w is None else norm_w.data_ptr() + i * n * 4,
+                ctypes.c_float(eps), w.data_ptr() + i * d * n * w.element_size(), kind,
+                None if scale is None else scale.data_ptr() + i * d * 4, ctypes.c_float(0.0),
+                ys[tag].data_ptr(), None, 1, n, d, stream)
+            build.check(err, f"{tag} xq_qmatmul")
+        kw = {} if scale is None else dict(scale=scale)
+        if use_norm:
+            kw.update(norm_w=norm_w, norm_eps=eps)
+        want = qmatmul_plain(x, w, 1, **kw)
+        rel = {}
+        for tag in trees:
+            call(tag, 1)
+            torch.cuda.synchronize()
+            rel[tag] = _row_rel(ys[tag], want, d)
+        lib_layer = itertools.cycle(range(L))
+        lib = None
+        if wt == "i8" and not use_norm:
+            xb, sc16 = x.to(torch.bfloat16), scale.to(torch.bfloat16)
+
+            def lib(xb=xb, sc16=sc16, w=w):
+                i = next(lib_layer)
+                return torch._weight_int8pack_mm(xb, w[i], sc16[i])
+        elif not use_norm:
+            xl = x.to(dt)
+
+            def lib(xl=xl, w=w):
+                return F.linear(xl, w[next(lib_layer)])
+        nbytes = (d * n * elt + n * 4 + d * 4 + (d * 4 if scale is not None else 0)
+                  + (n * 4 if use_norm else 0))
+        b_ms, b_by = bound(nbytes, 2.0 * n * d, PEAK_F32 if wt == "f32" else PEAK_BF16)
+        row = {"case": f"M=1 {name}" + (", norm prologue" if use_norm else ""), "layers": L,
+               "max_row_rel_err": rel, "bound_ms": b_ms, "bound_by": b_by}
+        if lib is None:
+            row["library_null"] = NO_LIBRARY_NORM
+        row.update(_in_turns({tag: (lambda tag=tag: call(tag)) for tag in trees},
+                             KERNEL_MS_GEMV_FRAGS, lib))
+        rows.append(row)
+        tol = F32_TOL if wt == "f32" else 1e-3 if use_norm else 1e-4
+        held("qmatmul_f32" if wt == "f32" else "qmatmul", row, rel["this"] <= tol)
+        del w, scale, norm_w, lib, call
+        torch.cuda.empty_cache()
+    return rows
+
+
+# the streamed GEMV's ring alone (xq_bulk_stream_bench): bytes a bulk copy,
+# six stages, one block an SM, 256 MB a call over four buffers
+BULK_COPY_SIZES = (1024, 4096, 16384)
+
+
+def _bulk_copy_rates(lib) -> None:
+    """The bytes a second that one block an SM moves through the streamed
+    GEMV's ring of six stages, one bulk copy a stage, by copy size (CUDA
+    events over 20 calls, four 256 MB buffers cycled so each call reads
+    from device memory): the reason its stages are 16 KB copies."""
+    import torch
+
+    from xalm_tpu_torch.ops import build
+
+    dev = torch.device(DEVICE)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    bufs = [torch.zeros(256 << 20, dtype=torch.uint8, device=dev) for _ in range(4)]
+    sink = torch.zeros(1, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rates = {}
+    for size in BULK_COPY_SIZES:
+        nbytes = (256 << 20) // (sms * size) * sms * size
+        turn = itertools.cycle(bufs)
+
+        def call(size=size, nbytes=nbytes):
+            err = lib.xq_bulk_stream_bench(next(turn).data_ptr(), nbytes, size, 6, sms,
+                                           sink.data_ptr(), stream)
+            build.check(err, "xq_bulk_stream_bench")
+        ms = time_ms(call)
+        rates[str(size)] = {"ms": ms, "gb_s": nbytes / ms / 1e6}
+    emit({"phase": "bulk_copy", "blocks": sms, "stages": 6, "by_copy_bytes": rates})
+    del bufs
 
 
 def main(argv=None) -> int:

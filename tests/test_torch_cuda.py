@@ -1888,3 +1888,157 @@ def test_qmatmul_f32_refuses_unaligned_contraction(dev):
         with pytest.raises(ValueError):
             qmatmul(torch.randn((m, 1026), device=dev), w, 0)
     assert build.LAUNCHES["qmatmul_f32"] == 0
+
+
+# ------------------------------- kernel 3 in one launch; the streamed M <= 8 GEMV
+
+# (GQA group, head_dim): every shape of the attention tests above, f32 cache and bf16
+DECODE_SHAPES = sorted(set(ATTENTION_SHAPES) | set(F32_ATTENTION_SHAPES), key=lambda s: s[::-1])
+
+
+def _decode_kv_cases(splits: int, s: int) -> list[int]:
+    """kv_len at the edges of kernel 3's split: none, one row, one block
+    short of a row each, a row each, one over, phase 3's 777 and the whole
+    window."""
+    return [0, 1, splits - 1, splits, splits + 1, min(777, s), s]
+
+
+@pytest.mark.parametrize("f32", [False, True], ids=["bf16", "f32"])
+@pytest.mark.parametrize("g,hd", DECODE_SHAPES, ids=[f"hd{hd}-g{g}" for g, hd in DECODE_SHAPES])
+def test_flash_decode_at_the_split_edges(dev, g, hd, f32):
+    """Kernel 3 (one launch, the live rows split over a cluster of P blocks
+    on the card) against its plain version within 1e-5 of each row's max,
+    at the kv_len edges of the split (``_decode_kv_cases``: 0, 1, P - 1, P,
+    P + 1, 777, S), B = 2 with another kv_len in each row, at two grids: B
+    x KH = 4 (P = 16 on an H100) and 24 (P = 5); S = 800, a multiple of 32
+    that no stage divides. One launch a call, counted under its cache's
+    counter."""
+    gen = torch.Generator(device=dev).manual_seed(7 * g + hd + f32)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    dt = torch.float32 if f32 else torch.bfloat16
+    l, b, s = 2, 2, 800
+    calls = 0
+    build.reset_launches()
+    for kh in (2, 12):
+        h = kh * g
+        ck = torch.randn((l, b, kh, s, hd), device=dev, generator=gen).to(dt)
+        cv = torch.randn((l, b, kh, s, hd), device=dev, generator=gen).to(dt)
+        splits = A.decode_plan(b, kh, g, hd, f32, sms)[0]
+        kvs = _decode_kv_cases(splits, s)
+        for kvl in zip(kvs, kvs[::-1]):
+            q = torch.randn((b, h, hd), device=dev, generator=gen)
+            kv_len = torch.tensor(kvl, dtype=torch.int32, device=dev)
+            got = A.flash_decode(q, ck, cv, 1, kv_len)
+            want = A.flash_decode_plain(q, ck, cv, 1, kv_len)
+            calls += 1
+            assert got.shape == (b, h * hd) and torch.isfinite(got).all(), kvl
+            assert _row_rel(got, want, hd) < 1e-5, (kh, splits, kvl)
+            if 0 in kvl:
+                assert not got[kvl.index(0)].any(), kvl  # kv_len 0 gives 0
+    counter = "flash_decode_f32" if f32 else "flash_decode"
+    assert build.LAUNCHES[counter] == calls
+    assert build.LAUNCHES["flash_decode" if f32 else "flash_decode_f32"] == 0
+
+
+@pytest.mark.parametrize("f32", [False, True], ids=["bf16", "f32"])
+def test_flash_decode_replays_in_a_cuda_graph(dev, f32):
+    """One flash_decode call captured in a CUDA graph and replayed three
+    times, q and kv_len rewritten in place before each replay (the kernel
+    reads kv_len on the card): each replay equals the eager call on the
+    same inputs, bit for bit. Nothing of one launch (no workspace, no
+    counter) is left for the next."""
+    gen = torch.Generator(device=dev).manual_seed(5 + f32)
+    dt = torch.float32 if f32 else torch.bfloat16
+    l, b, kh, s, hd, g = 2, 2, 8, 4096, 128, 4
+    h = kh * g
+    ck = torch.randn((l, b, kh, s, hd), device=dev, generator=gen).to(dt)
+    cv = torch.randn((l, b, kh, s, hd), device=dev, generator=gen).to(dt)
+    q = torch.randn((b, h, hd), device=dev, generator=gen)
+    kv_len = torch.tensor([777, 4064], dtype=torch.int32, device=dev)
+    A.flash_decode(q, ck, cv, 1, kv_len)  # the launcher's one-time set-up, outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = A.flash_decode(q, ck, cv, 1, kv_len)
+    for kvl in ((777, 4064), (1, 0), (4096, 16)):
+        q.copy_(torch.randn((b, h, hd), device=dev, generator=gen))
+        kv_len.copy_(torch.tensor(kvl, dtype=torch.int32, device=dev))
+        graph.replay()
+        torch.cuda.synchronize()
+        want = A.flash_decode(q, ck, cv, 1, kv_len)
+        assert torch.equal(out, want), kvl
+        assert _row_rel(out, A.flash_decode_plain(q, ck, cv, 1, kv_len), hd) < 1e-5, kvl
+
+
+def _gemv_cases() -> list:
+    """(M, N, dtype) of the streamed GEMV at M 1..8 and N 16, 14336, 24576
+    and 81920, wherever qmatmul takes it (x within 160 KB of shared memory:
+    ``gemv_plan``)."""
+    from xalm_tpu_torch.ops.qmatmul import gemv_plan
+
+    return [(m, n, dt) for dt in (torch.float32, torch.bfloat16) for n in (16, 14336, 24576, 81920)
+            for m in range(1, 9) if gemv_plan(m, n, 1000, dt, 132) is not None]
+
+
+@pytest.mark.parametrize("m,n,wdt", _gemv_cases(),
+                         ids=[f"{str(dt)[6:]}-n{n}-m{m}" for m, n, dt in _gemv_cases()])
+def test_qmatmul_streamed_gemv_matches_plain(dev, m, n, wdt):
+    """Kernel 1's M <= 8 GEMV for f32 and bf16 weights (one block an SM, the
+    weights through a ring of bulk copies: several rows a stage at N = 16,
+    segments of a row at the wider N) against its plain version, D = 1000
+    (rows dealt 7 or 8 a block, a last stage not full), with and without the
+    norm prologue: f32 within 1e-5 of each row's max, bf16 1e-4
+    (1e-3 with the prologue: the rms summed in another order can flip the
+    bf16 rounding of an activation)."""
+    g = torch.Generator(device=dev).manual_seed(m + n)
+    l, d = 2, 1000
+    w = (torch.randn((l, d, n), device=dev, generator=g) * 0.02).to(wdt)
+    x = torch.randn((m, n), device=dev, generator=g)
+    nw = torch.rand((l, n), device=dev, generator=g) + 0.5
+    f32 = wdt == torch.float32
+    for extra in ({}, dict(norm_w=nw, norm_eps=1e-5)):
+        build.reset_launches()
+        got = qmatmul(x, w, 1, **extra)
+        assert build.LAUNCHES["qmatmul_f32" if f32 else "qmatmul"] == 1
+        assert torch.isfinite(got).all()
+        tol = 1e-5 if f32 else 1e-3 if extra else 1e-4
+        assert _row_rel(got, qmatmul_plain(x, w, 1, **extra), d) <= tol, extra.keys()
+
+
+@pytest.mark.parametrize("family", PLAN_FAMILIES)
+def test_decode_and_gemv_plans_match_the_launchers(dev, family):
+    """``ops.attention.decode_plan`` and ``ops.qmatmul.gemv_plan`` (at the
+    device's SM count), which tests/test_torch_plans.py checks on the CPU,
+    equal to what ``xq_flash_decode_plan`` and ``xq_gemv_plan`` report: the
+    decode at B 1, 2, 4 and 8 over both caches (the launcher also asks the
+    card that one cluster of that size fits), the GEMV at every forward
+    (N, D) and the head, M 1 to 8, for bf16 and f32 weights; both refuse
+    what their kernels do not take."""
+    import ctypes
+
+    from xalm_tpu_torch.models import config as C
+    from xalm_tpu_torch.ops.qmatmul import gemv_plan
+
+    cfg = getattr(C, family)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    qlib, alib = build.load_library("qmatmul"), build.load_library("attention")
+    h, kh = cfg.n_heads, cfg.n_kv_heads
+    for b in (1, 2, 4, 8):
+        for f32 in (0, 1):
+            got = (ctypes.c_int * 3)()
+            assert alib.xq_flash_decode_plan(b, h, kh, cfg.head_dim, f32, got) == 0, (b, f32)
+            assert tuple(got) == A.decode_plan(b, kh, h // kh, cfg.head_dim, bool(f32), sms)
+    assert alib.xq_flash_decode_plan(1, 9, 1, 128, 0, (ctypes.c_int * 3)()) != 0
+    shapes = [(cfg.dim, cfg.q_dim + 2 * cfg.kv_dim), (cfg.q_dim, cfg.dim),
+              (cfg.dim, 2 * cfg.hidden_dim), (cfg.hidden_dim, cfg.dim), (cfg.dim, cfg.vocab_size)]
+    for n, d in shapes:
+        for kind, dt in ((1, torch.bfloat16), (2, torch.float32)):
+            for m in range(1, 9):
+                want = gemv_plan(m, n, d, dt, sms)
+                got = (ctypes.c_int * 4)()
+                err = qlib.xq_gemv_plan(m, n, d, kind, got)
+                assert (err == 0) == (want is not None), (m, n, d, dt)
+                if want is not None:
+                    assert tuple(got) == want, (m, n, d, dt)
+    for kind in (0, 3, 4):  # int8, fp8: the warp-a-row-pair GEMV
+        assert qlib.xq_gemv_plan(1, 4096, 4096, kind, (ctypes.c_int * 4)()) != 0

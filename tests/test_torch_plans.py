@@ -15,14 +15,25 @@ launchers' own, ``xq_qmatmul_a8_plan`` and ``xq_flash_prefill_plan``):
   once, hold whole positions in at most 128 rows (64 over an f32 cache at
   head_dim 256), and launch the last (longest) query tiles first;
 - the split-TF32 f32 GEMM's gate (``ops.qmatmul.f32_gemm_check``): every
-  forward (K, D) is taken, K off the 4 granule raises.
+  forward (K, D) is taken, K off the 4 granule raises;
+- flash-decode's launch (``ops.attention.decode_plan``): at each family's
+  kv heads, GQA group and head_dim, B 1 to 8 and both caches, one block an
+  SM or fewer (a cluster of 1 to 16 blocks a (batch, kv head)), a stage's
+  key rows a multiple of the eight warps within 16 KB;
+- the streamed GEMV (``ops.qmatmul.gemv_plan``): every forward (N, D) and
+  the head at M = 1 to 8 for bf16 and f32 weights, one block an SM
+  (fewer only where D is), each warp's two stages of 4 to 8 KB beside x in
+  a block's shared memory, a stage whole rows or a segment of one; M
+  above 8, x past 160 KB, int8 and fp8 take other routes.
 """
 
 import pytest
 
 from xalm_tpu_torch.models import config as C
-from xalm_tpu_torch.ops.attention import prefill_plan
-from xalm_tpu_torch.ops.qmatmul import a8_plan, f32_gemm_check
+import torch
+
+from xalm_tpu_torch.ops.attention import decode_plan, prefill_plan
+from xalm_tpu_torch.ops.qmatmul import a8_plan, f32_gemm_check, gemv_plan
 
 import tests.torch_threads  # noqa: F401  (one intra-op thread per process)
 
@@ -100,3 +111,56 @@ def test_f32_gemm_refuses_what_the_kernel_does_not_take(m, k, d):
 def test_prefill_plan_refuses_what_the_kernel_does_not_take(t, g, hd):
     with pytest.raises(ValueError, match="flash_prefill"):
         prefill_plan(t, g, hd)
+
+
+@pytest.mark.parametrize("f32", [False, True], ids=["bf16", "f32"])
+@pytest.mark.parametrize("family", FAMILIES)
+def test_decode_plan_at_every_family(family, f32):
+    cfg = FAMILIES[family]
+    g, hd, kh = cfg.group_size, cfg.head_dim, cfg.n_kv_heads
+    for b in (1, 2, 4, 8):
+        splits, rows, stages = decode_plan(b, kh, g, hd, f32, H100_SMS)
+        assert 1 <= splits <= 16 and (splits == 1 or splits * b * kh <= H100_SMS), b
+        assert splits == 16 or splits == 1 or (splits + 1) * b * kh > H100_SMS, b  # the card full
+        assert rows % 8 == 0 and rows * hd * (4 if f32 else 2) <= 16384 and stages == 3
+    assert decode_plan(1, 8, 4, 128, False, H100_SMS)[0] == 16  # Mistral: 128 blocks
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_gemv_plan_takes_every_decode_matmul(family):
+    cfg = FAMILIES[family]
+    shapes = {name: (k, d) for name, (k, d) in _forward_shapes(cfg).items()}
+    shapes["head"] = (cfg.dim, cfg.vocab_size)
+    for name, (n, d) in shapes.items():
+        for dt in (torch.bfloat16, torch.float32):
+            xbytes = 4 if dt == torch.float32 else 2
+            for m in range(1, 9):
+                plan = gemv_plan(m, n, d, dt, H100_SMS)
+                if m * n * xbytes > 160 * 1024:
+                    assert plan is None, (name, m, dt)
+                    continue
+                blocks, slot, rps, nseg = plan
+                assert blocks == min(d, H100_SMS), (name, m, dt)
+                assert 4096 <= slot <= 8192 and slot % 1024 == 0, (name, m, dt)
+                assert 16 * slot + m * n * xbytes <= 227 * 1024 - 1024  # 8 warps x 2 stages
+                rowb = n * dt.itemsize  # a stage: whole rows, or a segment of one
+                assert (1 <= rps * rowb <= slot and nseg == 1) or (
+                    rps == 1 and rowb > slot and -(-rowb // nseg) <= slot), (name, m, dt)
+            assert gemv_plan(1, n, d, dt, H100_SMS) is not None, (name, dt)  # M = 1 always
+        for dt in (torch.int8, torch.float8_e4m3fn):  # the warp-a-row-pair GEMV
+            assert gemv_plan(1, n, d, dt, H100_SMS) is None
+
+
+@pytest.mark.parametrize("m,n,d,dt,want", [
+    (1, 14336, 4096, torch.float32, (132, 8192, 1, 7)),  # Mistral w2 f32: a row in 7 segments
+    (2, 14336, 4096, torch.float32, (132, 7168, 1, 8)),  # 112 KB of x: 7 KB stages
+    (1, 4096, 32000, torch.bfloat16, (132, 8192, 1, 1)),  # the bf16 head: a row a stage
+    (1, 2048, 4096, torch.bfloat16, (132, 8192, 2, 1)),   # 4 KB rows: two a stage
+    (1, 4096, 6144, torch.int8, None),           # int8: the warp-a-row-pair GEMV
+    (1, 81920, 64, torch.bfloat16, (64, 4096, 1, 40)),    # 160 KB of x: 4 KB stages
+    (9, 4096, 4096, torch.bfloat16, None),       # M above 8: the tiled GEMM
+    (4, 14336, 4096, torch.float32, None),       # x past 160 KB
+    (1, 24, 64, torch.bfloat16, None),           # N off the 16 granule
+])
+def test_gemv_plan_cases(m, n, d, dt, want):
+    assert gemv_plan(m, n, d, dt, H100_SMS) == want

@@ -20,22 +20,40 @@
 //
 // 2. xq_flash_decode replaces _attn_kernel. The TPU grid walks the
 //    sequence in order carrying a running max and sum; blocks on the card
-//    run in no order, so the sequence is split into 128-row chunks, one
-//    block per (batch, kv head, chunk): phase 1 scores the chunk for the
-//    head's G query heads (f32 dots over the bf16 or f32 cache, one thread
-//    per key row, 16-byte loads, q broadcast from shared memory: no shuffle
-//    chains on the critical path), phase 2 takes each head's chunk max and
-//    exp-sums, phase 3 forms the un-normalised P.V, each warp over a quarter
-//    of the rows (coalesced loads of a lane's 4 or 8 values, several rows in
-//    flight), summed across the warps.
-//    A second small kernel combines the chunks' (max, sum, acc) partials.
-//    Chunks past kv_len exit at once; kv_len == 0 gives 0, not NaN. The
+//    run in no order. One launch a call, flash_decode_cluster_kernel: grid
+//    (P, B x KH) in clusters of the P blocks of one (batch, kv head), P
+//    about the SMs over B x KH, 1 to 16 (fc_splits: 16 at Mistral's 8 kv
+//    heads, B = 1; a cluster above 8 is non-portable, and the launcher asks
+//    the card whether one fits). The host never reads kv_len (a CUDA graph
+//    can replay the launch): each block reads kv_len[b] and takes rows
+//    [floor(p n / P), floor((p + 1) n / P)), floor(n / P) or ceil(n / P)
+//    of them, so every block has rows once kv_len >= P and S only bounds
+//    the indexing. A producer warp brings the block's K and V rows by 1-D
+//    bulk copies (hopper.cuh) into a ring of 3 stages of at most 16 KB a
+//    plane (full and empty mbarriers), all of a short block's rows before
+//    any score: V lands while K is scored. Eight consumer warps score f32
+//    q (in registers, a lane's VPL dims) against the K rows in shared
+//    memory (a warp reads a row: no bank conflict), NR rows x G heads at a
+//    time, the lanes' partial dots summed by a scatter reduction (one
+//    shuffle a sum, not five); each warp keeps an online softmax per head
+//    in f32 (nothing rounded to bf16, as the plain version) and adds p
+//    times the V rows (p broadcast from shared memory). The warps' partials
+//    merge at the block's max (shuffles over a head's lanes); each block
+//    then stores its partial of every output slice into the shared memory
+//    of the block that normalises that slice (distributed shared memory,
+//    stores only: nothing waits on a peer's reply), and after one
+//    cluster.sync() each block combines the P partials of its slice. A
+//    relaxed cluster arrive at the start (waited on before the stores)
+//    makes sure every peer is running. No global partials and no counters:
+//    nothing is left between launches. kv_len == 0 gives 0, not NaN. The
 //    GQA group G = H / KH and the head dim HD are template parameters,
-//    instantiated for each G in 1..8 (Qwen2.5-7B has G = 7, Qwen2.5-14B
-//    G = 5) and HD in {96, 128, 256} (Phi-3; Llama, Mistral and Qwen; Gemma
-//    and Gemma-2), dispatched at run time. In phase 3 a lane holds 4 of a
-//    V row's dims (HD 96: lanes 24..31 idle) or 8 (HD 256). Bound: bytes
-//    (the cache rows up to kv_len, read once).
+//    instantiated for each G in 1..8 (Qwen2.5-7B has G = 7, Qwen2.5-14B G
+//    = 5) and HD in {96, 128, 256} (Phi-3; Llama, Mistral and Qwen; Gemma
+//    and Gemma-2), dispatched at run time; a lane holds 4 of a row's dims
+//    (HD 96: lanes 24..31 idle) or 8 (HD 256). Bound: bytes (the cache
+//    rows up to kv_len, read once: 3.2 MB, 0.96 us at Mistral's shapes and
+//    kv_len 777); at such sizes the launch, one dependent trip to memory
+//    and the cluster's barrier, which the design takes once each.
 //
 // 3. xq_kv_update_q replaces _insert_q_kernel and _sink_q_kernel in one
 //    launch, over an int8 cache with per-row f32 scale planes (L, B, KH, S).
@@ -49,15 +67,18 @@
 //    version's separate f32 operations) and requantises them. Bit-equal to
 //    the plain version: absmax is order-free. Bound: launch latency, as 1.
 //
-// 4. xq_flash_decode_q replaces _attn_q_kernel: the split-chunk design of
-//    2 over int8 codes, the row scales factored out of both dots as in the
-//    TPU kernel. Phase 1: one thread per key row, q cast to bf16 in shared
-//    memory, 16 codes per 16-byte load, score = (q . codes) * (k_scale *
-//    1/sqrt(hd)). Phase 2: the chunk max, p = exp(score - max), the sum of
-//    p, and bf16(p * v_scale) kept for phase 3, which sums it times the V
-//    codes (4 codes per lane, a warp per row). The combine kernel of 2 is
-//    shared. Bound: bytes (the code rows and their scales up to kv_len, half
-//    the bytes of the bf16 cache). G in 1..8 and HD in {96, 128, 256}, as in
+// 4. xq_flash_decode_q replaces _attn_q_kernel: a block per (batch, kv
+//    head, 128-row chunk) over int8 codes (the chunks past kv_len exit at
+//    once), the row scales factored out of both dots as in the TPU kernel,
+//    and a second small kernel (flash_decode_combine_kernel) that combines
+//    the chunks' (max, sum, acc) partials from the workspace. Phase 1:
+//    one thread per key row, q cast to bf16 in shared memory, 16 codes per
+//    16-byte load, score = (q . codes) * (k_scale * 1/sqrt(hd)). Phase 2:
+//    the chunk max, p = exp(score - max), the sum of p, and bf16(p *
+//    v_scale) kept for phase 3, which sums it times the V codes (4 codes
+//    per lane, a warp per row). Bound: bytes (the code rows and their
+//    scales up to kv_len, half the bytes of the bf16 cache). G in 1..8 and
+//    HD in {96, 128, 256}, as in
 //    2 (a lane holds 4 V codes, or 8 at HD 256).
 //
 // 5. xq_flash_prefill replaces _prefill_kernel (FlashAttention-3's shape,
@@ -101,6 +122,7 @@
 //    Bound: operations at T = 512, three TF32 products at 494.7 TFLOP/s
 //    (hd 256, pos 1024: 0.065 ms; f32 FMA: 0.160).
 
+#include <cooperative_groups.h>
 #include <math.h>
 
 #include <type_traits>
@@ -149,17 +171,22 @@ constexpr int FD_CHUNK = 128;  // key rows per block: one per thread in phase 1
 constexpr int FD_MAX_G = 8;    // GQA groups 1..8, one instantiation each
 
 // launch(std::integral_constant<int, G>{}) for the GQA group g, so that G is
-// a compile-time constant inside the kernel it launches, then
-// cudaGetLastError(); a g outside 1..FD_MAX_G launches nothing and gives
-// cudaErrorInvalidValue
+// a compile-time constant inside the kernel it launches, then what it
+// returns or, where it returns nothing, cudaGetLastError(); a g outside
+// 1..FD_MAX_G launches nothing and gives cudaErrorInvalidValue
 template <int G = 1, typename Launch>
 cudaError_t for_group(int g, Launch launch) {
   if constexpr (G > FD_MAX_G) {
     return cudaErrorInvalidValue;
   } else {
     if (g != G) return for_group<G + 1>(g, launch);
-    launch(std::integral_constant<int, G>{});
-    return cudaGetLastError();
+    using Ret = decltype(launch(std::integral_constant<int, G>{}));
+    if constexpr (std::is_void_v<Ret>) {
+      launch(std::integral_constant<int, G>{});
+      return cudaGetLastError();
+    } else {
+      return launch(std::integral_constant<int, G>{});
+    }
   }
 }
 
@@ -176,8 +203,9 @@ cudaError_t for_head_dim(int hd, Launch launch) {
   }
 }
 
-// phase 3 of the flash-decodes: a lane holds VPL consecutive dims of a V
-// row, the first HD / VPL lanes of each warp (HD 96: 24 lanes of 4)
+// the flash-decodes' lanes: a lane holds VPL consecutive dims of a row (K
+// and V in kernel 3, V in phase 3 of kernel 7), the first HD / VPL lanes of
+// each warp (HD 96: 24 lanes of 4)
 template <int HD>
 __host__ __device__ constexpr int fd_vpl() { return HD == 256 ? 8 : 4; }
 
@@ -222,131 +250,331 @@ __device__ __forceinline__ void load_s8(const signed char* p, float* out) {
   }
 }
 
+// ---- kernel 3: one launch a call, the live rows split over a cluster
+
+constexpr int FC_STAGES = 3;       // the ring of K/V row stages
+constexpr int FC_PLANE = 16384;    // bytes of K rows (and of V rows) a stage holds, at most
+constexpr int FC_MAX_SPLITS = 16;  // blocks a (batch, kv head): the largest cluster (non-portable)
+
+// The consumer warps a block, and a producer warp. Two blocks an SM fit
+// where a thread needs at most 113 registers (G <= 6; ptxas's report), which
+// 8 clusters of 16 (Mistral-7B's 8 kv heads at B = 1) need: an H100 holds 7
+// such clusters at one block an SM, 14 at two (cudaOccupancyMaxActiveClusters).
+constexpr int FC_WARPS = 8;
+constexpr int FC_THREADS = (FC_WARPS + 1) * 32;
+
+// The GQA group rounded up to a power of two: the heads of a lane's
+// partial dots (the padding heads' are zero and never used)
+__host__ __device__ constexpr int fc_gp(int g) { return g <= 1 ? 1 : g <= 2 ? 2 : g <= 4 ? 4 : 8; }
+
+// Key rows a warp scores at once: NR * fc_gp(G) <= 32 partial dots a lane,
+// and a stage's FC_WARPS x NR rows within FC_PLANE bytes (a power of two)
 template <int G, int HD, typename CT>
-__global__ void __launch_bounds__(FD_THREADS) flash_decode_split_kernel(
-    const float* __restrict__ q, const CT* __restrict__ ck,
-    const CT* __restrict__ cv, const int* __restrict__ kv_len,
-    float* __restrict__ pm, float* __restrict__ pl, float* __restrict__ pacc,
-    int KH, int S, float sm_scale) {
-  constexpr int VPL = fd_vpl<HD>(), NL = HD / VPL;
-  __shared__ __align__(16) float qs[G][HD];
-  __shared__ float sc[G][FD_CHUNK];
-  __shared__ float red[FD_THREADS / 32][G][HD];
-  __shared__ float mrow[G], lrow[G];
-  const int H = KH * G;
-  const int b = blockIdx.x / KH, h = blockIdx.x % KH;
-  const int split = blockIdx.y, NS = gridDim.y;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int r0 = split * FD_CHUNK;
-  const int n = min(FD_CHUNK, kv_len[b] - r0);  // rows of this chunk (<= 0: none)
-  const size_t part0 = ((size_t)b * H + (size_t)h * G) * NS + split;  // head gi at + gi*NS
+__host__ __device__ constexpr int fc_nr() {
+  constexpr int fit = FC_PLANE / (FC_WARPS * HD * (int)sizeof(CT));
+  constexpr int nr = fit >= 8 ? 8 : fit >= 4 ? 4 : fit >= 2 ? 2 : 1;
+  return nr < 32 / fc_gp(G) ? nr : 32 / fc_gp(G);
+}
 
-  if (n <= 0) {
-#pragma unroll
-    for (int gi = 0; gi < G; ++gi) {
-      const size_t pi = part0 + (size_t)gi * NS;
-      for (int d = tid; d < HD; d += FD_THREADS) pacc[pi * HD + d] = 0.f;
-      if (tid == 0) {
-        pm[pi] = -INFINITY;
-        pl[pi] = 0.f;
-      }
-    }
-    return;
-  }
-  const size_t stripe = ((size_t)b * KH + h) * S * HD;
-  for (int i = tid; i < G * HD; i += FD_THREADS)
-    qs[i / HD][i % HD] = q[((size_t)b * H + (size_t)h * G) * HD + i] * sm_scale;
-  __syncthreads();
+template <int G, int HD, typename CT>
+__host__ __device__ constexpr int fc_rows() { return FC_WARPS * fc_nr<G, HD, CT>(); }
 
-  // phase 1: thread r scores key row r for the G heads; f32 dots, 16-byte
-  // loads (8 bf16 or 4 f32 values), q broadcast from shared memory
-  if (tid < n) {
-    constexpr int PER = 16 / sizeof(CT);
-    const int4* krow = reinterpret_cast<const int4*>(ck + stripe + (size_t)(r0 + tid) * HD);
-    float s[G];
-#pragma unroll
-    for (int gi = 0; gi < G; ++gi) s[gi] = 0.f;
-#pragma unroll
-    for (int c = 0; c < HD / PER; ++c) {  // every load of the row in flight
-      const int4 raw = __ldg(krow + c);
-      float kf[PER];
-      load_cache<CT, PER>(reinterpret_cast<const CT*>(&raw), kf);
-#pragma unroll
-      for (int gi = 0; gi < G; ++gi) {
-#pragma unroll
-        for (int e = 0; e < PER; e += 4) {
-          const float4 qa = *reinterpret_cast<const float4*>(&qs[gi][c * PER + e]);
-          s[gi] += qa.x * kf[e] + qa.y * kf[e + 1] + qa.z * kf[e + 2] + qa.w * kf[e + 3];
-        }
-      }
-    }
-#pragma unroll
-    for (int gi = 0; gi < G; ++gi) sc[gi][tid] = s[gi];
-  }
-  __syncthreads();
+// Dynamic shared memory: the ring (K and V planes of each stage), whose
+// bytes take the warps' accumulators (FC_WARPS x G x HD f32) once drained
+template <int G, int HD, typename CT>
+__host__ __device__ constexpr int fc_smem() {
+  constexpr int ring = FC_STAGES * 2 * fc_rows<G, HD, CT>() * HD * (int)sizeof(CT);
+  constexpr int warps = FC_WARPS * G * HD * 4;
+  return ring > warps ? ring : warps;
+}
 
-  // phase 2: per query head, the chunk max and exp-sum
-  for (int gi = warp; gi < G; gi += FD_THREADS / 32) {
-    float mx = -INFINITY;
-    for (int r = lane; r < n; r += 32) mx = fmaxf(mx, sc[gi][r]);
-    mx = xq_warp_max(mx);
-    float sum = 0.f;
-    for (int r = lane; r < n; r += 32) {
-      const float p = expf(sc[gi][r] - mx);
-      sc[gi][r] = p;
-      sum += p;
+// One halving exchange of xq_warp_sum_scatter at offset O, then the next:
+// a lane keeps the half of its 2 HALF values that its bit O selects and
+// adds the partner's copy of it (template recursion: every index is known
+// at compile time, so v stays in registers)
+template <int V, int HALF, int O>
+__device__ __forceinline__ void xq_scatter_halves(float (&v)[V], int lane) {
+  if constexpr (HALF >= 1) {
+    const bool up = (lane & O) != 0;
+#pragma unroll
+    for (int i = 0; i < HALF; ++i) {
+      const float send = up ? v[i] : v[i + HALF];
+      const float keep = up ? v[i + HALF] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
     }
-    sum = xq_warp_sum(sum);
-    if (lane == 0) {
-      mrow[gi] = mx;
-      lrow[gi] = sum;
-    }
-  }
-  __syncthreads();
-
-  // phase 3: un-normalised P.V; warp w takes rows w, w+4, ... with the
-  // lane's VPL dims (unrolled so several rows are in flight), then the four
-  // warps' partial sums add up through shared memory
-  float acc[G][VPL];
-#pragma unroll
-  for (int gi = 0; gi < G; ++gi)
-#pragma unroll
-    for (int e = 0; e < VPL; ++e) acc[gi][e] = 0.f;
-  if (lane < NL) {
-#pragma unroll 8
-    for (int r = warp; r < n; r += FD_THREADS / 32) {
-      float vf[VPL];
-      load_cache<CT, VPL>(cv + stripe + (size_t)(r0 + r) * HD + lane * VPL, vf);
-#pragma unroll
-      for (int gi = 0; gi < G; ++gi) {
-        const float p = sc[gi][r];
-#pragma unroll
-        for (int e = 0; e < VPL; ++e) acc[gi][e] += p * vf[e];
-      }
-    }
-#pragma unroll
-    for (int gi = 0; gi < G; ++gi)
-#pragma unroll
-      for (int e = 0; e < VPL; ++e) red[warp][gi][lane * VPL + e] = acc[gi][e];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int gi = 0; gi < G; ++gi) {
-    const size_t pi = part0 + (size_t)gi * NS;
-    for (int d = tid; d < HD; d += FD_THREADS) {
-      float a = 0.f;
-#pragma unroll
-      for (int w = 0; w < FD_THREADS / 32; ++w) a += red[w][gi][d];
-      pacc[pi * HD + d] = a;
-    }
-    if (tid == 0) {
-      pm[pi] = mrow[gi];
-      pl[pi] = lrow[gi];
-    }
+    xq_scatter_halves<V, HALF / 2, O / 2>(v, lane);
   }
 }
 
-// one block of hd threads per (batch, head): the chunks' partials combined
+// The warp's sum of each of a lane's V partial sums v[0..V) (V a power of
+// two up to 32): the first log2 V exchanges halve the values a lane holds
+// (it keeps the half that its bit of the offset selects, and adds the
+// partner's copy of it), the rest add the one value left. V - 1 + 5 -
+// log2 V shuffles for V sums, where a full reduction of each takes 5 V.
+// Lane l ends with the sum of value e = l >> (5 - log2 V), bit for bit the
+// same in every lane that shares e.
+template <int V>
+__device__ __forceinline__ float xq_warp_sum_scatter(float (&v)[V], int lane) {
+  xq_scatter_halves<V, V / 2, 16>(v, lane);
+  float s = v[0];
+#pragma unroll
+  for (int o = 16 / V; o >= 1; o /= 2) s += __shfl_xor_sync(0xffffffffu, s, o);
+  return s;
+}
+
+// Grid (P, B * KH), clusters of the P blocks of one (batch, kv head); block
+// p attends over rows [floor(p n / P), floor((p + 1) n / P)), n = kv_len[b]
+// read here (the host never reads it), and the cluster combines the P
+// partials through distributed shared memory (see the note, item 2).
+template <int G, int HD, typename CT>
+__global__ void __launch_bounds__(FC_THREADS) flash_decode_cluster_kernel(
+    const float* __restrict__ q, const CT* __restrict__ ck, const CT* __restrict__ cv,
+    const int* __restrict__ kv_len, float* __restrict__ out, int KH, int S, float sm_scale) {
+  namespace cg = cooperative_groups;
+  constexpr int VPL = fd_vpl<HD>(), NL = HD / VPL;
+  constexpr int GP = fc_gp(G), NR = fc_nr<G, HD, CT>(), V = NR * GP;
+  constexpr int LOG_V = V >= 32 ? 5 : V >= 16 ? 4 : V >= 8 ? 3 : V >= 4 ? 2 : V >= 2 ? 1 : 0;
+  constexpr int R = fc_rows<G, HD, CT>(), PLANE = R * HD;
+  constexpr int W = FC_WARPS, NT = FC_THREADS;
+  extern __shared__ __align__(128) unsigned char smem[];
+  CT* ring = reinterpret_cast<CT*>(smem);        // [FC_STAGES][K, V][R][HD]
+  float* wacc = reinterpret_cast<float*>(smem);  // [W][G][HD], the ring drained
+  __shared__ uint64_t full[FC_STAGES], empty[FC_STAGES];
+  __shared__ __align__(16) float pb[W][32];  // a warp's p, row r head g at r GP + g
+  __shared__ float ab[W][GP];                // and each head's rescale
+  __shared__ float wm[W][G], wl[W][G], fac[W][G];
+  __shared__ float pm[G], pl[G];                    // the block's partial: max, sum of p
+  // the P blocks' partials of this block's slice of the G x HD outputs,
+  // pushed here by each block (itself too): max and sum of each head, and
+  // the un-normalised P.V of the slice, rank by rank
+  __shared__ float gm[FC_MAX_SPLITS][G], gs[FC_MAX_SPLITS][G];
+  __shared__ float ga[G * HD + FC_MAX_SPLITS];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int P = gridDim.x, p = blockIdx.x;
+  const int b = blockIdx.y / KH, h = blockIdx.y % KH, H = KH * G;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n = min(max(kv_len[b], 0), S);
+  const int r0 = (int)((long long)p * n / P), r1 = (int)((long long)(p + 1) * n / P);
+  const int nst = (r1 - r0 + R - 1) / R;  // stages of this block's rows
+  const size_t first = (((size_t)b * KH + h) * S + r0) * HD;
+
+  if (tid == 0) {
+    for (int s = 0; s < FC_STAGES; ++s) {
+      xq_mbar_init(&full[s], 1);
+      xq_mbar_init(&empty[s], W);
+    }
+    xq_mbar_fence_init();
+  }
+  xq_cluster_arrive_relaxed();  // this block has started: peers may write its shared memory
+  __syncthreads();  // the barriers' initialisation, seen by every thread
+
+  if (warp == W) {
+    // the producer warp: stage it's K and V rows, two bulk copies (the rows
+    // are contiguous in the (B, KH, S, hd) stripe), once the consumers have
+    // released the round before in its slot
+    if (lane == 0) {
+      for (int it = 0; it < nst; ++it) {
+        const int s = it % FC_STAGES;
+        if (it >= FC_STAGES) xq_mbar_wait(&empty[s], (it / FC_STAGES - 1) & 1);
+        const uint32_t bytes = (uint32_t)min(R, r1 - r0 - it * R) * HD * sizeof(CT);
+        CT* dst = ring + (size_t)s * 2 * PLANE;
+        xq_mbar_expect_tx(&full[s], 2 * bytes);
+        xq_bulk_g2s(dst, ck + first + (size_t)it * PLANE, bytes, &full[s]);
+        xq_bulk_g2s(dst + PLANE, cv + first + (size_t)it * PLANE, bytes, &full[s]);
+      }
+    }
+  } else {
+    // the G heads' q, scaled, in registers: lane l holds dims [l VPL, (l + 1) VPL)
+    float qr[G][VPL];
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const float* qg = q + ((size_t)b * H + (size_t)h * G + g) * HD + lane * VPL;
+#pragma unroll
+      for (int e = 0; e < VPL; e += 4) {
+        const float4 v = lane < NL ? *reinterpret_cast<const float4*>(qg + e)
+                                   : make_float4(0.f, 0.f, 0.f, 0.f);
+        qr[g][e] = v.x * sm_scale;
+        qr[g][e + 1] = v.y * sm_scale;
+        qr[g][e + 2] = v.z * sm_scale;
+        qr[g][e + 3] = v.w * sm_scale;
+      }
+    }
+    // after the scatter sum this lane holds row rl, head gl of the warp's NR x GP
+    const int el = lane >> (5 - LOG_V), rl = el / GP, gl = el % GP;
+    const bool rep = (lane & ((1 << (5 - LOG_V)) - 1)) == 0;  // the first lane holding el
+    float m_run = -INFINITY, l_run = 0.f;                      // head gl's, over rows rl
+    float acc[G][VPL];
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int e = 0; e < VPL; ++e) acc[g][e] = 0.f;
+    for (int it = 0; it < nst; ++it) {
+      const int s = it % FC_STAGES;
+      xq_mbar_wait(&full[s], (it / FC_STAGES) & 1);
+      const int gv = min(NR, min(R, r1 - r0 - it * R) - warp * NR);  // warp's rows (<= 0: none)
+      if (gv > 0) {
+        const CT* kst = ring + (size_t)s * 2 * PLANE + (size_t)warp * NR * HD + lane * VPL;
+        const CT* vst = kst + PLANE;
+        // scores: the lane's dims of each row's dot with each head, summed over the warp
+        float v[V];
+#pragma unroll
+        for (int r = 0; r < NR; ++r) {
+          float kf[VPL];
+          if (lane < NL && r < gv) {
+            load_cache<CT, VPL>(kst + r * HD, kf);
+          } else {
+#pragma unroll
+            for (int e = 0; e < VPL; ++e) kf[e] = 0.f;
+          }
+#pragma unroll
+          for (int g = 0; g < GP; ++g) {
+            float d = 0.f;
+            if (g < G) {
+#pragma unroll
+              for (int e = 0; e < VPL; ++e) d += qr[g < G ? g : 0][e] * kf[e];
+            }
+            v[r * GP + g] = d;
+          }
+        }
+        const float sc = xq_warp_sum_scatter<V>(v, lane);
+        // the online softmax of head gl over these rows (the rows' lanes differ in the top bits)
+        const bool live = rl < gv && gl < G;
+        float mx = live ? sc : -INFINITY;
+#pragma unroll
+        for (int o = 16; o >= 32 / NR; o /= 2) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+        const float m_new = fmaxf(m_run, mx);
+        const float alpha = m_new == -INFINITY ? 1.f : expf(m_run - m_new);
+        const float pr = live ? expf(sc - m_new) : 0.f;
+        l_run = l_run * alpha + pr;
+        m_run = m_new;
+        if (rep) {
+          pb[warp][el] = pr;
+          if (rl == 0) ab[warp][gl] = alpha;
+        }
+        __syncwarp();
+        // P.V: the lane's dims of each V row, p broadcast from shared memory
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          const float a = ab[warp][g];
+#pragma unroll
+          for (int e = 0; e < VPL; ++e) acc[g][e] *= a;
+        }
+#pragma unroll
+        for (int r = 0; r < NR; ++r) {  // rows past gv: p is 0 and V reads as 0
+          float vf[VPL];
+          if (lane < NL && r < gv) {
+            load_cache<CT, VPL>(vst + r * HD, vf);
+          } else {
+#pragma unroll
+            for (int e = 0; e < VPL; ++e) vf[e] = 0.f;
+          }
+#pragma unroll
+          for (int g = 0; g < G; ++g) {
+            const float pg = pb[warp][r * GP + g];
+#pragma unroll
+            for (int e = 0; e < VPL; ++e) acc[g][e] += pg * vf[e];
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) xq_mbar_arrive(&empty[s]);  // the warp is done with stage s
+    }
+
+    // the warp's partial (max, sum, acc) into shared memory
+#pragma unroll
+    for (int o = 16; o >= 32 / NR; o /= 2) l_run += __shfl_xor_sync(0xffffffffu, l_run, o);
+    if (rep && rl == 0 && gl < G) {
+      wm[warp][gl] = m_run;
+      wl[warp][gl] = l_run;
+    }
+    xq_bar_sync(1, W * 32);  // every consumer warp is done with the ring
+    if (lane < NL) {
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+#pragma unroll
+        for (int e = 0; e < VPL; e += 4)
+          *reinterpret_cast<float4*>(wacc + (warp * G + g) * HD + lane * VPL + e) =
+              make_float4(acc[g][e], acc[g][e + 1], acc[g][e + 2], acc[g][e + 3]);
+    }
+  }
+  __syncthreads();
+  // the warps' partials merged into the block's, at the block's max: W
+  // lanes a head (W divides 32), the max and the sum by shuffles
+  if (warp < (W * G + 31) / 32) {
+    const int g = tid / W, w = tid % W;
+    const float m = g < G ? wm[w][g] : -INFINITY;
+    float mx = m;
+#pragma unroll
+    for (int o = W / 2; o >= 1; o /= 2) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    const float f = m == -INFINITY ? 0.f : expf(m - mx);
+    float l = g < G ? f * wl[w][g] : 0.f;
+#pragma unroll
+    for (int o = W / 2; o >= 1; o /= 2) l += __shfl_xor_sync(0xffffffffu, l, o);
+    if (g < G) {
+      fac[w][g] = f;
+      if (w == 0) {
+        pm[g] = mx;
+        pl[g] = l;
+      }
+    }
+  }
+  __syncthreads();
+  // pushed to the block that normalises each output (block i / per takes
+  // outputs [i0, i0 + per)), through distributed shared memory: stores only,
+  // nothing waits on a peer's reply
+  const int per = (G * HD + P - 1) / P;
+  xq_cluster_wait();  // every peer has started
+  for (int i = tid; i < G * HD; i += NT) {
+    float a = 0.f;
+#pragma unroll
+    for (int w = 0; w < W; ++w) a += fac[w][i / HD] * wacc[w * G * HD + i];
+    *cluster.map_shared_rank(&ga[p * per + i % per], i / per) = a;
+  }
+  for (int t = tid; t < P * G; t += NT) {
+    *cluster.map_shared_rank(&gm[p][t % G], t / G) = pm[t % G];
+    *cluster.map_shared_rank(&gs[p][t % G], t / G) = pl[t % G];
+  }
+  cluster.sync();  // every block's partial of this block's slice is here
+
+  // this block's slice: each rank's weight at the heads' common max (16
+  // lanes a head, the ranks past P idle), then the weighted sums of the P
+  // partials
+  const int i0 = p * per, cnt = max(0, min(per, G * HD - i0));
+  float* wt = wacc;  // [FC_MAX_SPLITS][G], the drained ring
+  if (warp < (FC_MAX_SPLITS * G + 31) / 32) {
+    const int g = tid / FC_MAX_SPLITS, r = tid % FC_MAX_SPLITS;
+    const float m = g < G && r < P ? gm[r][g] : -INFINITY;
+    float mx = m;
+#pragma unroll
+    for (int o = FC_MAX_SPLITS / 2; o >= 1; o /= 2)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    const float f = m == -INFINITY ? 0.f : expf(m - mx);
+    float l = m == -INFINITY ? 0.f : f * gs[r][g];
+#pragma unroll
+    for (int o = FC_MAX_SPLITS / 2; o >= 1; o /= 2) l += __shfl_xor_sync(0xffffffffu, l, o);
+    if (g < G) {
+      wt[r * G + g] = f;
+      if (r == 0) pl[g] = l;  // the block's own sum is no longer read: the slice's total
+    }
+  }
+  __syncthreads();
+  for (int j = tid; j < cnt; j += NT) {
+    const int g = (i0 + j) / HD;
+    float a0 = 0.f, a1 = 0.f;  // two chains, added at the end
+    int r = 0;
+    for (; r + 1 < P; r += 2) {
+      a0 += wt[r * G + g] * ga[r * per + j];
+      a1 += wt[(r + 1) * G + g] * ga[(r + 1) * per + j];
+    }
+    if (r < P) a0 += wt[r * G + g] * ga[r * per + j];
+    const float l = pl[g];
+    out[((size_t)b * H + (size_t)h * G) * HD + i0 + j] =
+        l > 0.f ? (a0 + a1) / l : 0.f;  // kv_len 0 -> 0
+  }
+}
+
+// one block of hd threads per (batch, head): the int8 flash-decode's chunk
+// partials combined
 __global__ void __launch_bounds__(1024) flash_decode_combine_kernel(
     const float* __restrict__ pm, const float* __restrict__ pl, const float* __restrict__ pacc,
     float* __restrict__ out, int NS) {
@@ -1047,6 +1275,49 @@ cudaError_t launch_flash_prefill_f32(const float* q, const float* ck, const floa
   return cudaGetLastError();
 }
 
+// Kernel 3's blocks a (batch, kv head) for B x KH on a card of `sms` SMs:
+// about one block an SM over the whole grid, 1 to FC_MAX_SPLITS (the
+// largest cluster). The host never reads kv_len: each block splits it on
+// the card.
+int fc_splits(int B, int KH, int sms) {
+  return max(1, min(FC_MAX_SPLITS, sms / max(1, B * KH)));
+}
+
+// The launch of flash_decode_cluster_kernel<G, HD, CT> for P blocks a
+// cluster and nbh (batch, kv head) pairs into cfg (attr its cluster
+// dimension). Sets the kernel's shared-memory and cluster-size attributes
+// and asks the card, once per cluster size, whether one such cluster fits
+// (cudaOccupancyMaxActiveClusters); cudaErrorInvalidConfiguration if not.
+template <int G, int HD, typename CT>
+cudaError_t fc_config(int P, int nbh, cudaStream_t s, cudaLaunchConfig_t& cfg,
+                      cudaLaunchAttribute& attr) {
+  static int fits[FC_MAX_SPLITS + 1];  // by cluster size on this device: 1 fits, -1 not
+  constexpr int smem = fc_smem<G, HD, CT>();
+  cfg = {};
+  cfg.gridDim = dim3(P, nbh);
+  cfg.blockDim = dim3(FC_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = P;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  if (P < 1 || P > FC_MAX_SPLITS) return cudaErrorInvalidValue;
+  if (fits[P] == 0) {
+    auto kern = flash_decode_cluster_kernel<G, HD, CT>;
+    cudaError_t e = xq_allow_smem(kern, smem);
+    if (e == cudaSuccess && P > 8)
+      e = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    int n = 0;
+    if (e == cudaSuccess) e = cudaOccupancyMaxActiveClusters(&n, kern, &cfg);
+    if (e != cudaSuccess) return e;
+    fits[P] = n > 0 ? 1 : -1;
+  }
+  return fits[P] > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;
+}
+
 }  // namespace
 
 // launch(CT{}) for a float cache of bf16 (f32 == 0) or f32 values,
@@ -1071,39 +1342,67 @@ XQ_EXPORT int xq_kv_update(void* ck, void* cv, const void* knew, const void* vne
   });
 }
 
-// f32 elements of the flash-decode workspace: per (batch, head, chunk) the
-// partial max, the partial sum and the hd-wide partial accumulator
+// f32 elements of the int8 flash-decode's workspace (xq_flash_decode_q):
+// per (batch, head, chunk) the partial max, the partial sum and the
+// hd-wide partial accumulator. xq_flash_decode takes the same argument and
+// needs none of it.
 XQ_EXPORT long long xq_flash_decode_workspace(int B, int H, int S, int hd) {
   const long long ns = (S + FD_CHUNK - 1) / FD_CHUNK;
   return (long long)B * H * ns * (hd + 2);
 }
 
+// work: unused (the argument of the earlier two-kernel design stays, so
+// that callers of either take the same arguments)
 XQ_EXPORT int xq_flash_decode(const void* q, const void* ck, const void* cv, const void* kv_len,
                               void* work, void* out, int B, int H, int KH, int S, int hd,
                               float sm_scale, int f32, void* stream) {
-  if (KH < 1 || H % KH != 0) return (int)cudaErrorInvalidValue;
+  (void)work;
+  if (B < 1 || KH < 1 || H % KH != 0 || S < 1) return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
-  const int NS = (S + FD_CHUNK - 1) / FD_CHUNK;
-  const size_t parts = (size_t)B * H * NS;
-  float* pm = (float*)work;
-  float* pl = pm + parts;
-  float* pacc = pl + parts;
-  const dim3 grid(B * KH, NS);
-  const float* qf = (const float*)q;
-  const int* kl = (const int*)kv_len;
-  const cudaError_t e = for_cache(f32, [&](auto t) {
+  const int P = fc_splits(B, KH, xq_device_sms());
+  return (int)for_cache(f32, [&](auto t) {
     using CT = decltype(t);
     return for_head_dim(hd, [&](auto d) {
       return for_group(H / KH, [&](auto g) {
-        flash_decode_split_kernel<decltype(g)::value, decltype(d)::value, CT>
-            <<<grid, FD_THREADS, 0, s>>>(qf, (const CT*)ck, (const CT*)cv, kl, pm, pl, pacc, KH,
-                                         S, sm_scale);
+        constexpr int G = decltype(g)::value, HD = decltype(d)::value;
+        cudaLaunchConfig_t cfg;
+        cudaLaunchAttribute attr;
+        const cudaError_t e = fc_config<G, HD, CT>(P, B * KH, s, cfg, attr);
+        if (e != cudaSuccess) return e;
+        const cudaError_t l = cudaLaunchKernelEx(
+            &cfg, flash_decode_cluster_kernel<G, HD, CT>, (const float*)q, (const CT*)ck,
+            (const CT*)cv, (const int*)kv_len, (float*)out, KH, S, sm_scale);
+        return l != cudaSuccess ? l : cudaGetLastError();
       });
     });
   });
-  if (e != cudaSuccess) return (int)e;
-  flash_decode_combine_kernel<<<B * H, hd, 0, s>>>(pm, pl, pacc, (float*)out, NS);
-  return (int)cudaGetLastError();
+}
+
+// xq_flash_decode's launch over a bf16 (f32 == 0) or an f32 cache on the
+// current device: plan (3 ints) = {blocks a (batch, kv head), which are one
+// cluster; key rows a stage; stages}; cudaErrorInvalidValue for a shape it
+// refuses, cudaErrorInvalidConfiguration where the card cannot hold such a
+// cluster. ops/attention.py's decode_plan is held to it on the card.
+XQ_EXPORT int xq_flash_decode_plan(int B, int H, int KH, int hd, int f32, void* plan) {
+  if (B < 1 || KH < 1 || H % KH != 0) return (int)cudaErrorInvalidValue;
+  const int P = fc_splits(B, KH, xq_device_sms());
+  return (int)for_cache(f32, [&](auto t) {
+    using CT = decltype(t);
+    return for_head_dim(hd, [&](auto d) {
+      return for_group(H / KH, [&](auto g) {
+        constexpr int G = decltype(g)::value, HD = decltype(d)::value;
+        cudaLaunchConfig_t cfg;
+        cudaLaunchAttribute attr;
+        const cudaError_t e = fc_config<G, HD, CT>(P, B * KH, nullptr, cfg, attr);
+        if (e != cudaSuccess) return e;
+        int* out = (int*)plan;
+        out[0] = P;
+        out[1] = fc_rows<G, HD, CT>();
+        out[2] = FC_STAGES;
+        return cudaSuccess;
+      });
+    });
+  });
 }
 
 XQ_EXPORT int xq_flash_prefill(const void* q, const void* ck, const void* cv, const void* pos,

@@ -30,6 +30,14 @@ __device__ __forceinline__ CT xq_to_cache(float v) {
 __device__ __forceinline__ float xq_from_cache(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float xq_from_cache(float v) { return v; }
 
+// The current device's SM count (the launch plans that size a grid to the card)
+inline int xq_device_sms() {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms;
+}
+
 // Shared memory above 48 KB a block needs an opt-in per kernel, and the
 // 48 KB count the kernel's static shared memory too: a kernel with a few
 // static bytes and exactly 48 KB of dynamic memory does not launch without

@@ -1,5 +1,7 @@
 // Warp GEMV cores shared by csrc/qmatmul.cu (the M <= 8 routes) and
-// csrc/fused_decode.cu (every weight phase of the megakernel).
+// csrc/fused_decode.cu (every weight phase of the megakernel). xq_gemv_word
+// is one step of a lane of xq_gemv2 for one row, on weights already in
+// registers (the streamed GEMV's, landed in shared memory by bulk copies).
 //
 // One warp owns two output rows. In xq_gemv2 each lane streams 16 bytes of
 // each row per step (16 int8 or fp8, 8 bf16 or 4 f32 weights), both rows'
@@ -128,6 +130,40 @@ __device__ __forceinline__ void xq_gemv2(const XT* xs, int ldx, const WT* w0,
 #pragma unroll
         for (int e = 0; e < EPL; ++e) acc[r][m] += xf[e] * wf[r][e];
     }
+  }
+}
+
+// acc[m] += sum over e < EPL of xs[m * ldx + e] * w[e], w the EPL weights
+// of the 16-byte word raw, for the first M <= MAXM activation rows: one
+// step of a lane of xq_gemv2 for one row, on weights already in registers
+// (the streamed GEMV's, landed in shared memory). xs is 16-byte aligned.
+template <typename WT, int MAXM, typename XT>
+__device__ __forceinline__ void xq_gemv_word(const XT* xs, int ldx, const int4& raw, int M,
+                                             float (&acc)[MAXM]) {
+  constexpr int EPL = 16 / sizeof(WT);
+  constexpr int XPW = 16 / sizeof(XT);
+  float wf[EPL];
+  xq_unpack16<WT>(raw, wf);
+#pragma unroll
+  for (int m = 0; m < MAXM; ++m) {
+    if (m >= M) break;
+    float xf[EPL];
+    const int4* xp = reinterpret_cast<const int4*>(xs + (size_t)m * ldx);
+#pragma unroll
+    for (int c = 0; c < EPL / XPW; ++c) {
+      const int4 rx = xp[c];
+      if constexpr (sizeof(XT) == 4) {
+        const float* p = reinterpret_cast<const float*>(&rx);
+#pragma unroll
+        for (int e = 0; e < XPW; ++e) xf[c * XPW + e] = p[e];
+      } else {
+        const __nv_bfloat16* p = reinterpret_cast<const __nv_bfloat16*>(&rx);
+#pragma unroll
+        for (int e = 0; e < XPW; ++e) xf[c * XPW + e] = __bfloat162float(p[e]);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) acc[m] += xf[e] * wf[e];
   }
 }
 

@@ -1,7 +1,9 @@
-// Hopper (sm_90a) building blocks of the TMA-fed tensor-core kernels: the
-// W8A8 GEMM and the split-TF32 f32 GEMM (qmatmul.cu gemm_a8_kernel,
-// gemm_tf32x3_kernel) and the causal flash prefill over a bf16 and an f32
-// cache (attention.cu flash_prefill_kernel, flash_prefill_tf32x3_kernel).
+// Hopper (sm_90a) building blocks of the TMA-fed kernels: the W8A8 GEMM,
+// the split-TF32 f32 GEMM and the streamed M <= 8 GEMV (qmatmul.cu
+// gemm_a8_kernel, gemm_tf32x3_kernel, gemv_stream_kernel), the causal flash
+// prefill over a bf16 and an f32 cache and the cluster flash-decode
+// (attention.cu flash_prefill_kernel, flash_prefill_tf32x3_kernel,
+// flash_decode_cluster_kernel).
 //
 // - TMA: a tensor map (CUtensorMap, encoded on the host per call by
 //   cuTensorMapEncodeTiled, which xq_tensor_map obtains from the driver
@@ -12,6 +14,10 @@
 //   swizzle: a box row is 128 bytes (128 int8, 64 bf16 or 32 f32) and the
 //   16-byte chunk c of row r lands at chunk c ^ (r % 8) within its
 //   1024-byte group of 8 rows. Elements outside the tensor read as zero.
+// - 1-D bulk copy (cp.async.bulk, xq_bulk_g2s): one thread asks for a
+//   contiguous run of bytes (a multiple of 16, both ends 16-byte aligned)
+//   to be copied from global into shared memory, reported to an mbarrier
+//   like a TMA box; no tensor map, no swizzle.
 // - mbarrier ring: full[s] completes when stage s's bytes have landed (one
 //   arrive.expect_tx by the producer, then the copies' bytes), empty[s]
 //   when every consumer warp has released it; a waiter passes once the
@@ -91,6 +97,16 @@ __device__ __forceinline__ void xq_mbar_wait(uint64_t* bar, int parity) {
     if (clock64() - t0 > XQ_MBAR_TIMEOUT_CYCLES) __trap();
 }
 
+// the thread-block cluster's barrier in two halves: arrive with no
+// ordering (only that this thread has started: a block's shared memory may
+// be written by its peers once they have all arrived), and wait (acquire)
+__device__ __forceinline__ void xq_cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void xq_cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
 // two floats rounded to bf16 and packed, lo in the low half (the order of
 // a wgmma register operand's pair)
 __device__ __forceinline__ uint32_t xq_bf16x2(float lo, float hi) {
@@ -115,6 +131,16 @@ __device__ __forceinline__ void xq_tma_3d(void* dst, const CUtensorMap* map, int
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(xq_smem(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(xq_smem(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) from global src to shared dst, both 16-byte
+// aligned, its bytes reported to bar (expected there by xq_mbar_expect_tx)
+__device__ __forceinline__ void xq_bulk_g2s(void* dst, const void* src, uint32_t bytes,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(xq_smem(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(xq_smem(bar))
       : "memory");
 }
 

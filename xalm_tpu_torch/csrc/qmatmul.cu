@@ -23,22 +23,39 @@
 // What bounds it on the H100:
 // - Decode (M <= 8): bytes. Each weight byte is used M times, far below the
 //   ~295 operations per byte where the tensor cores would become the limit,
-//   so the time is the weight stream over 3.35 TB/s. Design (gemv.cuh,
-//   shared with the megakernel): one warp per output row pair, 16-byte
-//   weight loads (16 int8 or 8 bf16 per lane per step) with both rows'
-//   loads in flight, x normalised once per block into shared memory as
-//   bf16, warp-shuffle reductions, scale in the epilogue. fp8 rows are 16
-//   codes a 16-byte load, the int8 rows' stream; the widening (8 cvt
-//   instructions a load) stays under the byte rate.
+//   so the time is the weight stream over 3.35 TB/s, and what keeps a
+//   kernel from it is bytes in flight (Little's law: ~25 KB an SM at a
+//   microsecond of latency). Design for bf16 and f32 weights
+//   (gemv_stream_kernel): one block an SM, the D rows dealt evenly (w2's
+//   4096 rows 31 or 32 a block) and within the block each warp a
+//   contiguous run of them (3 or 4), streamed through a ring of its own:
+//   two stages of 8 KB (128 KB a block in flight), each one 1-D bulk copy
+//   (hopper.cuh, an mbarrier a stage) of whole rows where they fit (a bf16
+//   row of 4096 is 8 KB: one a stage; an i8 one 4 KB: two) or a segment of
+//   a longer one (an f32 w2 row of 57 KB: seven). Each lane of the warp
+//   takes 16-byte words of the landed stage (gemv.cuh's xq_gemv_word
+//   against x in shared memory); at a row's end the warp's shuffle sum,
+//   times the scale, is the output; the warp refills the stage itself. No
+//   warp waits for another after the prologue (the rmsnorm and x's staging,
+//   once a block, under the first copies): a ring shared by the warps, each
+//   stage read by all eight and refilled by the last, was consumer-bound
+//   (its waits and releases a stage cost more than its copy), and copies of
+//   1 KB do not reach the byte rate (chip_smoke.py --kernel-ms, the
+//   bulk_copy line). int8 and fp8 rows keep gemv_kernel (gemv.cuh's
+//   xq_gemv2: one warp a row pair streaming from global, x staged a 16-row
+//   block; on the streamed kernel int8 ran 1.6-1.8x slower, its widening
+//   on the critical path of each stage: chip_smoke.py --kernel-ms), 16
+//   codes a 16-byte load; the widening (8 cvt instructions a load) stays
+//   under the byte rate.
 // - Prefill (M up to 512): operations at M >= ~300, bytes below. Design: a
 //   first pass writes bf16(rmsnorm?(x)) once (one block per row); then a
 //   64x64-output-tile GEMM on bf16 WMMA (mma.sync) tensor-core fragments,
 //   int8 weight tiles widened to bf16 in shared memory. Simple and right
 //   first: no TMA, no wgmma, no multi-stage pipeline yet.
 // - f32 weights: the GEMV route stages x as f32 (4N bytes a row: 57 KB at
-//   N = 14336, past the 48 KB that needs the opt-in) and streams 4 weights
-//   per 16-byte load; at M = 1 it is bound by the 4-byte weights. Where x
-//   does not fit (or M > 8) gemm_tf32x3_kernel runs, bound by operations at
+//   N = 14336, beside 6 stages) and takes 4 weights a 16-byte word; at M =
+//   1 it is bound by the 4-byte weights. Where x does not fit (or M > 8)
+//   gemm_tf32x3_kernel runs, bound by operations at
 //   M = 512: three TF32 products a step at 494.7 TFLOP/s (w13: 0.730 ms;
 //   the f32 FMA peak, 67 TFLOP/s, would allow no less than 1.795).
 //   prep_x_tf32_kernel writes x's big and small parts once; then the W8A8
@@ -206,6 +223,179 @@ __global__ void __launch_bounds__(GV_THREADS) gemv_kernel(
                              row0 + 1 < D ? w + (size_t)(row0 + 1) * N : nullptr, 0, N, M, lane,
                              acc);
   gemv_store(acc, row0, M, D, lane, scale, qscale, y);
+}
+
+// The streamed GEMV (M <= 8; see the note): one block an SM, its rows
+// [d0, d1) dealt evenly, and within the block each warp a contiguous run of
+// them, streamed through a ring of its own: GS_WARP_SLOTS slots of `slot`
+// bytes, each filled by one bulk copy of whole rows (as many as fit) or of
+// a segment of a longer row, refilled by the warp itself once it has read
+// it. No warp waits for another after the prologue.
+constexpr int GS_WARP_SLOTS = 2;  // a warp's stages in flight
+constexpr int GS_SLOT = 8192;     // bytes of a stage, at most
+constexpr int GS_SMEM = 227 * 1024;  // a block's shared memory on the H100 (232448 bytes)
+constexpr int GS_RESERVE = 1024;     // of it, the kernel's static bytes
+
+struct GsShape {
+  int rps, nseg, segb;  // rows a stage, segments a row, bytes a segment
+};
+
+// A row of rowb bytes in stages of at most `slot` bytes: as many whole rows
+// a stage as fit, else nseg segments of segb bytes (a multiple of 16; the
+// last one shorter)
+__host__ __device__ inline GsShape gs_shape(int rowb, int slot) {
+  GsShape g{slot / rowb, 1, rowb};
+  if (g.rps == 0) {
+    g.rps = 1;
+    g.nseg = (rowb + slot - 1) / slot;
+    g.segb = ((rowb + g.nseg - 1) / g.nseg + 15) / 16 * 16;
+  }
+  return g;
+}
+
+template <typename WT>
+__global__ void __launch_bounds__(GV_THREADS, 1) gemv_stream_kernel(
+    const float* __restrict__ x, const float* __restrict__ norm_w, float eps,
+    const WT* __restrict__ w, const float* __restrict__ scale, float qscale,
+    float* __restrict__ y, int M, int N, int D, int slot) {
+  using XT = xq_act_t<WT>;
+  constexpr int EPL = 16 / sizeof(WT);  // weights a 16-byte word
+  // [GV_WARPS][GS_WARP_SLOTS][slot], then x (M, N)
+  extern __shared__ __align__(128) unsigned char smem[];
+  XT* xs = reinterpret_cast<XT*>(smem + (size_t)GV_WARPS * GS_WARP_SLOTS * slot);
+  __shared__ uint64_t full[GV_WARPS][GS_WARP_SLOTS];
+  __shared__ float red[GV_WARPS];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int d0 = (int)((long long)blockIdx.x * D / gridDim.x);
+  const int d1 = (int)((long long)(blockIdx.x + 1) * D / gridDim.x);
+  const int e0 = d0 + (d1 - d0) * warp / GV_WARPS, e1 = d0 + (d1 - d0) * (warp + 1) / GV_WARPS;
+  const int rowb = N * (int)sizeof(WT);  // a multiple of 16
+  const GsShape sh = gs_shape(rowb, slot);
+  const int nit = sh.nseg > 1 ? (e1 - e0) * sh.nseg : (e1 - e0 + sh.rps - 1) / sh.rps;
+  const unsigned char* wb = reinterpret_cast<const unsigned char*>(w);
+  unsigned char* ring = smem + (size_t)warp * GS_WARP_SLOTS * slot;
+
+  // stage `it` of this warp: its first row, the byte of that row it starts
+  // at, its rows and its bytes (contiguous in memory)
+  auto stage = [&](int it, int& r0, int& off, int& nr, int& bytes) {
+    if (sh.nseg > 1) {
+      r0 = e0 + it / sh.nseg;
+      off = (it % sh.nseg) * sh.segb;
+      nr = 1;
+      bytes = min(sh.segb, rowb - off);
+    } else {
+      r0 = e0 + it * sh.rps;
+      off = 0;
+      nr = min(sh.rps, e1 - r0);
+      bytes = nr * rowb;
+    }
+  };
+  auto load = [&](int it) {  // lane 0: one bulk copy into slot it % GS_WARP_SLOTS
+    int r0, off, nr, bytes;
+    stage(it, r0, off, nr, bytes);
+    const int k = it % GS_WARP_SLOTS;
+    xq_mbar_expect_tx(&full[warp][k], (uint32_t)bytes);
+    xq_bulk_g2s(ring + (size_t)k * slot, wb + (size_t)r0 * rowb + off, (uint32_t)bytes,
+                &full[warp][k]);
+  };
+  if (lane == 0) {
+    for (int k = 0; k < GS_WARP_SLOTS; ++k) xq_mbar_init(&full[warp][k], 1);
+    xq_mbar_fence_init();
+    for (int it = 0; it < min(GS_WARP_SLOTS, nit); ++it) load(it);  // before any arithmetic
+  }
+
+  // prologue, under the first stages' copies: cd(rmsnorm?(x)) into shared
+  // memory, once a block
+  for (int m = 0; m < M; ++m) {
+    const float* xm = x + (size_t)m * N;
+    const float r = norm_w != nullptr ? block_rms(xm, N, eps, red) : 1.f;
+    for (int i = tid; i < N; i += GV_THREADS) {
+      float v = xm[i];
+      if (norm_w != nullptr) v = v * r * norm_w[i];
+      xs[(size_t)m * N + i] = xq_from_float<XT>(v);
+    }
+  }
+  __syncthreads();
+
+  float acc[GV_MAX_M] = {};
+  for (int it = 0; it < nit; ++it) {
+    const int k = it % GS_WARP_SLOTS;
+    int r0, off, nr, bytes;
+    stage(it, r0, off, nr, bytes);
+    xq_mbar_wait(&full[warp][k], (it / GS_WARP_SLOTS) & 1);
+    const unsigned char* st = ring + (size_t)k * slot;
+    const int words = (sh.nseg > 1 ? bytes : rowb) / 16;
+    const XT* xc = xs + off / (int)sizeof(WT);
+    const bool ends = sh.nseg == 1 || it % sh.nseg == sh.nseg - 1;  // the rows end here
+    for (int r = 0; r < nr; ++r) {
+      const unsigned char* row = st + (size_t)r * rowb;
+#pragma unroll 4
+      for (int j = lane; j < words; j += 32)  // a warp reads 512 contiguous bytes a step
+        xq_gemv_word<WT, GV_MAX_M, XT>(xc + j * EPL, N,
+                                       *reinterpret_cast<const int4*>(row + j * 16), M, acc);
+      if (ends) {
+        const int d = r0 + r;
+#pragma unroll
+        for (int m = 0; m < GV_MAX_M; ++m) {
+          if (m >= M) break;
+          float v = xq_warp_sum(acc[m]);
+          if (scale != nullptr) v *= scale[d];
+          else if (qscale != 0.f) v *= qscale;
+          if (lane == 0) y[(size_t)m * D + d] = v;
+          acc[m] = 0.f;
+        }
+      }
+    }
+    __syncwarp();  // every lane has read the slot: refill it
+    if (lane == 0 && it + GS_WARP_SLOTS < nit) load(it + GS_WARP_SLOTS);
+  }
+}
+
+// Bulk copies alone, no arithmetic (xq_bulk_stream_bench): each block
+// streams per_block bytes of src through nst stages of copy_bytes, one bulk
+// copy a stage, the last warp done with a stage refilling it, each thread
+// reading its 16-byte words of every landed stage
+constexpr int BENCH_MAX_STAGES = 6;
+
+__global__ void __launch_bounds__(GV_THREADS) bulk_stream_bench_kernel(
+    const unsigned char* __restrict__ src, long long per_block, int copy_bytes, int nst,
+    float* __restrict__ sink) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ uint64_t full[BENCH_MAX_STAGES];
+  __shared__ int released[BENCH_MAX_STAGES];
+  const int tid = threadIdx.x, lane = tid & 31;
+  const unsigned char* base = src + (size_t)blockIdx.x * per_block;
+  const int nit = (int)(per_block / copy_bytes);
+  auto load = [&](int it) {
+    const int s = it % nst;
+    xq_mbar_expect_tx(&full[s], (uint32_t)copy_bytes);
+    xq_bulk_g2s(smem + (size_t)s * copy_bytes, base + (size_t)it * copy_bytes,
+                (uint32_t)copy_bytes, &full[s]);
+  };
+  if (tid == 0) {
+    for (int s = 0; s < nst; ++s) {
+      xq_mbar_init(&full[s], 1);
+      released[s] = 0;
+    }
+    xq_mbar_fence_init();
+    for (int it = 0; it < min(nst, nit); ++it) load(it);
+  }
+  __syncthreads();
+  float acc = 0.f;
+  for (int it = 0; it < nit; ++it) {
+    const int s = it % nst;
+    xq_mbar_wait(&full[s], (it / nst) & 1);
+    const float4* st = reinterpret_cast<const float4*>(smem + (size_t)s * copy_bytes);
+    for (int j = tid; j < copy_bytes / 16; j += GV_THREADS) acc += st[j].x;
+    __syncwarp();
+    if (lane == 0) {
+      __threadfence_block();
+      if (atomicAdd(&released[s], 1) == GV_WARPS * (it / nst) + GV_WARPS - 1 && it + nst < nit)
+        load(it + nst);
+    }
+    __syncwarp();
+  }
+  if (acc == 1.5f) sink[0] = acc;  // keeps the reads
 }
 
 // cd(rmsnorm?(x)) for the tiled paths: one block per row
@@ -487,6 +677,46 @@ int launch_gemv(const float* x, const float* nw, float eps, const WT* w, const f
   const int rows_per_block = GV_WARPS * GV_RPW;
   gemv_kernel<WT><<<(D + rows_per_block - 1) / rows_per_block, GV_THREADS, smem, s>>>(
       x, nw, eps, w, scale, qscale, y, M, N, D);
+  return (int)cudaGetLastError();
+}
+
+// The streamed GEMV's launch for x (M, N) by w (D, N), wbytes an element of
+// w and xbytes one of x in shared memory, on a card of `sms` SMs: plan =
+// {blocks, bytes a stage, rows a stage, segments a row}. One block an SM
+// (D rows dealt evenly; fewer blocks where D is smaller); each warp's two
+// stages of 8 KB (128 KB a block in flight), or of what shared memory
+// holds beside x in whole KB (4 KB at the largest x the route takes).
+// False for a shape the GEMV route does not take.
+bool gs_plan(int M, int N, int D, int wbytes, int xbytes, int sms, int* plan) {
+  if (M < 1 || M > GV_MAX_M || D < 1 || N < 16 || N % 16 != 0 || !use_gemv(M, N, xbytes))
+    return false;
+  const int fit = (GS_SMEM - GS_RESERVE - M * N * xbytes) / (GV_WARPS * GS_WARP_SLOTS) / 1024;
+  const int slot = fit * 1024 < GS_SLOT ? fit * 1024 : GS_SLOT;
+  const GsShape sh = gs_shape(N * wbytes, slot);
+  plan[0] = D < sms ? D : sms;
+  plan[1] = slot;
+  plan[2] = sh.rps;
+  plan[3] = sh.nseg;
+  return true;
+}
+
+template <typename WT>
+int launch_gemv_stream(const float* x, const float* nw, float eps, const WT* w,
+                       const float* scale, float qscale, float* y, int M, int N, int D,
+                       cudaStream_t s) {
+  static bool allowed = false;  // opted in to the most dynamic shared memory
+  using XT = xq_act_t<WT>;
+  int plan[4];
+  if (!gs_plan(M, N, D, (int)sizeof(WT), (int)sizeof(XT), xq_device_sms(), plan))
+    return (int)cudaErrorInvalidValue;
+  if (!allowed) {
+    const cudaError_t e = xq_allow_smem(gemv_stream_kernel<WT>, GS_SMEM - GS_RESERVE);
+    if (e != cudaSuccess) return (int)e;
+    allowed = true;
+  }
+  const int smem = GV_WARPS * GS_WARP_SLOTS * plan[1] + M * N * (int)sizeof(XT);
+  gemv_stream_kernel<WT><<<plan[0], GV_THREADS, smem, s>>>(x, nw, eps, w, scale, qscale, y, M, N,
+                                                            D, plan[1]);
   return (int)cudaGetLastError();
 }
 
@@ -877,14 +1107,6 @@ bool a8_plan(int M, int N, int D, int sms, int* plan) {
   return true;
 }
 
-// the current device's SMs
-int device_sms() {
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  return sms;
-}
-
 }  // namespace
 
 // W8A8 matmul: x (M, N) f32, w one layer's (D, N) int8 rows, scale its (D)
@@ -894,7 +1116,7 @@ XQ_EXPORT int xq_qmatmul_a8(const void* x, const void* w, const void* scale, flo
                             void* xq, void* sx, void* y, int M, int N, int D, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   int plan[3];
-  if (!a8_plan(M, N, D, device_sms(), plan)) return (int)cudaErrorInvalidValue;
+  if (!a8_plan(M, N, D, xq_device_sms(), plan)) return (int)cudaErrorInvalidValue;
   auto* codes = (int8_t*)xq;
   auto* rs = (float*)sx;
   quant_x_kernel<<<M, 256, 0, s>>>((const float*)x, codes, rs, N);
@@ -911,12 +1133,25 @@ XQ_EXPORT int xq_qmatmul_a8(const void* x, const void* w, const void* scale, flo
 // rows a block, blocks along M, blocks along D}; cudaErrorInvalidValue for
 // a shape it refuses. ops/qmatmul.py's a8_plan is held to it on the card.
 XQ_EXPORT int xq_qmatmul_a8_plan(int M, int N, int D, void* plan) {
-  return a8_plan(M, N, D, device_sms(), (int*)plan) ? (int)cudaSuccess
+  return a8_plan(M, N, D, xq_device_sms(), (int*)plan) ? (int)cudaSuccess
                                                     : (int)cudaErrorInvalidValue;
 }
 
 // The weight types of kernels 1 and 8, as the wrappers pass them
 enum WKind { W_I8 = 0, W_BF16 = 1, W_F32 = 2, W_E4M3 = 3, W_E5M2 = 4 };
+
+// xq_qmatmul's streamed GEMV for x (M, N) by (D, N) weights of w_kind
+// (bf16 or f32: the kinds that take it) on the current device: plan
+// (4 ints) = {blocks, bytes a stage, rows a stage, segments a row};
+// cudaErrorInvalidValue where xq_qmatmul takes another route.
+// ops/qmatmul.py's gemv_plan is held to it on the card.
+XQ_EXPORT int xq_gemv_plan(int M, int N, int D, int w_kind, void* plan) {
+  if (w_kind != W_BF16 && w_kind != W_F32) return (int)cudaErrorInvalidValue;
+  const int wbytes = w_kind == W_F32 ? 4 : 2;
+  return gs_plan(M, N, D, wbytes, wbytes, xq_device_sms(), (int*)plan)
+             ? (int)cudaSuccess
+             : (int)cudaErrorInvalidValue;
+}
 
 // The gathered top-k expert matmul: x (m or k*m, N) f32, w the (LE, D, N)
 // int8, bf16 or f32 expert stack (w_kind), scale its (LE, D) row scales or
@@ -1024,6 +1259,23 @@ __global__ void __launch_bounds__(128) tf32_probe_kernel(const float* __restrict
 // How the tensor cores read raw f32 operands as TF32: a (64, 8), b (128, 8)
 // f32 -> d (64, 128) by tf32 wgmma, dm (16, 8) by tf32 mma.sync (see
 // tf32_probe_kernel). The kernels above rely on the answer (hopper.cuh).
+// Bulk copies alone: `blocks` blocks stream `bytes` of src (a multiple of
+// blocks x copy_bytes) through `stages` stages of copy_bytes (a multiple of
+// 16, stages x copy_bytes at most 96 KB), one bulk copy a stage; sink one
+// float. chip_smoke.py --kernel-ms times it by copy size.
+XQ_EXPORT int xq_bulk_stream_bench(const void* src, long long bytes, int copy_bytes, int stages,
+                                   int blocks, void* sink, void* stream) {
+  if (copy_bytes < 16 || copy_bytes % 16 != 0 || stages < 1 || stages > BENCH_MAX_STAGES ||
+      blocks < 1 || stages * copy_bytes > 96 * 1024 || bytes % ((long long)blocks * copy_bytes))
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t e = xq_allow_smem(bulk_stream_bench_kernel, 96 * 1024);
+  if (e != cudaSuccess) return (int)e;
+  bulk_stream_bench_kernel<<<blocks, GV_THREADS, stages * copy_bytes,
+                             static_cast<cudaStream_t>(stream)>>>(
+      (const unsigned char*)src, bytes / blocks, copy_bytes, stages, (float*)sink);
+  return (int)cudaGetLastError();
+}
+
 XQ_EXPORT int xq_tf32_probe(const void* a, const void* b, void* d, void* dm, void* stream) {
   tf32_probe_kernel<<<1, 128, (64 + 128) * 128 + 1024, static_cast<cudaStream_t>(stream)>>>(
       (const float*)a, (const float*)b, (float*)d, (float*)dm);
@@ -1047,8 +1299,8 @@ XQ_EXPORT int xq_qmatmul(const void* x, const void* norm_w, float eps, const voi
   const float* sc = (const float*)scale;
   float* yf = (float*)y;
   if (use_gemv(M, N, w_kind == W_F32 ? 4 : 2)) {
-    if (w_kind == W_BF16) return launch_gemv(xf, nw, eps, (const __nv_bfloat16*)w, sc, qscale, yf, M, N, D, s);
-    if (w_kind == W_F32) return launch_gemv(xf, nw, eps, (const float*)w, sc, qscale, yf, M, N, D, s);
+    if (w_kind == W_BF16) return launch_gemv_stream(xf, nw, eps, (const __nv_bfloat16*)w, sc, qscale, yf, M, N, D, s);
+    if (w_kind == W_F32) return launch_gemv_stream(xf, nw, eps, (const float*)w, sc, qscale, yf, M, N, D, s);
     if (w_kind == W_E4M3) return launch_gemv(xf, nw, eps, (const __nv_fp8_e4m3*)w, sc, qscale, yf, M, N, D, s);
     if (w_kind == W_E5M2) return launch_gemv(xf, nw, eps, (const __nv_fp8_e5m2*)w, sc, qscale, yf, M, N, D, s);
     return launch_gemv(xf, nw, eps, (const int8_t*)w, sc, qscale, yf, M, N, D, s);

@@ -181,7 +181,7 @@ def kv_update(cache_k, cache_v, layer: int, k_new, v_new, kv_pos, rotate, cexp, 
 
 
 def _workspace(lib, device, b: int, h: int, s: int, hd: int) -> torch.Tensor:
-    """The flash-decode chunk partials (both cache types), one per size."""
+    """The int8 flash-decode's chunk partials, one per size."""
     n_work = lib.xq_flash_decode_workspace(b, h, s, hd)
     work = _WORKSPACE.get((device, n_work))
     if work is None:
@@ -224,8 +224,39 @@ def flash_decode_plain(q, cache_k, cache_v, layer, kv_len, attn_softcap: float =
     return out.reshape(b, h * hd)
 
 
+# Kernel 3's launch (csrc/attention.cu fc_splits, fc_nr): P blocks a (batch,
+# kv head), one cluster, about one block an SM over the grid and at most
+# DECODE_MAX_SPLITS; each stage of its ring holds DECODE_WARPS * NR key rows,
+# NR the rows a warp scores at once (NR * G, G rounded up to a power of two,
+# at most 32; a stage's K rows within DECODE_PLANE bytes)
+DECODE_MAX_SPLITS, DECODE_WARPS, DECODE_PLANE, DECODE_STAGES = 16, 8, 16384, 3
+
+
+def decode_plan(b: int, kh: int, g: int, hd: int, f32: bool, sms: int) -> tuple[int, int, int]:
+    """Kernel 3's launch for B = b, KH = kh, GQA group g and head_dim hd over
+    a bf16 cache (an f32 one with ``f32``) on a card of ``sms`` SMs: (blocks
+    a (batch, kv head), which form one cluster; key rows a stage; stages).
+    The launcher's own plan, which reads the device's SM count, is
+    ``xq_flash_decode_plan``; the card's tests hold the two equal."""
+    splits = max(1, min(DECODE_MAX_SPLITS, sms // max(1, b * kh)))
+    gp = 1 << (g - 1).bit_length()
+    fit = DECODE_PLANE // (DECODE_WARPS * hd * (4 if f32 else 2))
+    nr = min(1 << (min(fit, 8).bit_length() - 1), 32 // gp)
+    return splits, DECODE_WARPS * nr, DECODE_STAGES
+
+
+def decode_rows(kv_len: int, s: int, splits: int) -> list[tuple[int, int]]:
+    """The key rows [r0, r1) of each of kernel 3's ``splits`` blocks of one
+    (batch, kv head) at kv_len n (clamped to [0, s]), as each block computes
+    them on the card: block p takes [p n // P, (p + 1) n // P), so every
+    block has a row once n >= P."""
+    n = min(max(kv_len, 0), s)
+    return [(p * n // splits, (p + 1) * n // splits) for p in range(splits)]
+
+
 def flash_decode(q, cache_k, cache_v, layer: int, kv_len) -> torch.Tensor:
-    """Kernel 3 wrapper: q (B, H, hd) f32, kv_len (B,) int32 -> (B, H*hd)."""
+    """Kernel 3 wrapper: q (B, H, hd) f32, kv_len (B,) int32 -> (B, H*hd).
+    One launch (``decode_plan``); kv_len stays on the card."""
     if not q.is_cuda:
         return flash_decode_plain(q, cache_k, cache_v, layer, kv_len)
     what = "flash_decode"
@@ -236,11 +267,10 @@ def flash_decode(q, cache_k, cache_v, layer: int, kv_len) -> torch.Tensor:
           "q must be contiguous (B, H, hd) f32")
     _vec_i32(what, kv_len, b, q.device)
     lib = build.load_library("attention")
-    work = _workspace(lib, q.device, b, h, s, hd)
     out = torch.empty((b, h * hd), dtype=torch.float32, device=q.device)
     err = lib.xq_flash_decode(
         q.data_ptr(), _layer_ptr(cache_k, layer), _layer_ptr(cache_v, layer), kv_len.data_ptr(),
-        work.data_ptr(), out.data_ptr(), b, h, kh, s, hd, 1.0 / math.sqrt(hd), f32,
+        None, out.data_ptr(), b, h, kh, s, hd, 1.0 / math.sqrt(hd), f32,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check(err, what)

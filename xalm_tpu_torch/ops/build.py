@@ -169,18 +169,28 @@ SIGNATURES = {
         "xq_qmatmul_a8": (_I, [_P, _P, _P, _F, _P, _P, _P, _I, _I, _I, _P]),
         # M, N, D, plan (3 int32: weight rows a block, blocks along M, along D)
         "xq_qmatmul_a8_plan": (_I, [_I, _I, _I, _P]),
+        # M, N, D, w_kind, plan (4 int32: blocks, stages, rows a stage, segments a row) of the
+        # streamed GEMV
+        "xq_gemv_plan": (_I, [_I, _I, _I, _I, _P]),
         # a (64, 8), b (128, 8) f32 bit patterns, d (64, 128) by tf32 wgmma, dm (16, 8) by
         # tf32 mma.sync, stream
         "xq_tf32_probe": (_I, [_P, _P, _P, _P, _P]),
+        # src, bytes, copy bytes, stages, blocks, sink (1 f32), stream: the streamed GEMV's
+        # ring alone
+        "xq_bulk_stream_bench": (_I, [_P, _L, _I, _I, _I, _P, _P]),
     },
     "attention": {
         # ck, cv, knew, vnew, kv_pos, rotate, cexp, sexp, B, KH, S, hd, f32 (a float
         # cache: 0 bf16, 1 f32; the flash kernels' too), stream
         "xq_kv_update": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
-        # B, H, S, hd -> f32 elements of the flash-decode workspace
+        # B, H, S, hd -> f32 elements of the int8 flash-decode's workspace
         "xq_flash_decode_workspace": (_L, [_I, _I, _I, _I]),
-        # q, ck, cv, kv_len, work, out, B, H, KH, S, hd, sm_scale, f32, stream
+        # q, ck, cv, kv_len, work (unused: may be null), out, B, H, KH, S, hd, sm_scale, f32,
+        # stream
         "xq_flash_decode": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P]),
+        # B, H, KH, hd, f32, plan (3 int32: blocks a (batch, kv head) = the cluster, key rows a
+        # stage, stages)
+        "xq_flash_decode_plan": (_I, [_I, _I, _I, _I, _I, _P]),
         # q, ck, cv, pos, out, B, T, H, KH, S, hd, sm_scale, f32, stream
         "xq_flash_prefill": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P]),
         # T, H, KH, hd, f32, tq (1 int32), q0s (cap int32: block y's first position), cap

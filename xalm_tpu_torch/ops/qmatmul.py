@@ -9,7 +9,9 @@ fp8 (``float8_e4m3fn``/``float8_e5m2``, no scale: the TPU kernel's
 ``_f8_to_bf16`` branch, each code widened to bf16 exactly); cd, the compute
 dtype, is bf16, or f32 for f32 weights (no bf16 rounding, as the TPU
 kernel's ``compute_dtype``). On the H100 the decode shapes (M <= 8) are
-bound by the weight bytes and run as a GEMV (f32 FMA for f32 weights);
+bound by the weight bytes and run as a GEMV (f32 FMA for f32 weights; for
+bf16 and f32 weights one block an SM, each warp streaming its rows by bulk
+copies, as ``gemv_plan`` says);
 larger M runs a tiled GEMM on the tensor cores: bf16 for int8/fp8/bf16, and
 for f32 weights split TF32, three TF32 products a step (each within about
 2^-18 of the f32 product; against f64 no less accurate than the plain
@@ -128,6 +130,42 @@ def f32_gemm_check(m: int, k: int, d: int) -> None:
     _need(k >= F32_K_GRANULE and k % F32_K_GRANULE == 0,
           f"the f32 GEMM takes a contraction width that is a multiple of {F32_K_GRANULE}, "
           f"not {k}")
+
+
+# The streamed GEMV (csrc/qmatmul.cu gs_plan, gs_shape): the weight dtypes
+# it takes, the rows of x and the bytes of x in shared memory its route
+# takes (``use_gemv``), and each warp's ring: GEMV_WARP_SLOTS stages of
+# GEMV_SLOT bytes, or of what a block's shared memory holds beside x in
+# whole KB
+GEMV_DTYPES = (torch.bfloat16, torch.float32)
+GEMV_MAX_M, GEMV_MAX_X_BYTES, GEMV_WARPS = 8, 160 * 1024, 8
+GEMV_SLOT, GEMV_WARP_SLOTS = 8192, 2
+GEMV_SMEM, GEMV_RESERVE = 227 * 1024, 1024
+
+
+def gemv_plan(m: int, n: int, d: int, dtype: torch.dtype,
+              sms: int) -> tuple[int, int, int, int] | None:
+    """The streamed GEMV's launch for x (m, n) times (d, n) weights of
+    ``dtype`` on a card of ``sms`` SMs: (blocks, bytes a stage, rows a
+    stage, segments a row); None where ``qmatmul`` takes another route (m
+    above 8, x past 160 KB in shared memory, a dtype the GEMV does not
+    stream, n off the 16 granule). One block an SM, the d rows dealt
+    evenly (31 or 32 each of Mistral's 4096 on an H100's 132 SMs) and a
+    contiguous run of them to each of its eight warps; a stage is one bulk
+    copy of whole rows (as many as fit) or of one of a longer row's equal
+    segments. The launcher's own plan, which reads the device's SM count,
+    is ``xq_gemv_plan``; the card's tests hold the two equal."""
+    xbytes = m * n * (4 if dtype == torch.float32 else 2)
+    if (dtype not in GEMV_DTYPES or not 1 <= m <= GEMV_MAX_M or d < 1 or n < 16 or n % 16
+            or xbytes > GEMV_MAX_X_BYTES):
+        return None
+    fit = (GEMV_SMEM - GEMV_RESERVE - xbytes) // (GEMV_WARPS * GEMV_WARP_SLOTS) // 1024
+    slot = min(fit * 1024, GEMV_SLOT)
+    rowb = n * dtype.itemsize
+    rps, nseg = slot // rowb, 1
+    if rps == 0:
+        rps, nseg = 1, -(-rowb // slot)
+    return min(d, sms), slot, rps, nseg
 
 
 def _check_quant_x(values, norm_w, q4_group: int, a8: bool, m: int) -> None:
