@@ -7,15 +7,21 @@
 
 Builds the port's CUDA kernels from ``xalm_tpu_torch/csrc/`` and drives the
 port, never the JAX package, through these phases, each printing JSON lines,
-first on Mistral-7B and then (phases 3-5 again) on Mixtral-8x7B and the
-family models:
+on Mistral-7B and (phases 3-5 again) on Mixtral-8x7B and the family models.
+Mixtral-8x7B's phase 6, whose per-layer path needs no megakernel, runs
+first, while the megakernel's two sources build:
 
 1. device: ``nvidia-smi`` name and power limit, ``torch.cuda.get_device_name``;
-2. build: one ``nvcc`` per source, all at once, and the build time;
+2. build: one ``nvcc`` per source, all at once (``build.start_all``); a
+   build line when kernel 1's and the attention kernels' are done, and one
+   when the megakernel's are, after phase 6;
 3. parity: every kernel against its plain PyTorch version at Mistral-7B
    shapes, with its time, the plain version's time, a library call's time
    where one PyTorch call computes the same function, and its bound (the
-   larger of bytes over 3.35 TB/s and operations over the peak rate): the
+   larger of bytes over 3.35 TB/s and operations over the peak rate):
+   kernel 1 at M = 1 and its tiled GEMM (``gemm_bf16w_kernel``: M = 512
+   w13, w2 and wqkv with the norm prologue, M = 16 w13, i8, and M = 512
+   w13 on bf16 weights beside ``F.linear``), the
    bf16-cache kernels, the int8-cache kernels (``phase_parity_int8``), the
    whole-step megakernel at full width and 32 layers in three bf16-cache
    and four int8-cache cases, and the cost of one of its grid barriers;
@@ -44,6 +50,8 @@ family models:
    a8 body); and a 2048-token prompt on the megakernel path, bf16 cache
    (four chunks, the last three through kernel 4 past a prefix:
    ``phase_long_prompt``, its prefill tok/s and flash_prefill device ms);
+   every prefill profile reports the tiled GEMM's device ms and records,
+   and a record of the kernel it replaced fails the run;
 5. wrap: the same widths at 2 layers and a 256-slot window, 600 decode
    steps through three ring wraps, the kernels against their plain
    versions on the card, on both decode paths (the megakernel with the i8
@@ -96,10 +104,15 @@ With ``--megakernel-ms`` it runs none of these phases: it builds only the
 megakernel's source and times the megakernel alone, in phase 3's first
 case (B = 1, kv_len 520, the embed fold, a bf16 cache), on each model
 preset named (default Mistral-7B and Qwen3-8B) and each weight body
-(``megakernel_ms``). With ``--kernel-ms`` it runs none of them either: it
-builds only kernel 1's and the attention kernels' sources and times the
-W8A8 GEMM and the split-TF32 f32 GEMM (w13 and w2 of Mistral-7B at M =
-512 and 256, i8 and f32 weights), the flash prefill over a bf16 and an
+(``megakernel_ms``); with ``--root`` it also runs one step of both trees
+on the same inputs, at B = 1 and 8, with the i8 head fold, over a bf16 and
+an int8 cache, and requires x, the logits, the tokens and every cache
+plane bit for bit (``_megakernel_bit_equal``). With ``--kernel-ms`` it runs none of them
+either: it builds only kernel 1's and the attention kernels' sources and
+times the tiled GEMM of int8 and bf16 weights (w13 and w2 of Mistral-7B at
+M = 512 and 256, w13 at M = 16; ``F.linear`` on bf16 weights beside it:
+``_gemm_turns``), the W8A8 GEMM and the split-TF32 f32 GEMM (w13 and w2 of
+Mistral-7B at M = 512 and 256, i8 and f32 weights), the flash prefill over a bf16 and an
 f32 cache (T = 512 at positions 0 and 1024, at the shapes of Mistral-7B,
 Qwen2.5-7B, Gemma-7B and Phi-3-mini), flash-decode (a bf16 and an f32
 cache, kv_len 777 and 4064, the same shapes) and the M = 1 GEMV (Mistral-7B's
@@ -242,13 +255,19 @@ def phase_device() -> str:
     return name
 
 
-def phase_build() -> None:
+def phase_build(names: tuple) -> None:
+    """Start every source's nvcc at once (``build.start_all``; a no-op for
+    those already started) and wait for the libraries ``names``: the
+    others go on building while the phases that need none of them run.
+    Emits the seconds waited here, each source's build seconds and ptxas's
+    report."""
     from xalm_tpu_torch.ops import build
 
     t0 = time.perf_counter()
-    secs = build.build_all()
+    build.start_all()
+    secs = {name: build.wait(name)[1] for name in names}
     logs = {}
-    for name in build.KERNELS:
+    for name in names:
         log = build.BUILD_DIR / f"{name}.log"
         if log.exists():  # ptxas register / shared-memory / spill report
             logs[name] = [ln.strip() for ln in log.read_text().splitlines()
@@ -257,10 +276,17 @@ def phase_build() -> None:
           "ptxas": logs})
 
 
+# phase 3's further cases of kernel 1's tiled GEMM (the kernels line's
+# also_cases of the qmatmul row)
+TILED_CASES = ("M=512 w2 i8, row scale", "M=512 wqkv i8, norm prologue + row scale",
+               "M=16 w13 i8, row scale", "M=512 w13 bf16")
+
+
 def phase_parity(params, cfg, cases: Cases) -> None:
     import torch
     import torch.nn.functional as F
 
+    from xalm_tpu_torch.models.params import QWeight
     from xalm_tpu_torch.ops.qmatmul import qmatmul, qmatmul_plain
 
     dev = torch.device(DEVICE)
@@ -293,6 +319,9 @@ def phase_parity(params, cfg, cases: Cases) -> None:
         lib = None
         if head:
             lib = lambda: F.linear(xb, qw.values)  # noqa: E731
+        elif values.dtype == torch.bfloat16:
+            lib_layers = itertools.cycle(range(values.shape[0]))
+            lib = lambda: F.linear(xb, values[next(lib_layers)])  # noqa: E731
         elif not use_norm:
             # bf16 activations x int8 weights with a per-row scale: the
             # int8 weight-only matmul (its scales in the activations' dtype)
@@ -316,6 +345,16 @@ def phase_parity(params, cfg, cases: Cases) -> None:
     mm_case("M=1 w2 i8, row scale", 1, lp.w2, False)
     mm_case("M=512 w13 i8, row scale", 512, lp.w13, False)
     mm_case("M=1 head bf16", 1, params.wcls, False, head=True)
+    # the tiled GEMM (gemm_bf16w_kernel) at the prefill chunk's other
+    # matmuls and at the smallest chunk; bf16 weights on two layers of random
+    # bf16 w13 drawn on the card (235 MB each), F.linear as the library call
+    mm_case(TILED_CASES[0], 512, lp.w2, False)
+    mm_case(TILED_CASES[1], 512, lp.wqkv, True)
+    mm_case(TILED_CASES[2], 16, lp.w13, False)
+    w13b = (randn(2, *lp.w13.values.shape[1:]) * 0.02).to(torch.bfloat16)
+    mm_case(TILED_CASES[3], 512, QWeight(w13b), False)
+    del w13b
+    torch.cuda.empty_cache()
 
     # ---- kernels 2-4 on random bf16 cache planes at the main path's shape
     shape = (L, 1, cfg.n_kv_heads, cfg.max_seq_len, cfg.head_dim)
@@ -1073,6 +1112,9 @@ def _main_run(eng, cfg, prompt, label: str) -> dict:
             prof["decode"]["device_busy_ms"] / prof["decode"]["steps"]
             if isinstance(prof["decode"]["device_busy_ms"], float) else "not measured"),
         "decode_device_idle_share": prof["decode"]["device_idle_share"],
+        "prefill_gemm_device_ms": prof["prefill_512"]["gemm_device_ms"],
+        "prefill_gemm_records": prof["prefill_512"]["gemm_records"],
+        "prefill_device_ms": prof["prefill_512"]["device_busy_ms"],
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "tokens_head": out[:8],
     }
@@ -1127,7 +1169,8 @@ def phase_main(params, cfg) -> dict:
         want_chunk = {k: L if k == chunk_kernel else 0 for k in prefill}
         if (any(per_token[k] != n for k, n in want.items())
                 or any(per_chunk[k] != n for k, n in want_chunk.items())
-                or (path == "megakernel" and row["launches"]["fused_decode"] != 63)):
+                or (path == "megakernel" and row["launches"]["fused_decode"] != 63)
+                or per_chunk["qmatmul"] != 4 * L + 1 or row["prefill_gemm_records"] == 0):
             raise AssertionError(f"{tag}{path} run: {row['launches']}, per token {per_token}, "
                                  f"per chunk {per_chunk}: expected per token {want}, per chunk "
                                  f"{want_chunk}")
@@ -1224,7 +1267,7 @@ def phase_long_prompt(params, cfg) -> dict:
             logits, cache, pos = eng.prefill(prompt, cache)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        dev, top, records = _device_times(prof)
+        dev, top, records, (gemm_ms, gemm_n) = _device_times(prof)
         if records["flash_prefill_kernel"] == chunks * cfg.n_layers:
             break
     if pos != LONG_PROMPT or not torch.isfinite(logits).all():
@@ -1239,6 +1282,7 @@ def phase_long_prompt(params, cfg) -> dict:
            "profile_attempts": attempt, "records_complete": complete,
            "prefill_device_ms": dev if complete else "not measured",
            "flash_prefill_device_ms": dev["flash_prefill"] if complete else "not measured",
+           "gemm_device_ms": gemm_ms if complete else "not measured", "gemm_records": gemm_n,
            "top": top, "tokens_head": out[:8]}
     emit(row)
     del eng
@@ -1250,7 +1294,7 @@ def phase_long_prompt(params, cfg) -> dict:
 # names a part of another kernel's name; the chunk combine kernel is the
 # int8 flash-decode's second launch)
 _PROFILE_GROUPS = {
-    "qmatmul": ("gemv_stream_kernel", "gemv_kernel", "gemm_kernel", "prep_x_kernel",
+    "qmatmul": ("gemv_stream_kernel", "gemv_kernel", "gemm_bf16w_kernel", "prep_x_kernel",
                 "gemm_tf32x3_kernel", "prep_x_tf32_kernel"),
     "qmatmul_q4": ("gemv_q4_kernel",),
     "qmatmul_a8": ("gemm_a8_kernel",),
@@ -1287,14 +1331,19 @@ _WITNESSES = {
 PROFILE_ATTEMPTS = 3
 PROFILE_PAD_S = 0.05
 PROFILE_PRIMES = 32
+# the tiled GEMM of int8, fp8 and bf16 weights, and the kernel it replaced
+# (which no profile may hold)
+GEMM_FRAG, OLD_GEMM_FRAG = "gemm_bf16w_kernel", "::gemm_kernel<"
 
 
-def _device_times(prof) -> tuple[dict, list, dict]:
+def _device_times(prof) -> tuple[dict, list, dict, tuple[float, int]]:
     """Device time (ms) by kernel group, the ten largest device entries as
-    (name, ms, count), and the record count of each witness fragment, from a
-    torch.profiler run. Only the kernels' own entries count: a PyTorch
-    operator's entry carries the device time of the kernels it launched,
-    which those kernels' entries carry too."""
+    (name, ms, count), the record count of each witness fragment, and the
+    tiled GEMM's device ms and records, from a torch.profiler run (one pass
+    over its entries: each pass costs seconds on a long trace). Only the
+    kernels' own entries count: a PyTorch operator's entry carries the
+    device time of the kernels it launched, which those kernels' entries
+    carry too. Raises on a record of the kernel the tiled GEMM replaced."""
     from torch.autograd import DeviceType
 
     groups = _PROFILE_GROUPS
@@ -1302,11 +1351,17 @@ def _device_times(prof) -> tuple[dict, list, dict]:
     out["other"] = 0.0
     top = []
     records = dict.fromkeys(_WITNESSES, 0)
+    gemm_ms, gemm_n = 0.0, 0
     for evt in prof.key_averages():
         if evt.device_type != DeviceType.CUDA:
             continue
         if "spin_kernel" in evt.key:  # the session's priming kernels
             continue
+        if OLD_GEMM_FRAG in evt.key:
+            raise AssertionError(f"a profile holds {evt.key[:80]!r}: the old tiled GEMM ran")
+        if GEMM_FRAG in evt.key:
+            gemm_ms += _device_us(evt) / 1e3
+            gemm_n += evt.count
         for frag in records:
             if frag in evt.key:
                 records[frag] += evt.count
@@ -1319,7 +1374,7 @@ def _device_times(prof) -> tuple[dict, list, dict]:
                       if any(f in evt.key for f in frags)), "other")
         out[group] += us / 1e3
         top.append((evt.key[:80], us / 1e3, evt.count))
-    return out, sorted(top, key=lambda r: -r[1])[:10], records
+    return out, sorted(top, key=lambda r: -r[1])[:10], records, (gemm_ms, gemm_n)
 
 
 def phase_profile(eng, prompt, token, label: str) -> dict:
@@ -1356,7 +1411,7 @@ def phase_profile(eng, prompt, token, label: str) -> dict:
                 torch.cuda.synchronize()
                 wall_ms = (time.perf_counter() - t0) * 1e3
             pos += steps
-            dev, top, records = _device_times(prof)
+            dev, top, records, (gemm_ms, gemm_n) = _device_times(prof)
             launched = {f: sum(build.LAUNCHES[w] for w in ws) for f, ws in _WITNESSES.items()}
             if records == launched:
                 break
@@ -1364,6 +1419,7 @@ def phase_profile(eng, prompt, token, label: str) -> dict:
         measured = records == launched and busy > 0
         rows[name] = {
             "steps": max(steps, 1), "wall_ms": wall_ms, "device_ms": dev, "top": top,
+            "gemm_device_ms": gemm_ms if measured else "not measured", "gemm_records": gemm_n,
             "attempts": attempt, "records_complete": records == launched,
             "device_busy_ms": busy if measured else "not measured",
             "device_idle_share": (1.0 - busy / wall_ms) if measured else "not measured",
@@ -3097,7 +3153,8 @@ INT8_CASE = dict.fromkeys(("fused_decode", "fused_decode_bias", "fused_decode_qk
                            "fused_decode_gemma", "fused_decode_gemma2"),
                           "int8 KV, B=1 kv_len=520, embed fold")
 # a further case of the kernels line: the down projection of the experts
-ALSO_CASE = {"qmatmul_multi": MULTI_W2_CASE, "qmatmul_multi_q4": MULTI_Q4_W2_CASE,
+ALSO_CASE = {"qmatmul": ("M=512 w13 i8, row scale",) + TILED_CASES,
+             "qmatmul_multi": MULTI_W2_CASE, "qmatmul_multi_q4": MULTI_Q4_W2_CASE,
              "qmatmul_f32": F32_M512_CASE, "qmatmul_multi_f32": MULTI_F32_W2_CASE,
              "flash_prefill_f32": ("T=512 pos=1024", "T=512 pos=0" + F32_CACHE_SHAPES[1][1]),
              "flash_decode_f32": tuple("B=1 kv_len=777" + lb for _, lb in F32_CACHE_SHAPES),
@@ -3191,15 +3248,83 @@ def call_device_ms(fn, iters: int = 20) -> float | str:
     return us / 1e3 / iters if us > 0 else "not measured"
 
 
+# _megakernel_bit_equal's positions: row b of a step of B rows sits at
+# MK_BIT_EQUAL_POS[b] (B = 8: both ends of the window, a wrapped row with
+# its sink rotation, and one at the kv_pos == S sentinel)
+MK_BIT_EQUAL_POS = (519, 3, 100, 4095, 777, 1, 2047, 4200)
+MK_BIT_EQUAL_BATCHES = (1, 8)
+
+
+def _megakernel_bit_equal(trees, p, cfg, body, a8, freqs, c1, s1) -> dict:
+    """One step of both trees' megakernels on the same inputs, with the
+    embed and i8 head folds, at B = 1 and 8 (MK_BIT_EQUAL_POS), over a bf16
+    cache and an int8 cache (codes and row scales) of random rows from the
+    seed: x, the logits, the tokens and every cache plane (the rows written
+    at kv_pos, the scales) bit for bit. Raises, naming the body and batch,
+    on the first difference; returns what was compared."""
+    import torch
+
+    from xalm_tpu_torch.models.params import recode_wcls_i8
+    from xalm_tpu_torch.ops import fused_decode as fd
+    from xalm_tpu_torch.runtime.cache import KVCache, ring_indices
+
+    dev = torch.device(DEVICE)
+    ph = recode_wcls_i8(p)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    compared = {}
+    for b in MK_BIT_EQUAL_BATCHES:
+        pos = torch.tensor(MK_BIT_EQUAL_POS[:b], dtype=torch.int32)
+        _, kv_pos, kv_len = ring_indices(pos, cfg.max_seq_len)
+        rot = (pos >= cfg.max_seq_len).to(torch.int32)
+        if b > 1:
+            kv_pos[1], rot[1] = cfg.max_seq_len, 0  # the dropped-write sentinel
+        fold = dict(embed=ph.embed, token=torch.arange(7, 7 + b), pos=pos, freqs=freqs)
+        shape = KVCache.plane_shape(cfg, b)
+        for cache in ("bf16", "int8"):
+            if cache == "bf16":
+                planes = [torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+                          for _ in range(2)]
+            else:
+                planes = [torch.randint(-127, 128, shape, generator=gen, device=dev,
+                                        dtype=torch.int8) for _ in range(2)]
+                planes += [torch.rand(shape[:-1], generator=gen, device=dev) * 1e-2 + 1e-3
+                           for _ in range(2)]
+            outs = {}
+            for tag in ("other", "this"):
+                mine = [t.clone() for t in planes]
+                scales = dict(k_scale=mine[2], v_scale=mine[3]) if cache == "int8" else {}
+                with _launching(trees[tag]):
+                    got = fd.fused_decode_step(ph, cfg, None, mine[0], mine[1], kv_pos, kv_len,
+                                               rot, None, None, c1, s1, a8=a8, wcls=ph.wcls,
+                                               out_norm=ph.out_norm, **scales, **fold)
+                torch.cuda.synchronize()
+                outs[tag] = list(got[:3]) + mine
+                del mine, got
+            names = ["x", "logits", "token", "ck", "cv"] + (["k_scale", "v_scale"]
+                                                            if cache == "int8" else [])
+            for name, x, y in zip(names, outs["other"], outs["this"]):
+                if not torch.equal(x, y):
+                    diff = float((x.float() - y.float()).abs().max())
+                    raise AssertionError(f"megakernel {body}, B={b}, {cache} cache: {name} "
+                                         f"differs from the other tree's (max |diff| {diff})")
+            compared[f"B={b} {cache}"] = names
+            del planes, outs
+            torch.cuda.empty_cache()
+    del ph
+    torch.cuda.empty_cache()
+    return compared
+
+
 def megakernel_ms(models, other_root: str | None) -> None:
     """The megakernel alone in phase 3's first case, for each model preset
     named and each weight body (the i8 body, a8 on it, and q4 at group 512,
     or 128 where 512 does not divide the widths), in turns with
     ``other_root``'s library where given (``_in_turns``: CUDA events around
     the wrapper's calls, host gaps included, and the kernel's own device
-    time), and the wrapper's host time a call behind a spin kernel. Random
-    i8 weights from the seed, a bf16 cache of unit normals (the
-    ``--megakernel-ms`` mode)."""
+    time), and the wrapper's host time a call behind a spin kernel; with
+    ``other_root`` both trees' outputs of one step held bit for bit
+    (``_megakernel_bit_equal``). Random i8 weights from the seed, a bf16
+    cache of unit normals (the ``--megakernel-ms`` mode)."""
     import functools
 
     import torch
@@ -3239,6 +3364,9 @@ def megakernel_ms(models, other_root: str | None) -> None:
             calls = {tag: functools.partial(step, tag) for tag in trees}
             with torch.inference_mode():
                 row = _in_turns(calls, ("fused_decode_kernel",))
+                if "other" in trees:
+                    row["bit_equal"] = _megakernel_bit_equal(trees, p, cfg, body, body != "i8",
+                                                             freqs, c1, s1)
                 for tag, fn in calls.items():
                     # the wrapper's host time a call, the card kept busy ahead of it
                     torch.cuda._sleep(int(2e8))
@@ -3272,13 +3400,21 @@ KERNEL_MS_DECODE_KV = (777, 4064)
 KERNEL_MS_MIN_LAYERS = 4  # layers cycled per call at the least (see _cold_layers)
 # the kernels' names, this tree's and earlier trees': a fragment that names
 # the other tree's kernel reads "not measured"
-KERNEL_MS_FRAGS = ("gemm_a8_kernel", "flash_prefill_kernel", "gemm_tf32x3_kernel",
+KERNEL_MS_FRAGS = ("gemm_bf16w_kernel", "gemm_kernel", "prep_x_kernel", "gemm_a8_kernel",
+                   "flash_prefill_kernel", "gemm_tf32x3_kernel",
                    "flash_prefill_tf32x3_kernel", "sgemm_kernel", "flash_prefill_f32_kernel",
                    "flash_decode_cluster_kernel", "flash_decode_split_kernel",
-                   "flash_decode_combine_kernel", "gemv_stream_kernel", "gemv_kernel")
+                   "flash_decode_combine_kernel", "gemv_stream_kernel", "gemv_kernel",
+                   "gemv_q4_kernel", "qmatmul_multi_kernel", "qmatmul_multi_q4_kernel")
 KERNEL_MS_DECODE_FRAGS = ("flash_decode_cluster_kernel", "flash_decode_split_kernel",
                           "flash_decode_combine_kernel")
 KERNEL_MS_GEMV_FRAGS = ("gemv_stream_kernel", "gemv_kernel")
+# the tiled GEMM of int8 and bf16 weights: this tree's, the one it replaced
+# (gemm_kernel, which other checkouts may hold), and x's preparation in both
+KERNEL_MS_GEMM_FRAGS = (GEMM_FRAG, OLD_GEMM_FRAG, "prep_x_kernel")
+# its cases: Mistral-7B's w13 and w2 at M = 512 and 256 (KERNEL_MS_A8), and
+# w13 at the smallest prefill chunk
+KERNEL_MS_GEMM_SMALL = (("w13", 4096, 28672, 16),)
 
 
 def _gemv_cases(cfg) -> tuple:
@@ -3406,7 +3542,8 @@ def _cold_layers(bytes_per_call: int) -> int:
 
 def kernel_ms(other_root: str | None) -> None:
     """Kernel 1's W8A8 GEMM and f32 GEMM (``xq_qmatmul_a8``, ``xq_qmatmul``
-    with f32 weights), kernel 4 over a bf16 and an f32 cache
+    with f32 weights), its tiled GEMM of int8 and bf16 weights
+    (``_gemm_turns``), kernel 4 over a bf16 and an f32 cache
     (``xq_flash_prefill``), kernel 3 over both caches (``xq_flash_decode``,
     kv_len KERNEL_MS_DECODE_KV: ``_decode_turns``) and kernel 1's M = 1
     GEMV (``_gemv_turns``) of this checkout and, with ``--root``, of the
@@ -3596,11 +3733,15 @@ def kernel_ms(other_root: str | None) -> None:
             del ck, cv
             torch.cuda.empty_cache()
     gemv_rows = _gemv_turns(trees, libs, gen, held)
+    gemm_rows = _gemm_turns(trees, libs, gen, held)
+    core_rows = _core_turns(trees, gen, held)
     _bulk_copy_rates(libs["this"]["qmatmul"])
-    emit({"phase": "kernel_ms", "roots": _roots(trees), "qmatmul_a8": a8_rows,
+    emit({"phase": "kernel_ms", "roots": _roots(trees), "qmatmul_gemm": gemm_rows,
+          "qmatmul_a8": a8_rows,
           "qmatmul_f32": f32_rows, "flash_prefill": pf_rows["bf16"],
           "flash_prefill_f32": pf_rows["f32"], "flash_decode": dec_rows["bf16"],
-          "flash_decode_f32": dec_rows["f32"], "qmatmul_gemv": gemv_rows})
+          "flash_decode_f32": dec_rows["f32"], "qmatmul_gemv": gemv_rows,
+          "gemv_cores": core_rows})
 
 
 def _attention_f64(q, ck, cv, layer: int, pos):
@@ -3766,6 +3907,177 @@ def _gemv_turns(trees, libs, gen, held) -> list[dict]:
     return rows
 
 
+# --kernel-ms's cases of the kernels on gemv.cuh's warp cores other than
+# the megakernel: (name, model, weights, N, D, k experts or 0, q4 group)
+KERNEL_MS_CORES = (("M=1 w2 e4m3", "MISTRAL_7B", "e4m3", "hidden", "dim", 0, 0),
+                   ("M=1 w13 q4 g512", "MISTRAL_7B", "q4", "dim", "h2", 0, 512),
+                   ("multi w13 i8, m=1 k=2", "MIXTRAL_8X7B", "i8", "dim", "h2", 2, 0),
+                   ("multi w13 q4 g128, m=1 k=2", "MIXTRAL_8X7B", "q4", "dim", "h2", 2, 128))
+KERNEL_MS_CORE_FRAGS = ("gemv_kernel", "gemv_q4_kernel", "qmatmul_multi_kernel",
+                        "qmatmul_multi_q4_kernel", "quant_x_kernel")
+
+
+def _core_turns(trees, gen, held) -> list[dict]:
+    """The other kernels on gemv.cuh's warp cores (``KERNEL_MS_CORES``):
+    the fp8 GEMV (``gemv_kernel``), the q4 GEMV (``gemv_q4_kernel``) and
+    kernel 8's gathered experts over int8 and packed q4
+    (``qmatmul_multi_kernel``, ``qmatmul_multi_q4_kernel``), through this
+    checkout's wrappers launching each tree's library (``_launching``), in
+    turns, layers or experts cycled past twice the L2; each held to this
+    checkout's plain version (fp8 and i8 1e-4 of each row's max, q4 bit for
+    bit). No one PyTorch call computes these functions (library null).
+    Bound: the weights and scales, x and the output, once each."""
+    import torch
+
+    from xalm_tpu_torch.models import config as configs
+    from xalm_tpu_torch.ops.qmatmul import (qmatmul, qmatmul_multi, qmatmul_multi_plain,
+                                            qmatmul_plain)
+
+    dev = torch.device(DEVICE)
+    rows = []
+    for name, model, wt, nk, dk, k, group in KERNEL_MS_CORES:
+        cfg = getattr(configs, model)
+        widths = {"dim": cfg.dim, "hidden": cfg.hidden_dim, "h2": 2 * cfg.hidden_dim}
+        n, d = widths[nk], widths[dk]
+        wn = n // 2 if wt == "q4" else n  # bytes of a weight row
+        sbytes = d * (n // group if group else 1) * 4 if wt != "e4m3" else 0
+        L = _cold_layers(max(k, 1) * (d * wn + sbytes))
+        le = L * max(k, 1)
+        if wt == "e4m3":
+            w = (torch.randn((le, d, n), generator=gen, device=dev) * 0.5).to(torch.float8_e4m3fn)
+            scale = None
+        else:
+            w = torch.randint(-128 if wt == "q4" else -127, 128, (le, d, wn), generator=gen,
+                              device=dev, dtype=torch.int8)
+            scale = torch.rand((le, d, n // group) if group else (le, d), generator=gen,
+                               device=dev) * 1e-2
+        x = torch.randn((1, n), generator=gen, device=dev)
+        kw = dict(q4_group=group) if group else {}
+        if k:
+            idxs = [torch.arange(i * k, i * k + k, dtype=torch.int32, device=dev)
+                    for i in range(L)]
+            want = qmatmul_multi_plain(x, w, scale, idxs[1], **kw)
+
+            def fn(i, w=w, scale=scale, x=x, kw=kw, idxs=idxs):
+                return qmatmul_multi(x, w, scale, idxs[i], **kw)
+        else:
+            want = qmatmul_plain(x, w, 1, scale=scale, **kw)
+
+            def fn(i, w=w, scale=scale, x=x, kw=kw):
+                return qmatmul(x, w, i, scale=scale, **kw)
+        layer = {tag: itertools.cycle(range(L)) for tag in trees}
+        rel = {}
+        for tag, tree in trees.items():
+            with _launching(tree):
+                got = fn(1)
+            torch.cuda.synchronize()
+            rel[tag] = _row_rel(got, want, d)
+
+        def call(tag, fn=fn):
+            with _launching(trees[tag]):
+                fn(next(layer[tag]))
+        nbytes = max(k, 1) * (d * wn + sbytes) + n * 4 + max(k, 1) * d * 4
+        b_ms, b_by = bound(nbytes, 2.0 * n * d * max(k, 1), PEAK_BF16)
+        row = {"case": name, "layers": L, "max_row_rel_err": rel, "bound_ms": b_ms,
+               "bound_by": b_by, "library_null": "no one PyTorch call computes it"}
+        row.update(_in_turns({tag: (lambda tag=tag: call(tag)) for tag in trees},
+                             KERNEL_MS_CORE_FRAGS))
+        rows.append(row)
+        kernel = ("qmatmul_multi" if k else "qmatmul") + {"e4m3": "_fp8", "q4": "_q4"}.get(wt, "")
+        held(kernel, row, rel["this"] <= (0.0 if wt == "q4" else 1e-4))
+        del w, scale, fn, call
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _gemm_turns(trees, libs, gen, held) -> list[dict]:
+    """Kernel 1's tiled GEMM through ``xq_qmatmul`` (int8 weights with row
+    scales and bf16 weights: this tree's ``gemm_bf16w_kernel``, the other
+    tree's: the kernel it replaced, ``gemm_kernel``), Mistral-7B's w13 and w2 at M = 512 and
+    256 and w13 at M = 16, layers cycled past twice the L2, in turns with the
+    other tree's and with ``F.linear`` on bf16 weights of the same shape (for
+    int8 weights a reference point: no PyTorch call multiplies int8 weights
+    with row scales by bf16 x on the tensor cores), device times beside the
+    event times; each held to this tree's plain version at 1e-4 of each
+    row's max. Bound: the weights, x, the output and the scales once each,
+    or 2 M N D operations at 989 TFLOP/s, whichever is longer."""
+    import ctypes
+
+    import torch
+    import torch.nn.functional as F
+
+    from xalm_tpu_torch.ops import build
+    from xalm_tpu_torch.ops.qmatmul import GEMM_BK, gemm_plan, qmatmul_plain
+
+    dev = torch.device(DEVICE)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cases = [(wt, name, k, d, m) for wt in ("i8", "bf16")
+             for name, k, d in KERNEL_MS_A8 for m in KERNEL_MS_A8_ROWS]
+    cases += [(wt, name, k, d, m) for wt in ("i8", "bf16")
+              for name, k, d, m in KERNEL_MS_GEMM_SMALL]
+    rows = []
+    for wt, name, k, d, m in cases:
+        kind, dt = (0, torch.int8) if wt == "i8" else (1, torch.bfloat16)
+        L = _cold_layers(d * k * dt.itemsize)
+        if wt == "i8":
+            w = torch.randint(-127, 128, (L, d, k), generator=gen, device=dev, dtype=torch.int8)
+            scale = torch.rand((L, d), generator=gen, device=dev) * 1e-3
+            wlib = w.to(torch.bfloat16)  # the library's bf16 weights of the same shape
+        else:
+            w = (torch.randn((L, d, k), generator=gen, device=dev) * 0.02).to(dt)
+            scale, wlib = None, w
+        x = torch.randn((m, k), generator=gen, device=dev)
+        xbs = {tag: torch.empty((libs[tag]["qmatmul"].xq_qmatmul_scratch(m, k, kind),),
+                                dtype=torch.uint8, device=dev) for tag in trees}
+        ys = {tag: torch.empty((m, d), device=dev) for tag in trees}
+        layer = {tag: itertools.cycle(range(L)) for tag in trees}
+
+        def call(tag, i=None, w=w, scale=scale, x=x, k=k, d=d, m=m, kind=kind):
+            i = next(layer[tag]) if i is None else i
+            err = libs[tag]["qmatmul"].xq_qmatmul(
+                x.data_ptr(), None, ctypes.c_float(0.0),
+                w.data_ptr() + i * d * k * w.element_size(), kind,
+                None if scale is None else scale.data_ptr() + i * d * 4, ctypes.c_float(0.0),
+                ys[tag].data_ptr(), xbs[tag].data_ptr(), m, k, d, stream)
+            build.check(err, f"{tag} xq_qmatmul tiled")
+        want = qmatmul_plain(x, w, 1, **({} if scale is None else dict(scale=scale)))
+        rel = {}
+        for tag in trees:
+            call(tag, 1)
+            torch.cuda.synchronize()
+            rel[tag] = _row_rel(ys[tag], want, d)
+        xl = x.to(torch.bfloat16)
+        lib_layer = itertools.cycle(range(L))
+
+        def lib(xl=xl, wlib=wlib):
+            return F.linear(xl, wlib[next(lib_layer)])
+        nbytes = d * k * dt.itemsize + 4 * m * (k + d) + (4 * d if scale is not None else 0)
+        b_ms, b_by = bound(nbytes, 2.0 * m * k * d, PEAK_BF16)
+        row = {"case": f"M={m} {name} {wt}", "layers": L, "max_row_rel_err": rel,
+               "plan": gemm_plan(m, k, d, dt, sms), "bound_ms": b_ms, "bound_by": b_by,
+               "library": ("F.linear on bf16 weights of the same shape: a reference point"
+                           if wt == "i8" else "F.linear")}
+        row.update(_in_turns({tag: (lambda tag=tag: call(tag)) for tag in trees},
+                             KERNEL_MS_GEMM_FRAGS, lib))
+        # the rate at which a block's stages land: the bytes every tile's
+        # stages bring (128 bytes of each weight row, x's chunks over the same
+        # columns) over the blocks and the kernel's device time (gemm_plan
+        # weighs a tile by its bytes at this rate)
+        nt, wrows, mtiles, bands, _, _, blocks = row["plan"]
+        wb = dt.itemsize
+        staged = bands * mtiles * -(-k * wb // GEMM_BK) * (wrows * GEMM_BK
+                                                           + GEMM_BK // 64 // wb * nt * 128)
+        dms = row.get(f"this_device_ms_{GEMM_FRAG}")
+        row["stage_gb_s_per_sm"] = (staged / blocks / dms / 1e6 if isinstance(dms, float)
+                                    else "not measured")
+        rows.append(row)
+        held("qmatmul", row, rel["this"] <= 1e-4)
+        del w, scale, wlib, lib, call
+        torch.cuda.empty_cache()
+    return rows
+
+
 # the streamed GEMV's ring alone (xq_bulk_stream_bench): bytes a bulk copy,
 # six stages, one block an SM, 256 MB a call over four buffers
 BULK_COPY_SIZES = (1024, 4096, 16384)
@@ -3846,14 +4158,33 @@ def main(argv=None) -> int:
     from xalm_tpu_torch.utils.synthetic import synthetic_params
 
     name = phase_device()
-    phase_build()
+    # every source's nvcc starts here; Mixtral-8x7B's phases (the per-layer
+    # kernels: kernel 1, 8 and the attention kernels) run while the
+    # megakernel's two sources go on building
+    phase_build(("qmatmul", "attention"))
+    cases = Cases()
+    cfg = MIXTRAL_8X7B
+    t0 = time.perf_counter()
+    params = synthetic_params(cfg, device=DEVICE, seed=SEED)
+    torch.cuda.synchronize()
+    emit({"phase": "weights", "model": "Mixtral-8x7B", "seconds": time.perf_counter() - t0,
+          "gb": params.nbytes() / 1e9})
+    with torch.inference_mode():
+        phase_parity_multi(params, cfg, cases)
+    moe_row = phase_main_moe(params, cfg)
+    del params
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        phase_wrap_moe(cfg)
+        phase_router_witness(cfg)
+    phase_build(("fused_decode", "fused_decode_f32"))
+
     cfg = MISTRAL_7B
     t0 = time.perf_counter()
     params = synthetic_params(cfg, device=DEVICE, seed=SEED)
     torch.cuda.synchronize()
     emit({"phase": "weights", "seconds": time.perf_counter() - t0,
           "gb": params.nbytes() / 1e9})
-    cases = Cases()
     t0 = time.perf_counter()
     q4p = recode_params_q4(params, 512)  # the q4 body, packed on the card
     torch.cuda.synchronize()
@@ -3876,21 +4207,6 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     with torch.inference_mode():
         phase_wrap(cfg)
-
-    cfg = MIXTRAL_8X7B
-    t0 = time.perf_counter()
-    params = synthetic_params(cfg, device=DEVICE, seed=SEED)
-    torch.cuda.synchronize()
-    emit({"phase": "weights", "model": "Mixtral-8x7B", "seconds": time.perf_counter() - t0,
-          "gb": params.nbytes() / 1e9})
-    with torch.inference_mode():
-        phase_parity_multi(params, cfg, cases)
-    moe_row = phase_main_moe(params, cfg)
-    del params
-    torch.cuda.empty_cache()
-    with torch.inference_mode():
-        phase_wrap_moe(cfg)
-        phase_router_witness(cfg)
     fam_launches = phase_families(cases)
     fmt_launches = phase_formats(cases)
     launches = {k: main_row["launches"][k] + moe_row["launches"][k]

@@ -1799,6 +1799,18 @@ def test_launch_plans_match_the_launchers(dev, family):
             want_tq, want_order = A.prefill_plan(t, h // kh, cfg.head_dim, f32=bool(f32))
             assert tq.value == want_tq and list(q0s[:len(want_order)]) == want_order, (t, f32)
     assert alib.xq_flash_prefill_plan(512, 9, 1, 128, 0, ctypes.byref(tq), q0s, 512) != 0
+    # the tiled GEMM of int8, bf16 and fp8 weights (ops.qmatmul.gemm_plan), at every prefill
+    # bucket, a ragged M and M 1 to 8 (where x is too wide for the GEMV)
+    from xalm_tpu_torch.ops.qmatmul import gemm_plan
+
+    for k, d in shapes + [(4128, 1001), (32 * 33, 1000)]:
+        for kind, dt in ((0, torch.int8), (1, torch.bfloat16), (3, torch.float8_e4m3fn)):
+            for m in (1, 8, 9, 16, 32, 64, 128, 256, 300, 512, 513, 2048):
+                got = (ctypes.c_int * 7)()
+                assert qlib.xq_gemm_plan(m, k, d, kind, got) == 0, (m, k, d, kind)
+                assert tuple(got) == gemm_plan(m, k, d, dt, sms), (m, k, d, kind)
+    assert qlib.xq_gemm_plan(16, 4112, 4096, 0, (ctypes.c_int * 7)()) != 0
+    assert qlib.xq_gemm_plan(16, 4096, 4096, 2, (ctypes.c_int * 7)()) != 0  # f32: split TF32
 
 
 @pytest.mark.parametrize("hd", [96, 128, 256])
@@ -2042,3 +2054,184 @@ def test_decode_and_gemv_plans_match_the_launchers(dev, family):
                     assert tuple(got) == want, (m, n, d, dt)
     for kind in (0, 3, 4):  # int8, fp8: the warp-a-row-pair GEMV
         assert qlib.xq_gemv_plan(1, 4096, 4096, kind, (ctypes.c_int * 4)()) != 0
+
+
+# ------------------------ the tiled GEMM of int8, fp8 and bf16 weights; the megakernel at B = 8
+
+GEMM_KINDS = ("i8", "q8", "bf16", "e4m3", "e5m2")
+
+
+def _gemm_weights(dev, gen, kind: str, l: int, d: int, n: int):
+    """(values, kwargs) of a random (l, d, n) weight stack of ``kind`` for
+    qmatmul: int8 with row scales (i8) or q8's fixed scale, bf16, or fp8
+    codes (finite, within e4m3's and e5m2's ranges)."""
+    if kind in ("i8", "q8"):
+        w = torch.randint(-128, 128, (l, d, n), dtype=torch.int8, device=dev, generator=gen)
+        if kind == "q8":
+            return w, dict(q8_scale=0.01)
+        return w, dict(scale=torch.rand((l, d), device=dev, generator=gen) * 0.01)
+    w = torch.randn((l, d, n), device=dev, generator=gen)
+    if kind == "bf16":
+        return w.to(torch.bfloat16), {}
+    fmt = torch.float8_e4m3fn if kind == "e4m3" else torch.float8_e5m2
+    return (w * 8).to(fmt), {}
+
+
+@pytest.mark.parametrize("kind", GEMM_KINDS)
+@pytest.mark.parametrize("m", [9, 16, 100, 512, 513])
+def test_qmatmul_tiled_gemm_matches_plain(dev, m, kind):
+    """Kernel 1's tiled GEMM (``gemm_bf16w_kernel``: a TMA ring, the weights
+    widened to bf16 in registers as the wgmma's A operand) against its plain
+    version: D = 1000 (not a multiple of the 128-row weight tile), N = 32 x
+    33 (a last stage of half its depth), every weight kind, with and
+    without the norm prologue: 1e-4 of each row's max, 1e-3 with the
+    prologue; one launch a call, under the kind's counter."""
+    from xalm_tpu_torch.ops.qmatmul import gemm_plan
+
+    gen = torch.Generator(device=dev).manual_seed(m + len(kind))
+    l, d, n = 2, 1000, 32 * 33
+    w, kw = _gemm_weights(dev, gen, kind, l, d, n)
+    x = torch.randn((m, n), device=dev, generator=gen)
+    nw = torch.rand((l, n), device=dev, generator=gen) + 0.5
+    counter = "qmatmul_fp8" if kind.startswith("e") else "qmatmul"
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for extra in ({}, dict(norm_w=nw, norm_eps=1e-5)):
+        build.reset_launches()
+        got = qmatmul(x, w, 1, **kw, **extra)
+        assert build.LAUNCHES[counter] == 1
+        assert torch.isfinite(got).all()
+        want = qmatmul_plain(x, w, 1, **kw, **extra)
+        rel = _row_rel(got, want, d)
+        assert rel <= (1e-3 if extra else 1e-4), (extra.keys(), rel, gemm_plan(m, n, d, w.dtype,
+                                                                                  sms))
+
+
+@pytest.mark.parametrize("kind", ["i8", "bf16"])
+@pytest.mark.parametrize("m,n,d", [(16, 14336, 4096), (8, 14336, 1000), (512, 14336, 512)])
+def test_qmatmul_tiled_gemm_wide_contractions(dev, m, n, d, kind):
+    """The tiled GEMM where the plan splits the contraction (w2's width at
+    M = 16 and at M = 8, where x is too wide for the GEMV: the splits add
+    into y) and at M = 512 over one long chain of stages (each stage's
+    products summed into a fresh chain, added to the tile's sums in IEEE
+    f32: the tensor cores' sums would lose toward zero over 224 stages):
+    1e-4 of each row's max."""
+    gen = torch.Generator(device=dev).manual_seed(m + n)
+    w, kw = _gemm_weights(dev, gen, kind, 2, d, n)
+    x = torch.randn((m, n), device=dev, generator=gen)
+    got = qmatmul(x, w, 1, **kw)
+    assert _row_rel(got, qmatmul_plain(x, w, 1, **kw), d) <= 1e-4
+
+
+def test_qmatmul_tiled_gemm_replays_in_a_cuda_graph(dev):
+    """One prefill chunk's four GEMMs (wqkv with the norm prologue, wo, w13
+    with the norm prologue, w2; i8 with row scales, Mistral-7B's shapes cut
+    to 1024 wide and 2 layers) captured in a CUDA graph and replayed with x
+    rewritten in place: each replay equals the eager calls bit for bit (the
+    K splits' zeroing is in the graph) and its plain versions within their
+    tolerances."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    dim, qkv, hidden, m = 1024, 1536, 3584, 64
+    shapes = {"wqkv": (qkv, dim, True), "wo": (dim, dim, False), "w13": (2 * hidden, dim, True),
+              "w2": (dim, hidden, False)}
+    ws = {k: _gemm_weights(dev, gen, "i8", 2, d, n) for k, (d, n, _) in shapes.items()}
+    nw = torch.rand((2, dim), device=dev, generator=gen) + 0.5
+    xs = {k: torch.randn((m, n), device=dev, generator=gen) for k, (_, n, _) in shapes.items()}
+
+    def chunk():
+        return {k: qmatmul(xs[k], ws[k][0], 1, **ws[k][1],
+                           **(dict(norm_w=nw, norm_eps=1e-5) if shapes[k][2] else {}))
+                for k in shapes}
+    chunk()  # the launchers' one-time set-up, outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = chunk()
+    for _ in range(3):
+        for k in xs:
+            xs[k].copy_(torch.randn(xs[k].shape, device=dev, generator=gen))
+        graph.replay()
+        torch.cuda.synchronize()
+        eager = chunk()
+        for k, (d, _, norm) in shapes.items():
+            assert torch.equal(outs[k], eager[k]), k
+            want = qmatmul_plain(xs[k], ws[k][0], 1, **ws[k][1],
+                                 **(dict(norm_w=nw, norm_eps=1e-5) if norm else {}))
+            assert _row_rel(outs[k], want, d) <= (1e-3 if norm else 1e-4), k
+
+
+def test_qmatmul_tiled_gemm_refuses_unaligned_contraction(dev):
+    """N off the 32 granule raises ValueError before any launch."""
+    w = torch.zeros((1, 64, 48), dtype=torch.int8, device=dev)
+    build.reset_launches()
+    with pytest.raises(ValueError, match="tiled GEMM"):
+        qmatmul(torch.zeros((16, 48), device=dev), w, 0, q8_scale=0.01)
+    assert build.LAUNCHES["qmatmul"] == 0
+
+
+B8_CASES = [("mistral", "i8"), ("mistral", "a8"), ("mistral", "q4"), ("gemma2", "bf16")]
+
+
+@pytest.mark.parametrize("fam,body", B8_CASES)
+def test_fused_decode_bodies_at_batch_8_match_plain(dev, fam, body):
+    """The megakernel at its widest batch, B = 8 (each GEMV phase's 8
+    activation rows staged in column chunks where they do not fit; its
+    weight words loaded ahead and its first rows prefetched into L2), the
+    i8, a8 and q4 (group 128) bodies and Gemma-2's folds, with the i8-head
+    fold and a bf16 cache, against the plain version through a ring wrap of
+    a 48-slot window, each step from the plain version's caches, rows at 8
+    positions and row 1 at the sentinel: each row of x and of the logits
+    within 2e-2 of its max (a8 and q4: 5e-2, and 90 % of the rows within
+    1e-5: each row's int8 codes can land a count apart where the rms runs
+    in another order, and a step holds 16 rows)."""
+    from xalm_tpu_torch.models.llama import rope_constants, rope_tables
+    from xalm_tpu_torch.models.params import recode_params_q4, recode_wcls_i8
+    from xalm_tpu_torch.ops import fused_decode as fd
+    from xalm_tpu_torch.runtime.cache import KVCache, ring_indices
+    from xalm_tpu_torch.utils.synthetic import synthetic_params
+
+    b = 8
+    cfg = _gemma_cfg(fam) if fam != "mistral" else dataclasses.replace(MISTRAL_7B, **FUSED_CFG)
+    params = synthetic_params(cfg, device=dev, seed=60 + len(body))
+    if body == "q4":
+        params = recode_params_q4(params, 128)
+    params = recode_wcls_i8(params)
+    s = cfg.max_seq_len
+    freqs, c1, s1 = rope_constants(cfg, dev)
+    kern, plain = (KVCache.init(cfg, b, torch.bfloat16, dev) for _ in range(2))
+    rng = np.random.default_rng(b)
+    start = np.array([0, 7, 20, 3, 11, 30, 1, 40])
+    build.reset_launches()
+    steps = s + 6
+    rels, step_rels = [], []  # each row's error; each step's worst row's
+    quant = body in ("a8", "q4")
+    for st in range(steps):
+        kern.k.copy_(plain.k)
+        kern.v.copy_(plain.v)
+        pos = torch.from_numpy((start + st).astype(np.int32))
+        _, kv_pos, kv_len = ring_indices(pos, s)
+        rot = (pos >= s).to(torch.int32)
+        kv_pos[1], rot[1] = s, 0
+        tok = torch.from_numpy(rng.integers(3, cfg.vocab_size, size=b))
+        x0 = params.embed.values[tok.to(dev)].float() * cfg.embed_scale
+        ce, se = (z[:, 0, 0] for z in rope_tables(pos[:, None], freqs.cpu()))
+        kw = dict(a8=quant, wcls=params.wcls, out_norm=params.out_norm)
+        got = fd.fused_decode_step(params, cfg, x0, kern.k, kern.v, kv_pos, kv_len, rot, ce, se,
+                                   c1, s1, **kw)
+        want = fd.fused_decode_step_plain(params, cfg, x0, plain.k, plain.v, kv_pos, kv_len, rot,
+                                          ce, se, c1, s1, **kw)
+        torch.cuda.synchronize()
+        for gv, wv in ((got[0], want[0]), (got[1], want[1])):
+            assert torch.isfinite(gv).all()
+            row_rels = ((gv - wv).abs().amax(dim=1) / wv.abs().amax(dim=1)).tolist()
+            rels += row_rels
+            step_rels.append(max(row_rels))
+            assert max(row_rels) <= (5e-2 if quant else 2e-2), (st, max(row_rels))
+        assert torch.equal(got[2], got[1].argmax(dim=-1).to(torch.int32))
+    counter = {"i8": "fused_decode", "bf16": "fused_decode", "a8": "fused_decode_a8",
+               "q4": "fused_decode_q4"}[body]
+    assert build.LAUNCHES[counter] == steps
+    assert build.LAUNCHES["fused_decode_gemma2"] == (steps if fam == "gemma2" else 0)
+    print(f"B=8 {fam} {body}: share within 1e-5 by row {np.mean(np.asarray(rels) <= 1e-5):.4f}, "
+          f"by step (its worst row) {np.mean(np.asarray(step_rels) <= 1e-5):.4f}")
+    if quant:
+        assert np.mean(np.asarray(rels) <= 1e-5) >= 0.9, sorted(rels)[-5:]

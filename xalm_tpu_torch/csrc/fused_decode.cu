@@ -87,12 +87,14 @@
 // GEMV, writes the logits and each block's argmax partial, and after one
 // more barrier block 0 reduces the partials to the first-occurrence argmax.
 //
-// The GEMV phases use the warp core of gemv.cuh (csrc/qmatmul.cu's M <= 8
+// The GEMV phases use the warp cores of gemv.cuh (csrc/qmatmul.cu's M <= 8
 // route): a warp per output row pair, 16-byte int8 loads through the
-// read-only path, the activations normalised and cast to bf16 once per
-// block into shared memory (in column chunks when B rows of the
-// contraction do not fit in 64 KB). Every block reaches every barrier,
-// with or without work.
+// read-only path, each lane's weight words one or two steps ahead of the
+// products that use them (the q4 core: the next chunk of words before its
+// group's reductions and scale loads), the activations normalised and cast
+// to bf16 once per block into shared memory (in column chunks when B rows
+// of the contraction do not fit in 64 KB). Every block reaches every
+// barrier, with or without work.
 //
 // Memory discipline: the workspace (allocated once by the wrapper) holds the
 // barrier word, the x residual (B, N) f32, qkv, the rotated q, the
@@ -116,9 +118,24 @@
 // tanh per score, per logit and per gate, and two row norms per layer: no
 // weight bytes). Each grid barrier costs one atomic per block and a spin on
 // one word (measured by xq_grid_barrier_bench, PERF.md); a step has 1 + 7L
-// of them (+1 with the head fold): 225 at 32 layers. No wgmma, TMA or
-// cross-barrier weight prefetch yet: the weight stream stops at every
-// barrier and restarts cold.
+// of them (+1 with the head fold): 225 at 32 layers. What keeps the
+// weight stream from the byte rate is the bytes in flight (Little's law at
+// 3.35 TB/s over 132 SMs: ~25 KB an SM a microsecond of latency) and the
+// gaps at the barriers, where it stops. The design: (1) each lane keeps
+// two or three steps of 16-byte words of its two rows in flight (gemv.cuh's
+// cores: 32-48 KB an SM at 16 warps), and the int8 codes widen by byte
+// permutes rather than the int-to-float conversion, whose rate (16 a clock
+// an SM) is near the SM's share of the byte rate; (2) in the q4 body the
+// stream does not restart cold after a barrier: the rows a block streams
+// in a phase are fixed before the phase (walk_pairs' deal; nothing writes
+// the weights), so before the barrier in front of each GEMV phase every
+// block asks for the first MK_PF bytes of its first rows of that phase to
+// be brought into L2 (prefetch_pairs: one bulk prefetch a row, no shared
+// memory, no barrier), and during phases 2-4, which read no weights, for
+// its wo rows whole (Mistral's wo: 16.8 MB of the 50 MB L2). The i8 and a8
+// bodies make no prefetch: on an H100 they ran faster without it (PERF.md
+// section 6). No wgmma or TMA: B <= 8 rows of activations use a weight byte
+// at most 8 times, far below the tensor cores' ~295 operations a byte.
 //
 // Limits (cudaErrorInvalidValue): head_dim other than 128 and 256 (Phi-3's
 // 96 decodes on the per-layer kernels), a cache kind this library was not
@@ -132,6 +149,7 @@
 #include <math.h>
 
 #include "gemv.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -340,6 +358,33 @@ __device__ void walk_pairs(int D, int K, int chunk, int c13, Stage stage, Run ru
   }
 }
 
+// bytes of each of a block's first rows of a GEMV phase brought into L2
+// before the barrier in front of the phase (prefetch_pairs)
+constexpr size_t MK_PF = 2048;
+
+// The first rows of a phase's weights that this block will stream, into
+// L2 ahead of the phase (hopper.cuh's xq_prefetch_l2: a hint, no shared
+// memory, no barrier): the rows of the pairs walk_pairs deals the block
+// first (p = blockIdx.x * MK_WARPS + warp, each warp's first pair), the
+// first len bytes of each row (the row where it is shorter); one thread a
+// row. The rows D of rowb bytes, c13 as for pair_rows. The q4 body's
+// alone: the i8 and a8 bodies ran slower with it on an H100.
+// ops/fused_decode.py's prefetch_rows mirrors it.
+template <int BODY>
+__device__ __forceinline__ void prefetch_pairs(const int8_t* w, int D, size_t rowb, int c13,
+                                               size_t len) {
+  if constexpr (BODY != BODY_Q4) return;
+  const int tid = threadIdx.x;
+  const int npairs = c13 > 0 ? D / 2 : (D + 1) / 2;
+  const int p = blockIdx.x * MK_WARPS + tid / 2;
+  if (tid >= 2 * MK_WARPS || p >= npairs) return;
+  int r0, r1;
+  pair_rows(p, c13, r0, r1);
+  const int r = tid & 1 ? r1 : r0;
+  if (r >= D) return;
+  xq_prefetch_l2(w + (size_t)r * rowb, (uint32_t)(len < rowb ? len : rowb));
+}
+
 // One GEMV phase over the D rows of w and their scales sc: int8 rows of K
 // with (D) row scales, or for BODY_Q4 packed rows of K/2 bytes with (D,
 // K/group) group scales. The block stages its B activation rows src(b, n)
@@ -474,7 +519,7 @@ __device__ void gemv_phase(const int8_t* __restrict__ w, const float* __restrict
           __syncthreads();
         },
         [&](PairAcc<float>& acc, int r0, int r1, int p0, int p1) {
-          xq_gemv2_q4<MK_MAX_B>(xs, xs + ldx / 2, ldx, row_ptr(r0), row_ptr(r1), sc_ptr(r0),
+          xq_gemv2_q4<MK_MAX_B, true>(xs, xs + ldx / 2, ldx, row_ptr(r0), row_ptr(r1), sc_ptr(r0),
                                 sc_ptr(r1), p0, p1, group, npg, B, lane, acc.v, hterm);
         },
         [&](int p, int r0, int r1, PairAcc<float>& acc) {
@@ -638,6 +683,7 @@ __global__ void __launch_bounds__(MK_THREADS, 2) fused_decode_kernel(const MkArg
                             (FAM ? a.embed_scale : 1.f)
                       : __ldg(a.x0 + i));
   }
+  prefetch_pairs<BODY>(a.wqkv, DQ, rowb(N), 0, MK_PF);
   grid_sync(bar);
 
   const float* rv = rinv;  // captured as pointers: the values are per phase
@@ -706,7 +752,9 @@ __global__ void __launch_bounds__(MK_THREADS, 2) fused_decode_kernel(const MkArg
 
     // ---- phase 2: clip, q/k norm, rope, ring insert, sink rotation; one
     // (row, kv head) item per hd threads. Post-norms: x takes the pending
-    // projection (nothing reads x in this phase)
+    // projection (nothing reads x in this phase). Phases 2-4 read no
+    // weights: the block's first wo rows go to L2 meanwhile, whole
+    prefetch_pairs<BODY>(a.wo + l * N * rowb(QD), N, rowb(QD), 0, rowb(QD));
     if (pmn != nullptr) settle(pd, pmn, x);
     const float* qn = a.q_norm != nullptr ? a.q_norm + (size_t)l * hd : nullptr;
     const float* kn = a.k_norm != nullptr ? a.k_norm + (size_t)l * hd : nullptr;
@@ -950,6 +998,7 @@ __global__ void __launch_bounds__(MK_THREADS, 2) fused_decode_kernel(const MkArg
                        __stcg(xr + r0, pn ? v0 : __ldcg(xr + r0) + v0);
                        if (r1 < N) __stcg(xr + r1, pn ? v1 : __ldcg(xr + r1) + v1);
                      });
+    prefetch_pairs<BODY>(a.w13 + l * H2 * rowb(N), H2, rowb(N), a.c13, MK_PF);
     grid_sync(bar);
 
     // ---- phase 6: rmsnorm + w13, SiLU(gate) * up (or gelu); post-norms:
@@ -963,6 +1012,7 @@ __global__ void __launch_bounds__(MK_THREADS, 2) fused_decode_kernel(const MkArg
                        __stcg(act + (size_t)b * H + p,
                               (FAM && a.gelu ? gelu_tanh(gt) : gt / (1.0f + expf(-gt))) * up);
                      });
+    prefetch_pairs<BODY>(a.w2 + l * N * rowb(H), N, rowb(H), 0, MK_PF);
     grid_sync(bar);
 
     // ---- phase 7: w2 + residual (and the output rows after the last
@@ -984,6 +1034,8 @@ __global__ void __launch_bounds__(MK_THREADS, 2) fused_decode_kernel(const MkArg
                          }
                        });
     }
+    if (l + 1 < a.L) prefetch_pairs<BODY>(a.wqkv + (l + 1) * DQ * rowb(N), DQ, rowb(N), 0, MK_PF);
+    else if (a.wcls != nullptr) prefetch_pairs<BODY>(a.wcls, a.V, N, 0, MK_PF);
     grid_sync(bar);
   }
 

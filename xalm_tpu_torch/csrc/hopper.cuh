@@ -1,19 +1,22 @@
-// Hopper (sm_90a) building blocks of the TMA-fed kernels: the W8A8 GEMM,
-// the split-TF32 f32 GEMM and the streamed M <= 8 GEMV (qmatmul.cu
-// gemm_a8_kernel, gemm_tf32x3_kernel, gemv_stream_kernel), the causal flash
-// prefill over a bf16 and an f32 cache and the cluster flash-decode
-// (attention.cu flash_prefill_kernel, flash_prefill_tf32x3_kernel,
-// flash_decode_cluster_kernel).
+// Hopper (sm_90a) building blocks of the TMA-fed kernels: the tiled GEMM of
+// int8, fp8 and bf16 weights, the W8A8 GEMM, the split-TF32 f32 GEMM and
+// the streamed M <= 8 GEMV (qmatmul.cu gemm_bf16w_kernel, gemm_a8_kernel,
+// gemm_tf32x3_kernel, gemv_stream_kernel), the causal flash prefill over a
+// bf16 and an f32 cache and the cluster flash-decode (attention.cu
+// flash_prefill_kernel, flash_prefill_tf32x3_kernel,
+// flash_decode_cluster_kernel), and the megakernel's L2 prefetch of its
+// weight rows (fused_decode.cu).
 //
 // - TMA: a tensor map (CUtensorMap, encoded on the host per call by
 //   cuTensorMapEncodeTiled, which xq_tensor_map obtains from the driver
 //   through cudaGetDriverEntryPoint[ByVersion]: no -lcuda at link time)
 //   names a 2-D or 3-D global tensor and a box; one thread asks for a box
 //   to be copied into shared memory (cp.async.bulk.tensor), and the copy
-//   reports its bytes to an mbarrier. Every map here uses the 128-byte
-//   swizzle: a box row is 128 bytes (128 int8, 64 bf16 or 32 f32) and the
-//   16-byte chunk c of row r lands at chunk c ^ (r % 8) within its
-//   1024-byte group of 8 rows. Elements outside the tensor read as zero.
+//   reports its bytes to an mbarrier. Every map here but the tiled GEMM's
+//   one-byte weights uses the 128-byte swizzle: a box row is 128 bytes
+//   (128 int8, 64 bf16 or 32 f32) and the 16-byte chunk c of row r lands
+//   at chunk c ^ (r % 8) within its 1024-byte group of 8 rows. Elements
+//   outside the tensor read as zero.
 // - 1-D bulk copy (cp.async.bulk, xq_bulk_g2s): one thread asks for a
 //   contiguous run of bytes (a multiple of 16, both ends 16-byte aligned)
 //   to be copied from global into shared memory, reported to an mbarrier
@@ -142,6 +145,15 @@ __device__ __forceinline__ void xq_bulk_g2s(void* dst, const void* src, uint32_t
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
       ::"r"(xq_smem(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(xq_smem(bar))
       : "memory");
+}
+
+// a hint: `bytes` (a multiple of 16) of global memory from src (16-byte
+// aligned) brought into L2 by the bulk-copy engine, no shared memory and no
+// barrier (the megakernel's weight rows ahead of a grid barrier)
+__device__ __forceinline__ void xq_prefetch_l2(const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;" ::"l"(reinterpret_cast<uint64_t>(src)),
+               "r"(bytes)
+               : "memory");
 }
 
 // ---------------------------------------------------------------- wgmma
@@ -317,6 +329,69 @@ __device__ __forceinline__ void xq_wgmma_bf16_rs_n256(float (&d)[128], const uin
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D (64 x N, f32) = A (64 x 16, bf16, in registers: a[4], the layout of an
+// m64n16 accumulator) * B (N x 16, bf16, K-major in shared memory: no
+// transpose) + D, or without D where acc is 0; N = 16, 32, 64 or 128
+template <int N>
+__device__ __forceinline__ void xq_wgmma_bf16_rs_kmajor(float (&d)[N / 2], const uint32_t (&a)[4],
+                                                       uint64_t db, int acc) {
+  static_assert(N == 16 || N == 32 || N == 64 || N == 128, "wgmma widths of the tiled GEMM");
+  if constexpr (N == 16) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+  } else if constexpr (N == 32) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+  } else if constexpr (N == 64) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+  } else if constexpr (N == 128) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, "
+      "%35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, "
+      "%52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+  }
+}
+
 // ------------------------------------------------------------ split TF32
 //
 // The tensor cores take f32 operands only as TF32: sign, exponent and the
@@ -436,10 +511,12 @@ static XqEncodeTiled xq_encode_tiled() {
 
 // A tensor map of a rank-2 or rank-3 row-major tensor: dims innermost first
 // (elements), strides[i] the byte stride of dimension i + 1, box the tile
-// (elements; box[0] * element bytes = 128, the swizzle span). Zero fill
-// outside the tensor. False if the driver refuses it.
+// (elements; box[0] * element bytes = 128, the swizzle span, unless the
+// map is unswizzled: then a multiple of 16). Zero fill outside the tensor.
+// False if the driver refuses it.
 static bool xq_tensor_map(CUtensorMap* map, CUtensorMapDataType type, int rank, const void* ptr,
-                          const uint64_t* dims, const uint64_t* strides, const uint32_t* box) {
+                          const uint64_t* dims, const uint64_t* strides, const uint32_t* box,
+                          CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   XqEncodeTiled encode = xq_encode_tiled();
   if (encode == nullptr) return false;
   cuuint64_t d[3], s[2];
@@ -450,7 +527,7 @@ static bool xq_tensor_map(CUtensorMap* map, CUtensorMapDataType type, int rank, 
     if (i + 1 < rank) s[i] = strides[i];
   }
   return encode(map, type, (cuuint32_t)rank, const_cast<void*>(ptr), d, s, b, e,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

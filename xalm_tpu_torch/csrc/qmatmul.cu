@@ -47,11 +47,42 @@
 //   on the critical path of each stage: chip_smoke.py --kernel-ms), 16
 //   codes a 16-byte load; the widening (8 cvt instructions a load) stays
 //   under the byte rate.
-// - Prefill (M up to 512): operations at M >= ~300, bytes below. Design: a
-//   first pass writes bf16(rmsnorm?(x)) once (one block per row); then a
-//   64x64-output-tile GEMM on bf16 WMMA (mma.sync) tensor-core fragments,
-//   int8 weight tiles widened to bf16 in shared memory. Simple and right
-//   first: no TMA, no wgmma, no multi-stage pipeline yet.
+// - Prefill (M up to 512, and M <= 8 where x is too wide for the GEMV's
+//   shared memory): operations at M >= ~300 (w13 at M = 512: 0.122 ms at
+//   989 TFLOP/s), bytes below (M = 16: the weights over 3.35 TB/s, 35 us
+//   for w13). gemm_bf16w_kernel, weight-stationary: the weights are the
+//   wgmma's A operand (64 rows a consumer warpgroup, two warpgroups a
+//   block) and the token rows its N (16, 32, 64 or 128: M = 16 runs n16 and
+//   reads each weight row once, with no padded product). prep_x_kernel first
+//   writes bf16(rmsnorm?(x)) once, laid out as the x tiles will lie in
+//   shared memory (the 128-byte swizzle applied) and with each 64-column
+//   chunk permuted (gw_column) so that the 16 columns of a k16 step's A
+//   fragments that a quad lane holds are 16 contiguous weights of its row:
+//   one 16-byte load of int8 or fp8 codes a row a chunk (two of bf16). Then
+//   one persistent block an SM walks (weight band, token tile, K split)
+//   tiles with up to 8 stages in flight across tile boundaries, each stage
+//   128 bytes of each of the tile's 128 weight rows by TMA (128 one-byte or
+//   64 bf16 weights) and x's tile over the same columns by one bulk copy a
+//   64-column chunk: the copies a stage are the weight rows and one or two,
+//   whatever the token tile (with x in 128-row TMA boxes and 64-byte weight
+//   rows, the first version of this kernel moved a stage every ~0.7 us an
+//   SM whatever its bytes: the copy engine's rate is by the box row). Each
+//   consumer warpgroup widens its weight rows of a landed chunk in
+//   registers (int8 exactly, by byte permutes and adds; fp8 by the card's
+//   cvt), packs them to bf16 pairs and issues four wgmma m64nNk16 with A
+//   from registers and the x chunk as B (K-major) from shared memory,
+//   widening the next chunk while they run; the last of the 8 warps done
+//   with a stage refills it. Chains of 8 chunks are added to the tile's
+//   sums with IEEE adds (the tensor cores' f32 sums lose toward zero,
+//   hopper.cuh: one chain over w2's K = 14336 lost 2.2e-5 of a row on an
+//   H100). The epilogue multiplies by the row scale, the q8 1/100 or 1 and
+//   stores from the registers. Tiles (gw_plan): the token tile with the
+//   fewest waves of tiles over the SMs times the bytes a tile streams (a
+//   stage lands at about 34 GB/s an SM on an H100: chip_smoke.py
+//   --kernel-ms, stage_gb_s_per_sm);
+//   the contraction split in two, four ... while the tiles leave SMs idle
+//   (w2 and wo at M = 16: 32 bands), the splits adding into y in a fixed
+//   order.
 // - f32 weights: the GEMV route stages x as f32 (4N bytes a row: 57 KB at
 //   N = 14336, beside 6 stages) and takes 4 weights a 16-byte word; at M =
 //   1 it is bound by the 4-byte weights. Where x does not fit (or M > 8)
@@ -136,12 +167,9 @@
 // below; xq_qmatmul_a8_plan reports it). K must be a multiple of 64.
 
 #include <math.h>
-#include <mma.h>
 
 #include "gemv.cuh"
 #include "hopper.cuh"
-
-using namespace nvcuda;
 
 namespace {
 
@@ -398,104 +426,361 @@ __global__ void __launch_bounds__(GV_THREADS) bulk_stream_bench_kernel(
   if (acc == 1.5f) sink[0] = acc;  // keeps the reads
 }
 
-// cd(rmsnorm?(x)) for the tiled paths: one block per row
-template <typename XT>
+// The tiled GEMM of int8, fp8 and bf16 weights (gemm_bf16w_kernel; see the
+// note): tiles of GW_RB weight rows by nt token rows; a stage 128 bytes of
+// each weight row (128 one-byte or 64 bf16 weights: GW_BK bytes) and the x
+// tile over the same columns; up to GW_MAX_STAGES stages; two consumer
+// warpgroups of 64 weight rows each
+constexpr int GW_RB = 128, GW_BK = 128, GW_MAX_STAGES = 8, GW_THREADS = 256;
+constexpr int GW_SMEM = 227 * 1024;  // a block's dynamic shared memory on the H100
+constexpr int GW_NTS[4] = {16, 32, 64, 128};  // token rows a tile (the wgmma's N)
+constexpr int GW_COUNTERS = 1024;  // the K splits' turn counters in the scratch, at most
+// 64-column chunks of a stage a chain of products runs over before it is
+// added to the tile's sums (32 k16 steps: the tensor cores' sums lose
+// toward zero along a chain, hopper.cuh)
+constexpr int GW_CHAIN = 8;
+
+// the contraction column that slot u (0..63) of a 64-column chunk of x's
+// scratch holds: k16 step s = u / 16, position kk = u % 16 of the step's
+// A fragment, which lane t = (kk % 8) / 2 of a quad holds as its value
+// (kk % 2) + 2 (kk / 8), i.e. weight column 16 t + 4 s + that of the chunk
+__host__ __device__ inline int gw_column(int u) {
+  const int s = u >> 4, kk = u & 15;
+  return 16 * ((kk & 7) >> 1) + 4 * s + (kk & 1) + 2 * (kk >> 3);
+}
+
+// cd(rmsnorm?(x)) for the tiled GEMM, bf16, laid out as the x tiles'
+// shared-memory images, one block per row m < mtiles * nt (rows past M
+// zero): tile (m / nt, chunk c) of 64 columns at ((m / nt) * nc + c) * nt *
+// 128 bytes, its row m % nt at 128 (m % nt) bytes, in the 128-byte swizzle
+// (16-byte chunk q at q ^ (m % 8)); slot u of a row holds column c * 64 +
+// gw_column(u) of x, zero past N. A stage's x tile is then one contiguous
+// bulk copy a chunk.
 __global__ void __launch_bounds__(256) prep_x_kernel(
     const float* __restrict__ x, const float* __restrict__ norm_w, float eps,
-    XT* __restrict__ xb, int N) {
+    __nv_bfloat16* __restrict__ xb, int M, int N, int nt, int nc) {
   __shared__ float red[8];
-  const float* xm = x + (size_t)blockIdx.x * N;
-  const float r = norm_w != nullptr ? block_rms(xm, N, eps, red) : 1.f;
-  for (int i = threadIdx.x; i < N; i += blockDim.x) {
-    float v = xm[i];
-    if (norm_w != nullptr) v = v * r * norm_w[i];
-    xb[(size_t)blockIdx.x * N + i] = xq_from_float<XT>(v);
+  const int m = blockIdx.x, r = m % nt;
+  const bool live = m < M;
+  const float* xm = x + (size_t)(live ? m : 0) * N;
+  const float rs = live && norm_w != nullptr ? block_rms(xm, N, eps, red) : 1.f;
+  __nv_bfloat16* tile = xb + (size_t)(m / nt) * nc * nt * 64 + (size_t)r * 64;
+  for (int i = threadIdx.x; i < nc * 64; i += blockDim.x) {
+    const int c = i >> 6, u = i & 63;
+    const int n = c * 64 + gw_column(u);
+    float v = 0.f;
+    if (live && n < N) {
+      v = xm[n];
+      if (norm_w != nullptr) v = v * rs * norm_w[n];
+    }
+    tile[(size_t)c * nt * 64 + (((u >> 3) ^ (r & 7)) << 3) + (u & 7)] = __float2bfloat16_rn(v);
   }
 }
 
-constexpr int BM = 64, BN = 64, BK = 32;
-constexpr int LDT = BK + 8;  // bf16 tile row stride (80 bytes: 32-byte aligned fragments)
-constexpr int LDC = BN + 4;  // f32 output staging stride
-
+// four weights of one 32-bit word (int8 or fp8 codes: exact in bf16), as
+// two bf16 pairs, the lower two in lo
 template <typename WT>
-__global__ void __launch_bounds__(128) gemm_kernel(
-    const __nv_bfloat16* __restrict__ xb, const WT* __restrict__ w,
+__device__ __forceinline__ void gw_widen4(uint32_t word, uint32_t& lo, uint32_t& hi) {
+  if constexpr (xq_fp8<WT>::value) {
+    const float2 a = __half22float2(
+        __half2(__nv_cvt_fp8x2_to_halfraw2((__nv_fp8x2_storage_t)(word & 0xffffu), xq_fp8<WT>::kind)));
+    const float2 b = __half22float2(
+        __half2(__nv_cvt_fp8x2_to_halfraw2((__nv_fp8x2_storage_t)(word >> 16), xq_fp8<WT>::kind)));
+    lo = xq_bf16x2(a.x, a.y);
+    hi = xq_bf16x2(b.x, b.y);
+  } else {
+    // the codes exactly as f32 (gemv.cuh's byte permutes and adds); each
+    // bf16 is the f32's upper half (exact: 8 significant bits)
+    float f[4];
+    xq_i8x4_to_f32(word, f);
+    lo = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632);
+    hi = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632);
+  }
+}
+
+// The thread's A fragments for the four k16 steps of 64-column chunk h of
+// a landed weight tile (a[s]: rows r and r + 8, the columns the quad lane t
+// holds, gw_column): 16 weights of each row at columns 64 h + 16 t ..
+// 64 h + 16 t + 15, in 128-byte rows. One-byte weights unswizzled (128
+// columns a row, two chunks); bf16 under the 128-byte swizzle (64 columns,
+// chunks 2t ^ (r % 8) and 2t + 1 ^ (r % 8): a load phase's two rows take
+// the even and the odd ones).
+template <typename WT>
+__device__ __forceinline__ void gw_load_a(const unsigned char* wt, int r, int t, int h,
+                                          uint32_t (&a)[4][4]) {
+  if constexpr (sizeof(WT) == 1) {
+    const uint4 q0 = *reinterpret_cast<const uint4*>(wt + r * 128 + 64 * h + 16 * t);
+    const uint4 q1 = *reinterpret_cast<const uint4*>(wt + (r + 8) * 128 + 64 * h + 16 * t);
+    const uint32_t w0[4] = {q0.x, q0.y, q0.z, q0.w}, w1[4] = {q1.x, q1.y, q1.z, q1.w};
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      gw_widen4<WT>(w0[s], a[s][0], a[s][2]);
+      gw_widen4<WT>(w1[s], a[s][1], a[s][3]);
+    }
+  } else {
+    const int sw = r & 7;  // rows r and r + 8 share their swizzle
+    const unsigned char* p0 = wt + r * 128;
+    const unsigned char* p1 = wt + (r + 8) * 128;
+    const uint4 lo0 = *reinterpret_cast<const uint4*>(p0 + (((2 * t) ^ sw) << 4));
+    const uint4 hi0 = *reinterpret_cast<const uint4*>(p0 + (((2 * t + 1) ^ sw) << 4));
+    const uint4 lo1 = *reinterpret_cast<const uint4*>(p1 + (((2 * t) ^ sw) << 4));
+    const uint4 hi1 = *reinterpret_cast<const uint4*>(p1 + (((2 * t + 1) ^ sw) << 4));
+    const uint32_t w0[8] = {lo0.x, lo0.y, lo0.z, lo0.w, hi0.x, hi0.y, hi0.z, hi0.w};
+    const uint32_t w1[8] = {lo1.x, lo1.y, lo1.z, lo1.w, hi1.x, hi1.y, hi1.z, hi1.w};
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      a[s][0] = w0[2 * s];
+      a[s][1] = w1[2 * s];
+      a[s][2] = w0[2 * s + 1];
+      a[s][3] = w1[2 * s + 1];
+    }
+  }
+}
+
+// One persistent block an SM (or fewer) walks tiles blockIdx.x, + gridDim.x,
+// ... of tiles = bands x mtiles x ks, (band, m tile, K split) with the K
+// split fastest, then the m tiles: the blocks in flight share their weight
+// bands. A tile is GW_RB weight rows (band) by NT token rows (m tile) over
+// kts stages of the contraction (split). `stages` stages are in flight,
+// across tile boundaries: each the weight tile by TMA (GW_RB rows of 128
+// bytes) and the x tile's chunks (NT x 128 bytes each, laid out in the
+// scratch as they land) by one bulk copy each, so that a stage is GW_RB +
+// 1 or 2 copies, whatever NT. The last of the 8 consumer warps done with a
+// slot refills it (a count in shared memory), so that no warp waits for
+// another (a slot refilled by thread 0 once an mbarrier had counted the 8
+// releases, or by a producer warp waiting on it, ran 1.2-2.4x slower on an
+// H100). Consumer warpgroup c widens its 64 weight rows of a chunk of the
+// landed stage into A fragments in registers (the next chunk's while this
+// one's products run) and multiplies them by the x chunk, B from shared
+// memory, four wgmma m64nNTk16 a chunk, each issued behind the previous
+// chunk's, chains of GW_CHAIN chunks added to the tile's sums with IEEE
+// adds (the tensor cores' sums lose toward zero: hopper.cuh). y = sum
+// times the row scale, the q8 scale or 1, stored from the registers. With
+// K splits (ks > 1) the splits of a tile add into y in their order, split
+// s once counters[tile] reads s (zeroed by the launcher; the last split
+// sets it back to 0): the sums do not depend on which block finishes
+// first. The splits of a tile are consecutive tiles, so each waits only on
+// tiles of lower index, taken by the persistent blocks, all resident, no
+// later than its own.
+template <typename WT, int NT>
+__global__ void __launch_bounds__(GW_THREADS, 1) gemm_bf16w_kernel(
+    const __nv_bfloat16* __restrict__ xb, const __grid_constant__ CUtensorMap tw,
     const float* __restrict__ scale, float qscale, float* __restrict__ y,
-    int M, int N, int D) {
-  __shared__ __align__(128) __nv_bfloat16 As[BM * LDT];
-  __shared__ __align__(128) __nv_bfloat16 Bs[BN * LDT];
-  __shared__ __align__(128) float Cs[BM * LDC];
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int wm = warp >> 1, wn = warp & 1;  // 2x2 warps, 32x32 outputs each
-  const int m0 = blockIdx.y * BM, d0 = blockIdx.x * BN;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+    unsigned int* __restrict__ counters, int M, int D, int nc, int mtiles, int ks, int kts,
+    int tiles, int stages) {
+  constexpr int XC = GW_BK / 64 / (int)sizeof(WT);  // 64-column chunks a stage
+  constexpr int X_CHUNK = NT * 128;
+  constexpr int STAGE = XC * X_CHUNK + GW_RB * GW_BK;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = xq_align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + stages * STAGE);
+  // the consumer warps' releases of each slot, over the block's rounds
+  int* released = reinterpret_cast<int*>(full + GW_MAX_STAGES);
+  const int tid = threadIdx.x, c = tid / 128, warp = tid % 128 / 32, lane = tid % 32;
+  const int mine = (tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  const int total = mine * kts;  // the block's stages, over all its tiles
+  auto tile_of = [&](int j, int& band, int& mt, int& split) {
+    const int tl = blockIdx.x + j * gridDim.x;
+    split = tl % ks;
+    mt = tl / ks % mtiles;
+    band = tl / ks / mtiles;
+  };
+  auto issue = [&](int i) {  // the block's stage i into ring slot i % stages
+    int band, mt, split;
+    tile_of(i / kts, band, mt, split);
+    const int s = i % stages, kt = split * kts + i % kts;
+    unsigned char* st = ring + s * STAGE;
+    xq_mbar_expect_tx(&full[s], STAGE);
+    xq_tma_2d(st + XC * X_CHUNK, &tw, kt * (GW_BK / (int)sizeof(WT)), band * GW_RB, &full[s]);
+    const __nv_bfloat16* xt = xb + ((size_t)mt * nc + (size_t)kt * XC) * NT * 64;
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  for (int k0 = 0; k0 < N; k0 += BK) {
-    // activations: 64 rows x 32 bf16 = 4 x 16 bytes per row
-    for (int c = tid; c < BM * 4; c += 128) {
-      const int row = c >> 2, col = (c & 3) * 8;
-      int4 v = make_int4(0, 0, 0, 0);
-      if (m0 + row < M) v = *reinterpret_cast<const int4*>(xb + (size_t)(m0 + row) * N + k0 + col);
-      *reinterpret_cast<int4*>(As + row * LDT + col) = v;
+    for (int h = 0; h < XC; ++h)
+      xq_bulk_g2s(st + h * X_CHUNK, xt + (size_t)h * NT * 64, X_CHUNK, &full[s]);
+  };
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      xq_mbar_init(&full[s], 1);
+      released[s] = 0;
     }
-    // weights: widened to bf16 in shared memory (int8 and fp8 exactly)
-    if constexpr (sizeof(WT) == 1) {
-      const int row = tid >> 1, col = (tid & 1) * 16;  // 64 rows x 2 x 16 bytes
-      int4 raw = make_int4(0, 0, 0, 0);
-      if (d0 + row < D) raw = __ldg(reinterpret_cast<const int4*>(w + (size_t)(d0 + row) * N + k0 + col));
-      float f[16];
-      xq_unpack16<WT>(raw, f);
-      __align__(16) __nv_bfloat16 tmp[16];
-#pragma unroll
-      for (int e = 0; e < 16; ++e) tmp[e] = __float2bfloat16_rn(f[e]);
-      *reinterpret_cast<int4*>(Bs + row * LDT + col) = *reinterpret_cast<const int4*>(tmp);
-      *reinterpret_cast<int4*>(Bs + row * LDT + col + 8) = *reinterpret_cast<const int4*>(tmp + 8);
-    } else {
-      for (int c = tid; c < BN * 4; c += 128) {
-        const int row = c >> 2, col = (c & 3) * 8;
-        int4 v = make_int4(0, 0, 0, 0);
-        if (d0 + row < D) v = __ldg(reinterpret_cast<const int4*>(w + (size_t)(d0 + row) * N + k0 + col));
-        *reinterpret_cast<int4*>(Bs + row * LDT + col) = v;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) wmma::load_matrix_sync(a[i], As + (wm * 32 + i * 16) * LDT + kk, LDT);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::load_matrix_sync(b[j], Bs + (wn * 32 + j * 16) * LDT + kk, LDT);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+    xq_mbar_fence_init();
+    for (int i = 0; i < stages && i < total; ++i) issue(i);
   }
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * LDC + wn * 32 + j * 16, acc[i][j], LDC,
-                              wmma::mem_row_major);
   __syncthreads();
-  for (int idx = tid; idx < BM * BN; idx += 128) {
-    const int r = idx / BN, c = idx % BN;
-    const int m = m0 + r, d = d0 + c;
-    if (m < M && d < D) {
-      float v = Cs[r * LDC + c];
-      if (scale != nullptr) v *= scale[d];
-      else if (qscale != 0.f) v *= qscale;
-      y[(size_t)m * D + d] = v;
+
+  const int r = 64 * c + 16 * warp + lane / 4;  // the thread's rows r and r + 8 of the tile
+  float acc[NT / 2], part[NT / 2];
+  uint32_t a0[4][4], a1[4][4];
+  int i = 0;  // the block's current stage
+  // stage st's slot is done with in this warp: the last of the 8 warps to
+  // say so refills it
+  auto release = [&](int st) {
+    __syncwarp();
+    if (lane == 0) {
+      __threadfence_block();
+      const int n = atomicAdd(&released[st % stages], 1);
+      if (n == 8 * (st / stages) + 7 && st + stages < total) issue(st + stages);
+    }
+    __syncwarp();
+  };
+  // chunk q (of the tile's kts * XC) from the fragments cur: four products
+  // into the chain, issued behind the previous chunk's; once that one is
+  // done (and its stage, if it was the stage's last chunk, released), the
+  // next chunk's fragments go into nxt (the previous chunk's registers)
+  // while this chunk's products run. A chain's last chunk waits for its
+  // products and adds the chain to acc.
+  const int nq = kts * XC;
+  auto step = [&](uint32_t (&cur)[4][4], uint32_t (&nxt)[4][4], int q) {
+    const int h = q % XC;
+    const uint32_t xt = xq_smem(ring + (i % stages) * STAGE + h * X_CHUNK);
+    const bool first = q % GW_CHAIN == 0, last = q + 1 == nq || (q + 1) % GW_CHAIN == 0;
+    xq_fence_regs(part);
+    xq_wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < 4; ++k)  // 16 bf16 (32 bytes) of depth a step
+      xq_wgmma_bf16_rs_kmajor<NT>(part, cur[k], xq_desc(xt + 32 * k, 16, 1024),
+                                  !(first && k == 0));
+    xq_wgmma_commit();
+    if (last) {
+      xq_wgmma_wait<0>();
+      xq_fence_regs(part);
+#pragma unroll
+      for (int e = 0; e < NT / 2; ++e) acc[e] += part[e];
+    } else {
+      xq_wgmma_wait<1>();  // the previous chunk's products are done
+      xq_fence_regs(part);
+    }
+    // the previous chunk's stage, if it ended there and its chain did not
+    if (q > 0 && (q - 1) % XC == XC - 1 && !first) release(i - 1);
+    if (h == XC - 1) {  // this stage's last chunk
+      if (last) release(i);
+      ++i;
+    }
+    if (q + 1 < nq) {
+      const int hn = (q + 1) % XC;
+      if (hn == 0) xq_mbar_wait(&full[i % stages], (i / stages) & 1);
+      gw_load_a<WT>(ring + (i % stages) * STAGE + XC * X_CHUNK, r, lane % 4, hn, nxt);
+    }
+  };
+  for (int j = 0; j < mine; ++j) {
+#pragma unroll
+    for (int e = 0; e < NT / 2; ++e) acc[e] = 0.f;
+    xq_mbar_wait(&full[i % stages], (i / stages) & 1);
+    gw_load_a<WT>(ring + (i % stages) * STAGE + XC * X_CHUNK, r, lane % 4, 0, a0);
+    for (int q = 0; q < nq; q += 2) {
+      step(a0, a1, q);
+      if (q + 1 < nq) step(a1, a0, q + 1);
+    }
+
+    // element e of acc: weight row r + 8 ((e / 2) % 2), token row 8 (e / 4)
+    // + 2 (lane % 4) + e % 2 of the tile
+    int band, mt, split;
+    tile_of(j, band, mt, split);
+    unsigned int* turn = counters + (blockIdx.x + j * gridDim.x) / ks;
+    if (ks > 1) {  // wait for this split's turn at the tile
+      if (tid == 0) {
+        const long long t0 = clock64();
+        unsigned int cur;
+        do {
+          asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(cur) : "l"(turn) : "memory");
+          if (clock64() - t0 > XQ_MBAR_TIMEOUT_CYCLES) __trap();
+        } while (cur != (unsigned int)split);
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int d = band * GW_RB + r + 8 * hh;
+      if (d >= D) continue;
+      const float epi = scale != nullptr ? scale[d] : qscale != 0.f ? qscale : 1.f;
+#pragma unroll
+      for (int q = 0; q < NT / 8; ++q)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int m = mt * NT + 8 * q + 2 * (lane % 4) + e;
+          if (m >= M) continue;
+          float* yp = y + (size_t)m * D + d;
+          const float v = acc[4 * q + 2 * hh + e] * epi;
+          __stcg(yp, split > 0 ? __ldcg(yp) + v : v);
+        }
+    }
+    if (ks > 1) {  // hand the tile to the next split
+      __threadfence();
+      __syncthreads();
+      if (tid == 0) atomicExch(turn, split + 1 < ks ? split + 1 : 0);
     }
   }
+}
+
+// The tiled GEMM's launch for x (M, N) by (D, N) weights of wbytes a weight
+// on a card of `sms` SMs: plan = {token rows a tile, weight rows a tile,
+// tiles along M, tiles along D, K splits, stages, blocks}. The token tile
+// (the wgmma's N: 16, 32, 64 or 128, at most M rounded up to a power of two
+// past 16) with the least waves x bytes a tile streams a column (GW_RB
+// weights and nt bf16 of x: on an H100 a stage lands at about 34 GB/s an
+// SM, chip_smoke.py --kernel-ms's stage_gb_s_per_sm), the wider on a tie; K split in two while
+// that still leaves the card short of blocks (splits of at least 4
+// stages); stages as shared memory holds, at most GW_MAX_STAGES; one block
+// an SM, fewer where the tiles are. False for a shape the kernel does not
+// take (N a multiple of 32).
+bool gw_plan(int M, int N, int D, int wbytes, int sms, int* plan) {
+  if (M < 1 || D < 1 || N < 32 || N % 32 != 0 || sms < 1) return false;
+  const int bands = (D + GW_RB - 1) / GW_RB, kt = (N * wbytes + GW_BK - 1) / GW_BK;
+  int cap = 16;
+  while (cap < M && cap < 128) cap *= 2;
+  int nt = 16;
+  long long best = -1;
+  for (int nt_try : GW_NTS) {
+    if (nt_try > cap) break;
+    const long long tiles = (long long)bands * ((M + nt_try - 1) / nt_try);
+    const long long cost = (tiles + sms - 1) / sms * (GW_RB * wbytes + 2 * nt_try);
+    if (best < 0 || cost <= best) {
+      best = cost;
+      nt = nt_try;
+    }
+  }
+  const int mtiles = (M + nt - 1) / nt;
+  int ks = 1;
+  while ((long long)bands * mtiles * ks * 2 <= sms && kt % (2 * ks) == 0 && kt / (2 * ks) >= 4 &&
+         bands * mtiles <= GW_COUNTERS)
+    ks *= 2;
+  const int stage = GW_BK / 64 / wbytes * nt * 128 + GW_RB * GW_BK;
+  const int stages = (GW_SMEM - 1024 - GW_MAX_STAGES * (8 + 4)) / stage;
+  const long long tiles = (long long)bands * mtiles * ks;
+  plan[0] = nt;
+  plan[1] = GW_RB;
+  plan[2] = mtiles;
+  plan[3] = bands;
+  plan[4] = ks;
+  plan[5] = stages < GW_MAX_STAGES ? stages : GW_MAX_STAGES;
+  plan[6] = (int)(tiles < sms ? tiles : sms);
+  return true;
+}
+
+// bytes of the tiled GEMM's dynamic shared memory: the ring, its barriers
+// and release counts, and the slack to align it to 1024
+int gw_smem(int nt, int wbytes, int stages) {
+  return stages * (GW_BK / 64 / wbytes * nt * 128 + GW_RB * GW_BK) + GW_MAX_STAGES * (8 + 4) +
+         1024;
+}
+
+template <typename WT, int NT>
+cudaError_t launch_gemm_bf16w(const __nv_bfloat16* xb, const CUtensorMap& tw, const float* scale,
+                              float qscale, float* y, unsigned int* counters, int M, int D,
+                              int nc, const int* plan, int kts, cudaStream_t s) {
+  const int smem = gw_smem(NT, (int)sizeof(WT), plan[5]);
+  cudaError_t e = xq_allow_smem(gemm_bf16w_kernel<WT, NT>, smem);
+  if (e != cudaSuccess) return e;
+  const int tiles = plan[2] * plan[3] * plan[4];
+  gemm_bf16w_kernel<WT, NT><<<plan[6], GW_THREADS, smem, s>>>(
+      xb, tw, scale, qscale, y, counters, M, D, nc, plan[2], plan[4], kts, tiles, plan[5]);
+  return cudaGetLastError();
+}
+
+// bytes of the tiled GEMM's x scratch: the x tiles of M rows rounded up to
+// 128 (any token tile divides it) by N rounded up to 128 columns (a stage's
+// chunks), bf16; the K splits' counters follow it
+size_t gw_x_bytes(int M, int N) {
+  return (size_t)((M + 127) / 128 * 128) * ((N + 127) / 128 * 128) * 2;
 }
 
 // rmsnorm?(x) split for the f32 GEMM, one block per row: xb = big (the f32
@@ -728,14 +1013,45 @@ int launch_gemm(const float* x, const float* nw, float eps, const WT* w, const f
     if (M < 1 || D < 1 || N < 4 || N % 4 != 0) return (int)cudaErrorInvalidValue;
     return (int)launch_gemm_tf32x3(x, nw, eps, w, y, (float*)xb, M, N, D, s);
   } else {
-    if (M < 1 || N % BK != 0) return (int)cudaErrorInvalidValue;
-    using XT = xq_act_t<WT>;
-    prep_x_kernel<XT><<<M, 256, 0, s>>>(x, nw, eps, (XT*)xb, N);
+    int plan[7];
+    if (!gw_plan(M, N, D, (int)sizeof(WT), xq_device_sms(), plan)) return (int)cudaErrorInvalidValue;
+    // x's 64-column chunks: a stage's (two of one-byte weights' 128 columns)
+    // times the stages
+    const int nt = plan[0], nc = (N * (int)sizeof(WT) + GW_BK - 1) / GW_BK * (GW_BK / 64 / (int)sizeof(WT));
+    auto* xbf = (__nv_bfloat16*)xb;
+    prep_x_kernel<<<plan[2] * nt, 256, 0, s>>>(x, nw, eps, xbf, M, N, nt, nc);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
-    dim3 grid((D + BN - 1) / BN, (M + BM - 1) / BM);
-    gemm_kernel<WT><<<grid, 128, 0, s>>>((const __nv_bfloat16*)xb, w, scale, qscale, y, M, N, D);
-    return (int)cudaGetLastError();
+    // the weights (D, N) in boxes of 128 bytes of 128 rows: one-byte codes
+    // unswizzled, bf16 in the 128-byte swizzle; zeros past N and D
+    CUtensorMap tw;
+    const uint64_t wdims[2] = {(uint64_t)N, (uint64_t)D}, wstride[1] = {(uint64_t)N * sizeof(WT)};
+    const uint32_t wbox[2] = {GW_BK / (uint32_t)sizeof(WT), GW_RB};
+    if (!xq_tensor_map(&tw, sizeof(WT) == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                                             : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                       2, w, wdims, wstride, wbox,
+                       sizeof(WT) == 1 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B))
+      return (int)cudaErrorInvalidConfiguration;
+    auto* turns = reinterpret_cast<unsigned int*>((unsigned char*)xb + gw_x_bytes(M, N));
+    if (plan[4] > 1) {  // the K splits' turns start at 0
+      e = cudaMemsetAsync(turns, 0, (size_t)plan[2] * plan[3] * sizeof(unsigned int), s);
+      if (e != cudaSuccess) return (int)e;
+    }
+    const int kts = (N * (int)sizeof(WT) + GW_BK - 1) / GW_BK / plan[4];
+    switch (nt) {
+      case 16:
+        return (int)launch_gemm_bf16w<WT, 16>(xbf, tw, scale, qscale, y, turns, M, D, nc, plan,
+                                              kts, s);
+      case 32:
+        return (int)launch_gemm_bf16w<WT, 32>(xbf, tw, scale, qscale, y, turns, M, D, nc, plan,
+                                              kts, s);
+      case 64:
+        return (int)launch_gemm_bf16w<WT, 64>(xbf, tw, scale, qscale, y, turns, M, D, nc, plan,
+                                              kts, s);
+      default:
+        return (int)launch_gemm_bf16w<WT, 128>(xbf, tw, scale, qscale, y, turns, M, D, nc, plan,
+                                               kts, s);
+    }
   }
 }
 
@@ -1282,12 +1598,25 @@ XQ_EXPORT int xq_tf32_probe(const void* a, const void* b, void* d, void* dm, voi
   return (int)cudaGetLastError();
 }
 
-// Bytes of the scratch the tiled route needs for cd(rmsnorm?(x)): bf16, or
-// for f32 weights its big and small TF32 parts (f32 each); 0 where the GEMV
-// route runs (M <= GV_MAX_M and x fits in shared memory)
+// Bytes of the scratch the tiled route needs for cd(rmsnorm?(x)): bf16 in
+// rows of N rounded up to 64 (prep_x_kernel) and the K splits' turn
+// counters, or for f32 weights its big and small TF32 parts (f32 each); 0
+// where the GEMV route runs (M <= GV_MAX_M and x fits in shared memory)
 XQ_EXPORT long long xq_qmatmul_scratch(int M, int N, int w_kind) {
-  const int xbytes = w_kind == W_F32 ? 4 : 2;
-  return use_gemv(M, N, xbytes) ? 0 : (long long)M * N * (w_kind == W_F32 ? 8 : 2);
+  if (w_kind == W_F32) return use_gemv(M, N, 4) ? 0 : (long long)M * N * 8;
+  return use_gemv(M, N, 2) ? 0 : (long long)(gw_x_bytes(M, N) + GW_COUNTERS * 4);
+}
+
+// xq_qmatmul's tiled GEMM for x (M, N) by (D, N) weights of w_kind (int8,
+// bf16, e4m3 or e5m2) on the current device: plan (7 ints) = {token rows
+// a tile, weight rows a tile, tiles along M, tiles along D, K splits,
+// stages, blocks}; cudaErrorInvalidValue for a shape it refuses.
+// ops/qmatmul.py's gemm_plan is held to it on the card.
+XQ_EXPORT int xq_gemm_plan(int M, int N, int D, int w_kind, void* plan) {
+  if (w_kind == W_F32 || w_kind < W_I8 || w_kind > W_E5M2) return (int)cudaErrorInvalidValue;
+  return gw_plan(M, N, D, w_kind == W_BF16 ? 2 : 1, xq_device_sms(), (int*)plan)
+             ? (int)cudaSuccess
+             : (int)cudaErrorInvalidValue;
 }
 
 XQ_EXPORT int xq_qmatmul(const void* x, const void* norm_w, float eps, const void* w,

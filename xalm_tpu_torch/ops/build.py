@@ -11,8 +11,10 @@ carries a hash of the sources and flags (every file of ``csrc/``: a source
 may include another, as ``fused_decode_f32.cu`` builds ``fused_decode.cu``
 again for the f32 cache), so an edited kernel rebuilds and an unchanged one
 loads the library already there. The sources have a plain C interface (no
-PyTorch headers), which keeps a build to seconds. ``build_all`` starts one
-``nvcc`` per source, all at once.
+PyTorch headers), which keeps a build to seconds. ``start_all`` starts one
+``nvcc`` per source, all at once, and returns; ``wait`` (or the first
+``load_library`` of a source) waits for that source's alone, so a caller can
+use the libraries that are done while the megakernel's still build.
 
 Every exported launch function takes its pointers and the CUDA stream as
 ``void*`` and returns ``cudaGetLastError()`` after its launches, or
@@ -34,6 +36,7 @@ for the softcaps and post-norms).
 
 from __future__ import annotations
 
+import atexit
 import ctypes
 import functools
 import hashlib
@@ -43,7 +46,8 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["KERNELS", "LAUNCHES", "build_all", "load_library", "reset_launches", "check"]
+__all__ = ["KERNELS", "LAUNCHES", "start_all", "wait", "load_library", "reset_launches",
+           "check"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "xalm_tpu_torch"
@@ -111,24 +115,51 @@ def _finish(name: str, out: Path, pending) -> None:
     os.replace(tmp, out)
 
 
-def build_all() -> dict[str, float]:
-    """Build every kernel source in parallel; returns seconds per source
-    (0.0 where the library was already built)."""
-    t0 = time.perf_counter()
-    started = {name: _start(name) for name in KERNELS}
-    secs = {}
-    for name, (out, pending) in started.items():
-        _finish(name, out, pending)
-        secs[name] = time.perf_counter() - t0 if pending is not None else 0.0
-    return secs
+# builds start_all started that nobody has waited for yet: source ->
+# (library path, (Popen, temporary path), start time)
+_PENDING: dict[str, tuple] = {}
+
+
+@atexit.register
+def _stop_pending() -> None:
+    """Ends the builds still running when the interpreter exits (a caller
+    that raised before waiting leaves no nvcc behind)."""
+    while _PENDING:
+        _, (proc, tmp), _ = _PENDING.popitem()[1]
+        proc.kill()
+        proc.communicate()
+        tmp.unlink(missing_ok=True)
+
+
+def start_all() -> None:
+    """Start nvcc for every kernel source whose library is neither built nor
+    being built, all at once; returns without waiting."""
+    for name in KERNELS:
+        if name not in _PENDING:
+            out, pending = _start(name)
+            if pending is not None:
+                _PENDING[name] = (out, pending, time.perf_counter())
+
+
+def wait(name: str) -> tuple[Path, float]:
+    """The library path of csrc/<name>.cu once built (by the build
+    start_all started, or by one started now), and the seconds since that
+    build started (0.0 where the library was already built)."""
+    if name in _PENDING:
+        out, pending, t0 = _PENDING.pop(name)
+    else:
+        t0 = time.perf_counter()
+        out, pending = _start(name)
+    _finish(name, out, pending)
+    return out, (time.perf_counter() - t0 if pending is not None else 0.0)
 
 
 @functools.cache
 def load_library(name: str) -> ctypes.CDLL:
-    """The loaded library of csrc/<name>.cu, built first if needed. Each
-    exported function's restype/argtypes come from ``SIGNATURES``."""
-    out, pending = _start(name)
-    _finish(name, out, pending)
+    """The loaded library of csrc/<name>.cu, built first if needed (or its
+    build by start_all waited for). Each exported function's
+    restype/argtypes come from ``SIGNATURES``."""
+    out, _ = wait(name)
     lib = ctypes.CDLL(str(out))
     for fn, (restype, argtypes) in SIGNATURES[name].items():
         f = getattr(lib, fn)
@@ -172,6 +203,9 @@ SIGNATURES = {
         # M, N, D, w_kind, plan (4 int32: blocks, stages, rows a stage, segments a row) of the
         # streamed GEMV
         "xq_gemv_plan": (_I, [_I, _I, _I, _I, _P]),
+        # M, N, D, w_kind, plan (7 int32: token rows a tile, weight rows a tile, tiles along M,
+        # tiles along D, K splits, stages, blocks) of the tiled GEMM of int8, bf16 and fp8
+        "xq_gemm_plan": (_I, [_I, _I, _I, _I, _P]),
         # a (64, 8), b (128, 8) f32 bit patterns, d (64, 128) by tf32 wgmma, dm (16, 8) by
         # tf32 mma.sync, stream
         "xq_tf32_probe": (_I, [_P, _P, _P, _P, _P]),

@@ -306,6 +306,57 @@ def fused_decode_step_plain(params, cfg, x0, cache_k, cache_v, kv_pos, kv_len, r
     return (x, logits, torch.argmax(logits, dim=-1).to(torch.int32), *caches)
 
 
+# The kernel's deal of a GEMV phase's rows (csrc/fused_decode.cu: walk_pairs,
+# pair_rows, the staged columns of gemv_phase, prefetch_pairs), mirrored so
+# that the CPU tests can hold the L2 prefetch to the rows each block streams
+MK_WARPS, MK_SMEM = 8, 64 * 1024
+
+
+def pair_rows(p: int, c13: int) -> tuple[int, int]:
+    """The output rows of pair p: (2p, 2p + 1), or for the chunk-interleaved
+    w13 (c13 > 0) the gate row of chunk p // c13 and its up row c13 later."""
+    if c13 > 0:
+        c, i = divmod(p, c13)
+        return c * 2 * c13 + i, c * 2 * c13 + i + c13
+    return 2 * p, 2 * p + 1
+
+
+def phase_chunk(body: str, k: int, b: int, group: int = 0) -> tuple[int, int]:
+    """(columns a walk step spans, columns of the walk) of a GEMV phase of
+    contraction k at batch b: the bf16 body stages b rows of bf16, a8 of
+    int8 codes, q4 the packed half rows (beside the high groups' terms);
+    the walk stages everything at once where the chunk covers it."""
+    if body == "q4":
+        hterm = MK_WARPS * 2 * MAX_B * (k // 2 // group) * 4
+        return (MK_SMEM - hterm) // (2 * b) // group * group, k // 2
+    per = MK_SMEM // 2 if body == "bf16" else MK_SMEM  # bf16 activations or int8 codes
+    return per // b // 512 * 512, k
+
+
+def walk_pairs(d: int, k: int, chunk: int, c13: int, block: int, grid: int) -> list[int]:
+    """The pairs a block's warps take in a phase of d rows, in the order of
+    walk_pairs (its sweeps, each the block's MK_WARPS warps): strided by the
+    grid where the chunk covers the k columns, else group by group."""
+    npairs = d // 2 if c13 > 0 else (d + 1) // 2
+    if chunk >= k:
+        return [p for p0 in range(block * MK_WARPS, npairs, grid * MK_WARPS)
+                for p in range(p0, min(p0 + MK_WARPS, npairs))]
+    ngroups = -(-npairs // MK_WARPS)
+    return [g * MK_WARPS + w for g in range(block, ngroups, grid) for w in range(MK_WARPS)
+            if g * MK_WARPS + w < npairs]
+
+
+def prefetch_rows(d: int, c13: int, block: int) -> list[int]:
+    """The weight rows a block brings into L2 ahead of a phase of d rows
+    (prefetch_pairs, made by the q4 body alone): both rows of each of its
+    warps' first pairs (a pair's second row only where it lies below d)."""
+    npairs = d // 2 if c13 > 0 else (d + 1) // 2
+    rows = []
+    for p in range(block * MK_WARPS, min(block * MK_WARPS + MK_WARPS, npairs)):
+        rows += [r for r in pair_rows(p, c13) if r < d]
+    return rows
+
+
 def _workspace(lib, device, b, cfg, s) -> torch.Tensor:
     nbytes = lib.xq_fused_decode_workspace(b, cfg.dim, cfg.n_kv_heads,
                                            cfg.n_heads // cfg.n_kv_heads, s, cfg.hidden_dim,

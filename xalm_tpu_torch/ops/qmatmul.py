@@ -12,8 +12,10 @@ kernel's ``compute_dtype``). On the H100 the decode shapes (M <= 8) are
 bound by the weight bytes and run as a GEMV (f32 FMA for f32 weights; for
 bf16 and f32 weights one block an SM, each warp streaming its rows by bulk
 copies, as ``gemv_plan`` says);
-larger M runs a tiled GEMM on the tensor cores: bf16 for int8/fp8/bf16, and
-for f32 weights split TF32, three TF32 products a step (each within about
+larger M runs a tiled GEMM on the tensor cores: bf16 ``wgmma`` fed by a TMA
+ring for int8/fp8/bf16 (the weights the A operand, widened to bf16 in
+registers, the token rows its N: tiled as ``gemm_plan`` says; N a multiple
+of 32), and for f32 weights split TF32, three TF32 products a step (each within about
 2^-18 of the f32 product; against f64 no less accurate than the plain
 version, which keeps f32 with TF32 off: ``csrc/hopper.cuh``;
 ``f32_gemm_check`` gates its shapes). See the source's note. f16 weights
@@ -115,6 +117,94 @@ def a8_plan(m: int, k: int, d: int, sms: int) -> tuple[int, int, int]:
     mt = -(-m // A8_TILE_M)
     bn = 256 if mt * -(-d // 256) >= sms else 128
     return bn, mt, -(-d // bn)
+
+
+# The tiled GEMM of int8, fp8 and bf16 weights (csrc/qmatmul.cu gw_plan):
+# weight rows a tile, bytes of each weight row a stage, the token tiles (the
+# wgmma's N), the most stages, a block's shared memory, the K splits' turn
+# counters and the contraction granule
+GEMM_ROWS, GEMM_BK, GEMM_NTS = 128, 128, (16, 32, 64, 128)
+GEMM_MAX_STAGES, GEMM_SMEM, GEMM_COUNTERS, GEMM_K_GRANULE = 8, 227 * 1024, 1024, 32
+
+
+def gemm_smem(nt: int, wbytes: int, stages: int) -> int:
+    """Bytes of the tiled GEMM's dynamic shared memory: the ring (a stage
+    holds 128 bytes of each of the tile's 128 weight rows and x's tile over
+    the same columns, nt rows of 64 bf16 a chunk), its barriers and release
+    counts, and the slack that aligns it to 1024."""
+    chunks = GEMM_BK // 64 // wbytes
+    return (stages * (chunks * nt * 128 + GEMM_ROWS * GEMM_BK) + GEMM_MAX_STAGES * (8 + 4)
+            + 1024)
+
+
+def gemm_plan(m: int, k: int, d: int, dtype: torch.dtype,
+              sms: int) -> tuple[int, int, int, int, int, int, int]:
+    """The tiled GEMM's launch for x (m, k) times (d, k) weights of
+    ``dtype`` (int8, bf16 or fp8) on a card of ``sms`` SMs: (token rows a
+    tile, weight rows a tile, tiles along m, tiles along d, k splits,
+    stages, blocks). A stage is 128 bytes of each weight row (128 one-byte
+    or 64 bf16 weights). The token tile, the wgmma's N of 16 to 128 and at
+    most m rounded up to a power of two past 16, with the fewest waves of
+    tiles over the SMs times the bytes a tile streams a column (128
+    weights, nt bf16 of x: a stage lands at about 34 GB/s an SM on an H100,
+    ``chip_smoke.py --kernel-ms``'s ``stage_gb_s_per_sm``), the wider on a tie (Mistral's w13 at m = 512
+    and 256: 128; w2 and wo at 512: 128, their 32 bands giving 128 tiles,
+    at 256: 64); k split in two, four ... while the tiles leave SMs
+    idle and each split keeps 4 stages (w2 at m = 16: four splits, 128
+    tiles; the splits of a tile add into y in their order, so the sums are
+    the same from run to run); the stages shared memory holds, at most 8; a
+    persistent block an SM, fewer where the tiles are. The launcher's own
+    plan, which reads the device's SM count, is ``xq_gemm_plan``; the
+    card's tests hold the two equal. Raises ValueError for k off the 32
+    granule (``gemm_check``)."""
+    gemm_check(m, k, d)
+    wbytes = 2 if dtype == torch.bfloat16 else 1
+    bands, kt = -(-d // GEMM_ROWS), -(-k * wbytes // GEMM_BK)
+    cap = 16
+    while cap < m and cap < GEMM_NTS[-1]:
+        cap *= 2
+    nt, best = GEMM_NTS[0], None
+    for cand in GEMM_NTS:
+        if cand > cap:
+            break
+        cost = -(-bands * -(-m // cand) // sms) * (GEMM_ROWS * wbytes + 2 * cand)
+        if best is None or cost <= best:
+            nt, best = cand, cost
+    mtiles = -(-m // nt)
+    ks = 1
+    while (bands * mtiles * ks * 2 <= sms and kt % (2 * ks) == 0 and kt // (2 * ks) >= 4
+           and bands * mtiles <= GEMM_COUNTERS):
+        ks *= 2
+    stages = (GEMM_SMEM - gemm_smem(nt, wbytes, 0)) // (gemm_smem(nt, wbytes, 1)
+                                                         - gemm_smem(nt, wbytes, 0))
+    return (nt, GEMM_ROWS, mtiles, bands, ks, min(stages, GEMM_MAX_STAGES),
+            min(bands * mtiles * ks, sms))
+
+
+def gemm_check(m: int, k: int, d: int) -> None:
+    """Raises ValueError for a shape the tiled GEMM of int8, fp8 and bf16
+    weights does not take (k not a positive multiple of 32, m or d below
+    1), before any launch."""
+    _need(m >= 1 and d >= 1, f"tiled GEMM of {m} rows of x by {d} weight rows")
+    _need(k >= GEMM_K_GRANULE and k % GEMM_K_GRANULE == 0,
+          f"the tiled GEMM takes a contraction width that is a multiple of {GEMM_K_GRANULE}, "
+          f"not {k}")
+
+
+def gemm_scratch_columns(k: int) -> list[int]:
+    """The column of x that each column of the tiled GEMM's bf16 scratch
+    holds (``prep_x_kernel``): k rounded up to 64, each 64-column chunk
+    permuted so that the A fragment a quad lane t holds for k16 step s of
+    a stage (fragment columns 2t, 2t + 1, 2t + 8, 2t + 9) is the weights
+    16t + 4s .. 16t + 4s + 3 of its row, one contiguous load; -1 past k
+    (a zero)."""
+    cols = []
+    for c0 in range(0, -(-k // 64) * 64, 64):
+        for u in range(64):
+            s, kk = u // 16, u % 16
+            n = c0 + 16 * ((kk % 8) // 2) + 4 * s + kk % 2 + 2 * (kk // 8)
+            cols.append(n if n < k else -1)
+    return cols
 
 
 # The f32 GEMM's contraction granule: its tensor maps take rows of a
@@ -300,8 +390,8 @@ def qmatmul(
     eps = float(norm_eps) if norm_w is not None else 0.0
     qs = float(q8_scale) if (scale is None and q8_scale is not None) else 0.0
     scratch = lib.xq_qmatmul_scratch(m, n, kind)  # bytes of the tiled route's cd(rmsnorm?(x))
-    if scratch and values.dtype == torch.float32:
-        f32_gemm_check(m, n, d)
+    if scratch:
+        (f32_gemm_check if values.dtype == torch.float32 else gemm_check)(m, n, d)
     xb = torch.empty((scratch,), dtype=torch.uint8, device=x.device) if scratch else None
     err = lib.xq_qmatmul(x.data_ptr(), nw_ptr, eps, w_ptr, kind, s_ptr, qs, y.data_ptr(),
                          None if xb is None else xb.data_ptr(), m, n, d,
