@@ -260,7 +260,7 @@ def phase_build(names: tuple) -> None:
     those already started) and wait for the libraries ``names``: the
     others go on building while the phases that need none of them run.
     Emits the seconds waited here, each source's build seconds and ptxas's
-    report."""
+    report, and by name that of the packed-q4 stream's kernels."""
     from xalm_tpu_torch.ops import build
 
     t0 = time.perf_counter()
@@ -272,8 +272,15 @@ def phase_build(names: tuple) -> None:
         if log.exists():  # ptxas register / shared-memory / spill report
             logs[name] = [ln.strip() for ln in log.read_text().splitlines()
                           if "registers" in ln or "spill" in ln]
-    emit({"phase": "build", "seconds": time.perf_counter() - t0, "per_source": secs,
-          "ptxas": logs})
+    row = {"phase": "build", "seconds": time.perf_counter() - t0, "per_source": secs,
+           "ptxas": logs}
+    if "qmatmul" in names:
+        row["ptxas_q4_stream"] = _ptxas_report(build.BUILD_DIR / "qmatmul.log", Q4_STREAM_FRAGS)
+    emit(row)
+
+
+# the packed-q4 stream's kernels (kernels 1-q4 and 8-q4)
+Q4_STREAM_FRAGS = ("gemv_q4_stream_kernel", "multi_q4_stream_kernel")
 
 
 # phase 3's further cases of kernel 1's tiled GEMM (the kernels line's
@@ -1112,6 +1119,9 @@ def _main_run(eng, cfg, prompt, label: str) -> dict:
             prof["decode"]["device_busy_ms"] / prof["decode"]["steps"]
             if isinstance(prof["decode"]["device_busy_ms"], float) else "not measured"),
         "decode_device_idle_share": prof["decode"]["device_idle_share"],
+        "decode_device_ms_per_token_by_kernel": (
+            {g: ms / prof["decode"]["steps"] for g, ms in prof["decode"]["device_ms"].items() if ms}
+            if isinstance(prof["decode"]["device_busy_ms"], float) else "not measured"),
         "prefill_gemm_device_ms": prof["prefill_512"]["gemm_device_ms"],
         "prefill_gemm_records": prof["prefill_512"]["gemm_records"],
         "prefill_device_ms": prof["prefill_512"]["device_busy_ms"],
@@ -1296,11 +1306,11 @@ def phase_long_prompt(params, cfg) -> dict:
 _PROFILE_GROUPS = {
     "qmatmul": ("gemv_stream_kernel", "gemv_kernel", "gemm_bf16w_kernel", "prep_x_kernel",
                 "gemm_tf32x3_kernel", "prep_x_tf32_kernel"),
-    "qmatmul_q4": ("gemv_q4_kernel",),
+    "qmatmul_q4": ("gemv_q4_stream_kernel",),
     "qmatmul_a8": ("gemm_a8_kernel",),
-    "quant_x": ("quant_x_kernel",),  # x's codes for qmatmul_q4 and qmatmul_a8
+    "quant_x": ("quant_x_kernel",),  # x's codes for qmatmul_a8
     "qmatmul_multi": ("qmatmul_multi_kernel",),
-    "qmatmul_multi_q4": ("qmatmul_multi_q4_kernel",),
+    "qmatmul_multi_q4": ("multi_q4_stream_kernel",),
     "kv_update": ("kv_update_kernel",),
     "flash_decode": ("flash_decode_cluster_kernel",),
     "flash_prefill": ("flash_prefill_kernel", "flash_prefill_tf32x3_kernel"),
@@ -1326,7 +1336,7 @@ _WITNESSES = {
     "kv_update_kernel": ("kv_update", "kv_update_f32"),
     "kv_update_q_kernel": ("kv_update_q",),
     "qmatmul_multi_kernel": ("qmatmul_multi", "qmatmul_multi_f32", "qmatmul_multi_fp8"),
-    "qmatmul_multi_q4_kernel": ("qmatmul_multi_q4",),
+    "multi_q4_stream_kernel": ("qmatmul_multi_q4",),
 }
 PROFILE_ATTEMPTS = 3
 PROFILE_PAD_S = 0.05
@@ -1334,6 +1344,9 @@ PROFILE_PRIMES = 32
 # the tiled GEMM of int8, fp8 and bf16 weights, and the kernel it replaced
 # (which no profile may hold)
 GEMM_FRAG, OLD_GEMM_FRAG = "gemm_bf16w_kernel", "::gemm_kernel<"
+# the q4 GEMV and gathered q4 experts that the packed-q4 stream replaced
+# (which no profile may hold either)
+OLD_Q4_FRAGS = ("gemv_q4_kernel", "qmatmul_multi_q4_kernel")
 
 
 def _device_times(prof) -> tuple[dict, list, dict, tuple[float, int]]:
@@ -1343,7 +1356,8 @@ def _device_times(prof) -> tuple[dict, list, dict, tuple[float, int]]:
     over its entries: each pass costs seconds on a long trace). Only the
     kernels' own entries count: a PyTorch operator's entry carries the
     device time of the kernels it launched, which those kernels' entries
-    carry too. Raises on a record of the kernel the tiled GEMM replaced."""
+    carry too. Raises on a record of a kernel that the tiled GEMM or the
+    packed-q4 stream replaced."""
     from torch.autograd import DeviceType
 
     groups = _PROFILE_GROUPS
@@ -1357,8 +1371,8 @@ def _device_times(prof) -> tuple[dict, list, dict, tuple[float, int]]:
             continue
         if "spin_kernel" in evt.key:  # the session's priming kernels
             continue
-        if OLD_GEMM_FRAG in evt.key:
-            raise AssertionError(f"a profile holds {evt.key[:80]!r}: the old tiled GEMM ran")
+        if OLD_GEMM_FRAG in evt.key or any(f in evt.key for f in OLD_Q4_FRAGS):
+            raise AssertionError(f"a profile holds {evt.key[:80]!r}: a replaced kernel ran")
         if GEMM_FRAG in evt.key:
             gemm_ms += _device_us(evt) / 1e3
             gemm_n += evt.count
@@ -3405,7 +3419,8 @@ KERNEL_MS_FRAGS = ("gemm_bf16w_kernel", "gemm_kernel", "prep_x_kernel", "gemm_a8
                    "flash_prefill_tf32x3_kernel", "sgemm_kernel", "flash_prefill_f32_kernel",
                    "flash_decode_cluster_kernel", "flash_decode_split_kernel",
                    "flash_decode_combine_kernel", "gemv_stream_kernel", "gemv_kernel",
-                   "gemv_q4_kernel", "qmatmul_multi_kernel", "qmatmul_multi_q4_kernel")
+                   "gemv_q4_kernel", "qmatmul_multi_kernel", "qmatmul_multi_q4_kernel",
+                   "gemv_q4_stream_kernel", "multi_q4_stream_kernel")
 KERNEL_MS_DECODE_FRAGS = ("flash_decode_cluster_kernel", "flash_decode_split_kernel",
                           "flash_decode_combine_kernel")
 KERNEL_MS_GEMV_FRAGS = ("gemv_stream_kernel", "gemv_kernel")
@@ -3908,25 +3923,35 @@ def _gemv_turns(trees, libs, gen, held) -> list[dict]:
 
 
 # --kernel-ms's cases of the kernels on gemv.cuh's warp cores other than
-# the megakernel: (name, model, weights, N, D, k experts or 0, q4 group)
-KERNEL_MS_CORES = (("M=1 w2 e4m3", "MISTRAL_7B", "e4m3", "hidden", "dim", 0, 0),
-                   ("M=1 w13 q4 g512", "MISTRAL_7B", "q4", "dim", "h2", 0, 512),
-                   ("multi w13 i8, m=1 k=2", "MIXTRAL_8X7B", "i8", "dim", "h2", 2, 0),
-                   ("multi w13 q4 g128, m=1 k=2", "MIXTRAL_8X7B", "q4", "dim", "h2", 2, 128))
-KERNEL_MS_CORE_FRAGS = ("gemv_kernel", "gemv_q4_kernel", "qmatmul_multi_kernel",
-                        "qmatmul_multi_q4_kernel", "quant_x_kernel")
+# the megakernel: (name, model, weights, N, D, k experts or 0, q4 group, x
+# shared by the experts)
+KERNEL_MS_CORES = (("M=1 w2 e4m3", "MISTRAL_7B", "e4m3", "hidden", "dim", 0, 0, True),
+                   ("M=1 w13 q4 g512", "MISTRAL_7B", "q4", "dim", "h2", 0, 512, True),
+                   ("M=1 w2 q4 g512", "MISTRAL_7B", "q4", "hidden", "dim", 0, 512, True),
+                   ("M=1 wqkv q4 g128", "MIXTRAL_8X7B", "q4", "dim", "qkv", 0, 128, True),
+                   ("multi w13 i8, m=1 k=2", "MIXTRAL_8X7B", "i8", "dim", "h2", 2, 0, True),
+                   ("multi w13 q4 g128, m=1 k=2", "MIXTRAL_8X7B", "q4", "dim", "h2", 2, 128, True),
+                   ("multi w2 q4 g128, per-expert x, m=1 k=2", "MIXTRAL_8X7B", "q4", "hidden",
+                    "dim", 2, 128, False))
+# this tree's kernels and the ones they replaced (which the other tree may
+# hold, with its quant_x_kernel launch before the q4 ones)
+KERNEL_MS_CORE_FRAGS = ("gemv_kernel", "qmatmul_multi_kernel", "gemv_q4_stream_kernel",
+                        "multi_q4_stream_kernel", "gemv_q4_kernel", "qmatmul_multi_q4_kernel",
+                        "quant_x_kernel")
 
 
 def _core_turns(trees, gen, held) -> list[dict]:
-    """The other kernels on gemv.cuh's warp cores (``KERNEL_MS_CORES``):
-    the fp8 GEMV (``gemv_kernel``), the q4 GEMV (``gemv_q4_kernel``) and
-    kernel 8's gathered experts over int8 and packed q4
-    (``qmatmul_multi_kernel``, ``qmatmul_multi_q4_kernel``), through this
-    checkout's wrappers launching each tree's library (``_launching``), in
-    turns, layers or experts cycled past twice the L2; each held to this
-    checkout's plain version (fp8 and i8 1e-4 of each row's max, q4 bit for
-    bit). No one PyTorch call computes these functions (library null).
-    Bound: the weights and scales, x and the output, once each."""
+    """The other kernels on gemv.cuh's cores (``KERNEL_MS_CORES``): the fp8
+    GEMV (``gemv_kernel``), the q4 GEMV (``gemv_q4_stream_kernel``; earlier
+    trees: ``quant_x_kernel`` and ``gemv_q4_kernel``) and kernel 8's
+    gathered experts over int8 and packed q4 (``qmatmul_multi_kernel``,
+    ``multi_q4_stream_kernel``; earlier: ``qmatmul_multi_q4_kernel``),
+    through this checkout's wrappers launching each tree's library
+    (``_launching``), in turns, layers or experts cycled past twice the L2;
+    each held to this checkout's plain version (fp8 and i8 1e-4 of each
+    row's max, q4 bit for bit). No one PyTorch call computes these functions
+    (library null). Bound: the weights and scales, x and the output, once
+    each."""
     import torch
 
     from xalm_tpu_torch.models import config as configs
@@ -3935,9 +3960,10 @@ def _core_turns(trees, gen, held) -> list[dict]:
 
     dev = torch.device(DEVICE)
     rows = []
-    for name, model, wt, nk, dk, k, group in KERNEL_MS_CORES:
+    for name, model, wt, nk, dk, k, group, shared in KERNEL_MS_CORES:
         cfg = getattr(configs, model)
-        widths = {"dim": cfg.dim, "hidden": cfg.hidden_dim, "h2": 2 * cfg.hidden_dim}
+        widths = {"dim": cfg.dim, "hidden": cfg.hidden_dim, "h2": 2 * cfg.hidden_dim,
+                  "qkv": cfg.q_dim + 2 * cfg.kv_dim}
         n, d = widths[nk], widths[dk]
         wn = n // 2 if wt == "q4" else n  # bytes of a weight row
         sbytes = d * (n // group if group else 1) * 4 if wt != "e4m3" else 0
@@ -3951,9 +3977,11 @@ def _core_turns(trees, gen, held) -> list[dict]:
                               device=dev, dtype=torch.int8)
             scale = torch.rand((le, d, n // group) if group else (le, d), generator=gen,
                                device=dev) * 1e-2
-        x = torch.randn((1, n), generator=gen, device=dev)
+        xrows = 1 if shared else k
+        x = torch.randn((xrows, n), generator=gen, device=dev)
         kw = dict(q4_group=group) if group else {}
         if k:
+            kw["shared_x"] = shared
             idxs = [torch.arange(i * k, i * k + k, dtype=torch.int32, device=dev)
                     for i in range(L)]
             want = qmatmul_multi_plain(x, w, scale, idxs[1], **kw)
@@ -3976,7 +4004,7 @@ def _core_turns(trees, gen, held) -> list[dict]:
         def call(tag, fn=fn):
             with _launching(trees[tag]):
                 fn(next(layer[tag]))
-        nbytes = max(k, 1) * (d * wn + sbytes) + n * 4 + max(k, 1) * d * 4
+        nbytes = max(k, 1) * (d * wn + sbytes) + xrows * n * 4 + max(k, 1) * d * 4
         b_ms, b_by = bound(nbytes, 2.0 * n * d * max(k, 1), PEAK_BF16)
         row = {"case": name, "layers": L, "max_row_rel_err": rel, "bound_ms": b_ms,
                "bound_by": b_by, "library_null": "no one PyTorch call computes it"}

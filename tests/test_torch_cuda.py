@@ -722,13 +722,22 @@ def test_harness_on_the_card(dev, tmp_path, capsys):
     assert "retrieval:" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("group", [128, 256])
-@pytest.mark.parametrize("m", [1, 3, 8, 13, 100])
-def test_qmatmul_q4_bit_equal_to_plain(dev, group, m):
+# (group, M, N, D) of the q4 GEMV: 24-byte scale rows (N 1536 at g256, 3072
+# at g512), M past 8 (launches of 8 rows), Gemma-7B's w2 (N 24576: 8 rows of
+# x do not fit beside the ring, launches of 6), Qwen2.5-7B's w2 at M = 8, and
+# a group of three 128-byte chunks (g384)
+Q4_GEMV_CASES = ([(g, m, 1536, 1000) for g in (128, 256) for m in (1, 3, 8, 13, 100)]
+                 + [(g, m, 24576, 3072) for g in (128, 512) for m in (1, 8)]
+                 + [(512, 1, 3072, 1000), (512, 4, 3072, 12288), (128, 8, 18944, 3584),
+                    (384, 2, 2304, 1000)])
+
+
+@pytest.mark.parametrize("group,m,n,d", Q4_GEMV_CASES)
+def test_qmatmul_q4_bit_equal_to_plain(dev, group, m, n, d):
     from xalm_tpu_torch.models.params import QWeight, recode_qweight_q4
 
     g = torch.Generator(device=dev).manual_seed(m + group)
-    l, d, n = 3, 1000, 1536
+    l = 3
     w = torch.randint(-128, 128, (l, d, n), dtype=torch.int8, device=dev, generator=g)
     qw = recode_qweight_q4(QWeight(w, torch.rand((l, d), device=dev, generator=g) * 0.01), group)
     x = torch.randn((m, n), device=dev, generator=g) * 3
@@ -1329,26 +1338,54 @@ def _q4_stack(dev, g, le, d, n, group):
     return w, (torch.rand((le, d, n // group), device=dev, generator=g) * 0.01 + 1e-3)
 
 
+def _multi_idxs(dev, k: int, le: int) -> torch.Tensor:
+    """k expert indices into a stack of le (three: 11, 2, 7)."""
+    idx = [11, 2, 7] if k == 3 else [(5 * i + 11) % le for i in range(k)]
+    return torch.tensor(idx, dtype=torch.int32, device=dev)
+
+
 @pytest.mark.parametrize("group", [128, 512])
-@pytest.mark.parametrize("m,shared,n", [(1, True, 4096), (1, False, 14336), (3, True, 2048),
-                                        (10, False, 2048), (20, True, 1024)])
-def test_qmatmul_multi_q4_bit_equal_to_plain(dev, group, m, shared, n):
+@pytest.mark.parametrize("m,shared,n,k", [(1, True, 4096, 3), (1, False, 14336, 3),
+                                          (3, True, 2048, 3), (10, False, 2048, 3),
+                                          (20, True, 1024, 3), (1, True, 24576, 2),
+                                          (8, False, 24576, 2), (1, True, 3072, 3),
+                                          (8, False, 18944, 2), (1, False, 2048, 16)])
+def test_qmatmul_multi_q4_bit_equal_to_plain(dev, group, m, shared, n, k):
     """The gathered q4 expert matmul against its plain version, bit-equal:
     Mixtral's w13 (x shared, 4096 wide) and w2 (one row per expert, 14336
-    wide) shapes, and m past 8 (row groups)."""
+    wide) shapes, m past 8 (row groups), Gemma-7B's w2 width (24576: 8 rows
+    of x a launch do not fit), 24-byte scale rows (3072 at g512), Qwen2.5's
+    w2 width at m = 8, and 16 experts of one row each."""
     if n % (2 * group):
         pytest.skip("the group does not divide N/2")
     g = torch.Generator(device=dev).manual_seed(m + n + group)
     le, d = 12, 1000
     w, scale = _q4_stack(dev, g, le, d, n, group)
-    idxs = torch.tensor([11, 2, 7], dtype=torch.int32, device=dev)
-    x = torch.randn((m if shared else 3 * m, n), device=dev, generator=g) * 3
+    idxs = _multi_idxs(dev, k, le)
+    x = torch.randn((m if shared else k * m, n), device=dev, generator=g) * 3
     build.reset_launches()
     got = qmatmul_multi(x, w, scale, idxs, shared_x=shared, q4_group=group)
     assert build.LAUNCHES["qmatmul_multi_q4"] == 1 and build.LAUNCHES["qmatmul_multi"] == 0
     want = qmatmul_multi_plain(x, w, scale, idxs, shared_x=shared, q4_group=group)
-    assert got.shape == want.shape == (3 * m, d)
+    assert got.shape == want.shape == (k * m, d)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("m,shared", [(1, True), (8, False), (3, True)])
+def test_qmatmul_multi_q4_index_outside_the_stack_gives_nan_rows(dev, m, shared):
+    """An expert index past the stack (or negative) makes that expert's rows
+    NaN and leaves the others' bit-equal to the plain version."""
+    g = torch.Generator(device=dev).manual_seed(m)
+    le, d, n, group = 4, 700, 3072, 512
+    w, scale = _q4_stack(dev, g, le, d, n, group)
+    x = torch.randn((m if shared else 3 * m, n), device=dev, generator=g)
+    idxs = torch.tensor([le, 2, -1], dtype=torch.int32, device=dev)
+    got = qmatmul_multi(x, w, scale, idxs, shared_x=shared, q4_group=group)
+    assert torch.isnan(got[:m]).all() and torch.isnan(got[2 * m:]).all()
+    two = torch.tensor([2], dtype=torch.int32, device=dev)
+    xe = x if shared else x[m:2 * m]
+    assert torch.equal(got[m:2 * m],
+                       qmatmul_multi_plain(xe, w, scale, two, shared_x=True, q4_group=group))
 
 
 def test_qmatmul_multi_q4_64bit_offsets(dev):
@@ -2054,6 +2091,37 @@ def test_decode_and_gemv_plans_match_the_launchers(dev, family):
                     assert tuple(got) == want, (m, n, d, dt)
     for kind in (0, 3, 4):  # int8, fp8: the warp-a-row-pair GEMV
         assert qlib.xq_gemv_plan(1, 4096, 4096, kind, (ctypes.c_int * 4)()) != 0
+
+
+@pytest.mark.parametrize("family", PLAN_FAMILIES)
+def test_q4_stream_plan_matches_the_launcher(dev, family):
+    """``ops.qmatmul.q4_plan`` (at the device's SM count), which
+    tests/test_torch_q4_stream.py checks on the CPU, equal to what
+    ``xq_qmatmul_q4_plan`` reports at every q4 (N, D) of the family's
+    forward, each group that divides N/2, M 1 to 8 and 13, the GEMV and 2
+    and 8 experts; both refuse a group off the 128 granule."""
+    import ctypes
+
+    from xalm_tpu_torch.models import config as C
+    from xalm_tpu_torch.ops.qmatmul import q4_plan
+
+    cfg = getattr(C, family)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    qlib = build.load_library("qmatmul")
+    shapes = [(cfg.dim, cfg.q_dim + 2 * cfg.kv_dim), (cfg.q_dim, cfg.dim),
+              (cfg.dim, 2 * cfg.hidden_dim), (cfg.hidden_dim, cfg.dim)]
+    for n, d in shapes:
+        for group in (128, 256, 512, 1024):
+            if n % (2 * group):
+                continue
+            for k in (1, 2, 8):
+                for m in (*range(1, 9), 13):
+                    want = q4_plan(m, n, d, group, k, sms)
+                    got = (ctypes.c_int * 8)()
+                    assert qlib.xq_qmatmul_q4_plan(m, n, d, group, k, got) == 0, (m, n, d, group)
+                    assert tuple(got) == want, (m, n, d, group, k)
+    assert qlib.xq_qmatmul_q4_plan(1, 4096, 4096, 192, 1, (ctypes.c_int * 8)()) != 0
+    assert q4_plan(1, 4096, 4096, 192, 1, sms) is None
 
 
 # ------------------------ the tiled GEMM of int8, fp8 and bf16 weights; the megakernel at B = 8

@@ -519,7 +519,7 @@ __device__ void gemv_phase(const int8_t* __restrict__ w, const float* __restrict
           __syncthreads();
         },
         [&](PairAcc<float>& acc, int r0, int r1, int p0, int p1) {
-          xq_gemv2_q4<MK_MAX_B, true>(xs, xs + ldx / 2, ldx, row_ptr(r0), row_ptr(r1), sc_ptr(r0),
+          xq_gemv2_q4<MK_MAX_B>(xs, xs + ldx / 2, ldx, row_ptr(r0), row_ptr(r1), sc_ptr(r0),
                                 sc_ptr(r1), p0, p1, group, npg, B, lane, acc.v, hterm);
         },
         [&](int p, int r0, int r1, PairAcc<float>& acc) {

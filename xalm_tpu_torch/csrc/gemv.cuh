@@ -16,15 +16,12 @@
 //
 // The cores load a lane's weight words ahead of the products that use
 // them: xq_gemv2 one step (16 bytes of both rows) ahead, xq_gemv2_s8 two,
-// and xq_gemv2_q4<MAXM, true> (the megakernel's) the next chunk of up to
-// four words of both rows before the group's reductions and scale loads.
-// At 16 warps an SM that keeps 32-48 KB an SM in flight (Little's law at
-// 3.35 TB/s over 132 SMs: ~25 KB an SM a microsecond of latency). The
-// summation order is that of a core loading each step's words just before
-// its products, so the outputs do not depend on how far ahead the loads
-// run. The q4 GEMV and kernel 8's q4 experts keep xq_gemv2_q4<MAXM, false>,
-// each chunk loaded just before its dots: on an H100 they ran 3-12 % slower
-// with the chunk ahead (PERF.md section 6).
+// and xq_gemv2_q4 (the megakernel's) the next chunk of up to four words of
+// both rows before the group's reductions and scale loads. At 16 warps an
+// SM that keeps 32-48 KB an SM in flight (Little's law at 3.35 TB/s over
+// 132 SMs: ~25 KB an SM a microsecond of latency). The summation order is
+// that of a core loading each step's words just before its products, so
+// the outputs do not depend on how far ahead the loads run.
 //
 // The int8-activation cores (the TPU kernel's a8 and q4 branches) take the
 // activations as int8 codes (quantised per row by the caller) and multiply
@@ -32,10 +29,12 @@
 // - xq_gemv2_s8: int8 weight rows, one int32 sum per (row, activation row)
 //   over the whole contraction (at most K * 127^2 = 2.3e8 < 2^31 at
 //   K = 14336);
-// - xq_gemv2_q4: packed-q4 rows (two signed nibbles per byte, split-half
-//   k-order), one exact int32 dot per group of codes, turned to f32 and
-//   multiplied by that (row, group)'s scale once the group is complete, and
-//   summed in f32 in the reference's group order.
+// - xq_gemv2_q4 (the megakernel's) and xq_q4_piece64 / xq_q4_piece16 (the
+//   q4 GEMV's and kernel 8's q4 experts', on rows landed in shared memory):
+//   packed-q4 rows (two signed nibbles per byte, split-half k-order), one
+//   exact int32 dot per group of codes, turned to f32 and multiplied by
+//   that (row, group)'s scale once the group is complete, and summed in f32
+//   in the reference's group order.
 #pragma once
 
 #include <cuda_fp16.h>
@@ -253,9 +252,9 @@ __device__ __forceinline__ void xq_gemv2_s8(const int8_t* xs, int ldx, const int
 // m * ldx; p0 and p1 are multiples of the group g (a multiple of 128).
 // For each group q in [p0/g, p1/g), all 32 lanes take g/128 words of the
 // group's g bytes (word c * 32 + lane, so each load is one 128-byte line
-// per warp; chunks of up to four words of both rows, with AHEAD the next
-// chunk, of this group or the next, loaded once this chunk's dots are
-// issued, so the group's reductions and scale loads run under it), __dp4a
+// per warp; chunks of up to four words of both rows, the next chunk, of
+// this group or the next, loaded once this chunk's dots are issued, so the
+// group's reductions and scale loads run under it), __dp4a
 // each word's nibbles (masked into the high half of each byte, so the dot is 16x the
 // codes' dot, exact) against the codes, and add the lanes
 // (__reduce_add_sync). Then, in every lane,
@@ -265,7 +264,7 @@ __device__ __forceinline__ void xq_gemv2_s8(const int8_t* xs, int ldx, const int
 // all the low ones, so the caller adds hterm[0..npg) to acc in that order
 // once the row is complete. Every multiply and add rounds on its own (no
 // FMA contraction), as the plain version's separate f32 operations.
-template <int MAXM, bool AHEAD = false>
+template <int MAXM>
 __device__ __forceinline__ void xq_gemv2_q4(const int8_t* xlo, const int8_t* xhi, int ldx,
                                             const int8_t* w0, const int8_t* w1,
                                             const float* s0, const float* s1, int p0, int p1,
@@ -288,13 +287,12 @@ __device__ __forceinline__ void xq_gemv2_q4(const int8_t* xlo, const int8_t* xhi
                        : 0u;
   };
   unsigned int wv[4][2];
-  if constexpr (AHEAD) load(p0 / group, 0, wv);
+  load(p0 / group, 0, wv);
   for (int q = p0 / group; q < qend; ++q) {
     int il[2][MAXM], ih[2][MAXM];
 #pragma unroll
     for (int m = 0; m < MAXM; ++m) il[0][m] = il[1][m] = ih[0][m] = ih[1][m] = 0;
     for (int c0 = 0; c0 < words; c0 += 4) {
-      if constexpr (!AHEAD) load(q, c0, wv);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         if (c0 + j >= words) break;
@@ -313,10 +311,8 @@ __device__ __forceinline__ void xq_gemv2_q4(const int8_t* xlo, const int8_t* xhi
           }
         }
       }
-      if constexpr (AHEAD) {
-        if (c0 + 4 < words) load(q, c0 + 4, wv);
-        else load(q + 1, 0, wv);
-      }
+      if (c0 + 4 < words) load(q, c0 + 4, wv);
+      else load(q + 1, 0, wv);
     }
 #pragma unroll
     for (int m = 0; m < MAXM; ++m) {
@@ -339,4 +335,176 @@ template <int MAXM>
 __device__ __forceinline__ float xq_q4_finish(float acc, const float* hterm, int r, int m, int npg) {
   for (int q = 0; q < npg; ++q) acc = __fadd_rn(acc, hterm[(r * MAXM + m) * npg + q]);
   return acc;
+}
+
+// The packed-q4 stream's core: one warp turns a piece of a packed-q4 row
+// landed in shared memory (rb bytes at `row`, the row's packed bytes
+// [off, off + rb), off and rb multiples of the group g: whole groups)
+// into its group terms, against x's codes in shared memory (row m at
+// m * ldx: the low half's columns [0, kh), the high half's [kh, 2 kh)).
+// __dp4a takes each word's nibbles masked into the high half of each byte
+// (16x the codes: exact; the sums are shifted back) against the codes at
+// the matching low and high columns; a group's dot is exact in int32. The
+// terms f32(dot) * scale of group q of activation row m go to shared
+// memory, the low half's at tm[m * hs + q] and the high half's at
+// tm[(M + m) * hs + q], sr holding the row's N/g scales; once the row is
+// complete, xq_q4_row_sum adds them in the reference's order. Every
+// multiply and add rounds on its own (no FMA contraction), as the plain
+// version's separate f32 operations.
+
+// The dots of one 16-byte word of packed codes at byte wo of the piece,
+// added to il[m] / ih[m] (16x the low and high halves' dots)
+template <int MAXM>
+__device__ __forceinline__ void xq_q4_word(const int4& raw, const int8_t* xs, int ldx, int kh,
+                                           int col, int M, int (&il)[MAXM], int (&ih)[MAXM]) {
+  const unsigned int wv[4] = {(unsigned int)raw.x, (unsigned int)raw.y, (unsigned int)raw.z,
+                              (unsigned int)raw.w};
+  int lo16[4], hi16[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    lo16[c] = (int)((wv[c] << 4) & 0xF0F0F0F0u);
+    hi16[c] = (int)(wv[c] & 0xF0F0F0F0u);
+  }
+#pragma unroll
+  for (int m = 0; m < MAXM; ++m) {
+    if (m >= M) break;
+    const int8_t* xm = xs + (size_t)m * ldx + col;
+    const int4 xl = *reinterpret_cast<const int4*>(xm);
+    const int4 xh = *reinterpret_cast<const int4*>(xm + kh);
+    int a = __dp4a(lo16[0], xl.x, il[m]), b = __dp4a(hi16[0], xh.x, ih[m]);
+    a = __dp4a(lo16[1], xl.y, a);
+    b = __dp4a(hi16[1], xh.y, b);
+    a = __dp4a(lo16[2], xl.z, a);
+    b = __dp4a(hi16[2], xh.z, b);
+    il[m] = __dp4a(lo16[3], xl.w, a);
+    ih[m] = __dp4a(hi16[3], xh.w, b);
+  }
+}
+
+// Groups of g = 64 L bytes (L = 2 .. 32 lanes: g 128 .. 2048): lane l
+// takes the 64 bytes at l * 64 of each 2 KB step, as four 16-byte words in
+// the order (i + l / 2) % 4 (the eight lanes of a quarter warp then read
+// eight distinct 16-byte bank groups), so a group is L lanes' bytes: L - 1
+// shuffles a value, and lane (s L + j) of the step's group s writes the
+// terms of the rows m = j, j + L, ...
+template <int MAXM, int L>
+__device__ __forceinline__ void xq_q4_piece64(const unsigned char* row, int rb,
+                                              const int8_t* xs, int ldx, int kh, int off,
+                                              const float* sr, int npg, int M, int lane,
+                                              float* tm, int hs) {
+  const int s = lane / L, jj = lane % L;
+  for (int j = 0; j < rb; j += 2048) {
+    int il[MAXM], ih[MAXM];
+#pragma unroll
+    for (int m = 0; m < MAXM; ++m) il[m] = ih[m] = 0;
+    const int base = j + lane * 64;
+    if (base < rb) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int wo = base + ((i + (lane >> 1)) & 3) * 16;
+        xq_q4_word<MAXM>(*reinterpret_cast<const int4*>(row + wo), xs, ldx, kh, off + wo, M,
+                         il, ih);
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < MAXM; ++m) {
+      if (m >= M) break;
+#pragma unroll
+      for (int o = L / 2; o > 0; o >>= 1) {
+        il[m] += __shfl_xor_sync(0xffffffffu, il[m], o);
+        ih[m] += __shfl_xor_sync(0xffffffffu, ih[m], o);
+      }
+    }
+    if (j + s * L * 64 < rb) {
+      const int q = (off + j) / (64 * L) + s;
+      const float sl = sr[q], sh = sr[npg + q];
+#pragma unroll
+      for (int m = 0; m < MAXM; ++m) {
+        if (m >= M) break;
+        if (m % L == jj) {
+          tm[m * hs + q] = __fmul_rn((float)(il[m] >> 4), sl);
+          tm[(M + m) * hs + q] = __fmul_rn((float)(ih[m] >> 4), sh);
+        }
+      }
+    }
+  }
+}
+
+// Any other group (a multiple of 128 bytes: cpg 128-byte chunks): lane l
+// takes the 16-byte word at l * 16 of each 512-byte step, each 8-lane
+// segment (a chunk) summed by shuffles, and the chunks' dots of row m
+// handed to lane m in order and summed into groups (gl, gh: 16x the
+// current group's dots, cc its chunks so far, q its index)
+template <int MAXM>
+__device__ __forceinline__ void xq_q4_piece16(const unsigned char* row, int rb,
+                                              const int8_t* xs, int ldx, int kh, int off,
+                                              const float* sr, int npg, int cpg, int M,
+                                              int lane, float* tm, int hs) {
+  const int jl = lane & 7;
+  int gl = 0, gh = 0, cc = 0, q = off / (128 * cpg);
+  for (int j = 0; j < rb; j += 512) {
+    int il[MAXM], ih[MAXM];
+#pragma unroll
+    for (int m = 0; m < MAXM; ++m) il[m] = ih[m] = 0;
+    const int wo = j + lane * 16;
+    if (wo < rb)
+      xq_q4_word<MAXM>(*reinterpret_cast<const int4*>(row + wo), xs, ldx, kh, off + wo, M, il,
+                       ih);
+#pragma unroll
+    for (int m = 0; m < MAXM; ++m) {
+      if (m >= M) break;
+#pragma unroll
+      for (int o = 4; o > 0; o >>= 1) {
+        il[m] += __shfl_xor_sync(0xffffffffu, il[m], o);
+        ih[m] += __shfl_xor_sync(0xffffffffu, ih[m], o);
+      }
+    }
+    int cl = il[0], ch = ih[0];  // row jl's
+#pragma unroll
+    for (int m = 1; m < MAXM; ++m)
+      if (jl == m) {
+        cl = il[m];
+        ch = ih[m];
+      }
+    int vl[4], vh[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      vl[c] = __shfl_sync(0xffffffffu, cl, c * 8 + jl);
+      vh[c] = __shfl_sync(0xffffffffu, ch, c * 8 + jl);
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (j + c * 128 >= rb) break;
+      gl += vl[c];
+      gh += vh[c];
+      if (++cc == cpg) {
+        if (lane < M) {
+          tm[lane * hs + q] = __fmul_rn((float)(gl >> 4), sr[q]);
+          tm[(M + lane) * hs + q] = __fmul_rn((float)(gh >> 4), sr[npg + q]);
+        }
+        gl = gh = cc = 0;
+        ++q;
+      }
+    }
+  }
+}
+
+// The q4 row's f32 sum for activation row m = lane < M once every piece of
+// the row is in (after a __syncwarp): the low groups' terms in order, then
+// the high groups' (-0 + t == t for every t: the sum starts at the first);
+// hs a multiple of 4, the rows 16-byte aligned
+__device__ __forceinline__ float xq_q4_row_sum(const float* tm, int hs, int npg, int M, int lane) {
+  float v = -0.0f;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float* t = tm + (h * M + lane) * hs;
+    int q = 0;
+#pragma unroll 4
+    for (; q + 4 <= npg; q += 4) {
+      const float4 f = *reinterpret_cast<const float4*>(t + q);
+      v = __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(v, f.x), f.y), f.z), f.w);
+    }
+    for (; q < npg; ++q) v = __fadd_rn(v, t[q]);
+  }
+  return v;
 }

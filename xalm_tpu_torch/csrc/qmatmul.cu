@@ -120,31 +120,59 @@
 // scale epilogue (gemv_store) are the GEMV route's. f32 experts stage x as
 // f32 (the TPU kernel's compute dtype for f32 weights).
 //
-// xq_qmatmul_multi_q4 is the same gathered matmul over packed-q4 expert
-// stacks (pallas_matmul.py :350-355, :381-386, :419-420): x quantised per
-// row first (quant_x_kernel; with x shared, the m rows once and their scales
-// for every expert, else each of the k*m rows on its own), then the (row
-// tile, expert) grid of xq_qmatmul_multi over the gathered (LE, D, N/2)
-// packed rows and (LE, D, N/g) group scales with the q4 GEMV's core
-// (xq_gemv2_q4): bit-equal to the plain version. Bound by bytes: k experts'
-// packed rows and group scales (w13 g128 at Mixtral widths, k = 2: 124.8
-// MB). The expert index is read on the card, and the codes' and the scales'
-// offsets are 64-bit (Mixtral's packed w13 stack is 15.0 GB).
-//
 // The same TPU kernel's two int8-activation branches (pallas_matmul.py
-// :116-147 packed q4, :161-167 W8A8) quantise x per row first:
-// quant_x_kernel, one block per row, writes int8 codes (round half to even
-// of x / (absmax / 127), both IEEE divisions, clipped to +-127) and the row
-// scale into scratch the wrapper allocates; the output is multiplied by
-// that scale last, as the reference does after its kernel.
+// :116-147 packed q4, :161-167 W8A8) quantise x per row first: int8 codes
+// (round half to even of x / (absmax / 127), both IEEE divisions, clipped
+// to +-127) and the row scale; the output is multiplied by that scale last,
+// as the reference does after its kernel. W8A8 writes them to scratch the
+// wrapper allocates (quant_x_kernel, one block per row); the q4 stream
+// makes them in its own prologue.
 //
-// xq_qmatmul_q4 (M < 256, launched in blocks of up to 8 rows): the packed
-// q4 GEMV. Bound by bytes: the packed row is half the i8 row's bytes, plus
-// 4 bytes of scale per group. Design: gemv.cuh's xq_gemv2_q4 over the
-// codes staged in shared memory, one warp per output row pair; each group
-// of codes is an exact int32 __dp4a dot (512 x 8 x 127 at group 512 is far
-// below 2^31), scaled in f32 once complete and summed in group order, so
-// the result is bit-equal to the plain version.
+// xq_qmatmul_q4 (the packed q4 GEMV, M < 256) and xq_qmatmul_multi_q4 (the
+// gathered q4 experts, pallas_matmul.py :350-355, :381-386, :419-420, over
+// the (LE, D, N/2) packed stack and its (LE, D, N/g) group scales): each
+// group of g codes of each half of a packed row (two signed nibbles a byte,
+// split-half k-order) is an exact int32 __dp4a dot against x's codes,
+// turned to f32 and multiplied by its group scale, the terms summed in f32
+// with every low-half group in order before the high-half ones (the
+// reference's order), times x's row scale: bit-equal to the plain version.
+// Bound by bytes: the packed rows (half an i8 row's) and 4 bytes of scale a
+// group (Mistral's w13 at g512: 59.6 MB, 17.8 us at 3.35 TB/s; Mixtral's
+// w13 g128 at k = 2: 124.8 MB, 37.3 us). The kernels this stream replaced
+// (a warp a row pair loading 4-byte words from global memory, after a
+// separate quantising launch) reached 24-44 % of that (PERF.md section 6). Design (q4_stream), the packed-q4
+// stream, as gemv_stream_kernel streams bf16 rows:
+// - One persistent block an SM of 16 warps (8 where 16 rings do not fit
+//   beside x: q4_plan). The GEMV deals D rows over the blocks; the gathered
+//   experts give sms / k blocks to each expert, so that a block stages one
+//   expert's rows of x (per-expert x has k * m rows). Each warp owns a
+//   contiguous band of its block's rows and streams it through a ring of
+//   its own, two stages: a stage is one bulk copy of whole packed rows (up
+//   to 8 KB: three 2 KB rows at N = 4096 and 16 warps) or of one of a
+//   longer row's equal segments of whole groups, and one of those rows'
+//   group scales widened to 16-byte bounds (q4_scale_cap). The expert index
+//   is read on the card before the first copy (outside the stack: NaN
+//   rows, no read); the codes' and the scales' offsets are 64-bit
+//   (Mixtral's packed w13 stack is 15.0 GB).
+// - x's codes and row scales are made in the kernel's prologue by every
+//   block (at most 8 rows, read from L2), with quant_x_kernel's arithmetic;
+//   the quotients without a division an element (q4_code). A load waits
+//   behind the bulk copies in flight to its SM, so x is read first: a
+//   single row is held in registers, each warp's first stage is issued
+//   right after its loads and the second once the codes are written; more
+//   rows are read twice and the copies wait for their codes.
+// - gemv.cuh's xq_q4_piece64: lane l takes 64 bytes of each 2 KB step of
+//   the landed row (four 16-byte words, in an order that keeps the shared
+//   memory reads conflict-free), 8 __dp4a a word and activation row, and a
+//   group of g = 64 L bytes is L lanes' sums (L - 1 shuffles); the lanes
+//   write the group terms to shared memory, and once the row is complete
+//   lane m adds its row's in the reference's order (xq_q4_row_sum). Groups
+//   other than 128 .. 2048 bytes in powers of two take xq_q4_piece16 (16
+//   bytes a lane, 128-byte chunks summed into groups in order).
+// Where 8 rows of x do not fit beside the rings (Gemma-7B's w2, N = 24576),
+// fewer rows a launch (q4_plan): column chunks would have to keep every
+// band row's terms (2 M x N/2g floats a row) across chunks, more shared
+// memory than they free. M > 8 runs launches of up to 8 rows.
 //
 // xq_qmatmul_a8 (W8A8, the 256- and 512-row prefill chunks): bound by
 // operations at M = 512 (1979 dense s8 TOP/s; w2: 0.030 ms, w13: 0.061).
@@ -1139,98 +1167,361 @@ __global__ void __launch_bounds__(256) quant_x_kernel(const float* __restrict__ 
   if (tid == 0) sx[blockIdx.x] = s;
 }
 
-constexpr int Q4_MAX_M = GV_MAX_M;
+// The packed-q4 stream (xq_qmatmul_q4, xq_qmatmul_multi_q4; see the note):
+// one block an SM, each warp's band of output rows streamed through a ring
+// of its own, Q4_SLOTS stages of `slot` bytes: a stage's packed rows (whole
+// rows, or a segment of a longer one) and their scale rows, two bulk
+// copies. x's codes and row scales are made in the prologue.
+constexpr int Q4_MAX_WARPS = 16;  // warps a block: 16, or 8 where 16 rings do not fit
+constexpr int Q4_SLOTS = 2;       // a warp's stages in flight
+// packed bytes a stage, in whole KB: at most, and at least at 16 and 8 warps
+constexpr int Q4_SLOT_MAX = 8192, Q4_SLOT_WIDE = 4096, Q4_SLOT_MIN = 2048;
+constexpr int Q4_SMEM = GS_SMEM - GS_RESERVE;  // dynamic shared memory of a block
+constexpr int Q4_MAX_M = 8;                    // x's rows a launch
+constexpr int Q4_XV = 8;  // float4s of a single row of x a thread holds in the prologue
 
-size_t q4_smem(int M, int N, int group) {
-  const int npg = N / 2 / group;
-  return (size_t)M * N + (size_t)GV_WARPS * 2 * Q4_MAX_M * npg * sizeof(float);
+// A stage's scale copy: `rows` scale rows of ng floats at a 4-byte aligned
+// address, widened to 16-byte bounds at both ends (the bulk copy's
+// granule; a scale row of N/g floats, 24 bytes at N = 3072 and g = 512, is
+// not a multiple of 16): at most 24 bytes more. The widening reads at most
+// 12 bytes before the first and after the last scale, within the 16-byte
+// granules that hold them: never across a page, and never used.
+__host__ __device__ inline int q4_scale_cap(int rows, int ng) {
+  return (rows * ng * 4 + 24 + 15) / 16 * 16;
 }
 
-__global__ void __launch_bounds__(GV_THREADS) gemv_q4_kernel(
-    const int8_t* __restrict__ xq, const float* __restrict__ sx, const int8_t* __restrict__ w,
-    const float* __restrict__ scale, float* __restrict__ y, int M, int N, int D, int group) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  int8_t* xs = reinterpret_cast<int8_t*>(smem);  // (M, N) codes
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int kh = N / 2, npg = kh / group, ng = N / group;
-  float* hterm = reinterpret_cast<float*>(smem + (size_t)M * N) + warp * 2 * Q4_MAX_M * npg;
-  for (int i = tid; i < M * N / 16; i += GV_THREADS)
-    reinterpret_cast<int4*>(xs)[i] = reinterpret_cast<const int4*>(xq)[i];
-  __syncthreads();
+struct Q4Plan {
+  int mb;     // x's rows a launch (more rows: more launches)
+  int warps;  // warps a block
+  int bpe;    // blocks an expert (grid.x); grid.y is the k experts
+  int slot;   // bytes of a stage: the packed bytes, then the scale copy's room
+  int rps;    // whole packed rows a stage (1 for a segmented row)
+  int nseg;   // segments a row (1: whole rows a stage)
+  int segb;   // packed bytes a segment (a multiple of the group)
+  int smem;   // dynamic shared memory of a launch of mb rows
+};
 
-  const int row0 = (blockIdx.x * GV_WARPS + warp) * GV_RPW;
-  float acc[GV_RPW][Q4_MAX_M] = {};
-  const bool in0 = row0 < D, in1 = row0 + 1 < D;
-  xq_gemv2_q4<Q4_MAX_M>(xs, xs + kh, N, in0 ? w + (size_t)row0 * kh : nullptr,
-                        in1 ? w + (size_t)(row0 + 1) * kh : nullptr,
-                        in0 ? scale + (size_t)row0 * ng : nullptr,
-                        in1 ? scale + (size_t)(row0 + 1) * ng : nullptr, 0, kh, group, npg, M,
-                        lane, acc, hterm);
-  __syncwarp();
-  if (lane != 0) return;
-#pragma unroll
-  for (int r = 0; r < GV_RPW; ++r) {
-    const int d = row0 + r;
-    if (d >= D) break;
-    for (int m = 0; m < M; ++m)
-      y[(size_t)m * D + d] = __fmul_rn(xq_q4_finish<Q4_MAX_M>(acc[r][m], hterm, r, m, npg), sx[m]);
-  }
+// A warp's row of group terms, in floats: npg rounded up to 4 (16-byte
+// loads) with its 16-byte count odd (the eight rows' loads of one q fall in
+// distinct bank groups)
+__host__ __device__ inline int q4_term_stride(int npg) { return (npg + 3) / 8 * 8 + 4; }
+
+// Dynamic shared memory of the stream for M rows of x: the warps' rings, x's
+// codes (M, N), and each warp's group terms (2 M rows: the low half's, then
+// the high half's)
+inline int q4_smem(int warps, int M, int N, int group, int slot) {
+  return warps * Q4_SLOTS * slot + M * N + warps * 2 * M * q4_term_stride(N / 2 / group) * 4;
 }
 
-// The gathered q4 expert matmul: xq (m or k*m, N) codes and sx their row
-// scales (quant_x_kernel's), w the (LE, D, N/2) packed stack, scale its
-// (LE, D, N/g) group scales, y (k*m, D). Block (row tile, expert e): the
-// rows of expert idxs[e], m activation rows in groups of up to 8, each
-// group's codes staged whole (N bytes a row) after the warps' hterm planes.
-__global__ void __launch_bounds__(GV_THREADS) qmatmul_multi_q4_kernel(
-    const int8_t* __restrict__ xq, const float* __restrict__ sx, const int8_t* __restrict__ w,
-    const float* __restrict__ scale, const int* __restrict__ idxs, float* __restrict__ y, int m,
-    int shared_x, int N, int D, int LE, int group) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int kh = N / 2, npg = kh / group, ng = N / group;
-  float* hterm = reinterpret_cast<float*>(smem) + warp * 2 * Q4_MAX_M * npg;
-  int8_t* xs = reinterpret_cast<int8_t*>(smem + (size_t)GV_WARPS * 2 * Q4_MAX_M * npg * 4);
-  const int e = blockIdx.y;
-  const int idx = idxs[e];
-  const int row0 = (blockIdx.x * GV_WARPS + warp) * GV_RPW;
-  float* ye = y + (size_t)e * m * D;
-  if (idx < 0 || idx >= LE) {  // an index outside the stack: NaN rows, never a stray read
-    for (int i = tid; i < m * GV_WARPS * GV_RPW; i += GV_THREADS) {
-      const int d = blockIdx.x * GV_WARPS * GV_RPW + i % (GV_WARPS * GV_RPW);
-      if (d < D) ye[(size_t)(i / (GV_WARPS * GV_RPW)) * D + d] = NAN;
-    }
+// The packed-q4 stream's launch for M rows of x (each expert's; M > 8 runs
+// in launches of mb rows) by (D, N/2) packed rows of group g, k experts, on
+// a card of `sms` SMs. In order of preference: the most rows of x a launch
+// (fewer rows: the weights stream again), 16 warps (8 where 16 rings of 4
+// KB stages do not fit), and the most packed bytes a stage, in whole KB
+// from 8 KB down (to 4 KB at 16 warps, 2 KB at 8), that fit beside x's
+// codes and the terms: whole rows where a row fits (rps of them), else
+// equal segments of whole groups. One block an SM: sms / k blocks an expert
+// (at least one, and no more than a warp a row). False for a shape the
+// stream does not take.
+bool q4_plan(int M, int N, int D, int group, int k, int sms, Q4Plan* p) {
+  if (M < 1 || D < 1 || k < 1 || group < 128 || group % 128 != 0 || N % (2 * group) != 0)
+    return false;
+  const int kh = N / 2, ng = N / group;
+  for (int mb = M < Q4_MAX_M ? M : Q4_MAX_M; mb >= 1; --mb)
+    for (int warps = Q4_MAX_WARPS; warps >= 8; warps /= 2)
+      for (int sw = Q4_SLOT_MAX; sw >= (warps > 8 ? Q4_SLOT_WIDE : Q4_SLOT_MIN); sw -= 1024) {
+        Q4Plan q{mb, warps, 0, 0, 1, 1, kh, 0};
+        if (kh <= sw) {
+          q.rps = sw / kh;
+        } else {
+          q.nseg = (kh + sw - 1) / sw;
+          q.segb = ((kh + q.nseg - 1) / q.nseg + group - 1) / group * group;
+          if (q.segb > sw) {
+            q.segb = sw / group * group;
+            if (q.segb == 0) continue;
+            q.nseg = (kh + q.segb - 1) / q.segb;
+          }
+        }
+        q.slot = (q.nseg > 1 ? q.segb : q.rps * kh) + q4_scale_cap(q.rps, ng);
+        q.smem = q4_smem(warps, mb, N, group, q.slot);
+        if (q.smem > Q4_SMEM) continue;
+        const int per = sms / k > 1 ? sms / k : 1;
+        const int most = (D + warps - 1) / warps;
+        q.bpe = per < most ? per : most;
+        *p = q;
+        return true;
+      }
+  return false;
+}
+
+// x's code for v in a row of scale s (xq_code's rint of the IEEE quotient
+// v / s, clipped to +-127) without a division an element: r = 1/s (IEEE,
+// once a row), the product v r and one correction put q within an ulp of
+// v / s; then Markstein's step: the residual v - q s is exact under an
+// FMA, and q + (v - q s) r rounds to the IEEE quotient. That holds without
+// under- or overflow: for a row whose absmax lies in [2^-60, 2^100] (every
+// quotient that can round away from 0 is then normal, and so is its
+// residual); q4_stream divides the other rows' elements.
+__device__ __forceinline__ signed char q4_code(float v, float s, float r) {
+  const float q0 = __fmul_rn(v, r);
+  const float q1 = __fmaf_rn(__fmaf_rn(-q0, s, v), r, q0);
+  const float q = __fmaf_rn(__fmaf_rn(-q1, s, v), r, q1);
+  return (signed char)fminf(fmaxf(rintf(q), -127.f), 127.f);
+}
+
+struct Q4Args {
+  int M, N, D, group;  // x's rows this launch (<= MAXM), widths, the group
+  int m, m0;           // x's rows an expert (y's rows an expert), this launch's first
+  int shared_x, LE;    // x shared by the experts; experts in the stack
+  int slot, rps, nseg, segb;
+};
+
+// Rows [d0, d1) of expert e = blockIdx.y (of the stack's expert idxs[e];
+// for the GEMV, the one matrix) by activation rows m0 .. m0 + M - 1, as
+// the note says. y row e * m + m0 + r, x row (shared_x ? 0 : e * m) + m0 + r.
+template <int MAXM, bool GATHER>
+__device__ __forceinline__ void q4_stream(const float* __restrict__ x,
+                                          const int8_t* __restrict__ w,
+                                          const float* __restrict__ scale,
+                                          const int* __restrict__ idxs, float* __restrict__ y,
+                                          const Q4Args& a) {
+  // [warps][Q4_SLOTS][slot] rings, then x's codes (M, N), then the terms
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ uint64_t full[Q4_MAX_WARPS][Q4_SLOTS];
+  __shared__ float red[Q4_MAX_WARPS][MAXM];
+  __shared__ float sxs[MAXM], rxs[MAXM];  // x's row scales and their reciprocals
+  const int tid = threadIdx.x, lane = tid & 31;
+  // the warp's index, from lane 0: the compiler then knows it is the same in
+  // every lane, so the loops over a warp's stages hold no divergent branch
+  // around the shuffles (where it cannot tell, it wraps each shuffle in a
+  // loop over the lanes' groups)
+  const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0);
+  const int nthreads = blockDim.x, nwarps = nthreads >> 5;
+  const int N = a.N, D = a.D, M = a.M, kh = N / 2, npg = kh / a.group, ng = N / a.group;
+  const int hs = q4_term_stride(npg);
+  const int e = GATHER ? blockIdx.y : 0;
+  const int idx = GATHER ? idxs[e] : 0;  // read on the card, before any copy
+  const int d0 = (int)((long long)blockIdx.x * D / gridDim.x);
+  const int d1 = (int)((long long)(blockIdx.x + 1) * D / gridDim.x);
+  float* ye = y + ((size_t)e * a.m + a.m0) * D;
+  if (GATHER && (idx < 0 || idx >= a.LE)) {  // an index outside the stack: NaN rows, no read
+    for (int i = tid; i < M * (d1 - d0); i += nthreads)
+      ye[(size_t)(i / (d1 - d0)) * D + d0 + i % (d1 - d0)] = NAN;
     return;
   }
   const int8_t* we = w + (size_t)idx * D * kh;  // 64-bit: the stack passes 2^31 bytes
   const float* se = scale + (size_t)idx * D * ng;
-  const bool in0 = row0 < D, in1 = row0 + 1 < D;
-  const int xr0 = shared_x ? 0 : e * m;  // x's first row (and row scale) for this expert
-  for (int m0 = 0; m0 < m; m0 += Q4_MAX_M) {
-    const int mb = min(Q4_MAX_M, m - m0);
-    __syncthreads();  // every warp is done with the previous group's codes
-    const int4* src = reinterpret_cast<const int4*>(xq + (size_t)(xr0 + m0) * N);
-    for (int i = tid; i < mb * N / 16; i += GV_THREADS) reinterpret_cast<int4*>(xs)[i] = src[i];
-    __syncthreads();
-    float acc[GV_RPW][Q4_MAX_M] = {};
-    xq_gemv2_q4<Q4_MAX_M>(xs, xs + kh, N, in0 ? we + (size_t)row0 * kh : nullptr,
-                          in1 ? we + (size_t)(row0 + 1) * kh : nullptr,
-                          in0 ? se + (size_t)row0 * ng : nullptr,
-                          in1 ? se + (size_t)(row0 + 1) * ng : nullptr, 0, kh, group, npg, mb,
-                          lane, acc, hterm);
-    __syncwarp();
-    if (lane == 0) {
+  const float* xe = x + ((size_t)(GATHER && !a.shared_x ? e * a.m : 0) + a.m0) * N;
+  const int e0 = d0 + (d1 - d0) * warp / nwarps, e1 = d0 + (d1 - d0) * (warp + 1) / nwarps;
+  const int nit = a.nseg > 1 ? (e1 - e0) * a.nseg : (e1 - e0 + a.rps - 1) / a.rps;
+  const int wcap = a.nseg > 1 ? a.segb : a.rps * kh;  // a stage's packed bytes, at most
+  unsigned char* ring = smem + (size_t)warp * Q4_SLOTS * a.slot;
+  int8_t* xs = reinterpret_cast<int8_t*>(smem + (size_t)nwarps * Q4_SLOTS * a.slot);
+  float* tm = reinterpret_cast<float*>(xs + (size_t)M * N) + (size_t)warp * 2 * M * hs;
+
+  // stage `it` of this warp: its first row, the packed byte of that row it
+  // starts at, its rows and its packed bytes (contiguous in memory)
+  auto stage = [&](int it, int& r0, int& off, int& nr, int& bytes) {
+    if (a.nseg > 1) {
+      r0 = e0 + it / a.nseg;
+      off = (it % a.nseg) * a.segb;
+      nr = 1;
+      bytes = min(a.segb, kh - off);
+    } else {
+      r0 = e0 + it * a.rps;
+      off = 0;
+      nr = min(a.rps, e1 - r0);
+      bytes = nr * kh;
+    }
+  };
+  // the scale rows r0 .. r0 + nr - 1, widened to 16-byte bounds: the
+  // copy's source and bytes, and the floats before the first scale
+  auto scales = [&](int r0, int nr, const unsigned char*& src, uint32_t& bytes, int& lead) {
+    const uintptr_t a0 = reinterpret_cast<uintptr_t>(se + (size_t)r0 * ng);
+    const uintptr_t w0 = a0 & ~(uintptr_t)15;
+    const uintptr_t w1 = (a0 + (uintptr_t)nr * ng * 4 + 15) & ~(uintptr_t)15;
+    src = reinterpret_cast<const unsigned char*>(w0);
+    bytes = (uint32_t)(w1 - w0);
+    lead = (int)(a0 - w0) / 4;
+  };
+  auto load = [&](int it) {  // lane 0: the stage's two bulk copies into slot it % Q4_SLOTS
+    int r0, off, nr, bytes, lead;
+    stage(it, r0, off, nr, bytes);
+    const unsigned char* ssrc;
+    uint32_t sbytes;
+    scales(r0, nr, ssrc, sbytes, lead);
+    const int k = it % Q4_SLOTS;
+    unsigned char* dst = ring + (size_t)k * a.slot;
+    xq_mbar_expect_tx(&full[warp][k], (uint32_t)bytes + sbytes);
+    xq_bulk_g2s(dst, we + (size_t)r0 * kh + off, (uint32_t)bytes, &full[warp][k]);
+    xq_bulk_g2s(dst + wcap, ssrc, sbytes, &full[warp][k]);
+  };
+  if (lane == 0) {
+    for (int k = 0; k < Q4_SLOTS; ++k) xq_mbar_init(&full[warp][k], 1);
+    xq_mbar_fence_init();
+  }
+  auto issue = [&](int first, int last) {  // lane 0: the ring's stages [first, last)
+    if (lane == 0)
+      for (int it = first; it < min(last, nit); ++it) load(it);
+  };
+
+  // prologue: x's codes and row scales, once a block (quant_x_kernel's
+  // arithmetic: absmax, IEEE quotients rounded half to even, clipped to
+  // +-127). A load waits behind the bulk copies in flight to its SM (a ring
+  // fill is ~200 KB: several us), so x's loads go first: a single row is
+  // held in registers, each warp's first stage is issued right after its
+  // loads and the second once the codes are written; more rows are read
+  // twice and the copies wait for the codes.
+  const float4* x4 = reinterpret_cast<const float4*>(xe);
+  const bool held = M == 1 && N / 4 <= Q4_XV * nthreads;
+  float4 xv[Q4_XV];
+  if (held) {
 #pragma unroll
-      for (int r = 0; r < GV_RPW; ++r) {
-        const int d = row0 + r;
-        if (d >= D) break;
-        for (int mm = 0; mm < mb; ++mm)
-          ye[(size_t)(m0 + mm) * D + d] = __fmul_rn(
-              xq_q4_finish<Q4_MAX_M>(acc[r][mm], hterm, r, mm, npg), sx[xr0 + m0 + mm]);
+    for (int k = 0; k < Q4_XV; ++k) {
+      const int i = tid + k * nthreads;
+      xv[k] = i < N / 4 ? __ldg(x4 + i) : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    issue(0, 1);
+  }
+  auto amax4 = [](float am, const float4& v) {
+    return fmaxf(fmaxf(am, fabsf(v.x)), fmaxf(fabsf(v.y), fmaxf(fabsf(v.z), fabsf(v.w))));
+  };
+#pragma unroll
+  for (int m = 0; m < MAXM; ++m) {
+    if (m >= M) break;
+    float am = 0.f;
+    if (held) {
+#pragma unroll
+      for (int k = 0; k < Q4_XV; ++k) am = amax4(am, xv[k]);
+    } else {
+      for (int i = tid; i < N / 4; i += nthreads) am = amax4(am, __ldg(x4 + (size_t)m * (N / 4) + i));
+    }
+    am = xq_warp_max(am);
+    if (lane == 0) red[warp][m] = am;
+  }
+  __syncthreads();
+  if (tid < M) {
+    float am = 0.f;
+    for (int i = 0; i < nwarps; ++i) am = fmaxf(am, red[i][tid]);
+    sxs[tid] = xq_row_scale(am);
+    // 0 marks a row outside q4_code's range, whose elements divide
+    rxs[tid] = am >= 0x1p-60f && am <= 0x1p100f ? __fdiv_rn(1.0f, sxs[tid]) : 0.f;
+  }
+  __syncthreads();
+  auto codes = [](const float4& v, float sc, float rc) {
+    return rc != 0.f ? make_char4(q4_code(v.x, sc, rc), q4_code(v.y, sc, rc),
+                                  q4_code(v.z, sc, rc), q4_code(v.w, sc, rc))
+                     : make_char4(xq_code(v.x, sc), xq_code(v.y, sc), xq_code(v.z, sc),
+                                  xq_code(v.w, sc));
+  };
+  if (held) {
+#pragma unroll
+    for (int k = 0; k < Q4_XV; ++k) {
+      const int i = tid + k * nthreads;
+      if (i < N / 4) reinterpret_cast<char4*>(xs)[i] = codes(xv[k], sxs[0], rxs[0]);
+    }
+    issue(1, Q4_SLOTS);
+  } else {
+    for (int m = 0; m < M; ++m) {
+      char4* xc = reinterpret_cast<char4*>(xs + (size_t)m * N);
+      for (int i = tid; i < N / 4; i += nthreads)
+        xc[i] = codes(__ldg(x4 + (size_t)m * (N / 4) + i), sxs[m], rxs[m]);
+    }
+    issue(0, Q4_SLOTS);
+  }
+  __syncthreads();
+
+  // a piece's groups: 64 L bytes for the powers of two from 128 to 2048,
+  // else the 16-byte layout
+  auto piece = [&](const unsigned char* p, int rb, int off, const float* sr) {
+    switch (a.group) {
+      case 128: xq_q4_piece64<MAXM, 2>(p, rb, xs, N, kh, off, sr, npg, M, lane, tm, hs); break;
+      case 256: xq_q4_piece64<MAXM, 4>(p, rb, xs, N, kh, off, sr, npg, M, lane, tm, hs); break;
+      case 512: xq_q4_piece64<MAXM, 8>(p, rb, xs, N, kh, off, sr, npg, M, lane, tm, hs); break;
+      case 1024: xq_q4_piece64<MAXM, 16>(p, rb, xs, N, kh, off, sr, npg, M, lane, tm, hs); break;
+      case 2048: xq_q4_piece64<MAXM, 32>(p, rb, xs, N, kh, off, sr, npg, M, lane, tm, hs); break;
+      default:
+        xq_q4_piece16<MAXM>(p, rb, xs, N, kh, off, sr, npg, a.group / 128, M, lane, tm, hs);
+    }
+  };
+  for (int it = 0; it < nit; ++it) {
+    const int k = it % Q4_SLOTS;
+    int r0, off, nr, bytes, lead;
+    stage(it, r0, off, nr, bytes);
+    const unsigned char* ssrc;
+    uint32_t sbytes;
+    scales(r0, nr, ssrc, sbytes, lead);
+    xq_mbar_wait(&full[warp][k], (it / Q4_SLOTS) & 1);
+    const unsigned char* st = ring + (size_t)k * a.slot;
+    const float* sc = reinterpret_cast<const float*>(st + wcap) + lead;
+    const bool ends = a.nseg == 1 || it % a.nseg == a.nseg - 1;  // the rows end here
+    for (int r = 0; r < nr; ++r) {
+      piece(st + (size_t)r * kh, a.nseg > 1 ? bytes : kh, off, sc + (size_t)r * ng);
+      if (ends) {
+        __syncwarp();  // every lane's terms are in
+        if (lane < M)
+          ye[(size_t)lane * D + r0 + r] = __fmul_rn(xq_q4_row_sum(tm, hs, npg, M, lane), sxs[lane]);
+        __syncwarp();  // the terms are read before the next row writes them
       }
     }
-    __syncwarp();  // lane 0 is done with hterm before the next group refills it
+    __syncwarp();  // every lane has read the slot: refill it
+    if (lane == 0 && it + Q4_SLOTS < nit) load(it + Q4_SLOTS);
   }
+}
+
+template <int MAXM>
+__global__ void __launch_bounds__(Q4_MAX_WARPS * 32, 1)
+    gemv_q4_stream_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
+                          const float* __restrict__ scale, float* __restrict__ y, Q4Args a) {
+  q4_stream<MAXM, false>(x, w, scale, nullptr, y, a);
+}
+
+template <int MAXM>
+__global__ void __launch_bounds__(Q4_MAX_WARPS * 32, 1)
+    multi_q4_stream_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
+                           const float* __restrict__ scale, const int* __restrict__ idxs,
+                           float* __restrict__ y, Q4Args a) {
+  q4_stream<MAXM, true>(x, w, scale, idxs, y, a);
+}
+
+// One launch of the stream for M <= 8 rows of x (a.M), at the plan's
+// stages, on the smallest instantiation that holds M rows
+template <int MAXM>
+cudaError_t launch_q4_rows(const Q4Plan& p, const float* x, const int8_t* w, const float* scale,
+                           const int* idxs, float* y, int k, const Q4Args& a, cudaStream_t s) {
+  static bool allowed = false;  // opted in to the most dynamic shared memory
+  if (!allowed) {
+    cudaError_t e = xq_allow_smem(gemv_q4_stream_kernel<MAXM>, Q4_SMEM);
+    if (e == cudaSuccess) e = xq_allow_smem(multi_q4_stream_kernel<MAXM>, Q4_SMEM);
+    if (e != cudaSuccess) return e;
+    allowed = true;
+  }
+  const int smem = q4_smem(p.warps, a.M, a.N, a.group, p.slot);
+  if (idxs == nullptr)
+    gemv_q4_stream_kernel<MAXM><<<p.bpe, p.warps * 32, smem, s>>>(x, w, scale, y, a);
+  else
+    multi_q4_stream_kernel<MAXM><<<dim3(p.bpe, k), p.warps * 32, smem, s>>>(x, w, scale, idxs,
+                                                                             y, a);
+  return cudaGetLastError();
+}
+
+// The stream over m rows of x an expert (k experts; the GEMV: k = 1, no
+// idxs), in launches of the plan's mb rows
+cudaError_t launch_q4(const float* x, const int8_t* w, const float* scale, const int* idxs,
+                      float* y, int k, int m, int shared_x, int N, int D, int LE, int group,
+                      cudaStream_t s) {
+  Q4Plan p;
+  if (!q4_plan(m, N, D, group, k, xq_device_sms(), &p)) return cudaErrorInvalidValue;
+  Q4Args a{0, N, D, group, m, 0, shared_x, LE, p.slot, p.rps, p.nseg, p.segb};
+  for (a.m0 = 0; a.m0 < m; a.m0 += p.mb) {
+    a.M = m - a.m0 < p.mb ? m - a.m0 : p.mb;
+    const cudaError_t e =
+        a.M == 1   ? launch_q4_rows<1>(p, x, w, scale, idxs, y, k, a, s)
+        : a.M <= 4 ? launch_q4_rows<4>(p, x, w, scale, idxs, y, k, a, s)
+                   : launch_q4_rows<8>(p, x, w, scale, idxs, y, k, a, s);
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
 }
 
 // W8A8 tiles: x rows a block (two consumer warpgroups of 64), bytes of
@@ -1381,30 +1672,29 @@ cudaError_t launch_gemm_a8(const int8_t* xq, const float* sx, const int8_t* w,
 }  // namespace
 
 // Packed-q4 matmul: x (M, N) f32 with M < 256, w one layer's (D, N/2)
-// packed rows, scale its (D, N/group) f32 group scales, xq (M, N) int8 and
-// sx (M) f32 scratch for x's codes and row scales, y (M, D) f32.
+// packed rows, scale its (D, N/group) f32 group scales, y (M, D) f32. xq
+// (M, N) int8 and sx (M) f32 are scratch the kernel leaves unwritten (x's
+// codes are made in shared memory). Launches as xq_qmatmul_q4_plan says.
 XQ_EXPORT int xq_qmatmul_q4(const void* x, const void* w, const void* scale, void* xq, void* sx,
                             void* y, int M, int N, int D, int group, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  if (M < 1 || M >= 256 || D < 1 || group < 128 || group % 128 != 0 || N % (2 * group) != 0 ||
-      q4_smem(GV_MAX_M, N, group) > 200 * 1024)
-    return (int)cudaErrorInvalidValue;
-  auto* codes = (int8_t*)xq;
-  auto* rs = (float*)sx;
-  quant_x_kernel<<<M, 256, 0, s>>>((const float*)x, codes, rs, N);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  e = xq_allow_smem(gemv_q4_kernel, (int)q4_smem(GV_MAX_M, N, group));
-  if (e != cudaSuccess) return (int)e;
-  const int rows_per_block = GV_WARPS * GV_RPW;
-  for (int m0 = 0; m0 < M; m0 += GV_MAX_M) {
-    const int mb = M - m0 < GV_MAX_M ? M - m0 : GV_MAX_M;
-    gemv_q4_kernel<<<(D + rows_per_block - 1) / rows_per_block, GV_THREADS, q4_smem(mb, N, group), s>>>(
-        codes + (size_t)m0 * N, rs + m0, (const int8_t*)w, (const float*)scale,
-        (float*)y + (size_t)m0 * D, mb, N, D, group);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-  }
+  (void)xq;
+  (void)sx;
+  if (M < 1 || M >= 256) return (int)cudaErrorInvalidValue;
+  return (int)launch_q4((const float*)x, (const int8_t*)w, (const float*)scale, nullptr,
+                        (float*)y, 1, M, 1, N, D, 1, group, static_cast<cudaStream_t>(stream));
+}
+
+// The packed-q4 stream's launch on the current device for M rows of x an
+// expert by (D, N/2) packed rows of group `group`, k experts (1: the
+// GEMV): plan (8 ints) = {x's rows a launch, warps a block, blocks an
+// expert, bytes a stage, whole rows a stage, segments a row, packed bytes a
+// segment, dynamic shared memory of a launch}; cudaErrorInvalidValue for a
+// shape it refuses. ops/qmatmul.py's q4_plan is held to it on the card.
+XQ_EXPORT int xq_qmatmul_q4_plan(int M, int N, int D, int group, int k, void* plan) {
+  Q4Plan p;
+  if (!q4_plan(M, N, D, group, k, xq_device_sms(), &p)) return (int)cudaErrorInvalidValue;
+  const int v[8] = {p.mb, p.warps, p.bpe, p.slot, p.rps, p.nseg, p.segb, p.smem};
+  for (int i = 0; i < 8; ++i) static_cast<int*>(plan)[i] = v[i];
   return (int)cudaSuccess;
 }
 
@@ -1493,30 +1783,18 @@ XQ_EXPORT int xq_qmatmul_multi(const void* x, const void* w, int w_kind, const v
 
 // The gathered packed-q4 expert matmul: x (m or k*m, N) f32, w the (LE, D,
 // N/2) packed stack, scale its (LE, D, N/group) f32 group scales, idxs (k,)
-// int32 on the device, xq (m or k*m, N) int8 and sx (m or k*m) f32 scratch
-// for x's codes and row scales, y (k*m, D) f32.
+// int32 on the device, y (k*m, D) f32. xq and sx (m or k*m rows) are
+// scratch the kernel leaves unwritten. One launch for m <= 8.
 XQ_EXPORT int xq_qmatmul_multi_q4(const void* x, const void* w, const void* scale,
                                   const void* idxs, void* xq, void* sx, void* y, int k, int m,
                                   int shared_x, int N, int D, int LE, int group, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  const int mb = m < Q4_MAX_M ? m : Q4_MAX_M;
-  if (k < 1 || m < 1 || m >= MX_MAX_M || k * m > MX_MAX_KM || D < 1 || LE < 1 || group < 128 ||
-      group % 128 != 0 || N % (2 * group) != 0 || q4_smem(mb, N, group) > 200 * 1024)
+  (void)xq;
+  (void)sx;
+  if (k < 1 || m < 1 || m >= MX_MAX_M || k * m > MX_MAX_KM || LE < 1)
     return (int)cudaErrorInvalidValue;
-  auto* codes = (int8_t*)xq;
-  auto* rs = (float*)sx;
-  quant_x_kernel<<<shared_x ? m : k * m, 256, 0, s>>>((const float*)x, codes, rs, N);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const int smem = (int)q4_smem(mb, N, group);
-  e = xq_allow_smem(qmatmul_multi_q4_kernel, smem);
-  if (e != cudaSuccess) return (int)e;
-  const int rows_per_block = GV_WARPS * GV_RPW;
-  dim3 grid((D + rows_per_block - 1) / rows_per_block, k);
-  qmatmul_multi_q4_kernel<<<grid, GV_THREADS, smem, s>>>(
-      codes, rs, (const int8_t*)w, (const float*)scale, (const int*)idxs, (float*)y, m, shared_x,
-      N, D, LE, group);
-  return (int)cudaGetLastError();
+  return (int)launch_q4((const float*)x, (const int8_t*)w, (const float*)scale, (const int*)idxs,
+                        (float*)y, k, m, shared_x, N, D, LE, group,
+                        static_cast<cudaStream_t>(stream));
 }
 
 namespace {

@@ -194,8 +194,12 @@ SIGNATURES = {
         # x, w (packed), scale (LE, D, N/group), idxs, xq, sx, y, k, m, shared_x, N, D, LE,
         # group, stream
         "xq_qmatmul_multi_q4": (_I, [_P] * 7 + [_I] * 7 + [_P]),
-        # x, w (packed), scale (D, N/group), xq, sx, y, M, N, D, group, stream
+        # x, w (packed), scale (D, N/group), xq, sx, y, M, N, D, group, stream (xq and sx
+        # scratch: the q4 stream leaves them unwritten)
         "xq_qmatmul_q4": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+        # M, N, D, group, k, plan (7 int32: x's rows a launch, blocks an expert, bytes a stage,
+        # rows a stage, segments a row, bytes a segment, shared memory) of the q4 stream
+        "xq_qmatmul_q4_plan": (_I, [_I, _I, _I, _I, _I, _P]),
         # x, w, scale, qscale, xq, sx, y, M, N, D, stream
         "xq_qmatmul_a8": (_I, [_P, _P, _P, _F, _P, _P, _P, _I, _I, _I, _P]),
         # M, N, D, plan (3 int32: weight rows a block, blocks along M, along D)

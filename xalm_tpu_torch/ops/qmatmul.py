@@ -35,7 +35,9 @@ output by x's row scale last:
   tiled as ``a8_plan`` says; N a multiple of 64);
 - ``q4_group=g`` (packed q4, m < 256): per group of g codes an exact int32
   dot, times that (row, group)'s f32 scale, summed in f32 in group order,
-  then x's scale (``xq_qmatmul_q4``, a GEMV over the packed rows).
+  then x's scale (``xq_qmatmul_q4``: a stream of the packed rows through
+  each warp's ring of bulk copies, x's codes made in the kernel's
+  prologue; launched as ``q4_plan`` says).
 
 Row 8 of the TPU kernels, the same kernel through
 ``pallas_qmatmul_stacked_multi``, is ``qmatmul_multi``: the gathered top-k
@@ -45,7 +47,8 @@ int8, bf16, f32 and fp8 experts (the GEMV core is kernel 1's; the forward
 gathers no fp8 expert), and with ``q4_group=g`` packed-q4 experts
 ((L*E, D, N/2) values, (L*E, D, N/g) group scales; ``xq_qmatmul_multi_q4``):
 x quantised per row (the m shared rows once, their scales for every
-expert; else each of the k*m rows), then the q4 branch's group sums.
+expert; else each of the k*m rows), then the q4 branch's group sums (the
+same stream, each block one expert's rows).
 
 ``qmatmul`` and ``qmatmul_multi`` launch their kernels for CUDA tensors and
 run ``qmatmul_plain`` / ``qmatmul_multi_plain`` (the same functions in
@@ -53,6 +56,8 @@ plain PyTorch) for CPU tensors.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -258,6 +263,107 @@ def gemv_plan(m: int, n: int, d: int, dtype: torch.dtype,
     return min(d, sms), slot, rps, nseg
 
 
+# The packed-q4 stream (csrc/qmatmul.cu q4_plan): warps a block (16, or 8
+# where 16 rings do not fit), stages a warp, packed bytes a stage (whole KB
+# from 8 KB down to 4 KB at 16 warps, 2 KB at 8), a block's dynamic shared
+# memory, and x's rows a launch
+Q4_MAX_WARPS, Q4_SLOTS, Q4_SLOT_MAX, Q4_SLOT_WIDE, Q4_SLOT_MIN = 16, 2, 8192, 4096, 2048
+Q4_SMEM, Q4_MAX_M = GEMV_SMEM - GEMV_RESERVE, 8
+
+
+def q4_scale_cap(rows: int, ng: int) -> int:
+    """Bytes a stage keeps for its scale copy: ``rows`` scale rows of ``ng``
+    floats widened to 16-byte bounds at both ends (at most 24 bytes more)."""
+    return (rows * ng * 4 + 24 + 15) // 16 * 16
+
+
+def q4_term_stride(npg: int) -> int:
+    """Floats of a warp's row of group terms: npg rounded up to 4 with an
+    odd count of 16-byte words."""
+    return (npg + 3) // 8 * 8 + 4
+
+
+def q4_smem(warps: int, m: int, n: int, group: int, slot: int) -> int:
+    """The stream's dynamic shared memory for m rows of x: the warps' rings
+    of two stages, x's codes (m, n), and each warp's group terms (2m rows:
+    the low half's, then the high half's)."""
+    return (warps * Q4_SLOTS * slot + m * n
+            + warps * 2 * m * q4_term_stride(n // 2 // group) * 4)
+
+
+@functools.lru_cache(maxsize=None)
+def q4_plan(m: int, n: int, d: int, group: int, k: int,
+            sms: int) -> tuple[int, int, int, int, int, int, int, int] | None:
+    """The packed-q4 stream's launch for m rows of x an expert times (d,
+    n/2) packed rows of ``group``, k experts (1: the GEMV), on a card of
+    ``sms`` SMs: (x's rows a launch, warps a block, blocks an expert, bytes
+    a stage, whole rows a stage, segments a row, packed bytes a segment,
+    dynamic shared memory); None for a shape it refuses. In order of
+    preference: the most rows of x a launch up to 8 (fewer: each launch
+    streams the weights again), 16 warps (8 where 16 rings of 4 KB stages do
+    not fit beside x), and the most packed bytes a stage, in whole KB from 8
+    KB down, that fit beside x's codes and the terms: whole rows where a row
+    fits, else equal segments of whole groups. One block an SM: sms / k
+    blocks an expert, at least one and no more than a warp a row. The
+    launcher's own plan, which reads the device's SM count, is
+    ``xq_qmatmul_q4_plan``; the card's tests hold the two equal."""
+    if m < 1 or d < 1 or k < 1 or group < 128 or group % 128 or n % (2 * group):
+        return None
+    kh, ng = n // 2, n // group
+    for mb in range(min(m, Q4_MAX_M), 0, -1):
+        for warps in (Q4_MAX_WARPS, Q4_MAX_WARPS // 2):
+            low = Q4_SLOT_WIDE if warps == Q4_MAX_WARPS else Q4_SLOT_MIN
+            for sw in range(Q4_SLOT_MAX, low - 1, -1024):
+                rps, nseg, segb = 1, 1, kh
+                if kh <= sw:
+                    rps = sw // kh
+                else:
+                    nseg = -(-kh // sw)
+                    segb = -(-(-(-kh // nseg)) // group) * group  # equal, whole groups
+                    if segb > sw:
+                        segb = sw // group * group
+                        if segb == 0:
+                            continue
+                        nseg = -(-kh // segb)
+                slot = (segb if nseg > 1 else rps * kh) + q4_scale_cap(rps, ng)
+                smem = q4_smem(warps, mb, n, group, slot)
+                if smem > Q4_SMEM:
+                    continue
+                bpe = min(max(sms // k, 1), -(-d // warps))
+                return mb, warps, bpe, slot, rps, nseg, segb, smem
+    return None
+
+
+def q4_stages(plan, n: int, d: int, group: int, block: int, warp: int, *, w_addr: int = 0,
+              s_addr: int = 0) -> list[tuple[int, int, int, tuple[int, int], tuple[int, int]]]:
+    """The stages one warp of one block streams, in order, as the kernel
+    deals them: (first row, the packed byte of that row it starts at, rows,
+    (address, bytes) of the packed-bytes copy, (address, bytes) of the
+    scale copy). The block's rows are [block * d // bpe, (block + 1) * d //
+    bpe), the warp's share of them; ``w_addr`` and ``s_addr`` are the
+    expert's packed rows' and scale rows' addresses (N/g floats a scale
+    row; a stage's scale rows widened to 16-byte bounds)."""
+    _, warps, bpe, _, rps, nseg, segb, _ = plan
+    kh, ng = n // 2, n // group
+    d0, d1 = block * d // bpe, (block + 1) * d // bpe
+    e0 = d0 + (d1 - d0) * warp // warps
+    e1 = d0 + (d1 - d0) * (warp + 1) // warps
+    out = []
+    nit = (e1 - e0) * nseg if nseg > 1 else -(-(e1 - e0) // rps)
+    for it in range(nit):
+        if nseg > 1:
+            r0, off, nr = e0 + it // nseg, it % nseg * segb, 1
+            nbytes = min(segb, kh - off)
+        else:
+            r0, off = e0 + it * rps, 0
+            nr = min(rps, e1 - r0)
+            nbytes = nr * kh
+        a0 = s_addr + r0 * ng * 4
+        w0, w1 = a0 // 16 * 16, -(-(a0 + nr * ng * 4) // 16) * 16
+        out.append((r0, off, nr, (w_addr + r0 * kh + off, nbytes), (w0, w1 - w0)))
+    return out
+
+
 def _check_quant_x(values, norm_w, q4_group: int, a8: bool, m: int) -> None:
     """The TPU wrapper's rules for the branches that quantise x (``:216-222``)."""
     _need(values.dtype == torch.int8 and norm_w is None,
@@ -265,6 +371,18 @@ def _check_quant_x(values, norm_w, q4_group: int, a8: bool, m: int) -> None:
     if q4_group:
         _need(not a8, "q4 and a8 are separate branches")
         _need(m < 256, f"q4 takes decode shapes only (m={m} < 256)")
+
+
+def _q4_stream_check(x, values, m: int, n: int, d: int, group: int, k: int) -> torch.Tensor:
+    """The q4 stream's rules before a launch (ValueError for a shape
+    ``q4_plan`` refuses: the kernel raises, never the plain version): the
+    packed stack 16-byte aligned (its bulk copies' granule; every layer's
+    and expert's rows then are), and x, read as 16-byte words, copied where
+    its view is not."""
+    _need(q4_plan(m, n, d, group, k, 1) is not None,
+          f"q4 stream of {m} rows of x by ({d}, {n // 2}) packed rows, group {group}")
+    _need(values.data_ptr() % 16 == 0, "packed q4 weights must be 16-byte aligned")
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def _a8_plain(x, values, layer, scale, q8_scale) -> torch.Tensor:
@@ -423,6 +541,7 @@ def _qmatmul_quant_x(x, values, layer, scale, q8_scale, q4_group, a8, norm_w) ->
         _need(scale is not None and scale.dtype == torch.float32 and scale.shape == (l, d, ng)
               and scale.is_contiguous() and scale.is_cuda,
               "q4 needs contiguous (L, D, N/group) f32 group scales")
+        x = _q4_stream_check(x, values, m, n, d, q4_group, 1)
         err = lib.xq_qmatmul_q4(x.data_ptr(), w_ptr, scale.data_ptr() + layer * d * ng * 4,
                                 xq.data_ptr(), sx.data_ptr(), y.data_ptr(), m, n, d, q4_group,
                                 stream)
@@ -541,6 +660,7 @@ def qmatmul_multi(
         _check_multi_q4(values, scale, n, q4_group)
         _need(scale.is_cuda and scale.is_contiguous(),
               "group scales must be contiguous on the card")
+        x = _q4_stream_check(x, values, m, n, d, q4_group, k)
         rows = m if shared_x else k * m
         xq = torch.empty((rows, n), dtype=torch.int8, device=x.device)
         sx = torch.empty((rows,), dtype=torch.float32, device=x.device)
