@@ -579,17 +579,21 @@ def phase_parity_int8(cfg, cases: Cases, gen, cexp, sexp, tag: str = "") -> None
     [0, 0.02)) at the main path's shape (with ``tag``, the records are
     named ``kv_update_q<tag>`` and ``flash_decode_q<tag>``).
 
-    kv_update_q: codes and scales bit-equal to the plain version (absmax is
+    kv_update_q (the insert and sink rotation alone, Gemma-2's capped
+    path): codes and scales bit-equal to the plain version (absmax is
     order-free; scale and codes by IEEE division, rounded half to even on
     both sides), in three cases: a mid-ring insert, a wrapped insert with
     sink rotation, B = 3 with a row at the kv_pos == S sentinel.
 
-    flash_decode_q: 1e-3 of each output row's max. The plain version copies
-    the kernel's 128-row chunks, so p * v_scale is rounded to bf16 at the
-    same chunk max; the scores are f32 sums of exact products in another
-    order, and a score that moves by an f32 ulp can flip one bf16 rounding
-    of p * v_scale, by 2^-8 of a term that holds a few hundredths of its
-    row's softmax weight at most with these inputs: under 1e-3."""
+    flash_decode_q, the launch that inserts, re-rotates and attends
+    (``decode_q_cases``): the planes bit-equal to the plain composition's,
+    the output within 1e-3 of each row's max. The plain version copies the
+    kernel's 128-row chunks, so p * v_scale is rounded to bf16 at the same
+    chunk max; the scores are f32 sums of exact products in another order
+    (on the tensor cores, whose sums round toward zero), and a score that
+    moves by a few f32 ulps can flip one bf16 rounding of p *
+    v_scale, by 2^-8 of a term that holds a few hundredths of its row's
+    softmax weight at most with these inputs: under 1e-3."""
     import torch
 
     from xalm_tpu_torch.ops import attention as A
@@ -633,30 +637,48 @@ def phase_parity_int8(cfg, cases: Cases, gen, cexp, sexp, tag: str = "") -> None
                   extra_ok=scales_equal)
         del full, one, p1, p2
 
-    decode_q_cases(cfg, cases, planes(1), gen, tag)
+    decode_q_cases(cfg, cases, planes(1), gen, cexp, sexp, tag)
 
 
-def decode_q_cases(cfg, cases: Cases, full, gen, tag: str = "") -> None:
-    """Kernel 7 (``flash_decode_q``, named ``flash_decode_q<tag>``) against
-    its plain version on the int8 planes ``full`` (codes and scales) at
-    kv_len 1, 520, 777 and the window, to 1e-3 (see phase_parity_int8)."""
+def decode_q_cases(cfg, cases: Cases, full, gen, cexp, sexp, tag: str = "") -> None:
+    """Kernels 5-7 in one launch (``fused_decode_attention_q``, recorded as
+    ``flash_decode_q<tag>``) against the plain composition
+    (``fused_decode_attention_q_plain``: ``kv_update_q_plain``, then
+    ``flash_decode_q_plain``) on the int8 planes ``full`` (codes and
+    scales) at kv_len 1, 520, 777 and the window, B = 1, the new row
+    inserted at kv_len - 1 (at the window, a wrapped row at 1000 with the
+    sinks re-rotated): the code and scale planes bit-equal, the output to
+    1e-3 (see phase_parity_int8)."""
     import torch
 
     from xalm_tpu_torch.ops import attention as A
 
     dev = torch.device(DEVICE)
     L, kh, hd, h, S = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim, cfg.n_heads, cfg.max_seq_len
+    i32 = lambda *v: torch.tensor(v, dtype=torch.int32, device=dev)  # noqa: E731
     for kvl in (1, 520, 777, S):
         q = torch.randn((1, h, hd), generator=gen, device=dev)
-        kv_len = torch.tensor([kvl], dtype=torch.int32, device=dev)
-        got = A.flash_decode_q(q, *full, 7 % L, kv_len)
-        want = A.flash_decode_q_plain(q, *full, 7 % L, kv_len)
+        kn = torch.randn((1, kh, hd), generator=gen, device=dev)
+        vn = torch.randn((1, kh, hd), generator=gen, device=dev)
+        wrapped = kvl == S
+        args = (kn, vn, i32(1000 if wrapped else kvl - 1), i32(kvl), i32(int(wrapped)), cexp,
+                sexp)
+        one = [t[7 % L][None] for t in full]
+        p1, p2 = [t.clone() for t in one], [t.clone() for t in one]
+        got = A.fused_decode_attention_q(q, *p1, 0, *args)
+        want = A.fused_decode_attention_q_plain(q, *p2, 0, *args)
+        planes_equal = all(torch.equal(x, y) for x, y in zip(p1, p2))
         layers = itertools.cycle(range(L))
+        rot = 2 * kh * (hd + 4) if wrapped else 0  # the re-rotated sink keys written
+        nbytes = (2 * kvl * kh * (hd + 4) + 2 * h * hd * 4 + 2 * kh * hd * 4
+                  + 2 * kh * (hd + 4) + rot)
         cases.add("flash_decode_q" + tag, f"B=1 kv_len={kvl}", got, want, hd, 1e-3,
-                  lambda: A.flash_decode_q(q, *full, next(layers), kv_len),
-                  lambda: A.flash_decode_q_plain(q, *full, next(layers), kv_len),
-                  None, 2 * kvl * kh * (hd + 4) + 2 * h * hd * 4, 4.0 * h * kvl * hd, PEAK_F32,
-                  extra={"library_note": NO_LIBRARY_INT8})
+                  lambda: A.fused_decode_attention_q(q, *full, next(layers), *args),
+                  lambda: A.fused_decode_attention_q_plain(q, *full, next(layers), *args),
+                  None, nbytes, 4.0 * h * kvl * hd, PEAK_F32,
+                  extra={"library_note": NO_LIBRARY_INT8, "planes_equal": planes_equal},
+                  extra_ok=planes_equal)
+        del one, p1, p2
     del full
     torch.cuda.empty_cache()
 
@@ -1138,8 +1160,9 @@ def phase_main(params, cfg) -> dict:
     megakernel: one fused_decode launch per decode token, counted under
     fused_decode_f32 too with the f32 cache) and with ``fused_step=False``
     (the per-layer kernels: per token 129 qmatmul launches, and per layer
-    kv_update and flash_decode, their ``_f32`` instantiations, or
-    kv_update_q and flash_decode_q; per 512-token prefill chunk a
+    kv_update and flash_decode, their ``_f32`` instantiations, or one
+    flash_decode_q launch that inserts, re-rotates and attends (no
+    kv_update_q); per 512-token prefill chunk a
     flash_prefill or flash_prefill_f32 launch a layer, none with the int8
     cache, whose chunks take the dense attention); and with an f16 cache on
     its default path, per layer (no megakernel and no attention kernel
@@ -1165,8 +1188,10 @@ def phase_main(params, cfg) -> dict:
         if kv == torch.float32:
             mega["fused_decode_f32"] = 1
         runs.append((kv, tag, "megakernel", {}, mega, pk))
-        per = {"qmatmul": 4 * L + 1, **dict.fromkeys(attention, 0), "kv_update" + fk: L,
-               "flash_decode" + fk: L, "fused_decode": 0, "fused_decode_f32": 0}
+        # per layer: an int8 cache's insert rides in flash_decode_q's launch
+        per = {"qmatmul": 4 * L + 1, **dict.fromkeys(attention, 0),
+               "kv_update" + fk: 0 if kv == torch.int8 else L, "flash_decode" + fk: L,
+               "fused_decode": 0, "fused_decode_f32": 0}
         runs.append((kv, tag, "perlayer", dict(fused_step=False), per, pk))
     runs.append((torch.float16, "f16 ", "perlayer", {},
                  {"qmatmul": 4 * L + 1, **dict.fromkeys(attention, 0), "fused_decode": 0}, None))
@@ -1301,8 +1326,7 @@ def phase_long_prompt(params, cfg) -> dict:
 
 
 # kernel-name fragments of the port's CUDA kernels, by wrapper (no fragment
-# names a part of another kernel's name; the chunk combine kernel is the
-# int8 flash-decode's second launch)
+# names a part of another kernel's name)
 _PROFILE_GROUPS = {
     "qmatmul": ("gemv_stream_kernel", "gemv_kernel", "gemm_bf16w_kernel", "prep_x_kernel",
                 "gemm_tf32x3_kernel", "prep_x_tf32_kernel"),
@@ -1316,7 +1340,7 @@ _PROFILE_GROUPS = {
     "flash_prefill": ("flash_prefill_kernel", "flash_prefill_tf32x3_kernel"),
     "fused_decode": ("fused_decode_kernel",),
     "kv_update_q": ("kv_update_q_kernel",),
-    "flash_decode_q": ("flash_decode_q_split_kernel", "flash_decode_combine_kernel"),
+    "flash_decode_q": ("flash_decode_q_cluster_kernel",),
 }
 
 
@@ -1330,7 +1354,7 @@ _PROFILE_GROUPS = {
 _WITNESSES = {
     "fused_decode_kernel": ("fused_decode", "fused_decode_a8", "fused_decode_q4"),
     "flash_decode_cluster_kernel": ("flash_decode", "flash_decode_f32"),
-    "flash_decode_q_split_kernel": ("flash_decode_q",),
+    "flash_decode_q_cluster_kernel": ("flash_decode_q",),
     "flash_prefill_kernel": ("flash_prefill",),
     "flash_prefill_tf32x3_kernel": ("flash_prefill_f32",),
     "kv_update_kernel": ("kv_update", "kv_update_f32"),
@@ -2290,7 +2314,7 @@ FAMILIES = (
     ("Qwen2.5-7B", "QWEN2_5_7B", True, 128, ("megakernel", "perlayer", "int8 perlayer")),
     ("Qwen3-8B", "QWEN3_8B", False, 512, ("megakernel", "perlayer")),
     ("Llama-3.1-8B", "LLAMA3_1_8B", False, 0, ("megakernel",)),
-    ("Gemma-2-9B", "GEMMA2_9B", False, 128, ("megakernel", "perlayer")),
+    ("Gemma-2-9B", "GEMMA2_9B", False, 128, ("megakernel", "perlayer", "int8 perlayer")),
     ("Gemma-7B", "GEMMA_7B", False, 0, ("megakernel", "perlayer", "int8 perlayer")),
     ("Phi-3-mini-4k", "PHI3_MINI_4K", False, 0, ("perlayer", "int8 perlayer")),
 )
@@ -2305,12 +2329,15 @@ GEMMA_F32_LABEL = " (Gemma-7B, hd 256, the Gemma folds)"
 # _shape_tag) -> (the model whose phase-4 runs count their launches and
 # whose shapes phase_parity_shape measures, the wrappers its main path
 # launches). Gemma-2-9B's attention softcap keeps kernels 3, 4 and 7 off its
-# main path: they are checked at its shapes but have no row.
+# main path: they are checked at its shapes but have no row. Without the cap
+# an int8 cache's insert rides in flash_decode_q's launch, so kv_update_q
+# runs on Gemma-2's main path alone (OFF_MAIN_PATH).
 ATTENTION_KERNELS = ("kv_update", "flash_decode", "flash_prefill", "kv_update_q", "flash_decode_q")
+_UNCAPPED = tuple(k for k in ATTENTION_KERNELS if k != "kv_update_q")
 SHAPE_ROWS = {"_g7": ("Qwen2.5-7B", ("flash_decode", "flash_prefill", "flash_decode_q")),
-              "_hd256g2": ("Gemma-2-9B", ("kv_update",)),
-              "_hd256": ("Gemma-7B", ATTENTION_KERNELS),
-              "_hd96": ("Phi-3-mini-4k", ATTENTION_KERNELS)}
+              "_hd256g2": ("Gemma-2-9B", ("kv_update", "kv_update_q")),
+              "_hd256": ("Gemma-7B", _UNCAPPED),
+              "_hd96": ("Phi-3-mini-4k", _UNCAPPED)}
 
 
 def _shape_tag(cfg) -> str:
@@ -2364,7 +2391,7 @@ def phase_parity_shape(cfg, cases: Cases, tag: str) -> None:
     planes = [torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
               for _ in range(2)]
     planes += [torch.rand(shape[:-1], generator=gen, device=dev) * 0.02 for _ in range(2)]
-    decode_q_cases(cfg, cases, planes, gen, tag)
+    decode_q_cases(cfg, cases, planes, gen, cexp, sexp, tag)
 
 
 def phase_main_family(params, cfg, name: str, runs, bias: bool) -> dict:
@@ -2372,11 +2399,12 @@ def phase_main_family(params, cfg, name: str, runs, bias: bool) -> dict:
     and 64 greedy tokens): on the megakernel (per decode token one
     fused_decode launch, which counts under the model's fold too, and the
     bf16 head on qmatmul) and per layer (4L + 1 qmatmul, and per layer
-    kv_update and flash_decode, or with an int8 cache kv_update_q and
-    flash_decode_q; a bf16-cache prefill chunk runs flash_prefill per
-    layer). With Gemma-2's attention softcap the per-layer attention and the
-    prefill chunk take the dense attention (no flash_decode, flash_decode_q
-    or flash_prefill launch), after the ring inserts. A head_dim the
+    kv_update and flash_decode, or with an int8 cache one flash_decode_q
+    launch that inserts, re-rotates and attends; a bf16-cache prefill chunk
+    runs flash_prefill per layer). With Gemma-2's attention softcap the
+    per-layer attention and the prefill chunk take the dense attention (no
+    flash_decode, flash_decode_q or flash_prefill launch), after the ring
+    inserts (kv_update, or kv_update_q with an int8 cache). A head_dim the
     megakernel does not take (Phi-3's 96) decodes per layer on the default
     engine. Returns the runs' launches, summed."""
     import numpy as np
@@ -2403,7 +2431,8 @@ def phase_main_family(params, cfg, name: str, runs, bias: bool) -> dict:
         else:
             # the default engine where the gate sends the model per layer
             kw = {} if cfg.head_dim not in fd.HEAD_DIMS else dict(fused_step=False)
-            want = {"qmatmul": 4 * L + 1, per_layer[0]: L, per_layer[1]: 0 if cap else L,
+            inserts = L if cap or kv != torch.int8 else 0  # int8: in flash_decode_q's launch
+            want = {"qmatmul": 4 * L + 1, per_layer[0]: inserts, per_layer[1]: 0 if cap else L,
                     "fused_decode": 0, **dict.fromkeys(folds, 0)}
         eng = Engine(cfg, params, kv_dtype=kv, **kw)
         if eng.decode_path(1) != path:
@@ -3160,9 +3189,18 @@ OFF_MAIN_PATH = {k: "fp8 weights take the plain product on every path (the JAX _
 # and the ring insert at Gemma-2-9B's (group 2; its only attention kernel)
 SUMMARY.update({k + tag: SUMMARY[k] for tag in ("_hd256", "_hd96") for k in ATTENTION_KERNELS})
 SUMMARY["kv_update_hd256g2"] = SUMMARY["kv_update"]
+SUMMARY["kv_update_q_hd256g2"] = SUMMARY["kv_update_q"]
+# the int8 ring insert at the shapes of models without the attention cap:
+# checked in phase 3, launched by no main path
+OFF_MAIN_PATH.update(dict.fromkeys(
+    ("kv_update_q_hd256", "kv_update_q_hd96"),
+    "without Gemma-2's attention cap the int8 per-layer step inserts in flash_decode_q's launch "
+    "(kernels 5-7 in one); kv_update_q runs on Gemma-2-9B's capped path (kv_update_q_hd256g2)"))
 # further rows of the kernels line: another TPU kernel a launch replaces,
 # and the megakernel's int8-KV branch (the fused_decode launches count both)
-ALSO_REPLACES = {"kv_update_q": "xalm_tpu/ops/pallas_attention.py:141"}
+ALSO_REPLACES = {"kv_update_q": "xalm_tpu/ops/pallas_attention.py:141",
+                 "flash_decode_q": "xalm_tpu/ops/pallas_attention.py:104 and :141 (kernels 5-6, "
+                                   "in the same launch: fused_decode_attention_q)"}
 INT8_CASE = dict.fromkeys(("fused_decode", "fused_decode_bias", "fused_decode_qk_norm",
                            "fused_decode_gemma", "fused_decode_gemma2"),
                           "int8 KV, B=1 kv_len=520, embed fold")
@@ -3420,9 +3458,15 @@ KERNEL_MS_FRAGS = ("gemm_bf16w_kernel", "gemm_kernel", "prep_x_kernel", "gemm_a8
                    "flash_decode_cluster_kernel", "flash_decode_split_kernel",
                    "flash_decode_combine_kernel", "gemv_stream_kernel", "gemv_kernel",
                    "gemv_q4_kernel", "qmatmul_multi_kernel", "qmatmul_multi_q4_kernel",
-                   "gemv_q4_stream_kernel", "multi_q4_stream_kernel")
+                   "gemv_q4_stream_kernel", "multi_q4_stream_kernel",
+                   "flash_decode_q_cluster_kernel", "flash_decode_q_split_kernel",
+                   "kv_update_q_kernel")
 KERNEL_MS_DECODE_FRAGS = ("flash_decode_cluster_kernel", "flash_decode_split_kernel",
                           "flash_decode_combine_kernel")
+# kernel 7 with kernels 5-6: this tree's one launch, and the three of the
+# trees before it
+KERNEL_MS_DECODE_Q_FRAGS = ("flash_decode_q_cluster_kernel", "kv_update_q_kernel",
+                            "flash_decode_q_split_kernel", "flash_decode_combine_kernel")
 KERNEL_MS_GEMV_FRAGS = ("gemv_stream_kernel", "gemv_kernel")
 # the tiled GEMM of int8 and bf16 weights: this tree's, the one it replaced
 # (gemm_kernel, which other checkouts may hold), and x's preparation in both
@@ -3560,7 +3604,9 @@ def kernel_ms(other_root: str | None) -> None:
     with f32 weights), its tiled GEMM of int8 and bf16 weights
     (``_gemm_turns``), kernel 4 over a bf16 and an f32 cache
     (``xq_flash_prefill``), kernel 3 over both caches (``xq_flash_decode``,
-    kv_len KERNEL_MS_DECODE_KV: ``_decode_turns``) and kernel 1's M = 1
+    kv_len KERNEL_MS_DECODE_KV: ``_decode_turns``), kernel 7 with kernels
+    5-6 over an int8 cache (a decode step's insert and attention, the same
+    kv_len: ``_decode_q_turns``) and kernel 1's M = 1
     GEMV (``_gemv_turns``) of this checkout and, with ``--root``, of the
     other one, through their C entry points (their signatures are the same
     in both), each case timed in turns with one PyTorch call of the same
@@ -3681,6 +3727,7 @@ def kernel_ms(other_root: str | None) -> None:
 
     pf_rows = {"bf16": [], "f32": []}
     dec_rows = {"bf16": [], "f32": []}
+    dec_q_rows = []
     t = 512
     for label, preset in KERNEL_MS_PREFILL:
         cfg = getattr(configs, preset)
@@ -3747,6 +3794,8 @@ def kernel_ms(other_root: str | None) -> None:
                     _decode_turns(trees, libs, label, cfg, ck, cv, L, gen, held, kvl))
             del ck, cv
             torch.cuda.empty_cache()
+        for kvl in KERNEL_MS_DECODE_KV:  # kernel 7 with kernels 5-6 over int8 planes
+            dec_q_rows.append(_decode_q_turns(trees, libs, label, cfg, gen, held, kvl))
     gemv_rows = _gemv_turns(trees, libs, gen, held)
     gemm_rows = _gemm_turns(trees, libs, gen, held)
     core_rows = _core_turns(trees, gen, held)
@@ -3755,7 +3804,8 @@ def kernel_ms(other_root: str | None) -> None:
           "qmatmul_a8": a8_rows,
           "qmatmul_f32": f32_rows, "flash_prefill": pf_rows["bf16"],
           "flash_prefill_f32": pf_rows["f32"], "flash_decode": dec_rows["bf16"],
-          "flash_decode_f32": dec_rows["f32"], "qmatmul_gemv": gemv_rows,
+          "flash_decode_f32": dec_rows["f32"], "flash_decode_q": dec_q_rows,
+          "qmatmul_gemv": gemv_rows,
           "gemv_cores": core_rows})
 
 
@@ -3800,8 +3850,11 @@ def _decode_turns(trees, libs, label, cfg, ck, cv, L, gen, held, kvl: int) -> di
     f32 = int(ck.dtype == torch.float32)
     q = torch.randn((1, h, hd), generator=gen, device=dev)
     kv_len = torch.tensor([kvl], dtype=torch.int32, device=dev)
-    work = {tag: torch.empty((libs[tag]["attention"].xq_flash_decode_workspace(1, h, s, hd),),
-                             device=dev) for tag in trees}
+    # older trees take a work argument (their two-launch int8
+    # flash-decode's workspace, which kernel 3 never read): a null pointer
+    # there
+    work = {tag: ((None,) if "xq_flash_decode_workspace" in trees[tag].SIGNATURES["attention"]
+                  else ()) for tag in trees}
     outs = {tag: torch.empty((1, h * hd), device=dev) for tag in trees}
     layer = {tag: itertools.cycle(range(L)) for tag in trees}
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -3810,7 +3863,7 @@ def _decode_turns(trees, libs, label, cfg, ck, cv, L, gen, held, kvl: int) -> di
         i = next(layer[tag]) if i is None else i
         err = libs[tag]["attention"].xq_flash_decode(
             q.data_ptr(), A._layer_ptr(ck, i), A._layer_ptr(cv, i), kv_len.data_ptr(),
-            work[tag].data_ptr(), outs[tag].data_ptr(), 1, h, kh, s, hd,
+            *work[tag], outs[tag].data_ptr(), 1, h, kh, s, hd,
             ctypes.c_float(1.0 / math.sqrt(hd)), f32, stream)
         build.check(err, f"{tag} xq_flash_decode")
     want = A.flash_decode_plain(q, ck, cv, 1, kv_len)
@@ -3834,6 +3887,90 @@ def _decode_turns(trees, libs, label, cfg, ck, cv, L, gen, held, kvl: int) -> di
     row.update(_in_turns({tag: (lambda tag=tag: call(tag)) for tag in trees},
                          KERNEL_MS_DECODE_FRAGS, lib))
     held("flash_decode_f32" if f32 else "flash_decode", row, rel["this"] <= 1e-5)
+    return row
+
+
+def _decode_q_turns(trees, libs, label, cfg, gen, held, kvl: int) -> dict:
+    """Kernel 7 with kernels 5-6 at kv_len ``kvl``, B = 1, over random int8
+    planes (codes and scales) cycling ``_cold_layers`` layers: a decode
+    step's insert of the new K and V rows at kv_len - 1 and its attention,
+    in this tree one launch (``xq_flash_decode_q`` with the new rows), in
+    older trees (those with ``xq_flash_decode_workspace``) ``xq_kv_update_q``
+    and then ``xq_flash_decode_q``
+    (its split and combine kernels, with its workspace), each tree through
+    its own library, timed in turns by ``_in_turns`` (no library call:
+    NO_LIBRARY_INT8). Each tree's step on copies of one layer is held to
+    the plain composition (``fused_decode_attention_q_plain``): the planes
+    bit-equal and the output within 1e-3 of each row's max (a miss in this
+    tree raises). Bound: the code and scale rows up to kv_len, q, the new
+    rows and the output once each, and the inserted row written."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    from xalm_tpu_torch.ops import attention as A
+    from xalm_tpu_torch.ops import build
+
+    dev = torch.device(DEVICE)
+    kh, h, hd, s = cfg.n_kv_heads, cfg.n_heads, cfg.head_dim, cfg.max_seq_len
+    L = _cold_layers(2 * kvl * kh * (hd + 4))
+    shape = (L, 1, kh, s, hd)
+    planes = [torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+              for _ in range(2)]
+    planes += [torch.rand(shape[:-1], generator=gen, device=dev) * 0.02 for _ in range(2)]
+    q = torch.randn((1, h, hd), generator=gen, device=dev)
+    kn = torch.randn((1, kh, hd), generator=gen, device=dev)
+    vn = torch.randn((1, kh, hd), generator=gen, device=dev)
+    i32 = lambda v: torch.tensor([v], dtype=torch.int32, device=dev)  # noqa: E731
+    kv_pos, kv_len, rot = i32(kvl - 1), i32(kvl), i32(0)
+    freqs = (1e4 ** (-np.arange(0, hd, 2) / hd)).astype(np.float32)
+    cexp, sexp = (torch.from_numpy(a).to(dev) for a in A.rope_cos_sin_plus1(freqs))
+    outs = {tag: torch.empty((1, h * hd), device=dev) for tag in trees}
+    layer = {tag: itertools.cycle(range(L)) for tag in trees}
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    sm = ctypes.c_float(1.0 / math.sqrt(hd))
+    fused = {tag: "xq_flash_decode_workspace" not in trees[tag].SIGNATURES["attention"]
+             for tag in trees}
+    work = {tag: torch.empty((libs[tag]["attention"].xq_flash_decode_workspace(1, h, s, hd),),
+                             device=dev) for tag in trees if not fused[tag]}
+
+    def call(tag, ps, i=None):
+        i = next(layer[tag]) if i is None else i
+        lib = libs[tag]["attention"]
+        ptr = [A._layer_ptr(t, i) for t in ps]
+        rows = (kn.data_ptr(), vn.data_ptr(), kv_pos.data_ptr(), rot.data_ptr(),
+                cexp.data_ptr(), sexp.data_ptr())
+        if fused[tag]:
+            err = lib.xq_flash_decode_q(q.data_ptr(), *ptr, *rows, kv_len.data_ptr(),
+                                        outs[tag].data_ptr(), 1, h, kh, s, hd, sm, stream)
+        else:
+            err = lib.xq_kv_update_q(*ptr, *rows, 1, kh, s, hd, stream)
+            build.check(err, f"{tag} xq_kv_update_q")
+            err = lib.xq_flash_decode_q(q.data_ptr(), *ptr, kv_len.data_ptr(),
+                                        work[tag].data_ptr(), outs[tag].data_ptr(), 1, h, kh, s,
+                                        hd, sm, stream)
+        build.check(err, f"{tag} xq_flash_decode_q")
+    one = [t[1:2] for t in planes]
+    ref = [t.clone() for t in one]
+    want = A.fused_decode_attention_q_plain(q, *ref, 0, kn, vn, kv_pos, kv_len, rot, cexp, sexp)
+    rel, equal = {}, {}
+    for tag in trees:
+        got = [t.clone() for t in one]
+        call(tag, got, 0)
+        torch.cuda.synchronize()
+        rel[tag] = _row_rel(outs[tag], want, hd)
+        equal[tag] = all(torch.equal(x, y) for x, y in zip(got, ref))
+    b_ms, b_by = bound(2 * kvl * kh * (hd + 4) + 2 * h * hd * 4 + 2 * kh * hd * 4
+                       + 2 * kh * (hd + 4), 4.0 * h * kvl * hd, PEAK_F32)
+    row = {"case": f"{label} G={h // kh} hd={hd} kv_len={kvl} int8, insert at {kvl - 1}",
+           "layers": L, "max_row_rel_err": rel, "planes_bit_equal": equal, "bound_ms": b_ms,
+           "bound_by": b_by, "library_ms": None, "library_note": NO_LIBRARY_INT8}
+    row.update(_in_turns({tag: (lambda tag=tag: call(tag, planes)) for tag in trees},
+                         KERNEL_MS_DECODE_Q_FRAGS))
+    held("flash_decode_q", row, rel["this"] <= 1e-3 and equal["this"])
+    del planes
+    torch.cuda.empty_cache()
     return row
 
 
@@ -4243,6 +4380,8 @@ def main(argv=None) -> int:
     for tag, (model, wrappers) in SHAPE_ROWS.items():
         for w in wrappers:
             launches[w + tag] = fam_launches[model][w]
+    for k in OFF_MAIN_PATH:
+        launches.setdefault(k, 0)
     missing = [k for k, n in launches.items() if n == 0 and k not in OFF_MAIN_PATH]
     if missing:
         raise AssertionError(f"kernels never launched on the main paths: {missing}")

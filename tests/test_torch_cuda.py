@@ -30,7 +30,8 @@ order-free, and the scale and codes are computed by IEEE division and
 rounded half to even on both sides); flash_decode_q within 1e-3 of each
 row's max (the plain version copies the kernel's 128-row chunks, so p *
 v_scale is rounded to bf16 at the same chunk max, but a score that moves by
-an f32 ulp can flip one such rounding, by 2^-8 of a term that holds a few
+a few f32 ulps, its exact products summed in another order on the tensor
+cores, can flip one such rounding, by 2^-8 of a term that holds a few
 hundredths of its row's weight at most here); the megakernel's int8 branch
 within 2e-2 as above, and 95 % of the codes within one count.
 
@@ -242,7 +243,8 @@ def test_engine_int8_kernels_match_plain_through_wraps(dev):
     """The int8 cache on both decode paths, kernels against plain versions,
     teacher-forced through three wraps of a 64-slot window: each step's
     logits within 2e-2 of their max; every decode step launches the
-    megakernel, or kv_update_q and flash_decode_q once per layer."""
+    megakernel, or once per layer the launch that inserts, re-rotates the
+    sinks and attends (counted under flash_decode_q; no kv_update_q)."""
     from xalm_tpu_torch.runtime.engine import Engine
     from xalm_tpu_torch.utils.synthetic import synthetic_params
 
@@ -265,8 +267,9 @@ def test_engine_int8_kernels_match_plain_through_wraps(dev):
             pos += 1
         if path == "megakernel":
             assert build.LAUNCHES["fused_decode"] == 3 * 64
-        else:
-            assert build.LAUNCHES["kv_update_q"] == build.LAUNCHES["flash_decode_q"] == 3 * 64 * 2
+        else:  # one launch a layer inserts, re-rotates and attends
+            assert build.LAUNCHES["flash_decode_q"] == 3 * 64 * 2
+            assert build.LAUNCHES["kv_update_q"] == 0
         assert build.LAUNCHES["kv_update"] == build.LAUNCHES["flash_decode"] == 0
 
 
@@ -921,8 +924,9 @@ def test_attention_kernels_at_group_match_plain(dev, g, hd):
     """Kernels 2-4 (bf16 cache) and 5-7 (int8 cache) at a GQA group that is
     not a power of two (Qwen2.5-7B has 7, Qwen2.5-14B 5; the flash-prefill
     tile holds 64 / g whole positions) and at head_dim 96 and 256; the
-    tolerances of the tests above: the ring inserts bit-equal, flash_decode
-    1e-5, flash_prefill 2^-8, flash_decode_q 1e-3 of each row's max."""
+    tolerances of the tests above: the ring inserts bit-equal (and the int8
+    one in the fused launch), flash_decode 1e-5, flash_prefill 2^-8,
+    flash_decode_q 1e-3 of each row's max."""
     gen = torch.Generator(device=dev).manual_seed(g if hd == 128 else hd + g)
     l, b, kh, s = 2, 2, 2, 544
     h = kh * g
@@ -956,9 +960,16 @@ def test_attention_kernels_at_group_match_plain(dev, g, hd):
     for kvl in ((0, 5), (129, 544), (520, 300)):
         got = A.flash_decode_q(q, *p1, 1, i32(*kvl))
         assert _row_rel(got, A.flash_decode_q_plain(q, *p1, 1, i32(*kvl)), hd) < 1e-3, kvl
+    # the same update and attention in one launch
+    p1, p2 = [t.clone() for t in planes], [t.clone() for t in planes]
+    fused = (kn, vn, i32(77, s + 3), i32(130, 544), i32(0, 1), c, sn)
+    got = A.fused_decode_attention_q(q, *p1, 1, *fused)
+    want = A.fused_decode_attention_q_plain(q, *p2, 1, *fused)
+    assert all(torch.equal(x, y) for x, y in zip(p1, p2))
+    assert _row_rel(got, want, hd) < 1e-3
     assert build.LAUNCHES["kv_update"] == build.LAUNCHES["kv_update_q"] == 1
     assert build.LAUNCHES["flash_decode"] == 3 and build.LAUNCHES["flash_prefill"] == 3
-    assert build.LAUNCHES["flash_decode_q"] == 3
+    assert build.LAUNCHES["flash_decode_q"] == 4
 
 
 FOLD_CASES = [("bias", "bf16", "bf16", 1), ("bias", "bf16", "int8", 3), ("qk_norm", "bf16", "bf16", 3),
@@ -1319,7 +1330,9 @@ def test_engine_gemma_families_on_the_card(dev, fam):
         else:
             quant = "kv_dtype" in kw
             upd, dec = ("kv_update_q", "flash_decode_q") if quant else ("kv_update", "flash_decode")
-            assert build.LAUNCHES[upd] == 7 * cfg.n_layers, (kw, build.LAUNCHES)
+            # the int8 cache: one launch inserts and attends, kv_update_q only under the cap
+            ins = 0 if quant and not cap else 7 * cfg.n_layers
+            assert build.LAUNCHES[upd] == ins, (kw, build.LAUNCHES)
             assert build.LAUNCHES[dec] == (0 if cap else 7 * cfg.n_layers), (kw, build.LAUNCHES)
             assert build.LAUNCHES["fused_decode"] == 0
         if "kv_dtype" not in kw:
@@ -2017,6 +2030,122 @@ def test_flash_decode_replays_in_a_cuda_graph(dev, f32):
         want = A.flash_decode(q, ck, cv, 1, kv_len)
         assert torch.equal(out, want), kvl
         assert _row_rel(out, A.flash_decode_plain(q, ck, cv, 1, kv_len), hd) < 1e-5, kvl
+
+
+# --------------------- kernel 7 with kernels 5-6: one cluster launch over the int8 cache
+
+# chip_smoke.py phase_parity_int8's three cases, each (kv_pos, kv_len, rotate)
+# a row: a mid-ring insert, a wrapped insert with sink rotation, B = 3 with
+# a row at the kv_pos == S sentinel and a rotating one
+FUSED_Q_S = 2080  # a multiple of 32 that 128 does not divide: a short last chunk
+FUSED_Q_CASES = (((519,), (520,), (0,)), ((1000,), (FUSED_Q_S,), (1,)),
+                 ((300, FUSED_Q_S, 2000), (301, 777, FUSED_Q_S), (0, 0, 1)))
+FUSED_Q_SHAPES = [(g, hd) for hd in (128, 96, 256) for g in range(1, 9)]
+
+
+@pytest.mark.parametrize("g,hd", FUSED_Q_SHAPES, ids=[f"hd{hd}-g{g}" for g, hd in FUSED_Q_SHAPES])
+def test_fused_decode_attention_q_matches_plain(dev, g, hd):
+    """Kernels 5-7 in one launch (``fused_decode_attention_q``) against the
+    plain composition (``kv_update_q_plain``, then ``flash_decode_q_plain``)
+    on phase_parity_int8's three cases and at kv_len 0: the code and scale
+    planes bit-equal (absmax is order-free, scale and codes by IEEE
+    division), the output within 1e-3 of each row's max (the reason in the
+    module's docstring), kv_len 0 giving 0; ``flash_decode_q`` (the same
+    launch, no update) leaves the planes as they are. Two grids: KH 2 (P =
+    16 on an H100, most blocks without a chunk at kv_len 520) and KH 12."""
+    gen = torch.Generator(device=dev).manual_seed(31 * g + hd)
+    l, s = 2, FUSED_Q_S
+    freqs = (1e4 ** (-np.arange(0, hd, 2) / hd)).astype(np.float32)
+    c, sn = (torch.from_numpy(a).to(dev) for a in A.rope_cos_sin_plus1(freqs))
+    i32 = lambda *v: torch.tensor(v, dtype=torch.int32, device=dev)  # noqa: E731
+    build.reset_launches()
+    calls = 0
+    for kh in (2, 12):
+        for kv_pos, kv_len, rot in FUSED_Q_CASES + (((5,), (0,), (1,)),):
+            b = len(kv_pos)
+            planes = _int8_planes(dev, gen, l, b, kh, s, hd)
+            p1, p2 = [t.clone() for t in planes], [t.clone() for t in planes]
+            q = torch.randn((b, kh * g, hd), device=dev, generator=gen)
+            kn = torch.randn((b, kh, hd), device=dev, generator=gen)
+            vn = torch.randn((b, kh, hd), device=dev, generator=gen)
+            args = (kn, vn, i32(*kv_pos), i32(*kv_len), i32(*rot), c, sn)
+            got = A.fused_decode_attention_q(q, *p1, 1, *args)
+            want = A.fused_decode_attention_q_plain(q, *p2, 1, *args)
+            calls += 1
+            assert all(torch.equal(x, y) for x, y in zip(p1, p2)), (kh, kv_pos)
+            assert got.shape == (b, kh * g * hd) and torch.isfinite(got).all()
+            assert _row_rel(got, want, hd) < 1e-3, (kh, kv_pos)
+            for i, n in enumerate(kv_len):
+                if n == 0:
+                    assert not got[i].any()
+            again = A.flash_decode_q(q, *p1, 1, i32(*kv_len))
+            calls += 1
+            assert all(torch.equal(x, y) for x, y in zip(p1, p2))
+            assert _row_rel(again, want, hd) < 1e-3
+    assert build.LAUNCHES["flash_decode_q"] == calls
+    assert build.LAUNCHES["kv_update_q"] == 0
+
+
+def test_fused_decode_attention_q_replays_in_a_cuda_graph(dev):
+    """One fused int8 step captured in a CUDA graph and replayed, q, the
+    new rows, kv_pos, kv_len and rotate rewritten in place before each
+    replay (the kernel reads them on the card): each replay equals an eager
+    launch on the same inputs and planes, bit for bit, planes and output
+    (Mistral-7B's shapes, 4096-row window)."""
+    gen = torch.Generator(device=dev).manual_seed(17)
+    l, b, kh, s, hd, g = 2, 2, 8, 4096, 128, 4
+    h = kh * g
+    planes = _int8_planes(dev, gen, l, b, kh, s, hd)
+    freqs = (1e4 ** (-np.arange(0, hd, 2) / hd)).astype(np.float32)
+    c, sn = (torch.from_numpy(a).to(dev) for a in A.rope_cos_sin_plus1(freqs))
+    i32 = lambda *v: torch.tensor(v, dtype=torch.int32, device=dev)  # noqa: E731
+    q = torch.randn((b, h, hd), device=dev, generator=gen)
+    kn = torch.randn((b, kh, hd), device=dev, generator=gen)
+    vn = torch.randn((b, kh, hd), device=dev, generator=gen)
+    kv_pos, kv_len, rot = i32(776, 1000), i32(777, 4064), i32(0, 1)
+    args = (kn, vn, kv_pos, kv_len, rot, c, sn)
+    A.fused_decode_attention_q(q, *planes, 1, *args)  # the launcher's set-up, outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = A.fused_decode_attention_q(q, *planes, 1, *args)
+    for pos, kvl, r in (((776, 1000), (777, 4064), (0, 1)), ((0, s), (1, 0), (0, 0)),
+                        ((4000, 2), (4096, 3), (1, 0))):
+        for t in (q, kn, vn):
+            t.copy_(torch.randn(t.shape, device=dev, generator=gen))
+        for t, v in ((kv_pos, pos), (kv_len, kvl), (rot, r)):
+            t.copy_(i32(*v))
+        eager = [t.clone() for t in planes]
+        graph.replay()
+        torch.cuda.synchronize()
+        want = A.fused_decode_attention_q(q, *eager, 1, *args)
+        assert torch.equal(out, want), pos
+        assert all(torch.equal(x, y) for x, y in zip(planes, eager)), pos
+
+
+@pytest.mark.parametrize("family", PLAN_FAMILIES)
+def test_decode_q_plan_matches_the_launcher(dev, family):
+    """``ops.attention.decode_q_plan`` (at the device's SM count), which
+    tests/test_torch_decode_q_split.py checks on the CPU, equal to what
+    ``xq_flash_decode_q_plan`` reports (the launcher also asks the card
+    that one cluster of that size fits) at B 1, 2, 4 and 8 and windows of
+    256 and 4096 rows; both refuse a group outside 1..8 and a window that
+    is not a multiple of 4."""
+    import ctypes
+
+    from xalm_tpu_torch.models import config as C
+
+    cfg = getattr(C, family)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    alib = build.load_library("attention")
+    h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    for b in (1, 2, 4, 8):
+        for s in (256, 4096):
+            got = (ctypes.c_int * 3)()
+            assert alib.xq_flash_decode_q_plan(b, h, kh, s, hd, got) == 0, (b, s)
+            assert tuple(got) == A.decode_q_plan(b, kh, h // kh, hd, s, sms), (b, s)
+    assert alib.xq_flash_decode_q_plan(1, 9, 1, 4096, 128, (ctypes.c_int * 3)()) != 0
+    assert alib.xq_flash_decode_q_plan(1, h, kh, 4098, hd, (ctypes.c_int * 3)()) != 0
 
 
 def _gemv_cases() -> list:

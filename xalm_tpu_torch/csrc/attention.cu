@@ -14,9 +14,13 @@
 //    the sentinel), then, for wrapped rows, rotates the KV_SINKS sink keys
 //    by one position with the interleaved-pair rope: out = v*cexp +
 //    swap(v)*sexp, swap[2j] = -v[2j+1], swap[2j+1] = v[2j], each product
-//    and the sum rounded separately as in the plain version. Bound: bytes, and at a few KB per layer it is launch
-//    latency; it stays a separate launch before attention on the same stream
-//    because fusing it into attention would race on the row being written.
+//    and the sum rounded separately as in the plain version. Bound: bytes,
+//    and at a few KB per layer it is launch latency. It stays a separate
+//    launch before kernel 2's attention on the same stream: folded into
+//    attention as it is, its writes would race with the blocks that read
+//    those rows. The int8 cache's fold (item 4) avoids the race by handing
+//    each row to exactly one block, which both writes and reads it; kernel
+//    2's fold into kernel 3 that way is ROADMAP §2's alternative.
 //
 // 2. xq_flash_decode replaces _attn_kernel. The TPU grid walks the
 //    sequence in order carrying a running max and sum; blocks on the card
@@ -55,31 +59,67 @@
 //    kv_len 777); at such sizes the launch, one dependent trip to memory
 //    and the cluster's barrier, which the design takes once each.
 //
-// 3. xq_kv_update_q replaces _insert_q_kernel and _sink_q_kernel in one
-//    launch, over an int8 cache with per-row f32 scale planes (L, B, KH, S).
-//    Grid (B, KH), one thread per head dim (96, 128 or 256: any multiple of
-//    32 up to 1024). Quantises the new K and V
-//    rows (absmax by warp shuffles and a 4-warp shared-memory reduce; the
-//    scale and codes by IEEE division, common.cuh) and writes codes and
-//    scales at kv_pos (dropped at kv_pos >= S); then, for wrapped rows,
-//    dequantises the KV_SINKS sink keys with their stored scales, rotates
-//    them by one position (each product and the sum rounded as the plain
-//    version's separate f32 operations) and requantises them. Bit-equal to
-//    the plain version: absmax is order-free. Bound: launch latency, as 1.
+// 3. xq_kv_update_q replaces _insert_q_kernel and _sink_q_kernel as a
+//    launch of their own, over an int8 cache with per-row f32 scale planes
+//    (L, B, KH, S), for the one path that attends densely after them
+//    (Gemma-2's attention cap); every other int8 decode step inserts in
+//    item 4's launch. Grid (B, KH), one thread per head dim (96, 128 or
+//    256: any multiple of 32 up to 1024). Quantises the new K and V rows
+//    (absmax by warp shuffles and a 4-warp shared-memory reduce; the scale
+//    and codes by IEEE division, common.cuh) and writes codes and scales at
+//    kv_pos (dropped at kv_pos >= S); then, for wrapped rows, dequantises
+//    the KV_SINKS sink keys with their stored scales, rotates them by one
+//    position (each product and the sum rounded as the plain version's
+//    separate f32 operations) and requantises them. Bit-equal to the plain
+//    version: absmax is order-free. Bound: launch latency, as 1.
 //
-// 4. xq_flash_decode_q replaces _attn_q_kernel: a block per (batch, kv
-//    head, 128-row chunk) over int8 codes (the chunks past kv_len exit at
-//    once), the row scales factored out of both dots as in the TPU kernel,
-//    and a second small kernel (flash_decode_combine_kernel) that combines
-//    the chunks' (max, sum, acc) partials from the workspace. Phase 1:
-//    one thread per key row, q cast to bf16 in shared memory, 16 codes per
-//    16-byte load, score = (q . codes) * (k_scale * 1/sqrt(hd)). Phase 2:
-//    the chunk max, p = exp(score - max), the sum of p, and bf16(p *
-//    v_scale) kept for phase 3, which sums it times the V codes (4 codes
-//    per lane, a warp per row). Bound: bytes (the code rows and their
-//    scales up to kv_len, half the bytes of the bf16 cache). G in 1..8 and
-//    HD in {96, 128, 256}, as in
-//    2 (a lane holds 4 V codes, or 8 at HD 256).
+// 4. xq_flash_decode_q replaces _attn_q_kernel and, given the new rows,
+//    _insert_q_kernel and _sink_q_kernel too: the whole of the TPU's
+//    fused_decode_attention_q in one launch, flash_decode_q_cluster_kernel,
+//    on kernel 3's skeleton. Grid (P, B x KH) in clusters of the P blocks of
+//    one (batch, kv head), P kernel 3's count capped at the window's
+//    128-row chunks (fq_splits). The unit of work is the plain version's
+//    128-row chunk: each block reads kv_len[b] (the host never does) and
+//    takes the whole chunks [floor(p C / P), floor((p + 1) C / P)) of the C
+//    live ones. The block whose chunks hold kv_pos (the last chunk's block
+//    for a row past them, block 0 when none is live) quantises the new K and
+//    V rows into the cache, and the block of chunk 0 re-rotates the sinks,
+//    with kv_update_q_kernel's arithmetic by its producer warp (a row a
+//    warp: lane l holds dims l + 32 k, a pair's partner one lane over):
+//    the block that writes a row is the only block that reads it, so
+//    nothing races. The writes go just before the copy of the first plane
+//    that holds one of the rows, behind a fence.proxy.async.global (the
+//    generic stores, then the bulk copy's read of the same bytes), so the
+//    insert in the block's last chunk overlaps the copies of its first
+//    ones. The producer warp brings each chunk's K plane by TMA (boxes of
+//    128 rows x 128 bytes, 128-byte swizzled: hd 96 reads zeros past its
+//    row, hd 256 takes two boxes) and then its V plane by one 1-D bulk copy,
+//    each with its 128 row scales (a bulk copy; a short chunk's in whole
+//    4-row groups of 16 bytes, the rows past kv_len masked), into a ring of
+//    4 slots (3 at HD 256: 99 KB, two blocks an SM) under full and empty
+//    mbarriers. Eight consumer warps take 16 rows of each chunk. They score
+//    on the tensor cores, mma.sync m16n8k16 in bf16: the codes widened
+//    exactly (byte permutes, then bf16 pairs) as A, q rounded to bf16 as B
+//    (heads past G zero), so every product is the plain version's exact
+//    one, summed in f32 (the tensor cores' sums round toward zero, a few
+//    ulps of a score; the output stays within 1e-3 of each row's max of the
+//    plain version, chip_smoke.py phase 3); the swizzle keeps the fragment reads
+//    off shared memory's bank conflicts. Then times k_scale / sqrt(hd); the
+//    chunk's max of each head meets in shared memory (one named barrier a
+//    chunk); p = exp(score - chunk max) and bf16(p * v_scale) as the plain
+//    version rounds them, that times beta = exp(chunk max - running max),
+//    the old terms times alpha = exp(old max - running max), and P.V over
+//    the V codes (f32 FMAs, a lane's VPL dims of a row). All
+//    warps share the running max, so their partials add; the cluster
+//    combines the P blocks' partials at their common max (fc_combine, as
+//    kernel 3). No workspace and no counters: a CUDA graph replays the
+//    launch; kv_len == 0 gives 0. Bound: bytes (the code rows and their
+//    scales up to kv_len, half the bytes of the bf16 cache); at a few MB the
+//    launch, one dependent trip to memory, the cluster's barrier and the
+//    per-chunk chain of the consumer warps (a chunk of a block at a time)
+//    set the time. The host encodes the tensor map of the layer's K codes
+//    each call. G in 1..8 and HD in {96, 128, 256}, as in 2 (a lane of P.V
+//    holds 4 codes of a row, or 8 at HD 256).
 //
 // 5. xq_flash_prefill replaces _prefill_kernel (FlashAttention-3's shape,
 //    in its simple form; the Hopper pieces are hopper.cuh's). One block per
@@ -166,8 +206,6 @@ __global__ void kv_update_kernel(CT* __restrict__ ck, CT* __restrict__ cv,
         xq_to_cache<CT>(__fadd_rn(__fmul_rn(v[r], c), __fmul_rn(sw[r], s)));
 }
 
-constexpr int FD_THREADS = 128;
-constexpr int FD_CHUNK = 128;  // key rows per block: one per thread in phase 1
 constexpr int FD_MAX_G = 8;    // GQA groups 1..8, one instantiation each
 
 // launch(std::integral_constant<int, G>{}) for the GQA group g, so that G is
@@ -203,8 +241,8 @@ cudaError_t for_head_dim(int hd, Launch launch) {
   }
 }
 
-// the flash-decodes' lanes: a lane holds VPL consecutive dims of a row (K
-// and V in kernel 3, V in phase 3 of kernel 7), the first HD / VPL lanes of
+// the flash-decodes' lanes: a lane holds VPL consecutive dims of a row (of
+// q, K and V in kernels 3 and 7), the first HD / VPL lanes of
 // each warp (HD 96: 24 lanes of 4)
 template <int HD>
 __host__ __device__ constexpr int fd_vpl() { return HD == 256 ? 8 : 4; }
@@ -235,18 +273,17 @@ __device__ __forceinline__ void load_cache(const CT* p, float* out) {
   }
 }
 
+// VPL consecutive int8 codes as f32 (one 4- or 8-byte load; shared memory),
+// widened by byte permutes (xq_i8x4_to_f32: an int-to-float conversion a
+// code would set the pace of kernel 7's P.V)
 template <int VPL>
 __device__ __forceinline__ void load_s8(const signed char* p, float* out) {
   if constexpr (VPL == 8) {
-    const int2 raw = __ldg(reinterpret_cast<const int2*>(p));
-    const signed char* v = reinterpret_cast<const signed char*>(&raw);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) out[e] = (float)v[e];
+    const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    xq_i8x4_to_f32(raw.x, out);
+    xq_i8x4_to_f32(raw.y, out + 4);
   } else {
-    const int raw = __ldg(reinterpret_cast<const int*>(p));
-    const signed char* v = reinterpret_cast<const signed char*>(&raw);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) out[e] = (float)v[e];
+    xq_i8x4_to_f32(*reinterpret_cast<const uint32_t*>(p), out);
   }
 }
 
@@ -322,6 +359,66 @@ __device__ __forceinline__ float xq_warp_sum_scatter(float (&v)[V], int lane) {
   return s;
 }
 
+// The cluster's combine of kernels 3 and 7, once each block's partial is in
+// its shared memory: each head's max pm[g] and sum pl[g], and acc(i), the
+// un-normalised sum of output i < G x HD. Each block pushes acc(i) to the
+// block that normalises output i (block i / per takes outputs [i0, i0 +
+// per)) and pm, pl to every block, through distributed shared memory (stores
+// only: nothing waits on a peer's reply); after one cluster.sync() each
+// block weighs the P partials of its slice at the heads' common max (16
+// lanes a head, the ranks past P idle) and writes out[i0 + j] (out: the
+// (batch, kv head)'s G x HD outputs), 0 where the sum is 0 (kv_len 0). gm,
+// gs and ga take the pushed partials, wt (FC_MAX_SPLITS x G floats) the
+// ranks' weights, pl the heads' totals: all this block's shared memory.
+template <int G, int HD, int NT, typename Acc>
+__device__ __forceinline__ void fc_combine(const float* pm, float* pl, Acc acc, float (*gm)[G],
+                                           float (*gs)[G], float* ga, float* wt,
+                                           float* __restrict__ out) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int P = gridDim.x, p = blockIdx.x, tid = threadIdx.x, warp = tid >> 5;
+  const int per = (G * HD + P - 1) / P;
+  xq_cluster_wait();  // every peer has started
+  for (int i = tid; i < G * HD; i += NT)
+    *cluster.map_shared_rank(&ga[p * per + i % per], i / per) = acc(i);
+  for (int t = tid; t < P * G; t += NT) {
+    *cluster.map_shared_rank(&gm[p][t % G], t / G) = pm[t % G];
+    *cluster.map_shared_rank(&gs[p][t % G], t / G) = pl[t % G];
+  }
+  cluster.sync();  // every block's partial of this block's slice is here
+
+  const int i0 = p * per, cnt = max(0, min(per, G * HD - i0));
+  if (warp < (FC_MAX_SPLITS * G + 31) / 32) {
+    const int g = tid / FC_MAX_SPLITS, r = tid % FC_MAX_SPLITS;
+    const float m = g < G && r < P ? gm[r][g] : -INFINITY;
+    float mx = m;
+#pragma unroll
+    for (int o = FC_MAX_SPLITS / 2; o >= 1; o /= 2)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    const float f = m == -INFINITY ? 0.f : expf(m - mx);
+    float l = m == -INFINITY ? 0.f : f * gs[r][g];
+#pragma unroll
+    for (int o = FC_MAX_SPLITS / 2; o >= 1; o /= 2) l += __shfl_xor_sync(0xffffffffu, l, o);
+    if (g < G) {
+      wt[r * G + g] = f;
+      if (r == 0) pl[g] = l;  // the block's own sum is no longer read: the slice's total
+    }
+  }
+  __syncthreads();
+  for (int j = tid; j < cnt; j += NT) {
+    const int g = (i0 + j) / HD;
+    float a0 = 0.f, a1 = 0.f;  // two chains, added at the end
+    int r = 0;
+    for (; r + 1 < P; r += 2) {
+      a0 += wt[r * G + g] * ga[r * per + j];
+      a1 += wt[(r + 1) * G + g] * ga[(r + 1) * per + j];
+    }
+    if (r < P) a0 += wt[r * G + g] * ga[r * per + j];
+    const float l = pl[g];
+    out[i0 + j] = l > 0.f ? (a0 + a1) / l : 0.f;  // kv_len 0 -> 0
+  }
+}
+
 // Grid (P, B * KH), clusters of the P blocks of one (batch, kv head); block
 // p attends over rows [floor(p n / P), floor((p + 1) n / P)), n = kv_len[b]
 // read here (the host never reads it), and the cluster combines the P
@@ -330,7 +427,6 @@ template <int G, int HD, typename CT>
 __global__ void __launch_bounds__(FC_THREADS) flash_decode_cluster_kernel(
     const float* __restrict__ q, const CT* __restrict__ ck, const CT* __restrict__ cv,
     const int* __restrict__ kv_len, float* __restrict__ out, int KH, int S, float sm_scale) {
-  namespace cg = cooperative_groups;
   constexpr int VPL = fd_vpl<HD>(), NL = HD / VPL;
   constexpr int GP = fc_gp(G), NR = fc_nr<G, HD, CT>(), V = NR * GP;
   constexpr int LOG_V = V >= 32 ? 5 : V >= 16 ? 4 : V >= 8 ? 3 : V >= 4 ? 2 : V >= 2 ? 1 : 0;
@@ -349,7 +445,6 @@ __global__ void __launch_bounds__(FC_THREADS) flash_decode_cluster_kernel(
   // the un-normalised P.V of the slice, rank by rank
   __shared__ float gm[FC_MAX_SPLITS][G], gs[FC_MAX_SPLITS][G];
   __shared__ float ga[G * HD + FC_MAX_SPLITS];
-  cg::cluster_group cluster = cg::this_cluster();
   const int P = gridDim.x, p = blockIdx.x;
   const int b = blockIdx.y / KH, h = blockIdx.y % KH, H = KH * G;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -519,80 +614,15 @@ __global__ void __launch_bounds__(FC_THREADS) flash_decode_cluster_kernel(
     }
   }
   __syncthreads();
-  // pushed to the block that normalises each output (block i / per takes
-  // outputs [i0, i0 + per)), through distributed shared memory: stores only,
-  // nothing waits on a peer's reply
-  const int per = (G * HD + P - 1) / P;
-  xq_cluster_wait();  // every peer has started
-  for (int i = tid; i < G * HD; i += NT) {
-    float a = 0.f;
+  fc_combine<G, HD, NT>(
+      pm, pl,
+      [&](int i) {
+        float a = 0.f;
 #pragma unroll
-    for (int w = 0; w < W; ++w) a += fac[w][i / HD] * wacc[w * G * HD + i];
-    *cluster.map_shared_rank(&ga[p * per + i % per], i / per) = a;
-  }
-  for (int t = tid; t < P * G; t += NT) {
-    *cluster.map_shared_rank(&gm[p][t % G], t / G) = pm[t % G];
-    *cluster.map_shared_rank(&gs[p][t % G], t / G) = pl[t % G];
-  }
-  cluster.sync();  // every block's partial of this block's slice is here
-
-  // this block's slice: each rank's weight at the heads' common max (16
-  // lanes a head, the ranks past P idle), then the weighted sums of the P
-  // partials
-  const int i0 = p * per, cnt = max(0, min(per, G * HD - i0));
-  float* wt = wacc;  // [FC_MAX_SPLITS][G], the drained ring
-  if (warp < (FC_MAX_SPLITS * G + 31) / 32) {
-    const int g = tid / FC_MAX_SPLITS, r = tid % FC_MAX_SPLITS;
-    const float m = g < G && r < P ? gm[r][g] : -INFINITY;
-    float mx = m;
-#pragma unroll
-    for (int o = FC_MAX_SPLITS / 2; o >= 1; o /= 2)
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-    const float f = m == -INFINITY ? 0.f : expf(m - mx);
-    float l = m == -INFINITY ? 0.f : f * gs[r][g];
-#pragma unroll
-    for (int o = FC_MAX_SPLITS / 2; o >= 1; o /= 2) l += __shfl_xor_sync(0xffffffffu, l, o);
-    if (g < G) {
-      wt[r * G + g] = f;
-      if (r == 0) pl[g] = l;  // the block's own sum is no longer read: the slice's total
-    }
-  }
-  __syncthreads();
-  for (int j = tid; j < cnt; j += NT) {
-    const int g = (i0 + j) / HD;
-    float a0 = 0.f, a1 = 0.f;  // two chains, added at the end
-    int r = 0;
-    for (; r + 1 < P; r += 2) {
-      a0 += wt[r * G + g] * ga[r * per + j];
-      a1 += wt[(r + 1) * G + g] * ga[(r + 1) * per + j];
-    }
-    if (r < P) a0 += wt[r * G + g] * ga[r * per + j];
-    const float l = pl[g];
-    out[((size_t)b * H + (size_t)h * G) * HD + i0 + j] =
-        l > 0.f ? (a0 + a1) / l : 0.f;  // kv_len 0 -> 0
-  }
-}
-
-// one block of hd threads per (batch, head): the int8 flash-decode's chunk
-// partials combined
-__global__ void __launch_bounds__(1024) flash_decode_combine_kernel(
-    const float* __restrict__ pm, const float* __restrict__ pl, const float* __restrict__ pacc,
-    float* __restrict__ out, int NS) {
-  const size_t bh = blockIdx.x;
-  const int t = threadIdx.x, hd = blockDim.x;
-  float mx = -INFINITY;
-  for (int s = 0; s < NS; ++s) mx = fmaxf(mx, pm[bh * NS + s]);
-  float l = 0.f, a = 0.f;
-  if (mx != -INFINITY) {
-    for (int s = 0; s < NS; ++s) {
-      const float m = pm[bh * NS + s];
-      if (m == -INFINITY) continue;
-      const float w = expf(m - mx);
-      l += w * pl[bh * NS + s];
-      a += w * pacc[(bh * NS + s) * hd + t];
-    }
-  }
-  out[bh * hd + t] = l > 0.f ? a / l : 0.f;  // kv_len == 0 -> 0
+        for (int w = 0; w < W; ++w) a += fac[w][i / HD] * wacc[w * G * HD + i];
+        return a;
+      },
+      gm, gs, ga, wacc, out + ((size_t)b * H + (size_t)h * G) * HD);
 }
 
 // max of |v| over the block (blockDim.x a multiple of 32, <= 1024), the
@@ -652,132 +682,375 @@ __global__ void kv_update_q_kernel(signed char* __restrict__ ck, signed char* __
   }
 }
 
-template <int G, int HD>
-__global__ void __launch_bounds__(FD_THREADS) flash_decode_q_split_kernel(
-    const float* __restrict__ q, const signed char* __restrict__ ck,
-    const signed char* __restrict__ cv, const float* __restrict__ ks,
-    const float* __restrict__ vs, const int* __restrict__ kv_len, float* __restrict__ pm,
-    float* __restrict__ pl, float* __restrict__ pacc, int KH, int S, float sm_scale) {
-  constexpr int VPL = fd_vpl<HD>(), NL = HD / VPL;
-  __shared__ __align__(16) float qs[G][HD];
-  __shared__ float sc[G][FD_CHUNK];
-  __shared__ float red[FD_THREADS / 32][G][HD];
-  __shared__ float mrow[G], lrow[G];
-  const int H = KH * G;
-  const int b = blockIdx.x / KH, h = blockIdx.x % KH;
-  const int split = blockIdx.y, NS = gridDim.y;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int r0 = split * FD_CHUNK;
-  const int n = min(FD_CHUNK, kv_len[b] - r0);  // rows of this chunk (<= 0: none)
-  const size_t part0 = ((size_t)b * H + (size_t)h * G) * NS + split;  // head gi at + gi*NS
+// ---- kernel 7 with kernels 5-6: one launch a call, an int8 cache's chunks
+// split over a cluster (see the note, item 4)
 
-  if (n <= 0) {
+constexpr int FQ_CHUNK = 128;  // key rows a chunk, the softmax's unit (ops/attention.py _DECODE_KEYS)
+constexpr int FQ_WARPS = 8;    // consumer warps, FQ_WROWS rows of each chunk apiece
+constexpr int FQ_WROWS = FQ_CHUNK / FQ_WARPS;
+constexpr int FQ_THREADS = (FQ_WARPS + 1) * 32;  // and a producer warp
+
+// The ring: a slot holds one plane of a chunk, its K codes (a TMA box a
+// 128-byte panel of the rows, 128-byte swizzled: hd 96 pads each row to 128
+// with zeros) or its V codes (one bulk copy, rows of HD bytes as they lie),
+// with the plane's 128 row scales in a scale slot beside; 4 slots (two
+// chunks) at HD 96 and 128, 3 at HD 256 (99 KB), so that two blocks fit an
+// SM
+template <int HD>
+__host__ __device__ constexpr int fq_slots() { return HD == 256 ? 3 : 4; }
+template <int HD>
+__host__ __device__ constexpr int fq_panels() { return (HD + 127) / 128; }
+template <int HD>
+__host__ __device__ constexpr int fq_slot_bytes() { return FQ_CHUNK * 128 * fq_panels<HD>(); }
+
+// Dynamic shared memory: the code slots (whose bytes take the warps'
+// accumulators, FQ_WARPS x G x HD f32, once drained), the scale slots, and
+// the slack to align the slots to 1024 bytes (the swizzle's period)
+template <int G, int HD>
+__host__ __device__ constexpr int fq_smem() {
+  static_assert(FQ_WARPS * G * HD * 4 <= fq_slots<HD>() * fq_slot_bytes<HD>(),
+                "the accumulators fit in the drained ring");
+  return fq_slots<HD>() * (fq_slot_bytes<HD>() + FQ_CHUNK * 4) + 1024;
+}
+
+// Two blocks an SM wherever a lane's accumulators (G VPL floats) leave room
+// for it in the 96 registers a thread that two blocks of nine warps allow
+// (five warps on one of the SM's four register files): 8 clusters of 16
+// (Mistral-7B's 8 kv heads at B = 1) need two
+template <int G, int HD>
+__host__ __device__ constexpr int fq_min_blocks() { return G * fd_vpl<HD>() <= 32 ? 2 : 1; }
+
+// D (16 x 8, f32) += A (16 x 16, bf16) * B (16 x 8, bf16), one warp, in
+// registers: lane l holds a = A(l/4, 2 (l%4) .. +1), A(l/4 + 8, ..),
+// A(l/4, 2 (l%4) + 8 .. +9), A(l/4 + 8, ..); b = B(2 (l%4) .. +1, l/4),
+// B(2 (l%4) + 8 .. +9, l/4); d = D(l/4, 2 (l%4) .. +1), D(l/4 + 8, ..)
+__device__ __forceinline__ void fq_mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                            uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// element g of a register array, g known only at run time (a select chain:
+// the array stays in registers)
+template <int N>
+__device__ __forceinline__ float fq_pick(const float (&a)[N], int g) {
+  float v = 0.f;
 #pragma unroll
-    for (int gi = 0; gi < G; ++gi) {
-      const size_t pi = part0 + (size_t)gi * NS;
-      for (int d = tid; d < HD; d += FD_THREADS) pacc[pi * HD + d] = 0.f;
-      if (tid == 0) {
-        pm[pi] = -INFINITY;
-        pl[pi] = 0.f;
-      }
-    }
-    return;
+  for (int i = 0; i < N; ++i) v = i == g ? a[i] : v;
+  return v;
+}
+
+// kv_update_q_kernel's insert by one warp: the HD-value f32 row src (lane l
+// holds dims l + 32 k) quantised into codes at dst and its scale at *scale
+// (absmax is order-free; scale and codes by IEEE division: bit-equal)
+template <int HD>
+__device__ __forceinline__ void fq_insert_row(signed char* dst, float* scale,
+                                              const float* __restrict__ src, int lane) {
+  float v[HD / 32], m = 0.f;
+#pragma unroll
+  for (int k = 0; k < HD / 32; ++k) {
+    v[k] = src[lane + 32 * k];
+    m = fmaxf(m, fabsf(v[k]));
   }
-  const size_t srow = ((size_t)b * KH + h) * S + r0;  // scale index of the chunk's row 0
-  const size_t stripe = srow * HD;
-  for (int i = tid; i < G * HD; i += FD_THREADS)
-    qs[i / HD][i % HD] =
-        __bfloat162float(__float2bfloat16_rn(q[((size_t)b * H + (size_t)h * G) * HD + i]));
+  const float sc = xq_row_scale(xq_warp_max(m));
+#pragma unroll
+  for (int k = 0; k < HD / 32; ++k) dst[lane + 32 * k] = xq_code(v[k], sc);
+  if (lane == 0) *scale = sc;
+}
+
+// kv_update_q_kernel's sink rotation by one warp: the code row at row with
+// its scale dequantised, rotated by one position (dim d's partner d ^ 1 is
+// lane l ^ 1's; each product and the sum rounded as the plain version's
+// separate f32 operations) and requantised in place
+template <int HD>
+__device__ __forceinline__ void fq_rotate_row(signed char* row, float* scale,
+                                              const float* __restrict__ cexp,
+                                              const float* __restrict__ sexp, int lane) {
+  const float sc = *scale;
+  float rot[HD / 32], m = 0.f;
+#pragma unroll
+  for (int k = 0; k < HD / 32; ++k) {
+    const int d = lane + 32 * k;
+    const float v = __fmul_rn((float)row[d], sc);
+    const float pv = __shfl_xor_sync(0xffffffffu, v, 1);
+    rot[k] = __fadd_rn(__fmul_rn(v, cexp[d]), __fmul_rn((d & 1) ? pv : -pv, sexp[d]));
+    m = fmaxf(m, fabsf(rot[k]));
+  }
+  const float nsc = xq_row_scale(xq_warp_max(m));
+  __syncwarp();  // every lane has read the row and its scale
+#pragma unroll
+  for (int k = 0; k < HD / 32; ++k) row[lane + 32 * k] = xq_code(rot[k], nsc);
+  if (lane == 0) *scale = nsc;
+}
+
+// Grid (P, B * KH), clusters of the P blocks of one (batch, kv head); block
+// p takes the whole 128-row chunks [floor(p C / P), floor((p + 1) C / P)),
+// C = ceil(n / 128), n = kv_len[b] clamped to [0, S] and read here (the
+// host never reads it). With knew set, the block whose chunks hold kv_pos
+// (the last chunk's block past them, block 0 when n = 0) first inserts the
+// quantised K and V rows there, and the block of chunk 0 re-rotates the
+// sinks where rotate[b] is set: the block that writes a row is the only one
+// that reads it. The cluster combines the P partials (fc_combine).
+template <int G, int HD>
+__global__ void __launch_bounds__(FQ_THREADS, (fq_min_blocks<G, HD>()))
+    flash_decode_q_cluster_kernel(const __grid_constant__ CUtensorMap tk,
+                                  const float* __restrict__ q, signed char* ck, signed char* cv,
+                                  float* ks, float* vs, const float* __restrict__ knew,
+                                  const float* __restrict__ vnew, const int* __restrict__ kv_pos,
+                                  const int* __restrict__ rotate, const float* __restrict__ cexp,
+                                  const float* __restrict__ sexp, const int* __restrict__ kv_len,
+                                  float* __restrict__ out, int KH, int S, float sm_scale) {
+  constexpr int VPL = fd_vpl<HD>(), NL = HD / VPL, GP = fc_gp(G);
+  constexpr int NS = fq_slots<HD>(), SLOT = fq_slot_bytes<HD>(), KP = fq_panels<HD>();
+  constexpr int W = FQ_WARPS, NT = FQ_THREADS;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* slots = xq_align1024(smem_raw);  // [NS][SLOT] codes
+  float* scales = reinterpret_cast<float*>(slots + NS * SLOT);  // [NS][FQ_CHUNK]
+  float* wacc = reinterpret_cast<float*>(slots);                // [W][G][HD], the ring drained
+  __shared__ uint64_t full[NS], empty[NS];
+  __shared__ float wmx[2][W][GP];          // each warp's max of each head over its rows, by chunk parity
+  __shared__ float pb[W][FQ_WROWS * GP];  // a warp's beta bf16(p v_scale), row r head g at r GP + g
+  __shared__ float wl[W][G];
+  __shared__ float pm[G], pl[G];  // the block's partial: max, sum of p
+  // the P blocks' partials of this block's slice of the G x HD outputs
+  // (fc_combine): max and sum of each head, and the slice's P.V, rank by rank
+  __shared__ float gm[FC_MAX_SPLITS][G], gs[FC_MAX_SPLITS][G];
+  __shared__ float ga[G * HD + FC_MAX_SPLITS];
+  const int P = gridDim.x, p = blockIdx.x;
+  const int b = blockIdx.y / KH, h = blockIdx.y % KH, H = KH * G;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n = min(max(kv_len[b], 0), S);
+  const int C = (n + FQ_CHUNK - 1) / FQ_CHUNK;
+  const int c0 = (int)((long long)p * C / P), nch = (int)((long long)(p + 1) * C / P) - c0;
+  const size_t row0 = ((size_t)b * KH + h) * S;  // the stripe's row 0 in the scale planes
+
+  if (tid == 0) {
+    for (int s = 0; s < NS; ++s) {
+      xq_mbar_init(&full[s], 1);
+      xq_mbar_init(&empty[s], W);
+    }
+    xq_mbar_fence_init();
+  }
+  xq_cluster_arrive_relaxed();  // this block has started: peers may write its shared memory
   __syncthreads();
 
-  // phase 1: thread r scores key row r for the G heads: bf16 q times the
-  // codes (exact products, f32 sums), then times k_scale / sqrt(hd)
-  if (tid < n) {
-    const int4* krow = reinterpret_cast<const int4*>(ck + stripe + (size_t)tid * HD);
-    float s[G];
+  if (warp == W) {
+    // the producer warp: the copies of the block's chunks, each chunk's K
+    // plane (TMA) and then its V plane (a bulk copy), and the rows this
+    // block writes (kernels 5-6) just before the copy of the first plane
+    // that holds one
+    bool ins = false, rot = false;
+    int first = 0;  // the plane before whose copy the writes go
+    const int kvp = knew != nullptr ? kv_pos[b] : -1;
+    if (knew != nullptr) {
+      // the block whose chunk range holds row r (the last chunk's past them;
+      // block 0 when no row is live)
+      const auto chunk = [&](int r) { return min(r / FQ_CHUNK, C - 1); };
+      const auto owns = [&](int r) { return C == 0 ? p == 0 : c0 <= chunk(r) && chunk(r) < c0 + nch; };
+      ins = kvp >= 0 && kvp < S && owns(kvp);
+      rot = rotate[b] != 0 && owns(0);
+      first = rot || C == 0 ? 0 : 2 * (chunk(kvp) - c0);
+    }
+    for (int j = 0; j <= 2 * nch; ++j) {
+      if ((ins || rot) && j == first) {
+        const size_t src = ((size_t)b * KH + h) * HD;
+        if (ins) {
+          fq_insert_row<HD>(ck + (row0 + kvp) * HD, ks + row0 + kvp, knew + src, lane);
+          fq_insert_row<HD>(cv + (row0 + kvp) * HD, vs + row0 + kvp, vnew + src, lane);
+          __syncwarp();  // the inserted row, before the sinks are read
+        }
+        if (rot) {
 #pragma unroll
-    for (int gi = 0; gi < G; ++gi) s[gi] = 0.f;
+          for (int r = 0; r < KV_SINKS; ++r)
+            fq_rotate_row<HD>(ck + (row0 + r) * HD, ks + row0 + r, cexp, sexp, lane);
+        }
+        xq_fence_proxy_async_global();  // this lane's stores, before the copies read them
+        __syncwarp();
+      }
+      if (j == 2 * nch || lane != 0) continue;
+      const int s = j % NS;
+      if (j >= NS) xq_mbar_wait(&empty[s], (j / NS - 1) & 1);
+      const int r0 = (c0 + j / 2) * FQ_CHUNK, nc = min(FQ_CHUNK, n - r0);
+      // the scales of whole 4-row groups (a copy is 16-byte granular): S is
+      // a multiple of 4, so they lie in the plane; rows past n are masked
+      const uint32_t sb = (uint32_t)((nc + 3) & ~3) * 4;
+      unsigned char* dst = slots + (size_t)s * SLOT;
+      if (j & 1) {  // V: the live rows as they lie
+        const uint32_t cb = (uint32_t)nc * HD;
+        xq_mbar_expect_tx(&full[s], cb + sb);
+        xq_bulk_g2s(dst, cv + (row0 + r0) * HD, cb, &full[s]);
+      } else {  // K: KP boxes of 128 rows x 128 bytes (past S, or past HD, zeros)
+        xq_mbar_expect_tx(&full[s], SLOT + sb);
+        for (int k = 0; k < KP; ++k)
+          xq_tma_3d(dst + k * FQ_CHUNK * 128, &tk, 128 * k, r0, b * KH + h, &full[s]);
+      }
+      xq_bulk_g2s(scales + s * FQ_CHUNK, ((j & 1) ? vs : ks) + row0 + r0, sb, &full[s]);
+    }
+  } else {
+    // scores on the tensor cores: D (16 rows x 8 heads) = the warp's 16 K
+    // rows of a chunk (A, the codes widened exactly to bf16) times q (B,
+    // rounded to bf16, heads past G zero), mma m16n8k16 a 16-dim step. Lane
+    // (r, c) = (lane / 4, lane % 4) takes dims 16 t + 4 c .. + 3 of step t
+    // as its A columns 2 c, 2 c + 1, 2 c + 8, 2 c + 9 and, for head r, the
+    // same dims of q as its B rows; it ends with rows r and r + 8, heads
+    // 2 c and 2 c + 1.
+    const int r = lane >> 2, c = lane & 3;
+    const int h0 = 2 * c, h1 = 2 * c + 1;
+    uint32_t qb[HD / 16][2];
 #pragma unroll
-    for (int c = 0; c < HD / 16; ++c) {  // every load of the row in flight
-      const int4 raw = __ldg(krow + c);
-      const signed char* kp = reinterpret_cast<const signed char*>(&raw);
-      float kf[16];
+    for (int t = 0; t < HD / 16; ++t) {
+      const float4 v = r < G ? *reinterpret_cast<const float4*>(
+                                   q + ((size_t)b * H + (size_t)h * G + r) * HD + 16 * t + 4 * c)
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+      qb[t][0] = xq_bf16x2(v.x, v.y);
+      qb[t][1] = xq_bf16x2(v.z, v.w);
+    }
+    float mrun[G];      // each head's running max over the block's chunks (every lane the same)
+    float l_run[2] = {0.f, 0.f};  // heads h0, h1: the sum of p over rows r and r + 8, at mrun
+    float acc[G][VPL];  // P.V: the lane's VPL dims of each head
 #pragma unroll
-      for (int e = 0; e < 16; ++e) kf[e] = (float)kp[e];
+    for (int g = 0; g < G; ++g) {
+      mrun[g] = -INFINITY;
 #pragma unroll
-      for (int gi = 0; gi < G; ++gi) {
+      for (int e = 0; e < VPL; ++e) acc[g][e] = 0.f;
+    }
+    const int rw = warp * FQ_WROWS + r;  // the chunk rows of this lane's scores: rw, rw + 8
+    for (int it = 0; it < nch; ++it) {
+      const int nc = min(FQ_CHUNK, n - (c0 + it) * FQ_CHUNK);  // the chunk's live rows
+      const int sk = (2 * it) % NS, sv = (2 * it + 1) % NS;
+      xq_mbar_wait(&full[sk], (2 * it / NS) & 1);
+      const unsigned char* kst = slots + (size_t)sk * SLOT;
+      float d[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-        for (int e = 0; e < 16; e += 4) {
-          const float4 qa = *reinterpret_cast<const float4*>(&qs[gi][c * 16 + e]);
-          s[gi] += qa.x * kf[e] + qa.y * kf[e + 1] + qa.z * kf[e + 2] + qa.w * kf[e + 3];
+      for (int t = 0; t < HD / 16; ++t) {
+        // 16-byte chunk t % 8 of a 128-byte panel row lies at chunk (t % 8) ^ (row % 8)
+        const unsigned char* pa =
+            kst + (t / 8) * FQ_CHUNK * 128 + rw * 128 + ((((t & 7) ^ (rw & 7)) << 4) | (c << 2));
+        float f0[4], f1[4];
+        xq_i8x4_to_f32(*reinterpret_cast<const uint32_t*>(pa), f0);
+        xq_i8x4_to_f32(*reinterpret_cast<const uint32_t*>(pa + 8 * 128), f1);
+        const uint32_t a[4] = {xq_bf16x2(f0[0], f0[1]), xq_bf16x2(f1[0], f1[1]),
+                               xq_bf16x2(f0[2], f0[3]), xq_bf16x2(f1[2], f1[3])};
+        fq_mma_bf16(d, a, qb[t][0], qb[t][1]);
+      }
+      // times k_scale / sqrt(hd); rows past the chunk's live ones and heads
+      // past G out
+      const float* kscale = scales + sk * FQ_CHUNK;
+      const float s0 = __fmul_rn(kscale[rw], sm_scale), s1 = __fmul_rn(kscale[rw + 8], sm_scale);
+      const bool l0 = rw < nc, l1 = rw + 8 < nc;
+      float sc[4] = {l0 && h0 < G ? d[0] * s0 : -INFINITY, l0 && h1 < G ? d[1] * s0 : -INFINITY,
+                     l1 && h0 < G ? d[2] * s1 : -INFINITY, l1 && h1 < G ? d[3] * s1 : -INFINITY};
+      __syncwarp();
+      if (lane == 0) xq_mbar_arrive(&empty[sk]);  // the K plane is done
+      // heads h0, h1: the max over the warp's rows (lanes 4 apart hold other rows)
+      float mx0 = fmaxf(sc[0], sc[2]), mx1 = fmaxf(sc[1], sc[3]);
+#pragma unroll
+      for (int o = 4; o < 32; o *= 2) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
+      }
+      if (r == 0) {
+        if (h0 < G) wmx[it & 1][warp][h0] = mx0;
+        if (h1 < G) wmx[it & 1][warp][h1] = mx1;
+      }
+      xq_bar_sync(1, W * 32);  // every warp's maxima of this chunk
+      // the chunk's max mc of each head; the running max m' = max(m, mc);
+      // the old terms weigh alpha = exp(m - m'), this chunk's beta = exp(mc - m')
+      float mc[G], alpha[G], beta[G];
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        mc[g] = wmx[it & 1][0][g];
+#pragma unroll
+        for (int w = 1; w < W; ++w) mc[g] = fmaxf(mc[g], wmx[it & 1][w][g]);
+        const float mn = fmaxf(mrun[g], mc[g]);
+        alpha[g] = expf(mrun[g] - mn);
+        beta[g] = expf(mc[g] - mn);
+        mrun[g] = mn;
+      }
+      // p = exp(score - the chunk's max), as the plain version's chunks
+      const float m0 = fq_pick(mc, h0), m1 = fq_pick(mc, h1);
+      const float b0 = fq_pick(beta, h0), b1 = fq_pick(beta, h1);
+      float pr[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        pr[i] = sc[i] == -INFINITY ? 0.f : expf(sc[i] - ((i & 1) ? m1 : m0));
+      l_run[0] = l_run[0] * fq_pick(alpha, h0) + b0 * (pr[0] + pr[2]);
+      l_run[1] = l_run[1] * fq_pick(alpha, h1) + b1 * (pr[1] + pr[3]);
+      xq_mbar_wait(&full[sv], ((2 * it + 1) / NS) & 1);
+      const signed char* vst = reinterpret_cast<const signed char*>(slots + (size_t)sv * SLOT);
+      const float* vscale = scales + sv * FQ_CHUNK;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = rw + 8 * (i >> 1), g = (i & 1) ? h1 : h0;
+        if (sc[i] != -INFINITY)
+          pb[warp][(row - warp * FQ_WROWS) * GP + g] =
+              ((i & 1) ? b1 : b0) *
+              __bfloat162float(__float2bfloat16_rn(__fmul_rn(pr[i], vscale[row])));
+      }
+      __syncwarp();
+      // P.V over the V codes: the lane's dims of each of the warp's live rows
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+#pragma unroll
+        for (int e = 0; e < VPL; ++e) acc[g][e] *= alpha[g];
+      const int live = min(FQ_WROWS, nc - warp * FQ_WROWS);
+      if (lane < NL) {
+#pragma unroll 4
+        for (int rr = 0; rr < live; ++rr) {
+          float vf[VPL];
+          load_s8<VPL>(vst + (warp * FQ_WROWS + rr) * HD + lane * VPL, vf);
+#pragma unroll
+          for (int g = 0; g < G; ++g) {
+            const float pg = pb[warp][rr * GP + g];
+#pragma unroll
+            for (int e = 0; e < VPL; ++e) acc[g][e] += pg * vf[e];
+          }
         }
       }
+      __syncwarp();
+      if (lane == 0) xq_mbar_arrive(&empty[sv]);  // the V plane is done
     }
-    const float f = __fmul_rn(__ldg(ks + srow + tid), sm_scale);
-#pragma unroll
-    for (int gi = 0; gi < G; ++gi) sc[gi][tid] = s[gi] * f;
-  }
-  __syncthreads();
 
-  // phase 2: per query head, the chunk max and the sum of p; keep
-  // bf16(p * v_scale) for P.V
-  for (int gi = warp; gi < G; gi += FD_THREADS / 32) {
-    float mx = -INFINITY;
-    for (int r = lane; r < n; r += 32) mx = fmaxf(mx, sc[gi][r]);
-    mx = xq_warp_max(mx);
-    float sum = 0.f;
-    for (int r = lane; r < n; r += 32) {
-      const float p = expf(sc[gi][r] - mx);
-      sc[gi][r] = __bfloat162float(__float2bfloat16_rn(__fmul_rn(p, __ldg(vs + srow + r))));
-      sum += p;
+    // the warp's partial (every warp at the block's running max) into shared memory
+#pragma unroll
+    for (int o = 4; o < 32; o *= 2) {
+      l_run[0] += __shfl_xor_sync(0xffffffffu, l_run[0], o);
+      l_run[1] += __shfl_xor_sync(0xffffffffu, l_run[1], o);
     }
-    sum = xq_warp_sum(sum);
-    if (lane == 0) {
-      mrow[gi] = mx;
-      lrow[gi] = sum;
+    if (r == 0) {
+      if (h0 < G) wl[warp][h0] = l_run[0];
+      if (h1 < G) wl[warp][h1] = l_run[1];
+    }
+    if (warp == 0 && lane < G) pm[lane] = fq_pick(mrun, lane);
+    xq_bar_sync(1, W * 32);  // every consumer warp is done with the ring
+    if (lane < NL) {
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+#pragma unroll
+        for (int e = 0; e < VPL; e += 4)
+          *reinterpret_cast<float4*>(wacc + (warp * G + g) * HD + lane * VPL + e) =
+              make_float4(acc[g][e], acc[g][e + 1], acc[g][e + 2], acc[g][e + 3]);
     }
   }
   __syncthreads();
-
-  // phase 3: un-normalised P.V over the codes; warp w takes rows w, w+4,
-  // ... with the lane's VPL codes (one 4- or 8-byte load)
-  float acc[G][VPL];
+  if (tid < G) {
+    float l = 0.f;
 #pragma unroll
-  for (int gi = 0; gi < G; ++gi)
-#pragma unroll
-    for (int e = 0; e < VPL; ++e) acc[gi][e] = 0.f;
-  if (lane < NL) {
-#pragma unroll 8
-    for (int r = warp; r < n; r += FD_THREADS / 32) {
-      float vf[VPL];
-      load_s8<VPL>(cv + stripe + (size_t)r * HD + lane * VPL, vf);
-#pragma unroll
-      for (int gi = 0; gi < G; ++gi) {
-        const float p = sc[gi][r];
-#pragma unroll
-        for (int e = 0; e < VPL; ++e) acc[gi][e] += p * vf[e];
-      }
-    }
-#pragma unroll
-    for (int gi = 0; gi < G; ++gi)
-#pragma unroll
-      for (int e = 0; e < VPL; ++e) red[warp][gi][lane * VPL + e] = acc[gi][e];
+    for (int w = 0; w < W; ++w) l += wl[w][tid];
+    pl[tid] = l;
   }
   __syncthreads();
+  fc_combine<G, HD, NT>(
+      pm, pl,
+      [&](int i) {
+        float a = 0.f;
 #pragma unroll
-  for (int gi = 0; gi < G; ++gi) {
-    const size_t pi = part0 + (size_t)gi * NS;
-    for (int d = tid; d < HD; d += FD_THREADS) {
-      float a = 0.f;
-#pragma unroll
-      for (int w = 0; w < FD_THREADS / 32; ++w) a += red[w][gi][d];
-      pacc[pi * HD + d] = a;
-    }
-    if (tid == 0) {
-      pm[pi] = mrow[gi];
-      pl[pi] = lrow[gi];
-    }
-  }
+        for (int w = 0; w < W; ++w) a += wacc[w * G * HD + i];
+        return a;
+      },
+      gm, gs, ga, wacc, out + ((size_t)b * H + (size_t)h * G) * HD);
 }
 
 constexpr int PF_ROWS = 64;  // query rows of a warpgroup (of a block, f32 cache)
@@ -1283,19 +1556,20 @@ int fc_splits(int B, int KH, int sms) {
   return max(1, min(FC_MAX_SPLITS, sms / max(1, B * KH)));
 }
 
-// The launch of flash_decode_cluster_kernel<G, HD, CT> for P blocks a
-// cluster and nbh (batch, kv head) pairs into cfg (attr its cluster
-// dimension). Sets the kernel's shared-memory and cluster-size attributes
-// and asks the card, once per cluster size, whether one such cluster fits
-// (cudaOccupancyMaxActiveClusters); cudaErrorInvalidConfiguration if not.
-template <int G, int HD, typename CT>
-cudaError_t fc_config(int P, int nbh, cudaStream_t s, cudaLaunchConfig_t& cfg,
-                      cudaLaunchAttribute& attr) {
-  static int fits[FC_MAX_SPLITS + 1];  // by cluster size on this device: 1 fits, -1 not
-  constexpr int smem = fc_smem<G, HD, CT>();
+// The launch of `kern` (a cluster kernel of kernels 3 and 7: `threads` a
+// block, `smem` bytes of dynamic shared memory) for P blocks a cluster and
+// nbh (batch, kv head) pairs into cfg (attr its cluster dimension). Sets the
+// kernel's shared-memory and cluster-size attributes and asks the card, once
+// per cluster size (fits: the kernel's answers, 1 fits, -1 not), whether one
+// such cluster fits (cudaOccupancyMaxActiveClusters);
+// cudaErrorInvalidConfiguration if not.
+template <typename K>
+cudaError_t cluster_config(K kern, int threads, int smem, int P, int nbh, cudaStream_t s,
+                           int (&fits)[FC_MAX_SPLITS + 1], cudaLaunchConfig_t& cfg,
+                           cudaLaunchAttribute& attr) {
   cfg = {};
   cfg.gridDim = dim3(P, nbh);
-  cfg.blockDim = dim3(FC_THREADS);
+  cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = s;
   attr.id = cudaLaunchAttributeClusterDimension;
@@ -1306,7 +1580,6 @@ cudaError_t fc_config(int P, int nbh, cudaStream_t s, cudaLaunchConfig_t& cfg,
   cfg.numAttrs = 1;
   if (P < 1 || P > FC_MAX_SPLITS) return cudaErrorInvalidValue;
   if (fits[P] == 0) {
-    auto kern = flash_decode_cluster_kernel<G, HD, CT>;
     cudaError_t e = xq_allow_smem(kern, smem);
     if (e == cudaSuccess && P > 8)
       e = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
@@ -1316,6 +1589,29 @@ cudaError_t fc_config(int P, int nbh, cudaStream_t s, cudaLaunchConfig_t& cfg,
     fits[P] = n > 0 ? 1 : -1;
   }
   return fits[P] > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;
+}
+
+template <int G, int HD, typename CT>
+cudaError_t fc_config(int P, int nbh, cudaStream_t s, cudaLaunchConfig_t& cfg,
+                      cudaLaunchAttribute& attr) {
+  static int fits[FC_MAX_SPLITS + 1];
+  return cluster_config(flash_decode_cluster_kernel<G, HD, CT>, FC_THREADS,
+                        fc_smem<G, HD, CT>(), P, nbh, s, fits, cfg, attr);
+}
+
+// Kernel 7's blocks a (batch, kv head): kernel 3's count (fc_splits), at
+// most the S-row window's chunks. Each block takes whole chunks of the live
+// rows, which it splits on the card.
+int fq_splits(int B, int KH, int S, int sms) {
+  return max(1, min(fc_splits(B, KH, sms), (S + FQ_CHUNK - 1) / FQ_CHUNK));
+}
+
+template <int G, int HD>
+cudaError_t fq_config(int P, int nbh, cudaStream_t s, cudaLaunchConfig_t& cfg,
+                      cudaLaunchAttribute& attr) {
+  static int fits[FC_MAX_SPLITS + 1];
+  return cluster_config(flash_decode_q_cluster_kernel<G, HD>, FQ_THREADS, fq_smem<G, HD>(), P,
+                        nbh, s, fits, cfg, attr);
 }
 
 }  // namespace
@@ -1342,21 +1638,9 @@ XQ_EXPORT int xq_kv_update(void* ck, void* cv, const void* knew, const void* vne
   });
 }
 
-// f32 elements of the int8 flash-decode's workspace (xq_flash_decode_q):
-// per (batch, head, chunk) the partial max, the partial sum and the
-// hd-wide partial accumulator. xq_flash_decode takes the same argument and
-// needs none of it.
-XQ_EXPORT long long xq_flash_decode_workspace(int B, int H, int S, int hd) {
-  const long long ns = (S + FD_CHUNK - 1) / FD_CHUNK;
-  return (long long)B * H * ns * (hd + 2);
-}
-
-// work: unused (the argument of the earlier two-kernel design stays, so
-// that callers of either take the same arguments)
 XQ_EXPORT int xq_flash_decode(const void* q, const void* ck, const void* cv, const void* kv_len,
-                              void* work, void* out, int B, int H, int KH, int S, int hd,
-                              float sm_scale, int f32, void* stream) {
-  (void)work;
+                              void* out, int B, int H, int KH, int S, int hd, float sm_scale,
+                              int f32, void* stream) {
   if (B < 1 || KH < 1 || H % KH != 0 || S < 1) return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   const int P = fc_splits(B, KH, xq_device_sms());
@@ -1454,31 +1738,65 @@ XQ_EXPORT int xq_kv_update_q(void* ck, void* cv, void* ks, void* vs, const void*
   return (int)cudaGetLastError();
 }
 
-// workspace: xq_flash_decode_workspace (the same partials)
-XQ_EXPORT int xq_flash_decode_q(const void* q, const void* ck, const void* cv, const void* ks,
-                                const void* vs, const void* kv_len, void* work, void* out, int B,
-                                int H, int KH, int S, int hd, float sm_scale, void* stream) {
-  if (KH < 1 || H % KH != 0) return (int)cudaErrorInvalidValue;
+// Kernel 7 over one layer of an int8 cache (codes ck, cv; scale planes ks,
+// vs), with kernels 5-6 in the same launch where knew is set: the new K and
+// V rows (knew, vnew) quantised in at kv_pos and the sinks re-rotated where
+// rotate is set (cexp, sexp), before the rows are read. knew null: attention
+// alone (vnew, kv_pos, rotate, cexp and sexp unread). S must be a multiple
+// of 4 (a chunk's scales are copied in 16-byte groups).
+XQ_EXPORT int xq_flash_decode_q(const void* q, void* ck, void* cv, void* ks, void* vs,
+                                const void* knew, const void* vnew, const void* kv_pos,
+                                const void* rotate, const void* cexp, const void* sexp,
+                                const void* kv_len, void* out, int B, int H, int KH, int S, int hd,
+                                float sm_scale, void* stream) {
+  if (B < 1 || KH < 1 || H % KH != 0 || S < 4 || S % 4 != 0) return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
-  const int NS = (S + FD_CHUNK - 1) / FD_CHUNK;
-  const size_t parts = (size_t)B * H * NS;
-  float* pm = (float*)work;
-  float* pl = pm + parts;
-  float* pacc = pl + parts;
-  const dim3 grid(B * KH, NS);
-  const float* qf = (const float*)q;
-  const auto* k = (const signed char*)ck;
-  const auto* v = (const signed char*)cv;
-  const auto* kss = (const float*)ks;
-  const auto* vss = (const float*)vs;
-  const int* kl = (const int*)kv_len;
-  const cudaError_t e = for_head_dim(hd, [&](auto d) {
+  const int P = fq_splits(B, KH, S, xq_device_sms());
+  return (int)for_head_dim(hd, [&](auto d) {
     return for_group(H / KH, [&](auto g) {
-      flash_decode_q_split_kernel<decltype(g)::value, decltype(d)::value>
-          <<<grid, FD_THREADS, 0, s>>>(qf, k, v, kss, vss, kl, pm, pl, pacc, KH, S, sm_scale);
+      constexpr int G = decltype(g)::value, HD = decltype(d)::value;
+      cudaLaunchConfig_t cfg;
+      cudaLaunchAttribute attr;
+      const cudaError_t e = fq_config<G, HD>(P, B * KH, s, cfg, attr);
+      if (e != cudaSuccess) return e;
+      // the layer's K codes as (B * KH, S, HD) bytes, boxes of 128 rows x
+      // 128 bytes, 128-byte swizzled (bytes past HD or rows past S: zeros)
+      CUtensorMap tk;
+      const uint64_t dims[3] = {(uint64_t)HD, (uint64_t)S, (uint64_t)B * KH};
+      const uint64_t strides[2] = {(uint64_t)HD, (uint64_t)S * HD};
+      const uint32_t box[3] = {128, FQ_CHUNK, 1};
+      if (!xq_tensor_map(&tk, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, ck, dims, strides, box))
+        return cudaErrorInvalidConfiguration;
+      const cudaError_t l = cudaLaunchKernelEx(
+          &cfg, flash_decode_q_cluster_kernel<G, HD>, tk, (const float*)q, (signed char*)ck,
+          (signed char*)cv, (float*)ks, (float*)vs, (const float*)knew, (const float*)vnew,
+          (const int*)kv_pos, (const int*)rotate, (const float*)cexp, (const float*)sexp,
+          (const int*)kv_len, (float*)out, KH, S, sm_scale);
+      return l != cudaSuccess ? l : cudaGetLastError();
     });
   });
-  if (e != cudaSuccess) return (int)e;
-  flash_decode_combine_kernel<<<B * H, hd, 0, s>>>(pm, pl, pacc, (float*)out, NS);
-  return (int)cudaGetLastError();
+}
+
+// xq_flash_decode_q's launch on the current device: plan (3 ints) =
+// {blocks a (batch, kv head), which are one cluster; key rows a chunk; ring
+// slots}; cudaErrorInvalidValue for a shape it refuses,
+// cudaErrorInvalidConfiguration where the card cannot hold such a cluster.
+// ops/attention.py's decode_q_plan is held to it on the card.
+XQ_EXPORT int xq_flash_decode_q_plan(int B, int H, int KH, int S, int hd, void* plan) {
+  if (B < 1 || KH < 1 || H % KH != 0 || S < 4 || S % 4 != 0) return (int)cudaErrorInvalidValue;
+  const int P = fq_splits(B, KH, S, xq_device_sms());
+  return (int)for_head_dim(hd, [&](auto d) {
+    return for_group(H / KH, [&](auto g) {
+      constexpr int G = decltype(g)::value, HD = decltype(d)::value;
+      cudaLaunchConfig_t cfg;
+      cudaLaunchAttribute attr;
+      const cudaError_t e = fq_config<G, HD>(P, B * KH, nullptr, cfg, attr);
+      if (e != cudaSuccess) return e;
+      int* out = (int*)plan;
+      out[0] = P;
+      out[1] = FQ_CHUNK;
+      out[2] = fq_slots<HD>();
+      return cudaSuccess;
+    });
+  });
 }

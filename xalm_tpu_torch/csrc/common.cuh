@@ -19,6 +19,19 @@ __device__ __forceinline__ float xq_warp_max(float v) {
   return v;
 }
 
+// The four int8 codes of word (the low byte first) as f32, exactly: v + 128
+// as the low byte of the f32 2^23 + (v + 128), less 2^23 + 128. Byte
+// permutes and adds: an int-to-float conversion (16 a clock an SM) would
+// take an issue slot a weight byte, near the byte rate of an SM's share of
+// HBM. gemv.cuh's cores, csrc/qmatmul.cu's tiled GEMM (its int8 A
+// fragments) and the int8 flash-decode (csrc/attention.cu) widen by it.
+__device__ __forceinline__ void xq_i8x4_to_f32(uint32_t word, float* f) {
+  const uint32_t u = word ^ 0x80808080u;
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    f[e] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + e)) - 8388736.0f;
+}
+
 // A float KV cache's element: bf16 (rounded to nearest even on store) or
 // f32 (stored as it is), and back to f32 on load
 template <typename CT>

@@ -60,18 +60,6 @@ struct xq_fp8<__nv_fp8_e5m2> {
   static constexpr __nv_fp8_interpretation_t kind = __NV_E5M2;
 };
 
-// The four int8 codes of word (the low byte first) as f32, exactly: v + 128
-// as the low byte of the f32 2^23 + (v + 128), less 2^23 + 128. Byte
-// permutes and adds: an int-to-float conversion (16 a clock an SM) would
-// take an issue slot a weight byte, near the byte rate of an SM's share of
-// HBM. csrc/qmatmul.cu's tiled GEMM widens its int8 A fragments by it too.
-__device__ __forceinline__ void xq_i8x4_to_f32(uint32_t word, float* f) {
-  const uint32_t u = word ^ 0x80808080u;
-#pragma unroll
-  for (int e = 0; e < 4; ++e)
-    f[e] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + e)) - 8388736.0f;
-}
-
 template <typename WT>
 __device__ __forceinline__ void xq_unpack16(const int4& raw, float* out) {
   if constexpr (xq_fp8<WT>::value) {

@@ -2,9 +2,10 @@
 // int8, fp8 and bf16 weights, the W8A8 GEMM, the split-TF32 f32 GEMM and
 // the streamed M <= 8 GEMV (qmatmul.cu gemm_bf16w_kernel, gemm_a8_kernel,
 // gemm_tf32x3_kernel, gemv_stream_kernel), the causal flash prefill over a
-// bf16 and an f32 cache and the cluster flash-decode (attention.cu
-// flash_prefill_kernel, flash_prefill_tf32x3_kernel,
-// flash_decode_cluster_kernel), and the megakernel's L2 prefetch of its
+// bf16 and an f32 cache and the cluster flash-decodes over a float and an
+// int8 cache (attention.cu flash_prefill_kernel,
+// flash_prefill_tf32x3_kernel, flash_decode_cluster_kernel,
+// flash_decode_q_cluster_kernel), and the megakernel's L2 prefetch of its
 // weight rows (fused_decode.cu).
 //
 // - TMA: a tensor map (CUtensorMap, encoded on the host per call by
@@ -202,6 +203,13 @@ __device__ __forceinline__ void xq_bar_sync(int id, int count) {
 // async-proxy reads of them (wgmma reading a tile the threads wrote)
 __device__ __forceinline__ void xq_fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// orders this thread's generic-proxy writes to global memory before later
+// async-proxy reads of them (a bulk copy of rows the block has just written;
+// a barrier between the writers and the thread that issues the copy)
+__device__ __forceinline__ void xq_fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;" ::: "memory");
 }
 
 // D (64 x 128, s32) += A (64 x 32, s8, K-major) * B (128 x 32, s8, K-major), both in

@@ -46,7 +46,9 @@ routing by dtype, not a fallback from a kernel that failed.
 
 An int8 KV cache (``cache.quantized``: int8 codes and per-row f32 scale
 planes) is routed as the JAX forward routes it: a per-layer t = 1 step
-through ``kv_update_q`` and ``flash_decode_q`` (kernels 5-7); a t > 1 chunk,
+through ``fused_decode_attention_q`` (kernels 5-7, one launch a layer;
+under Gemma-2's attention cap ``kv_update_q``, then the dense attention); a
+t > 1 chunk,
 and every step of ``"xla"``, quantises and scatters its rows, rotates the
 sinks at t = 1, dequantises the layer and runs the dense attention (the
 reference computes that attention outside any Pallas kernel; the matmuls
@@ -464,7 +466,8 @@ def forward(
     flash_decode = attn_ops.flash_decode if impl == "kernel" else attn_ops.flash_decode_plain
     flash_prefill = attn_ops.flash_prefill if impl == "kernel" else attn_ops.flash_prefill_plain
     kv_update_q = attn_ops.kv_update_q if impl == "kernel" else attn_ops.kv_update_q_plain
-    flash_decode_q = attn_ops.flash_decode_q if impl == "kernel" else attn_ops.flash_decode_q_plain
+    fused_decode_q = (attn_ops.fused_decode_attention_q if impl == "kernel"
+                      else attn_ops.fused_decode_attention_q_plain)
 
     clip = cfg.qkv_clip if math.isfinite(cfg.qkv_clip) else None
     cap = cfg.attn_softcap  # set: the dense attention, never a cap-free kernel
@@ -508,12 +511,16 @@ def forward(
         k = rotate(k, *rope)
 
         if per_layer and t == 1 and quant:
-            # int8 decode: quantised ring write + sink re-rotation, then
-            # flash-decode over the codes
-            kv_update_q(ck, cv, ks, vs, layer, k[:, 0].contiguous(), v[:, 0].contiguous(),
-                        kv_pos0, rot_flag, cexp1, sexp1)
-            attn_out = dense(layer) if cap else flash_decode_q(
-                q[:, 0].contiguous(), ck, cv, ks, vs, layer, kv_len0)[:, None]
+            # int8 decode: quantised ring write + sink re-rotation and the
+            # flash-decode over the codes in one launch; under the cap the
+            # write alone, then the dense attention
+            kn, vn = k[:, 0].contiguous(), v[:, 0].contiguous()
+            if cap:
+                kv_update_q(ck, cv, ks, vs, layer, kn, vn, kv_pos0, rot_flag, cexp1, sexp1)
+                attn_out = dense(layer)
+            else:
+                attn_out = fused_decode_q(q[:, 0].contiguous(), ck, cv, ks, vs, layer, kn, vn,
+                                          kv_pos0, kv_len0, rot_flag, cexp1, sexp1)[:, None]
         elif float_kernels and t == 1:
             # decode: in-place ring write + sink rotation, then flash-decode
             kv_update(ck, cv, layer, k[:, 0].contiguous(), v[:, 0].contiguous(),

@@ -13,10 +13,14 @@ its design answers that):
   (three TF32 products a step, each within about 2^-18 of the f32
   product; its own tiles; against f64 as accurate as the plain version,
   which keeps f32 with TF32 off: ``csrc/hopper.cuh``);
-- int8 cache with per-row f32 scales: ``kv_update_q`` (quantised ring
-  insert and sink re-rotation, one launch for ``_insert_q_kernel`` and
-  ``_sink_q_kernel``) and ``flash_decode_q`` (``_attn_q_kernel``).
-  ``quant_rows`` is the port's copy of ``_quant_rows_f32``.
+- int8 cache with per-row f32 scales: ``fused_decode_attention_q`` (the
+  JAX function of that name: ``_insert_q_kernel``, ``_sink_q_kernel`` and
+  ``_attn_q_kernel`` in one launch of kernel 7's cluster kernel, which
+  inserts the quantised row, re-rotates the sinks and attends),
+  ``flash_decode_q`` (the same launch without the update) and
+  ``kv_update_q`` (the insert and the rotation alone, a launch of their
+  own, for the one caller that attends densely after them: Gemma-2's
+  attention cap). ``quant_rows`` is the port's copy of ``_quant_rows_f32``.
 
 Each wrapper launches its kernel for CUDA tensors and runs its ``*_plain``
 version, the same function in plain PyTorch, for CPU tensors. Their shape
@@ -58,6 +62,10 @@ __all__ = [
     "kv_update_q_plain",
     "flash_decode_q",
     "flash_decode_q_plain",
+    "fused_decode_attention_q",
+    "fused_decode_attention_q_plain",
+    "decode_q_plan",
+    "decode_q_chunks",
     "softcap",
     "act_fn",
 ]
@@ -66,12 +74,9 @@ __all__ = [
 # PF_KT at every head_dim, so that p is rounded to bf16 at the same running
 # max on both sides
 _PREFILL_KEYS = 64
-# key rows per chunk of the plain int8 flash-decode: the kernel's FD_CHUNK,
+# key rows per chunk of the plain int8 flash-decode: the kernel's FQ_CHUNK,
 # so that p * v_scale is rounded to bf16 at the same chunk max on both sides
 _DECODE_KEYS = 128
-# flash-decode workspaces by (device, f32 elements), reused call after call
-# on the one stream the port launches on
-_WORKSPACE: dict[tuple, torch.Tensor] = {}
 
 
 def rope_cos_sin_plus1(freqs: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -180,16 +185,6 @@ def kv_update(cache_k, cache_v, layer: int, k_new, v_new, kv_pos, rotate, cexp, 
 # ------------------------------------------------------------------ kernel 3
 
 
-def _workspace(lib, device, b: int, h: int, s: int, hd: int) -> torch.Tensor:
-    """The int8 flash-decode's chunk partials, one per size."""
-    n_work = lib.xq_flash_decode_workspace(b, h, s, hd)
-    work = _WORKSPACE.get((device, n_work))
-    if work is None:
-        work = _WORKSPACE[(device, n_work)] = torch.empty((n_work,), dtype=torch.float32,
-                                                          device=device)
-    return work
-
-
 def softcap(v: torch.Tensor, cap: float) -> torch.Tensor:
     """Gemma-2's softcap, tanh(v / cap) * cap (cap 0: v as it is), in the
     kernels' form: v times the f32 reciprocal of cap (the JAX forward's
@@ -270,7 +265,7 @@ def flash_decode(q, cache_k, cache_v, layer: int, kv_len) -> torch.Tensor:
     out = torch.empty((b, h * hd), dtype=torch.float32, device=q.device)
     err = lib.xq_flash_decode(
         q.data_ptr(), _layer_ptr(cache_k, layer), _layer_ptr(cache_v, layer), kv_len.data_ptr(),
-        None, out.data_ptr(), b, h, kh, s, hd, 1.0 / math.sqrt(hd), f32,
+        out.data_ptr(), b, h, kh, s, hd, 1.0 / math.sqrt(hd), f32,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check(err, what)
@@ -493,12 +488,47 @@ def flash_decode_q_plain(q, cache_k, cache_v, k_scale, v_scale, layer, kv_len,
     return out.reshape(b, h * hd)
 
 
-def flash_decode_q(q, cache_k, cache_v, k_scale, v_scale, layer: int, kv_len) -> torch.Tensor:
-    """Kernel 7 wrapper: q (B, H, hd) f32 rotated (not pre-scaled), int8
-    caches with their f32 scale planes, kv_len (B,) int32 -> (B, H*hd)."""
-    if not q.is_cuda:
-        return flash_decode_q_plain(q, cache_k, cache_v, k_scale, v_scale, layer, kv_len)
-    what = "flash_decode_q"
+def fused_decode_attention_q_plain(q, cache_k, cache_v, k_scale, v_scale, layer, k_new, v_new,
+                                   kv_pos, kv_len, rotate, cexp, sexp) -> torch.Tensor:
+    """``kv_update_q_plain`` (the insert and the sink re-rotation, in place),
+    then ``flash_decode_q_plain`` over the updated layer. -> (B, H*hd)."""
+    kv_update_q_plain(cache_k, cache_v, k_scale, v_scale, layer, k_new, v_new, kv_pos, rotate,
+                      cexp, sexp)
+    return flash_decode_q_plain(q, cache_k, cache_v, k_scale, v_scale, layer, kv_len)
+
+
+# Kernel 7's launch (csrc/attention.cu fq_splits, fq_slots): P blocks a
+# (batch, kv head), one cluster, kernel 3's count capped at the window's
+# 128-row chunks; a ring of 4 slots of a chunk's K or V plane (3 at head_dim
+# 256)
+DECODE_Q_SLOTS = {96: 4, 128: 4, 256: 3}
+
+
+def decode_q_plan(b: int, kh: int, g: int, hd: int, s: int, sms: int) -> tuple[int, int, int]:
+    """Kernel 7's launch for B = b, KH = kh, GQA group g, head_dim hd and an
+    s-row window on a card of ``sms`` SMs: (blocks a (batch, kv head), which
+    form one cluster; key rows a chunk; ring slots). The launcher's own
+    plan, which reads the device's SM count, is ``xq_flash_decode_q_plan``;
+    the card's tests hold the two equal."""
+    splits = min(decode_plan(b, kh, g, hd, False, sms)[0], -(-s // _DECODE_KEYS))
+    return max(1, splits), _DECODE_KEYS, DECODE_Q_SLOTS[hd]
+
+
+def decode_q_chunks(kv_len: int, s: int, splits: int) -> list[tuple[int, int]]:
+    """The 128-row chunks [c0, c1) of each of kernel 7's ``splits`` blocks
+    of one (batch, kv head) at kv_len n (clamped to [0, s]), as each block
+    computes them on the card: of C = ceil(n / 128) chunks, block p takes
+    [p C // P, (p + 1) C // P)."""
+    n = min(max(kv_len, 0), s)
+    c = -(-n // _DECODE_KEYS)
+    return [(p * c // splits, (p + 1) * c // splits) for p in range(splits)]
+
+
+def _decode_q(what: str, q, cache_k, cache_v, k_scale, v_scale, layer: int, kv_len,
+              update=None) -> torch.Tensor:
+    """Kernel 7's launch (``xq_flash_decode_q``) on CUDA tensors, with
+    ``update`` = (k_new, v_new, kv_pos, rotate, cexp, sexp) kernels 5-6's
+    insert and sink re-rotation in the same launch."""
     _check_cache(what, cache_k, cache_v, layer, (torch.int8,))
     _check_scales(what, cache_k, k_scale, v_scale)
     _, b, kh, s, hd = cache_k.shape
@@ -506,15 +536,51 @@ def flash_decode_q(q, cache_k, cache_v, k_scale, v_scale, layer: int, kv_len) ->
     _need(q.dtype == torch.float32 and q.shape == (b, h, hd) and q.is_contiguous(), what,
           "q must be contiguous (B, H, hd) f32")
     _vec_i32(what, kv_len, b, q.device)
+    ptrs = [None] * 6
+    if update is not None:
+        k_new, v_new, kv_pos, rotate, cexp, sexp = update
+        for t in (k_new, v_new):
+            _need(t.dtype == torch.float32 and t.shape == (b, kh, hd) and t.is_contiguous()
+                  and t.device == cache_k.device, what,
+                  "new rows must be contiguous (B, KH, hd) f32")
+        for t in (cexp, sexp):
+            _need(t.dtype == torch.float32 and t.shape == (hd,) and t.is_contiguous()
+                  and t.device == cache_k.device, what, "cexp/sexp must be contiguous (hd,) f32")
+        _vec_i32(what, kv_pos, b, cache_k.device)
+        _vec_i32(what, rotate, b, cache_k.device)
+        ptrs = [t.data_ptr() for t in update]
     lib = build.load_library("attention")
-    work = _workspace(lib, q.device, b, h, s, hd)
     out = torch.empty((b, h * hd), dtype=torch.float32, device=q.device)
     err = lib.xq_flash_decode_q(
         q.data_ptr(), _layer_ptr(cache_k, layer), _layer_ptr(cache_v, layer),
-        _layer_ptr(k_scale, layer), _layer_ptr(v_scale, layer), kv_len.data_ptr(),
-        work.data_ptr(), out.data_ptr(), b, h, kh, s, hd, 1.0 / math.sqrt(hd),
+        _layer_ptr(k_scale, layer), _layer_ptr(v_scale, layer), *ptrs, kv_len.data_ptr(),
+        out.data_ptr(), b, h, kh, s, hd, 1.0 / math.sqrt(hd),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check(err, what)
     build.LAUNCHES["flash_decode_q"] += 1
     return out
+
+
+def flash_decode_q(q, cache_k, cache_v, k_scale, v_scale, layer: int, kv_len) -> torch.Tensor:
+    """Kernel 7 wrapper: q (B, H, hd) f32 rotated (not pre-scaled), int8
+    caches with their f32 scale planes, kv_len (B,) int32 -> (B, H*hd).
+    One launch (``decode_q_plan``); kv_len stays on the card."""
+    if not q.is_cuda:
+        return flash_decode_q_plain(q, cache_k, cache_v, k_scale, v_scale, layer, kv_len)
+    return _decode_q("flash_decode_q", q, cache_k, cache_v, k_scale, v_scale, layer, kv_len)
+
+
+def fused_decode_attention_q(q, cache_k, cache_v, k_scale, v_scale, layer: int, k_new, v_new,
+                             kv_pos, kv_len, rotate, cexp, sexp) -> torch.Tensor:
+    """Kernels 5-7 in one launch (the JAX ``fused_decode_attention_q``): the
+    (B, KH, hd) f32 rows k_new/v_new quantised into the layer at kv_pos
+    (dropped at kv_pos >= S_phys), the sinks re-rotated where ``rotate`` is
+    set (cexp/sexp (hd,)), then q (B, H, hd) attends over the first kv_len
+    rows -> (B, H*hd). The cache and scale planes are updated in place;
+    counted under ``flash_decode_q``."""
+    if not q.is_cuda:
+        return fused_decode_attention_q_plain(q, cache_k, cache_v, k_scale, v_scale, layer,
+                                              k_new, v_new, kv_pos, kv_len, rotate, cexp, sexp)
+    return _decode_q("flash_decode_q", q, cache_k, cache_v, k_scale, v_scale, layer, kv_len,
+                     (k_new, v_new, kv_pos, rotate, cexp, sexp))

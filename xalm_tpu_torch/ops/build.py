@@ -26,7 +26,9 @@ live in the CUDA source alone. Size queries (``*_scratch``,
 it launches its kernel on the card, and nowhere else. A launch of kernel 1
 or 8 counts under its branch: ``qmatmul`` and ``qmatmul_multi`` for int8
 and bf16 weights, ``_f32``, ``_fp8``, ``_q4`` and ``_a8`` for the others.
-Kernels 2-4 count an f32 cache's launches under ``_f32``. A megakernel
+Kernels 2-4 count an f32 cache's launches under ``_f32``. The launch that
+inserts, re-rotates and attends over an int8 cache (kernels 5-7,
+``fused_decode_attention_q``) counts under ``flash_decode_q``. A megakernel
 launch counts under its body (``fused_decode``, ``_a8``, ``_q4``), under
 ``fused_decode_f32`` too with an f32 cache, and, when a family fold is on,
 under that fold (``fused_decode_bias``, ``fused_decode_qk_norm``;
@@ -221,11 +223,8 @@ SIGNATURES = {
         # ck, cv, knew, vnew, kv_pos, rotate, cexp, sexp, B, KH, S, hd, f32 (a float
         # cache: 0 bf16, 1 f32; the flash kernels' too), stream
         "xq_kv_update": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
-        # B, H, S, hd -> f32 elements of the int8 flash-decode's workspace
-        "xq_flash_decode_workspace": (_L, [_I, _I, _I, _I]),
-        # q, ck, cv, kv_len, work (unused: may be null), out, B, H, KH, S, hd, sm_scale, f32,
-        # stream
-        "xq_flash_decode": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P]),
+        # q, ck, cv, kv_len, out, B, H, KH, S, hd, sm_scale, f32, stream
+        "xq_flash_decode": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P]),
         # B, H, KH, hd, f32, plan (3 int32: blocks a (batch, kv head) = the cluster, key rows a
         # stage, stages)
         "xq_flash_decode_plan": (_I, [_I, _I, _I, _I, _I, _P]),
@@ -235,8 +234,12 @@ SIGNATURES = {
         "xq_flash_prefill_plan": (_I, [_I, _I, _I, _I, _I, _P, _P, _I]),
         # ck, cv, ks, vs, knew, vnew, kv_pos, rotate, cexp, sexp, B, KH, S, hd, stream
         "xq_kv_update_q": (_I, [_P] * 10 + [_I, _I, _I, _I, _P]),
-        # q, ck, cv, ks, vs, kv_len, work, out, B, H, KH, S, hd, sm_scale, stream
-        "xq_flash_decode_q": (_I, [_P] * 8 + [_I, _I, _I, _I, _I, _F, _P]),
+        # q, ck, cv, ks, vs, knew (null: no insert), vnew, kv_pos, rotate, cexp, sexp, kv_len,
+        # out, B, H, KH, S, hd, sm_scale, stream
+        "xq_flash_decode_q": (_I, [_P] * 13 + [_I, _I, _I, _I, _I, _F, _P]),
+        # B, H, KH, S, hd, plan (3 int32: blocks a (batch, kv head) = the cluster, key rows a
+        # chunk, ring slots)
+        "xq_flash_decode_q_plan": (_I, [_I, _I, _I, _I, _I, _P]),
     },
     "fused_decode": {
         # B, N, KH, G, S, H, hd -> bytes of the megakernel's workspace
