@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --megakernel-ms [--root DIR] [--models NAME ...]
     python3 chip_smoke.py --kernel-ms [--root DIR]
+    python3 chip_smoke.py --decode-wall --root DIR
 
 Builds the port's CUDA kernels from ``xalm_tpu_torch/csrc/`` and drives the
 port, never the JAX package, through these phases, each printing JSON lines,
@@ -22,7 +23,10 @@ first, while the megakernel's two sources build:
    kernel 1 at M = 1 and its tiled GEMM (``gemm_bf16w_kernel``: M = 512
    w13, w2 and wqkv with the norm prologue, M = 16 w13, i8, and M = 512
    w13 on bf16 weights beside ``F.linear``), the
-   bf16-cache kernels, the int8-cache kernels (``phase_parity_int8``), the
+   bf16-cache kernels (the ``flash_decode`` rows a decode step's ring
+   update and attention in one launch, ``fused_decode_attention``, the
+   planes bit-equal to the plain composition's), the int8-cache kernels
+   (``phase_parity_int8``), the
    whole-step megakernel at full width and 32 layers in three bf16-cache
    and four int8-cache cases, and the cost of one of its grid barriers;
    then the int8-activation branches on the body recoded to packed q4 on
@@ -114,8 +118,9 @@ M = 512 and 256, w13 at M = 16; ``F.linear`` on bf16 weights beside it:
 ``_gemm_turns``), the W8A8 GEMM and the split-TF32 f32 GEMM (w13 and w2 of
 Mistral-7B at M = 512 and 256, i8 and f32 weights), the flash prefill over a bf16 and an
 f32 cache (T = 512 at positions 0 and 1024, at the shapes of Mistral-7B,
-Qwen2.5-7B, Gemma-7B and Phi-3-mini), flash-decode (a bf16 and an f32
-cache, kv_len 777 and 4064, the same shapes) and the M = 1 GEMV (Mistral-7B's
+Qwen2.5-7B, Gemma-7B and Phi-3-mini), a decode step's ring update and
+flash-decode in one launch (a bf16 and an f32 cache, kv_len 777 and 4064,
+the same shapes; an older tree's two launches in turn) and the M = 1 GEMV (Mistral-7B's
 f32 matmuls and head, the bf16 head, i8 wqkv and w2) through their C entry
 points, beside one PyTorch call (timed in the same turns: its spread is
 printed; its device time from torch.profiler beside) and the bound
@@ -129,7 +134,13 @@ checkout's wrappers and plain versions, so its C entry points must take
 the same arguments: unpack it with ``git archive`` into a directory that
 ``.gitignore`` lists. Each mode prints the card's name and power limit,
 ptxas's registers, shared memory and spills of the timed kernels, and one
-JSON line of times.
+JSON line of times. With ``--decode-wall --root DIR`` it runs Mistral-7B's
+per-layer decode over a bf16 cache (``fused_step=False``) at full width
+and depth in one process a turn, this checkout's and DIR's package each
+in its own (other, this, this, other: ``decode_wall``), and prints each
+turn's decode ms a token and the host's time of a layer's attention step
+(this checkout's one ``fused_decode_attention`` call, an older one's
+``kv_update`` and ``flash_decode``).
 
 Any failed phase raises and the script exits non-zero without the result
 line. There is no CPU fallback: without a CUDA device it exits 2 at once.
@@ -419,49 +430,67 @@ def update_cases(cfg, cases: Cases, gen, ck, cv, cexp, sexp, tag: str = "",
 
 
 def attention_cases(cfg, cases: Cases, gen, ck, cv, tag: str = "", label: str = "") -> None:
-    """Kernels 3 and 4 (``flash_decode``, ``flash_prefill``; with ``tag``
-    their records are named ``flash_decode<tag>``, ``flash_prefill<tag>``,
-    and ``label`` ends their case names) against their plain versions on
-    the bf16 or f32 planes ``ck``/``cv`` at cfg's shapes, beside SDPA with
-    ``enable_gqa`` (q in the cache's type): flash_decode at kv_len 0, 1, 777
-    and the window, flash_prefill of a 512-row chunk at positions 0 and
-    1024. Layers cycle so every launch streams cold, SDPA's too. An f32 cache holds
-    flash_prefill to 1e-5 (``F32_CACHE_TOL``) and bounds it by its three TF32
-    products a step at PEAK_TF32 (split TF32: nothing rounded to bf16), the
-    f32 FMA bound beside."""
+    """Kernels 2-3 and 4 (``fused_decode_attention``, recorded as
+    ``flash_decode``, and ``flash_prefill``; with ``tag`` their records are
+    named ``flash_decode<tag>``, ``flash_prefill<tag>``, and ``label`` ends
+    their case names) against their plain versions on the bf16 or f32
+    planes ``ck``/``cv`` at cfg's shapes. The decode step (kernel 2's update
+    in kernel 3's launch) against the plain composition
+    (``fused_decode_attention_plain``: ``kv_update_plain``, then
+    ``flash_decode_plain``) at kv_len 0 (the sentinel, nothing live), 1,
+    777 and the window, B = 1, the new row inserted at kv_len - 1 (at the
+    window, a wrapped row at 1000 with the sinks re-rotated): the planes
+    bit-equal, the output within 1e-5 of each row's max (f32 dots and
+    softmax on both sides, in another order); SDPA (``enable_gqa``, q in the
+    cache's type) timed beside it over the same rows, the attention alone.
+    flash_prefill of a 512-row chunk at positions 0 and 1024, beside SDPA.
+    Layers cycle so every launch streams cold, SDPA's too. An f32 cache
+    holds flash_prefill to 1e-5 (``F32_CACHE_TOL``) and bounds it by its
+    three TF32 products a step at PEAK_TF32 (split TF32: nothing rounded to
+    bf16), the f32 FMA bound beside."""
     import torch
     import torch.nn.functional as F
 
     from xalm_tpu_torch.ops import attention as A
 
     dev = torch.device(DEVICE)
-    L, kh, hd, h = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim, cfg.n_heads
+    L, kh, hd, h, S = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim, cfg.n_heads, cfg.max_seq_len
     randn = lambda *s: torch.randn(s, generator=gen, device=dev, dtype=torch.float32)  # noqa: E731
     i32 = lambda *v: torch.tensor(v, dtype=torch.int32, device=dev)  # noqa: E731
     f32 = ck.dtype == torch.float32
     elt = ck.element_size()
-    for kvl in (0, 1, 777, cfg.max_seq_len):
-        q = randn(1, h, hd)
-        kv_len = i32(kvl)
-        got = A.flash_decode(q, ck, cv, 7 % L, kv_len)
-        want = A.flash_decode_plain(q, ck, cv, 7 % L, kv_len)
+    cexp, sexp = _sink_trig(cfg)
+    for kvl in (0, 1, 777, S):
+        q, kn, vn = randn(1, h, hd), randn(1, kh, hd), randn(1, kh, hd)
+        wrapped = kvl == S
+        kvp = S if kvl == 0 else 1000 if wrapped else kvl - 1  # kv_len 0: the sentinel
+        upd = (kn, vn, i32(kvp), i32(kvl), i32(int(wrapped)), cexp, sexp)
+        k1, v1 = ck[7 % L][None].clone(), cv[7 % L][None].clone()
+        k2, v2 = k1.clone(), v1.clone()
+        got = A.fused_decode_attention(q, k1, v1, 0, *upd)
+        want = A.fused_decode_attention_plain(q, k2, v2, 0, *upd)
+        planes_equal = bool(torch.equal(k1, k2) and torch.equal(v1, v2))
+        del k1, v1, k2, v2
         if kvl == 0 and not bool((got == 0).all()):
-            raise AssertionError("flash_decode: kv_len == 0 must give 0")
+            raise AssertionError("fused_decode_attention: kv_len == 0 must give 0")
         layers = itertools.cycle(range(L))
         lib_layers = itertools.cycle(range(L))
-        lib = None
+        sdpa_ms = None
         if kvl > 0:
             qb = q.to(ck.dtype)[:, :, None]  # (B, H, 1, hd)
-
-            def lib(kvl=kvl, qb=qb, lib_layers=lib_layers):
-                i = next(lib_layers)
-                return F.scaled_dot_product_attention(
-                    qb, ck[i, :, :, :kvl], cv[i, :, :, :kvl], enable_gqa=True)
-        # f32 dots and softmax on both sides, in a different order
+            sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                qb, *(c[next(lib_layers), :, :, :kvl] for c in (ck, cv)), enable_gqa=True))
+        # read: the live K and V rows, q and the new rows; written: the
+        # output, the new rows and, wrapped, the two sink keys (read too)
+        nbytes = (2 * kvl * kh * hd * elt + h * hd * 4 + h * hd * 4
+                  + (2 * kh * hd * (4 + elt) if kvl else 0) + (4 * kh * hd * elt if wrapped else 0))
         cases.add("flash_decode" + tag, f"B=1 kv_len={kvl}{label}", got, want, hd, 1e-5,
-                  lambda: A.flash_decode(q, ck, cv, next(layers), kv_len),
-                  lambda: A.flash_decode_plain(q, ck, cv, next(layers), kv_len),
-                  lib, 2 * kvl * kh * hd * elt + 2 * h * hd * 4, 4.0 * h * kvl * hd, PEAK_F32)
+                  lambda: A.fused_decode_attention(q, ck, cv, next(layers), *upd),
+                  lambda: A.fused_decode_attention_plain(q, ck, cv, next(layers), *upd),
+                  None, nbytes, 4.0 * h * kvl * hd, PEAK_F32,
+                  extra={"library_null": NO_LIBRARY_FUSED, "sdpa_attention_ms": sdpa_ms,
+                         "planes_equal": planes_equal},
+                  extra_ok=planes_equal)
 
     t = 512
     for p0 in (0, 1024):
@@ -1160,9 +1189,9 @@ def phase_main(params, cfg) -> dict:
     megakernel: one fused_decode launch per decode token, counted under
     fused_decode_f32 too with the f32 cache) and with ``fused_step=False``
     (the per-layer kernels: per token 129 qmatmul launches, and per layer
-    kv_update and flash_decode, their ``_f32`` instantiations, or one
-    flash_decode_q launch that inserts, re-rotates and attends (no
-    kv_update_q); per 512-token prefill chunk a
+    one flash_decode launch (or its ``_f32`` instantiation, or with the
+    int8 cache flash_decode_q) that inserts, re-rotates and attends (no
+    kv_update, kv_update_f32 or kv_update_q); per 512-token prefill chunk a
     flash_prefill or flash_prefill_f32 launch a layer, none with the int8
     cache, whose chunks take the dense attention); and with an f16 cache on
     its default path, per layer (no megakernel and no attention kernel
@@ -1188,9 +1217,8 @@ def phase_main(params, cfg) -> dict:
         if kv == torch.float32:
             mega["fused_decode_f32"] = 1
         runs.append((kv, tag, "megakernel", {}, mega, pk))
-        # per layer: an int8 cache's insert rides in flash_decode_q's launch
-        per = {"qmatmul": 4 * L + 1, **dict.fromkeys(attention, 0),
-               "kv_update" + fk: 0 if kv == torch.int8 else L, "flash_decode" + fk: L,
+        # per layer: the insert rides in flash_decode's (or flash_decode_q's) launch
+        per = {"qmatmul": 4 * L + 1, **dict.fromkeys(attention, 0), "flash_decode" + fk: L,
                "fused_decode": 0, "fused_decode_f32": 0}
         runs.append((kv, tag, "perlayer", dict(fused_step=False), per, pk))
     runs.append((torch.float16, "f16 ", "perlayer", {},
@@ -1238,7 +1266,7 @@ def phase_main_quant(params, q4p, cfg) -> dict:
             ("q4 megakernel", q4p, dict(a8_decode=True), "megakernel",
              {"fused_decode_q4": 1, "qmatmul": 1, "fused_decode": 0}, {}, ("fused_decode_q4", 63)),
             ("q4 perlayer", q4p, dict(a8_decode=True, fused_step=False), "perlayer",
-             {"qmatmul_q4": 4 * L, "qmatmul": 1, "kv_update": L, "flash_decode": L,
+             {"qmatmul_q4": 4 * L, "qmatmul": 1, "kv_update": 0, "flash_decode": L,
               "fused_decode_q4": 0}, {}, ("qmatmul_q4", 63 * 4 * L)),
             ("a8 megakernel", params, dict(a8_decode=True, a8_prefill=True), "megakernel",
              {"fused_decode_a8": 1, "qmatmul": 1, "fused_decode": 0}, {"qmatmul_a8": 4 * L},
@@ -1333,7 +1361,7 @@ _PROFILE_GROUPS = {
     "qmatmul_q4": ("gemv_q4_stream_kernel",),
     "qmatmul_a8": ("gemm_a8_kernel",),
     "quant_x": ("quant_x_kernel",),  # x's codes for qmatmul_a8
-    "qmatmul_multi": ("qmatmul_multi_kernel",),
+    "qmatmul_multi": ("multi_stream_kernel", "qmatmul_multi_kernel"),
     "qmatmul_multi_q4": ("multi_q4_stream_kernel",),
     "kv_update": ("kv_update_kernel",),
     "flash_decode": ("flash_decode_cluster_kernel",),
@@ -1351,6 +1379,7 @@ _PROFILE_GROUPS = {
 # 8 late in a long run of this script); a session that first runs
 # PROFILE_PRIMES tiny spin kernels (left out of every sum) and idles
 # PROFILE_PAD_S kept all of them. A window that still falls short runs again.
+# A key is one fragment or a tuple of them, a record of any counting.
 _WITNESSES = {
     "fused_decode_kernel": ("fused_decode", "fused_decode_a8", "fused_decode_q4"),
     "flash_decode_cluster_kernel": ("flash_decode", "flash_decode_f32"),
@@ -1359,7 +1388,9 @@ _WITNESSES = {
     "flash_prefill_tf32x3_kernel": ("flash_prefill_f32",),
     "kv_update_kernel": ("kv_update", "kv_update_f32"),
     "kv_update_q_kernel": ("kv_update_q",),
-    "qmatmul_multi_kernel": ("qmatmul_multi", "qmatmul_multi_f32", "qmatmul_multi_fp8"),
+    # kernel 8's int8 experts run either (the stream where one launch holds x's rows)
+    ("multi_stream_kernel", "qmatmul_multi_kernel"): ("qmatmul_multi", "qmatmul_multi_f32",
+                                                      "qmatmul_multi_fp8"),
     "multi_q4_stream_kernel": ("qmatmul_multi_q4",),
 }
 PROFILE_ATTEMPTS = 3
@@ -1400,9 +1431,9 @@ def _device_times(prof) -> tuple[dict, list, dict, tuple[float, int]]:
         if GEMM_FRAG in evt.key:
             gemm_ms += _device_us(evt) / 1e3
             gemm_n += evt.count
-        for frag in records:
-            if frag in evt.key:
-                records[frag] += evt.count
+        for frags in records:
+            if any(f in evt.key for f in ((frags,) if isinstance(frags, str) else frags)):
+                records[frags] += evt.count
         us = getattr(evt, "self_device_time_total", None)
         if us is None:
             us = getattr(evt, "self_cuda_time_total", 0.0)
@@ -1949,8 +1980,8 @@ def phase_main_moe(params, cfg) -> dict:
     64 greedy tokens with a bf16 cache, on the default decode path, which
     for MoE is the per-layer kernels (the megakernel refuses MoE): per
     decode token 65 qmatmul launches (wqkv and wo per layer, the head), 64
-    qmatmul_multi (the chosen experts' w13 and w2 per layer), and kv_update
-    and flash_decode per layer. Prefill chunks run the dense-masked experts
+    qmatmul_multi (the chosen experts' w13 and w2 per layer), and one
+    flash_decode launch per layer that inserts, re-rotates and attends. Prefill chunks run the dense-masked experts
     (plain f32 products, as the reference's XLA einsums) and kernel 1 for
     wqkv and wo. Returns the run's launches."""
     import numpy as np
@@ -1964,7 +1995,7 @@ def phase_main_moe(params, cfg) -> dict:
     if eng.decode_path(1) != "perlayer":
         raise AssertionError(f"Mixtral decode path {eng.decode_path(1)!r}, expected 'perlayer'")
     row = _main_run(eng, cfg, prompt, "mixtral bf16 perlayer")
-    want = {"qmatmul": 2 * L + 1, "qmatmul_multi": 2 * L, "kv_update": L, "flash_decode": L,
+    want = {"qmatmul": 2 * L + 1, "qmatmul_multi": 2 * L, "kv_update": 0, "flash_decode": L,
             "fused_decode": 0, "kv_update_q": 0, "flash_decode_q": 0, "flash_prefill": 0}
     per_token = row["launches_per_decode_token"]
     if any(per_token[k] != n for k, n in want.items()) or (
@@ -2330,8 +2361,9 @@ GEMMA_F32_LABEL = " (Gemma-7B, hd 256, the Gemma folds)"
 # whose shapes phase_parity_shape measures, the wrappers its main path
 # launches). Gemma-2-9B's attention softcap keeps kernels 3, 4 and 7 off its
 # main path: they are checked at its shapes but have no row. Without the cap
-# an int8 cache's insert rides in flash_decode_q's launch, so kv_update_q
-# runs on Gemma-2's main path alone (OFF_MAIN_PATH).
+# the insert rides in flash_decode's (an int8 cache: flash_decode_q's)
+# launch, so kv_update and kv_update_q run on Gemma-2's main path alone
+# (OFF_MAIN_PATH).
 ATTENTION_KERNELS = ("kv_update", "flash_decode", "flash_prefill", "kv_update_q", "flash_decode_q")
 _UNCAPPED = tuple(k for k in ATTENTION_KERNELS if k != "kv_update_q")
 SHAPE_ROWS = {"_g7": ("Qwen2.5-7B", ("flash_decode", "flash_prefill", "flash_decode_q")),
@@ -2398,9 +2430,9 @@ def phase_main_family(params, cfg, name: str, runs, bias: bool) -> dict:
     """The main path of one family model (``_main_run``: a 512-token prompt
     and 64 greedy tokens): on the megakernel (per decode token one
     fused_decode launch, which counts under the model's fold too, and the
-    bf16 head on qmatmul) and per layer (4L + 1 qmatmul, and per layer
-    kv_update and flash_decode, or with an int8 cache one flash_decode_q
-    launch that inserts, re-rotates and attends; a bf16-cache prefill chunk
+    bf16 head on qmatmul) and per layer (4L + 1 qmatmul, and per layer one
+    flash_decode launch, or with an int8 cache one flash_decode_q launch,
+    that inserts, re-rotates and attends; a bf16-cache prefill chunk
     runs flash_prefill per layer). With Gemma-2's attention softcap the
     per-layer attention and the prefill chunk take the dense attention (no
     flash_decode, flash_decode_q or flash_prefill launch), after the ring
@@ -2431,7 +2463,7 @@ def phase_main_family(params, cfg, name: str, runs, bias: bool) -> dict:
         else:
             # the default engine where the gate sends the model per layer
             kw = {} if cfg.head_dim not in fd.HEAD_DIMS else dict(fused_step=False)
-            inserts = L if cap or kv != torch.int8 else 0  # int8: in flash_decode_q's launch
+            inserts = L if cap else 0  # without the cap: in flash_decode(_q)'s launch
             want = {"qmatmul": 4 * L + 1, per_layer[0]: inserts, per_layer[1]: 0 if cap else L,
                     "fused_decode": 0, **dict.fromkeys(folds, 0)}
         eng = Engine(cfg, params, kv_dtype=kv, **kw)
@@ -2643,8 +2675,8 @@ def phase_main_moe_q4(params, cfg) -> dict:
     and 64 greedy tokens, bf16 cache, ``a8_decode`` (as
     ``from_xalm(q4_group=)`` implies): per decode token 64 qmatmul_multi_q4
     launches (the chosen experts' w13 and w2 per layer), 64 qmatmul_q4 (wqkv
-    and wo), 1 qmatmul (the bf16 head), and kv_update and flash_decode per
-    layer. A 512-row prefill chunk dequantises wqkv and wo (q4 at 256 rows
+    and wo), 1 qmatmul (the bf16 head), and one flash_decode launch per
+    layer that inserts, re-rotates and attends. A 512-row prefill chunk dequantises wqkv and wo (q4 at 256 rows
     and more) and runs the dense-masked experts, each dequantised in bf16
     one at a time, as the reference's ``_expert_mat``. The active bytes of
     a token are held equal to ``q4_moe_active_bytes``."""
@@ -2663,7 +2695,7 @@ def phase_main_moe_q4(params, cfg) -> dict:
         raise AssertionError(f"Mixtral q4 active bytes {eng.active_bytes(len(prompt))}, from the "
                              f"shapes {want_bytes}")
     row = _main_run(eng, cfg, prompt, "mixtral q4 g128 perlayer")
-    want = {"qmatmul_multi_q4": 2 * L, "qmatmul_q4": 2 * L, "qmatmul": 1, "kv_update": L,
+    want = {"qmatmul_multi_q4": 2 * L, "qmatmul_q4": 2 * L, "qmatmul": 1, "kv_update": 0,
             "flash_decode": L, "qmatmul_multi": 0, "fused_decode": 0, "fused_decode_q4": 0}
     per_token, per_chunk = row["launches_per_decode_token"], row["launches_per_512_chunk"]
     if (any(per_token[k] != n for k, n in want.items())
@@ -2994,7 +3026,7 @@ def phase_formats(cases: Cases) -> dict:
         phase_parity_f32(params, cfg, cases)
     L = cfg.n_layers
     runs["mistral_f32"] = phase_main_f32(params, cfg, "mistral f32 perlayer", {
-        "qmatmul_f32": 4 * L + 1, "qmatmul": 0, "kv_update": L, "flash_decode": L,
+        "qmatmul_f32": 4 * L + 1, "qmatmul": 0, "kv_update": 0, "flash_decode": L,
         "fused_decode": 0})
     del params
     torch.cuda.empty_cache()
@@ -3029,6 +3061,10 @@ FP8_TOL = 1e-4  # as the bf16 weights: exact products summed in another order
 NO_LIBRARY_FP8 = ("no one PyTorch call widens fp8 weights to bf16 inside a product with bf16 "
                   "activations (torch._scaled_mm takes fp8 activations with scales)")
 NO_LIBRARY_UPDATE = "no one PyTorch call inserts a row and rotates the sinks"
+# why no library call stands beside the decode step's update and attention
+# (SDPA's time over the same rows, the attention alone, stands beside it)
+NO_LIBRARY_FUSED = ("no one PyTorch call inserts a row, rotates the sinks and attends; "
+                    "sdpa_attention_ms times SDPA over the same rows, the attention alone")
 
 
 def phase_parity_f32_cache(params, q4p, cfg, cases: Cases) -> None:
@@ -3190,17 +3226,26 @@ OFF_MAIN_PATH = {k: "fp8 weights take the plain product on every path (the JAX _
 SUMMARY.update({k + tag: SUMMARY[k] for tag in ("_hd256", "_hd96") for k in ATTENTION_KERNELS})
 SUMMARY["kv_update_hd256g2"] = SUMMARY["kv_update"]
 SUMMARY["kv_update_q_hd256g2"] = SUMMARY["kv_update_q"]
-# the int8 ring insert at the shapes of models without the attention cap:
+# the ring inserts at the shapes of models without the attention cap:
 # checked in phase 3, launched by no main path
 OFF_MAIN_PATH.update(dict.fromkeys(
     ("kv_update_q_hd256", "kv_update_q_hd96"),
     "without Gemma-2's attention cap the int8 per-layer step inserts in flash_decode_q's launch "
     "(kernels 5-7 in one); kv_update_q runs on Gemma-2-9B's capped path (kv_update_q_hd256g2)"))
+OFF_MAIN_PATH.update(dict.fromkeys(
+    ("kv_update_hd256", "kv_update_hd96", "kv_update_f32"),
+    "without Gemma-2's attention cap the float per-layer step inserts in flash_decode's launch "
+    "(kernels 2-3 in one: fused_decode_attention); kv_update runs on Gemma-2-9B's capped path "
+    "(kv_update_hd256g2)"))
 # further rows of the kernels line: another TPU kernel a launch replaces,
 # and the megakernel's int8-KV branch (the fused_decode launches count both)
 ALSO_REPLACES = {"kv_update_q": "xalm_tpu/ops/pallas_attention.py:141",
                  "flash_decode_q": "xalm_tpu/ops/pallas_attention.py:104 and :141 (kernels 5-6, "
                                    "in the same launch: fused_decode_attention_q)"}
+ALSO_REPLACES.update(dict.fromkeys(
+    ("flash_decode", "flash_decode_g7", "flash_decode_hd256", "flash_decode_hd96",
+     "flash_decode_f32"),
+    "xalm_tpu/ops/pallas_attention.py:501 (kernel 2, in the same launch: fused_decode_attention)"))
 INT8_CASE = dict.fromkeys(("fused_decode", "fused_decode_bias", "fused_decode_qk_norm",
                            "fused_decode_gemma", "fused_decode_gemma2"),
                           "int8 KV, B=1 kv_len=520, embed fold")
@@ -3460,9 +3505,9 @@ KERNEL_MS_FRAGS = ("gemm_bf16w_kernel", "gemm_kernel", "prep_x_kernel", "gemm_a8
                    "gemv_q4_kernel", "qmatmul_multi_kernel", "qmatmul_multi_q4_kernel",
                    "gemv_q4_stream_kernel", "multi_q4_stream_kernel",
                    "flash_decode_q_cluster_kernel", "flash_decode_q_split_kernel",
-                   "kv_update_q_kernel")
-KERNEL_MS_DECODE_FRAGS = ("flash_decode_cluster_kernel", "flash_decode_split_kernel",
-                          "flash_decode_combine_kernel")
+                   "kv_update_q_kernel", "kv_update_kernel", "multi_stream_kernel")
+KERNEL_MS_DECODE_FRAGS = ("flash_decode_cluster_kernel", "kv_update_kernel",
+                          "flash_decode_split_kernel", "flash_decode_combine_kernel")
 # kernel 7 with kernels 5-6: this tree's one launch, and the three of the
 # trees before it
 KERNEL_MS_DECODE_Q_FRAGS = ("flash_decode_q_cluster_kernel", "kv_update_q_kernel",
@@ -3603,8 +3648,10 @@ def kernel_ms(other_root: str | None) -> None:
     """Kernel 1's W8A8 GEMM and f32 GEMM (``xq_qmatmul_a8``, ``xq_qmatmul``
     with f32 weights), its tiled GEMM of int8 and bf16 weights
     (``_gemm_turns``), kernel 4 over a bf16 and an f32 cache
-    (``xq_flash_prefill``), kernel 3 over both caches (``xq_flash_decode``,
-    kv_len KERNEL_MS_DECODE_KV: ``_decode_turns``), kernel 7 with kernels
+    (``xq_flash_prefill``), a decode step's kernels 2-3 over both caches
+    (``xq_fused_decode_attention``, older trees ``xq_kv_update`` and
+    ``xq_flash_decode``; kv_len KERNEL_MS_DECODE_KV: ``_decode_turns``),
+    kernel 7 with kernels
     5-6 over an int8 cache (a decode step's insert and attention, the same
     kv_len: ``_decode_q_turns``) and kernel 1's M = 1
     GEMV (``_gemv_turns``) of this checkout and, with ``--root``, of the
@@ -3789,7 +3836,7 @@ def kernel_ms(other_root: str | None) -> None:
                 pf_rows[cache].append(row)
                 held("flash_prefill" + ("_f32" if f32 else ""), row,
                      rel["this"] <= (F32_CACHE_TOL if f32 else 2.0 ** -8))
-            for kvl in KERNEL_MS_DECODE_KV:  # kernel 3 over the same planes
+            for kvl in KERNEL_MS_DECODE_KV:  # kernels 2-3 over the same planes
                 dec_rows[cache].append(
                     _decode_turns(trees, libs, label, cfg, ck, cv, L, gen, held, kvl))
             del ck, cv
@@ -3830,15 +3877,22 @@ def _attention_f64(q, ck, cv, layer: int, pos):
 
 
 def _decode_turns(trees, libs, label, cfg, ck, cv, L, gen, held, kvl: int) -> dict:
-    """Kernel 3 (``xq_flash_decode``: one launch in this tree, a split
-    kernel and a combine in trees before it) at kv_len ``kvl``, B = 1, over
-    the bf16 or f32 planes of ``kernel_ms`` cycling their L layers, in
-    turns with SDPA (``enable_gqa``, q in the cache's type) as
-    ``_in_turns`` times them, the device times beside the event times; held
-    to its plain version at 1e-5 of each row's max. Bound: the K and V rows
-    up to kv_len, q and the output, once each."""
+    """A decode step over the bf16 or f32 planes of ``kernel_ms`` (cycling
+    their L layers) at kv_len ``kvl``, B = 1: the insert of the new K and V
+    rows at kv_len - 1 and the attention, in this tree one launch
+    (``xq_fused_decode_attention``: kernel 2 in kernel 3's launch), in older
+    trees (those without it) ``xq_kv_update`` and then ``xq_flash_decode``,
+    each tree through its own library, in turns with SDPA over the same
+    rows (``enable_gqa``, q in the cache's type; the attention alone) as
+    ``_in_turns`` times them, the device times beside the event times. Each
+    tree's step on copies of one layer is held to the plain composition
+    (``fused_decode_attention_plain``): the planes bit-equal and the output
+    within 1e-5 of each row's max (a miss in this tree raises). Bound: the K
+    and V rows up to kv_len, q, the new rows and the output once each, and
+    the inserted rows written."""
     import ctypes
 
+    import numpy as np
     import torch
     import torch.nn.functional as F
 
@@ -3849,29 +3903,44 @@ def _decode_turns(trees, libs, label, cfg, ck, cv, L, gen, held, kvl: int) -> di
     kh, h, hd, s = cfg.n_kv_heads, cfg.n_heads, cfg.head_dim, cfg.max_seq_len
     f32 = int(ck.dtype == torch.float32)
     q = torch.randn((1, h, hd), generator=gen, device=dev)
-    kv_len = torch.tensor([kvl], dtype=torch.int32, device=dev)
-    # older trees take a work argument (their two-launch int8
-    # flash-decode's workspace, which kernel 3 never read): a null pointer
-    # there
-    work = {tag: ((None,) if "xq_flash_decode_workspace" in trees[tag].SIGNATURES["attention"]
-                  else ()) for tag in trees}
+    kn = torch.randn((1, kh, hd), generator=gen, device=dev)
+    vn = torch.randn((1, kh, hd), generator=gen, device=dev)
+    i32 = lambda v: torch.tensor([v], dtype=torch.int32, device=dev)  # noqa: E731
+    kv_pos, kv_len, rot = i32(kvl - 1), i32(kvl), i32(0)
+    freqs = (1e4 ** (-np.arange(0, hd, 2) / hd)).astype(np.float32)
+    cexp, sexp = (torch.from_numpy(a).to(dev) for a in A.rope_cos_sin_plus1(freqs))
+    fused = {tag: "xq_fused_decode_attention" in trees[tag].SIGNATURES["attention"]
+             for tag in trees}
     outs = {tag: torch.empty((1, h * hd), device=dev) for tag in trees}
     layer = {tag: itertools.cycle(range(L)) for tag in trees}
     stream = torch.cuda.current_stream(dev).cuda_stream
+    sm = ctypes.c_float(1.0 / math.sqrt(hd))
 
-    def call(tag, i=None):
+    def call(tag, k_, v_, i=None):
         i = next(layer[tag]) if i is None else i
-        err = libs[tag]["attention"].xq_flash_decode(
-            q.data_ptr(), A._layer_ptr(ck, i), A._layer_ptr(cv, i), kv_len.data_ptr(),
-            *work[tag], outs[tag].data_ptr(), 1, h, kh, s, hd,
-            ctypes.c_float(1.0 / math.sqrt(hd)), f32, stream)
-        build.check(err, f"{tag} xq_flash_decode")
-    want = A.flash_decode_plain(q, ck, cv, 1, kv_len)
-    rel = {}
+        lib = libs[tag]["attention"]
+        pk, pv = A._layer_ptr(k_, i), A._layer_ptr(v_, i)
+        rows = (kn.data_ptr(), vn.data_ptr(), kv_pos.data_ptr(), rot.data_ptr(),
+                cexp.data_ptr(), sexp.data_ptr())
+        if fused[tag]:
+            err = lib.xq_fused_decode_attention(q.data_ptr(), pk, pv, *rows, kv_len.data_ptr(),
+                                                outs[tag].data_ptr(), 1, h, kh, s, hd, sm, f32,
+                                                stream)
+        else:
+            err = lib.xq_kv_update(pk, pv, *rows, 1, kh, s, hd, f32, stream)
+            build.check(err, f"{tag} xq_kv_update")
+            err = lib.xq_flash_decode(q.data_ptr(), pk, pv, kv_len.data_ptr(),
+                                      outs[tag].data_ptr(), 1, h, kh, s, hd, sm, f32, stream)
+        build.check(err, f"{tag} decode step")
+    ref = [ck[1:2].clone(), cv[1:2].clone()]
+    want = A.fused_decode_attention_plain(q, *ref, 0, kn, vn, kv_pos, kv_len, rot, cexp, sexp)
+    rel, equal = {}, {}
     for tag in trees:
-        call(tag, 1)
+        got = [ck[1:2].clone(), cv[1:2].clone()]
+        call(tag, *got, 0)
         torch.cuda.synchronize()
         rel[tag] = _row_rel(outs[tag], want, hd)
+        equal[tag] = all(torch.equal(x, y) for x, y in zip(got, ref))
     qb = q.to(ck.dtype)[:, :, None]
     lib_layer = itertools.cycle(range(L))
 
@@ -3879,14 +3948,16 @@ def _decode_turns(trees, libs, label, cfg, ck, cv, L, gen, held, kvl: int) -> di
         i = next(lib_layer)
         return F.scaled_dot_product_attention(qb, ck[i, :, :, :kvl], cv[i, :, :, :kvl],
                                               enable_gqa=True)
-    b_ms, b_by = bound(2 * kvl * kh * hd * ck.element_size() + 2 * h * hd * 4,
+    elt = ck.element_size()
+    b_ms, b_by = bound(2 * kvl * kh * hd * elt + 2 * h * hd * 4 + 2 * kh * hd * (4 + elt),
                        4.0 * h * kvl * hd, PEAK_F32)
     cache = "f32" if f32 else "bf16"
-    row = {"case": f"{label} G={h // kh} hd={hd} kv_len={kvl} {cache}", "layers": L,
-           "max_row_rel_err": rel, "bound_ms": b_ms, "bound_by": b_by}
-    row.update(_in_turns({tag: (lambda tag=tag: call(tag)) for tag in trees},
+    row = {"case": f"{label} G={h // kh} hd={hd} kv_len={kvl} {cache}, insert at {kvl - 1}",
+           "layers": L, "max_row_rel_err": rel, "planes_bit_equal": equal, "bound_ms": b_ms,
+           "bound_by": b_by, "library_note": "SDPA over the same rows: the attention alone"}
+    row.update(_in_turns({tag: (lambda tag=tag: call(tag, ck, cv)) for tag in trees},
                          KERNEL_MS_DECODE_FRAGS, lib))
-    held("flash_decode_f32" if f32 else "flash_decode", row, rel["this"] <= 1e-5)
+    held("flash_decode_f32" if f32 else "flash_decode", row, rel["this"] <= 1e-5 and equal["this"])
     return row
 
 
@@ -4060,19 +4131,42 @@ def _gemv_turns(trees, libs, gen, held) -> list[dict]:
 
 
 # --kernel-ms's cases of the kernels on gemv.cuh's warp cores other than
-# the megakernel: (name, model, weights, N, D, k experts or 0, q4 group, x
-# shared by the experts)
-KERNEL_MS_CORES = (("M=1 w2 e4m3", "MISTRAL_7B", "e4m3", "hidden", "dim", 0, 0, True),
-                   ("M=1 w13 q4 g512", "MISTRAL_7B", "q4", "dim", "h2", 0, 512, True),
-                   ("M=1 w2 q4 g512", "MISTRAL_7B", "q4", "hidden", "dim", 0, 512, True),
-                   ("M=1 wqkv q4 g128", "MIXTRAL_8X7B", "q4", "dim", "qkv", 0, 128, True),
-                   ("multi w13 i8, m=1 k=2", "MIXTRAL_8X7B", "i8", "dim", "h2", 2, 0, True),
-                   ("multi w13 q4 g128, m=1 k=2", "MIXTRAL_8X7B", "q4", "dim", "h2", 2, 128, True),
+# the megakernel: (name, model, weights, N, D, k experts or 0, rows of x (an
+# expert's), q4 group, x shared by the experts). Kernel 8's int8 experts at
+# m 1-8 and its bf16 ones: the cases that split them between the
+# per-expert stream (int8 where one launch holds x's m rows: w13 up to 8,
+# w2 up to 3) and qmatmul_multi_kernel (the rest).
+KERNEL_MS_CORES = (("M=1 w2 e4m3", "MISTRAL_7B", "e4m3", "hidden", "dim", 0, 1, 0, True),
+                   ("M=1 w13 q4 g512", "MISTRAL_7B", "q4", "dim", "h2", 0, 1, 512, True),
+                   ("M=1 w2 q4 g512", "MISTRAL_7B", "q4", "hidden", "dim", 0, 1, 512, True),
+                   ("M=1 wqkv q4 g128", "MIXTRAL_8X7B", "q4", "dim", "qkv", 0, 1, 128, True),
+                   ("multi w13 i8, m=1 k=2", "MIXTRAL_8X7B", "i8", "dim", "h2", 2, 1, 0, True),
+                   ("multi w2 i8, per-expert x, m=1 k=2", "MIXTRAL_8X7B", "i8", "hidden", "dim",
+                    2, 1, 0, False),
+                   ("multi w13 i8, m=4 k=2", "MIXTRAL_8X7B", "i8", "dim", "h2", 2, 4, 0, True),
+                   ("multi w13 i8, m=8 k=2", "MIXTRAL_8X7B", "i8", "dim", "h2", 2, 8, 0, True),
+                   ("multi w2 i8, per-expert x, m=3 k=2", "MIXTRAL_8X7B", "i8", "hidden", "dim",
+                    2, 3, 0, False),
+                   ("multi w2 i8, per-expert x, m=4 k=2", "MIXTRAL_8X7B", "i8", "hidden", "dim",
+                    2, 4, 0, False),
+                   ("multi w2 i8, per-expert x, m=8 k=2", "MIXTRAL_8X7B", "i8", "hidden", "dim",
+                    2, 8, 0, False),
+                   ("multi w13 bf16, m=1 k=2", "MIXTRAL_8X7B", "bf16", "dim", "h2", 2, 1, 0,
+                    True),
+                   ("multi w2 bf16, per-expert x, m=1 k=2", "MIXTRAL_8X7B", "bf16", "hidden",
+                    "dim", 2, 1, 0, False),
+                   ("multi w13 bf16, m=8 k=2", "MIXTRAL_8X7B", "bf16", "dim", "h2", 2, 8, 0,
+                    True),
+                   ("multi w2 bf16, per-expert x, m=4 k=2", "MIXTRAL_8X7B", "bf16", "hidden",
+                    "dim", 2, 4, 0, False),
+                   ("multi w13 q4 g128, m=1 k=2", "MIXTRAL_8X7B", "q4", "dim", "h2", 2, 1, 128,
+                    True),
                    ("multi w2 q4 g128, per-expert x, m=1 k=2", "MIXTRAL_8X7B", "q4", "hidden",
-                    "dim", 2, 128, False))
+                    "dim", 2, 1, 128, False))
 # this tree's kernels and the ones they replaced (which the other tree may
 # hold, with its quant_x_kernel launch before the q4 ones)
-KERNEL_MS_CORE_FRAGS = ("gemv_kernel", "qmatmul_multi_kernel", "gemv_q4_stream_kernel",
+KERNEL_MS_CORE_FRAGS = ("gemv_kernel", "qmatmul_multi_kernel", "multi_stream_kernel",
+                        "gemv_q4_stream_kernel",
                         "multi_q4_stream_kernel", "gemv_q4_kernel", "qmatmul_multi_q4_kernel",
                         "quant_x_kernel")
 
@@ -4081,12 +4175,13 @@ def _core_turns(trees, gen, held) -> list[dict]:
     """The other kernels on gemv.cuh's cores (``KERNEL_MS_CORES``): the fp8
     GEMV (``gemv_kernel``), the q4 GEMV (``gemv_q4_stream_kernel``; earlier
     trees: ``quant_x_kernel`` and ``gemv_q4_kernel``) and kernel 8's
-    gathered experts over int8 and packed q4 (``qmatmul_multi_kernel``,
-    ``multi_q4_stream_kernel``; earlier: ``qmatmul_multi_q4_kernel``),
+    gathered experts over int8, bf16 and packed q4 (``multi_stream_kernel``
+    and ``qmatmul_multi_kernel``, ``multi_q4_stream_kernel``; earlier:
+    ``qmatmul_multi_kernel``, ``qmatmul_multi_q4_kernel``),
     through this checkout's wrappers launching each tree's library
     (``_launching``), in turns, layers or experts cycled past twice the L2;
     each held to this checkout's plain version (fp8 and i8 1e-4 of each
-    row's max, q4 bit for bit). No one PyTorch call computes these functions
+    row's max, bf16 1e-4 too, q4 bit for bit). No one PyTorch call computes these functions
     (library null). Bound: the weights and scales, x and the output, once
     each."""
     import torch
@@ -4097,24 +4192,25 @@ def _core_turns(trees, gen, held) -> list[dict]:
 
     dev = torch.device(DEVICE)
     rows = []
-    for name, model, wt, nk, dk, k, group, shared in KERNEL_MS_CORES:
+    for name, model, wt, nk, dk, k, m, group, shared in KERNEL_MS_CORES:
         cfg = getattr(configs, model)
         widths = {"dim": cfg.dim, "hidden": cfg.hidden_dim, "h2": 2 * cfg.hidden_dim,
                   "qkv": cfg.q_dim + 2 * cfg.kv_dim}
         n, d = widths[nk], widths[dk]
-        wn = n // 2 if wt == "q4" else n  # bytes of a weight row
-        sbytes = d * (n // group if group else 1) * 4 if wt != "e4m3" else 0
+        wn = {"q4": n // 2, "bf16": 2 * n}.get(wt, n)  # bytes of a weight row
+        sbytes = d * (n // group if group else 1) * 4 if wt in ("i8", "q4") else 0
         L = _cold_layers(max(k, 1) * (d * wn + sbytes))
         le = L * max(k, 1)
-        if wt == "e4m3":
-            w = (torch.randn((le, d, n), generator=gen, device=dev) * 0.5).to(torch.float8_e4m3fn)
+        if wt in ("e4m3", "bf16"):
+            w = (torch.randn((le, d, n), generator=gen, device=dev) * 0.5).to(
+                torch.float8_e4m3fn if wt == "e4m3" else torch.bfloat16)
             scale = None
         else:
             w = torch.randint(-128 if wt == "q4" else -127, 128, (le, d, wn), generator=gen,
                               device=dev, dtype=torch.int8)
             scale = torch.rand((le, d, n // group) if group else (le, d), generator=gen,
                                device=dev) * 1e-2
-        xrows = 1 if shared else k
+        xrows = m if shared or not k else k * m
         x = torch.randn((xrows, n), generator=gen, device=dev)
         kw = dict(q4_group=group) if group else {}
         if k:
@@ -4141,8 +4237,8 @@ def _core_turns(trees, gen, held) -> list[dict]:
         def call(tag, fn=fn):
             with _launching(trees[tag]):
                 fn(next(layer[tag]))
-        nbytes = max(k, 1) * (d * wn + sbytes) + xrows * n * 4 + max(k, 1) * d * 4
-        b_ms, b_by = bound(nbytes, 2.0 * n * d * max(k, 1), PEAK_BF16)
+        nbytes = max(k, 1) * (d * wn + sbytes + m * d * 4) + xrows * n * 4
+        b_ms, b_by = bound(nbytes, 2.0 * n * d * max(k, 1) * m, PEAK_BF16)
         row = {"case": name, "layers": L, "max_row_rel_err": rel, "bound_ms": b_ms,
                "bound_by": b_by, "library_null": "no one PyTorch call computes it"}
         row.update(_in_turns({tag: (lambda tag=tag: call(tag)) for tag in trees},
@@ -4277,6 +4373,98 @@ def _bulk_copy_rates(lib) -> None:
     del bufs
 
 
+DECODE_WALL_TOKENS = 64  # tokens a generate, after a 512-token prompt
+DECODE_WALL_RUNS = 3     # generates a turn
+DECODE_WALL_CALLS = 400  # attention steps timed on the host a turn
+
+
+def _decode_wall_turn() -> dict:
+    """One turn of ``decode_wall``, in a process whose ``xalm_tpu_torch`` is
+    the checkout's under test: Mistral-7B (random i8 weights from SEED, 32
+    layers) on the per-layer path with a bf16 cache, DECODE_WALL_RUNS
+    generates of DECODE_WALL_TOKENS tokens after a warm-up, each one's
+    decode ms a token; then a layer's attention step alone at kv_len 513,
+    B = 1, DECODE_WALL_CALLS times (the checkout's ``fused_decode_attention``,
+    or where it has none ``kv_update`` then ``flash_decode``): the host's
+    microseconds a call while the card keeps up, and the event ms a call."""
+    import numpy as np
+    import torch
+
+    from xalm_tpu_torch.models.config import MISTRAL_7B as cfg
+    from xalm_tpu_torch.ops import attention as A
+    from xalm_tpu_torch.runtime.engine import Engine
+    from xalm_tpu_torch.utils.synthetic import synthetic_params
+
+    params = synthetic_params(cfg, device=DEVICE, seed=SEED)
+    eng = Engine(cfg, params, kv_dtype=torch.bfloat16, fused_step=False)
+    prompt = np.random.default_rng(SEED).integers(3, cfg.vocab_size, size=512).tolist()
+    eng.generate(prompt[:32], 2, stop_on_eos=False)
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(DECODE_WALL_RUNS):
+        out, stats = eng.generate(prompt, DECODE_WALL_TOKENS, stop_on_eos=False)
+        if len(out) != DECODE_WALL_TOKENS:
+            raise AssertionError(f"generated {len(out)} tokens")
+        ms.append(stats.decode_s / stats.generated_tokens * 1e3)
+    dev = torch.device(DEVICE)
+    kh, h, hd, s = cfg.n_kv_heads, cfg.n_heads, cfg.head_dim, cfg.max_seq_len
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    ck, cv = (torch.randn((1, 1, kh, s, hd), generator=gen, device=dev).to(torch.bfloat16)
+              for _ in range(2))
+    q = torch.randn((1, h, hd), generator=gen, device=dev)
+    kn, vn = (torch.randn((1, kh, hd), generator=gen, device=dev) for _ in range(2))
+    i32 = lambda v: torch.tensor([v], dtype=torch.int32, device=dev)  # noqa: E731
+    kv_pos, kv_len, rot = i32(512), i32(513), i32(0)
+    c, sn = (torch.ones(hd, device=dev) for _ in range(2))
+    if hasattr(A, "fused_decode_attention"):
+        def step():
+            A.fused_decode_attention(q, ck, cv, 0, kn, vn, kv_pos, kv_len, rot, c, sn)
+    else:
+        def step():
+            A.kv_update(ck, cv, 0, kn, vn, kv_pos, rot, c, sn)
+            A.flash_decode(q, ck, cv, 0, kv_len)
+    for _ in range(20):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DECODE_WALL_CALLS):
+        step()
+    host_us = (time.perf_counter() - t0) / DECODE_WALL_CALLS * 1e6
+    torch.cuda.synchronize()
+    return {"decode_ms_per_token": ms, "attention_step_host_us": host_us,
+            "attention_step_event_ms": time_ms(step, iters=DECODE_WALL_CALLS // 4),
+            "fused": hasattr(A, "fused_decode_attention")}
+
+
+def decode_wall(other_root: str) -> None:
+    """Mistral-7B's per-layer decode over a bf16 cache, this checkout's
+    package against ``other_root``'s in one call on one host: both trees'
+    kernel 1 and attention libraries built first (``_trees``), then one
+    process a turn (``--decode-wall-turn``, which imports the named
+    checkout's package), in turns other, this, this, other; each turn's
+    ``_decode_wall_turn`` and the means of each tree."""
+    _trees(other_root, ("qmatmul", "attention"), ("flash_decode",))
+    here = os.path.dirname(os.path.abspath(__file__))
+    runs = {"other": [], "this": []}
+    for tag in ("other", "this", "this", "other"):
+        root = other_root if tag == "other" else here
+        res = subprocess.run([sys.executable, os.path.abspath(__file__), "--decode-wall-turn",
+                              root], capture_output=True, text=True, timeout=600)
+        if res.returncode != 0:
+            raise RuntimeError(f"{tag} turn failed: {res.stderr[-2000:]}")
+        row = json.loads(res.stdout.strip().splitlines()[-1])
+        runs[tag].append(row)
+        emit({"phase": "decode_wall_turn", "tree": tag, "root": root, **row})
+    mean = lambda xs: sum(xs) / len(xs)  # noqa: E731
+    emit({"phase": "decode_wall", "model": "Mistral-7B", "path": "perlayer", "kv_dtype": "bfloat16",
+          **{f"{tag}_decode_ms_per_token": mean([m for r in rs for m in r["decode_ms_per_token"]])
+             for tag, rs in runs.items()},
+          **{f"{tag}_attention_step_host_us": mean([r["attention_step_host_us"] for r in rs])
+             for tag, rs in runs.items()},
+          **{f"{tag}_attention_step_event_ms": mean([r["attention_step_event_ms"] for r in rs])
+             for tag, rs in runs.items()}})
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4286,8 +4474,12 @@ def main(argv=None) -> int:
     ap.add_argument("--kernel-ms", action="store_true",
                     help="only time the TMA-fed GEMMs, the flash prefill and flash-decode "
                          "(see the module's note)")
-    ap.add_argument("--root", help="with --megakernel-ms or --kernel-ms: another checkout "
-                                   "whose kernels are timed in turns with this one's")
+    ap.add_argument("--decode-wall", action="store_true",
+                    help="with --root: only time Mistral-7B's per-layer decode of both "
+                         "checkouts (see the module's note)")
+    ap.add_argument("--decode-wall-turn", metavar="DIR", help=argparse.SUPPRESS)
+    ap.add_argument("--root", help="with --megakernel-ms, --kernel-ms or --decode-wall: another "
+                                   "checkout whose kernels are timed in turns with this one's")
     ap.add_argument("--models", nargs="+", default=["MISTRAL_7B", "QWEN3_8B"],
                     help="with --megakernel-ms: model presets")
     args = ap.parse_args(argv)
@@ -4306,9 +4498,21 @@ def main(argv=None) -> int:
             print(f"error: {r} is not a checkout of the repository (xalm_tpu_torch/ missing)",
                   file=sys.stderr)
             return 2
+    if args.decode_wall_turn:  # one turn of --decode-wall, over that checkout's package
+        sys.path.insert(0, os.path.abspath(args.decode_wall_turn))
+        with torch.inference_mode():
+            print(json.dumps(_decode_wall_turn()))
+        return 0
     sys.path.insert(0, here)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.decode_wall:
+        if other is None:
+            print("error: --decode-wall needs --root", file=sys.stderr)
+            return 2
+        phase_device()
+        decode_wall(other)
+        return 0
     if args.megakernel_ms or args.kernel_ms:
         phase_device()
         with torch.inference_mode():

@@ -1,7 +1,7 @@
 """The f32 and f16 KV caches (``-t f32``, ``-t f16``) and kernel 1's fp8
 branch in the port, against the JAX package on the CPU:
 
-(a) ``flash_decode`` and ``flash_prefill`` (on CPU tensors their plain
+(a) ``fused_decode_attention`` and ``flash_prefill`` (on CPU tensors their plain
     versions, which the CUDA kernels are held to on the card) over an f32
     cache against ``fused_decode_attention`` / ``fused_prefill_attention``
     in interpret mode, at GQA group 7 and head_dim 96 and 256 (the group
@@ -137,10 +137,10 @@ def test_decode_attention_f32_matches_jax(g, hd):
                              jnp.int32(layer), jnp.asarray(kv_pos), jnp.asarray(kv_len),
                              jnp.asarray(rotate), jnp.asarray(cexp[None]),
                              jnp.asarray(sexp[None]))
-        A.kv_update(ck, cv, layer, torch.from_numpy(kn), torch.from_numpy(vn),
-                    torch.from_numpy(kv_pos), torch.from_numpy(rotate), torch.from_numpy(cexp),
-                    torch.from_numpy(sexp))
-        got = A.flash_decode(torch.from_numpy(q), ck, cv, layer, torch.from_numpy(kv_len))
+        got = A.fused_decode_attention(torch.from_numpy(q), ck, cv, layer, torch.from_numpy(kn),
+                                       torch.from_numpy(vn), torch.from_numpy(kv_pos),
+                                       torch.from_numpy(kv_len), torch.from_numpy(rotate),
+                                       torch.from_numpy(cexp), torch.from_numpy(sexp))
         assert got.shape == (b, h * hd)
         assert _rel(got, want) <= F32_TOL, f"pos {p}"
         assert _rel(ck, ckj) <= F32_TOL and _rel(cv, cvj) <= F32_TOL, f"pos {p}"
@@ -332,12 +332,13 @@ def test_harness_identical_to_jax(tiny_i8, capsys, kv):
 @pytest.mark.parametrize("kv", ["f32", "f16"])
 def test_cache_dtype_fixes_the_attention_route(tiny_i8, monkeypatch, kv):
     """An f32 cache runs every prefill chunk through ``flash_prefill`` and
-    every per-layer decode step through ``kv_update`` and ``flash_decode``
-    (one each per layer), and decode on ``fused_decode_step`` where
+    every per-layer decode step through ``fused_decode_attention`` (kernels
+    2 and 3 in one launch, one per layer; no separate ``kv_update``), and
+    decode on ``fused_decode_step`` where
     ``fused_step`` allows; an f16 cache calls none of them, and the dense
     attention runs instead, on both decode paths. Decided by the dtype, not
     by a kernel that failed."""
-    calls = dict.fromkeys(("kv_update", "flash_decode", "flash_prefill",
+    calls = dict.fromkeys(("kv_update", "fused_decode_attention", "flash_prefill",
                            "fused_decode_step", "dense"), 0)
 
     def spy(mod, name, key):
@@ -349,7 +350,7 @@ def test_cache_dtype_fixes_the_attention_route(tiny_i8, monkeypatch, kv):
 
         monkeypatch.setattr(mod, name, counted)
 
-    for name in ("kv_update", "flash_decode", "flash_prefill"):
+    for name in ("kv_update", "fused_decode_attention", "flash_prefill"):
         spy(A, name, name)
     spy(fd, "fused_decode_step", "fused_decode_step")
     spy(llama, "attention", "dense")
@@ -362,13 +363,13 @@ def test_cache_dtype_fixes_the_attention_route(tiny_i8, monkeypatch, kv):
             calls[k] = 0
         port.generate([1, 259, 260, 10, 20], 6, stop_on_eos=False)  # one chunk, 5 steps
         if kv == "f16":
-            want = dict(kv_update=0, flash_decode=0, flash_prefill=0, fused_decode_step=0,
-                        dense=6 * layers)
+            want = dict(kv_update=0, fused_decode_attention=0, flash_prefill=0,
+                        fused_decode_step=0, dense=6 * layers)
         elif fs == "auto":
-            want = dict(kv_update=0, flash_decode=0, flash_prefill=layers, fused_decode_step=5,
-                        dense=0)
+            want = dict(kv_update=0, fused_decode_attention=0, flash_prefill=layers,
+                        fused_decode_step=5, dense=0)
         else:
-            want = dict(kv_update=5 * layers, flash_decode=5 * layers, flash_prefill=layers,
+            want = dict(kv_update=0, fused_decode_attention=5 * layers, flash_prefill=layers,
                         fused_decode_step=0, dense=0)
         assert calls == want, (fs, calls)
 

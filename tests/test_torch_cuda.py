@@ -10,11 +10,13 @@ does not need to have.)
 
 Tolerances are those of ``chip_smoke.py``, each against the max |ref| of
 its own output row (a matmul output row, a query head's output):
-qmatmul and qmatmul_multi 1e-4 and flash_decode 1e-5 (the same exact f32 products summed in
+qmatmul and qmatmul_multi 1e-4 and the flash-decode 1e-5 (the same exact f32 products summed in
 another order); qmatmul with the norm prologue 1e-3 (the rms summed in
 another order can flip the bf16 rounding of a normed activation; one such
 flip moved a row by 4e-4 of its max at N=1024); kv_update bit-equal (each product and the sum rounded as
-the plain version's separate f32 operations); flash_prefill 2^-8 (the
+the plain version's separate f32 operations), and so are the planes of
+fused_decode_attention (kv_update's arithmetic in the flash-decode's launch),
+whose output is held to the flash-decode's 1e-5; flash_prefill 2^-8 (the
 plain version copies the kernel's 64-key tiling, so p is rounded to bf16
 at the same running max, but a score that moves by an f32 ulp can flip one
 bf16 rounding of p, by 2^-8 of a p that may dominate its row). The
@@ -136,6 +138,17 @@ def _row_rel(got, want, row: int) -> float:
     return float((err / want.abs().amax(dim=1).clamp_min(1e-30)).max())
 
 
+def _attend(q, ck, cv, layer: int, kv_len) -> torch.Tensor:
+    """Kernel 3 alone: ``fused_decode_attention`` with the write dropped
+    (kv_pos at the sentinel S) and no sink rotation, planes untouched."""
+    _, b, kh, s, hd = ck.shape
+    z = torch.zeros((b, kh, hd), device=q.device)
+    sentinel = torch.full((b,), s, dtype=torch.int32, device=q.device)
+    none = torch.zeros((b,), dtype=torch.int32, device=q.device)
+    one = torch.ones(hd, device=q.device)
+    return A.fused_decode_attention(q, ck, cv, layer, z, z, sentinel, kv_len, none, one, one)
+
+
 @pytest.mark.parametrize("n", [24576, 81920])
 def test_qmatmul_gemv_at_wide_contractions(dev, n):
     """The M = 1 GEMV with the contraction width of Gemma-7B's w2 (24576:
@@ -190,7 +203,7 @@ def test_attention_kernels_match_plain(dev):
     assert torch.equal(v1, v2) and torch.equal(k1, k2)
     q = torch.randn((b, h, hd), device=dev, generator=g)
     for kvl in ((0, 5), (129, 544), (1, 300)):
-        got = A.flash_decode(q, k1, v1, 1, i32(*kvl))
+        got = _attend(q, k1, v1, 1, i32(*kvl))
         want = A.flash_decode_plain(q, k1, v1, 1, i32(*kvl))
         assert torch.isfinite(got).all()
         assert _row_rel(got, want, hd) < 1e-5
@@ -308,8 +321,9 @@ def test_engine_kernels_match_plain_through_wraps(dev):
         pos += 1
     assert build.LAUNCHES["fused_decode"] == 3 * 64
     total = {k: total[k] + n for k, n in build.LAUNCHES.items()}
-    bf16_kernels = ("qmatmul", "kv_update", "flash_decode", "flash_prefill", "fused_decode")
-    assert all(total[k] > 0 for k in bf16_kernels), total
+    # the per-layer step updates the ring in flash_decode's launch: no kv_update
+    bf16_kernels = ("qmatmul", "flash_decode", "flash_prefill", "fused_decode")
+    assert all(total[k] > 0 for k in bf16_kernels) and total["kv_update"] == 0, total
 
 
 def _expert_stack(dev, g, wdt, le, d, n):
@@ -674,7 +688,9 @@ def test_kernel_engine_takes_f32_and_f16_caches(dev, kv_dtype):
             assert build.LAUNCHES["fused_decode_f32"] == build.LAUNCHES["fused_decode"] == 39
             assert build.LAUNCHES["flash_prefill_f32"] == cfg.n_layers
         else:
-            assert build.LAUNCHES["kv_update_f32"] == build.LAUNCHES["flash_decode_f32"] == 39
+            # the ring update rides in flash_decode_f32's launch
+            assert build.LAUNCHES["flash_decode_f32"] == 39
+            assert build.LAUNCHES["kv_update_f32"] == 0
             assert build.LAUNCHES["kv_update"] == build.LAUNCHES["flash_decode"] == 0
         assert build.LAUNCHES["qmatmul"] > 0
 
@@ -924,8 +940,8 @@ def test_attention_kernels_at_group_match_plain(dev, g, hd):
     """Kernels 2-4 (bf16 cache) and 5-7 (int8 cache) at a GQA group that is
     not a power of two (Qwen2.5-7B has 7, Qwen2.5-14B 5; the flash-prefill
     tile holds 64 / g whole positions) and at head_dim 96 and 256; the
-    tolerances of the tests above: the ring inserts bit-equal (and the int8
-    one in the fused launch), flash_decode 1e-5, flash_prefill 2^-8,
+    tolerances of the tests above: the ring inserts bit-equal (and both in
+    their fused launches), flash_decode 1e-5, flash_prefill 2^-8,
     flash_decode_q 1e-3 of each row's max."""
     gen = torch.Generator(device=dev).manual_seed(g if hd == 128 else hd + g)
     l, b, kh, s = 2, 2, 2, 544
@@ -944,9 +960,16 @@ def test_attention_kernels_at_group_match_plain(dev, g, hd):
     assert torch.equal(k1, k2) and torch.equal(v1, v2)
     q = torch.randn((b, h, hd), device=dev, generator=gen)
     for kvl in ((0, 5), (129, 544), (1, 300)):
-        got = A.flash_decode(q, k1, v1, 1, i32(*kvl))
+        got = _attend(q, k1, v1, 1, i32(*kvl))
         assert got.shape == (b, h * hd) and torch.isfinite(got).all()
         assert _row_rel(got, A.flash_decode_plain(q, k1, v1, 1, i32(*kvl)), hd) < 1e-5, kvl
+    # the same update and attention in one launch
+    f1, g1, f2, g2 = ck.clone(), cv.clone(), ck.clone(), cv.clone()
+    fused = (kn, vn, i32(300, s), i32(301, 544), i32(1, 0), c, sn)
+    got = A.fused_decode_attention(q, f1, g1, 1, *fused)
+    want = A.fused_decode_attention_plain(q, f2, g2, 1, *fused)
+    assert torch.equal(f1, f2) and torch.equal(g1, g2)
+    assert _row_rel(got, want, hd) < 1e-5
     for t, pos in ((64, (0, 100)), (40, (3, 0)), (512, (0, 0))):  # 40: a partial last tile
         qp = torch.randn((b, t, h, hd), device=dev, generator=gen)
         got = A.flash_prefill(qp, k1, v1, 0, i32(*pos))
@@ -968,7 +991,7 @@ def test_attention_kernels_at_group_match_plain(dev, g, hd):
     assert all(torch.equal(x, y) for x, y in zip(p1, p2))
     assert _row_rel(got, want, hd) < 1e-3
     assert build.LAUNCHES["kv_update"] == build.LAUNCHES["kv_update_q"] == 1
-    assert build.LAUNCHES["flash_decode"] == 3 and build.LAUNCHES["flash_prefill"] == 3
+    assert build.LAUNCHES["flash_decode"] == 4 and build.LAUNCHES["flash_prefill"] == 3
     assert build.LAUNCHES["flash_decode_q"] == 4
 
 
@@ -1113,8 +1136,8 @@ def test_attention_kernels_refuse_other_head_dims(dev):
     for hd in (64, 160):
         ck = torch.zeros((1, 1, 1, 64, hd), dtype=torch.bfloat16, device=dev)
         q = torch.zeros((1, 1, hd), device=dev)
-        with pytest.raises(ValueError, match="flash_decode"):
-            A.flash_decode(q, ck, ck.clone(), 0, torch.ones(1, dtype=torch.int32, device=dev))
+        with pytest.raises(ValueError, match="fused_decode_attention"):
+            _attend(q, ck, ck.clone(), 0, torch.ones(1, dtype=torch.int32, device=dev))
         with pytest.raises(ValueError, match="flash_prefill"):
             A.flash_prefill(q[:, None], ck, ck.clone(), 0,
                             torch.zeros(1, dtype=torch.int32, device=dev))
@@ -1295,7 +1318,8 @@ def test_phi3_head_dim_decodes_per_layer_on_the_card(dev):
     out, _ = eng.generate(prompt, 8, stop_on_eos=False)
     assert build.LAUNCHES["fused_decode"] == 0
     assert build.LAUNCHES["flash_prefill"] == cfg.n_layers
-    assert build.LAUNCHES["kv_update"] == build.LAUNCHES["flash_decode"] == 7 * cfg.n_layers
+    # the ring update rides in flash_decode's launch
+    assert build.LAUNCHES["flash_decode"] == 7 * cfg.n_layers and build.LAUNCHES["kv_update"] == 0
     want, _ = Engine(cfg, params, matmul_impl="plain").generate(prompt, 8, stop_on_eos=False)
     assert out[:3] == want[:3]
     cache = eng.new_cache(1)
@@ -1330,8 +1354,8 @@ def test_engine_gemma_families_on_the_card(dev, fam):
         else:
             quant = "kv_dtype" in kw
             upd, dec = ("kv_update_q", "flash_decode_q") if quant else ("kv_update", "flash_decode")
-            # the int8 cache: one launch inserts and attends, kv_update_q only under the cap
-            ins = 0 if quant and not cap else 7 * cfg.n_layers
+            # one launch inserts and attends; kv_update(_q) runs only under the cap
+            ins = 0 if not cap else 7 * cfg.n_layers
             assert build.LAUNCHES[upd] == ins, (kw, build.LAUNCHES)
             assert build.LAUNCHES[dec] == (0 if cap else 7 * cfg.n_layers), (kw, build.LAUNCHES)
             assert build.LAUNCHES["fused_decode"] == 0
@@ -1640,7 +1664,7 @@ def test_attention_kernels_f32_match_plain(dev, g, hd):
     assert torch.equal(k1[1, 0, :, 300], kn[0])  # stored as it is
     q = torch.randn((b, h, hd), device=dev, generator=gen)
     for kvl in ((0, 5), (129, 544), (1, 300)):
-        got = A.flash_decode(q, k1, v1, 1, i32(*kvl))
+        got = _attend(q, k1, v1, 1, i32(*kvl))
         assert got.shape == (b, h * hd) and torch.isfinite(got).all()
         assert _row_rel(got, A.flash_decode_plain(q, k1, v1, 1, i32(*kvl)), hd) < 1e-5, kvl
     cases = ((64, (0, 100)), (40, (3, 0)), (512, (0, 0)), (333, (s - 333, 0)), (77, (5, s - 77)))
@@ -1990,7 +2014,7 @@ def test_flash_decode_at_the_split_edges(dev, g, hd, f32):
         for kvl in zip(kvs, kvs[::-1]):
             q = torch.randn((b, h, hd), device=dev, generator=gen)
             kv_len = torch.tensor(kvl, dtype=torch.int32, device=dev)
-            got = A.flash_decode(q, ck, cv, 1, kv_len)
+            got = _attend(q, ck, cv, 1, kv_len)
             want = A.flash_decode_plain(q, ck, cv, 1, kv_len)
             calls += 1
             assert got.shape == (b, h * hd) and torch.isfinite(got).all(), kvl
@@ -2004,7 +2028,8 @@ def test_flash_decode_at_the_split_edges(dev, g, hd, f32):
 
 @pytest.mark.parametrize("f32", [False, True], ids=["bf16", "f32"])
 def test_flash_decode_replays_in_a_cuda_graph(dev, f32):
-    """One flash_decode call captured in a CUDA graph and replayed three
+    """One attention call (``fused_decode_attention`` with the write
+    dropped: ``_attend``) captured in a CUDA graph and replayed three
     times, q and kv_len rewritten in place before each replay (the kernel
     reads kv_len on the card): each replay equals the eager call on the
     same inputs, bit for bit. Nothing of one launch (no workspace, no
@@ -2017,17 +2042,17 @@ def test_flash_decode_replays_in_a_cuda_graph(dev, f32):
     cv = torch.randn((l, b, kh, s, hd), device=dev, generator=gen).to(dt)
     q = torch.randn((b, h, hd), device=dev, generator=gen)
     kv_len = torch.tensor([777, 4064], dtype=torch.int32, device=dev)
-    A.flash_decode(q, ck, cv, 1, kv_len)  # the launcher's one-time set-up, outside the capture
+    _attend(q, ck, cv, 1, kv_len)  # the launcher's one-time set-up, outside the capture
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        out = A.flash_decode(q, ck, cv, 1, kv_len)
+        out = _attend(q, ck, cv, 1, kv_len)
     for kvl in ((777, 4064), (1, 0), (4096, 16)):
         q.copy_(torch.randn((b, h, hd), device=dev, generator=gen))
         kv_len.copy_(torch.tensor(kvl, dtype=torch.int32, device=dev))
         graph.replay()
         torch.cuda.synchronize()
-        want = A.flash_decode(q, ck, cv, 1, kv_len)
+        want = _attend(q, ck, cv, 1, kv_len)
         assert torch.equal(out, want), kvl
         assert _row_rel(out, A.flash_decode_plain(q, ck, cv, 1, kv_len), hd) < 1e-5, kvl
 
@@ -2432,3 +2457,187 @@ def test_fused_decode_bodies_at_batch_8_match_plain(dev, fam, body):
           f"by step (its worst row) {np.mean(np.asarray(step_rels) <= 1e-5):.4f}")
     if quant:
         assert np.mean(np.asarray(rels) <= 1e-5) >= 0.9, sorted(rels)[-5:]
+
+
+# ----------- kernel 8's int8, q8 and bf16 experts on the per-expert stream
+
+MIXTRAL_MULTI = ((4096, 28672, True), (14336, 4096, False))  # w13 (x shared), w2 (x per expert)
+
+
+@pytest.mark.parametrize("wdt", ["i8", "q8", "bf16"])
+@pytest.mark.parametrize("m", [1, 4, 9])
+@pytest.mark.parametrize("n,d,shared", MIXTRAL_MULTI, ids=["w13", "w2"])
+def test_qmatmul_multi_stream_at_mixtral_widths(dev, wdt, m, n, d, shared):
+    """Kernel 8 at Mixtral-8x7B's widths, k = 2 experts of a 256-expert
+    stack (32 layers of 8), one of them index 255, the last: 1e-4 of each
+    output row's max (the same exact products in f32, summed in another
+    order), one qmatmul_multi launch. int8 and q8 experts run the
+    per-expert stream where one launch holds x's m rows (w13 m 1 and 4, w2
+    m 1; w2's x of 57 KB a row fills shared memory at 3 rows), the rest
+    (m = 9, w2's m = 4, bf16 experts) ``qmatmul_multi_kernel``."""
+    from xalm_tpu_torch.ops.qmatmul import multi_plan
+
+    gen = torch.Generator(device=dev).manual_seed(m + n + len(wdt))
+    le = 256
+    if wdt == "bf16":  # a (le, d, n) bf16 stack of Mixtral's w13 is 60 GB: stride by layer
+        le = 4
+    w, scale = _expert_stack(dev, gen, wdt, le, d, n)
+    idxs = torch.tensor([le - 1, 3], dtype=torch.int32, device=dev)
+    x = torch.randn((m if shared else 2 * m, n), device=dev, generator=gen)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = multi_plan(m, n, d, w.dtype, 2, sms)
+    streamed = wdt != "bf16" and m <= (8 if shared else 3)
+    assert (plan is not None) == streamed and (plan is None or plan[0] == m)
+    build.reset_launches()
+    got = qmatmul_multi(x, w, scale, idxs, shared_x=shared)
+    assert build.LAUNCHES["qmatmul_multi"] == 1
+    want = qmatmul_multi_plain(x, w, scale, idxs, shared_x=shared)
+    assert got.shape == want.shape == (2 * m, d) and torch.isfinite(got).all()
+    assert _row_rel(got, want, d) < 1e-4
+    del w, scale
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("m,shared", [(1, True), (9, False), (3, True)])
+def test_qmatmul_multi_stream_index_outside_the_stack_gives_nan_rows(dev, m, shared):
+    """An expert index past the stack's end gives NaN rows for that expert
+    and the others' rows as the plain version gives them."""
+    gen = torch.Generator(device=dev).manual_seed(40 + m)
+    le, d, n = 6, 1000, 1040
+    w, scale = _expert_stack(dev, gen, "i8", le, d, n)
+    x = torch.randn((m if shared else 2 * m, n), device=dev, generator=gen)
+    got = qmatmul_multi(x, w, scale, torch.tensor([le, 2], dtype=torch.int32, device=dev),
+                        shared_x=shared)
+    assert torch.isnan(got[:m]).all()
+    xo = x if shared else x[m:]
+    want = qmatmul_multi_plain(xo, w, scale, torch.tensor([2], dtype=torch.int32, device=dev),
+                               shared_x=True)
+    assert _row_rel(got[m:], want, d) < 1e-4
+
+
+@pytest.mark.parametrize("family", PLAN_FAMILIES)
+def test_multi_stream_plan_matches_the_launcher(dev, family):
+    """``ops.qmatmul.multi_plan`` (at the device's SM count), which
+    tests/test_torch_multi_stream.py checks on the CPU, equal to what
+    ``xq_qmatmul_multi_plan`` reports at the family's w13 and w2 widths,
+    int8, m 1 to 9, 17 and 255 with k 1, 2 and 8 where k * m <= 512: the
+    same plan, or both refuse (m past 8 or x's rows too wide; the wrapper
+    then launches ``qmatmul_multi_kernel``); both refuse N off the 16
+    granule, bf16 and f32 weights."""
+    import ctypes
+
+    from xalm_tpu_torch.models import config as C
+    from xalm_tpu_torch.ops.qmatmul import multi_plan
+
+    cfg = getattr(C, family)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    lib = build.load_library("qmatmul")
+    for n, d in ((cfg.dim, 2 * cfg.hidden_dim), (cfg.hidden_dim, cfg.dim)):
+        for k in (1, 2, 8):
+            for m in list(range(1, 10)) + [17, 255]:
+                if k * m > 512:
+                    continue
+                got = (ctypes.c_int * 8)()
+                want = multi_plan(m, n, d, torch.int8, k, sms)
+                err = lib.xq_qmatmul_multi_plan(m, n, d, 0, k, got)
+                assert (err == 0) == (want is not None), (m, n, k)
+                assert want is None or tuple(got) == want, (m, n, d, k)
+    assert lib.xq_qmatmul_multi_plan(1, 120, 64, 0, 2, (ctypes.c_int * 8)()) != 0
+    assert lib.xq_qmatmul_multi_plan(1, 4096, 64, 1, 2, (ctypes.c_int * 8)()) != 0
+    assert lib.xq_qmatmul_multi_plan(1, 4096, 64, 2, 2, (ctypes.c_int * 8)()) != 0
+
+
+# ---------------- kernel 2 in kernel 3's launch: fused_decode_attention
+
+# (kv_pos, kv_len, rotate) of each case, a row each: an insert at kv_len - 1,
+# a wrapped insert with sink rotation, kv_len below twice the blocks (the
+# sinks in two blocks' ranges, each re-rotated by its owner), kv_len 0 and
+# 1, and B = 2 with the row at the kv_pos == S sentinel
+FUSED_S = 4096
+FUSED_CASES = (((776,), (777,), (0,)), ((1000,), (FUSED_S,), (1,)), ((9,), (10,), (1,)),
+               ((1,), (2,), (1,)), ((5,), (0,), (1,)), ((0,), (1,), (0,)),
+               ((4000, FUSED_S), (4064, 300), (1, 1)))
+FUSED_SHAPES = [(g, hd) for hd in (128, 96, 256) for g in range(1, 9)]
+
+
+@pytest.mark.parametrize("f32", [False, True], ids=["bf16", "f32"])
+@pytest.mark.parametrize("g,hd", FUSED_SHAPES, ids=[f"hd{hd}-g{g}" for g, hd in FUSED_SHAPES])
+def test_fused_decode_attention_matches_plain(dev, g, hd, f32):
+    """Kernels 2 and 3 in one launch (``fused_decode_attention``) against
+    the plain composition (``kv_update_plain``, then ``flash_decode_plain``)
+    in ``FUSED_CASES`` at KH 8 (16 blocks a (batch, kv head) on an H100) and
+    KH 2: the cache planes bit-equal (each row stored or rotated with
+    kv_update_kernel's arithmetic by the block that reads it), the output
+    within 1e-5 of each row's max (kernel 3's tolerance), kv_len 0 giving
+    0; counted under flash_decode (``_f32``), with no kv_update launch."""
+    gen = torch.Generator(device=dev).manual_seed(7 * g + hd + f32)
+    dt = torch.float32 if f32 else torch.bfloat16
+    l, s = 2, FUSED_S
+    freqs = (1e4 ** (-np.arange(0, hd, 2) / hd)).astype(np.float32)
+    c, sn = (torch.from_numpy(a).to(dev) for a in A.rope_cos_sin_plus1(freqs))
+    i32 = lambda *v: torch.tensor(v, dtype=torch.int32, device=dev)  # noqa: E731
+    build.reset_launches()
+    calls = 0
+    for kh in (8, 2):
+        for kv_pos, kv_len, rot in FUSED_CASES:
+            b = len(kv_pos)
+            ck = torch.randn((l, b, kh, s, hd), device=dev, generator=gen).to(dt)
+            cv = torch.randn((l, b, kh, s, hd), device=dev, generator=gen).to(dt)
+            k1, v1, k2, v2 = ck.clone(), cv.clone(), ck.clone(), cv.clone()
+            q = torch.randn((b, kh * g, hd), device=dev, generator=gen)
+            kn = torch.randn((b, kh, hd), device=dev, generator=gen)
+            vn = torch.randn((b, kh, hd), device=dev, generator=gen)
+            args = (kn, vn, i32(*kv_pos), i32(*kv_len), i32(*rot), c, sn)
+            got = A.fused_decode_attention(q, k1, v1, 1, *args)
+            want = A.fused_decode_attention_plain(q, k2, v2, 1, *args)
+            calls += 1
+            assert torch.equal(k1, k2) and torch.equal(v1, v2), (kh, kv_pos, kv_len)
+            assert got.shape == (b, kh * g * hd) and torch.isfinite(got).all()
+            assert _row_rel(got, want, hd) < 1e-5, (kh, kv_pos, kv_len)
+            for i, n in enumerate(kv_len):
+                if n == 0:
+                    assert not got[i].any()
+            del ck, cv, k1, v1, k2, v2
+    counter = "flash_decode_f32" if f32 else "flash_decode"
+    assert build.LAUNCHES[counter] == calls
+    assert build.LAUNCHES["kv_update"] == build.LAUNCHES["kv_update_f32"] == 0
+
+
+@pytest.mark.parametrize("f32", [False, True], ids=["bf16", "f32"])
+def test_fused_decode_attention_replays_in_a_cuda_graph(dev, f32):
+    """One fused float-cache step captured in a CUDA graph and replayed, q,
+    the new rows, kv_pos, kv_len and rotate rewritten in place before each
+    replay (the kernel reads them on the card): each replay equals an eager
+    launch on the same inputs and planes, bit for bit, planes and output
+    (Mistral-7B's shapes, 4096-row window)."""
+    gen = torch.Generator(device=dev).manual_seed(19 + f32)
+    dt = torch.float32 if f32 else torch.bfloat16
+    l, b, kh, s, hd, g = 2, 2, 8, 4096, 128, 4
+    h = kh * g
+    ck = torch.randn((l, b, kh, s, hd), device=dev, generator=gen).to(dt)
+    cv = torch.randn((l, b, kh, s, hd), device=dev, generator=gen).to(dt)
+    freqs = (1e4 ** (-np.arange(0, hd, 2) / hd)).astype(np.float32)
+    c, sn = (torch.from_numpy(a).to(dev) for a in A.rope_cos_sin_plus1(freqs))
+    i32 = lambda *v: torch.tensor(v, dtype=torch.int32, device=dev)  # noqa: E731
+    q = torch.randn((b, h, hd), device=dev, generator=gen)
+    kn = torch.randn((b, kh, hd), device=dev, generator=gen)
+    vn = torch.randn((b, kh, hd), device=dev, generator=gen)
+    kv_pos, kv_len, rot = i32(776, 1000), i32(777, 4064), i32(0, 1)
+    args = (kn, vn, kv_pos, kv_len, rot, c, sn)
+    A.fused_decode_attention(q, ck, cv, 1, *args)  # the launcher's set-up, outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = A.fused_decode_attention(q, ck, cv, 1, *args)
+    for pos, kvl, r in (((776, 1000), (777, 4064), (0, 1)), ((0, s), (1, 0), (0, 0)),
+                        ((4000, 2), (4096, 3), (1, 1))):
+        for t in (q, kn, vn):
+            t.copy_(torch.randn(t.shape, device=dev, generator=gen))
+        for t, v in ((kv_pos, pos), (kv_len, kvl), (rot, r)):
+            t.copy_(i32(*v))
+        ek, ev = ck.clone(), cv.clone()
+        graph.replay()
+        torch.cuda.synchronize()
+        want = A.fused_decode_attention(q, ek, ev, 1, *args)
+        assert torch.equal(out, want), pos
+        assert torch.equal(ck, ek) and torch.equal(cv, ev), pos

@@ -633,8 +633,11 @@ def test_attention_plain_versions_match_jax_at_group(g, hd):
                 c.copy_(_to_torch(jplane))
             if dt == "int8":
                 got = A.flash_decode_q(t(q), *tc, layer, t(kv_len))
-            else:
-                got = A.flash_decode(t(q), *tc, layer, t(kv_len))
+            else:  # the write dropped (kv_pos at the sentinel) and no rotation: the attention
+                z, none = t(np.zeros_like(kn)), t(np.zeros_like(rot))
+                got = A.fused_decode_attention(t(q), *tc, layer, z, z,
+                                               t(np.full_like(kv_pos, S_PHYS)), t(kv_len), none,
+                                               tc1, ts1)
             assert got.shape == (B, h * hd)
             assert _row_rel(got.reshape(B * h, hd), np.asarray(out).reshape(B * h, hd)) <= tol, (
                 dt, st)

@@ -360,7 +360,7 @@ def _tiny_params():
 def test_kernel_impl_makes_one_megakernel_call_per_decode_step(monkeypatch, tiny_i8):
     """impl="kernel": each decode step is one fused_decode_step call, and
     the per-layer attention wrappers are not called at all."""
-    calls = {"fused_decode_step": 0, "kv_update": 0, "flash_decode": 0}
+    calls = {"fused_decode_step": 0, "kv_update": 0, "fused_decode_attention": 0}
     real = fd.fused_decode_step
 
     def counted(*args, **kw):
@@ -368,13 +368,14 @@ def test_kernel_impl_makes_one_megakernel_call_per_decode_step(monkeypatch, tiny
         return real(*args, **kw)
 
     monkeypatch.setattr(fd, "fused_decode_step", counted)
-    for name in ("kv_update", "flash_decode"):
+    for name in ("kv_update", "fused_decode_attention"):
         monkeypatch.setattr(A, name, lambda *a, _n=name, **k: calls.__setitem__(_n, calls[_n] + 1))
     port = Engine.from_xalm(tiny_i8, context=WINDOW, kv_dtype=torch.float32,
                             compute_dtype=torch.float32, device="cpu", wcls_i8=True)
     out, stats = port.generate([1, 259, 260, 10], 2 * WINDOW, stop_on_eos=False)
     assert len(out) == 2 * WINDOW
-    assert calls == {"fused_decode_step": 2 * WINDOW - 1, "kv_update": 0, "flash_decode": 0}
+    assert calls == {"fused_decode_step": 2 * WINDOW - 1, "kv_update": 0,
+                     "fused_decode_attention": 0}
     assert port.step(np.array([[5]]), np.array([40], np.int32), port.new_cache(1),
                      logits_mode="token")[0].shape == (1,)
 

@@ -133,9 +133,10 @@ def test_decode_attention_through_wraps(dtype):
             jnp.asarray(kv_pos), jnp.asarray(kv_len), jnp.asarray(rotate),
             jnp.asarray(cexp[None]), jnp.asarray(sexp[None]),
         )
-        ops_attn.kv_update(ck, cv, layer, torch.from_numpy(kn), torch.from_numpy(vn),
-                           torch.from_numpy(kv_pos.copy()), torch.from_numpy(rotate), cexp_t, sexp_t)
-        out = ops_attn.flash_decode(torch.from_numpy(q), ck, cv, layer, torch.from_numpy(kv_len.copy()))
+        out = ops_attn.fused_decode_attention(
+            torch.from_numpy(q), ck, cv, layer, torch.from_numpy(kn), torch.from_numpy(vn),
+            torch.from_numpy(kv_pos.copy()), torch.from_numpy(kv_len.copy()),
+            torch.from_numpy(rotate), cexp_t, sexp_t)
         assert out.shape == (b, h * hd)
         assert _rel(out.numpy(), np.asarray(out_j)) < tol, f"pos {p}"
         for got, want in ((ck, ckj), (cv, cvj)):
@@ -146,7 +147,11 @@ def test_decode_attention_through_wraps(dtype):
 def test_decode_attention_kv_len_zero_gives_zero():
     ck = torch.randn(1, 2, 2, 32, 16)
     q = torch.randn(2, 4, 16)
-    out = ops_attn.flash_decode(q, ck, ck.clone(), 0, torch.tensor([0, 5], dtype=torch.int32))
+    i32 = lambda *v: torch.tensor(v, dtype=torch.int32)  # noqa: E731
+    z, one = torch.zeros(2, 2, 16), torch.ones(16)
+    # the write dropped (kv_pos at the sentinel S = 32) and no rotation: the attention alone
+    out = ops_attn.fused_decode_attention(q, ck, ck.clone(), 0, z, z, i32(32, 32), i32(0, 5),
+                                          i32(0, 0), one, one)
     assert torch.all(out[0] == 0) and torch.isfinite(out).all()
 
 

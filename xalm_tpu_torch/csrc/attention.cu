@@ -8,21 +8,21 @@
 // (L, B, KH, S, hd) planes (the caller offsets by the layer), S being the
 // physical window (padded to a multiple of 32).
 //
-// 1. xq_kv_update replaces xalm_tpu/ops/pallas_attention.py::_update_kernel.
-//    Grid (B, KH), one thread per head dim. Writes the new K/V row (f32 ->
-//    bf16, or as it is in an f32 cache) at kv_pos (dropped when kv_pos >= S:
-//    the sentinel), then, for wrapped rows, rotates the KV_SINKS sink keys
-//    by one position with the interleaved-pair rope: out = v*cexp +
-//    swap(v)*sexp, swap[2j] = -v[2j+1], swap[2j+1] = v[2j], each product
-//    and the sum rounded separately as in the plain version. Bound: bytes,
-//    and at a few KB per layer it is launch latency. It stays a separate
-//    launch before kernel 2's attention on the same stream: folded into
-//    attention as it is, its writes would race with the blocks that read
-//    those rows. The int8 cache's fold (item 4) avoids the race by handing
-//    each row to exactly one block, which both writes and reads it; kernel
-//    2's fold into kernel 3 that way is ROADMAP §2's alternative.
+// 1. xq_kv_update replaces xalm_tpu/ops/pallas_attention.py::_update_kernel
+//    as a launch of its own, for the one path that attends densely after it
+//    (Gemma-2's attention cap); every other float-cache decode step updates
+//    in item 2's launch (xq_fused_decode_attention). Grid (B, KH), one
+//    thread per head dim. Writes the new K/V row (f32 -> bf16, or as it is
+//    in an f32 cache) at kv_pos (dropped when kv_pos >= S: the sentinel),
+//    then, for wrapped rows, rotates the KV_SINKS sink keys by one position
+//    with the interleaved-pair rope: out = v*cexp + swap(v)*sexp, swap[2j]
+//    = -v[2j+1], swap[2j+1] = v[2j], each product and the sum rounded
+//    separately as in the plain version. Bound: bytes, and at a few KB per
+//    layer it is launch latency (1.6 us on the device, 21 us of the host's
+//    launch a call on an H100): the reason it rides in item 2's launch.
 //
-// 2. xq_flash_decode replaces _attn_kernel. The TPU grid walks the
+// 2. xq_fused_decode_attention replaces _attn_kernel, with item 1 in its
+//    launch (below). The TPU grid walks the
 //    sequence in order carrying a running max and sum; blocks on the card
 //    run in no order. One launch a call, flash_decode_cluster_kernel: grid
 //    (P, B x KH) in clusters of the P blocks of one (batch, kv head), P
@@ -58,6 +58,19 @@
 //    rows up to kv_len, read once: 3.2 MB, 0.96 us at Mistral's shapes and
 //    kv_len 777); at such sizes the launch, one dependent trip to memory
 //    and the cluster's barrier, which the design takes once each.
+//    Item 1 rides in this launch (the port's fused_decode_attention over a
+//    float cache, the JAX function of that name whole; kv_pos at the
+//    sentinel S and rotate 0 give the attention alone): each row the update writes (the new K and V rows at
+//    kv_pos, the sink keys where rotate is set) has one owner, the block
+//    whose row range holds it (the last block for a row at or past n, which
+//    no block reads; ops/attention.py decode_row_owner), so the block that
+//    writes a row is the only one that reads it. Its producer warp writes
+//    them with item 1's arithmetic (a row a warp, lane l dims l + 32 k:
+//    bit-equal) before the copy of the first stage that holds one (at the
+//    latest once the ring's first stages are out, while the producer would
+//    only wait for a free slot), behind a fence.proxy.async.global (the generic stores, then the bulk
+//    copy's read of the same bytes), as item 4 does. Rows are rotated one
+//    by one, so sinks split over two blocks (n < 2P) rotate in their owners.
 //
 // 3. xq_kv_update_q replaces _insert_q_kernel and _sink_q_kernel as a
 //    launch of their own, over an int8 cache with per-row f32 scale planes
@@ -419,14 +432,68 @@ __device__ __forceinline__ void fc_combine(const float* pm, float* pl, Acc acc, 
   }
 }
 
+// kv_update_kernel's arithmetic by one warp (lane l holds dims l + 32 k,
+// a pair's partner one lane over) on the rows of one (batch, kv head)
+// stripe that this block owns: the new K and V rows knew, vnew (HD f32
+// each) stored at row kvp (none where kvp < 0), then the sink keys whose
+// bit is set in `sinks` rotated by one position, each product and the sum
+// rounded as the plain version's separate f32 operations: bit-equal
+template <int HD, typename CT>
+__device__ __forceinline__ void fc_update_rows(CT* stk, CT* stv, const float* __restrict__ knew,
+                                               const float* __restrict__ vnew, int kvp, int sinks,
+                                               const float* __restrict__ cexp,
+                                               const float* __restrict__ sexp, int lane) {
+  constexpr int K = HD / 32;
+  if (kvp >= 0) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int d = lane + 32 * k;
+      stk[(size_t)kvp * HD + d] = xq_to_cache<CT>(knew[d]);
+      stv[(size_t)kvp * HD + d] = xq_to_cache<CT>(vnew[d]);
+    }
+    __syncwarp();  // the inserted row, before the sinks are read
+  }
+  float v[KV_SINKS][K], sw[KV_SINKS][K];
+#pragma unroll
+  for (int r = 0; r < KV_SINKS; ++r) {
+    if (!((sinks >> r) & 1)) continue;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int d = lane + 32 * k;
+      v[r][k] = xq_from_cache(stk[(size_t)r * HD + d]);
+      const float p = xq_from_cache(stk[(size_t)r * HD + (d ^ 1)]);
+      sw[r][k] = (d & 1) ? p : -p;
+    }
+  }
+  __syncwarp();  // every lane has read the sinks before any writes them
+#pragma unroll
+  for (int r = 0; r < KV_SINKS; ++r) {
+    if (!((sinks >> r) & 1)) continue;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int d = lane + 32 * k;
+      stk[(size_t)r * HD + d] =
+          xq_to_cache<CT>(__fadd_rn(__fmul_rn(v[r][k], cexp[d]), __fmul_rn(sw[r][k], sexp[d])));
+    }
+  }
+}
+
 // Grid (P, B * KH), clusters of the P blocks of one (batch, kv head); block
 // p attends over rows [floor(p n / P), floor((p + 1) n / P)), n = kv_len[b]
 // read here (the host never reads it), and the cluster combines the P
 // partials through distributed shared memory (see the note, item 2).
+// Kernel 2's update rides in the launch: each row it writes (the
+// new K and V rows at kv_pos, dropped at kv_pos >= S; the sink keys where
+// rotate[b] is set) is written by the block whose range holds it, the last
+// block for a row past n (which no block reads), so the block that writes a
+// row is the only one that reads it.
 template <int G, int HD, typename CT>
 __global__ void __launch_bounds__(FC_THREADS) flash_decode_cluster_kernel(
-    const float* __restrict__ q, const CT* __restrict__ ck, const CT* __restrict__ cv,
-    const int* __restrict__ kv_len, float* __restrict__ out, int KH, int S, float sm_scale) {
+    const float* __restrict__ q, CT* ck, CT* cv, const float* __restrict__ knew,
+    const float* __restrict__ vnew, const int* __restrict__ kv_pos,
+    const int* __restrict__ rotate, const float* __restrict__ cexp,
+    const float* __restrict__ sexp, const int* __restrict__ kv_len, float* __restrict__ out,
+    int KH, int S, float sm_scale) {
   constexpr int VPL = fd_vpl<HD>(), NL = HD / VPL;
   constexpr int GP = fc_gp(G), NR = fc_nr<G, HD, CT>(), V = NR * GP;
   constexpr int LOG_V = V >= 32 ? 5 : V >= 16 ? 4 : V >= 8 ? 3 : V >= 4 ? 2 : V >= 2 ? 1 : 0;
@@ -449,6 +516,10 @@ __global__ void __launch_bounds__(FC_THREADS) flash_decode_cluster_kernel(
   const int b = blockIdx.y / KH, h = blockIdx.y % KH, H = KH * G;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n = min(max(kv_len[b], 0), S);
+  // kernel 2's row and rotation flag, read beside kv_len so that their trips
+  // to memory overlap rather than delay the producer's first copy
+  const int kp = kv_pos[b];
+  const bool rot = rotate[b] != 0;
   const int r0 = (int)((long long)p * n / P), r1 = (int)((long long)(p + 1) * n / P);
   const int nst = (r1 - r0 + R - 1) / R;  // stages of this block's rows
   const size_t first = (((size_t)b * KH + h) * S + r0) * HD;
@@ -466,17 +537,41 @@ __global__ void __launch_bounds__(FC_THREADS) flash_decode_cluster_kernel(
   if (warp == W) {
     // the producer warp: stage it's K and V rows, two bulk copies (the rows
     // are contiguous in the (B, KH, S, hd) stripe), once the consumers have
-    // released the round before in its slot
-    if (lane == 0) {
-      for (int it = 0; it < nst; ++it) {
-        const int s = it % FC_STAGES;
-        if (it >= FC_STAGES) xq_mbar_wait(&empty[s], (it / FC_STAGES - 1) & 1);
-        const uint32_t bytes = (uint32_t)min(R, r1 - r0 - it * R) * HD * sizeof(CT);
-        CT* dst = ring + (size_t)s * 2 * PLANE;
-        xq_mbar_expect_tx(&full[s], 2 * bytes);
-        xq_bulk_g2s(dst, ck + first + (size_t)it * PLANE, bytes, &full[s]);
-        xq_bulk_g2s(dst + PLANE, cv + first + (size_t)it * PLANE, bytes, &full[s]);
+    // released the round before in its slot; the rows this block writes
+    // (kernel 2) before the copy of the first stage that holds one, and no
+    // later than once the ring's first FC_STAGES copies are out, when the
+    // producer would only wait for a slot (a row past n: nobody reads it)
+    int kvp = -1, sinks = 0, at = nst;  // the stage before whose copy the writes go
+    const auto owns = [&](int r) { return r < n ? r0 <= r && r < r1 : p == P - 1; };
+    if (kp >= 0 && kp < S && owns(kp)) {
+      kvp = kp;
+      if (kp < n) at = (kp - r0) / R;
+    }
+#pragma unroll
+    for (int r = 0; r < KV_SINKS; ++r) {
+      if (rot && owns(r)) {
+        sinks |= 1 << r;
+        if (r < n) at = min(at, (r - r0) / R);
       }
+    }
+    at = min(at, FC_STAGES);
+    for (int it = 0; it <= nst; ++it) {
+      if ((kvp >= 0 || sinks != 0) && it == at) {
+        const size_t src = ((size_t)b * KH + h) * HD;
+        const size_t stripe = ((size_t)b * KH + h) * S * HD;
+        fc_update_rows<HD, CT>(ck + stripe, cv + stripe, knew + src, vnew + src, kvp, sinks, cexp,
+                               sexp, lane);
+        xq_fence_proxy_async_global();  // this lane's stores, before the copies read them
+        __syncwarp();
+      }
+      if (it == nst || lane != 0) continue;
+      const int s = it % FC_STAGES;
+      if (it >= FC_STAGES) xq_mbar_wait(&empty[s], (it / FC_STAGES - 1) & 1);
+      const uint32_t bytes = (uint32_t)min(R, r1 - r0 - it * R) * HD * sizeof(CT);
+      CT* dst = ring + (size_t)s * 2 * PLANE;
+      xq_mbar_expect_tx(&full[s], 2 * bytes);
+      xq_bulk_g2s(dst, ck + first + (size_t)it * PLANE, bytes, &full[s]);
+      xq_bulk_g2s(dst + PLANE, cv + first + (size_t)it * PLANE, bytes, &full[s]);
     }
   } else {
     // the G heads' q, scaled, in registers: lane l holds dims [l VPL, (l + 1) VPL)
@@ -1638,10 +1733,20 @@ XQ_EXPORT int xq_kv_update(void* ck, void* cv, const void* knew, const void* vne
   });
 }
 
-XQ_EXPORT int xq_flash_decode(const void* q, const void* ck, const void* cv, const void* kv_len,
-                              void* out, int B, int H, int KH, int S, int hd, float sm_scale,
-                              int f32, void* stream) {
-  if (B < 1 || KH < 1 || H % KH != 0 || S < 1) return (int)cudaErrorInvalidValue;
+// Kernels 2 and 3 in one launch (the port's fused_decode_attention) over
+// one layer of a bf16 (f32 == 0) or f32 cache (ck, cv): the new K and V
+// rows (knew, vnew, (B, KH, hd) f32) stored at kv_pos (dropped at kv_pos >=
+// S, the sentinel) and the sink keys re-rotated where rotate is set (cexp,
+// sexp), each row by the block that reads it, before it reads it; then q
+// attends over the first kv_len rows.
+XQ_EXPORT int xq_fused_decode_attention(const void* q, void* ck, void* cv, const void* knew,
+                                        const void* vnew, const void* kv_pos, const void* rotate,
+                                        const void* cexp, const void* sexp, const void* kv_len,
+                                        void* out, int B, int H, int KH, int S, int hd,
+                                        float sm_scale, int f32, void* stream) {
+  if (B < 1 || KH < 1 || H % KH != 0 || S < 1 || hd % 32 != 0 || knew == nullptr ||
+      vnew == nullptr || kv_pos == nullptr || rotate == nullptr)
+    return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   const int P = fc_splits(B, KH, xq_device_sms());
   return (int)for_cache(f32, [&](auto t) {
@@ -1654,15 +1759,17 @@ XQ_EXPORT int xq_flash_decode(const void* q, const void* ck, const void* cv, con
         const cudaError_t e = fc_config<G, HD, CT>(P, B * KH, s, cfg, attr);
         if (e != cudaSuccess) return e;
         const cudaError_t l = cudaLaunchKernelEx(
-            &cfg, flash_decode_cluster_kernel<G, HD, CT>, (const float*)q, (const CT*)ck,
-            (const CT*)cv, (const int*)kv_len, (float*)out, KH, S, sm_scale);
+            &cfg, flash_decode_cluster_kernel<G, HD, CT>, (const float*)q, (CT*)ck, (CT*)cv,
+            (const float*)knew, (const float*)vnew, (const int*)kv_pos, (const int*)rotate,
+            (const float*)cexp, (const float*)sexp, (const int*)kv_len, (float*)out, KH, S,
+            sm_scale);
         return l != cudaSuccess ? l : cudaGetLastError();
       });
     });
   });
 }
 
-// xq_flash_decode's launch over a bf16 (f32 == 0) or an f32 cache on the
+// xq_fused_decode_attention's launch over a bf16 (f32 == 0) or an f32 cache on the
 // current device: plan (3 ints) = {blocks a (batch, kv head), which are one
 // cluster; key rows a stage; stages}; cudaErrorInvalidValue for a shape it
 // refuses, cudaErrorInvalidConfiguration where the card cannot hold such a

@@ -110,15 +110,47 @@
 //
 // over the k experts of the (L*E, D, N) flattened expert stack, with x
 // shared by the experts (gate/up) or one m-row group per expert (down).
-// It is the same weight stream as the GEMV route, k experts' worth: bytes
-// bound. Design: a (row tile, expert) grid; each block reads its expert's
-// index from device memory (the TPU kernel's scalar prefetch), so the
-// router's choice never reaches the host and one launch covers all k
-// experts; weight offsets are 64-bit (the flat stack passes 2^31 bytes);
-// x is staged into shared memory as bf16 in column chunks (14336-wide down
-// rows and up to 8 rows at a time); the warp core (gemv.cuh's) and the
-// scale epilogue (gemv_store) are the GEMV route's. f32 experts stage x as
-// f32 (the TPU kernel's compute dtype for f32 weights).
+// Each block reads its expert's index from device memory (the TPU kernel's
+// scalar prefetch), so the router's choice never reaches the host and one
+// launch covers all k experts; weight offsets are 64-bit (the flat stack
+// passes 2^31 bytes); an index outside the stack gives NaN rows and no
+// read. It is the same weight stream as the GEMV route, k experts' worth:
+// bound by bytes (Mixtral's w13 at k = 2, 234.9 MB: 70.3 us at 3.35 TB/s;
+// w2 35.1 us), about 14 weight bytes a clock an SM. Design for int8 and q8
+// experts (multi_stream_kernel), the packed-q4 stream's skeleton (below):
+// one persistent block an SM of 16 warps (8 where 16 rings do not fit
+// beside x), sms / k blocks an expert, each warp a contiguous band of its
+// block's rows streamed through a ring of its own, two stages of whole rows
+// (w13's 4 KB rows one a stage) or of a long row's equal segments in whole
+// 128 bytes (w2's 14 KB rows in three), one bulk copy a stage; x's m rows
+// staged once a block as the f32 values of bf16(x) (57 KB a row at w2's N
+// = 14336) while the first copies are in flight, in a layout that keeps a
+// quarter warp's reads on distinct banks (ms_x_index); each lane takes
+// 16-byte words of the landed stage, the codes widened exactly by byte
+// permutes (xq_i8x4_to_f32), four f32 FMA chains a word and row of x, the
+// lanes summed at a row's end, times the row scale (i8) or the q8 1/100.
+// It takes the m <= 8 rows that fit beside its rings in one launch (w13 up
+// to 8, w2 up to 3); everything else keeps qmatmul_multi_kernel: a (16-row
+// tile, expert) grid, x staged into shared memory in column chunks behind a
+// block barrier, gemv.cuh's xq_gemv2 core and gemv_store's epilogue (f32
+// experts stage x as f32, the TPU kernel's compute dtype for f32 weights).
+// The split was measured, Mixtral's widths, k = 2, H100 80GB HBM3 at 700 W,
+// chip_smoke.py --kernel-ms against the older kernel in the same call
+// (device ms; events where marked): int8 w13 m = 1, 4, 8 0.0842 / 0.1557 /
+// 0.3276 against 0.1058 / 0.2348 / 0.4257, w2 m = 1, 3 0.0457 / 0.0964
+// against 0.0678 / 0.1022; but w2 m = 4 and 8 as launches of 3 rows, each
+// reading the weights again, 0.1569 / 0.2749 against 0.1319 / 0.2292
+// (events). bf16 experts on the same stream (eight weights a 16-byte
+// word), in a variant of it: w2 m = 1 0.0845 against 0.0889, w13 m = 1 0.1589 against
+// 0.1581, w13 m = 8 0.5077 against 0.4036, w2 m = 4 0.2841 against 0.1338
+// (events); so they keep the older kernel. The other route measured for the
+// int8 products, the codes widened exactly to bf16 and multiplied on the
+// tensor cores (mma.sync m16n8k16, the weights as A, x as B, D's diagonal
+// the dot), ran slower at m = 1: w13 0.1149 against the FMAs' 0.0862, w2
+// 0.0659 against 0.0449 (an earlier call). Its lanes spend the same byte
+// permutes widening the codes and then pack them to bf16 pairs, and all
+// but the diagonal of each mma is wasted on one row of x; so the FMAs were
+// kept.
 //
 // The same TPU kernel's two int8-activation branches (pallas_matmul.py
 // :116-147 packed q4, :161-167 W8A8) quantise x per row first: int8 codes
@@ -1130,12 +1162,15 @@ __global__ void __launch_bounds__(GV_THREADS) qmatmul_multi_kernel(
   }
 }
 
+bool multi_shape_ok(int k, int m, int N, int D, int LE) {
+  return k >= 1 && m >= 1 && m < MX_MAX_M && k * m <= MX_MAX_KM && N >= 16 && N % 16 == 0 &&
+         D >= 1 && LE >= 1;
+}
+
 template <typename WT>
 int launch_multi(const float* x, const WT* w, const float* scale, float qscale, const int* idxs,
                  float* y, int k, int m, int shared_x, int N, int D, int LE, cudaStream_t s) {
-  if (k < 1 || m < 1 || m >= MX_MAX_M || k * m > MX_MAX_KM || N < 16 || N % 16 != 0 || D < 1 ||
-      LE < 1)
-    return (int)cudaErrorInvalidValue;
+  if (!multi_shape_ok(k, m, N, D, LE)) return (int)cudaErrorInvalidValue;
   const int mb = m < GV_MAX_M ? m : GV_MAX_M;
   const int xbytes = (int)sizeof(xq_act_t<WT>);
   const int chunk = MX_SMEM / (mb * xbytes) / 512 * 512;  // a multiple of 512: whole lane strides
@@ -1524,6 +1559,258 @@ cudaError_t launch_q4(const float* x, const int8_t* w, const float* scale, const
   return cudaSuccess;
 }
 
+// ---- kernel 8's int8 and q8 experts: the per-expert stream (see the
+// note). The q4 stream's skeleton and plan: Q4_MAX_WARPS warps (8 where 16
+// rings do not fit beside x), MS_SLOTS stages a warp of whole rows or of a
+// long row's equal segments (a multiple of 128 bytes), x's m rows staged
+// once a block as f32 values of bf16(x) in a layout that keeps each lane's
+// reads off shared memory's bank conflicts (ms_x_index), one launch for all
+// m <= MS_MAX_M rows.
+constexpr int MS_SLOTS = 2;   // a warp's stages in flight (3 ran no faster)
+constexpr int MS_MAX_M = 8;   // x's rows an expert
+constexpr int MS_XV = 8;      // float4s of x a thread holds in the prologue
+
+struct MsPlan {
+  int mb;     // x's rows an expert, all in the one launch
+  int warps;  // warps a block
+  int bpe;    // blocks an expert (grid.x); grid.y is the k experts
+  int slot;   // bytes of a stage
+  int rps;    // whole rows a stage (1 for a segmented row)
+  int nseg;   // segments a row (1: whole rows a stage)
+  int segb;   // bytes a segment (a multiple of 128)
+  int smem;   // dynamic shared memory of the launch
+};
+
+// The stream's launch for M rows of x an expert by (D, N) int8 weight rows,
+// k experts, on a card of `sms` SMs. In order of preference: 16 warps, and
+// the most bytes a stage from 8 KB down (to 4 KB at 16 warps, 2 KB at 8) in
+// whole KB: whole rows where a row fits (rps of them; the stage holds just
+// those bytes), else equal segments in whole 128 bytes; x (M, N) f32 beside
+// the rings. One block an SM: sms / k blocks an expert, at least one and no
+// more than a warp a row. False for a shape the stream does not take, M >
+// MS_MAX_M or x too wide to stand beside the rings among them: those keep
+// qmatmul_multi_kernel, which reads the weights once however many rows (a
+// stream of launches of fewer rows, each reading them again, lost to it).
+bool ms_plan(int M, int N, int D, int k, int sms, MsPlan* p) {
+  if (M < 1 || M > MS_MAX_M || D < 1 || k < 1 || N < 16 || N % 16 != 0) return false;
+  const int rowb = N;
+  for (int warps = Q4_MAX_WARPS; warps >= 8; warps /= 2)
+    for (int sw = Q4_SLOT_MAX; sw >= (warps > 8 ? Q4_SLOT_WIDE : Q4_SLOT_MIN); sw -= 1024) {
+      MsPlan q{M, warps, 0, 0, 1, 1, rowb, 0};
+      if (rowb <= sw) {
+        q.rps = sw / rowb;
+        q.slot = q.rps * rowb;
+      } else {
+        q.nseg = (rowb + sw - 1) / sw;
+        q.segb = ((rowb + q.nseg - 1) / q.nseg + 127) / 128 * 128;
+        q.slot = q.segb;
+      }
+      q.smem = warps * MS_SLOTS * q.slot + M * N * 4;
+      if (q.smem > Q4_SMEM) continue;
+      const int per = sms / k > 1 ? sms / k : 1;
+      const int most = (D + warps - 1) / warps;
+      q.bpe = per < most ? per : most;
+      *p = q;
+      return true;
+    }
+  return false;
+}
+
+// Where x's element n lies in the stream's shared copy of a row: the 16-byte
+// weight word jw = n / 16 takes x's 16 values n .. as four chunks of four
+// floats, chunk c at chunk (c + jw / 2) % 4 of the word's slot: the 8 lanes
+// of a quarter warp, which read 8 consecutive words' chunk c at once, then
+// hit 8 distinct 16-byte bank groups
+__host__ __device__ inline int ms_x_index(int n) {
+  const int jw = n / 16, c = (n % 16) / 4;
+  return jw * 16 + 4 * ((c + (jw >> 1)) & 3) + n % 4;
+}
+
+// acc[m] += the products of the 16 codes of the 16-byte word raw (word jw
+// of the row) and x's rows m < M (ms_x_index's layout, row m at m * ldx):
+// four codes a chunk, each chunk's four products an FMA chain, the chunks
+// added in pairs, then to acc
+template <int MAXM>
+__device__ __forceinline__ void ms_word(const float* xs, int ldx, int jw, const int4& raw, int M,
+                                        float (&acc)[MAXM]) {
+  float wf[16];
+  xq_unpack16<int8_t>(raw, wf);
+#pragma unroll
+  for (int m = 0; m < MAXM; ++m) {
+    if (m >= M) break;
+    const float* xw = xs + (size_t)m * ldx + jw * 16;
+    float pc[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float4 xv = *reinterpret_cast<const float4*>(xw + 4 * ((c + (jw >> 1)) & 3));
+      float t = xv.x * wf[4 * c];
+      t = fmaf(xv.y, wf[4 * c + 1], t);
+      t = fmaf(xv.z, wf[4 * c + 2], t);
+      pc[c] = fmaf(xv.w, wf[4 * c + 3], t);
+    }
+    acc[m] += (pc[0] + pc[1]) + (pc[2] + pc[3]);
+  }
+}
+
+struct MsArgs {
+  int M, N, D;       // x's rows an expert (<= MAXM; y's rows an expert), widths
+  int shared_x, LE;  // x shared by the experts; experts in the stack
+  float qscale;      // the q8 fixed scale (no row scale), 0: none
+  int slot, rps, nseg, segb;
+};
+
+// Rows [d0, d1) of expert e = blockIdx.y (the stack's expert idxs[e]) by x's
+// M rows, as the note says. y row e * M + r, x row (shared_x ? 0 : e * M) + r.
+template <int MAXM>
+__global__ void __launch_bounds__(Q4_MAX_WARPS * 32, 1)
+    multi_stream_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
+                        const float* __restrict__ scale, const int* __restrict__ idxs,
+                        float* __restrict__ y, MsArgs a) {
+  // [warps][MS_SLOTS][slot] rings, then x (M, N) f32 (ms_x_index's layout)
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ uint64_t full[Q4_MAX_WARPS][MS_SLOTS];
+  const int tid = threadIdx.x, lane = tid & 31;
+  // the warp's index from lane 0, known warp-uniform (see q4_stream)
+  const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0);
+  const int nthreads = blockDim.x, nwarps = nthreads >> 5;
+  const int N = a.N, D = a.D, M = a.M, rowb = N;
+  const int e = blockIdx.y;
+  const int idx = idxs[e];  // read on the card, before any copy
+  const int d0 = (int)((long long)blockIdx.x * D / gridDim.x);
+  const int d1 = (int)((long long)(blockIdx.x + 1) * D / gridDim.x);
+  float* ye = y + (size_t)e * M * D;
+  if (idx < 0 || idx >= a.LE) {  // an index outside the stack: NaN rows, no read
+    for (int i = tid; i < M * (d1 - d0); i += nthreads)
+      ye[(size_t)(i / (d1 - d0)) * D + d0 + i % (d1 - d0)] = NAN;
+    return;
+  }
+  // 64-bit offsets: the flat stack passes 2^31 bytes
+  const unsigned char* we = reinterpret_cast<const unsigned char*>(w) + (size_t)idx * D * rowb;
+  const float* se = scale != nullptr ? scale + (size_t)idx * D : nullptr;
+  const float* xe = x + (size_t)(a.shared_x ? 0 : e * M) * N;
+  const int e0 = d0 + (d1 - d0) * warp / nwarps, e1 = d0 + (d1 - d0) * (warp + 1) / nwarps;
+  const int nit = a.nseg > 1 ? (e1 - e0) * a.nseg : (e1 - e0 + a.rps - 1) / a.rps;
+  unsigned char* ring = smem + (size_t)warp * MS_SLOTS * a.slot;
+  float* xs = reinterpret_cast<float*>(smem + (size_t)nwarps * MS_SLOTS * a.slot);
+
+  // stage `it` of this warp: its first row, the byte of that row it starts
+  // at, its rows and its bytes (contiguous in memory)
+  auto stage = [&](int it, int& r0, int& off, int& nr, int& bytes) {
+    if (a.nseg > 1) {
+      r0 = e0 + it / a.nseg;
+      off = (it % a.nseg) * a.segb;
+      nr = 1;
+      bytes = min(a.segb, rowb - off);
+    } else {
+      r0 = e0 + it * a.rps;
+      off = 0;
+      nr = min(a.rps, e1 - r0);
+      bytes = nr * rowb;
+    }
+  };
+  auto load = [&](int it) {  // lane 0: one bulk copy into slot it % MS_SLOTS
+    int r0, off, nr, bytes;
+    stage(it, r0, off, nr, bytes);
+    const int k = it % MS_SLOTS;
+    xq_mbar_expect_tx(&full[warp][k], (uint32_t)bytes);
+    xq_bulk_g2s(ring + (size_t)k * a.slot, we + (size_t)r0 * rowb + off, (uint32_t)bytes,
+                &full[warp][k]);
+  };
+  if (lane == 0) {
+    for (int k = 0; k < MS_SLOTS; ++k) xq_mbar_init(&full[warp][k], 1);
+    xq_mbar_fence_init();
+  }
+  auto issue = [&]() {  // lane 0: the ring's first stages
+    if (lane == 0)
+      for (int it = 0; it < min(MS_SLOTS, nit); ++it) load(it);
+  };
+
+  // prologue: x as f32 values of bf16(x), once a block. A load waits behind
+  // the bulk copies in flight to its SM, so x is read first: where x fits in
+  // MS_XV float4s a thread it is held in registers while the ring's first
+  // stages are issued, else it is stored before they are.
+  const float4* x4 = reinterpret_cast<const float4*>(xe);
+  const int nx4 = M * N / 4;  // N % 16 == 0: a float4 never crosses a row
+  auto put = [&](int i, const float4& v) {
+    const int m = i / (N / 4), n = (i % (N / 4)) * 4;
+    const auto r = [](float f) { return __bfloat162float(__float2bfloat16_rn(f)); };
+    *reinterpret_cast<float4*>(xs + (size_t)m * N + ms_x_index(n)) =
+        make_float4(r(v.x), r(v.y), r(v.z), r(v.w));
+  };
+  if (nx4 <= MS_XV * nthreads) {
+    float4 xv[MS_XV];
+#pragma unroll
+    for (int k = 0; k < MS_XV; ++k) {
+      const int i = tid + k * nthreads;
+      xv[k] = i < nx4 ? __ldg(x4 + i) : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    issue();
+#pragma unroll
+    for (int k = 0; k < MS_XV; ++k)
+      if (tid + k * nthreads < nx4) put(tid + k * nthreads, xv[k]);
+  } else {
+    for (int i = tid; i < nx4; i += nthreads) put(i, __ldg(x4 + i));
+    issue();
+  }
+  __syncthreads();
+
+  float acc[MAXM] = {};
+  for (int it = 0; it < nit; ++it) {
+    const int k = it % MS_SLOTS;
+    int r0, off, nr, bytes;
+    stage(it, r0, off, nr, bytes);
+    xq_mbar_wait(&full[warp][k], (it / MS_SLOTS) & 1);
+    const unsigned char* st = ring + (size_t)k * a.slot;
+    const bool ends = a.nseg == 1 || it % a.nseg == a.nseg - 1;  // the rows end here
+    const int words = (a.nseg > 1 ? bytes : rowb) / 16, w0 = off / 16;
+    for (int r = 0; r < nr; ++r) {
+      const unsigned char* row = st + (size_t)r * rowb;
+#pragma unroll 4
+      for (int j = lane; j < words; j += 32)  // a warp reads 512 contiguous bytes a step
+        ms_word<MAXM>(xs, N, w0 + j, *reinterpret_cast<const int4*>(row + j * 16), M, acc);
+      if (ends) {
+        const int d = r0 + r;
+#pragma unroll
+        for (int m = 0; m < MAXM; ++m) {
+          if (m >= M) break;
+          float v = xq_warp_sum(acc[m]);
+          if (se != nullptr) v *= se[d];
+          else if (a.qscale != 0.f) v *= a.qscale;
+          if (lane == 0) ye[(size_t)m * D + d] = v;
+          acc[m] = 0.f;
+        }
+      }
+    }
+    __syncwarp();  // every lane has read the slot: refill it
+    if (lane == 0 && it + MS_SLOTS < nit) load(it + MS_SLOTS);
+  }
+}
+
+// The stream's launch for a.M <= MAXM rows of x an expert, at the plan's stages
+template <int MAXM>
+cudaError_t launch_ms_rows(const MsPlan& p, const float* x, const int8_t* w, const float* scale,
+                           const int* idxs, float* y, int k, const MsArgs& a, cudaStream_t s) {
+  static bool allowed = false;  // opted in to the most dynamic shared memory
+  if (!allowed) {
+    const cudaError_t e = xq_allow_smem(multi_stream_kernel<MAXM>, Q4_SMEM);
+    if (e != cudaSuccess) return e;
+    allowed = true;
+  }
+  multi_stream_kernel<MAXM><<<dim3(p.bpe, k), p.warps * 32, p.smem, s>>>(x, w, scale, idxs, y,
+                                                                         a);
+  return cudaGetLastError();
+}
+
+// The stream over the plan's m rows of x an expert, k experts, in one launch
+cudaError_t launch_ms(const MsPlan& p, const float* x, const int8_t* w, const float* scale,
+                      float qscale, const int* idxs, float* y, int k, int shared_x, int N, int D,
+                      int LE, cudaStream_t s) {
+  const MsArgs a{p.mb, N, D, shared_x, LE, qscale, p.slot, p.rps, p.nseg, p.segb};
+  return a.M == 1   ? launch_ms_rows<1>(p, x, w, scale, idxs, y, k, a, s)
+         : a.M <= 4 ? launch_ms_rows<4>(p, x, w, scale, idxs, y, k, a, s)
+                    : launch_ms_rows<8>(p, x, w, scale, idxs, y, k, a, s);
+}
+
 // W8A8 tiles: x rows a block (two consumer warpgroups of 64), bytes of
 // depth a stage (one 128-byte swizzle row), the weight rows of a wgmma and
 // the K granule the wrappers require
@@ -1760,8 +2047,12 @@ XQ_EXPORT int xq_gemv_plan(int M, int N, int D, int w_kind, void* plan) {
 }
 
 // The gathered top-k expert matmul: x (m or k*m, N) f32, w the (LE, D, N)
-// int8, bf16 or f32 expert stack (w_kind), scale its (LE, D) row scales or
-// null, idxs (k,) int32 on the device, y (k*m, D) f32. One launch.
+// int8, bf16, f32 or fp8 expert stack (w_kind), scale its (LE, D) row
+// scales or null, idxs (k,) int32 on the device, y (k*m, D) f32. int8 and
+// q8 experts take the per-expert stream (x and w 16-byte aligned) where one
+// launch holds x's m rows beside its rings (xq_qmatmul_multi_plan); the
+// rest, bf16, f32 and fp8 experts among them, one launch of
+// qmatmul_multi_kernel (see the note for the times that chose this).
 XQ_EXPORT int xq_qmatmul_multi(const void* x, const void* w, int w_kind, const void* scale,
                                float qscale, const void* idxs, void* y, int k, int m,
                                int shared_x, int N, int D, int LE, void* stream) {
@@ -1770,6 +2061,11 @@ XQ_EXPORT int xq_qmatmul_multi(const void* x, const void* w, int w_kind, const v
   const float* sc = (const float*)scale;
   const int* ix = (const int*)idxs;
   float* yf = (float*)y;
+  MsPlan p;
+  if (w_kind == W_I8 && multi_shape_ok(k, m, N, D, LE) && ms_plan(m, N, D, k, xq_device_sms(), &p))
+    return (int)launch_ms(p, xf, (const int8_t*)w, sc, qscale, ix, yf, k, shared_x, N, D, LE, s);
+  if (w_kind == W_I8)
+    return launch_multi(xf, (const int8_t*)w, sc, qscale, ix, yf, k, m, shared_x, N, D, LE, s);
   if (w_kind == W_BF16)
     return launch_multi(xf, (const __nv_bfloat16*)w, sc, qscale, ix, yf, k, m, shared_x, N, D, LE, s);
   if (w_kind == W_F32)
@@ -1778,7 +2074,23 @@ XQ_EXPORT int xq_qmatmul_multi(const void* x, const void* w, int w_kind, const v
     return launch_multi(xf, (const __nv_fp8_e4m3*)w, sc, qscale, ix, yf, k, m, shared_x, N, D, LE, s);
   if (w_kind == W_E5M2)
     return launch_multi(xf, (const __nv_fp8_e5m2*)w, sc, qscale, ix, yf, k, m, shared_x, N, D, LE, s);
-  return launch_multi(xf, (const int8_t*)w, sc, qscale, ix, yf, k, m, shared_x, N, D, LE, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The per-expert stream's launch on the current device for m rows of x an
+// expert by (D, N) int8 rows (w_kind 0), k experts: plan (8 ints) = {x's
+// rows (m), warps a block, blocks an expert, bytes a stage, whole rows a
+// stage, segments a row, bytes a segment, dynamic shared memory};
+// cudaErrorInvalidValue for a shape or kind the stream does not take
+// (xq_qmatmul_multi then launches qmatmul_multi_kernel). ops/qmatmul.py's
+// multi_plan is held to it on the card.
+XQ_EXPORT int xq_qmatmul_multi_plan(int m, int N, int D, int w_kind, int k, void* plan) {
+  MsPlan p;
+  if (w_kind != W_I8 || !ms_plan(m, N, D, k, xq_device_sms(), &p))
+    return (int)cudaErrorInvalidValue;
+  const int v[8] = {p.mb, p.warps, p.bpe, p.slot, p.rps, p.nseg, p.segb, p.smem};
+  for (int i = 0; i < 8; ++i) static_cast<int*>(plan)[i] = v[i];
+  return (int)cudaSuccess;
 }
 
 // The gathered packed-q4 expert matmul: x (m or k*m, N) f32, w the (LE, D,

@@ -38,7 +38,9 @@ engine feeds one token at a time (T = 1).
 The cache's dtype fixes the attention's route before any launch, as the
 JAX forward's ``_fused_cache_ok`` gate does (``supported_cache_dtype``): a
 bf16 or f32 cache takes kernels 2-4 on the per-layer paths (an f32 cache
-their f32 instantiations); an f16 cache, which no attention kernel of
+their f32 instantiations; a t = 1 step kernels 2 and 3 in one launch,
+``fused_decode_attention``, and under Gemma-2's attention cap ``kv_update``,
+then the dense attention); an f16 cache, which no attention kernel of
 either package takes, scatters its rows, rotates the sinks at t = 1 and
 runs the dense attention on every path (``xalm_tpu/models/llama.py``
 ``:783-808``), its matmuls still on kernel 1. This is the reference's
@@ -463,7 +465,8 @@ def forward(
         x = x * cfg.embed_scale
     lp = params.layers
     kv_update = attn_ops.kv_update if impl == "kernel" else attn_ops.kv_update_plain
-    flash_decode = attn_ops.flash_decode if impl == "kernel" else attn_ops.flash_decode_plain
+    fused_decode = (attn_ops.fused_decode_attention if impl == "kernel"
+                    else attn_ops.fused_decode_attention_plain)
     flash_prefill = attn_ops.flash_prefill if impl == "kernel" else attn_ops.flash_prefill_plain
     kv_update_q = attn_ops.kv_update_q if impl == "kernel" else attn_ops.kv_update_q_plain
     fused_decode_q = (attn_ops.fused_decode_attention_q if impl == "kernel"
@@ -522,11 +525,16 @@ def forward(
                 attn_out = fused_decode_q(q[:, 0].contiguous(), ck, cv, ks, vs, layer, kn, vn,
                                           kv_pos0, kv_len0, rot_flag, cexp1, sexp1)[:, None]
         elif float_kernels and t == 1:
-            # decode: in-place ring write + sink rotation, then flash-decode
-            kv_update(ck, cv, layer, k[:, 0].contiguous(), v[:, 0].contiguous(),
-                      kv_pos0, rot_flag, cexp1, sexp1)
-            attn_out = dense(layer) if cap else flash_decode(
-                q[:, 0].contiguous(), ck, cv, layer, kv_len0)[:, None]
+            # decode: the in-place ring write + sink rotation and the
+            # flash-decode in one launch; under the cap the write alone,
+            # then the dense attention
+            kn, vn = k[:, 0].contiguous(), v[:, 0].contiguous()
+            if cap:
+                kv_update(ck, cv, layer, kn, vn, kv_pos0, rot_flag, cexp1, sexp1)
+                attn_out = dense(layer)
+            else:
+                attn_out = fused_decode(q[:, 0].contiguous(), ck, cv, layer, kn, vn, kv_pos0,
+                                        kv_len0, rot_flag, cexp1, sexp1)[:, None]
         elif quant:
             # int8 prefill chunk, and "xla": quantised scatter writes, the
             # sinks re-rotated at t = 1, the dequantised layer into the

@@ -2,11 +2,14 @@
 ``csrc/attention.cu``, whose note says what bounds each on the H100 and how
 its design answers that):
 
-- bf16 or f32 cache: ``kv_update`` (decode ring update), ``flash_decode``
-  and ``flash_prefill`` (replace ``xalm_tpu/ops/pallas_attention.py``'s
-  ``_update_kernel``, ``_attn_kernel`` and ``_prefill_kernel``, which take
-  both, ``supported_cache_dtype``); the cache type is a template parameter
-  of each, and an f32 cache's launches count under ``kv_update_f32``,
+- bf16 or f32 cache: ``fused_decode_attention`` (the JAX function of that
+  name: ``_update_kernel``'s ring update and ``_attn_kernel``'s
+  flash-decode in one launch of kernel 3's cluster kernel; with kv_pos at
+  the sentinel S and rotate 0 the attention alone), ``kv_update`` (the update alone, a
+  launch of its own, for Gemma-2's capped path, which attends densely after
+  it) and ``flash_prefill`` (``_prefill_kernel``; both caches,
+  ``supported_cache_dtype``); the cache type is a template parameter of
+  each, and an f32 cache's launches count under ``kv_update_f32``,
   ``flash_decode_f32`` and ``flash_prefill_f32``. f32 rounds nothing to
   bf16, as the TPU kernel's ``compute_dtype`` is f32 for an f32 cache:
   flash-prefill's two products run on the tensor cores in split TF32
@@ -53,8 +56,10 @@ __all__ = [
     "rope_cos_sin_plus1",
     "kv_update",
     "kv_update_plain",
-    "flash_decode",
     "flash_decode_plain",
+    "fused_decode_attention",
+    "fused_decode_attention_plain",
+    "decode_row_owner",
     "flash_prefill",
     "flash_prefill_plain",
     "quant_rows",
@@ -129,7 +134,7 @@ def _check_scales(what: str, cache_k: torch.Tensor, k_scale, v_scale) -> None:
 
 
 def _layer_ptr(cache: torch.Tensor, layer: int) -> int:
-    return cache.data_ptr() + layer * cache[0].numel() * cache.element_size()
+    return cache.data_ptr() + layer * cache.stride(0) * cache.element_size()
 
 
 def _vec_i32(what: str, t: torch.Tensor, b: int, device) -> None:
@@ -249,23 +254,67 @@ def decode_rows(kv_len: int, s: int, splits: int) -> list[tuple[int, int]]:
     return [(p * n // splits, (p + 1) * n // splits) for p in range(splits)]
 
 
-def flash_decode(q, cache_k, cache_v, layer: int, kv_len) -> torch.Tensor:
-    """Kernel 3 wrapper: q (B, H, hd) f32, kv_len (B,) int32 -> (B, H*hd).
-    One launch (``decode_plan``); kv_len stays on the card."""
-    if not q.is_cuda:
-        return flash_decode_plain(q, cache_k, cache_v, layer, kv_len)
-    what = "flash_decode"
+def decode_row_owner(row: int, kv_len: int, s: int, splits: int) -> int:
+    """The block of kernel 3's ``splits`` that writes cache row ``row`` of
+    one (batch, kv head) in the launch that also updates the ring
+    (``fused_decode_attention``), as each block's producer warp decides it
+    on the card: the block whose rows (``decode_rows``) hold it, and for a
+    row at or past n = kv_len clamped to [0, s], which no block reads, the
+    last block. So the block that writes a row is the only one that reads
+    it."""
+    for p, (r0, r1) in enumerate(decode_rows(kv_len, s, splits)):
+        if r0 <= row < r1:
+            return p
+    return splits - 1
+
+
+def _check_decode(what: str, q, cache_k, cache_v, layer: int, kv_len) -> int:
     f32 = _check_cache(what, cache_k, cache_v, layer)
     _, b, kh, s, hd = cache_k.shape
-    h = q.shape[1]
-    _need(q.dtype == torch.float32 and q.shape == (b, h, hd) and q.is_contiguous(), what,
-          "q must be contiguous (B, H, hd) f32")
+    _need(q.dtype == torch.float32 and q.shape == (b, q.shape[1], hd) and q.is_contiguous(),
+          what, "q must be contiguous (B, H, hd) f32")
     _vec_i32(what, kv_len, b, q.device)
+    return f32
+
+
+def fused_decode_attention_plain(q, cache_k, cache_v, layer, k_new, v_new, kv_pos, kv_len,
+                                 rotate, cexp, sexp) -> torch.Tensor:
+    """``kv_update_plain`` (the insert and the sink rotation, in place), then
+    ``flash_decode_plain`` over the updated layer. -> (B, H*hd)."""
+    kv_update_plain(cache_k, cache_v, layer, k_new, v_new, kv_pos, rotate, cexp, sexp)
+    return flash_decode_plain(q, cache_k, cache_v, layer, kv_len)
+
+
+def fused_decode_attention(q, cache_k, cache_v, layer: int, k_new, v_new, kv_pos, kv_len,
+                           rotate, cexp, sexp) -> torch.Tensor:
+    """Kernels 2 and 3 in one launch (the JAX ``fused_decode_attention``
+    over a bf16 or f32 cache): the (B, KH, hd) f32 rows k_new/v_new stored
+    into the layer at kv_pos (dropped at kv_pos >= S_phys), the sink keys
+    re-rotated where ``rotate`` is set (cexp/sexp (hd,)), then q (B, H, hd)
+    attends over the first kv_len rows -> (B, H*hd). Each row written is
+    written by the one block that reads it (``decode_row_owner``). The cache
+    is updated in place; counted under ``flash_decode`` (``_f32``)."""
+    if not q.is_cuda:
+        return fused_decode_attention_plain(q, cache_k, cache_v, layer, k_new, v_new, kv_pos,
+                                            kv_len, rotate, cexp, sexp)
+    what = "fused_decode_attention"
+    f32 = _check_decode(what, q, cache_k, cache_v, layer, kv_len)
+    _, b, kh, s, hd = cache_k.shape
+    h = q.shape[1]
+    for t in (k_new, v_new):
+        _need(t.dtype == torch.float32 and t.shape == (b, kh, hd) and t.is_contiguous()
+              and t.device == cache_k.device, what, "new rows must be contiguous (B, KH, hd) f32")
+    for t in (cexp, sexp):
+        _need(t.dtype == torch.float32 and t.shape == (hd,) and t.is_contiguous()
+              and t.device == cache_k.device, what, "cexp/sexp must be contiguous (hd,) f32")
+    _vec_i32(what, kv_pos, b, cache_k.device)
+    _vec_i32(what, rotate, b, cache_k.device)
     lib = build.load_library("attention")
     out = torch.empty((b, h * hd), dtype=torch.float32, device=q.device)
-    err = lib.xq_flash_decode(
-        q.data_ptr(), _layer_ptr(cache_k, layer), _layer_ptr(cache_v, layer), kv_len.data_ptr(),
-        out.data_ptr(), b, h, kh, s, hd, 1.0 / math.sqrt(hd), f32,
+    err = lib.xq_fused_decode_attention(
+        q.data_ptr(), _layer_ptr(cache_k, layer), _layer_ptr(cache_v, layer), k_new.data_ptr(),
+        v_new.data_ptr(), kv_pos.data_ptr(), rotate.data_ptr(), cexp.data_ptr(), sexp.data_ptr(),
+        kv_len.data_ptr(), out.data_ptr(), b, h, kh, s, hd, 1.0 / math.sqrt(hd), f32,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check(err, what)

@@ -27,8 +27,10 @@ it launches its kernel on the card, and nowhere else. A launch of kernel 1
 or 8 counts under its branch: ``qmatmul`` and ``qmatmul_multi`` for int8
 and bf16 weights, ``_f32``, ``_fp8``, ``_q4`` and ``_a8`` for the others.
 Kernels 2-4 count an f32 cache's launches under ``_f32``. The launch that
-inserts, re-rotates and attends over an int8 cache (kernels 5-7,
-``fused_decode_attention_q``) counts under ``flash_decode_q``. A megakernel
+updates the ring and attends over a float cache (kernels 2-3,
+``fused_decode_attention``) counts under ``flash_decode`` (``_f32``), and
+the one that inserts, re-rotates and attends over an int8 cache (kernels
+5-7, ``fused_decode_attention_q``) under ``flash_decode_q``. A megakernel
 launch counts under its body (``fused_decode``, ``_a8``, ``_q4``), under
 ``fused_decode_f32`` too with an f32 cache, and, when a family fold is on,
 under that fold (``fused_decode_bias``, ``fused_decode_qk_norm``;
@@ -193,6 +195,10 @@ SIGNATURES = {
         "xq_qmatmul": (_I, [_P, _P, _F, _P, _I, _P, _F, _P, _P, _I, _I, _I, _P]),
         # x, w, w_kind, scale, qscale, idxs, y, k, m, shared_x, N, D, LE, stream
         "xq_qmatmul_multi": (_I, [_P, _P, _I, _P, _F, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+        # m, N, D, w_kind (0 int8), k, plan (8 int32: x's rows, warps a block, blocks an
+        # expert, bytes a stage, rows a stage, segments a row, bytes a segment, shared
+        # memory) of kernel 8's per-expert stream
+        "xq_qmatmul_multi_plan": (_I, [_I, _I, _I, _I, _I, _P]),
         # x, w (packed), scale (LE, D, N/group), idxs, xq, sx, y, k, m, shared_x, N, D, LE,
         # group, stream
         "xq_qmatmul_multi_q4": (_I, [_P] * 7 + [_I] * 7 + [_P]),
@@ -223,8 +229,9 @@ SIGNATURES = {
         # ck, cv, knew, vnew, kv_pos, rotate, cexp, sexp, B, KH, S, hd, f32 (a float
         # cache: 0 bf16, 1 f32; the flash kernels' too), stream
         "xq_kv_update": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
-        # q, ck, cv, kv_len, out, B, H, KH, S, hd, sm_scale, f32, stream
-        "xq_flash_decode": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P]),
+        # q, ck, cv, knew, vnew, kv_pos, rotate, cexp, sexp, kv_len, out, B, H, KH, S, hd,
+        # sm_scale, f32, stream: kernel 2's update in kernel 3's launch
+        "xq_fused_decode_attention": (_I, [_P] * 11 + [_I] * 5 + [_F, _I, _P]),
         # B, H, KH, hd, f32, plan (3 int32: blocks a (batch, kv head) = the cluster, key rows a
         # stage, stages)
         "xq_flash_decode_plan": (_I, [_I, _I, _I, _I, _I, _P]),

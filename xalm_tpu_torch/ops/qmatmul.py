@@ -43,8 +43,11 @@ Row 8 of the TPU kernels, the same kernel through
 ``pallas_qmatmul_stacked_multi``, is ``qmatmul_multi``: the gathered top-k
 expert matmul of Mixtral's decode step, over the (L*E, D, N) flattened
 expert stack at the k indices ``layer*E + expert`` that lie on the device;
-int8, bf16, f32 and fp8 experts (the GEMV core is kernel 1's; the forward
-gathers no fp8 expert), and with ``q4_group=g`` packed-q4 experts
+int8 and q8 experts on a per-expert stream of bulk copies (one block an
+SM, ``multi_plan``: the m <= 8 rows of x that fit beside its rings, in one
+launch), the rest (bf16, f32 and fp8 experts, more or wider rows of x) on
+kernel 1's GEMV core (the forward gathers no fp8 expert), and
+with ``q4_group=g`` packed-q4 experts
 ((L*E, D, N/2) values, (L*E, D, N/g) group scales; ``xq_qmatmul_multi_q4``):
 x quantised per row (the m shared rows once, their scales for every
 expert; else each of the k*m rows), then the q4 branch's group sums (the
@@ -66,6 +69,7 @@ from xalm_tpu_torch.ops import build
 from xalm_tpu_torch.ops.attention import quant_rows
 
 __all__ = [
+    "multi_plan",
     "qmatmul",
     "qmatmul_multi",
     "qmatmul_multi_plain",
@@ -361,6 +365,83 @@ def q4_stages(plan, n: int, d: int, group: int, block: int, warp: int, *, w_addr
         a0 = s_addr + r0 * ng * 4
         w0, w1 = a0 // 16 * 16, -(-(a0 + nr * ng * 4) // 16) * 16
         out.append((r0, off, nr, (w_addr + r0 * kh + off, nbytes), (w0, w1 - w0)))
+    return out
+
+
+# Kernel 8's per-expert stream of int8 and q8 experts (csrc/qmatmul.cu
+# ms_plan): the weight dtype it takes, x's rows an expert at most (all in
+# one launch), x's bytes an element in shared memory (f32 values of
+# bf16(x)) and a warp's stages; its warps and stage sizes are the
+# packed-q4 stream's
+MULTI_STREAM_DTYPES = (torch.int8,)
+MULTI_MAX_M, MULTI_X_BYTES, MULTI_SLOTS = 8, 4, 2
+
+
+@functools.lru_cache(maxsize=None)
+def multi_plan(m: int, n: int, d: int, dtype: torch.dtype, k: int,
+               sms: int) -> tuple[int, int, int, int, int, int, int, int] | None:
+    """Kernel 8's stream for m rows of x an expert times (d, n) int8 expert
+    rows, k experts, on a card of ``sms`` SMs, in one launch: (x's rows m,
+    warps a block, blocks an expert, bytes a stage, whole rows a stage,
+    segments a row, bytes a segment, dynamic shared memory); None where the
+    stream does not take the shape (m > 8, x's m rows too wide to stand
+    beside the rings, n off the 16 granule, another dtype), which then runs
+    ``qmatmul_multi_kernel``: it reads the weights once for any m, where
+    launches of fewer rows would read them again, and lost to it
+    (csrc/qmatmul.cu's note). In order of preference: 16 warps (8 where 16
+    rings of 4 KB stages do not fit beside x), and the most bytes a stage,
+    in whole KB from 8 KB down, that fit beside x (m rows of n f32): whole
+    rows where a row fits (the stage holds just those rows), else equal
+    segments in whole 128 bytes. One block an SM: sms / k blocks an expert,
+    at least one and no more than a warp a row. At Mixtral's widths and k =
+    2 on an H100: w13 (n 4096) one 4 KB row a stage, w2 (n 14336) three
+    segments of 4864 bytes, 16 warps; w13 takes m up to 8, w2 up to 3. The
+    launcher's own plan, which reads the device's SM count, is
+    ``xq_qmatmul_multi_plan``; the card's tests hold the two equal."""
+    if (dtype not in MULTI_STREAM_DTYPES or not 1 <= m <= MULTI_MAX_M or d < 1 or k < 1
+            or n < 16 or n % 16):
+        return None
+    rowb = n * dtype.itemsize
+    for warps in (Q4_MAX_WARPS, Q4_MAX_WARPS // 2):
+        low = Q4_SLOT_WIDE if warps == Q4_MAX_WARPS else Q4_SLOT_MIN
+        for sw in range(Q4_SLOT_MAX, low - 1, -1024):
+            rps, nseg, segb = 1, 1, rowb
+            if rowb <= sw:
+                rps = sw // rowb
+                slot = rps * rowb
+            else:
+                nseg = -(-rowb // sw)
+                segb = -(-(-(-rowb // nseg)) // 128) * 128
+                slot = segb
+            smem = warps * MULTI_SLOTS * slot + m * n * MULTI_X_BYTES
+            if smem > Q4_SMEM:
+                continue
+            bpe = min(max(sms // k, 1), -(-d // warps))
+            return m, warps, bpe, slot, rps, nseg, segb, smem
+    return None
+
+
+def multi_stages(plan, n: int, d: int, dtype: torch.dtype, block: int,
+                 warp: int) -> list[tuple[int, int, int, int]]:
+    """The stages one warp of one block of kernel 8's stream copies, in
+    order, as the kernel deals them: (first row, the byte of that row it
+    starts at, rows, bytes). The block's rows are [block * d // bpe,
+    (block + 1) * d // bpe), the warp's share of them contiguous."""
+    _, warps, bpe, _, rps, nseg, segb, _ = plan
+    rowb = n * dtype.itemsize
+    d0, d1 = block * d // bpe, (block + 1) * d // bpe
+    e0 = d0 + (d1 - d0) * warp // warps
+    e1 = d0 + (d1 - d0) * (warp + 1) // warps
+    out = []
+    nit = (e1 - e0) * nseg if nseg > 1 else -(-(e1 - e0) // rps)
+    for it in range(nit):
+        if nseg > 1:
+            r0, off, nr = e0 + it // nseg, it % nseg * segb, 1
+            out.append((r0, off, nr, min(segb, rowb - off)))
+        else:
+            r0 = e0 + it * rps
+            nr = min(rps, e1 - r0)
+            out.append((r0, 0, nr, nr * rowb))
     return out
 
 
@@ -672,6 +753,12 @@ def qmatmul_multi(
         return y
     kind = _kernel_kind(values.dtype, "qmatmul_multi")
     _need(n == nw, f"x {tuple(x.shape)} vs weights {tuple(values.shape)}")
+    if multi_plan(m, n, d, values.dtype, k, 1) is not None:
+        # the stream's rules (the kernel raises, never the plain version):
+        # the stack 16-byte aligned (its bulk copies' granule; every expert's
+        # rows then are), x read as 16-byte words
+        _need(values.data_ptr() % 16 == 0, "expert weights must be 16-byte aligned")
+        x = x if x.data_ptr() % 16 == 0 else x.clone()
     if scale is not None:
         _need(values.dtype == torch.int8, "a row scale needs int8 weights")
         _need(scale.dtype == torch.float32 and scale.shape == (le, d) and scale.is_contiguous()
