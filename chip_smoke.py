@@ -55,7 +55,18 @@ first, while the megakernel's two sources build:
    (four chunks, the last three through kernel 4 past a prefix:
    ``phase_long_prompt``, its prefill tok/s and flash_prefill device ms);
    every prefill profile reports the tiled GEMM's device ms and records,
-   and a record of the kernel it replaced fails the run;
+   and a record of the kernel it replaced fails the run; ``generate``
+   decodes in segments of 16 steps replayed from a CUDA graph (the
+   engine's default on the card), and the per-token counts and profiles
+   are of eager ``decode`` steps; then ``phase_scan``: the megakernel and
+   the per-layer kernels with a bf16 and an int8 cache and the q4 body per
+   layer under ``a8_decode``, each generating 64 tokens at segment 1
+   (eager steps, a host read a token) and at segment 16 (graph replays, a
+   read a segment), identical tokens and launch counts, a ``scan`` line
+   each (wall ms a token at both segments, device busy ms and idle share of
+   a profiled segment, capture seconds, replays, the card's name and power
+   limit), and the scanned perplexity's log-probs bit-equal to per-token
+   steps on the megakernel;
 5. wrap: the same widths at 2 layers and a 256-slot window, 600 decode
    steps through three ring wraps, the kernels against their plain
    versions on the card, on both decode paths (the megakernel with the i8
@@ -63,7 +74,8 @@ first, while the megakernel's two sources build:
    cache: teacher-forced logits of
    random weights within 1e-2 of max |logits|, and identical free-running
    greedy tokens of a model whose next token attention decides (see
-   ``phase_wrap``); the q4 body and the a8 runs (``a8_prefill`` and
+   ``phase_wrap``; ``generate``'s segments of 16 replayed steps, through
+   the wraps); the q4 body and the a8 runs (``a8_prefill`` and
    ``a8_decode``) on both decode paths with a bf16 cache, each step held
    to what the int8 activations change in it, and a control without them
    that must fail that rule;
@@ -75,7 +87,8 @@ first, while the megakernel's two sources build:
    experts (``phase_main_moe``); phase 5 at 2 layers with a bf16 and an
    int8 cache, the routing teacher-forced like the tokens and every flip
    recorded (``phase_wrap_moe``), and the router's gain measured on the
-   plain version alone (``phase_router_witness``);
+   plain version alone (``phase_router_witness``); ``phase_scan`` of its
+   per-layer path right after phase 4;
 7. the families (``phase_families``), one model at a time, random i8
    weights at full width and depth: Qwen2.5-7B (qkv bias, GQA group 7),
    Qwen3-8B (q/k norms), Llama-3.1-8B (llama3 rope), Gemma-2-9B (post-norms,
@@ -250,14 +263,20 @@ class Cases:
         return rec
 
 
-def phase_device() -> str:
-    import torch
-
+def _smi_line() -> str:
+    """The card's name and power limit as ``nvidia-smi`` gives them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
     )
-    line = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() else "not measured"
+    ok = smi.returncode == 0 and smi.stdout.strip()
+    return smi.stdout.strip().splitlines()[0] if ok else "not measured"
+
+
+def phase_device() -> str:
+    import torch
+
+    line = _smi_line()
     print(line, flush=True)
     name = torch.cuda.get_device_name(0)
     emit({"phase": "device", "nvidia_smi": line, "name": name,
@@ -1353,6 +1372,218 @@ def phase_long_prompt(params, cfg) -> dict:
     return {"launches": launches}
 
 
+SCAN_TOKENS = 64  # tokens a generate of phase_scan, after a 512-token prompt
+SCAN_SEGMENT = 16  # generate's default segment on the card
+SCAN_PPL_STEPS = 64  # teacher-forced steps of the scanned-perplexity check
+
+
+def _scan_profile(eng, prompt) -> dict:
+    """``_profiled`` over one segment of SCAN_SEGMENT graph replays after a
+    512-token prefill (the engine's greedy scan, its graph captured
+    already)."""
+    import torch
+
+    from xalm_tpu_torch.sampler import sample_argmax
+
+    logits, cache, pos = eng.prefill(prompt, eng._fresh_cache(1))
+    st, graph = eng._scan(cache, "greedy")
+    with torch.inference_mode():
+        st.token.copy_(sample_argmax(logits))
+        st.pos.fill_(pos)
+
+    def segment():
+        with torch.inference_mode():
+            eng._run(st, graph, SCAN_SEGMENT)
+
+    return _profiled(segment, SCAN_SEGMENT)
+
+
+GRAPH_DEPTH_TURNS = 4  # segments a turn of _graph_depth
+
+
+def _graph_depth(eng, prompt) -> dict:
+    """The graph's depth: a segment of SCAN_SEGMENT steps as that many
+    replays of the engine's one-step graph (the design kept) against one
+    replay of a graph captured over SCAN_SEGMENT steps of the same step
+    function and buffers, in turns (one, deep, deep, one), each turn
+    GRAPH_DEPTH_TURNS segments from the state the last left (the window
+    grows by a few hundred rows over the four turns), host clock around a
+    synchronised turn: ms a token of each, and the tokens of both designs
+    from one common state held equal."""
+    import torch
+
+    from xalm_tpu_torch.ops import build
+    from xalm_tpu_torch.sampler import sample_argmax
+
+    logits, cache, pos = eng.prefill(prompt, eng._fresh_cache(1))
+    st, one = eng._scan(cache, "greedy")
+    with torch.inference_mode():
+        st.token.copy_(sample_argmax(logits))
+        st.pos.fill_(pos)
+        one.run(1)  # the one-step graph, captured if it was not
+        deep = torch.cuda.CUDAGraph()
+        before = dict(build.LAUNCHES)
+        with torch.cuda.graph(deep):
+            for _ in range(SCAN_SEGMENT):
+                one._step()
+        build.take_launches(before)
+    torch.cuda.synchronize()
+
+    def turn(kind: str) -> float:
+        t0 = time.perf_counter()
+        for _ in range(GRAPH_DEPTH_TURNS):
+            st.slot.zero_()
+            if kind == "deep":
+                deep.replay()
+            else:
+                for _ in range(SCAN_SEGMENT):
+                    one.graph.replay()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / (GRAPH_DEPTH_TURNS * SCAN_SEGMENT)
+
+    times = {"one_step": [], "deep": []}
+    for kind in ("one_step", "deep", "deep", "one_step"):
+        times[kind].append(turn("deep" if kind == "deep" else "one"))
+    # both designs from one state: the same tokens
+    snap = [t.clone() for t in cache.planes()] + [st.token.clone(), st.pos.clone()]
+    outs = []
+    for kind in ("one", "deep"):
+        for t, v in zip(cache.planes() + (st.token, st.pos), snap):
+            t.copy_(v)
+        st.slot.zero_()
+        if kind == "deep":
+            deep.replay()
+        else:
+            for _ in range(SCAN_SEGMENT):
+                one.graph.replay()
+        outs.append(st.out[:, :SCAN_SEGMENT].clone())
+    torch.cuda.synchronize()
+    equal = bool(torch.equal(outs[0], outs[1]))
+    if not equal:
+        raise AssertionError(f"graph depth: the {SCAN_SEGMENT}-step graph's tokens differ")
+    del deep
+    return {"segment": SCAN_SEGMENT, "turns": GRAPH_DEPTH_TURNS, "tokens_equal": equal,
+            "one_step_graph_ms_per_token": times["one_step"],
+            f"graph_of_{SCAN_SEGMENT}_steps_ms_per_token": times["deep"]}
+
+
+def _scan_ppl_bit_equal(eng, prompt) -> dict:
+    """Scanned perplexity against per-token steps on one path: after the
+    same 512-token prefill into two caches, SCAN_PPL_STEPS teacher-forced
+    steps as one ``_ppl_scan`` segment (graph replays) and as eager
+    ``decode`` calls, each step's log p(target) taken from its logits: the
+    log-probs bit for bit."""
+    import numpy as np
+    import torch
+
+    from xalm_tpu_torch.sampler import token_logprobs
+
+    cfg = eng.cfg
+    seq = np.random.default_rng(SEED + 5).integers(3, cfg.vocab_size,
+                                                   size=SCAN_PPL_STEPS + 1).astype(np.int32)
+    _, ca, pos = eng.prefill(prompt, eng.new_cache(1))
+    _, cb, _ = eng.prefill(prompt, eng.new_cache(1))
+    lps, _ = eng._ppl_scan(seq[None, :-1], seq[None, 1:], np.array([pos], np.int32), ca)
+    want = []
+    for i in range(SCAN_PPL_STEPS):
+        logits, cb = eng.decode(seq[i:i + 1], np.array([pos + i], np.int32), cb)
+        with torch.inference_mode():
+            want.append(token_logprobs(logits, torch.tensor([int(seq[i + 1])],
+                                                            device=logits.device)))
+    want = torch.cat(want)
+    diff = (lps[0] - want).abs()
+    row = {"phase": "scan_perplexity", "steps": SCAN_PPL_STEPS, "decode_path": eng.decode_path(1),
+           "bit_equal": bool(torch.equal(lps[0], want)), "max_abs_diff": float(diff.max()),
+           "mean_logprob": float(want.mean())}
+    emit(row)
+    if not row["bit_equal"]:
+        raise AssertionError(f"scanned perplexity: log-probs differ from per-token ones: {row}")
+    return row
+
+
+def phase_scan(cfg, model: str, runs, ppl_run: str | None = None,
+               depth_runs: tuple = ()) -> list[dict]:
+    """Decode without a host round trip per token (``runtime/graphs.py``):
+    for each run (label, params, Engine options, decode path), at full
+    width and depth, ``Engine.generate`` of a 512-token prompt and
+    SCAN_TOKENS greedy tokens at segment 1 (eager steps, a host read a
+    token) and at segment SCAN_SEGMENT (CUDA-graph replays, a read a
+    segment), each after a warm-up generate of its own (the segment run's
+    warm-up step and capture); the tokens must be identical and the launch
+    counts of the two runs equal (a replay counts what the eager step
+    launches). One ``scan`` line a run: wall ms a token at both segments,
+    device busy ms a token and idle share of a profiled segment, the
+    capture's seconds, the replays, the launches a replay makes, and the
+    card's name and power limit. ``ppl_run`` names the run whose scanned
+    perplexity is held bit for bit to per-token steps
+    (``_scan_ppl_bit_equal``), ``depth_runs`` those whose one-step graph is
+    timed against a graph of a whole segment (``_graph_depth``)."""
+    import numpy as np
+    import torch
+
+    from xalm_tpu_torch.ops import build
+    from xalm_tpu_torch.runtime.engine import Engine
+
+    prompt = np.random.default_rng(SEED).integers(3, cfg.vocab_size, size=512).tolist()
+    smi = _smi_line()
+    rows = []
+    for label, params, kw, path in runs:
+        eng = Engine(cfg, params, **kw)
+        if eng.decode_path(1) != path:
+            raise AssertionError(f"scan {label}: decode path {eng.decode_path(1)!r}, "
+                                 f"expected {path!r}")
+        for seg in (1, SCAN_SEGMENT):
+            eng.generate(prompt[:32], 2, stop_on_eos=False, segment=seg)
+        torch.cuda.synchronize()
+        _, graph = eng._scan(eng._caches[1], "greedy")
+        if graph.graph is None:
+            raise AssertionError(f"scan {label}: no graph captured by the warm-up")
+        runs_by_seg = {}
+        for seg in (1, SCAN_SEGMENT):
+            build.reset_launches()
+            replays = graph.replays
+            out, stats = eng.generate(prompt, SCAN_TOKENS, stop_on_eos=False, segment=seg)
+            torch.cuda.synchronize()
+            runs_by_seg[seg] = {"tokens": out,
+                                "ms": stats.decode_s / stats.generated_tokens * 1e3,
+                                "launches": {k: n for k, n in build.LAUNCHES.items() if n},
+                                "replays": graph.replays - replays}
+        one, seg_run = runs_by_seg[1], runs_by_seg[SCAN_SEGMENT]
+        prof = _scan_profile(eng, prompt)
+        busy = prof["device_busy_ms"]
+        row = {"phase": "scan", "run": label, "model": model, "layers": cfg.n_layers,
+               "decode_path": path, "kv_dtype": str(eng.kv_dtype).split(".")[-1],
+               "generated_tokens": SCAN_TOKENS, "segment": SCAN_SEGMENT,
+               "wall_ms_per_token_segment_1": one["ms"],
+               f"wall_ms_per_token_segment_{SCAN_SEGMENT}": seg_run["ms"],
+               "device_busy_ms_per_token": (busy / prof["steps"] if isinstance(busy, float)
+                                            else busy),
+               "device_idle_share": prof["device_idle_share"],
+               "profile_wall_ms_per_token": prof["wall_ms"] / prof["steps"],
+               "device_ms_by_kernel": prof["device_ms"], "profile_attempts": prof["attempts"],
+               "capture_s": graph.capture_s, "graph_replays": seg_run["replays"],
+               "launches_per_replay": graph.launches,
+               "tokens_identical": one["tokens"] == seg_run["tokens"],
+               "launches_equal": one["launches"] == seg_run["launches"],
+               "tokens_head": seg_run["tokens"][:8], "card": smi}
+        emit(row)
+        if not row["tokens_identical"]:
+            raise AssertionError(f"scan {label}: segment {SCAN_SEGMENT} tokens differ from "
+                                 f"segment 1: {seg_run['tokens']} vs {one['tokens']}")
+        if not row["launches_equal"] or seg_run["replays"] != SCAN_TOKENS - 1:
+            raise AssertionError(f"scan {label}: launches {seg_run['launches']} against segment "
+                                 f"1's {one['launches']}, {seg_run['replays']} replays")
+        if label in depth_runs:
+            depth = _graph_depth(eng, prompt)
+            emit({"phase": "scan_graph_depth", "run": label, **depth, "card": smi})
+        if label == ppl_run:
+            row["perplexity"] = _scan_ppl_bit_equal(eng, prompt)
+        rows.append(row)
+        del eng, graph
+        torch.cuda.empty_cache()
+    return rows
+
+
 # kernel-name fragments of the port's CUDA kernels, by wrapper (no fragment
 # names a part of another kernel's name)
 _PROFILE_GROUPS = {
@@ -1446,53 +1677,67 @@ def _device_times(prof) -> tuple[dict, list, dict, tuple[float, int]]:
     return out, sorted(top, key=lambda r: -r[1])[:10], records, (gemm_ms, gemm_n)
 
 
-def phase_profile(eng, prompt, token, label: str) -> dict:
-    """torch.profiler over one 512-token prefill and 8 decode steps: device
-    time by kernel, wall time, and the device's idle share. Each session is
-    primed first (see ``_WITNESSES``); a window whose witness records fall
-    short of the launches the counters saw in it is run again, up to
-    PROFILE_ATTEMPTS times; if none is complete, its busy time and idle
-    share are "not measured"."""
-    import numpy as np
+def _profiled(window, steps: int, setup=None) -> dict:
+    """torch.profiler over ``window()``: device time by kernel group, wall
+    time, and the device's idle share. Each session is primed first (see
+    ``_WITNESSES``); a window whose witness records fall short of the
+    launches the counters saw in it is run again (``setup()`` before each
+    run), up to PROFILE_ATTEMPTS times; if none is complete, its busy time
+    and idle share are "not measured"."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from xalm_tpu_torch.ops import build
 
-    rows = {}
-    pos = 0
-    for name, steps in (("prefill_512", 0), ("decode", 8)):
-        for attempt in range(1, PROFILE_ATTEMPTS + 1):
-            if steps == 0:
-                cache = eng.new_cache(1)
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        if setup is not None:
+            setup()
+        torch.cuda.synchronize()
+        build.reset_launches()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_PRIMES):
+                torch.cuda._sleep(100)
             torch.cuda.synchronize()
-            build.reset_launches()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                for _ in range(PROFILE_PRIMES):
-                    torch.cuda._sleep(100)
-                torch.cuda.synchronize()
-                time.sleep(PROFILE_PAD_S)
-                t0 = time.perf_counter()
-                if steps == 0:
-                    _, cache, pos = eng.prefill(prompt, cache)
-                for i in range(steps):
-                    _, cache = eng.decode(np.array([token]), np.array([pos + i], np.int32), cache)
-                torch.cuda.synchronize()
-                wall_ms = (time.perf_counter() - t0) * 1e3
-            pos += steps
-            dev, top, records, (gemm_ms, gemm_n) = _device_times(prof)
-            launched = {f: sum(build.LAUNCHES[w] for w in ws) for f, ws in _WITNESSES.items()}
-            if records == launched:
-                break
-        busy = sum(dev.values())
-        measured = records == launched and busy > 0
-        rows[name] = {
-            "steps": max(steps, 1), "wall_ms": wall_ms, "device_ms": dev, "top": top,
-            "gemm_device_ms": gemm_ms if measured else "not measured", "gemm_records": gemm_n,
-            "attempts": attempt, "records_complete": records == launched,
-            "device_busy_ms": busy if measured else "not measured",
-            "device_idle_share": (1.0 - busy / wall_ms) if measured else "not measured",
-        }
+            time.sleep(PROFILE_PAD_S)
+            t0 = time.perf_counter()
+            window()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        dev, top, records, (gemm_ms, gemm_n) = _device_times(prof)
+        launched = {f: sum(build.LAUNCHES[w] for w in ws) for f, ws in _WITNESSES.items()}
+        if records == launched:
+            break
+    busy = sum(dev.values())
+    measured = records == launched and busy > 0
+    return {
+        "steps": max(steps, 1), "wall_ms": wall_ms, "device_ms": dev, "top": top,
+        "gemm_device_ms": gemm_ms if measured else "not measured", "gemm_records": gemm_n,
+        "attempts": attempt, "records_complete": records == launched,
+        "device_busy_ms": busy if measured else "not measured",
+        "device_idle_share": (1.0 - busy / wall_ms) if measured else "not measured",
+    }
+
+
+def phase_profile(eng, prompt, token, label: str) -> dict:
+    """``_profiled`` over one 512-token prefill and over 8 eager decode
+    steps after it."""
+    import numpy as np
+
+    state = {}
+
+    def fresh():
+        state["cache"] = eng.new_cache(1)
+
+    def prefill():
+        _, state["cache"], state["pos"] = eng.prefill(prompt, state["cache"])
+
+    def decode():
+        for i in range(8):
+            _, state["cache"] = eng.decode(np.array([token]), np.array([state["pos"] + i],
+                                                                        np.int32), state["cache"])
+        state["pos"] += 8
+
+    rows = {"prefill_512": _profiled(prefill, 0, setup=fresh), "decode": _profiled(decode, 8)}
     emit({"phase": "profile", "run": label, **rows})
     return rows
 
@@ -4541,6 +4786,7 @@ def main(argv=None) -> int:
     with torch.inference_mode():
         phase_parity_multi(params, cfg, cases)
     moe_row = phase_main_moe(params, cfg)
+    phase_scan(cfg, "Mixtral-8x7B", [("mixtral bf16 perlayer", params, {}, "perlayer")])
     del params
     torch.cuda.empty_cache()
     with torch.inference_mode():
@@ -4570,6 +4816,14 @@ def main(argv=None) -> int:
     main_row = phase_main(params, cfg)
     quant_row = phase_main_quant(params, q4p, cfg)
     long_row = phase_long_prompt(params, cfg)
+    i8 = dict(kv_dtype=torch.int8)
+    phase_scan(cfg, "Mistral-7B", [
+        ("bf16 megakernel", params, {}, "megakernel"),
+        ("int8 megakernel", params, i8, "megakernel"),
+        ("bf16 perlayer", params, dict(fused_step=False), "perlayer"),
+        ("int8 perlayer", params, dict(i8, fused_step=False), "perlayer"),
+        ("q4 g512 perlayer a8", q4p, dict(a8_decode=True, fused_step=False), "perlayer"),
+    ], ppl_run="bf16 megakernel", depth_runs=("bf16 megakernel", "bf16 perlayer"))
     main_row["launches"] = {k: main_row["launches"][k] + quant_row["launches"][k]
                             + long_row["launches"][k] for k in main_row["launches"]}
     del params, q4p

@@ -2641,3 +2641,170 @@ def test_fused_decode_attention_replays_in_a_cuda_graph(dev, f32):
         want = A.fused_decode_attention(q, ek, ev, 1, *args)
         assert torch.equal(out, want), pos
         assert torch.equal(ck, ek) and torch.equal(cv, ev), pos
+
+
+# ---------------------------------------------------------------- decode as CUDA-graph replays
+
+
+@pytest.mark.parametrize("cache", ["bf16", "int8"])
+def test_megakernel_step_replays_in_a_cuda_graph(dev, cache):
+    """The whole-step megakernel (i8 body, embed and i8-head folds: one
+    cooperative launch) captured in a CUDA graph over step inputs on the
+    card, pos and the token rewritten in place before each replay: x, the
+    logits, the token and every cache plane bit-equal to an eager launch on
+    the same inputs and planes, through a ring wrap of the 48-slot window."""
+    from xalm_tpu_torch.models.llama import rope_constants
+    from xalm_tpu_torch.models.params import recode_wcls_i8
+    from xalm_tpu_torch.ops import fused_decode as fd
+    from xalm_tpu_torch.runtime.cache import KVCache, step_inputs
+    from xalm_tpu_torch.utils.synthetic import synthetic_params
+
+    cfg = dataclasses.replace(MISTRAL_7B, **FUSED_CFG)
+    params = recode_wcls_i8(synthetic_params(cfg, device=dev, seed=21))
+    s = cfg.max_seq_len
+    freqs, c1, s1 = rope_constants(cfg, dev)
+    kv = KVCache.init(cfg, 1, torch.int8 if cache == "int8" else torch.bfloat16, dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for t in kv.planes():  # a filled window: random rows (codes) and scales
+        if t.dtype == torch.int8:
+            t.copy_(torch.randint(-127, 128, t.shape, device=dev, generator=gen))
+        else:
+            t.copy_(torch.rand(t.shape, device=dev, generator=gen).to(t.dtype) * 0.1)
+    pos = torch.zeros((1,), dtype=torch.int32, device=dev)
+    tok = torch.zeros((1,), dtype=torch.int32, device=dev)
+
+    def step(planes):
+        kv_pos, kv_len, rot = step_inputs(pos, s)
+        scales = dict(k_scale=planes[2], v_scale=planes[3]) if len(planes) == 4 else {}
+        return fd.fused_decode_step(params, cfg, None, planes[0], planes[1], kv_pos, kv_len, rot,
+                                    None, None, c1, s1, wcls=params.wcls, out_norm=params.out_norm,
+                                    embed=params.embed, token=tok, pos=pos, freqs=freqs,
+                                    **scales)[:3]
+
+    step(kv.planes())  # the launcher's set-up (occupancy, attributes), outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = step(kv.planes())
+    for p, t in ((5, 7), (47, 300), (48, 11), (120, 2), (1000, 99)):
+        pos.fill_(p)
+        tok.fill_(t)
+        eager = [x.clone() for x in kv.planes()]
+        graph.replay()
+        torch.cuda.synchronize()
+        want = step(eager)
+        assert all(torch.equal(a, b) for a, b in zip(out, want)), p
+        assert all(torch.equal(a, b) for a, b in zip(kv.planes(), eager)), p
+
+
+def _scan_engines(dev, path: str):
+    """A small engine of each decode path: the megakernel (i8 head fold),
+    per layer over a bf16 and an int8 cache, and Mixtral's gathered experts."""
+    from xalm_tpu_torch.runtime.engine import Engine
+    from xalm_tpu_torch.utils.synthetic import synthetic_params
+
+    if path == "moe":
+        cfg, params = _small_mixtral(dev, 8)
+        return Engine(cfg, params)
+    cfg = dataclasses.replace(MISTRAL_7B, **FUSED_CFG)
+    params = synthetic_params(cfg, device=dev, seed=22)
+    kw = {"megakernel": dict(wcls_i8=True), "perlayer": dict(fused_step=False),
+          "perlayer_int8": dict(fused_step=False, kv_dtype=torch.int8)}[path]
+    return Engine(cfg, params, **kw)
+
+
+SCAN_PATHS = ["megakernel", "perlayer", "perlayer_int8", "moe"]
+
+
+@pytest.mark.parametrize("path", SCAN_PATHS)
+def test_decode_scan_replays_equal_per_step_decode(dev, path):
+    """decode_scan (one warm-up step, a capture, replays) gives the tokens
+    of per-step decode from the same prefill, through a ring wrap; its
+    launch counts are the per-step ones times the steps; the second segment,
+    its inputs on the card, runs under torch's sync debug mode "error";
+    the window's cache rows end bit-equal."""
+    eng = _scan_engines(dev, path)
+    want_path = "perlayer" if path.startswith("perlayer") or path == "moe" else path
+    assert eng.decode_path(1) == want_path
+    window = eng.cfg.max_seq_len
+    steps = window + 8
+    prompt = list(range(3, 13))
+    _, ca, pos = eng.prefill(prompt, eng.new_cache(1))
+    _, cb, _ = eng.prefill(prompt, eng.new_cache(1))
+    tok = 5
+    want = []
+    build.reset_launches()
+    for i in range(steps):
+        logits, cb = eng.decode(np.array([tok]), np.array([pos + i], np.int32), cb)
+        tok = int(logits.argmax())
+        want.append(tok)
+    per_step = {k: n for k, n in build.LAUNCHES.items() if n}
+    build.reset_launches()
+    half = steps // 2
+    got, ca = eng.decode_scan(np.array([5]), np.array([pos]), ca, half)
+    torch.cuda.synchronize()
+    toks = torch.tensor([got[0, -1].item()], dtype=torch.int32, device=dev)
+    at = torch.tensor([pos + half], dtype=torch.int32, device=dev)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rest, ca = eng.decode_scan(toks, at, ca, steps - half)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.cat([got, rest], dim=1)[0].tolist() == want
+    assert {k: n for k, n in build.LAUNCHES.items() if n} == per_step
+    # the window's rows; the padded prefill chunk's dropped writes all land
+    # in the sentinel row S of the physical padding (duplicate indices of
+    # one scatter: either may win), which nothing attends
+    assert all(torch.equal(a[..., :window, :], b[..., :window, :]) if a.dim() == 5
+               else torch.equal(a[..., :window], b[..., :window])
+               for a, b in zip(ca.planes(), cb.planes()))
+
+
+def test_decode_scan_raises_when_the_capture_fails(dev, monkeypatch):
+    """No eager fallback on the card: a capture that fails raises out of
+    decode_scan and generate(segment > 1), and no graph is kept."""
+    from xalm_tpu_torch.runtime import graphs
+
+    eng = _scan_engines(dev, "perlayer")
+
+    def refuse(*args, **kw):
+        raise RuntimeError("capture refused")
+
+    monkeypatch.setattr(graphs.torch.cuda, "graph", refuse)
+    with pytest.raises(RuntimeError, match="capture refused"):
+        eng.decode_scan(np.array([5]), np.array([0]), eng.new_cache(1), 4)
+    with pytest.raises(RuntimeError, match="capture refused"):
+        eng.generate([3, 4, 5], 8, stop_on_eos=False, segment=4)
+    assert all(g.graph is None for _, g in eng._graphs.values())
+
+
+@pytest.mark.parametrize("path", SCAN_PATHS)
+def test_generate_segments_and_sampling_on_the_card(dev, path):
+    """generate at segment 16 (graph replays) gives the tokens of segment 1
+    (eager steps) through a ring wrap, a second call replays without a new
+    capture, sampled generate reproduces under its seed (the graph-safe
+    generator draws anew at each replay), and the scanned perplexity's
+    log-probs equal the per-token ones bit for bit."""
+    eng = _scan_engines(dev, path)
+    n = eng.cfg.max_seq_len + 10
+    prompt = list(range(3, 12))
+    greedy, _ = eng.generate(prompt, n, stop_on_eos=False, segment=1)
+    seg, _ = eng.generate(prompt, n, stop_on_eos=False, segment=16)
+    assert seg == greedy
+    graph = next(g for _, g in eng._graphs.values())
+    assert graph.graph is not None and graph.replays == n - 2
+    assert eng.generate(prompt, n, stop_on_eos=False)[0] == greedy  # default segment: 16
+    assert graph.replays == 2 * (n - 1) - 1
+    kw = dict(stop_on_eos=False, temperature=0.9, top_k=50, top_p=0.95)
+    a, _ = eng.generate(prompt, n, seed=3, **kw)
+    assert eng.generate(prompt, n, seed=3, **kw)[0] == a
+    assert len(set(a)) > 3  # fresh draws at every replay
+    toks = np.random.default_rng(1).integers(3, eng.cfg.vocab_size, size=n).astype(np.int32)
+    w = eng.cfg.max_seq_len
+    _, c1, pos = eng.prefill(toks[:w].tolist(), eng.new_cache(1))
+    _, c2, _ = eng.prefill(toks[:w].tolist(), eng.new_cache(1))
+    lps, _ = eng._ppl_scan(toks[None, pos:-1], toks[None, pos + 1:], np.array([pos]), c1)
+    for i in range(n - 1 - pos):
+        logits, c2 = eng.decode(toks[pos + i:pos + i + 1], np.array([pos + i], np.int32), c2)
+        want = torch.log_softmax(logits.float(), -1)[0, int(toks[pos + i + 1])]
+        assert torch.equal(lps[0, i], want), i

@@ -128,7 +128,7 @@ def test_harness_perplexity_and_refusals(tiny_i8, capsys):
     assert port_harness.main([tiny_i8, "-d", "cpu", "-m", "perplexity",
                               "-i", "the quick brown fox is here"]) == 0
     assert "perplexity:" in capsys.readouterr().out
-    for extra in (["--spec", "4"], ["--temperature", "0.7"], ["--tp", "2"]):
+    for extra in (["--spec", "4"], ["--tp", "2"]):
         with pytest.raises(SystemExit):
             port_harness.main([tiny_i8, "-d", "cpu", "-i", "x"] + extra)
 
@@ -160,8 +160,7 @@ def test_harness_matmul_pallas_is_the_kernel_path(tiny_i8, capsys):
 REFUSED = {"profile": (["--profile"], "--profile"),
            "coordinator": (["--coordinator", "localhost:1234"], "--coordinator"),
            "num-processes": (["--num-processes", "2"], "--num-processes"),
-           "process-id": (["--process-id", "1"], "--process-id"),
-           "top-k-sampled": (["--top-k", "40", "--temperature", "0.7"], "--temperature")}
+           "process-id": (["--process-id", "1"], "--process-id")}
 
 
 @pytest.mark.parametrize("case", REFUSED)

@@ -10,7 +10,7 @@
       -n <int>        completion: steps (default 256, 0 = max_seq_len);
                       passkey: junk lines (default 250)
       -l <int>        passkey position (-1 - random)
-      --seed <int>    seed of the passkey and its position
+      --seed <int>    seed of the passkey and its position, and of sampling
       -t <dtype>      kv cache dtype: auto (bf16 on cuda, f16 on cpu) | f16 | bf16 | f32
                       | i8 (int8 codes with per-row f32 scales); on the card bf16 and
                       f32 run the attention kernels (and the megakernel), i8 their
@@ -24,6 +24,9 @@
                       scale (a multiple of 128 dividing every half contraction
                       width, e.g. 128 or 512); decode then takes int8
                       activations (the megakernel's q4 body, or the q4 GEMV)
+      --temperature <float>  sampling temperature (0 = greedy, the default)
+      --top-k <int>   top-k filter of sampling (0 = off)
+      --top-p <float> nucleus filter of sampling (1 = off)
 
 Every family the JAX converter writes loads (Llama/Mistral, Mixtral, Qwen2
 and Qwen3, Gemma, Gemma-2, Phi-3). Decode goes through the whole-step
@@ -33,10 +36,12 @@ per-layer kernels otherwise (Phi-3's head_dim 96, MoE); the stats print
 which ("decode path: ..."). The
 parser takes every flag of the JAX harness. Those of later slices are
 refused with a message only where they would change the output:
---temperature above 0 (sampling; --top-k and --top-p act only then, so
-without it they run greedily, as in the JAX harness), --spec/--draft,
---session, --tp/--dp/--pp above 1, --profile, and the multi-host
---coordinator, --num-processes and --process-id.
+--spec/--draft, --session, --tp/--dp/--pp above 1, --profile, and the
+multi-host --coordinator, --num-processes and --process-id. --temperature
+above 0 samples (``Engine.generate``'s sampler, seeded by --seed); --top-k
+and --top-p act only then, so without it they run greedily, as in the JAX
+harness. On the card decode runs in segments of 16 steps replayed from a
+CUDA graph (``runtime/graphs.py``).
 
 ``-t auto``, the default, is a bf16 cache on the card and f16 on the CPU
 (``runtime.engine.auto_kv_dtype``); the JAX harness defaults to f16
@@ -69,7 +74,8 @@ def _build_parser() -> argparse.ArgumentParser:
                         "(default 250)")
     p.add_argument("-l", dest="passkey_pos", type=int, default=-1,
                    help="passkey position (-1 - random)")
-    p.add_argument("--seed", type=int, default=None, help="seed for passkey randomness")
+    p.add_argument("--seed", type=int, default=None,
+                   help="seed for passkey randomness and for sampling")
     p.add_argument("-t", dest="kv_dtype", default="auto", choices=["auto", "f16", "bf16", "f32", "i8"],
                    help="kv cache dtype (auto: bf16 on cuda, f16 on cpu; i8 = int8 with per-row "
                         "scales)")
@@ -84,11 +90,12 @@ def _build_parser() -> argparse.ArgumentParser:
     p.add_argument("--q4", type=int, default=0, metavar="GROUP",
                    help="pack the body weights to 4-bit at load with GROUP weights per scale "
                         "(a multiple of 128, e.g. 128); implies int8 activations in decode")
+    p.add_argument("--temperature", type=float, default=0.0,
+                   help="sampling temperature (0 = greedy, the reference's only mode)")
+    p.add_argument("--top-k", type=int, default=0, help="top-k filter (0 = off)")
+    p.add_argument("--top-p", type=float, default=1.0, help="nucleus filter (1 = off)")
     # JAX-harness flags of later slices: refused where they would change the
     # output (_refuse_later)
-    p.add_argument("--temperature", type=float, default=0.0, help=argparse.SUPPRESS)
-    p.add_argument("--top-k", type=int, default=0, help=argparse.SUPPRESS)
-    p.add_argument("--top-p", type=float, default=1.0, help=argparse.SUPPRESS)
     p.add_argument("--spec", type=int, default=0, help=argparse.SUPPRESS)
     p.add_argument("--draft", default=None, help=argparse.SUPPRESS)
     p.add_argument("--profile", action="store_true", help=argparse.SUPPRESS)
@@ -102,10 +109,8 @@ def _build_parser() -> argparse.ArgumentParser:
 
 
 def _refuse_later(args) -> None:
-    """Exit on a flag of a later slice that would change the output; --top-k
-    and --top-p only filter sampling, so they pass with greedy decoding."""
+    """Exit on a flag of a later slice that would change the output."""
     later = {
-        "--temperature": args.temperature > 0,
         "--spec/--draft": args.spec or args.draft,
         "--session": args.session,
         "--tp/--dp/--pp": args.tp * args.dp * args.pp > 1,
@@ -185,7 +190,11 @@ def run_completion(args) -> int:
         prev = t
 
     sys.stdout.write(prompt)
-    out, stats = eng.generate(ids, num_steps, on_token=on_token)
+    sampling = {}
+    if args.temperature > 0:
+        sampling = dict(temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
+                        seed=args.seed)
+    out, stats = eng.generate(ids, num_steps, on_token=on_token, **sampling)
     print()
     print(
         f"Generation stats:\n"

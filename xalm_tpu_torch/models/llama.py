@@ -121,7 +121,7 @@ from xalm_tpu_torch.ops.attention import act_fn, softcap
 from xalm_tpu_torch.ops import fused_decode as fd
 from xalm_tpu_torch.ops import qmatmul as qmm
 from xalm_tpu_torch.ops.linear import qmatmul as plain_linear
-from xalm_tpu_torch.runtime.cache import KVCache, ring_indices
+from xalm_tpu_torch.runtime.cache import KVCache, ring_indices, step_inputs
 
 __all__ = [
     "forward", "rope_freqs", "apply_rope", "rmsnorm", "embed_lookup", "attention", "moe_route",
@@ -451,14 +451,21 @@ def forward(
                                 a8_decode)
 
     tokens = tokens.to(dev)
-    pos_h = pos.to("cpu", torch.int32)
+    if t > 1:  # the chunk's window starts, on the host (no t = 1 step reads one back)
+        starts = [min(p, s - t) for p in pos.to("cpu", torch.int32).tolist()]
     pos = pos.to(device=dev, dtype=torch.int32)
     if valid is not None:
         valid = valid.to(dev)
     positions = pos[:, None] + torch.arange(t, dtype=torch.int32, device=dev)[None, :]
-    _, kv_pos, kv_len = ring_indices(positions, s)
-    if valid is not None:
-        kv_pos = torch.where(valid, kv_pos, s)  # sentinel: dropped write
+    if t > 1:
+        _, kv_pos, kv_len = ring_indices(positions, s)
+        if valid is not None:
+            kv_pos = torch.where(valid, kv_pos, s)  # sentinel: dropped write
+    else:
+        # kv_pos at the sentinel for an invalid row, which neither writes
+        # nor rotates its sinks
+        kv_pos0, kv_len0, rot_flag = step_inputs(pos, s, None if valid is None else valid[:, 0])
+        kv_pos, kv_len, active = kv_pos0[:, None], kv_len0[:, None], rot_flag.to(torch.bool)
 
     x = embed_lookup(params.embed, tokens)  # (B, T, dim) f32
     if cfg.embed_scale != 1.0:  # Gemma's residual normalizer, sqrt(dim)
@@ -487,16 +494,6 @@ def forward(
             kl = kl.to(torch.float32) * ks[layer][..., None]
             vl = vl.to(torch.float32) * vs[layer][..., None]
         return attention(q, kl, vl, kv_len, compute_dtype, cap)
-
-    if t > 1:
-        starts = [min(p, s - t) for p in pos_h.tolist()]
-    else:
-        active = positions[:, 0] >= s
-        if valid is not None:
-            active = active & valid[:, 0]
-        rot_flag = active.to(torch.int32)
-        kv_pos0 = kv_pos[:, 0].contiguous()
-        kv_len0 = kv_len[:, 0].contiguous()
 
     rope = rope_tables(positions, freqs)  # shared by every layer
     for layer in range(cfg.n_layers):
@@ -578,28 +575,24 @@ def forward(
 def _megakernel_step(params, cfg, tokens, pos, cache, valid, logits_mode, impl, head, a8):
     """A t = 1 step through the whole-step megakernel (the JAX forward's
     fused_decode_step branch). The step's inputs (kv_pos, kv_len, rotate,
-    token, pos) are computed on the host and reach the card as one small
-    tensor; no per-layer host work is left."""
+    and without the embed fold the embed rows and the rope trig) are
+    computed on the card from ``pos``, ``valid`` and ``tokens`` there, with
+    no host read, so that a CUDA graph can capture the step."""
     step = fd.fused_decode_step if impl == "kernel" else fd.fused_decode_step_plain
     dev = params.embed.values.device
     b, s = tokens.shape[0], cfg.max_seq_len
     freqs, cexp1, sexp1 = rope_constants(cfg, dev)
-    pos_h = pos.to("cpu", torch.int32).reshape(b)
-    _, kv_pos, kv_len = ring_indices(pos_h, s)
-    active = pos_h >= s
-    if valid is not None:
-        valid_h = valid[:, 0].to("cpu")
-        kv_pos = torch.where(valid_h, kv_pos, s).to(torch.int32)  # sentinel: dropped write
-        active = active & valid_h  # inactive rows do not rotate their sinks
-    rotate_flag = active.to(torch.int32)
+    token = tokens[:, 0].to(dev)
+    pos = pos.to(device=dev, dtype=torch.int32).reshape(b)
+    kv_pos, kv_len, rotate_flag = step_inputs(
+        pos, s, None if valid is None else valid[:, 0].to(dev))
     if b == 1 and fd.embed_fold_supported(cfg, params):
         # the kernel gathers the embed row and computes the rope trig itself
         x0 = cexp_p = sexp_p = None
-        fold_e = dict(embed=params.embed, token=tokens[:, 0], pos=pos_h, freqs=freqs)
+        fold_e = dict(embed=params.embed, token=token, pos=pos, freqs=freqs)
     else:
-        x0 = embed_lookup(params.embed, tokens[:, 0].to(dev)) * cfg.embed_scale
-        cexp_p, sexp_p = (z[:, 0, 0] for z in rope_tables(
-            pos_h[:, None], rope_constants(cfg, torch.device("cpu"))[0]))
+        x0 = embed_lookup(params.embed, token) * cfg.embed_scale
+        cexp_p, sexp_p = (z[:, 0, 0] for z in rope_tables(pos[:, None], freqs))
         fold_e = {}
     args = (params, cfg, x0, cache.k, cache.v, kv_pos, kv_len, rotate_flag, cexp_p, sexp_p,
             cexp1, sexp1)

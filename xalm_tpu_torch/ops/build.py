@@ -23,7 +23,10 @@ live in the CUDA source alone. Size queries (``*_scratch``,
 ``*_workspace``) return element or byte counts, as their comments say.
 
 ``LAUNCHES`` counts kernel launches per wrapper: each wrapper adds one where
-it launches its kernel on the card, and nowhere else. A launch of kernel 1
+it launches its kernel on the card, and nowhere else. A CUDA graph's
+capture takes its counts back out (``take_launches``: nothing ran) and each
+replay adds them (``add_launches``), so a replayed step counts as the eager
+one does. A launch of kernel 1
 or 8 counts under its branch: ``qmatmul`` and ``qmatmul_multi`` for int8
 and bf16 weights, ``_f32``, ``_fp8``, ``_q4`` and ``_a8`` for the others.
 Kernels 2-4 count an f32 cache's launches under ``_f32``. The launch that
@@ -51,7 +54,7 @@ import time
 from pathlib import Path
 
 __all__ = ["KERNELS", "LAUNCHES", "start_all", "wait", "load_library", "reset_launches",
-           "check"]
+           "take_launches", "add_launches", "check"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "xalm_tpu_torch"
@@ -78,6 +81,22 @@ LAUNCHES: dict[str, int] = {k: 0 for ks in KERNELS.values() for k in ks}
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def take_launches(before: dict[str, int]) -> dict[str, int]:
+    """The launches counted since ``before`` (a copy of ``LAUNCHES``), taken
+    back out of ``LAUNCHES``: a CUDA graph's capture runs the wrappers, which
+    count, but launches nothing. The graph records them and adds them at
+    each replay (``add_launches``)."""
+    made = {k: n - before.get(k, 0) for k, n in LAUNCHES.items()}
+    LAUNCHES.update(before)
+    return {k: n for k, n in made.items() if n}
+
+
+def add_launches(counts: dict[str, int], times: int = 1) -> None:
+    """Count ``times`` replays of a graph that recorded ``counts``."""
+    for k, n in counts.items():
+        LAUNCHES[k] += n * times
 
 
 def _nvcc() -> str:

@@ -385,7 +385,10 @@ def fused_decode_step(params, cfg, x0, cache_k, cache_v, kv_pos, kv_len, rotate,
     ``k_scale``/``v_scale``, updated in place and returned after the caches;
     kv_pos/kv_len/rotate (B,) int (kv_pos == S drops the write);
     cexp_p/sexp_p (B, hd); cexp1/sexp1 (hd,) or (1, hd). The small step
-    inputs may lie on the CPU: they reach the card as one int32 tensor."""
+    inputs may lie on the CPU: they reach the card as one int32 tensor. Where
+    all of them (and x0, the trig, freqs) lie on the card the call reads
+    nothing from the host and copies nothing up: a CUDA graph captures it
+    (``runtime/graphs.py``)."""
     if not cache_k.is_cuda:
         return fused_decode_step_plain(
             params, cfg, x0, cache_k, cache_v, kv_pos, kv_len, rotate, cexp_p, sexp_p, cexp1,
@@ -417,15 +420,17 @@ def fused_decode_step(params, cfg, x0, cache_k, cache_v, kv_pos, kv_len, rotate,
                   t for t in folds if t is not None):
         _need(t.dtype == torch.float32, "norms, scales, the qkv bias and post-norms must be f32")
 
-    def ints(t):
-        return torch.as_tensor(t).to(dtype=torch.int32, device="cpu").reshape(-1)
-
-    zeros = torch.zeros((b,), dtype=torch.int32)
     fold_e = embed is not None
-    parts = [ints(kv_pos), ints(kv_len), ints(rotate),
-             ints(token) if fold_e else zeros, ints(pos) if fold_e else zeros]
+    parts = [torch.as_tensor(t) for t in (kv_pos, kv_len, rotate) + ((token, pos) if fold_e
+                                                                     else ())]
     _need(all(p.numel() == b for p in parts), f"step inputs must hold B={b} values each")
-    meta = torch.cat(parts).to(dev, non_blocking=True)  # one small copy to the card
+    on_card = all(p.device == dev for p in parts)
+    home = dev if on_card else torch.device("cpu")
+    parts += [torch.zeros((b,), dtype=torch.int32, device=home)] * (5 - len(parts))
+    # (kv_pos, kv_len, rotate, token, pos) as one int32 tensor: assembled on
+    # the card where the inputs lie there (no host copy, so the launch can be
+    # captured in a CUDA graph), else on the host and copied up at once
+    meta = torch.cat([p.to(device=home, dtype=torch.int32).reshape(b) for p in parts]).to(dev)
 
     if fold_e:
         x0_p = cexp_p_p = sexp_p_p = None

@@ -23,7 +23,7 @@ import torch
 
 from xalm_tpu_torch.models.config import KV_SINKS, ModelConfig
 
-__all__ = ["KVCache", "ring_indices", "KV_SINKS"]
+__all__ = ["KVCache", "ring_indices", "step_inputs", "KV_SINKS"]
 
 
 def ring_indices(pos: torch.Tensor, max_seq_len: int):
@@ -35,6 +35,22 @@ def ring_indices(pos: torch.Tensor, max_seq_len: int):
     kv_pos = kv_sink + torch.remainder(pos - kv_sink, ring)
     kv_len = torch.clamp(pos + 1, max=max_seq_len)
     return kv_sink, kv_pos.to(torch.int32), kv_len.to(torch.int32)
+
+
+def step_inputs(pos: torch.Tensor, max_seq_len: int, valid: torch.Tensor | None = None):
+    """(kv_pos, kv_len, rotate) (B,) int32 of a t = 1 step at positions pos
+    (B,), on pos's device and with no host read, so that a CUDA graph can
+    capture them: ``ring_indices``' kv_pos and kv_len, and rotate 1 where
+    the ring has wrapped (the sinks re-rotate). A row with ``valid`` False
+    writes at the sentinel ``kv_pos == max_seq_len`` (a dropped write) and
+    does not rotate."""
+    _, kv_pos, kv_len = ring_indices(pos, max_seq_len)
+    rotate = pos >= max_seq_len
+    if valid is not None:
+        valid = valid.to(torch.bool)
+        kv_pos = torch.where(valid, kv_pos, max_seq_len).to(torch.int32)
+        rotate = rotate & valid
+    return kv_pos, kv_len, rotate.to(torch.int32)
 
 
 @dataclasses.dataclass
@@ -72,6 +88,15 @@ class KVCache:
     def batch(self) -> int:
         return self.k.shape[1]
 
+    def planes(self) -> tuple[torch.Tensor, ...]:
+        """The tensors the cache holds: k and v, and an int8 cache's scales."""
+        return (self.k, self.v) + ((self.k_scale, self.v_scale) if self.quantized else ())
+
+    def zero_(self) -> "KVCache":
+        """Zero every plane in place: the state ``init`` gives."""
+        for t in self.planes():
+            t.zero_()
+        return self
+
     def nbytes(self) -> int:
-        planes = (self.k, self.v) + ((self.k_scale, self.v_scale) if self.quantized else ())
-        return sum(t.nelement() * t.element_size() for t in planes)
+        return sum(t.nelement() * t.element_size() for t in self.planes())

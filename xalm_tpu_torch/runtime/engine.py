@@ -1,20 +1,32 @@
 """Inference engine (counterpart of ``xalm_tpu/runtime/engine.py::Engine``):
-load a .xalm model, chunked prefill, greedy decode, perplexity, and the
-active-bytes model behind the GB/s figure.
+load a .xalm model, chunked prefill, greedy and sampled decode, scanned
+decode, perplexity, and the active-bytes model behind the GB/s figure.
 
 Chunk contract (see models/llama.py): T > 1 calls never wrap the KV ring;
 the engine switches to T = 1 stepping once pos reaches the window. Prompt
 chunks are padded to ``_CHUNK_BUCKETS`` with a ``valid`` mask, as in the
-JAX engine, so both run the same shapes.
+JAX engine, so both run the same shapes, on the JAX chunk schedule. The
+JAX engine scans the leading full chunks in one dispatch
+(``_prefill_chunks``); here they go out back to back with no host read
+between them, which is what that dispatch is for, so no graph is needed.
 
-Decode is one forward call per token (the JAX engine's ``segment=1``); a
-decode step runs the whole-step megakernel where ``fused_step`` allows and
-its gate passes (``decode_path``), else the per-layer kernels (always for
-MoE, whose B = 1 steps gather the chosen experts). ``a8_decode`` runs the
-megakernel's int8-activation body (and the q4 GEMV per layer),
+A decode step runs the whole-step megakernel where ``fused_step`` allows
+and its gate passes (``decode_path``), else the per-layer kernels (always
+for MoE, whose B = 1 steps gather the chosen experts). ``a8_decode`` runs
+the megakernel's int8-activation body (and the q4 GEMV per layer),
 ``a8_prefill`` the W8A8 GEMM on prefill chunks; ``from_xalm(q4_group=g)``
-packs the body to q4 at load and implies ``a8_decode``. Stochastic
-sampling, sessions and speculation are later slices.
+packs the body to q4 at load and implies ``a8_decode``.
+
+Multi-step decode (``decode_scan``, ``_sample_scan``, ``_ppl_scan`` and
+``generate(segment=)``) runs as CUDA-graph replays on the card
+(``runtime/graphs.py``): the token stays on the card from one step to the
+next and the host reads a segment's tokens once at its end. ``generate``'s
+default segment is 16 on the card and 1 on the CPU (the JAX rule, the card
+in the TPU's place); a segment of 1 steps eagerly and reads each token. On
+the CPU the scans run the same steps eagerly. Graphs are bound to cache
+planes: the engine keeps one cache per batch size for ``generate`` and
+``perplexity`` and zeroes it for each call, and a cache passed to
+``decode_scan`` gets its own capture (``_MAX_GRAPHS`` kept).
 """
 
 from __future__ import annotations
@@ -23,6 +35,7 @@ import dataclasses
 import functools
 import math
 import time
+from collections import OrderedDict
 
 import numpy as np
 import torch
@@ -38,7 +51,8 @@ from xalm_tpu_torch.models.params import (
 )
 from xalm_tpu_torch.ops.fused_decode import fused_step_supported
 from xalm_tpu_torch.runtime.cache import KVCache
-from xalm_tpu_torch.sampler import sample_argmax, token_logprobs
+from xalm_tpu_torch.runtime.graphs import SEGMENT_MAX, ScanState, StepGraph
+from xalm_tpu_torch.sampler import sample, sample_argmax, token_logprobs
 from xalm_tpu_torch.tokenizer import Tokenizer
 
 __all__ = ["Engine", "GenerationStats", "auto_kv_dtype"]
@@ -48,6 +62,7 @@ _CHUNK_BUCKETS = (16, 32, 64, 128, 256, 512)
 # megakernel), int8 on kernels 5-7, f16 on the dense attention (the forward
 # routes each by its dtype, as the reference does)
 KV_DTYPES = (torch.float16, torch.bfloat16, torch.float32, torch.int8)
+_MAX_GRAPHS = 8  # captured scan steps an engine keeps (the least recently used goes)
 
 
 def _bucket(n: int) -> int:
@@ -119,6 +134,9 @@ class Engine:
             raise ValueError(f"matmul_impl {matmul_impl!r}: one of auto, {', '.join(IMPLS)}")
         if self.kv_dtype not in KV_DTYPES:
             raise ValueError(f"kv dtype {self.kv_dtype}: one of {', '.join(map(str, KV_DTYPES))}")
+        self._caches: dict[int, KVCache] = {}  # generate's and perplexity's, by batch size
+        # (cache planes, step kind) -> (ScanState, StepGraph), least recently used first
+        self._graphs: OrderedDict[tuple, tuple[ScanState, StepGraph]] = OrderedDict()
 
     # ------------------------------------------------------------------ load
 
@@ -184,6 +202,11 @@ class Engine:
             return "xla"
         return "perlayer"
 
+    def _forward_kw(self) -> dict:
+        return dict(compute_dtype=self.compute_dtype, impl=self.matmul_impl,
+                    fused_step=self.fused_step, a8_prefill=self.a8_prefill,
+                    a8_decode=self.a8_decode)
+
     def step(self, tokens, pos, cache: KVCache, valid=None, logits_mode="last"):
         """Forward on a (B, T) block at positions pos (B,). Returns
         (logits, cache); the cache is updated in place. The inputs stay on
@@ -193,12 +216,101 @@ class Engine:
         if valid is not None:
             valid = torch.as_tensor(np.asarray(valid), dtype=torch.bool)
         with torch.inference_mode():
-            return forward(
-                self.params, self.cfg, tokens, pos, cache, valid,
-                logits_mode=logits_mode, compute_dtype=self.compute_dtype,
-                impl=self.matmul_impl, fused_step=self.fused_step,
-                a8_prefill=self.a8_prefill, a8_decode=self.a8_decode,
-            )
+            return forward(self.params, self.cfg, tokens, pos, cache, valid,
+                           logits_mode=logits_mode, **self._forward_kw())
+
+    # ----------------------------------------------------------------- scans
+
+    def _fresh_cache(self, batch: int) -> KVCache:
+        """The engine's cache of ``batch`` rows, zeroed (the state
+        ``new_cache`` gives): the planes its captured steps are bound to."""
+        cache = self._caches.get(batch)
+        if cache is None:
+            cache = self._caches[batch] = self.new_cache(batch)
+        else:
+            cache.zero_()
+        return cache
+
+    def _scan(self, cache: KVCache, kind: str, valid: bool = False, sampling=None):
+        """The (ScanState, StepGraph) of a ``kind`` step ("greedy", "sample"
+        with ``sampling`` = (temperature, top_k, top_p), or "ppl") over
+        ``cache``, built at first use and kept for these planes."""
+        key = (tuple(t.data_ptr() for t in cache.planes()), tuple(cache.k.shape), cache.k.dtype,
+               kind, valid, sampling)
+        scan = self._graphs.pop(key, None)
+        if scan is None:
+            while len(self._graphs) >= _MAX_GRAPHS:
+                self._graphs.popitem(last=False)
+            with torch.inference_mode(False):  # plain tensors: written in and out of inference mode
+                st = ScanState.empty(cache.batch, self.device, logprobs=kind == "ppl",
+                                     valid=valid, teacher=kind == "ppl")
+                gen = torch.Generator(device=self.device) if kind == "sample" else None
+            step = _scan_step(self.params, self.cfg, cache, st, kind, gen, sampling,
+                              self._forward_kw())
+            scan = (st, StepGraph(step, self.device, gen))
+        self._graphs[key] = scan
+        return scan
+
+    @staticmethod
+    def _load(st: ScanState, tokens, pos, valid=None) -> None:
+        """A scan's start: the first tokens and positions (and valid rows),
+        from the host or the card."""
+        st.token.copy_(torch.as_tensor(tokens).reshape(-1))
+        st.pos.copy_(torch.as_tensor(pos).reshape(-1))
+        if valid is not None:
+            st.valid.copy_(torch.as_tensor(valid).reshape(-1))
+
+    @staticmethod
+    def _run(st: ScanState, graph: StepGraph, n_steps: int) -> torch.Tensor:
+        """n_steps of a scan from its current state -> its outputs (B,
+        n_steps) on the device, no host read (the buffer is copied out every
+        SEGMENT_MAX steps)."""
+        outs = []
+        for done in range(0, n_steps, SEGMENT_MAX):
+            m = min(SEGMENT_MAX, n_steps - done)
+            st.slot.zero_()
+            graph.run(m)
+            outs.append(st.out[:, :m].clone())
+        return torch.cat(outs, dim=1) if outs else st.out[:, :0].clone()
+
+    def decode_scan(self, tokens, pos, cache: KVCache, n_steps: int, valid=None):
+        """Greedy-decode n_steps from tokens (B,) at pos (B,) -> (generated
+        (B, n_steps) int32 on the engine's device, cache). ``valid``: (B,)
+        bool; False rows neither write the cache nor rotate sinks. On the
+        card the steps replay a CUDA graph (captured at the first call on
+        these planes) and nothing is read back; a failed capture raises."""
+        with torch.inference_mode():
+            st, graph = self._scan(cache, "greedy", valid=valid is not None)
+            self._load(st, tokens, pos, valid)
+            return self._run(st, graph, n_steps), cache
+
+    def _sample_scan(self, tokens, pos, cache: KVCache, n_steps: int, *, temperature: float,
+                     top_k: int = 0, top_p: float = 1.0, seed: int | None = None, valid=None):
+        """n_steps of sampled decode (``sampler.sample``); ``seed`` reseeds the
+        step's generator first (None: it draws on). -> (tokens (B, n_steps)
+        int32 on the device, cache)."""
+        with torch.inference_mode():
+            st, graph = self._scan(cache, "sample", valid=valid is not None,
+                                   sampling=(float(temperature), int(top_k), float(top_p)))
+            if seed is not None:
+                graph.generator.manual_seed(seed)
+            self._load(st, tokens, pos, valid)
+            return self._run(st, graph, n_steps), cache
+
+    def _ppl_scan(self, toks, tgts, pos, cache: KVCache):
+        """Teacher-forced log-prob scan: feed toks[:, i] at pos + i and take
+        log p(tgts[:, i]); toks, tgts (B, K), K <= SEGMENT_MAX -> (log-probs
+        (B, K) f32 on the device, cache)."""
+        toks, tgts = (torch.as_tensor(np.asarray(a), dtype=torch.int32) for a in (toks, tgts))
+        k = toks.shape[1]
+        if k > SEGMENT_MAX:
+            raise ValueError(f"_ppl_scan: {k} steps; at most {SEGMENT_MAX}")
+        with torch.inference_mode():
+            st, graph = self._scan(cache, "ppl")
+            st.toks[:, :k].copy_(toks)
+            st.tgts[:, :k].copy_(tgts)
+            self._load(st, toks[:, 0], pos)
+            return self._run(st, graph, k), cache
 
     def decode(self, tokens, pos, cache: KVCache):
         """One decode step: tokens (B,), pos (B,) -> logits (B, vocab)."""
@@ -256,19 +368,46 @@ class Engine:
         *,
         on_token=None,
         stop_on_eos: bool = True,
+        segment: int | None = None,
         temperature: float = 0.0,
+        top_k: int = 0,
+        top_p: float = 1.0,
+        seed: int | None = None,
     ):
-        """Greedy completion. Returns (generated ids, GenerationStats); the
-        time of each phase ends in a device synchronise."""
-        if temperature > 0.0:
-            raise NotImplementedError(
-                "stochastic sampling is not wired into this engine; use temperature=0 (greedy)"
-            )
+        """Completion: greedy, or with ``temperature > 0`` sampled
+        (``sampler.sample``: temperature, top-k, top-p), from a generator
+        seeded once with ``seed`` (None: 0), so that the tokens are
+        reproducible for a given (seed, segment). Decode goes in segments of
+        ``segment`` steps (default 16 on the card, 1 on the CPU): a segment
+        of more than one step replays the captured step and reads its
+        tokens once at the end; EOS is checked between segments and the
+        tokens past it, or past ``max_new_tokens``, are dropped (greedy
+        output does not depend on the segment). Returns (generated ids,
+        GenerationStats); the time of each phase ends in a host read."""
+        if segment is None:
+            segment = 16 if self.device.type == "cuda" else 1
+        if segment < 1:
+            raise ValueError(f"segment {segment}: at least 1")
         stats = GenerationStats(prompt_tokens=len(prompt_ids))
-        cache = self.new_cache(1)
+        cache = self._fresh_cache(1)
+        sampling = (float(temperature), int(top_k), float(top_p)) if temperature > 0.0 else None
+        scan = self._scan(cache, "sample" if sampling else "greedy", sampling=sampling) \
+            if segment > 1 else None
+        gen = None
+        if sampling:
+            gen = scan[1].generator if scan else torch.Generator(device=self.device)
+            gen.manual_seed(0 if seed is None else seed)
+
+        def pick(logits):
+            if sampling:
+                return sample(logits, gen, temperature=temperature, top_k=top_k, top_p=top_p)
+            return sample_argmax(logits)
+
         t0 = time.perf_counter()
         logits, cache, pos = self.prefill(prompt_ids, cache, logits_mode="last")
-        token = int(sample_argmax(logits)[0])  # copies to the host: a sync
+        with torch.inference_mode():
+            first = pick(logits)
+        token = int(first[0])  # copies to the host: a sync
         stats.prefill_s = time.perf_counter() - t0
 
         out: list[int] = []
@@ -281,23 +420,42 @@ class Engine:
 
         t0 = time.perf_counter()
         stopped = emit(token)
+        if scan is not None and not stopped and len(out) < max_new_tokens:
+            st, graph = scan
+            with torch.inference_mode():
+                st.token.copy_(first)  # the token stays on the card
+                st.pos.fill_(pos)
         while not stopped and len(out) < max_new_tokens:
-            logits, cache = self.decode(np.array([token]), np.array([pos], np.int32), cache)
-            token = int(sample_argmax(logits)[0])
-            stats.active_bytes += self.active_bytes(pos)
-            stopped = emit(token)
-            pos += 1
+            n = min(segment, max_new_tokens - len(out))
+            if scan is not None:
+                with torch.inference_mode():
+                    seg = self._run(st, graph, n)[0].tolist()  # the segment's one host read
+            else:
+                logits, cache = self.decode(np.array([token]), np.array([pos], np.int32), cache)
+                with torch.inference_mode():
+                    seg = [int(pick(logits)[0])]
+            for i, t in enumerate(seg):
+                stats.active_bytes += self.active_bytes(pos + i)
+                if emit(t):
+                    stopped = True
+                    break
+            pos += len(seg)
+            token = seg[-1]
         stats.decode_s = time.perf_counter() - t0
         stats.generated_tokens = len(out)
         return out, stats
 
     def perplexity(self, token_ids: list[int]) -> tuple[float, float, int]:
         """(ppl, stderr, n) over a prompt: forward every token, accumulate
-        log p of the next."""
+        log p of the next. The window's tokens in "all"-logits prefill
+        chunks; the wrapped tail (ring and sinks active) teacher-forced in
+        ``_ppl_scan`` segments of the JAX buckets (at most 512 steps, the
+        last padded by repeating the final token; the padded log-probs are
+        never counted and their cache rows lie past every counted query)."""
         n = len(token_ids)
         if n < 2:
             raise ValueError("perplexity needs at least 2 tokens")
-        cache = self.new_cache(1)
+        cache = self._fresh_cache(1)
         s = self.cfg.max_seq_len
         head = min(n, s)
         logits_all, cache, pos = self.prefill(token_ids[:head], cache, logits_mode="all")
@@ -308,15 +466,19 @@ class Engine:
         sum_lp = float(lps.sum())
         sum_lp2 = float((lps**2).sum())
         count = len(lps)
-        # wrapped tail (ring + sinks active): teacher-forced T=1 steps
         while pos < n - 1:
-            logits, cache = self.decode(np.array([token_ids[pos]]), np.array([pos], np.int32), cache)
-            tgt = torch.tensor([token_ids[pos + 1]], device=logits.device)
-            lp = float(token_logprobs(logits, tgt)[0])
-            sum_lp += lp
-            sum_lp2 += lp * lp
-            count += 1
-            pos += 1
+            k = min(n - 1 - pos, _CHUNK_BUCKETS[-1])
+            bucket = _bucket(k)
+            toks = np.full((1, bucket), token_ids[n - 1], np.int32)
+            tgts = np.full((1, bucket), token_ids[n - 1], np.int32)
+            toks[0, :k] = token_ids[pos : pos + k]
+            tgts[0, :k] = token_ids[pos + 1 : pos + 1 + k]
+            lps_seg, cache = self._ppl_scan(toks, tgts, np.array([pos], np.int32), cache)
+            lps_seg = lps_seg[0, :k].cpu().numpy().astype(np.float64)  # the segment's one read
+            sum_lp += float(lps_seg.sum())
+            sum_lp2 += float((lps_seg**2).sum())
+            count += k
+            pos += k
         ppl = math.exp(-sum_lp / count)
         err = ppl * math.sqrt(max(sum_lp2 - sum_lp * sum_lp / count, 0.0) / count / count)
         return ppl, err, count
@@ -359,3 +521,29 @@ class Engine:
         if self.kv_dtype == torch.int8:
             total += 2 * cfg.n_layers * cfg.n_kv_heads * (kv_len + 1) * 4
         return total
+
+
+def _scan_step(params, cfg, cache: KVCache, st: ScanState, kind: str, generator, sampling,
+               forward_kw: dict):
+    """The step a scan replays (``runtime/graphs.py``), over static buffers
+    only: the forward of st.token (or, for "ppl", the teacher's token at
+    the slot) at st.pos, then the advance: "greedy" emits and feeds back
+    the argmax (``logits_mode="token"``: the megakernel's own where it runs
+    the head), "sample" the draw of ``sampler.sample`` from ``generator``,
+    "ppl" emits log p(st.tgts at the slot)."""
+    valid = None if st.valid is None else st.valid[:, None]
+    temperature, top_k, top_p = sampling or (0.0, 0, 1.0)
+
+    def step() -> None:
+        tok_in = st.toks.index_select(1, st.slot) if kind == "ppl" else st.token[:, None]
+        out, _ = forward(params, cfg, tok_in, st.pos, cache, valid,
+                         logits_mode="token" if kind == "greedy" else "last", **forward_kw)
+        if kind == "greedy":
+            st.emit(out, out)
+        elif kind == "sample":
+            tok = sample(out, generator, temperature=temperature, top_k=top_k, top_p=top_p)
+            st.emit(tok, tok)
+        else:
+            st.emit(token_logprobs(out, st.tgts.index_select(1, st.slot)[:, 0]), tok_in[:, 0])
+
+    return step
