@@ -20,7 +20,8 @@ first, while the megakernel's two sources build:
    shapes, with its time, the plain version's time, a library call's time
    where one PyTorch call computes the same function, and its bound (the
    larger of bytes over 3.35 TB/s and operations over the peak rate):
-   kernel 1 at M = 1 and its tiled GEMM (``gemm_bf16w_kernel``: M = 512
+   kernel 1 at M = 1 and at a verify chunk's M = 8 (wqkv with the norm,
+   w13, w2), and its tiled GEMM (``gemm_bf16w_kernel``: M = 512
    w13, w2 and wqkv with the norm prologue, M = 16 w13, i8, and M = 512
    w13 on bf16 weights beside ``F.linear``), the
    bf16-cache kernels (the ``flash_decode`` rows a decode step's ring
@@ -66,7 +67,19 @@ first, while the megakernel's two sources build:
    each (wall ms a token at both segments, device busy ms and idle share of
    a profiled segment, capture seconds, replays, the card's name and power
    limit), and the scanned perplexity's log-probs bit-equal to per-token
-   steps on the megakernel;
+   steps on the megakernel; then ``phase_spec``: speculative decoding
+   (``generate_spec``, k = 7: verify chunks of 8 tokens replayed from CUDA
+   graphs) on a copy model (``copy_params``) whose n-gram drafts are its
+   continuation, over a bf16 and an int8 cache, with a 2-layer copy as the
+   draft engine, and wrapped at a 256-slot window (verify, then commit);
+   its tokens equal to ``generate``'s (segment 16) and the recurrence, a
+   ``spec`` line each (tok/s of both, the acceptance, one verify chunk's
+   device ms against one plain step's, the capture seconds, the launches
+   of both runs, from 0), and the same prompt on random weights (drafts
+   mostly rejected); and ``phase_session``: a 64-token generation cut
+   after 24, saved, loaded and resumed, equal to the uninterrupted run,
+   with a bf16 and an int8 cache (save and load seconds of the whole
+   window's planes, 537 and 277 MB);
 5. wrap: the same widths at 2 layers and a 256-slot window, 600 decode
    steps through three ring wraps, the kernels against their plain
    versions on the card, on both decode paths (the megakernel with the i8
@@ -153,7 +166,8 @@ and depth in one process a turn, this checkout's and DIR's package each
 in its own (other, this, this, other: ``decode_wall``), and prints each
 turn's decode ms a token and the host's time of a layer's attention step
 (this checkout's one ``fused_decode_attention`` call, an older one's
-``kv_update`` and ``flash_decode``).
+``kv_update`` and ``flash_decode``), and the seconds of a 512- and a
+2048-token prefill (host clock and CUDA events).
 
 Any failed phase raises and the script exits non-zero without the result
 line. There is no CPU fallback: without a CUDA device it exits 2 at once.
@@ -317,6 +331,12 @@ Q4_STREAM_FRAGS = ("gemv_q4_stream_kernel", "multi_q4_stream_kernel")
 # also_cases of the qmatmul row)
 TILED_CASES = ("M=512 w2 i8, row scale", "M=512 wqkv i8, norm prologue + row scale",
                "M=16 w13 i8, row scale", "M=512 w13 bf16")
+# phase 3's cases of kernel 1 and 4 at a speculative verify chunk's rows
+# (k + 1 = 8, ``phase_spec``): further also_cases of the qmatmul and
+# flash_prefill rows
+SPEC_CASES = ("M=8 wqkv i8, norm prologue + row scale", "M=8 w13 i8, row scale",
+              "M=8 w2 i8, row scale")
+SPEC_PREFILL_CASE = "T=8 pos=1024"
 
 
 def phase_parity(params, cfg, cases: Cases) -> None:
@@ -380,6 +400,8 @@ def phase_parity(params, cfg, cases: Cases) -> None:
     mm_case("M=1 w13 i8, norm prologue + row scale", 1, lp.w13, True)
     mm_case("M=1 wo i8, row scale", 1, lp.wo, False)
     mm_case("M=1 w2 i8, row scale", 1, lp.w2, False)
+    for case, w, norm in zip(SPEC_CASES, (lp.wqkv, lp.w13, lp.w2), (True, False, False)):
+        mm_case(case, SPEC_K + 1, w, norm)  # a speculative verify chunk's rows
     mm_case("M=512 w13 i8, row scale", 512, lp.w13, False)
     mm_case("M=1 head bf16", 1, params.wcls, False, head=True)
     # the tiled GEMM (gemm_bf16w_kernel) at the prefill chunk's other
@@ -462,7 +484,9 @@ def attention_cases(cfg, cases: Cases, gen, ck, cv, tag: str = "", label: str = 
     bit-equal, the output within 1e-5 of each row's max (f32 dots and
     softmax on both sides, in another order); SDPA (``enable_gqa``, q in the
     cache's type) timed beside it over the same rows, the attention alone.
-    flash_prefill of a 512-row chunk at positions 0 and 1024, beside SDPA.
+    flash_prefill of a 512-row chunk at positions 0 and 1024, beside SDPA
+    (without ``tag`` over a bf16 cache also a verify chunk's 8 rows at
+    1024, ``SPEC_PREFILL_CASE``).
     Layers cycle so every launch streams cold, SDPA's too. An f32 cache
     holds flash_prefill to 1e-5 (``F32_CACHE_TOL``) and bounds it by its
     three TF32 products a step at PEAK_TF32 (split TF32: nothing rounded to
@@ -511,8 +535,8 @@ def attention_cases(cfg, cases: Cases, gen, ck, cv, tag: str = "", label: str = 
                          "planes_equal": planes_equal},
                   extra_ok=planes_equal)
 
-    t = 512
-    for p0 in (0, 1024):
+    chunks = [(512, 0), (512, 1024)] + ([(SPEC_K + 1, 1024)] if not tag and not f32 else [])
+    for t, p0 in chunks:
         q = randn(1, t, h, hd)
         pos = i32(p0)
         got = A.flash_prefill(q, ck, cv, 9 % L, pos)
@@ -1385,7 +1409,7 @@ def _scan_profile(eng, prompt) -> dict:
 
     from xalm_tpu_torch.sampler import sample_argmax
 
-    logits, cache, pos = eng.prefill(prompt, eng._fresh_cache(1))
+    logits, cache, pos = eng.prefill(prompt, eng.fresh_cache(1))
     st, graph = eng._scan(cache, "greedy")
     with torch.inference_mode():
         st.token.copy_(sample_argmax(logits))
@@ -1415,7 +1439,7 @@ def _graph_depth(eng, prompt) -> dict:
     from xalm_tpu_torch.ops import build
     from xalm_tpu_torch.sampler import sample_argmax
 
-    logits, cache, pos = eng.prefill(prompt, eng._fresh_cache(1))
+    logits, cache, pos = eng.prefill(prompt, eng.fresh_cache(1))
     st, one = eng._scan(cache, "greedy")
     with torch.inference_mode():
         st.token.copy_(sample_argmax(logits))
@@ -1535,7 +1559,7 @@ def phase_scan(cfg, model: str, runs, ppl_run: str | None = None,
         for seg in (1, SCAN_SEGMENT):
             eng.generate(prompt[:32], 2, stop_on_eos=False, segment=seg)
         torch.cuda.synchronize()
-        _, graph = eng._scan(eng._caches[1], "greedy")
+        _, graph = eng._scan(eng.fresh_cache(1), "greedy")
         if graph.graph is None:
             raise AssertionError(f"scan {label}: no graph captured by the warm-up")
         runs_by_seg = {}
@@ -1581,6 +1605,248 @@ def phase_scan(cfg, model: str, runs, ppl_run: str | None = None,
         rows.append(row)
         del eng, graph
         torch.cuda.empty_cache()
+    return rows
+
+
+SPEC_K = 7  # drafts a verify chunk (the JAX harness suggests 7): M = 8 rows
+SPEC_TOKENS = 96  # tokens a spec run generates
+SPEC_REC = 128  # the copy prompt's recurrence before its first two tokens again
+SPEC_WRAP_WINDOW = 256  # the wrapped run's window (phase_wrap's)
+SPEC_WRAP_TOKENS = 320  # from a 130-token prompt: 194 of them past the wrap at 256
+REPLAY_ITERS = 20
+
+
+def copy_prompt(perm_inv, seed: int, rec: int = SPEC_REC) -> list[int]:
+    """The copy model's recurrence (``copy_params``) from two random tokens,
+    ``rec`` tokens long, then its first two tokens again: the continuation
+    is the recurrence once more, which appears earlier in the context, so
+    n-gram drafts find it."""
+    import numpy as np
+
+    a, b = (int(t) for t in np.random.default_rng(seed).integers(3, len(perm_inv), size=2))
+    seq = [a, b]
+    while len(seq) < rec:
+        seq.append(perm_inv[seq[-2]])
+    return seq + [a, b]
+
+
+def recurrence(prompt, perm_inv, n: int) -> list[int]:
+    """The n tokens the copy model must give after ``prompt``."""
+    seq = list(prompt)
+    for _ in range(n):
+        seq.append(perm_inv[seq[-2]])
+    return seq[len(prompt):]
+
+
+def _replay_ms(graph, iters: int = REPLAY_ITERS) -> float:
+    """Device ms of one replay of a captured StepGraph: CUDA events over
+    ``iters`` replays after one more."""
+    import torch
+
+    graph.graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        graph.graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _spec_run(label: str, eng, prompt, n: int, want, draft=None, wrapped: bool = False) -> dict:
+    """One spec run (``phase_spec``): ``Engine.generate`` (segment 16, graph
+    replays) and ``generate_spec`` (k = SPEC_K) of ``n`` tokens, each run
+    once to capture its graphs and then timed, every launch counter set to
+    0 just before each timed run and read just after. ``want``: the copy
+    model's recurrence, which both runs must give (None for random
+    weights: their tokens are recorded, not required). Then one verify
+    chunk's device ms (CUDA events over graph replays) against one plain
+    step's, the verify graph's capture seconds, and, wrapped, the eager
+    commit's ms."""
+    import numpy as np
+    import torch
+
+    from xalm_tpu_torch.ops import build
+    from xalm_tpu_torch.runtime import spec
+    from xalm_tpu_torch.runtime.cache import ring_indices
+
+    def timed(fn):
+        fn()  # the graphs' warm-up and capture
+        torch.cuda.synchronize()
+        build.reset_launches()
+        out, stats = fn()
+        torch.cuda.synchronize()
+        return out, stats, {k: v for k, v in build.LAUNCHES.items() if v}
+
+    plain, pstats, plain_launches = timed(
+        lambda: eng.generate(prompt, n, stop_on_eos=False, segment=SCAN_SEGMENT))
+    out, sstats, spec_launches = timed(
+        lambda: spec.generate_spec(eng, prompt, n, k=SPEC_K, stop_on_eos=False,
+                                   segment=SCAN_SEGMENT, draft_engine=draft))
+    cache = eng.fresh_cache(1)  # the planes generate's and generate_spec's graphs are bound to
+    _, scan_graph = eng._scan(cache, "greedy")
+    verify = {}
+    for kind in ("blind", "wrapped") if wrapped else ("blind",):
+        st, graph = eng._verifier(cache, SPEC_K, kind == "wrapped")
+        if graph.graph is None:
+            raise AssertionError(f"spec {label}: no {kind} verify chunk was captured")
+        verify[kind] = {"device_ms": _replay_ms(graph), "capture_s": graph.capture_s,
+                        "launches_per_replay": graph.launches}
+    row = {"phase": "spec", "run": label, "layers": eng.cfg.n_layers,
+           "window": eng.cfg.max_seq_len, "kv_dtype": str(eng.kv_dtype).split(".")[-1],
+           "decode_path": eng.decode_path(1), "k": SPEC_K, "prompt_tokens": len(prompt),
+           "generated_tokens": len(out), "draft": "n-gram" if draft is None else
+           f"draft engine, {draft.cfg.n_layers} layers",
+           "spec_tok_s": sstats.tok_per_s, "generate_tok_s": pstats.tok_per_s,
+           "speedup": sstats.tok_per_s / pstats.tok_per_s,
+           "spec_proposed": sstats.spec_proposed, "spec_accepted": sstats.spec_accepted,
+           "acceptance": sstats.spec_accepted / max(sstats.spec_proposed, 1),
+           "verify_chunk_device_ms": verify["blind"]["device_ms"],
+           "plain_step_device_ms": _replay_ms(scan_graph),
+           "verify_capture_s": verify["blind"]["capture_s"],
+           "verify_launches_per_chunk": verify["blind"]["launches_per_replay"],
+           "plain_launches": plain_launches, "spec_launches": spec_launches,
+           "tokens_equal_generate": out == plain,
+           "equal_prefix": next((i for i, (a, b) in enumerate(zip(out, plain)) if a != b),
+                                min(len(out), len(plain))),
+           "card": _smi_line()}
+    if wrapped:
+        row.update(wrapped_verify_device_ms=verify["wrapped"]["device_ms"],
+                   wrapped_verify_capture_s=verify["wrapped"]["capture_s"])
+        st, _ = eng._verifier(cache, SPEC_K, True)
+        pos = eng.cfg.max_seq_len + 40
+        _, kvp, _ = ring_indices(pos + torch.arange(SPEC_K + 1)[None], eng.cfg.max_seq_len)
+        kvp = kvp.numpy()
+        spec.spec_commit(eng, cache, st.rows, kvp, SPEC_K)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(REPLAY_ITERS):
+            spec.spec_commit(eng, cache, st.rows, kvp, SPEC_K)
+        torch.cuda.synchronize()
+        row["commit_ms"] = (time.perf_counter() - t0) * 1e3 / REPLAY_ITERS
+    if want is not None:
+        row["tokens_equal_recurrence"] = out == want
+    emit(row)
+    if want is not None and not (out == plain == want):
+        raise AssertionError(f"spec {label}: tokens differ from generate's or the recurrence: "
+                             f"{row}")
+    if len(out) != n or not np.all(np.isfinite([row["spec_tok_s"], row["generate_tok_s"]])):
+        raise AssertionError(f"spec {label}: {len(out)} tokens, expected {n}")
+    for kernel in ("qmatmul",) + (("flash_prefill",) if eng.kv_dtype == torch.bfloat16 else ()):
+        if not spec_launches.get(kernel):
+            raise AssertionError(f"spec {label}: {kernel} never launched by generate_spec")
+    return row
+
+
+def phase_spec(params, cfg) -> list[dict]:
+    """Speculative decoding (``runtime/spec.py``) at full width and depth:
+    the copy model (``copy_params``, whose greedy tokens follow its
+    recurrence by a 200-nat margin, so every run's tokens must equal plain
+    ``generate``'s exactly) on the prompt of ``copy_prompt``, where the
+    n-gram drafts are the continuation: n-gram drafts over a bf16 cache
+    (the megakernel between chunks) and an int8 cache; the copy model's
+    first 2 layers as ``draft_engine``; the wrapped regime (verify, then
+    commit) at a 256-slot window, drafted by the 2-layer copy (past the
+    prompt's recurrence no n-gram matches); and ``params`` (random weights)
+    on the same prompt, whose drafts are mostly rejected, the worst case
+    (their tokens recorded beside generate's, not required: the verify
+    chunk's arithmetic is not the megakernel's). A ``spec`` line a run
+    (``_spec_run``)."""
+    import torch
+
+    from xalm_tpu_torch.runtime.engine import Engine
+
+    copy, perm_inv = copy_params(cfg, SEED + 3)
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    draft_params, _ = copy_params(cfg2, SEED + 3)  # the same codes and permutation
+    prompt = copy_prompt(perm_inv, SEED + 4)
+    want = recurrence(prompt, perm_inv, SPEC_TOKENS)
+    cfg_wrap = dataclasses.replace(cfg, max_seq_len=SPEC_WRAP_WINDOW)
+    runs = [("copy bf16", lambda: Engine(cfg, copy), want, False, False),
+            ("copy int8", lambda: Engine(cfg, copy, kv_dtype=torch.int8), want, False, False),
+            ("copy bf16, 2-layer draft engine", lambda: Engine(cfg, copy), want, True, False),
+            ("copy bf16 wrapped, 256 slots, 2-layer draft engine", lambda: Engine(cfg_wrap, copy),
+             recurrence(prompt, perm_inv, SPEC_WRAP_TOKENS), True, True),
+            ("random bf16", lambda: Engine(cfg, params), None, False, False)]
+    rows = []
+    for label, make, target, drafted, wrapped in runs:
+        n = len(target) if target is not None else SPEC_TOKENS
+        eng = make()
+        draft = Engine(cfg2, draft_params) if drafted else None
+        rows.append(_spec_run(label, eng, prompt, n, target, draft, wrapped))
+        del eng, draft
+        torch.cuda.empty_cache()
+    del copy, draft_params
+    torch.cuda.empty_cache()
+    return rows
+
+
+SESSION_TOKENS, SESSION_CUT = 64, 24
+
+
+def phase_session(cfg) -> list[dict]:
+    """Sessions (``runtime/session.py``) at full width and depth, window
+    4096: the copy model's ``SESSION_TOKENS``-token generation (segment 16)
+    cut after ``SESSION_CUT`` tokens (``return_session``), the session saved
+    (``save_session``: no content hashes; the bf16 one also with them,
+    through ``write_blocks``) into
+    build/, loaded back onto the card and resumed, with a bf16 and an int8
+    cache: the resumed tokens must equal the uninterrupted run's and the
+    recurrence, and the resumed run's launches (counted from 0) must hold
+    the megakernel. A ``session`` line each: save and load seconds (the
+    load reads a file just written: the page cache is warm), the file's MB."""
+    import torch
+
+    from xalm_tpu_torch.ops import build
+    from xalm_tpu_torch.runtime.engine import Engine
+    from xalm_tpu_torch.io.blockstore import write_blocks
+    from xalm_tpu_torch.runtime.session import load_session, save_session, session_blocks
+
+    copy, perm_inv = copy_params(cfg, SEED + 3)
+    prompt = copy_prompt(perm_inv, SEED + 5)
+    want = recurrence(prompt, perm_inv, SESSION_TOKENS)
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(out_dir, exist_ok=True)
+    rows = []
+    for kv in (torch.bfloat16, torch.int8):
+        eng = Engine(cfg, copy, kv_dtype=kv)
+        full, _ = eng.generate(prompt, SESSION_TOKENS, stop_on_eos=False)
+        first, _, sess = eng.generate(prompt, SESSION_CUT, stop_on_eos=False,
+                                      return_session=True)
+        path = os.path.join(out_dir, f"session_{str(kv).split('.')[-1]}.xbk")
+        t0 = time.perf_counter()
+        save_session(path, cfg, sess)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = load_session(path, cfg, device=DEVICE)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        build.reset_launches()
+        rest, _ = eng.generate([], SESSION_TOKENS - SESSION_CUT, stop_on_eos=False, resume=loaded)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in build.LAUNCHES.items() if v}
+        row = {"phase": "session", "kv_dtype": str(kv).split(".")[-1], "layers": cfg.n_layers,
+               "window": cfg.max_seq_len, "cache_mb": sess.cache.nbytes() / 1e6,
+               "file_mb": os.path.getsize(path) / 1e6, "save_s": save_s, "load_s": load_s,
+               "cut_after": SESSION_CUT, "tokens": SESSION_TOKENS, "resumed_launches": launches,
+               "resumed_equal_uninterrupted": first + rest == full,
+               "uninterrupted_equal_recurrence": full == want, "card": _smi_line()}
+        if kv == torch.bfloat16:  # what content hashes would cost (io/xxh3.py, on the host)
+            t0 = time.perf_counter()
+            write_blocks(path, *session_blocks(cfg, sess))
+            row["save_with_hashes_s"] = time.perf_counter() - t0
+        os.remove(path)
+        emit(row)
+        if not (row["resumed_equal_uninterrupted"] and row["uninterrupted_equal_recurrence"]):
+            raise AssertionError(f"session ({kv}): the resumed run differs: {first + rest} vs "
+                                 f"{full} (recurrence {want})")
+        if not launches.get("fused_decode"):
+            raise AssertionError(f"session ({kv}): the resumed run launched no megakernel")
+        rows.append(row)
+        del eng, sess, loaded
+        torch.cuda.empty_cache()
+    del copy
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -3495,7 +3761,8 @@ INT8_CASE = dict.fromkeys(("fused_decode", "fused_decode_bias", "fused_decode_qk
                            "fused_decode_gemma", "fused_decode_gemma2"),
                           "int8 KV, B=1 kv_len=520, embed fold")
 # a further case of the kernels line: the down projection of the experts
-ALSO_CASE = {"qmatmul": ("M=512 w13 i8, row scale",) + TILED_CASES,
+ALSO_CASE = {"qmatmul": ("M=512 w13 i8, row scale",) + TILED_CASES + SPEC_CASES,
+             "flash_prefill": (SPEC_PREFILL_CASE,),
              "qmatmul_multi": MULTI_W2_CASE, "qmatmul_multi_q4": MULTI_Q4_W2_CASE,
              "qmatmul_f32": F32_M512_CASE, "qmatmul_multi_f32": MULTI_F32_W2_CASE,
              "flash_prefill_f32": ("T=512 pos=1024", "T=512 pos=0" + F32_CACHE_SHAPES[1][1]),
@@ -4621,6 +4888,8 @@ def _bulk_copy_rates(lib) -> None:
 DECODE_WALL_TOKENS = 64  # tokens a generate, after a 512-token prompt
 DECODE_WALL_RUNS = 3     # generates a turn
 DECODE_WALL_CALLS = 400  # attention steps timed on the host a turn
+PREFILL_WALL_TOKENS = (512, 2048)  # prompts a turn prefills
+PREFILL_WALL_RUNS = 5  # prefills of each a turn, after one more
 
 
 def _decode_wall_turn() -> dict:
@@ -4631,7 +4900,11 @@ def _decode_wall_turn() -> dict:
     decode ms a token; then a layer's attention step alone at kv_len 513,
     B = 1, DECODE_WALL_CALLS times (the checkout's ``fused_decode_attention``,
     or where it has none ``kv_update`` then ``flash_decode``): the host's
-    microseconds a call while the card keeps up, and the event ms a call."""
+    microseconds a call while the card keeps up, and the event ms a call;
+    then ``Engine.prefill`` of each PREFILL_WALL_TOKENS prompt into one
+    cache, PREFILL_WALL_RUNS times after a warm-up: the seconds of each on
+    the host's clock around a synchronised call, and CUDA events around
+    it (the device's span from the first launch to the last)."""
     import numpy as np
     import torch
 
@@ -4676,15 +4949,36 @@ def _decode_wall_turn() -> dict:
         step()
     host_us = (time.perf_counter() - t0) / DECODE_WALL_CALLS * 1e6
     torch.cuda.synchronize()
-    return {"decode_ms_per_token": ms, "attention_step_host_us": host_us,
-            "attention_step_event_ms": time_ms(step, iters=DECODE_WALL_CALLS // 4),
-            "fused": hasattr(A, "fused_decode_attention")}
+    row = {"decode_ms_per_token": ms, "attention_step_host_us": host_us,
+           "attention_step_event_ms": time_ms(step, iters=DECODE_WALL_CALLS // 4),
+           "fused": hasattr(A, "fused_decode_attention")}
+    cache = eng.new_cache(1)
+    long = np.random.default_rng(SEED + 1).integers(3, cfg.vocab_size,
+                                                    size=max(PREFILL_WALL_TOKENS)).tolist()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for n in PREFILL_WALL_TOKENS:
+        eng.prefill(long[:n], cache)
+        torch.cuda.synchronize()
+        walls, events = [], []
+        for _ in range(PREFILL_WALL_RUNS):
+            t0 = time.perf_counter()
+            start.record()
+            logits, _, pos = eng.prefill(long[:n], cache)
+            end.record()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            events.append(start.elapsed_time(end) / 1e3)
+            if pos != n or not torch.isfinite(logits).all():
+                raise AssertionError(f"prefill of {n} tokens: pos {pos}, or logits not finite")
+        row[f"prefill_{n}_s"] = walls
+        row[f"prefill_{n}_event_s"] = events
+    return row
 
 
 def decode_wall(other_root: str) -> None:
-    """Mistral-7B's per-layer decode over a bf16 cache, this checkout's
-    package against ``other_root``'s in one call on one host: both trees'
-    kernel 1 and attention libraries built first (``_trees``), then one
+    """Mistral-7B's per-layer decode and prefill over a bf16 cache, this
+    checkout's package against ``other_root``'s in one call on one host:
+    both trees' kernel 1 and attention libraries built first (``_trees``), then one
     process a turn (``--decode-wall-turn``, which imports the named
     checkout's package), in turns other, this, this, other; each turn's
     ``_decode_wall_turn`` and the means of each tree."""
@@ -4707,7 +5001,9 @@ def decode_wall(other_root: str) -> None:
           **{f"{tag}_attention_step_host_us": mean([r["attention_step_host_us"] for r in rs])
              for tag, rs in runs.items()},
           **{f"{tag}_attention_step_event_ms": mean([r["attention_step_event_ms"] for r in rs])
-             for tag, rs in runs.items()}})
+             for tag, rs in runs.items()},
+          **{f"{tag}_{key}": mean([m for r in rs for m in r[key]]) for tag, rs in runs.items()
+             for n in PREFILL_WALL_TOKENS for key in (f"prefill_{n}_s", f"prefill_{n}_event_s")}})
 
 
 def main(argv=None) -> int:
@@ -4824,6 +5120,8 @@ def main(argv=None) -> int:
         ("int8 perlayer", params, dict(i8, fused_step=False), "perlayer"),
         ("q4 g512 perlayer a8", q4p, dict(a8_decode=True, fused_step=False), "perlayer"),
     ], ppl_run="bf16 megakernel", depth_runs=("bf16 megakernel", "bf16 perlayer"))
+    phase_spec(params, cfg)
+    phase_session(cfg)
     main_row["launches"] = {k: main_row["launches"][k] + quant_row["launches"][k]
                             + long_row["launches"][k] for k in main_row["launches"]}
     del params, q4p

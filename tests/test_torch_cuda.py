@@ -2808,3 +2808,95 @@ def test_generate_segments_and_sampling_on_the_card(dev, path):
         logits, c2 = eng.decode(toks[pos + i:pos + i + 1], np.array([pos + i], np.int32), c2)
         want = torch.log_softmax(logits.float(), -1)[0, int(toks[pos + i + 1])]
         assert torch.equal(lps[0, i], want), i
+
+
+SPEC_PATHS = ["megakernel", "perlayer", "perlayer_int8"]
+
+
+@pytest.mark.parametrize("path", SPEC_PATHS)
+def test_verify_chunk_replays_equal_the_eager_chunk(dev, path):
+    """The pre-wrap verify chunk (``Engine.verify``): its first call (the
+    warm-up step and the capture) and a replay give the argmax and the cache
+    rows of the eager chunk forward bit for bit, and the replay counts the
+    eager chunk's launches. The window's rows are compared: the padded int8
+    prefill's dropped writes race in the sentinel row S of the physical
+    padding (ROADMAP section 3), which nothing attends."""
+    eng = _scan_engines(dev, path)
+    prompt = list(range(3, 13))
+    _, ca, pos = eng.prefill(prompt, eng.new_cache(1))
+    _, cb, _ = eng.prefill(prompt, eng.new_cache(1))
+    for i, chunk in enumerate(([5, 6, 7, 8, 9], [11, 3, 4, 20, 21])):
+        at = pos + 5 * i
+        build.reset_launches()
+        got, rows = eng.verify(chunk, at, ca, wrapped=False)
+        replayed = {k: n for k, n in build.LAUNCHES.items() if n}
+        build.reset_launches()
+        logits, cb = eng.step(np.array([chunk]), np.array([at], np.int32), cb, logits_mode="all")
+        eager = {k: n for k, n in build.LAUNCHES.items() if n}
+        assert rows is None and got == logits[0].argmax(-1).tolist()
+        window = eng.cfg.max_seq_len
+        assert all(torch.equal(a[:, :, :, :window], b[:, :, :, :window])
+                   for a, b in zip(ca.planes(), cb.planes()))
+        assert replayed == eager and replayed.get("qmatmul")
+    _, graph = eng._verifier(ca, 4, False)
+    assert graph.graph is not None and graph.replays == 1
+
+
+@pytest.mark.parametrize("path", SPEC_PATHS)
+def test_wrapped_verify_replays_write_nothing(dev, path):
+    """The wrapped verify chunk (``forward(spec_verify=True)``) captured and
+    replayed leaves every cache plane bit for bit as it was, and gives the
+    eager forward's argmax and rows."""
+    from xalm_tpu_torch.models.llama import forward
+
+    eng = _scan_engines(dev, path)
+    _, cache, pos = eng.prefill(list(range(3, 13)), eng.new_cache(1))
+    steps = eng.cfg.max_seq_len + 7 - pos
+    toks, cache = eng.decode_scan(np.array([5]), np.array([pos]), cache, steps)
+    pos += steps
+    tok = int(toks[0, -1])
+    before = [p.clone() for p in cache.planes()]
+    for i, chunk in enumerate(([tok, 6, 7, 8, 9], [tok, 3, 4, 20, 21])):
+        got, rows = eng.verify(chunk, pos + i, cache, wrapped=True)
+        assert all(torch.equal(a, b) for a, b in zip(before, cache.planes()))
+        with torch.inference_mode():
+            logits, _, want = forward(eng.params, eng.cfg, torch.tensor([chunk], device=dev),
+                                      torch.tensor([pos + i], dtype=torch.int32, device=dev),
+                                      cache, logits_mode="all", spec_verify=True,
+                                      **eng._forward_kw())
+        assert got == logits[0].argmax(-1).tolist()
+        assert all(torch.equal(a, b) for a, b in zip(rows, want))
+    _, graph = eng._verifier(cache, 4, True)
+    assert graph.graph is not None and graph.replays == 1
+
+
+@pytest.mark.parametrize("path", SPEC_PATHS)
+def test_generate_spec_equals_generate_on_a_copy_model(dev, path):
+    """generate_spec on the card (verify chunks as graph replays, the
+    commit after the wrap of a 64-slot window) gives generate's tokens and
+    the copy model's recurrence (``chip_smoke.copy_params``: its greedy
+    token wins by a 200-nat margin, so the verify chunk's arithmetic and
+    the decode step's agree on it), with n-gram drafts and with a draft
+    engine; both verify regimes are captured."""
+    import chip_smoke
+    from xalm_tpu_torch.runtime import spec
+    from xalm_tpu_torch.runtime.engine import Engine
+
+    cfg = dataclasses.replace(MISTRAL_7B, dim=512, hidden_dim=1024, n_layers=2, n_heads=4,
+                              n_kv_heads=2, vocab_size=512, max_seq_len=64)
+    params, perm_inv = chip_smoke.copy_params(cfg, 5)
+    kw = {"megakernel": dict(wcls_i8=True), "perlayer": dict(fused_step=False),
+          "perlayer_int8": dict(fused_step=False, kv_dtype=torch.int8)}[path]
+    eng = Engine(cfg, params, **kw)
+    prompt = chip_smoke.copy_prompt(perm_inv, 6, rec=40)
+    n = 80  # from 42 prompt tokens: past the wrap at 64
+    want = chip_smoke.recurrence(prompt, perm_inv, n)
+    plain, _ = eng.generate(prompt, n, stop_on_eos=False)
+    drafted, dstats = spec.generate_spec(eng, prompt, n, k=7, stop_on_eos=False,
+                                         draft_engine=Engine(cfg, params, **kw))
+    ngram, nstats = spec.generate_spec(eng, prompt, n, k=7, stop_on_eos=False)
+    assert plain == want and drafted == want and ngram == want
+    assert dstats.spec_accepted > n // 2 and nstats.spec_accepted > 0
+    cache = eng.fresh_cache(1)  # generate_spec's planes, where its graphs are kept
+    for wrapped in (False, True):
+        assert eng._verifier(cache, 7, wrapped)[1].graph is not None

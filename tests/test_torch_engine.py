@@ -128,9 +128,47 @@ def test_harness_perplexity_and_refusals(tiny_i8, capsys):
     assert port_harness.main([tiny_i8, "-d", "cpu", "-m", "perplexity",
                               "-i", "the quick brown fox is here"]) == 0
     assert "perplexity:" in capsys.readouterr().out
-    for extra in (["--spec", "4"], ["--tp", "2"]):
+    for extra in (["--profile"], ["--tp", "2"]):
         with pytest.raises(SystemExit):
             port_harness.main([tiny_i8, "-d", "cpu", "-i", "x"] + extra)
+
+
+def test_harness_spec_prints_the_greedy_text(tiny_i8, capsys):
+    """--spec 4 (n-gram drafts) and --spec 4 --draft (the same model as the
+    draft) print the greedy run's text, and the speculation line."""
+    args = [tiny_i8, "-d", "cpu", "-i", "hello world hello world hello", "-n", "24",
+            "-T", str(WINDOW)]
+    assert port_harness.main(args) == 0
+    want = _generated_text(capsys.readouterr().out)
+    for extra in (["--spec", "4"], ["--spec", "4", "--draft", tiny_i8]):
+        assert port_harness.main(args + extra) == 0
+        out = capsys.readouterr().out
+        assert _generated_text(out) == want
+        assert "speculation:" in out and "drafts accepted" in out
+
+
+def test_harness_session_run_twice_continues_the_text(tiny_i8, tmp_path, capsys):
+    """--session PATH: the first run saves the cache and the history, the
+    second resumes them and continues the text: the saved history is the
+    engine's own run of the first prompt, the second prompt and the
+    continuation from the first run's session."""
+    from xalm_tpu_torch.runtime.session import load_session
+
+    path = str(tmp_path / "s.xbk")
+    args = [tiny_i8, "-d", "cpu", "-n", "10", "-T", str(WINDOW), "--session", path]
+    assert port_harness.main(args + ["-i", "hello world"]) == 0
+    assert "saved session to" in capsys.readouterr().out
+    assert port_harness.main(args + ["-i", " again"]) == 0
+    second = capsys.readouterr().out
+    assert "resumed session" in second and "saved session to" in second
+
+    eng = Engine.from_xalm(tiny_i8, context=WINDOW, device="cpu")
+    tok = eng.tokenizer
+    once, again = tok.encode("hello world"), tok.encode(" again", bos=False)
+    out1, _, sess1 = eng.generate(once, 10, return_session=True)
+    out2, _ = eng.generate(again, 10, resume=sess1)
+    assert load_session(path, eng.cfg, device="cpu").tokens[0] == once + out1 + again + out2
+    assert tok.decode(out2) in second
 
 
 def test_harness_takes_top_k_and_top_p_greedily(tiny_i8, capsys):

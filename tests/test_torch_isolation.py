@@ -17,6 +17,7 @@ ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "xalm_tpu_torch"
 FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+ml_dtypes\b|from\s+ml_dtypes\b"
+    r"|import\s+xxhash\b|from\s+xxhash\b"
     r"|import\s+xalm_tpu\b(?!_torch)|from\s+xalm_tpu\b(?!_torch))",
     re.MULTILINE,
 )
@@ -39,7 +40,7 @@ def test_import_pulls_in_no_jax():
         f"for m in {_modules()!r}: importlib.import_module(m)\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'ml_dtypes' or m == 'xalm_tpu' or m.startswith('xalm_tpu.'))\n"
+        " or m == 'ml_dtypes' or m == 'xxhash' or m == 'xalm_tpu' or m.startswith('xalm_tpu.'))\n"
         "print(bad)\n"
         "assert not bad, bad\n"
     )
@@ -53,4 +54,4 @@ def test_import_pulls_in_no_jax():
                          + ["chip_smoke.py"])
 def test_source_has_no_forbidden_import(path):
     src = (ROOT / path).read_text()
-    assert not FORBIDDEN.search(src), f"{path} imports jax/ml_dtypes/xalm_tpu"
+    assert not FORBIDDEN.search(src), f"{path} imports jax/ml_dtypes/xxhash/xalm_tpu"

@@ -27,6 +27,12 @@
       --temperature <float>  sampling temperature (0 = greedy, the default)
       --top-k <int>   top-k filter of sampling (0 = off)
       --top-p <float> nucleus filter of sampling (1 = off)
+      --spec K        speculative decoding with K drafts a verify chunk (try 7;
+                      greedy-exact; ``runtime/spec.py``); n-gram drafts, or
+      --draft D.xalm  drafts from this (smaller) model on the same vocabulary
+      --session PATH  completion: resume from PATH if it exists, and save the
+                      cache and the token history there afterwards (xalm v2
+                      block store; ``runtime/session.py``)
 
 Every family the JAX converter writes loads (Llama/Mistral, Mixtral, Qwen2
 and Qwen3, Gemma, Gemma-2, Phi-3). Decode goes through the whole-step
@@ -36,8 +42,10 @@ per-layer kernels otherwise (Phi-3's head_dim 96, MoE); the stats print
 which ("decode path: ..."). The
 parser takes every flag of the JAX harness. Those of later slices are
 refused with a message only where they would change the output:
---spec/--draft, --session, --tp/--dp/--pp above 1, --profile, and the
-multi-host --coordinator, --num-processes and --process-id. --temperature
+--tp/--dp/--pp above 1, --profile, and the multi-host --coordinator,
+--num-processes and --process-id. As in the JAX harness, --session goes
+before --spec, and both before sampling; the draft model loads with
+``Engine.from_xalm``'s defaults on the same device. --temperature
 above 0 samples (``Engine.generate``'s sampler, seeded by --seed); --top-k
 and --top-p act only then, so without it they run greedily, as in the JAX
 harness. On the card decode runs in segments of 16 steps replayed from a
@@ -53,6 +61,7 @@ package).
 from __future__ import annotations
 
 import argparse
+import os
 import random
 import sys
 import time
@@ -94,12 +103,18 @@ def _build_parser() -> argparse.ArgumentParser:
                    help="sampling temperature (0 = greedy, the reference's only mode)")
     p.add_argument("--top-k", type=int, default=0, help="top-k filter (0 = off)")
     p.add_argument("--top-p", type=float, default=1.0, help="nucleus filter (1 = off)")
+    p.add_argument("--spec", type=int, default=0, metavar="K",
+                   help="speculative decoding with K drafts per verify chunk (try 7; "
+                        "greedy-exact)")
+    p.add_argument("--draft", metavar="DRAFT.xalm", default=None,
+                   help="with --spec: draft with this (smaller) model instead of n-gram lookup "
+                        "(same vocabulary)")
+    p.add_argument("--session", default=None, metavar="PATH",
+                   help="completion: resume from PATH if it exists, save the KV cache and token "
+                        "history there afterwards (xalm v2 block store)")
     # JAX-harness flags of later slices: refused where they would change the
     # output (_refuse_later)
-    p.add_argument("--spec", type=int, default=0, help=argparse.SUPPRESS)
-    p.add_argument("--draft", default=None, help=argparse.SUPPRESS)
     p.add_argument("--profile", action="store_true", help=argparse.SUPPRESS)
-    p.add_argument("--session", default=None, help=argparse.SUPPRESS)
     for flag in ("--tp", "--dp", "--pp"):
         p.add_argument(flag, type=int, default=1, help=argparse.SUPPRESS)
     p.add_argument("--coordinator", default=None, help=argparse.SUPPRESS)
@@ -111,8 +126,6 @@ def _build_parser() -> argparse.ArgumentParser:
 def _refuse_later(args) -> None:
     """Exit on a flag of a later slice that would change the output."""
     later = {
-        "--spec/--draft": args.spec or args.draft,
-        "--session": args.session,
         "--tp/--dp/--pp": args.tp * args.dp * args.pp > 1,
         "--profile": args.profile,
         "--coordinator/--num-processes/--process-id": (
@@ -181,6 +194,14 @@ def run_completion(args) -> int:
         f"Encoding stats: ({len(ids)} tokens, throughput: {len(ids)/max(enc_s,1e-9):.4g} tok/s, "
         f"latency: {enc_s/max(len(ids),1):.4g} s/tok, total: {enc_s:.4g}s)"
     )
+    resume = None
+    if args.session and os.path.exists(args.session):
+        from xalm_tpu_torch.runtime.session import load_session
+
+        resume = load_session(args.session, eng.cfg, device=args.device)
+        print(f"resumed session {args.session}: {len(resume.tokens[0])} tokens at pos "
+              f"{int(resume.pos[0])}")
+        ids = tok.encode(prompt, bos=False)  # a continuation: the context is in the cache
     prev = ids[0] if ids else tok.bos_id
 
     def on_token(t):
@@ -190,11 +211,26 @@ def run_completion(args) -> int:
         prev = t
 
     sys.stdout.write(prompt)
-    sampling = {}
-    if args.temperature > 0:
-        sampling = dict(temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
-                        seed=args.seed)
-    out, stats = eng.generate(ids, num_steps, on_token=on_token, **sampling)
+    if args.session:
+        from xalm_tpu_torch.runtime.session import save_session
+
+        out, stats, sess = eng.generate(ids, num_steps, on_token=on_token, resume=resume,
+                                        return_session=True)
+        save_session(args.session, eng.cfg, sess)
+        print(f"\nsaved session to {args.session} ({len(sess.tokens[0])} tokens)", end="")
+    elif args.spec:
+        from xalm_tpu_torch.runtime.engine import Engine
+        from xalm_tpu_torch.runtime.spec import generate_spec
+
+        draft = Engine.from_xalm(args.draft, device=args.device) if args.draft else None
+        out, stats = generate_spec(eng, ids, num_steps, k=args.spec, on_token=on_token,
+                                   draft_engine=draft)
+    else:
+        sampling = {}
+        if args.temperature > 0:
+            sampling = dict(temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
+                            seed=args.seed)
+        out, stats = eng.generate(ids, num_steps, on_token=on_token, **sampling)
     print()
     print(
         f"Generation stats:\n"
@@ -204,6 +240,9 @@ def run_completion(args) -> int:
         f"  bandwidth: {stats.bandwidth_gb_s:.5g} GB/s (vs active bytes model)\n"
         f"  decode path: {eng.decode_path(1)}"
     )
+    if stats.spec_proposed:
+        print(f"  speculation: {stats.spec_accepted}/{stats.spec_proposed} drafts accepted "
+              f"({100.0 * stats.spec_accepted / stats.spec_proposed:.1f}%)")
     return 0
 
 

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from xalm_tpu_torch import dtypes as xdt
+from xalm_tpu_torch.io.xxh3 import xxh3_64
 
 __all__ = ["TensorInfo", "XalmFile", "write_xalm", "SUPPORTED_ARCHS"]
 
@@ -141,14 +142,11 @@ class XalmFile:
         return torch.from_numpy(np.array(self.load(name))).view(info.dtype.torch_dtype)
 
     def verify(self, name: str) -> bool:
-        """Check the stored xxh3_64 content hash (needs ``xxhash``)."""
+        """Check the stored xxh3_64 content hash (io/xxh3.py)."""
         info = self.tensors[name]
         if info.hash is None:
             return True
-        import xxhash
-
-        raw = self._view[info.offset : info.offset + info.size]
-        return xxhash.xxh3_64(raw.tobytes()).intdigest() == info.hash
+        return xxh3_64(self._view[info.offset : info.offset + info.size]) == info.hash
 
 
 _RAW_TYPES = {torch.bfloat16: (torch.int16, "bf16"), torch.float8_e4m3fn: (torch.uint8, "f8_e4m3"),
@@ -184,7 +182,7 @@ def write_xalm(
     """Write a .xalm container. ``tensors`` maps names to numpy arrays or
     torch tensors (bf16 and fp8 only as torch); insertion order is the on-disk
     order. int8 tensors are `i8` when a ``<name>.scale`` sibling exists,
-    else `q8`. Hashes need ``xxhash`` and are off by default."""
+    else `q8`. Content hashes (xxh3_64) are off by default."""
     if arch not in SUPPORTED_ARCHS:
         raise ValueError(f"unsupported arch {arch}")
     meta_tensors: dict[str, dict] = {}
@@ -200,9 +198,7 @@ def write_xalm(
             "size": len(blob),
         }
         if compute_hashes:
-            import xxhash
-
-            entry["hash"] = xxhash.xxh3_64(blob).intdigest()
+            entry["hash"] = xxh3_64(blob)
         meta_tensors[name] = entry
         blobs.append(blob)
         offset += len(blob)

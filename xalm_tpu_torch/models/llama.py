@@ -95,7 +95,10 @@ megakernel folds each of them in):
   way, but sends bf16-cache prefill chunks to its cap-free fused prefill;
   the port follows HF and the JAX dense path there (ROADMAP section 3).
 
-tp/pp and speculative verify are later slices.
+``spec_verify=True`` runs a speculative verify chunk over a wrapped ring
+(``_spec_verify_attention``: the attention in plain PyTorch, as the JAX
+package computes it outside any Pallas kernel; the matmuls still on kernel
+1), which writes nothing to the cache. tp/pp are later slices.
 """
 
 from __future__ import annotations
@@ -312,18 +315,19 @@ def _write_rows(cache: torch.Tensor, layer: int, kv_pos: torch.Tensor, rows: tor
     cl[bi, :, idx] = torch.where(keep, rows.to(cache.dtype), cl[bi, :, idx])
 
 
-def _write_chunk(cache, layer: int, starts: list[int], rows, valid) -> None:
-    """Contiguous T > 1 chunk write (no wrap by the chunk contract) at
-    ``starts[b] = min(pos[b], max_seq_len - T)``; rows with ``valid ==
-    False`` keep the cache contents. In place."""
-    b, t, kh, hd = rows.shape
+def _write_chunk(cache, layer: int, slots: torch.Tensor, rows, valid) -> None:
+    """Contiguous T > 1 chunk write (no wrap by the chunk contract) into
+    ``slots[b] = min(pos[b], max_seq_len - T) + arange(T)``, (B, T) int64 on
+    the cache's device (no host read: a CUDA graph can capture the write);
+    rows with ``valid == False`` keep the cache contents. In place."""
+    b = rows.shape[0]
     win = rows.to(cache.dtype).permute(0, 2, 1, 3)  # (B, KH, T, hd)
-    for bi, start in enumerate(starts):
-        cur = cache[layer, bi, :, start : start + t]
+    for bi in range(b):
+        plane = cache[layer, bi]  # (KH, S, hd)
         new = win[bi]
         if valid is not None:
-            new = torch.where(valid[bi][None, :, None], new, cur)
-        cache[layer, bi, :, start : start + t] = new
+            new = torch.where(valid[bi][None, :, None], new, plane.index_select(1, slots[bi]))
+        plane.index_copy_(1, slots[bi], new)
 
 
 def _rotate_sinks(cache_k, layer: int, active: torch.Tensor, freqs, k_scale=None) -> None:
@@ -346,6 +350,74 @@ def _rotate_sinks(cache_k, layer: int, active: torch.Tensor, freqs, k_scale=None
     cache_k[layer, :, :, :KV_SINKS] = torch.where(live, rotated.to(cache_k.dtype), sinks)
 
 
+def _spec_verify_attention(q, k, v, ck, cv, ks, vs, layer: int, kv_pos, cfg: ModelConfig,
+                           freqs, compute_dtype):
+    """Attention of a speculative verify chunk over a WRAPPED ring
+    (``xalm_tpu/models/llama.py::_spec_verify_attention``; runtime/spec.py):
+    nothing is written to the cache. Query i attends the sinks rotated
+    +(i + 1) from their pre-chunk state (rounded through the cache's type,
+    an int8 cache's requantised), the ring without the slots the chunk's
+    rows j <= i would overwrite (and without the sinks and the padding
+    past the window), and the chunk's own rows j <= i in stored form. That
+    is the per-step ring's attention, computed without its writes.
+
+    q (B, T, H, hd) f32 rotated, k and v (B, T, KH, hd) f32 rotated,
+    kv_pos (B, T) the rows' ring slots -> (attn_out (B, T, H*hd) f32,
+    rows): the chunk's rows in stored form, (k, v) in the cache's type, and
+    for an int8 cache (k codes, v codes, k scales, v scales), for
+    ``spec_commit`` to write the accepted ones."""
+    b, t, hq, hd = q.shape
+    f32 = torch.float32
+    kl, vl = ck[layer], cv[layer]  # (B, KH, S, hd)
+    if ks is not None:
+        kq, ksc = attn_ops.quant_rows(k)
+        vq, vsc = attn_ops.quant_rows(v)
+        rows = (kq, vq, ksc, vsc)
+        kl = kl.to(f32) * ks[layer][..., None]
+        vl = vl.to(f32) * vs[layer][..., None]
+        kd = kq.to(f32) * ksc[..., None]  # the rows as a write-then-read would give them
+        vd = vq.to(f32) * vsc[..., None]
+    else:
+        rows = (k.to(ck.dtype), v.to(cv.dtype))
+        kd, vd = rows[0].to(f32), rows[1].to(f32)
+        kl, vl = kl.to(f32), vl.to(f32)
+    kh, s = kl.shape[1], kl.shape[2]
+    g = hq // kh
+
+    def cd(z):  # matmul inputs rounded to compute_dtype, products and sums in f32
+        return z.to(compute_dtype).to(f32)
+
+    qc = cd(q.reshape(b, t, kh, g, hd) * (1.0 / math.sqrt(hd)))
+    sc_ring = torch.einsum("btkgh,bksh->bkgts", qc, cd(kl))
+    slot = torch.arange(s, dtype=torch.int32, device=q.device)
+    # slot kv_pos[:, j] is dead for the queries i >= j
+    evicted = torch.cumsum((slot[None, None, :] == kv_pos[:, :, None]).to(torch.int32), dim=1) > 0
+    dead = evicted | ((slot < KV_SINKS) | (slot >= cfg.max_seq_len))[None, None, :]
+    sc_ring = torch.where(dead[:, None, None], -math.inf, sc_ring)  # (B, KH, G, T, S)
+    sc_draft = torch.einsum("btkgh,bjkh->bkgtj", qc, cd(kd))
+    causal = torch.arange(t, device=q.device)[:, None] >= torch.arange(t, device=q.device)[None, :]
+    sc_draft = torch.where(causal, sc_draft, -math.inf)
+    base = kl[:, :, :KV_SINKS].reshape(b, 1, kh * KV_SINKS, hd).expand(b, t, kh * KV_SINKS, hd)
+    steps = torch.arange(1, t + 1, dtype=torch.int32, device=q.device)[None, :].expand(b, t)
+    rot = apply_rope(base, steps, freqs).reshape(b, t, kh, KV_SINKS, hd)
+    if ks is not None:
+        rq, rsc = attn_ops.quant_rows(rot.reshape(b, t * kh, KV_SINKS, hd))
+        rot = (rq.to(f32) * rsc[..., None]).reshape(b, t, kh, KV_SINKS, hd)
+    else:
+        rot = rot.to(ck.dtype).to(f32)
+    sc_sink = torch.einsum("btkgh,btksh->bkgts", qc, cd(rot))
+    scores = torch.cat([sc_sink, sc_ring, sc_draft], dim=-1)
+    if cfg.attn_softcap:  # finite scores only: tanh(-inf) would bring back masked slots
+        scores = torch.where(torch.isfinite(scores), softcap(scores, cfg.attn_softcap), scores)
+    att = cd(torch.softmax(scores, dim=-1))
+    a_sink, a_ring, a_draft = att[..., :KV_SINKS], att[..., KV_SINKS:KV_SINKS + s], \
+        att[..., KV_SINKS + s:]
+    out = (torch.einsum("bkgts,bksh->btkgh", a_sink, cd(vl[:, :, :KV_SINKS]))
+           + torch.einsum("bkgts,bksh->btkgh", a_ring, cd(vl))
+           + torch.einsum("bkgtj,bjkh->btkgh", a_draft, cd(vd)))
+    return out.reshape(b, t, hq * hd), rows
+
+
 def forward(
     params: ModelParams,
     cfg: ModelConfig,
@@ -360,15 +432,25 @@ def forward(
     fused_step: bool | str = "auto",
     a8_prefill: bool = False,
     a8_decode: bool = False,
+    spec_verify: bool = False,
 ):
     """One step over a (B, T) token block. Returns (logits, cache) with the
     cache updated in place. logits: (B, vocab) for "last", (B, T, vocab)
     for "all", None for "none", the greedy token ids (B,) for "token".
     tokens, pos and valid may lie on the host; they move to the weights'
     device where a path needs them there. ``a8_prefill``/``a8_decode``
-    opt t > 1 chunks / t = 1 steps into the int8-activation routes."""
+    opt t > 1 chunks / t = 1 steps into the int8-activation routes.
+
+    ``spec_verify``: a speculative verify chunk over a wrapped ring (t > 1,
+    logits "all"): the attention of ``_spec_verify_attention``, which writes
+    nothing to the cache, and the return is (logits, cache, rows), rows the
+    chunk's rows in stored form stacked over the layers: (k, v) (L, B, T,
+    KH, hd) in the cache's type, and for an int8 cache their (L, B, T, KH)
+    scales after them."""
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}; one of {IMPLS}")
+    if spec_verify and (tokens.shape[1] < 2 or logits_mode != "all"):
+        raise ValueError("spec_verify takes a chunk of t > 1 tokens and logits_mode 'all'")
     dev = params.embed.values.device
     b, t = tokens.shape
     s = cfg.max_seq_len
@@ -451,8 +533,6 @@ def forward(
                                 a8_decode)
 
     tokens = tokens.to(dev)
-    if t > 1:  # the chunk's window starts, on the host (no t = 1 step reads one back)
-        starts = [min(p, s - t) for p in pos.to("cpu", torch.int32).tolist()]
     pos = pos.to(device=dev, dtype=torch.int32)
     if valid is not None:
         valid = valid.to(dev)
@@ -461,6 +541,8 @@ def forward(
         _, kv_pos, kv_len = ring_indices(positions, s)
         if valid is not None:
             kv_pos = torch.where(valid, kv_pos, s)  # sentinel: dropped write
+        # the chunk's window, on the device
+        slots = torch.clamp(pos, max=s - t).long()[:, None] + torch.arange(t, device=dev)
     else:
         # kv_pos at the sentinel for an invalid row, which neither writes
         # nor rotates its sinks
@@ -496,6 +578,7 @@ def forward(
         return attention(q, kl, vl, kv_len, compute_dtype, cap)
 
     rope = rope_tables(positions, freqs)  # shared by every layer
+    layer_rows = []  # spec_verify: each layer's chunk rows in stored form
     for layer in range(cfg.n_layers):
         qkv = mm(x, lp.wqkv, layer, norm_sw=lp.attn_norm)
         if lp.bqkv is not None:  # Qwen2 qkv bias, in wqkv's fused row order
@@ -510,7 +593,11 @@ def forward(
         q = rotate(q, *rope)
         k = rotate(k, *rope)
 
-        if per_layer and t == 1 and quant:
+        if spec_verify:
+            attn_out, rows = _spec_verify_attention(q, k, v, ck, cv, ks, vs, layer, kv_pos, cfg,
+                                                    freqs, compute_dtype)
+            layer_rows.append(rows)
+        elif per_layer and t == 1 and quant:
             # int8 decode: quantised ring write + sink re-rotation and the
             # flash-decode over the codes in one launch; under the cap the
             # write alone, then the dense attention
@@ -545,8 +632,8 @@ def forward(
             attn_out = dense(layer)
         elif float_kernels:
             # chunked prefill: contiguous in-place writes + causal flash
-            _write_chunk(ck, layer, starts, k, valid)
-            _write_chunk(cv, layer, starts, v, valid)
+            _write_chunk(ck, layer, slots, k, valid)
+            _write_chunk(cv, layer, slots, v, valid)
             attn_out = dense(layer) if cap else flash_prefill(q.contiguous(), ck, cv, layer, pos)
         else:  # "xla", and an f16 cache: scatter writes + dense masked attention
             _write_rows(ck, layer, kv_pos, k)
@@ -569,6 +656,8 @@ def forward(
             down = rmsnorm(down, lp.post_mlp_norm[layer], cfg.norm_eps)
         x = x + down
 
+    if spec_verify:
+        return head(x), cache, tuple(torch.stack(p) for p in zip(*layer_rows))
     return head(x), cache
 
 

@@ -98,5 +98,23 @@ class KVCache:
             t.zero_()
         return self
 
+    def clone(self) -> "KVCache":
+        """A copy of every plane (on the same device)."""
+        return KVCache(*(None if t is None else t.clone()
+                         for t in (self.k, self.v, self.k_scale, self.v_scale)))
+
+    def copy_(self, other: "KVCache") -> "KVCache":
+        """Copy ``other``'s planes into this cache's, in place (across
+        devices too). Raises ValueError unless their dtypes and shapes match."""
+        mine, theirs = self.planes(), other.planes()
+        if len(mine) != len(theirs) or any(
+                a.dtype != b.dtype or a.shape != b.shape for a, b in zip(mine, theirs)):
+            raise ValueError("cache mismatch: " + ", ".join(
+                f"{tuple(t.shape)} {t.dtype}" for t in theirs) + " into " + ", ".join(
+                f"{tuple(t.shape)} {t.dtype}" for t in mine))
+        for a, b in zip(mine, theirs):
+            a.copy_(b)
+        return self
+
     def nbytes(self) -> int:
         return sum(t.nelement() * t.element_size() for t in self.planes())

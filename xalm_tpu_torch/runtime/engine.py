@@ -24,9 +24,10 @@ next and the host reads a segment's tokens once at its end. ``generate``'s
 default segment is 16 on the card and 1 on the CPU (the JAX rule, the card
 in the TPU's place); a segment of 1 steps eagerly and reads each token. On
 the CPU the scans run the same steps eagerly. Graphs are bound to cache
-planes: the engine keeps one cache per batch size for ``generate`` and
-``perplexity`` and zeroes it for each call, and a cache passed to
-``decode_scan`` gets its own capture (``_MAX_GRAPHS`` kept).
+planes: the engine keeps one cache per batch size for ``generate``,
+``perplexity`` and ``spec.generate_spec`` (``fresh_cache``) and zeroes it
+for each call, and a cache passed to ``decode_scan`` or ``verify`` gets its
+own capture (``_MAX_GRAPHS`` kept).
 """
 
 from __future__ import annotations
@@ -79,6 +80,8 @@ class GenerationStats:
     prefill_s: float = 0.0
     decode_s: float = 0.0
     active_bytes: int = 0  # cumulative bytes touched during decode
+    spec_proposed: int = 0  # draft tokens offered to verify (runtime/spec.py)
+    spec_accepted: int = 0  # draft tokens accepted
 
     @property
     def tok_per_s(self) -> float:
@@ -221,9 +224,11 @@ class Engine:
 
     # ----------------------------------------------------------------- scans
 
-    def _fresh_cache(self, batch: int) -> KVCache:
-        """The engine's cache of ``batch`` rows, zeroed (the state
-        ``new_cache`` gives): the planes its captured steps are bound to."""
+    def fresh_cache(self, batch: int) -> KVCache:
+        """The engine's own cache of ``batch`` rows, zeroed (the state
+        ``new_cache`` gives): the planes its captured steps are bound to,
+        which ``generate``, ``perplexity`` and ``spec.generate_spec`` decode
+        into, so their graphs are kept across calls."""
         cache = self._caches.get(batch)
         if cache is None:
             cache = self._caches[batch] = self.new_cache(batch)
@@ -231,25 +236,85 @@ class Engine:
             cache.zero_()
         return cache
 
+    def _graph(self, cache: KVCache, kind: tuple, make):
+        """The (state, StepGraph) of a ``kind`` of step over ``cache``:
+        ``make()`` builds it at first use, and it is kept for these planes
+        (the least recently used of more than ``_MAX_GRAPHS`` goes)."""
+        key = (tuple(t.data_ptr() for t in cache.planes()), tuple(cache.k.shape), cache.k.dtype,
+               kind)
+        graph = self._graphs.pop(key, None)
+        if graph is None:
+            while len(self._graphs) >= _MAX_GRAPHS:
+                self._graphs.popitem(last=False)
+            graph = make()
+        self._graphs[key] = graph
+        return graph
+
     def _scan(self, cache: KVCache, kind: str, valid: bool = False, sampling=None):
         """The (ScanState, StepGraph) of a ``kind`` step ("greedy", "sample"
         with ``sampling`` = (temperature, top_k, top_p), or "ppl") over
         ``cache``, built at first use and kept for these planes."""
-        key = (tuple(t.data_ptr() for t in cache.planes()), tuple(cache.k.shape), cache.k.dtype,
-               kind, valid, sampling)
-        scan = self._graphs.pop(key, None)
-        if scan is None:
-            while len(self._graphs) >= _MAX_GRAPHS:
-                self._graphs.popitem(last=False)
+        def make():
             with torch.inference_mode(False):  # plain tensors: written in and out of inference mode
                 st = ScanState.empty(cache.batch, self.device, logprobs=kind == "ppl",
                                      valid=valid, teacher=kind == "ppl")
                 gen = torch.Generator(device=self.device) if kind == "sample" else None
             step = _scan_step(self.params, self.cfg, cache, st, kind, gen, sampling,
                               self._forward_kw())
-            scan = (st, StepGraph(step, self.device, gen))
-        self._graphs[key] = scan
-        return scan
+            return st, StepGraph(step, self.device, gen)
+
+        return self._graph(cache, (kind, valid, sampling), make)
+
+    def _verifier(self, cache: KVCache, k: int, wrapped: bool):
+        """The (VerifyState, StepGraph) of a k-draft verify chunk over
+        ``cache``, blind-write or wrapped, built at first use and kept for
+        these planes."""
+        def make():
+            dev, cfg = self.device, self.cfg
+            with torch.inference_mode(False):  # plain tensors: written in and out of inference mode
+                rows = None
+                if wrapped:
+                    shape = (cfg.n_layers, cache.batch, k + 1, cfg.n_kv_heads, cfg.head_dim)
+                    rows = (torch.zeros(shape, dtype=cache.k.dtype, device=dev),
+                            torch.zeros(shape, dtype=cache.v.dtype, device=dev))
+                    if cache.quantized:
+                        rows += tuple(torch.zeros(shape[:-1], dtype=torch.float32, device=dev)
+                                      for _ in range(2))
+                st = VerifyState(toks=torch.zeros((1, k + 1), dtype=torch.int64, device=dev),
+                                 pos=torch.zeros((1,), dtype=torch.int32, device=dev),
+                                 greedy=torch.zeros((k + 1,), dtype=torch.int32, device=dev),
+                                 rows=rows)
+            kw = self._forward_kw()
+
+            def step() -> None:
+                if st.rows is None:
+                    logits, _ = forward(self.params, cfg, st.toks, st.pos, cache,
+                                        logits_mode="all", **kw)
+                else:
+                    logits, _, rows = forward(self.params, cfg, st.toks, st.pos, cache,
+                                              logits_mode="all", spec_verify=True, **kw)
+                    for dst, src in zip(st.rows, rows):
+                        dst.copy_(src)
+                st.greedy.copy_(torch.argmax(logits[0], dim=-1))
+
+            return st, StepGraph(step, dev)
+
+        return self._graph(cache, ("verify", k, wrapped), make)
+
+    def verify(self, chunk: list[int], pos: int, cache: KVCache, wrapped: bool = False):
+        """One speculative verify chunk (runtime/spec.py): the pending token
+        then the drafts, at ``pos`` -> (the argmax after each chunk token, a
+        list of k + 1 ints; the chunk's stored rows, wrapped, else None).
+        The blind-write chunk writes its rows into ``cache``; the wrapped
+        one (``forward(spec_verify=True)``) writes nothing. On the card one
+        graph replay a chunk, captured at the first call for these planes
+        and this k; a failed capture raises."""
+        with torch.inference_mode():
+            st, graph = self._verifier(cache, len(chunk) - 1, wrapped)
+            st.toks.copy_(torch.tensor([chunk], dtype=torch.int64))
+            st.pos.fill_(pos)
+            graph.run(1)
+            return st.greedy.tolist(), st.rows  # the chunk's one host read
 
     @staticmethod
     def _load(st: ScanState, tokens, pos, valid=None) -> None:
@@ -369,6 +434,8 @@ class Engine:
         on_token=None,
         stop_on_eos: bool = True,
         segment: int | None = None,
+        resume=None,
+        return_session: bool = False,
         temperature: float = 0.0,
         top_k: int = 0,
         top_p: float = 1.0,
@@ -383,13 +450,27 @@ class Engine:
         tokens once at the end; EOS is checked between segments and the
         tokens past it, or past ``max_new_tokens``, are dropped (greedy
         output does not depend on the segment). Returns (generated ids,
-        GenerationStats); the time of each phase ends in a host read."""
+        GenerationStats); the time of each phase ends in a host read.
+
+        ``resume``: a ``runtime.session.Session`` to continue: its planes
+        are copied into the engine's own cache (the planes the captured
+        steps are bound to; dtype and shape must match), and its pending
+        last token is fed again ahead of ``prompt_ids``. With
+        ``return_session=True`` returns (ids, stats, Session), the
+        Session's cache a copy (the next call zeroes the engine's own)."""
         if segment is None:
             segment = 16 if self.device.type == "cuda" else 1
         if segment < 1:
             raise ValueError(f"segment {segment}: at least 1")
         stats = GenerationStats(prompt_tokens=len(prompt_ids))
-        cache = self._fresh_cache(1)
+        cache = self.fresh_cache(1)
+        start, history, new_tokens = 0, [], list(prompt_ids)
+        if resume is not None:
+            cache.copy_(resume.cache)
+            start = int(np.asarray(resume.pos)[0])
+            history = list(resume.tokens[0])
+            # the pending token's rows were never written: feed it again
+            prompt_ids = [history[-1]] + new_tokens
         sampling = (float(temperature), int(top_k), float(top_p)) if temperature > 0.0 else None
         scan = self._scan(cache, "sample" if sampling else "greedy", sampling=sampling) \
             if segment > 1 else None
@@ -404,7 +485,7 @@ class Engine:
             return sample_argmax(logits)
 
         t0 = time.perf_counter()
-        logits, cache, pos = self.prefill(prompt_ids, cache, logits_mode="last")
+        logits, cache, pos = self.prefill(prompt_ids, cache, logits_mode="last", start_pos=start)
         with torch.inference_mode():
             first = pick(logits)
         token = int(first[0])  # copies to the host: a sync
@@ -427,6 +508,12 @@ class Engine:
                 st.pos.fill_(pos)
         while not stopped and len(out) < max_new_tokens:
             n = min(segment, max_new_tokens - len(out))
+            if (return_session and stop_on_eos and self.tokenizer is not None
+                    and pos + n > self.cfg.max_seq_len):
+                # a segment's steps past EOS write rows; after the wrap they
+                # would overwrite live ring rows of the saved window, so
+                # near and past the wrap a session steps one token at a time
+                n = 1
             if scan is not None:
                 with torch.inference_mode():
                     seg = self._run(st, graph, n)[0].tolist()  # the segment's one host read
@@ -443,6 +530,14 @@ class Engine:
             token = seg[-1]
         stats.decode_s = time.perf_counter() - t0
         stats.generated_tokens = len(out)
+        if return_session:
+            from xalm_tpu_torch.runtime.session import Session
+
+            # the pending token (emitted, its rows not written); the rows
+            # past it in the ring are masked by kv_len on resume
+            pend = start + len(prompt_ids) + len(out) - 1
+            return out, stats, Session(cache=cache.clone(), pos=np.array([pend], np.int32),
+                                       tokens=[history + new_tokens + out])
         return out, stats
 
     def perplexity(self, token_ids: list[int]) -> tuple[float, float, int]:
@@ -455,7 +550,7 @@ class Engine:
         n = len(token_ids)
         if n < 2:
             raise ValueError("perplexity needs at least 2 tokens")
-        cache = self._fresh_cache(1)
+        cache = self.fresh_cache(1)
         s = self.cfg.max_seq_len
         head = min(n, s)
         logits_all, cache, pos = self.prefill(token_ids[:head], cache, logits_mode="all")
@@ -508,19 +603,31 @@ class Engine:
         total += p.wcls.nbytes()
         return int(total)
 
-    def active_bytes(self, pos: int) -> int:
+    def active_bytes(self, pos: int, tokens: int = 1) -> int:
         """Bytes touched per decoded token at position pos: all live weight
         bytes + the cache rows up to kv_len + the new rows written, and for
-        an int8 cache the f32 row scales read and written beside them."""
+        an int8 cache the f32 row scales read and written beside them. A
+        chunk of ``tokens`` (a speculative verify chunk at pos) streams the
+        weights once and counts the cache traffic once a token."""
         cfg = self.cfg
         kv_len = min(pos + 1, cfg.max_seq_len)
         kv_elt = torch.empty((), dtype=self.kv_dtype).element_size()
         kv_read = 2 * cfg.n_layers * kv_len * cfg.kv_dim * kv_elt
         kv_write = 2 * cfg.n_layers * cfg.kv_dim * kv_elt
-        total = self._per_token_weight_bytes + kv_read + kv_write
+        kv = kv_read + kv_write
         if self.kv_dtype == torch.int8:
-            total += 2 * cfg.n_layers * cfg.n_kv_heads * (kv_len + 1) * 4
-        return total
+            kv += 2 * cfg.n_layers * cfg.n_kv_heads * (kv_len + 1) * 4
+        return self._per_token_weight_bytes + tokens * kv
+
+
+@dataclasses.dataclass
+class VerifyState:
+    """The static buffers of a verify chunk's graph (``Engine.verify``)."""
+
+    toks: torch.Tensor  # (1, k + 1) int64: the pending token and the k drafts
+    pos: torch.Tensor  # (1,) int32: the pending token's position
+    greedy: torch.Tensor  # (k + 1,) int32: the argmax after each chunk token
+    rows: tuple | None  # wrapped: the chunk's rows in stored form (forward's spec_verify)
 
 
 def _scan_step(params, cfg, cache: KVCache, st: ScanState, kind: str, generator, sampling,
