@@ -79,7 +79,26 @@ first, while the megakernel's two sources build:
    mostly rejected); and ``phase_session``: a 64-token generation cut
    after 24, saved, loaded and resumed, equal to the uninterrupted run,
    with a bf16 and an int8 cache (save and load seconds of the whole
-   window's planes, 537 and 277 MB);
+   window's planes, 537 and 277 MB); and ``phase_serve``: the continuous
+   batcher (8 slots, segment 8: each decode segment graph replays of the
+   masked greedy scan or the per-row sampled one) over the copy model, 12
+   requests (greedy, seeded sampled, logprobs, four on one 64-token
+   prefix) each greedy one equal to its solo ``generate``, at least 3
+   prefix hits, one segment of each scan bit-equal to its eager steps, a
+   seeded request at temperature 50 the same alone and beside seven
+   others (a ``serve_check`` line); ``serve()``'s HTTP server over it, four
+   concurrent completions, two streamed, each text the engine's greedy
+   one (``serve_http``: time to the first piece); ``tools/serve_bench.py``'s
+   traffic on random weights, 24 requests with a bf16 cache and 8 with an
+   int8 one, launches counted from 0 (``serve``: generated and processed
+   tok/s, TTFT, per-token latency and queue wait p50 and p95, warmup s,
+   prefix hits, decode steps, a tick's host ms by span and device ms); and
+   the greedy step at B = 1, 4 and 8 (``serve_step``: device ms a step of
+   the masked scan's replays against ``active_bytes`` at B rows over 3.35
+   TB/s, and the B = 8 step with masked rows, one wrapped, against its
+   plain version, logits and cache rows); phase 3 also holds kernel 1's
+   tiled GEMM at a packed prefill call's M = 2048 and kernel 4 over a
+   packed call's 8 rows at their own positions, masked rows clamped;
 5. wrap: the same widths at 2 layers and a 256-slot window, 600 decode
    steps through three ring wraps, the kernels against their plain
    versions on the card, on both decode paths (the megakernel with the i8
@@ -337,6 +356,12 @@ TILED_CASES = ("M=512 w2 i8, row scale", "M=512 wqkv i8, norm prologue + row sca
 SPEC_CASES = ("M=8 wqkv i8, norm prologue + row scale", "M=8 w13 i8, row scale",
               "M=8 w2 i8, row scale")
 SPEC_PREFILL_CASE = "T=8 pos=1024"
+# phase 3's cases of kernels 1 and 4 at a serving batch's packed prefill
+# call (``phase_serve``: SERVE_BATCH rows of a SERVE_CHUNK-token chunk):
+# further also_cases of the qmatmul and flash_prefill rows
+SERVE_CHUNK = 256
+SERVE_TILED_CASES = ("M=2048 wqkv i8, norm prologue + row scale", "M=2048 w13 i8, row scale")
+SERVE_PREFILL_CASE = "B=8 T=256 packed: rows at their own positions, masked rows clamped"
 
 
 def phase_parity(params, cfg, cases: Cases) -> None:
@@ -403,6 +428,8 @@ def phase_parity(params, cfg, cases: Cases) -> None:
     for case, w, norm in zip(SPEC_CASES, (lp.wqkv, lp.w13, lp.w2), (True, False, False)):
         mm_case(case, SPEC_K + 1, w, norm)  # a speculative verify chunk's rows
     mm_case("M=512 w13 i8, row scale", 512, lp.w13, False)
+    for case, w, norm in zip(SERVE_TILED_CASES, (lp.wqkv, lp.w13), (True, False)):
+        mm_case(case, SERVE_BATCH * SERVE_CHUNK, w, norm)  # a packed prefill call's rows
     mm_case("M=1 head bf16", 1, params.wcls, False, head=True)
     # the tiled GEMM (gemm_bf16w_kernel) at the prefill chunk's other
     # matmuls and at the smallest chunk; bf16 weights on two layers of random
@@ -424,6 +451,7 @@ def phase_parity(params, cfg, cases: Cases) -> None:
     attention_cases(cfg, cases, gen, ck, cv)
     del ck, cv
     torch.cuda.empty_cache()
+    packed_prefill_case(cfg, cases, gen)
     phase_parity_int8(cfg, cases, gen, cexp, sexp)
 
 
@@ -565,6 +593,54 @@ def attention_cases(cfg, cases: Cases, gen, ck, cv, tag: str = "", label: str = 
                   lambda: A.flash_prefill_plain(q, ck, cv, next(layers), pos),
                   lib, nbytes, 3 * flops if f32 else flops, PEAK_TF32 if f32 else PEAK_BF16,
                   extra={"bound_fma_ms": bound(nbytes, flops, PEAK_F32)[0]} if f32 else None)
+
+
+def packed_prefill_case(cfg, cases: Cases, gen) -> None:
+    """Kernel 4 as a serving batch's packed prefill call gives it
+    (``ContinuousBatcher._prefill_call``): SERVE_BATCH rows of a
+    SERVE_CHUNK-token chunk over random bf16 planes of 4 layers at cfg's
+    widths, five admitting rows at their own positions (0 up to S - T) and
+    three masked ones (a decoding slot within T of the window's end, one
+    past the window, a free slot at 0), each row at the window start the
+    forward passes (``models/llama.py``: pos clamped to S - T). Against its
+    plain version at the bf16 chunk's tolerance (``attention_cases``), every
+    row; SDPA with each row's causal mask beside it."""
+    import torch
+    import torch.nn.functional as F
+
+    from xalm_tpu_torch.ops import attention as A
+    from xalm_tpu_torch.runtime.cache import KVCache
+
+    dev = torch.device(DEVICE)
+    kh, hd, h, S = cfg.n_kv_heads, cfg.head_dim, cfg.n_heads, cfg.max_seq_len
+    b, t, layers = SERVE_BATCH, SERVE_CHUNK, 4
+    shape = (layers,) + KVCache.plane_shape(cfg, b)[1:]
+    ck, cv = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
+    slot_pos = [0, 300, 1024, 2900, S - t, S - t + 100, S + 700, 0]  # rows 5-7 masked
+    pos = torch.clamp(torch.tensor(slot_pos, dtype=torch.int32, device=dev), max=S - t)
+    q = torch.randn((b, t, h, hd), generator=gen, device=dev)
+    got = A.flash_prefill(q, ck, cv, 1, pos)
+    want = A.flash_prefill_plain(q, ck, cv, 1, pos)
+    starts = pos.tolist()
+    kmax = max(starts) + t
+    mask = (torch.arange(kmax, device=dev)[None, None, :]
+            <= (pos[:, None, None] + torch.arange(t, device=dev)[None, :, None]))[:, None]
+    qb = q.to(torch.bfloat16).transpose(1, 2)
+    lib_layers, run_layers, plain_layers = (itertools.cycle(range(layers)) for _ in range(3))
+
+    def lib():
+        i = next(lib_layers)
+        return F.scaled_dot_product_attention(qb, ck[i, :, :, :kmax], cv[i, :, :, :kmax],
+                                              attn_mask=mask, enable_gqa=True)
+    nbytes = sum(2 * (p0 + t) * kh * hd * 2 for p0 in starts) + 2 * b * t * h * hd * 4
+    flops = 4.0 * h * hd * sum(t * p0 + t * (t + 1) // 2 for p0 in starts)
+    cases.add("flash_prefill", SERVE_PREFILL_CASE, got, want, hd, 2.0 ** -8,
+              lambda: A.flash_prefill(q, ck, cv, next(run_layers), pos),
+              lambda: A.flash_prefill_plain(q, ck, cv, next(plain_layers), pos),
+              lib, nbytes, flops, PEAK_BF16,
+              extra={"slot_positions": slot_pos, "window_starts": starts, "masked_rows": [5, 6, 7]})
+    del ck, cv
+    torch.cuda.empty_cache()
 
 
 # why no library call stands beside the q4 GEMV
@@ -1848,6 +1924,447 @@ def phase_session(cfg) -> list[dict]:
     del copy
     torch.cuda.empty_cache()
     return rows
+
+
+SERVE_BATCH, SERVE_SEGMENT = 8, 8  # the batcher's slots and decode steps a tick
+SERVE_PREFIX = 64  # the shared prompt prefix
+SERVE_GEN = 48  # tokens a correctness request generates (its prefix holder: 96)
+SERVE_HOT = 50.0  # the copy model's temperature where its draws are random
+# tools/serve_bench.py's traffic at its defaults, with a sampled and a
+# logprobs share of a quarter and a 64-token shared prefix
+SERVE_LOAD = dict(requests=24, prompt=128, gen=96, sampled=0.25, logprobs=0.25)
+SERVE_STEP_BATCHES = (1, 4, 8)
+SERVE_STEP_POS = 256  # the batched step's positions
+SERVE_HTTP_TOKENS = 32
+
+
+def _serve_tokenizer(vocab: int):
+    """A tokenizer of ``vocab`` entries for the serving phase's models:
+    <unk>, <s>, </s>, the 256 byte tokens, then the words " w0", " w1", ..."""
+    import numpy as np
+
+    from xalm_tpu_torch.tokenizer import Tokenizer
+
+    words = [b"<unk>", b"<s>", b"</s>"] + [b"<0x%02X>" % i for i in range(256)]
+    words += [b" w%d" % i for i in range(vocab - len(words))]
+    return Tokenizer(np.frombuffer(b"\x00".join(words) + b"\x00", np.uint8), "1", "2")
+
+
+def serve_traffic(vocab: int, requests: int, prompt: int, gen: int, sampled: float,
+                  logprobs: float, shared_prefix: int = SERVE_PREFIX, seed: int = 0) -> list:
+    """``tools/serve_bench.py``'s requests, drawn in its order from its seed:
+    a shared prefix, then prompts uniform in [prompt / 2, 2 * prompt), each
+    ``gen`` new tokens without EOS stops, a ``sampled`` share at temperature
+    0.8 and top-p 0.95 (seed = the request's index) and a ``logprobs``
+    share collecting 3."""
+    import numpy as np
+
+    from xalm_tpu_torch.serve.batching import Request
+
+    rng = np.random.default_rng(seed)
+    shared = rng.integers(3, vocab - 2, size=shared_prefix).tolist()
+    reqs = []
+    for i in range(requests):
+        plen = int(rng.integers(prompt // 2, prompt * 2))
+        ids = shared + rng.integers(3, vocab - 2, size=plen).tolist()
+        hot = rng.random() < sampled
+        reqs.append(Request(prompt_ids=ids, max_new_tokens=gen, stop_on_eos=False,
+                            temperature=0.8 if hot else 0.0, top_p=0.95 if hot else 1.0, seed=i,
+                            logprobs=3 if rng.random() < logprobs else 0))
+    return reqs
+
+
+def _serve_segment_check(b) -> dict:
+    """From a batcher's state (some slots decoding, the others masked): one
+    segment of the greedy masked scan's replays and one of the per-row
+    sampled scan's (log-probs on) against the same steps run eagerly
+    (``Engine.step`` and the samplers) on a copy of the cache: the tokens,
+    log-probs, top-5 and keys bit for bit, and the window's rows of every
+    plane (row S of the padding takes the masked rows' dropped writes).
+    Both write the same rows, so the batcher goes on from either."""
+    import numpy as np
+    import torch
+
+    from xalm_tpu_torch import prng
+    from xalm_tpu_torch.sampler import sample_rows, split_rows
+
+    eng, dev, n = b.engine, b.engine.device, b.segment
+    state = b.slot_state()
+    mask = state["decoding"]
+    window = eng.cfg.max_seq_len
+    out = {"rows_decoding": int(mask.sum())}
+    for kind in ("greedy", "sampled"):
+        ref = b.cache.clone()
+        tok, pos = state["token"], state["pos"]
+        keys = prng.from_numpy(state["keys"]).to(dev)
+        temps, tps = (torch.from_numpy(state[k]).to(dev) for k in ("temps", "top_ps"))
+        wkeys, wtok, wlp = keys.clone(), [], []
+        with torch.inference_mode():
+            for _ in range(n):
+                o, _ = eng.step(tok[:, None], pos, ref, mask[:, None],
+                                logits_mode="token" if kind == "greedy" else "last")
+                if kind == "sampled":
+                    subs, carry = split_rows(wkeys)
+                    wkeys = torch.where(torch.from_numpy(mask).to(dev)[:, None], carry, wkeys)
+                    o, lp, tv, ti = sample_rows(o, subs, temps, tps, return_logprobs=True)
+                    wlp.append((lp, tv, ti))
+                tok = o.cpu().numpy().astype(np.int32)
+                wtok.append(tok)
+                pos = pos + 1
+        if kind == "greedy":
+            got, _ = eng.decode_scan(state["token"], state["pos"], b.cache, n, valid=mask)
+            same = True
+        else:
+            got, lps, tv, ti, gkeys = eng.sample_scan_rows(
+                state["token"], state["pos"], b.cache, keys, temps, tps, n, valid=mask,
+                want_lp=True)
+            same = torch.equal(gkeys, wkeys) and all(
+                torch.equal(lps[:, j], a) and torch.equal(tv[:, j], c) and torch.equal(ti[:, j], d)
+                for j, (a, c, d) in enumerate(wlp))
+        same = same and np.array_equal(got.cpu().numpy()[mask], np.stack(wtok, 1)[mask])
+        planes = all((a[..., :window, :] if a.dim() == 5 else a[..., :window]).equal(
+            c[..., :window, :] if c.dim() == 5 else c[..., :window])
+            for a, c in zip(b.cache.planes(), ref.planes()))
+        out[f"{kind}_replays_equal_eager"] = bool(same and planes)
+        del ref
+    return out
+
+
+def _serve_correctness(cfg, copy, tok) -> tuple:
+    """The copy model (``copy_params``: its greedy tokens exact) behind a
+    batcher of SERVE_BATCH slots at segment SERVE_SEGMENT: 12 requests of
+    40-300 prompt tokens (greedy, seeded at temperature 0.8 and top-p 0.95,
+    and greedy collecting 3 log-probs), four of them on one 64-token prefix
+    (its holder admitted first and decoding 96 tokens, the other three
+    admitted as slots free up, so they copy its lane), each greedy request
+    equal to its solo ``generate``; the graph-against-eager check of one
+    segment of each scan mid-run (``_serve_segment_check``); and a seeded
+    request at temperature SERVE_HOT (where the copy model's draws are
+    random) alone and beside seven others with prompts of the same chunk
+    bucket: the same tokens. Returns (engine, row)."""
+    import numpy as np
+    import torch
+
+    from xalm_tpu_torch.runtime.engine import Engine
+    from xalm_tpu_torch.serve.batching import ContinuousBatcher, Request
+
+    eng = Engine(cfg, copy, tok)
+    if eng.decode_path(SERVE_BATCH) != "megakernel":
+        raise AssertionError(f"serve: decode path {eng.decode_path(SERVE_BATCH)!r} at B = 8")
+    b = ContinuousBatcher(eng, max_batch=SERVE_BATCH, segment=SERVE_SEGMENT)
+    warm_s = b.warmup()
+    rng = np.random.default_rng(SEED + 22)
+    vocab = cfg.vocab_size
+    shared = rng.integers(3, vocab, size=SERVE_PREFIX).tolist()
+    reqs = []
+    for i in range(12):
+        plen = int(rng.integers(40, 301))
+        head = shared if i in (0, 8, 9, 10) else []
+        ids = head + rng.integers(3, vocab, size=max(plen - len(head), 2)).tolist()
+        kind = i % 3
+        reqs.append(Request(prompt_ids=ids, max_new_tokens=96 if i == 0 else SERVE_GEN,
+                            stop_on_eos=False, temperature=0.8 if kind == 1 else 0.0,
+                            top_p=0.95 if kind == 1 else 1.0, seed=1000 + i,
+                            logprobs=3 if kind == 2 else 0))
+    for r in reqs[:8]:
+        b.submit(r)
+    b.step()
+    for r in reqs[8:]:
+        b.submit(r)
+    check = None
+    while b.step():
+        if check is None and len(b.decoding_slots()) >= 4:
+            check = _serve_segment_check(b)
+    torch.cuda.synchronize()
+    greedy = [r for r in reqs if r.temperature == 0]
+    solo_equal = [r.out_tokens == eng.generate(r.prompt_ids, r.max_new_tokens,
+                                               stop_on_eos=False)[0] for r in greedy]
+    lp_ok = all(len(r.out_logprobs) == len(r.out_tokens) and
+                all(alts[0][0] == t for t, alts in zip(r.out_tokens, r.out_top_logprobs))
+                for r in reqs if r.logprobs)
+
+    def hot(others: int) -> list[int]:
+        prompts = np.random.default_rng(SEED + 23).integers(3, vocab, size=(8, 200)).tolist()
+        first = Request(prompt_ids=prompts[0], max_new_tokens=SERVE_GEN, stop_on_eos=False,
+                        temperature=SERVE_HOT, seed=77)
+        b.submit(first)
+        for p in prompts[1:1 + others]:
+            b.submit(Request(prompt_ids=p[:150], max_new_tokens=SERVE_GEN, stop_on_eos=False))
+        b.run()
+        return first.out_tokens
+
+    alone, cobatched = hot(0), hot(7)
+    row = {"phase": "serve_check", "model": "Mistral-7B copy", "layers": cfg.n_layers,
+           "max_batch": SERVE_BATCH, "segment": SERVE_SEGMENT, "warmup_s": warm_s,
+           "requests": len(reqs), "greedy_equal_solo": f"{sum(solo_equal)}/{len(solo_equal)}",
+           "logprobs_ok": lp_ok, "prefix_hits": b.prefix_hits,
+           "prefix_tokens_saved": b.prefix_tokens_saved,
+           "sampled_alone_equal_cobatched": alone == cobatched,
+           "sampled_distinct_tokens": len(set(alone)), **(check or {}), "card": _smi_line()}
+    emit(row)
+    bad = [k for k, v in row.items() if v is False]
+    if (bad or not all(solo_equal) or b.prefix_hits < 3 or check is None
+            or len(set(alone)) < SERVE_GEN // 2):
+        raise AssertionError(f"serve: correctness failed: {row}")
+    del b
+    torch.cuda.empty_cache()
+    return eng, row
+
+
+def _serve_load(cfg, params, kv, label: str, requests: int) -> dict:
+    """``serve_traffic`` (``SERVE_LOAD``, ``requests`` of them) through a
+    batcher of SERVE_BATCH slots at segment SERVE_SEGMENT on random weights,
+    after ``warmup``; every launch counter set to 0 just before the run and
+    read just after. A ``serve`` line: generated and processed tok/s (host
+    clock, the run ended by a synchronise), the latencies' p50 and p95
+    (``latency_stats``), warmup seconds, prefix hits, decode steps, the
+    tick's mean host ms by span and device ms (``tick_stats``)."""
+    import torch
+
+    from xalm_tpu_torch.ops import build
+    from xalm_tpu_torch.runtime.engine import Engine
+    from xalm_tpu_torch.serve.batching import ContinuousBatcher
+
+    eng = Engine(cfg, params, kv_dtype=kv)
+    b = ContinuousBatcher(eng, max_batch=SERVE_BATCH, segment=SERVE_SEGMENT, device_times=True)
+    warm_s = b.warmup()
+    reqs = serve_traffic(cfg.vocab_size, **dict(SERVE_LOAD, requests=requests))
+    torch.cuda.synchronize()
+    build.reset_launches()
+    for r in reqs:
+        b.submit(r)
+    t0 = time.perf_counter()
+    b.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    gen = sum(len(r.out_tokens) for r in reqs)
+    prompt = sum(len(r.prompt_ids) for r in reqs)
+    row = {"phase": "serve", "run": label, "layers": cfg.n_layers,
+           "kv_dtype": str(kv).split(".")[-1], "decode_path": eng.decode_path(SERVE_BATCH),
+           "max_batch": SERVE_BATCH, "segment": SERVE_SEGMENT, "requests": requests,
+           "prompt_tokens": prompt, "generated_tokens": gen, "wall_s": wall,
+           "generated_tok_s": gen / wall, "processed_tok_s": (prompt + gen) / wall,
+           **b.latency_stats(), "warmup_s": warm_s, "prefix_hits": b.prefix_hits,
+           "prefix_tokens_saved": b.prefix_tokens_saved, "decode_steps": b.decode_steps,
+           "tick": b.tick_stats(), "launches": {k: v for k, v in launches.items() if v},
+           "card": _smi_line()}
+    emit(row)
+    want = ("qmatmul", "fused_decode") + (("flash_prefill",) if kv == torch.bfloat16 else ())
+    if gen != requests * SERVE_LOAD["gen"] or any(not launches.get(k) for k in want):
+        raise AssertionError(f"serve {label}: {gen} tokens, launches {launches}")
+    del b, eng
+    torch.cuda.empty_cache()
+    return launches
+
+
+# the B = 8 step's parity case: each slot's position, and which slots are
+# masked (a prefilling slot, a free one at 0): rows at their own lengths,
+# one wrapped (its sinks re-rotated), one at the window's last slot
+SERVE_PARITY_POS = (519, 1200, 300, 4096 + 5, 40, 2000, 4095, 0)
+SERVE_PARITY_VALID = (True, True, False, True, True, False, True, False)
+
+
+def _serve_step_parity(cfg, eng, plain) -> dict:
+    """The B = 8 step as a serving batch gives it (``Engine.step``, one
+    token a slot at SERVE_PARITY_POS, the SERVE_PARITY_VALID mask: masked
+    rows write the kv_pos == S sentinel) on the megakernel and on its plain
+    version (``matmul_impl="plain"``), the same random bf16 planes: every
+    row's logits (the finishing probe reads masked rows' logits too) and
+    the window's cache rows within phase 3's FUSED_TOL of each row's max and
+    their values within a bf16 ulp at FUSED_ULP_SHARE (phase 3's rules; the
+    share over the written rows alone is recorded beside), the argmax equal
+    where the top two lie apart, and the masked rows' window unchanged. Raises on a mismatch; returns the record's fields and the
+    plain step's ms (events over 3 steps)."""
+    import numpy as np
+    import torch
+
+    from xalm_tpu_torch.runtime.cache import ring_indices
+
+    b, S, hd = len(SERVE_PARITY_POS), cfg.max_seq_len, cfg.head_dim
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 25)
+    cache = eng.new_cache(b)
+    for t in cache.planes():
+        t.copy_(torch.randn(t.shape, generator=gen, device=DEVICE, dtype=t.dtype))
+    toks = np.random.default_rng(SEED + 25).integers(3, cfg.vocab_size, size=(b, 1)).astype(np.int32)
+    pos = np.array(SERVE_PARITY_POS, np.int32)
+    valid = np.array(SERVE_PARITY_VALID)[:, None]
+    kern, ref = cache.clone(), cache.clone()
+    got, _ = eng.step(toks, pos, kern, valid, logits_mode="last")
+    want, _ = plain.step(toks, pos, ref, valid, logits_mode="last")
+    plain_ms = time_ms(lambda: plain.step(toks, pos, cache.clone(), valid, logits_mode="last"),
+                       iters=3, warmup=1)
+    torch.cuda.synchronize()
+    v = want.shape[-1]
+    top2 = want.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 2 * FUSED_TOL * want.abs().amax(dim=-1)
+    _, kv_pos, _ = ring_indices(torch.from_numpy(pos), S)
+    rows = [(i, int(kv_pos[i])) for i in range(b) if SERVE_PARITY_VALID[i]]
+    written = [torch.stack([c[:, i, :, r] for i, r in rows]) for c in (kern.k, kern.v, ref.k, ref.v)]
+    masked = [i for i in range(b) if not SERVE_PARITY_VALID[i]]
+    out = {"positions": list(SERVE_PARITY_POS), "valid": list(SERVE_PARITY_VALID),
+           "logits_row_rel": _row_rel(got, want, v),
+           "cache_k_row_rel": _row_rel(kern.k[..., :S, :], ref.k[..., :S, :], hd),
+           "cache_v_row_rel": _row_rel(kern.v[..., :S, :], ref.v[..., :S, :], hd),
+           "cache_ulp_share": min(_ulp_share(kern.k[..., :S, :], ref.k[..., :S, :]),
+                                  _ulp_share(kern.v[..., :S, :], ref.v[..., :S, :])),
+           "written_ulp_share": min(_ulp_share(written[0], written[2]),
+                                    _ulp_share(written[1], written[3])),
+           "token_equal": bool(torch.equal(got.argmax(-1)[clear], want.argmax(-1)[clear])),
+           "masked_rows_unchanged": all(
+               torch.equal(a[:, i, :, :S], c[:, i, :, :S])
+               for a, c in ((kern.k, cache.k), (kern.v, cache.v)) for i in masked),
+           "tol_row_rel": FUSED_TOL}
+    ok = (bool(torch.isfinite(got).all()) and out["logits_row_rel"] <= FUSED_TOL
+          and out["cache_k_row_rel"] <= FUSED_TOL and out["cache_v_row_rel"] <= FUSED_TOL
+          and out["cache_ulp_share"] >= FUSED_ULP_SHARE and out["token_equal"]
+          and out["masked_rows_unchanged"])
+    out["ok"] = ok
+    del cache, kern, ref, written
+    if not ok:
+        raise AssertionError(f"serve step: the B = 8 megakernel disagrees with its plain version: "
+                             f"{out}")
+    return {"b8_parity": out, "plain_ms_b8": plain_ms}
+
+
+def _serve_steps(cfg, params) -> dict:
+    """The greedy decode step at B = 1, 4 and 8 (the megakernel, every row
+    valid, positions SERVE_STEP_POS): device ms a step of the masked scan
+    (CUDA events over a warm ``decode_scan`` of 20 replays, its state's
+    loads included), against the bound of ``Engine.active_bytes`` at B
+    rows over 3.35 TB/s (the weights once, each row's cache rows), and the
+    launches a step; then the B = 8 step against its plain version
+    (``_serve_step_parity``)."""
+    import numpy as np
+    import torch
+
+    from xalm_tpu_torch.ops import build
+    from xalm_tpu_torch.runtime.engine import Engine
+
+    eng = Engine(cfg, params)
+    row = {"phase": "serve_step", "layers": cfg.n_layers, "decode_path": {}, "device_ms": {},
+           "bound_ms": {}, "launches_per_step": {}}
+    n = REPLAY_ITERS
+    for bsz in SERVE_STEP_BATCHES:
+        cache = eng.new_cache(bsz)
+        toks = np.arange(3, 3 + bsz, dtype=np.int32)
+        pos = np.full(bsz, SERVE_STEP_POS, np.int32)
+        valid = np.ones(bsz, bool)
+        eng.decode_scan(toks, pos, cache, 2, valid=valid)  # the capture
+        torch.cuda.synchronize()
+        build.reset_launches()
+        ms = time_ms(lambda: eng.decode_scan(toks, pos, cache, n, valid=valid), iters=1,
+                     warmup=0) / n
+        row["launches_per_step"][bsz] = {k: c / n for k, c in build.LAUNCHES.items() if c}
+        row["decode_path"][bsz] = eng.decode_path(bsz)
+        row["device_ms"][bsz] = ms
+        row["bound_ms"][bsz] = eng.active_bytes(SERVE_STEP_POS, tokens=bsz) / HBM_BYTES_PER_S * 1e3
+        del cache
+    torch.cuda.empty_cache()
+    row.update(_serve_step_parity(cfg, eng, Engine(cfg, params, matmul_impl="plain")))
+    row["card"] = _smi_line()
+    emit(row)
+    del eng
+    torch.cuda.empty_cache()
+    return row
+
+
+def _serve_http(eng) -> dict:
+    """``serve()`` over the copy-model engine on 127.0.0.1, port 0: four
+    concurrent ``/v1/completions`` requests, two of them streamed, each
+    text equal to the engine's greedy continuation (``generate``, computed
+    before the server starts, whose scheduler thread then owns the engine);
+    time to the first streamed piece and to each whole answer (host clock).
+    Shuts the server down."""
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from xalm_tpu_torch.serve.server import serve
+
+    tok = eng.tokenizer
+    rng = np.random.default_rng(SEED + 24)
+    prompts = [tok.decode(rng.integers(259, eng.cfg.vocab_size, size=n).tolist())
+               for n in (60, 90, 120, 75)]
+    wants = []
+    for p in prompts:
+        out, _ = eng.generate(tok.encode(p), SERVE_HTTP_TOKENS)
+        wants.append(tok.decode(out[:-1] if out and tok.is_stop(out[-1]) else out))
+    xs, httpd = serve(eng, "127.0.0.1", 0, max_batch=SERVE_BATCH, model_name="copy")
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}/v1/completions"
+    got, ttft, total, errors = {}, {}, {}, []
+
+    def go(i: int) -> None:
+        stream = i % 2 == 1
+        body = json.dumps({"prompt": prompts[i], "max_tokens": SERVE_HTTP_TOKENS,
+                           "stream": stream}).encode()
+        req = urllib.request.Request(base, data=body, method="POST",
+                                     headers={"Content-Type": "application/json"})
+        t0 = time.perf_counter()
+        try:
+            with urllib.request.urlopen(req, timeout=300) as r:
+                if not stream:
+                    got[i] = json.loads(r.read())["choices"][0]["text"]
+                    ttft[i] = total[i] = time.perf_counter() - t0
+                    return
+                text = ""
+                for line in r:
+                    line = line.decode().strip()
+                    if not line.startswith("data: ") or line == "data: [DONE]":
+                        continue
+                    piece = json.loads(line[6:])["choices"][0].get("text", "")
+                    if piece and i not in ttft:
+                        ttft[i] = time.perf_counter() - t0
+                    text += piece
+                got[i] = text
+                total[i] = time.perf_counter() - t0
+        except Exception as e:  # noqa: BLE001  (recorded and raised below)
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=go, args=(i,)) for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    httpd.shutdown()
+    httpd.server_close()
+    xs.shutdown()
+    equal = [got.get(i) == w for i, w in enumerate(wants)]
+    row = {"phase": "serve_http", "requests": len(prompts), "streamed": len(prompts) // 2,
+           "max_tokens": SERVE_HTTP_TOKENS, "texts_equal_generate": f"{sum(equal)}/{len(equal)}",
+           "ttft_s": {("stream" if i % 2 else "json") + str(i): ttft.get(i) for i in range(4)},
+           "total_s": {("stream" if i % 2 else "json") + str(i): total.get(i) for i in range(4)},
+           "errors": errors, "card": _smi_line()}
+    emit(row)
+    if errors or not all(equal):
+        raise AssertionError(f"serve http: {row}")
+    return row
+
+
+def phase_serve(params, cfg) -> dict:
+    """Serving (``serve/batching.py``, ``serve/server.py``) at full Mistral-7B
+    width and depth, i8 body, bf16 cache, SERVE_BATCH slots, segment
+    SERVE_SEGMENT: the copy model's correctness run (``_serve_correctness``),
+    the load of ``tools/serve_bench.py``'s traffic on random weights with a
+    bf16 cache (24 requests) and an int8 one (8) (``_serve_load``), the
+    batched step at B = 1, 4, 8 (``_serve_steps``) and the HTTP server over
+    the copy model (``_serve_http``). Returns the launches of the load runs,
+    every counter set to 0 just before each and read just after."""
+    import torch
+
+    copy, _ = copy_params(cfg, SEED + 21)
+    eng, _ = _serve_correctness(cfg, copy, _serve_tokenizer(cfg.vocab_size))
+    _serve_http(eng)
+    del eng, copy
+    torch.cuda.empty_cache()
+    launches = _serve_load(cfg, params, torch.bfloat16, "bf16 megakernel", SERVE_LOAD["requests"])
+    more = _serve_load(cfg, params, torch.int8, "int8 megakernel", 8)
+    _serve_steps(cfg, params)
+    return {k: launches.get(k, 0) + more.get(k, 0) for k in set(launches) | set(more)}
 
 
 # kernel-name fragments of the port's CUDA kernels, by wrapper (no fragment
@@ -3761,8 +4278,9 @@ INT8_CASE = dict.fromkeys(("fused_decode", "fused_decode_bias", "fused_decode_qk
                            "fused_decode_gemma", "fused_decode_gemma2"),
                           "int8 KV, B=1 kv_len=520, embed fold")
 # a further case of the kernels line: the down projection of the experts
-ALSO_CASE = {"qmatmul": ("M=512 w13 i8, row scale",) + TILED_CASES + SPEC_CASES,
-             "flash_prefill": (SPEC_PREFILL_CASE,),
+ALSO_CASE = {"qmatmul": ("M=512 w13 i8, row scale",) + TILED_CASES + SPEC_CASES
+             + SERVE_TILED_CASES,
+             "flash_prefill": (SPEC_PREFILL_CASE, SERVE_PREFILL_CASE),
              "qmatmul_multi": MULTI_W2_CASE, "qmatmul_multi_q4": MULTI_Q4_W2_CASE,
              "qmatmul_f32": F32_M512_CASE, "qmatmul_multi_f32": MULTI_F32_W2_CASE,
              "flash_prefill_f32": ("T=512 pos=1024", "T=512 pos=0" + F32_CACHE_SHAPES[1][1]),
@@ -5122,8 +5640,10 @@ def main(argv=None) -> int:
     ], ppl_run="bf16 megakernel", depth_runs=("bf16 megakernel", "bf16 perlayer"))
     phase_spec(params, cfg)
     phase_session(cfg)
+    serve_launches = phase_serve(params, cfg)
     main_row["launches"] = {k: main_row["launches"][k] + quant_row["launches"][k]
-                            + long_row["launches"][k] for k in main_row["launches"]}
+                            + long_row["launches"][k] + serve_launches.get(k, 0)
+                            for k in main_row["launches"]}
     del params, q4p
     torch.cuda.empty_cache()
     with torch.inference_mode():

@@ -2778,6 +2778,38 @@ def test_decode_scan_raises_when_the_capture_fails(dev, monkeypatch):
     assert all(g.graph is None for _, g in eng._graphs.values())
 
 
+def test_capture_runs_with_the_garbage_collector_off(dev, monkeypatch):
+    """A StepGraph's capture runs with Python's cyclic collector off (a
+    collection that frees an unreachable engine's graphs mid-capture
+    invalidates the capture) and turns it back on after, also when the
+    capture raises."""
+    import gc
+
+    from xalm_tpu_torch.runtime import graphs
+
+    x = torch.zeros(4, device=dev)
+    seen = []
+
+    def step():
+        seen.append((torch.cuda.is_current_stream_capturing(), gc.isenabled()))
+        x.add_(1)
+
+    assert gc.isenabled()
+    graphs.StepGraph(step, dev).run(3)
+    assert (True, False) in seen and (False, True) in seen
+    assert all(not on for capturing, on in seen if capturing)
+    assert gc.isenabled() and float(x[0]) == 3.0
+
+    def refuse(*args, **kw):
+        assert not gc.isenabled()
+        raise RuntimeError("capture refused")
+
+    monkeypatch.setattr(graphs.torch.cuda, "graph", refuse)
+    with pytest.raises(RuntimeError, match="capture refused"):
+        graphs.StepGraph(step, dev).run(2)
+    assert gc.isenabled()
+
+
 @pytest.mark.parametrize("path", SCAN_PATHS)
 def test_generate_segments_and_sampling_on_the_card(dev, path):
     """generate at segment 16 (graph replays) gives the tokens of segment 1
@@ -2900,3 +2932,200 @@ def test_generate_spec_equals_generate_on_a_copy_model(dev, path):
     cache = eng.fresh_cache(1)  # generate_spec's planes, where its graphs are kept
     for wrapped in (False, True):
         assert eng._verifier(cache, 7, wrapped)[1].graph is not None
+
+
+# ------------------------------------------------ serving: the continuous batcher
+
+
+@pytest.mark.parametrize("f32", [False, True])
+def test_flash_prefill_rows_at_other_positions_and_masked_rows(dev, f32):
+    """A packed serving prefill call: rows at their own positions (0, 300
+    and the last chunk that fits the window) beside masked rows whose pos
+    lies within T of the window's end or past it. Called with those
+    positions as they are, the valid rows match the plain version (2^-8 of
+    each row's max over a bf16 cache, 1e-5 over an f32 one) and the masked
+    rows stay finite; the kernel reads nothing past the plane (its tensor
+    map fills keys past S with zeros, which a query past the window then
+    attends, so a masked row's output differs from the plain version's).
+    The forward hands kernel 4 the chunk's clamped window start instead
+    (``min(pos, S - T)``, the start its writes use): then every row matches
+    the plain version and the valid rows are bit-equal to the unclamped
+    call's."""
+    gen = torch.Generator(device=dev).manual_seed(31 + f32)
+    l, b, kh, g, hd, s, t = 2, 5, 2, 4, 128, 1024, 64
+    dt = torch.float32 if f32 else torch.bfloat16
+    ck = torch.randn((l, b, kh, s, hd), device=dev, generator=gen).to(dt)
+    cv = torch.randn((l, b, kh, s, hd), device=dev, generator=gen).to(dt)
+    q = torch.randn((b, t, kh * g, hd), device=dev, generator=gen)
+    pos = torch.tensor([0, 300, s - t, s - 20, s + 700], dtype=torch.int32, device=dev)
+    tol = 1e-5 if f32 else 2.0 ** -8
+    raw = A.flash_prefill(q, ck, cv, 1, pos)
+    want = A.flash_prefill_plain(q, ck, cv, 1, pos)
+    assert torch.isfinite(raw).all()
+    assert _row_rel(raw[:3], want[:3], hd) <= tol
+    win0 = torch.clamp(pos, max=s - t)
+    clamped = A.flash_prefill(q, ck, cv, 1, win0)
+    assert _row_rel(clamped, A.flash_prefill_plain(q, ck, cv, 1, win0), hd) <= tol
+    assert torch.equal(clamped[:3], raw[:3])
+
+
+def _serving_engine(dev, path: str):
+    """A small engine (FUSED_CFG, window 48) on a decode path, with a
+    tokenizer-free model: the megakernel, or per layer over a bf16 or an
+    int8 cache."""
+    from xalm_tpu_torch.runtime.engine import Engine
+    from xalm_tpu_torch.utils.synthetic import synthetic_params
+
+    cfg = dataclasses.replace(MISTRAL_7B, **FUSED_CFG)
+    params = synthetic_params(cfg, device=dev, seed=23)
+    kw = {"megakernel": {}, "perlayer": dict(fused_step=False),
+          "perlayer_int8": dict(fused_step=False, kv_dtype=torch.int8)}[path]
+    return Engine(cfg, params, **kw)
+
+
+def _window_equal(c1, c2, window: int) -> bool:
+    """The window's rows of every plane bit-equal (row S of the physical
+    padding takes the masked rows' dropped writes, ROADMAP section 3)."""
+    return all(torch.equal(a[..., :window, :], b[..., :window, :]) if a.dim() == 5
+               else torch.equal(a[..., :window], b[..., :window])
+               for a, b in zip(c1.planes(), c2.planes()))
+
+
+def _decoding_batcher(eng, segment: int = 4):
+    """A batcher of 4 slots with three requests decoding (prompts of 5, 17
+    and 30 tokens: positions apart) and one slot free."""
+    from xalm_tpu_torch.serve.batching import ContinuousBatcher, Request
+
+    b = ContinuousBatcher(eng, max_batch=4, segment=segment, prefill_budget=16)
+    b.warmup()
+    rng = np.random.default_rng(4)
+    reqs = [Request(prompt_ids=rng.integers(3, 300, size=n).tolist(), max_new_tokens=40,
+                    stop_on_eos=False, temperature=tmp, seed=i, logprobs=lp)
+            for i, (n, tmp, lp) in enumerate(((5, 0.0, 0), (17, 0.9, 2), (30, 0.0, 3)))]
+    for r in reqs:
+        b.submit(r)
+    while len(b.decoding_slots()) < 3:
+        b.step()
+    return b, reqs
+
+
+@pytest.mark.parametrize("path", ["megakernel", "perlayer", "perlayer_int8"])
+def test_batcher_segments_replay_their_eager_steps(dev, path):
+    """From a batcher's state (three slots decoding at other positions, one
+    free): a segment of the greedy masked scan's replays and of the per-row
+    sampled scan's (log-probs on) give the tokens, log-probs, top-5 and
+    keys of the same steps run eagerly (``Engine.step`` and the samplers),
+    bit for bit, and the same window rows; then the run gives each greedy
+    request its solo ``generate`` tokens."""
+    from xalm_tpu_torch import prng
+    from xalm_tpu_torch.sampler import sample_rows, split_rows
+
+    eng = _serving_engine(dev, path)
+    b, reqs = _decoding_batcher(eng)
+    window = eng.cfg.max_seq_len
+    n = b.segment
+    for kind in ("greedy", "rows"):
+        state = b.slot_state()
+        mask = state["decoding"]
+        ref = b.cache.clone()
+        tok, pos = state["token"], state["pos"]
+        keys = prng.from_numpy(state["keys"]).to(dev)
+        temps, tps = (torch.from_numpy(state[k]).to(dev) for k in ("temps", "top_ps"))
+        want_tok, want_lp, want_keys = [], [], keys.clone()
+        for _ in range(n):
+            out, _ = eng.step(tok[:, None], pos, ref, mask[:, None],
+                              logits_mode="token" if kind == "greedy" else "last")
+            if kind == "rows":
+                subs, carry = split_rows(want_keys)
+                want_keys = torch.where(torch.from_numpy(mask).to(dev)[:, None], carry, want_keys)
+                nxt, lp, topv, topi = sample_rows(out, subs, temps, tps, return_logprobs=True)
+                want_lp.append((lp, topv, topi))
+                out = nxt
+            tok = out.cpu().numpy().astype(np.int32)
+            want_tok.append(tok)
+            pos = pos + 1
+        if kind == "greedy":
+            got, _ = eng.decode_scan(state["token"], state["pos"], b.cache, n, valid=mask)
+            got_keys = None
+        else:
+            got, lps, topv, topi, got_keys = eng.sample_scan_rows(
+                state["token"], state["pos"], b.cache, keys, temps, tps, n, valid=mask,
+                want_lp=True)
+            assert torch.equal(got_keys, want_keys)
+            for j, (lp, tv, ti) in enumerate(want_lp):
+                assert torch.equal(lps[:, j], lp) and torch.equal(topv[:, j], tv)
+                assert torch.equal(topi[:, j], ti)
+        assert np.array_equal(got.cpu().numpy()[mask], np.stack(want_tok, 1)[mask]), kind
+        assert _window_equal(b.cache, ref, window), kind
+        b.cache.copy_(ref)  # both paths wrote the same rows: go on from either
+    b.run()
+    for r in reqs:
+        if r.temperature == 0:
+            assert r.out_tokens == eng.generate(r.prompt_ids, 40, stop_on_eos=False)[0]
+
+
+def test_copy_lane_keeps_the_captured_graphs(dev):
+    """``copy_lane`` writes the batcher's planes in place: after it the
+    graphs captured at warmup replay on the copied rows (no new capture):
+    the copied lane decodes the tokens of its source."""
+    from xalm_tpu_torch.runtime.cache import copy_lane
+
+    eng = _serving_engine(dev, "megakernel")
+    b, _ = _decoding_batcher(eng)
+    graphs = {k: g.graph for k, (_, g) in eng._graphs.items()}
+    assert graphs and all(g is not None for g in graphs.values())
+    ptrs = [t.data_ptr() for t in b.cache.planes()]
+    src = 2
+    copy_lane(b.cache, 3, src)
+    assert [t.data_ptr() for t in b.cache.planes()] == ptrs
+    state = b.slot_state()
+    tok, pos = state["token"], state["pos"]
+    tok[3], pos[3] = tok[src], pos[src]
+    mask = np.array([False, False, True, True])
+    got, _ = eng.decode_scan(tok, pos, b.cache, 8, valid=mask)
+    got = got.cpu().numpy()
+    assert np.array_equal(got[3], got[src])
+    assert {k: g.graph for k, (_, g) in eng._graphs.items()} == graphs
+
+
+@pytest.mark.parametrize("path", ["megakernel", "perlayer"])
+def test_sample_scan_rows_replays_equal_its_eager_steps(dev, path):
+    """``sample_scan_rows`` on the card (a warm-up step, a capture, then
+    replays) against the same scan run eagerly (a second engine over the
+    same weights whose StepGraph runs on a CPU device tag: the step
+    function itself, no graph): tokens, log-probs, top-5 and keys bit for
+    bit, over 2 segments of 8 and rows at 4 positions, one masked."""
+    from xalm_tpu_torch import prng
+
+    eng = _serving_engine(dev, path)
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(3, 300, size=n).tolist() for n in (4, 9, 21, 13)]
+    caches = [eng.new_cache(4), eng.new_cache(4)]
+    for row, ids in enumerate(prompts):
+        _, c1, _ = eng.prefill(ids, eng.new_cache(1))
+        for c in caches:
+            for a, b1 in zip(c.planes(), c1.planes()):
+                a[:, row].copy_(b1[:, 0])
+    tok = np.array([5, 6, 7, 8], np.int32)
+    pos = np.array([len(p) for p in prompts], np.int32)
+    valid = np.array([True, True, False, True])
+    keys = torch.stack([prng.PRNGKey(s, dev) for s in (1, 2, 3, 4)])
+    temps = torch.tensor([0.0, 0.8, 1.0, 1.3], device=dev)
+    tps = torch.tensor([1.0, 0.95, 0.9, 0.5], device=dev)
+    outs = []
+    for c, eager in ((caches[0], False), (caches[1], True)):
+        st, graph = eng._scan(c, "rows", valid=True, want_lp=True)
+        if eager:
+            graph.device = torch.device("cpu")  # run() then calls the step eagerly
+        segs, k, t_, p_ = [], keys, tok, pos
+        for _ in range(2):
+            o = eng.sample_scan_rows(t_, p_, c, k, temps, tps, 8, valid=valid, want_lp=True)
+            segs.append([x.clone() for x in o[:-1]])
+            k, t_, p_ = o[-1].clone(), o[0][:, -1].cpu().numpy(), p_ + 8
+        outs.append((segs, k))
+        assert (graph.graph is None) == eager
+    (ga, ka), (ea, kb) = outs
+    assert torch.equal(ka, kb)
+    for sa, sb in zip(ga, ea):
+        assert all(torch.equal(x, y) for x, y in zip(sa, sb))
+    assert _window_equal(caches[0], caches[1], eng.cfg.max_seq_len)

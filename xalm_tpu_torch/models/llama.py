@@ -541,8 +541,12 @@ def forward(
         _, kv_pos, kv_len = ring_indices(positions, s)
         if valid is not None:
             kv_pos = torch.where(valid, kv_pos, s)  # sentinel: dropped write
-        # the chunk's window, on the device
-        slots = torch.clamp(pos, max=s - t).long()[:, None] + torch.arange(t, device=dev)
+        # the chunk's window, on the device; a valid row's chunk never
+        # crosses the window's end, so only a masked row (a serving slot
+        # decoding or free beside a packed prefill, pos up to past the
+        # window) is clamped, its writes kept out and its attention bounded
+        win0 = torch.clamp(pos, max=s - t)
+        slots = win0.long()[:, None] + torch.arange(t, device=dev)
     else:
         # kv_pos at the sentinel for an invalid row, which neither writes
         # nor rotates its sinks
@@ -634,7 +638,7 @@ def forward(
             # chunked prefill: contiguous in-place writes + causal flash
             _write_chunk(ck, layer, slots, k, valid)
             _write_chunk(cv, layer, slots, v, valid)
-            attn_out = dense(layer) if cap else flash_prefill(q.contiguous(), ck, cv, layer, pos)
+            attn_out = dense(layer) if cap else flash_prefill(q.contiguous(), ck, cv, layer, win0)
         else:  # "xla", and an f16 cache: scatter writes + dense masked attention
             _write_rows(ck, layer, kv_pos, k)
             _write_rows(cv, layer, kv_pos, v)

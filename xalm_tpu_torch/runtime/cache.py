@@ -23,7 +23,7 @@ import torch
 
 from xalm_tpu_torch.models.config import KV_SINKS, ModelConfig
 
-__all__ = ["KVCache", "ring_indices", "step_inputs", "KV_SINKS"]
+__all__ = ["KVCache", "copy_lane", "ring_indices", "step_inputs", "KV_SINKS"]
 
 
 def ring_indices(pos: torch.Tensor, max_seq_len: int):
@@ -118,3 +118,14 @@ class KVCache:
 
     def nbytes(self) -> int:
         return sum(t.nelement() * t.element_size() for t in self.planes())
+
+
+def copy_lane(cache: KVCache, dst: int, src: int) -> KVCache:
+    """Copy batch lane ``src``'s rows onto lane ``dst`` in every plane, an
+    int8 cache's scale planes included (the serving prefix cache; the JAX
+    ``serve/batching.py`` ``_copy_lane``). In place: the planes keep their
+    addresses, so the CUDA graphs captured on them stay valid (the JAX
+    version donates the cache and returns a new one). Returns ``cache``."""
+    for plane in cache.planes():
+        plane[:, dst].copy_(plane[:, src])
+    return cache

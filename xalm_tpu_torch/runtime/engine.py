@@ -17,8 +17,8 @@ the megakernel's int8-activation body (and the q4 GEMV per layer),
 ``a8_prefill`` the W8A8 GEMM on prefill chunks; ``from_xalm(q4_group=g)``
 packs the body to q4 at load and implies ``a8_decode``.
 
-Multi-step decode (``decode_scan``, ``_sample_scan``, ``_ppl_scan`` and
-``generate(segment=)``) runs as CUDA-graph replays on the card
+Multi-step decode (``decode_scan``, ``_sample_scan``, ``sample_scan_rows``,
+``_ppl_scan`` and ``generate(segment=)``) runs as CUDA-graph replays on the card
 (``runtime/graphs.py``): the token stays on the card from one step to the
 next and the host reads a segment's tokens once at its end. ``generate``'s
 default segment is 16 on the card and 1 on the CPU (the JAX rule, the card
@@ -27,7 +27,9 @@ the CPU the scans run the same steps eagerly. Graphs are bound to cache
 planes: the engine keeps one cache per batch size for ``generate``,
 ``perplexity`` and ``spec.generate_spec`` (``fresh_cache``) and zeroes it
 for each call, and a cache passed to ``decode_scan`` or ``verify`` gets its
-own capture (``_MAX_GRAPHS`` kept).
+own capture (``_MAX_GRAPHS`` kept). Sampling draws from threefry keys
+(``prng.py``), the JAX keys bit for bit, split as the JAX scans split them,
+so a seed gives the JAX engine's tokens.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from xalm_tpu_torch import prng
 from xalm_tpu_torch.io import XalmFile
 from xalm_tpu_torch.models.config import ModelConfig
 from xalm_tpu_torch.models.llama import IMPLS, forward, gathered_ok
@@ -53,7 +56,7 @@ from xalm_tpu_torch.models.params import (
 from xalm_tpu_torch.ops.fused_decode import fused_step_supported
 from xalm_tpu_torch.runtime.cache import KVCache
 from xalm_tpu_torch.runtime.graphs import SEGMENT_MAX, ScanState, StepGraph
-from xalm_tpu_torch.sampler import sample, sample_argmax, token_logprobs
+from xalm_tpu_torch.sampler import sample, sample_argmax, sample_rows, split_rows, token_logprobs
 from xalm_tpu_torch.tokenizer import Tokenizer
 
 __all__ = ["Engine", "GenerationStats", "auto_kv_dtype"]
@@ -102,6 +105,15 @@ def auto_kv_dtype(device) -> torch.dtype:
 
 
 class Engine:
+    chat_template = None  # the container's jinja chat template, if it has one
+    chunk_buckets = _CHUNK_BUCKETS  # the widths a prefill chunk is padded to
+
+    @staticmethod
+    def chunk_bucket(n: int) -> int:
+        """The width an n-token prefill chunk is padded to: the least of
+        ``chunk_buckets`` that holds it (the widest for a longer one)."""
+        return _bucket(n)
+
     def __init__(
         self,
         cfg: ModelConfig,
@@ -171,14 +183,17 @@ class Engine:
             cfg = ModelConfig.from_metadata(xf.config, context)
             params = load_params(xf, cfg, device=device, f16_mode=f16_mode, fp8_mode=fp8_mode)
             tokenizer = Tokenizer.from_xalm(xf) if "tokenizer.tokens" in xf else None
+            chat_template = xf.config.get("chat_template")
         if q4_group:
             params = recode_params_q4(params, group=q4_group)
             a8_decode = True
-        return cls(
+        eng = cls(
             cfg, params, tokenizer,
             kv_dtype=kv_dtype, compute_dtype=compute_dtype, matmul_impl=matmul_impl,
             a8_prefill=a8_prefill, a8_decode=a8_decode, fused_step=fused_step, wcls_i8=wcls_i8,
         )
+        eng.chat_template = chat_template
+        return eng
 
     # ----------------------------------------------------------------- steps
 
@@ -250,20 +265,22 @@ class Engine:
         self._graphs[key] = graph
         return graph
 
-    def _scan(self, cache: KVCache, kind: str, valid: bool = False, sampling=None):
+    def _scan(self, cache: KVCache, kind: str, valid: bool = False, sampling=None,
+              want_lp: bool = False):
         """The (ScanState, StepGraph) of a ``kind`` step ("greedy", "sample"
-        with ``sampling`` = (temperature, top_k, top_p), or "ppl") over
+        with ``sampling`` = (temperature, top_k, top_p), "rows" (the per-row
+        sampler, with log-probs and top-5 under ``want_lp``) or "ppl") over
         ``cache``, built at first use and kept for these planes."""
         def make():
             with torch.inference_mode(False):  # plain tensors: written in and out of inference mode
                 st = ScanState.empty(cache.batch, self.device, logprobs=kind == "ppl",
-                                     valid=valid, teacher=kind == "ppl")
-                gen = torch.Generator(device=self.device) if kind == "sample" else None
-            step = _scan_step(self.params, self.cfg, cache, st, kind, gen, sampling,
+                                     valid=valid, teacher=kind == "ppl", keys=kind == "sample",
+                                     rows=kind == "rows", top5=want_lp)
+            step = _scan_step(self.params, self.cfg, cache, st, kind, sampling, want_lp,
                               self._forward_kw())
-            return st, StepGraph(step, self.device, gen)
+            return st, StepGraph(step, self.device)
 
-        return self._graph(cache, (kind, valid, sampling), make)
+        return self._graph(cache, (kind, valid, sampling, want_lp), make)
 
     def _verifier(self, cache: KVCache, k: int, wrapped: bool):
         """The (VerifyState, StepGraph) of a k-draft verify chunk over
@@ -326,17 +343,23 @@ class Engine:
             st.valid.copy_(torch.as_tensor(valid).reshape(-1))
 
     @staticmethod
-    def _run(st: ScanState, graph: StepGraph, n_steps: int) -> torch.Tensor:
+    def _run(st: ScanState, graph: StepGraph, n_steps: int, top5: bool = False):
         """n_steps of a scan from its current state -> its outputs (B,
-        n_steps) on the device, no host read (the buffer is copied out every
-        SEGMENT_MAX steps)."""
-        outs = []
+        n_steps) on the device, no host read (the buffers are copied out
+        every SEGMENT_MAX steps); with ``top5`` the tuple of the outputs,
+        the log-probs (B, n_steps) and the top-5 values and ids (B,
+        n_steps, 5)."""
+        bufs = (st.out, st.lp, st.topv, st.topi) if top5 else (st.out,)
+        parts = [[] for _ in bufs]
         for done in range(0, n_steps, SEGMENT_MAX):
             m = min(SEGMENT_MAX, n_steps - done)
             st.slot.zero_()
             graph.run(m)
-            outs.append(st.out[:, :m].clone())
-        return torch.cat(outs, dim=1) if outs else st.out[:, :0].clone()
+            for part, buf in zip(parts, bufs):
+                part.append(buf[:, :m].clone())
+        outs = tuple(torch.cat(part, dim=1) if part else buf[:, :0].clone()
+                     for part, buf in zip(parts, bufs))
+        return outs if top5 else outs[0]
 
     def decode_scan(self, tokens, pos, cache: KVCache, n_steps: int, valid=None):
         """Greedy-decode n_steps from tokens (B,) at pos (B,) -> (generated
@@ -349,18 +372,41 @@ class Engine:
             self._load(st, tokens, pos, valid)
             return self._run(st, graph, n_steps), cache
 
-    def _sample_scan(self, tokens, pos, cache: KVCache, n_steps: int, *, temperature: float,
-                     top_k: int = 0, top_p: float = 1.0, seed: int | None = None, valid=None):
-        """n_steps of sampled decode (``sampler.sample``); ``seed`` reseeds the
-        step's generator first (None: it draws on). -> (tokens (B, n_steps)
-        int32 on the device, cache)."""
+    def _sample_scan(self, tokens, pos, cache: KVCache, key, n_steps: int, *,
+                     temperature: float, top_k: int = 0, top_p: float = 1.0, valid=None):
+        """n_steps of sampled decode from the (2,) threefry ``key`` (the JAX
+        ``_sample_scan``): each step splits the key into (carry, draw) and
+        samples the step's logits (``sampler.sample``) under the draw. ->
+        (tokens (B, n_steps) int32 on the device, cache)."""
         with torch.inference_mode():
             st, graph = self._scan(cache, "sample", valid=valid is not None,
                                    sampling=(float(temperature), int(top_k), float(top_p)))
-            if seed is not None:
-                graph.generator.manual_seed(seed)
+            st.keys[0].copy_(_as_keys(key))
             self._load(st, tokens, pos, valid)
             return self._run(st, graph, n_steps), cache
+
+    def sample_scan_rows(self, tokens, pos, cache: KVCache, keys, temps, top_ps, n_steps: int,
+                         valid=None, want_lp: bool = False):
+        """n_steps of per-row sampled decode for a serving batch (the JAX
+        ``_sample_scan_rows``): row b draws under its own threefry key
+        ``keys[b]`` (B, 2), at temperature ``temps[b]`` (0: greedy) and top-p
+        ``top_ps[b]``; each step splits every key (``sampler.split_rows``),
+        draws from the first half (``sampler.sample_rows``) and carries the
+        second, only where ``valid`` (B,) holds, so that a masked slot keeps
+        the key its seed gave it. One graph a (cache, want_lp). -> (tokens
+        (B, n), then with ``want_lp`` the chosen tokens' log-probs (B, n) and
+        the raw top-5 log-probs and ids (B, n, 5), then the keys (B, 2)), all
+        on the device. The keys returned are the state's own buffer, which
+        the next call on this graph advances in place; pass it back as
+        ``keys`` (no copy then)."""
+        with torch.inference_mode():
+            st, graph = self._scan(cache, "rows", valid=valid is not None, want_lp=want_lp)
+            for buf, src in ((st.keys, _as_keys(keys)), (st.temps, temps), (st.top_ps, top_ps)):
+                if src is not buf:
+                    buf.copy_(torch.as_tensor(src).reshape(buf.shape))
+            self._load(st, tokens, pos, valid)
+            outs = self._run(st, graph, n_steps, top5=want_lp)
+            return (outs if want_lp else (outs,)) + (st.keys,)
 
     def _ppl_scan(self, toks, tgts, pos, cache: KVCache):
         """Teacher-forced log-prob scan: feed toks[:, i] at pos + i and take
@@ -442,9 +488,11 @@ class Engine:
         seed: int | None = None,
     ):
         """Completion: greedy, or with ``temperature > 0`` sampled
-        (``sampler.sample``: temperature, top-k, top-p), from a generator
-        seeded once with ``seed`` (None: 0), so that the tokens are
-        reproducible for a given (seed, segment). Decode goes in segments of
+        (``sampler.sample``: temperature, top-k, top-p) under the threefry key
+        of ``seed`` (None: 0), split as the JAX ``generate`` splits it (one
+        split for the first token, one for each segment's scan, one in each
+        of its steps), so that the tokens are the JAX engine's for a given
+        (seed, segment). Decode goes in segments of
         ``segment`` steps (default 16 on the card, 1 on the CPU): a segment
         of more than one step replays the captured step and reads its
         tokens once at the end; EOS is checked between segments and the
@@ -472,22 +520,19 @@ class Engine:
             # the pending token's rows were never written: feed it again
             prompt_ids = [history[-1]] + new_tokens
         sampling = (float(temperature), int(top_k), float(top_p)) if temperature > 0.0 else None
+        # a sampled decode always scans, as the JAX engine's does (its steps split the key)
         scan = self._scan(cache, "sample" if sampling else "greedy", sampling=sampling) \
-            if segment > 1 else None
-        gen = None
-        if sampling:
-            gen = scan[1].generator if scan else torch.Generator(device=self.device)
-            gen.manual_seed(0 if seed is None else seed)
-
-        def pick(logits):
-            if sampling:
-                return sample(logits, gen, temperature=temperature, top_k=top_k, top_p=top_p)
-            return sample_argmax(logits)
+            if segment > 1 or sampling else None
+        key = prng.PRNGKey(0 if seed is None else seed, self.device) if sampling else None
 
         t0 = time.perf_counter()
         logits, cache, pos = self.prefill(prompt_ids, cache, logits_mode="last", start_pos=start)
         with torch.inference_mode():
-            first = pick(logits)
+            if sampling:
+                key, sub = prng.split(key)
+                first = sample(logits, sub, temperature=temperature, top_k=top_k, top_p=top_p)
+            else:
+                first = sample_argmax(logits)
         token = int(first[0])  # copies to the host: a sync
         stats.prefill_s = time.perf_counter() - t0
 
@@ -516,11 +561,14 @@ class Engine:
                 n = 1
             if scan is not None:
                 with torch.inference_mode():
+                    if sampling:
+                        key, sub = prng.split(key)
+                        st.keys[0].copy_(sub)
                     seg = self._run(st, graph, n)[0].tolist()  # the segment's one host read
             else:
                 logits, cache = self.decode(np.array([token]), np.array([pos], np.int32), cache)
                 with torch.inference_mode():
-                    seg = [int(pick(logits)[0])]
+                    seg = [int(sample_argmax(logits)[0])]
             for i, t in enumerate(seg):
                 stats.active_bytes += self.active_bytes(pos + i)
                 if emit(t):
@@ -630,14 +678,22 @@ class VerifyState:
     rows: tuple | None  # wrapped: the chunk's rows in stored form (forward's spec_verify)
 
 
-def _scan_step(params, cfg, cache: KVCache, st: ScanState, kind: str, generator, sampling,
+def _as_keys(keys) -> torch.Tensor:
+    """int64 threefry keys from a tensor, or from uint32 values (numpy)."""
+    return keys if torch.is_tensor(keys) else prng.from_numpy(keys)
+
+
+def _scan_step(params, cfg, cache: KVCache, st: ScanState, kind: str, sampling, want_lp: bool,
                forward_kw: dict):
     """The step a scan replays (``runtime/graphs.py``), over static buffers
     only: the forward of st.token (or, for "ppl", the teacher's token at
     the slot) at st.pos, then the advance: "greedy" emits and feeds back
     the argmax (``logits_mode="token"``: the megakernel's own where it runs
-    the head), "sample" the draw of ``sampler.sample`` from ``generator``,
-    "ppl" emits log p(st.tgts at the slot)."""
+    the head), "sample" the draw of ``sampler.sample`` under the second
+    half of a split of st.keys[0] (the first carried), "rows" the draws of
+    ``sampler.sample_rows`` under the first halves of st.keys' row splits
+    (the second carried where st.valid holds), and with ``want_lp`` their
+    log-probs and top-5, "ppl" emits log p(st.tgts at the slot)."""
     valid = None if st.valid is None else st.valid[:, None]
     temperature, top_k, top_p = sampling or (0.0, 0, 1.0)
 
@@ -648,8 +704,22 @@ def _scan_step(params, cfg, cache: KVCache, st: ScanState, kind: str, generator,
         if kind == "greedy":
             st.emit(out, out)
         elif kind == "sample":
-            tok = sample(out, generator, temperature=temperature, top_k=top_k, top_p=top_p)
+            carry, sub = prng.split(st.keys[0])
+            st.keys[0].copy_(carry)
+            tok = sample(out, sub, temperature=temperature, top_k=top_k, top_p=top_p)
             st.emit(tok, tok)
+        elif kind == "rows":
+            subs, carry = split_rows(st.keys)
+            if st.valid is not None:
+                carry = torch.where(st.valid[:, None], carry, st.keys)
+            st.keys.copy_(carry)
+            if want_lp:
+                tok, lp, topv, topi = sample_rows(out, subs, st.temps, st.top_ps,
+                                                  return_logprobs=True)
+                st.emit(tok, tok, lp, topv, topi)
+            else:
+                tok = sample_rows(out, subs, st.temps, st.top_ps)
+                st.emit(tok, tok)
         else:
             st.emit(token_logprobs(out, st.tgts.index_select(1, st.slot)[:, 0]), tok_in[:, 0])
 

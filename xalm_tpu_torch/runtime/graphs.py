@@ -20,14 +20,18 @@ to eager steps on the card. On the CPU the same step runs eagerly, step
 after step (the kernels' plain versions), which is what the tests run.
 
 A graph is bound to the addresses it was captured on: the cache planes,
-the buffers, the weights and, for a sampled step, its generator (whose
-graph-safe state PyTorch advances at each replay, so each replay draws
-fresh numbers).
+the buffers and the weights. Its capture uses ``capture_error_mode=
+"thread_local"``, so that another thread's CUDA calls during it (an HTTP
+handler's, say) neither fail it nor are refused, and runs with Python's
+cyclic garbage collector off: a collection there that frees an unreachable
+engine's graphs (an engine and its steps' closures form a cycle) would
+destroy a CUDA graph mid-capture, which invalidates the capture.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import time
 from typing import Callable
 
@@ -46,7 +50,11 @@ SEGMENT_MAX = 512
 class ScanState:
     """The static device buffers a step reads and advances. ``out`` holds
     (B, SEGMENT_MAX) int32 tokens or f32 log-probs; ``toks``/``tgts`` the
-    teacher's tokens and targets of a perplexity segment."""
+    teacher's tokens and targets of a perplexity segment. A sampled step's
+    state: ``keys`` (B, 2) int64 threefry keys (row 0 the one key of
+    ``sample``), and for the per-row sampler ``temps`` and ``top_ps`` (B,)
+    f32, and with log-probs ``lp`` (B, SEGMENT_MAX) f32 and the top-5
+    ``topv`` f32 and ``topi`` int32 (B, SEGMENT_MAX, 5)."""
 
     token: torch.Tensor  # (B,) int32
     pos: torch.Tensor  # (B,) int32
@@ -55,25 +63,50 @@ class ScanState:
     valid: torch.Tensor | None = None  # (B,) bool
     toks: torch.Tensor | None = None  # (B, SEGMENT_MAX) int32
     tgts: torch.Tensor | None = None
+    keys: torch.Tensor | None = None  # (B, 2) int64
+    temps: torch.Tensor | None = None  # (B,) f32
+    top_ps: torch.Tensor | None = None  # (B,) f32
+    lp: torch.Tensor | None = None  # (B, SEGMENT_MAX) f32
+    topv: torch.Tensor | None = None  # (B, SEGMENT_MAX, 5) f32
+    topi: torch.Tensor | None = None  # (B, SEGMENT_MAX, 5) int32
 
     @classmethod
     def empty(cls, batch: int, device, *, logprobs: bool = False, valid: bool = False,
-              teacher: bool = False) -> "ScanState":
+              teacher: bool = False, keys: bool = False, rows: bool = False,
+              top5: bool = False) -> "ScanState":
+        """``keys``: the key buffer; ``rows``: also the per-row temperature
+        and top-p; ``top5``: the log-prob and top-5 outputs."""
         def i32(*shape):
             return torch.zeros(shape, dtype=torch.int32, device=device)
 
-        out = (torch.zeros((batch, SEGMENT_MAX), dtype=torch.float32, device=device) if logprobs
-               else i32(batch, SEGMENT_MAX))
+        def f32(*shape):
+            return torch.zeros(shape, dtype=torch.float32, device=device)
+
+        out = f32(batch, SEGMENT_MAX) if logprobs else i32(batch, SEGMENT_MAX)
         return cls(token=i32(batch), pos=i32(batch),
                    slot=torch.zeros((1,), dtype=torch.int64, device=device), out=out,
                    valid=torch.ones((batch,), dtype=torch.bool, device=device) if valid else None,
                    toks=i32(batch, SEGMENT_MAX) if teacher else None,
-                   tgts=i32(batch, SEGMENT_MAX) if teacher else None)
+                   tgts=i32(batch, SEGMENT_MAX) if teacher else None,
+                   keys=torch.zeros((batch, 2), dtype=torch.int64, device=device)
+                   if keys or rows else None,
+                   temps=f32(batch) if rows else None,
+                   top_ps=torch.ones((batch,), dtype=torch.float32, device=device)
+                   if rows else None,
+                   lp=f32(batch, SEGMENT_MAX) if top5 else None,
+                   topv=f32(batch, SEGMENT_MAX, 5) if top5 else None,
+                   topi=i32(batch, SEGMENT_MAX, 5) if top5 else None)
 
-    def emit(self, value: torch.Tensor, token: torch.Tensor) -> None:
+    def emit(self, value: torch.Tensor, token: torch.Tensor, lp=None, topv=None,
+             topi=None) -> None:
         """The advance at the end of a step: ``value`` (B,) into the output
-        slot, the next input ``token`` (B,), pos + 1, slot + 1."""
+        slot (and ``lp`` (B,), ``topv``/``topi`` (B, 5) into theirs), the
+        next input ``token`` (B,), pos + 1, slot + 1."""
         self.out.index_copy_(1, self.slot, value.to(self.out.dtype)[:, None])
+        if lp is not None:
+            self.lp.index_copy_(1, self.slot, lp.to(self.lp.dtype)[:, None])
+            self.topv.index_copy_(1, self.slot, topv.to(self.topv.dtype)[:, None])
+            self.topi.index_copy_(1, self.slot, topi.to(self.topi.dtype)[:, None])
         self.token.copy_(token)
         self.pos.add_(1)
         self.slot.add_(1).remainder_(SEGMENT_MAX)
@@ -82,14 +115,11 @@ class ScanState:
 class StepGraph:
     """One step (``step``: a function of no argument that reads and
     advances the static buffers) run n times a call; on the card replayed
-    from a CUDA graph captured at the first call (module docstring).
-    ``generator``: the CUDA generator a sampled step draws from, registered
-    with the graph."""
+    from a CUDA graph captured at the first call (module docstring)."""
 
-    def __init__(self, step: Callable[[], None], device, generator=None):
+    def __init__(self, step: Callable[[], None], device):
         self._step = step
         self.device = torch.device(device)
-        self.generator = generator
         self.graph: torch.cuda.CUDAGraph | None = None
         self.launches: dict[str, int] = {}  # launches one replay makes
         self.capture_s = 0.0  # host seconds of the warm-up step and the capture
@@ -104,13 +134,15 @@ class StepGraph:
             self._step()  # one real step: the warm-up
         main.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        if self.generator is not None:
-            graph.register_generator_state(self.generator)
         before = dict(build.LAUNCHES)
+        collecting = gc.isenabled()
+        gc.disable()
         try:
-            with torch.cuda.graph(graph):
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 self._step()
         finally:
+            if collecting:
+                gc.enable()
             captured = build.take_launches(before)
         self.graph, self.launches = graph, captured
         self.capture_s = time.perf_counter() - t0

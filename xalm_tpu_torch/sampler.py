@@ -1,11 +1,14 @@
 """Samplers over the logits and log-probs (counterpart of
-``xalm_tpu/sampler.py``'s ``sample_argmax``, ``sample``, ``_nucleus_keep``
-and ``token_logprobs``; the per-row serving samplers ``sample_rows`` and
-``split_rows`` belong to the serving slice).
+``xalm_tpu/sampler.py``: ``sample_argmax``, ``sample``, ``_nucleus_keep``,
+the per-row serving samplers ``sample_rows`` and ``split_rows``, and
+``token_logprobs``).
 
-Nothing here reads a value back to the host, so a CUDA graph captures each
-function (``runtime/graphs.py``): the sampling parameters are Python numbers,
-fixed for a graph as they are static arguments of the JAX functions.
+The draws take threefry keys (``prng.py``), the JAX keys bit for bit, so a
+seed gives the JAX package's tokens. Nothing here reads a value back to the
+host, so a CUDA graph captures each function (``runtime/graphs.py``):
+``sample``'s parameters are Python numbers, fixed for a graph as they are
+static arguments of the JAX function; ``sample_rows`` takes them as
+tensors, one a row.
 """
 
 from __future__ import annotations
@@ -14,7 +17,10 @@ import math
 
 import torch
 
-__all__ = ["sample_argmax", "sample", "filtered_logits", "token_logprobs"]
+from xalm_tpu_torch import prng
+
+__all__ = ["sample_argmax", "sample", "filtered_logits", "sample_rows", "split_rows",
+           "token_logprobs"]
 
 # candidate-set width of the sort-free nucleus filter (the JAX package's
 # ``_NUCLEUS_K``): the top-p threshold is found among the top-K logits
@@ -62,19 +68,61 @@ def filtered_logits(logits: torch.Tensor, *, temperature: float, top_k: int = 0,
     return ls
 
 
-def sample(logits: torch.Tensor, generator: torch.Generator, *, temperature: float = 1.0,
+def sample(logits: torch.Tensor, key: torch.Tensor, *, temperature: float = 1.0,
            top_k: int = 0, top_p: float = 1.0) -> torch.Tensor:
     """Stochastic token over the last axis: temperature, top-k, top-p
-    (``filtered_logits``), then a Gumbel-max draw from ``generator`` (on
-    the logits' device), which has the distribution of the JAX
-    ``jax.random.categorical``. ``temperature <= 0`` is ``sample_argmax``.
-    (..., vocab) -> (...,) int32."""
+    (``filtered_logits``), then ``jax.random.categorical(key, ...)``: the
+    argmax of the filtered logits plus Gumbel draws of their whole shape
+    under the one (2,) ``key`` (``prng.gumbel``). ``temperature <= 0`` is
+    ``sample_argmax``. (..., vocab) -> (...,) int32."""
     if temperature <= 0.0:
         return sample_argmax(logits)
     ls = filtered_logits(logits, temperature=temperature, top_k=top_k, top_p=top_p)
-    u = torch.rand(ls.shape, generator=generator, device=ls.device, dtype=torch.float32)
-    gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
-    return torch.argmax(ls + gumbel, dim=-1).to(torch.int32)
+    return torch.argmax(prng.gumbel(key, ls.shape) + ls, dim=-1).to(torch.int32)
+
+
+def sample_rows(logits: torch.Tensor, keys: torch.Tensor, temperature: torch.Tensor,
+                top_p: torch.Tensor, *, return_logprobs: bool = False):
+    """Per-row sampling of a mixed serving batch (the JAX ``sample_rows``):
+    logits (B, V), keys (B, 2) (``prng``), temperature (B,) (rows at 0 or
+    below are greedy) and top_p (B,) (1 or more: no nucleus filter). One
+    top-K extraction serves the nucleus threshold, the greedy token (the
+    lowest index on ties) and the raw top-5; a sampled row draws
+    ``argmax(filtered + gumbel(its key))``. -> (B,) int32; with
+    ``return_logprobs`` also the chosen token's log-prob (B,), and the raw
+    (pre-temperature) distribution's top-5 log-probs (B, 5) and ids (B, 5)
+    int32."""
+    f32 = torch.float32
+    l = logits.to(f32)
+    ls = l / torch.clamp(temperature.to(f32), min=1e-6)[:, None]
+    k = min(_NUCLEUS_K, l.shape[-1])
+    tv, ti = torch.topk(ls, k, dim=-1)
+    z = torch.logsumexp(ls, dim=-1, keepdim=True)
+    m = torch.exp(tv - z)
+    cum = torch.cumsum(m, dim=-1)
+    tp = top_p.to(f32)[:, None]
+    keep = (cum - m) < tp
+    thresh = torch.amin(torch.where(keep, tv, math.inf), dim=-1, keepdim=True)
+    covered = (cum[:, -1:] >= tp) & (tp < 1.0)
+    thresh = torch.where(covered, thresh, -math.inf)
+    lf = torch.where(ls < thresh, -math.inf, ls)
+    draw = torch.argmax(prng.gumbel(keys, (l.shape[-1],)) + lf, dim=-1)
+    # the greedy token: the first maximum (torch.topk orders ties freely)
+    nxt = torch.where(temperature > 0.0, draw, torch.argmax(ls, dim=-1)).to(torch.int32)
+    if not return_logprobs:
+        return nxt
+    z_raw = torch.logsumexp(l, dim=-1, keepdim=True)
+    lp = torch.gather(l, -1, nxt.long()[:, None])[:, 0] - z_raw[:, 0]
+    top5_ids = ti[:, :5]
+    top5 = torch.gather(l, -1, top5_ids) - z_raw
+    return nxt, lp, top5, top5_ids.to(torch.int32)
+
+
+def split_rows(keys: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, 2) keys -> (subkeys, carry), each (B, 2): ``jax.random.split``
+    of each row's key, the first half drawn from, the second carried."""
+    both = prng.split(keys, 2)
+    return both[:, 0], both[:, 1]
 
 
 def token_logprobs(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
