@@ -5,6 +5,7 @@
     python3 chip_smoke.py --megakernel-ms [--root DIR] [--models NAME ...]
     python3 chip_smoke.py --kernel-ms [--root DIR]
     python3 chip_smoke.py --decode-wall --root DIR
+    python3 chip_smoke.py --tools
 
 Builds the port's CUDA kernels from ``xalm_tpu_torch/csrc/`` and drives the
 port, never the JAX package, through these phases, each printing JSON lines,
@@ -146,10 +147,22 @@ first, while the megakernel's two sources build:
    width (2 layers, written by the port's writer into build/) loaded by
    ``Engine.from_xalm`` on the card: bf16 per layer and the i8 megakernel,
    held against the plain path;
-9. the kernels' summary line, then the result line
+9. the host tools (``phase_tools``) at Mistral-7B-Instruct-v0.2's widths,
+   2 layers: an HF directory written here (``config.json``, ``models/
+   xalm-mini``'s ``tokenizer.json``, one bf16 ``model.safetensors`` by this
+   script's own writer) converted to i8 by the port's converter; the
+   container loaded twice by ``Engine.from_xalm`` on the card, with serial
+   copies and with the native pool's copies and prefault, every parameter
+   bit-equal; the harness's completion with ``--profile`` (a 512-token
+   prompt, 64 tokens; its spans and usage table required); the native trie
+   against the Python trie on a passkey prompt; and
+   ``harness.bench_kernels``' ``-b -b2 -k all`` with the kernel libraries'
+   cache statistics. The native library must load;
+10. the kernels' summary line, then the result line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
-With ``--megakernel-ms`` it runs none of these phases: it builds only the
+With ``--tools`` it runs phases 1 and 9 alone (about three minutes, most
+of them the kernels' builds). With ``--megakernel-ms`` it runs none of these phases: it builds only the
 megakernel's source and times the megakernel alone, in phase 3's first
 case (B = 1, kv_len 520, the embed fold, a bf16 cache), on each model
 preset named (default Mistral-7B and Qwen3-8B) and each weight body
@@ -4016,6 +4029,349 @@ def phase_load_modes(cfg) -> dict:
     return {"launches": launches}
 
 
+TOOLS_LAYERS = 2
+TOOLS_PROMPT = 512  # tokens of the --profile completion's prompt
+TOOLS_GEN = 64
+TOOLS_PASSKEY_JUNK = 2000  # junk lines of the tokenizer's passkey prompt
+
+
+def _write_safetensors(path: str, tensors: dict) -> None:
+    """The safetensors layout (8-byte header length, JSON header, raw
+    bytes) of bf16 torch tensors, written here without a library."""
+    import torch
+
+    header, at = {}, 0
+    for k, t in tensors.items():
+        header[k] = {"dtype": "BF16", "shape": list(t.shape), "data_offsets": [at, at + t.nbytes]}
+        at += t.nbytes
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little") + raw)
+        for t in tensors.values():
+            f.write(t.contiguous().view(torch.int16).numpy().tobytes())
+
+
+def _tools_hf_dir(root: str, cfg) -> str:
+    """An HF directory of Mistral-7B-Instruct-v0.2's widths at TOOLS_LAYERS
+    layers: its config.json, models/xalm-mini's tokenizer.json, and random
+    bf16 weights of std 0.02 (norms near 1) drawn on the card from SEED."""
+    import shutil
+
+    import torch
+
+    d = os.path.join(root, "build", "tools", "mistral_2l_hf")
+    os.makedirs(d, exist_ok=True)
+    config = {"architectures": ["MistralForCausalLM"], "model_type": "mistral",
+              "hidden_size": cfg.dim, "intermediate_size": cfg.hidden_dim,
+              "num_hidden_layers": TOOLS_LAYERS, "num_attention_heads": cfg.n_heads,
+              "num_key_value_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim,
+              "vocab_size": cfg.vocab_size, "max_position_embeddings": 32768,
+              "rope_theta": 1e6, "rms_norm_eps": 1e-5, "hidden_act": "silu",
+              "tie_word_embeddings": False, "bos_token_id": 1, "eos_token_id": 2,
+              "torch_dtype": "bfloat16"}
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump(config, f)
+    shutil.copy(os.path.join(root, "models", "xalm-mini", "tokenizer.json"), d)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 21)
+    dm, h, q, kv = cfg.dim, cfg.hidden_dim, cfg.q_dim, cfg.kv_dim
+
+    def w(*shape):
+        return (torch.randn(shape, generator=gen, device=DEVICE) * 0.02).bfloat16().cpu()
+
+    def norm():
+        return (1 + 0.1 * torch.randn((dm,), generator=gen, device=DEVICE)).bfloat16().cpu()
+
+    t = {"model.embed_tokens.weight": w(cfg.vocab_size, dm), "model.norm.weight": norm(),
+         "lm_head.weight": w(cfg.vocab_size, dm)}
+    for i in range(TOOLS_LAYERS):
+        p = f"model.layers.{i}."
+        t.update({p + "input_layernorm.weight": norm(), p + "self_attn.q_proj.weight": w(q, dm),
+                  p + "self_attn.k_proj.weight": w(kv, dm),
+                  p + "self_attn.v_proj.weight": w(kv, dm),
+                  p + "self_attn.o_proj.weight": w(dm, q),
+                  p + "post_attention_layernorm.weight": norm(),
+                  p + "mlp.gate_proj.weight": w(h, dm), p + "mlp.up_proj.weight": w(h, dm),
+                  p + "mlp.down_proj.weight": w(dm, h)})
+    _write_safetensors(os.path.join(d, "model.safetensors"), t)
+    return d
+
+
+@contextlib.contextmanager
+def _native_off(off: bool):
+    """With ``off``, the native library unavailable to the port (as on a
+    host without g++): the loader copies serially and prefaults nothing,
+    the tokenizer takes the Python trie."""
+    from xalm_tpu_torch import native
+
+    saved = native._LIB, native._TRIED
+    if off:
+        native._LIB, native._TRIED = None, True
+    try:
+        yield
+    finally:
+        native._LIB, native._TRIED = saved
+
+
+def _transfer_ms(params) -> dict[str, float]:
+    """Each tensor of a host parameter tree copied onto the card, one
+    ``.to`` at a time (synchronized): its name -> ms."""
+    import torch
+
+    per = {}
+
+    def walk(x, name):
+        if isinstance(x, torch.Tensor):
+            t0 = time.perf_counter()
+            x.to(DEVICE)
+            torch.cuda.synchronize()
+            per[name] = (time.perf_counter() - t0) * 1e3
+        elif dataclasses.is_dataclass(x):
+            for f in dataclasses.fields(x):
+                walk(getattr(x, f.name), f"{name}.{f.name}")
+    walk(params, "params")
+    return per
+
+
+def _resident_share(path: str) -> float:
+    """The share of a file's pages in the page cache (``mincore`` over a
+    private map of it, which reads nothing)."""
+    import ctypes
+    import mmap
+
+    import numpy as np
+
+    libc = ctypes.CDLL(None, use_errno=True)
+    libc.mincore.argtypes = [ctypes.c_void_p, ctypes.c_size_t, ctypes.c_void_p]
+    with open(path, "rb") as f:
+        mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_COPY)
+    try:
+        n = (len(mm) + mmap.PAGESIZE - 1) // mmap.PAGESIZE
+        vec = (ctypes.c_ubyte * n)()
+        buf = ctypes.c_char.from_buffer(mm)
+        rc = libc.mincore(ctypes.addressof(buf), len(mm), vec)
+        del buf
+    finally:
+        mm.close()
+    if rc != 0:
+        raise OSError(ctypes.get_errno(), f"mincore on {path}")
+    return float((np.frombuffer(vec, np.uint8) & 1).mean())
+
+
+def _fs_type(path: str) -> str:
+    """The type of the file system that holds ``path`` (/proc/self/mounts,
+    the longest mount point above it)."""
+    real, best = os.path.realpath(path), ("", "unknown")
+    with open("/proc/self/mounts") as f:
+        for line in f:
+            fields = line.split()
+            if len(fields) < 3:
+                continue
+            point = fields[1].encode().decode("unicode_escape")
+            if (real == point or real.startswith(point.rstrip("/") + "/")) and (
+                    len(point) > len(best[0])):
+                best = (point, fields[2])
+    return best[1]
+
+
+def _evict(path: str) -> float:
+    """Drop one file's pages from the page cache (``fsync``, then
+    ``POSIX_FADV_DONTNEED`` on that file alone) and return the share of
+    its pages still resident."""
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+        os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+    finally:
+        os.close(fd)
+    return _resident_share(path)
+
+
+def _params_bit_equal(a, b) -> list[str]:
+    """Names of the parameter tensors that differ between two ModelParams
+    (dtype, shape or a bit)."""
+    import torch
+
+    bad = []
+    # each element viewed as an integer of its size: -0.0 differs from 0.0,
+    # and a NaN equals the same NaN
+    bits = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+    def walk(x, y, name):
+        if isinstance(x, torch.Tensor) or isinstance(y, torch.Tensor):
+            same = (isinstance(x, torch.Tensor) and isinstance(y, torch.Tensor)
+                    and x.dtype == y.dtype and x.shape == y.shape
+                    and torch.equal(x.view(bits[x.element_size()]),
+                                    y.view(bits[y.element_size()])))
+            if not same:
+                bad.append(name)
+        elif dataclasses.is_dataclass(x):
+            for f in dataclasses.fields(x):
+                walk(getattr(x, f.name), getattr(y, f.name), f"{name}.{f.name}")
+        elif x != y:
+            bad.append(name)
+    walk(a, b, "params")
+    return bad
+
+
+def phase_tools(cfg) -> dict:
+    """The host tools on the card's machine (module docstring, item 9):
+    converter, loader (serial against native), ``--profile`` harness, native
+    tokenizer and ``bench_kernels``. Raises where a step fails."""
+    import io
+
+    import torch
+
+    from xalm_tpu_torch import native
+    from xalm_tpu_torch.convert import convert as cvt
+    from xalm_tpu_torch.harness import bench_kernels
+    from xalm_tpu_torch.harness import main as harness
+    from xalm_tpu_torch.io import XalmFile
+    from xalm_tpu_torch.ops import build
+    from xalm_tpu_torch.runtime.engine import Engine
+    from xalm_tpu_torch.tokenizer import Tokenizer
+
+    t_phase = time.perf_counter()
+    if native.load() is None:
+        raise AssertionError("the native library did not build or load (native/*.cpp, g++)")
+    root = os.path.dirname(os.path.abspath(__file__))
+    row = {"phase": "tools", "model": "Mistral-7B-Instruct-v0.2 widths", "layers": TOOLS_LAYERS,
+           "card": _smi_line(), "native_library": str(native.library_path())}
+    t0 = time.perf_counter()
+    hf = _tools_hf_dir(root, cfg)
+    row["hf_write_s"] = time.perf_counter() - t0
+    out = os.path.join(root, "build", "tools", "mistral_2l_i8.xalm")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cvt.main(["--input", hf, "--output", out, "--type", "i8"])
+    row["convert_i8_s"] = time.perf_counter() - t0
+    row["container_gb"] = os.path.getsize(out) / 1e9
+    if rc != 0:
+        raise AssertionError(f"converter exited {rc}")
+
+    # the file was just written, so every read here is warm (page cache).
+    # Serial turns make the native library unavailable (_native_off), as on
+    # a host without g++. Each turn loads onto the card (Engine.from_xalm),
+    # then in two parts: load_params onto the host alone (prefault, stacks,
+    # fusing and casts) and that host tree's transfer onto the card, tensor
+    # by tensor, twice (the second from pages the first already read).
+    from xalm_tpu_torch.models.config import ModelConfig
+    from xalm_tpu_torch.models.params import load_params
+
+    turns = ("serial", "native", "native", "serial", "serial", "native", "native", "serial")
+    keys = ("load", "host_load", "transfer", "transfer_again")
+    loads = {f"{k}_{m}_s": [] for k in keys for m in ("serial", "native")}
+    params = {}
+    for mode in turns:
+        with _native_off(mode == "serial"):
+            t0 = time.perf_counter()
+            eng = Engine.from_xalm(out, device=DEVICE, progress=False)
+            torch.cuda.synchronize()
+            loads[f"load_{mode}_s"].append(time.perf_counter() - t0)
+            params.setdefault(mode, eng.params)
+            del eng
+            t0 = time.perf_counter()
+            with XalmFile(out) as xf:
+                xf.prefault()
+                host = load_params(xf, ModelConfig.from_metadata(xf.config), device="cpu")
+            loads[f"host_load_{mode}_s"].append(time.perf_counter() - t0)
+        for key in ("transfer", "transfer_again"):
+            per = _transfer_ms(host)
+            loads[f"{key}_{mode}_s"].append(sum(per.values()) / 1e3)
+            row.setdefault(f"{key}_{mode}_by_tensor_ms", per)
+        del host
+    bad = _params_bit_equal(params["serial"], params["native"])
+    row.update(loads, load_params_bit_equal=not bad)
+    del params
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"read_stack parameters differ from the serial load's: {bad[:5]}")
+    for mode in ("serial", "native"):  # the largest weight's stack alone
+        with _native_off(mode == "serial"), XalmFile(out) as xf:
+            names = [f"l.{i}.mlp.gate.weight" for i in range(TOOLS_LAYERS)]
+            t0 = time.perf_counter()
+            xf.prefault()
+            row[f"prefault_{mode}_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            stack = xf.read_stack(names)
+            row[f"read_stack_{mode}_gb_s"] = stack.nbytes / (time.perf_counter() - t0) / 1e9
+            del stack
+    # cold loads onto the card: the container's pages evicted from the page
+    # cache (this file only: fsync, then POSIX_FADV_DONTNEED) before each
+    # load, timed only where the eviction holds (under 5 % of the file's
+    # pages resident; a memory-backed file system keeps them all)
+    row["container_fs"] = _fs_type(out)
+    row["evicted_resident_share"] = _evict(out)
+    if row["evicted_resident_share"] < 0.05:
+        for mode in ("serial", "native", "native", "serial"):
+            share = _evict(out)
+            with _native_off(mode == "serial"):
+                t0 = time.perf_counter()
+                eng = Engine.from_xalm(out, device=DEVICE, progress=False)
+                torch.cuda.synchronize()
+                row.setdefault(f"cold_load_{mode}_s", []).append(time.perf_counter() - t0)
+                row.setdefault(f"cold_resident_share_{mode}", []).append(share)
+                del eng
+        torch.cuda.empty_cache()
+
+    with XalmFile(out) as xf:
+        tok = Tokenizer.from_xalm(xf)
+    if tok._native is None:
+        raise AssertionError("the tokenizer did not take the native trie")
+    words = ("the quick brown fox jumps over the lazy dog while a model reads its prompt "
+             "one token after another ").split()
+    text, n = "", 0
+    while n < TOOLS_PROMPT:
+        text += " ".join(words) + " "
+        n = len(tok.encode(text))
+    text = tok.decode(tok.encode(text)[:TOOLS_PROMPT])
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = harness.main([out, "-d", DEVICE, "-m", "c", "-i", text, "-n", str(TOOLS_GEN),
+                           "--profile"])
+    row["profile_run_s"] = time.perf_counter() - t0
+    got = buf.getvalue()
+    report = got[got.index("profiler report"):] if "profiler report" in got else ""
+    spans = {}
+    for line in report.splitlines():
+        cells = [c.strip() for c in line.strip("|").split("|")]
+        if len(cells) == 4 and cells[0] in ("model load", "completion"):
+            spans[cells[0]] = {"calls": int(cells[1]), "total_ms": float(cells[2])}
+    enc = [ln for ln in got.splitlines() if ln.startswith("Encoding stats")]
+    row.update(profile_spans=spans, profile_encoding=enc[0] if enc else None,
+               profile_usage_table="process usage" in got,
+               profile_decode_path=[ln.strip() for ln in got.splitlines()
+                                    if "decode path:" in ln])
+    if rc != 0 or set(spans) != {"model load", "completion"} or "process usage" not in got:
+        raise AssertionError(f"--profile run: rc {rc}, spans {spans}; output tail {got[-2000:]}")
+
+    from xalm_tpu_torch.harness.main import build_passkey_prompt
+
+    prompt = build_passkey_prompt(TOOLS_PASSKEY_JUNK, TOOLS_PASSKEY_JUNK // 2, 12345)
+    t0 = time.perf_counter()
+    ids_native = tok.encode(prompt)
+    row["encode_native_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ids_python = tok.encode_python(prompt.encode("utf-8"))
+    row["encode_python_s"] = time.perf_counter() - t0
+    row.update(encode_chars=len(prompt), encode_tokens=len(ids_native),
+               encode_ids_equal=ids_native == ids_python)
+    if ids_native != ids_python:
+        raise AssertionError("the native trie's ids differ from the Python trie's")
+
+    with torch.inference_mode():
+        bench = bench_kernels.run(bandwidth=True, bandwidth2=True, kernel="all")
+    row["bench_kernels"] = [{k: r[k] for k in ("case", "ms", "gb_s", "share", "layers")}
+                            for r in bench]
+    row["build_cache_stats"] = build.cache_stats()
+    row["seconds"] = time.perf_counter() - t_phase
+    emit(row)
+    os.remove(out)
+    return row
+
+
 def phase_formats(cases: Cases) -> dict:
     """The weight formats' phases 3-5, one model at a time: Mixtral-8x7B q4
     (drawn packed at group 128, 24.6 GB), Mistral-7B f32 (28.5 GB), a
@@ -5536,6 +5892,8 @@ def main(argv=None) -> int:
     ap.add_argument("--decode-wall", action="store_true",
                     help="with --root: only time Mistral-7B's per-layer decode of both "
                          "checkouts (see the module's note)")
+    ap.add_argument("--tools", action="store_true",
+                    help="only the host tools' phase (phase_tools; see the module's note)")
     ap.add_argument("--decode-wall-turn", metavar="DIR", help=argparse.SUPPRESS)
     ap.add_argument("--root", help="with --megakernel-ms, --kernel-ms or --decode-wall: another "
                                    "checkout whose kernels are timed in turns with this one's")
@@ -5571,6 +5929,18 @@ def main(argv=None) -> int:
             return 2
         phase_device()
         decode_wall(other)
+        return 0
+    if args.tools:
+        from xalm_tpu_torch.models.config import MISTRAL_7B
+
+        from xalm_tpu_torch.ops import build
+
+        name = phase_device()
+        build.start_all()  # the kernels build while the converter runs
+        phase_tools(MISTRAL_7B)
+        emit({"phase": "done", "seconds": time.perf_counter() - T0})
+        emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                     "count": torch.cuda.device_count()}})
         return 0
     if args.megakernel_ms or args.kernel_ms:
         phase_device()
@@ -5650,6 +6020,7 @@ def main(argv=None) -> int:
         phase_wrap(cfg)
     fam_launches = phase_families(cases)
     fmt_launches = phase_formats(cases)
+    phase_tools(MISTRAL_7B)
     launches = {k: main_row["launches"][k] + moe_row["launches"][k]
                 + sum(run[k] for run in fam_launches.values())
                 + sum(run[k] for run in fmt_launches.values()) for k in main_row["launches"]}

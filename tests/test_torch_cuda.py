@@ -3129,3 +3129,26 @@ def test_sample_scan_rows_replays_equal_its_eager_steps(dev, path):
     for sa, sb in zip(ga, ea):
         assert all(torch.equal(x, y) for x, y in zip(sa, sb))
     assert _window_equal(caches[0], caches[1], eng.cfg.max_seq_len)
+
+
+def test_bench_kernels_readings_within_the_card(dev):
+    """``harness/bench_kernels.py``'s probes at their full shapes: every
+    reading positive and at most 105 % of 3.35 TB/s (``_reading`` raises
+    above), and the kernel libraries' cache statistics."""
+    from xalm_tpu_torch.harness import bench_kernels
+
+    with torch.inference_mode():
+        rows = bench_kernels.run(bandwidth=True, bandwidth2=True, kernel="mha")
+    assert [r["case"].split(" (")[0] for r in rows] == ["-b HBM read", "-b2 HBM copy", "-k mha"]
+    for r in rows:
+        assert 0 < r["gb_s"] <= bench_kernels.MAX_SHARE * bench_kernels.HBM_GB_S, r
+    stats = build.cache_stats()
+    assert set(stats) == {"hits", "misses"} and stats["hits"] + stats["misses"] >= 2
+
+
+def test_bench_kernels_cli(dev, capsys):
+    from xalm_tpu_torch.harness import bench_kernels
+
+    assert bench_kernels.main(["-k", "ffn"]) == 0
+    out = capsys.readouterr().out
+    assert "-k ffn" in out and "GB/s" in out and "kernel libraries: {'hits'" in out

@@ -128,7 +128,7 @@ def test_harness_perplexity_and_refusals(tiny_i8, capsys):
     assert port_harness.main([tiny_i8, "-d", "cpu", "-m", "perplexity",
                               "-i", "the quick brown fox is here"]) == 0
     assert "perplexity:" in capsys.readouterr().out
-    for extra in (["--profile"], ["--tp", "2"]):
+    for extra in (["--dp", "2"], ["--tp", "2"]):
         with pytest.raises(SystemExit):
             port_harness.main([tiny_i8, "-d", "cpu", "-i", "x"] + extra)
 
@@ -195,7 +195,7 @@ def test_harness_matmul_pallas_is_the_kernel_path(tiny_i8, capsys):
     assert outs[0] == outs[1]
 
 
-REFUSED = {"profile": (["--profile"], "--profile"),
+REFUSED = {"tp": (["--tp", "2"], "--tp"),
            "coordinator": (["--coordinator", "localhost:1234"], "--coordinator"),
            "num-processes": (["--num-processes", "2"], "--num-processes"),
            "process-id": (["--process-id", "1"], "--process-id")}

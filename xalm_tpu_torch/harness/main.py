@@ -33,6 +33,10 @@
       --session PATH  completion: resume from PATH if it exists, and save the
                       cache and the token history there afterwards (xalm v2
                       block store; ``runtime/session.py``)
+      --profile       print the profiler table (``obs/profiler.py``: the spans
+                      ``model load`` and the mode's, host wall time, each
+                      ending where the host waits for the card, so the card's
+                      time is in it) and the process's resource usage at exit
 
 Every family the JAX converter writes loads (Llama/Mistral, Mixtral, Qwen2
 and Qwen3, Gemma, Gemma-2, Phi-3). Decode goes through the whole-step
@@ -42,7 +46,7 @@ per-layer kernels otherwise (Phi-3's head_dim 96, MoE); the stats print
 which ("decode path: ..."). The
 parser takes every flag of the JAX harness. Those of later slices are
 refused with a message only where they would change the output:
---tp/--dp/--pp above 1, --profile, and the multi-host --coordinator,
+--tp/--dp/--pp above 1, and the multi-host --coordinator,
 --num-processes and --process-id. As in the JAX harness, --session goes
 before --spec, and both before sampling; the draft model loads with
 ``Engine.from_xalm``'s defaults on the same device. --temperature
@@ -65,6 +69,9 @@ import os
 import random
 import sys
 import time
+
+from xalm_tpu_torch.obs.console import SystemUsage
+from xalm_tpu_torch.obs.profiler import profile, report, reset
 
 __all__ = ["main"]
 
@@ -112,9 +119,10 @@ def _build_parser() -> argparse.ArgumentParser:
     p.add_argument("--session", default=None, metavar="PATH",
                    help="completion: resume from PATH if it exists, save the KV cache and token "
                         "history there afterwards (xalm v2 block store)")
+    p.add_argument("--profile", action="store_true",
+                   help="print the profiler report and the process usage at exit")
     # JAX-harness flags of later slices: refused where they would change the
     # output (_refuse_later)
-    p.add_argument("--profile", action="store_true", help=argparse.SUPPRESS)
     for flag in ("--tp", "--dp", "--pp"):
         p.add_argument(flag, type=int, default=1, help=argparse.SUPPRESS)
     p.add_argument("--coordinator", default=None, help=argparse.SUPPRESS)
@@ -127,7 +135,6 @@ def _refuse_later(args) -> None:
     """Exit on a flag of a later slice that would change the output."""
     later = {
         "--tp/--dp/--pp": args.tp * args.dp * args.pp > 1,
-        "--profile": args.profile,
         "--coordinator/--num-processes/--process-id": (
             args.coordinator is not None or args.num_processes is not None
             or args.process_id is not None),
@@ -158,16 +165,19 @@ def _load_engine(args):
     dt = {"f16": torch.float16, "bf16": torch.bfloat16, "f32": torch.float32, "i8": torch.int8,
           "auto": "auto"}
     print(f"loading model {args.checkpoint}")
-    eng = Engine.from_xalm(
-        args.checkpoint,
-        context=args.context,
-        kv_dtype=dt[args.kv_dtype],
-        compute_dtype=dt[args.compute],
-        matmul_impl="kernel" if args.matmul == "pallas" else args.matmul,
-        wcls_i8=args.wcls_i8,
-        q4_group=args.q4,
-        device=args.device,
-    )
+    with profile("model load"):
+        eng = Engine.from_xalm(
+            args.checkpoint,
+            context=args.context,
+            kv_dtype=dt[args.kv_dtype],
+            compute_dtype=dt[args.compute],
+            matmul_impl="kernel" if args.matmul == "pallas" else args.matmul,
+            wcls_i8=args.wcls_i8,
+            q4_group=args.q4,
+            device=args.device,
+        )
+        if args.device == "cuda":
+            torch.cuda.synchronize()  # the span holds the load's device work
     cfg = eng.cfg
     print(
         f"{cfg.n_layers} layers | dim {cfg.dim} | {cfg.n_heads} heads "
@@ -313,15 +323,23 @@ def run_passkey(args) -> int:
 
 
 def main(argv: list[str] | None = None) -> int:
+    proc_t0, proc_r0 = SystemUsage._now()
     args = _build_parser().parse_args(argv)
     _refuse_later(args)
     mode = {"c": "completion"}.get(args.mode, args.mode)
     run = {"completion": run_completion, "perplexity": run_perplexity, "passkey": run_passkey}
+    if args.profile:
+        reset()  # this run's spans only
     try:
-        return run[mode](args)
+        with profile(mode):
+            rc = run[mode](args)
     except (FileNotFoundError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
+    if args.profile:
+        print(report())
+        print(SystemUsage.measure(proc_t0, proc_r0).format(title="process usage"))
+    return rc
 
 
 if __name__ == "__main__":

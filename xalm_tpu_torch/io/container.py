@@ -10,7 +10,11 @@
 The file is mmapped once and tensors come out as zero-copy numpy views of
 their raw storage (``uint16`` for bf16, ``uint8`` for fp8, see
 ``xalm_tpu_torch.dtypes``); ``load_torch`` wraps a copy as a torch tensor of
-the logical dtype.
+the logical dtype. ``read_stack`` copies same-shaped tensors into one
+stacked array through the native thread pool (``native.NativeMap``), and
+``prefault`` pulls the whole file through the page cache in parallel;
+where the native library is unavailable both take their Python paths
+(serial copies; no prefault).
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import torch
 
 from xalm_tpu_torch import dtypes as xdt
 from xalm_tpu_torch.io.xxh3 import xxh3_64
+from xalm_tpu_torch.native import NativeMap
 
 __all__ = ["TensorInfo", "XalmFile", "write_xalm", "SUPPORTED_ARCHS"]
 
@@ -63,6 +68,8 @@ class XalmFile:
 
     def __init__(self, path: str | os.PathLike):
         self.path = os.fspath(path)
+        self._native = None
+        self._no_native = False
         with open(self.path, "rb") as f:
             prefix = f.read(8)
             if len(prefix) != 8:
@@ -112,6 +119,9 @@ class XalmFile:
         self._view = np.frombuffer(self._mmap, dtype=np.uint8)
 
     def close(self) -> None:
+        if getattr(self, "_native", None) is not None:
+            self._native.close()
+            self._native = None
         if getattr(self, "_mmap", None) is not None:
             self._view = None
             try:
@@ -141,12 +151,75 @@ class XalmFile:
         info = self.tensors[name]
         return torch.from_numpy(np.array(self.load(name))).view(info.dtype.torch_dtype)
 
+    def _native_map(self):
+        """The file's ``NativeMap``, opened on first use; None where the
+        native library is unavailable."""
+        if self._native is None and not self._no_native:
+            try:
+                self._native = NativeMap(self.path)
+            except RuntimeError:
+                self._no_native = True
+        return self._native
+
+    def read_stack(self, names: list[str], n_threads: int = 0) -> np.ndarray:
+        """Same-shaped tensors copied into one (len(names), *shape) array of
+        their raw storage: the rows copied by the native thread pool, or one
+        after another without it (what ``np.stack`` of ``load``s gives)."""
+        infos = [self.tensors[n] for n in names]
+        shape, dt = infos[0].shape, infos[0].dtype
+        if any(i.shape != shape or i.dtype.name != dt.name for i in infos):
+            raise ValueError("read_stack requires tensors of one shape and dtype")
+        out = np.empty((len(infos),) + shape, dt.np_dtype)
+        nm = self._native_map()
+        if nm is None:
+            for r, i in enumerate(infos):
+                out[r].reshape(-1).view(np.uint8)[:] = self._view[i.offset : i.offset + i.size]
+            return out
+        nm.copy_batch([i.offset for i in infos], [i.size for i in infos], list(out),
+                      n_threads=n_threads)
+        return out
+
+    def prefault(self, n_threads: int = 0) -> None:
+        """Pull the whole file through the page cache in parallel (a cold
+        load's read-ahead); nothing without the native library."""
+        nm = self._native_map()
+        if nm is not None:
+            nm.prefault(n_threads)
+
     def verify(self, name: str) -> bool:
         """Check the stored xxh3_64 content hash (io/xxh3.py)."""
         info = self.tensors[name]
         if info.hash is None:
             return True
         return xxh3_64(self._view[info.offset : info.offset + info.size]) == info.hash
+
+    def format(self, histograms: bool = False) -> str:
+        """Human-readable tensor listing, the JAX ``XalmFile.format``'s text.
+        ``histograms=True`` adds a per-tensor value-distribution sparkline
+        and min/max cells, from every tensor dequantized (reads the whole
+        file)."""
+        from xalm_tpu_torch.obs.table import Table
+
+        cols = ["#", "name", "type", "shape", "size"]
+        if histograms:
+            cols += ["distribution", "min", "max"]
+        tbl = Table(cols, formats={"size": "h", "min": "+.4g", "max": "+.4g"})
+        for i, (name, t) in enumerate(self.tensors.items()):
+            row = [i, name, t.dtype.name, "x".join(map(str, t.shape)), t.size]
+            if histograms:
+                from xalm_tpu_torch import quant
+                from xalm_tpu_torch.obs.stats import Histogram
+
+                scale = None
+                sname = name + ".scale"
+                if t.dtype.name == "i8" and sname in self.tensors:
+                    scale = self.load(sname)
+                vals = np.asarray(quant.dequantize(self.load(name), t.dtype.name, scale),
+                                  np.float32).ravel()
+                h = Histogram(vals[:: max(vals.size // 65536, 1)], bins=10)
+                row += [h, float(h.min), float(h.max)]
+            tbl.add(*row)
+        return tbl.format(title=self.path)
 
 
 _RAW_TYPES = {torch.bfloat16: (torch.int16, "bf16"), torch.float8_e4m3fn: (torch.uint8, "f8_e4m3"),

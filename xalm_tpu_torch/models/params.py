@@ -55,6 +55,7 @@ __all__ = [
     "LayerParams",
     "ModelParams",
     "load_params",
+    "load_units",
     "from_jax_params",
     "recode_wcls_i8",
     "recode_qweight_q4",
@@ -260,8 +261,19 @@ def recode_fp8_rows(vals: np.ndarray, tdt: torch.dtype) -> tuple[np.ndarray, np.
     return q.reshape(vals.shape), scale.reshape(vals.shape[:-1])
 
 
+def load_units(cfg: ModelConfig) -> int:
+    """The ``progress`` calls of ``load_params`` (the JAX ``load_units``):
+    9 tensors a layer (7 and 3 an expert with MoE, 2 more with post-norms),
+    then the embed, the output norm and the head. The q/k norms and biases
+    are not counted."""
+    per_layer = 9 if not cfg.n_experts else 7 + 3 * cfg.n_experts
+    if cfg.post_norms:
+        per_layer += 2
+    return per_layer * cfg.n_layers + 3
+
+
 def load_params(xf, cfg: ModelConfig, device="cuda", f16_mode: str = "auto",
-                fp8_mode: str = "auto") -> ModelParams:
+                fp8_mode: str = "auto", progress=None) -> ModelParams:
     """Load and stack all weights of a container of any family the JAX
     package reads (Llama/Mistral/Mixtral, Qwen2/3, Gemma, Gemma-2, Phi-3;
     f32/f16/bf16/f8_e4m3/f8_e5m2/q8/i8, packed q4) from an open XalmFile
@@ -274,7 +286,9 @@ def load_params(xf, cfg: ModelConfig, device="cuda", f16_mode: str = "auto",
     the card (``recode_fp8_rows``: the kernels and the megakernel take i8)
     and keeps fp8 elsewhere; "keep" and "recode" force. A weight kept f16 or
     fp8 runs ops.linear's plain product. Norms, biases, the router and
-    scales are f32 whatever the modes."""
+    scales are f32 whatever the modes. ``progress``, if given, is called
+    once a unit of ``load_units(cfg)`` as the tensors are read (the JAX
+    loader's callback, ``ProgressBar.advance``)."""
     if f16_mode not in F16_MODES or fp8_mode not in FP8_MODES:
         raise ValueError(f"f16_mode {f16_mode!r} (one of {F16_MODES}), fp8_mode {fp8_mode!r} "
                          f"(one of {FP8_MODES})")
@@ -284,6 +298,7 @@ def load_params(xf, cfg: ModelConfig, device="cuda", f16_mode: str = "auto",
     if fp8_mode == "auto":
         fp8_mode = "recode" if on_card else "keep"
     f16_to = {"keep": None, "bf16": torch.bfloat16, "f32": torch.float32}[f16_mode]
+    tick = progress if progress is not None else (lambda: None)
 
     def recoded(vals, scale, tdt):
         """(values, scale, dtype) of a weight as stored -> as loaded: fp8
@@ -309,28 +324,32 @@ def load_params(xf, cfg: ModelConfig, device="cuda", f16_mode: str = "auto",
             )
         return t
 
-    def stack_host(name_fmt: str, expect_shape, recode: bool = True):
+    def stack_host(name_fmt: str, expect_shape, recode: bool = True, ticks: bool = True):
         """(values, scale, dtype) of a weight kind stacked over the layers
-        on the host; fp8 recoded under "recode" (not for ``stack_norm``, as
-        in the JAX loader)."""
+        on the host (``XalmFile.read_stack``: the native pool's copies);
+        fp8 recoded under "recode" (not for ``stack_norm``, as in the JAX
+        loader). One ``progress`` call a layer unless ``ticks`` is off."""
         names = [name_fmt.format(i) for i in range(cfg.n_layers)]
         infos = [info(n, expect_shape) for n in names]
         dt = infos[0].dtype
         if any(i.dtype.name != dt.name for i in infos):
             raise ValueError(f"FATAL: mixed dtypes across {name_fmt}")
-        vals = np.stack([xf.load(n) for n in names])
+        vals = xf.read_stack(names)
+        if ticks:
+            for _ in names:
+                tick()
         scale = None
         if names[0] + ".scale4" in xf:
             # q4: (D, K/g) group-scale planes, fused and stacked like the values
             if any(n + ".scale4" not in xf for n in names):
                 raise ValueError(f"FATAL: mixed q4 and unpacked tensors across {name_fmt}")
-            scale = np.stack([xf.load(n + ".scale4") for n in names])
+            scale = xf.read_stack([n + ".scale4" for n in names])
             return vals, scale, torch.int8
         if dt.name == "i8":
             snames = [xdt.scale_name(n) for n in names]
             if any(s not in xf for s in snames):
                 raise ValueError(f"FATAL: i8 tensors for {name_fmt} missing scales")
-            scale = np.stack([xf.load(s) for s in snames])
+            scale = xf.read_stack(snames)
         if not recode:
             return vals, scale, dt.torch_dtype
         return recoded(vals, scale, dt.torch_dtype)
@@ -359,15 +378,15 @@ def load_params(xf, cfg: ModelConfig, device="cuda", f16_mode: str = "auto",
     def fused(parts, fuse, *fargs) -> QWeight:
         return qw(*fuse_host(parts, fuse, *fargs))
 
-    def stack_norm(name_fmt: str, n: int) -> torch.Tensor:
+    def stack_norm(name_fmt: str, n: int, ticks: bool = True) -> torch.Tensor:
         """(L, n) f32 of a float (f32, f16, bf16 or fp8) vector per layer."""
-        vals, _, tdt = stack_host(name_fmt, (n,), recode=False)
+        vals, _, tdt = stack_host(name_fmt, (n,), recode=False, ticks=ticks)
         return _torch(_host_f32(vals, tdt), torch.float32, device)
 
     def bias() -> torch.Tensor:
         """(L, DQ) f32 q/k/v bias, fused in wqkv's row order (JAX
         ``load_params`` takes the stored values alone, as here)."""
-        parts = [stack_host(f"l.{{}}.attn.{w}.bias", (n,))
+        parts = [stack_host(f"l.{{}}.attn.{w}.bias", (n,), ticks=False)
                  for w, n in (("q", q), ("k", kv), ("v", kv))]
         return _torch(fuse_qkv(*(_host_f32(v, tdt) for v, _, tdt in parts), cfg.n_kv_heads),
                       torch.float32, device)
@@ -377,7 +396,9 @@ def load_params(xf, cfg: ModelConfig, device="cuda", f16_mode: str = "auto",
         scale = None
         if t.dtype.name == "i8":
             scale = xf.load(xdt.scale_name(name))
-        return qw(*recoded(xf.load(name), scale, t.dtype.torch_dtype))
+        # read_stack: a writable copy by the native pool (a view of the map
+        # would be copied once more, serially, for torch)
+        return qw(*recoded(xf.read_stack([name])[0], scale, t.dtype.torch_dtype))
 
     def router() -> torch.Tensor:
         """(L, E, dim) f32; expert selection cannot ride an int8 code."""
@@ -442,16 +463,19 @@ def load_params(xf, cfg: ModelConfig, device="cuda", f16_mode: str = "auto",
         w13e=experts(gate_up) if moe else None,
         w2e=experts(down) if moe else None,
         bqkv=bias() if "l.0.attn.q.bias" in xf else None,
-        q_norm=stack_norm("l.{}.attn.qnorm.weight", cfg.head_dim) if cfg.qk_norm else None,
-        k_norm=stack_norm("l.{}.attn.knorm.weight", cfg.head_dim) if cfg.qk_norm else None,
+        q_norm=stack_norm("l.{}.attn.qnorm.weight", cfg.head_dim, False) if cfg.qk_norm else None,
+        k_norm=stack_norm("l.{}.attn.knorm.weight", cfg.head_dim, False) if cfg.qk_norm else None,
         post_attn_norm=stack_norm("l.{}.attn.postnorm.weight", d) if cfg.post_norms else None,
         post_mlp_norm=stack_norm("l.{}.mlp.postnorm.weight", d) if cfg.post_norms else None,
     )
     embed = single("embed.weight", (cfg.vocab_size, d))
+    tick()
     out_norm = _torch(_host_f32(xf.load("output.norm.weight"),
                                 info("output.norm.weight", (d,)).dtype.torch_dtype),
                       torch.float32, device)
+    tick()
     wcls = embed if cfg.tie_word_embeddings else single("output.weight", (cfg.vocab_size, d))
+    tick()
     return ModelParams(embed=embed, layers=layers, out_norm=out_norm, wcls=wcls)
 
 

@@ -53,8 +53,8 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["KERNELS", "LAUNCHES", "start_all", "wait", "load_library", "reset_launches",
-           "take_launches", "add_launches", "check"]
+__all__ = ["KERNELS", "LAUNCHES", "start_all", "wait", "load_library", "cache_stats",
+           "reset_launches", "take_launches", "add_launches", "check"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "xalm_tpu_torch"
@@ -114,16 +114,33 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
+# sources whose library was found built, and sources nvcc was started for,
+# in this process (cache_stats)
+_FOUND: set[str] = set()
+_BUILT: set[str] = set()
+
+
+def cache_stats() -> dict:
+    """How this process came by its kernel libraries: ``hits``, the sources
+    whose hash-named library was already built (by an earlier run: the
+    libraries persist in ``build/xalm_tpu_torch/``), and ``misses``, the
+    ``nvcc`` runs this process started. The counterpart of the JAX
+    package's persistent compilation cache statistics."""
+    return {"hits": len(_FOUND - _BUILT), "misses": len(_BUILT)}
+
+
 def _start(name: str):
     """Start nvcc for csrc/<name>.cu unless its library exists. Returns
     (output path, Popen or None)."""
     out = _lib_path(name)
     if out.exists():
+        _FOUND.add(name)
         return out, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    _BUILT.add(name)
     return out, (proc, tmp)
 
 

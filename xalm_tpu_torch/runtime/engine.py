@@ -47,9 +47,11 @@ from xalm_tpu_torch import prng
 from xalm_tpu_torch.io import XalmFile
 from xalm_tpu_torch.models.config import ModelConfig
 from xalm_tpu_torch.models.llama import IMPLS, forward, gathered_ok
+from xalm_tpu_torch.obs.console import ProgressBar
 from xalm_tpu_torch.models.params import (
     ModelParams,
     load_params,
+    load_units,
     recode_params_q4,
     recode_wcls_i8,
 )
@@ -172,16 +174,31 @@ class Engine:
         f16_mode: str = "auto",
         fp8_mode: str = "auto",
         device="cuda",
+        progress: bool = True,
     ) -> "Engine":
         """Load a container. ``f16_mode`` and ``fp8_mode`` are
         ``load_params``'s (on the card f16 weights load as bf16 and fp8
         weights as i8 rows by default). ``q4_group`` > 0 re-codes the four
         body weights to packed q4 on ``device`` once loaded (one layer's f32
         temporary at a time) and implies ``a8_decode``: the q4 dots take
-        int8 activations."""
+        int8 activations.
+
+        As the JAX ``from_xalm`` does, the file is first pulled through the
+        page cache in parallel (``XalmFile.prefault``) and the layer stacks
+        are copied by the native thread pool (``XalmFile.read_stack``);
+        without the native library they are copied one after another and
+        nothing is prefaulted. ``progress`` shows a loading bar on stderr with a
+        wall/user/sys summary at the end."""
         with XalmFile(path) as xf:
             cfg = ModelConfig.from_metadata(xf.config, context)
-            params = load_params(xf, cfg, device=device, f16_mode=f16_mode, fp8_mode=fp8_mode)
+            xf.prefault()
+            if progress:
+                with ProgressBar("loading weights", total=load_units(cfg)) as bar:
+                    params = load_params(xf, cfg, device=device, f16_mode=f16_mode,
+                                         fp8_mode=fp8_mode, progress=bar.advance)
+            else:
+                params = load_params(xf, cfg, device=device, f16_mode=f16_mode,
+                                     fp8_mode=fp8_mode)
             tokenizer = Tokenizer.from_xalm(xf) if "tokenizer.tokens" in xf else None
             chat_template = xf.config.get("chat_template")
         if q4_group:

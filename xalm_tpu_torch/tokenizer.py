@@ -1,5 +1,5 @@
 """Trie-based greedy longest-match tokenizer with byte fallback
-(counterpart of ``xalm_tpu/tokenizer.py``, pure Python only).
+(counterpart of ``xalm_tpu/tokenizer.py``).
 
 - Vocab is the ``tokenizer.tokens`` U8 tensor: NUL-terminated strings, one
   per token id.
@@ -9,11 +9,17 @@
   ``<0xNN>`` byte tokens.
 - ``decode_one``: strips one leading space after BOS and maps byte-fallback
   ids to raw bytes.
+
+``encode`` runs the native C++ trie (``native.NativeTrie``,
+``native/tokenizer.cpp``) where the native library loads, and the Python
+trie here otherwise; both give the same ids.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from xalm_tpu_torch.native import NativeTrie
 
 __all__ = ["Tokenizer"]
 
@@ -30,7 +36,8 @@ class Tokenizer:
     def __init__(self, tokens_blob: np.ndarray, bos_token_id: str, eos_token_id: str):
         self.bos_id = _parse_id(bos_token_id)
         self.eos_id = _parse_id(eos_token_id)
-        self.vocab: list[bytes] = tokens_blob.tobytes().split(b"\x00")
+        blob = tokens_blob.tobytes()
+        self.vocab: list[bytes] = blob.split(b"\x00")
         if self.vocab and self.vocab[-1] == b"":
             self.vocab.pop()
 
@@ -54,6 +61,12 @@ class Tokenizer:
                 node = entry[1]
             entry[0] = i
 
+        self._native = None
+        try:
+            self._native = NativeTrie(blob, self.bos_id, self.eos_id)
+        except RuntimeError:  # no native library: the Python trie encodes
+            pass
+
     @classmethod
     def from_xalm(cls, xf) -> "Tokenizer":
         return cls(
@@ -68,6 +81,12 @@ class Tokenizer:
 
     def encode(self, text: str | bytes, bos: bool = True) -> list[int]:
         data = text.encode("utf-8") if isinstance(text, str) else text
+        if self._native is not None:
+            return self._native.encode(data, bos)
+        return self.encode_python(data, bos)
+
+    def encode_python(self, data: bytes, bos: bool = True) -> list[int]:
+        """``encode`` on the Python trie."""
         out: list[int] = [self.bos_id] if bos else []
         i = 0
         n = len(data)
