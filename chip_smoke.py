@@ -211,13 +211,16 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import itertools
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_BF16 = 989e12  # dense tensor-core FLOP/s
@@ -376,13 +379,64 @@ SERVE_CHUNK = 256
 SERVE_TILED_CASES = ("M=2048 wqkv i8, norm prologue + row scale", "M=2048 w13 i8, row scale")
 SERVE_PREFILL_CASE = "B=8 T=256 packed: rows at their own positions, masked rows clamped"
 
+# ---- phase_parallel: the sharded engines (xalm_tpu_torch/parallel/). The
+# card host has one GPU, so (a) runs a world of one in this process over
+# NCCL and (b) two worker processes sharing the one card over gloo: they
+# check that the sharded path is right at full width, and their times are
+# those of two ranks on one card, never a scaling figure.
+SHARED_CARD = "two ranks sharing one H100, not a scaling figure"
+PARALLEL_PROMPT = 512  # the teacher-forced prefill of phase (b)
+PARALLEL_STEPS = 64  # its teacher-forced decode steps
+PARALLEL_TIMED_STEPS = 16  # the timed decode_scan's steps a configuration
+PARALLEL_COPY_TOKENS = 32  # the copy model's greedy tokens a configuration
+PARALLEL_NCCL_TOKENS = 64  # generate's tokens at segment 16 in phase (a)
+PARALLEL_LABEL = " (tp=2 shard)"
+# phase (b)'s configurations: (name, mesh, options of the sharded engine and
+# of the single-device per-layer engine it is held to, layers: None for
+# all 32; the int8 cache's runs, beside the tp, pp and dp checks at full
+# depth, at 8 so that the script keeps its time limit)
+PARALLEL_RUNS = (("tp=2", dict(tp=2), {}, None),
+                 ("pp=2", dict(pp=2), {}, None),
+                 ("dp=2", dict(dp=2, tp=1), {}, None),
+                 ("tp=2 int8 cache, 8 layers", dict(tp=2), dict(kv_dtype="int8"), 8))
+# the configurations that run the single-device engine's arithmetic and
+# are held bit-equal to it: pp=2 to its B = 2 run (each stage runs the same
+# kernels on the same rows; the residual's hand-over adds zeros), dp=2 to
+# its rows run alone (each dp rank runs one row at B = 1)
+PARALLEL_EXACT = {"pp=2": "batch", "dp=2": "alone"}
+# the limit of a tp run's teacher-forced logits against the single-device
+# engine's B = 2 run: WRAP_TOL, or PARALLEL_FLOOR_RATIO times that engine's
+# own spread (its B = 2 run against its rows run alone: the same arithmetic
+# in another order), whichever is larger. tp sums wo's and w2's products in
+# two halves, another order again; on Mistral-7B's random weights at 32
+# layers an order alone moves a step's logits by 1.0e-2 of their max
+PARALLEL_FLOOR_RATIO = 1.5
+# W8A8 prefill under tp=2: each shard quantises its own slice of a row of
+# wo's and w2's input, another quantisation than one device's. As the JAX
+# test_sharded_a8_prefill holds the sharded a8 engine to the sharded engine
+# without it, this run is held to PARALLEL_A8[4]'s run: every step's change
+# within WRAP_TOL or PARALLEL_FLOOR_RATIO times the single-device engine's
+# largest a8 change (its a8 run against its run without), whichever is larger
+PARALLEL_A8 = ("tp=2 int8 cache, a8 prefill, 8 layers", dict(tp=2),
+               dict(kv_dtype="int8", a8_prefill=True), 8, "tp=2 int8 cache, 8 layers")
+PARALLEL_KERNELS = ("qmatmul", "qmatmul_a8", "flash_decode", "flash_prefill", "flash_decode_q")
+# kernel 1's cases at Mistral-7B's tp=2 shard shapes (phase_parallel_parity)
+PARALLEL_MM_CASES = tuple(c + PARALLEL_LABEL for c in (
+    "M=1 wqkv i8 3072 rows, norm prologue + row scale",
+    "M=1 w13 i8 14336 rows, norm prologue + row scale", "M=1 wo i8 over 2048, row scale",
+    "M=1 w2 i8 over 7168, row scale", "M=512 w13 i8, row scale", "M=1 head bf16 16000 rows"))
+# kernel 1's W8A8 GEMM at the same shards and the M of a 512-token prefill
+# chunk (the tp=2 a8 prefill of phase (b) launches it on each)
+PARALLEL_A8_CASES = tuple(c + PARALLEL_LABEL for c in (
+    "M=512 wqkv i8 3072 rows", "M=512 w13 i8 14336 rows", "M=512 wo i8 over 2048",
+    "M=512 w2 i8 over 7168"))
+
+
 
 def phase_parity(params, cfg, cases: Cases) -> None:
     import torch
-    import torch.nn.functional as F
 
     from xalm_tpu_torch.models.params import QWeight
-    from xalm_tpu_torch.ops.qmatmul import qmatmul, qmatmul_plain
 
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev)
@@ -398,41 +452,7 @@ def phase_parity(params, cfg, cases: Cases) -> None:
     # norm prologue 1e-3: the rms is also summed in another order, which
     # can flip the bf16 rounding of a normed activation (one flip moved a
     # row by 4e-4 of its max at N=1024 in tests/test_torch_cuda.py).
-    def mm_case(case, m, qw, use_norm, head=False):
-        n = qw.values.shape[-1]
-        d = qw.values.shape[-2]
-        x = randn(m, n)
-        values = qw.values[None] if head else qw.values
-        scale = None if qw.scale is None else (qw.scale[None] if head else qw.scale)
-        kw = dict(scale=scale)
-        if use_norm:
-            kw.update(norm_w=norm_w, norm_eps=cfg.norm_eps)
-        layers = itertools.cycle(range(values.shape[0]))
-        got = qmatmul(x, values, 3 % values.shape[0], **kw)
-        want = qmatmul_plain(x, values, 3 % values.shape[0], **kw)
-        xb = x.to(torch.bfloat16)
-        lib = None
-        if head:
-            lib = lambda: F.linear(xb, qw.values)  # noqa: E731
-        elif values.dtype == torch.bfloat16:
-            lib_layers = itertools.cycle(range(values.shape[0]))
-            lib = lambda: F.linear(xb, values[next(lib_layers)])  # noqa: E731
-        elif not use_norm:
-            # bf16 activations x int8 weights with a per-row scale: the
-            # int8 weight-only matmul (its scales in the activations' dtype)
-            sc16 = scale.to(torch.bfloat16)
-            lib_layers = itertools.cycle(range(values.shape[0]))
-
-            def lib():
-                i = next(lib_layers)
-                return torch._weight_int8pack_mm(xb, values[i], sc16[i])
-        elt = values.element_size()
-        nbytes = d * n * elt + m * n * 4 + m * d * 4 + (d * 4 if scale is not None else 0) + (
-            n * 4 if use_norm else 0)
-        cases.add("qmatmul", case, got, want, d, 1e-3 if use_norm else 1e-4,
-                  lambda: qmatmul(x, values, next(layers), **kw),
-                  lambda: qmatmul_plain(x, values, next(layers), **kw),
-                  lib, nbytes, 2.0 * m * n * d, PEAK_BF16)
+    mm_case = functools.partial(_mm_case, cases, cfg, randn, norm_w)
 
     mm_case("M=1 wqkv i8, norm prologue + row scale", 1, lp.wqkv, True)
     mm_case("M=1 w13 i8, norm prologue + row scale", 1, lp.w13, True)
@@ -466,6 +486,53 @@ def phase_parity(params, cfg, cases: Cases) -> None:
     torch.cuda.empty_cache()
     packed_prefill_case(cfg, cases, gen)
     phase_parity_int8(cfg, cases, gen, cexp, sexp)
+
+
+def _mm_case(cases: Cases, cfg, randn, norm_w, case, m, qw, use_norm, head=False) -> None:
+    """Kernel 1 (``qmatmul``) against its plain version on ``m`` random
+    rows and the stacked weight ``qw`` (layers cycled so every launch
+    streams its weights cold; ``head``: an unstacked head), the library
+    call beside it where one computes the same function (see
+    phase_parity's tolerances)."""
+    import torch
+    import torch.nn.functional as F
+
+    from xalm_tpu_torch.ops.qmatmul import qmatmul, qmatmul_plain
+
+    n = qw.values.shape[-1]
+    d = qw.values.shape[-2]
+    x = randn(m, n)
+    values = qw.values[None] if head else qw.values
+    scale = None if qw.scale is None else (qw.scale[None] if head else qw.scale)
+    kw = dict(scale=scale)
+    if use_norm:
+        kw.update(norm_w=norm_w, norm_eps=cfg.norm_eps)
+    layers = itertools.cycle(range(values.shape[0]))
+    got = qmatmul(x, values, 3 % values.shape[0], **kw)
+    want = qmatmul_plain(x, values, 3 % values.shape[0], **kw)
+    xb = x.to(torch.bfloat16)
+    lib = None
+    if head:
+        lib = lambda: F.linear(xb, qw.values)  # noqa: E731
+    elif values.dtype == torch.bfloat16:
+        lib_layers = itertools.cycle(range(values.shape[0]))
+        lib = lambda: F.linear(xb, values[next(lib_layers)])  # noqa: E731
+    elif not use_norm:
+        # bf16 activations x int8 weights with a per-row scale: the
+        # int8 weight-only matmul (its scales in the activations' dtype)
+        sc16 = scale.to(torch.bfloat16)
+        lib_layers = itertools.cycle(range(values.shape[0]))
+
+        def lib():
+            i = next(lib_layers)
+            return torch._weight_int8pack_mm(xb, values[i], sc16[i])
+    elt = values.element_size()
+    nbytes = d * n * elt + m * n * 4 + m * d * 4 + (d * 4 if scale is not None else 0) + (
+        n * 4 if use_norm else 0)
+    cases.add("qmatmul", case, got, want, d, 1e-3 if use_norm else 1e-4,
+              lambda: qmatmul(x, values, next(layers), **kw),
+              lambda: qmatmul_plain(x, values, next(layers), **kw),
+              lib, nbytes, 2.0 * m * n * d, PEAK_BF16)
 
 
 def _sink_trig(cfg):
@@ -677,8 +744,7 @@ def phase_parity_quant(params, q4p, cfg, cases: Cases) -> None:
     launch streams its weights cold."""
     import torch
 
-    from xalm_tpu_torch.models.params import Q8_FIXED_SCALE, recode_qweight_q4
-    from xalm_tpu_torch.ops.attention import quant_rows
+    from xalm_tpu_torch.models.params import recode_qweight_q4
     from xalm_tpu_torch.ops.qmatmul import qmatmul, qmatmul_plain
 
     dev = torch.device(DEVICE)
@@ -707,28 +773,44 @@ def phase_parity_quant(params, q4p, cfg, cases: Cases) -> None:
             torch.cuda.empty_cache()
     for name in ("w13", "w2"):
         qw = getattr(params.layers, name)
-        d, n = qw.values.shape[-2:]
         for kind in ("i8", "q8"):
-            kw = dict(scale=qw.scale) if kind == "i8" else dict(q8_scale=Q8_FIXED_SCALE)
             for m in (512, 256):
-                x = randn(m, n)
-                got = qmatmul(x, qw.values, 5 % cfg.n_layers, a8=True, **kw)
-                want = qmatmul_plain(x, qw.values, 5 % cfg.n_layers, a8=True, **kw)
-                xq, sx = quant_rows(x)
-                layers = itertools.cycle(range(cfg.n_layers))
-                lib_layers = itertools.cycle(range(cfg.n_layers))
-
-                def lib(kind=kind, xq=xq, sx=sx):
-                    i = next(lib_layers)
-                    y = torch._int_mm(xq, qw.values[i].t()).float()
-                    y = y * qw.scale[i] if kind == "i8" else y * Q8_FIXED_SCALE
-                    return y * sx[:, None]
-                cases.add("qmatmul_a8", f"M={m} {name} {kind}", got, want, d, 0.0,
-                          lambda: qmatmul(x, qw.values, next(layers), a8=True, **kw),
-                          lambda: qmatmul_plain(x, qw.values, next(layers), a8=True, **kw),
-                          lib, d * n + 4 * m * (n + d) + (4 * d if kind == "i8" else 0),
-                          2.0 * m * n * d, PEAK_S8)
+                _a8_case(cases, cfg, randn, f"M={m} {name} {kind}", m, qw, kind)
         del qw
+
+
+def _a8_case(cases: Cases, cfg, randn, case, m, qw, kind) -> None:
+    """Kernel 1's W8A8 GEMM (``qmatmul(a8=True)``) against its plain
+    version on ``m`` random rows and the stacked int8 weight ``qw``, with
+    its row scale (``kind`` "i8") or the fixed q8 scale ("q8"), bit-equal
+    (phase_parity_quant's reasons), beside ``torch._int_mm`` and the two
+    scale multiplies. Layers cycle so every launch streams its weights
+    cold."""
+    import torch
+
+    from xalm_tpu_torch.models.params import Q8_FIXED_SCALE
+    from xalm_tpu_torch.ops.attention import quant_rows
+    from xalm_tpu_torch.ops.qmatmul import qmatmul, qmatmul_plain
+
+    d, n = qw.values.shape[-2:]
+    kw = dict(scale=qw.scale) if kind == "i8" else dict(q8_scale=Q8_FIXED_SCALE)
+    x = randn(m, n)
+    got = qmatmul(x, qw.values, 5 % cfg.n_layers, a8=True, **kw)
+    want = qmatmul_plain(x, qw.values, 5 % cfg.n_layers, a8=True, **kw)
+    xq, sx = quant_rows(x)
+    layers = itertools.cycle(range(cfg.n_layers))
+    lib_layers = itertools.cycle(range(cfg.n_layers))
+
+    def lib():
+        i = next(lib_layers)
+        y = torch._int_mm(xq, qw.values[i].t()).float()
+        y = y * qw.scale[i] if kind == "i8" else y * Q8_FIXED_SCALE
+        return y * sx[:, None]
+    cases.add("qmatmul_a8", case, got, want, d, 0.0,
+              lambda: qmatmul(x, qw.values, next(layers), a8=True, **kw),
+              lambda: qmatmul_plain(x, qw.values, next(layers), a8=True, **kw),
+              lib, d * n + 4 * m * (n + d) + (4 * d if kind == "i8" else 0),
+              2.0 * m * n * d, PEAK_S8)
 
 
 # why no library call stands beside the int8-cache kernels
@@ -801,7 +883,8 @@ def phase_parity_int8(cfg, cases: Cases, gen, cexp, sexp, tag: str = "") -> None
     decode_q_cases(cfg, cases, planes(1), gen, cexp, sexp, tag)
 
 
-def decode_q_cases(cfg, cases: Cases, full, gen, cexp, sexp, tag: str = "") -> None:
+def decode_q_cases(cfg, cases: Cases, full, gen, cexp, sexp, tag: str = "",
+                   label: str = "") -> None:
     """Kernels 5-7 in one launch (``fused_decode_attention_q``, recorded as
     ``flash_decode_q<tag>``) against the plain composition
     (``fused_decode_attention_q_plain``: ``kv_update_q_plain``, then
@@ -809,7 +892,7 @@ def decode_q_cases(cfg, cases: Cases, full, gen, cexp, sexp, tag: str = "") -> N
     scales) at kv_len 1, 520, 777 and the window, B = 1, the new row
     inserted at kv_len - 1 (at the window, a wrapped row at 1000 with the
     sinks re-rotated): the code and scale planes bit-equal, the output to
-    1e-3 (see phase_parity_int8)."""
+    1e-3 (see phase_parity_int8). ``label`` ends the case names."""
     import torch
 
     from xalm_tpu_torch.ops import attention as A
@@ -833,7 +916,7 @@ def decode_q_cases(cfg, cases: Cases, full, gen, cexp, sexp, tag: str = "") -> N
         rot = 2 * kh * (hd + 4) if wrapped else 0  # the re-rotated sink keys written
         nbytes = (2 * kvl * kh * (hd + 4) + 2 * h * hd * 4 + 2 * kh * hd * 4
                   + 2 * kh * (hd + 4) + rot)
-        cases.add("flash_decode_q" + tag, f"B=1 kv_len={kvl}", got, want, hd, 1e-3,
+        cases.add("flash_decode_q" + tag, f"B=1 kv_len={kvl}{label}", got, want, hd, 1e-3,
                   lambda: A.fused_decode_attention_q(q, *full, next(layers), *args),
                   lambda: A.fused_decode_attention_q_plain(q, *full, next(layers), *args),
                   None, nbytes, 4.0 * h * kvl * hd, PEAK_F32,
@@ -4635,8 +4718,11 @@ INT8_CASE = dict.fromkeys(("fused_decode", "fused_decode_bias", "fused_decode_qk
                           "int8 KV, B=1 kv_len=520, embed fold")
 # a further case of the kernels line: the down projection of the experts
 ALSO_CASE = {"qmatmul": ("M=512 w13 i8, row scale",) + TILED_CASES + SPEC_CASES
-             + SERVE_TILED_CASES,
-             "flash_prefill": (SPEC_PREFILL_CASE, SERVE_PREFILL_CASE),
+             + SERVE_TILED_CASES + PARALLEL_MM_CASES,
+             "flash_prefill": (SPEC_PREFILL_CASE, SERVE_PREFILL_CASE, "T=512 pos=0" + PARALLEL_LABEL),
+             "flash_decode": "B=1 kv_len=777" + PARALLEL_LABEL,
+             "flash_decode_q": "B=1 kv_len=777" + PARALLEL_LABEL,
+             "qmatmul_a8": PARALLEL_A8_CASES,
              "qmatmul_multi": MULTI_W2_CASE, "qmatmul_multi_q4": MULTI_Q4_W2_CASE,
              "qmatmul_f32": F32_M512_CASE, "qmatmul_multi_f32": MULTI_F32_W2_CASE,
              "flash_prefill_f32": ("T=512 pos=1024", "T=512 pos=0" + F32_CACHE_SHAPES[1][1]),
@@ -5880,6 +5966,353 @@ def decode_wall(other_root: str) -> None:
              for n in PREFILL_WALL_TOKENS for key in (f"prefill_{n}_s", f"prefill_{n}_event_s")}})
 
 
+def phase_parallel_parity(params, cfg, cases: Cases) -> None:
+    """Kernels 1, 3-4 and 7 at the shapes a tp=2 rank gives them
+    (``parallel/shardings.py``, rank 0's shard): wqkv's 3072 rows (4 kv
+    heads with their queries), w13's 14336, wo contracting over 2048, w2
+    over 7168, the head's 16000 vocab rows, the W8A8 GEMM on those four
+    shards at a prefill chunk's 512 rows (bit-equal, PARALLEL_A8_CASES),
+    and the attention over 4 kv heads a rank, each against its plain
+    version as phase 3 holds it (case names end in PARALLEL_LABEL)."""
+    import torch
+
+    from xalm_tpu_torch.parallel.mesh import Mesh
+    from xalm_tpu_torch.parallel.shardings import shard_params
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 21)
+    shard = shard_params(params, cfg, Mesh.layout({"dp": 1, "tp": 2}, 0), device=dev)
+    lp = shard.layers
+    randn = lambda *s: torch.randn(s, generator=gen, device=dev, dtype=torch.float32)  # noqa: E731
+    norm_w = torch.rand((cfg.n_layers, cfg.dim), generator=gen, device=dev) + 0.5
+    mm = functools.partial(_mm_case, cases, cfg, randn, norm_w)
+    shapes = (lp.wqkv.values.shape[1], lp.w13.values.shape[1], lp.wo.values.shape[2],
+              lp.w2.values.shape[2], shard.wcls.values.shape[0])
+    if shapes != (3072, 14336, 2048, 7168, 16000):  # the case names' shapes
+        raise AssertionError(f"tp=2 shard shapes {shapes}")
+    for case, m, w, norm in zip(PARALLEL_MM_CASES, (1, 1, 1, 1, 512),
+                                (lp.wqkv, lp.w13, lp.wo, lp.w2, lp.w13),
+                                (True, True, False, False, False)):
+        mm(case, m, w, norm)
+    mm(PARALLEL_MM_CASES[-1], 1, shard.wcls, False, head=True)
+    for case, w in zip(PARALLEL_A8_CASES, (lp.wqkv, lp.w13, lp.wo, lp.w2)):
+        _a8_case(cases, cfg, randn, case, 512, w, "i8")
+    lab = PARALLEL_LABEL
+    del shard, lp
+    torch.cuda.empty_cache()
+    kh = cfg.n_kv_heads // 2
+    cfg2 = dataclasses.replace(cfg, n_kv_heads=kh, n_heads=cfg.n_heads // 2)
+    shape = (cfg.n_layers, 1, kh, cfg.max_seq_len, cfg.head_dim)
+    ck, cv = (randn(*shape).to(torch.bfloat16) for _ in range(2))
+    attention_cases(cfg2, cases, gen, ck, cv, label=lab)
+    del ck, cv
+    codes = [torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+             for _ in range(2)]
+    scales = [torch.rand(shape[:-1], generator=gen, device=dev) * 0.02 for _ in range(2)]
+    cexp, sexp = _sink_trig(cfg)
+    decode_q_cases(cfg2, cases, codes + scales, gen, cexp, sexp, label=lab)
+    torch.cuda.empty_cache()
+
+
+def phase_parallel_nccl(params, cfg, store: str) -> dict:
+    """(a) A world of one in this process over NCCL: ``ShardedEngine`` at
+    tp = 1 over Mistral-7B i8 at full width and depth (the same weights,
+    shared) against ``Engine(fused_step=False)``: a 512-token prefill's
+    logits and ``generate``'s tokens at segment 16, whose steps are CUDA
+    graph replays with the NCCL collectives captured, bit for bit (a sum
+    over one rank is exact)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from xalm_tpu_torch.ops import build
+    from xalm_tpu_torch.parallel.mesh import make_mesh
+    from xalm_tpu_torch.parallel.multihost import init_distributed
+    from xalm_tpu_torch.parallel.sharded_engine import ShardedEngine
+    from xalm_tpu_torch.runtime.engine import Engine
+
+    init_distributed(f"file://{store}/nccl_store", 1, 0, device="cuda:0")
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"phase_parallel (a): backend {dist.get_backend()}, not nccl")
+        prompt = np.random.default_rng(SEED + 22).integers(3, cfg.vocab_size,
+                                                            size=PARALLEL_PROMPT).tolist()
+        ref = Engine(cfg, params, fused_step=False)
+        sh = ShardedEngine(cfg, params, None, make_mesh(dp=1, tp=1))
+        lr = ref.prefill(prompt, ref.new_cache(1))[0]
+        ls = sh.prefill(prompt, sh.new_cache(1))[0]
+        logits_equal = bool(torch.equal(lr, ls))
+        runs = {}
+        for name, eng in (("engine", ref), ("sharded", sh)):
+            eng.generate(prompt, 2, stop_on_eos=False)  # the capture
+            before = dict(build.LAUNCHES)
+            toks, st = eng.generate(prompt, PARALLEL_NCCL_TOKENS, stop_on_eos=False)
+            runs[name] = (toks, st.decode_s / max(st.generated_tokens, 1) * 1e3,
+                          build.take_launches(before))
+            build.add_launches(runs[name][2])
+        graphs = [g for _, g in sh._graphs.values()]
+        captured = bool(graphs) and all(g.graph is not None and g.replays > 0 for g in graphs)
+        rec = {"phase": "parallel_nccl", "world": 1, "backend": dist.get_backend(),
+               "decode_path": sh.decode_path(1), "logits_bit_equal": logits_equal,
+               "tokens_equal": runs["engine"][0] == runs["sharded"][0],
+               "graph_replays_captured": captured,
+               "ms_per_token_segment16": {k: v[1] for k, v in runs.items()},
+               "launches": runs["sharded"][2]}
+        emit(rec)
+        if not (logits_equal and rec["tokens_equal"] and captured):
+            raise AssertionError(f"phase_parallel (a): the NCCL world of one differs: {rec}")
+        del ref, sh
+        torch.cuda.empty_cache()
+        return rec["launches"]
+    finally:
+        dist.destroy_process_group()
+
+
+def _forced(eng, prompts, teacher):
+    """A teacher-forced run: the (B, T) prompts in one step, then each of
+    ``teacher``'s (B, n) columns a step -> (n + 1, B, V) f32 logits on the
+    host."""
+    import numpy as np
+    import torch
+
+    b, t = prompts.shape
+    cache = eng.new_cache(b)
+    logits, cache = eng.step(prompts, np.zeros(b, np.int32), cache, logits_mode="last")
+    out = [logits.float().cpu()]
+    for i in range(teacher.shape[1]):
+        logits, cache = eng.step(teacher[:, i:i + 1], np.full(b, t + i, np.int32), cache,
+                                 logits_mode="last")
+        out.append(logits.float().cpu())
+    return torch.stack(out), cache
+
+
+def _parallel_worker(store: str, rank: int) -> int:
+    """(b)'s rank ``rank`` of a world of two on the one card over gloo with
+    CUDA tensors (``--parallel-worker``). Rank 0 keeps the reference runs of
+    the single-device per-layer engine; both run each configuration of
+    PARALLEL_RUNS and PARALLEL_A8, then the copy model's greedy tokens,
+    then Mixtral-8x7B at 2 layers with tp=2, and write their results and
+    launches."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from xalm_tpu_torch.models.config import MISTRAL_7B, MIXTRAL_8X7B
+    from xalm_tpu_torch.ops import build
+    from xalm_tpu_torch.parallel import aot
+    from xalm_tpu_torch.parallel.mesh import make_mesh
+    from xalm_tpu_torch.parallel.multihost import init_distributed
+    from xalm_tpu_torch.parallel.pipeline import PipelinedEngine, make_pp_mesh
+    from xalm_tpu_torch.parallel.sharded_engine import ShardedEngine
+    from xalm_tpu_torch.runtime.engine import Engine
+    from xalm_tpu_torch.utils.synthetic import synthetic_params
+
+    on_card = DEVICE == "cuda"
+    init_distributed(f"file://{store}/gloo_store", 2, rank, backend="gloo",
+                     device="cuda:0" if on_card else DEVICE, timeout_s=600)
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+
+    dt = {"int8": torch.int8}
+    rng = np.random.default_rng(SEED + 23)
+    out = {"rank": rank, "runs": [], "launches": {}}
+
+    def build_engine(cfg, params, mesh_kw, kw):
+        kw = {k: dt.get(v, v) for k, v in kw.items()}
+        mesh = make_pp_mesh(mesh_kw["pp"]) if "pp" in mesh_kw else make_mesh(**mesh_kw)
+        kv = kw.pop("kv_dtype", "auto")
+        if "pp" in mesh_kw:
+            return PipelinedEngine(cfg, params, None, mesh, kv_dtype=kv)
+        return ShardedEngine(cfg, params, None, mesh, kv_dtype=kv, **kw)
+
+    def counted(fn):
+        before = dict(build.LAUNCHES)
+        result = fn()
+        made = build.take_launches(before)
+        build.add_launches(made)
+        for k, n in made.items():
+            out["launches"][k] = out["launches"].get(k, 0) + n
+        return result
+
+    def rel(a, r):
+        """Each step's max |a - r| over its max |r|."""
+        return ((a - r).abs().amax(dim=(1, 2)) / r.abs().amax(dim=(1, 2))).tolist()
+
+    def check(name, cfg, params, mesh_kw, kw, judge):
+        """The forced run, judged on rank 0 (``judge(got)``: the fields of
+        its comparison), the per-step collectives and the wall ms a token of
+        a timed decode_scan. Returns the forced run's logits."""
+        eng = build_engine(cfg, params, mesh_kw, kw)
+        sync()
+        got, cache = counted(lambda: _forced(eng, prompts, teacher))
+        b = prompts.shape[0]
+        pos = np.full(b, prompts.shape[1] + teacher.shape[1], np.int32)
+        tok = got[-1].argmax(-1).numpy().astype(np.int32)
+        stats = aot.collective_stats(eng.step, tok[:, None], pos, cache, logits_mode="token")
+        sync()
+        t0 = time.perf_counter()
+        counted(lambda: eng.decode_scan(tok, pos + 1, cache, PARALLEL_TIMED_STEPS)[0].cpu())
+        ms = (time.perf_counter() - t0) / PARALLEL_TIMED_STEPS * 1e3
+        rec = {"config": name, "decode_path": eng.decode_path(b), "batch": b,
+               "collectives_per_step": stats, "ms_per_token": ms}
+        if judge is not None:
+            rec.update(judge(got))
+        out["runs"].append(rec)
+        del eng, cache
+        sync()
+        return got
+
+    def against_engine(ref2, ref1, exact=None):
+        """Every step bit-equal to ``ref2``, the single-device engine's
+        B = 2 run (``exact`` "batch"), or to ``ref1``, its rows run alone
+        ("alone"); else within WRAP_TOL of ``ref2``, or PARALLEL_FLOOR_RATIO
+        times the engine's own spread (``ref2`` against ``ref1``), whichever
+        is larger. A step that is not finite is over any limit."""
+        def judge(got):
+            errs, floor, alone = rel(got, ref2), rel(ref2, ref1), rel(got, ref1)
+            rec = dict(max_rel_logit_err=max(errs), engine_floor=max(floor),
+                       max_rel_logit_err_vs_rows_alone=max(alone))
+            if exact is not None:
+                ref = ref2 if exact == "batch" else ref1
+                unequal = (got != ref).flatten(1).any(dim=1)
+                return dict(rec, held_bit_equal_to=exact, limit=0.0,
+                            steps_over_limit=int(unequal.sum()))
+            limit = max(WRAP_TOL, PARALLEL_FLOOR_RATIO * max(floor))
+            return dict(rec, limit=limit, steps_over_wrap_tol=sum(not e <= WRAP_TOL for e in errs),
+                        steps_over_limit=sum(not e <= limit for e in errs))
+        return judge
+
+    def against_sharded(base, single_a8, single_base):
+        """PARALLEL_A8's rule: the sharded a8 run's change from the sharded
+        ``base`` run, every step within WRAP_TOL or PARALLEL_FLOOR_RATIO
+        times the single-device engine's largest a8 change."""
+        def judge(got):
+            effect, single = rel(got, base), rel(single_a8, single_base)
+            limit = max(WRAP_TOL, PARALLEL_FLOOR_RATIO * max(single))
+            return dict(max_a8_effect=max(effect), max_single_device_a8_effect=max(single),
+                        limit=limit, steps_over_limit=sum(not e <= limit for e in effect),
+                        max_rel_logit_err=max(rel(got, single_a8)))
+        return judge
+
+    cfg = MISTRAL_7B
+    prompts = rng.integers(3, cfg.vocab_size, size=(2, PARALLEL_PROMPT)).astype(np.int32)
+    teacher = rng.integers(3, cfg.vocab_size, size=(2, PARALLEL_STEPS)).astype(np.int32)
+    full = synthetic_params(cfg, device=DEVICE, seed=SEED)
+
+    def reference(cfg, params, kw, alone=True):
+        """The single-device per-layer engine's forced run at B = 2, and
+        (``alone``) with each row run alone (B = 1)."""
+        eng = Engine(cfg, params, fused_step=False, **{k: dt.get(v, v) for k, v in kw.items()})
+        both = _forced(eng, prompts, teacher)[0]
+        rows = None if not alone else torch.cat(
+            [_forced(eng, prompts[i:i + 1], teacher[i:i + 1])[0]
+             for i in range(prompts.shape[0])], dim=1)
+        del eng
+        sync()
+        return both, rows
+
+    def depth(layers):
+        """(cfg, params) at ``layers`` layers (None: all; views of ``full``)."""
+        if layers is None:
+            return cfg, full
+        return dataclasses.replace(cfg, n_layers=layers), _layer_window(full, 0, layers)
+
+    got, single, refs = {}, {}, {}
+    for name, mesh_kw, kw, layers in PARALLEL_RUNS:
+        judge = None
+        if rank == 0:  # configurations with the same options share one reference
+            key = (layers,) + tuple(sorted(kw.items()))
+            if key not in refs:
+                refs[key] = reference(*depth(layers), kw)
+            single[name] = refs[key]
+            judge = against_engine(*single[name], PARALLEL_EXACT.get(name))
+        dist.barrier()
+        got[name] = check(name, *depth(layers), mesh_kw, kw, judge)
+    name, mesh_kw, kw, layers, base = PARALLEL_A8
+    judge = None
+    if rank == 0:
+        judge = against_sharded(got[base], reference(*depth(layers), kw, alone=False)[0],
+                                single[base][0])
+    dist.barrier()
+    check(name, *depth(layers), mesh_kw, kw, judge)
+    del full, got, single, refs
+    sync()
+
+    copy, perm_inv = copy_params(cfg, SEED + 3)
+    cprompt = copy_prompt(perm_inv, SEED + 4)
+    want = recurrence(cprompt, perm_inv, PARALLEL_COPY_TOKENS)
+    copy_ok = {}
+    for name, mesh_kw, kw, _ in PARALLEL_RUNS[:3]:
+        eng = build_engine(cfg, copy, mesh_kw, kw)
+        toks = counted(lambda: eng.generate(cprompt, PARALLEL_COPY_TOKENS,
+                                            stop_on_eos=False)[0])
+        copy_ok[name] = toks == want
+        del eng
+        sync()
+    out["copy_tokens_equal"] = copy_ok
+    del copy
+    sync()
+
+    mcfg = dataclasses.replace(MIXTRAL_8X7B, n_layers=2)
+    mfull = synthetic_params(mcfg, device=DEVICE, seed=SEED)
+    judge = against_engine(*reference(mcfg, mfull, {})) if rank == 0 else None
+    dist.barrier()
+    check("Mixtral-8x7B 2 layers, tp=2", mcfg, mfull, dict(tp=2), {}, judge)
+    del mfull, judge
+    sync()
+    Path(store, f"rank{rank}.json").write_text(json.dumps(out))
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_parallel_world(store: str) -> dict:
+    """(b) Two worker processes (``--parallel-worker``) on the one card
+    over gloo: each configuration's teacher-forced logits (a 512-token
+    prefill, 64 decode steps, B = 2) against the single-device per-layer
+    engine's: pp=2 and dp=2 bit-equal (PARALLEL_EXACT), the tp runs every
+    step within PARALLEL_FLOOR_RATIO's limit, PARALLEL_A8's run against the
+    sharded run without int8 activations; the copy model's greedy
+    tokens equal, and the kernels of PARALLEL_KERNELS each launched; a
+    ``parallel`` line a configuration (SHARED_CARD). Returns both ranks'
+    launches."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = [subprocess.Popen([sys.executable, os.path.join(here, "chip_smoke.py"),
+                               "--parallel-worker", store, str(r)]) for r in range(2)]
+    t0 = time.perf_counter()
+    try:
+        rcs = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(rcs):
+        raise AssertionError(f"phase_parallel (b): a worker failed (exit codes {rcs})")
+    ranks = [json.loads(Path(store, f"rank{r}.json").read_text()) for r in range(2)]
+    launches = {}
+    for r in ranks:
+        for k, n in r["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    bad = []
+    for rec in ranks[0]["runs"]:
+        emit(dict(phase="parallel", world=2, backend="gloo", note=SHARED_CARD,
+                  copy_tokens_equal=ranks[0]["copy_tokens_equal"].get(rec["config"]), **rec))
+        if rec["steps_over_limit"]:
+            bad.append(rec["config"])
+    bad += [k for k, ok in ranks[0]["copy_tokens_equal"].items() if not ok]
+    missing = [k for k in PARALLEL_KERNELS if launches.get(k, 0) == 0]
+    emit({"phase": "parallel_world", "seconds": time.perf_counter() - t0, "launches": launches,
+          "kernels_never_launched": missing})
+    if bad or missing:
+        raise AssertionError(f"phase_parallel (b): {bad} over the limit or unequal, kernels "
+                             f"never launched: {missing}")
+    return launches
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -5895,6 +6328,8 @@ def main(argv=None) -> int:
     ap.add_argument("--tools", action="store_true",
                     help="only the host tools' phase (phase_tools; see the module's note)")
     ap.add_argument("--decode-wall-turn", metavar="DIR", help=argparse.SUPPRESS)
+    ap.add_argument("--parallel-worker", nargs=2, metavar=("STORE", "RANK"),
+                    help=argparse.SUPPRESS)
     ap.add_argument("--root", help="with --megakernel-ms, --kernel-ms or --decode-wall: another "
                                    "checkout whose kernels are timed in turns with this one's")
     ap.add_argument("--models", nargs="+", default=["MISTRAL_7B", "QWEN3_8B"],
@@ -5923,6 +6358,8 @@ def main(argv=None) -> int:
     sys.path.insert(0, here)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.parallel_worker:  # a rank of phase_parallel's world of two
+        return _parallel_worker(args.parallel_worker[0], int(args.parallel_worker[1]))
     if args.decode_wall:
         if other is None:
             print("error: --decode-wall needs --root", file=sys.stderr)
@@ -6011,11 +6448,19 @@ def main(argv=None) -> int:
     phase_spec(params, cfg)
     phase_session(cfg)
     serve_launches = phase_serve(params, cfg)
+    with torch.inference_mode():
+        phase_parallel_parity(params, cfg, cases)
+    store = os.path.join(here, "build", "parallel")
+    shutil.rmtree(store, ignore_errors=True)
+    os.makedirs(store)
+    par_launches = phase_parallel_nccl(params, cfg, store)
     main_row["launches"] = {k: main_row["launches"][k] + quant_row["launches"][k]
                             + long_row["launches"][k] + serve_launches.get(k, 0)
                             for k in main_row["launches"]}
     del params, q4p
     torch.cuda.empty_cache()
+    for k, n in phase_parallel_world(store).items():
+        par_launches[k] = par_launches.get(k, 0) + n
     with torch.inference_mode():
         phase_wrap(cfg)
     fam_launches = phase_families(cases)
@@ -6023,7 +6468,8 @@ def main(argv=None) -> int:
     phase_tools(MISTRAL_7B)
     launches = {k: main_row["launches"][k] + moe_row["launches"][k]
                 + sum(run[k] for run in fam_launches.values())
-                + sum(run[k] for run in fmt_launches.values()) for k in main_row["launches"]}
+                + sum(run[k] for run in fmt_launches.values()) + par_launches.get(k, 0)
+                for k in main_row["launches"]}
     for tag, (model, wrappers) in SHAPE_ROWS.items():
         for w in wrappers:
             launches[w + tag] = fam_launches[model][w]

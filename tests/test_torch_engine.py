@@ -128,7 +128,7 @@ def test_harness_perplexity_and_refusals(tiny_i8, capsys):
     assert port_harness.main([tiny_i8, "-d", "cpu", "-m", "perplexity",
                               "-i", "the quick brown fox is here"]) == 0
     assert "perplexity:" in capsys.readouterr().out
-    for extra in (["--dp", "2"], ["--tp", "2"]):
+    for extra in (["--q4", "128", "--dp", "2"], ["--pp", "2", "--dp", "2"]):
         with pytest.raises(SystemExit):
             port_harness.main([tiny_i8, "-d", "cpu", "-i", "x"] + extra)
 
@@ -195,16 +195,17 @@ def test_harness_matmul_pallas_is_the_kernel_path(tiny_i8, capsys):
     assert outs[0] == outs[1]
 
 
-REFUSED = {"tp": (["--tp", "2"], "--tp"),
-           "coordinator": (["--coordinator", "localhost:1234"], "--coordinator"),
-           "num-processes": (["--num-processes", "2"], "--num-processes"),
-           "process-id": (["--process-id", "1"], "--process-id")}
+REFUSED = {"q4-tp": (["--q4", "128", "--tp", "2"], "--q4"),
+           "q4-dp": (["--q4", "128", "--dp", "2"], "--q4"),
+           "q4-pp": (["--q4", "128", "--pp", "2"], "--q4"),
+           "pp-dp": (["--pp", "2", "--dp", "2"], "--pp")}
 
 
 @pytest.mark.parametrize("case", REFUSED)
 def test_harness_refuses_flags_that_change_the_output(tiny_i8, case):
-    """A JAX-harness flag of a later slice that would change the output is
-    refused by name before the model loads."""
+    """The parallel flags the JAX harness refuses together (--q4 with any
+    of --tp/--dp/--pp, --pp with --dp) are refused by name before the model
+    loads or a rank starts."""
     extra, name = REFUSED[case]
     with pytest.raises(SystemExit, match=name):
         port_harness.main([tiny_i8, "-d", "cpu", "-i", "x"] + extra)

@@ -103,6 +103,36 @@ def test_batched_keys_follow_vmap():
                                   want.view(np.uint32))
 
 
+@pytest.mark.parametrize("seed,data", [(0, 0), (11, 1), (5, 3), (2**31 + 7, 2**32 - 1),
+                                       (42, 2**32 + 5), (9, -1)])
+def test_fold_in_bit_equal(seed, data):
+    """``fold_in`` of a seed's key, ``data`` taken mod 2^32 as JAX's uint32
+    conversion takes it (the dp index a sharded sampled scan folds in)."""
+    key = jax.random.PRNGKey(seed)
+    want = np.asarray(jax.random.fold_in(key, np.uint32(data % 2**32)))
+    got = prng.to_numpy(prng.fold_in(prng.from_numpy(np.asarray(key)), data))
+    np.testing.assert_array_equal(got, want)
+
+
+@settings(max_examples=30, deadline=None)
+@given(k1=st.integers(0, 2**32 - 1), k2=st.integers(0, 2**32 - 1),
+       data=st.integers(0, 2**32 - 1))
+def test_fold_in_any_key_bit_equal(k1, k2, data):
+    key = np.array([k1, k2], np.uint32)
+    want = np.asarray(jax.random.fold_in(jnp.asarray(key), np.uint32(data)))
+    np.testing.assert_array_equal(prng.to_numpy(prng.fold_in(prng.from_numpy(key), data)), want)
+
+
+def test_fold_in_batched_keys_follow_vmap():
+    """A (B, 2) batch of keys and a (B,) tensor of data: each row's fold
+    is the JAX one of that key and datum."""
+    keys = jnp.stack([jax.random.PRNGKey(s) for s in (0, 5, 99, 2**31 - 1)])
+    data = np.array([0, 1, 2, 3], np.uint32)
+    want = np.asarray(jax.vmap(jax.random.fold_in)(keys, data))
+    got = prng.fold_in(prng.from_numpy(np.asarray(keys)), torch.tensor(data.astype(np.int64)))
+    np.testing.assert_array_equal(prng.to_numpy(got), want)
+
+
 def test_split_chain_bit_equal():
     """Twenty splits in a row, carrying the first half, as a scan's steps
     do: the keys stay the JAX ones."""

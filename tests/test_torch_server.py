@@ -457,13 +457,14 @@ def test_choices_equal_the_jax_servers(srv, jax_srv, case):
 
 @pytest.mark.parametrize("flag", ["--tp", "--dp"])
 def test_parallel_flags_refused_by_name(flag, capsys):
-    """--tp and --dp above 1 exit with an error that names the flag: the
-    port has no sharded engine."""
+    """--q4 with --tp or --dp above 1 exits with an error that names --q4,
+    as the JAX server's: the sharded engines stream i8 (--tp/--dp alone
+    serve: tests/test_torch_parallel_launch.py)."""
     with pytest.raises(SystemExit) as e:
-        port_server.main(["model.xalm", flag, "2"])
+        port_server.main(["model.xalm", "--q4", "128", flag, "2"])
     assert e.value.code == 2
     err = capsys.readouterr().err
-    assert f"{flag} 2" in err and "sharded" in err
+    assert "--q4" in err and "single-device" in err and "sharded" in err
 
 
 def test_main_serves_on_the_cpu_when_asked(tiny, monkeypatch, capsys):

@@ -84,7 +84,12 @@ def test_profile_reports_only_its_own_run(tiny_i8, capsys):
 @pytest.mark.parametrize("extra", [["--tp", "2"], ["--dp", "2"], ["--pp", "2"],
                                    ["--coordinator", "localhost:1"]])
 def test_later_slice_flags_still_refused(tiny_i8, extra):
-    with pytest.raises(SystemExit, match="not ported yet"):
+    """The parallel flags run (tests/test_torch_parallel_launch.py); with
+    --q4 they are refused, and a coordinator without the world's size and
+    this process's id cannot join a world, each by name, before anything
+    loads."""
+    extra = extra if extra[0] == "--coordinator" else ["--q4", "128"] + extra
+    with pytest.raises(SystemExit, match="--q4|--coordinator"):
         port_harness.main([tiny_i8, "-d", "cpu", "-i", "x", "--profile"] + extra)
 
 

@@ -37,19 +37,31 @@
                       ``model load`` and the mode's, host wall time, each
                       ending where the host waits for the card, so the card's
                       time is in it) and the process's resource usage at exit
+      --tp/--dp/--pp N  tensor / data / pipeline parallel ways (``parallel/``;
+                      --pp composes with --tp, not --dp)
+      --coordinator H:P, --num-processes N, --process-id I
+                      multi-host: this process is rank I of N (or
+                      XALM_COORDINATOR / XALM_NUM_PROCESSES / XALM_PROCESS_ID,
+                      or torchrun's variables)
 
 Every family the JAX converter writes loads (Llama/Mistral, Mixtral, Qwen2
 and Qwen3, Gemma, Gemma-2, Phi-3). Decode goes through the whole-step
 megakernel where it takes the model (i8 or q4 body, a bf16, f32 or int8
 cache, B <= 8, head_dim 128 or 256 on the card) and through the
-per-layer kernels otherwise (Phi-3's head_dim 96, MoE); the stats print
-which ("decode path: ..."). The
-parser takes every flag of the JAX harness. Those of later slices are
-refused with a message only where they would change the output:
---tp/--dp/--pp above 1, and the multi-host --coordinator,
---num-processes and --process-id. As in the JAX harness, --session goes
+per-layer kernels otherwise (Phi-3's head_dim 96, MoE, every sharded
+engine); the stats print which ("decode path: ..."). The parser takes
+every flag of the JAX harness. As in the JAX harness, --session goes
 before --spec, and both before sampling; the draft model loads with
-``Engine.from_xalm``'s defaults on the same device. --temperature
+``Engine.from_xalm``'s defaults on the same device.
+
+Parallel runs (``xalm_tpu_torch/parallel/``): --tp/--dp build a
+``ShardedEngine`` over a (dp, tp) mesh, --pp a ``PipelinedEngine`` over a
+(pp, tp) one; --q4 with any of them, and --pp with --dp, are refused as
+the JAX harness refuses them. Each rank is one process. Under torchrun,
+or with the multi-host flags, this process is one rank of the world;
+started plainly with a flag above 1, the harness starts the other ranks
+itself (``multihost.spawn_ranks``), one a card over NCCL, or gloo ranks
+on the CPU with ``-d cpu``, and is rank 0. Only rank 0 writes the report. --temperature
 above 0 samples (``Engine.generate``'s sampler, seeded by --seed); --top-k
 and --top-p act only then, so without it they run greedily, as in the JAX
 harness. On the card decode runs in segments of 16 steps replayed from a
@@ -65,6 +77,7 @@ package).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import random
 import sys
@@ -121,27 +134,27 @@ def _build_parser() -> argparse.ArgumentParser:
                         "history there afterwards (xalm v2 block store)")
     p.add_argument("--profile", action="store_true",
                    help="print the profiler report and the process usage at exit")
-    # JAX-harness flags of later slices: refused where they would change the
-    # output (_refuse_later)
-    for flag in ("--tp", "--dp", "--pp"):
-        p.add_argument(flag, type=int, default=1, help=argparse.SUPPRESS)
-    p.add_argument("--coordinator", default=None, help=argparse.SUPPRESS)
-    p.add_argument("--num-processes", type=int, default=None, help=argparse.SUPPRESS)
-    p.add_argument("--process-id", type=int, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--tp", type=int, default=1, help="tensor-parallel ways (device mesh)")
+    p.add_argument("--dp", type=int, default=1, help="data-parallel ways (device mesh)")
+    p.add_argument("--pp", type=int, default=1,
+                   help="pipeline-parallel stages (layers split over devices: capacity mode; "
+                        "composes with --tp, exclusive with --dp)")
+    p.add_argument("--coordinator", default=None,
+                   help="multi-host: coordinator address host:port (or XALM_COORDINATOR)")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="multi-host: total processes (or XALM_NUM_PROCESSES)")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="multi-host: this process id (or XALM_PROCESS_ID)")
     return p
 
 
-def _refuse_later(args) -> None:
-    """Exit on a flag of a later slice that would change the output."""
-    later = {
-        "--tp/--dp/--pp": args.tp * args.dp * args.pp > 1,
-        "--coordinator/--num-processes/--process-id": (
-            args.coordinator is not None or args.num_processes is not None
-            or args.process_id is not None),
-    }
-    for name, used in later.items():
-        if used:
-            raise SystemExit(f"error: {name} is not ported yet (later slice)")
+def _refuse(args) -> None:
+    """The JAX harness's refusals of parallel flags, before anything loads."""
+    if args.q4 and (args.tp > 1 or args.dp > 1 or args.pp > 1):
+        raise SystemExit("error: --q4 is single-device (the sharded engines "
+                         "stream i8; shard-aware 4-bit packing is future work)")
+    if args.pp > 1 and args.dp > 1:
+        raise SystemExit("error: --pp composes with --tp, not --dp")
 
 
 def _get_prompt(args) -> str:
@@ -166,7 +179,7 @@ def _load_engine(args):
           "auto": "auto"}
     print(f"loading model {args.checkpoint}")
     with profile("model load"):
-        eng = Engine.from_xalm(
+        eng = _load_parallel(args, dt) if args.tp * args.dp * args.pp > 1 else Engine.from_xalm(
             args.checkpoint,
             context=args.context,
             kv_dtype=dt[args.kv_dtype],
@@ -185,6 +198,31 @@ def _load_engine(args):
     )
     print(f"active bytes with full context window: {eng.active_bytes(cfg.max_seq_len):,}")
     return eng
+
+
+def _load_parallel(args, dt):
+    """The sharded engine of --tp/--dp, or the pipelined one of --pp, over
+    a mesh of this world's ranks."""
+    import torch.distributed as dist
+
+    world = dist.get_world_size()
+    matmul = "kernel" if args.matmul == "pallas" else args.matmul
+    if args.pp > 1:
+        from xalm_tpu_torch.parallel.pipeline import PipelinedEngine, make_pp_mesh
+
+        mesh = make_pp_mesh(args.pp, tp=args.tp)
+        print(f"mesh: pp={args.pp} x tp={args.tp} over {world} devices")
+        return PipelinedEngine.from_xalm(args.checkpoint, mesh, context=args.context,
+                                         kv_dtype=dt[args.kv_dtype],
+                                         compute_dtype=dt[args.compute])
+    from xalm_tpu_torch.parallel.mesh import make_mesh
+    from xalm_tpu_torch.parallel.sharded_engine import ShardedEngine
+
+    mesh = make_mesh(dp=args.dp, tp=args.tp)
+    print(f"mesh: dp={args.dp} x tp={args.tp} over {world} devices")
+    return ShardedEngine.from_xalm(args.checkpoint, mesh, context=args.context,
+                                   kv_dtype=dt[args.kv_dtype], compute_dtype=dt[args.compute],
+                                   matmul_impl=matmul)
 
 
 def run_completion(args) -> int:
@@ -322,10 +360,59 @@ def run_passkey(args) -> int:
     return 0 if ok else 1
 
 
+def _join_world(args, argv) -> list:
+    """Join (or start) the world a parallel run needs: under torchrun or
+    with the multi-host flags this process is one rank; started plainly
+    with a parallel flag above 1 it starts the other ranks itself and is
+    rank 0. -> the children it started (none where it joined a world)."""
+    from xalm_tpu_torch.parallel import multihost
+
+    ways = args.tp * args.dp * args.pp
+    joined = multihost.distributed_requested(args.coordinator) or args.num_processes is not None
+    if not joined and ways == 1:
+        return []
+    children = [] if joined else multihost.spawn_ranks(
+        list(sys.argv[1:] if argv is None else argv), ways, "xalm_tpu_torch.harness.main")
+    try:
+        multihost.init_distributed(args.coordinator, args.num_processes, args.process_id,
+                                   device="cpu" if args.device == "cpu" else None)
+    except (KeyError, ValueError) as e:
+        raise SystemExit("error: --coordinator/--num-processes/--process-id: this process "
+                         f"cannot join its world ({e})") from e
+    return children
+
+
 def main(argv: list[str] | None = None) -> int:
     proc_t0, proc_r0 = SystemUsage._now()
     args = _build_parser().parse_args(argv)
-    _refuse_later(args)
+    _refuse(args)
+    children = _join_world(args, argv)
+    import torch.distributed as dist
+
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    try:
+        if rank == 0:
+            rc = _run(args, proc_t0, proc_r0)
+        else:
+            with open(os.devnull, "w") as quiet, contextlib.redirect_stdout(quiet):
+                rc = _run(args, proc_t0, proc_r0)  # only rank 0 writes the report
+    except BaseException:
+        for p in children:  # they would wait for rank 0's next collective
+            p.kill()
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        if children:
+            from xalm_tpu_torch.parallel.multihost import wait_ranks
+
+            if wait_ranks(children) != 0:
+                print("error: a rank of the world failed", file=sys.stderr)
+                rc = 1
+    return rc
+
+
+def _run(args, proc_t0, proc_r0) -> int:
     mode = {"c": "completion"}.get(args.mode, args.mode)
     run = {"completion": run_completion, "perplexity": run_perplexity, "passkey": run_passkey}
     if args.profile:

@@ -98,7 +98,22 @@ megakernel folds each of them in):
 ``spec_verify=True`` runs a speculative verify chunk over a wrapped ring
 (``_spec_verify_attention``: the attention in plain PyTorch, as the JAX
 package computes it outside any Pallas kernel; the matmuls still on kernel
-1), which writes nothing to the cache. tp/pp are later slices.
+1), which writes nothing to the cache.
+
+Parallelism (``xalm_tpu_torch/parallel/``): with ``tp`` (a mesh axis,
+``parallel.mesh.Axis``) the params and cache are this rank's megatron
+shards (``parallel/shardings.py``): wqkv and w13 whole kv heads and chunk
+pairs of rows, wo and w2 a block of their contraction, whose partial sums
+are all-reduced over tp before Gemma-2's post-norms and the residual add,
+as the JAX forward psums them (``:810-812``, ``:939-941``); MoE sums this
+rank's experts (``moe_ffn``); the head's vocab rows are sharded, so logits
+come back vocab-local and ``"token"`` takes ``sharded_argmax``. With
+``pp`` the stacked layers and the cache are this stage's L/pp (its local
+layer index on the same kernels): each stage runs its layers in turn and
+broadcasts its residual to the others, after the last every rank holds
+the final residual and computes the (whole) head, as the JAX ring's
+closing psum gives every device (``:947-983``); tp composes within a
+stage. The megakernel stays off whenever either is given (``:466-470``).
 """
 
 from __future__ import annotations
@@ -124,6 +139,7 @@ from xalm_tpu_torch.ops.attention import act_fn, softcap
 from xalm_tpu_torch.ops import fused_decode as fd
 from xalm_tpu_torch.ops import qmatmul as qmm
 from xalm_tpu_torch.ops.linear import qmatmul as plain_linear
+from xalm_tpu_torch.parallel.mesh import sharded_argmax
 from xalm_tpu_torch.runtime.cache import KVCache, ring_indices, step_inputs
 
 __all__ = [
@@ -260,18 +276,23 @@ def gathered_ok(qw: QWeight, impl: str, a8_decode: bool = False) -> bool:
 
 
 def moe_ffn(x: torch.Tensor, lp, layer: int, cfg: ModelConfig, impl: str,
-            compute_dtype, a8_decode: bool = False) -> torch.Tensor:
+            compute_dtype, a8_decode: bool = False, tp=None) -> torch.Tensor:
     """Mixtral's sparse-MoE FFN of one layer (``xalm_tpu/models/llama.py``
-    ``:818-931``): x (B, T, dim) f32 -> the FFN's output (B, T, dim) f32."""
+    ``:818-931``): x (B, T, dim) f32 -> the FFN's output (B, T, dim) f32.
+    Under tensor parallelism (``tp``, the stacks sharded on E) the router
+    runs over every expert and this rank sums its own E/tp experts' share
+    only, dense-masked (the reference gathers only without tp): the
+    caller's all-reduce adds the shares up."""
     b, t, _ = x.shape
     xn = rmsnorm(x, lp.mlp_norm[layer], cfg.norm_eps)
     topv, topi = moe_route(xn, lp.wgate[layer], cfg.n_experts_active)
     chunk = ffn_chunk(cfg.hidden_dim)
-    if t == 1 and b == 1 and gathered_ok(lp.w13e, impl, a8_decode):
+    e_loc = lp.w13e.values.shape[1]  # the experts this rank holds
+    if tp is None and t == 1 and b == 1 and gathered_ok(lp.w13e, impl, a8_decode):
         # gathered decode: the (L, E, ...) stacks viewed flat (L*E, ...),
         # the k experts at layer*E + expert, one launch per matmul
         multi = qmm.qmatmul_multi if impl == "kernel" else qmm.qmatmul_multi_plain
-        idxs = (layer * cfg.n_experts + topi[0, 0]).to(torch.int32)
+        idxs = (layer * e_loc + topi[0, 0]).to(torch.int32)
 
         def flat(qw: QWeight):
             v = qw.values.reshape(-1, *qw.values.shape[2:])
@@ -293,12 +314,13 @@ def moe_ffn(x: torch.Tensor, lp, layer: int, cfg: ModelConfig, impl: str,
 
     wts = torch.zeros((b, t, cfg.n_experts), dtype=torch.float32, device=x.device)
     wts.scatter_(-1, topi, topv)
+    e0 = 0 if tp is None else tp.index * e_loc
     down = torch.zeros_like(x)
-    for e in range(cfg.n_experts):
+    for e in range(e_loc):
         a13 = plain_linear(xn, expert(lp.w13e, e), compute_dtype=compute_dtype)
         gate, up = split_w13_rows(a13, chunk)
         dn = plain_linear(act_fn(cfg.act, gate) * up, expert(lp.w2e, e), compute_dtype=compute_dtype)
-        down = down + dn * wts[..., e:e + 1]
+        down = down + dn * wts[..., e0 + e:e0 + e + 1]
     return down
 
 
@@ -433,6 +455,8 @@ def forward(
     a8_prefill: bool = False,
     a8_decode: bool = False,
     spec_verify: bool = False,
+    tp=None,
+    pp=None,
 ):
     """One step over a (B, T) token block. Returns (logits, cache) with the
     cache updated in place. logits: (B, vocab) for "last", (B, T, vocab)
@@ -451,6 +475,8 @@ def forward(
         raise ValueError(f"unknown impl {impl!r}; one of {IMPLS}")
     if spec_verify and (tokens.shape[1] < 2 or logits_mode != "all"):
         raise ValueError("spec_verify takes a chunk of t > 1 tokens and logits_mode 'all'")
+    if spec_verify and (tp is not None or pp is not None):
+        raise ValueError("spec verify is single-device")
     dev = params.embed.values.device
     b, t = tokens.shape
     s = cfg.max_seq_len
@@ -522,12 +548,15 @@ def forward(
         if logits_mode in ("last", "token"):
             logits = logits[:, 0]
         if logits_mode == "token":
+            if vocab is not None:
+                return sharded_argmax(logits, vocab)
             return torch.argmax(logits, dim=-1).to(torch.int32)
         return logits
 
+    vocab = tp if pp is None else None  # the axis the head's vocab rows are split over
     if fused_step == "auto":
         fused_step = True  # the megakernel wherever it is supported
-    if fused_step and t == 1 and per_layer and fd.fused_step_supported(
+    if fused_step and t == 1 and per_layer and tp is None and pp is None and fd.fused_step_supported(
             cfg, params, cache.k, b, t, k_scale=cache.k_scale, a8=a8_decode):
         return _megakernel_step(params, cfg, tokens, pos, cache, valid, logits_mode, impl, head,
                                 a8_decode)
@@ -572,7 +601,7 @@ def forward(
     # kernels 2-4 take a bf16 or f32 cache; an f16 one goes the "xla" way
     float_kernels = per_layer and ck.dtype in attn_ops.FLOAT_CACHES
 
-    def dense(layer: int):
+    def dense(layer: int, q: torch.Tensor):
         """The dense attention over the layer's cache rows (an int8 cache
         dequantised), the cap applied."""
         kl, vl = ck[layer], cv[layer]
@@ -583,7 +612,9 @@ def forward(
 
     rope = rope_tables(positions, freqs)  # shared by every layer
     layer_rows = []  # spec_verify: each layer's chunk rows in stored form
-    for layer in range(cfg.n_layers):
+
+    def block(x: torch.Tensor, layer: int) -> torch.Tensor:
+        """Layer ``layer`` of the local stack on the residual x."""
         qkv = mm(x, lp.wqkv, layer, norm_sw=lp.attn_norm)
         if lp.bqkv is not None:  # Qwen2 qkv bias, in wqkv's fused row order
             qkv = qkv + lp.bqkv[layer]
@@ -608,7 +639,7 @@ def forward(
             kn, vn = k[:, 0].contiguous(), v[:, 0].contiguous()
             if cap:
                 kv_update_q(ck, cv, ks, vs, layer, kn, vn, kv_pos0, rot_flag, cexp1, sexp1)
-                attn_out = dense(layer)
+                attn_out = dense(layer, q)
             else:
                 attn_out = fused_decode_q(q[:, 0].contiguous(), ck, cv, ks, vs, layer, kn, vn,
                                           kv_pos0, kv_len0, rot_flag, cexp1, sexp1)[:, None]
@@ -619,7 +650,7 @@ def forward(
             kn, vn = k[:, 0].contiguous(), v[:, 0].contiguous()
             if cap:
                 kv_update(ck, cv, layer, kn, vn, kv_pos0, rot_flag, cexp1, sexp1)
-                attn_out = dense(layer)
+                attn_out = dense(layer, q)
             else:
                 attn_out = fused_decode(q[:, 0].contiguous(), ck, cv, layer, kn, vn, kv_pos0,
                                         kv_len0, rot_flag, cexp1, sexp1)[:, None]
@@ -633,32 +664,52 @@ def forward(
                 _write_rows(sc, layer, kv_pos, scale)
             if t == 1:
                 _rotate_sinks(ck, layer, active, freqs, ks)
-            attn_out = dense(layer)
+            attn_out = dense(layer, q)
         elif float_kernels:
             # chunked prefill: contiguous in-place writes + causal flash
             _write_chunk(ck, layer, slots, k, valid)
             _write_chunk(cv, layer, slots, v, valid)
-            attn_out = dense(layer) if cap else flash_prefill(q.contiguous(), ck, cv, layer, win0)
+            attn_out = dense(layer, q) if cap else flash_prefill(q.contiguous(), ck, cv, layer, win0)
         else:  # "xla", and an f16 cache: scatter writes + dense masked attention
             _write_rows(ck, layer, kv_pos, k)
             _write_rows(cv, layer, kv_pos, v)
             if t == 1:
                 _rotate_sinks(ck, layer, active, freqs)
-            attn_out = dense(layer)
+            attn_out = dense(layer, q)
         proj = mm(attn_out, lp.wo, layer)
+        if tp is not None:  # row-parallel wo: partial sums over the sharded heads
+            proj = tp.all_reduce(proj)
         if lp.post_attn_norm is not None:  # Gemma-2 post-attention norm
             proj = rmsnorm(proj, lp.post_attn_norm[layer], cfg.norm_eps)
         x = x + proj
 
         if lp.w13e is not None:
-            down = moe_ffn(x, lp, layer, cfg, impl, compute_dtype, a8_decode)
+            down = moe_ffn(x, lp, layer, cfg, impl, compute_dtype, a8_decode, tp)
         else:
             gate, up = split_w13_rows(mm(x, lp.w13, layer, norm_sw=lp.mlp_norm),
                                       ffn_chunk(cfg.hidden_dim))
             down = mm(act_fn(cfg.act, gate) * up, lp.w2, layer)
+        if tp is not None:
+            # row-parallel w2 (or this rank's experts): partial sums over tp
+            down = tp.all_reduce(down)
         if lp.post_mlp_norm is not None:  # Gemma-2 post-feedforward norm
             down = rmsnorm(down, lp.post_mlp_norm[layer], cfg.norm_eps)
-        x = x + down
+        return x + down
+
+    n_local = lp.wqkv.values.shape[0]  # this stage's layers (all of them without pp)
+    if pp is None:
+        for layer in range(n_local):
+            x = block(x, layer)
+    else:
+        # the stages in turn: the active one runs its layers, then hands its
+        # residual to every other rank (the JAX ring plus its closing psum)
+        x = x.contiguous()
+        for stage in range(pp.size):
+            if stage == pp.index:
+                for layer in range(n_local):
+                    x = block(x, layer)
+                x = x.contiguous()
+            pp.broadcast(x, stage)
 
     if spec_verify:
         return head(x), cache, tuple(torch.stack(p) for p in zip(*layer_rows))

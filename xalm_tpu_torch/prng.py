@@ -7,6 +7,8 @@ of the JAX the package is held against), bit for bit:
   Python int to 32 bits);
 - ``split(key, n)``: the hash of the counters (0, i), i < n, as the
   fold-like ``_threefry_split_foldlike`` takes them;
+- ``fold_in(key, data)``: the hash of the counter (0, data), the JAX
+  ``threefry_2x32(key, threefry_seed(uint32(data)))``;
 - ``random_bits(key, shape)``: 32-bit draws, the hash of the 64-bit
   counter of each element's flat index, its two words xor-ed;
 - ``uniform`` and ``gumbel``: ``jax.random``'s ``_uniform`` (23 random
@@ -28,7 +30,7 @@ import math
 import numpy as np
 import torch
 
-__all__ = ["PRNGKey", "split", "random_bits", "uniform", "gumbel", "from_numpy", "to_numpy"]
+__all__ = ["PRNGKey", "split", "fold_in", "random_bits", "uniform", "gumbel", "from_numpy", "to_numpy"]
 
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -73,6 +75,15 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     each key (``jax.vmap`` of it over a batch)."""
     hi, lo = _counters(num, key.device)
     b1, b2 = threefry2x32(key[..., 0, None], key[..., 1, None], hi, lo)
+    return torch.stack([b1, b2], dim=-1)
+
+
+def fold_in(key: torch.Tensor, data) -> torch.Tensor:
+    """Keys (..., 2) -> (..., 2): ``jax.random.fold_in(key, data)`` of each
+    key, ``data`` an int (taken mod 2^32, as JAX's uint32 conversion) or an
+    int tensor that broadcasts with the keys' lead."""
+    data = torch.as_tensor(data, dtype=torch.int64, device=key.device) & _M32
+    b1, b2 = threefry2x32(key[..., 0], key[..., 1], torch.zeros_like(data), data)
     return torch.stack([b1, b2], dim=-1)
 
 

@@ -72,7 +72,12 @@ class KVCache:
 
     @classmethod
     def init(cls, cfg: ModelConfig, batch: int, dtype=torch.float16, device="cuda") -> "KVCache":
-        shape = cls.plane_shape(cfg, batch)
+        return cls.zeros(cls.plane_shape(cfg, batch), dtype, device)
+
+    @classmethod
+    def zeros(cls, shape: tuple, dtype=torch.float16, device="cuda") -> "KVCache":
+        """A zeroed cache of planes of ``shape`` (L, B, KH, S_phys, hd): a
+        sharded engine's block of the full cache."""
         zeros = lambda sh, dt: torch.zeros(sh, dtype=dt, device=device)  # noqa: E731
         if dtype == torch.int8:
             return cls(k=zeros(shape, dtype), v=zeros(shape, dtype),

@@ -56,12 +56,13 @@ from xalm_tpu_torch.models.params import (
     recode_wcls_i8,
 )
 from xalm_tpu_torch.ops.fused_decode import fused_step_supported
-from xalm_tpu_torch.runtime.cache import KVCache
+from xalm_tpu_torch.parallel.mesh import sharded_token_logprobs
+from xalm_tpu_torch.runtime.cache import KVCache, copy_lane
 from xalm_tpu_torch.runtime.graphs import SEGMENT_MAX, ScanState, StepGraph
 from xalm_tpu_torch.sampler import sample, sample_argmax, sample_rows, split_rows, token_logprobs
 from xalm_tpu_torch.tokenizer import Tokenizer
 
-__all__ = ["Engine", "GenerationStats", "auto_kv_dtype"]
+__all__ = ["Engine", "GenerationStats", "auto_kv_dtype", "weight_bytes_per_token"]
 
 _CHUNK_BUCKETS = (16, 32, 64, 128, 256, 512)
 # the caches of the JAX harness's -t: bf16 and f32 on kernels 2-4 (and the
@@ -106,9 +107,34 @@ def auto_kv_dtype(device) -> torch.dtype:
     return torch.bfloat16 if torch.device(device).type == "cuda" else torch.float16
 
 
+def weight_bytes_per_token(cfg: ModelConfig, p: ModelParams, gathered: bool) -> int:
+    """Weight bytes a decode step reads: q4 weights count their packed
+    bytes and group scales; the norms and the family planes (qkv bias,
+    q/k norms, post-norms) their f32 bytes. MoE: the k/E share of the
+    expert stacks where B = 1 decode gathers the chosen experts
+    (``gathered``: the per-layer paths, a dtype the gather takes; q4
+    experts under ``a8_decode``, the JAX rule), all E otherwise, and the
+    router."""
+    lw = p.layers
+    total = sum(w.nbytes() for w in (lw.wqkv, lw.wo, lw.w13, lw.w2) if w is not None)
+    if lw.w13e is not None:
+        experts = lw.w13e.nbytes() + lw.w2e.nbytes()
+        if gathered:
+            experts = experts * cfg.n_experts_active // max(cfg.n_experts, 1)
+        total += experts + 4 * lw.wgate.nelement()
+    total += 4 * (lw.attn_norm.nelement() + lw.mlp_norm.nelement() + p.out_norm.nelement())
+    total += 4 * sum(t.nelement() for t in (lw.bqkv, lw.q_norm, lw.k_norm, lw.post_attn_norm,
+                                            lw.post_mlp_norm) if t is not None)
+    total += p.embed.nbytes() // cfg.vocab_size  # one embedding row read
+    total += p.wcls.nbytes()
+    return int(total)
+
+
 class Engine:
     chat_template = None  # the container's jinja chat template, if it has one
     chunk_buckets = _CHUNK_BUCKETS  # the widths a prefill chunk is padded to
+    vocab_axis = None  # the mesh axis the head's vocab rows are split over (ShardedEngine)
+    capture_steps = True  # scans replay CUDA graphs on the card (False: eager steps)
 
     @staticmethod
     def chunk_bucket(n: int) -> int:
@@ -217,6 +243,11 @@ class Engine:
     def new_cache(self, batch: int = 1) -> KVCache:
         return KVCache.init(self.cfg, batch, self.kv_dtype, self.device)
 
+    def copy_lane(self, cache: KVCache, dst: int, src: int) -> KVCache:
+        """Copy batch lane ``src`` onto lane ``dst`` of ``cache`` in place
+        (``runtime.cache.copy_lane``; the serving prefix cache)."""
+        return copy_lane(cache, dst, src)
+
     def decode_path(self, batch: int = 1) -> str:
         """Which implementation a (batch, T=1) decode step runs, from the
         forward's own gates: 'megakernel' (the whole-step kernel), 'perlayer'
@@ -294,8 +325,8 @@ class Engine:
                                      valid=valid, teacher=kind == "ppl", keys=kind == "sample",
                                      rows=kind == "rows", top5=want_lp)
             step = _scan_step(self.params, self.cfg, cache, st, kind, sampling, want_lp,
-                              self._forward_kw())
-            return st, StepGraph(step, self.device)
+                              self._forward_kw(), self.vocab_axis)
+            return st, StepGraph(step, self.device, capture=self.capture_steps)
 
         return self._graph(cache, (kind, valid, sampling, want_lp), make)
 
@@ -350,6 +381,11 @@ class Engine:
             graph.run(1)
             return st.greedy.tolist(), st.rows  # the chunk's one host read
 
+    def _scan_key(self, key: torch.Tensor) -> torch.Tensor:
+        """The key a sampled scan starts from (ShardedEngine folds in its dp
+        index)."""
+        return key
+
     @staticmethod
     def _load(st: ScanState, tokens, pos, valid=None) -> None:
         """A scan's start: the first tokens and positions (and valid rows),
@@ -398,7 +434,7 @@ class Engine:
         with torch.inference_mode():
             st, graph = self._scan(cache, "sample", valid=valid is not None,
                                    sampling=(float(temperature), int(top_k), float(top_p)))
-            st.keys[0].copy_(_as_keys(key))
+            st.keys[0].copy_(self._scan_key(_as_keys(key)))
             self._load(st, tokens, pos, valid)
             return self._run(st, graph, n_steps), cache
 
@@ -566,8 +602,8 @@ class Engine:
         if scan is not None and not stopped and len(out) < max_new_tokens:
             st, graph = scan
             with torch.inference_mode():
-                st.token.copy_(first)  # the token stays on the card
-                st.pos.fill_(pos)
+                # the token stays on the card
+                self._load(st, first, torch.full((1,), pos, dtype=torch.int32))
         while not stopped and len(out) < max_new_tokens:
             n = min(segment, max_new_tokens - len(out))
             if (return_session and stop_on_eos and self.tokenizer is not None
@@ -580,7 +616,7 @@ class Engine:
                 with torch.inference_mode():
                     if sampling:
                         key, sub = prng.split(key)
-                        st.keys[0].copy_(sub)
+                        st.keys[0].copy_(self._scan_key(sub))
                     seg = self._run(st, graph, n)[0].tolist()  # the segment's one host read
             else:
                 logits, cache = self.decode(np.array([token]), np.array([pos], np.int32), cache)
@@ -647,26 +683,10 @@ class Engine:
 
     @functools.cached_property
     def _per_token_weight_bytes(self) -> int:
-        """Weight bytes a decode step reads: q4 weights count their packed
-        bytes and group scales; the norms and the family planes (qkv bias,
-        q/k norms, post-norms) their f32 bytes. MoE: the k/E share of the expert stacks where
-        B = 1 decode gathers the chosen experts (the per-layer paths, a dtype
-        the gather takes; q4 experts under ``a8_decode``, the JAX rule), all
-        E otherwise, and the router."""
-        cfg, p = self.cfg, self.params
-        lw = p.layers
-        total = sum(w.nbytes() for w in (lw.wqkv, lw.wo, lw.w13, lw.w2) if w is not None)
-        if lw.w13e is not None:
-            experts = lw.w13e.nbytes() + lw.w2e.nbytes()
-            if gathered_ok(lw.w13e, self.matmul_impl, self.a8_decode):
-                experts = experts * cfg.n_experts_active // max(cfg.n_experts, 1)
-            total += experts + 4 * lw.wgate.nelement()
-        total += 4 * (lw.attn_norm.nelement() + lw.mlp_norm.nelement() + p.out_norm.nelement())
-        total += 4 * sum(t.nelement() for t in (lw.bqkv, lw.q_norm, lw.k_norm, lw.post_attn_norm,
-                                                lw.post_mlp_norm) if t is not None)
-        total += p.embed.nbytes() // cfg.vocab_size  # one embedding row read
-        total += p.wcls.nbytes()
-        return int(total)
+        return weight_bytes_per_token(self.cfg, self.params,
+                                      gathered_ok(self.params.layers.w13e, self.matmul_impl,
+                                                  self.a8_decode)
+                                      if self.params.layers.w13e is not None else False)
 
     def active_bytes(self, pos: int, tokens: int = 1) -> int:
         """Bytes touched per decoded token at position pos: all live weight
@@ -701,7 +721,7 @@ def _as_keys(keys) -> torch.Tensor:
 
 
 def _scan_step(params, cfg, cache: KVCache, st: ScanState, kind: str, sampling, want_lp: bool,
-               forward_kw: dict):
+               forward_kw: dict, vocab=None):
     """The step a scan replays (``runtime/graphs.py``), over static buffers
     only: the forward of st.token (or, for "ppl", the teacher's token at
     the slot) at st.pos, then the advance: "greedy" emits and feeds back
@@ -710,7 +730,11 @@ def _scan_step(params, cfg, cache: KVCache, st: ScanState, kind: str, sampling, 
     half of a split of st.keys[0] (the first carried), "rows" the draws of
     ``sampler.sample_rows`` under the first halves of st.keys' row splits
     (the second carried where st.valid holds), and with ``want_lp`` their
-    log-probs and top-5, "ppl" emits log p(st.tgts at the slot)."""
+    log-probs and top-5, "ppl" emits log p(st.tgts at the slot). With the
+    head's vocab rows split over the mesh axis ``vocab`` (ShardedEngine),
+    "greedy" takes the forward's sharded argmax, "sample" gathers the
+    logits over the axis first (every rank of it then draws the same token
+    from the same key) and "ppl" takes ``sharded_token_logprobs``."""
     valid = None if st.valid is None else st.valid[:, None]
     temperature, top_k, top_p = sampling or (0.0, 0, 1.0)
 
@@ -723,6 +747,8 @@ def _scan_step(params, cfg, cache: KVCache, st: ScanState, kind: str, sampling, 
         elif kind == "sample":
             carry, sub = prng.split(st.keys[0])
             st.keys[0].copy_(carry)
+            if vocab is not None:
+                out = vocab.gather(out, -1)
             tok = sample(out, sub, temperature=temperature, top_k=top_k, top_p=top_p)
             st.emit(tok, tok)
         elif kind == "rows":
@@ -738,6 +764,10 @@ def _scan_step(params, cfg, cache: KVCache, st: ScanState, kind: str, sampling, 
                 tok = sample_rows(out, subs, st.temps, st.top_ps)
                 st.emit(tok, tok)
         else:
-            st.emit(token_logprobs(out, st.tgts.index_select(1, st.slot)[:, 0]), tok_in[:, 0])
+            tgt = st.tgts.index_select(1, st.slot)[:, 0]
+            if vocab is not None:
+                st.emit(sharded_token_logprobs(out, tgt, vocab), tok_in[:, 0])
+            else:
+                st.emit(token_logprobs(out, tgt), tok_in[:, 0])
 
     return step

@@ -20,7 +20,14 @@ to eager steps on the card. On the CPU the same step runs eagerly, step
 after step (the kernels' plain versions), which is what the tests run.
 
 A graph is bound to the addresses it was captured on: the cache planes,
-the buffers and the weights. Its capture uses ``capture_error_mode=
+the buffers and the weights. A step of a sharded engine may hold
+collectives (``parallel/mesh.py``): on NCCL they are captured with the
+step, and the capture's counts in ``parallel.mesh.COLLECTIVES`` are
+taken back out and added at each replay, as the launches are. A gloo
+collective cannot be captured, so an engine on gloo builds its steps with
+``capture=False`` and they run eagerly on the card too: a choice by
+backend, made where the engine is built, never a fallback from a failed
+capture. Its capture uses ``capture_error_mode=
 "thread_local"``, so that another thread's CUDA calls during it (an HTTP
 handler's, say) neither fail it nor are refused, and runs with Python's
 cyclic garbage collector off: a collection there that frees an unreachable
@@ -38,6 +45,7 @@ from typing import Callable
 import torch
 
 from xalm_tpu_torch.ops import build
+from xalm_tpu_torch.parallel import mesh as comm
 
 __all__ = ["SEGMENT_MAX", "ScanState", "StepGraph"]
 
@@ -115,13 +123,16 @@ class ScanState:
 class StepGraph:
     """One step (``step``: a function of no argument that reads and
     advances the static buffers) run n times a call; on the card replayed
-    from a CUDA graph captured at the first call (module docstring)."""
+    from a CUDA graph captured at the first call (module docstring), or
+    with ``capture=False`` run eagerly there as on the CPU."""
 
-    def __init__(self, step: Callable[[], None], device):
+    def __init__(self, step: Callable[[], None], device, capture: bool = True):
         self._step = step
         self.device = torch.device(device)
+        self.capture = capture
         self.graph: torch.cuda.CUDAGraph | None = None
         self.launches: dict[str, int] = {}  # launches one replay makes
+        self.collectives: dict = {}  # collectives one replay makes
         self.capture_s = 0.0  # host seconds of the warm-up step and the capture
         self.replays = 0
 
@@ -135,6 +146,7 @@ class StepGraph:
         main.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         before = dict(build.LAUNCHES)
+        before_c = comm._snapshot()
         collecting = gc.isenabled()
         gc.disable()
         try:
@@ -144,6 +156,7 @@ class StepGraph:
             if collecting:
                 gc.enable()
             captured = build.take_launches(before)
+            self.collectives = comm.take_collectives(before_c)
         self.graph, self.launches = graph, captured
         self.capture_s = time.perf_counter() - t0
 
@@ -151,7 +164,7 @@ class StepGraph:
         """n steps, enqueued on the current stream; no host read."""
         if n <= 0:
             return
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or not self.capture:
             for _ in range(n):
                 self._step()
             return
@@ -161,4 +174,5 @@ class StepGraph:
         for _ in range(n):
             self.graph.replay()
         build.add_launches(self.launches, n)
+        comm.add_collectives(self.collectives, n)
         self.replays += n

@@ -141,6 +141,11 @@ def generate_spec(
         segment = 16 if engine.device.type == "cuda" else 1
     if draft_engine is engine:
         raise ValueError("draft_engine must be another Engine (each keeps its own cache)")
+    for e in (engine, draft_engine):
+        if getattr(e, "mesh", None) is not None:
+            # the JAX forward asserts a verify chunk has no tp or pp axis
+            raise NotImplementedError(f"speculative decoding is single-device: "
+                                      f"{type(e).__name__} is sharded")
     stats = GenerationStats(prompt_tokens=len(prompt_ids))
     cache = engine.fresh_cache(1)
     t0 = time.perf_counter()

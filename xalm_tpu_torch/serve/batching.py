@@ -45,7 +45,6 @@ import numpy as np
 import torch
 
 from xalm_tpu_torch import prng
-from xalm_tpu_torch.runtime.cache import copy_lane
 from xalm_tpu_torch.runtime.engine import Engine
 from xalm_tpu_torch.sampler import sample_rows
 
@@ -262,6 +261,11 @@ class ContinuousBatcher:
     # ------------------------------------------------------------ lifecycle
 
     def submit(self, req: Request) -> int:
+        if (req.temperature > 0 or req.logprobs) and self.engine.sample_scan_rows is None:
+            raise NotImplementedError(
+                "this engine has no per-row sampled scan (PipelinedEngine): "
+                "submit greedy requests without logprobs"
+            )
         req.id = self._next_id
         req.submitted_s = time.perf_counter()
         self._next_id += 1
@@ -327,7 +331,7 @@ class ContinuousBatcher:
                     # the src lane's rows past `shared` are junk that kv_len
                     # hides until this slot writes over them
                     with torch.inference_mode():
-                        copy_lane(self.cache, i, src)
+                        self.engine.copy_lane(self.cache, i, src)
                     self._prefill_pos[i] = shared
                     self._pos[i] = shared
                     self.prefix_hits += 1

@@ -35,6 +35,10 @@ __all__ = ["XalmServer", "main"]
 _DONE = object()  # per-request token-queue sentinel
 
 
+NO_ROW_SAMPLER = ("this engine has no per-row sampled scan (ShardedEngine): submit greedy "
+                  "requests without logprobs")
+
+
 class XalmServer:
     """Owns the scheduler thread + HTTP server around one engine."""
 
@@ -45,8 +49,9 @@ class XalmServer:
         self.batcher = ContinuousBatcher(engine, max_batch=max_batch)
         if warmup:
             # build and capture every serving step before traffic (and
-            # before any handler thread exists)
-            dt = self.batcher.warmup()
+            # before any handler thread exists); an engine without the
+            # per-row sampled scan serves greedy requests only
+            dt = self.batcher.warmup(sampled=engine.sample_scan_rows is not None)
             print(f"server warmup: {dt:.1f}s (every serving step built and captured)",
                   flush=True)
         self._inbox: queue.Queue = queue.Queue()
@@ -273,6 +278,9 @@ def _make_handler(srv: XalmServer):
                 logprobs = int(body.get("logprobs", 0) or 0)
                 if not 0 <= logprobs <= 5:
                     raise ValueError("logprobs must be between 0 and 5")
+                if (temperature > 0 or (logprobs and not chat)) and \
+                        srv.engine.sample_scan_rows is None:
+                    raise ValueError(NO_ROW_SAMPLER)
                 stops = body.get("stop") or []
                 if isinstance(stops, str):
                     stops = [stops]
@@ -462,6 +470,65 @@ def _make_handler(srv: XalmServer):
     return Handler
 
 
+class Leader:
+    """Rank 0's engine in a parallel server: each call that runs
+    collectives (``MIRRORED``) is first broadcast to the other ranks, its
+    name and host arguments (a cache as the handle of its creation), and
+    they make the same call on their shards (``follow``). Every other
+    attribute is the engine's own."""
+
+    MIRRORED = ("step", "decode_scan", "new_cache", "copy_lane")
+
+    def __init__(self, engine):
+        self._engine = engine
+        self._handles: dict[int, int] = {}  # id(cache) -> creation index
+
+    def __getattr__(self, name):
+        attr = getattr(self._engine, name)
+        if name not in self.MIRRORED:
+            return attr
+
+        def call(*args, **kw):
+            _send((name, [self._wire(a) for a in args],
+                   {k: self._wire(v) for k, v in kw.items()}))
+            out = attr(*args, **kw)
+            if name == "new_cache":
+                self._handles[id(out)] = len(self._handles)
+            return out
+
+        return call
+
+    def _wire(self, v):
+        return ("cache", self._handles[id(v)]) if id(v) in self._handles else v
+
+    def stop(self) -> None:
+        """Release the followers (``follow`` returns)."""
+        _send(("stop", [], {}))
+
+
+def _send(msg):
+    import torch.distributed as dist
+
+    box = [msg]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+def follow(engine) -> None:
+    """A parallel server's rank other than 0: make rank 0's engine calls
+    (``Leader``) on this rank's shards until it stops."""
+    caches = []
+    while True:
+        name, args, kw = _send(None)
+        if name == "stop":
+            return
+        unwire = lambda v: caches[v[1]] if isinstance(v, tuple) and v[:1] == ("cache",) \
+            else v  # noqa: E731
+        out = getattr(engine, name)(*map(unwire, args), **{k: unwire(v) for k, v in kw.items()})
+        if name == "new_cache":
+            caches.append(out)
+
+
 def serve(engine, host: str = "127.0.0.1", port: int = 8000,
           max_batch: int = 8, model_name: str = "xalm"):
     """Build (XalmServer, ThreadingHTTPServer) — caller runs serve_forever."""
@@ -477,16 +544,16 @@ def main(argv=None) -> int:
     ap.add_argument("--port", type=int, default=8000)
     ap.add_argument("--max-batch", type=int, default=8)
     ap.add_argument("--kv", default="auto", choices=["auto", "f16", "bf16", "f32", "i8"])
-    ap.add_argument("--tp", type=int, default=1, help="tensor-parallel ways (refused above 1)")
-    ap.add_argument("--dp", type=int, default=1, help="data-parallel ways (refused above 1)")
+    ap.add_argument("--tp", type=int, default=1, help="tensor-parallel ways")
+    ap.add_argument("--dp", type=int, default=1,
+                    help="data-parallel ways (slots shard over dp)")
     ap.add_argument("--q4", type=int, default=0, metavar="GROUP",
-                    help="pack the body weights to 4-bit at load (implies int8 activations)")
+                    help="pack the body weights to 4-bit at load (implies int8 activations; "
+                         "single-device only)")
     ap.add_argument("-d", dest="device", default="cuda", choices=["cuda", "cpu"], help="device")
     args = ap.parse_args(argv)
-    for flag in ("tp", "dp"):
-        if getattr(args, flag) > 1:
-            ap.error(f"--{flag} {getattr(args, flag)}: the port has no sharded engine yet "
-                     "(one device only)")
+    if args.q4 and args.tp * args.dp > 1:
+        ap.error("--q4 is single-device (sharded engines stream i8)")
 
     import torch
 
@@ -494,7 +561,13 @@ def main(argv=None) -> int:
 
     kv = {"auto": "auto", "f16": torch.float16, "bf16": torch.bfloat16,
           "f32": torch.float32, "i8": torch.int8}[args.kv]
+    if args.tp * args.dp > 1:
+        return _serve_parallel(args, kv, argv)
     eng = Engine.from_xalm(args.checkpoint, kv_dtype=kv, q4_group=args.q4, device=args.device)
+    return _serve_until_interrupted(eng, args)
+
+
+def _serve_until_interrupted(eng, args) -> int:
     srv, httpd = serve(eng, args.host, args.port, args.max_batch,
                        model_name=args.checkpoint.rsplit("/", 1)[-1])
     print(f"serving {args.checkpoint} on http://{args.host}:{httpd.server_address[1]}/v1 "
@@ -506,7 +579,49 @@ def main(argv=None) -> int:
         pass
     finally:
         srv.shutdown()
+        httpd.server_close()
     return 0
+
+
+def _serve_parallel(args, kv, argv) -> int:
+    """--tp/--dp: a ShardedEngine over a (dp, tp) mesh. Rank 0 serves HTTP
+    and runs the batcher; the other ranks follow its engine calls. Under
+    torchrun or XALM_COORDINATOR this process is one rank; started plainly
+    it starts the others (``multihost.spawn_ranks``) and is rank 0."""
+    import sys
+
+    import torch.distributed as dist
+
+    from xalm_tpu_torch.parallel import multihost
+    from xalm_tpu_torch.parallel.mesh import make_mesh
+    from xalm_tpu_torch.parallel.sharded_engine import ShardedEngine
+
+    ways = args.tp * args.dp
+    children = [] if multihost.distributed_requested() else multihost.spawn_ranks(
+        list(sys.argv[1:] if argv is None else argv), ways, "xalm_tpu_torch.serve.server")
+    multihost.init_distributed(device="cpu" if args.device == "cpu" else None)
+    rc = 0
+    try:
+        eng = ShardedEngine.from_xalm(args.checkpoint, make_mesh(dp=args.dp, tp=args.tp),
+                                      kv_dtype=kv)
+        if dist.get_rank() != 0:
+            follow(eng)
+        else:
+            leader = Leader(eng)
+            try:
+                rc = _serve_until_interrupted(leader, args)
+            finally:
+                leader.stop()
+    except BaseException:
+        for p in children:  # they would wait for rank 0's next broadcast
+            p.kill()
+        raise
+    finally:
+        dist.destroy_process_group()
+        if children and multihost.wait_ranks(children) != 0:
+            print("error: a rank of the world failed", file=sys.stderr)
+            rc = 1
+    return rc
 
 
 if __name__ == "__main__":
